@@ -1,0 +1,299 @@
+"""GPU backend: the whole HALDA k-sweep as batched branch-and-bound.
+
+Every k-candidate's LP relaxation and every branch-and-bound node of a round
+is one element of a single batched interior-point launch; integer incumbents
+come from the exact rounding kernel; pruning uses the float64 Lagrangian
+bounds, so the mip-gap certificate does not depend on LP convergence; one
+global incumbent prunes across all k trees. Ported from the dense path of
+``distilp_tpu/solver/backend_jax.py::solve_sweep_jax``: the same standard
+form, the same float32 materialization of the device arrays (slack and cycle
+boxes recomputed in float32 from ``smin_k``/``C_ub_k``), the same warm
+incumbent re-pricing and root-iterate carry, and the same ``(results, best)``
+contract.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .assemble import MilpArrays, VarLayout
+from .coeffs import HaldaCoeffs
+from .result import ILPResult
+from .rounding import pack_rounding_data, round_to_incumbent, rounding_data
+from .search import BDTYPE, SweepData, best_bound, root_state, run_bnb_loop
+from .standard_form import (
+    StandardForm,
+    build_standard_form,
+    resolve_search_params,
+    rounding_arrays_np,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the first CUDA device; raises without a GPU (the solve
+    never drops to the CPU on its own)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "halda_solve(backend='torch') runs on a CUDA device and none is "
+                "available; pass device='cpu' to run the plain PyTorch versions "
+                "of the kernels, or backend='cpu' for the HiGHS oracle"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def warm_inputs(
+    sf: StandardForm, warm: Optional[ILPResult], feasible: Sequence[Tuple[int, int]]
+):
+    """(warm_tuple, root_warm_tuple) of a previous dense solve: its integer
+    assignment ``(k_index, w, n)`` to re-price as the first incumbent, and
+    its root-round IPM iterates ``(ok, v, y, z, f)`` when their shapes match
+    this sweep (finite-ness is not gated: the kernel starts non-finite
+    elements cold)."""
+    M = sf.M
+    n_k = len(sf.ks)
+    warm_tuple = None
+    if warm is not None and warm.w is not None and len(warm.w) == M:
+        k_index = {k: j for j, (k, _) in enumerate(feasible)}
+        if warm.k in k_index:
+            warm_tuple = (k_index[warm.k], warm.w, warm.n)
+
+    root_warm_tuple = None
+    ipm_state = getattr(warm, "ipm_state", None) if warm is not None else None
+    if ipm_state is not None:
+        m, nf = sf.A.shape[1], sf.A.shape[2]
+        try:
+            arrs = [np.asarray(ipm_state[f], np.float32) for f in ("v", "y", "z", "f")]
+            ok = np.asarray(ipm_state["ok"], np.float32)
+        except (KeyError, TypeError, ValueError):
+            ok = None
+        if ok is not None and ok.shape == (n_k,) and [a.shape for a in arrs] == [
+            (n_k, nf), (n_k, m), (n_k, nf), (n_k, nf)
+        ]:
+            root_warm_tuple = (ok, *arrs)
+    return warm_tuple, root_warm_tuple
+
+
+def device_arrays(sf: StandardForm) -> dict:
+    """The float32 LP family as the device solves it (numpy, host side).
+
+    Mirrors the reference's packed static/dynamic materialization: A, c, the
+    boxes and the slack minima are cast to float32 first, then the slack
+    boxes ``max(b - (smin + cmin), 0)`` and the cycle box are recomputed in
+    float32 from ``C_ub_k`` (casting ``hi_k`` down would give other boxes).
+    """
+    lay = VarLayout(sf.M, sf.moe)
+    N, C_idx = lay.n_vars, lay.C
+    m, nf = sf.A.shape[1], sf.A.shape[2]
+    m_ub = m - lay.n_eq
+    f32 = np.float32
+    A = np.asarray(sf.A_base, f32)
+    lo = np.asarray(sf.lo_k, f32)
+    hi = np.asarray(sf.hi_k, np.float64).copy()
+    hi[:, N:] = 0.0
+    hi[:, C_idx] = 0.0
+    hi = hi.astype(f32)
+    smin = np.asarray(sf.smin_k, f32)
+    b = np.asarray(sf.b_k, f32)
+    C_ub = np.asarray(sf.C_ub_k, np.float64).astype(f32)
+    aC = A[:m_ub, C_idx]
+    cmin = np.minimum(aC[None, :] * lo[:, C_idx][:, None], aC[None, :] * C_ub[:, None])
+    hi[:, N:] = np.maximum(b[:, :m_ub] - (smin + cmin), f32(0.0))
+    hi[:, C_idx] = C_ub
+    return dict(
+        A=A,
+        b_k=b,
+        c_k=np.asarray(sf.c_k, f32),
+        lo_k=lo,
+        hi_k=hi,
+        int_mask=np.asarray(sf.int_mask, bool),
+    )
+
+
+def solve_sweep_torch(
+    arrays: MilpArrays,
+    kWs: Sequence[Tuple[int, int]],
+    mip_gap: float = 1e-4,
+    coeffs: Optional[HaldaCoeffs] = None,
+    ipm_iters: Optional[int] = None,
+    max_rounds: Optional[int] = None,
+    beam: Optional[int] = None,
+    node_cap: Optional[int] = None,
+    debug: bool = False,
+    warm: Optional[ILPResult] = None,
+    timings: Optional[dict] = None,
+    ipm_warm_iters: Optional[int] = None,
+    lp_backend: Optional[str] = None,
+    device=None,
+):
+    """Solve the whole dense k-sweep on ``device`` (None = cuda).
+
+    Returns ``(per_k_results, best)``: one entry per (k, W) pair carrying
+    that k's best incumbent objective (reporting-only, ``w``/``n`` None for
+    the losing k's), and the global optimum with its assignment and the
+    mip-gap certificate (``certified``/``gap``). Ks with W < M are None. A
+    solve that misses the certificate warns (``RuntimeWarning``) and returns
+    ``certified=False`` with the achieved gap. ``timings`` receives
+    ``build_sf_ms``, ``upload_ms``, ``solve_ms``, ``ipm_iters_executed`` and
+    ``bnb_rounds``; the chosen engine is echoed as ``lp_backend``.
+    """
+    if coeffs is None:
+        raise ValueError("solve_sweep_torch requires the HaldaCoeffs used for assembly")
+    if arrays.moe is not None:
+        raise NotImplementedError("MoE co-assignment is a later slice")
+    M = arrays.layout.M
+    feasible = [(k, W) for (k, W) in kWs if W >= M]
+    results: List[Optional[ILPResult]] = [None] * len(kWs)
+    if not feasible:
+        return results, None
+    dev = resolve_device(device)
+
+    t0 = time.perf_counter()
+    sf = build_standard_form(arrays, coeffs, feasible)
+    n_k = len(sf.ks)
+    cap, beam, ipm_iters, ipm_warm_iters, max_rounds, engine = resolve_search_params(
+        False, n_k, node_cap, beam, ipm_iters, max_rounds,
+        ipm_warm_iters=ipm_warm_iters, lp_backend=lp_backend, M=M,
+    )
+    warm_tuple, root_warm_tuple = warm_inputs(sf, warm, feasible)
+    host = device_arrays(sf)
+    rd_np = rounding_arrays_np(coeffs, None)
+    t1 = time.perf_counter()
+
+    tensors = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    rd = rounding_data(rd_np, dev)
+    data = SweepData(
+        A=tensors["A"],
+        b_k=tensors["b_k"],
+        c_k=tensors["c_k"],
+        int_mask=tensors["int_mask"],
+        ks=torch.as_tensor(np.asarray(sf.ks, np.float64), device=dev),
+        Ws=torch.as_tensor(np.asarray(sf.Ws, np.float64), device=dev),
+        obj_const=float(sf.obj_const),
+        rd=rd,
+        rd_packed=pack_rounding_data(rd),
+    )
+    m, nf = data.A.shape
+    root_warm = None
+    if root_warm_tuple is not None:
+        root_warm = tuple(torch.as_tensor(a, device=dev) for a in root_warm_tuple)
+        root_warm = (root_warm[0] > 0.5, *root_warm[1:])
+    state = root_state(tensors["lo_k"], tensors["hi_k"], M, cap, m, root_warm)
+    if warm_tuple is not None:
+        state = _seed_warm(state, data, warm_tuple, M, nf)
+    t2 = time.perf_counter()
+
+    state, root_iters = run_bnb_loop(
+        data, state, mip_gap, ipm_iters=ipm_iters, max_rounds=max_rounds,
+        beam=beam, ipm_warm_iters=ipm_warm_iters,
+        root_warm_chunk=root_warm_tuple is not None,
+    )
+    head = torch.cat([
+        torch.stack([
+            state.incumbent, best_bound(state), state.inc_kidx.to(BDTYPE),
+            state.stat_ipm_iters, state.stat_rounds,
+        ]),
+        state.inc_w, state.inc_n, state.per_k_best,
+    ]).cpu().numpy()
+    ok_r, v_r, y_r, z_r, f_r = (t[:n_k].to(BDTYPE).cpu().numpy() for t in root_iters)
+    t3 = time.perf_counter()
+
+    stats = {
+        "lp_backend": engine,
+        "build_sf_ms": (t1 - t0) * 1e3,
+        "upload_ms": (t2 - t1) * 1e3,
+        "solve_ms": (t3 - t2) * 1e3,
+        "ipm_iters_executed": float(head[3]),
+        "bnb_rounds": float(head[4]),
+    }
+    if timings is not None:
+        timings.update(stats)
+    incumbent, bound = float(head[0]), float(head[1])
+    if debug:
+        print(
+            f"    [torch] incumbent={incumbent:.6f} bound={bound:.6f} "
+            f"ipm_iters={head[3]:.0f} rounds={head[4]:.0f} "
+            f"solve={stats['solve_ms']:.2f}ms"
+        )
+    if not np.isfinite(incumbent):
+        return results, None
+
+    gap = (incumbent - bound) / abs(incumbent) if incumbent != 0.0 else incumbent - bound
+    gap = max(0.0, gap)
+    is_cert = incumbent - bound <= mip_gap * abs(incumbent) + 1e-12
+    if not is_cert:
+        warnings.warn(
+            f"HALDA torch backend: mip-gap certificate NOT met "
+            f"(incumbent={incumbent:.6g}, bound={bound:.6g}, achieved "
+            f"gap={gap:.3g}, requested {mip_gap:g}); raise "
+            f"halda_solve(max_rounds=..., node_cap=...) or relax mip_gap. "
+            f"The result carries certified=False and the achieved gap.",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    inc_k_idx = int(head[2])
+    inc_w = [int(round(x)) for x in head[5 : 5 + M]]
+    inc_n = [int(round(x)) for x in head[5 + M : 5 + 2 * M]]
+    per_k_best = head[5 + 2 * M : 5 + 2 * M + n_k]
+    ipm_state = None
+    if np.any(ok_r > 0.5):
+        ipm_state = {"ok": ok_r > 0.5, "v": v_r, "y": y_r, "z": z_r, "f": f_r}
+
+    best: Optional[ILPResult] = None
+    pos_of = {kW: i for i, kW in enumerate(kWs)}
+    for j, (k, W) in enumerate(feasible):
+        obj_j = float(per_k_best[j])
+        if not np.isfinite(obj_j):
+            continue
+        if j == inc_k_idx:
+            best = ILPResult(
+                k=k, w=inc_w, n=inc_n, obj_value=obj_j, certified=is_cert,
+                gap=gap, ipm_state=ipm_state,
+            )
+            results[pos_of[(k, W)]] = best
+        else:
+            results[pos_of[(k, W)]] = ILPResult(k=k, obj_value=obj_j, certified=False)
+    return results, best
+
+
+def _seed_warm(state, data: SweepData, warm_tuple, M: int, nf: int):
+    """Re-price a previous assignment exactly under THIS sweep's
+    coefficients and seed the incumbent with it (an infeasible hint prices
+    to +inf and leaves the state cold)."""
+    kidx, w, n = warm_tuple
+    dev = data.A.device
+    n_k = data.ks.shape[0]
+    kidx = min(max(int(kidx), 0), n_k - 1)
+    v = torch.zeros((1, nf), dtype=BDTYPE, device=dev)
+    v[0, :M] = torch.as_tensor(np.asarray(w, np.float64), device=dev)
+    v[0, M : 2 * M] = torch.as_tensor(np.asarray(n, np.float64), device=dev)
+    obj, w_rep, n_rep = round_to_incumbent(
+        v, data.Ws[kidx : kidx + 1], data.ks[kidx : kidx + 1], data.rd, data.rd_packed
+    )
+    warm_obj = obj[0] + data.obj_const
+    seeded = torch.isfinite(warm_obj) & (warm_obj < state.incumbent)
+    clean = torch.where(torch.isfinite(warm_obj), warm_obj, float("inf"))
+    seeded_k = clean < state.per_k_best[kidx]
+    per_k_best = state.per_k_best.clone()
+    per_k_best[kidx] = torch.minimum(per_k_best[kidx], clean)
+    per_k_w = state.per_k_w.clone()
+    per_k_w[kidx] = torch.where(seeded_k, w_rep[0], state.per_k_w[kidx])
+    per_k_n = state.per_k_n.clone()
+    per_k_n[kidx] = torch.where(seeded_k, n_rep[0], state.per_k_n[kidx])
+    return state._replace(
+        incumbent=torch.where(seeded, warm_obj, state.incumbent),
+        inc_w=torch.where(seeded, w_rep[0], state.inc_w),
+        inc_n=torch.where(seeded, n_rep[0], state.inc_n),
+        inc_kidx=torch.where(
+            seeded, torch.tensor(kidx, dtype=torch.int32, device=dev), state.inc_kidx
+        ),
+        per_k_best=per_k_best,
+        per_k_w=per_k_w,
+        per_k_n=per_k_n,
+    )
