@@ -7,15 +7,23 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the three kernels from ``distilp_torch/kernels/csrc`` (timed);
+  2. build the four kernels from ``distilp_torch/kernels/csrc`` (timed);
   3. each kernel against its plain PyTorch version on the card, at the shapes
-     of the 16-device north-star instance (and the IPM also at M=32), with
-     the tolerances stated below, and each kernel's median time (CUDA events)
-     beside its plain version's and its least possible time on an H100;
-  4. the main path: ``distilp_torch.solver.halda_solve`` on the four golden
-     fixtures (pinned k and objective), the north star (pinned objective) and
-     a 32-device fleet (against the port's HiGHS oracle), with the kernel
-     launch counts of that run;
+     of the 16-device north-star instance (the IPM also at M=32, and at M=192
+     where its vectors leave shared memory; the PDHG at the root batches of
+     the 128- and 512-device fleets, cold and warm, in float64 and float32,
+     with every bound checked against the HiGHS LP optimum; the mixed-
+     precision entry's float64 fallback), with the tolerances stated below,
+     and each kernel's time beside its plain version's and its least
+     possible time on an H100;
+  4. the main path, in two runs, each with the launch counts zeroed before
+     it and read after it: (a) the dense slice, ``halda_solve`` on the four
+     golden fixtures (pinned k and objective), the north star (pinned
+     objective) and a 32-device fleet (against the port's HiGHS oracle);
+     (b) fleet scale, ``halda_solve`` with the defaults on the 128-device
+     fleet (the PDHG engine; pinned), the same instance on the IPM engine
+     and with float64 PDHG iterates, the north star on the PDHG engine, and
+     the 512-device fleet at gap 0.05 (pinned);
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
@@ -43,6 +51,17 @@ GOLDEN = [
     ("qwen3_32b/bf16", 16, 12.072837),
 ]
 NORTH_STAR_OBJ = -38.374803
+# Fleet-scale pins (k, objective), from the JAX package on the CPU:
+#   distilp_tpu.solver.halda_solve(make_synthetic_fleet(M, seed=123),
+#       stretch_model_for_fleet(llama_3_70b/online, M), mip_gap=...,
+#       kv_bits="4bit", backend="jax")
+# with the default lp_backend='auto' (the PDHG engine at M >= 128) unless
+# named. The IPM value is the cross-engine check: both certify gap 1e-3.
+FLEET128_GAP = 1e-3
+FLEET128_PDHG = (1, -312.9522665906968)
+FLEET128_IPM = (1, -312.9222174356161)  # lp_backend='ipm'
+FLEET512_GAP = 0.05
+FLEET512_PDHG = (1, -1255.833655005908)
 
 # Kernel-vs-plain tolerances. K2 and K3 are exact (same float64/float32
 # operations, no contraction): integer outputs, boxes and flags equal,
@@ -57,6 +76,20 @@ NORTH_STAR_OBJ = -38.374803
 TOL_IPM_F64 = 1e-6
 TOL_IPM_F32_CERT = 1e-3
 TOL_EXACT_F64 = 1e-12
+# K5 (PDHG) against its plain version. Float64: every field within 1e-6
+# relative (scale max(1, |ref|)) with equal iteration counts: the two take
+# the same steps in another summation order. Float32: the float64 bound
+# within 1e-3 relative on every element, at equal step counts (an element
+# the two runs stop at different chunks is run again in both with the
+# budget cut to the earlier stop); the other fields, the flags and the
+# iteration counts are reported, not held: the adaptive restart test
+# (res <= 0.2 res_anchor) | (res > res_anchor) is a discrete branch that
+# summation order flips in float32, and the two iterates then follow
+# different (equally valid) restart sequences. Soundness, in both dtypes:
+# every bound at most the HiGHS LP optimum + 1e-6 max(1, |optimum|).
+TOL_PDHG_F64 = 1e-6
+TOL_PDHG_F32_CERT = 1e-3
+TOL_SOUND = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -102,9 +135,11 @@ def _is_device(evt) -> bool:
 
 
 def device_ms(fn, kernel: str, reps: int = 20):
-    """Device time per call (ms) of the kernels whose name contains
-    ``kernel``, from torch.profiler's CUPTI trace; None when the profiler
-    recorded no device time for them."""
+    """Device time per launch (ms) of the kernels whose name contains
+    ``kernel`` (one launch per call of every wrapper timed here), from
+    torch.profiler's CUPTI trace, averaged over the launches the trace
+    holds: it has been seen to hold two of three 181 ms launches. None when
+    the profiler recorded no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -114,9 +149,13 @@ def device_ms(fn, kernel: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if _is_device(e) and kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    evts = [e for e in prof.key_averages() if _is_device(e) and kernel in e.key]
+    us = sum(_device_us(e) for e in evts)
+    launches = sum(e.count for e in evts)
+    if launches != reps:
+        print(f"profiler: {launches} {kernel} launches recorded for {reps} calls",
+              flush=True)
+    return us / launches / 1e3 if us > 0 else None
 
 
 def time_kernel(fn, kernel: str):
@@ -151,16 +190,25 @@ def max_err(a, b):
 # ---------------------------------------------------------------- instances
 
 
-def load_instance(M: int, seed: int):
+def online_model(M: int = 0):
+    """The llama-3-70B online profile; stretched to L = 2M layers for a
+    fleet deeper than the model (the fleet-scale instance of bench.py)."""
     from distilp_torch.common import load_model_profile
+    from distilp_torch.utils import stretch_model_for_fleet
+
+    model = load_model_profile(
+        ROOT / "tests" / "profiles" / "llama_3_70b" / "online" / "model_profile.json"
+    )
+    return stretch_model_for_fleet(model, M) if M > model.L else model
+
+
+def load_instance(M: int, seed: int):
     from distilp_torch.solver.api import _build_instance
     from distilp_torch.solver.backend_torch import device_arrays
     from distilp_torch.solver.standard_form import build_standard_form
     from distilp_torch.utils import make_synthetic_fleet
 
-    model = load_model_profile(
-        ROOT / "tests" / "profiles" / "llama_3_70b" / "online" / "model_profile.json"
-    )
+    model = online_model(M)
     devs = make_synthetic_fleet(M, seed=seed)
     Ks, _, coeffs, arrays = _build_instance(devs, model, None, "4bit", None, None)
     feasible = [(k, model.L // k) for k in Ks if model.L // k >= M]
@@ -237,38 +285,72 @@ def check_ipm(report: dict) -> None:
     import numpy as np
     import torch
 
-    from distilp_torch.ops.ipm import ipm_solve_batch, ipm_solve_batch_reference
+    from distilp_torch.ops.ipm import (
+        ipm_solve_batch,
+        ipm_solve_batch_reference,
+        ipm_workspace_route,
+    )
+
+    # Where the kernel library puts one LP's vectors on this card, at the
+    # edges of what an H100 block's shared memory holds (m = 6M+1, n = 13M+1;
+    # tests/test_torch_ipm.py drives the wrapper with the same table).
+    routes = {(M, str(dt).split(".")[-1]): ipm_workspace_route(6 * M + 1, 13 * M + 1, dt, "cuda")
+              for M, dt in ((172, torch.float32), (173, torch.float32),
+                            (86, torch.float64), (87, torch.float64))}
+    print("ipm routes", json.dumps({f"M={M} {d}": r for (M, d), r in routes.items()}),
+          flush=True)
+    want = {(172, "float32"): "shared", (173, "float32"): "global",
+            (86, "float64"): "shared", (87, "float64"): "global"}
+    if routes != want:
+        fail(f"ipm workspace routes {routes}, expected {want}")
 
     rng = np.random.default_rng(1234)
     rows = []
-    for M, seed in ((16, 123), (32, 32)):
-        for dtype, iters, chunk in (
+    cases = [
+        (M, seed, 16, cfg)
+        for M, seed in ((16, 123), (32, 32))
+        for cfg in (
             (torch.float32, 8, 8),  # cold root round of the default budget
             (torch.float32, 6, 4),  # warm round
             (torch.float32, 26, 4),  # escalated budget
             (torch.float64, 26, 4),
-        ):
-            batch, warm, skip = ipm_batch(M, seed, 16, dtype, rng)
-            k = ipm_solve_batch(batch, iters=iters, warm=warm, skip=skip, chunk=chunk)
-            r = ipm_solve_batch_reference(batch, iters=iters, warm=warm, skip=skip, chunk=chunk)
-            torch.cuda.synchronize()
-            errs = {f: max_err(getattr(k, f), getattr(r, f))
-                    for f in k._fields if f not in ("converged", "iters_run")}
-            d_it = int((k.iters_run - r.iters_run).abs().max())
-            conv_eq = bool(torch.equal(k.converged, r.converged))
-            if dtype == torch.float64:
-                ok = d_it == 0 and conv_eq and all(e[1] <= TOL_IPM_F64 for e in errs.values())
-            else:
-                ok = errs["bound"][1] <= TOL_IPM_F32_CERT
-            line = {
-                "M": M, "dtype": str(dtype).split(".")[-1], "iters": iters,
-                "chunk": chunk, "iters_run": k.iters_run.tolist(),
-                "d_iters": d_it, "converged_equal": conv_eq,
-                "max_abs": {f: e[0] for f, e in errs.items()},
-                "max_rel": {f: e[1] for f, e in errs.items()}, "ok": ok,
-            }
-            print("ipm vs plain", json.dumps(line), flush=True)
-            rows.append(line)
+        )
+    ]
+    # Above the old shared-memory ceiling (M > 172 in float32, M > 86 in
+    # float64) the vectors live in a per-block global workspace: a cold
+    # root-round budget, B=2, both elements live (no skip).
+    global_cases = [(192, 192, 2, (torch.float32, 8, 8)),
+                    (128, 123, 2, (torch.float64, 8, 8))]
+    cases += global_cases
+    for M, seed, B, (dtype, iters, chunk) in cases:
+        batch, warm, skip = ipm_batch(M, seed, B, dtype, rng)
+        if (M, seed, B, (dtype, iters, chunk)) in global_cases:
+            skip = torch.zeros_like(skip)
+        route = ipm_workspace_route(*batch.A.shape, dtype, batch.A.device)
+        k = ipm_solve_batch(batch, iters=iters, warm=warm, skip=skip, chunk=chunk)
+        r = ipm_solve_batch_reference(batch, iters=iters, warm=warm, skip=skip, chunk=chunk)
+        torch.cuda.synchronize()
+        errs = {f: max_err(getattr(k, f), getattr(r, f))
+                for f in k._fields if f not in ("converged", "iters_run")}
+        d_it = int((k.iters_run - r.iters_run).abs().max())
+        conv_eq = bool(torch.equal(k.converged, r.converged))
+        if dtype == torch.float64:
+            ok = d_it == 0 and conv_eq and all(e[1] <= TOL_IPM_F64 for e in errs.values())
+        else:
+            ok = errs["bound"][1] <= TOL_IPM_F32_CERT
+        line = {
+            "M": M, "B": B, "route": route, "dtype": str(dtype).split(".")[-1],
+            "iters": iters, "chunk": chunk, "iters_run": k.iters_run.tolist(),
+            "d_iters": d_it, "converged_equal": conv_eq,
+            "max_abs": {f: e[0] for f, e in errs.items()},
+            "max_rel": {f: e[1] for f, e in errs.items()}, "ok": ok,
+        }
+        print("ipm vs plain", json.dumps(line), flush=True)
+        rows.append(line)
+    for r in rows[-len(global_cases):]:
+        if r["route"] != "global" or min(r["iters_run"]) == 0:
+            fail(f"ipm at M={r['M']} {r['dtype']}: route {r['route']}, iters_run "
+                 f"{r['iters_run']}; expected the global route with every element live")
     bad = [(r["M"], r["dtype"], r["iters"], r["chunk"]) for r in rows if not r["ok"]]
     if bad:
         fail(f"ipm kernel disagrees with its plain version in (M, dtype, iters, chunk) {bad}")
@@ -427,30 +509,285 @@ def check_epilogue(report: dict) -> None:
           f"by {b_by}) at B={B} nf={nf}", flush=True)
 
 
+def pdhg_roots(M: int, dtype):
+    """The root-round LP batch (one LP per feasible k) of the M-device
+    fleet, on the card, and the host arrays it came from."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops.ipm import LPBatch
+
+    *_, host = load_instance(M, 123)
+    T = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")  # noqa: E731
+    batch = LPBatch(A=T(host["A"]), b=T(host["b_k"]), c=T(host["c_k"]),
+                    l=T(host["lo_k"]), u=T(host["hi_k"]))
+    return batch, host
+
+
+def lp_optima(host) -> list:
+    """HiGHS optimum of every root LP, on the float64 values of the data."""
+    import numpy as np
+    from scipy.optimize import linprog
+
+    A = np.asarray(host["A"], np.float64)
+    out = []
+    for e in range(host["b_k"].shape[0]):
+        bounds = np.stack([host["lo_k"][e], host["hi_k"][e]], 1).astype(np.float64)
+        r = linprog(np.asarray(host["c_k"][e], np.float64), A_eq=A,
+                    b_eq=np.asarray(host["b_k"][e], np.float64), bounds=bounds,
+                    method="highs")
+        if r.status != 0:
+            fail(f"HiGHS could not solve root LP {e}: {r.message}")
+        out.append(float(r.fun))
+    return out
+
+
+def pdhg_flops_bytes(m: int, n: int, nnz: int, B: int, iters_run, chunk: int,
+                     itemsize: int, warm: bool = False):
+    """Least work of one PDHG launch: (operations, bytes, operations if A
+    were dense). Operations, counted on A's nonzeros (the products need no
+    others): per executed step the two products (4 nnz); per executed chunk
+    the convergence test's two products (4 nnz); per element the setup's
+    three passes over A (|A| diag(cs) row maxima and sums, A l; 6 nnz), the
+    warm gate's extra step (4 nnz) and the float64 certificate (4 nnz).
+    Bytes: every input read once (A shared; it is given dense, so all m n
+    entries are read to find its nonzeros), every output written once."""
+    steps = sum(int(i) for i in iters_run)
+    chunks = sum(-(-int(i) // chunk) for i in iters_run)
+    per_nnz = 4 * (steps + chunks) + B * (10 + (4 if warm else 0))
+    inputs = m * n * itemsize + B * (m + 3 * n) * itemsize
+    if warm:
+        inputs += B * (3 * n + m) * itemsize + B
+    outputs = B * (4 * n + m) * itemsize + B * n * 8 + B * (8 + 4 * itemsize + 5)
+    return per_nnz * nnz, inputs + outputs, per_nnz * m * n
+
+
+def pdhg_f32_bounds(k, r, batch, iters: int, warm):
+    """The kernel's and the plain version's float64 bounds at equal step
+    counts, and the elements re-run to get them. An element that both runs
+    report converged, or that both ran the whole budget, is taken as it is;
+    any other (the two stopped at different chunks) is run again in both
+    versions with the budget cut to the step count of the one that stopped
+    first, so every element's bound is held."""
+    import torch
+
+    from distilp_torch.ops.ipm import LPBatch
+    from distilp_torch.ops.pdhg import (
+        PDHGWarmState,
+        pdhg_solve_batch,
+        pdhg_solve_batch_reference,
+    )
+
+    kb, rb = k.bound.clone(), r.bound.clone()
+    same = (k.converged & r.converged) | ((k.iters_run >= iters) & (r.iters_run >= iters))
+    rerun = {}
+    for e in torch.nonzero(~same).flatten().tolist():
+        steps = int(torch.minimum(k.iters_run[e], r.iters_run[e]))
+        sub = LPBatch(batch.A, *(t[e:e + 1] for t in batch[1:]))
+        sw = None if warm is None else PDHGWarmState(*(t[e:e + 1] for t in warm))
+        ke = pdhg_solve_batch(sub, iters=steps, warm=sw)
+        re = pdhg_solve_batch_reference(sub, iters=steps, warm=sw)
+        kb[e], rb[e] = ke.bound[0], re.bound[0]
+        rerun[e] = (steps, int(ke.iters_run[0]), int(re.iters_run[0]))
+    return kb, rb, rerun
+
+
+def check_pdhg(report: dict) -> None:
+    import torch
+
+    from distilp_torch.ops.pdhg import (
+        PDHG_DEFAULT_CHUNK,
+        PDHGWarmState,
+        pdhg_solve_batch,
+        pdhg_solve_batch_reference,
+    )
+    from distilp_torch.solver.standard_form import default_pdhg_iters
+
+    rows, bad = [], []
+    for M, iters in ((128, default_pdhg_iters(128)), (512, 1000)):
+        optima = None
+        for dtype in (torch.float64, torch.float32):
+            batch, host = pdhg_roots(M, dtype)
+            if optima is None:
+                optima = torch.tensor(lp_optima(host), dtype=torch.float64)
+            cold = pdhg_solve_batch(batch, iters=iters)
+            warm = PDHGWarmState(cold.v, cold.y_dual, cold.z_dual, cold.f_dual,
+                                 torch.ones_like(cold.converged))
+            for start, w in (("cold", None), ("warm", warm)):
+                k = cold if w is None else pdhg_solve_batch(batch, iters=iters, warm=w)
+                r = pdhg_solve_batch_reference(batch, iters=iters, warm=w)
+                torch.cuda.synchronize()
+                errs = {f: max_err(getattr(k, f), getattr(r, f))
+                        for f in k._fields if f not in ("converged", "iters_run")}
+                d_it = int((k.iters_run - r.iters_run).abs().max())
+                conv_eq = bool(torch.equal(k.converged, r.converged))
+                slack = (k.bound.cpu() - optima) / optima.abs().clamp(min=1.0)
+                sound = bool((slack <= TOL_SOUND).all() & torch.isfinite(slack).all())
+                rerun, f32_bound_rel = None, None
+                if dtype == torch.float64:
+                    ok = d_it == 0 and conv_eq and all(
+                        e[1] <= TOL_PDHG_F64 for e in errs.values())
+                else:
+                    kb, rb, rerun = pdhg_f32_bounds(k, r, batch, iters, w)
+                    f32_bound_rel = max_err(kb, rb)[1]
+                    ok = f32_bound_rel <= TOL_PDHG_F32_CERT
+                line = {
+                    "M": M, "dtype": str(dtype).split(".")[-1], "start": start,
+                    "iters": iters, "B": int(batch.b.shape[0]),
+                    "iters_run": k.iters_run.tolist(),
+                    "iters_run_plain": r.iters_run.tolist(),
+                    "converged": k.converged.tolist(),
+                    "converged_plain": r.converged.tolist(),
+                    "bound": k.bound.tolist(), "lp_optimum": optima.tolist(),
+                    "max_rel_slack_over_optimum": float(slack.max()),
+                    "max_abs": {f: e[0] for f, e in errs.items()},
+                    "max_rel": {f: e[1] for f, e in errs.items()},
+                    "f32_bound_max_rel_all_elements": f32_bound_rel,
+                    "f32_rerun_at_equal_steps": rerun,
+                    "sound": sound, "ok": ok and sound,
+                }
+                print("pdhg vs plain", json.dumps(line), flush=True)
+                rows.append(line)
+                if not line["ok"]:
+                    bad.append((M, line["dtype"], start))
+    if bad:
+        fail(f"pdhg kernel disagrees with its plain version or its bound is "
+             f"unsound in (M, dtype, start) {bad}")
+
+    # Time at the main path's shapes: the 128-device root round (float32,
+    # cold, the default budget), and the 512-device one (1000 steps).
+    timing = {}
+    for M, iters, reps in ((128, default_pdhg_iters(128), 10), (512, 1000, 3)):
+        batch, _ = pdhg_roots(M, torch.float32)
+        m, n = batch.A.shape
+        B = int(batch.b.shape[0])
+        nnz = int(torch.count_nonzero(batch.A))
+        run_k = lambda: pdhg_solve_batch(batch, iters=iters)  # noqa: E731
+        res = run_k()
+        flops, nbytes, dense_flops = pdhg_flops_bytes(
+            m, n, nnz, B, res.iters_run.tolist(), PDHG_DEFAULT_CHUNK, 4)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+        dense_b_ms, dense_b_by = bound_ms(dense_flops, nbytes, PEAK_F32_S)
+        call = cuda_ms(run_k, reps=reps, warmup=1)
+        dev = device_ms(run_k, "pdhg_kernel", reps=reps)
+        ms, src = (dev, "profiler") if dev is not None else (call, "cuda_events")
+        plain = cuda_ms(lambda: pdhg_solve_batch_reference(batch, iters=iters),
+                        reps=1, warmup=0)
+        # Yardstick: one step's two products as library calls at the root
+        # batch width, times the steps the batch executed.
+        X = torch.rand(n, B, device="cuda")
+        Y = torch.rand(m, B, device="cuda")
+        A = batch.A
+        mm = cuda_ms(lambda: (torch.matmul(A, X), torch.matmul(A.t(), Y)))
+        # The same two products as sparse (CSR) library calls, for scale.
+        A_csr, At_csr = A.to_sparse_csr(), A.t().contiguous().to_sparse_csr()
+        sp = cuda_ms(lambda: (torch.sparse.mm(A_csr, X), torch.sparse.mm(At_csr, Y)))
+        steps = int(res.iters_run.max())
+        timing[M] = dict(
+            ms=ms, call_ms=call, ms_source=src, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, nnz=nnz, flops=flops, bytes=nbytes,
+            dense_ops_bound_ms=dense_b_ms, dense_ops_bound_by=dense_b_by,
+            library_ms=mm * steps, library_step_ms=mm,
+            library_sparse_ms=sp * steps, library_sparse_step_ms=sp,
+            steps=steps, iters_run=res.iters_run.tolist(), m=m, n=n, B=B,
+        )
+        print(f"pdhg M={M}: {ms:.4f} ms on the card, {call:.4f} ms per call "
+              f"(plain {plain:.3f} ms, bound {b_ms:.5f} ms by {b_by} with "
+              f"{nnz} nonzeros in A, {dense_b_ms:.5f} ms by {dense_b_by} if A "
+              f"were dense; library products {mm:.4f} ms dense, {sp:.4f} ms "
+              f"sparse, x {steps} steps) at B={B} m={m} n={n} "
+              f"iters_run={res.iters_run.tolist()}", flush=True)
+    t128 = timing[128]
+    report["pdhg"] = dict(
+        name="pdhg", route="cuda", source="distilp_torch/kernels/csrc/pdhg_kernel.cu",
+        replaces="distilp_tpu/ops/pdhg.py:139",
+        max_abs_err=max(r["max_abs"]["bound"] for r in rows),
+        ms=t128["ms"], plain_ms=t128["plain_ms"], bound_ms=t128["bound_ms"],
+        bound_by=t128["bound_by"], library_ms=t128["library_ms"],
+        held_against_plain="ok", call_ms=t128["call_ms"], ms_source=t128["ms_source"],
+        nnz=t128["nnz"], dense_ops_bound_ms=t128["dense_ops_bound_ms"],
+        library_sparse_ms=t128["library_sparse_ms"],
+        shapes_timed=f"M=128 root round, float32, cold, {default_pdhg_iters(128)} steps",
+        m512_1000_steps=timing[512],
+    )
+
+
+def check_pdhg_mp() -> None:
+    """K6a: the float32 run with the per-element float64 re-solve, on the
+    128-device fleet's k=1 root LP (the one that decides the solve) at the
+    escalated budget. (Its k=2 root does not reach the tolerance within
+    16000 steps in either precision, so a batch holding it would rightly
+    count a fallback.)"""
+    import torch
+
+    from distilp_torch.ops.ipm import LPBatch
+    from distilp_torch.ops.meshlp import pdhg_solve_batch_mp
+    from distilp_torch.solver.standard_form import default_pdhg_iters
+
+    iters = 4 * default_pdhg_iters(128)
+    roots, _ = pdhg_roots(128, torch.float64)
+    batch = LPBatch(roots.A, *(t[:1].repeat(2, 1) for t in roots[1:]))
+    rep = {}
+    pdhg_solve_batch_mp(batch, iters=iters, dtype="f32", fallback_report=rep)
+    healthy = rep["n_fallback"]
+    b_bad = batch.b.clone()
+    b_bad[0] *= 1e39  # float32(1e39) is inf: that element's float32 run cannot be finite
+    poisoned = batch._replace(b=b_bad)
+    rep = {}
+    res = pdhg_solve_batch_mp(poisoned, iters=iters, dtype="f32", fallback_report=rep)
+    r32 = pdhg_solve_batch_mp(poisoned, iters=iters, dtype="f32", f64_fallback=False)
+    r64 = pdhg_solve_batch_mp(poisoned, iters=iters, dtype="f64")
+    bad = ~r32.converged | ~torch.isfinite(r32.bound)
+    spliced = all(
+        torch.equal(getattr(res, f)[bad], getattr(r64, f).to(getattr(res, f).dtype)[bad])
+        and torch.equal(getattr(res, f)[~bad], getattr(r32, f)[~bad])
+        for f in res._fields
+    )
+    line = {"n_fallback_healthy": healthy, "n_fallback_poisoned": rep["n_fallback"],
+            "poisoned_row_fell_back": bool(bad[0]), "splice_exact": spliced}
+    print("pdhg_mp", json.dumps(line), flush=True)
+    if healthy != 0 or rep["n_fallback"] < 1 or not bool(bad[0]) or not spliced:
+        fail(f"pdhg_solve_batch_mp fallback check failed: {line}")
+
+
 # ---------------------------------------------------------------- phase 4
 
 
+def solve(devs, model, gap, **kw):
+    """One timed ``halda_solve`` on the card: (result, wall ms, timings)."""
+    import torch
+
+    from distilp_torch.solver import halda_solve
+
+    tm = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = halda_solve(devs, model, mip_gap=gap, kv_bits="4bit", timings=tm, **kw)
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t) * 1e3, tm
+
+
+def show(name, r, ms, tm):
+    print(f"solve {name}: k={r.k} obj={r.obj_value!r} certified={r.certified} "
+          f"gap={r.gap} wall_ms={ms:.2f} engine={tm.get('lp_backend')} "
+          f"rounds={tm.get('bnb_rounds')} lp_iters={tm.get('ipm_iters_executed')} "
+          f"escalated={tm.get('escalated', 0)} host_build_ms={tm.get('build_ms', 0.0):.2f} "
+          f"build_sf_ms={tm.get('build_sf_ms', 0.0):.2f} "
+          f"upload_ms={tm.get('upload_ms', 0.0):.2f} "
+          f"search_ms={tm.get('solve_ms', 0.0):.2f}", flush=True)
+
+
+DENSE_KERNELS = ("ipm", "round_incumbent", "bnb_epilogue")
+
+
 def main_path() -> dict:
+    """The dense slice's main path (IPM engine, M <= 32)."""
     import torch
 
     from distilp_torch import kernels
-    from distilp_torch.common import load_from_profile_folder, load_model_profile
+    from distilp_torch.common import load_from_profile_folder
     from distilp_torch.solver import halda_solve
     from distilp_torch.utils import make_synthetic_fleet
-
-    def solve(devs, model, gap):
-        tm = {}
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = halda_solve(devs, model, mip_gap=gap, kv_bits="4bit", timings=tm)
-        torch.cuda.synchronize()
-        return r, (time.perf_counter() - t) * 1e3, tm
-
-    def show(name, r, ms, tm):
-        print(f"solve {name}: k={r.k} obj={r.obj_value:.6f} certified={r.certified} "
-              f"gap={r.gap} wall_ms={ms:.2f} rounds={tm.get('bnb_rounds')} "
-              f"ipm_iters={tm.get('ipm_iters_executed')} "
-              f"escalated={tm.get('escalated', 0)}", flush=True)
 
     kernels.reset_launch_counts()
     for folder, k_star, obj in GOLDEN:
@@ -459,9 +796,7 @@ def main_path() -> dict:
         show(folder, r, ms, tm)
         if r.k != k_star or abs(r.obj_value - obj) > 2e-4 * abs(obj):
             fail(f"{folder}: got k={r.k} obj={r.obj_value}, pinned k={k_star} obj={obj}")
-    model = load_model_profile(
-        ROOT / "tests" / "profiles" / "llama_3_70b" / "online" / "model_profile.json"
-    )
+    model = online_model()
     devs = make_synthetic_fleet(16, seed=123)
     r, ms, tm = solve(devs, model, 1e-3)
     show("north_star_M16", r, ms, tm)
@@ -489,31 +824,83 @@ def main_path() -> dict:
           f"wall_ms={(time.perf_counter() - t) * 1e3:.1f}", flush=True)
     if not r.certified or abs(r.obj_value - ref.obj_value) > 2e-3 * abs(ref.obj_value):
         fail(f"M=32: obj={r.obj_value} vs oracle {ref.obj_value}")
-    print("main path launches", json.dumps(launches), flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    print("dense path launches", json.dumps(launches), flush=True)
+    missing = [k for k in DENSE_KERNELS if launches[k] == 0]
     if missing:
-        fail(f"main path never launched {missing}")
+        fail(f"dense main path never launched {missing}")
     profile_solve(make_synthetic_fleet(16, seed=123), model, 1e-3, "north_star_M16")
     return launches
 
 
-def profile_solve(devs, model, gap, name) -> None:
+def fleet_path() -> dict:
+    """The fleet-scale main path: the PDHG engine through ``halda_solve``."""
+    from distilp_torch import kernels
+    from distilp_torch.utils import make_synthetic_fleet
+
+    def check(name, r, tm, pin, gap, engine, model):
+        k_pin, obj_pin = pin
+        rel = abs(r.obj_value - obj_pin) / abs(obj_pin)
+        print(f"  {name}: objective {r.obj_value!r} vs pinned {obj_pin!r}: "
+              f"relative difference {rel!r} (allowed {gap!r})", flush=True)
+        if tm.get("lp_backend") != engine or r.k != k_pin or not r.certified or rel > gap:
+            fail(f"{name}: engine={tm.get('lp_backend')} k={r.k} "
+                 f"certified={r.certified} obj={r.obj_value}; expected engine "
+                 f"{engine}, k={k_pin}, obj {obj_pin} within {gap} relative")
+        if sum(r.w) * r.k != model.L or not all(0 <= n <= w for w, n in zip(r.w, r.n)):
+            fail(f"{name}: assignment does not place every layer")
+
+    kernels.reset_launch_counts()
+    model128, devs128 = online_model(128), make_synthetic_fleet(128, seed=123)
+    r, ms, tm = solve(devs128, model128, FLEET128_GAP)
+    show("fleet_M128", r, ms, tm)
+    check("fleet_M128", r, tm, FLEET128_PDHG, 2 * FLEET128_GAP, "pdhg", model128)
+    # Cross-engine: the same instance on the IPM (K1 at m=769).
+    ri, ms, tm = solve(devs128, model128, FLEET128_GAP, lp_backend="ipm")
+    show("fleet_M128_ipm", ri, ms, tm)
+    check("fleet_M128_ipm", ri, tm, FLEET128_IPM, 2 * FLEET128_GAP, "ipm", model128)
+    if abs(ri.obj_value - r.obj_value) > 2 * FLEET128_GAP * abs(r.obj_value):
+        fail(f"M=128: IPM engine {ri.obj_value} vs PDHG engine {r.obj_value}")
+    # Float64 iterates on the main path (the f64 kernel instance).
+    r64, ms, tm = solve(devs128, model128, FLEET128_GAP, pdhg_dtype="f64")
+    show("fleet_M128_f64", r64, ms, tm)
+    check("fleet_M128_f64", r64, tm, FLEET128_PDHG, 2 * FLEET128_GAP, "pdhg", model128)
+    rn, ms, tm = solve(make_synthetic_fleet(16, seed=123), online_model(), 1e-3,
+                       lp_backend="pdhg")
+    show("north_star_M16_pdhg", rn, ms, tm)
+    if tm.get("lp_backend") != "pdhg" or not rn.certified or \
+            abs(rn.obj_value - NORTH_STAR_OBJ) > 2e-3 * abs(NORTH_STAR_OBJ):
+        fail(f"north star on the PDHG engine: obj={rn.obj_value} certified={rn.certified}")
+    model512, devs512 = online_model(512), make_synthetic_fleet(512, seed=123)
+    r5, ms, tm = solve(devs512, model512, FLEET512_GAP)
+    show("fleet_M512", r5, ms, tm)
+    check("fleet_M512", r5, tm, FLEET512_PDHG, 2 * FLEET512_GAP, "pdhg", model512)
+    launches = dict(kernels.LAUNCHES)
+    print("fleet path launches", json.dumps(launches), flush=True)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"fleet-scale main path never launched {missing}")
+    profile_solve(devs128, model128, FLEET128_GAP, "fleet_M128_pdhg")
+    profile_solve(devs512, model512, FLEET512_GAP, "fleet_M512_pdhg", reps=1)
+    return launches
+
+
+def profile_solve(devs, model, gap, name, reps: int = 5) -> None:
     """Where the device time of one solve goes: device time by kernel from
     a profiled solve, and the device's busy share against the same solve's
-    unprofiled wall time (median of 5)."""
+    unprofiled wall time (median of ``reps``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from distilp_torch.solver import halda_solve
 
     walls = []
-    for _ in range(5):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         halda_solve(devs, model, mip_gap=gap, kv_bits="4bit")
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
-    wall = sorted(walls)[2]
+    wall = sorted(walls)[reps // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         halda_solve(devs, model, mip_gap=gap, kv_bits="4bit")
         torch.cuda.synchronize()
@@ -524,7 +911,7 @@ def profile_solve(devs, model, gap, name) -> None:
     )
     busy_ms = sum(r[1] for r in rows) / 1e3
     print("profile", json.dumps({
-        "solve": name, "wall_ms_median_of_5": wall, "walls_ms": walls,
+        "solve": name, f"wall_ms_median_of_{reps}": wall, "walls_ms": walls,
         "device_busy_ms": busy_ms if rows else None,
         "device_busy_share": busy_ms / wall if rows else None,
         "device_ops": len(rows),
@@ -561,12 +948,20 @@ def main() -> int:
     check_ipm(report)
     check_round(report)
     check_epilogue(report)
+    check_pdhg(report)
+    check_pdhg_mp()
 
-    launches = main_path()
+    paths = {"dense": main_path(), "fleet": fleet_path()}
+    launches = {k: sum(p[k] for p in paths.values()) for k in report}
+    print("main path launches", json.dumps(launches), flush=True)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"main path never launched {missing}")
     out = []
-    for name in ("ipm", "round_incumbent", "bnb_epilogue"):
+    for name in ("ipm", "round_incumbent", "bnb_epilogue", "pdhg"):
         row = dict(report[name])
         row["launches"] = launches[name]
+        row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         out.append(row)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

@@ -32,6 +32,7 @@ SOURCES: Dict[str, tuple] = {
     "ipm": ("ipm_kernel.cu", []),
     "round": ("round_kernel.cu", ["--fmad=false"]),
     "bnb_epilogue": ("bnb_epilogue_kernel.cu", ["--fmad=false"]),
+    "pdhg": ("pdhg_kernel.cu", []),
 }
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -42,14 +43,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 _D = ctypes.c_double
+_S = ctypes.c_size_t
 
-# C signatures of the launchers (each returns a cudaError_t as int).
+# C signatures of the launchers (each returns a cudaError_t as int, unless
+# RESTYPES says otherwise).
 SIGNATURES = {
     "ipm": {
+        "dtk_ipm_vec_ws_bytes": [_I] * 5 + [_P],
         "dtk_ipm_f32": [_P] * 2 + [_L] + [_P] * 10 + [_I] * 5 + [_D] * 2
-        + [_P] * 13 + [_I, _P],
+        + [_P] * 14 + [_I, _P],
         "dtk_ipm_f64": [_P] * 2 + [_L] + [_P] * 10 + [_I] * 5 + [_D] * 2
-        + [_P] * 13 + [_I, _P],
+        + [_P] * 14 + [_I, _P],
     },
     "round": {
         "dtk_round_f32": [_P, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P],
@@ -59,7 +63,13 @@ SIGNATURES = {
         "dtk_bnb_epilogue": [_P] * 13 + [_D] + [_P] * 5 + [_I] * 3 + [_P] * 11
         + [_I, _P],
     },
+    "pdhg": {
+        "dtk_pdhg_ws_bytes": [_I] * 4,
+        "dtk_pdhg_f32": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P, _L] + [_P] * 13,
+        "dtk_pdhg_f64": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P, _L] + [_P] * 13,
+    },
 }
+RESTYPES = {"dtk_pdhg_ws_bytes": _S}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -131,7 +141,7 @@ def load_all() -> Dict[str, ctypes.CDLL]:
             for fn, argtypes in SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
-                f.restype = ctypes.c_int
+                f.restype = RESTYPES.get(fn, ctypes.c_int)
             _LIBS[name] = lib
         return _LIBS
 

@@ -23,7 +23,10 @@
 // one block per LP, not the card's rates (the batch fills 16 of 132 SMs). The
 // design keeps every n- and m-vector in shared memory and the m*m factor in a
 // per-block global workspace (L2-resident: 37.6 KB at m=97, 149 KB at m=193);
-// A is shared by the batch and read through L1/L2. Shared-memory residency of
+// A is shared by the batch and read through L1/L2. Above what a block can opt
+// into (M > 172 devices in float32, M > 86 in float64: (24 n + 4 m + 32)
+// elements per LP) the wrapper hands the kernel a global workspace for the
+// vectors instead, so every shape the reference accepts launches. Shared-memory residency of
 // the factor, tensor-core products and a blocked Cholesky are later work.
 
 #include "common.cuh"
@@ -165,6 +168,12 @@ struct Vecs {
 constexpr int N_VECS = 24;
 constexpr int M_VECS = 4;
 
+// Elements of one LP's vectors: N_VECS n-vectors, M_VECS m-vectors and the
+// 32 reduction slots.
+__host__ __device__ inline size_t vec_len(int m, int n) {
+  return (size_t)N_VECS * n + (size_t)M_VECS * m + 32;
+}
+
 template <typename T>
 __device__ Vecs<T> carve(T* base, int m, int n) {
   Vecs<T> s;
@@ -234,7 +243,13 @@ __device__ void directions(const Vecs<T>& s, const T* A, const T* W, bool chol_o
   __syncthreads();
 }
 
-template <typename T>
+// kGlobalVecs selects where the per-LP vectors live at compile time, so the
+// shared-memory instance keeps shared-memory loads and stores (a pointer
+// chosen at run time would be a generic one). vec_ws is not __restrict__:
+// threads exchange values through it across __syncthreads (the block
+// reductions' slots, the vectors of mv_A/mv_At), and a restrict-qualified
+// base lets the compiler reuse a value it loaded before the barrier.
+template <typename T, bool kGlobalVecs>
 __global__ void ipm_kernel(
     const T* __restrict__ A_all, const T* __restrict__ At_all, long a_stride,
     const T* __restrict__ b_all, const T* __restrict__ c_all,
@@ -243,7 +258,8 @@ __global__ void ipm_kernel(
     const T* __restrict__ wz_all, const T* __restrict__ wf_all,
     const uint8_t* __restrict__ wok, const uint8_t* __restrict__ skip, int m,
     int n, int chunk, int n_chunks, T tol, T reg, T* __restrict__ ws_all,
-    T* __restrict__ v_out, double* __restrict__ bound_out, T* __restrict__ obj_out,
+    T* vec_ws, T* __restrict__ v_out, double* __restrict__ bound_out,
+    T* __restrict__ obj_out,
     T* __restrict__ rp_out, T* __restrict__ rd_out, T* __restrict__ mu_out,
     uint8_t* __restrict__ conv_out, double* __restrict__ reduced_out,
     T* __restrict__ y_out, T* __restrict__ z_out, T* __restrict__ f_out,
@@ -257,7 +273,11 @@ __global__ void ipm_kernel(
   const T* l = l_all + (size_t)e * n;
   const T* u = u_all + (size_t)e * n;
   T* W = ws_all + (size_t)e * m * m;
-  Vecs<T> s = carve<T>(reinterpret_cast<T*>(smem_raw), m, n);
+  // The per-LP vectors live in shared memory when they fit a block, else in
+  // this block's slice of the global workspace (same arithmetic either way).
+  T* vbase = kGlobalVecs ? vec_ws + (size_t)e * vec_len(m, n)
+                         : reinterpret_cast<T*>(smem_raw);
+  Vecs<T> s = carve<T>(vbase, m, n);
   const int tid = threadIdx.x;
   const int bs = blockDim.x;
 
@@ -499,27 +519,53 @@ __global__ void ipm_kernel(
 
 template <typename T>
 size_t smem_bytes(int m, int n) {
-  return sizeof(T) * ((size_t)N_VECS * n + (size_t)M_VECS * m + 32);
+  return sizeof(T) * vec_len(m, n);
+}
+
+// Bytes of the global vector workspace a batch of B LPs needs: 0 when one
+// LP's vectors, beside the kernel's static shared memory, fit what a block
+// can opt into on `device` (the shared route), else B * vec_len elements.
+template <typename T>
+int vec_ws_bytes(int device, int B, int m, int n, size_t* bytes) {
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, ipm_kernel<T, false>);
+  if (err != cudaSuccess) return (int)err;
+  const size_t sm = smem_bytes<T>(m, n);
+  *bytes = sm + attr.sharedSizeBytes <= (size_t)optin ? 0 : (size_t)B * sm;
+  return 0;
 }
 
 template <typename T>
 int launch(const T* A, const T* At, long a_stride, const T* b, const T* c,
            const T* l, const T* u, const T* wv, const T* wy, const T* wz,
            const T* wf, const uint8_t* wok, const uint8_t* skip, int B, int m,
-           int n, int chunk, int n_chunks, double tol, double reg, T* ws, T* v,
-           double* bound, T* obj, T* rp, T* rd, T* mu, uint8_t* conv,
-           double* reduced, T* y, T* z, T* f, int* iters, int threads,
-           cudaStream_t stream) {
+           int n, int chunk, int n_chunks, double tol, double reg, T* ws,
+           T* vec_ws, T* v, double* bound, T* obj, T* rp, T* rd, T* mu,
+           uint8_t* conv, double* reduced, T* y, T* z, T* f, int* iters,
+           int threads, cudaStream_t stream) {
+  // vec_ws (B * vec_len(m, n) elements, or null) is the global-memory route
+  // the wrapper picks when the vectors exceed what a block can opt into.
+  if (vec_ws != nullptr) {
+    ipm_kernel<T, true><<<B, threads, 0, stream>>>(
+        A, At, a_stride, b, c, l, u, wv, wy, wz, wf, wok, skip, m, n, chunk,
+        n_chunks, (T)tol, (T)reg, ws, vec_ws, v, bound, obj, rp, rd, mu, conv,
+        reduced, y, z, f, iters);
+    return (int)cudaGetLastError();
+  }
   const size_t sm = smem_bytes<T>(m, n);
   if (sm > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        ipm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+        ipm_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
     if (err != cudaSuccess) return (int)err;
   }
-  ipm_kernel<T><<<B, threads, sm, stream>>>(
+  ipm_kernel<T, false><<<B, threads, sm, stream>>>(
       A, At, a_stride, b, c, l, u, wv, wy, wz, wf, wok, skip, m, n, chunk,
-      n_chunks, (T)tol, (T)reg, ws, v, bound, obj, rp, rd, mu, conv, reduced, y,
-      z, f, iters);
+      n_chunks, (T)tol, (T)reg, ws, vec_ws, v, bound, obj, rp, rd, mu, conv,
+      reduced, y, z, f, iters);
   return (int)cudaGetLastError();
 }
 
@@ -527,8 +573,10 @@ int launch(const T* A, const T* At, long a_stride, const T* b, const T* c,
 
 extern "C" {
 
-size_t dtk_ipm_smem_bytes(int m, int n, int is_f64) {
-  return is_f64 ? smem_bytes<double>(m, n) : smem_bytes<float>(m, n);
+int dtk_ipm_vec_ws_bytes(int device, int B, int m, int n, int is_f64,
+                         size_t* bytes) {
+  return is_f64 ? vec_ws_bytes<double>(device, B, m, n, bytes)
+                : vec_ws_bytes<float>(device, B, m, n, bytes);
 }
 
 int dtk_ipm_f32(const float* A, const float* At, long a_stride, const float* b,
@@ -536,12 +584,12 @@ int dtk_ipm_f32(const float* A, const float* At, long a_stride, const float* b,
                 const float* wy, const float* wz, const float* wf,
                 const uint8_t* wok, const uint8_t* skip, int B, int m, int n,
                 int chunk, int n_chunks, double tol, double reg, float* ws,
-                float* v, double* bound, float* obj, float* rp, float* rd,
-                float* mu, uint8_t* conv, double* reduced, float* y, float* z,
+                float* vec_ws, float* v, double* bound, float* obj, float* rp,
+                float* rd, float* mu, uint8_t* conv, double* reduced, float* y, float* z,
                 float* f, int* iters, int threads, void* stream) {
   return launch<float>(A, At, a_stride, b, c, l, u, wv, wy, wz, wf, wok, skip,
-                       B, m, n, chunk, n_chunks, tol, reg, ws, v, bound, obj,
-                       rp, rd, mu, conv, reduced, y, z, f, iters, threads,
+                       B, m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v, bound,
+                       obj, rp, rd, mu, conv, reduced, y, z, f, iters, threads,
                        (cudaStream_t)stream);
 }
 
@@ -550,13 +598,14 @@ int dtk_ipm_f64(const double* A, const double* At, long a_stride,
                 const double* u, const double* wv, const double* wy,
                 const double* wz, const double* wf, const uint8_t* wok,
                 const uint8_t* skip, int B, int m, int n, int chunk,
-                int n_chunks, double tol, double reg, double* ws, double* v,
-                double* bound, double* obj, double* rp, double* rd, double* mu,
+                int n_chunks, double tol, double reg, double* ws,
+                double* vec_ws, double* v, double* bound, double* obj,
+                double* rp, double* rd, double* mu,
                 uint8_t* conv, double* reduced, double* y, double* z, double* f,
                 int* iters, int threads, void* stream) {
   return launch<double>(A, At, a_stride, b, c, l, u, wv, wy, wz, wf, wok, skip,
-                        B, m, n, chunk, n_chunks, tol, reg, ws, v, bound, obj,
-                        rp, rd, mu, conv, reduced, y, z, f, iters, threads,
+                        B, m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v, bound,
+                        obj, rp, rd, mu, conv, reduced, y, z, f, iters, threads,
                         (cudaStream_t)stream);
 }
 

@@ -7,11 +7,21 @@ from .ipm import (
     ipm_solve_batch,
     ipm_solve_batch_reference,
 )
+from .meshlp import pdhg_solve_batch_mp
+from .pdhg import (
+    PDHGWarmState,
+    pdhg_solve_batch,
+    pdhg_solve_batch_reference,
+)
 
 __all__ = [
     "IPMResult",
     "IPMWarmState",
     "LPBatch",
+    "PDHGWarmState",
     "ipm_solve_batch",
     "ipm_solve_batch_reference",
+    "pdhg_solve_batch",
+    "pdhg_solve_batch_mp",
+    "pdhg_solve_batch_reference",
 ]

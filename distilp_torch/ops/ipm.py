@@ -25,6 +25,7 @@ counts only the steps it executed.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -33,6 +34,30 @@ from .. import kernels
 
 IPM_DEFAULT_CHUNK = 4
 THREADS = 256
+
+
+def ipm_vec_workspace_bytes(B: int, m: int, n: int, dtype, device) -> int:
+    """Bytes of K1's global vector workspace for B LPs of shape (m, n) on the
+    CUDA ``device``, as the kernel library reckons it from its own vector
+    layout and shared-memory figures: 0 when each LP's vectors fit the
+    shared memory a block can opt into (the shared route), else B per-block
+    slices (the global route)."""
+    from ..kernels.build import library
+
+    out = ctypes.c_size_t(0)
+    err = library("ipm").dtk_ipm_vec_ws_bytes(
+        torch.device(device).index or 0, B, m, n, int(dtype == torch.float64),
+        ctypes.byref(out),
+    )
+    kernels.check(err, "ipm workspace query")
+    return int(out.value)
+
+
+def ipm_workspace_route(m: int, n: int, dtype, device) -> str:
+    """Where K1 keeps each LP's vectors on ``device``: 'shared' (block shared
+    memory) or 'global' (a per-block slice of a workspace the wrapper
+    allocates). Decided from the shapes alone."""
+    return "global" if ipm_vec_workspace_bytes(1, m, n, dtype, device) else "shared"
 
 
 class LPBatch(NamedTuple):
@@ -359,6 +384,8 @@ def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
         wv = wy = wz = wf = wok = None
     sk = None if skip is None else skip.to(torch.uint8).contiguous()
     ws = torch.empty(B * m * m, **kw)
+    vec_bytes = ipm_vec_workspace_bytes(B, m, n, dtype, dev)
+    vec_ws = torch.empty(vec_bytes // A.element_size(), **kw) if vec_bytes else None
     chunk, n_chunks = chunking(iters, chunk)
     lib = library("ipm")
     fn = lib.dtk_ipm_f64 if dtype == torch.float64 else lib.dtk_ipm_f32
@@ -369,7 +396,7 @@ def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
         B, m, n, chunk, n_chunks,
         float(_default_tol(dtype) if tol is None else tol),
         float(_default_reg(dtype) if reg is None else reg),
-        P(ws), P(out.v), P(out.bound), P(out.obj), P(out.rp_norm),
+        P(ws), O(vec_ws), P(out.v), P(out.bound), P(out.obj), P(out.rp_norm),
         P(out.rd_norm), P(out.mu), P(out.converged), P(out.reduced),
         P(out.y_dual), P(out.z_dual), P(out.f_dual), P(out.iters_run),
         THREADS, kernels.stream_handle(dev),

@@ -1,14 +1,14 @@
 """Public solver API of the port: ``halda_solve`` on a CUDA device.
 
 ``backend='torch'`` (default) — batched branch-and-bound with the hand-written
-IPM, rounding and epilogue kernels on ``device`` (None = ``cuda``; raises when
+IPM or PDHG, rounding and epilogue kernels on ``device`` (None = ``cuda``; raises when
 no GPU is present: it never drops to the CPU on its own). Passing
 ``device='cpu'`` runs the same search through the kernels' plain PyTorch
 versions, which is what the CPU tests do.
 ``backend='cpu'`` — the per-k scipy/HiGHS branch-and-cut oracle.
 
 Same signature and result type as ``distilp_tpu.solver.halda_solve`` plus
-``device``; the knobs of engines this slice does not have yet (PDHG, the
+``device``; the knobs of parts the port does not have yet (the multi-GPU
 mesh, convergence traces, the MoE margin chain) raise when set.
 """
 
@@ -23,7 +23,7 @@ from .backend_torch import resolve_device, solve_sweep_torch
 from .coeffs import assign_sets, build_coeffs, valid_factors_of_L
 from .moe import resolve_moe
 from .result import HALDAResult, ILPResult
-from .standard_form import BEAM, IPM_ITERS, MAX_ROUNDS, NODE_CAP
+from .standard_form import BEAM, IPM_ITERS, MAX_ROUNDS, NODE_CAP, default_pdhg_iters
 
 Backend = str  # 'torch' | 'cpu'
 
@@ -119,19 +119,21 @@ def halda_solve(
     assignment, re-priced exactly under the current profiles, and its root
     IPM iterates (``ipm_state``).
 
+    LP engine: ``lp_backend`` 'ipm', 'pdhg' or 'auto' (PDHG at 128 devices
+    and more); ``pdhg_iters`` (cold budget; warm rounds a quarter of it),
+    ``pdhg_restart_tol`` and ``pdhg_dtype`` ('f32'/'f64' iterates) set the
+    PDHG engine. ``mesh_shards`` above 1 (multi-GPU) is a later slice.
+
     Certification escalation: a solve that misses the mip-gap certificate
     while every search knob is None retries once at the escalated budget
-    (cap 256 / beam 16 / 26 IPM iterations in every round), warm-seeded from
+    (cap 256 / beam 16; the IPM at 26 iterations in every round, the PDHG at
+    4x its default budget and in float64 when it ran 'f32'), warm-seeded from
     the uncertified incumbent; ``timings['escalated']`` reports it.
 
     Returns the assignment minimizing the modeled per-round latency with its
     certificate; raises ``RuntimeError`` if no k admits a feasible one.
     """
-    later = {
-        "margin_state": margin_state, "pdhg_iters": pdhg_iters,
-        "pdhg_restart_tol": pdhg_restart_tol, "mesh_shards": mesh_shards,
-        "pdhg_dtype": pdhg_dtype, "convergence": convergence,
-    }
+    later = {"margin_state": margin_state, "convergence": convergence}
     unsupported = [k for k, v in later.items() if v is not None]
     if plot:
         unsupported.append("plot")
@@ -160,23 +162,41 @@ def halda_solve(
             arrays, kWs, mip_gap=gap, coeffs=coeffs, debug=debug,
             warm=_warm_to_ilp(warm), max_rounds=max_rounds, beam=beam,
             ipm_iters=ipm_iters, ipm_warm_iters=ipm_warm_iters,
-            node_cap=node_cap, timings=tm, lp_backend=lp_backend, device=dev,
+            node_cap=node_cap, timings=tm, lp_backend=lp_backend,
+            pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
+            mesh_shards=mesh_shards, pdhg_dtype=pdhg_dtype, device=dev,
         )
         defaults_used = all(
             v is None
-            for v in (max_rounds, beam, ipm_iters, ipm_warm_iters, node_cap)
+            for v in (max_rounds, beam, ipm_iters, ipm_warm_iters, node_cap,
+                      pdhg_iters)
         )
         if best is not None and not best.certified and defaults_used:
+            engine = tm.get("lp_backend", "ipm")
             if debug:
                 print(
                     f"  escalating: gap {best.gap} uncertified at default "
-                    f"budgets; retrying at cap={NODE_CAP} beam={BEAM}"
+                    f"budgets; retrying at cap={NODE_CAP} beam={BEAM} "
+                    f"engine={engine}"
                 )
+            # Per-engine escalated budgets: the IPM runs its full 26
+            # iterations in every round; the PDHG 4x its size-aware default
+            # (its warm rounds a quarter of that) and, after an 'f32' run,
+            # float64 iterates.
+            esc_kw = (
+                {
+                    "pdhg_iters": 4 * default_pdhg_iters(len(devs)),
+                    "pdhg_dtype": "f64" if pdhg_dtype == "f32" else pdhg_dtype,
+                    "mesh_shards": mesh_shards,
+                }
+                if engine == "pdhg"
+                else {"ipm_iters": IPM_ITERS, "ipm_warm_iters": IPM_ITERS}
+            )
             results2, best2 = solve_sweep_torch(
                 arrays, kWs, mip_gap=gap, coeffs=coeffs, debug=debug,
                 warm=best, max_rounds=MAX_ROUNDS, beam=BEAM, node_cap=NODE_CAP,
-                ipm_iters=IPM_ITERS, ipm_warm_iters=IPM_ITERS, timings=tm,
-                lp_backend=tm.get("lp_backend", "ipm"), device=dev,
+                timings=tm, lp_backend=engine, pdhg_restart_tol=pdhg_restart_tol,
+                device=dev, **esc_kw,
             )
             if best2 is not None:
                 results, best = results2, best2

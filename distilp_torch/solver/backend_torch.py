@@ -1,7 +1,8 @@
 """GPU backend: the whole HALDA k-sweep as batched branch-and-bound.
 
 Every k-candidate's LP relaxation and every branch-and-bound node of a round
-is one element of a single batched interior-point launch; integer incumbents
+is one element of a single batched LP launch (the interior-point kernel, or
+at fleet scale the PDHG kernel); integer incumbents
 come from the exact rounding kernel; pruning uses the float64 Lagrangian
 bounds, so the mip-gap certificate does not depend on LP convergence; one
 global incumbent prunes across all k trees. Ported from the dense path of
@@ -130,6 +131,10 @@ def solve_sweep_torch(
     timings: Optional[dict] = None,
     ipm_warm_iters: Optional[int] = None,
     lp_backend: Optional[str] = None,
+    pdhg_iters: Optional[int] = None,
+    pdhg_restart_tol: Optional[float] = None,
+    mesh_shards: Optional[int] = None,
+    pdhg_dtype: Optional[str] = None,
     device=None,
 ):
     """Solve the whole dense k-sweep on ``device`` (None = cuda).
@@ -140,8 +145,12 @@ def solve_sweep_torch(
     mip-gap certificate (``certified``/``gap``). Ks with W < M are None. A
     solve that misses the certificate warns (``RuntimeWarning``) and returns
     ``certified=False`` with the achieved gap. ``timings`` receives
-    ``build_sf_ms``, ``upload_ms``, ``solve_ms``, ``ipm_iters_executed`` and
-    ``bnb_rounds``; the chosen engine is echoed as ``lp_backend``.
+    ``build_sf_ms``, ``upload_ms``, ``solve_ms``, ``ipm_iters_executed`` (LP
+    iterations of either engine) and ``bnb_rounds``; the chosen engine is
+    echoed as ``lp_backend`` and the shard count as ``mesh_shards``.
+    ``pdhg_iters``/``pdhg_restart_tol``/``pdhg_dtype`` set the PDHG engine's
+    budget, restart factor and iterate precision; ``mesh_shards`` above 1
+    (the multi-GPU engine) raises.
     """
     if coeffs is None:
         raise ValueError("solve_sweep_torch requires the HaldaCoeffs used for assembly")
@@ -157,10 +166,23 @@ def solve_sweep_torch(
     t0 = time.perf_counter()
     sf = build_standard_form(arrays, coeffs, feasible)
     n_k = len(sf.ks)
-    cap, beam, ipm_iters, ipm_warm_iters, max_rounds, engine = resolve_search_params(
+    (
+        cap, beam, ipm_iters, ipm_warm_iters, max_rounds, engine, mesh_shards,
+        pdhg_dtype,
+    ) = resolve_search_params(
         False, n_k, node_cap, beam, ipm_iters, max_rounds,
-        ipm_warm_iters=ipm_warm_iters, lp_backend=lp_backend, M=M,
+        ipm_warm_iters=ipm_warm_iters, lp_backend=lp_backend,
+        pdhg_iters=pdhg_iters, M=M, mesh_shards=mesh_shards,
+        pdhg_dtype=pdhg_dtype,
     )
+    if mesh_shards > 1:
+        raise NotImplementedError(
+            f"mesh_shards={mesh_shards}: the row-sharded PDHG runs across GPUs, "
+            f"a later slice of the port (ROADMAP.md A13)"
+        )
+    if timings is not None:
+        timings["lp_backend"] = engine
+        timings["mesh_shards"] = mesh_shards
     warm_tuple, root_warm_tuple = warm_inputs(sf, warm, feasible)
     host = device_arrays(sf)
     rd_np = rounding_arrays_np(coeffs, None)
@@ -192,7 +214,8 @@ def solve_sweep_torch(
     state, root_iters = run_bnb_loop(
         data, state, mip_gap, ipm_iters=ipm_iters, max_rounds=max_rounds,
         beam=beam, ipm_warm_iters=ipm_warm_iters,
-        root_warm_chunk=root_warm_tuple is not None,
+        root_warm_chunk=root_warm_tuple is not None, lp_backend=engine,
+        pdhg_restart_tol=pdhg_restart_tol, pdhg_dtype=pdhg_dtype,
     )
     head = torch.cat([
         torch.stack([
@@ -205,7 +228,6 @@ def solve_sweep_torch(
     t3 = time.perf_counter()
 
     stats = {
-        "lp_backend": engine,
         "build_sf_ms": (t1 - t0) * 1e3,
         "upload_ms": (t2 - t1) * 1e3,
         "solve_ms": (t3 - t2) * 1e3,

@@ -1,7 +1,8 @@
 """Batched branch-and-bound over the whole k-sweep, driven from the host.
 
 Each round solves the LP relaxations of the best-bound-first prefix of the
-frontier in one batched IPM call (kernel K1), rounds every LP point to an
+frontier in one batched LP call (the IPM, kernel K1, or at fleet scale the
+PDHG engine, kernel K5), rounds every LP point to an
 exact integer incumbent (K2), then runs the per-row epilogue (K3: bound fold,
 pruning, reduced-cost box tightening, closing, branching, child boxes, warm
 carry). The scalar reductions over the beam and the stable best-bound-first
@@ -9,8 +10,9 @@ compaction are plain tensor operations. One global incumbent prunes across
 every k's tree, since the answer is the minimum over k.
 
 Ported from ``distilp_tpu/solver/backend_jax.py`` (``SearchState``,
-``SweepData``, ``_root_state``, the dense IPM branch of ``_bnb_round``,
-``_best_bound``, ``_certified``, ``_run_bnb_loop``). The reference runs the
+``SweepData``, ``_root_state``, the dense IPM and single-device PDHG
+branches of ``_bnb_round``, ``_cast_lp_result``, ``_best_bound``,
+``_certified``, ``_run_bnb_loop``). The reference runs the
 loop as one device program; here it is a host loop that reads one boolean
 from the device per round.
 
@@ -26,6 +28,7 @@ import torch
 
 from .. import kernels
 from ..ops.ipm import IPMResult, IPMWarmState, LPBatch, ipm_solve_batch
+from ..ops.pdhg import pdhg_solve_batch
 from .rounding import RoundingData, round_to_incumbent
 from .standard_form import FRAC_TOL, IPM_ITERS, MAX_ROUNDS
 
@@ -315,6 +318,24 @@ def _epilogue_kernel(
     return out
 
 
+def cast_lp_result(res: IPMResult, tgt: torch.dtype) -> IPMResult:
+    """Cast an LP result's iteration-dtype fields back to the search dtype,
+    as the reference does after a ``pdhg_dtype='f64'`` solve: ``bound``
+    (already the float64 certificate) and ``converged`` pass through, every
+    other field is rounded to ``tgt``. ``reduced`` is rounded too, then held
+    in float64 for the epilogue kernel, so reduced-cost tightening sees the
+    reference's values."""
+    if res.v.dtype == tgt:
+        return res
+    cast = {
+        f: getattr(res, f).to(tgt)
+        for f in ("v", "obj", "rp_norm", "rd_norm", "mu", "y_dual", "z_dual",
+                  "f_dual", "iters_run")
+    }
+    cast["reduced"] = res.reduced.to(tgt).to(BDTYPE)
+    return res._replace(**cast)
+
+
 def bnb_round(
     data: SweepData,
     state: SearchState,
@@ -322,10 +343,16 @@ def bnb_round(
     ipm_iters: int = IPM_ITERS,
     beam: Optional[int] = None,
     ipm_chunk: Optional[int] = None,
+    lp_backend: str = "ipm",
+    pdhg_restart_tol: Optional[float] = None,
+    pdhg_dtype: Optional[str] = None,
 ) -> Tuple[SearchState, IPMResult]:
     """One batched branch-and-bound round over the frontier prefix of
     ``beam`` rows (rows past it pass through with their parent bound).
-    Returns the new state and the beam rows' raw LP result."""
+    ``ipm_iters`` is the LP budget of whichever engine ``lp_backend``
+    names; ``ipm_chunk`` (the IPM's cold-root full-length chunk) is never
+    passed to the PDHG, whose convergence point inside its budget is unknown
+    even cold. Returns the new state and the beam rows' raw LP result."""
     M = state.inc_w.shape[0]
     cap = state.node_lo.shape[0]
     n_k = state.per_k_best.shape[0]
@@ -343,14 +370,18 @@ def bnb_round(
         f=state.node_f[:B],
         ok=state.node_warm[:B],
     )
-    chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
-    res = ipm_solve_batch(
-        LPBatch(A=data.A, b=data.b_k[kidx_p], c=data.c_k[kidx_p], l=lo_p, u=hi_p),
-        iters=ipm_iters,
-        warm=warm,
-        skip=~active_p,
-        **chunk_kw,
-    )
+    lp_batch = LPBatch(A=data.A, b=data.b_k[kidx_p], c=data.c_k[kidx_p], l=lo_p, u=hi_p)
+    if lp_backend == "pdhg":
+        res = pdhg_solve_batch(
+            lp_batch, iters=ipm_iters, restart_tol=pdhg_restart_tol, warm=warm,
+            skip=~active_p, dtype=pdhg_dtype,
+        )
+        res = cast_lp_result(res, data.A.dtype)
+    else:
+        chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
+        res = ipm_solve_batch(
+            lp_batch, iters=ipm_iters, warm=warm, skip=~active_p, **chunk_kw,
+        )
 
     # Exact integer incumbents from every processed row's LP point.
     obj_lin, w_int, n_int = round_to_incumbent(
@@ -439,14 +470,18 @@ def run_bnb_loop(
     beam: Optional[int] = None,
     ipm_warm_iters: Optional[int] = None,
     root_warm_chunk: bool = False,
+    lp_backend: str = "ipm",
+    pdhg_restart_tol: Optional[float] = None,
+    pdhg_dtype: Optional[str] = None,
 ):
     """Root round, then warm rounds until the mip-gap certificate closes,
     the frontier empties, or ``max_rounds`` rounds ran.
 
     The root round covers exactly the n_k roots at the full ``ipm_iters``
-    budget (one full-length chunk when cold; the kernel's small chunks when
-    the roots carry a previous solve's iterates); later rounds warm-start
-    from their parents at ``ipm_warm_iters``. It is skipped when the seeded
+    budget (for the IPM one full-length chunk when cold, the kernel's small
+    chunks when the roots carry a previous solve's iterates; the PDHG always
+    uses its own chunk); later rounds warm-start from their parents at
+    ``ipm_warm_iters``. It is skipped when the seeded
     state already certifies. Returns ``(state, root_iters)`` where
     root_iters = (ok, v, y, z, f) are the root round's iterates (the
     carried-in ones when the root round was skipped).
@@ -460,6 +495,8 @@ def run_bnb_loop(
         # The one device-to-host read of a round.
         return bool((st.active.any() & ~certified(st, mip_gap)).item())
 
+    engine = dict(lp_backend=lp_backend, pdhg_restart_tol=pdhg_restart_tol,
+                  pdhg_dtype=pdhg_dtype)
     root_iters = (
         state.node_warm[:B0], state.node_v[:B0], state.node_y[:B0],
         state.node_z[:B0], state.node_f[:B0],
@@ -468,7 +505,7 @@ def run_bnb_loop(
         ok = state.active[:B0]
         state, res = bnb_round(
             data, state, mip_gap, ipm_iters=ipm_iters, beam=B0,
-            ipm_chunk=None if root_warm_chunk else ipm_iters,
+            ipm_chunk=None if root_warm_chunk else ipm_iters, **engine,
         )
         root_iters = (
             ok, res.v.to(DTYPE), res.y_dual.to(DTYPE), res.z_dual.to(DTYPE),
@@ -476,6 +513,7 @@ def run_bnb_loop(
         )
     i = 1
     while i < max_rounds and go(state):
-        state, _ = bnb_round(data, state, mip_gap, ipm_iters=warm_iters, beam=beam)
+        state, _ = bnb_round(data, state, mip_gap, ipm_iters=warm_iters, beam=beam,
+                             **engine)
         i += 1
     return state, root_iters

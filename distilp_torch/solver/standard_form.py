@@ -1,11 +1,12 @@
 """Host-side (numpy) boxed standard form of the HALDA LP family.
 
 The search constants and budgets, the exact rounding data, and the row-scaled
-per-k ``(A, b, c, lo, hi)`` family the branch-and-bound sweep solves. Pure
-numpy: every array here is byte-equal to what the JAX package builds
+per-k ``(A, b, c, lo, hi)`` family the branch-and-bound sweep solves. The
+arrays are numpy and byte-equal to what the JAX package builds
 (``distilp_tpu/solver/backend_jax.py``: ``default_search_params``,
-``_resolve_search_params``, ``_rounding_arrays_np``, ``_root_boxes``,
-``build_standard_form``), which the tests pin.
+``default_pdhg_iters``, ``_resolve_lp_backend``, ``_resolve_search_params``,
+``_rounding_arrays_np``, ``_root_boxes``, ``build_standard_form``), which the
+tests pin.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..ops.pdhg import resolve_pdhg_dtype
 from .assemble import INACTIVE_RHS, MilpArrays
 from .coeffs import HaldaCoeffs
 
@@ -26,26 +28,33 @@ FRAC_TOL = 1e-4
 # Frontier rows that get an LP solve per round in the escalated budget.
 BEAM = 16
 
-# LP relaxation engines. This port has the interior-point engine; 'auto'
-# resolves to it below PDHG_AUTO_M devices, as in the reference.
+# LP relaxation engines: 'ipm' (batched Mehrotra, dense m x m normal
+# matrices), 'pdhg' (matrix-free restarted Halpern PDHG, the fleet-scale
+# engine) and 'auto' (pdhg at or above PDHG_AUTO_M devices, ipm below).
 LP_BACKENDS = ("ipm", "pdhg", "auto")
 PDHG_AUTO_M = 128
+# First-order budgets: a PDHG step is two matvecs, so budgets are ~2 orders
+# of magnitude above the IPM's; warm rounds keep a quarter of the cold one.
+PDHG_ITERS = 2000
+PDHG_WARM_FLOOR = 200
+
+
+def default_pdhg_iters(M: int) -> int:
+    """Size-aware cold first-order budget (the escalation ladder multiplies
+    this one copy of the rule)."""
+    return PDHG_ITERS * max(1, M // 128)
 
 
 def resolve_lp_backend(lp_backend: Optional[str], M: int) -> str:
-    """The concrete engine ('ipm'); raises for an engine the port lacks."""
+    """'ipm' or 'pdhg' from the public selector (None = 'auto')."""
     lb = "auto" if lp_backend is None else lp_backend
     if lb not in LP_BACKENDS:
         raise ValueError(
             f"unknown lp_backend {lp_backend!r}; expected one of {LP_BACKENDS}"
         )
-    engine = ("pdhg" if M >= PDHG_AUTO_M else "ipm") if lb == "auto" else lb
-    if engine == "pdhg":
-        raise NotImplementedError(
-            f"the PDHG engine is a later slice of the port (lp_backend="
-            f"{lp_backend!r}, M={M}); pass lp_backend='ipm'"
-        )
-    return engine
+    if lb == "auto":
+        return "pdhg" if M >= PDHG_AUTO_M else "ipm"
+    return lb
 
 
 def default_search_params(moe: bool, n_k: int) -> Tuple[int, int, int]:
@@ -64,17 +73,48 @@ def resolve_search_params(
     max_rounds: Optional[int],
     ipm_warm_iters: Optional[int] = None,
     lp_backend: Optional[str] = None,
+    pdhg_iters: Optional[int] = None,
     M: int = 0,
-) -> Tuple[int, int, int, int, int, str]:
-    """(cap, beam, lp_iters, lp_warm_iters, max_rounds, engine): caller
-    overrides over the problem-class defaults. Every round after the root
-    warm-starts from its parent, so its budget defaults to half the cold one
-    (at least 6); a truncated budget only loosens the f64 bound."""
+    mesh_shards: Optional[int] = None,
+    pdhg_dtype: Optional[str] = None,
+) -> Tuple[int, int, int, int, int, str, int, Optional[str]]:
+    """(cap, beam, lp_iters, lp_warm_iters, max_rounds, engine, mesh_shards,
+    pdhg_dtype): caller overrides over the problem-class defaults.
+
+    Under 'ipm' every round after the root warm-starts from its parent, so
+    its budget defaults to half the cold one (at least 6). Under 'pdhg' the
+    iteration slots carry the first-order budgets (``pdhg_iters``, else
+    :func:`default_pdhg_iters`; warm rounds a quarter of it, at least
+    ``PDHG_WARM_FLOOR``); ``ipm_iters``/``ipm_warm_iters`` do not touch a
+    PDHG solve. ``mesh_shards`` and ``pdhg_dtype`` are PDHG knobs: set while
+    the engine resolved to the IPM, they raise. A truncated budget only
+    loosens the float64 bound.
+    """
     d_cap, d_beam, d_iters = default_search_params(moe, n_k)
     engine = resolve_lp_backend(lp_backend, M)
-    it = ipm_iters if ipm_iters is not None else d_iters
-    warm_it = ipm_warm_iters if ipm_warm_iters is not None else max(6, it // 2)
-    warm_it = min(warm_it, it) if ipm_warm_iters is None else warm_it
+    if engine == "pdhg":
+        it = pdhg_iters if pdhg_iters is not None else default_pdhg_iters(M)
+        warm_it = min(it, max(PDHG_WARM_FLOOR, it // 4))
+    else:
+        it = ipm_iters if ipm_iters is not None else d_iters
+        warm_it = ipm_warm_iters if ipm_warm_iters is not None else max(6, it // 2)
+        warm_it = min(warm_it, it) if ipm_warm_iters is None else warm_it
+    shards = 1 if mesh_shards is None else int(mesh_shards)
+    if shards < 1:
+        raise ValueError(f"mesh_shards must be >= 1 (got {mesh_shards})")
+    resolve_pdhg_dtype(pdhg_dtype)  # validate the spelling early
+    if engine != "pdhg":
+        if shards > 1:
+            raise ValueError(
+                f"mesh_shards={shards} requires the matrix-free pdhg "
+                f"engine, but lp_backend resolved to {engine!r} (pass "
+                f"lp_backend='pdhg', or 'auto' at fleet scale)"
+            )
+        if pdhg_dtype is not None:
+            raise ValueError(
+                f"pdhg_dtype={pdhg_dtype!r} is a pdhg-engine knob, but "
+                f"lp_backend resolved to {engine!r}"
+            )
     return (
         max(node_cap, n_k) if node_cap is not None else d_cap,
         beam if beam is not None else d_beam,
@@ -82,6 +122,8 @@ def resolve_search_params(
         warm_it,
         max_rounds if max_rounds is not None else MAX_ROUNDS,
         engine,
+        shards,
+        pdhg_dtype,
     )
 
 

@@ -251,3 +251,69 @@ def test_route_follows_the_tensors_device():
     mixed = batch._replace(A=batch.A.to("meta"))
     with pytest.raises(ValueError, match="mixed"):
         ipm_solve_batch(mixed, iters=2)
+
+
+@pytest.mark.parametrize("M,dtype,route", [
+    (16, torch.float32, "shared"),
+    (128, torch.float32, "shared"),
+    (172, torch.float32, "shared"),
+    (173, torch.float32, "global"),
+    (192, torch.float32, "global"),
+    (86, torch.float64, "shared"),
+    (87, torch.float64, "global"),
+])
+def test_workspace_route_follows_the_shapes(monkeypatch, M, dtype, route):
+    """K1 keeps each LP's (24 n + 4 m + 32) vector elements in shared memory
+    while they fit, beside its 256 bytes of static shared memory, the
+    232448 bytes an H100 block can opt into, and in a per-block global
+    workspace above that (m = 6M+1, n = 13M+1 for an M-device fleet). The
+    kernel library answers the route query on the card (``chip_smoke.py``
+    holds its answers to this table); here a stand-in library answers with
+    the H100 figures, and the wrapper is driven to see what it hands the
+    kernel: a null vector workspace on the shared route, B slices of the
+    vector length on the global one."""
+    from distilp_torch import kernels
+    from distilp_torch.kernels import build
+    from distilp_torch.ops import ipm
+
+    m, n = 6 * M + 1, 13 * M + 1
+    vec_bytes = dtype.itemsize * (24 * n + 4 * m + 32)
+    assert vec_bytes == (1344 * M + 240) * (dtype.itemsize // 4)
+    f64 = int(dtype == torch.float64)
+    seen = {}
+
+    class Lib:
+        def dtk_ipm_vec_ws_bytes(self, device, B, m_, n_, is_f64, out):
+            assert (m_, n_, is_f64) == (m, n, f64)
+            out._obj.value = 0 if vec_bytes + 256 <= 232448 else B * vec_bytes
+            return 0
+
+        def launcher(self, *args):
+            seen["vec_ws"] = args[21].value  # after A..skip, B..reg and ws
+            return 0
+
+        dtk_ipm_f32 = dtk_ipm_f64 = launcher
+
+    monkeypatch.setattr(build, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(kernels, "stream_handle", lambda dev: None)
+    assert ipm.ipm_workspace_route(m, n, dtype, torch.device("cpu")) == route
+    allocs = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        allocs.append(t.numel())
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    B = 2
+    z = lambda *s: torch.zeros(*s, dtype=dtype)  # noqa: E731
+    ipm.ipm_solve_batch(LPBatch(z(m, n), z(B, m), z(B, n), z(B, n), z(B, n) + 1), iters=1)
+    vec_len = vec_bytes // dtype.itemsize
+    if route == "shared":
+        assert seen["vec_ws"] is None
+        assert B * vec_len not in allocs
+    else:
+        assert seen["vec_ws"] is not None
+        assert B * vec_len in allocs

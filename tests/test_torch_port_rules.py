@@ -64,7 +64,7 @@ def test_kernel_sources_and_launch_counters():
         assert (build.CSRC / src).is_file(), src
     for h in build.HEADERS:
         assert (build.CSRC / h).is_file(), h
-    assert set(kernels.LAUNCHES) == {"ipm", "round_incumbent", "bnb_epilogue"}
+    assert set(kernels.LAUNCHES) == {"ipm", "round_incumbent", "bnb_epilogue", "pdhg"}
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
     assert set(kernels.LAUNCHES.values()) == {0}

@@ -187,7 +187,8 @@ def test_jax_result_seeds_the_port(profiles_dir):
 def test_unported_options_raise(profiles_dir):
     devs, model = load_from_profile_folder(profiles_dir / "llama_3_70b" / "online")
     with pytest.raises(NotImplementedError):
-        halda_solve(devs, model, kv_bits="4bit", device="cpu", lp_backend="pdhg")
+        halda_solve(devs, model, kv_bits="4bit", device="cpu", lp_backend="pdhg",
+                    mesh_shards=2)
     with pytest.raises(NotImplementedError):
         halda_solve(devs, model, kv_bits="4bit", device="cpu", convergence={})
 
