@@ -7,23 +7,32 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the four kernels from ``distilp_torch/kernels/csrc`` (timed);
+  2. build the six kernel libraries from ``distilp_torch/kernels/csrc``, one
+     nvcc each, all started together (timed);
   3. each kernel against its plain PyTorch version on the card, at the shapes
      of the 16-device north-star instance (the IPM also at M=32, and at M=192
      where its vectors leave shared memory; the PDHG at the root batches of
      the 128- and 512-device fleets, cold and warm, in float64 and float32,
      with every bound checked against the HiGHS LP optimum; the mixed-
-     precision entry's float64 fallback), with the tolerances stated below,
+     precision entry's float64 fallback), and at the MoE shapes: the IPM
+     with a per-node A on the DeepSeek-V3 flagship's root and beam batches,
+     the MoE rounding in its three modes, and the decomposition bound (K7)
+     in float32 (bound and gradient) and float64 (bound, y-profile, hint)
+     on Qwen3-30B-A3B and the flagship; with the tolerances stated below,
      and each kernel's time beside its plain version's and its least
      possible time on an H100;
-  4. the main path, in two runs, each with the launch counts zeroed before
+  4. the main path, in three runs, each with the launch counts zeroed before
      it and read after it: (a) the dense slice, ``halda_solve`` on the four
      golden fixtures (pinned k and objective), the north star (pinned
      objective) and a 32-device fleet (against the port's HiGHS oracle);
      (b) fleet scale, ``halda_solve`` with the defaults on the 128-device
      fleet (the PDHG engine; pinned), the same instance on the IPM engine
      and with float64 PDHG iterates, the north star on the PDHG engine, and
-     the 512-device fleet at gap 0.05 (pinned);
+     the 512-device fleet at gap 0.05 (pinned); (c) MoE co-assignment,
+     ``halda_solve`` on Mixtral 8x7B (4 and 8 devices), Qwen3-30B-A3B (16
+     devices) and the DeepSeek-V3 flagship (E=256 over 32 devices, pinned
+     and against the HiGHS oracle), then a warm re-solve of the flagship
+     after t_comm drift that re-evaluates the bound at the stored duals;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
@@ -62,6 +71,22 @@ FLEET128_PDHG = (1, -312.9522665906968)
 FLEET128_IPM = (1, -312.9222174356161)  # lp_backend='ipm'
 FLEET512_GAP = 0.05
 FLEET512_PDHG = (1, -1255.833655005908)
+# MoE pins (k, objective), from the JAX package on the CPU at mip_gap 1e-3,
+# kv 8bit, lp_backend 'auto' (the IPM engine below 128 devices):
+#   distilp_tpu.solver.halda_solve(make_synthetic_fleet(M, seed=S,
+#       pool_bytes=P), profile_model(tests/configs/<cfg>.json,
+#       batch_sizes=[1], sequence_length=128).to_model_profile(),
+#       mip_gap=1e-3, kv_bits="8bit", backend="jax")
+# (name, config, M, seed, pool bytes, pin). Qwen3's fleet seed is one the
+# JAX package certifies at gap 0.
+MOE_GAP = 1e-3
+MOE_CASES = [
+    ("mixtral_M4", "mixtral_8x7b", 4, 7, 64e9, (4, -132.93320566181376)),
+    ("mixtral_M8", "mixtral_8x7b", 8, 7, 64e9, (4, -244.53183237917105)),
+    ("qwen3_30b_a3b_M16", "qwen3_30b_a3b_8bit", 16, 1, 64e9, (3, -396.7709977962328)),
+    ("deepseek_v3_M32", "deepseek_v3", 32, 11, 32e9, (1, -400.80947050866087)),
+]
+FLAGSHIP = MOE_CASES[-1]
 
 # Kernel-vs-plain tolerances. K2 and K3 are exact (same float64/float32
 # operations, no contraction): integer outputs, boxes and flags equal,
@@ -90,6 +115,18 @@ TOL_EXACT_F64 = 1e-12
 TOL_PDHG_F64 = 1e-6
 TOL_PDHG_F32_CERT = 1e-3
 TOL_SOUND = 1e-6
+# K2's MoE mode: integer vectors equal, objectives within 1e-12 relative
+# (TOL_EXACT_F64). K7 float32: the bound within 1e-5 relative (scale
+# max(1, |ref|)) and the tie-averaged w, y and cyc within 1e-5 (the two sum
+# the tied cells' values in another order); float64: bound and m_y within
+# 1e-12 relative, the hint (w*, n*, y*) equal.
+TOL_DECOMP_F32 = 1e-5
+# K1 with a per-node A in float64: its iterate fields within this multiple
+# of the plain version's own change under a 4-ulp change of b (see
+# check_ipm_moe). Summation order perturbs every step, not b alone, hence
+# the wide factor; a wrong per-element index moves fields by O(1) and is
+# also caught by the batch-against-each-element-alone equality.
+TOL_IPM_MOE_SENS = 100.0
 
 
 def fail(msg: str) -> None:
@@ -750,6 +787,378 @@ def check_pdhg_mp() -> None:
         fail(f"pdhg_solve_batch_mp fallback check failed: {line}")
 
 
+# ---------------------------------------------------------------- MoE shapes
+
+
+def moe_model(config: str):
+    from distilp_torch.profiler import profile_model
+
+    return profile_model(str(ROOT / "tests" / "configs" / f"{config}.json"),
+                         batch_sizes=[1], sequence_length=128).to_model_profile()
+
+
+def moe_instance(case, device="cuda"):
+    """The sweep of one MoE case on ``device``: (devs, model, coeffs, arrays,
+    feasible, sf, rd_np, SweepData, (p32, p64))."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops.decomp import decomp_problem
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.solver.backend_torch import device_arrays
+    from distilp_torch.solver.rounding import pack_rounding_data, rounding_data
+    from distilp_torch.solver.search import SweepData
+    from distilp_torch.solver.standard_form import build_standard_form, rounding_arrays_np
+    from distilp_torch.utils import make_synthetic_fleet
+
+    _, config, M, seed, pool, _ = case
+    model = moe_model(config)
+    devs = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool))
+    Ks, _, coeffs, arrays = _build_instance(devs, model, None, "8bit", None, None)
+    feasible = [(k, model.L // k) for k in Ks if model.L // k >= M]
+    sf = build_standard_form(arrays, coeffs, feasible)
+    rd_np = rounding_arrays_np(coeffs, arrays.moe)
+    host = device_arrays(sf, rd_np["g_raw"])
+    t = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+    rd = rounding_data(rd_np, device)
+    data = SweepData(
+        A=t["A"], b_k=t["b_k"], c_k=t["c_k"], int_mask=t["int_mask"],
+        ks=torch.as_tensor(np.asarray(sf.ks, np.float64), device=device),
+        Ws=torch.as_tensor(np.asarray(sf.Ws, np.float64), device=device),
+        obj_const=float(sf.obj_const), rd=rd, rd_packed=pack_rounding_data(rd),
+        gky=t["gky"],
+    )
+    w_max, E = max(sf.Ws), int(rd_np["E"])
+    probs = tuple(decomp_problem(rd_np, sf.ks, sf.Ws, w_max, E, dt, device)
+                  for dt in (torch.float32, torch.float64))
+    return devs, model, coeffs, arrays, feasible, sf, rd_np, data, probs, host
+
+
+def moe_ipm_batch(data, host, B: int, dtype, rng):
+    """B nodes of the MoE family with their own A (the per-k expert-busy
+    entries scattered in, as a round builds them): roots of random k with
+    branch-like fixed columns (some n_i := 0, some y_i boxes cut to half),
+    warm iterates from a short plain solve, and a skip mask (no skip at
+    B=1)."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops.ipm import IPMWarmState, LPBatch, ipm_solve_batch_reference
+    from distilp_torch.solver.search import node_A
+
+    n_k = host["b_k"].shape[0]
+    M = data.rd.a.shape[0]
+    kidx = rng.integers(0, n_k, B)
+    lo = host["lo_k"][kidx].astype(np.float64)
+    hi = host["hi_k"][kidx].astype(np.float64)
+    if B > 1:
+        for r in range(B):
+            fix_n = np.nonzero(rng.random(M) < 0.3)[0]
+            lo[r, M + fix_n] = 0.0
+            hi[r, M + fix_n] = 0.0
+            cut = np.nonzero(rng.random(M) < 0.3)[0]
+            hi[r, 2 * M + cut] = np.floor(hi[r, 2 * M + cut] / 2)
+    dev = torch.device("cuda")
+    T = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)  # noqa: E731
+    A = node_A(data, torch.as_tensor(kidx, device=dev), M).to(dtype)
+    batch = LPBatch(A=A, b=T(host["b_k"][kidx]), c=T(host["c_k"][kidx]), l=T(lo), u=T(hi))
+    pre = ipm_solve_batch_reference(batch, iters=4)
+    noise = lambda t: t * (1.0 + 0.05 * T(rng.standard_normal(tuple(t.shape))))  # noqa: E731
+    warm = IPMWarmState(
+        v=noise(pre.v), y=noise(pre.y_dual), z=noise(pre.z_dual).abs(),
+        f=noise(pre.f_dual).abs(),
+        ok=torch.as_tensor(rng.random(B) < 0.75, device=dev),
+    )
+    skip = torch.as_tensor((rng.random(B) < 0.2) & (B > 1), device=dev)
+    return batch, warm, skip
+
+
+def check_ipm_moe(report: dict) -> None:
+    """K1's per-element-A route at the flagship's shapes (m=258, n=513).
+
+    Each element's block reads only its own A, so the batch's results must
+    equal, bit for bit, those of each element run alone: that holds the
+    per-element indexing. Against the plain version: float32 as above
+    (the bound within TOL_IPM_F32_CERT); float64 the bound within
+    TOL_IPM_F64 with equal iteration counts and flags, and every other field
+    within TOL_IPM_MOE_SENS times what a 4-ulp change of b moves the plain
+    version itself: these nodes' normal matrices are so ill-conditioned
+    that their iterates carry that sensitivity (on the CPU a 4-ulp change of
+    b moves v by 9e-5 relative and the bound by 1.6e-9)."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops.ipm import (
+        IPMWarmState,
+        LPBatch,
+        ipm_solve_batch,
+        ipm_solve_batch_reference,
+        ipm_workspace_route,
+    )
+
+    *_, data, _, host = moe_instance(FLAGSHIP)
+    rng = np.random.default_rng(77)
+    bad, rows = [], []
+    for B, dtype, iters, chunk in ((1, torch.float32, 26, 26), (16, torch.float32, 13, 4),
+                                   (1, torch.float64, 26, 26), (16, torch.float64, 13, 4)):
+        batch, warm, skip = moe_ipm_batch(data, host, B, dtype, rng)
+        w = None if B == 1 else warm
+        route = ipm_workspace_route(*batch.A.shape[1:], dtype, batch.A.device)
+        k = ipm_solve_batch(batch, iters=iters, warm=w, skip=skip, chunk=chunk)
+        r = ipm_solve_batch_reference(batch, iters=iters, warm=w, skip=skip, chunk=chunk)
+        alone_equal = True
+        if B > 1:
+            for e in range(B):
+                sub = LPBatch(*(t[e:e + 1] for t in batch))
+                ke = ipm_solve_batch(sub, iters=iters, chunk=chunk, skip=skip[e:e + 1],
+                                     warm=IPMWarmState(*(t[e:e + 1] for t in warm)))
+                alone_equal &= all(torch.equal(getattr(ke, f), getattr(k, f)[e:e + 1])
+                                   for f in k._fields)
+        sens = None
+        if dtype == torch.float64:
+            bumped = batch._replace(b=batch.b * (1.0 + 2.0 ** -50))
+            rs = ipm_solve_batch_reference(bumped, iters=iters, warm=w, skip=skip, chunk=chunk)
+            sens = {f: max_err(getattr(rs, f), getattr(r, f))[1]
+                    for f in k._fields if f not in ("converged", "iters_run")}
+        torch.cuda.synchronize()
+        errs = {f: max_err(getattr(k, f), getattr(r, f))
+                for f in k._fields if f not in ("converged", "iters_run")}
+        d_it = int((k.iters_run - r.iters_run).abs().max())
+        conv_eq = bool(torch.equal(k.converged, r.converged))
+        if dtype == torch.float64:
+            ok = (d_it == 0 and conv_eq and errs["bound"][1] <= TOL_IPM_F64
+                  and all(e[1] <= max(TOL_IPM_F64, TOL_IPM_MOE_SENS * sens[f])
+                          for f, e in errs.items()))
+        else:
+            ok = errs["bound"][1] <= TOL_IPM_F32_CERT
+        ok = ok and alone_equal
+        line = {"instance": FLAGSHIP[0], "A": list(batch.A.shape), "route": route,
+                "dtype": str(dtype).split(".")[-1], "iters": iters, "chunk": chunk,
+                "iters_run": k.iters_run.tolist(), "d_iters": d_it,
+                "converged_equal": conv_eq, "batch_equals_each_element_alone": alone_equal,
+                "max_abs": {f: e[0] for f, e in errs.items()},
+                "max_rel": {f: e[1] for f, e in errs.items()},
+                "plain_max_rel_under_4ulp_b": sens, "ok": ok}
+        print("ipm per-node A vs plain", json.dumps(line), flush=True)
+        rows.append(line)
+        if not ok:
+            bad.append((B, line["dtype"]))
+    if bad:
+        fail(f"ipm kernel with a per-node A disagrees with its plain version in (B, dtype) {bad}")
+    # Time: a MoE beam round (B=16 nodes, float32, 13 warm-budget steps).
+    batch, warm, skip = moe_ipm_batch(data, host, 16, torch.float32, np.random.default_rng(78))
+    _, m, n = batch.A.shape
+    run_k = lambda: ipm_solve_batch(batch, iters=13, warm=warm, chunk=4)  # noqa: E731
+    res = run_k()
+    flops, nbytes = ipm_flops_bytes(m, n, 16, int(res.iters_run.sum()), 4, warm=True)
+    nbytes += 15 * m * n * 4  # 16 matrices, not one shared
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+    ms, call, src = time_kernel(run_k, "ipm_kernel")
+    plain = cuda_ms(lambda: ipm_solve_batch_reference(batch, iters=13, warm=warm, chunk=4),
+                    reps=3, warmup=1)
+    report["ipm"]["per_node_A"] = dict(
+        shapes=f"B=16 m={m} n={n} float32, 13 steps", ms=ms, call_ms=call, ms_source=src,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        steps_timed=int(res.iters_run.sum()),
+        max_abs_err_bound=max(r["max_abs"]["bound"] for r in rows),
+    )
+    print(f"ipm per-node A: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
+          f"{plain:.3f} ms, bound {b_ms:.5f} ms by {b_by}) at B=16 m={m} n={n}", flush=True)
+
+
+def round_moe_bytes_flops(B: int, M: int, moves: int, y_steps: int, cand_per_step: int):
+    """Least work of one MoE rounding launch: every candidate priced once per
+    step over M devices (~30 float64 operations each), the redistributions'
+    O(M^2); bytes: the rows' LP points (float32 here), W and k, the packed
+    data, the outputs."""
+    flops = B * (moves * 5 * M * M + y_steps * cand_per_step) * M * 30 + B * 2 * (M + 4) * 3 * M
+    nbytes = B * 3 * M * 4 + 2 * B * 8 + 17 * M * 8 + B * (1 + 3 * M) * 8
+    return flops, nbytes
+
+
+def check_round_moe(report: dict) -> None:
+    """K2's MoE mode on the flagship, in its three modes."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops.decomp import decomp_bound_roots
+    from distilp_torch.ops.ipm import ipm_solve_batch
+    from distilp_torch.solver.rounding import round_moe_reference, round_to_incumbent
+    from distilp_torch.solver.standard_form import MOE_LOCAL_MOVES, MOE_LOCAL_MOVES_WARM
+
+    *_, data, (p32, p64), host = moe_instance(FLAGSHIP)
+    M, E = data.rd.a.shape[0], p64.e_max
+    # 16 LP points of a beam round.
+    batch, _, _ = moe_ipm_batch(data, host, 16, torch.float32, np.random.default_rng(5))
+    v_lp = ipm_solve_batch(batch, iters=13, chunk=4).v
+    kidx = torch.as_tensor(np.random.default_rng(6).integers(0, data.ks.shape[0], 16),
+                           device="cuda")
+    # The Lagrangian-primal hint rows at the ascent's multipliers.
+    _, w_s, n_s, y_s, _, _ = decomp_bound_roots(p32, p64, data.rd, 300)
+    n_k, nf = w_s.shape[0], v_lp.shape[1]
+    v_hint = torch.zeros((n_k, nf), dtype=torch.float64, device="cuda")
+    v_hint[:, :M], v_hint[:, M:2 * M], v_hint[:, 2 * M:3 * M] = w_s, n_s, y_s
+    # One warm row: the first hint row repaired, as a previous optimum.
+    fix = round_moe_reference(v_hint[:1], data.Ws[:1], data.ks[:1], data.rd, y_steps=E + 4)
+    v_warm = torch.zeros((1, nf), dtype=torch.float64, device="cuda")
+    v_warm[0, :M], v_warm[0, M:2 * M], v_warm[0, 2 * M:3 * M] = fix[1][0], fix[2][0], fix[3][0]
+    modes = {
+        "lp_rows_moves8": (v_lp, data.Ws[kidx], data.ks[kidx], dict(moves=MOE_LOCAL_MOVES)),
+        "hint_rows_repair": (v_hint, data.Ws, data.ks, dict(y_steps=E + 4)),
+        "warm_row_moves2": (v_warm, data.Ws[:1], data.ks[:1], dict(moves=MOE_LOCAL_MOVES_WARM)),
+    }
+    bad = []
+    for name, (v, W, k, kw) in modes.items():
+        got = round_to_incumbent(v, W, k, data.rd, data.rd_packed, moe=True, **kw)
+        ref = round_moe_reference(v, W, k, data.rd, **kw)
+        torch.cuda.synchronize()
+        eq = {f: bool(torch.equal(a, b)) for f, a, b in zip(("w", "n", "y"), got[1:], ref[1:])}
+        oa, orel = max_err(got[0], ref[0])
+        line = {"mode": name, "rows": int(v.shape[0]), **{f"{f}_equal": e for f, e in eq.items()},
+                "obj_max_abs": oa, "obj_max_rel": orel,
+                "finite_rows": int(torch.isfinite(ref[0]).sum()),
+                "sum_y": ref[3].sum(1).tolist()}
+        print("round_moe vs plain", json.dumps(line), flush=True)
+        if not (all(eq.values()) and orel <= TOL_EXACT_F64):
+            bad.append(name)
+        report.setdefault("_round_moe_err", []).append(oa)
+    if bad:
+        fail(f"round_moe kernel disagrees with its plain version in {bad}")
+    if not bool(torch.isfinite(ref[0]).all()):
+        fail("the warm row did not price finite")
+    v, W, k, kw = modes["lp_rows_moves8"]
+    run_k = lambda: round_to_incumbent(v, W, k, data.rd, data.rd_packed, moe=True, **kw)  # noqa: E731
+    ms, call, src = time_kernel(run_k, "round_moe_kernel")
+    plain = cuda_ms(lambda: round_moe_reference(v, W, k, data.rd, **kw), reps=3, warmup=1)
+    flops, nbytes = round_moe_bytes_flops(16, M, MOE_LOCAL_MOVES, 0, 0)
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F64_S)
+    vh, Wh, kh, kwh = modes["hint_rows_repair"]
+    hint_ms = cuda_ms(lambda: round_to_incumbent(vh, Wh, kh, data.rd, data.rd_packed,
+                                                 moe=True, **kwh), reps=5, warmup=1)
+    report["round_moe"] = dict(
+        name="round_moe", route="cuda",
+        source="distilp_torch/kernels/csrc/round_moe_kernel.cu",
+        replaces="distilp_tpu/solver/backend_jax.py:721",
+        max_abs_err=max(report.pop("_round_moe_err")), ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, held_against_plain="ok",
+        call_ms=call, ms_source=src,
+        shapes_timed=f"{FLAGSHIP[0]}: 16 LP rows, M={M}, E={E}, 8 move steps",
+        hint_rows_ms=hint_ms,
+    )
+    print(f"round_moe: {ms:.4f} ms on the card, {call:.4f} ms per call (plain {plain:.3f} ms, "
+          f"bound {b_ms:.6f} ms by {b_by}) at B=16 M={M} moves=8; hint rows "
+          f"(y_steps={E + 4}) {hint_ms:.4f} ms per call", flush=True)
+
+
+def decomp_flops_bytes(p, n_evals: int = 1):
+    """Least work of ``n_evals`` float32 evaluations: ~60 operations per
+    cell (the five n candidates and the cell's slacks, costs and term) over
+    5 n_k M w_max (e_max + 1) cells; bytes: the packed per-device vectors,
+    the multipliers, and four (n_k, M) outputs."""
+    n_k, M = p.ks.shape[0], p.rdv.shape[1]
+    cells = 5 * n_k * M * p.w_max * (p.e_max + 1)
+    isz = p.rdv.element_size()
+    nbytes = (15 * M + 2 * n_k + n_k * (M + 2) + 4 * n_k * M) * isz
+    return n_evals * cells * 60, n_evals * nbytes, cells
+
+
+def check_decomp(report: dict) -> None:
+    """K7 on Qwen3-30B-A3B (16 devices) and the flagship."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops import decomp as D
+    from distilp_torch.solver.backend_cpu import Infeasible, solve_fixed_k_cpu
+
+    rng = np.random.default_rng(11)
+    bad, timing, abs_errs = [], {}, []
+    for case in (MOE_CASES[2], FLAGSHIP):
+        _, _, _, arrays, feasible, sf, _, data, (p32, p64), _ = moe_instance(case)
+        n_k, M = p32.ks.shape[0], p32.rdv.shape[1]
+        # (a) float32 bound and its gradient statistics at random multipliers.
+        for trial in range(3):
+            lam = torch.tensor(rng.normal(0, 1, n_k), dtype=torch.float32, device="cuda")
+            mu = torch.tensor(rng.normal(0, 0.3, n_k), dtype=torch.float32, device="cuda")
+            tau = torch.tensor(rng.normal(0, 1, (n_k, M)), dtype=torch.float32, device="cuda")
+            theta = (p32.ks - 1.0)[:, None] * D.softmax(tau)
+            got = D.eval32_kernel(p32, lam, mu, theta)
+            ref = D.eval32_reference(p32, lam, mu, theta)
+            torch.cuda.synchronize()
+            errs = [max_err(a, b) for a, b in zip(got, ref)]
+            abs_errs.append(errs[0][0])
+            b_rel = max_err(got[0].double().sum(1), ref[0].double().sum(1))[1]
+            line = {"instance": case[0], "trial": trial, "n_k": n_k, "M": M,
+                    "min_max_rel": errs[0][1], "bound_max_rel": b_rel,
+                    "w_bar_max_abs": errs[1][0], "y_bar_max_abs": errs[2][0],
+                    "cyc_bar_max_rel": errs[3][1]}
+            ok = (errs[0][1] <= TOL_DECOMP_F32 and b_rel <= TOL_DECOMP_F32
+                  and all(e[1] <= TOL_DECOMP_F32 for e in errs[1:]))
+            line["ok"] = ok
+            print("decomp f32 vs plain", json.dumps(line), flush=True)
+            if not ok:
+                bad.append((case[0], "f32", trial))
+        # (b) float64 evaluation at the multipliers the port's ascent chose.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lam, mu, tau = (x.double() for x in D.ascend(p32, 300))
+        torch.cuda.synchronize()
+        ascent_ms = (time.perf_counter() - t0) * 1e3
+        theta = (p64.ks - 1.0)[:, None] * D.softmax(tau)
+        got = D.eval64_kernel(p64, lam, mu, theta, True)
+        ref = D.eval64_reference(p64, lam, mu, theta, True)
+        bound_k = D.bound_of(p64, got[0], got[1], lam, mu)
+        bound_r = D.bound_of(p64, ref[0], ref[1], lam, mu)
+        torch.cuda.synchronize()
+        my_rel = max_err(got[0], ref[0])[1]
+        b_rel = max_err(bound_k, bound_r)[1]
+        hint_eq = all(bool(torch.equal(a, b)) for a, b in zip(got[1:], ref[1:]))
+        oracle = []
+        for k, W in feasible:
+            try:
+                oracle.append(solve_fixed_k_cpu(arrays, k, W, mip_gap=1e-9).obj_value)
+            except Infeasible:
+                oracle.append(float("inf"))
+        full = (bound_k + sf.obj_const).tolist()
+        sound = all(b <= o + 1e-9 * max(1.0, abs(o)) for b, o in zip(full, oracle))
+        line = {"instance": case[0], "ascent_steps": 300, "ascent_host_ms": ascent_ms,
+                "bound_plus_obj_const": full, "highs_per_k_optimum": oracle,
+                "m_y_max_rel": my_rel, "bound_max_rel": b_rel, "hint_equal": hint_eq,
+                "sound": sound}
+        ok = my_rel <= TOL_EXACT_F64 and b_rel <= TOL_EXACT_F64 and hint_eq and sound
+        line["ok"] = ok
+        print("decomp f64 vs plain", json.dumps(line), flush=True)
+        if not ok:
+            bad.append((case[0], "f64"))
+        # Time one float32 evaluation at the ascent's shapes.
+        lam32, mu32, tau32 = (x.float() for x in (lam, mu, tau))
+        th32 = (p32.ks - 1.0)[:, None] * D.softmax(tau32)
+        run_k = lambda: D.eval32_kernel(p32, lam32, mu32, th32)  # noqa: E731
+        ms, call, src = time_kernel(run_k, "decomp_f32_kernel")
+        plain = cuda_ms(lambda: D.eval32_reference(p32, lam32, mu32, th32), reps=3, warmup=1)
+        ms64 = cuda_ms(lambda: D.eval64_kernel(p64, lam, mu, theta, True), reps=5, warmup=1)
+        flops, nbytes, cells = decomp_flops_bytes(p32)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+        timing[case[0]] = dict(ms=ms, call_ms=call, ms_source=src, plain_ms=plain,
+                               bound_ms=b_ms, bound_by=b_by, cells=cells,
+                               f64_eval_ms=ms64, ascent_host_ms=ascent_ms)
+        print(f"decomp {case[0]}: f32 evaluation {ms:.4f} ms on the card, {call:.4f} ms per "
+              f"call (plain {plain:.3f} ms, bound {b_ms:.5f} ms by {b_by}, {cells} cells); "
+              f"f64 evaluation {ms64:.4f} ms; 300-step ascent {ascent_ms:.1f} ms of wall",
+              flush=True)
+    if bad:
+        fail(f"decomp kernel disagrees with its plain version or is unsound in {bad}")
+    t = timing[FLAGSHIP[0]]
+    report["decomp"] = dict(
+        name="decomp", route="cuda", source="distilp_torch/kernels/csrc/decomp_kernel.cu",
+        replaces="distilp_tpu/solver/backend_jax.py:832",
+        max_abs_err=max(abs_errs), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None, held_against_plain="ok",
+        call_ms=t["call_ms"], ms_source=t["ms_source"],
+        shapes_timed=f"{FLAGSHIP[0]}: one float32 evaluation, {t['cells']} cells",
+        by_instance=timing,
+    )
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -778,6 +1187,7 @@ def show(name, r, ms, tm):
 
 
 DENSE_KERNELS = ("ipm", "round_incumbent", "bnb_epilogue")
+MOE_KERNELS = ("ipm", "round_moe", "bnb_epilogue", "decomp")
 
 
 def main_path() -> dict:
@@ -876,7 +1286,7 @@ def fleet_path() -> dict:
     check("fleet_M512", r5, tm, FLEET512_PDHG, 2 * FLEET512_GAP, "pdhg", model512)
     launches = dict(kernels.LAUNCHES)
     print("fleet path launches", json.dumps(launches), flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("ipm", "round_incumbent", "bnb_epilogue", "pdhg") if launches[k] == 0]
     if missing:
         fail(f"fleet-scale main path never launched {missing}")
     profile_solve(devs128, model128, FLEET128_GAP, "fleet_M128_pdhg")
@@ -884,7 +1294,78 @@ def fleet_path() -> dict:
     return launches
 
 
-def profile_solve(devs, model, gap, name, reps: int = 5) -> None:
+def moe_path() -> dict:
+    """MoE co-assignment through ``halda_solve`` (IPM engine, K7 bounds)."""
+    import numpy as np
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.solver import halda_solve
+    from distilp_torch.utils import make_synthetic_fleet
+
+    def moe_solve(devs, model, **kw):
+        tm = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = halda_solve(devs, model, mip_gap=MOE_GAP, kv_bits="8bit", timings=tm, **kw)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3, tm
+
+    def check(name, r, tm, model, pin=None):
+        print(f"  {name}: decomp_steps={tm.get('decomp_steps')} "
+              f"decomp_enqueue_ms={tm.get('decomp_enqueue_ms', 0.0):.2f} y={r.y}", flush=True)
+        if not r.certified or r.y is None or sum(r.y) != model.n_routed_experts:
+            fail(f"{name}: certified={r.certified} y={r.y}")
+        if sum(r.w) * r.k != model.L or not all(0 <= n <= w for w, n in zip(r.w, r.n)):
+            fail(f"{name}: assignment does not place every layer")
+        if pin is not None:
+            rel = abs(r.obj_value - pin[1]) / abs(pin[1])
+            print(f"  {name}: objective {r.obj_value!r} vs pinned {pin[1]!r}: relative "
+                  f"difference {rel!r} (allowed {2 * MOE_GAP!r})", flush=True)
+            if rel > 2 * MOE_GAP:
+                fail(f"{name}: obj {r.obj_value} vs pinned {pin[1]}")
+
+    kernels.reset_launch_counts()
+    results = {}
+    for case in MOE_CASES:
+        name, config, M, seed, pool, pin = case
+        model = moe_model(config)
+        devs = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool))
+        r, ms, tm = moe_solve(devs, model)
+        show(name, r, ms, tm)
+        check(name, r, tm, model, pin)
+        results[name] = (devs, model, r)
+    devs, model, cold = results[FLAGSHIP[0]]
+    t = time.perf_counter()
+    ref = halda_solve(devs, model, mip_gap=MOE_GAP, kv_bits="8bit", backend="cpu")
+    print(f"highs oracle {FLAGSHIP[0]}: k={ref.k} obj={ref.obj_value!r} "
+          f"wall_ms={(time.perf_counter() - t) * 1e3:.1f}", flush=True)
+    if abs(cold.obj_value - ref.obj_value) > 2 * MOE_GAP * abs(ref.obj_value):
+        fail(f"{FLAGSHIP[0]}: obj {cold.obj_value} vs oracle {ref.obj_value}")
+    # Warm re-solve after +-5% t_comm drift: the stored duals make it
+    # re-evaluate the bound (zero ascent steps).
+    drifted = [d.model_copy() for d in devs]
+    rng = np.random.default_rng(3)
+    for d in drifted:
+        d.t_comm = max(0.0, d.t_comm * float(rng.uniform(0.95, 1.05)))
+    rw, ms, tm = moe_solve(drifted, model, warm=cold)
+    show(f"{FLAGSHIP[0]}_warm", rw, ms, tm)
+    check(f"{FLAGSHIP[0]}_warm", rw, tm, model)
+    if tm.get("decomp_steps") != 0 or cold.duals is None or rw.duals is None:
+        fail(f"warm flagship did not re-evaluate at the stored duals: "
+             f"decomp_steps={tm.get('decomp_steps')}")
+    launches = dict(kernels.LAUNCHES)
+    print("moe path launches", json.dumps(launches), flush=True)
+    missing = [k for k in MOE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"MoE main path never launched {missing}")
+    profile_solve(devs, model, MOE_GAP, f"{FLAGSHIP[0]}_cold", kv_bits="8bit")
+    profile_solve(drifted, model, MOE_GAP, f"{FLAGSHIP[0]}_warm", kv_bits="8bit", warm=cold)
+    return launches
+
+
+def profile_solve(devs, model, gap, name, reps: int = 5, kv_bits: str = "4bit",
+                  **kw) -> None:
     """Where the device time of one solve goes: device time by kernel from
     a profiled solve, and the device's busy share against the same solve's
     unprofiled wall time (median of ``reps``)."""
@@ -897,12 +1378,12 @@ def profile_solve(devs, model, gap, name, reps: int = 5) -> None:
     for _ in range(reps):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        halda_solve(devs, model, mip_gap=gap, kv_bits="4bit")
+        halda_solve(devs, model, mip_gap=gap, kv_bits=kv_bits, **kw)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
     wall = sorted(walls)[reps // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        halda_solve(devs, model, mip_gap=gap, kv_bits="4bit")
+        halda_solve(devs, model, mip_gap=gap, kv_bits=kv_bits, **kw)
         torch.cuda.synchronize()
     rows = sorted(
         ((e.key, _device_us(e), e.count) for e in prof.key_averages()
@@ -944,21 +1425,28 @@ def main() -> int:
           f"(nvcc {build.BUILD_STATS.get('build_s', 0.0):.1f} s)", flush=True)
     print(build.ptxas_report(), flush=True)
 
-    report: dict = {}
-    check_ipm(report)
-    check_round(report)
-    check_epilogue(report)
-    check_pdhg(report)
-    check_pdhg_mp()
+    from distilp_torch import kernels
 
-    paths = {"dense": main_path(), "fleet": fleet_path()}
+    report: dict = {}
+    checks = [check_ipm, check_round, check_epilogue, check_pdhg,
+              lambda r: check_pdhg_mp(), check_ipm_moe, check_round_moe, check_decomp]
+    names = ["ipm", "round", "epilogue", "pdhg", "pdhg_mp", "ipm_moe", "round_moe",
+             "decomp"]
+    for name, check in zip(names, checks):
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        check(report)
+        print(f"check {name}: {time.perf_counter() - t:.1f} s, launches "
+              f"{json.dumps({k: v for k, v in kernels.LAUNCHES.items() if v})}", flush=True)
+
+    paths = {"dense": main_path(), "fleet": fleet_path(), "moe": moe_path()}
     launches = {k: sum(p[k] for p in paths.values()) for k in report}
     print("main path launches", json.dumps(launches), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"main path never launched {missing}")
     out = []
-    for name in ("ipm", "round_incumbent", "bnb_epilogue", "pdhg"):
+    for name in ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -3,7 +3,7 @@
 The sources live in ``csrc/`` and are built at first use by
 :mod:`distilp_torch.kernels.build`. Each kernel's Python wrapper sits beside
 its plain PyTorch version (``ops/ipm.py``, ``ops/pdhg.py``,
-``solver/rounding.py``, ``solver/search.py``): on a CUDA tensor the wrapper
+``ops/decomp.py``, ``solver/rounding.py``, ``solver/search.py``): on a CUDA tensor the wrapper
 launches the kernel and adds one to :data:`LAUNCHES`; on a CPU tensor it runs
 the plain version.
 """
@@ -17,7 +17,8 @@ import torch
 
 # Kernel name -> launches since the last reset (only the wrappers add to it).
 LAUNCHES: Dict[str, int] = {
-    "ipm": 0, "round_incumbent": 0, "bnb_epilogue": 0, "pdhg": 0,
+    "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
+    "decomp": 0,
 }
 
 

@@ -27,12 +27,15 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 
 # kernel library -> (source file, extra nvcc flags). The rounding and the
 # branch-and-bound epilogue compile without FMA contraction: their float64
-# ceil/floor staircases must see the same products as the plain version.
+# ceil/floor staircases must see the same products as the plain version; so
+# does the decomposition bound (K7), whose cell pricing has the same ones.
 SOURCES: Dict[str, tuple] = {
     "ipm": ("ipm_kernel.cu", []),
     "round": ("round_kernel.cu", ["--fmad=false"]),
+    "round_moe": ("round_moe_kernel.cu", ["--fmad=false"]),
     "bnb_epilogue": ("bnb_epilogue_kernel.cu", ["--fmad=false"]),
     "pdhg": ("pdhg_kernel.cu", []),
+    "decomp": ("decomp_kernel.cu", ["--fmad=false"]),
 }
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -44,6 +47,7 @@ _I = ctypes.c_int
 _L = ctypes.c_long
 _D = ctypes.c_double
 _S = ctypes.c_size_t
+_F = ctypes.c_float
 
 # C signatures of the launchers (each returns a cudaError_t as int, unless
 # RESTYPES says otherwise).
@@ -58,6 +62,15 @@ SIGNATURES = {
     "round": {
         "dtk_round_f32": [_P, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P],
         "dtk_round_f64": [_P, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    },
+    "round_moe": {
+        "dtk_round_moe_f32": [_P, _L] + [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _P],
+        "dtk_round_moe_f64": [_P, _L] + [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _P],
+    },
+    "decomp": {
+        "dtk_decomp_eval_f32": [_P, _F, _F, _P, _P] + [_I] * 4 + [_P] * 7 + [_P],
+        "dtk_decomp_eval_f64": [_P, _D, _D, _P, _P] + [_I] * 4 + [_P] * 3 + [_I]
+        + [_P] * 4 + [_P],
     },
     "bnb_epilogue": {
         "dtk_bnb_epilogue": [_P] * 13 + [_D] + [_P] * 5 + [_I] * 3 + [_P] * 11

@@ -113,4 +113,45 @@ __device__ void block_argmax(T& v, int& i, T* sv, int* si) {
   for (int q = 1; q < nw; ++q) argmax_combine(v, i, sv[q], si[q]);
 }
 
+// (value, index) argmin with jnp.argmin's rules: the first NaN wins, else
+// the first index of the minimum (so an all +inf vector gives index 0 when
+// index 0 takes part).
+template <typename T>
+__device__ __forceinline__ void argmin_combine(T& v, int& i, T v2, int i2) {
+  const bool n1 = is_nan(v), n2 = is_nan(v2);
+  bool take;
+  if (n1 || n2) {
+    take = n2 && (!n1 || i2 < i);
+  } else {
+    take = v2 < v || (v2 == v && i2 < i);
+  }
+  if (take) {
+    v = v2;
+    i = i2;
+  }
+}
+
+// Block-wide argmin (jnp.argmin rules); every thread gets (v, i). Threads
+// holding no element pass (+inf, INT_MAX). Contains __syncthreads.
+template <typename T>
+__device__ void block_argmin(T& v, int& i, T* sv, int* si) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    T v2 = __shfl_xor_sync(FULL, v, o);
+    int i2 = __shfl_xor_sync(FULL, i, o);
+    argmin_combine(v, i, v2, i2);
+  }
+  __syncthreads();
+  if (lane == 0) {
+    sv[wid] = v;
+    si[wid] = i;
+  }
+  __syncthreads();
+  v = sv[0];
+  i = si[0];
+  for (int q = 1; q < nw; ++q) argmin_combine(v, i, sv[q], si[q]);
+}
+
 }  // namespace dtk

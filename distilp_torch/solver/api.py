@@ -9,7 +9,8 @@ versions, which is what the CPU tests do.
 
 Same signature and result type as ``distilp_tpu.solver.halda_solve`` plus
 ``device``; the knobs of parts the port does not have yet (the multi-GPU
-mesh, convergence traces, the MoE margin chain) raise when set.
+mesh, convergence traces, the MoE margin chain, MoE on the PDHG engine)
+raise when set.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .assemble import assemble
 from .backend_cpu import Infeasible, solve_fixed_k_cpu
 from .backend_torch import resolve_device, solve_sweep_torch
 from .coeffs import assign_sets, build_coeffs, valid_factors_of_L
-from .moe import resolve_moe
+from .moe import adjust_model, build_moe_arrays, resolve_moe
 from .result import HALDAResult, ILPResult
 from .standard_form import BEAM, IPM_ITERS, MAX_ROUNDS, NODE_CAP, default_pdhg_iters
 
@@ -62,11 +63,19 @@ def _build_instance(
     load_factors: Optional[Sequence[float]],
     batch_size: int = 1,
 ):
-    """Validation + dense instance assembly: (Ks, sets, coeffs, arrays)."""
-    if resolve_moe(model, moe):
-        raise NotImplementedError("MoE co-assignment is a later slice")
-    if load_factors is not None:
-        raise NotImplementedError("load_factors price MoE experts: a later slice")
+    """Validation + instance assembly: (Ks, sets, coeffs, arrays). In MoE
+    mode the dense (w, n) costs come from the expert-free adjusted profile
+    and the expert block (y) carries the routed experts, priced at
+    ``load_factors`` (one per device) when given."""
+    use_moe = resolve_moe(model, moe)
+    if use_moe and batch_size != 1:
+        raise ValueError(
+            "batch_size pricing is dense-only: the MoE expert busy model "
+            "prices per-active-expert-per-token compute at batch 1, so a "
+            "batch-N dense half would silently mix batches in one "
+            "objective. Pass moe=False to price a MoE profile's dense "
+            "slice at batch N, or keep batch_size=1."
+        )
     if k_candidates:
         Ks = sorted(set(int(k) for k in k_candidates))
         bad = [k for k in Ks if k <= 0 or model.L % k != 0 or k == model.L]
@@ -76,9 +85,17 @@ def _build_instance(
             )
     else:
         Ks = valid_factors_of_L(model.L)
+    kv_factor = kv_bits_to_factor(kv_bits)
     sets = assign_sets(devs)
-    coeffs = build_coeffs(devs, model, kv_bits_to_factor(kv_bits), sets, batch_size)
-    return Ks, sets, coeffs, assemble(coeffs)
+    if use_moe:
+        coeffs = build_coeffs(devs, adjust_model(model), kv_factor, sets, batch_size)
+        arrays = assemble(
+            coeffs, moe=build_moe_arrays(devs, model, load_factors=load_factors)
+        )
+    else:
+        coeffs = build_coeffs(devs, model, kv_factor, sets, batch_size)
+        arrays = assemble(coeffs)
+    return Ks, sets, coeffs, arrays
 
 
 def halda_solve(
@@ -130,10 +147,23 @@ def halda_solve(
     4x its default budget and in float64 when it ran 'f32'), warm-seeded from
     the uncertified incumbent; ``timings['escalated']`` reports it.
 
+    ``moe=None`` co-assigns routed experts (``y``, one count per device)
+    when the profile carries MoE metrics (``moe=False`` forces the dense
+    formulation); ``load_factors`` prices each device's experts at a
+    realized load. MoE solves run the IPM engine (``lp_backend='auto'``
+    below 128 devices, or ``'ipm'``) with the Lagrangian decomposition root
+    bounds; a ``warm`` result that carries ``duals`` re-evaluates the bound
+    at them instead of running the ascent.
+
     Returns the assignment minimizing the modeled per-round latency with its
     certificate; raises ``RuntimeError`` if no k admits a feasible one.
     """
-    later = {"margin_state": margin_state, "convergence": convergence}
+    if margin_state is not None:
+        raise NotImplementedError(
+            "margin_state (the MoE margin fast path of streaming ticks) is not "
+            "part of the port yet (ROADMAP.md A5)"
+        )
+    later = {"convergence": convergence}
     unsupported = [k for k, v in later.items() if v is not None]
     if plot:
         unsupported.append("plot")
@@ -171,7 +201,10 @@ def halda_solve(
             for v in (max_rounds, beam, ipm_iters, ipm_warm_iters, node_cap,
                       pdhg_iters)
         )
-        if best is not None and not best.certified and defaults_used:
+        # Only a dense solve escalates: the MoE class already runs the
+        # largest budget (as the reference does).
+        if (best is not None and not best.certified and defaults_used
+                and arrays.moe is None):
             engine = tm.get("lp_backend", "ipm")
             if debug:
                 print(

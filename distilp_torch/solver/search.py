@@ -3,16 +3,19 @@
 Each round solves the LP relaxations of the best-bound-first prefix of the
 frontier in one batched LP call (the IPM, kernel K1, or at fleet scale the
 PDHG engine, kernel K5), rounds every LP point to an
-exact integer incumbent (K2), then runs the per-row epilogue (K3: bound fold,
+exact integer incumbent (K2; its MoE mode for expert co-assignment), then
+runs the per-row epilogue (K3: bound fold,
 pruning, reduced-cost box tightening, closing, branching, child boxes, warm
 carry). The scalar reductions over the beam and the stable best-bound-first
 compaction are plain tensor operations. One global incumbent prunes across
 every k's tree, since the answer is the minimum over k.
 
 Ported from ``distilp_tpu/solver/backend_jax.py`` (``SearchState``,
-``SweepData``, ``_root_state``, the dense IPM and single-device PDHG
-branches of ``_bnb_round``, ``_cast_lp_result``, ``_best_bound``,
-``_certified``, ``_run_bnb_loop``). The reference runs the
+``SweepData``, ``_root_state``, the IPM and single-device PDHG branches of
+``_bnb_round`` with its MoE A scatter, ``_seed_root_bounds``,
+``_cast_lp_result``, ``_best_bound``, ``_certified``, ``_run_bnb_loop``).
+MoE sweeps seed the roots with the Lagrangian decomposition bounds (K7) and
+an incumbent repaired from the Lagrangian primal. The reference runs the
 loop as one device program; here it is a host loop that reads one boolean
 from the device per round.
 
@@ -27,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import kernels
+from ..ops.decomp import DecompProblem, decomp_bound_roots
 from ..ops.ipm import IPMResult, IPMWarmState, LPBatch, ipm_solve_batch
 from ..ops.pdhg import pdhg_solve_batch
 from .rounding import RoundingData, round_to_incumbent
@@ -68,7 +72,7 @@ class SearchState(NamedTuple):
 class SweepData(NamedTuple):
     """Device-resident arrays of one sweep, shared by every round."""
 
-    A: torch.Tensor  # (m, nf) float32, shared by every k (dense)
+    A: torch.Tensor  # (m, nf) float32, shared by every k (the MoE base)
     b_k: torch.Tensor  # (n_k, m) float32
     c_k: torch.Tensor  # (n_k, nf) float32
     int_mask: torch.Tensor  # (nf,) bool
@@ -77,6 +81,10 @@ class SweepData(NamedTuple):
     obj_const: float
     rd: RoundingData
     rd_packed: Optional[torch.Tensor] = None  # rounding.pack_rounding_data(rd)
+    # MoE: the per-k expert-busy entries of A (standard_form.gky_scatter_table),
+    # scattered onto each node's copy of the base at rows 4M..6M, columns
+    # 2M..3M. None in dense mode (A is k-free).
+    gky: Optional[torch.Tensor] = None  # (n_k, 2, M) float32
 
 
 class EpilogueOut(NamedTuple):
@@ -336,6 +344,76 @@ def cast_lp_result(res: IPMResult, tgt: torch.dtype) -> IPMResult:
     return res._replace(**cast)
 
 
+def node_A(data: SweepData, kidx: torch.Tensor, M: int) -> torch.Tensor:
+    """The constraint matrix of each node: the shared (m, nf) A in dense
+    mode; in MoE mode a contiguous (B, m, nf) copy of the base per node with
+    its k's 2M expert-busy entries scattered in (K1's per-element route)."""
+    if data.gky is None:
+        return data.A
+    B = kidx.shape[0]
+    m, nf = data.A.shape
+    A_p = data.A.expand(B, m, nf).clone()
+    g_p = data.gky[kidx]  # (B, 2, M)
+    ar = torch.arange(M, device=data.A.device)
+    A_p[:, 4 * M + ar, 2 * M + ar] = g_p[:, 0, :]
+    A_p[:, 5 * M + ar, 2 * M + ar] = g_p[:, 1, :]
+    return A_p
+
+
+def seed_root_bounds(
+    state: SearchState,
+    data: SweepData,
+    p32: DecompProblem,
+    p64: DecompProblem,
+    decomp_steps: int,
+    init_duals=None,
+):
+    """Root Lagrangian decomposition bounds (K7) into the roots' node
+    bounds, and, on cold solves (``decomp_steps > 0``), each k's
+    Lagrangian-primal cell repaired to a feasible placement (K2's hint mode,
+    ``e_max + 4`` repair steps) as incumbent candidates. Returns
+    ``(state, duals, raw_bounds, m_y)``; the raw bounds exclude
+    ``obj_const``. A warm tick (``decomp_steps == 0``) only re-evaluates the
+    bound at ``init_duals``: its incumbent is the previous optimum."""
+    n_k = data.ks.shape[0]
+    M = state.inc_w.shape[0]
+    nf = state.node_lo.shape[1]
+    raw, w_star, n_star, y_star, duals, m_y = decomp_bound_roots(
+        p32, p64, data.rd, decomp_steps, init_duals
+    )
+    node_bound = state.node_bound.clone()
+    node_bound[:n_k] = raw + data.obj_const
+    state = state._replace(node_bound=node_bound)
+    if decomp_steps == 0:
+        return state, duals, raw, m_y
+
+    v_hint = torch.zeros((n_k, nf), dtype=BDTYPE, device=raw.device)
+    v_hint[:, :M] = w_star
+    v_hint[:, M : 2 * M] = n_star
+    v_hint[:, 2 * M : 3 * M] = y_star
+    lag_obj, lag_w, lag_n, lag_y = round_to_incumbent(
+        v_hint, data.Ws, data.ks, data.rd, data.rd_packed, moe=True,
+        y_steps=p64.e_max + 4,
+    )
+    lag_obj = lag_obj + data.obj_const
+    jbest = lag_obj.argmin()
+    better = lag_obj[jbest] < state.incumbent
+    clean = torch.where(torch.isfinite(lag_obj), lag_obj, float("inf"))
+    seeded_k = (clean < state.per_k_best)[:, None]
+    state = state._replace(
+        incumbent=torch.where(better, lag_obj[jbest], state.incumbent),
+        inc_w=torch.where(better, lag_w[jbest], state.inc_w),
+        inc_n=torch.where(better, lag_n[jbest], state.inc_n),
+        inc_y=torch.where(better, lag_y[jbest], state.inc_y),
+        inc_kidx=torch.where(better, jbest.to(torch.int32), state.inc_kidx),
+        per_k_best=torch.minimum(state.per_k_best, clean),
+        per_k_w=torch.where(seeded_k, lag_w, state.per_k_w),
+        per_k_n=torch.where(seeded_k, lag_n, state.per_k_n),
+        per_k_y=torch.where(seeded_k, lag_y, state.per_k_y),
+    )
+    return state, duals, raw, m_y
+
+
 def bnb_round(
     data: SweepData,
     state: SearchState,
@@ -370,7 +448,9 @@ def bnb_round(
         f=state.node_f[:B],
         ok=state.node_warm[:B],
     )
-    lp_batch = LPBatch(A=data.A, b=data.b_k[kidx_p], c=data.c_k[kidx_p], l=lo_p, u=hi_p)
+    moe = data.gky is not None
+    lp_batch = LPBatch(A=node_A(data, kidx_p, M), b=data.b_k[kidx_p], c=data.c_k[kidx_p],
+                       l=lo_p, u=hi_p)
     if lp_backend == "pdhg":
         res = pdhg_solve_batch(
             lp_batch, iters=ipm_iters, restart_tol=pdhg_restart_tol, warm=warm,
@@ -384,9 +464,10 @@ def bnb_round(
         )
 
     # Exact integer incumbents from every processed row's LP point.
-    obj_lin, w_int, n_int = round_to_incumbent(
-        res.v, data.Ws[kidx_p], data.ks[kidx_p], data.rd, data.rd_packed
+    rounded = round_to_incumbent(
+        res.v, data.Ws[kidx_p], data.ks[kidx_p], data.rd, data.rd_packed, moe=moe
     )
+    obj_lin, w_int, n_int = rounded[:3]
     obj_full = torch.where(active_p, obj_lin + data.obj_const, inf)
     best_i = obj_full.argmin()
     best_obj = obj_full[best_i]
@@ -394,6 +475,7 @@ def bnb_round(
     incumbent = torch.where(better, best_obj, state.incumbent)
     inc_w = torch.where(better, w_int[best_i], state.inc_w)
     inc_n = torch.where(better, n_int[best_i], state.inc_n)
+    inc_y = torch.where(better, rounded[3][best_i], state.inc_y) if moe else state.inc_y
     inc_kidx = torch.where(better, kidx_p[best_i].to(torch.int32), state.inc_kidx)
     round_best_k = torch.full((n_k,), inf, dtype=BDTYPE, device=obj_full.device)
     round_best_k = round_best_k.scatter_reduce(0, kidx_p, obj_full, "amin")
@@ -442,7 +524,7 @@ def bnb_round(
         incumbent=incumbent,
         inc_w=inc_w,
         inc_n=inc_n,
-        inc_y=state.inc_y,
+        inc_y=inc_y,
         inc_kidx=inc_kidx,
         dropped_bound=dropped_bound,
         per_k_best=per_k_best,

@@ -27,6 +27,17 @@ IPM_ITERS = 26
 FRAC_TOL = 1e-4
 # Frontier rows that get an LP solve per round in the escalated budget.
 BEAM = 16
+# Greedy expert-move steps that polish a rounded MoE incumbent: cold solves
+# and Lagrangian-primal repairs take the full budget, a warm tick's
+# re-pricing of last tick's optimum a short one.
+MOE_LOCAL_MOVES = 8
+MOE_LOCAL_MOVES_WARM = 2
+# Lagrangian root-ascent budgets: a cold MoE solve runs the full ascent; a
+# warm tick that carries the previous multipliers only re-evaluates the
+# bound at them (valid at any multiplier vector, so staleness costs
+# tightness, never soundness).
+DECOMP_STEPS_COLD = 300
+DECOMP_STEPS_WARM = 0
 
 # LP relaxation engines: 'ipm' (batched Mehrotra, dense m x m normal
 # matrices), 'pdhg' (matrix-free restarted Halpern PDHG, the fleet-scale
@@ -342,3 +353,21 @@ def build_standard_form(
         C_ub_k=C_ub_k,
         gscale=gscale,
     )
+
+
+def gky_scatter_table(g_raw, ks, gscale) -> Tuple[np.ndarray, np.ndarray]:
+    """(gky, table) of the MoE expert-busy entries, float32: ``gky`` (n_k, M)
+    = g_raw / k (the objective's y-column values) and ``table`` (n_k, 2, M)
+    = the same values times the cycle and prefetch row scales, the per-k
+    entries a node's A gets at rows 4M..6M, columns 2M..3M. Computed as the
+    reference's device program does (division in float64, then products of
+    float32 values), not as the float64 host form does."""
+    gky = (
+        np.asarray(g_raw, np.float64)[None, :] / np.asarray(ks, np.float64)[:, None]
+    ).astype(np.float32)
+    gs = np.asarray(gscale)
+    table = np.stack(
+        [gky * gs[0][None, :].astype(np.float32), gky * gs[1][None, :].astype(np.float32)],
+        axis=1,
+    )
+    return gky, table

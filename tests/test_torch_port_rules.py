@@ -1,8 +1,9 @@
 """Rules of the PyTorch/CUDA port, checked on its source.
 
-- No module of ``distilp_torch`` and not ``chip_smoke.py`` imports JAX or
-  anything of the JAX package (``distilp_tpu``), jax-free modules included:
-  the port keeps its own copies.
+- No module of ``distilp_torch`` (its model profiler included) and not
+  ``chip_smoke.py`` imports JAX or anything of the JAX package
+  (``distilp_tpu``), jax-free modules included: the port keeps its own
+  copies.
 - ``triton``/kernel builds never happen at import time: importing every
   module of the port works on a host without nvcc or a GPU.
 - Every kernel source named by the build exists, and each kernel wrapper
@@ -47,11 +48,28 @@ def test_port_never_imports_jax_or_the_jax_package(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_the_profiler_copy_is_checked_and_stays_offline(tmp_path):
+    """The port's model profiler is one of the checked modules, and its
+    config loader refuses anything but a local file (no network)."""
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in ("__init__", "analytic", "api", "hfconfig"):
+        assert f"distilp_torch/profiler/{name}.py" in files
+    from distilp_torch.profiler import load_config, load_config_from_repo
+
+    with pytest.raises(RuntimeError, match="local config path"):
+        load_config("mistralai/Mixtral-8x7B-v0.1")
+    with pytest.raises(RuntimeError, match="local config path"):
+        load_config_from_repo(str(tmp_path / "missing"))
+    cfg = load_config(REPO / "tests" / "configs" / "mixtral_8x7b.json")
+    assert cfg.raw["model_type"] == "mixtral"
+
+
 def test_every_port_module_imports_without_a_gpu():
     import distilp_torch
 
     names = [m.name for m in pkgutil.walk_packages(distilp_torch.__path__, "distilp_torch.")]
     assert "distilp_torch.solver.backend_torch" in names
+    assert "distilp_torch.profiler.analytic" in names
     for name in names:
         importlib.import_module(name)
 
@@ -64,7 +82,9 @@ def test_kernel_sources_and_launch_counters():
         assert (build.CSRC / src).is_file(), src
     for h in build.HEADERS:
         assert (build.CSRC / h).is_file(), h
-    assert set(kernels.LAUNCHES) == {"ipm", "round_incumbent", "bnb_epilogue", "pdhg"}
+    assert set(kernels.LAUNCHES) == {
+        "ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
+    }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
     assert set(kernels.LAUNCHES.values()) == {0}
