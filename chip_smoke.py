@@ -7,8 +7,8 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the six kernel libraries from ``distilp_torch/kernels/csrc``, one
-     nvcc each, all started together (timed);
+  2. build the eight kernel libraries from ``distilp_torch/kernels/csrc``,
+     one nvcc each, all started together (timed);
   3. each kernel against its plain PyTorch version on the card, at the shapes
      of the 16-device north-star instance (the IPM also at M=32, and at M=192
      where its vectors leave shared memory; the PDHG at the root batches of
@@ -18,10 +18,17 @@ Phases (any failure exits non-zero and prints no result line):
      with a per-node A on the DeepSeek-V3 flagship's root and beam batches,
      the MoE rounding in its three modes, and the decomposition bound (K7)
      in float32 (bound and gradient) and float64 (bound, y-profile, hint)
-     on Qwen3-30B-A3B and the flagship; with the tolerances stated below,
-     and each kernel's time beside its plain version's and its least
-     possible time on an H100;
-  4. the main path, in three runs, each with the launch counts zeroed before
+     on Qwen3-30B-A3B and the flagship; the twin's Monte-Carlo kernel (K8)
+     on the north star's, the flagship's and the 512-device fleet's
+     placements and on a vector set edited so that violations occur (equal
+     flags, latencies within 1e-12, two launches bit-identical, the base
+     row equal to ``simulate_placement``); the profiler's HBM roll (K9a,
+     equal to ``torch.roll`` after 1 and 7 passes) and its GEMM-chain step
+     (K9b: the product against ``torch.matmul`` in float32, float16 and
+     bfloat16 at the chain's shapes, the scale bit for bit);
+     with the tolerances stated below, and each kernel's time beside its
+     plain version's and its least possible time on an H100;
+  4. the main path, in four runs, each with the launch counts zeroed before
      it and read after it: (a) the dense slice, ``halda_solve`` on the four
      golden fixtures (pinned k and objective), the north star (pinned
      objective) and a 32-device fleet (against the port's HiGHS oracle);
@@ -33,6 +40,16 @@ Phases (any failure exits non-zero and prints no result line):
      devices) and the DeepSeek-V3 flagship (E=256 over 32 devices, pinned
      and against the HiGHS oracle), then a warm re-solve of the flagship
      after t_comm drift that re-evaluates the bound at the stored duals;
+     (d) profile -> solve -> evaluate through the port's CLIs: the profiler
+     measures this card (every rate printed with its share of the card's
+     published peak; over 105% or a zero GEMM/HBM rate fails), the
+     2-device fleet of ``tests/profiles/llama_3_70b/4bit`` plus the card is
+     solved on the card and by HiGHS (within 2x gap), ``evaluate
+     --check-determinism`` must exit 0; then the twin's robustness report
+     and risk score at full width on the north star, the flagship and the
+     512-device fleet, and rank agreement on the golden fixtures' per-k
+     placements (each k solved on the card and by HiGHS, which must agree
+     on its feasibility and objective);
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
@@ -40,6 +57,7 @@ Phases (any failure exits non-zero and prints no result line):
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -52,6 +70,7 @@ sys.path.insert(0, str(ROOT))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_F64_S = 34e12
+PEAK_BF16_S = 989e12
 
 GOLDEN = [
     ("hermes_70b", 40, 29.643569),
@@ -127,6 +146,12 @@ TOL_DECOMP_F32 = 1e-5
 # the wide factor; a wrong per-element index moves fields by O(1) and is
 # also caught by the batch-against-each-element-alone equality.
 TOL_IPM_MOE_SENS = 100.0
+# K9b's product against torch.matmul (TF32 and reduced-precision reductions
+# off), as a share of max|y|: in float32 the two sum the K products in
+# different orders; the 16-bit types round float32 sums once each, so two
+# results sit at most one ulp apart (2^-10 and 2^-7 of max|y|), held to
+# twice that. K9b's scale is exact given the product (bit for bit).
+TOL_GEMM = {"float32": 1e-5, "float16": 2e-3, "bfloat16": 1.6e-2}
 
 
 def fail(msg: str) -> None:
@@ -1159,6 +1184,246 @@ def check_decomp(report: dict) -> None:
     )
 
 
+# Violation share of the edited twin vector set must lie strictly inside
+# (0, 1): the set exercises the violation flag both ways.
+TWIN_SAMPLES = 1024
+TWIN_MC = dict(sigmas=(0.08, 0.15, 0.10, 0.05), dropout_p=0.05, dropout_slowdown=8.0,
+               degrade=1.25)
+
+
+def twin_cases():
+    """(name, devices, model, kv bits, arrays, placement result) of the three instances the twin runs
+    at full width: the north star (M=16), the MoE flagship (M=32) and the
+    512-device fleet, each placed by the port's ``halda_solve`` on the card
+    (the flagship at kv 8bit, the others at 4bit)."""
+    from distilp_torch.solver import halda_solve
+    from distilp_torch.twin import build_twin_arrays
+    from distilp_torch.utils import make_synthetic_fleet
+
+    out = []
+    model = online_model()
+    devs = make_synthetic_fleet(16, seed=123)
+    r = halda_solve(devs, model, mip_gap=1e-3, kv_bits="4bit")
+    out.append(("north_star_M16", devs, model, "4bit",
+                build_twin_arrays(devs, model, kv_bits="4bit"), r))
+    name, config, M, seed, pool, _ = FLAGSHIP
+    model = moe_model(config)
+    devs = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool))
+    r = halda_solve(devs, model, mip_gap=MOE_GAP, kv_bits="8bit")
+    out.append((name, devs, model, "8bit", build_twin_arrays(devs, model, kv_bits="8bit"), r))
+    model = online_model(512)
+    devs = make_synthetic_fleet(512, seed=123)
+    r = halda_solve(devs, model, mip_gap=FLEET512_GAP, kv_bits="4bit")
+    out.append(("fleet_M512", devs, model, "4bit",
+                build_twin_arrays(devs, model, kv_bits="4bit"), r))
+    return out
+
+
+def violation_edit(vec):
+    """A copy of ``vec`` whose device 0 sits exactly at its RAM spill cap
+    with positive headroom: memory jitter below 1 then pushes the spill one
+    layer over the cap (a violation), above 1 keeps it inside."""
+    import copy
+
+    import numpy as np
+
+    e = copy.deepcopy(vec)
+    cap = float(np.floor(e.ram_lhs0[0] / e.bp / 2.0))
+    e.s_cap = e.s_cap.copy()
+    e.ram_rhs = e.ram_rhs.copy()
+    e.s_cap[0] = cap
+    e.ram_rhs[0] = e.ram_lhs0[0] - cap * e.bp + 1.0
+    return e
+
+
+def twin_mc_work(M: int, samples: int):
+    """(float64 operations, bytes) a Monte-Carlo report needs: per sample
+    cell two Box-Muller pairs (~16), four jitters (~20), the straggler (2)
+    and the row math (~35); per fixed cell the row math; the 14 per-device
+    vectors read once, R latencies and flags written once. The Philox
+    integer work is not counted, so the bound is a floor."""
+    R = samples + M + 1
+    flops = samples * M * 73.0 + (M + 1) * M * 35.0
+    nbytes = 14 * M * 8.0 + R * 9.0
+    return flops, nbytes
+
+
+def check_twin_mc(report: dict, cases: list) -> None:
+    import torch
+
+    from distilp_torch.twin import engine, placement_vectors, simulate_placement
+
+    mc = TWIN_MC
+    timing = {}
+    errs = []
+    sets = []
+    for name, _devs, _model, _kv, arrays, r in cases:
+        vec = placement_vectors(arrays, r.w, r.n, y=r.y, k=r.k)
+        sim = simulate_placement(arrays, r.w, r.n, y=r.y, k=r.k).latency_s
+        sets.append((name, vec, sim))
+    sets.append(("north_star_M16_violation_edit", violation_edit(sets[0][1]), None))
+    for name, vec, sim in sets:
+        vecs, sc = engine.pack_vectors(vec, "cuda")
+        args = (vecs, sc, TWIN_SAMPLES, 7, mc["sigmas"], mc["dropout_p"],
+                mc["dropout_slowdown"], mc["degrade"])
+        lk, vk = engine.twin_mc(*args)
+        lk2, vk2 = engine.twin_mc(*args)
+        lr, vr = engine.twin_mc_reference(*args)
+        torch.cuda.synchronize()
+        a_err, r_err = max_err(lk, lr)
+        flags_eq = bool(torch.equal(vk, vr))
+        repeat = bool(torch.equal(lk, lk2) and torch.equal(vk, vk2))
+        share = float(vk[:TWIN_SAMPLES].double().mean())
+        base_rel = None if sim is None else abs(float(lk[-1]) - sim) / abs(sim)
+        M = vecs.shape[1]
+        line = {"set": name, "M": M, "rows": int(lk.shape[0]), "max_abs": a_err,
+                "max_rel": r_err, "flags_equal": flags_eq, "repeat_bit_identical": repeat,
+                "violation_share": share, "base_vs_simulate_rel": base_rel}
+        print("twin_mc vs plain", json.dumps(line), flush=True)
+        if r_err > TOL_EXACT_F64 or not flags_eq or not repeat:
+            fail(f"twin_mc kernel disagrees with its plain version on {name}: {line}")
+        if base_rel is not None and base_rel > TOL_EXACT_F64:
+            fail(f"twin_mc base row on {name} is {float(lk[-1])!r}, "
+                 f"simulate_placement {sim!r}")
+        if sim is None and not 0.0 < share < 1.0:
+            fail(f"twin_mc violation share {share} on {name}: the edited set "
+                 f"should violate on some rows and not on others")
+        errs.append(a_err)
+        if sim is None:
+            continue
+        ms, call, src = time_kernel(lambda: engine.twin_mc(*args), "twin_mc_kernel")
+        plain = cuda_ms(lambda: engine.twin_mc_reference(*args), reps=5)
+        flops, nbytes = twin_mc_work(M, TWIN_SAMPLES)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F64_S)
+        timing[name] = dict(M=M, samples=TWIN_SAMPLES, ms=ms, call_ms=call, ms_source=src,
+                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        print(f"twin_mc {name}: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
+              f"{plain:.3f} ms, bound {b_ms:.6f} ms by {b_by}) at M={M}, "
+              f"{TWIN_SAMPLES} samples", flush=True)
+    t = timing["north_star_M16"]
+    report["twin_mc"] = dict(
+        name="twin_mc", route="cuda", source="distilp_torch/kernels/csrc/twin_mc_kernel.cu",
+        replaces="distilp_tpu/twin/engine.py:50", max_abs_err=max(errs), ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=None, held_against_plain="ok", call_ms=t["call_ms"],
+        ms_source=t["ms_source"], shapes_timed="north_star_M16: 1024 samples",
+        by_instance=timing,
+    )
+
+
+def check_hbm_stream(report: dict) -> None:
+    import os
+
+    import torch
+
+    from distilp_torch.profiler.device import roll1
+
+    mb = int(os.environ.get("DPERF_HBM_MB", 256))
+    n = mb * 1024 * 1024 // 4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for size in (n, 1_000_003):
+        x = torch.randn(size, generator=gen, device="cuda")
+        bufs = [x.clone(), torch.empty_like(x)]
+        for passes in range(1, 8):
+            roll1(bufs[0], bufs[1])
+            bufs.reverse()
+            if passes in (1, 7):
+                ok = torch.equal(bufs[0], torch.roll(x, passes))
+                print(f"hbm_stream vs torch.roll: n={size} after {passes} passes "
+                      f"equal={ok}", flush=True)
+                if not ok:
+                    fail(f"hbm_stream kernel differs from torch.roll after {passes} "
+                         f"passes at n={size}")
+    x = torch.randn(n, generator=gen, device="cuda")
+    out = torch.empty_like(x)
+    ms, call, src = time_kernel(lambda: roll1(x, out), "roll1_kernel")
+    plain = cuda_ms(lambda: torch.roll(x, 1))
+    b_ms, b_by = bound_ms(0.0, 2.0 * n * 4, PEAK_F32_S)
+    report["hbm_stream"] = dict(
+        name="hbm_stream", route="cuda", source="distilp_torch/kernels/csrc/profiler_kernel.cu",
+        replaces="distilp_tpu/profiler/device.py:521", max_abs_err=0.0, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=plain,
+        held_against_plain="ok", call_ms=call, ms_source=src,
+        shapes_timed=f"one pass over {mb} MB float32",
+    )
+    print(f"hbm_stream: {ms:.4f} ms on the card per pass over {mb} MB, {call:.4f} ms per "
+          f"call (plain and library torch.roll {plain:.4f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}): {2 * n * 4 / (ms * 1e-3) / 1e12:.3f} TB/s", flush=True)
+
+
+def check_gemm_absmax_scale(report: dict) -> None:
+    """K9b, one step of the profiler's GEMM chain, at the chain's shapes
+    ((B, 8192, 8192) @ (8192, 8192), B = 1, 2, 4) and a ragged one: the
+    product against ``torch.matmul`` (TF32 off) within TOL_GEMM of max|y|,
+    the scale bit for bit against the plain scale of the kernel's own
+    product, and the whole step equal to that."""
+    import torch
+
+    from distilp_torch.profiler import device as D
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timing, step_errs = {}, []
+    S = 8192
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        tag = str(dt).split(".")[-1]
+        k_ragged = 1004 if dt == torch.float32 else 1000
+        shapes = [((B, S, S), (S, S)) for B in (1, 2, 4)] + [((3, 1000, k_ragged),
+                                                              (k_ragged, 1032))]
+        for xs, bs in shapes:
+            x = torch.randn(xs, generator=gen, device="cuda").to(dt)
+            b = torch.randn(bs, generator=gen, device="cuda").to(dt)
+            prod, partial = D._gemm_absmax_kernel(x, b)
+            unscaled = prod.clone()
+            D._rescale_kernel(prod, partial, D.GEMM_EPS)
+            whole = D.gemm_absmax_scale(x, b)
+            lib = torch.matmul(x, b)
+            torch.cuda.synchronize()
+            prod_rel = float((unscaled.float() - lib.float()).abs().amax()
+                             / lib.float().abs().amax())
+            scale_exact = bool(torch.equal(prod, D.absmax_scale_reference(unscaled)))
+            repeat = bool(torch.equal(whole, prod))
+            step_err = float((whole.float() - D.absmax_scale_reference(lib).float())
+                             .abs().amax())
+            step_errs.append(step_err)
+            line = {"dtype": tag, "x": list(xs), "b": list(bs),
+                    "product_max_err_over_max": prod_rel, "scale_bit_equal": scale_exact,
+                    "step_equal_to_parts": repeat, "step_max_abs_err_vs_plain": step_err}
+            print("gemm_absmax_scale vs plain", json.dumps(line), flush=True)
+            if not (prod_rel <= TOL_GEMM[tag] and step_err <= 2 * TOL_GEMM[tag]) \
+                    or not scale_exact or not repeat:
+                fail(f"gemm_absmax_scale kernel disagrees with its plain version: {line}")
+            del x, b, prod, partial, unscaled, whole, lib
+        x = torch.randn((1, S, S), generator=gen, device="cuda").to(dt)
+        b = torch.randn((S, S), generator=gen, device="cuda").to(dt)
+        ms, call, src = time_kernel(lambda: D.gemm_absmax_scale(x, b), "gemm_")
+        rescale = device_ms(lambda: D.gemm_absmax_scale(x, b), "rescale_kernel")
+        total = ms + (rescale or 0.0) if src == "profiler" else ms
+        plain = cuda_ms(lambda: D.gemm_absmax_scale_reference(x, b), reps=5)
+        library = cuda_ms(lambda: torch.matmul(x, b), reps=5)
+        flops = 2.0 * S * S * S
+        nbytes = 3.0 * S * S * x.element_size()
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S if dt == torch.float32 else PEAK_BF16_S)
+        timing[tag] = dict(ms=total, rescale_ms=rescale, call_ms=call, ms_source=src,
+                           plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by,
+                           tflops=flops / (total * 1e-3) / 1e12)
+        print(f"gemm_absmax_scale {tag}: {total:.4f} ms on the card (product "
+              f"{ms:.4f} + scale {rescale}), {call:.4f} ms per call, "
+              f"{timing[tag]['tflops']:.2f} TFLOP/s (plain {plain:.4f} ms, library "
+              f"torch.matmul {library:.4f} ms, bound {b_ms:.4f} ms by {b_by}) at "
+              f"(1, {S}, {S}) @ ({S}, {S})", flush=True)
+        del x, b
+    t = timing["float32"]
+    report["gemm_absmax_scale"] = dict(
+        name="gemm_absmax_scale", route="cuda",
+        source="distilp_torch/kernels/csrc/profiler_kernel.cu",
+        replaces="distilp_tpu/profiler/device.py:225", max_abs_err=max(step_errs),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], held_against_plain="ok", call_ms=t["call_ms"],
+        ms_source=t["ms_source"], shapes_timed="float32 (1, 8192, 8192) @ (8192, 8192)",
+        by_dtype=timing,
+    )
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -1188,6 +1453,8 @@ def show(name, r, ms, tm):
 
 DENSE_KERNELS = ("ipm", "round_incumbent", "bnb_epilogue")
 MOE_KERNELS = ("ipm", "round_moe", "bnb_epilogue", "decomp")
+PROFILE_KERNELS = ("ipm", "round_incumbent", "bnb_epilogue", "twin_mc", "hbm_stream",
+                   "gemm_absmax_scale")
 
 
 def main_path() -> dict:
@@ -1364,6 +1631,229 @@ def moe_path() -> dict:
     return launches
 
 
+# Published peaks the profile path's measured rates are held to (H100 SXM,
+# NVIDIA data sheet, dense): a measured rate above 105% of its peak is a
+# probe that measured something else.
+PEAK_HOST_LINK_S = 64e9  # PCIe Gen5 x16, per direction
+PROFILE_CONFIG = "tests/configs/llama3_70b_4bit.json"
+PROFILE_FIXTURE = "llama_3_70b/4bit"
+PROFILE_GAP = 1e-3
+PROFILE_MAX_BATCH_EXP = 3
+# The profiler's knobs for this run (the reference's DPERF_* variables): a
+# 256 MB disk file instead of a 70B layer's ~0.45 GB, and 2 timed repeats
+# per chain length with no warm-up call instead of 4 after 1. The host's
+# CPU sweep (torch float16 on a host without a native float16 path, ~0.6
+# GFLOP/s) dominates the profiler's wall time; the profiler loads its
+# kernels before it times anything, so the card's first timed chain pays
+# for no build.
+PROFILE_ENV = {"DPERF_DISK_FILE_MB": "256", "DPERF_GEMM_ITERS": "2",
+               "DPERF_GEMM_WARMUP": "0"}
+# The port's CLI run in a child process that reports, as its last line on
+# stderr, the launches each kernel wrapper counted there.
+CLI_CHILD = (
+    "import atexit, json, runpy, sys\n"
+    "from distilp_torch import kernels\n"
+    "atexit.register(lambda: print('kernel launches ' + json.dumps(kernels.LAUNCHES), "
+    "file=sys.stderr, flush=True))\n"
+    "mod = sys.argv[1]\n"
+    "sys.argv = [mod] + sys.argv[2:]\n"
+    "runpy.run_module(mod, run_name='__main__')\n"
+)
+
+
+def run_cli(module: str, args: list, launches: dict, env=None, timeout: int = 600):
+    """Run ``python -m <module> <args>`` from the repository root; add the
+    child's kernel launches to ``launches``; (exit code, stdout, wall s)."""
+    import os
+
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD, module, *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=timeout,
+        env={**os.environ, **(env or {})},
+    )
+    wall = time.perf_counter() - t
+    tail = [ln for ln in proc.stderr.splitlines() if ln.startswith("kernel launches ")]
+    if not tail:
+        fail(f"{module} {' '.join(args)} exited {proc.returncode} without its launch "
+             f"counts:\n{proc.stderr[-3000:]}")
+    for k, v in json.loads(tail[-1][len("kernel launches "):]).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"$ python -m {module} {' '.join(args)}  -> exit {proc.returncode} in "
+          f"{wall:.1f} s", flush=True)
+    return proc.returncode, proc.stdout, proc.stderr, wall
+
+
+def profile_rates(raw: dict, prof: dict) -> list:
+    """(name, measured rate, published peak, unit) of every rate the H100's
+    profile carries."""
+    rows = []
+    for tag, peak in (("f32", PEAK_F32_S), ("fp16", PEAK_BF16_S), ("bf16", PEAK_BF16_S)):
+        for b, v in raw["gpu"]["benchmarks"][tag].items():
+            if b in prof["sgpu_cuda"]["F32"]:
+                rows.append((f"gemm {tag} {b}", v, peak, "FLOP/s"))
+    mem = raw["gpu"]["memory"]
+    rows.append(("HBM stream (T_cuda)", prof["T_cuda"], PEAK_BYTES_S, "B/s"))
+    rows.append(("host->device", mem["read_bw"], PEAK_HOST_LINK_S, "B/s"))
+    rows.append(("device->host", mem["write_bw"], PEAK_HOST_LINK_S, "B/s"))
+    return rows
+
+
+def profile_path(cases: list) -> dict:
+    """Profile -> solve -> evaluate through the port's CLIs, then the twin
+    at full width through the library on ``cases`` (``twin_cases()``)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.common import load_from_profile_folder
+    from distilp_torch.solver import halda_solve
+    from distilp_torch.solver.backend_cpu import Infeasible
+    from distilp_torch.twin import rank_agreement, robustness_report, twin_p95_score
+
+    kernels.reset_launch_counts()
+    child: dict = {}
+    with tempfile.TemporaryDirectory(prefix="distilp_profile_") as tmp:
+        # The profile folder holds the fixture and the measured card; the raw
+        # DeviceInfo and the solutions stay outside it (the loader reads every
+        # JSON of the folder as a device).
+        fleet = Path(tmp, "fleet")
+        fleet.mkdir()
+        for f in (ROOT / "tests" / "profiles" / PROFILE_FIXTURE).glob("*.json"):
+            shutil.copy(f, fleet)
+        hbm_mb = os.environ.get("DPERF_HBM_MB", "256")
+        print(f"profiler env: {json.dumps(PROFILE_ENV)}, HBM probe array {hbm_mb} MB "
+              f"float32", flush=True)
+        # Hand this process's cached blocks back, so the profiler sees the
+        # card's memory as a fresh process would.
+        torch.cuda.empty_cache()
+        rc, _, err, wall = run_cli("distilp_torch.cli.profiler_cli", [
+            "device", "-r", PROFILE_CONFIG, "--not-head",
+            "--max-batch-exp", str(PROFILE_MAX_BATCH_EXP),
+            "-o", f"{fleet}/h100.json", "--raw-out", f"{tmp}/h100_raw.json"], child,
+            PROFILE_ENV)
+        if rc != 0:
+            fail(f"profiler CLI exited {rc}:\n{err[-3000:]}")
+        raw = json.loads(Path(tmp, "h100_raw.json").read_text())
+        prof = json.loads(Path(fleet, "h100.json").read_text())
+        print(f"profiler wall {wall:.1f} s; device {raw['gpu']['device_kind']}, memory "
+              f"{raw['gpu']['memory']['total']:.0f} B total, "
+              f"{raw['gpu']['memory']['free']:.0f} B free "
+              f"({raw['gpu']['memory']['capacity_source']}); disk read "
+              f"{raw['disk']['read']:.4g} B/s write {raw['disk']['write']:.4g} B/s", flush=True)
+        bad = []
+        for name, v, peak, unit in profile_rates(raw, prof):
+            share = v / peak
+            print(f"  measured {name}: {v:.6g} {unit} = {100 * share:.2f}% of the "
+                  f"published {peak:.4g}", flush=True)
+            if share > 1.05:
+                bad.append(f"{name} reads {100 * share:.1f}% of its peak")
+        zero = [f"gemm {t} b_1" for t in ("f32", "fp16", "bf16")
+                if not raw["gpu"]["benchmarks"][t]["b_1"] > 0]
+        if not prof.get("T_cuda"):
+            zero.append("T_cuda")
+        if bad or zero:
+            fail(f"profile path: {bad + [z + ' reads 0' for z in zero]}")
+        print("profile stats (p50 ms, samples, valid) " + json.dumps(
+            {k: [v["p50"] * 1e3, v["samples"], v["valid"]] for k, v in raw["stats"].items()}),
+            flush=True)
+
+        sol = f"{tmp}/solution.json"
+        rc, out, err, wall = run_cli("distilp_torch.cli.solver_cli", [
+            "-p", str(fleet), "--backend", "torch", "--mip-gap", str(PROFILE_GAP),
+            "--save-solution", sol], child)
+        if rc != 0:
+            fail(f"solver CLI (torch) exited {rc}:\n{err[-3000:]}")
+        print(out, flush=True)
+        rc, _, err, _ = run_cli("distilp_torch.cli.solver_cli", [
+            "-p", str(fleet), "--backend", "cpu", "--mip-gap", str(PROFILE_GAP),
+            "--save-solution", f"{tmp}/solution_highs.json"], child)
+        if rc != 0:
+            fail(f"solver CLI (cpu) exited {rc}:\n{err[-3000:]}")
+        got = json.loads(Path(sol).read_text())
+        oracle = json.loads(Path(tmp, "solution_highs.json").read_text())["obj_value"]
+        print(f"  2-device fleet: k={got['k']} w={got['w']} n={got['n']} objective "
+              f"{got['obj_value']!r} vs HiGHS {oracle!r}", flush=True)
+        if not got["certified"] or abs(got["obj_value"] - oracle) > 2 * PROFILE_GAP * max(1.0, abs(oracle)):
+            fail(f"profile path: torch objective {got['obj_value']} vs HiGHS {oracle}")
+        rc, out, err, wall = run_cli("distilp_torch.cli.solver_cli", [
+            "evaluate", "-p", str(fleet), "--backend", "torch", "--samples", "1024",
+            "--check-determinism", "--json"], child)
+        if rc != 0:
+            fail(f"solver evaluate exited {rc}:\n{err[-3000:]}")
+        ev = json.loads(out.strip().splitlines()[-1])
+        print(f"  evaluate ({wall:.1f} s): twin latency {ev['evaluation']['latency_s']!r}, "
+              f"objective {ev['evaluation']['objective_s']!r}, rel err "
+              f"{ev['evaluation']['rel_err']!r}; p95 {ev['robustness']['p95_s']!r}, "
+              f"P(violation) {ev['robustness']['p_violation']!r}", flush=True)
+        devs_tmp, _ = load_from_profile_folder(fleet)
+        print("  fleet: " + ", ".join(f"{d.name} (cuda={d.has_cuda})" for d in devs_tmp),
+              flush=True)
+
+    # The twin at full width through the library, on the card.
+    for name, devs, model, kv, arrays, r in cases:
+        walls = []
+        for _ in range(6):  # the first call is a warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rep = robustness_report(devs, model, r, samples=TWIN_SAMPLES, seed=0,
+                                    kv_bits=kv, arrays=arrays)
+            walls.append((time.perf_counter() - t) * 1e3)
+        ms = sorted(walls[1:])[2]
+        score = twin_p95_score(devs, model, r, samples=TWIN_SAMPLES, seed=0, kv_bits=kv,
+                               arrays=arrays)
+        rel = abs(rep.base_latency_s - r.obj_value) / abs(r.obj_value)
+        print(f"  twin {name}: robustness_report {ms:.2f} ms median of 5 after a "
+              f"warm-up of {walls[0]:.2f} ms (M={len(devs)}, "
+              f"{TWIN_SAMPLES} samples); base {rep.base_latency_s!r} vs objective "
+              f"{r.obj_value!r} (rel {rel:.3g}); p50 {rep.p50_s!r} p95 {rep.p95_s!r} "
+              f"p99 {rep.p99_s!r}; P(violation) {rep.p_violation}; score "
+              f"{score['score']!r}; worst device {rep.sensitivity[0].name}", flush=True)
+        if rel > 1e-6 or not all(map(math.isfinite, (rep.p95_s, score["score"]))):
+            fail(f"twin {name}: base {rep.base_latency_s} vs objective {r.obj_value}")
+    # Rank agreement over the per-k placements: each k is solved on the card
+    # and by the HiGHS oracle; both must agree on whether k is feasible (only
+    # the typed ``Infeasible`` is caught) and on its objective within 2x gap.
+    for folder, _, _ in GOLDEN:
+        devs, model = load_from_profile_folder(ROOT / "tests" / "profiles" / folder)
+        per_k, n_feasible = [], 0
+        for k in sorted({k for k in range(1, model.L) if model.L % k == 0}):
+            kw = dict(k_candidates=[k], mip_gap=1e-4, kv_bits="4bit")
+            try:
+                oracle = halda_solve(devs, model, backend="cpu", **kw).obj_value
+                n_feasible += 1
+            except Infeasible:
+                oracle = None
+            try:
+                r = halda_solve(devs, model, **kw)
+            except Infeasible:
+                r = None
+            if (r is None) != (oracle is None) or (
+                    r is not None and abs(r.obj_value - oracle) > 2e-4 * max(1.0, abs(oracle))):
+                fail(f"per-k solve of {folder} at k={k}: card "
+                     f"{None if r is None else r.obj_value}, HiGHS {oracle}")
+            if r is not None:
+                per_k.append(r)
+        ra = rank_agreement(devs, model, per_k, kv_bits="4bit")
+        print(f"  rank agreement {folder}: {len(per_k)} per-k placements of "
+              f"{n_feasible} feasible k, inversions {ra['pairwise_inversions']} of "
+              f"{ra['comparable_pairs']} pairs, spearman {ra['spearman']!r}", flush=True)
+        if len(per_k) != n_feasible or len(per_k) < 2 or ra["pairwise_inversions"] != 0:
+            fail(f"rank agreement on {folder}: {len(per_k)} placements of {n_feasible} "
+                 f"feasible k, {ra['pairwise_inversions']} inversions")
+
+    launches = {k: v + child.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+    print("profile path launches", json.dumps(launches), flush=True)
+    missing = [k for k in PROFILE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"profile path never launched {missing}")
+    return launches
+
+
+
 def profile_solve(devs, model, gap, name, reps: int = 5, kv_bits: str = "4bit",
                   **kw) -> None:
     """Where the device time of one solve goes: device time by kernel from
@@ -1414,6 +1904,8 @@ def main() -> int:
         fail(f"distilp_torch is not importable next to this script ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = smi_line()
     print(f"gpu: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1428,10 +1920,14 @@ def main() -> int:
     from distilp_torch import kernels
 
     report: dict = {}
+    t = time.perf_counter()
+    cases = twin_cases()
+    print(f"twin instances placed in {time.perf_counter() - t:.1f} s", flush=True)
     checks = [check_ipm, check_round, check_epilogue, check_pdhg,
-              lambda r: check_pdhg_mp(), check_ipm_moe, check_round_moe, check_decomp]
+              lambda r: check_pdhg_mp(), check_ipm_moe, check_round_moe, check_decomp,
+              lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_mp", "ipm_moe", "round_moe",
-             "decomp"]
+             "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -1439,14 +1935,16 @@ def main() -> int:
         print(f"check {name}: {time.perf_counter() - t:.1f} s, launches "
               f"{json.dumps({k: v for k, v in kernels.LAUNCHES.items() if v})}", flush=True)
 
-    paths = {"dense": main_path(), "fleet": fleet_path(), "moe": moe_path()}
+    paths = {"dense": main_path(), "fleet": fleet_path(), "moe": moe_path(),
+             "profile": profile_path(cases)}
     launches = {k: sum(p[k] for p in paths.values()) for k in report}
     print("main path launches", json.dumps(launches), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"main path never launched {missing}")
     out = []
-    for name in ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp"):
+    for name in ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
+                 "twin_mc", "hbm_stream", "gemm_absmax_scale"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

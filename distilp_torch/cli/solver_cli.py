@@ -1,0 +1,437 @@
+"""Solver CLI of the port (``distilp_tpu/cli/solver_cli.py``, two parts).
+
+One-shot solve of a profile folder (``model_profile.json`` + one JSON per
+device; the head device is whichever sorts first):
+
+    python -m distilp_torch.cli.solver_cli -p <folder> [--backend torch|cpu]
+
+and the digital-twin report of a placement:
+
+    python -m distilp_torch.cli.solver_cli evaluate -p <folder> [--solution S]
+
+``--backend torch`` (default) runs the branch-and-bound search on
+``--device`` (default cuda; ``cpu`` runs the kernels' plain versions),
+``--backend cpu`` the HiGHS oracle. The twin's Monte-Carlo engine runs on
+``--device`` too. Options and subcommands of parts the port does not have
+yet exit with code 2 and name their ROADMAP.md item; none is ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+# Subcommands of the JAX package's CLI that wait for later slices.
+DEFERRED_SUBCOMMANDS = {
+    "serve": "A12 (serving tiers on the port's engine)",
+    "overload": "A12 (serving tiers on the port's engine)",
+    "autoscale": "A12 (serving tiers on the port's engine)",
+    "diagnose": "A9 (convergence telemetry)",
+    "spans": "A14 (observability analogues)",
+    "slo": "A14 (observability analogues)",
+    "compiles": "A14 (observability analogues)",
+    "memory": "A14 (observability analogues)",
+}
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--device", choices=["cuda", "cpu"], default=None,
+        help="device of the torch backend and of the twin's Monte-Carlo "
+        "engine (default cuda; cpu runs the kernels' plain versions)",
+    )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli",
+        description="HALDA placement solver over a folder of device/model profiles",
+    )
+    p.add_argument(
+        "--profile",
+        "-p",
+        required=True,
+        help="folder containing model_profile.json and per-device JSONs",
+    )
+    p.add_argument("--backend", choices=["torch", "cpu"], default="torch")
+    _add_device(p)
+    p.add_argument("--mip-gap", type=float, default=1e-4)
+    p.add_argument("--kv-bits", default="4bit", help="4bit | 8bit | fp16 | bf16")
+    p.add_argument("--time-limit", type=float, default=3600.0, help="per-k seconds (cpu backend)")
+    p.add_argument(
+        "--k-candidates",
+        default=None,
+        help="comma-separated k values (default: all proper factors of L)",
+    )
+    p.add_argument("--plot", action="store_true",
+                   help="plot the k-objective curve (not ported yet: ROADMAP A16)")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--save-solution", default=None, help="write the solution JSON here")
+    p.add_argument(
+        "--moe",
+        choices=["auto", "on", "off"],
+        default="auto",
+        help="expert+layer co-assignment: auto (when the profile has MoE "
+        "component metrics), on (require them), off (dense formulation)",
+    )
+    p.add_argument(
+        "--warm-from",
+        default=None,
+        help="warm-start from a solution JSON written by --save-solution "
+        "(torch backend): the stored assignment is re-priced exactly under "
+        "the current profiles and seeds the search; stored Lagrangian duals "
+        "make a MoE re-solve re-evaluate its bound instead of the ascent",
+    )
+    p.add_argument(
+        "--expert-loads",
+        default=None,
+        help="load-weighted expert routing (not ported yet: ROADMAP A8)",
+    )
+    p.add_argument("--max-rounds", type=int, default=None,
+                   help="branch-and-bound round budget (torch backend)")
+    p.add_argument("--beam", type=int, default=None,
+                   help="frontier rows given an LP solve per round (torch backend)")
+    p.add_argument("--ipm-iters", type=int, default=None,
+                   help="interior-point iterations per LP relaxation (torch backend)")
+    p.add_argument(
+        "--ipm-warm-iters", type=int, default=None,
+        help="IPM budget of rounds after the root (torch backend)",
+    )
+    p.add_argument("--node-cap", type=int, default=None,
+                   help="frontier capacity; overflow floors the certificate (torch backend)")
+    p.add_argument(
+        "--lp-backend", choices=["ipm", "pdhg", "auto"], default="auto",
+        help="LP relaxation engine (torch backend): ipm, pdhg, or auto = "
+        "pdhg at 128 devices and more, ipm below (default)",
+    )
+    p.add_argument("--pdhg-iters", type=int, default=None,
+                   help="first-order iterations per LP relaxation (pdhg engine)")
+    p.add_argument("--pdhg-restart-tol", type=float, default=None,
+                   help="Halpern restart sufficient-decay factor in (0, 1) (pdhg engine)")
+    p.add_argument(
+        "--mesh-shards", type=int, default=None,
+        help="row-partition every PDHG LP relaxation across this many GPUs "
+        "(above 1 not ported yet: ROADMAP A13)",
+    )
+    p.add_argument("--pdhg-dtype", choices=["f32", "f64"], default=None,
+                   help="first-order iterate precision (pdhg engine)")
+    p.add_argument(
+        "--batch-size", type=int, default=1,
+        help="price dense compute at the profiles' b_N throughput column",
+    )
+    p.add_argument(
+        "--per-k", action="store_true",
+        help="solve every feasible segment count to its own certificate "
+        "(not ported yet: ROADMAP A8)",
+    )
+    return p
+
+
+def _deferred_options(args) -> list:
+    """(option, ROADMAP item) of each option set that a later slice ports."""
+    out = []
+    if args.per_k:
+        out.append(("--per-k", "A8 (sweep variants)"))
+    if args.expert_loads:
+        out.append(("--expert-loads", "A8 (sweep variants: load-aware routing)"))
+    if (args.mesh_shards or 1) > 1:
+        out.append(("--mesh-shards > 1", "A13 (multi-GPU)"))
+    if args.plot:
+        out.append(("--plot", "A16 (the k-objective plotter)"))
+    return out
+
+
+def _k_candidates(text):
+    if not text:
+        return None
+    return [int(x) for x in text.split(",") if x.strip()]
+
+
+def build_evaluate_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli evaluate",
+        description="digital-twin evaluation of a placement: deterministic "
+        "simulated execution + seeded Monte-Carlo robustness report "
+        "(latency quantiles under device drift, feasibility-violation "
+        "probability, worst-device sensitivity ranking; see "
+        "distilp_torch.twin)",
+    )
+    p.add_argument(
+        "--profile",
+        "-p",
+        required=True,
+        help="folder containing model_profile.json and per-device JSONs",
+    )
+    p.add_argument(
+        "--solution",
+        default=None,
+        help="placement JSON previously written by --save-solution (by "
+        "either package's CLI); default: solve first",
+    )
+    p.add_argument("--backend", choices=["torch", "cpu"], default="torch")
+    _add_device(p)
+    p.add_argument("--mip-gap", type=float, default=1e-3)
+    p.add_argument("--kv-bits", default="4bit")
+    p.add_argument(
+        "--k-candidates",
+        default=None,
+        help="comma-separated k values (used when solving; default: all "
+        "proper factors of L)",
+    )
+    p.add_argument(
+        "--moe",
+        choices=["auto", "on", "off"],
+        default="auto",
+        help="expert+layer co-assignment mode the placement was solved with",
+    )
+    p.add_argument("--samples", type=int, default=1024, help="Monte-Carlo draws")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sigma-compute", type=float, default=0.08)
+    p.add_argument("--sigma-comm", type=float, default=0.15)
+    p.add_argument("--sigma-disk", type=float, default=0.10)
+    p.add_argument(
+        "--sigma-mem", type=float, default=0.0,
+        help="memory-headroom jitter; >0 makes the feasibility-violation "
+        "probability a real tail statistic instead of a 0/1 flag",
+    )
+    p.add_argument(
+        "--dropout-p", type=float, default=0.0,
+        help="per-device straggler probability per sample (device runs "
+        "--dropout-slowdown x slower)",
+    )
+    p.add_argument("--dropout-slowdown", type=float, default=8.0)
+    p.add_argument(
+        "--json", action="store_true",
+        help="print the two reports as one JSON object instead of text",
+    )
+    p.add_argument(
+        "--check-determinism",
+        action="store_true",
+        help="run the Monte-Carlo report twice with the same seed and fail "
+        "unless the reports are identical",
+    )
+    return p
+
+
+def evaluate_main(argv=None) -> int:
+    """``evaluate``: render the digital-twin report for a placement."""
+    args = build_evaluate_parser().parse_args(argv)
+
+    from ..common import load_from_profile_folder
+
+    folder = Path(args.profile)
+    if not folder.is_dir():
+        print(f"error: {folder} is not a directory", file=sys.stderr)
+        return 2
+    if args.samples < 1:
+        print(f"error: --samples must be >= 1 (got {args.samples})", file=sys.stderr)
+        return 2
+    devices, model = load_from_profile_folder(folder)
+    moe = {"auto": None, "on": True, "off": False}[args.moe]
+
+    from ..solver import HALDAResult, halda_solve
+
+    if args.solution:
+        try:
+            result = HALDAResult.model_validate(
+                json.loads(Path(args.solution).read_text())
+            )
+        except (OSError, TypeError, ValueError) as e:
+            print(f"error: cannot load --solution: {e}", file=sys.stderr)
+            return 2
+        # Structural validation against THIS fleet and model: a solution
+        # saved for another fleet would crash mid-report or be mispriced.
+        from ..twin import build_twin_arrays, placement_applicable
+
+        try:
+            arrays = build_twin_arrays(devices, model, kv_bits=args.kv_bits, moe=moe)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if not placement_applicable(arrays, result.w, result.n, y=result.y, k=result.k):
+            print(
+                "error: the saved solution cannot execute on this profile "
+                f"folder (devices={len(devices)}, L={model.L}, "
+                f"moe={'on' if arrays.moe else 'off'}): check device "
+                "count, window sums, offload counts and expert cover — "
+                "was it solved for a different fleet/model, or with a "
+                "different --moe mode?",
+                file=sys.stderr,
+            )
+            return 2
+    else:
+        try:
+            result = halda_solve(
+                devices,
+                model,
+                k_candidates=_k_candidates(args.k_candidates),
+                mip_gap=args.mip_gap,
+                kv_bits=args.kv_bits,
+                backend=args.backend,
+                moe=moe,
+                device=args.device,
+            )
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+    from ..twin import evaluate_placement, robustness_report
+
+    evaluation = evaluate_placement(devices, model, result, kv_bits=args.kv_bits, moe=moe)
+    mc_kwargs = dict(
+        samples=args.samples,
+        seed=args.seed,
+        kv_bits=args.kv_bits,
+        moe=moe,
+        sigma_compute=args.sigma_compute,
+        sigma_comm=args.sigma_comm,
+        sigma_disk=args.sigma_disk,
+        sigma_mem=args.sigma_mem,
+        dropout_p=args.dropout_p,
+        dropout_slowdown=args.dropout_slowdown,
+        device=args.device,
+    )
+    report = robustness_report(devices, model, result, **mc_kwargs)
+    if args.check_determinism:
+        report2 = robustness_report(devices, model, result, **mc_kwargs)
+        if report.model_dump() != report2.model_dump():
+            print(
+                "error: Monte-Carlo report is not deterministic for a fixed seed",
+                file=sys.stderr,
+            )
+            return 1
+
+    if args.json:
+        print(json.dumps({
+            "evaluation": evaluation.model_dump(),
+            "robustness": report.model_dump(),
+        }))
+    else:
+        print(evaluation.render_text())
+        print()
+        print(report.render_text())
+
+    # The conformance contract: the twin's unperturbed execution agrees with
+    # the objective the placement was priced at. A reloaded solution under
+    # drifted profiles legitimately disagrees, so only an in-process solve
+    # gates the exit code.
+    if args.solution is None and evaluation.rel_err is not None:
+        if evaluation.rel_err > 1e-6:
+            print(
+                f"error: twin latency {evaluation.latency_s:.9f} disagrees "
+                f"with the solver objective {evaluation.objective_s:.9f} "
+                f"(rel err {evaluation.rel_err:.3e})",
+                file=sys.stderr,
+            )
+            return 1
+    return 0
+
+
+def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "evaluate":
+        return evaluate_main(argv[1:])
+    if argv and argv[0] in DEFERRED_SUBCOMMANDS:
+        print(
+            f"error: the '{argv[0]}' subcommand is not part of the port yet "
+            f"(ROADMAP.md {DEFERRED_SUBCOMMANDS[argv[0]]})",
+            file=sys.stderr,
+        )
+        return 2
+    args = build_parser().parse_args(argv)
+    deferred = _deferred_options(args)
+    if deferred:
+        for opt, item in deferred:
+            print(f"error: {opt} is not part of the port yet (ROADMAP.md {item})",
+                  file=sys.stderr)
+        return 2
+
+    from ..common import load_from_profile_folder
+    from ..solver import HALDAResult, halda_solve
+
+    folder = Path(args.profile)
+    if not folder.is_dir():
+        print(f"error: {folder} is not a directory", file=sys.stderr)
+        return 2
+    devices, model = load_from_profile_folder(folder)
+
+    warm = None
+    if args.warm_from:
+        if args.backend != "torch":
+            print(
+                "error: --warm-from needs --backend torch (the cpu backend "
+                "has no warm-start hook and would ignore the seed)",
+                file=sys.stderr,
+            )
+            return 2
+        try:
+            # Extra keys (devices, ...) are ignored, so a reload accepts
+            # whatever --save-solution of either package writes.
+            warm = HALDAResult.model_validate(json.loads(Path(args.warm_from).read_text()))
+        except (OSError, TypeError, ValueError) as e:
+            print(f"error: cannot load --warm-from: {e}", file=sys.stderr)
+            return 2
+
+    try:
+        result = halda_solve(
+            devices,
+            model,
+            k_candidates=_k_candidates(args.k_candidates),
+            mip_gap=args.mip_gap,
+            debug=args.debug,
+            kv_bits=args.kv_bits,
+            backend=args.backend,
+            time_limit=args.time_limit,
+            moe={"auto": None, "on": True, "off": False}[args.moe],
+            warm=warm,
+            max_rounds=args.max_rounds,
+            beam=args.beam,
+            ipm_iters=args.ipm_iters,
+            ipm_warm_iters=args.ipm_warm_iters,
+            node_cap=args.node_cap,
+            lp_backend=args.lp_backend,
+            pdhg_iters=args.pdhg_iters,
+            pdhg_restart_tol=args.pdhg_restart_tol,
+            mesh_shards=args.mesh_shards,
+            pdhg_dtype=args.pdhg_dtype,
+            batch_size=args.batch_size,
+            device=args.device,
+        )
+    except (ValueError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    result.print_solution(devices)
+    status = "certified" if result.certified else "NOT certified"
+    gap_txt = f"{result.gap:.3g}" if result.gap is not None else "exact (HiGHS)"
+    print(f"Optimality: {status} (achieved gap {gap_txt})")
+    if args.save_solution:
+        _write_solution(args.save_solution, result, devices)
+    return 0
+
+
+def _write_solution(path, result, devices):
+    """The JAX package's solution JSON (so either CLI's ``evaluate
+    --solution`` and ``--warm-from`` read it)."""
+    payload = {
+        "k": result.k,
+        "w": result.w,
+        "n": result.n,
+        "obj_value": result.obj_value,
+        "sets": result.sets,
+        "devices": [d.name for d in devices],
+        "certified": result.certified,
+        "gap": result.gap,
+    }
+    if result.y is not None:
+        payload["y"] = result.y
+    if result.duals is not None:
+        payload["duals"] = result.duals
+    Path(path).write_text(json.dumps(payload, indent=2))
+    print(f"Saved solution to {path}")
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

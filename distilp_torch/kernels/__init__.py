@@ -3,7 +3,8 @@
 The sources live in ``csrc/`` and are built at first use by
 :mod:`distilp_torch.kernels.build`. Each kernel's Python wrapper sits beside
 its plain PyTorch version (``ops/ipm.py``, ``ops/pdhg.py``,
-``ops/decomp.py``, ``solver/rounding.py``, ``solver/search.py``): on a CUDA tensor the wrapper
+``ops/decomp.py``, ``solver/rounding.py``, ``solver/search.py``,
+``twin/engine.py``, ``profiler/device.py``): on a CUDA tensor the wrapper
 launches the kernel and adds one to :data:`LAUNCHES`; on a CPU tensor it runs
 the plain version.
 """
@@ -18,7 +19,7 @@ import torch
 # Kernel name -> launches since the last reset (only the wrappers add to it).
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
-    "decomp": 0,
+    "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
 }
 
 
@@ -54,3 +55,17 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(kinds)}")
+
+
+def resolve_device(device, what: str, hint: str = "") -> torch.device:
+    """``None`` means the first CUDA device and raises when there is none:
+    an entry point of the port never drops to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} runs on a CUDA device and none is available; pass "
+                f"device='cpu' to run the plain PyTorch versions of the "
+                f"kernels{hint}"
+            )
+        return torch.device("cuda")
+    return torch.device(device)

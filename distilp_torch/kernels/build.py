@@ -28,7 +28,10 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 # kernel library -> (source file, extra nvcc flags). The rounding and the
 # branch-and-bound epilogue compile without FMA contraction: their float64
 # ceil/floor staircases must see the same products as the plain version; so
-# does the decomposition bound (K7), whose cell pricing has the same ones.
+# do the decomposition bound (K7), whose cell pricing has the same ones, the
+# twin's Monte-Carlo engine (K8, the spill-need staircase) and the profiler's
+# scale (K9b, bit for bit against its plain version; K9b's product uses
+# explicit fmaf and the tensor cores, which the flag does not touch).
 SOURCES: Dict[str, tuple] = {
     "ipm": ("ipm_kernel.cu", []),
     "round": ("round_kernel.cu", ["--fmad=false"]),
@@ -36,6 +39,8 @@ SOURCES: Dict[str, tuple] = {
     "bnb_epilogue": ("bnb_epilogue_kernel.cu", ["--fmad=false"]),
     "pdhg": ("pdhg_kernel.cu", []),
     "decomp": ("decomp_kernel.cu", ["--fmad=false"]),
+    "twin_mc": ("twin_mc_kernel.cu", ["--fmad=false"]),
+    "profiler": ("profiler_kernel.cu", ["--fmad=false"]),
 }
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -48,6 +53,7 @@ _L = ctypes.c_long
 _D = ctypes.c_double
 _S = ctypes.c_size_t
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
 # C signatures of the launchers (each returns a cudaError_t as int, unless
 # RESTYPES says otherwise).
@@ -75,6 +81,18 @@ SIGNATURES = {
     "bnb_epilogue": {
         "dtk_bnb_epilogue": [_P] * 13 + [_D] + [_P] * 5 + [_I] * 3 + [_P] * 11
         + [_I, _P],
+    },
+    "twin_mc": {
+        "dtk_twin_mc": [_P, _I, _I] + [_D] * 10 + [_U, _U, _P, _P, _P],
+    },
+    "profiler": {
+        "dtk_roll1": [_P, _P, _L, _I, _P],
+        "dtk_gemm_absmax_f32": [_P] * 3 + [_L] * 3 + [_P, _P],
+        "dtk_gemm_absmax_f16": [_P] * 3 + [_L] * 3 + [_P, _P],
+        "dtk_gemm_absmax_bf16": [_P] * 3 + [_L] * 3 + [_P, _P],
+        "dtk_absmax_rescale_f32": [_P, _L, _P, _I, _F, _I, _P],
+        "dtk_absmax_rescale_f16": [_P, _L, _P, _I, _F, _I, _P],
+        "dtk_absmax_rescale_bf16": [_P, _L, _P, _I, _F, _I, _P],
     },
     "pdhg": {
         "dtk_pdhg_ws_bytes": [_I] * 4,

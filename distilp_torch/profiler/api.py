@@ -1,16 +1,19 @@
-"""Analytic model profiling from a local HF ``config.json``.
+"""Profiler entry points of the port.
 
-The port's copy of the JAX package's jax-free model profiler
-(``distilp_tpu/profiler/api.py::profile_model``): per-layer FLOPs and bytes
-from the config alone, so a ``ModelProfile`` (dense or MoE) can be built on a
-host without JAX. The device probes are not part of the port yet.
+``profile_model`` — the analytic model profiler from a local HF
+``config.json`` (``distilp_tpu/profiler/api.py::profile_model``): per-layer
+FLOPs and bytes from the config alone, so a ``ModelProfile`` (dense or MoE)
+can be built on a host without JAX.
+``profile_device`` — microbenchmark this host and its CUDA card for a
+model's shapes (``distilp_tpu/profiler/api.py::profile_device``).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
-from ..common import ModelProfileSplit
+from ..common import DeviceProfile, ModelProfileSplit
+from . import device as _device
 from .analytic import profile_model_split
 from .hfconfig import ConfigSource, load_config
 
@@ -34,4 +37,21 @@ def profile_model(
         B=batches[0],
         L=sequence_length,
         bs_list=batches,
+    )
+
+
+def profile_device(
+    source: ConfigSource,
+    max_batch_exp: int = 6,
+    is_head: bool = True,
+    raw_info=None,
+    device=None,
+) -> DeviceProfile:
+    """Microbenchmark this host and ``device`` (None = cuda, raising without
+    a GPU; 'cpu' runs the host probes only) for the given model's shapes.
+    ``raw_info``: see ``device.profile_device``."""
+    cfg = load_config(source)
+    return _device.profile_device(
+        cfg, max_batch_exp=max_batch_exp, is_head=is_head, raw_info=raw_info,
+        device=device,
     )

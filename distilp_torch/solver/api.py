@@ -156,7 +156,8 @@ def halda_solve(
     at them instead of running the ascent.
 
     Returns the assignment minimizing the modeled per-round latency with its
-    certificate; raises ``RuntimeError`` if no k admits a feasible one.
+    certificate; raises ``Infeasible`` (a ``RuntimeError``) if no k admits
+    a feasible one.
     """
     if margin_state is not None:
         raise NotImplementedError(
@@ -259,5 +260,5 @@ def halda_solve(
         raise ValueError(f"Unknown backend {backend!r}; expected 'torch' or 'cpu'")
 
     if best is None:
-        raise RuntimeError("No feasible MILP found for any k.")
+        raise Infeasible("No feasible MILP found for any k.")
     return _best_to_result(best, sets)

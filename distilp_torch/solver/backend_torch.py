@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops.decomp import decomp_problem
 from .assemble import MilpArrays, VarLayout
 from .coeffs import HaldaCoeffs
@@ -53,15 +54,9 @@ from .standard_form import (
 def resolve_device(device=None) -> torch.device:
     """``None`` means the first CUDA device; raises without a GPU (the solve
     never drops to the CPU on its own)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "halda_solve(backend='torch') runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch versions "
-                "of the kernels, or backend='cpu' for the HiGHS oracle"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    return kernels.resolve_device(
+        device, "halda_solve(backend='torch')", ", or backend='cpu' for the HiGHS oracle"
+    )
 
 
 def warm_inputs(

@@ -52,7 +52,8 @@ def test_the_profiler_copy_is_checked_and_stays_offline(tmp_path):
     """The port's model profiler is one of the checked modules, and its
     config loader refuses anything but a local file (no network)."""
     files = {p.relative_to(REPO).as_posix() for p in _port_files()}
-    for name in ("__init__", "analytic", "api", "hfconfig"):
+    for name in ("__init__", "analytic", "api", "hfconfig", "datatypes", "device",
+                 "topology"):
         assert f"distilp_torch/profiler/{name}.py" in files
     from distilp_torch.profiler import load_config, load_config_from_repo
 
@@ -70,6 +71,9 @@ def test_every_port_module_imports_without_a_gpu():
     names = [m.name for m in pkgutil.walk_packages(distilp_torch.__path__, "distilp_torch.")]
     assert "distilp_torch.solver.backend_torch" in names
     assert "distilp_torch.profiler.analytic" in names
+    for name in ("distilp_torch.twin.engine", "distilp_torch.profiler.device",
+                 "distilp_torch.cli.solver_cli", "distilp_torch.cli.profiler_cli"):
+        assert name in names
     for name in names:
         importlib.import_module(name)
 
@@ -84,6 +88,7 @@ def test_kernel_sources_and_launch_counters():
         assert (build.CSRC / h).is_file(), h
     assert set(kernels.LAUNCHES) == {
         "ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
+        "twin_mc", "hbm_stream", "gemm_absmax_scale",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
