@@ -10,8 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
   2. build the eight kernel libraries from ``distilp_torch/kernels/csrc``,
      one nvcc each, all started together (timed);
   3. each kernel against its plain PyTorch version on the card, at the shapes
-     of the 16-device north-star instance (the IPM also at M=32, and at M=192
-     where its vectors leave shared memory; the PDHG at the root batches of
+     of the 16-device north-star instance (the IPM also at M=32, at M=128
+     where its factor leaves shared memory and at M=192 where its vectors do
+     too, each route timed, and on a batch whose theta is non-finite; the
+     library's routes at their edges; the PDHG at the root batches of
      the 128- and 512-device fleets, cold and warm, in float64 and float32,
      with every bound checked against the HiGHS LP optimum; the mixed-
      precision entry's float64 fallback), and at the MoE shapes: the IPM
@@ -25,7 +27,8 @@ Phases (any failure exits non-zero and prints no result line):
      row equal to ``simulate_placement``); the profiler's HBM roll (K9a,
      equal to ``torch.roll`` after 1 and 7 passes) and its GEMM-chain step
      (K9b: the product against ``torch.matmul`` in float32, float16 and
-     bfloat16 at the chain's shapes, the scale bit for bit);
+     bfloat16 at the chain's shapes, the scale bit for bit; the step's rate
+     beside ``torch.matmul``'s at the batches b_1, b_2, b_4);
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
   4. the main path, in four runs, each with the launch counts zeroed before
@@ -50,6 +53,7 @@ Phases (any failure exits non-zero and prints no result line):
      512-device fleet, and rank agreement on the golden fixtures' per-k
      placements (each k solved on the card and by HiGHS, which must agree
      on its feasibility and objective);
+     K1's and K5's launches of each path are also printed by shape;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
@@ -318,20 +322,38 @@ def ipm_batch(M: int, seed: int, B: int, dtype, rng):
     return batch, warm, skip
 
 
-def ipm_flops_bytes(m: int, n: int, B: int, iters_total: int, itemsize: int,
-                    warm: bool = False):
-    """Least work of one IPM launch: per executed step the normal matrix
-    (m(m+1)/2 dot products of length n), a Cholesky (m^3/3), four
-    triangular solves (4 m^2) and about six matvecs (12 m n); per element
-    the float64 bound (4 m n). Bytes: every input read once (A shared), every
-    output written once."""
+def ipm_flops_bytes(sp, B: int, iters_total: int, itemsize: int, warm: bool = False,
+                    a_copies: int = 1):
+    """Least work of one IPM launch with A's structure known (``sp``, an
+    ``IPMSparsity``): per executed step the normal matrix's structural
+    entries (2 operations a contribution), a Cholesky (m^3/3), four
+    triangular solves (4 m^2) and about six sparse matvecs (12 nnz); per
+    element the float64 bound (4 nnz). Bytes: every input read once (A's
+    nonzeros, ``a_copies`` times for a per-node A), every output written
+    once."""
+    m, n = sp.m, sp.n
+    per_step = 2 * sp.ncontrib + m ** 3 / 3 + 4 * m * m + 12 * sp.nnz + 60 * n
+    flops = iters_total * per_step + B * 4 * sp.nnz
+    return flops, _ipm_bytes(a_copies * sp.nnz, m, n, B, itemsize, warm)
+
+
+def ipm_dense_formula_flops_bytes(m: int, n: int, B: int, iters_total: int,
+                                  itemsize: int, warm: bool = False):
+    """K1's earlier figure, printed beside the bound so rows compare with
+    the kernel table's older ones: A taken as dense, so per step the normal
+    matrix as m(m+1)/2 dot products of length n and matvecs of 12 m n, per
+    element 4 m n; A shared."""
     per_step = m * (m + 1) * n + m ** 3 / 3 + 4 * m * m + 12 * m * n + 60 * n
     flops = iters_total * per_step + B * 4 * m * n
-    inputs = m * n * itemsize + B * (m + 3 * n) * itemsize
+    return flops, _ipm_bytes(m * n, m, n, B, itemsize, warm)
+
+
+def _ipm_bytes(a_values: int, m: int, n: int, B: int, itemsize: int, warm: bool):
+    inputs = a_values * itemsize + B * (m + 3 * n) * itemsize
     if warm:
         inputs += B * (3 * n + m) * itemsize + 2 * B
     outputs = B * (4 * n + m) * itemsize + B * n * 8 + B * (8 + 4 * itemsize + 5)
-    return flops, inputs + outputs
+    return inputs + outputs
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float):
@@ -343,33 +365,59 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 # ---------------------------------------------------------------- phase 3
 
 
+# K1's routes at the edges of what an H100 block's shared memory holds for
+# an M-device fleet (m = 6M+1, n = 13M+1): the packed factor leaves shared
+# memory above M=47 (float32) and M=31 (float64), the vectors above M=172
+# and M=86 (tests/test_torch_ipm.py drives the wrapper with the same table).
+IPM_ROUTE_EDGES = {(47, "float32"): "shared", (48, "float32"): "factor_global",
+                   (172, "float32"): "factor_global", (173, "float32"): "global",
+                   (31, "float64"): "shared", (32, "float64"): "factor_global",
+                   (86, "float64"): "factor_global", (87, "float64"): "global"}
+
+
+def ipm_non_finite_theta_batch(rng):
+    """Four north-star LPs in float64, warm; element 0 has one active column
+    of infinite width with a warm z of 0, so its z, and with it theta_j,
+    is NaN (0 * inf): its normal matrix is non-finite and every step is
+    zero, as the plain version's dense one (and the JAX package's) gives."""
+    import torch
+
+    batch, warm, skip = ipm_batch(16, 123, 4, torch.float64, rng)
+    act = (batch.u[0] - batch.l[0] > 0).nonzero()
+    j = int(act[len(act) // 2])
+    u = batch.u.clone()
+    u[0, j] = float("inf")
+    z = warm.z.clone()
+    z[0, j] = 0.0
+    ok = warm.ok.clone()
+    ok[0] = True
+    return batch._replace(u=u), warm._replace(z=z, ok=ok), torch.zeros_like(skip)
+
+
 def check_ipm(report: dict) -> None:
     import numpy as np
     import torch
 
+    from distilp_torch.kernels import LAUNCHES
     from distilp_torch.ops.ipm import (
         ipm_solve_batch,
         ipm_solve_batch_reference,
+        ipm_sparsity,
         ipm_workspace_route,
     )
+    from distilp_torch.solver.search import node_sparsity
 
-    # Where the kernel library puts one LP's vectors on this card, at the
-    # edges of what an H100 block's shared memory holds (m = 6M+1, n = 13M+1;
-    # tests/test_torch_ipm.py drives the wrapper with the same table).
-    routes = {(M, str(dt).split(".")[-1]): ipm_workspace_route(6 * M + 1, 13 * M + 1, dt, "cuda")
-              for M, dt in ((172, torch.float32), (173, torch.float32),
-                            (86, torch.float64), (87, torch.float64))}
+    routes = {(M, d): ipm_workspace_route(6 * M + 1, 13 * M + 1, getattr(torch, d), "cuda")
+              for M, d in IPM_ROUTE_EDGES}
     print("ipm routes", json.dumps({f"M={M} {d}": r for (M, d), r in routes.items()}),
           flush=True)
-    want = {(172, "float32"): "shared", (173, "float32"): "global",
-            (86, "float64"): "shared", (87, "float64"): "global"}
-    if routes != want:
-        fail(f"ipm workspace routes {routes}, expected {want}")
+    if routes != IPM_ROUTE_EDGES:
+        fail(f"ipm workspace routes {routes}, expected {IPM_ROUTE_EDGES}")
 
     rng = np.random.default_rng(1234)
     rows = []
     cases = [
-        (M, seed, 16, cfg)
+        (M, seed, 16, cfg, None)
         for M, seed in ((16, 123), (32, 32))
         for cfg in (
             (torch.float32, 8, 8),  # cold root round of the default budget
@@ -378,18 +426,24 @@ def check_ipm(report: dict) -> None:
             (torch.float64, 26, 4),
         )
     ]
-    # Above the old shared-memory ceiling (M > 172 in float32, M > 86 in
-    # float64) the vectors live in a per-block global workspace: a cold
-    # root-round budget, B=2, both elements live (no skip).
-    global_cases = [(192, 192, 2, (torch.float32, 8, 8)),
-                    (128, 123, 2, (torch.float64, 8, 8))]
-    cases += global_cases
-    for M, seed, B, (dtype, iters, chunk) in cases:
+    # The factor_global and global routes at a cold root-round budget, B=2,
+    # both elements live (no skip): M=128 float32 (the fleet forced onto the
+    # IPM), M=192 float32 and M=128 float64.
+    cases += [(128, 123, 2, (torch.float32, 8, 8), "factor_global"),
+              (192, 192, 2, (torch.float32, 8, 8), "global"),
+              (128, 123, 2, (torch.float64, 8, 8), "global")]
+    # The north star (M=16) and the fleet forced onto the IPM (M=128) take
+    # A's structure as a solve passes it (search.node_sparsity, built once
+    # per sweep); M=32 and M=192 let the wrapper build it from A, as a
+    # direct call does.
+    for M, seed, B, (dtype, iters, chunk), want_route in cases:
         batch, warm, skip = ipm_batch(M, seed, B, dtype, rng)
-        if (M, seed, B, (dtype, iters, chunk)) in global_cases:
+        if want_route is not None:
             skip = torch.zeros_like(skip)
         route = ipm_workspace_route(*batch.A.shape, dtype, batch.A.device)
-        k = ipm_solve_batch(batch, iters=iters, warm=warm, skip=skip, chunk=chunk)
+        sp = node_sparsity(batch.A, M, moe=False) if M in (16, 128) else None
+        k = ipm_solve_batch(batch, iters=iters, warm=warm, skip=skip, chunk=chunk,
+                            sparsity=sp)
         r = ipm_solve_batch_reference(batch, iters=iters, warm=warm, skip=skip, chunk=chunk)
         torch.cuda.synchronize()
         errs = {f: max_err(getattr(k, f), getattr(r, f))
@@ -400,50 +454,106 @@ def check_ipm(report: dict) -> None:
             ok = d_it == 0 and conv_eq and all(e[1] <= TOL_IPM_F64 for e in errs.values())
         else:
             ok = errs["bound"][1] <= TOL_IPM_F32_CERT
+        if want_route is not None:
+            ok = ok and route == want_route and min(k.iters_run.tolist()) > 0
         line = {
             "M": M, "B": B, "route": route, "dtype": str(dtype).split(".")[-1],
-            "iters": iters, "chunk": chunk, "iters_run": k.iters_run.tolist(),
+            "sparsity": "per call" if sp is None else "node_sparsity", "iters": iters, "chunk": chunk, "iters_run": k.iters_run.tolist(),
             "d_iters": d_it, "converged_equal": conv_eq,
             "max_abs": {f: e[0] for f, e in errs.items()},
             "max_rel": {f: e[1] for f, e in errs.items()}, "ok": ok,
         }
         print("ipm vs plain", json.dumps(line), flush=True)
         rows.append(line)
-    for r in rows[-len(global_cases):]:
-        if r["route"] != "global" or min(r["iters_run"]) == 0:
-            fail(f"ipm at M={r['M']} {r['dtype']}: route {r['route']}, iters_run "
-                 f"{r['iters_run']}; expected the global route with every element live")
-    bad = [(r["M"], r["dtype"], r["iters"], r["chunk"]) for r in rows if not r["ok"]]
+
+    # A non-finite theta: element 0 takes zero steps on both; the residual
+    # norms are non-finite on both (the plain version's dense products give
+    # NaN, the kernel's sparse ones +-inf or NaN); the other elements and
+    # every other field as in float64 above.
+    batch, warm, skip = ipm_non_finite_theta_batch(rng)
+    k = ipm_solve_batch(batch, iters=8, warm=warm, skip=skip, chunk=4,
+                        sparsity=node_sparsity(batch.A, 16, moe=False))
+    r = ipm_solve_batch_reference(batch, iters=8, warm=warm, skip=skip, chunk=4)
+    torch.cuda.synchronize()
+    norms = ("rp_norm", "rd_norm")
+    errs = {f: max_err(getattr(k, f), getattr(r, f))
+            for f in k._fields if f not in ("converged", "iters_run") + norms}
+    errs.update({f: max_err(getattr(k, f)[1:], getattr(r, f)[1:]) for f in norms})
+    nonfin = all(not bool(torch.isfinite(getattr(t, f)[0])) for t in (k, r) for f in norms)
+    d_it = int((k.iters_run - r.iters_run).abs().max())
+    conv_eq = bool(torch.equal(k.converged, r.converged))
+    frozen = bool(torch.equal(k.y_dual[0], warm.y[0]))
+    ok = (d_it == 0 and conv_eq and nonfin and frozen
+          and all(e[1] <= TOL_IPM_F64 for e in errs.values()))
+    line = {"case": "non-finite theta", "M": 16, "B": 4, "dtype": "float64",
+            "iters_run": k.iters_run.tolist(), "d_iters": d_it, "converged_equal": conv_eq,
+            "norms_non_finite_on_both": nonfin, "element0_dual_frozen": frozen,
+            "max_rel": {f: e[1] for f, e in errs.items()}, "ok": ok}
+    print("ipm vs plain", json.dumps(line), flush=True)
+    rows.append(line)
+    # A structure that misses one nonzero of A is refused before launch.
+    short = batch.A != 0
+    short[tuple(t[0] for t in short.nonzero(as_tuple=True))] = False
+    before = LAUNCHES["ipm"]
+    try:
+        ipm_solve_batch(batch, iters=8, sparsity=ipm_sparsity(short))
+        refused = False
+    except ValueError:
+        refused = True
+    line = {"case": "structure missing a nonzero", "M": 16, "dtype": "float64",
+            "refused_before_launch": refused and LAUNCHES["ipm"] == before}
+    line["ok"] = line["refused_before_launch"]
+    print("ipm vs plain", json.dumps(line), flush=True)
+    rows.append(line)
+    bad = [(r.get("M"), r["dtype"], r.get("iters"), r.get("chunk", r.get("case")))
+           for r in rows if not r["ok"]]
     if bad:
         fail(f"ipm kernel disagrees with its plain version in (M, dtype, iters, chunk) {bad}")
 
-    # Time at the north-star root-round shapes (B=16 LPs, f32, cold 8-step).
-    batch, warm, skip = ipm_batch(16, 123, 16, torch.float32, np.random.default_rng(7))
-    m, n = batch.A.shape
-    run_k = lambda: ipm_solve_batch(batch, iters=8, chunk=8)  # noqa: E731
-    run_p = lambda: ipm_solve_batch_reference(batch, iters=8, chunk=8)  # noqa: E731
-    res = run_k()
-    flops, nbytes = ipm_flops_bytes(m, n, 16, int(res.iters_run.sum()), 4)
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
-    ms, call, src = time_kernel(run_k, "ipm_kernel")
-    plain = cuda_ms(run_p, reps=5, warmup=1)
+    # Time each route at a main-path shape: the north-star root round (B=16,
+    # float32, cold 8 steps; shared), the 128-device fleet forced onto the
+    # IPM (B=2; factor_global) and M=192 (B=2; global). A's structure is
+    # built once beforehand, as a solve does.
+    timing = {}
+    for name, M, seed, B in (("shared", 16, 123, 16), ("factor_global", 128, 123, 2),
+                             ("global", 192, 192, 2)):
+        batch, _, _ = ipm_batch(M, seed, B, torch.float32, np.random.default_rng(7))
+        m, n = batch.A.shape
+        sp = node_sparsity(batch.A, M, moe=False)
+        run_k = lambda: ipm_solve_batch(batch, iters=8, chunk=8, sparsity=sp)  # noqa: E731
+        run_p = lambda: ipm_solve_batch_reference(batch, iters=8, chunk=8)  # noqa: E731
+        res = run_k()
+        steps = int(res.iters_run.sum())
+        b_ms, b_by = bound_ms(*ipm_flops_bytes(sp, B, steps, 4), PEAK_F32_S)
+        dense_b_ms = bound_ms(*ipm_dense_formula_flops_bytes(m, n, B, steps, 4),
+                              PEAK_F32_S)[0]
+        ms, call, src = time_kernel(run_k, "ipm_kernel")
+        plain = cuda_ms(run_p, reps=5 if M < 100 else 2, warmup=1)
+        timing[name] = dict(shapes=f"B={B} m={m} n={n} float32, cold 8 steps",
+                            route=ipm_workspace_route(m, n, torch.float32, "cuda"), ms=ms,
+                            call_ms=call, ms_source=src, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=b_by, bound_ms_dense_formula=dense_b_ms,
+                            steps_timed=steps)
+        print(f"ipm {name}: {ms:.4f} ms on the card, {call:.4f} ms per call "
+              f"(plain {plain:.3f} ms, bound {b_ms:.5f} ms by {b_by}, dense formula "
+              f"{dense_b_ms:.5f} ms) at B={B} m={m} n={n}, {steps} steps", flush=True)
     # Yardstick: one batched library factor + solve of the same (16, m, m)
     # normal matrices, the core of one step (not the whole function).
+    m = 97
     Mm = torch.eye(m, device="cuda").expand(16, m, m) * 2.0 + 0.01
     rhs = torch.ones(16, m, 1, device="cuda")
     chol = cuda_ms(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(Mm)))
+    t = timing["shared"]
     report["ipm"] = dict(
         name="ipm", route="cuda", source="distilp_torch/kernels/csrc/ipm_kernel.cu",
         replaces="distilp_tpu/ops/ipm.py:149",
-        max_abs_err=rows[0]["max_abs"]["bound"], ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        held_against_plain="ok", call_ms=call, ms_source=src, steps_timed=int(res.iters_run.sum()),
-        chol_solve_ms_per_step=chol,
+        max_abs_err=rows[0]["max_abs"]["bound"], ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+        bound_ms_dense_formula=t["bound_ms_dense_formula"],
+        held_against_plain="ok", call_ms=t["call_ms"], ms_source=t["ms_source"],
+        steps_timed=t["steps_timed"], chol_solve_ms_per_step=chol, by_route=timing,
     )
-    print(f"ipm: {ms:.4f} ms on the card, {call:.4f} ms per call "
-          f"(plain {plain:.3f} ms, bound {b_ms:.5f} ms by {b_by}; "
-          f"library cholesky+solve of one step {chol:.4f} ms) at B=16 m={m} n={n}",
-          flush=True)
+    print(f"ipm: library cholesky+solve of one north-star step {chol:.4f} ms", flush=True)
 
 
 def main_path_state():
@@ -920,8 +1030,11 @@ def check_ipm_moe(report: dict) -> None:
         ipm_solve_batch_reference,
         ipm_workspace_route,
     )
+    from distilp_torch.solver.search import node_sparsity
 
     *_, data, _, host = moe_instance(FLAGSHIP)
+    # Every node's structure, as a solve builds it once per sweep.
+    sp = node_sparsity(data.A, data.rd.a.shape[0], moe=True)
     rng = np.random.default_rng(77)
     bad, rows = [], []
     for B, dtype, iters, chunk in ((1, torch.float32, 26, 26), (16, torch.float32, 13, 4),
@@ -929,14 +1042,15 @@ def check_ipm_moe(report: dict) -> None:
         batch, warm, skip = moe_ipm_batch(data, host, B, dtype, rng)
         w = None if B == 1 else warm
         route = ipm_workspace_route(*batch.A.shape[1:], dtype, batch.A.device)
-        k = ipm_solve_batch(batch, iters=iters, warm=w, skip=skip, chunk=chunk)
+        k = ipm_solve_batch(batch, iters=iters, warm=w, skip=skip, chunk=chunk, sparsity=sp)
         r = ipm_solve_batch_reference(batch, iters=iters, warm=w, skip=skip, chunk=chunk)
         alone_equal = True
         if B > 1:
             for e in range(B):
                 sub = LPBatch(*(t[e:e + 1] for t in batch))
                 ke = ipm_solve_batch(sub, iters=iters, chunk=chunk, skip=skip[e:e + 1],
-                                     warm=IPMWarmState(*(t[e:e + 1] for t in warm)))
+                                     warm=IPMWarmState(*(t[e:e + 1] for t in warm)),
+                                     sparsity=sp)
                 alone_equal &= all(torch.equal(getattr(ke, f), getattr(k, f)[e:e + 1])
                                    for f in k._fields)
         sens = None
@@ -973,22 +1087,28 @@ def check_ipm_moe(report: dict) -> None:
     # Time: a MoE beam round (B=16 nodes, float32, 13 warm-budget steps).
     batch, warm, skip = moe_ipm_batch(data, host, 16, torch.float32, np.random.default_rng(78))
     _, m, n = batch.A.shape
-    run_k = lambda: ipm_solve_batch(batch, iters=13, warm=warm, chunk=4)  # noqa: E731
+    run_k = lambda: ipm_solve_batch(batch, iters=13, warm=warm, chunk=4, sparsity=sp)  # noqa: E731
     res = run_k()
-    flops, nbytes = ipm_flops_bytes(m, n, 16, int(res.iters_run.sum()), 4, warm=True)
+    steps = int(res.iters_run.sum())
+    b_ms, b_by = bound_ms(*ipm_flops_bytes(sp, 16, steps, 4, warm=True, a_copies=16),
+                          PEAK_F32_S)
+    flops, nbytes = ipm_dense_formula_flops_bytes(m, n, 16, steps, 4, warm=True)
     nbytes += 15 * m * n * 4  # 16 matrices, not one shared
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+    dense_b_ms = bound_ms(flops, nbytes, PEAK_F32_S)[0]
     ms, call, src = time_kernel(run_k, "ipm_kernel")
     plain = cuda_ms(lambda: ipm_solve_batch_reference(batch, iters=13, warm=warm, chunk=4),
                     reps=3, warmup=1)
     report["ipm"]["per_node_A"] = dict(
-        shapes=f"B=16 m={m} n={n} float32, 13 steps", ms=ms, call_ms=call, ms_source=src,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        steps_timed=int(res.iters_run.sum()),
+        shapes=f"B=16 m={m} n={n} float32, 13 steps",
+        route=ipm_workspace_route(m, n, torch.float32, "cuda"), ms=ms, call_ms=call,
+        ms_source=src,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, bound_ms_dense_formula=dense_b_ms,
+        steps_timed=steps,
         max_abs_err_bound=max(r["max_abs"]["bound"] for r in rows),
     )
     print(f"ipm per-node A: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
-          f"{plain:.3f} ms, bound {b_ms:.5f} ms by {b_by}) at B=16 m={m} n={n}", flush=True)
+          f"{plain:.3f} ms, bound {b_ms:.5f} ms by {b_by}, dense formula {dense_b_ms:.5f} ms) "
+          f"at B=16 m={m} n={n}", flush=True)
 
 
 def round_moe_bytes_flops(B: int, M: int, moves: int, y_steps: int, cand_per_step: int):
@@ -1402,7 +1522,8 @@ def check_gemm_absmax_scale(report: dict) -> None:
         library = cuda_ms(lambda: torch.matmul(x, b), reps=5)
         flops = 2.0 * S * S * S
         nbytes = 3.0 * S * S * x.element_size()
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S if dt == torch.float32 else PEAK_BF16_S)
+        peak = PEAK_F32_S if dt == torch.float32 else PEAK_BF16_S
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
         timing[tag] = dict(ms=total, rescale_ms=rescale, call_ms=call, ms_source=src,
                            plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by,
                            tflops=flops / (total * 1e-3) / 1e12)
@@ -1411,6 +1532,23 @@ def check_gemm_absmax_scale(report: dict) -> None:
               f"{timing[tag]['tflops']:.2f} TFLOP/s (plain {plain:.4f} ms, library "
               f"torch.matmul {library:.4f} ms, bound {b_ms:.4f} ms by {b_by}) at "
               f"(1, {S}, {S}) @ ({S}, {S})", flush=True)
+        # The chain's batches b_1, b_2, b_4: the whole step per call (CUDA
+        # events) against torch.matmul's product alone.
+        by_batch = {}
+        for B in (1, 2, 4):
+            xb = x if B == 1 else torch.randn((B, S, S), generator=gen, device="cuda").to(dt)
+            step_ms = cuda_ms(lambda: D.gemm_absmax_scale(xb, b), reps=5)
+            lib_ms = cuda_ms(lambda: torch.matmul(xb, b), reps=5)
+            fl = B * flops
+            by_batch[f"b_{B}"] = dict(step_ms=step_ms, tflops=fl / (step_ms * 1e-3) / 1e12,
+                                      matmul_ms=lib_ms,
+                                      matmul_tflops=fl / (lib_ms * 1e-3) / 1e12,
+                                      bound_ms=bound_ms(B * flops, B * nbytes, peak)[0])
+            print(f"gemm_absmax_scale {tag} b_{B}: step {step_ms:.4f} ms per call, "
+                  f"{by_batch[f'b_{B}']['tflops']:.2f} TFLOP/s; torch.matmul {lib_ms:.4f} ms, "
+                  f"{by_batch[f'b_{B}']['matmul_tflops']:.2f} TFLOP/s", flush=True)
+            del xb
+        timing[tag]["by_batch"] = by_batch
         del x, b
     t = timing["float32"]
     report["gemm_absmax_scale"] = dict(
@@ -1494,7 +1632,7 @@ def main_path() -> dict:
     devs = make_synthetic_fleet(32, seed=32)
     r, ms, tm = solve(devs, model, 1e-3)
     show("synthetic_M32", r, ms, tm)
-    launches = dict(kernels.LAUNCHES)
+    launches = path_launches()
     t = time.perf_counter()
     ref = halda_solve(devs, model, mip_gap=1e-3, kv_bits="4bit", backend="cpu")
     print(f"highs oracle M32: k={ref.k} obj={ref.obj_value:.6f} "
@@ -1551,7 +1689,7 @@ def fleet_path() -> dict:
     r5, ms, tm = solve(devs512, model512, FLEET512_GAP)
     show("fleet_M512", r5, ms, tm)
     check("fleet_M512", r5, tm, FLEET512_PDHG, 2 * FLEET512_GAP, "pdhg", model512)
-    launches = dict(kernels.LAUNCHES)
+    launches = path_launches()
     print("fleet path launches", json.dumps(launches), flush=True)
     missing = [k for k in ("ipm", "round_incumbent", "bnb_epilogue", "pdhg") if launches[k] == 0]
     if missing:
@@ -1621,7 +1759,7 @@ def moe_path() -> dict:
     if tm.get("decomp_steps") != 0 or cold.duals is None or rw.duals is None:
         fail(f"warm flagship did not re-evaluate at the stored duals: "
              f"decomp_steps={tm.get('decomp_steps')}")
-    launches = dict(kernels.LAUNCHES)
+    launches = path_launches()
     print("moe path launches", json.dumps(launches), flush=True)
     missing = [k for k in MOE_KERNELS if launches[k] == 0]
     if missing:
@@ -1653,12 +1791,30 @@ PROFILE_ENV = {"DPERF_DISK_FILE_MB": "256", "DPERF_GEMM_ITERS": "2",
 CLI_CHILD = (
     "import atexit, json, runpy, sys\n"
     "from distilp_torch import kernels\n"
-    "atexit.register(lambda: print('kernel launches ' + json.dumps(kernels.LAUNCHES), "
-    "file=sys.stderr, flush=True))\n"
+    "atexit.register(lambda: print('kernel launches ' + json.dumps("
+    "{**kernels.LAUNCHES, '_shapes': kernels.SHAPES}), file=sys.stderr, flush=True))\n"
     "mod = sys.argv[1]\n"
     "sys.argv = [mod] + sys.argv[2:]\n"
     "runpy.run_module(mod, run_name='__main__')\n"
 )
+
+
+def merge_shapes(into: dict, more: dict) -> None:
+    for k, per in more.items():
+        for shape, c in per.items():
+            into.setdefault(k, {})[shape] = into.setdefault(k, {}).get(shape, 0) + c
+
+
+def path_launches(child=None) -> dict:
+    """The launches each kernel wrapper counted since the last reset (plus
+    a child process's), with K1's and K5's by shape under ``_shapes``."""
+    from distilp_torch import kernels
+
+    child = child or {}
+    out = {k: v + child.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+    out["_shapes"] = {k: dict(v) for k, v in kernels.SHAPES.items()}
+    merge_shapes(out["_shapes"], child.get("_shapes", {}))
+    return out
 
 
 def run_cli(module: str, args: list, launches: dict, env=None, timeout: int = 600):
@@ -1678,7 +1834,10 @@ def run_cli(module: str, args: list, launches: dict, env=None, timeout: int = 60
         fail(f"{module} {' '.join(args)} exited {proc.returncode} without its launch "
              f"counts:\n{proc.stderr[-3000:]}")
     for k, v in json.loads(tail[-1][len("kernel launches "):]).items():
-        launches[k] = launches.get(k, 0) + v
+        if k == "_shapes":
+            merge_shapes(launches.setdefault("_shapes", {}), v)
+        else:
+            launches[k] = launches.get(k, 0) + v
     print(f"$ python -m {module} {' '.join(args)}  -> exit {proc.returncode} in "
           f"{wall:.1f} s", flush=True)
     return proc.returncode, proc.stdout, proc.stderr, wall
@@ -1845,7 +2004,7 @@ def profile_path(cases: list) -> dict:
             fail(f"rank agreement on {folder}: {len(per_k)} placements of {n_feasible} "
                  f"feasible k, {ra['pairwise_inversions']} inversions")
 
-    launches = {k: v + child.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+    launches = path_launches(child)
     print("profile path launches", json.dumps(launches), flush=True)
     missing = [k for k in PROFILE_KERNELS if launches[k] == 0]
     if missing:
@@ -1939,6 +2098,8 @@ def main() -> int:
              "profile": profile_path(cases)}
     launches = {k: sum(p[k] for p in paths.values()) for k in report}
     print("main path launches", json.dumps(launches), flush=True)
+    by_shape = {k: {p: c["_shapes"][k] for p, c in paths.items()} for k in ("ipm", "pdhg")}
+    print("main path launches by shape", json.dumps(by_shape), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"main path never launched {missing}")
@@ -1948,6 +2109,8 @@ def main() -> int:
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        if name in by_shape:
+            row["launches_by_shape"] = by_shape[name]
         out.append(row)
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)

@@ -23,9 +23,24 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# Kernel name -> {shape: launches} for the kernels whose wrappers break
+# their count down by the shape they were launched at (K1, K5).
+SHAPES: Dict[str, Dict[str, int]] = {"ipm": {}, "pdhg": {}}
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for v in SHAPES.values():
+        v.clear()
+
+
+def count_launch(name: str, shape: str = "") -> None:
+    """One launch of kernel ``name`` (and of ``shape``, where its wrapper
+    breaks the count down)."""
+    LAUNCHES[name] += 1
+    if name in SHAPES:
+        SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -59,11 +59,11 @@ _U = ctypes.c_uint
 # RESTYPES says otherwise).
 SIGNATURES = {
     "ipm": {
-        "dtk_ipm_vec_ws_bytes": [_I] * 5 + [_P],
-        "dtk_ipm_f32": [_P] * 2 + [_L] + [_P] * 10 + [_I] * 5 + [_D] * 2
-        + [_P] * 14 + [_I, _P],
-        "dtk_ipm_f64": [_P] * 2 + [_L] + [_P] * 10 + [_I] * 5 + [_D] * 2
-        + [_P] * 14 + [_I, _P],
+        "dtk_ipm_workspace": [_I] * 5 + [_P] * 3,
+        "dtk_ipm_f32": [_P, _L, _P] + [_I] * 3 + [_P, _L] + [_P] * 10 + [_I] * 5
+        + [_D] * 2 + [_P] * 14 + [_I, _P],
+        "dtk_ipm_f64": [_P, _L, _P] + [_I] * 3 + [_P, _L] + [_P] * 10 + [_I] * 5
+        + [_D] * 2 + [_P] * 14 + [_I, _P],
     },
     "round": {
         "dtk_round_f32": [_P, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P],
@@ -87,6 +87,7 @@ SIGNATURES = {
     },
     "profiler": {
         "dtk_roll1": [_P, _P, _L, _I, _P],
+        "dtk_gemm_tile": [_I, _P, _P],
         "dtk_gemm_absmax_f32": [_P] * 3 + [_L] * 3 + [_P, _P],
         "dtk_gemm_absmax_f16": [_P] * 3 + [_L] * 3 + [_P, _P],
         "dtk_gemm_absmax_bf16": [_P] * 3 + [_L] * 3 + [_P, _P],
@@ -188,6 +189,7 @@ def ptxas_report() -> str:
     for name in SOURCES:
         log = build_dir() / f"{name}.log"
         if log.exists():
-            lines = [ln for ln in log.read_text().splitlines() if "ptxas" in ln]
+            lines = [ln for ln in log.read_text().splitlines()
+                     if "ptxas" in ln or "spill" in ln]
             parts.append(f"[{name}]\n" + "\n".join(lines))
     return "\n".join(parts)

@@ -16,18 +16,29 @@
 //
 // A non-positive (or NaN) Cholesky pivot makes the whole factor NaN, as
 // jax.scipy.linalg.cho_factor does; the finite guard then zeroes the step.
+// A non-finite theta does the same (the dense normal matrix would be
+// non-finite everywhere). The sparse products assume finite boxes: with an
+// infinite box width the dense products' 0 * inf terms, which make the
+// reference's residual norms NaN, are not formed (both take zero steps).
 //
-// What bounds it on an H100: at the shapes of the 16-device fleet (m=97,
-// n=209, B<=16 LPs) the work is ~2*m^2*n/2 FLOPs for the normal matrix plus a
-// sequential m^3/3 Cholesky and four triangular solves per step: latency of
-// one block per LP, not the card's rates (the batch fills 16 of 132 SMs). The
-// design keeps every n- and m-vector in shared memory and the m*m factor in a
-// per-block global workspace (L2-resident: 37.6 KB at m=97, 149 KB at m=193);
-// A is shared by the batch and read through L1/L2. Above what a block can opt
-// into (M > 172 devices in float32, M > 86 in float64: (24 n + 4 m + 32)
-// elements per LP) the wrapper hands the kernel a global workspace for the
-// vectors instead, so every shape the reference accepts launches. Shared-memory residency of
-// the factor, tensor-core products and a blocked Cholesky are later work.
+// What bounds it on an H100: latency of one block per LP, not the card's
+// rates (at the 16-device fleet's shapes, m=97, n=209, B<=16 LPs, the batch
+// fills 16 of 132 SMs). A is sparse (2.4% nonzero at m=97, 0.31% at m=769),
+// so the design works from its structure, built once per A by the wrapper:
+// A v and A' y run over the nonzeros, and the normal matrix is formed entry
+// by entry over its structural entries' contributing columns (1488
+// multiply-adds at m=97 where a dense loop does 993 377). The vectors and
+// the packed lower factor live in shared memory where both fit (m=97 f32:
+// 19 KB of factor; the MoE per-node A, m=258: 134 KB). The whole block
+// factors (left-looking, a thread per row with independent partial sums,
+// so the loads stream; the diagonal keeps reciprocals) and solves (one
+// warp's register-resident 32-row diagonal blocks, the block's updates).
+// What does not fit keeps the factor in a per-block global workspace, read
+// through L1/L2 by the same code, and above that (M > 172 devices in
+// float32, M > 86 in float64) the vectors too, so every shape the
+// reference accepts launches. The library picks the route from its own
+// layout (dtk_ipm_workspace). Several SMs per LP, a fill-reducing ordering
+// and CUDA graphs are later work.
 
 #include "common.cuh"
 
@@ -46,112 +57,259 @@ struct Tiny<double> {
   static __device__ __forceinline__ double v() { return 1e-300; }
 };
 
-// out[i] = sum_j (A[i,j] * cs[j]) * vec[j]   (one warp per row)
+// A's sparse structure, built once per A by the wrapper
+// (distilp_torch/ops/ipm.py::ipm_sparsity) as one int32 buffer:
+//   a_ptr (m+1), a_col (nnz), a_pos (nnz)   rows of A: columns, and each
+//                                           nonzero's place in column order
+//   t_ptr (n+1), t_row (nnz)                rows of A' (columns of A)
+//   w_ptr (nent+1), w_row (nent), w_col (nent)   W's structural lower
+//                                           entries (i >= k; every diagonal)
+//   w_j, w_pi, w_pk (ncontrib each)         each entry's contributing
+//                                           columns j, ascending, with the
+//                                           places of A[i,j] and A[k,j]
+// The values of A are given in column order (per LP for a per-node A).
+struct Sparsity {
+  const int *a_ptr, *a_col, *a_pos, *t_ptr, *t_row, *w_ptr, *w_row, *w_col, *w_j, *w_pi,
+      *w_pk;
+  int nent;
+};
+
+__device__ __forceinline__ Sparsity unpack(const int* sp, int m, int n, int nnz, int nent,
+                                           int ncontrib) {
+  Sparsity S;
+  S.a_ptr = sp;
+  S.a_col = S.a_ptr + m + 1;
+  S.a_pos = S.a_col + nnz;
+  S.t_ptr = S.a_pos + nnz;
+  S.t_row = S.t_ptr + n + 1;
+  S.w_ptr = S.t_row + nnz;
+  S.w_row = S.w_ptr + nent + 1;
+  S.w_col = S.w_row + nent;
+  S.w_j = S.w_col + nent;
+  S.w_pi = S.w_j + ncontrib;
+  S.w_pk = S.w_pi + ncontrib;
+  S.nent = nent;
+  return S;
+}
+
+// out[i] = sum_j (A[i,j] * cs[j]) * vec[j] over row i's nonzeros (one warp
+// per row).
 template <typename T>
-__device__ void mv_A(const T* __restrict__ A, const T* cs, const T* vec, T* out,
-                     int m, int n) {
+__device__ void mv_A(const Sparsity& S, const T* val, const T* cs, const T* vec, T* out,
+                     int m) {
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   for (int i = wid; i < m; i += nw) {
-    const T* row = A + (size_t)i * n;
     T acc = T(0);
-    for (int j = lane; j < n; j += 32) acc += (row[j] * cs[j]) * vec[j];
+    for (int p = S.a_ptr[i] + lane; p < S.a_ptr[i + 1]; p += 32) {
+      const int j = S.a_col[p];
+      acc += (val[S.a_pos[p]] * cs[j]) * vec[j];
+    }
     acc = warp_reduce(acc, Sum());
     if (lane == 0) out[i] = acc;
   }
 }
 
-// out[j] = sum_i (A[i,j] * cs[j]) * vec[i]   (one thread per column)
+// out[j] = sum_i (A[i,j] * cs[j]) * vec[i] over column j's nonzeros, i
+// ascending (one thread per column).
 template <typename T>
-__device__ void mv_At(const T* __restrict__ A, const T* cs, const T* vec, T* out,
-                      int m, int n) {
+__device__ void mv_At(const Sparsity& S, const T* val, const T* cs, const T* vec, T* out,
+                      int n) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const T csj = cs[j];
     T acc = T(0);
-    for (int i = 0; i < m; ++i) acc += (A[(size_t)i * n + j] * csj) * vec[i];
+    for (int q = S.t_ptr[j]; q < S.t_ptr[j + 1]; ++q) acc += (val[q] * csj) * vec[S.t_row[q]];
     out[j] = acc;
   }
 }
 
-__device__ __forceinline__ long tri_start(long k, long m) {
-  return k * m - k * (k - 1) / 2;
-}
+// Packed column-major lower storage with 32-bit indices (m(m+1)/2 < 2^31
+// for every m whose factor fits a card): column k starts at col_start(k).
+__device__ __forceinline__ int col_start(int k, int m) { return k * m - k * (k - 1) / 2; }
+__host__ __device__ __forceinline__ long tri_len(long m) { return m * (m + 1) / 2; }
 
-// Column of the column-major lower-triangle linear index e.
-__device__ __forceinline__ int tri_col(long e, int m) {
-  const double b = 2.0 * m + 1.0;
-  long k = (long)floor((b - sqrt(b * b - 8.0 * (double)e)) * 0.5);
-  if (k < 0) k = 0;
-  if (k > m - 1) k = m - 1;
-  while (k > 0 && tri_start(k, m) > e) --k;
-  while (k < m - 1 && tri_start(k + 1, m) <= e) ++k;
-  return (int)k;
-}
-
-// W (column-major lower) = As diag(theta) As' + reg I, As = A diag(cs).
-// At is A transposed (n, m) so that a warp's rows i are adjacent in memory.
+// W (packed lower) = As diag(theta) As' + reg I, As = A diag(cs), entry by
+// entry over its contributing columns only, in ascending j with the dense
+// sum's expression: a finite theta gives the dense sum (the skipped terms
+// are exact zeros). The caller handles a non-finite theta (the dense sum
+// would be non-finite everywhere: the factor fails).
 template <typename T>
-__device__ void normal_matrix(const T* __restrict__ At, const T* cs,
-                              const T* theta, T reg, T* W, int m, int n) {
-  const long tri = (long)m * (m + 1) / 2;
-  for (long e = threadIdx.x; e < tri; e += blockDim.x) {
-    const int k = tri_col(e, m);
-    const int i = k + (int)(e - tri_start(k, m));
+__device__ void normal_matrix(const Sparsity& S, const T* val, const T* cs, const T* theta,
+                              T reg, T* W, int m) {
+  const long tri = tri_len(m);
+  for (long e = threadIdx.x; e < tri; e += blockDim.x) W[e] = T(0);
+  __syncthreads();
+  for (int e = threadIdx.x; e < S.nent; e += blockDim.x) {
+    const int i = S.w_row[e], k = S.w_col[e];
     T acc = T(0);
-    for (int j = 0; j < n; ++j) {
-      const T* r = At + (size_t)j * m;
+    for (int q = S.w_ptr[e]; q < S.w_ptr[e + 1]; ++q) {
+      const int j = S.w_j[q];
       const T c = cs[j];
-      const T ai = r[i] * c;
-      const T ak = r[k] * c;
+      const T ai = val[S.w_pi[q]] * c;
+      const T ak = val[S.w_pk[q]] * c;
       acc += (ai * theta[j]) * ak;
     }
     if (i == k) acc += reg;
-    W[(size_t)k * m + i] = acc;
+    W[col_start(k, m) + (i - k)] = acc;
   }
 }
 
-// In-place left-looking Cholesky of W (column-major lower). Returns false
-// (uniformly across the block) at the first pivot that is not > 0.
+// In-place Cholesky W = L L' of the packed lower W, left-looking, four
+// columns at a time (a group [j, j+4)):
+// A: a thread per row i >= j subtracts from its row's group entries the dot
+//    products with rows j..j+3 over the finished columns p < j (row i's
+//    entry loaded once for the four, four independent sums);
+// B: after a barrier, every thread factors the group's 4x4 diagonal block
+//    from the same broadcast values (so all agree, and a pivot that is not
+//    > 0 fails the whole block at once), then finishes its rows' group
+//    entries with it; thread 0 writes the diagonal block itself after the
+//    next barrier, once nobody reads it any more.
+// Two barriers a group instead of two a column: the block's few active
+// warps make the factor latency-bound. The diagonal keeps 1 / L[j,j], which
+// is what the solves use. Returns false (uniformly across the block) at the
+// first pivot that is not > 0.
+constexpr int CHOL_GROUP = 4;
+
 template <typename T>
 __device__ bool cholesky(T* W, int m) {
-  for (int j = 0; j < m; ++j) {
+  constexpr int G = CHOL_GROUP;
+  T Lb[G][G], rb[G];  // the group's diagonal block: L below, 1 / L[a,a]
+  // Thread 0 stores the diagonal block of the group at column gj (gn columns).
+  auto store_block = [&](int gj, int gn) {
+#pragma unroll
+    for (int a = 0; a < G; ++a) {
+      if (a >= gn) continue;
+#pragma unroll
+      for (int b2 = 0; b2 < a; ++b2) W[col_start(gj + b2, m) - b2 + a] = Lb[a][b2];
+      W[col_start(gj + a, m)] = rb[a];
+    }
+  };
+  int prev_j = -1, prev_nb = 0;
+  for (int j = 0; j < m; j += G) {
+    const int nb = min(G, m - j);
+    int cs[G];  // W[i, j + t] at cs[t] + i
+#pragma unroll
+    for (int t = 0; t < G; ++t) cs[t] = col_start(min(j + t, m - 1), m) - (j + t);
+    if (threadIdx.x == 0 && prev_j >= 0) store_block(prev_j, prev_nb);
     for (int i = j + threadIdx.x; i < m; i += blockDim.x) {
-      T s = W[(size_t)j * m + i];
-      for (int p = 0; p < j; ++p) s -= W[(size_t)p * m + i] * W[(size_t)p * m + j];
-      W[(size_t)j * m + i] = s;
+      T acc[G] = {};
+      int cp = 0;  // col_start(p) - p: W[r, p] at cp + r
+      for (int p = 0; p < j; cp += m - p - 1, ++p) {
+        const T wi = W[cp + i];
+#pragma unroll
+        for (int t = 0; t < G; ++t)
+          if (t < nb) acc[t] += wi * W[cp + j + t];
+      }
+#pragma unroll
+      for (int t = 0; t < G; ++t)
+        if (t < nb && j + t <= i) W[cs[t] + i] -= acc[t];
     }
     __syncthreads();
-    const T d = W[(size_t)j * m + j];
-    if (!(d > T(0))) return false;
-    const T ljj = sqrt(d);
+    bool ok = true;
+#pragma unroll
+    for (int a = 0; a < G; ++a) {
+      if (a >= nb) continue;
+#pragma unroll
+      for (int b2 = 0; b2 <= a; ++b2) {
+        T v = W[cs[b2] + j + a];
+#pragma unroll
+        for (int t = 0; t < b2; ++t) v -= Lb[a][t] * Lb[b2][t];
+        if (b2 == a) {
+          ok = ok && v > T(0);
+          rb[a] = rsqrt(v);
+        } else {
+          Lb[a][b2] = v * rb[b2];
+        }
+      }
+    }
+    if (!ok) return false;
+    for (int i = j + nb + threadIdx.x; i < m; i += blockDim.x) {
+      T l[G];
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        if (t >= nb) continue;
+        T v = W[cs[t] + i];
+#pragma unroll
+        for (int u = 0; u < t; ++u) v -= l[u] * Lb[t][u];
+        l[t] = v * rb[t];
+        W[cs[t] + i] = l[t];
+      }
+    }
     __syncthreads();
-    for (int i = j + 1 + threadIdx.x; i < m; i += blockDim.x) W[(size_t)j * m + i] /= ljj;
-    if (threadIdx.x == 0) W[(size_t)j * m + j] = ljj;
-    __syncthreads();
+    prev_j = j;
+    prev_nb = nb;
   }
+  if (threadIdx.x == 0 && prev_j >= 0) store_block(prev_j, prev_nb);
   return true;
 }
 
-// v := (L L')^{-1} v by warp 0 (forward then backward substitution).
+// v := (L L')^{-1} v with the packed factor (its diagonal holds 1 / L[j,j]),
+// by the whole block in blocks of 32 rows: warp 0 solves each diagonal
+// block, a lane a row holding its row's (or column's) entries of the block
+// in registers and the solved values passed by shuffles, then every thread
+// updates the remaining rows with it. Contains __syncthreads.
 template <typename T>
-__device__ void cho_solve_warp(const T* W, int m, T* v) {
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < m; ++j) {
-    const T zj = v[j] / W[(size_t)j * m + j];
-    __syncwarp();
-    if (lane == 0) v[j] = zj;
-    for (int i = j + 1 + lane; i < m; i += 32) v[i] -= W[(size_t)j * m + i] * zj;
-    __syncwarp();
+__device__ void cho_solve(const T* W, int m, T* v) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int J = 0; J < m; J += 32) {  // L z = v
+    const int nb = min(32, m - J);
+    if (wid == 0) {
+      const bool in = lane < nb;
+      const int row = J + lane;
+      T vi = in ? v[row] : T(0);
+      const T rd = in ? W[col_start(row, m)] : T(0);
+      T lrow[32];  // L[row, J + k] for k < lane
+      int ck = col_start(J, m);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        lrow[k] = (in && k < lane) ? W[ck + lane - k] : T(0);
+        ck += m - (J + k);
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const T zk = __shfl_sync(FULL, vi * rd, k);
+        const T upd = vi - lrow[k] * zk;
+        vi = lane == k ? zk : (lane > k ? upd : vi);
+      }
+      if (in) v[row] = vi;
+    }
+    __syncthreads();
+    for (int i = J + nb + threadIdx.x; i < m; i += blockDim.x) {
+      T acc = v[i];
+      int q = col_start(J, m) + i - J;  // L[i, J]
+      for (int j = J; j < J + nb; q += m - j - 1, ++j) acc -= W[q] * v[j];
+      v[i] = acc;
+    }
+    __syncthreads();
   }
-  for (int i = m - 1; i >= 0; --i) {
-    T acc = T(0);
-    for (int p = i + 1 + lane; p < m; p += 32) acc += W[(size_t)i * m + p] * v[p];
-    acc = warp_reduce(acc, Sum());
-    const T xi = (v[i] - acc) / W[(size_t)i * m + i];
-    __syncwarp();
-    if (lane == 0) v[i] = xi;
-    __syncwarp();
+  for (int Ie = m; Ie > 0; Ie -= 32) {  // L' x = z
+    const int I0 = max(Ie - 32, 0), nb = Ie - I0;
+    if (wid == 0) {
+      const bool in = lane < nb;
+      const int row = I0 + lane;
+      T vi = in ? v[row] : T(0);
+      const int cr = in ? col_start(row, m) : 0;
+      const T rd = in ? W[cr] : T(0);
+      T lcol[32];  // L[I0 + ii, row] for ii > lane
+#pragma unroll
+      for (int ii = 0; ii < 32; ++ii) lcol[ii] = (in && ii > lane && ii < nb) ? W[cr + ii - lane] : T(0);
+#pragma unroll
+      for (int ii = 31; ii >= 0; --ii) {
+        const T xi = __shfl_sync(FULL, vi * rd, ii);
+        const T upd = vi - lcol[ii] * xi;
+        vi = lane == ii ? xi : (lane < ii ? upd : vi);
+      }
+      if (in) v[row] = vi;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < I0; i += blockDim.x) {
+      const T* col = W + col_start(i, m) - i;
+      T acc = T(0);
+      for (int p = I0; p < Ie; ++p) acc += col[p] * v[p];
+      v[i] -= acc;
+    }
+    __syncthreads();
   }
 }
 
@@ -210,27 +368,25 @@ __device__ T max_step(const T* v, const T* dv, const T* act, int n, T* red) {
 
 // Newton direction for complementarity right-hand sides (rc1, rc2).
 template <typename T>
-__device__ void directions(const Vecs<T>& s, const T* A, const T* W, bool chol_ok,
-                           T* dx, T* dw, T* dz, T* df, int m, int n) {
+__device__ void directions(const Vecs<T>& s, const Sparsity& S, const T* val, const T* W,
+                           bool chol_ok, T* dx, T* dw, T* dz, T* df, int m, int n) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const T gj = (s.rd[j] - s.rc1[j] / s.xs[j]) + (s.rc2[j] - s.f[j] * s.ru[j]) / s.wv[j];
     s.g[j] = gj;
     s.tn[j] = s.theta[j] * gj;
   }
   __syncthreads();
-  mv_A(A, s.cs, s.tn, s.dy, m, n);
+  mv_A(S, val, s.cs, s.tn, s.dy, m);
   __syncthreads();
   for (int i = threadIdx.x; i < m; i += blockDim.x) s.dy[i] = s.rp[i] + s.dy[i];
   __syncthreads();
-  if (threadIdx.x < 32) {
-    if (chol_ok) {
-      cho_solve_warp(W, m, s.dy);
-    } else {
-      for (int i = threadIdx.x; i < m; i += 32) s.dy[i] = T(NAN);
-    }
+  if (chol_ok) {
+    cho_solve(W, m, s.dy);
+  } else {
+    for (int i = threadIdx.x; i < m; i += blockDim.x) s.dy[i] = T(NAN);
+    __syncthreads();
   }
-  __syncthreads();
-  mv_At(A, s.cs, s.dy, s.tn, m, n);
+  mv_At(S, val, s.cs, s.dy, s.tn, n);
   __syncthreads();
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const T dxj = s.theta[j] * (s.tn[j] - s.g[j]);
@@ -243,21 +399,24 @@ __device__ void directions(const Vecs<T>& s, const T* A, const T* W, bool chol_o
   __syncthreads();
 }
 
-// kGlobalVecs selects where the per-LP vectors live at compile time, so the
-// shared-memory instance keeps shared-memory loads and stores (a pointer
-// chosen at run time would be a generic one). vec_ws is not __restrict__:
-// threads exchange values through it across __syncthreads (the block
-// reductions' slots, the vectors of mv_A/mv_At), and a restrict-qualified
-// base lets the compiler reuse a value it loaded before the barrier.
-template <typename T, bool kGlobalVecs>
+// kGlobalVecs and kSharedFactor select where the per-LP vectors and the
+// factor live at compile time, so the shared-memory instances keep
+// shared-memory loads and stores (a pointer chosen at run time would be a
+// generic one). vec_ws is not __restrict__: threads exchange values through
+// it across __syncthreads (the block reductions' slots, the vectors of
+// mv_A/mv_At), and a restrict-qualified base lets the compiler reuse a
+// value it loaded before the barrier. The dense A serves the one-off box
+// shift and the float64 certificate; the iteration reads the sparse values.
+template <typename T, bool kGlobalVecs, bool kSharedFactor>
 __global__ void ipm_kernel(
-    const T* __restrict__ A_all, const T* __restrict__ At_all, long a_stride,
+    const T* __restrict__ A_all, long a_stride, const int* __restrict__ sp, int nnz,
+    int nent, int ncontrib, const T* __restrict__ val_all, long val_stride,
     const T* __restrict__ b_all, const T* __restrict__ c_all,
     const T* __restrict__ l_all, const T* __restrict__ u_all,
     const T* __restrict__ wv_all, const T* __restrict__ wy_all,
     const T* __restrict__ wz_all, const T* __restrict__ wf_all,
     const uint8_t* __restrict__ wok, const uint8_t* __restrict__ skip, int m,
-    int n, int chunk, int n_chunks, T tol, T reg, T* __restrict__ ws_all,
+    int n, int chunk, int n_chunks, T tol, T reg, T* ws_all,
     T* vec_ws, T* __restrict__ v_out, double* __restrict__ bound_out,
     T* __restrict__ obj_out,
     T* __restrict__ rp_out, T* __restrict__ rd_out, T* __restrict__ mu_out,
@@ -267,16 +426,18 @@ __global__ void ipm_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int e = blockIdx.x;
   const T* A = A_all + (size_t)e * a_stride;
-  const T* At = At_all + (size_t)e * a_stride;
+  const T* val = val_all + (size_t)e * val_stride;
+  const Sparsity S = unpack(sp, m, n, nnz, nent, ncontrib);
   const T* b = b_all + (size_t)e * m;
   const T* c = c_all + (size_t)e * n;
   const T* l = l_all + (size_t)e * n;
   const T* u = u_all + (size_t)e * n;
-  T* W = ws_all + (size_t)e * m * m;
   // The per-LP vectors live in shared memory when they fit a block, else in
-  // this block's slice of the global workspace (same arithmetic either way).
+  // this block's slice of the global workspace (same arithmetic either way);
+  // the packed factor follows them in shared memory when both fit.
   T* vbase = kGlobalVecs ? vec_ws + (size_t)e * vec_len(m, n)
                          : reinterpret_cast<T*>(smem_raw);
+  T* W = kSharedFactor ? vbase + vec_len(m, n) : ws_all + (size_t)e * tri_len(m);
   Vecs<T> s = carve<T>(vbase, m, n);
   const int tid = threadIdx.x;
   const int bs = blockDim.x;
@@ -350,10 +511,11 @@ __global__ void ipm_kernel(
       ++it;
       for (int j = tid; j < n; j += bs) s.tn[j] = s.x[j] * s.act[j];
       __syncthreads();
-      mv_A(A, s.cs, s.tn, s.rp, m, n);
-      mv_At(A, s.cs, s.y, s.rd, m, n);
+      mv_A(S, val, s.cs, s.tn, s.rp, m);
+      mv_At(S, val, s.cs, s.y, s.rd, n);
       __syncthreads();
       T rpmax = T(0), rdmax = T(0), xz = T(0), wf = T(0);
+      bool theta_fin = true;
       for (int i = tid; i < m; i += bs) {
         const T r = s.bhat[i] - s.rp[i];
         s.rp[i] = r;
@@ -372,7 +534,9 @@ __global__ void ipm_kernel(
         const T wsj = active ? s.w[j] : T(1);
         s.xs[j] = xsj;
         s.wv[j] = wsj;
-        s.theta[j] = a / (s.z[j] / xsj + s.f[j] / wsj);
+        const T th = a / (s.z[j] / xsj + s.f[j] / wsj);
+        s.theta[j] = th;
+        theta_fin = theta_fin && is_finite(th);
       }
       rpmax = block_reduce(rpmax, Max(), s.red);
       rdmax = block_reduce(rdmax, Max(), s.red);
@@ -380,9 +544,14 @@ __global__ void ipm_kernel(
       wf = block_reduce(wf, Sum(), s.red);
       const T mu = (xz + wf) / two_na;
 
-      normal_matrix(At, s.cs, s.theta, reg, W, m, n);
-      __syncthreads();
-      const bool chol_ok = cholesky(W, m);
+      // A non-finite theta_j makes every entry of the dense sum non-finite
+      // (0 * theta_j where A has a zero), so the factor fails.
+      bool chol_ok = __syncthreads_and(theta_fin);
+      if (chol_ok) {
+        normal_matrix(S, val, s.cs, s.theta, reg, W, m);
+        __syncthreads();
+        chol_ok = cholesky(W, m);
+      }
       __syncthreads();
 
       // predictor
@@ -391,7 +560,7 @@ __global__ void ipm_kernel(
         s.rc2[j] = -s.w[j] * s.f[j];
       }
       __syncthreads();
-      directions(s, A, W, chol_ok, s.dxa, s.dwa, s.dza, s.dfa, m, n);
+      directions(s, S, val, W, chol_ok, s.dxa, s.dwa, s.dza, s.dfa, m, n);
       const T ap_a = nan_min(max_step(s.x, s.dxa, s.act, n, s.red),
                              max_step(s.w, s.dwa, s.act, n, s.red));
       const T ad_a = nan_min(max_step(s.z, s.dza, s.act, n, s.red),
@@ -415,7 +584,7 @@ __global__ void ipm_kernel(
         s.rc2[j] = (smu - s.w[j] * s.f[j]) - s.dwa[j] * s.dfa[j];
       }
       __syncthreads();
-      directions(s, A, W, chol_ok, s.dx, s.dw, s.dz, s.df, m, n);
+      directions(s, S, val, W, chol_ok, s.dx, s.dw, s.dz, s.df, m, n);
       T ap = nan_min(max_step(s.x, s.dx, s.act, n, s.red),
                      max_step(s.w, s.dw, s.act, n, s.red));
       T ad = nan_min(max_step(s.z, s.dz, s.act, n, s.red),
@@ -452,8 +621,8 @@ __global__ void ipm_kernel(
   // ---- final residuals (iteration dtype) ----
   for (int j = tid; j < n; j += bs) s.tn[j] = s.x[j] * s.act[j];
   __syncthreads();
-  mv_A(A, s.cs, s.tn, s.rp, m, n);
-  mv_At(A, s.cs, s.y, s.rd, m, n);
+  mv_A(S, val, s.cs, s.tn, s.rp, m);
+  mv_At(S, val, s.cs, s.y, s.rd, n);
   __syncthreads();
   T rpmax = T(0), rdmax = T(0), xz = T(0), wf = T(0);
   for (int i = tid; i < m; i += bs) rpmax = nan_max(rpmax, fabs(s.bhat[i] - s.rp[i]));
@@ -517,69 +686,107 @@ __global__ void ipm_kernel(
   }
 }
 
+// Where one LP's vectors and factor live (route 0: both in shared memory;
+// 1: the vectors in shared memory, the factor global; 2: both global), from
+// what a block can opt into on `device` beside each instance's static
+// shared memory, and the bytes of the global workspaces a batch of B LPs
+// needs on that route.
 template <typename T>
-size_t smem_bytes(int m, int n) {
-  return sizeof(T) * vec_len(m, n);
-}
-
-// Bytes of the global vector workspace a batch of B LPs needs: 0 when one
-// LP's vectors, beside the kernel's static shared memory, fit what a block
-// can opt into on `device` (the shared route), else B * vec_len elements.
-template <typename T>
-int vec_ws_bytes(int device, int B, int m, int n, size_t* bytes) {
+int workspace(int device, int B, int m, int n, int* route, size_t* vec_bytes,
+              size_t* factor_bytes) {
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, ipm_kernel<T, false>);
+  cudaFuncAttributes both, vecs;
+  err = cudaFuncGetAttributes(&both, ipm_kernel<T, false, true>);
   if (err != cudaSuccess) return (int)err;
-  const size_t sm = smem_bytes<T>(m, n);
-  *bytes = sm + attr.sharedSizeBytes <= (size_t)optin ? 0 : (size_t)B * sm;
+  err = cudaFuncGetAttributes(&vecs, ipm_kernel<T, false, false>);
+  if (err != cudaSuccess) return (int)err;
+  const size_t vb = sizeof(T) * vec_len(m, n), fb = sizeof(T) * (size_t)tri_len(m);
+  if (vb + fb + both.sharedSizeBytes <= (size_t)optin) {
+    *route = 0;
+    *vec_bytes = 0;
+    *factor_bytes = 0;
+  } else if (vb + vecs.sharedSizeBytes <= (size_t)optin) {
+    *route = 1;
+    *vec_bytes = 0;
+    *factor_bytes = (size_t)B * fb;
+  } else {
+    *route = 2;
+    *vec_bytes = (size_t)B * vb;
+    *factor_bytes = (size_t)B * fb;
+  }
   return 0;
 }
 
+template <typename T, bool kGlobalVecs, bool kSharedFactor>
+int launch_route(size_t smem, const T* A, long a_stride, const int* sp, int nnz, int nent,
+                 int ncontrib, const T* val, long val_stride, const T* b, const T* c,
+                 const T* l, const T* u, const T* wv, const T* wy, const T* wz,
+                 const T* wf, const uint8_t* wok, const uint8_t* skip, int B, int m,
+                 int n, int chunk, int n_chunks, double tol, double reg, T* ws,
+                 T* vec_ws, T* v, double* bound, T* obj, T* rp, T* rd, T* mu,
+                 uint8_t* conv, double* reduced, T* y, T* z, T* f, int* iters,
+                 int threads, cudaStream_t stream) {
+  auto kernel = ipm_kernel<T, kGlobalVecs, kSharedFactor>;
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<B, threads, smem, stream>>>(
+      A, a_stride, sp, nnz, nent, ncontrib, val, val_stride, b, c, l, u, wv, wy, wz, wf,
+      wok, skip, m, n, chunk, n_chunks, (T)tol, (T)reg, ws, vec_ws, v, bound, obj, rp, rd,
+      mu, conv, reduced, y, z, f, iters);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch(const T* A, const T* At, long a_stride, const T* b, const T* c,
+int launch(const T* A, long a_stride, const int* sp, int nnz, int nent, int ncontrib,
+           const T* val, long val_stride, const T* b, const T* c,
            const T* l, const T* u, const T* wv, const T* wy, const T* wz,
            const T* wf, const uint8_t* wok, const uint8_t* skip, int B, int m,
            int n, int chunk, int n_chunks, double tol, double reg, T* ws,
            T* vec_ws, T* v, double* bound, T* obj, T* rp, T* rd, T* mu,
            uint8_t* conv, double* reduced, T* y, T* z, T* f, int* iters,
            int threads, cudaStream_t stream) {
-  // vec_ws (B * vec_len(m, n) elements, or null) is the global-memory route
-  // the wrapper picks when the vectors exceed what a block can opt into.
-  if (vec_ws != nullptr) {
-    ipm_kernel<T, true><<<B, threads, 0, stream>>>(
-        A, At, a_stride, b, c, l, u, wv, wy, wz, wf, wok, skip, m, n, chunk,
-        n_chunks, (T)tol, (T)reg, ws, vec_ws, v, bound, obj, rp, rd, mu, conv,
-        reduced, y, z, f, iters);
-    return (int)cudaGetLastError();
-  }
-  const size_t sm = smem_bytes<T>(m, n);
-  if (sm > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ipm_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ipm_kernel<T, false><<<B, threads, sm, stream>>>(
-      A, At, a_stride, b, c, l, u, wv, wy, wz, wf, wok, skip, m, n, chunk,
-      n_chunks, (T)tol, (T)reg, ws, vec_ws, v, bound, obj, rp, rd, mu, conv,
-      reduced, y, z, f, iters);
-  return (int)cudaGetLastError();
+  // The workspaces the wrapper allocates name the route (dtk_ipm_workspace):
+  // no factor workspace: route 0; a factor workspace alone: route 1; both:
+  // route 2.
+  const size_t vb = sizeof(T) * vec_len(m, n), fb = sizeof(T) * (size_t)tri_len(m);
+  if (ws == nullptr && vec_ws == nullptr)
+    return launch_route<T, false, true>(vb + fb, A, a_stride, sp, nnz, nent, ncontrib, val,
+                                        val_stride, b, c, l, u, wv, wy, wz, wf, wok, skip,
+                                        B, m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v,
+                                        bound, obj, rp, rd, mu, conv, reduced, y, z, f,
+                                        iters, threads, stream);
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (vec_ws == nullptr)
+    return launch_route<T, false, false>(vb, A, a_stride, sp, nnz, nent, ncontrib, val,
+                                         val_stride, b, c, l, u, wv, wy, wz, wf, wok, skip,
+                                         B, m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v,
+                                         bound, obj, rp, rd, mu, conv, reduced, y, z, f,
+                                         iters, threads, stream);
+  return launch_route<T, true, false>(0, A, a_stride, sp, nnz, nent, ncontrib, val,
+                                      val_stride, b, c, l, u, wv, wy, wz, wf, wok, skip, B,
+                                      m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v, bound,
+                                      obj, rp, rd, mu, conv, reduced, y, z, f, iters,
+                                      threads, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int dtk_ipm_vec_ws_bytes(int device, int B, int m, int n, int is_f64,
-                         size_t* bytes) {
-  return is_f64 ? vec_ws_bytes<double>(device, B, m, n, bytes)
-                : vec_ws_bytes<float>(device, B, m, n, bytes);
+int dtk_ipm_workspace(int device, int B, int m, int n, int is_f64, int* route,
+                      size_t* vec_bytes, size_t* factor_bytes) {
+  return is_f64 ? workspace<double>(device, B, m, n, route, vec_bytes, factor_bytes)
+                : workspace<float>(device, B, m, n, route, vec_bytes, factor_bytes);
 }
 
-int dtk_ipm_f32(const float* A, const float* At, long a_stride, const float* b,
+int dtk_ipm_f32(const float* A, long a_stride, const int* sp, int nnz, int nent,
+                int ncontrib, const float* val, long val_stride, const float* b,
                 const float* c, const float* l, const float* u, const float* wv,
                 const float* wy, const float* wz, const float* wf,
                 const uint8_t* wok, const uint8_t* skip, int B, int m, int n,
@@ -587,26 +794,26 @@ int dtk_ipm_f32(const float* A, const float* At, long a_stride, const float* b,
                 float* vec_ws, float* v, double* bound, float* obj, float* rp,
                 float* rd, float* mu, uint8_t* conv, double* reduced, float* y, float* z,
                 float* f, int* iters, int threads, void* stream) {
-  return launch<float>(A, At, a_stride, b, c, l, u, wv, wy, wz, wf, wok, skip,
-                       B, m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v, bound,
-                       obj, rp, rd, mu, conv, reduced, y, z, f, iters, threads,
-                       (cudaStream_t)stream);
+  return launch<float>(A, a_stride, sp, nnz, nent, ncontrib, val, val_stride, b, c, l, u,
+                       wv, wy, wz, wf, wok, skip, B, m, n, chunk, n_chunks, tol, reg, ws,
+                       vec_ws, v, bound, obj, rp, rd, mu, conv, reduced, y, z, f, iters,
+                       threads, (cudaStream_t)stream);
 }
 
-int dtk_ipm_f64(const double* A, const double* At, long a_stride,
-                const double* b, const double* c, const double* l,
-                const double* u, const double* wv, const double* wy,
-                const double* wz, const double* wf, const uint8_t* wok,
+int dtk_ipm_f64(const double* A, long a_stride, const int* sp, int nnz, int nent,
+                int ncontrib, const double* val, long val_stride, const double* b,
+                const double* c, const double* l, const double* u, const double* wv,
+                const double* wy, const double* wz, const double* wf, const uint8_t* wok,
                 const uint8_t* skip, int B, int m, int n, int chunk,
                 int n_chunks, double tol, double reg, double* ws,
                 double* vec_ws, double* v, double* bound, double* obj,
                 double* rp, double* rd, double* mu,
                 uint8_t* conv, double* reduced, double* y, double* z, double* f,
                 int* iters, int threads, void* stream) {
-  return launch<double>(A, At, a_stride, b, c, l, u, wv, wy, wz, wf, wok, skip,
-                        B, m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v, bound,
-                        obj, rp, rd, mu, conv, reduced, y, z, f, iters, threads,
-                        (cudaStream_t)stream);
+  return launch<double>(A, a_stride, sp, nnz, nent, ncontrib, val, val_stride, b, c, l, u,
+                        wv, wy, wz, wf, wok, skip, B, m, n, chunk, n_chunks, tol, reg, ws,
+                        vec_ws, v, bound, obj, rp, rd, mu, conv, reduced, y, z, f, iters,
+                        threads, (cudaStream_t)stream);
 }
 
 }  // extern "C"

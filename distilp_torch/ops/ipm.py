@@ -36,28 +36,111 @@ IPM_DEFAULT_CHUNK = 4
 THREADS = 256
 
 
-def ipm_vec_workspace_bytes(B: int, m: int, n: int, dtype, device) -> int:
-    """Bytes of K1's global vector workspace for B LPs of shape (m, n) on the
-    CUDA ``device``, as the kernel library reckons it from its own vector
-    layout and shared-memory figures: 0 when each LP's vectors fit the
-    shared memory a block can opt into (the shared route), else B per-block
-    slices (the global route)."""
+# K1's routes, by where one LP's vectors and its packed factor live.
+IPM_ROUTES = ("shared", "factor_global", "global")
+
+
+def ipm_workspace(B: int, m: int, n: int, dtype, device):
+    """(route, vector workspace bytes, factor workspace bytes) of K1 for B
+    LPs of shape (m, n) on the CUDA ``device``, as the kernel library
+    reckons them from its own layout and the shared memory a block can opt
+    into: 'shared' keeps each LP's vectors and packed factor in shared
+    memory (no workspace), 'factor_global' the vectors alone (a factor
+    workspace of B slices), 'global' neither (both workspaces)."""
     from ..kernels.build import library
 
-    out = ctypes.c_size_t(0)
-    err = library("ipm").dtk_ipm_vec_ws_bytes(
+    route, vec, fac = ctypes.c_int(0), ctypes.c_size_t(0), ctypes.c_size_t(0)
+    err = library("ipm").dtk_ipm_workspace(
         torch.device(device).index or 0, B, m, n, int(dtype == torch.float64),
-        ctypes.byref(out),
+        ctypes.byref(route), ctypes.byref(vec), ctypes.byref(fac),
     )
     kernels.check(err, "ipm workspace query")
-    return int(out.value)
+    return IPM_ROUTES[route.value], int(vec.value), int(fac.value)
 
 
 def ipm_workspace_route(m: int, n: int, dtype, device) -> str:
-    """Where K1 keeps each LP's vectors on ``device``: 'shared' (block shared
-    memory) or 'global' (a per-block slice of a workspace the wrapper
-    allocates). Decided from the shapes alone."""
-    return "global" if ipm_vec_workspace_bytes(1, m, n, dtype, device) else "shared"
+    """K1's route on ``device`` for LPs of shape (m, n), decided from the
+    shapes alone (see :func:`ipm_workspace`)."""
+    return ipm_workspace(1, m, n, dtype, device)[0]
+
+
+class IPMSparsity(NamedTuple):
+    """A's sparse structure as K1 reads it, built once per A by
+    :func:`ipm_sparsity`. ``index`` is one int32 buffer: the rows of A
+    (row pointers, columns, each nonzero's place in column order), the rows
+    of A' (column pointers, rows), and the structural lower entries (i >= k,
+    every diagonal) of A diag(theta) A' with each entry's contributing
+    columns j in ascending order and the places of A[i, j] and A[k, j].
+    ``src`` gives each nonzero's flat index into A (m*n), in column order:
+    the kernel's values are ``A.reshape(..., m*n)[..., src]``."""
+
+    m: int
+    n: int
+    nnz: int
+    nent: int
+    ncontrib: int
+    index: torch.Tensor  # int32
+    src: torch.Tensor  # (nnz,) int64
+
+    def parts(self) -> dict:
+        """The named pieces of ``index`` (views)."""
+        m, n, nnz, nent, nc = self.m, self.n, self.nnz, self.nent, self.ncontrib
+        sizes = dict(a_ptr=m + 1, a_col=nnz, a_pos=nnz, t_ptr=n + 1, t_row=nnz,
+                     w_ptr=nent + 1, w_row=nent, w_col=nent, w_j=nc, w_pi=nc, w_pk=nc)
+        return dict(zip(sizes, torch.split(self.index, list(sizes.values()))))
+
+
+def ipm_sparsity(pattern: torch.Tensor) -> IPMSparsity:
+    """K1's structure of an (m, n) nonzero pattern (bool; for a per-node A,
+    the union over the nodes), built with tensor operations on the
+    pattern's device."""
+    m, n = pattern.shape
+    dev = pattern.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    jj, ii = pattern.t().nonzero(as_tuple=True)  # column order, rows ascending
+    nnz = int(ii.numel())
+    t_ptr = torch.zeros(n + 1, **i64)
+    t_ptr[1:] = torch.cumsum(torch.bincount(jj, minlength=n), 0)
+    a_pos = torch.argsort(ii * n + jj)  # row order -> place in column order
+    a_ptr = torch.zeros(m + 1, **i64)
+    a_ptr[1:] = torch.cumsum(torch.bincount(ii, minlength=m), 0)
+    # Every pair of nonzeros (p, q) of one column with row(q) <= row(p)
+    # contributes A[i, j] A[k, j] to W[i, k], i = row(p), k = row(q).
+    rank = torch.arange(nnz, **i64) - t_ptr[jj]
+    reps = rank + 1
+    p = torch.repeat_interleave(torch.arange(nnz, **i64), reps)
+    first = torch.cumsum(reps, 0) - reps
+    q = t_ptr[jj[p]] + torch.arange(p.numel(), **i64) - torch.repeat_interleave(first, reps)
+    diag = torch.arange(m, **i64)
+    # Entries in column-major lower order (k, then i), contributions by j;
+    # a marker (j = n) puts every diagonal in, contributions or not.
+    stride = n + 1
+    key = torch.cat([(ii[q] * m + ii[p]) * stride + jj[p], (diag * m + diag) * stride + n])
+    order = torch.argsort(key)
+    ent, inverse = torch.unique_consecutive(key[order] // stride, return_inverse=True)
+    real = order < p.numel()
+    sel = order[real]
+    w_ptr = torch.zeros(ent.numel() + 1, **i64)
+    w_ptr[1:] = torch.cumsum(torch.bincount(inverse[real], minlength=ent.numel()), 0)
+    parts = [a_ptr, jj[a_pos], a_pos, t_ptr, ii, w_ptr, ent % m, ent // m,
+             jj[p[sel]], p[sel], q[sel]]
+    index = torch.cat(parts).to(torch.int32)
+    return IPMSparsity(m=m, n=n, nnz=nnz, nent=int(ent.numel()), ncontrib=int(sel.numel()),
+                       index=index, src=ii * n + jj)
+
+
+def check_sparsity(A: torch.Tensor, sparsity: IPMSparsity) -> None:
+    """Raise unless ``sparsity`` is the structure of an A of this shape on
+    A's device whose pattern holds every nonzero of A (each element's, for
+    a per-node A): K1 reads only the pattern's values, so a nonzero outside
+    it would be dropped. One reduction and one read-back."""
+    m, n = A.shape[-2:]
+    if (sparsity.m, sparsity.n) != (m, n) or sparsity.index.device != A.device:
+        raise ValueError(f"sparsity of a ({sparsity.m}, {sparsity.n}) A on "
+                         f"{sparsity.index.device}, for A {tuple(A.shape)} on {A.device}")
+    flat = A.reshape(*A.shape[:-2], m * n)
+    if bool(((flat != 0).sum(-1) != (flat[..., sparsity.src] != 0).sum(-1)).any()):
+        raise ValueError("A has a nonzero outside the sparsity pattern it was given")
 
 
 class LPBatch(NamedTuple):
@@ -120,12 +203,19 @@ def ipm_solve_batch(
     warm: Optional[IPMWarmState] = None,
     skip: Optional[torch.Tensor] = None,
     chunk: int = IPM_DEFAULT_CHUNK,
+    sparsity: Optional[IPMSparsity] = None,
 ) -> IPMResult:
     """Solve a batch of boxed LPs: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. ``tol``/``reg`` default by dtype."""
+    plain version for CPU tensors. ``tol``/``reg`` default by dtype.
+    ``sparsity`` is A's structure (:func:`ipm_sparsity`) when the caller
+    keeps it across calls; every nonzero of A must lie in its pattern
+    (:func:`check_sparsity`). The kernel's wrapper builds it from A
+    otherwise."""
+    if sparsity is not None:
+        check_sparsity(batch.A, sparsity)
     tensors = list(batch) + ([] if warm is None else list(warm)) + [skip]
     if kernels.on_cuda(*tensors):
-        return _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk)
+        return _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity)
     return ipm_solve_batch_reference(batch, iters, tol, reg, warm, skip, chunk)
 
 
@@ -330,7 +420,7 @@ def _reference(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
     )
 
 
-def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
+def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity) -> IPMResult:
     from ..kernels.build import library
 
     A, b, c, l, u = batch
@@ -343,13 +433,14 @@ def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
         if A.shape != (m, n):
             raise ValueError(f"A {tuple(A.shape)} does not match (m, n) = {(m, n)}")
         a_stride = 0
-        At = A.t().contiguous()
     elif A.dim() == 3 and A.shape == (B, m, n):
         a_stride = m * n
-        At = A.transpose(1, 2).contiguous()
     else:
         raise ValueError(f"A {tuple(A.shape)} is neither (m, n) nor (B, m, n)")
     A = A.contiguous()
+    if sparsity is None:
+        sparsity = ipm_sparsity(A != 0 if A.dim() == 2 else (A != 0).any(0))
+    vals = A.reshape(*A.shape[:-2], m * n)[..., sparsity.src].contiguous()
     for name, t, shape in (("b", b, (B, m)), ("c", c, (B, n)),
                            ("l", l, (B, n)), ("u", u, (B, n))):
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -383,24 +474,25 @@ def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
     else:
         wv = wy = wz = wf = wok = None
     sk = None if skip is None else skip.to(torch.uint8).contiguous()
-    ws = torch.empty(B * m * m, **kw)
-    vec_bytes = ipm_vec_workspace_bytes(B, m, n, dtype, dev)
+    _, vec_bytes, factor_bytes = ipm_workspace(B, m, n, dtype, dev)
+    ws = torch.empty(factor_bytes // A.element_size(), **kw) if factor_bytes else None
     vec_ws = torch.empty(vec_bytes // A.element_size(), **kw) if vec_bytes else None
     chunk, n_chunks = chunking(iters, chunk)
     lib = library("ipm")
     fn = lib.dtk_ipm_f64 if dtype == torch.float64 else lib.dtk_ipm_f32
     P, O = kernels.ptr, kernels.opt_ptr
     err = fn(
-        P(A), P(At), a_stride, P(b), P(c), P(l), P(u),
+        P(A), a_stride, P(sparsity.index), sparsity.nnz, sparsity.nent, sparsity.ncontrib,
+        P(vals), sparsity.nnz if A.dim() == 3 else 0, P(b), P(c), P(l), P(u),
         O(wv), O(wy), O(wz), O(wf), O(wok), O(sk),
         B, m, n, chunk, n_chunks,
         float(_default_tol(dtype) if tol is None else tol),
         float(_default_reg(dtype) if reg is None else reg),
-        P(ws), O(vec_ws), P(out.v), P(out.bound), P(out.obj), P(out.rp_norm),
+        O(ws), O(vec_ws), P(out.v), P(out.bound), P(out.obj), P(out.rp_norm),
         P(out.rd_norm), P(out.mu), P(out.converged), P(out.reduced),
         P(out.y_dual), P(out.z_dual), P(out.f_dual), P(out.iters_run),
         THREADS, kernels.stream_handle(dev),
     )
     kernels.check(err, "ipm")
-    kernels.LAUNCHES["ipm"] += 1
+    kernels.count_launch("ipm", f"B={B} m={m} n={n}{' per-node A' if a_stride else ''}")
     return out

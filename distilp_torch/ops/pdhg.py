@@ -382,5 +382,5 @@ def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult
             kernels.stream_handle(dev),
         )
         kernels.check(err, "pdhg")
-        kernels.LAUNCHES["pdhg"] += 1
+        kernels.count_launch("pdhg", f"B={B} m={m} n={n}")
     return out

@@ -53,7 +53,6 @@ GEMM_EPS = 1e-6
 THREADS = 256
 ROLL_BLOCKS = 132 * 16  # grid-stride: enough blocks to fill an H100
 RESCALE_BLOCKS = 132 * 4  # grid-stride blocks of K9b's scale pass
-GEMM_TILE = 128  # K9b's output tile (rows and columns)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -252,14 +251,39 @@ def absmax_scale_reference(y: torch.Tensor, eps: float = GEMM_EPS) -> torch.Tens
 
 
 _K9B_SUFFIX = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16"}
+_K9B_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_INT32_MAX = 2**31 - 1
+_GEMM_TILES: Dict[torch.dtype, tuple] = {}
 
 
-def _gemm_absmax_kernel(x: torch.Tensor, b: torch.Tensor):
-    """K9b's product: (y = x @ b, the abs-max of each 128x128 tile of y)."""
-    from ..kernels.build import library
+def gemm_tile(dtype: torch.dtype) -> tuple:
+    """(rows, columns) of K9b's output tile for ``dtype``, as the kernel
+    library lays it out (``dtk_gemm_tile``): ``partial`` holds one abs-max
+    per tile."""
+    if dtype not in _GEMM_TILES:
+        import ctypes
 
-    sfx = _K9B_SUFFIX.get(x.dtype)
-    if sfx is None or b.dtype != x.dtype:
+        from ..kernels.build import library
+
+        rows, cols = ctypes.c_int(), ctypes.c_int()
+        kernels.check(library("profiler").dtk_gemm_tile(
+            _K9B_CODE[dtype], ctypes.byref(rows), ctypes.byref(cols)), "gemm_tile")
+        _GEMM_TILES[dtype] = (rows.value, cols.value)
+    return _GEMM_TILES[dtype]
+
+
+def gemm_partials(M: int, N: int, tile: tuple) -> int:
+    """Number of output tiles of an (M, N) product: one partial each."""
+    return -(-M // tile[0]) * -(-N // tile[1])
+
+
+def _gemm_operands(x: torch.Tensor, b: torch.Tensor):
+    """(M, N, K) of K9b's product, or raise on an operand the kernels do not
+    take: the float16/bfloat16 kernel's TMA loads need a 16-byte aligned
+    base and row strides that are multiples of 16 bytes, and rows and
+    coordinates that fit in 32-bit signed integers; the float32 kernel's
+    16-byte copies need the same alignment."""
+    if x.dtype not in _K9B_SUFFIX or b.dtype != x.dtype:
         raise TypeError(f"gemm_absmax_scale takes two float32, float16 or bfloat16 "
                         f"tensors of one dtype, got {x.dtype} and {b.dtype}")
     if x.dim() < 2 or b.dim() != 2 or x.shape[-1] != b.shape[0]:
@@ -273,13 +297,24 @@ def _gemm_absmax_kernel(x: torch.Tensor, b: torch.Tensor):
                          f"operands with K > 0 and K and N multiples of {vec}, got "
                          f"K={K}, N={N}")
     M = x.numel() // K
-    tiles_m = -(-M // GEMM_TILE)
-    if tiles_m > 65535:
-        raise ValueError(f"gemm_absmax_scale takes at most {65535 * GEMM_TILE} rows, got {M}")
+    if max(M, N, K) > _INT32_MAX:
+        raise ValueError(f"gemm_absmax_scale takes at most {_INT32_MAX} rows, columns "
+                         f"and depth, got M={M}, N={N}, K={K}")
+    return M, N, K
+
+
+def _gemm_absmax_kernel(x: torch.Tensor, b: torch.Tensor):
+    """K9b's product: (y = x @ b, the abs-max of each output tile of y)."""
+    from ..kernels.build import library
+
+    M, N, K = _gemm_operands(x, b)
+    nparts = gemm_partials(M, N, gemm_tile(x.dtype))
+    if nparts > _INT32_MAX:
+        raise ValueError(f"gemm_absmax_scale takes at most {_INT32_MAX} output tiles, "
+                         f"got {nparts}")
     y = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
-    partial = torch.empty(max(1, tiles_m * -(-N // GEMM_TILE)), dtype=torch.float32,
-                          device=x.device)
-    err = getattr(library("profiler"), f"dtk_gemm_absmax_{sfx}")(
+    partial = torch.empty(max(1, nparts), dtype=torch.float32, device=x.device)
+    err = getattr(library("profiler"), f"dtk_gemm_absmax_{_K9B_SUFFIX[x.dtype]}")(
         kernels.ptr(x), kernels.ptr(b), kernels.ptr(y), M, N, K, kernels.ptr(partial),
         kernels.stream_handle(x.device),
     )

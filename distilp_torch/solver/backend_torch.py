@@ -35,6 +35,7 @@ from .search import (
     BDTYPE,
     SweepData,
     best_bound,
+    node_sparsity,
     root_state,
     run_bnb_loop,
     seed_root_bounds,
@@ -256,6 +257,7 @@ def solve_sweep_torch(
         rd=rd,
         rd_packed=pack_rounding_data(rd),
         gky=tensors.get("gky"),
+        A_sparsity=node_sparsity(tensors["A"], M, sf.moe) if engine == "ipm" else None,
     )
     m, nf = data.A.shape
     root_warm = None

@@ -31,7 +31,7 @@ import torch
 
 from .. import kernels
 from ..ops.decomp import DecompProblem, decomp_bound_roots
-from ..ops.ipm import IPMResult, IPMWarmState, LPBatch, ipm_solve_batch
+from ..ops.ipm import IPMResult, IPMSparsity, IPMWarmState, LPBatch, ipm_solve_batch, ipm_sparsity
 from ..ops.pdhg import pdhg_solve_batch
 from .rounding import RoundingData, round_to_incumbent
 from .standard_form import FRAC_TOL, IPM_ITERS, MAX_ROUNDS
@@ -85,6 +85,9 @@ class SweepData(NamedTuple):
     # scattered onto each node's copy of the base at rows 4M..6M, columns
     # 2M..3M. None in dense mode (A is k-free).
     gky: Optional[torch.Tensor] = None  # (n_k, 2, M) float32
+    # K1's structure of every node's A (node_pattern), built once per sweep
+    # on the IPM engine; None builds it per call.
+    A_sparsity: Optional[IPMSparsity] = None
 
 
 class EpilogueOut(NamedTuple):
@@ -360,6 +363,17 @@ def node_A(data: SweepData, kidx: torch.Tensor, M: int) -> torch.Tensor:
     return A_p
 
 
+def node_sparsity(A: torch.Tensor, M: int, moe: bool) -> IPMSparsity:
+    """K1's structure of every node's A: the base's nonzeros, and in MoE
+    mode the 2M expert-busy entries ``node_A`` scatters in."""
+    pattern = A != 0
+    if moe:
+        ar = torch.arange(M, device=A.device)
+        pattern[4 * M + ar, 2 * M + ar] = True
+        pattern[5 * M + ar, 2 * M + ar] = True
+    return ipm_sparsity(pattern)
+
+
 def seed_root_bounds(
     state: SearchState,
     data: SweepData,
@@ -461,6 +475,7 @@ def bnb_round(
         chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
         res = ipm_solve_batch(
             lp_batch, iters=ipm_iters, warm=warm, skip=~active_p, **chunk_kw,
+            sparsity=data.A_sparsity,
         )
 
     # Exact integer incumbents from every processed row's LP point.

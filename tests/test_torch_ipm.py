@@ -255,23 +255,29 @@ def test_route_follows_the_tensors_device():
 
 @pytest.mark.parametrize("M,dtype,route", [
     (16, torch.float32, "shared"),
-    (128, torch.float32, "shared"),
-    (172, torch.float32, "shared"),
+    (47, torch.float32, "shared"),
+    (48, torch.float32, "factor_global"),
+    (128, torch.float32, "factor_global"),
+    (172, torch.float32, "factor_global"),
     (173, torch.float32, "global"),
     (192, torch.float32, "global"),
-    (86, torch.float64, "shared"),
+    (31, torch.float64, "shared"),
+    (32, torch.float64, "factor_global"),
+    (86, torch.float64, "factor_global"),
     (87, torch.float64, "global"),
 ])
 def test_workspace_route_follows_the_shapes(monkeypatch, M, dtype, route):
-    """K1 keeps each LP's (24 n + 4 m + 32) vector elements in shared memory
-    while they fit, beside its 256 bytes of static shared memory, the
-    232448 bytes an H100 block can opt into, and in a per-block global
-    workspace above that (m = 6M+1, n = 13M+1 for an M-device fleet). The
-    kernel library answers the route query on the card (``chip_smoke.py``
-    holds its answers to this table); here a stand-in library answers with
-    the H100 figures, and the wrapper is driven to see what it hands the
-    kernel: a null vector workspace on the shared route, B slices of the
-    vector length on the global one."""
+    """K1 keeps each LP's (24 n + 4 m + 32) vector elements and its packed
+    lower factor (m (m + 1) / 2 elements) in shared memory while both fit,
+    beside its 256 bytes of static shared memory, the 232448 bytes an H100
+    block can opt into; then the vectors alone, with the factor in a
+    per-block global workspace; then neither (m = 6M+1, n = 13M+1 for an
+    M-device fleet). The kernel library answers the route query on the card
+    (``chip_smoke.py`` holds its answers to this table); here a stand-in
+    library answers with the H100 figures, and the wrapper is driven to see
+    what it hands the kernel: no workspace on the shared route, B factor
+    slices on the factor_global one, B factor and B vector slices on the
+    global one."""
     from distilp_torch import kernels
     from distilp_torch.kernels import build
     from distilp_torch.ops import ipm
@@ -279,17 +285,24 @@ def test_workspace_route_follows_the_shapes(monkeypatch, M, dtype, route):
     m, n = 6 * M + 1, 13 * M + 1
     vec_bytes = dtype.itemsize * (24 * n + 4 * m + 32)
     assert vec_bytes == (1344 * M + 240) * (dtype.itemsize // 4)
+    fac_bytes = dtype.itemsize * m * (m + 1) // 2
     f64 = int(dtype == torch.float64)
     seen = {}
 
     class Lib:
-        def dtk_ipm_vec_ws_bytes(self, device, B, m_, n_, is_f64, out):
+        def dtk_ipm_workspace(self, device, B, m_, n_, is_f64, r, vec, fac):
             assert (m_, n_, is_f64) == (m, n, f64)
-            out._obj.value = 0 if vec_bytes + 256 <= 232448 else B * vec_bytes
+            if vec_bytes + fac_bytes + 256 <= 232448:
+                r._obj.value, vec._obj.value, fac._obj.value = 0, 0, 0
+            elif vec_bytes + 256 <= 232448:
+                r._obj.value, vec._obj.value, fac._obj.value = 1, 0, B * fac_bytes
+            else:
+                r._obj.value, vec._obj.value, fac._obj.value = 2, B * vec_bytes, B * fac_bytes
             return 0
 
         def launcher(self, *args):
-            seen["vec_ws"] = args[21].value  # after A..skip, B..reg and ws
+            # after A, its structure and values, b..skip, B..reg
+            seen["ws"], seen["vec_ws"] = args[25].value, args[26].value
             return 0
 
         dtk_ipm_f32 = dtk_ipm_f64 = launcher
@@ -310,10 +323,8 @@ def test_workspace_route_follows_the_shapes(monkeypatch, M, dtype, route):
     B = 2
     z = lambda *s: torch.zeros(*s, dtype=dtype)  # noqa: E731
     ipm.ipm_solve_batch(LPBatch(z(m, n), z(B, m), z(B, n), z(B, n), z(B, n) + 1), iters=1)
-    vec_len = vec_bytes // dtype.itemsize
-    if route == "shared":
-        assert seen["vec_ws"] is None
-        assert B * vec_len not in allocs
-    else:
-        assert seen["vec_ws"] is not None
-        assert B * vec_len in allocs
+    vec_len, tri = vec_bytes // dtype.itemsize, m * (m + 1) // 2
+    assert (seen["ws"] is None) == (route == "shared")
+    assert (seen["vec_ws"] is None) == (route != "global")
+    assert (B * tri in allocs) == (route != "shared")
+    assert (B * vec_len in allocs) == (route == "global")

@@ -165,12 +165,82 @@ def test_gemm_chain_step_equals_the_jax_chain_body(dtype, atol):
     ((4, 64), (32, 32), torch.float32, ValueError),   # K does not match
     ((4, 66), (66, 32), torch.float32, ValueError),   # K not a multiple of 4
     ((4, 64), (64, 36), torch.float16, ValueError),   # N not a multiple of 8
+    ((4, 64), (64, 32), (torch.float16, torch.bfloat16), TypeError),  # mixed pairs
+    ((4, 64), (64, 32), (torch.bfloat16, torch.float16), TypeError),
+    ((4, 64), (64, 32), (torch.float32, torch.float16), TypeError),
+    ((4, 64), (64, 32), (torch.float16, torch.float32), TypeError),
+    ((4, 64), (64, 32), torch.float64, TypeError),
+    ((4, 0), (0, 32), torch.float16, ValueError),     # K = 0
+    ((4, 36), (36, 32), torch.bfloat16, ValueError),  # x rows of 72 bytes
 ])
 def test_gemm_chain_kernel_refuses_operands_before_launching(x_shape, b_shape, dtype, error):
-    x = torch.zeros(x_shape, dtype=dtype)
-    b = torch.zeros(b_shape, dtype=dtype)
+    xd, bd = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+    x = torch.zeros(x_shape, dtype=xd)
+    b = torch.zeros(b_shape, dtype=bd)
     with pytest.raises(error):
         pdevice._gemm_absmax_kernel(x, b)
+
+
+def _misaligned(shape, dtype):
+    flat = torch.zeros(math.prod(shape) + 1, dtype=dtype)
+    return flat[1:].view(shape)
+
+
+# What the float16/bfloat16 kernel's TMA loads refuse (a base that is not
+# 16-byte aligned, strides other than the rows' own, coordinates past 32-bit
+# signed integers) and the float32 kernel's 16-byte copies too: the wrapper
+# raises before anything is launched.
+@pytest.mark.parametrize("make", [
+    lambda: (_misaligned((4, 64), torch.float16), torch.zeros(64, 32, dtype=torch.float16)),
+    lambda: (torch.zeros(4, 64, dtype=torch.bfloat16), _misaligned((64, 32), torch.bfloat16)),
+    lambda: (_misaligned((4, 64), torch.float32), torch.zeros(64, 32)),
+    lambda: (torch.zeros(4, 64, dtype=torch.float16),
+             torch.zeros(32, 64, dtype=torch.float16).t()),  # b column-major
+    lambda: (torch.zeros(64, 4, dtype=torch.float16).t(),
+             torch.zeros(64, 32, dtype=torch.float16)),  # x column-major
+    lambda: (torch.zeros(4, 128, dtype=torch.float16)[:, :64],
+             torch.zeros(64, 32, dtype=torch.float16)),  # x rows strided
+    lambda: (torch.empty((2**31, 8), dtype=torch.float16, device="meta"),
+             torch.empty((8, 8), dtype=torch.float16, device="meta")),  # M >= 2^31
+    lambda: (torch.empty((8, 2**31), dtype=torch.bfloat16, device="meta"),
+             torch.empty((2**31, 8), dtype=torch.bfloat16, device="meta")),  # K >= 2^31
+], ids=["x_misaligned_f16", "b_misaligned_bf16", "x_misaligned_f32", "b_column_major",
+        "x_column_major", "x_row_strided", "rows_past_int32", "depth_past_int32"])
+def test_gemm_chain_kernel_refuses_what_tma_refuses(make):
+    x, b = make()
+    with pytest.raises(ValueError):
+        pdevice._gemm_absmax_kernel(x, b)
+
+
+def test_gemm_partials_come_from_the_library_tile(monkeypatch):
+    """The wrapper sizes ``partial`` (one abs-max per output tile) from the
+    output tile the kernel library reports for the dtype (``dtk_gemm_tile``)
+    and passes the library its (M, N, K): a stand-in library answers here."""
+    from distilp_torch.kernels import build
+
+    seen = {}
+
+    class Lib:
+        def dtk_gemm_tile(self, code, rows, cols):
+            seen["code"] = code
+            rows._obj.value, cols._obj.value = {0: (128, 128), 1: (128, 256)}[code]
+            return 0
+
+        def dtk_gemm_absmax_f16(self, x, b, y, M, N, K, partial, stream):
+            seen["MNK"] = (M, N, K)
+            seen["partial"] = partial.value
+            return 0
+
+    monkeypatch.setattr(build, "library", lambda name: Lib())
+    monkeypatch.setattr(pdevice, "_GEMM_TILES", {})
+    monkeypatch.setattr(pdevice.kernels, "stream_handle", lambda dev: None)
+    x = torch.zeros((2, 150, 64), dtype=torch.float16)
+    b = torch.zeros((64, 520), dtype=torch.float16)
+    y, partial = pdevice._gemm_absmax_kernel(x, b)
+    assert seen["code"] == 1 and seen["MNK"] == (300, 520, 64)
+    assert pdevice.gemm_tile(torch.float16) == (128, 256)
+    assert partial.numel() == pdevice.gemm_partials(300, 520, (128, 256)) == 3 * 3
+    assert seen["partial"] == partial.data_ptr() and y.shape == (2, 150, 520)
 
 
 @pytest.fixture(scope="module")
