@@ -28,10 +28,15 @@ Phases (any failure exits non-zero and prints no result line):
      equal to ``torch.roll`` after 1 and 7 passes) and its GEMM-chain step
      (K9b: the product against ``torch.matmul`` in float32, float16 and
      bfloat16 at the chain's shapes, the scale bit for bit; the step's rate
-     beside ``torch.matmul``'s at the batches b_1, b_2, b_4);
+     beside ``torch.matmul``'s at the batches b_1, b_2, b_4); the branch-and-
+     bound epilogue's per-k entries (B15: on every call of per-k solves of
+     hermes_70b, the north star, Mixtral M=4 and a forced small capacity that
+     spills, and on 300 random frontiers, bit for bit) and the fixed-
+     assignment pricer (B14: Mixtral M=4 and the flagship, the solver's
+     assignment and edits breaking each validity test);
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
-  4. the main path, in four runs, each with the launch counts zeroed before
+  4. the main path, in five runs, each with the launch counts zeroed before
      it and read after it: (a) the dense slice, ``halda_solve`` on the four
      golden fixtures (pinned k and objective), the north star (pinned
      objective) and a 32-device fleet (against the port's HiGHS oracle);
@@ -52,7 +57,13 @@ Phases (any failure exits non-zero and prints no result line):
      and risk score at full width on the north star, the flagship and the
      512-device fleet, and rank agreement on the golden fixtures' per-k
      placements (each k solved on the card and by HiGHS, which must agree
-     on its feasibility and objective);
+     on its feasibility and objective); (e) the sweep variants:
+     ``halda_solve_per_k`` on hermes_70b (each k against the HiGHS oracle),
+     the north star and Mixtral M=4 (each k certified and pinned),
+     ``solve_load_aware`` on Mixtral M=4 with two hot experts and on the
+     flagship with lognormal loads (the realized objective pinned), and
+     ``halda_solve_async`` on the north star with the next instance built
+     while it runs (``collect()`` equal to the synchronous solve);
      K1's and K5's launches of each path are also printed by shape;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
@@ -615,7 +626,7 @@ def check_round(report: dict) -> None:
     run_k = lambda: round_to_incumbent(v, W, k, data.rd, data.rd_packed)  # noqa: E731
     ms, call, src = time_kernel(run_k, "round_kernel")
     plain = cuda_ms(lambda: round_to_incumbent_reference(v, W, k, data.rd), reps=5)
-    nbytes = B * 2 * M * 4 + 13 * M * 8 + 2 * B * 8 + B * (1 + 2 * M) * 8
+    nbytes = B * 2 * M * 4 + (12 * M + 1) * 8 + 2 * B * 8 + B * (1 + 2 * M) * 8
     flops = B * ((M + 4) * 3 * M + 40 * M)
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_F64_S)
     report["round_incumbent"] = dict(
@@ -1114,10 +1125,10 @@ def check_ipm_moe(report: dict) -> None:
 def round_moe_bytes_flops(B: int, M: int, moves: int, y_steps: int, cand_per_step: int):
     """Least work of one MoE rounding launch: every candidate priced once per
     step over M devices (~30 float64 operations each), the redistributions'
-    O(M^2); bytes: the rows' LP points (float32 here), W and k, the packed
-    data, the outputs."""
+    O(M^2); bytes: the rows' LP points (float32 here), W and k, the 16 rows
+    of the packed data it reads and b', the outputs."""
     flops = B * (moves * 5 * M * M + y_steps * cand_per_step) * M * 30 + B * 2 * (M + 4) * 3 * M
-    nbytes = B * 3 * M * 4 + 2 * B * 8 + 17 * M * 8 + B * (1 + 3 * M) * 8
+    nbytes = B * 3 * M * 4 + 2 * B * 8 + (16 * M + 1) * 8 + B * (1 + 3 * M) * 8
     return flops, nbytes
 
 
@@ -1560,6 +1571,238 @@ def check_gemm_absmax_scale(report: dict) -> None:
         ms_source=t["ms_source"], shapes_timed="float32 (1, 8192, 8192) @ (8192, 8192)",
         by_dtype=timing,
     )
+
+
+# ---------------------------------------------------------------- sweep shapes
+
+
+def per_k_bytes(B: int, M: int, n_k: int, cap: int, total: int, has_y: bool) -> int:
+    """Bytes K3's two per-k entries must move in one round: the incumbent
+    entry reads the rows' objectives, k's and w, n (and y on MoE rounds) and
+    the per-k state and writes the new state and cap thresholds; the rank
+    entry reads the first order and the child rows' k, flag and bound, and
+    writes the fair keys and the per-k floors."""
+    inc = B * (8 + 4 + (3 if has_y else 2) * M * 8) + n_k * (8 + 3 * M * 8) * 2 + \
+        cap * (4 + 8)
+    rank = total * (8 + 4 + 1 + 8 + 8) + 2 * n_k * 8
+    return inc + rank
+
+
+def random_per_k_trials(rng, trials: int):
+    """Random per-k incumbent and rank inputs on the card: up to 44 k's, 4 n_k
+    rows, 36 n_k child rows, ties in the objectives and bounds, -inf and
+    +inf bounds, dense and sparse active flags (a spill in most)."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.solver.search import SearchState
+
+    dev = torch.device("cuda")
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    for _ in range(trials):
+        n_k, M = int(rng.integers(1, 45)), int(rng.integers(1, 40))
+        B = int(rng.integers(1, 4 * n_k + 2))
+        cap = int(rng.integers(max(B, n_k), 36 * n_k + 2))
+        obj = rng.choice([np.inf, -5.0, -4.0, 1.0, 2.0], size=B) + rng.integers(0, 3, B)
+        state = SearchState(*[None] * 23)._replace(
+            node_kidx=T(rng.integers(0, n_k, cap).astype(np.int32)),
+            per_k_best=T(rng.choice([np.inf, -4.5, 0.0, 1.5], size=n_k)),
+            per_k_w=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
+            per_k_n=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
+            per_k_y=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
+        )
+        rows = [T(rng.integers(0, 9, (B, M)).astype(np.float64)) for _ in range(3)]
+        y = rows[2] if rng.random() < 0.5 else None
+        inc = (T(obj), T(rng.integers(0, n_k, B).astype(np.int32)), rows[0], rows[1], y,
+               state, float(rng.choice([1e-3, 1e-4, 0.0])))
+        total = cap + B
+        bound = rng.choice([-np.inf, -3.0, -2.5, 0.0, 1.0, 4.0], size=total) + \
+            rng.integers(0, 4, total) * 0.25
+        active = rng.random(total) < rng.random()
+        order = torch.argsort(T(np.where(active, bound, np.inf)), stable=True)
+        rank = (order, T(rng.integers(0, n_k, total).astype(np.int32)), T(active), T(bound),
+                cap, T(rng.choice([np.inf, -1.0, 2.0], size=n_k)))
+        yield inc, rank
+
+
+def check_bnb_per_k(report: dict) -> None:
+    """K3's per-k entries (B15) against their plain versions: on every call
+    of per-k solves on the card (hermes_70b, the north star, Mixtral M=4, and
+    hermes_70b with a forced small capacity, so that the frontier spills and
+    the fair re-rank decides what is kept) and on 300 random frontiers; all
+    outputs equal bit for bit. Timed at the largest round of the default
+    solves."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from distilp_torch.common import load_from_profile_folder
+    from distilp_torch.solver import halda_solve_per_k, search
+    from distilp_torch.utils import make_synthetic_fleet
+
+    calls = {"incumbent": [], "rank": []}
+    orig = {"incumbent": search.per_k_incumbent, "rank": search.per_k_fair_rank}
+    plain = {"incumbent": search.per_k_incumbent_reference,
+             "rank": search.per_k_fair_rank_reference}
+
+    def capture(name):
+        def fn(*args):
+            calls[name].append(args)
+            return orig[name](*args)
+        return fn
+
+    hermes = load_from_profile_folder(ROOT / "tests" / "profiles" / "hermes_70b")
+    mixtral = (make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9)), moe_model("mixtral_8x7b"))
+    runs = [
+        ("hermes_70b", hermes, dict(mip_gap=1e-4, kv_bits="4bit")),
+        ("north_star_M16", (make_synthetic_fleet(16, seed=123), online_model()),
+         dict(mip_gap=1e-3, kv_bits="4bit")),
+        ("mixtral_M4", mixtral, dict(mip_gap=MOE_GAP, kv_bits="8bit")),
+        ("hermes_70b_cap12", hermes, dict(mip_gap=1e-9, kv_bits="4bit", node_cap=12, beam=12,
+                                          max_rounds=8)),
+    ]
+    search.per_k_incumbent, search.per_k_fair_rank = capture("incumbent"), capture("rank")
+    timed = None
+    try:
+        for name, (devs, model), kw in runs:
+            n0 = len(calls["rank"])
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                halda_solve_per_k(devs, model, **kw)
+            if not name.endswith("cap12"):
+                widest = max(range(n0, len(calls["rank"])),
+                             key=lambda i: calls["incumbent"][i][0].shape[0])
+                if timed is None or calls["incumbent"][widest][0].shape[0] > \
+                        calls["incumbent"][timed[1]][0].shape[0]:
+                    timed = (name, widest)
+    finally:
+        search.per_k_incumbent, search.per_k_fair_rank = orig["incumbent"], orig["rank"]
+    cases = list(zip(calls["incumbent"], calls["rank"]))
+    spilled = sum(bool(torch.isfinite(a[5]).any() or torch.isfinite(orig["rank"](*a)[1]).any())
+                  for _, a in cases)
+    cases += list(random_per_k_trials(np.random.default_rng(0), 300))
+    bad = []
+    for i, (a_inc, a_rank) in enumerate(cases):
+        got, ref = orig["incumbent"](*a_inc), plain["incumbent"](*a_inc)
+        gk, rk = orig["rank"](*a_rank), plain["rank"](*a_rank)
+        torch.cuda.synchronize()
+        diff = [f for f in got._fields if not torch.equal(getattr(got, f), getattr(ref, f))]
+        diff += [f for f, x, y in zip(("fair_key", "per_k_dropped"), gk, rk)
+                 if not torch.equal(x, y)]
+        if diff:
+            bad.append((i, diff))
+    print("bnb_per_k vs plain", json.dumps({
+        "solve_calls": len(calls["rank"]), "random_frontiers": 300,
+        "solve_rounds_with_a_spill": spilled, "differing": bad[:10]}), flush=True)
+    if bad:
+        fail(f"bnb_per_k kernel disagrees with its plain version: {bad[:5]}")
+    if spilled == 0:
+        fail("bnb_per_k: no per-k round of the forced-capacity solve spilled a node")
+    name, i = timed
+    a_inc, a_rank = calls["incumbent"][i], calls["rank"][i]
+    ms_i, call_i, src_i = time_kernel(lambda: orig["incumbent"](*a_inc), "per_k_incumbent_kernel")
+    ms_r, call_r, src_r = time_kernel(lambda: orig["rank"](*a_rank), "per_k_rank_kernel")
+    plain_ms = cuda_ms(lambda: plain["incumbent"](*a_inc), reps=10) + \
+        cuda_ms(lambda: plain["rank"](*a_rank), reps=10)
+    B, M = a_inc[2].shape
+    n_k, cap, total = a_inc[5].per_k_best.shape[0], a_rank[4], a_rank[0].shape[0]
+    nbytes = per_k_bytes(B, M, n_k, cap, total, has_y=a_inc[4] is not None)
+    b_ms, b_by = bound_ms(B * n_k + total * 8, nbytes, PEAK_F64_S)
+    report["bnb_per_k"] = dict(
+        name="bnb_per_k", route="cuda",
+        source="distilp_torch/kernels/csrc/bnb_epilogue_kernel.cu",
+        replaces="distilp_tpu/solver/backend_jax.py:1597",
+        max_abs_err=0.0, ms=ms_i + ms_r, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, held_against_plain="ok", call_ms=call_i + call_r,
+        ms_source=f"{src_i}+{src_r}",
+        shapes_timed=f"{name}, one round: B={B} rows, M={M}, n_k={n_k}, cap={cap}, "
+                     f"{total} child rows; ms is both entries",
+        incumbent_ms=ms_i, rank_ms=ms_r,
+    )
+    print(f"bnb_per_k: {ms_i + ms_r:.4f} ms on the card a round (incumbent {ms_i:.4f}, rank "
+          f"{ms_r:.4f}), {call_i + call_r:.4f} ms per call (plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by}) at {name} B={B} M={M} n_k={n_k} cap={cap}", flush=True)
+
+
+def check_price_fixed(report: dict) -> None:
+    """B14, the fixed-assignment pricer, against its plain version on
+    Mixtral M=4 and the DeepSeek-V3 flagship: the solver's assignment and
+    edits that break each validity test (objectives within 1e-12 relative,
+    +inf in the same places). Timed at the routing path's shape (one
+    assignment of the flagship's 32 devices) and on the batch of edits."""
+    import torch
+
+    from distilp_torch.solver import halda_solve
+    from distilp_torch.solver.rounding import (
+        price_fixed_assignment,
+        price_fixed_assignment_reference,
+    )
+    import importlib.util
+
+    # The test suite's edit builder (numpy only), loaded by path: a package
+    # named ``tests`` installed on the host would shadow the repo's folder.
+    spec = importlib.util.spec_from_file_location(
+        "torch_price_edits", ROOT / "tests" / "torch_price_edits.py")
+    edits_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(edits_mod)
+    EDITS, validity_edits = edits_mod.EDITS, edits_mod.validity_edits
+
+    err, lines, timing = 0.0, [], {}
+    for case in (MOE_CASES[0], FLAGSHIP):
+        devs, model, *_, rd_np, data, _, _ = moe_instance(case)
+        res = halda_solve(devs, model, mip_gap=MOE_GAP, kv_bits="8bit")
+        W = model.L // res.k
+        edits = validity_edits(W, res.w, res.n, res.y, rd_np)
+        if [e[0] for e in edits[1:]] != list(EDITS):
+            fail(f"price_fixed on {case[0]}: found only the edits {[e[0] for e in edits]}, "
+                 f"so not every validity test of the kernel is held")
+        T = lambda rows: torch.tensor(rows, dtype=torch.float64, device="cuda")  # noqa: E731
+        w, n, y = (T([e[i] for e in edits]) for i in (1, 2, 3))
+        P = w.shape[0]
+        k = torch.full((P,), float(res.k), dtype=torch.float64, device="cuda")
+        Wt = torch.full((P,), float(W), dtype=torch.float64, device="cuda")
+        got = price_fixed_assignment(data.rd, k, Wt, w, n, y)
+        ref = price_fixed_assignment_reference(data.rd, k, Wt, w, n, y)
+        torch.cuda.synchronize()
+        a, rel = max_err(got, ref)
+        inf_at = [e[0] for e, v in zip(edits, ref.tolist()) if v == float("inf")]
+        solved = float(ref[0]) + data.obj_const
+        line = {"case": case[0], "assignments": P, "max_abs": a, "max_rel": rel,
+                "infeasible": inf_at, "as_solved_plus_obj_const": solved,
+                "solver_objective": res.obj_value}
+        print("price_fixed vs plain", json.dumps(line), flush=True)
+        if rel > TOL_EXACT_F64 or inf_at != list(EDITS) or \
+                abs(solved - res.obj_value) > 1e-9 * abs(res.obj_value):
+            fail(f"price_fixed kernel disagrees with its plain version on {case[0]}: {line}")
+        err = max(err, a)
+        one = [t[:1] for t in (k, Wt, w, n, y)]
+        run1 = lambda: price_fixed_assignment(data.rd, *one)  # noqa: E731
+        runP = lambda: price_fixed_assignment(data.rd, k, Wt, w, n, y)  # noqa: E731
+        ms1, call1, src1 = time_kernel(run1, "price_fixed_kernel")
+        msP, _, _ = time_kernel(runP, "price_fixed_kernel")
+        plain1 = cuda_ms(lambda: price_fixed_assignment_reference(data.rd, *one), reps=10)
+        M = len(res.w)
+        timing[case[0]] = dict(M=M, ms_one=ms1, call_ms_one=call1, ms_source=src1,
+                               plain_ms_one=plain1, ms_batch=msP, batch=P)
+        lines.append((case[0], M, ms1, call1, plain1, msP, P, src1))
+    name, M, ms1, call1, plain1, msP, P, src1 = lines[-1]
+    # One assignment: w, n, y and the 14 rows of the packed data that price()
+    # reads (M each), b', W, k, E in; the objective out; ~40 float64
+    # operations a device.
+    b_ms, b_by = bound_ms(40 * M, (17 * M + 5) * 8, PEAK_F64_S)
+    report["price_fixed"] = dict(
+        name="price_fixed", route="cuda",
+        source="distilp_torch/kernels/csrc/round_moe_kernel.cu",
+        replaces="distilp_tpu/solver/backend_jax.py:791",
+        max_abs_err=err, ms=ms1, plain_ms=plain1, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, held_against_plain="ok", call_ms=call1, ms_source=src1,
+        shapes_timed=f"{name}: one assignment of M={M} devices (routing's shape)",
+        by_instance=timing,
+    )
+    print(f"price_fixed: {ms1:.4f} ms on the card, {call1:.4f} ms per call (plain "
+          f"{plain1:.3f} ms, bound {b_ms:.7f} ms by {b_by}) at one assignment of M={M}; "
+          f"{msP:.4f} ms for {P} assignments", flush=True)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2014,15 +2257,17 @@ def profile_path(cases: list) -> dict:
 
 
 def profile_solve(devs, model, gap, name, reps: int = 5, kv_bits: str = "4bit",
-                  **kw) -> None:
+                  fn=None, **kw) -> None:
     """Where the device time of one solve goes: device time by kernel from
     a profiled solve, and the device's busy share against the same solve's
-    unprofiled wall time (median of ``reps``)."""
+    unprofiled wall time (median of ``reps``). ``fn`` (default
+    ``halda_solve``) is the entry point solved."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from distilp_torch.solver import halda_solve
 
+    halda_solve = fn or halda_solve
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -2048,6 +2293,166 @@ def profile_solve(devs, model, gap, name, reps: int = 5, kv_bits: str = "4bit",
         "top": [{"name": k[:80], "device_ms": us / 1e3, "count": c}
                 for k, us, c in rows[:10]],
     }), flush=True)
+
+
+# Sweep-variant pins, from the JAX package on the CPU. Per-k optima (k ->
+# objective) of distilp_tpu.solver.api.halda_solve_per_k(devs, model,
+# mip_gap=..., kv_bits=...) on the north star (gap 1e-3, kv 4bit) and on
+# Mixtral 8x7B over make_synthetic_fleet(4, seed=7, pool_bytes=64e9) (gap
+# 1e-3, kv 8bit); hermes_70b's per-k optima are held against the port's
+# HiGHS oracle in the run itself.
+NORTH_STAR_PER_K = {1: -38.36824122348659, 2: -38.02786870192999,
+                    4: -37.44413064313286, 5: -37.11560522015951}
+MIXTRAL_PER_K = {1: -131.51084293305297, 2: -132.5361931668962,
+                 4: -132.93320566181376, 8: -132.84552879445647}
+# Load-aware routing: (name, MoE case, loads, pinned realized objective) of
+# distilp_tpu.solver.routing.solve_load_aware(devs, model, expert_loads=...,
+# iters=2, kv_bits="8bit", mip_gap=1e-3, backend="jax"). Mixtral: two hot
+# experts carry half the load; the flagship: 256 loads drawn
+# numpy.random.default_rng(2026).lognormal(0.0, 1.0, 256).
+ROUTING_HOT2 = [4.0, 4.0] + [1.0] * 6
+ROUTING_CASES = [
+    ("mixtral_M4_hot2", MOE_CASES[0], "hot2", -133.03134596488897),
+    ("deepseek_v3_M32_lognormal", FLAGSHIP, "lognormal", -400.92408046855377),
+]
+SWEEP_KERNELS = ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "decomp",
+                 "bnb_per_k", "price_fixed")
+
+
+def routing_loads(kind: str):
+    import numpy as np
+
+    if kind == "hot2":
+        return ROUTING_HOT2
+    return np.random.default_rng(2026).lognormal(0.0, 1.0, 256).tolist()
+
+
+def sweep_path() -> dict:
+    """The sweep variants: per-k optima (``halda_solve_per_k``), load-aware
+    routing (``solve_load_aware``) and the async solve
+    (``halda_solve_async``), through the port's entry points on the card."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.common import load_from_profile_folder
+    from distilp_torch.solver import halda_solve_async, halda_solve_per_k, solve_load_aware
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.utils import make_synthetic_fleet
+
+    def per_k(name, devs, model, gap, kv_bits):
+        tm = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rs = halda_solve_per_k(devs, model, mip_gap=gap, kv_bits=kv_bits, timings=tm)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        print(f"per-k {name}: {len(rs)} k's, wall_ms={ms:.2f} rounds={tm.get('bnb_rounds')} "
+              f"lp_iters={tm.get('ipm_iters_executed')} build_sf_ms="
+              f"{tm.get('build_sf_ms', 0.0):.2f} upload_ms={tm.get('upload_ms', 0.0):.2f} "
+              f"search_ms={tm.get('solve_ms', 0.0):.2f} decomp_steps={tm.get('decomp_steps')}",
+              flush=True)
+        for r in rs:
+            if not r.certified or sum(r.w) * r.k != model.L:
+                fail(f"per-k {name}: k={r.k} certified={r.certified} w={r.w}")
+        return {r.k: r for r in rs}
+
+    def held(name, got, pins, gap):
+        if sorted(got) != sorted(pins):
+            fail(f"per-k {name}: k's {sorted(got)}, pinned {sorted(pins)}")
+        for k, pin in sorted(pins.items()):
+            rel = abs(got[k].obj_value - pin) / abs(pin)
+            print(f"  {name} k={k}: objective {got[k].obj_value!r} vs {pin!r}: relative "
+                  f"difference {rel!r} (allowed {2 * gap!r}) gap={got[k].gap}", flush=True)
+            if rel > 2 * gap:
+                fail(f"per-k {name} k={k}: {got[k].obj_value} vs {pin}")
+
+    kernels.reset_launch_counts()
+    hermes = load_from_profile_folder(ROOT / "tests" / "profiles" / "hermes_70b")
+    got = per_k("hermes_70b", *hermes, 1e-4, "4bit")
+    t = time.perf_counter()
+    oracle = {r.k: r.obj_value for r in halda_solve_per_k(*hermes, mip_gap=1e-4,
+                                                           kv_bits="4bit", backend="cpu")}
+    print(f"  highs oracle hermes_70b per-k: {len(oracle)} k's, wall_ms="
+          f"{(time.perf_counter() - t) * 1e3:.1f}", flush=True)
+    held("hermes_70b", got, oracle, 1e-4)
+    north = (make_synthetic_fleet(16, seed=123), online_model())
+    held("north_star_M16", per_k("north_star_M16", *north, 1e-3, "4bit"),
+         NORTH_STAR_PER_K, 1e-3)
+    mixtral = (make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9)), moe_model("mixtral_8x7b"))
+    got = per_k("mixtral_M4", *mixtral, MOE_GAP, "8bit")
+    if any(sum(r.y) != mixtral[1].n_routed_experts for r in got.values()):
+        fail("per-k mixtral_M4: an expert split does not cover E")
+    held("mixtral_M4", got, MIXTRAL_PER_K, MOE_GAP)
+
+    routed = {}
+    for name, case, kind, pin in ROUTING_CASES:
+        _, config, M, seed, pool, _ = case
+        devs, model = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool)), moe_model(config)
+        tm = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r, mapping, realized = solve_load_aware(devs, model, expert_loads=routing_loads(kind),
+                                                iters=2, kv_bits="8bit", mip_gap=MOE_GAP,
+                                                timings=tm)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        rel = abs(realized - pin) / abs(pin)
+        print(f"routing {name}: k={r.k} objective {r.obj_value!r} certified={r.certified} "
+              f"realized {realized!r} vs pinned {pin!r}: relative difference {rel!r} "
+              f"(allowed {2 * MOE_GAP!r}); wall_ms={ms:.2f} last solve: rounds="
+              f"{tm.get('bnb_rounds')} decomp_steps={tm.get('decomp_steps')} "
+              f"search_ms={tm.get('solve_ms', 0.0):.2f}; load share of the busiest device "
+              f"{max(mapping.load_share):.4f}", flush=True)
+        if not r.certified or sum(r.y) != model.n_routed_experts or rel > 2 * MOE_GAP:
+            fail(f"routing {name}: certified={r.certified} realized {realized} vs {pin}")
+        routed[name] = (devs, model, kind)
+
+    # Async: dispatch the north star, build the next instance (the fleet
+    # after t_comm drift) while it runs, collect; the result equals the
+    # synchronous solve's. Twice: the first dispatch of the process also
+    # creates its first side stream.
+    import numpy as np
+
+    devs, model = north
+    sync, sync_ms, _ = solve(devs, model, 1e-3)
+    drifted = [d.model_copy() for d in devs]
+    rng = np.random.default_rng(3)
+    for d in drifted:
+        d.t_comm = max(0.0, d.t_comm * float(rng.uniform(0.95, 1.05)))
+    for attempt in ("first", "second"):
+        tm = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = halda_solve_async(devs, model, mip_gap=1e-3, kv_bits="4bit", timings=tm)
+        t1 = time.perf_counter()
+        _build_instance(drifted, model, None, "4bit", None, None)
+        t2 = time.perf_counter()
+        r = pending.collect()
+        t3 = time.perf_counter()
+        print(f"async north_star_M16 ({attempt}): dispatch_ms={(t1 - t0) * 1e3:.2f} "
+              f"(build_sf_ms={tm.get('build_sf_ms', 0.0):.2f} upload_ms="
+              f"{tm.get('upload_ms', 0.0):.2f}) next_instance_build_ms={(t2 - t1) * 1e3:.2f} "
+              f"collect_ms={(t3 - t2) * 1e3:.2f} "
+              f"dispatch_to_collect_ms={(t3 - t0) * 1e3:.2f} worker_search_ms="
+              f"{tm.get('solve_ms', 0.0):.2f}; synchronous wall_ms={sync_ms:.2f}; "
+              f"k={r.k} obj={r.obj_value!r}", flush=True)
+        if (r.k, r.w, r.n, r.obj_value, r.certified) != \
+                (sync.k, sync.w, sync.n, sync.obj_value, sync.certified):
+            fail(f"async north star: ({r.k}, {r.w}, {r.obj_value}) vs synchronous "
+                 f"({sync.k}, {sync.w}, {sync.obj_value})")
+    launches = path_launches()
+    print("sweep path launches", json.dumps(launches), flush=True)
+    missing = [k for k in SWEEP_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"sweep path never launched {missing}")
+    profile_solve(*north, 1e-3, "north_star_M16_per_k", fn=halda_solve_per_k)
+    profile_solve(*mixtral, MOE_GAP, "mixtral_M4_per_k", kv_bits="8bit", fn=halda_solve_per_k)
+    devs, model, kind = routed[ROUTING_CASES[-1][0]]
+    profile_solve(devs, model, MOE_GAP, f"{ROUTING_CASES[-1][0]}_routing", reps=3,
+                  kv_bits="8bit", fn=lambda d, m, mip_gap, kv_bits: solve_load_aware(
+                      d, m, expert_loads=routing_loads(kind), iters=2, kv_bits=kv_bits,
+                      mip_gap=mip_gap))
+    return launches
 
 
 def main() -> int:
@@ -2084,9 +2489,11 @@ def main() -> int:
     print(f"twin instances placed in {time.perf_counter() - t:.1f} s", flush=True)
     checks = [check_ipm, check_round, check_epilogue, check_pdhg,
               lambda r: check_pdhg_mp(), check_ipm_moe, check_round_moe, check_decomp,
-              lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale]
+              lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale,
+              check_bnb_per_k, check_price_fixed]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_mp", "ipm_moe", "round_moe",
-             "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale"]
+             "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
+             "price_fixed"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -2095,7 +2502,7 @@ def main() -> int:
               f"{json.dumps({k: v for k, v in kernels.LAUNCHES.items() if v})}", flush=True)
 
     paths = {"dense": main_path(), "fleet": fleet_path(), "moe": moe_path(),
-             "profile": profile_path(cases)}
+             "profile": profile_path(cases), "sweep": sweep_path()}
     launches = {k: sum(p[k] for p in paths.values()) for k in report}
     print("main path launches", json.dumps(launches), flush=True)
     by_shape = {k: {p: c["_shapes"][k] for p, c in paths.items()} for k in ("ipm", "pdhg")}
@@ -2105,7 +2512,7 @@ def main() -> int:
         fail(f"main path never launched {missing}")
     out = []
     for name in ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
-                 "twin_mc", "hbm_stream", "gemm_absmax_scale"):
+                 "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

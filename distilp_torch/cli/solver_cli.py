@@ -11,8 +11,9 @@ and the digital-twin report of a placement:
 
 ``--backend torch`` (default) runs the branch-and-bound search on
 ``--device`` (default cuda; ``cpu`` runs the kernels' plain versions),
-``--backend cpu`` the HiGHS oracle. The twin's Monte-Carlo engine runs on
-``--device`` too. Options and subcommands of parts the port does not have
+``--backend cpu`` the HiGHS oracle. ``--per-k`` certifies every k and prints
+the k-curve; ``--expert-loads`` runs the load-aware routing loop. The twin's
+Monte-Carlo engine runs on ``--device`` too. Options and subcommands of parts the port does not have
 yet exit with code 2 and name their ROADMAP.md item; none is ignored.
 """
 
@@ -87,7 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--expert-loads",
         default=None,
-        help="load-weighted expert routing (not ported yet: ROADMAP A8)",
+        help="load-weighted expert routing: a JSON file with one relative "
+        "load per routed expert (or inline comma-separated values). Runs "
+        "the solve->map->re-price loop and prints the expert->device "
+        "mapping (MoE profiles only; see solver/routing.py)",
     )
     p.add_argument("--max-rounds", type=int, default=None,
                    help="branch-and-bound round budget (torch backend)")
@@ -123,8 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--per-k", action="store_true",
-        help="solve every feasible segment count to its own certificate "
-        "(not ported yet: ROADMAP A8)",
+        help="solve every feasible segment count to its own certificate and "
+        "print the k-curve with assignments (torch backend: one sweep; cpu "
+        "backend: one HiGHS solve per k)",
     )
     return p
 
@@ -132,10 +137,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _deferred_options(args) -> list:
     """(option, ROADMAP item) of each option set that a later slice ports."""
     out = []
-    if args.per_k:
-        out.append(("--per-k", "A8 (sweep variants)"))
-    if args.expert_loads:
-        out.append(("--expert-loads", "A8 (sweep variants: load-aware routing)"))
     if (args.mesh_shards or 1) > 1:
         out.append(("--mesh-shards > 1", "A13 (multi-GPU)"))
     if args.plot:
@@ -358,6 +359,29 @@ def main(argv=None) -> int:
         return 2
     devices, model = load_from_profile_folder(folder)
 
+    expert_loads = None
+    if args.expert_loads:
+        if args.moe == "off":
+            print(
+                "error: --expert-loads needs the MoE formulation; it cannot "
+                "be combined with --moe off",
+                file=sys.stderr,
+            )
+            return 2
+        raw = args.expert_loads
+        try:
+            if Path(raw).is_file():
+                expert_loads = json.loads(Path(raw).read_text())
+            else:
+                expert_loads = [float(x) for x in raw.split(",") if x.strip()]
+            if not isinstance(expert_loads, list) or not all(
+                isinstance(x, (int, float)) for x in expert_loads
+            ):
+                raise ValueError("expected a JSON array of numbers (one load per expert)")
+        except (OSError, TypeError, ValueError) as e:
+            print(f"error: cannot parse --expert-loads: {e}", file=sys.stderr)
+            return 2
+
     warm = None
     if args.warm_from:
         if args.backend != "torch":
@@ -374,32 +398,47 @@ def main(argv=None) -> int:
         except (OSError, TypeError, ValueError) as e:
             print(f"error: cannot load --warm-from: {e}", file=sys.stderr)
             return 2
+        if expert_loads is not None:
+            print(
+                "error: --warm-from cannot be combined with --expert-loads "
+                "(the load-aware loop manages its own warm starts)",
+                file=sys.stderr,
+            )
+            return 2
 
+    moe = {"auto": None, "on": True, "off": False}[args.moe]
+    search = dict(
+        max_rounds=args.max_rounds, beam=args.beam, ipm_iters=args.ipm_iters,
+        ipm_warm_iters=args.ipm_warm_iters, node_cap=args.node_cap,
+        lp_backend=args.lp_backend, pdhg_iters=args.pdhg_iters,
+        pdhg_restart_tol=args.pdhg_restart_tol, batch_size=args.batch_size,
+        device=args.device,
+    )
+    if args.per_k:
+        if expert_loads is not None or warm is not None:
+            print("error: --per-k cannot combine with --expert-loads or --warm-from",
+                  file=sys.stderr)
+            return 2
+        return _per_k_main(args, devices, model, moe, search)
+
+    mapping = realized = None
     try:
-        result = halda_solve(
-            devices,
-            model,
-            k_candidates=_k_candidates(args.k_candidates),
-            mip_gap=args.mip_gap,
-            debug=args.debug,
-            kv_bits=args.kv_bits,
-            backend=args.backend,
-            time_limit=args.time_limit,
-            moe={"auto": None, "on": True, "off": False}[args.moe],
-            warm=warm,
-            max_rounds=args.max_rounds,
-            beam=args.beam,
-            ipm_iters=args.ipm_iters,
-            ipm_warm_iters=args.ipm_warm_iters,
-            node_cap=args.node_cap,
-            lp_backend=args.lp_backend,
-            pdhg_iters=args.pdhg_iters,
-            pdhg_restart_tol=args.pdhg_restart_tol,
-            mesh_shards=args.mesh_shards,
-            pdhg_dtype=args.pdhg_dtype,
-            batch_size=args.batch_size,
-            device=args.device,
-        )
+        if expert_loads is not None:
+            from ..solver.routing import solve_load_aware
+
+            result, mapping, realized = solve_load_aware(
+                devices, model, expert_loads=expert_loads,
+                k_candidates=_k_candidates(args.k_candidates), mip_gap=args.mip_gap,
+                debug=args.debug, kv_bits=args.kv_bits, backend=args.backend,
+                time_limit=args.time_limit, **search,
+            )
+        else:
+            result = halda_solve(
+                devices, model, k_candidates=_k_candidates(args.k_candidates),
+                mip_gap=args.mip_gap, debug=args.debug, kv_bits=args.kv_bits,
+                backend=args.backend, time_limit=args.time_limit, moe=moe, warm=warm,
+                mesh_shards=args.mesh_shards, pdhg_dtype=args.pdhg_dtype, **search,
+            )
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -407,12 +446,52 @@ def main(argv=None) -> int:
     status = "certified" if result.certified else "NOT certified"
     gap_txt = f"{result.gap:.3g}" if result.gap is not None else "exact (HiGHS)"
     print(f"Optimality: {status} (achieved gap {gap_txt})")
+    if mapping is not None:
+        print("Expert routing (load-weighted):")
+        for dev, ids, share in zip(devices, mapping.expert_of_device, mapping.load_share):
+            print(f"  {dev.name:40s}: {len(ids):3d} experts, "
+                  f"{share * 100:5.1f}% of routed load")
+        # The certificate above covers the linearized instance; this is the
+        # end-to-end objective at the mapping's realized loads (None when
+        # the solves ran on the HiGHS oracle).
+        if realized is not None:
+            print(f"Realized objective (at mapped expert loads): {realized:.6f}")
     if args.save_solution:
-        _write_solution(args.save_solution, result, devices)
+        _write_solution(args.save_solution, result, devices, mapping=mapping,
+                        realized=realized)
     return 0
 
 
-def _write_solution(path, result, devices):
+def _per_k_main(args, devices, model, moe, search) -> int:
+    """``--per-k``: every feasible k to its own certificate, as a table."""
+    from ..solver import halda_solve_per_k
+
+    try:
+        per_k = halda_solve_per_k(
+            devices, model, k_candidates=_k_candidates(args.k_candidates),
+            mip_gap=args.mip_gap, kv_bits=args.kv_bits, backend=args.backend, moe=moe,
+            mesh_shards=args.mesh_shards, pdhg_dtype=args.pdhg_dtype,
+            time_limit=args.time_limit, debug=args.debug, **search,
+        )
+    except (ValueError, NotImplementedError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not per_k:
+        print("error: no feasible placement for any k", file=sys.stderr)
+        return 1
+    print(f"{'k':>5s} {'objective':>14s} {'certified':>9s}  assignment")
+    for r in sorted(per_k, key=lambda r: r.k):
+        w_txt = ",".join(str(w) for w in r.w)
+        y_txt = f" y=[{','.join(str(y) for y in r.y)}]" if r.y else ""
+        print(f"{r.k:5d} {r.obj_value:14.6f} {str(r.certified):>9s}  w=[{w_txt}]{y_txt}")
+    winner = min(per_k, key=lambda r: r.obj_value)
+    print(f"Best: k={winner.k} (objective {winner.obj_value:.6f})")
+    if args.save_solution:
+        _write_solution(args.save_solution, winner, devices)
+    return 0
+
+
+def _write_solution(path, result, devices, mapping=None, realized=None):
     """The JAX package's solution JSON (so either CLI's ``evaluate
     --solution`` and ``--warm-from`` read it)."""
     payload = {
@@ -429,6 +508,11 @@ def _write_solution(path, result, devices):
         payload["y"] = result.y
     if result.duals is not None:
         payload["duals"] = result.duals
+    if mapping is not None:
+        payload["expert_of_device"] = mapping.expert_of_device
+        payload["expert_load_share"] = [float(x) for x in mapping.load_share]
+        if realized is not None:
+            payload["realized_objective"] = realized
     Path(path).write_text(json.dumps(payload, indent=2))
     print(f"Saved solution to {path}")
 

@@ -20,6 +20,7 @@ import torch
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
+    "bnb_per_k": 0, "price_fixed": 0,
 }
 
 

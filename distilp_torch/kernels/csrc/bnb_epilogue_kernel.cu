@@ -16,6 +16,30 @@
 // columns (B <= 16, nf = 209 at M=16: about 80 KB in and out), so bytes and
 // launch latency; the design reads every input once and writes every output
 // once from one block per row, with the row's reductions in shared memory.
+//
+// K3's per-k mode: two more entries for _bnb_round(per_k=True), where every
+// node prunes against its own k's incumbent (backend_jax.py:1597-1627,
+// :1699-1702, :1728-1774).
+//   dtk_bnb_per_k_incumbent, before the per-row epilogue: per k, the round's
+//     best row of that k (the first index on ties, as jnp.argmin), the per-k
+//     incumbent it improves and a copy of that row's w, n, y; then the prune
+//     threshold of every frontier row from its own k's incumbent. One block:
+//     a warp per k reduces over the B rows, then the block writes the cap
+//     thresholds from the n_k in shared memory.
+//   dtk_bnb_per_k_rank, after the first stable (best-bound-first) argsort of
+//     the child rows: each active row's rank among its k's active rows (a
+//     block-wide per-k prefix count: warp match groups, per-warp counts in
+//     shared memory, tiles in order), the int64 fair key rank * (total + 1) +
+//     position, and the per-k floor of the bounds that the fair order puts
+//     past the capacity. That order lists the rank-0 rows, then the rank-1
+//     rows, ..., each group by position; so a row is spilled iff its rank
+//     exceeds R*, the largest r with sum_k min(cnt_k, r) < cap, or equals R*
+//     and its place in the rank-R* group (a block-wide prefix count of one
+//     flag) lands at or past cap. The second argsort, which the caller makes
+//     for the kept rows, is not needed for it. The floor is a shared-memory
+//     atomicMin over the bounds' order-preserving 64-bit keys.
+// Both are bound by launch latency: n_k <= ~40 k's, B <= 4 n_k rows of M
+// devices, cap + B <= 36 n_k child rows, a few KB in and out.
 
 #include "common.cuh"
 
@@ -125,6 +149,184 @@ __global__ void bnb_epilogue_kernel(
   }
 }
 
+// Order-preserving 64-bit key of a double: a smaller double has a smaller
+// key (-0.0 just below 0.0, a NaN of positive sign above +inf).
+__device__ __forceinline__ unsigned long long order_key(double x) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(x);
+  return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+}
+
+__device__ __forceinline__ double from_order_key(unsigned long long key) {
+  const unsigned long long b = (key >> 63) ? (key & 0x7fffffffffffffffull) : ~key;
+  return __longlong_as_double((long long)b);
+}
+
+__global__ void per_k_incumbent_kernel(
+    const double* __restrict__ obj_full, const int* __restrict__ kidx_p, int B,
+    const double* __restrict__ w_int, const double* __restrict__ n_int,
+    const double* __restrict__ y_int, int M, const double* __restrict__ best_in,
+    const double* __restrict__ w_in, const double* __restrict__ n_in,
+    const double* __restrict__ y_in, int n_k, const int* __restrict__ node_kidx,
+    int cap, double mip_gap, double* __restrict__ best_out,
+    double* __restrict__ w_out, double* __restrict__ n_out,
+    double* __restrict__ y_out, double* __restrict__ thr_rows) {
+  extern __shared__ double s_thr[];  // n_k thresholds
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int k = wid; k < n_k; k += nw) {
+    // The round's best row of k: argmin of where(kidx == k, obj, inf).
+    double v = INFINITY;
+    int r_star = INT_MAX;
+    for (int r = lane; r < B; r += 32) {
+      argmin_combine(v, r_star, kidx_p[r] == k ? obj_full[r] : (double)INFINITY, r);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const double v2 = __shfl_xor_sync(FULL, v, o);
+      const int i2 = __shfl_xor_sync(FULL, r_star, o);
+      argmin_combine(v, r_star, v2, i2);
+    }
+    const double old = best_in[k];
+    const bool improved = v < old;
+    const double best = nan_min(old, v);
+    if (lane == 0) {
+      best_out[k] = best;
+      s_thr[k] = isfinite(best) ? best - mip_gap * fabs(best) : INFINITY;
+    }
+    const size_t rs = (size_t)(r_star == INT_MAX ? 0 : r_star) * M;
+    for (int j = lane; j < M; j += 32) {
+      const size_t o = (size_t)k * M + j;
+      w_out[o] = improved ? w_int[rs + j] : w_in[o];
+      n_out[o] = improved ? n_int[rs + j] : n_in[o];
+      y_out[o] = improved ? (y_int != nullptr ? y_int[rs + j] : 0.0) : y_in[o];
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < cap; r += blockDim.x) thr_rows[r] = s_thr[node_kidx[r]];
+}
+
+__global__ void per_k_rank_kernel(
+    const long long* __restrict__ order, int total, const int* __restrict__ child_kidx,
+    const uint8_t* __restrict__ child_active, const double* __restrict__ child_bound,
+    int n_k, int cap, const double* __restrict__ dropped_in,
+    long long* __restrict__ fair_key, double* __restrict__ dropped_out) {
+  extern __shared__ unsigned long long s_min[];  // n_k floor keys
+  int* s_run = (int*)(s_min + n_k);               // n_k counts of earlier tiles
+  int* s_wc = s_run + n_k;                        // (warps, n_k) counts of this tile
+  __shared__ int s_flag[32];
+  __shared__ int s_R, s_AR;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int nw = nt >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const long long stride = (long long)total + 1;
+  for (int i = tid; i < n_k; i += nt) {
+    s_min[i] = order_key(INFINITY);
+    s_run[i] = 0;
+  }
+  for (int i = tid; i < nw * n_k; i += nt) s_wc[i] = 0;
+  __syncthreads();
+
+  // 1. Each active row's rank among its k's active rows, in position order.
+  for (int base = 0; base < total; base += nt) {
+    const int p = base + tid;
+    int k = -1;
+    if (p < total) {
+      const long long src = order[p];
+      if (child_active[src] != 0) k = child_kidx[src];
+    }
+    const unsigned grp = __match_any_sync(FULL, k);
+    if (k >= 0 && lane == __ffs(grp) - 1) s_wc[wid * n_k + k] = __popc(grp);
+    __syncthreads();
+    if (p < total) {
+      long long rank = total;
+      if (k >= 0) {
+        int off = s_run[k] + __popc(grp & lanes_below);
+        for (int q = 0; q < wid; ++q) off += s_wc[q * n_k + k];
+        rank = off;
+      }
+      fair_key[p] = rank * stride + p;
+    }
+    __syncthreads();
+    for (int i = tid; i < n_k; i += nt) {
+      int sum = 0;
+      for (int q = 0; q < nw; ++q) {
+        sum += s_wc[q * n_k + i];
+        s_wc[q * n_k + i] = 0;
+      }
+      s_run[i] += sum;
+    }
+    __syncthreads();
+  }
+
+  // 2. R*: the largest rank r with A(r) = sum_k min(cnt_k, r) < cap (none
+  // when every active row fits).
+  if (tid == 0) {
+    long long act = 0;
+    int maxc = 0;
+    for (int i = 0; i < n_k; ++i) {
+      act += s_run[i];
+      maxc = max(maxc, s_run[i]);
+    }
+    int R = INT_MAX, AR = 0;
+    if (act > cap) {
+      int lo = 0, hi = maxc;  // A(lo) < cap <= A(hi)
+      while (hi - lo > 1) {
+        const int mid = lo + (hi - lo) / 2;
+        long long a = 0;
+        for (int i = 0; i < n_k; ++i) a += min(s_run[i], mid);
+        if (a < cap) lo = mid; else hi = mid;
+      }
+      long long a = 0;
+      for (int i = 0; i < n_k; ++i) a += min(s_run[i], lo);
+      R = lo;
+      AR = (int)a;
+    }
+    s_R = R;
+    s_AR = AR;
+  }
+  __syncthreads();
+
+  // 3. The per-k floor of the spilled rows' bounds.
+  const int R = s_R, AR = s_AR;
+  if (R != INT_MAX) {
+    int group = 0;  // rank-R* rows in earlier tiles
+    for (int base = 0; base < total; base += nt) {
+      const int p = base + tid;
+      bool act = false;
+      long long rank = -1;
+      int k = 0;
+      double bnd = 0.0;
+      if (p < total) {
+        const long long src = order[p];
+        act = child_active[src] != 0;
+        if (act) {
+          rank = fair_key[p] / stride;
+          k = child_kidx[src];
+          bnd = child_bound[src];
+        }
+      }
+      const bool in_group = act && rank == R;
+      const unsigned bal = __ballot_sync(FULL, in_group);
+      if (lane == 0) s_flag[wid] = __popc(bal);
+      __syncthreads();
+      int g = group + __popc(bal & lanes_below);
+      for (int q = 0; q < wid; ++q) g += s_flag[q];
+      if (act && (rank > R || (in_group && AR + g >= cap))) {
+        atomicMin(&s_min[k], order_key(bnd));
+      }
+      for (int q = 0; q < nw; ++q) group += s_flag[q];
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n_k; i += nt) {
+    dropped_out[i] = nan_min(dropped_in[i], from_order_key(s_min[i]));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -144,6 +346,39 @@ int dtk_bnb_epilogue(
       active, obj_full, threshold, int_mask, obj_const, node_v, node_y, node_z,
       node_f, node_warm, nf, m, bound, survive, lo_a, hi_a, lo_b, hi_b, v_new,
       y_new, z_new, f_new, warm_new);
+  return (int)cudaGetLastError();
+}
+
+int dtk_bnb_per_k_incumbent(
+    const double* obj_full, const int* kidx_p, int B, const double* w_int,
+    const double* n_int, const double* y_int, int M, const double* best_in,
+    const double* w_in, const double* n_in, const double* y_in, int n_k,
+    const int* node_kidx, int cap, double mip_gap, double* best_out, double* w_out,
+    double* n_out, double* y_out, double* thr_rows, int threads, void* stream) {
+  if (threads % 32 != 0 || threads < 32 || threads > 1024) return (int)cudaErrorInvalidValue;
+  const size_t sm = sizeof(double) * (size_t)n_k;
+  if (sm > 48 * 1024) return (int)cudaErrorInvalidValue;
+  per_k_incumbent_kernel<<<1, threads, sm, (cudaStream_t)stream>>>(
+      obj_full, kidx_p, B, w_int, n_int, y_int, M, best_in, w_in, n_in, y_in, n_k,
+      node_kidx, cap, mip_gap, best_out, w_out, n_out, y_out, thr_rows);
+  return (int)cudaGetLastError();
+}
+
+int dtk_bnb_per_k_rank(const long long* order, int total, const int* child_kidx,
+                       const uint8_t* child_active, const double* child_bound,
+                       int n_k, int cap, const double* dropped_in,
+                       long long* fair_key, double* dropped_out, int threads,
+                       void* stream) {
+  if (threads % 32 != 0 || threads < 32 || threads > 1024) return (int)cudaErrorInvalidValue;
+  const size_t sm = (size_t)n_k * (sizeof(unsigned long long) + sizeof(int) * (1 + threads / 32));
+  if (sm > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        per_k_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  per_k_rank_kernel<<<1, threads, sm, (cudaStream_t)stream>>>(
+      order, total, child_kidx, child_active, child_bound, n_k, cap, dropped_in,
+      fair_key, dropped_out);
   return (int)cudaGetLastError();
 }
 

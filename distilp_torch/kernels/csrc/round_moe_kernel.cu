@@ -31,6 +31,12 @@
 // and picks the winner with one block-wide first-index argmin per step.
 // Built with --fmad=false: the ceil staircases must see the same products as
 // the plain version.
+//
+// B14, dtk_price_fixed_f64: price() alone over a batch of fixed assignments,
+// one block each (distilp_tpu/solver/backend_jax.py:791
+// price_fixed_assignment; load-aware routing compares its iterates with it at
+// their realized expert loads). Latency-bound: a few float64 operations per
+// device, one thread sums the devices in order as the plain version does.
 
 #include "common.cuh"
 
@@ -135,6 +141,30 @@ __device__ double price(const Row& r, int i1, double d1, int i2, double d2) {
   return (r.kf - 1.0) * cmax + total;
 }
 
+// Device j's constants of price() from its w and n (in shared memory), the
+// packed rounding data, b', W and k.
+__device__ void price_constants(double* sm, const double* rd, int M, int j, double bp,
+                                double Wf, double kf) {
+  auto rdv = [&](int row) { return rd[(size_t)row * M + j]; };
+  const double wj = sm[(size_t)S_W * M + j], nj = sm[(size_t)S_N * M + j];
+  sm[(size_t)S_BASE_RES * M + j] = bp * wj - (bp * nj) * rdv(RD_RAM_MINUS_N);
+  sm[(size_t)S_BN * M + j] = bp * nj;
+  sm[(size_t)S_WCAP * M + j] = nan_min(wj, Wf);
+  sm[(size_t)S_NTOL * M + j] = nj + 1e-9;
+  sm[(size_t)S_AW_BN * M + j] = rdv(RD_A) * wj + rdv(RD_B_GPU) * nj;
+  sm[(size_t)S_HALF_FETCH * M + j] = 0.5 * ((bp / rdv(RD_S_DISK)) * wj);
+  sm[(size_t)S_GK * M + j] = rdv(RD_G_RAW) / kf;
+  sm[(size_t)S_EBR * M + j] = rdv(RD_EB_RAM);
+  sm[(size_t)S_EBV * M + j] = rdv(RD_EB_VRAM);
+  sm[(size_t)S_EBM * M + j] = rdv(RD_EB_METAL);
+  sm[(size_t)S_RAM_RHS * M + j] = rdv(RD_RAM_RHS);
+  sm[(size_t)S_CUDA * M + j] = rdv(RD_CUDA_RHS);
+  sm[(size_t)S_METAL * M + j] = rdv(RD_METAL_RHS);
+  sm[(size_t)S_PEN_SET * M + j] = rdv(RD_PEN_SET);
+  sm[(size_t)S_PEN_VRAM * M + j] = rdv(RD_PEN_VRAM);
+  sm[(size_t)S_BUSY * M + j] = rdv(RD_BUSY_CONST);
+}
+
 // _int_redistribute on warp 0: M + 4 unit moves of vals toward sum ==
 // target, by largest remainder up and smallest down (jnp.argmax rules).
 template <typename Lo, typename Hi>
@@ -211,23 +241,7 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
 
   // Per-device constants of the pricer.
   for (int j = tid; j < M; j += nt) {
-    const double wj = w[j], nj = n[j];
-    sm[(size_t)S_BASE_RES * M + j] = bp * wj - (bp * nj) * rdv(RD_RAM_MINUS_N, j);
-    sm[(size_t)S_BN * M + j] = bp * nj;
-    sm[(size_t)S_WCAP * M + j] = nan_min(wj, Wf);
-    sm[(size_t)S_NTOL * M + j] = nj + 1e-9;
-    sm[(size_t)S_AW_BN * M + j] = rdv(RD_A, j) * wj + rdv(RD_B_GPU, j) * nj;
-    sm[(size_t)S_HALF_FETCH * M + j] = 0.5 * ((bp / rdv(RD_S_DISK, j)) * wj);
-    sm[(size_t)S_GK * M + j] = rdv(RD_G_RAW, j) / kf;
-    sm[(size_t)S_EBR * M + j] = rdv(RD_EB_RAM, j);
-    sm[(size_t)S_EBV * M + j] = rdv(RD_EB_VRAM, j);
-    sm[(size_t)S_EBM * M + j] = rdv(RD_EB_METAL, j);
-    sm[(size_t)S_RAM_RHS * M + j] = rdv(RD_RAM_RHS, j);
-    sm[(size_t)S_CUDA * M + j] = rdv(RD_CUDA_RHS, j);
-    sm[(size_t)S_METAL * M + j] = rdv(RD_METAL_RHS, j);
-    sm[(size_t)S_PEN_SET * M + j] = rdv(RD_PEN_SET, j);
-    sm[(size_t)S_PEN_VRAM * M + j] = rdv(RD_PEN_VRAM, j);
-    sm[(size_t)S_BUSY * M + j] = rdv(RD_BUSY_CONST, j);
+    price_constants(sm, rd, M, j, bp, Wf, kf);
     const double yfr = (double)vr[2 * M + j];
     if (y_steps < 0) {
       const double fl = floor(yfr);
@@ -314,6 +328,51 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
   }
 }
 
+// B14: the exact objective of fixed integer assignments (w, n, y), one block
+// each: price() of the assignment as it is, +inf when it is infeasible
+// (sum w != W, some w < 1, sum y != E, or a slack past its cap). No
+// rounding, no repair, no moves.
+__global__ void price_fixed_kernel(const double* __restrict__ w_in,
+                                   const double* __restrict__ n_in,
+                                   const double* __restrict__ y_in,
+                                   const double* __restrict__ Wr,
+                                   const double* __restrict__ kr,
+                                   const double* __restrict__ rd,
+                                   const double* __restrict__ E_ptr, int M,
+                                   double* __restrict__ obj_out) {
+  extern __shared__ double sm[];
+  __shared__ int s_ok;
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  double* w = sm + (size_t)S_W * M;
+  double* n = sm + (size_t)S_N * M;
+  double* y = sm + (size_t)S_Y * M;
+  const double bp = rd[(size_t)RD_BPRIME * M];
+  const double Wf = Wr[r];
+  const double kf = kr[r];
+  if (tid == 0) s_ok = 1;
+  __syncthreads();
+  for (int j = tid; j < M; j += nt) {
+    const size_t o = (size_t)r * M + j;
+    w[j] = w_in[o];
+    n[j] = n_in[o];
+    y[j] = y_in[o];
+    if (!(w[j] >= 1.0)) s_ok = 0;
+    price_constants(sm, rd, M, j, bp, Wf, kf);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double sw = 0.0, sy = 0.0;
+    for (int j = 0; j < M; ++j) {
+      sw += w[j];
+      sy += y[j];
+    }
+    const bool valid = s_ok != 0 && sw == Wf && sy == *E_ptr;
+    obj_out[r] = valid ? price(Row{sm, M, bp, kf}, -1, 0.0, -1, 0.0) : INFINITY;
+  }
+}
+
 template <typename Tv>
 int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
            const double* rd, const double* E, int M, int B, int y_steps, int moves,
@@ -349,6 +408,22 @@ int dtk_round_moe_f64(const double* v, long v_stride, const double* Wr,
                       double* n, double* y, int threads, void* stream) {
   return launch<double>(v, v_stride, Wr, kr, rd, E, M, B, y_steps, moves, obj, w, n,
                         y, threads, (cudaStream_t)stream);
+}
+
+int dtk_price_fixed_f64(const double* w, const double* n, const double* y,
+                        const double* Wr, const double* kr, const double* rd,
+                        const double* E, int M, int P, double* obj, int threads,
+                        void* stream) {
+  if (threads % 32 != 0 || threads < 32 || threads > 1024) return (int)cudaErrorInvalidValue;
+  const size_t sm = sizeof(double) * (size_t)S_ARRAYS * M;
+  if (sm > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        price_fixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  price_fixed_kernel<<<P, threads, sm, (cudaStream_t)stream>>>(w, n, y, Wr, kr, rd, E,
+                                                              M, obj);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,22 +1,52 @@
 """HALDA placement solver on PyTorch/CUDA: GPU backend + CPU/HiGHS oracle."""
 
-from .api import halda_solve
+from .api import PendingHalda, halda_solve, halda_solve_async, halda_solve_per_k
 from .backend_torch import resolve_device
 from .coeffs import (
     HaldaCoeffs,
+    alpha_beta_xi,
     assign_sets,
+    b_cio,
+    b_prime,
     build_coeffs,
+    kappa_constant,
     valid_factors_of_L,
 )
+from .moe import MoEArrays, adjust_model, build_moe_arrays, model_has_moe_components
 from .result import HALDAResult, ILPResult
+from .routing import (
+    ExpertMapping,
+    expert_makespan,
+    map_experts,
+    normalize_loads,
+    realized_objective,
+    solve_load_aware,
+)
 
 __all__ = [
     "halda_solve",
-    "resolve_device",
+    "halda_solve_async",
+    "halda_solve_per_k",
+    "PendingHalda",
+    "ExpertMapping",
+    "expert_makespan",
+    "map_experts",
+    "normalize_loads",
+    "realized_objective",
+    "solve_load_aware",
+    "MoEArrays",
+    "adjust_model",
+    "build_moe_arrays",
+    "model_has_moe_components",
     "HALDAResult",
     "ILPResult",
     "HaldaCoeffs",
     "build_coeffs",
+    "b_prime",
+    "alpha_beta_xi",
+    "b_cio",
     "assign_sets",
+    "kappa_constant",
     "valid_factors_of_L",
+    "resolve_device",
 ]

@@ -1,4 +1,5 @@
-"""Public solver API of the port: ``halda_solve`` on a CUDA device.
+"""Public solver API of the port: ``halda_solve``, ``halda_solve_per_k``
+and ``halda_solve_async`` on a CUDA device.
 
 ``backend='torch'`` (default) — batched branch-and-bound with the hand-written
 IPM or PDHG, rounding and epilogue kernels on ``device`` (None = ``cuda``; raises when
@@ -7,10 +8,11 @@ no GPU is present: it never drops to the CPU on its own). Passing
 versions, which is what the CPU tests do.
 ``backend='cpu'`` — the per-k scipy/HiGHS branch-and-cut oracle.
 
-Same signature and result type as ``distilp_tpu.solver.halda_solve`` plus
-``device``; the knobs of parts the port does not have yet (the multi-GPU
-mesh, convergence traces, the MoE margin chain, MoE on the PDHG engine)
-raise when set.
+Same signatures and result types as the JAX package's functions of these
+names plus ``device`` (the JAX package's ``backend='jax'`` is ``'torch'``
+here); the knobs of parts the port does not have yet (the multi-GPU mesh,
+convergence traces, the MoE margin chain, MoE on the PDHG engine, the
+k-objective plot) raise when set.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 from ..common import DeviceProfile, ModelProfile, kv_bits_to_factor
 from .assemble import assemble
 from .backend_cpu import Infeasible, solve_fixed_k_cpu
-from .backend_torch import resolve_device, solve_sweep_torch
+from .backend_torch import PendingSweep, collect_sweep, resolve_device, solve_sweep_torch
 from .coeffs import assign_sets, build_coeffs, valid_factors_of_L
 from .moe import adjust_model, build_moe_arrays, resolve_moe
 from .result import HALDAResult, ILPResult
@@ -98,6 +100,22 @@ def _build_instance(
     return Ks, sets, coeffs, arrays
 
 
+def _refuse_later_options(margin_state=None, convergence=None, plot=False) -> None:
+    """Options of parts the port does not have yet raise when set."""
+    if margin_state is not None:
+        raise NotImplementedError(
+            "margin_state (the MoE margin fast path of streaming ticks) is not "
+            "part of the port yet (ROADMAP.md A5)"
+        )
+    unsupported = ["convergence"] if convergence is not None else []
+    if plot:
+        unsupported.append("plot")
+    if unsupported:
+        raise NotImplementedError(
+            f"{unsupported}: not part of the port yet (later slices)"
+        )
+
+
 def halda_solve(
     devs: Sequence[DeviceProfile],
     model: ModelProfile,
@@ -159,19 +177,7 @@ def halda_solve(
     certificate; raises ``Infeasible`` (a ``RuntimeError``) if no k admits
     a feasible one.
     """
-    if margin_state is not None:
-        raise NotImplementedError(
-            "margin_state (the MoE margin fast path of streaming ticks) is not "
-            "part of the port yet (ROADMAP.md A5)"
-        )
-    later = {"convergence": convergence}
-    unsupported = [k for k, v in later.items() if v is not None]
-    if plot:
-        unsupported.append("plot")
-    if unsupported:
-        raise NotImplementedError(
-            f"{unsupported}: not part of the port yet (later slices)"
-        )
+    _refuse_later_options(margin_state=margin_state, convergence=convergence, plot=plot)
     import time as _time
 
     t0 = _time.perf_counter()
@@ -262,3 +268,151 @@ def halda_solve(
     if best is None:
         raise Infeasible("No feasible MILP found for any k.")
     return _best_to_result(best, sets)
+
+
+class PendingHalda:
+    """A ``halda_solve`` in flight: built, uploaded and searching on a
+    worker thread. ``collect()`` waits for it and returns the
+    ``HALDAResult``; made by :func:`halda_solve_async`."""
+
+    def __init__(self, pending: PendingSweep, sets):
+        self._pending = pending
+        self._sets = sets
+
+    def collect(self) -> HALDAResult:
+        _, best = collect_sweep(self._pending)
+        if best is None:
+            raise Infeasible("No feasible MILP found for any k.")
+        return _best_to_result(best, self._sets)
+
+
+def halda_solve_async(
+    devs: Sequence[DeviceProfile],
+    model: ModelProfile,
+    k_candidates: Optional[Iterable[int]] = None,
+    mip_gap: Optional[float] = 1e-4,
+    kv_bits: str = "8bit",
+    moe: Optional[bool] = None,
+    warm: Optional[HALDAResult] = None,
+    max_rounds: Optional[int] = None,
+    beam: Optional[int] = None,
+    ipm_iters: Optional[int] = None,
+    ipm_warm_iters: Optional[int] = None,
+    node_cap: Optional[int] = None,
+    load_factors: Optional[Sequence[float]] = None,
+    batch_size: int = 1,
+    margin_state: Optional[dict] = None,
+    lp_backend: str = "auto",
+    pdhg_iters: Optional[int] = None,
+    pdhg_restart_tol: Optional[float] = None,
+    mesh_shards: Optional[int] = None,
+    pdhg_dtype: Optional[str] = None,
+    convergence: Optional[dict] = None,
+    timings: Optional[dict] = None,
+    device=None,
+) -> PendingHalda:
+    """Dispatch a solve and return without waiting for it.
+
+    The instance build, the standard form and the upload run on the calling
+    thread; the branch-and-bound search then runs on the port's search
+    worker thread, on a CUDA stream of its own, while the caller goes on
+    (typically building the next instance). Searches dispatched together
+    run one after another, in dispatch order. Redeem it with ``.collect()``, which returns what
+    ``halda_solve`` returns (without its certification escalation, as in
+    the JAX package) and raises what the search raised. ``device`` as in
+    ``halda_solve``: no GPU raises here, at dispatch; there is no fall-back to
+    a synchronous CPU solve. A sweep with no structurally feasible k raises
+    ``Infeasible`` at dispatch. ``timings`` is filled when ``collect()``
+    returns.
+    """
+    _refuse_later_options(margin_state=margin_state, convergence=convergence)
+    dev = resolve_device(device)
+    Ks, sets, coeffs, arrays = _build_instance(
+        devs, model, k_candidates, kv_bits, moe, load_factors, batch_size
+    )
+    pending = solve_sweep_torch(
+        arrays, [(k, model.L // k) for k in Ks],
+        mip_gap=mip_gap if mip_gap is not None else 1e-4, coeffs=coeffs,
+        warm=_warm_to_ilp(warm), max_rounds=max_rounds, beam=beam, ipm_iters=ipm_iters,
+        ipm_warm_iters=ipm_warm_iters, node_cap=node_cap, timings=timings,
+        lp_backend=lp_backend, pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
+        mesh_shards=mesh_shards, pdhg_dtype=pdhg_dtype, device=dev, collect=False,
+    )
+    if not isinstance(pending, PendingSweep):
+        # The plain (results, None) of a sweep with no k where W >= M.
+        raise Infeasible("No feasible MILP found for any k.")
+    return PendingHalda(pending, sets)
+
+
+def halda_solve_per_k(
+    devs: Sequence[DeviceProfile],
+    model: ModelProfile,
+    k_candidates: Optional[Iterable[int]] = None,
+    mip_gap: Optional[float] = 1e-4,
+    kv_bits: str = "8bit",
+    backend: Backend = "torch",
+    moe: Optional[bool] = None,
+    max_rounds: Optional[int] = None,
+    beam: Optional[int] = None,
+    ipm_iters: Optional[int] = None,
+    ipm_warm_iters: Optional[int] = None,
+    node_cap: Optional[int] = None,
+    load_factors: Optional[Sequence[float]] = None,
+    batch_size: int = 1,
+    time_limit: Optional[float] = 3600.0,
+    debug: bool = False,
+    plot: bool = False,
+    timings: Optional[dict] = None,
+    lp_backend: str = "auto",
+    pdhg_iters: Optional[int] = None,
+    pdhg_restart_tol: Optional[float] = None,
+    mesh_shards: Optional[int] = None,
+    pdhg_dtype: Optional[str] = None,
+    device=None,
+) -> List[HALDAResult]:
+    """A certified optimum for every feasible k.
+
+    ``halda_solve`` answers "which placement is best": losing segment counts
+    prune early against the global incumbent and report objectives only.
+    This answers "what would each k cost": every k runs under per-k pruning
+    (K3's per-k mode) until its own mip-gap certificate closes, and comes
+    back as a full ``HALDAResult`` with its assignment, certificate and gap.
+    Structurally infeasible k's and those the search proves infeasible are
+    left out of the list.
+
+    ``backend='torch'`` solves the whole family in one sweep on ``device``
+    (None = cuda, raises without a GPU; ``'cpu'`` runs the kernels' plain
+    versions); ``backend='cpu'`` loops the HiGHS oracle over the k grid
+    (``time_limit`` seconds each; the search knobs do not apply).
+    """
+    _refuse_later_options(plot=plot)
+    if backend not in ("torch", "cpu"):
+        raise ValueError(f"Unknown backend {backend!r}; expected 'torch' or 'cpu'")
+    dev = resolve_device(device) if backend == "torch" else None
+    Ks, sets, coeffs, arrays = _build_instance(
+        devs, model, k_candidates, kv_bits, moe, load_factors, batch_size
+    )
+    if backend == "cpu":
+        out: List[HALDAResult] = []
+        for k in Ks:
+            try:
+                res = solve_fixed_k_cpu(
+                    arrays, k, model.L // k, time_limit=time_limit, mip_gap=mip_gap
+                )
+            except Infeasible:
+                if debug:
+                    print(f"  k={k:<4d}  obj=infeasible")
+                continue
+            if debug:
+                print(f"  k={k:<4d}  obj={res.obj_value:.6f}")
+            out.append(_best_to_result(res, sets))
+        return out
+    results, _ = solve_sweep_torch(
+        arrays, [(k, model.L // k) for k in Ks],
+        mip_gap=mip_gap if mip_gap is not None else 1e-4, coeffs=coeffs,
+        max_rounds=max_rounds, beam=beam, ipm_iters=ipm_iters,
+        ipm_warm_iters=ipm_warm_iters, node_cap=node_cap, debug=debug, timings=timings,
+        lp_backend=lp_backend, pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
+        mesh_shards=mesh_shards, pdhg_dtype=pdhg_dtype, device=dev, per_k_optima=True,
+    )
+    return [_best_to_result(r, sets) for r in results if r is not None and r.w is not None]

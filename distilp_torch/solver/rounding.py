@@ -13,7 +13,10 @@ tensors and runs the plain PyTorch version on CPU tensors:
   the LP point by floor and largest-remainder redistribution, or from a
   Lagrangian-primal hint by ``y_steps`` exact-priced greedy repair steps;
   then ``moves`` steps of the best i -> j transfer of 1, 2, 4, 8 or 16
-  experts over all 5 M M candidates.
+  experts over all 5 M M candidates;
+- fixed MoE assignments (:func:`price_fixed_assignment`, B14): the same
+  pricer alone, with no rounding (``round_moe_kernel.cu``'s
+  ``dtk_price_fixed_f64``).
 
 Both compute ``distilp_tpu/solver/backend_jax.py::_round_to_incumbent`` with
 its ``_int_redistribute`` scan. The MoE pricer sums the devices' linear
@@ -226,6 +229,61 @@ class _MoEPricer:
         for j in range(1, lin.shape[-1]):
             total = total + lin[..., j]
         return torch.where(ok, (self.k_f - 1.0) * C + total, float("inf"))
+
+
+def price_fixed_assignment(rd: RoundingData, k, W, w, n, y) -> torch.Tensor:
+    """Exact linear MILP objective (float64) of fixed integer MoE assignments:
+    no rounding, no repair, no expert moves; +inf where an assignment is
+    infeasible (``sum w != W``, some ``w < 1``, ``sum y != E``, a RAM slack
+    above ``min(w, W)`` or a VRAM slack above ``n``). The total objective is
+    this plus ``obj_const``.
+
+    ``w``, ``n``, ``y`` are (M,) for one assignment, or (P, M) for P of them
+    with ``k`` and ``W`` scalars or (P,). Returns a () or (P,) tensor on
+    ``rd``'s device: the pricing kernel (B14, ``round_moe_kernel.cu``) on a
+    CUDA device, the plain version (:func:`price_fixed_assignment_reference`)
+    on the CPU."""
+    dev = rd.a.device
+    f64 = torch.float64
+    w, n, y = (torch.as_tensor(x, dtype=f64, device=dev) for x in (w, n, y))
+    single = w.dim() == 1
+    w, n, y = (x.reshape(-1, rd.a.shape[0]) for x in (w, n, y))
+    P = w.shape[0]
+    k = torch.as_tensor(k, dtype=f64, device=dev).reshape(-1).expand(P)
+    W = torch.as_tensor(W, dtype=f64, device=dev).reshape(-1).expand(P)
+    if kernels.on_cuda(w, rd.a):
+        obj = _price_fixed_kernel(rd, k, W, w, n, y)
+    else:
+        obj = price_fixed_assignment_reference(rd, k, W, w, n, y)
+    return obj[0] if single else obj
+
+
+def price_fixed_assignment_reference(rd: RoundingData, k, W, w, n, y) -> torch.Tensor:
+    """Plain PyTorch version of the fixed-assignment pricing kernel: the
+    :class:`_MoEPricer` price of each (P,) row's own y."""
+    valid = (w.sum(1) == W) & (w >= 1.0).all(1) & (y.sum(1) == rd.E)
+    obj = _MoEPricer(w, n, W, k, rd)(y[:, None, :])[:, 0]
+    return torch.where(valid, obj, float("inf"))
+
+
+def _price_fixed_kernel(rd: RoundingData, k, W, w, n, y):
+    from ..kernels.build import library
+
+    P, M = w.shape
+    packed = pack_rounding_data(rd)
+    obj = torch.empty(P, dtype=torch.float64, device=w.device)
+    if P == 0:
+        return obj
+    # Held until the launch: a temporary freed inside the argument list
+    # could hand its memory to the next one.
+    ins = [t.contiguous() for t in (w, n, y, W, k, packed, rd.E.to(torch.float64))]
+    err = library("round_moe").dtk_price_fixed_f64(
+        *[kernels.ptr(t) for t in ins], M, P, kernels.ptr(obj), MOE_THREADS,
+        kernels.stream_handle(w.device),
+    )
+    kernels.check(err, "price_fixed")
+    kernels.LAUNCHES["price_fixed"] += 1
+    return obj
 
 
 def round_moe_reference(

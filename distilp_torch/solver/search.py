@@ -8,12 +8,17 @@ runs the per-row epilogue (K3: bound fold,
 pruning, reduced-cost box tightening, closing, branching, child boxes, warm
 carry). The scalar reductions over the beam and the stable best-bound-first
 compaction are plain tensor operations. One global incumbent prunes across
-every k's tree, since the answer is the minimum over k.
+every k's tree, since the answer is the minimum over k. In per-k mode
+(``per_k=True``) a node prunes against its own k's incumbent instead, and
+K3's per-k entries keep each k's incumbent assignment, its prune threshold,
+a k-fair compaction order and each k's overflow floor, so that every k ends
+with its own certificate.
 
 Ported from ``distilp_tpu/solver/backend_jax.py`` (``SearchState``,
 ``SweepData``, ``_root_state``, the IPM and single-device PDHG branches of
-``_bnb_round`` with its MoE A scatter, ``_seed_root_bounds``,
-``_cast_lp_result``, ``_best_bound``, ``_certified``, ``_run_bnb_loop``).
+``_bnb_round`` with its MoE A scatter and its per-k mode,
+``_seed_root_bounds``, ``_cast_lp_result``, ``_best_bound``, ``_certified``,
+``_per_k_bound``, ``_certified_per_k``, ``_run_bnb_loop``).
 MoE sweeps seed the roots with the Lagrangian decomposition bounds (K7) and
 an incumbent repaired from the Lagrangian primal. The reference runs the
 loop as one device program; here it is a host loop that reads one boolean
@@ -39,6 +44,8 @@ from .standard_form import FRAC_TOL, IPM_ITERS, MAX_ROUNDS
 DTYPE = torch.float32  # search arrays + IPM iteration dtype
 BDTYPE = torch.float64  # certificate dtype
 EPILOGUE_THREADS = 256
+PER_K_THREADS = 256  # K3's per-k incumbent entry: one warp per k
+PER_K_RANK_THREADS = 512  # K3's per-k rank entry: tiles of the child rows
 
 
 class SearchState(NamedTuple):
@@ -172,6 +179,188 @@ def best_bound(state: SearchState) -> torch.Tensor:
 def certified(state: SearchState, mip_gap: float) -> torch.Tensor:
     inc = state.incumbent
     return torch.isfinite(inc) & (inc - best_bound(state) <= mip_gap * inc.abs())
+
+
+def per_k_bound(state: SearchState) -> torch.Tensor:
+    """(n_k,) proven lower bound of each k: the least bound of its live
+    nodes and its own overflow floor."""
+    n_k = state.per_k_best.shape[0]
+    live = torch.where(state.active, state.node_bound, float("inf"))
+    bound = torch.full((n_k,), float("inf"), dtype=BDTYPE, device=live.device)
+    bound = bound.scatter_reduce(0, state.node_kidx.long(), live, "amin")
+    return torch.minimum(bound, state.per_k_dropped)
+
+
+def certified_per_k(state: SearchState, mip_gap: float) -> torch.Tensor:
+    """True when every k is settled: its own gap closed, or its subtree
+    exhausted (bound +inf; a -inf bound is an unexplored root)."""
+    bound_k = per_k_bound(state)
+    inc_k = state.per_k_best
+    done = torch.isfinite(inc_k) & (inc_k - bound_k <= mip_gap * inc_k.abs())
+    return (done | torch.isposinf(bound_k)).all()
+
+
+class PerKIncumbent(NamedTuple):
+    """Result of K3's per-k incumbent entry."""
+
+    per_k_best: torch.Tensor  # (n_k,) float64
+    per_k_w: torch.Tensor  # (n_k, M) float64
+    per_k_n: torch.Tensor
+    per_k_y: torch.Tensor
+    threshold: torch.Tensor  # (cap,) float64 prune threshold of every row
+
+
+def per_k_incumbent(
+    obj_full: torch.Tensor,
+    kidx_p: torch.Tensor,
+    w_int: torch.Tensor,
+    n_int: torch.Tensor,
+    y_int: Optional[torch.Tensor],
+    state: SearchState,
+    mip_gap: float,
+) -> PerKIncumbent:
+    """K3's per-k incumbent entry: each k's best row of this round
+    (``obj_full`` over the (B,) rows of k ``kidx_p``, first index on ties),
+    the per-k incumbents and assignments it improves (``y_int`` None in dense
+    mode: a zero row), and the prune threshold of every frontier row from its
+    own k's incumbent. The CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if kernels.on_cuda(obj_full, kidx_p, w_int, n_int, state.per_k_best):
+        return _per_k_incumbent_kernel(obj_full, kidx_p, w_int, n_int, y_int, state, mip_gap)
+    return per_k_incumbent_reference(obj_full, kidx_p, w_int, n_int, y_int, state, mip_gap)
+
+
+def per_k_incumbent_reference(
+    obj_full, kidx_p, w_int, n_int, y_int, state: SearchState, mip_gap: float
+) -> PerKIncumbent:
+    """Plain PyTorch version of K3's per-k incumbent entry."""
+    inf = float("inf")
+    n_k = state.per_k_best.shape[0]
+    kidx = kidx_p.long()
+    round_best = torch.full((n_k,), inf, dtype=BDTYPE, device=obj_full.device)
+    round_best = round_best.scatter_reduce(0, kidx, obj_full, "amin")
+    improved = (round_best < state.per_k_best)[:, None]
+    k_mask = kidx[:, None] == torch.arange(n_k, device=kidx.device)[None, :]
+    r_star = torch.where(k_mask, obj_full[:, None], inf).argmin(0)
+    if y_int is None:
+        y_int = torch.zeros_like(w_int)
+    best = torch.minimum(state.per_k_best, round_best)
+    threshold_k = torch.where(torch.isfinite(best), best - mip_gap * best.abs(), inf)
+    return PerKIncumbent(
+        per_k_best=best,
+        per_k_w=torch.where(improved, w_int[r_star], state.per_k_w),
+        per_k_n=torch.where(improved, n_int[r_star], state.per_k_n),
+        per_k_y=torch.where(improved, y_int[r_star], state.per_k_y),
+        threshold=threshold_k[state.node_kidx.long()],
+    )
+
+
+def _per_k_incumbent_kernel(
+    obj_full, kidx_p, w_int, n_int, y_int, state: SearchState, mip_gap: float
+) -> PerKIncumbent:
+    from ..kernels.build import library
+
+    B, M = w_int.shape
+    n_k = state.per_k_best.shape[0]
+    cap = state.node_kidx.shape[0]
+    f64 = [obj_full, w_int, n_int, state.per_k_best, state.per_k_w, state.per_k_n,
+           state.per_k_y] + ([] if y_int is None else [y_int])
+    if any(t.dtype != BDTYPE for t in f64):
+        raise TypeError("per-k incumbent kernel takes float64 objectives and assignments")
+    dev = obj_full.device
+    # Held until the launch (a temporary freed inside the argument list could
+    # hand its memory to the next one).
+    rows = [obj_full.contiguous(), kidx_p.to(torch.int32).contiguous(),
+            w_int.contiguous(), n_int.contiguous()]
+    y_c = None if y_int is None else y_int.contiguous()
+    old = [t.contiguous() for t in (state.per_k_best, state.per_k_w, state.per_k_n,
+                                    state.per_k_y)]
+    node_kidx = state.node_kidx.to(torch.int32).contiguous()
+    out = PerKIncumbent(
+        per_k_best=torch.empty(n_k, dtype=BDTYPE, device=dev),
+        per_k_w=torch.empty((n_k, M), dtype=BDTYPE, device=dev),
+        per_k_n=torch.empty((n_k, M), dtype=BDTYPE, device=dev),
+        per_k_y=torch.empty((n_k, M), dtype=BDTYPE, device=dev),
+        threshold=torch.empty(cap, dtype=BDTYPE, device=dev),
+    )
+    P = kernels.ptr
+    err = library("bnb_epilogue").dtk_bnb_per_k_incumbent(
+        P(rows[0]), P(rows[1]), B, P(rows[2]), P(rows[3]), kernels.opt_ptr(y_c), M,
+        *[P(t) for t in old], n_k, P(node_kidx), cap, float(mip_gap),
+        *[P(t) for t in out], PER_K_THREADS, kernels.stream_handle(dev),
+    )
+    kernels.check(err, "bnb_per_k")
+    kernels.LAUNCHES["bnb_per_k"] += 1
+    return out
+
+
+def per_k_fair_rank(
+    order: torch.Tensor,
+    child_kidx: torch.Tensor,
+    child_active: torch.Tensor,
+    child_bound: torch.Tensor,
+    cap: int,
+    per_k_dropped: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's per-k rank entry, on the first (best-bound-first) stable order
+    of the child rows: ``(fair_key, per_k_dropped)``. ``fair_key`` (int64,
+    one per sorted position p) is ``rank * (total + 1) + p`` where rank is the
+    row's place among its k's active rows (``total`` for an inactive row),
+    so that sorting it shares the capacity round-robin between the k's;
+    ``per_k_dropped`` folds in, per k, the least bound of the active rows
+    that order puts past ``cap``. The CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if kernels.on_cuda(order, child_kidx, child_active, child_bound, per_k_dropped):
+        return _per_k_fair_rank_kernel(order, child_kidx, child_active, child_bound, cap,
+                                       per_k_dropped)
+    return per_k_fair_rank_reference(order, child_kidx, child_active, child_bound, cap,
+                                     per_k_dropped)
+
+
+def per_k_fair_rank_reference(
+    order, child_kidx, child_active, child_bound, cap: int, per_k_dropped
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3's per-k rank entry."""
+    n_k = per_k_dropped.shape[0]
+    total = order.shape[0]
+    dev = order.device
+    kidx_sorted = child_kidx[order].long()
+    active_sorted = child_active[order]
+    onehot = (kidx_sorted[:, None] == torch.arange(n_k, device=dev)[None, :]) & \
+        active_sorted[:, None]
+    counts = torch.cumsum(onehot.to(torch.int32), 0)
+    rank = counts.gather(1, kidx_sorted.clamp(0, n_k - 1)[:, None])[:, 0].long() - 1
+    pos = torch.arange(total, dtype=torch.int64, device=dev)
+    fair_key = torch.where(active_sorted, rank, total) * (total + 1) + pos
+    spill = order[torch.argsort(fair_key, stable=True)][cap:]
+    spill_live = torch.where(child_active[spill], child_bound[spill], float("inf"))
+    floor = torch.full((n_k,), float("inf"), dtype=BDTYPE, device=dev)
+    floor = floor.scatter_reduce(0, child_kidx[spill].long(), spill_live, "amin")
+    return fair_key, torch.minimum(per_k_dropped, floor)
+
+
+def _per_k_fair_rank_kernel(order, child_kidx, child_active, child_bound, cap: int,
+                            per_k_dropped):
+    from ..kernels.build import library
+
+    if child_bound.dtype != BDTYPE or per_k_dropped.dtype != BDTYPE:
+        raise TypeError("per-k rank kernel takes float64 bounds")
+    n_k = per_k_dropped.shape[0]
+    total = order.shape[0]
+    dev = order.device
+    fair_key = torch.empty(total, dtype=torch.int64, device=dev)
+    dropped = torch.empty(n_k, dtype=BDTYPE, device=dev)
+    P = kernels.ptr
+    ins = [order.to(torch.int64).contiguous(), child_kidx.to(torch.int32).contiguous(),
+           child_active.to(torch.uint8).contiguous(), child_bound.contiguous(),
+           per_k_dropped.contiguous()]
+    err = library("bnb_epilogue").dtk_bnb_per_k_rank(
+        P(ins[0]), total, P(ins[1]), P(ins[2]), P(ins[3]), n_k, cap, P(ins[4]),
+        P(fair_key), P(dropped), PER_K_RANK_THREADS, kernels.stream_handle(dev),
+    )
+    kernels.check(err, "bnb_per_k")
+    kernels.LAUNCHES["bnb_per_k"] += 1
+    return fair_key, dropped
 
 
 def bnb_epilogue(
@@ -438,13 +627,17 @@ def bnb_round(
     lp_backend: str = "ipm",
     pdhg_restart_tol: Optional[float] = None,
     pdhg_dtype: Optional[str] = None,
+    per_k: bool = False,
 ) -> Tuple[SearchState, IPMResult]:
     """One batched branch-and-bound round over the frontier prefix of
     ``beam`` rows (rows past it pass through with their parent bound).
     ``ipm_iters`` is the LP budget of whichever engine ``lp_backend``
     names; ``ipm_chunk`` (the IPM's cold-root full-length chunk) is never
     passed to the PDHG, whose convergence point inside its budget is unknown
-    even cold. Returns the new state and the beam rows' raw LP result."""
+    even cold. ``per_k`` prunes every node against its own k's incumbent and
+    keeps the per-k assignments, a k-fair compaction and the per-k overflow
+    floors (K3's per-k entries). Returns the new state and the beam rows'
+    raw LP result."""
     M = state.inc_w.shape[0]
     cap = state.node_lo.shape[0]
     n_k = state.per_k_best.shape[0]
@@ -492,24 +685,37 @@ def bnb_round(
     inc_n = torch.where(better, n_int[best_i], state.inc_n)
     inc_y = torch.where(better, rounded[3][best_i], state.inc_y) if moe else state.inc_y
     inc_kidx = torch.where(better, kidx_p[best_i].to(torch.int32), state.inc_kidx)
-    round_best_k = torch.full((n_k,), inf, dtype=BDTYPE, device=obj_full.device)
-    round_best_k = round_best_k.scatter_reduce(0, kidx_p, obj_full, "amin")
-    per_k_best = torch.minimum(state.per_k_best, round_best_k)
-
-    # Prune threshold: a node survives only if its bound can still beat the
-    # incumbent by more than the relative gap (+inf with no incumbent yet).
-    threshold = torch.where(
-        torch.isfinite(incumbent), incumbent - mip_gap * incumbent.abs(), inf
-    )
+    per_k_w, per_k_n, per_k_y = state.per_k_w, state.per_k_n, state.per_k_y
+    if per_k:
+        # Each node prunes against its own k's incumbent (a losing k must
+        # still close its own gap): K3's per-k entry updates the per-k
+        # incumbents and gives every frontier row its threshold.
+        pk = per_k_incumbent(obj_full, kidx_p, w_int, n_int,
+                             rounded[3] if moe else None, state, mip_gap)
+        per_k_best = pk.per_k_best
+        per_k_w, per_k_n, per_k_y = pk.per_k_w, pk.per_k_n, pk.per_k_y
+        threshold, rest_threshold = pk.threshold[:B], pk.threshold[B:]
+    else:
+        round_best_k = torch.full((n_k,), inf, dtype=BDTYPE, device=obj_full.device)
+        round_best_k = round_best_k.scatter_reduce(0, kidx_p, obj_full, "amin")
+        per_k_best = torch.minimum(state.per_k_best, round_best_k)
+        # Prune threshold: a node survives only if its bound can still beat
+        # the incumbent by more than the relative gap (+inf with no
+        # incumbent yet).
+        threshold = torch.where(
+            torch.isfinite(incumbent), incumbent - mip_gap * incumbent.abs(), inf
+        )
+        rest_threshold = threshold
+        threshold = threshold.expand(B)
     ep = bnb_epilogue(
         lo_p, hi_p, res, state.node_bound[:B], active_p, obj_full,
-        threshold.expand(B), data.int_mask, data.obj_const,
+        threshold, data.int_mask, data.obj_const,
         warm.v, warm.y, warm.z, warm.f, warm.ok,
     )
 
     # Unprocessed rows pass through, still subject to the new threshold.
     rest_bound = state.node_bound[B:]
-    rest_active = state.active[B:] & (rest_bound < threshold)
+    rest_active = state.active[B:] & (rest_bound < rest_threshold)
     child_lo = torch.cat([ep.lo_a, ep.lo_b, state.node_lo[B:]])
     child_hi = torch.cat([ep.hi_a, ep.hi_b, state.node_hi[B:]])
     child_kidx = torch.cat([state.node_kidx[:B], state.node_kidx[:B], state.node_kidx[B:]])
@@ -525,6 +731,16 @@ def bnb_round(
     # node share one bound; the stable sort keeps child A ahead of child B.
     sort_key = torch.where(child_active, child_bound, inf)
     order = torch.argsort(sort_key, stable=True)
+    per_k_dropped = state.per_k_dropped
+    if per_k:
+        # K-fair compaction: re-rank so each k keeps its best nodes first
+        # (one k's deep subtree must not crowd the others out: a spilled
+        # node floors its k's certificate for good), and floor each k's
+        # certificate at its own spilled nodes.
+        fair_key, per_k_dropped = per_k_fair_rank(
+            order, child_kidx, child_active, child_bound, cap, state.per_k_dropped
+        )
+        order = order[torch.argsort(fair_key, stable=True)]
     keep = order[:cap]
     spill = order[cap:]
     spill_live = torch.where(child_active[spill], child_bound[spill], inf)
@@ -543,10 +759,10 @@ def bnb_round(
         inc_kidx=inc_kidx,
         dropped_bound=dropped_bound,
         per_k_best=per_k_best,
-        per_k_w=state.per_k_w,
-        per_k_n=state.per_k_n,
-        per_k_y=state.per_k_y,
-        per_k_dropped=state.per_k_dropped,
+        per_k_w=per_k_w,
+        per_k_n=per_k_n,
+        per_k_y=per_k_y,
+        per_k_dropped=per_k_dropped,
         node_v=child_v[keep],
         node_y=child_y[keep],
         node_z=child_z[keep],
@@ -570,9 +786,11 @@ def run_bnb_loop(
     lp_backend: str = "ipm",
     pdhg_restart_tol: Optional[float] = None,
     pdhg_dtype: Optional[str] = None,
+    per_k: bool = False,
 ):
-    """Root round, then warm rounds until the mip-gap certificate closes,
-    the frontier empties, or ``max_rounds`` rounds ran.
+    """Root round, then warm rounds until the mip-gap certificate closes
+    (in per-k mode: every k's own certificate, ``certified_per_k``), the
+    frontier empties, or ``max_rounds`` rounds ran.
 
     The root round covers exactly the n_k roots at the full ``ipm_iters``
     budget (for the IPM one full-length chunk when cold, the kernel's small
@@ -588,12 +806,14 @@ def run_bnb_loop(
     cap = state.node_lo.shape[0]
     B0 = min(cap, n_k)
 
+    settled = certified_per_k if per_k else certified
+
     def go(st: SearchState) -> bool:
         # The one device-to-host read of a round.
-        return bool((st.active.any() & ~certified(st, mip_gap)).item())
+        return bool((st.active.any() & ~settled(st, mip_gap)).item())
 
     engine = dict(lp_backend=lp_backend, pdhg_restart_tol=pdhg_restart_tol,
-                  pdhg_dtype=pdhg_dtype)
+                  pdhg_dtype=pdhg_dtype, per_k=per_k)
     root_iters = (
         state.node_warm[:B0], state.node_v[:B0], state.node_y[:B0],
         state.node_z[:B0], state.node_f[:B0],

@@ -88,6 +88,7 @@ def resolve_search_params(
     M: int = 0,
     mesh_shards: Optional[int] = None,
     pdhg_dtype: Optional[str] = None,
+    per_k: bool = False,
 ) -> Tuple[int, int, int, int, int, str, int, Optional[str]]:
     """(cap, beam, lp_iters, lp_warm_iters, max_rounds, engine, mesh_shards,
     pdhg_dtype): caller overrides over the problem-class defaults.
@@ -100,8 +101,15 @@ def resolve_search_params(
     PDHG solve. ``mesh_shards`` and ``pdhg_dtype`` are PDHG knobs: set while
     the engine resolved to the IPM, they raise. A truncated budget only
     loosens the float64 bound.
+
+    Per-k mode keeps every k's subtree alive to its own certificate, so the
+    frontier carries ~n_k searches at once: the default capacity is at least
+    32 n_k and the default beam at least 4 n_k.
     """
     d_cap, d_beam, d_iters = default_search_params(moe, n_k)
+    if per_k:
+        d_cap = max(d_cap, 32 * n_k)
+        d_beam = max(d_beam, 4 * n_k)
     engine = resolve_lp_backend(lp_backend, M)
     if engine == "pdhg":
         it = pdhg_iters if pdhg_iters is not None else default_pdhg_iters(M)

@@ -8,6 +8,9 @@ on the CPU (``--device cpu``, ``--backend cpu``), against the JAX package's.
   imported here, run its engine in float64).
 - A solution saved by either CLI is accepted by the other's ``evaluate
   --solution``.
+- ``--per-k`` and ``--expert-loads`` print the JAX CLI's k-curve and expert
+  routing (objectives within 2x gap, the same placements), and refuse the
+  same conflicting options.
 - Every option and subcommand of a later slice exits 2 naming its ROADMAP
   item.
 Both CLIs run in this process (``main(argv)``), so no interpreter start or
@@ -91,8 +94,6 @@ def test_solutions_cross_packages(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--per-k"], "A8"),
-    (["--expert-loads", "1,2"], "A8"),
     (["--mesh-shards", "2"], "A13"),
     (["--plot"], "A16"),
     (["--backend", "cpu", "--warm-from", "x.json"], "--backend torch"),
@@ -100,6 +101,71 @@ def test_solutions_cross_packages(capsys, tmp_path):
 def test_deferred_options_exit_2(capsys, argv, item):
     rc, _, err = _run(solver_cli.main, ["-p", ONLINE, *argv], capsys)
     assert rc == 2 and item in err
+
+
+def _per_k_rows(out):
+    return {int(r[0]): (float(r[1]), r[2], r[3]) for r in
+            (ln.split() for ln in out.splitlines()) if r and r[0].isdigit()}
+
+
+@pytest.mark.parametrize("backend, extra", [
+    ("torch", ["--device", "cpu"]),
+    ("cpu", ["--k-candidates", "20,40"]),
+])
+def test_per_k_matches_the_jax_cli(capsys, tmp_path, backend, extra):
+    hermes = "tests/profiles/hermes_70b"
+    gap = 1e-4
+    sol = tmp_path / "sol.json"
+    rc, out, err = _run(solver_cli.main, ["-p", hermes, "--backend", backend, "--mip-gap",
+                                          str(gap), "--per-k", "--save-solution", str(sol),
+                                          *extra], capsys)
+    assert rc == 0, err
+    ours = _per_k_rows(out)
+    jextra = ["--k-candidates", "20,40"] if backend == "cpu" else []
+    rc, out_j, err = _run(jcli.main, ["-p", hermes, "--backend",
+                                      "jax" if backend == "torch" else "cpu", "--mip-gap",
+                                      str(gap), "--per-k", *jextra], capsys)
+    assert rc == 0, err
+    theirs = _per_k_rows(out_j)
+    assert sorted(ours) == sorted(theirs) and len(ours) == (9 if backend == "torch" else 2)
+    for k, (obj, cert, assignment) in ours.items():
+        assert cert == "True" and assignment == theirs[k][2]
+        assert abs(obj - theirs[k][0]) <= 2 * gap * abs(theirs[k][0]) + 1e-6
+    assert "Best: k=40" in out and json.loads(sol.read_text())["k"] == 40
+
+
+def test_expert_loads_matches_the_jax_cli(capsys, tmp_path):
+    mixtral = "tests/profiles/mixtral_8x7b"
+    loads = tmp_path / "loads.json"
+    loads.write_text(json.dumps([5.0, 3.0] + [1.0] * 6))
+    sols = {}
+    for name, main, extra in (("port", solver_cli.main, ["--device", "cpu"]),
+                              ("jax", jcli.main, ["--backend", "jax"])):
+        sols[name] = tmp_path / f"{name}.json"
+        rc, out, err = _run(main, ["-p", mixtral, "--kv-bits", "8bit", "--mip-gap", "1e-3",
+                                   "--expert-loads", str(loads), "--save-solution",
+                                   str(sols[name]), *extra], capsys)
+        assert rc == 0, err
+        assert "Expert routing (load-weighted):" in out
+        assert "Realized objective (at mapped expert loads):" in out
+    ours, theirs = (json.loads(sols[n].read_text()) for n in ("port", "jax"))
+    assert sorted(e for ids in ours["expert_of_device"] for e in ids) == list(range(8))
+    assert sum(ours["expert_load_share"]) == pytest.approx(1.0)
+    for key in ("k", "w", "n", "y", "expert_of_device"):
+        assert ours[key] == theirs[key], key
+    assert abs(ours["realized_objective"] - theirs["realized_objective"]) <= \
+        2e-3 * abs(theirs["realized_objective"])
+    # Inline values work too; bad ones and conflicting options exit 2.
+    rc, _, err = _run(solver_cli.main, ["-p", mixtral, "--kv-bits", "8bit", "--mip-gap",
+                                        "1e-3", "--backend", "cpu", "--expert-loads",
+                                        "5,3,1,1,1,1,1,1"], capsys)
+    assert rc == 0, err
+    for argv in (["--expert-loads", "not,numbers"],
+                 ["--expert-loads", "1,2", "--moe", "off"],
+                 ["--expert-loads", "1,2", "--per-k"],
+                 ["--expert-loads", "1,2", "--warm-from", str(sols["jax"])]):
+        rc, _, err = _run(solver_cli.main, ["-p", mixtral, *argv], capsys)
+        assert rc == 2 and "error" in err
 
 
 @pytest.mark.parametrize("sub, item", [

@@ -1,13 +1,17 @@
 """Rules of the PyTorch/CUDA port, checked on its source.
 
-- No module of ``distilp_torch`` (its model profiler included) and not
-  ``chip_smoke.py`` imports JAX or anything of the JAX package
+- No module of ``distilp_torch`` (its model profiler included), not
+  ``chip_smoke.py`` and not the test helper it imports
+  (``tests/torch_price_edits.py``) imports JAX or anything of the JAX package
   (``distilp_tpu``), jax-free modules included: the port keeps its own
   copies.
 - ``triton``/kernel builds never happen at import time: importing every
   module of the port works on a host without nvcc or a GPU.
 - Every kernel source named by the build exists, and each kernel wrapper
   counts its launches under the name ``chip_smoke.py`` reads.
+- The sweep variants (per-k, load-aware routing, the async solve and its
+  worker thread) run without JAX in the process, and their entry points
+  raise without a GPU unless the caller asks for the CPU.
 """
 
 import ast
@@ -26,7 +30,8 @@ FORBIDDEN = ("jax", "jaxlib", "distilp_tpu")
 def _port_files():
     files = sorted((REPO / "distilp_torch").rglob("*.py"))
     assert files, "distilp_torch has no modules"
-    return files + [REPO / "chip_smoke.py"]
+    # chip_smoke.py and the test helper it imports.
+    return files + [REPO / "chip_smoke.py", REPO / "tests" / "torch_price_edits.py"]
 
 
 def _imported_roots(path: Path):
@@ -88,7 +93,7 @@ def test_kernel_sources_and_launch_counters():
         assert (build.CSRC / h).is_file(), h
     assert set(kernels.LAUNCHES) == {
         "ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
-        "twin_mc", "hbm_stream", "gemm_absmax_scale",
+        "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
@@ -112,3 +117,61 @@ def test_mixed_devices_are_refused():
     with pytest.raises(ValueError, match="mixed"):
         kernels.on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
     assert kernels.on_cuda(torch.zeros(1), None) is False
+
+
+def test_sweep_variants_are_checked_modules_and_run_without_jax(tmp_path):
+    """The routing module and the async worker are among the checked files,
+    and a per-k solve, a load-aware routing loop and an async solve (its
+    worker thread included) run in a process that never loads JAX."""
+    import subprocess
+    import sys
+
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in ("routing", "backend_torch", "api", "search", "rounding"):
+        assert f"distilp_torch/solver/{name}.py" in files
+    script = (
+        "import sys\n"
+        "from distilp_torch.common import load_from_profile_folder\n"
+        "from distilp_torch.solver import (halda_solve_async, halda_solve_per_k,\n"
+        "    solve_load_aware)\n"
+        "p = 'tests/profiles/'\n"
+        "devs, model = load_from_profile_folder(p + 'llama_3_70b/online')\n"
+        "r = halda_solve_async(devs, model, kv_bits='4bit', device='cpu').collect()\n"
+        "assert r.certified and r.k == 2, r\n"
+        "assert len(halda_solve_per_k(devs, model, kv_bits='4bit', device='cpu')) >= 2\n"
+        "devs, model = load_from_profile_folder(p + 'mixtral_8x7b')\n"
+        "res, mapping, realized = solve_load_aware(devs, model, expert_loads=[5, 3] + [1] * 6,\n"
+        "    mip_gap=1e-3, device='cpu')\n"
+        "assert realized is not None\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "    'distilp_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=600, env={"PATH": "/usr/bin:/bin",
+                                                       "PYTHONPATH": str(REPO),
+                                                       "HOME": str(tmp_path)})
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+def test_sweep_variant_entry_points_need_a_gpu_by_default(profiles_dir, monkeypatch):
+    from distilp_torch.common import load_from_profile_folder
+    from distilp_torch.solver import (
+        halda_solve_async,
+        halda_solve_per_k,
+        map_experts,
+        normalize_loads,
+        realized_objective,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    devs, model = load_from_profile_folder(profiles_dir / "llama_3_70b" / "online")
+    for fn in (halda_solve_per_k, halda_solve_async):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            fn(devs, model, kv_bits="4bit", device=None)
+    devs, model = load_from_profile_folder(profiles_dir / "mixtral_8x7b")
+    result = type("R", (), {"k": 4, "w": [5, 5, 5, 5], "n": [0] * 4, "y": [2, 2, 2, 2]})
+    mapping = map_experts(result.y, [1.0] * 4, normalize_loads(None, 8))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        realized_objective(devs, model, result, mapping, device=None)
