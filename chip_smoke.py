@@ -33,7 +33,17 @@ Phases (any failure exits non-zero and prints no result line):
      hermes_70b, the north star, Mixtral M=4 and a forced small capacity that
      spills, and on 300 random frontiers, bit for bit) and the fixed-
      assignment pricer (B14: Mixtral M=4 and the flagship, the solver's
-     assignment and edits breaking each validity test);
+     assignment and edits breaking each validity test); the per-instance
+     entries that search several sweeps as lanes (B12): K2 over the rows of
+     8 north-star scenarios and a 12-device fleet padded to 16, K2's MoE
+     mode on every call of the stream path's Mixtral batch over 4 load
+     regimes (LP rows with move steps, hint rows repaired from the lockstep
+     ascent) and over two flagship instances (LP and hint rows), K3 over the
+     root round of the 8 scenarios, K3's per-k entries on every call of the
+     stream path's per-k lanes and over 200 random frontiers of 2-8 lanes,
+     K7 over 4 Mixtral load regimes and 2 flagship instances, each against
+     its plain version and, bit for bit, against one single-instance launch
+     per instance;
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
   4. the main path, in five runs, each with the launch counts zeroed before
@@ -63,14 +73,28 @@ Phases (any failure exits non-zero and prints no result line):
      ``solve_load_aware`` on Mixtral M=4 with two hot experts and on the
      flagship with lognormal loads (the realized objective pinned), and
      ``halda_solve_async`` on the north star with the next instance built
-     while it runs (``collect()`` equal to the synchronous solve);
-     K1's and K5's launches of each path are also printed by shape;
+     while it runs (``collect()`` equal to the synchronous solve); (f) the
+     stream: ``StreamingReplanner`` on the north star (a cold tick and 8
+     warm ticks under +-5% t_comm drift, pinned; pipelined
+     ``submit``/``collect`` ticks equal to the sequential ones), the S=8
+     scenario batch warm-seeded from the last tick (pinned, each within 2x
+     gap of its own solve; placements/s) and the forced static-half
+     fallback, lanes through ``solve_batch`` (the goldens padded to their
+     bucket, a mixed-M bucket with ``lane_pad`` duplicates, per-k lanes),
+     the DeepSeek-V3 flagship's replanner (cold, margin, warm after its
+     memory pools grow, margin; every tick certified with sum(y) = 256,
+     one margin bound against a full K7 evaluation) and a Mixtral M=4
+     scenario batch under four load regimes (K7's instance axis); tick
+     walls and busy shares beside them;
+     a path's comparison solves (its references) are left out of its launch
+     counts; K1's and K5's launches of each path are also printed by shape;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -262,6 +286,35 @@ def max_err(a, b):
         return 0.0, 0.0
     d = (a[fin] - b[fin]).abs()
     return float(d.max()), float((d / b[fin].abs().clamp(min=1.0)).max())
+
+
+def tests_module(name: str):
+    """A helper module of the test suite (``tests/<name>.py``, no JAX),
+    loaded by path: a package named ``tests`` installed on the host would
+    shadow the repo's folder."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block are left out of the kernels' counts (a
+    path's comparison solves, which are not the path's own work)."""
+    from distilp_torch import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    shapes = {k: dict(v) for k, v in kernels.SHAPES.items()}
+    try:
+        yield
+    finally:
+        kernels.LAUNCHES.update(launches)
+        for k, v in shapes.items():
+            kernels.SHAPES[k].clear()
+            kernels.SHAPES[k].update(v)
 
 
 # ---------------------------------------------------------------- instances
@@ -568,7 +621,9 @@ def check_ipm(report: dict) -> None:
 
 
 def main_path_state():
-    """North-star sweep data + root state on the card (the solve's setup)."""
+    """North-star sweep data (one sweep's, no lane axis) and, as the search
+    takes them, the L = 1 lane data and root state on the card (the solve's
+    setup)."""
     import numpy as np
     import torch
 
@@ -590,8 +645,8 @@ def main_path_state():
         obj_const=float(sf.obj_const), rd=rd, rd_packed=pack_rounding_data(rd),
     )
     cap, *_ = resolve_search_params(False, len(feasible), None, None, None, None, M=16)
-    state = root_state(t["lo_k"], t["hi_k"], 16, cap, data.A.shape[0])
-    return data, state
+    state = root_state(t["lo_k"][None], t["hi_k"][None], 16, cap, data.A.shape[0])
+    return data, tests_module("torch_lanes").lane_data(data), state
 
 
 def check_round(report: dict) -> None:
@@ -604,7 +659,7 @@ def check_round(report: dict) -> None:
         round_to_incumbent_reference,
     )
 
-    data, _ = main_path_state()
+    data, _, _ = main_path_state()
     # 16 rows of real LP points: a B=16 batch of the north-star family.
     batch, warm, skip = ipm_batch(16, 123, 16, torch.float32, np.random.default_rng(5))
     v = ipm_solve_batch(batch, iters=8, chunk=8).v
@@ -645,23 +700,24 @@ def check_epilogue(report: dict) -> None:
 
     from distilp_torch.solver import search
 
-    data, state = main_path_state()
+    _, data, state = main_path_state()
     captured = {}
     orig = search.bnb_epilogue
 
-    def capture(*args):
+    def capture(*args, **kw):
         captured["args"] = args
-        return orig(*args)
+        captured["kw"] = kw
+        return orig(*args, **kw)
 
     search.bnb_epilogue = capture
     try:
-        n_k = data.ks.shape[0]
+        n_k = data.ks.shape[1]
         search.bnb_round(data, state, 1e-3, ipm_iters=8, beam=n_k, ipm_chunk=8)
     finally:
         search.bnb_epilogue = orig
-    args = captured["args"]
-    got = search.bnb_epilogue(*args)
-    ref = search.bnb_epilogue_reference(*args)
+    args, kw = captured["args"], captured["kw"]
+    got = search.bnb_epilogue(*args, **kw)
+    ref = search.bnb_epilogue_reference(*args, **kw)
     torch.cuda.synchronize()
     bad = [f for f in got._fields
            if not torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu())]
@@ -671,9 +727,9 @@ def check_epilogue(report: dict) -> None:
         fail(f"bnb_epilogue kernel disagrees with its plain version in {bad}")
     B, nf = args[0].shape
     m = args[2].y_dual.shape[1]
-    run_k = lambda: search.bnb_epilogue(*args)  # noqa: E731
+    run_k = lambda: search.bnb_epilogue(*args, **kw)  # noqa: E731
     ms, call, src = time_kernel(run_k, "bnb_epilogue_kernel")
-    plain = cuda_ms(lambda: search.bnb_epilogue_reference(*args), reps=5)
+    plain = cuda_ms(lambda: search.bnb_epilogue_reference(*args, **kw), reps=5)
     # In: 3 f32 boxes/points, f64 reduced costs, 2 f32 duals, 3 f32 carried
     # iterates per (row, column); 2 f32 dual rows of m; 4 f64 + 2 flag bytes
     # per row; the mask. Out: 7 f32 per (row, column), one f32 dual row,
@@ -945,11 +1001,12 @@ def moe_model(config: str):
 
 def moe_instance(case, device="cuda"):
     """The sweep of one MoE case on ``device``: (devs, model, coeffs, arrays,
-    feasible, sf, rd_np, SweepData, (p32, p64))."""
+    feasible, sf, rd_np, SweepData (one sweep's, no lane axis), (p32, p64)
+    as S = 1 ``DecompBatch``es, host arrays)."""
     import numpy as np
     import torch
 
-    from distilp_torch.ops.decomp import decomp_problem
+    from distilp_torch.ops.decomp import decomp_problem, stack_problems
     from distilp_torch.solver.api import _build_instance
     from distilp_torch.solver.backend_torch import device_arrays
     from distilp_torch.solver.rounding import pack_rounding_data, rounding_data
@@ -975,7 +1032,7 @@ def moe_instance(case, device="cuda"):
         gky=t["gky"],
     )
     w_max, E = max(sf.Ws), int(rd_np["E"])
-    probs = tuple(decomp_problem(rd_np, sf.ks, sf.Ws, w_max, E, dt, device)
+    probs = tuple(stack_problems([decomp_problem(rd_np, sf.ks, sf.Ws, w_max, E, dt, device)])
                   for dt in (torch.float32, torch.float64))
     return devs, model, coeffs, arrays, feasible, sf, rd_np, data, probs, host
 
@@ -1006,7 +1063,8 @@ def moe_ipm_batch(data, host, B: int, dtype, rng):
             hi[r, 2 * M + cut] = np.floor(hi[r, 2 * M + cut] / 2)
     dev = torch.device("cuda")
     T = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)  # noqa: E731
-    A = node_A(data, torch.as_tensor(kidx, device=dev), M).to(dtype)
+    A = node_A(tests_module("torch_lanes").lane_data(data), torch.as_tensor(kidx, device=dev),
+               M, torch.zeros(B, dtype=torch.int64, device=dev)).to(dtype)
     batch = LPBatch(A=A, b=T(host["b_k"][kidx]), c=T(host["c_k"][kidx]), l=T(lo), u=T(hi))
     pre = ipm_solve_batch_reference(batch, iters=4)
     noise = lambda t: t * (1.0 + 0.05 * T(rng.standard_normal(tuple(t.shape))))  # noqa: E731
@@ -1139,7 +1197,11 @@ def check_round_moe(report: dict) -> None:
 
     from distilp_torch.ops.decomp import decomp_bound_roots
     from distilp_torch.ops.ipm import ipm_solve_batch
-    from distilp_torch.solver.rounding import round_moe_reference, round_to_incumbent
+    from distilp_torch.solver.rounding import (
+        round_moe_reference,
+        round_to_incumbent,
+        stack_rounding_data,
+    )
     from distilp_torch.solver.standard_form import MOE_LOCAL_MOVES, MOE_LOCAL_MOVES_WARM
 
     *_, data, (p32, p64), host = moe_instance(FLAGSHIP)
@@ -1150,7 +1212,8 @@ def check_round_moe(report: dict) -> None:
     kidx = torch.as_tensor(np.random.default_rng(6).integers(0, data.ks.shape[0], 16),
                            device="cuda")
     # The Lagrangian-primal hint rows at the ascent's multipliers.
-    _, w_s, n_s, y_s, _, _ = decomp_bound_roots(p32, p64, data.rd, 300)
+    _, w_s, n_s, y_s = (x[0] for x in decomp_bound_roots(
+        p32, p64, stack_rounding_data([data.rd]), 300)[:4])
     n_k, nf = w_s.shape[0], v_lp.shape[1]
     v_hint = torch.zeros((n_k, nf), dtype=torch.float64, device="cuda")
     v_hint[:, :M], v_hint[:, M:2 * M], v_hint[:, 2 * M:3 * M] = w_s, n_s, y_s
@@ -1207,7 +1270,7 @@ def check_round_moe(report: dict) -> None:
 
 
 def decomp_flops_bytes(p, n_evals: int = 1):
-    """Least work of ``n_evals`` float32 evaluations: ~60 operations per
+    """Least work of ``n_evals`` float32 evaluations of one instance ``p``: ~60 operations per
     cell (the five n candidates and the cell's slacks, costs and term) over
     5 n_k M w_max (e_max + 1) cells; bytes: the packed per-device vectors,
     the multipliers, and four (n_k, M) outputs."""
@@ -1230,15 +1293,25 @@ def check_decomp(report: dict) -> None:
     bad, timing, abs_errs = [], {}, []
     for case in (MOE_CASES[2], FLAGSHIP):
         _, _, _, arrays, feasible, sf, _, data, (p32, p64), _ = moe_instance(case)
-        n_k, M = p32.ks.shape[0], p32.rdv.shape[1]
+        # p32/p64 are S = 1 batches: the kernel entries take the batch and
+        # (1, ...) multipliers, the plain versions the instance.
+        i32, i64 = p32.instance(0), p64.instance(0)
+        n_k, M = i32.ks.shape[0], i32.rdv.shape[1]
+
+        def k32(lam, mu, theta):
+            return [x[0] for x in D.eval32_kernel(p32, lam[None], mu[None], theta[None])]
+
+        def k64(lam, mu, theta):
+            return [x[0] for x in D.eval64_kernel(p64, lam[None], mu[None], theta[None], True)]
+
         # (a) float32 bound and its gradient statistics at random multipliers.
         for trial in range(3):
             lam = torch.tensor(rng.normal(0, 1, n_k), dtype=torch.float32, device="cuda")
             mu = torch.tensor(rng.normal(0, 0.3, n_k), dtype=torch.float32, device="cuda")
             tau = torch.tensor(rng.normal(0, 1, (n_k, M)), dtype=torch.float32, device="cuda")
-            theta = (p32.ks - 1.0)[:, None] * D.softmax(tau)
-            got = D.eval32_kernel(p32, lam, mu, theta)
-            ref = D.eval32_reference(p32, lam, mu, theta)
+            theta = (i32.ks - 1.0)[:, None] * D.softmax(tau)
+            got = k32(lam, mu, theta)
+            ref = D.eval32_reference(i32, lam, mu, theta)
             torch.cuda.synchronize()
             errs = [max_err(a, b) for a, b in zip(got, ref)]
             abs_errs.append(errs[0][0])
@@ -1256,14 +1329,14 @@ def check_decomp(report: dict) -> None:
         # (b) float64 evaluation at the multipliers the port's ascent chose.
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lam, mu, tau = (x.double() for x in D.ascend(p32, 300))
+        lam, mu, tau = (x[0].double() for x in D.ascend(p32, 300))
         torch.cuda.synchronize()
         ascent_ms = (time.perf_counter() - t0) * 1e3
-        theta = (p64.ks - 1.0)[:, None] * D.softmax(tau)
-        got = D.eval64_kernel(p64, lam, mu, theta, True)
-        ref = D.eval64_reference(p64, lam, mu, theta, True)
-        bound_k = D.bound_of(p64, got[0], got[1], lam, mu)
-        bound_r = D.bound_of(p64, ref[0], ref[1], lam, mu)
+        theta = (i64.ks - 1.0)[:, None] * D.softmax(tau)
+        got = k64(lam, mu, theta)
+        ref = D.eval64_reference(i64, lam, mu, theta, True)
+        bound_k = D.bound_of(p64, got[0][None], got[1][None], lam[None], mu[None])[0]
+        bound_r = D.bound_of(p64, ref[0][None], ref[1][None], lam[None], mu[None])[0]
         torch.cuda.synchronize()
         my_rel = max_err(got[0], ref[0])[1]
         b_rel = max_err(bound_k, bound_r)[1]
@@ -1287,12 +1360,12 @@ def check_decomp(report: dict) -> None:
             bad.append((case[0], "f64"))
         # Time one float32 evaluation at the ascent's shapes.
         lam32, mu32, tau32 = (x.float() for x in (lam, mu, tau))
-        th32 = (p32.ks - 1.0)[:, None] * D.softmax(tau32)
-        run_k = lambda: D.eval32_kernel(p32, lam32, mu32, th32)  # noqa: E731
+        th32 = (i32.ks - 1.0)[:, None] * D.softmax(tau32)
+        run_k = lambda: k32(lam32, mu32, th32)  # noqa: E731
         ms, call, src = time_kernel(run_k, "decomp_f32_kernel")
-        plain = cuda_ms(lambda: D.eval32_reference(p32, lam32, mu32, th32), reps=3, warmup=1)
-        ms64 = cuda_ms(lambda: D.eval64_kernel(p64, lam, mu, theta, True), reps=5, warmup=1)
-        flops, nbytes, cells = decomp_flops_bytes(p32)
+        plain = cuda_ms(lambda: D.eval32_reference(i32, lam32, mu32, th32), reps=3, warmup=1)
+        ms64 = cuda_ms(lambda: k64(lam, mu, theta), reps=5, warmup=1)
+        flops, nbytes, cells = decomp_flops_bytes(i32)
         b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
         timing[case[0]] = dict(ms=ms, call_ms=call, ms_source=src, plain_ms=plain,
                                bound_ms=b_ms, bound_by=b_by, cells=cells,
@@ -1588,41 +1661,51 @@ def per_k_bytes(B: int, M: int, n_k: int, cap: int, total: int, has_y: bool) -> 
     return inc + rank
 
 
-def random_per_k_trials(rng, trials: int):
-    """Random per-k incumbent and rank inputs on the card: up to 44 k's, 4 n_k
-    rows, 36 n_k child rows, ties in the objectives and bounds, -inf and
-    +inf bounds, dense and sparse active flags (a spill in most)."""
+def _per_k_inputs(rng, n_k: int, M: int, B: int, cap: int, has_y: bool):
+    """One sweep's random per-k incumbent and rank inputs on the card, as
+    the L = 1 lane batch: (incumbent args without the gap, rank args)."""
     import numpy as np
     import torch
 
     from distilp_torch.solver.search import SearchState
 
-    dev = torch.device("cuda")
-    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    T = lambda a: torch.as_tensor(a, device="cuda")[None]  # noqa: E731
+    obj = rng.choice([np.inf, -5.0, -4.0, 1.0, 2.0], size=B) + rng.integers(0, 3, B)
+    state = SearchState(*[None] * 23)._replace(
+        node_kidx=T(rng.integers(0, n_k, cap).astype(np.int32)),
+        per_k_best=T(rng.choice([np.inf, -4.5, 0.0, 1.5], size=n_k)),
+        per_k_w=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
+        per_k_n=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
+        per_k_y=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
+    )
+    rows = [T(rng.integers(0, 9, (B, M)).astype(np.float64)) for _ in range(3)]
+    inc = (T(obj), T(rng.integers(0, n_k, B).astype(np.int32)), rows[0], rows[1],
+           rows[2] if has_y else None, state)
+    total = cap + B
+    bound = rng.choice([-np.inf, -3.0, -2.5, 0.0, 1.0, 4.0], size=total) + \
+        rng.integers(0, 4, total) * 0.25
+    active = rng.random(total) < rng.random()
+    order = torch.argsort(T(np.where(active, bound, np.inf)), dim=1, stable=True)
+    rank = (order, T(rng.integers(0, n_k, total).astype(np.int32)), T(active), T(bound),
+            cap, T(rng.choice([np.inf, -1.0, 2.0], size=n_k)))
+    return inc, rank
+
+
+def _per_k_shape(rng):
+    """(n_k, M, B, cap) of a random per-k frontier: up to 44 k's, 4 n_k rows,
+    36 n_k child rows."""
+    n_k, M = int(rng.integers(1, 45)), int(rng.integers(1, 40))
+    B = int(rng.integers(1, 4 * n_k + 2))
+    return n_k, M, B, int(rng.integers(max(B, n_k), 36 * n_k + 2))
+
+
+def random_per_k_trials(rng, trials: int):
+    """Random per-k incumbent and rank inputs on the card: up to 44 k's, 4 n_k
+    rows, 36 n_k child rows, ties in the objectives and bounds, -inf and
+    +inf bounds, dense and sparse active flags (a spill in most)."""
     for _ in range(trials):
-        n_k, M = int(rng.integers(1, 45)), int(rng.integers(1, 40))
-        B = int(rng.integers(1, 4 * n_k + 2))
-        cap = int(rng.integers(max(B, n_k), 36 * n_k + 2))
-        obj = rng.choice([np.inf, -5.0, -4.0, 1.0, 2.0], size=B) + rng.integers(0, 3, B)
-        state = SearchState(*[None] * 23)._replace(
-            node_kidx=T(rng.integers(0, n_k, cap).astype(np.int32)),
-            per_k_best=T(rng.choice([np.inf, -4.5, 0.0, 1.5], size=n_k)),
-            per_k_w=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
-            per_k_n=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
-            per_k_y=T(rng.integers(0, 9, (n_k, M)).astype(np.float64)),
-        )
-        rows = [T(rng.integers(0, 9, (B, M)).astype(np.float64)) for _ in range(3)]
-        y = rows[2] if rng.random() < 0.5 else None
-        inc = (T(obj), T(rng.integers(0, n_k, B).astype(np.int32)), rows[0], rows[1], y,
-               state, float(rng.choice([1e-3, 1e-4, 0.0])))
-        total = cap + B
-        bound = rng.choice([-np.inf, -3.0, -2.5, 0.0, 1.0, 4.0], size=total) + \
-            rng.integers(0, 4, total) * 0.25
-        active = rng.random(total) < rng.random()
-        order = torch.argsort(T(np.where(active, bound, np.inf)), stable=True)
-        rank = (order, T(rng.integers(0, n_k, total).astype(np.int32)), T(active), T(bound),
-                cap, T(rng.choice([np.inf, -1.0, 2.0], size=n_k)))
-        yield inc, rank
+        inc, rank = _per_k_inputs(rng, *_per_k_shape(rng), has_y=rng.random() < 0.5)
+        yield inc + (float(rng.choice([1e-3, 1e-4, 0.0])),), rank
 
 
 def check_bnb_per_k(report: dict) -> None:
@@ -1672,9 +1755,9 @@ def check_bnb_per_k(report: dict) -> None:
                 halda_solve_per_k(devs, model, **kw)
             if not name.endswith("cap12"):
                 widest = max(range(n0, len(calls["rank"])),
-                             key=lambda i: calls["incumbent"][i][0].shape[0])
-                if timed is None or calls["incumbent"][widest][0].shape[0] > \
-                        calls["incumbent"][timed[1]][0].shape[0]:
+                             key=lambda i: calls["incumbent"][i][0].shape[-1])
+                if timed is None or calls["incumbent"][widest][0].shape[-1] > \
+                        calls["incumbent"][timed[1]][0].shape[-1]:
                     timed = (name, widest)
     finally:
         search.per_k_incumbent, search.per_k_fair_rank = orig["incumbent"], orig["rank"]
@@ -1705,8 +1788,8 @@ def check_bnb_per_k(report: dict) -> None:
     ms_r, call_r, src_r = time_kernel(lambda: orig["rank"](*a_rank), "per_k_rank_kernel")
     plain_ms = cuda_ms(lambda: plain["incumbent"](*a_inc), reps=10) + \
         cuda_ms(lambda: plain["rank"](*a_rank), reps=10)
-    B, M = a_inc[2].shape
-    n_k, cap, total = a_inc[5].per_k_best.shape[0], a_rank[4], a_rank[0].shape[0]
+    B, M = a_inc[2].shape[-2:]
+    n_k, cap, total = a_inc[5].per_k_best.shape[-1], a_rank[4], a_rank[0].shape[-1]
     nbytes = per_k_bytes(B, M, n_k, cap, total, has_y=a_inc[4] is not None)
     b_ms, b_by = bound_ms(B * n_k + total * 8, nbytes, PEAK_F64_S)
     report["bnb_per_k"] = dict(
@@ -1738,14 +1821,9 @@ def check_price_fixed(report: dict) -> None:
         price_fixed_assignment,
         price_fixed_assignment_reference,
     )
-    import importlib.util
 
-    # The test suite's edit builder (numpy only), loaded by path: a package
-    # named ``tests`` installed on the host would shadow the repo's folder.
-    spec = importlib.util.spec_from_file_location(
-        "torch_price_edits", ROOT / "tests" / "torch_price_edits.py")
-    edits_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(edits_mod)
+    # The test suite's edit builder (numpy only).
+    edits_mod = tests_module("torch_price_edits")
     EDITS, validity_edits = edits_mod.EDITS, edits_mod.validity_edits
 
     err, lines, timing = 0.0, [], {}
@@ -1803,6 +1881,620 @@ def check_price_fixed(report: dict) -> None:
     print(f"price_fixed: {ms1:.4f} ms on the card, {call1:.4f} ms per call (plain "
           f"{plain1:.3f} ms, bound {b_ms:.7f} ms by {b_by}) at one assignment of M={M}; "
           f"{msP:.4f} ms for {P} assignments", flush=True)
+
+
+# ---------------------------------------------------------------- lanes
+
+
+def scenario_fleets(devs, S: int, seed: int, lo: float = 0.5, hi: float = 2.0):
+    """S what-if t_comm futures of ``devs`` (bench.py:809-816's draw)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(S):
+        snap = [d.model_copy(deep=True) for d in devs]
+        for d in snap:
+            d.t_comm = max(0.0, d.t_comm * float(rng.uniform(lo, hi)))
+        out.append(snap)
+    return out
+
+
+def lane_inputs(fleets, model, kv_bits: str, factors=None, M_pad=None):
+    """The host half of each fleet's sweep (``backend_torch.LaneInput``),
+    on one k grid; ``M_pad`` pads dense fleets with phantom devices."""
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.solver.backend_torch import lane_input
+    from distilp_torch.solver.batchlayout import pad_instance
+
+    out = []
+    for i, devs in enumerate(fleets):
+        Ks, _, coeffs, arrays = _build_instance(
+            devs, model, None, kv_bits, None, None if factors is None else factors[i], 1)
+        kWs = [(k, model.L // k) for k in Ks]
+        feasible = [(k, W) for k, W in kWs if W >= len(devs)]
+        if M_pad is not None and M_pad != len(devs):
+            coeffs, arrays = pad_instance(coeffs, arrays, M_pad)
+        out.append(lane_input(arrays, coeffs, kWs, feasible))
+    return out
+
+
+def pack_lane(devs, model, mip_gap, M_pad=None, k_candidates=None, **kw):
+    """``(PackedInstance, device sets)`` of one dense fleet at kv 4bit, as a
+    batch-layout lane."""
+    from distilp_torch.solver import pack_instance
+    from distilp_torch.solver.api import _build_instance
+
+    Ks, sets, coeffs, arrays = _build_instance(devs, model, k_candidates, "4bit", False, None, 1)
+    return pack_instance(arrays, [(k, model.L // k) for k in Ks], mip_gap=mip_gap,
+                         coeffs=coeffs, M_pad=M_pad, **kw), sets
+
+
+# The stream path's mixed-M bucket: fleets of 4, 6 and 8 devices (seeds 4,
+# 7, 8) padded to 8, at k 8 and 10 (tests/test_combine.py:103-125).
+MIXED_M = [(4, 4), (6, 7), (8, 8)]
+MIXED_KS = [8, 10]
+
+
+def mixed_m_fleets():
+    from distilp_torch.utils import make_synthetic_fleet
+
+    return [make_synthetic_fleet(M, seed=s) for M, s in MIXED_M]
+
+
+def per_k_lanes(model):
+    """The mixed-M bucket's fleets as per-k lanes (``per_k_optima=True``)."""
+    return [pack_lane(f, model, STREAM_GAP, M_pad=8, k_candidates=MIXED_KS,
+                      per_k_optima=True)[0] for f in mixed_m_fleets()]
+
+
+def mixtral_regimes_solve(model, timings=None):
+    """``halda_solve_scenarios`` on Mixtral over make_synthetic_fleet(4,
+    seed=7, pool_bytes=64e9) under the four MIXTRAL_REGIMES load factors."""
+    import warnings
+
+    from distilp_torch.solver import halda_solve_scenarios
+    from distilp_torch.utils import make_synthetic_fleet
+
+    devs = make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return halda_solve_scenarios([devs] * 4, model, kv_bits="8bit", mip_gap=MOE_GAP,
+                                     load_factors_list=MIXTRAL_REGIMES, timings=timings)
+
+
+@contextlib.contextmanager
+def captured(module, name: str, calls: list):
+    """Record every call of ``module.name`` (its args and keywords) made
+    inside the block; yields the original function."""
+    orig = getattr(module, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+def stacked_rd(lanes):
+    import torch
+
+    from distilp_torch.solver.rounding import rounding_data, stack_rounding_data
+
+    return stack_rounding_data([rounding_data(ln.rd_np, torch.device("cuda")) for ln in lanes])
+
+
+def lane_row(name, source, replaces, err, ms, plain, single_ms, b_ms, b_by, call, src, shapes):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, held_against_plain="ok", call_ms=call, ms_source=src,
+                single_instance_launches_ms=single_ms, held_against_single_launches="ok",
+                shapes_timed=shapes)
+
+
+def check_round_lanes(report: dict) -> None:
+    """K2 with a per-row instance: the 48 beam rows of 8 north-star
+    scenarios (t_comm 0.5-2.0x) and a 12-device fleet padded to 16, in one
+    launch, against the plain version and, bit for bit, against one
+    single-instance launch per instance."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops.ipm import ipm_solve_batch
+    from distilp_torch.solver.rounding import (
+        _by_instance,
+        pack_rounding_data,
+        rd_instance,
+        round_to_incumbent,
+        round_to_incumbent_reference,
+    )
+    from distilp_torch.utils import make_synthetic_fleet
+
+    model = online_model()
+    lanes = lane_inputs(scenario_fleets(make_synthetic_fleet(16, seed=123), 8, 17), model,
+                        "4bit")
+    lanes += lane_inputs([make_synthetic_fleet(12, seed=5)], model, "4bit", M_pad=16)
+    rd = stacked_rd(lanes)
+    packed = pack_rounding_data(rd)
+    R, M, B = len(lanes), 16, 48
+    rng = np.random.default_rng(5)
+    batch, _, _ = ipm_batch(16, 123, B, torch.float32, rng)
+    v = ipm_solve_batch(batch, iters=8, chunk=8).v
+    kWs = lanes[0].feasible
+    kidx = rng.integers(0, len(kWs), B)
+    dev = torch.device("cuda")
+    W = torch.tensor([float(kWs[j][1]) for j in kidx], dtype=torch.float64, device=dev)
+    k = torch.tensor([float(kWs[j][0]) for j in kidx], dtype=torch.float64, device=dev)
+    inst = torch.as_tensor(rng.integers(0, R, B), device=dev)
+    got = round_to_incumbent(v, W, k, rd, packed, inst=inst)
+    ref = _by_instance(round_to_incumbent_reference, v, W, k, rd, inst)
+    groups = [(q, (inst == q).nonzero()[:, 0], rd_instance(rd, q)) for q in range(R)]
+    groups = [(q, rows, rdq, pack_rounding_data(rdq)) for q, rows, rdq in groups if rows.numel()]
+
+    def singles():
+        return [round_to_incumbent(v[rows], W[rows], k[rows], rdq, pq)
+                for _, rows, rdq, pq in groups]
+
+    one = singles()
+    torch.cuda.synchronize()
+    eq_plain = bool(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]))
+    oa, orel = max_err(got[0], ref[0])
+    eq_single = all(torch.equal(g[rows], o) for (_, rows, _, _), out in zip(groups, one)
+                    for g, o in zip(got, out))
+    padded = got[1][inst == R - 1][:, 12:]
+    line = {"rows": B, "instances": R, "w_n_equal_plain": eq_plain, "obj_max_rel": orel,
+            "equal_to_single_launches": eq_single, "finite_rows": int(torch.isfinite(ref[0]).sum()),
+            "padded_rows_phantom_w_zero": bool((padded == 0).all())}
+    print("round_incumbent lanes", json.dumps(line), flush=True)
+    if not (eq_plain and orel <= TOL_EXACT_F64 and eq_single and bool((padded == 0).all())):
+        fail(f"round_incumbent per-instance entry disagrees: {line}")
+    ms, call, src = time_kernel(lambda: round_to_incumbent(v, W, k, rd, packed, inst=inst),
+                                "round_kernel")
+    plain = cuda_ms(lambda: _by_instance(round_to_incumbent_reference, v, W, k, rd, inst), reps=5)
+    single_ms = cuda_ms(singles, reps=10)
+    nbytes = B * 2 * M * 4 + R * (12 * M + 1) * 8 + B * (4 + 16) + B * (1 + 2 * M) * 8
+    b_ms, b_by = bound_ms(B * ((M + 4) * 3 * M + 40 * M), nbytes, PEAK_F64_S)
+    report["round_incumbent_lanes"] = lane_row(
+        "round_incumbent_lanes", "distilp_torch/kernels/csrc/round_kernel.cu",
+        "distilp_tpu/solver/backend_jax.py:639 (vmapped over sweeps by :2577, :2633)",
+        oa, ms, plain, single_ms, b_ms, b_by, call, src,
+        f"{B} rows of {R} instances (8 north-star scenarios, one padded 12 -> 16), M=16")
+    print(f"round_incumbent_lanes: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
+          f"{plain:.3f} ms, {len(groups)} single-instance launches {single_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by})", flush=True)
+
+
+def round_moe_lane_check(round_fn, v, W, k, rd, packed, inst, y_steps, moves):
+    """One per-instance launch of K2's MoE mode against the plain version
+    and, bit for bit, against one single-instance launch per instance:
+    (line, ok, max abs objective error)."""
+    import torch
+
+    from distilp_torch.solver.rounding import _by_instance, rd_instance, round_moe_reference
+
+    kw = dict(moe=True, y_steps=y_steps, moves=moves)
+    got = round_fn(v, W, k, rd, packed, inst=inst, **kw)
+    ref = _by_instance(round_moe_reference, v, W, k, rd, inst, y_steps, moves)
+    ones = []
+    for q in torch.unique(inst).tolist():
+        rows = (inst == q).nonzero()[:, 0]
+        ones.append((rows, round_fn(v[rows], W[rows], k[rows], rd_instance(rd, q), **kw)))
+    torch.cuda.synchronize()
+    eq = all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:]))
+    oa, orel = max_err(got[0], ref[0])
+    eq1 = all(torch.equal(g[rows], o) for rows, out in ones for g, o in zip(got, out))
+    line = {"rows": int(v.shape[0]), "instances": len(ones), "y_steps": y_steps,
+            "moves": moves, "w_n_y_equal_plain": eq, "obj_equal_plain": bool(torch.equal(
+                got[0], ref[0])), "obj_max_rel": orel, "equal_to_single_launches": eq1,
+            "finite_rows": int(torch.isfinite(ref[0]).sum())}
+    return line, eq and orel <= TOL_EXACT_F64 and eq1, oa
+
+
+def check_round_moe_lanes(report: dict) -> None:
+    """K2's MoE mode with a per-row instance, each launch against the plain
+    version and, bit for bit, against single-instance launches: every call
+    of the stream path's Mixtral M=4 batch over four load regimes (its LP
+    rows with 8 move steps, its Lagrangian hint rows repaired at
+    y_steps = E + 4 from the lockstep ascent), and the flagship with a +-5%
+    t_comm drift of it (two instances: 16 LP rows, the 2 n_k hint rows)."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops.decomp import decomp_bound_roots, decomp_problem, stack_problems
+    from distilp_torch.ops.ipm import ipm_solve_batch
+    from distilp_torch.solver import search
+    from distilp_torch.solver.rounding import (
+        _by_instance,
+        pack_rounding_data,
+        rd_instance,
+        round_moe_reference,
+        round_to_incumbent,
+    )
+    from distilp_torch.solver.standard_form import MOE_LOCAL_MOVES
+
+    err, bad = 0.0, []
+    # The stream path's own launches: the Mixtral scenario batch's calls.
+    calls = []
+    with captured(search, "round_to_incumbent", calls):
+        mixtral_regimes_solve(moe_model(MOE_CASES[0][1]))
+    stream = {"lp_rows": 0, "hint_rows": 0}
+    for args, kw in calls:
+        v, W, k, rd, packed = args
+        if not kw.get("moe") or rd.a.dim() != 2 or rd.a.shape[0] < 2:
+            continue
+        mode = "hint_rows" if kw.get("y_steps") is not None else "lp_rows"
+        stream[mode] += 1
+        line, ok, oa = round_moe_lane_check(round_to_incumbent, v, W, k, rd, packed,
+                                            kw["inst"], kw.get("y_steps"),
+                                            kw.get("moves", MOE_LOCAL_MOVES))
+        print("round_moe lanes", json.dumps({"case": "mixtral_M4_x4 stream call",
+                                             "mode": mode, **line}), flush=True)
+        if not ok:
+            bad.append(("mixtral_M4_x4", mode, stream[mode]))
+        err = max(err, oa)
+    print("round_moe lanes: the Mixtral batch's multi-instance calls", json.dumps(stream),
+          flush=True)
+    if not (stream["lp_rows"] and stream["hint_rows"]):
+        fail(f"round_moe lanes: the Mixtral batch gave no LP-row or hint-row call {stream}")
+
+    devs, model, *_, data, _, host = moe_instance(FLAGSHIP)
+    fleets = [devs] + scenario_fleets(devs, 1, 3, 0.95, 1.05)
+    lanes = lane_inputs(fleets, model, "8bit")
+    rd = stacked_rd(lanes)
+    packed = pack_rounding_data(rd)
+    M, E = 32, int(lanes[0].E)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    batch, _, _ = moe_ipm_batch(data, host, 16, torch.float32, rng)
+    v_lp = ipm_solve_batch(batch, iters=13, chunk=4).v
+    kidx = torch.as_tensor(rng.integers(0, data.ks.shape[0], 16), device=dev)
+    inst_lp = torch.as_tensor(np.arange(16) % 2, device=dev)
+    w_max = max(W for _, W in lanes[0].feasible)
+    probs = [stack_problems([decomp_problem(ln.rd_np, ln.sf.ks, ln.sf.Ws, w_max, E, dt, dev)
+                             for ln in lanes]) for dt in (torch.float32, torch.float64)]
+    _, w_s, n_s, y_s, _, _ = decomp_bound_roots(*probs, rd, 300)
+    n_k, nf = w_s.shape[1], v_lp.shape[1]
+    v_hint = torch.zeros((2 * n_k, nf), dtype=torch.float64, device=dev)
+    for j, t in enumerate((w_s, n_s, y_s)):
+        v_hint[:, j * M:(j + 1) * M] = t.reshape(-1, M)
+    inst_h = torch.arange(2, device=dev).repeat_interleave(n_k)
+    Ws, ks = torch.cat([data.Ws] * 2), torch.cat([data.ks] * 2)
+    modes = {
+        "lp_rows_moves8": (v_lp, data.Ws[kidx], data.ks[kidx], inst_lp, None, MOE_LOCAL_MOVES),
+        "hint_rows_repair": (v_hint, Ws, ks, inst_h, E + 4, MOE_LOCAL_MOVES),
+    }
+    for name, (v, W, k, inst, y_steps, moves) in modes.items():
+        line, ok, oa = round_moe_lane_check(round_to_incumbent, v, W, k, rd, packed, inst,
+                                            y_steps, moves)
+        print("round_moe lanes", json.dumps({"case": FLAGSHIP[0], "mode": name, **line}),
+              flush=True)
+        if not ok:
+            bad.append((FLAGSHIP[0], name))
+        err = max(err, oa)
+    if bad:
+        fail(f"round_moe per-instance entry disagrees in {bad}")
+    v, W, k, inst, _, _ = modes["lp_rows_moves8"]
+    kw = dict(moves=MOE_LOCAL_MOVES)
+    ms, call, src = time_kernel(
+        lambda: round_to_incumbent(v, W, k, rd, packed, moe=True, inst=inst, **kw),
+        "round_moe_kernel")
+    plain = cuda_ms(lambda: _by_instance(round_moe_reference, v, W, k, rd, inst, None,
+                                         MOE_LOCAL_MOVES), reps=3, warmup=1)
+    r0, r1 = rd_instance(rd, 0), rd_instance(rd, 1)
+    single_ms = cuda_ms(lambda: [round_to_incumbent(v[q::2], W[q::2], k[q::2], rq, moe=True, **kw)
+                                 for q, rq in ((0, r0), (1, r1))], reps=5, warmup=1)
+    flops, nbytes = round_moe_bytes_flops(16, M, MOE_LOCAL_MOVES, 0, 0)
+    b_ms, b_by = bound_ms(flops, nbytes + (16 * M + 1) * 8 + 16 * 4, PEAK_F64_S)
+    report["round_moe_lanes"] = lane_row(
+        "round_moe_lanes", "distilp_torch/kernels/csrc/round_moe_kernel.cu",
+        "distilp_tpu/solver/backend_jax.py:721 (vmapped over sweeps by :2577, :2633)",
+        err, ms, plain, single_ms, b_ms, b_by, call, src,
+        f"{FLAGSHIP[0]}: 16 LP rows of 2 instances, M={M}, E={E}, 8 move steps")
+    report["round_moe_lanes"]["stream_calls_held"] = stream
+    print(f"round_moe_lanes: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
+          f"{plain:.3f} ms, 2 single-instance launches {single_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by})", flush=True)
+
+
+def scenario_prep(fleets, model, kv_bits, factors=None, gap=1e-3):
+    """The scenarios' lane data and root frontiers on the card, as
+    ``solve_sweep_scenarios`` uploads them."""
+    import torch
+
+    from distilp_torch.solver.backend_torch import _prepare, _search_params
+
+    lanes = lane_inputs(fleets, model, kv_bits, factors)
+    params = _search_params(lanes[0].sf, None, None, None, None, None, "auto", None, None,
+                            None, False)
+    return _prepare(lanes, params, gap, torch.device("cuda"), shared_A=True)
+
+
+def check_epilogue_lanes(report: dict) -> None:
+    """K3 with a per-row instance (per-lane obj_const and integer mask) on
+    the root round of the 8 north-star scenarios, against the plain version
+    and, bit for bit, against one single-instance launch per lane."""
+    import torch
+
+    from distilp_torch.ops.ipm import IPMResult
+    from distilp_torch.solver import search
+    from distilp_torch.utils import make_synthetic_fleet
+
+    prep = scenario_prep(scenario_fleets(make_synthetic_fleet(16, seed=123), 8, 17),
+                         online_model(), "4bit")
+    captured = {}
+    orig = search.bnb_epilogue
+
+    def capture(*args, **kw):
+        captured["args"], captured["kw"] = args, kw
+        return orig(*args, **kw)
+
+    search.bnb_epilogue = capture
+    try:
+        n_k = prep.data.ks.shape[1]
+        search.bnb_round(prep.data, prep.state, 1e-3, ipm_iters=8, beam=n_k, ipm_chunk=8)
+    finally:
+        search.bnb_epilogue = orig
+    args, kw = captured["args"], captured["kw"]
+    inst = kw["inst"]
+    got = orig(*args, **kw)
+    ref = search.bnb_epilogue_reference(*args, **kw)
+    L = prep.data.ks.shape[0]
+
+    def singles():
+        out = []
+        for q in range(L):
+            rows = (inst == q).nonzero()[:, 0]
+            a = [t[rows] for t in args[:2]] + [IPMResult(*[f[rows] for f in args[2]])] + \
+                [t[rows] for t in args[3:7]] + [args[7][q:q + 1], args[8][q:q + 1]] + \
+                [t[rows] for t in args[9:]]
+            out.append((rows, orig(*a, inst=torch.zeros_like(rows))))
+        return out
+
+    ones = singles()
+    torch.cuda.synchronize()
+    bad = [f for f in got._fields if not torch.equal(getattr(got, f), getattr(ref, f))]
+    bad1 = sorted({f for rows, o in ones for f in got._fields
+                   if not torch.equal(getattr(got, f)[rows], getattr(o, f))})
+    print("bnb_epilogue lanes", json.dumps({"rows": int(args[0].shape[0]), "lanes": L,
+          "fields_differing_plain": bad, "fields_differing_single_launches": bad1}), flush=True)
+    if bad or bad1:
+        fail(f"bnb_epilogue per-instance entry disagrees: plain {bad}, single launches {bad1}")
+    B, nf = args[0].shape
+    m = args[2].y_dual.shape[1]
+    ms, call, src = time_kernel(lambda: orig(*args, **kw), "bnb_epilogue_kernel")
+    plain = cuda_ms(lambda: search.bnb_epilogue_reference(*args, **kw), reps=5)
+    single_ms = cuda_ms(singles, reps=10)
+    nbytes = B * nf * (40 + 28) + B * m * (8 + 4) + B * (32 + 2 + 10 + 4) + L * (nf + 8)
+    b_ms, b_by = bound_ms(B * nf * 30, nbytes, PEAK_F64_S)
+    report["bnb_epilogue_lanes"] = lane_row(
+        "bnb_epilogue_lanes", "distilp_torch/kernels/csrc/bnb_epilogue_kernel.cu",
+        "distilp_tpu/solver/backend_jax.py:1569 (vmapped over sweeps by :2577, :2633)",
+        0.0, ms, plain, single_ms, b_ms, b_by, call, src,
+        f"root round of {L} north-star scenarios: B={B} rows, nf={nf}")
+    print(f"bnb_epilogue_lanes: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
+          f"{plain:.3f} ms, {L} single-instance launches {single_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by}) at B={B} nf={nf}", flush=True)
+
+
+def _lane(args, q: int):
+    """Lane ``q`` (as an L = 1 batch) of per-k entry arguments: tensors and
+    a SearchState's fields sliced, the rest passed through."""
+    import torch
+
+    from distilp_torch.solver.search import SearchState
+
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a[q:q + 1]
+        if isinstance(a, SearchState):
+            return SearchState(*[None if t is None else t[q:q + 1] for t in a])
+        return a
+    return tuple(one(a) for a in args)
+
+
+def per_k_lane_diff(inc, rank) -> list:
+    """The fields in which one lane launch of K3's per-k entries differs
+    from the plain version or, bit for bit, from one single-lane launch per
+    lane (empty when all agree)."""
+    import torch
+
+    from distilp_torch.solver import search
+
+    got_i, ref_i = search.per_k_incumbent(*inc), search.per_k_incumbent_reference(*inc)
+    got_r, ref_r = search.per_k_fair_rank(*rank), search.per_k_fair_rank_reference(*rank)
+    L = rank[0].shape[0]
+    one_i = [search.per_k_incumbent(*_lane(inc, q)) for q in range(L)]
+    one_r = [search.per_k_fair_rank(*_lane(rank, q)) for q in range(L)]
+    torch.cuda.synchronize()
+    diff = [f for f in got_i._fields if not torch.equal(getattr(got_i, f), getattr(ref_i, f))]
+    diff += [f for f, x, y in zip(("fair_key", "per_k_dropped"), got_r, ref_r)
+             if not torch.equal(x, y)]
+    diff += [f"single:{f}" for q, o in enumerate(one_i) for f in got_i._fields
+             if not torch.equal(getattr(got_i, f)[q:q + 1], getattr(o, f))]
+    diff += [f"single:rank{q}" for q, o in enumerate(one_r)
+             if not (torch.equal(got_r[0][q:q + 1], o[0]) and torch.equal(got_r[1][q:q + 1], o[1]))]
+    return sorted(set(diff))
+
+
+def check_per_k_lanes(report: dict) -> None:
+    """K3's per-k entries with a grid over lanes, each lane launch against
+    the plain version and, bit for bit, against one single-lane launch per
+    lane: on every call of the stream path's per-k lanes (the mixed-M
+    bucket's three fleets through ``solve_batch``) and on 200 random
+    frontiers of 2-8 lanes."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.solver import search, solve_batch
+    from distilp_torch.solver.search import SearchState
+
+    calls = {"incumbent": [], "rank": []}
+    with captured(search, "per_k_incumbent", calls["incumbent"]), \
+            captured(search, "per_k_fair_rank", calls["rank"]):
+        solve_batch(per_k_lanes(online_model()))
+    bad = []
+    stream = [(a_i, a_r) for (a_i, _), (a_r, _) in zip(calls["incumbent"], calls["rank"])]
+    if not stream or any(a_r[0].shape[0] < 2 for _, a_r in stream):
+        fail(f"bnb_per_k lanes: the per-k lanes gave {len(stream)} calls, not all multi-lane")
+    for i, (inc, rank) in enumerate(stream):
+        diff = per_k_lane_diff(inc, rank)
+        if diff:
+            bad.append(("stream", i, diff))
+    rng = np.random.default_rng(1)
+    timed = None
+    for trial in range(200):
+        L = int(rng.integers(2, 9))
+        shape = _per_k_shape(rng)
+        has_y, gap = rng.random() < 0.5, float(rng.choice([1e-3, 1e-4, 0.0]))
+        per_lane = [_per_k_inputs(rng, *shape, has_y=has_y) for _ in range(L)]
+        cat = lambda ts: torch.cat(list(ts))  # noqa: E731
+        incs, ranks = zip(*per_lane)
+        state = SearchState(*[None] * 23)._replace(**{
+            f: cat(getattr(i[5], f) for i in incs)
+            for f in ("node_kidx", "per_k_best", "per_k_w", "per_k_n", "per_k_y")})
+        inc = tuple(cat(i[j] for i in incs) for j in range(4)) + \
+            ((cat(i[4] for i in incs) if has_y else None), state, gap)
+        rank = tuple(cat(r[j] for r in ranks) for j in range(4)) + (shape[3],) + \
+            (cat(r[5] for r in ranks),)
+        diff = per_k_lane_diff(inc, rank)
+        if diff:
+            bad.append(("random", trial, diff))
+        if timed is None or L * shape[2] > timed[0]:
+            timed = (L * shape[2], inc, rank, gap, L, shape)
+    print("bnb_per_k lanes", json.dumps({
+        "stream_calls": len(stream), "stream_lanes": int(stream[0][1][0].shape[0]),
+        "random_lane_frontiers": 200, "differing": bad[:10]}), flush=True)
+    if bad:
+        fail(f"bnb_per_k lane entries disagree: {bad[:5]}")
+    _, inc, rank, gap, L, (n_k, M, B, cap) = timed
+    singles = [(_lane(inc, q), _lane(rank, q)) for q in range(L)]
+    ms_i, call_i, src = time_kernel(lambda: search.per_k_incumbent(*inc), "per_k_incumbent_kernel")
+    ms_r, call_r, _ = time_kernel(lambda: search.per_k_fair_rank(*rank), "per_k_rank_kernel")
+    plain = cuda_ms(lambda: search.per_k_incumbent_reference(*inc), reps=10) + \
+        cuda_ms(lambda: search.per_k_fair_rank_reference(*rank), reps=10)
+    single_ms = cuda_ms(lambda: [(search.per_k_incumbent(*i), search.per_k_fair_rank(*r))
+                                 for i, r in singles], reps=10)
+    nbytes = L * per_k_bytes(B, M, n_k, cap, cap + B, has_y=inc[4] is not None)
+    b_ms, b_by = bound_ms(L * (B * n_k + (cap + B) * 8), nbytes, PEAK_F64_S)
+    report["bnb_per_k_lanes"] = lane_row(
+        "bnb_per_k_lanes", "distilp_torch/kernels/csrc/bnb_epilogue_kernel.cu",
+        "distilp_tpu/solver/backend_jax.py:1597 (vmapped over sweeps by :2633)",
+        0.0, ms_i + ms_r, plain, single_ms, b_ms, b_by, call_i + call_r, src,
+        f"{L} lanes of B={B} rows, M={M}, n_k={n_k}, cap={cap}; ms is both entries")
+    report["bnb_per_k_lanes"]["stream_calls_held"] = len(stream)
+    print(f"bnb_per_k_lanes: {ms_i + ms_r:.4f} ms on the card a round, {L} single-lane "
+          f"rounds {single_ms:.4f} ms (plain {plain:.3f} ms, bound {b_ms:.6f} ms by {b_by})",
+          flush=True)
+
+
+MIXTRAL_REGIMES = [None, [1.5, 0.8, 1.0, 0.9], [0.7, 0.7, 1.6, 1.2], [1.0, 1.3, 0.9, 0.8]]
+
+
+def check_decomp_lanes(report: dict) -> None:
+    """K7's instance axis: the Mixtral M=4 scenario batch (4 load regimes)
+    and the flagship with a t_comm drift (2 instances), float32 and float64
+    evaluations against the plain version and, bit for bit, against one
+    single-instance launch per instance; the 300-step ascent of all
+    instances in lockstep timed beside one instance's."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops import decomp as D
+    from distilp_torch.utils import make_synthetic_fleet
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    cases = []
+    mix = MOE_CASES[0]
+    mdevs = make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9))
+    cases.append(("mixtral_M4_x4", lane_inputs([mdevs] * 4, moe_model(mix[1]), "8bit",
+                                               MIXTRAL_REGIMES)))
+    fdevs, fmodel = moe_instance(FLAGSHIP)[:2]
+    cases.append(("deepseek_v3_M32_x2",
+                  lane_inputs([fdevs] + scenario_fleets(fdevs, 1, 3, 0.95, 1.05), fmodel,
+                              "8bit")))
+    bad, timing, errs = [], {}, []
+    for name, lanes in cases:
+        w_max, E = max(W for _, W in lanes[0].feasible), int(lanes[0].E)
+        p32, p64 = (D.stack_problems([D.decomp_problem(ln.rd_np, ln.sf.ks, ln.sf.Ws, w_max, E,
+                                                       dt, dev) for ln in lanes])
+                    for dt in (torch.float32, torch.float64))
+        S, n_k = p32.ks.shape
+        M = p32.rdv.shape[-1]
+        lam = torch.tensor(rng.normal(0, 1, (S, n_k)), dtype=torch.float32, device=dev)
+        mu = torch.tensor(rng.normal(0, 0.3, (S, n_k)), dtype=torch.float32, device=dev)
+        tau = torch.tensor(rng.normal(0, 1, (S, n_k, M)), dtype=torch.float32, device=dev)
+        th32 = (p32.ks - 1.0)[..., None] * D.softmax(tau)
+        got = D.eval32_kernel(p32, lam, mu, th32)
+        l64, m64, t64 = lam.double(), mu.double(), tau.double()
+        th64 = (p64.ks - 1.0)[..., None] * D.softmax(t64)
+        got64 = D.eval64_kernel(p64, l64, m64, th64, True)
+        # Each instance alone: its S = 1 batch and (1, ...) multipliers.
+        one32 = [D.stack_problems([p32.instance(s)]) for s in range(S)]
+        one64 = [D.stack_problems([p64.instance(s)]) for s in range(S)]
+        sl = lambda t, s: t[s:s + 1]  # noqa: E731
+        ones = [[x[0] for x in D.eval32_kernel(one32[s], sl(lam, s), sl(mu, s), sl(th32, s))]
+                for s in range(S)]
+        ones64 = [[x[0] for x in D.eval64_kernel(one64[s], sl(l64, s), sl(m64, s),
+                                                 sl(th64, s), True)] for s in range(S)]
+        ref = [D.eval32_reference(p32.instance(s), lam[s], mu[s], th32[s]) for s in range(S)]
+        ref64 = [D.eval64_reference(p64.instance(s), l64[s], m64[s], th64[s], True)
+                 for s in range(S)]
+        torch.cuda.synchronize()
+        e32 = [max_err(g[s], r_s[i]) for s, r_s in enumerate(ref) for i, g in enumerate(got)]
+        e64 = max(max_err(got64[0][s], ref64[s][0])[1] for s in range(S))
+        hint_eq = all(torch.equal(got64[i][s], ref64[s][i]) for s in range(S) for i in (1, 2, 3))
+        eq1 = all(torch.equal(g[s], o) for s, one in enumerate(ones) for g, o in zip(got, one))
+        eq1 &= all(torch.equal(g[s], o) for s, one in enumerate(ones64)
+                   for g, o in zip(got64, one))
+        errs.append(max(e[0] for e in e32))
+        line = {"case": name, "instances": S, "n_k": n_k, "M": M,
+                "f32_max_rel": max(e[1] for e in e32), "f64_m_y_max_rel": e64,
+                "hint_equal": hint_eq, "equal_to_single_launches": eq1}
+        ok = (line["f32_max_rel"] <= TOL_DECOMP_F32 and e64 <= TOL_EXACT_F64 and hint_eq and eq1)
+        line["ok"] = ok
+        print("decomp lanes", json.dumps(line), flush=True)
+        if not ok:
+            bad.append(name)
+        ms, call, src = time_kernel(lambda: D.eval32_kernel(p32, lam, mu, th32),
+                                    "decomp_f32_kernel")
+        plain = cuda_ms(lambda: [D.eval32_reference(p32.instance(s), lam[s], mu[s], th32[s])
+                                 for s in range(S)], reps=3, warmup=1)
+        single_ms = cuda_ms(lambda: [D.eval32_kernel(one32[s], sl(lam, s), sl(mu, s),
+                                                     sl(th32, s)) for s in range(S)], reps=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D.ascend(p32, 300)
+        torch.cuda.synchronize()
+        asc_all = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        D.ascend(one32[0], 300)
+        torch.cuda.synchronize()
+        asc_one = (time.perf_counter() - t0) * 1e3
+        flops, nbytes, cells = decomp_flops_bytes(p32.instance(0))
+        b_ms, b_by = bound_ms(S * flops, S * nbytes, PEAK_F32_S)
+        timing[name] = dict(ms=ms, call_ms=call, ms_source=src, plain_ms=plain,
+                            single_instance_launches_ms=single_ms, bound_ms=b_ms,
+                            bound_by=b_by, cells=S * cells, ascent_300_all_ms=asc_all,
+                            ascent_300_one_ms=asc_one)
+        print(f"decomp_lanes {name}: f32 evaluation of {S} instances {ms:.4f} ms on the card, "
+              f"{call:.4f} ms per call ({S} single launches {single_ms:.4f} ms; plain "
+              f"{plain:.3f} ms; bound {b_ms:.6f} ms by {b_by}); 300-step ascent of all "
+              f"{asc_all:.1f} ms of wall, of one {asc_one:.1f} ms", flush=True)
+    if bad:
+        fail(f"decomp instance axis disagrees in {bad}")
+    t = timing["mixtral_M4_x4"]
+    report["decomp_lanes"] = lane_row(
+        "decomp_lanes", "distilp_torch/kernels/csrc/decomp_kernel.cu",
+        "distilp_tpu/solver/backend_jax.py:832 (vmapped over scenarios by :2577)",
+        max(errs), t["ms"], t["plain_ms"], t["single_instance_launches_ms"], t["bound_ms"],
+        t["bound_by"], t["call_ms"], t["ms_source"],
+        f"mixtral_M4_x4: one float32 evaluation of 4 instances, {t['cells']} cells")
+    report["decomp_lanes"]["by_case"] = timing
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2414,7 +3106,8 @@ def sweep_path() -> dict:
     import numpy as np
 
     devs, model = north
-    sync, sync_ms, _ = solve(devs, model, 1e-3)
+    with uncounted():
+        sync, sync_ms, _ = solve(devs, model, 1e-3)
     drifted = [d.model_copy() for d in devs]
     rng = np.random.default_rng(3)
     for d in drifted:
@@ -2455,6 +3148,326 @@ def sweep_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- stream path
+
+# Stream-path pins, from the JAX package on the CPU (distilp_tpu.solver's
+# StreamingReplanner and halda_solve_scenarios, backend 'jax', the same
+# fleets, drifts and seeds as stream_path below): (k, objective) of the
+# north star's cold tick and its 8 warm ticks under +-5% t_comm drift
+# (default_rng(7), bench.py:752-764), of the 8 what-if scenarios drawn from
+# the fleet after them (t_comm 0.5-2.0x, default_rng(17), bench.py:809-816)
+# warm-seeded from the last tick, of Mixtral over make_synthetic_fleet(4,
+# seed=7, pool_bytes=64e9) under the four MIXTRAL_REGIMES load factors, and
+# of the DeepSeek-V3 flagship's ticks (cold, two +-5% drifts, a drift with
+# every memory pool raised to 34e9 bytes, one more drift) with the tick mode
+# the JAX package's replanner took.
+STREAM_GAP = 1e-3
+NORTH_TICK_PINS = [-38.36824122348659, -38.36704703976956, -38.369238193569586,
+                   -38.3719559804616, -38.375984003461895, -38.37259742757424,
+                   -38.36941596231185, -38.36534432201876, -38.36935639455396]
+NORTH_SCENARIO_PINS = [-38.22217009436706, -38.18267973613846, -38.20562466894333,
+                       -38.226872947727244, -38.19670036058756, -38.220260557614786,
+                       -38.07130906254162, -38.28795468581493]
+MIXTRAL_SCENARIO_PINS = [-132.93320566181376, -132.99713633798956, -133.14923728687404,
+                         -132.9855039483965]
+FLAGSHIP_TICK_PINS = [(-400.80947050866087, "cold"), (-400.81776379536154, "margin"),
+                      (-400.8327422785259, "margin"), (-426.17321971790483, "warm"),
+                      (-426.1811522913107, "margin")]
+BUCKETS = (2, 4, 8, 16, 32, 64, 128)  # the JAX package's combine.BucketPolicy boundaries
+STREAM_KERNELS = ("ipm", "round_incumbent", "round_incumbent_lanes", "round_moe",
+                  "round_moe_lanes", "bnb_epilogue", "bnb_epilogue_lanes", "decomp",
+                  "decomp_lanes", "bnb_per_k_lanes")
+
+
+def held_to(name, r, pin, gap, k=None):
+    rel = abs(r.obj_value - pin) / abs(pin)
+    print(f"  {name}: k={r.k} objective {r.obj_value!r} vs pinned {pin!r}: relative "
+          f"difference {rel!r} (allowed {2 * gap!r}) certified={r.certified}", flush=True)
+    if not r.certified or rel > 2 * gap or (k is not None and r.k != k):
+        fail(f"{name}: k={r.k} obj={r.obj_value} certified={r.certified}, pinned {pin}")
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def drift(devs, rng, lo=0.95, hi=1.05):
+    for d in devs:
+        d.t_comm = max(0.0, d.t_comm * float(rng.uniform(lo, hi)))
+
+
+def profile_call(name, fn, reps: int = 3) -> None:
+    """The device's busy share of ``fn`` (median wall of ``reps``) and its
+    device time by kernel, from one profiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = sorted(timed(fn)[1] for _ in range(reps))
+    wall = walls[reps // 2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, _device_us(e), e.count) for e in prof.key_averages()
+                   if _is_device(e) and _device_us(e) > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e3
+    print("profile", json.dumps({
+        "call": name, f"wall_ms_median_of_{reps}": wall, "walls_ms": walls,
+        "device_busy_ms": busy if rows else None,
+        "device_busy_share": busy / wall if rows else None,
+        "top": [{"name": k[:80], "device_ms": us / 1e3, "count": c} for k, us, c in rows[:8]],
+    }), flush=True)
+
+
+def stream_path() -> dict:
+    """The streaming replanner and its what-if batches, through the port's
+    entry points on the card: ``StreamingReplanner`` ticks (sequential and
+    pipelined), ``halda_solve_scenarios`` (one shared A, and the batch-layout
+    fallback), ``solve_batch`` lanes (goldens in padded buckets, a mixed-M
+    bucket, lane_pad duplicates, per-k lanes), the DeepSeek-V3 flagship's
+    cold, margin and warm ticks, and a Mixtral scenario batch (K7's instance
+    axis)."""
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.common import load_from_profile_folder
+    from distilp_torch.ops import decomp as D
+    from distilp_torch.solver import (
+        StreamingReplanner,
+        halda_solve,
+        halda_solve_per_k,
+        halda_solve_scenarios,
+        solve_batch,
+    )
+    from distilp_torch.solver.api import _best_to_result, _build_instance
+    from distilp_torch.solver.backend_torch import margin_bounds_from_state
+    from distilp_torch.solver.standard_form import build_standard_form, rounding_arrays_np
+    from distilp_torch.utils import make_synthetic_fleet
+
+    gap = STREAM_GAP
+    kernels.reset_launch_counts()
+    model = online_model()
+
+    # (1) North star: a cold tick, then 8 warm ticks under +-5% drift.
+    devs = make_synthetic_fleet(16, seed=123)
+    planner = StreamingReplanner(mip_gap=gap, kv_bits="4bit")
+    rng = np.random.default_rng(7)
+    walls = []
+    for t in range(9):
+        if t:
+            drift(devs, rng)
+        tm = {}
+        r, ms = timed(lambda: planner.step(devs, model, timings=tm))
+        walls.append(ms)
+        print(f"tick north_star_M16 {t}: mode={planner.last_tick_mode} wall_ms={ms:.2f} "
+              f"rounds={tm.get('bnb_rounds')} lp_iters={tm.get('ipm_iters_executed')} "
+              f"search_ms={tm.get('solve_ms', 0.0):.2f}", flush=True)
+        held_to(f"north_star tick {t}", r, NORTH_TICK_PINS[t], gap, k=1)
+        if planner.last_tick_mode != ("cold" if t == 0 else "warm"):
+            fail(f"north star tick {t}: mode {planner.last_tick_mode}")
+    print(f"north star ticks: cold {walls[0]:.2f} ms, warm median "
+          f"{statistics.median(walls[1:]):.2f} ms", flush=True)
+
+    # (2) Pipelined ticks: one in flight; each equals the sequential solve
+    # seeded, as the pipeline seeds it, with the result two ticks back.
+    fleets = [make_synthetic_fleet(16, seed=123)]
+    prng = np.random.default_rng(9)
+    for _ in range(4):
+        fleets.append([d.model_copy() for d in fleets[-1]])
+        drift(fleets[-1], prng, 0.9, 1.1)
+    piped = StreamingReplanner(mip_gap=gap, kv_bits="4bit")
+
+    def pipeline():
+        got = []
+        piped.reset()
+        piped.submit(fleets[0], model)
+        for f in fleets[1:]:
+            piped.submit(f, model)
+            got.append(piped.collect())
+        got.append(piped.collect())
+        return got
+
+    got, pipe_ms = timed(pipeline)
+    seq = []
+    with uncounted():
+        for t, f in enumerate(fleets):
+            seq.append(halda_solve(f, model, mip_gap=gap, kv_bits="4bit",
+                                   warm=seq[t - 2] if t >= 2 else None))
+    same = all((a.k, a.w, a.n, a.obj_value) == (b.k, b.w, b.n, b.obj_value)
+               for a, b in zip(got, seq))
+    print(f"pipelined north star: {len(fleets)} ticks in {pipe_ms:.2f} ms "
+          f"({len(fleets) * 1000.0 / pipe_ms:.1f} placements/s); equal to sequential: {same}",
+          flush=True)
+    if not same or not all(r.certified for r in got):
+        fail("pipelined ticks differ from the sequential ones")
+
+    # (3) The S=8 scenario batch, warm-seeded from the last tick.
+    scen = scenario_fleets(devs, 8, 17)
+    tm = {}
+    rs, _ = timed(lambda: halda_solve_scenarios(scen, model, kv_bits="4bit", mip_gap=gap,
+                                                warms=[planner.last] * 8, timings=tm))
+    sc_ms = [timed(lambda: halda_solve_scenarios(scen, model, kv_bits="4bit", mip_gap=gap,
+                                                 warms=[planner.last] * 8))[1]
+             for _ in range(3)]
+    print(f"scenarios north_star x8: median {statistics.median(sc_ms):.2f} ms "
+          f"({8000.0 / statistics.median(sc_ms):.1f} placements/s); rounds="
+          f"{tm.get('bnb_rounds')} search_ms={tm.get('solve_ms', 0.0):.2f}", flush=True)
+    if "scenario_fallback" in tm:
+        fail("the north-star scenarios took the fallback")
+    for i, (f, r) in enumerate(zip(scen, rs)):
+        held_to(f"scenario {i}", r, NORTH_SCENARIO_PINS[i], gap, k=1)
+        with uncounted():
+            own = halda_solve(f, model, mip_gap=gap, kv_bits="4bit")
+        if abs(r.obj_value - own.obj_value) > 2 * gap * abs(own.obj_value):
+            fail(f"scenario {i}: {r.obj_value} vs its own solve {own.obj_value}")
+
+    # (4) The forced lane fallback: a scenario whose CPU table doubles.
+    bad = [d.model_copy(deep=True) for d in scen[0]]
+    for q in bad[0].scpu:
+        bad[0].scpu[q] = {col: v * 2.0 for col, v in bad[0].scpu[q].items()}
+    tm = {}
+    rs, ms = timed(lambda: halda_solve_scenarios([scen[0], bad], model, kv_bits="4bit",
+                                                 mip_gap=gap, timings=tm))
+    print(f"scenario fallback: {tm.get('scenario_fallback')} wall_ms={ms:.2f}", flush=True)
+    if tm.get("scenario_fallback") != 1.0:
+        fail("the static-half fallback did not fire")
+    for f, r in zip([scen[0], bad], rs):
+        with uncounted():
+            own = halda_solve(f, model, mip_gap=gap, kv_bits="4bit")
+        if not r.certified or abs(r.obj_value - own.obj_value) > 2 * gap * abs(own.obj_value):
+            fail(f"fallback lane: {r.obj_value} vs its own solve {own.obj_value}")
+
+    # (5) Lanes: the goldens padded to their bucket boundaries.
+    for folder, k_star, obj in GOLDEN:
+        gdevs, gmodel = load_from_profile_folder(ROOT / "tests" / "profiles" / folder)
+        M_pad = next(b for b in BUCKETS if b >= len(gdevs))
+        inst, sets = pack_lane(gdevs, gmodel, 1e-4, M_pad=M_pad)
+        out, ms = timed(lambda: solve_batch([inst]))
+        r = _best_to_result(out[0][1], sets)
+        print(f"lane {folder} (M={len(gdevs)} padded to {M_pad}): k={r.k} obj={r.obj_value!r} "
+              f"wall_ms={ms:.2f}", flush=True)
+        if r.k != k_star or abs(r.obj_value - obj) > 2e-4 * abs(obj) or not r.certified \
+                or len(r.w) != len(gdevs):
+            fail(f"lane {folder}: k={r.k} obj={r.obj_value}, pinned k={k_star} obj={obj}")
+
+    # (6) A mixed-M bucket (4, 6 and 8 devices padded to 8), lane_pad
+    # duplicates, and the same fleets as per-k lanes.
+    ks = MIXED_KS
+    mfleets = mixed_m_fleets()
+    insts = [pack_lane(f, model, gap, M_pad=8, k_candidates=ks)[0] for f in mfleets]
+    tm = {}
+    plain, ms = timed(lambda: solve_batch(insts, timings=tm))
+    padded = solve_batch(insts, lane_pad=4)
+    for f, inst, (_, a), (_, b) in zip(mfleets, insts, plain, padded):
+        with uncounted():
+            own = halda_solve(f, model, mip_gap=gap, kv_bits="4bit", k_candidates=ks)
+        print(f"lane mixed-M M={len(f)}: k={a.k} obj={a.obj_value!r} (own solve "
+              f"{own.obj_value!r}) certified={a.certified}", flush=True)
+        if not a.certified or len(a.w) != len(f) or \
+                abs(a.obj_value - own.obj_value) > 2 * gap * abs(own.obj_value):
+            fail(f"mixed-M lane M={len(f)}: {a.obj_value} vs {own.obj_value}")
+        if (a.k, a.w, a.n, a.obj_value) != (b.k, b.w, b.n, b.obj_value):
+            fail("a lane_pad duplicate changed a real lane")
+    print(f"mixed-M bucket: wall_ms={ms:.2f} static_hit={tm.get('static_hit')}", flush=True)
+    for f, (per_k, _) in zip(mfleets, solve_batch(per_k_lanes(model))):
+        with uncounted():
+            own = {r.k: r.obj_value for r in halda_solve_per_k(f, model, mip_gap=gap,
+                                                               kv_bits="4bit", k_candidates=ks)}
+        got = {r.k: r.obj_value for r in per_k if r is not None and r.w is not None}
+        print(f"per-k lane M={len(f)}: {got} (own per-k solve {own})", flush=True)
+        if sorted(got) != sorted(own) or any(
+                abs(got[k] - own[k]) > 2 * gap * abs(own[k]) for k in own) or \
+                not all(r.certified for r in per_k if r is not None and r.w is not None):
+            fail(f"per-k lane M={len(f)}: {got} vs {own}")
+
+    # (7) The DeepSeek-V3 flagship: cold, margin, warm (memory pools grown)
+    # and margin ticks; one margin bound against a full K7 evaluation.
+    fdevs, fmodel = moe_instance(FLAGSHIP)[:2]
+    fplanner = StreamingReplanner(mip_gap=MOE_GAP, kv_bits="8bit")
+    frng = np.random.default_rng(7)
+    fwalls, margin_checked = [], False
+    for t, (pin, mode) in enumerate(FLAGSHIP_TICK_PINS):
+        if t:
+            drift(fdevs, frng)
+        if t == 3:
+            for d in fdevs:
+                d.d_avail_ram = int(34e9)
+                if d.d_avail_metal is not None:
+                    d.d_avail_metal = int(34e9)
+                if d.d_avail_cuda is not None:
+                    d.d_avail_cuda = int(34e9)
+        if t == 2:
+            # The margin bound this tick will use, against K7 at the anchor
+            # (a comparison, not the path's work: its launch is not counted).
+            ms_state = fplanner._margin_state
+            Ks, _, coeffs, arrays = _build_instance(fdevs, fmodel, None, "8bit", None, None)
+            feas = [(k, fmodel.L // k) for k in Ks if fmodel.L // k >= 32]
+            sf = build_standard_form(arrays, coeffs, feas)
+            rd_np = rounding_arrays_np(coeffs, arrays.moe)
+            reused = margin_bounds_from_state(ms_state, rd_np, sf, ms_state["duals"])
+            p64 = D.stack_problems([D.decomp_problem(
+                rd_np, sf.ks, sf.Ws, max(sf.Ws), int(rd_np["E"]), torch.float64,
+                torch.device("cuda"))])
+            lam, mu, tau = (torch.as_tensor(np.asarray(x, np.float64), device="cuda")[None]
+                            for x in ms_state["duals"])
+            with uncounted():
+                fresh = D.eval64(p64, lam, mu, tau, False)[0][0].cpu().numpy()
+            rel = float(np.max(np.abs(reused - fresh) / np.abs(fresh)))
+            print(f"margin bound vs full K7 evaluation: reused {reused.tolist()} fresh "
+                  f"{fresh.tolist()} max relative difference {rel!r}", flush=True)
+            if not (np.all(reused <= fresh + 1e-12 * np.abs(fresh)) and rel <= 1e-8):
+                fail("the margin bound is unsound or far from the full evaluation")
+            margin_checked = True
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tm = {}
+            r, ms = timed(lambda: fplanner.step(fdevs, fmodel, timings=tm))
+        fwalls.append(ms)
+        print(f"tick {FLAGSHIP[0]} {t}: mode={fplanner.last_tick_mode} wall_ms={ms:.2f} "
+              f"decomp_steps={tm.get('decomp_steps')} rounds={tm.get('bnb_rounds')} "
+              f"search_ms={tm.get('solve_ms', 0.0):.2f}", flush=True)
+        held_to(f"{FLAGSHIP[0]} tick {t}", r, pin, MOE_GAP)
+        if fplanner.last_tick_mode != mode or sum(r.y) != fmodel.n_routed_experts:
+            fail(f"flagship tick {t}: mode {fplanner.last_tick_mode} (pinned {mode}), "
+                 f"sum(y)={sum(r.y)}")
+    if not margin_checked:
+        fail("no margin bound was checked")
+
+    # (8) Mixtral M=4 under four load regimes: one search, one K7 ascent.
+    mmodel = moe_model(MOE_CASES[0][1])
+    tm = {}
+    rs, ms = timed(lambda: mixtral_regimes_solve(mmodel, timings=tm))
+    print(f"scenarios mixtral_M4 x4: wall_ms={ms:.2f} decomp_steps={tm.get('decomp_steps')} "
+          f"rounds={tm.get('bnb_rounds')}", flush=True)
+    for i, r in enumerate(rs):
+        held_to(f"mixtral scenario {i}", r, MIXTRAL_SCENARIO_PINS[i], MOE_GAP, k=4)
+        if sum(r.y) != mmodel.n_routed_experts:
+            fail(f"mixtral scenario {i}: sum(y)={sum(r.y)}")
+
+    launches = path_launches()
+    print("stream path launches", json.dumps(launches), flush=True)
+    missing = [k for k in STREAM_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"stream path never launched {missing}")
+    print(f"stream tick walls (median): north star warm {statistics.median(walls[1:]):.2f} ms, "
+          f"flagship margin {statistics.median([w for w, (_, m) in zip(fwalls, FLAGSHIP_TICK_PINS) if m == 'margin']):.2f} ms",
+          flush=True)
+    profile_call("north_star_M16_warm_tick", lambda: planner.step(devs, model))
+    profile_call("north_star_scenarios_x8", lambda: halda_solve_scenarios(
+        scen, model, kv_bits="4bit", mip_gap=gap, warms=[planner.last] * 8))
+    profile_call(f"{FLAGSHIP[0]}_margin_tick", lambda: fplanner.step(fdevs, fmodel))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2490,10 +3503,12 @@ def main() -> int:
     checks = [check_ipm, check_round, check_epilogue, check_pdhg,
               lambda r: check_pdhg_mp(), check_ipm_moe, check_round_moe, check_decomp,
               lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale,
-              check_bnb_per_k, check_price_fixed]
+              check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
+              check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
-             "price_fixed"]
+             "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
+             "per_k_lanes", "decomp_lanes"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -2502,7 +3517,7 @@ def main() -> int:
               f"{json.dumps({k: v for k, v in kernels.LAUNCHES.items() if v})}", flush=True)
 
     paths = {"dense": main_path(), "fleet": fleet_path(), "moe": moe_path(),
-             "profile": profile_path(cases), "sweep": sweep_path()}
+             "profile": profile_path(cases), "sweep": sweep_path(), "stream": stream_path()}
     launches = {k: sum(p[k] for p in paths.values()) for k in report}
     print("main path launches", json.dumps(launches), flush=True)
     by_shape = {k: {p: c["_shapes"][k] for p, c in paths.items()} for k in ("ipm", "pdhg")}
@@ -2512,7 +3527,9 @@ def main() -> int:
         fail(f"main path never launched {missing}")
     out = []
     for name in ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
-                 "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed"):
+                 "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
+                 "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes",
+                 "bnb_per_k_lanes", "decomp_lanes"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

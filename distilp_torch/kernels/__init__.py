@@ -17,10 +17,14 @@ from typing import Dict
 import torch
 
 # Kernel name -> launches since the last reset (only the wrappers add to it).
+# The per-instance entries of K2, K2 MoE, K3 and K7 count a launch that
+# carries more than one sweep (scenario or batch lanes) under "<name>_lanes",
+# one that carries a single sweep under the kernel's own name.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
-    "bnb_per_k": 0, "price_fixed": 0,
+    "bnb_per_k": 0, "price_fixed": 0, "round_incumbent_lanes": 0, "round_moe_lanes": 0,
+    "bnb_epilogue_lanes": 0, "bnb_per_k_lanes": 0, "decomp_lanes": 0,
 }
 
 

@@ -66,25 +66,23 @@ SIGNATURES = {
         + [_D] * 2 + [_P] * 14 + [_I, _P],
     },
     "round": {
-        "dtk_round_f32": [_P, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-        "dtk_round_f64": [_P, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "dtk_round_f32": [_P, _L, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P],
+        "dtk_round_f64": [_P, _L, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P],
     },
     "round_moe": {
-        "dtk_round_moe_f32": [_P, _L] + [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _P],
-        "dtk_round_moe_f64": [_P, _L] + [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _P],
+        "dtk_round_moe_f32": [_P, _L] + [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P],
+        "dtk_round_moe_f64": [_P, _L] + [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P],
         "dtk_price_fixed_f64": [_P] * 7 + [_I] * 2 + [_P, _I, _P],
     },
     "decomp": {
-        "dtk_decomp_eval_f32": [_P, _F, _F, _P, _P] + [_I] * 4 + [_P] * 7 + [_P],
-        "dtk_decomp_eval_f64": [_P, _D, _D, _P, _P] + [_I] * 4 + [_P] * 3 + [_I]
-        + [_P] * 4 + [_P],
+        "dtk_decomp_eval_f32": [_P] * 5 + [_I] * 5 + [_P] * 7 + [_P],
+        "dtk_decomp_eval_f64": [_P] * 5 + [_I] * 5 + [_P] * 3 + [_I] + [_P] * 4 + [_P],
     },
     "bnb_epilogue": {
-        "dtk_bnb_epilogue": [_P] * 13 + [_D] + [_P] * 5 + [_I] * 3 + [_P] * 11
-        + [_I, _P],
+        "dtk_bnb_epilogue": [_P] * 15 + [_P] * 5 + [_I] * 3 + [_P] * 11 + [_I, _P],
         "dtk_bnb_per_k_incumbent": [_P, _P, _I, _P, _P, _P, _I] + [_P] * 4
-        + [_I, _P, _I, _D] + [_P] * 5 + [_I, _P],
-        "dtk_bnb_per_k_rank": [_P, _I, _P, _P, _P, _I, _I] + [_P] * 3 + [_I, _P],
+        + [_I, _P, _I, _D] + [_P] * 5 + [_I, _I, _P],
+        "dtk_bnb_per_k_rank": [_P, _I, _P, _P, _P, _I, _I] + [_P] * 3 + [_I, _I, _P],
     },
     "twin_mc": {
         "dtk_twin_mc": [_P, _I, _I] + [_D] * 10 + [_U, _U, _P, _P, _P],

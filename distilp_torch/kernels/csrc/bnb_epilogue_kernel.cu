@@ -12,6 +12,12 @@
 // threshold) and the best-bound-first stable compaction stay outside, as
 // plain tensor operations over at most `cap` rows.
 //
+// Per-row instance: `obj_const` holds one constant per instance and
+// `int_mask` one (nf,) mask per instance; row r reads those of inst[r]
+// (inst == nullptr: instance 0 for every row), so the beam rows of several
+// sweeps (scenarios, batch lanes) fold in one launch, as the reference's
+// vmap over sweeps does.
+//
 // What bounds it on an H100: a few elementwise passes over B rows of nf
 // columns (B <= 16, nf = 209 at M=16: about 80 KB in and out), so bytes and
 // launch latency; the design reads every input once and writes every output
@@ -38,8 +44,11 @@
 //     flag) lands at or past cap. The second argsort, which the caller makes
 //     for the kept rows, is not needed for it. The floor is a shared-memory
 //     atomicMin over the bounds' order-preserving 64-bit keys.
+// Both take a grid over lanes, one block per lane as for one sweep: every
+// array carries a leading lane axis and block l reads and writes lane l's
+// slices alone (a batch of per-k sweeps in one launch).
 // Both are bound by launch latency: n_k <= ~40 k's, B <= 4 n_k rows of M
-// devices, cap + B <= 36 n_k child rows, a few KB in and out.
+// devices, cap + B <= 36 n_k child rows, a few KB in and out, per lane.
 
 #include "common.cuh"
 
@@ -56,9 +65,10 @@ __global__ void bnb_epilogue_kernel(
     const float* __restrict__ f_dual, const double* __restrict__ res_bound,
     const double* __restrict__ parent_bound, const uint8_t* __restrict__ active,
     const double* __restrict__ obj_full, const double* __restrict__ threshold,
-    const uint8_t* __restrict__ int_mask, double obj_const,
-    const float* __restrict__ node_v, const float* __restrict__ node_y,
-    const float* __restrict__ node_z, const float* __restrict__ node_f,
+    const uint8_t* __restrict__ int_mask_all, const double* __restrict__ obj_const_all,
+    const int* __restrict__ inst, const float* __restrict__ node_v,
+    const float* __restrict__ node_y, const float* __restrict__ node_z,
+    const float* __restrict__ node_f,
     const uint8_t* __restrict__ node_warm, int nf, int m,
     double* __restrict__ bound_out, uint8_t* __restrict__ survive_out,
     float* __restrict__ lo_a, float* __restrict__ hi_a, float* __restrict__ lo_b,
@@ -74,6 +84,9 @@ __global__ void bnb_epilogue_kernel(
   const bool act = active[r] != 0;
   const double inf = INFINITY;
   const float finf = INFINITY;
+  const int q_inst = inst != nullptr ? inst[r] : 0;
+  const uint8_t* int_mask = int_mask_all + (size_t)q_inst * nf;
+  const double obj_const = obj_const_all[q_inst];
 
   // Bound fold.
   const double bound_raw = res_bound[r] + obj_const;
@@ -171,6 +184,22 @@ __global__ void per_k_incumbent_kernel(
     double* __restrict__ w_out, double* __restrict__ n_out,
     double* __restrict__ y_out, double* __restrict__ thr_rows) {
   extern __shared__ double s_thr[];  // n_k thresholds
+  const size_t q = blockIdx.x;  // the lane
+  obj_full += q * B;
+  kidx_p += q * B;
+  w_int += q * B * M;
+  n_int += q * B * M;
+  if (y_int != nullptr) y_int += q * B * M;
+  best_in += q * n_k;
+  best_out += q * n_k;
+  w_in += q * n_k * M;
+  n_in += q * n_k * M;
+  y_in += q * n_k * M;
+  w_out += q * n_k * M;
+  n_out += q * n_k * M;
+  y_out += q * n_k * M;
+  node_kidx += q * cap;
+  thr_rows += q * cap;
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -215,6 +244,14 @@ __global__ void per_k_rank_kernel(
   int* s_wc = s_run + n_k;                        // (warps, n_k) counts of this tile
   __shared__ int s_flag[32];
   __shared__ int s_R, s_AR;
+  const size_t q = blockIdx.x;  // the lane
+  order += q * total;
+  child_kidx += q * total;
+  child_active += q * total;
+  child_bound += q * total;
+  fair_key += q * total;
+  dropped_in += q * n_k;
+  dropped_out += q * n_k;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
@@ -336,14 +373,14 @@ int dtk_bnb_epilogue(
     const float* y_dual, const float* z_dual, const float* f_dual,
     const double* res_bound, const double* parent_bound, const uint8_t* active,
     const double* obj_full, const double* threshold, const uint8_t* int_mask,
-    double obj_const, const float* node_v, const float* node_y,
+    const double* obj_const, const int* inst, const float* node_v, const float* node_y,
     const float* node_z, const float* node_f, const uint8_t* node_warm, int B,
     int nf, int m, double* bound, uint8_t* survive, float* lo_a, float* hi_a,
     float* lo_b, float* hi_b, float* v_new, float* y_new, float* z_new,
     float* f_new, uint8_t* warm_new, int threads, void* stream) {
   bnb_epilogue_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
       lo, hi, v, reduced, y_dual, z_dual, f_dual, res_bound, parent_bound,
-      active, obj_full, threshold, int_mask, obj_const, node_v, node_y, node_z,
+      active, obj_full, threshold, int_mask, obj_const, inst, node_v, node_y, node_z,
       node_f, node_warm, nf, m, bound, survive, lo_a, hi_a, lo_b, hi_b, v_new,
       y_new, z_new, f_new, warm_new);
   return (int)cudaGetLastError();
@@ -354,11 +391,13 @@ int dtk_bnb_per_k_incumbent(
     const double* n_int, const double* y_int, int M, const double* best_in,
     const double* w_in, const double* n_in, const double* y_in, int n_k,
     const int* node_kidx, int cap, double mip_gap, double* best_out, double* w_out,
-    double* n_out, double* y_out, double* thr_rows, int threads, void* stream) {
+    double* n_out, double* y_out, double* thr_rows, int lanes, int threads,
+    void* stream) {
   if (threads % 32 != 0 || threads < 32 || threads > 1024) return (int)cudaErrorInvalidValue;
   const size_t sm = sizeof(double) * (size_t)n_k;
   if (sm > 48 * 1024) return (int)cudaErrorInvalidValue;
-  per_k_incumbent_kernel<<<1, threads, sm, (cudaStream_t)stream>>>(
+  if (lanes <= 0) return 0;
+  per_k_incumbent_kernel<<<lanes, threads, sm, (cudaStream_t)stream>>>(
       obj_full, kidx_p, B, w_int, n_int, y_int, M, best_in, w_in, n_in, y_in, n_k,
       node_kidx, cap, mip_gap, best_out, w_out, n_out, y_out, thr_rows);
   return (int)cudaGetLastError();
@@ -367,8 +406,8 @@ int dtk_bnb_per_k_incumbent(
 int dtk_bnb_per_k_rank(const long long* order, int total, const int* child_kidx,
                        const uint8_t* child_active, const double* child_bound,
                        int n_k, int cap, const double* dropped_in,
-                       long long* fair_key, double* dropped_out, int threads,
-                       void* stream) {
+                       long long* fair_key, double* dropped_out, int lanes,
+                       int threads, void* stream) {
   if (threads % 32 != 0 || threads < 32 || threads > 1024) return (int)cudaErrorInvalidValue;
   const size_t sm = (size_t)n_k * (sizeof(unsigned long long) + sizeof(int) * (1 + threads / 32));
   if (sm > 48 * 1024) {
@@ -376,7 +415,8 @@ int dtk_bnb_per_k_rank(const long long* order, int total, const int* child_kidx,
         per_k_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
     if (err != cudaSuccess) return (int)err;
   }
-  per_k_rank_kernel<<<1, threads, sm, (cudaStream_t)stream>>>(
+  if (lanes <= 0) return 0;
+  per_k_rank_kernel<<<lanes, threads, sm, (cudaStream_t)stream>>>(
       order, total, child_kidx, child_active, child_bound, n_k, cap, dropped_in,
       fair_key, dropped_out);
   return (int)cudaGetLastError();

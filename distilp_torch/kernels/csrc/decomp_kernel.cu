@@ -22,6 +22,12 @@
 // Lagrangian-primal hint: the smallest w attaining the minimum and within it
 // the first (candidate, y) in candidate-major order.
 //
+// Instance axis: both entries evaluate S instances in one launch (a MoE
+// scenario batch, whose S ascents run in lockstep as the reference's vmap
+// runs them): every input carries a leading instance axis (the packed
+// vectors, b', E, the k grid, the multipliers) and block (i, k, s) reads
+// instance s's. S = 1 is one sweep.
+//
 // Every rd vector arrives already cast to the evaluation's dtype, and every
 // expression keeps the reference's order of operations; the library is built
 // with --fmad=false, because the ceil(x / b' - 1e-9) staircases flip on one
@@ -29,7 +35,7 @@
 //
 // What bounds it on an H100: operations. One evaluation prices
 // 5 n_k M w_max (e_max + 1) cells (DeepSeek-V3 on 32 devices: 2.5 M cells,
-// ~60 operations each) from a few kilobytes of input. One block per (k, i),
+// ~60 operations each) from a few kilobytes of input. One block per (k, i, s),
 // one thread per y (looping over w and the five candidates, which share the
 // y-only terms), and a fixed-order block reduction: no atomics, so a run
 // repeats bit for bit.
@@ -191,7 +197,9 @@ __device__ __forceinline__ void acc_merge(Acc& a, const Acc& b) {
   }
 }
 
-__global__ void decomp_f32_kernel(const float* __restrict__ rdv, float bp, float E,
+__global__ void decomp_f32_kernel(const float* __restrict__ rdv,
+                                  const float* __restrict__ bp_s,
+                                  const float* __restrict__ E_s,
                                   const float* __restrict__ ks,
                                   const float* __restrict__ Ws, int M, int w_max,
                                   int e_max, const float* __restrict__ lam,
@@ -201,9 +209,12 @@ __global__ void decomp_f32_kernel(const float* __restrict__ rdv, float bp, float
                                   float* __restrict__ ybar,
                                   float* __restrict__ cycbar) {
   __shared__ Acc part[32];
-  const int kidx = blockIdx.y;
+  const int n_k = gridDim.y;
+  const int s = blockIdx.z;
+  const int kidx = s * n_k + blockIdx.y;  // (instance, k) row of the k axis
   const int i = blockIdx.x;
-  const Dev<float> d = load_dev<float>(rdv, M, i, bp, ks[kidx], Ws[kidx], E);
+  const Dev<float> d = load_dev<float>(rdv + (size_t)s * DR_ROWS * M, M, i, bp_s[s],
+                                       ks[kidx], Ws[kidx], E_s[s]);
   const float th = theta[(size_t)kidx * M + i];
   const float lm = lam[kidx];
   const float mm = mu[kidx];
@@ -256,7 +267,9 @@ __global__ void decomp_f32_kernel(const float* __restrict__ rdv, float bp, float
   }
 }
 
-__global__ void decomp_f64_kernel(const double* __restrict__ rdv, double bp, double E,
+__global__ void decomp_f64_kernel(const double* __restrict__ rdv,
+                                  const double* __restrict__ bp_s,
+                                  const double* __restrict__ E_s,
                                   const double* __restrict__ ks,
                                   const double* __restrict__ Ws, int M, int w_max,
                                   int e_max, const double* __restrict__ lam,
@@ -268,10 +281,13 @@ __global__ void decomp_f64_kernel(const double* __restrict__ rdv, double bp, dou
                                   int* __restrict__ hint_flat) {
   __shared__ double red_v[32];
   __shared__ int red_i[32];
-  const int kidx = blockIdx.y;
+  const int n_k = gridDim.y;
+  const int s = blockIdx.z;
+  const int kidx = s * n_k + blockIdx.y;  // (instance, k) row of the k axis
   const int i = blockIdx.x;
   const int Y = e_max + 1;
-  const Dev<double> d = load_dev<double>(rdv, M, i, bp, ks[kidx], Ws[kidx], E);
+  const Dev<double> d = load_dev<double>(rdv + (size_t)s * DR_ROWS * M, M, i, bp_s[s],
+                                         ks[kidx], Ws[kidx], E_s[s]);
   const double th = theta[(size_t)kidx * M + i];
   const double lm = lam[kidx];
   const double mm = mu[kidx];
@@ -350,25 +366,28 @@ int threads_for(int e_max) {
 
 extern "C" {
 
-int dtk_decomp_eval_f32(const float* rdv, float bp, float E, const float* ks,
-                        const float* Ws, int n_k, int M, int w_max, int e_max,
-                        const float* lam, const float* mu, const float* theta,
-                        float* bmin, float* wbar, float* ybar, float* cycbar,
-                        void* stream) {
-  if (n_k <= 0 || M <= 0) return 0;
-  dim3 grid(M, n_k);
+// Shapes: rdv (S, DR_ROWS, M); bp, E (S,); ks, Ws, lam, mu (S, n_k); theta
+// and the (S, n_k, M) outputs; m_y (S, n_k, M, e_max + 1).
+int dtk_decomp_eval_f32(const float* rdv, const float* bp, const float* E,
+                        const float* ks, const float* Ws, int S, int n_k, int M,
+                        int w_max, int e_max, const float* lam, const float* mu,
+                        const float* theta, float* bmin, float* wbar, float* ybar,
+                        float* cycbar, void* stream) {
+  if (S <= 0 || n_k <= 0 || M <= 0) return 0;
+  dim3 grid(M, n_k, S);
   decomp_f32_kernel<<<grid, threads_for(e_max), 0, (cudaStream_t)stream>>>(
       rdv, bp, E, ks, Ws, M, w_max, e_max, lam, mu, theta, bmin, wbar, ybar, cycbar);
   return (int)cudaGetLastError();
 }
 
-int dtk_decomp_eval_f64(const double* rdv, double bp, double E, const double* ks,
-                        const double* Ws, int n_k, int M, int w_max, int e_max,
-                        const double* lam, const double* mu, const double* theta,
-                        int track_hint, double* m_y, unsigned char* any_ok,
-                        double* hint_w, int* hint_flat, void* stream) {
-  if (n_k <= 0 || M <= 0) return 0;
-  dim3 grid(M, n_k);
+int dtk_decomp_eval_f64(const double* rdv, const double* bp, const double* E,
+                        const double* ks, const double* Ws, int S, int n_k, int M,
+                        int w_max, int e_max, const double* lam, const double* mu,
+                        const double* theta, int track_hint, double* m_y,
+                        unsigned char* any_ok, double* hint_w, int* hint_flat,
+                        void* stream) {
+  if (S <= 0 || n_k <= 0 || M <= 0) return 0;
+  dim3 grid(M, n_k, S);
   decomp_f64_kernel<<<grid, threads_for(e_max), 0, (cudaStream_t)stream>>>(
       rdv, bp, E, ks, Ws, M, w_max, e_max, lam, mu, theta, track_hint, m_y, any_ok,
       hint_w, hint_flat);

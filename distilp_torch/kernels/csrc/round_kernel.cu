@@ -11,6 +11,13 @@
 // closed-form RAM and VRAM slacks; the cycle C = max(busy + fetch/2); the
 // exact objective (k-1) C + sum(lin), +inf when the point is infeasible.
 //
+// Per-row instance: `rd` is a stack of packed rounding blocks, one per
+// instance, `rd_stride` doubles apart, and row r rounds against block
+// inst[r] (its own w_active, a, busy constants and right-hand sides), so the
+// rows of several sweeps (scenarios, batch lanes) round in one launch, as the
+// reference's vmap over sweeps does. inst == nullptr reads block 0 for every
+// row.
+//
 // What bounds it on an H100: a row is O(M^2) scalar float64 work over a few
 // hundred bytes of input (M=16: 16 devices, 20 scan steps of a 16-wide
 // argmax); the batch is at most a few dozen rows. Latency of one warp per
@@ -45,7 +52,8 @@ template <typename Tv>
 __global__ void round_kernel(const Tv* __restrict__ v, long v_stride,
                              const double* __restrict__ Wr,
                              const double* __restrict__ kr,
-                             const double* __restrict__ rd, int M,
+                             const double* __restrict__ rd_all,
+                             const int* __restrict__ inst, long rd_stride, int M,
                              int B, double* __restrict__ obj_out,
                              double* __restrict__ w_out,
                              double* __restrict__ n_out) {
@@ -57,6 +65,7 @@ __global__ void round_kernel(const Tv* __restrict__ v, long v_stride,
   double* w = sm + (size_t)wid * 2 * M;
   double* rem = w + M;
   const Tv* vr = v + (size_t)r * v_stride;
+  const double* rd = rd_all + (inst != nullptr ? (size_t)inst[r] * rd_stride : 0);
   const double* w_active = rd + (size_t)RD_W_ACTIVE * M;
   const double bp = rd[(size_t)RD_BPRIME * M];
   const double Wf = Wr[r];
@@ -144,7 +153,8 @@ __global__ void round_kernel(const Tv* __restrict__ v, long v_stride,
 
 template <typename Tv>
 int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
-           const double* rd, int M, int B, double* obj, double* w,
+           const double* rd, const int* inst, long rd_stride, int M, int B,
+           double* obj, double* w,
            double* n, cudaStream_t stream) {
   const int warps = 4;
   const int blocks = (B + warps - 1) / warps;
@@ -154,8 +164,8 @@ int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
         round_kernel<Tv>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
     if (err != cudaSuccess) return (int)err;
   }
-  round_kernel<Tv><<<blocks, 32 * warps, sm, stream>>>(v, v_stride, Wr, kr, rd, M,
-                                                       B, obj, w, n);
+  round_kernel<Tv><<<blocks, 32 * warps, sm, stream>>>(v, v_stride, Wr, kr, rd, inst,
+                                                       rd_stride, M, B, obj, w, n);
   return (int)cudaGetLastError();
 }
 
@@ -164,16 +174,18 @@ int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
 extern "C" {
 
 int dtk_round_f32(const float* v, long v_stride, const double* Wr,
-                  const double* kr, const double* rd, int M, int B,
-                  double* obj, double* w, double* n, void* stream) {
-  return launch<float>(v, v_stride, Wr, kr, rd, M, B, obj, w, n,
+                  const double* kr, const double* rd, const int* inst,
+                  long rd_stride, int M, int B, double* obj, double* w,
+                  double* n, void* stream) {
+  return launch<float>(v, v_stride, Wr, kr, rd, inst, rd_stride, M, B, obj, w, n,
                        (cudaStream_t)stream);
 }
 
 int dtk_round_f64(const double* v, long v_stride, const double* Wr,
-                  const double* kr, const double* rd, int M, int B,
-                  double* obj, double* w, double* n, void* stream) {
-  return launch<double>(v, v_stride, Wr, kr, rd, M, B, obj, w, n,
+                  const double* kr, const double* rd, const int* inst,
+                  long rd_stride, int M, int B, double* obj, double* w,
+                  double* n, void* stream) {
+  return launch<double>(v, v_stride, Wr, kr, rd, inst, rd_stride, M, B, obj, w, n,
                         (cudaStream_t)stream);
 }
 

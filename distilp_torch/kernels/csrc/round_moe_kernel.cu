@@ -18,6 +18,11 @@
 //      flat first argmin over (q, i, j), taken when it beats the current
 //      price by more than 1e-12;
 //   4. the exact objective (k-1) C + sum(lin), +inf when infeasible.
+// Per-row instance: `rd` is a stack of (RD_ROWS, M) blocks and `E` one
+// expert count per block; row r prices against block inst[r] (inst ==
+// nullptr: block 0 for every row), so the rows of several sweeps round in
+// one launch, as the reference's vmap over sweeps does. The hint mode
+// (y_steps >= 0) takes the same index.
 // A candidate's price is computed by one thread over the M devices in
 // device order (the plain version sums in the same order), so equal-cost
 // candidates tie, and the first-index argmin breaks the tie, the same way
@@ -196,8 +201,9 @@ template <typename Tv>
 __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
                                  const double* __restrict__ Wr,
                                  const double* __restrict__ kr,
-                                 const double* __restrict__ rd,
-                                 const double* __restrict__ E_ptr, int M, int y_steps,
+                                 const double* __restrict__ rd_all,
+                                 const double* __restrict__ E_all,
+                                 const int* __restrict__ inst, int M, int y_steps,
                                  int moves, double* __restrict__ obj_out,
                                  double* __restrict__ w_out,
                                  double* __restrict__ n_out,
@@ -210,6 +216,9 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const Tv* vr = v + (size_t)r * v_stride;
+  const int q_inst = inst != nullptr ? inst[r] : 0;
+  const double* rd = rd_all + (size_t)q_inst * RD_ROWS * M;
+  const double* E_ptr = E_all + q_inst;
   const double* RD = rd;
   auto rdv = [&](int row, int j) { return RD[(size_t)row * M + j]; };
   double* w = sm + (size_t)S_W * M;
@@ -375,9 +384,9 @@ __global__ void price_fixed_kernel(const double* __restrict__ w_in,
 
 template <typename Tv>
 int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
-           const double* rd, const double* E, int M, int B, int y_steps, int moves,
-           double* obj, double* w, double* n, double* y, int threads,
-           cudaStream_t stream) {
+           const double* rd, const double* E, const int* inst, int M, int B,
+           int y_steps, int moves, double* obj, double* w, double* n, double* y,
+           int threads, cudaStream_t stream) {
   if (threads % 32 != 0 || threads < 32 || threads > 1024) return (int)cudaErrorInvalidValue;
   const size_t sm = sizeof(double) * (size_t)S_ARRAYS * M;
   if (sm > 48 * 1024) {
@@ -385,8 +394,8 @@ int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
         round_moe_kernel<Tv>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
     if (err != cudaSuccess) return (int)err;
   }
-  round_moe_kernel<Tv><<<B, threads, sm, stream>>>(v, v_stride, Wr, kr, rd, E, M,
-                                                  y_steps, moves, obj, w, n, y);
+  round_moe_kernel<Tv><<<B, threads, sm, stream>>>(v, v_stride, Wr, kr, rd, E, inst,
+                                                  M, y_steps, moves, obj, w, n, y);
   return (int)cudaGetLastError();
 }
 
@@ -395,19 +404,21 @@ int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
 extern "C" {
 
 int dtk_round_moe_f32(const float* v, long v_stride, const double* Wr,
-                      const double* kr, const double* rd, const double* E, int M,
-                      int B, int y_steps, int moves, double* obj, double* w,
-                      double* n, double* y, int threads, void* stream) {
-  return launch<float>(v, v_stride, Wr, kr, rd, E, M, B, y_steps, moves, obj, w, n,
-                       y, threads, (cudaStream_t)stream);
+                      const double* kr, const double* rd, const double* E,
+                      const int* inst, int M, int B, int y_steps, int moves,
+                      double* obj, double* w, double* n, double* y, int threads,
+                      void* stream) {
+  return launch<float>(v, v_stride, Wr, kr, rd, E, inst, M, B, y_steps, moves, obj, w,
+                       n, y, threads, (cudaStream_t)stream);
 }
 
 int dtk_round_moe_f64(const double* v, long v_stride, const double* Wr,
-                      const double* kr, const double* rd, const double* E, int M,
-                      int B, int y_steps, int moves, double* obj, double* w,
-                      double* n, double* y, int threads, void* stream) {
-  return launch<double>(v, v_stride, Wr, kr, rd, E, M, B, y_steps, moves, obj, w, n,
-                        y, threads, (cudaStream_t)stream);
+                      const double* kr, const double* rd, const double* E,
+                      const int* inst, int M, int B, int y_steps, int moves,
+                      double* obj, double* w, double* n, double* y, int threads,
+                      void* stream) {
+  return launch<double>(v, v_stride, Wr, kr, rd, E, inst, M, B, y_steps, moves, obj, w,
+                        n, y, threads, (cudaStream_t)stream);
 }
 
 int dtk_price_fixed_f64(const double* w, const double* n, const double* y,

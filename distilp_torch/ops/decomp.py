@@ -31,6 +31,14 @@ PyTorch versions (the straightforward broadcast of ``_decomp_terms_for_w``).
 with no device-to-host read, one evaluation per step (the evaluation at the
 new multipliers gives both the bound for the best-of tracking and the next
 step's gradient).
+
+Several instances at once (a MoE scenario batch, the reference's vmap of
+``_decomp_bound_roots``): a :class:`DecompBatch` (:func:`stack_problems`)
+carries a leading instance axis S, the multipliers are (S, n_k) and
+(S, n_k, M), and every evaluation is one launch over the S instances, so
+the S ascents run in lockstep in one host loop. One sweep is the S = 1
+batch; a :class:`DecompProblem` is one instance, what the plain versions
+evaluate.
 """
 
 from __future__ import annotations
@@ -71,6 +79,46 @@ class DecompProblem(NamedTuple):
 
     def field(self, name: str) -> torch.Tensor:
         return self.rdv[RD_DEV_FIELDS.index(name)]
+
+
+class DecompBatch(NamedTuple):
+    """S sweeps' decomposition data in one dtype, on one device (the same
+    k-grid length, ``w_max`` and ``e_max``)."""
+
+    rdv: torch.Tensor  # (S, 15, M)
+    bp: torch.Tensor  # (S,)
+    E: torch.Tensor  # (S,)
+    ks: torch.Tensor  # (S, n_k)
+    Ws: torch.Tensor  # (S, n_k)
+    w_max: int
+    e_max: int
+
+    @property
+    def dtype(self):
+        return self.rdv.dtype
+
+    def instance(self, s: int) -> DecompProblem:
+        return DecompProblem(rdv=self.rdv[s], bp=float(self.bp[s]), E=float(self.E[s]),
+                             ks=self.ks[s], Ws=self.Ws[s], w_max=self.w_max,
+                             e_max=self.e_max)
+
+
+def stack_problems(problems) -> DecompBatch:
+    """One :class:`DecompBatch` of single-sweep problems."""
+    p0 = problems[0]
+    if any((p.w_max, p.e_max, p.ks.shape) != (p0.w_max, p0.e_max, p0.ks.shape)
+           for p in problems):
+        raise ValueError("stacked decomposition problems need one k grid, w_max and e_max")
+    dev, dt = p0.rdv.device, p0.dtype
+    return DecompBatch(
+        rdv=torch.stack([p.rdv for p in problems]).contiguous(),
+        bp=torch.tensor([p.bp for p in problems], dtype=dt, device=dev),
+        E=torch.tensor([p.E for p in problems], dtype=dt, device=dev),
+        ks=torch.stack([p.ks for p in problems]).contiguous(),
+        Ws=torch.stack([p.Ws for p in problems]).contiguous(),
+        w_max=p0.w_max,
+        e_max=p0.e_max,
+    )
 
 
 def decomp_problem(rd_np: dict, ks, Ws, w_max: int, e_max: int, dtype,
@@ -223,89 +271,106 @@ def eval64_reference(p: DecompProblem, lam, mu, theta, track_hint: bool):
 # ------------------------------------------------------------ kernel route
 
 
-def _check_inputs(p: DecompProblem, lam, mu, theta, dtype):
-    """(n_k, M) of a kernel call; raises on what the kernel does not take."""
-    n_k, M = theta.shape
-    if p.dtype != dtype or any(t.dtype != dtype for t in (lam, mu, theta)):
+def _check_inputs(p: DecompBatch, lam, mu, theta, dtype):
+    """(S, n_k, M) of a kernel call; raises on what the kernel does not
+    take."""
+    S, n_k, M = theta.shape
+    if p.dtype != dtype or any(t.dtype != dtype for t in (lam, mu, theta, p.bp, p.E)):
         raise TypeError(f"this decomposition evaluation takes {dtype} tensors")
-    if p.rdv.shape != (len(RD_DEV_FIELDS), M) or lam.shape != (n_k,) or mu.shape != (n_k,):
-        raise ValueError("decomposition inputs do not match (n_k, M)")
-    return n_k, M
+    if p.rdv.shape != (S, len(RD_DEV_FIELDS), M) or p.ks.shape != (S, n_k) \
+            or lam.shape != (S, n_k) or mu.shape != (S, n_k) or p.bp.shape != (S,):
+        raise ValueError("decomposition inputs do not match (S, n_k, M)")
+    return S, n_k, M
 
 
-def eval32_kernel(p: DecompProblem, lam, mu, theta):
+def eval32_kernel(p: DecompBatch, lam, mu, theta):
     """K7's float32 entry on CUDA tensors: what :func:`eval32_reference`
-    returns, at ``theta`` = (k - 1) softmax(tau)."""
+    returns, at ``theta`` = (k - 1) softmax(tau), for every instance of
+    ``p`` in one launch (each value with the leading instance axis)."""
     from ..kernels.build import library
 
-    n_k, M = _check_inputs(p, lam, mu, theta, torch.float32)
+    S, n_k, M = _check_inputs(p, lam, mu, theta, torch.float32)
     dev = p.rdv.device
-    outs = [torch.empty((n_k, M), dtype=torch.float32, device=dev) for _ in range(4)]
+    outs = [torch.empty((S, n_k, M), dtype=torch.float32, device=dev) for _ in range(4)]
+    # Held until the launch (a temporary freed inside the argument list could
+    # hand its memory to the next one).
+    ins = [t.contiguous() for t in (p.rdv, p.bp, p.E, p.ks, p.Ws, lam, mu, theta)]
     P = kernels.ptr
-    c = lambda t: t.contiguous()  # noqa: E731
     err = library("decomp").dtk_decomp_eval_f32(
-        P(c(p.rdv)), p.bp, p.E, P(c(p.ks)), P(c(p.Ws)), n_k, M, p.w_max, p.e_max,
-        P(c(lam)), P(c(mu)), P(c(theta)), *[P(o) for o in outs],
-        kernels.stream_handle(dev),
+        *[P(t) for t in ins[:5]], S, n_k, M, p.w_max, p.e_max,
+        *[P(t) for t in ins[5:]], *[P(o) for o in outs], kernels.stream_handle(dev),
     )
     kernels.check(err, "decomp")
-    kernels.LAUNCHES["decomp"] += 1
+    kernels.LAUNCHES["decomp_lanes" if S > 1 else "decomp"] += 1
     return tuple(outs)
 
 
-def eval64_kernel(p: DecompProblem, lam, mu, theta, track_hint: bool):
+def eval64_kernel(p: DecompBatch, lam, mu, theta, track_hint: bool):
     """K7's float64 entry on CUDA tensors: what :func:`eval64_reference`
-    returns."""
+    returns, for every instance of ``p`` in one launch."""
     from ..kernels.build import library
 
-    n_k, M = _check_inputs(p, lam, mu, theta, torch.float64)
+    S, n_k, M = _check_inputs(p, lam, mu, theta, torch.float64)
     dev = p.rdv.device
     Y = p.e_max + 1
-    m_y = torch.empty((n_k, M, Y), dtype=torch.float64, device=dev)
-    any_ok = torch.empty((n_k, M), dtype=torch.uint8, device=dev)
-    hint_w = torch.zeros((n_k, M), dtype=torch.float64, device=dev)
-    hint_flat = torch.zeros((n_k, M), dtype=torch.int32, device=dev)
+    m_y = torch.empty((S, n_k, M, Y), dtype=torch.float64, device=dev)
+    any_ok = torch.empty((S, n_k, M), dtype=torch.uint8, device=dev)
+    hint_w = torch.zeros((S, n_k, M), dtype=torch.float64, device=dev)
+    hint_flat = torch.zeros((S, n_k, M), dtype=torch.int32, device=dev)
+    ins = [t.contiguous() for t in (p.rdv, p.bp, p.E, p.ks, p.Ws, lam, mu, theta)]
     P = kernels.ptr
-    c = lambda t: t.contiguous()  # noqa: E731
     err = library("decomp").dtk_decomp_eval_f64(
-        P(c(p.rdv)), p.bp, p.E, P(c(p.ks)), P(c(p.Ws)), n_k, M, p.w_max, p.e_max,
-        P(c(lam)), P(c(mu)), P(c(theta)), int(track_hint), P(m_y), P(any_ok),
-        P(hint_w), P(hint_flat), kernels.stream_handle(dev),
+        *[P(t) for t in ins[:5]], S, n_k, M, p.w_max, p.e_max,
+        *[P(t) for t in ins[5:]], int(track_hint), P(m_y), P(any_ok), P(hint_w),
+        P(hint_flat), kernels.stream_handle(dev),
     )
     kernels.check(err, "decomp")
-    kernels.LAUNCHES["decomp"] += 1
+    kernels.LAUNCHES["decomp_lanes" if S > 1 else "decomp"] += 1
     return m_y, any_ok.to(torch.bool), hint_w, hint_flat
+
+
+def _reference_by_instance(fn, p: DecompBatch, lam, mu, theta, *args, cells=None):
+    """A plain single-problem evaluation over every instance of a batch,
+    stacked (``cells``: one :func:`decomp_cells` per instance, or None)."""
+    S = p.rdv.shape[0]
+    extra = [() if cells is None else (cells[s],) for s in range(S)]
+    outs = [fn(p.instance(s), lam[s], mu[s], theta[s], *args, *extra[s]) for s in range(S)]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 # ------------------------------------------------------------ evaluations
 
 
 def softmax(tau: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax(tau, axis=1)`` as it computes it."""
-    e = torch.exp(tau - tau.amax(dim=1, keepdim=True))
-    return e / e.sum(dim=1, keepdim=True)
+    """``jax.nn.softmax(tau, axis=-1)`` as it computes it."""
+    e = torch.exp(tau - tau.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
-def eval32(p: DecompProblem, lam, mu, tau, cells=None):
-    """(b (n_k,), stats) of the float32 bound at (lam, mu, tau); ``stats``
-    = (w_bar, y_bar, cyc_bar, softmax(tau)) feeds :func:`bound_grads`."""
+def eval32(p: DecompBatch, lam, mu, tau, cells=None):
+    """(b (S, n_k), stats) of the float32 bound at (lam, mu, tau) (S, n_k),
+    (S, n_k), (S, n_k, M); ``stats`` = (w_bar, y_bar, cyc_bar, softmax(tau))
+    feeds :func:`bound_grads`. The kernel evaluates all instances in one
+    launch; ``cells`` (one :func:`decomp_cells` per instance) saves the
+    plain version rebuilding them."""
     s = softmax(tau)
-    theta = (p.ks - 1.0)[:, None] * s
+    theta = (p.ks - 1.0)[..., None] * s
     if kernels.on_cuda(p.rdv, lam, mu, tau):
         mn, wbar, ybar, cycbar = eval32_kernel(p, lam, mu, theta)
     else:
-        mn, wbar, ybar, cycbar = eval32_reference(p, lam, mu, theta, cells)
-    b = mn.sum(dim=1) + lam * p.Ws + mu * p.E
+        mn, wbar, ybar, cycbar = _reference_by_instance(eval32_reference, p, lam, mu, theta,
+                                                        cells=cells)
+    b = mn.sum(dim=-1) + lam * p.Ws + mu * p.E[:, None]
     return b, (wbar, ybar, cycbar, s)
 
 
-def bound_grads(p: DecompProblem, stats, grad_b):
+def bound_grads(p: DecompBatch, stats, grad_b):
     """Gradients of sum(grad_b * b) with respect to (lam, mu, tau)."""
     wbar, ybar, cycbar, s = stats
-    g_lam = grad_b * (p.Ws - wbar.sum(dim=1))
-    g_mu = grad_b * (p.E - ybar.sum(dim=1))
-    ct_s = (p.ks - 1.0)[:, None] * (grad_b[:, None] * cycbar)
-    g_tau = s * ct_s - s * (s * ct_s).sum(dim=1, keepdim=True)
+    g_lam = grad_b * (p.Ws - wbar.sum(dim=-1))
+    g_mu = grad_b * (p.E[:, None] - ybar.sum(dim=-1))
+    ct_s = (p.ks - 1.0)[..., None] * (grad_b[..., None] * cycbar)
+    g_tau = s * ct_s - s * (s * ct_s).sum(dim=-1, keepdim=True)
     return g_lam, g_mu, g_tau
 
 
@@ -315,7 +380,7 @@ class DecompBound32(torch.autograd.Function):
     tied minimizing cells."""
 
     @staticmethod
-    def forward(ctx, lam, mu, tau, problem: DecompProblem):
+    def forward(ctx, lam, mu, tau, problem: DecompBatch):
         b, stats = eval32(problem, lam, mu, tau)
         ctx.problem = problem
         ctx.stats = stats
@@ -327,25 +392,27 @@ class DecompBound32(torch.autograd.Function):
         return g_lam, g_mu, g_tau, None
 
 
-def eval64(p: DecompProblem, lam, mu, tau, track_hint: bool):
-    """The float64 evaluation at (lam, mu, tau): (bound (n_k,), m_y,
-    any_ok, hint_w, hint_flat). The bound is -inf where it is NaN and +inf
-    for a k in which some device has no feasible cell."""
-    theta = (p.ks - 1.0)[:, None] * softmax(tau)
+def eval64(p: DecompBatch, lam, mu, tau, track_hint: bool):
+    """The float64 evaluation at (lam, mu, tau): (bound (S, n_k), m_y,
+    any_ok, hint_w, hint_flat), each with the leading instance axis. The
+    bound is -inf where it is NaN and +inf for a k in which some device has
+    no feasible cell."""
+    theta = (p.ks - 1.0)[..., None] * softmax(tau)
     if kernels.on_cuda(p.rdv, lam, mu, tau):
         m_y, any_ok, hint_w, hint_flat = eval64_kernel(p, lam, mu, theta, track_hint)
     else:
-        m_y, any_ok, hint_w, hint_flat = eval64_reference(p, lam, mu, theta, track_hint)
+        m_y, any_ok, hint_w, hint_flat = _reference_by_instance(
+            eval64_reference, p, lam, mu, theta, track_hint)
     return bound_of(p, m_y, any_ok, lam, mu), m_y, any_ok, hint_w, hint_flat
 
 
-def bound_of(p: DecompProblem, m_y, any_ok, lam, mu) -> torch.Tensor:
-    """The per-k bound from the y-profile: sum over devices of the minimum
-    over y, plus lam W + mu E; -inf where NaN, +inf for a k in which some
-    device has no feasible cell."""
-    bound = m_y.amin(dim=2).sum(dim=1) + lam * p.Ws + mu * p.E
+def bound_of(p: DecompBatch, m_y, any_ok, lam, mu) -> torch.Tensor:
+    """The per-k bound (S, n_k) from the y-profile: sum over devices of the
+    minimum over y, plus lam W + mu E; -inf where NaN, +inf for a k in which
+    some device has no feasible cell."""
+    bound = m_y.amin(dim=-1).sum(dim=-1) + lam * p.Ws + mu * p.E[:, None]
     bound = torch.where(torch.isnan(bound), float("-inf"), bound)
-    return torch.where(any_ok.all(dim=1), bound, float("inf"))
+    return torch.where(any_ok.all(dim=-1), bound, float("inf"))
 
 
 def _adam_constants(steps: int):
@@ -362,48 +429,54 @@ def _adam_constants(steps: int):
     return out
 
 
-def ascend(p32: DecompProblem, steps: int, init_params=None):
+def ascend(p32: DecompBatch, steps: int, init_params=None):
     """The float32 Adam ascent on the per-k bounds from ``init_params``
     (zeros when None); returns the best multipliers seen, the initial point
-    included, per k: (lam (n_k,), mu (n_k,), tau (n_k, M)), float32."""
-    n_k, M = p32.ks.shape[0], p32.rdv.shape[1]
+    included, per (instance, k): (lam (S, n_k), mu (S, n_k), tau
+    (S, n_k, M)), float32. Each step is one evaluation of all S instances:
+    the S ascents in lockstep, as the reference's vmap runs them."""
+    S, n_k = p32.ks.shape
+    M = p32.rdv.shape[-1]
     dev = p32.rdv.device
     f32 = torch.float32
     if init_params is not None:
         lam0, mu0, tau0 = (torch.as_tensor(x).to(device=dev, dtype=f32) for x in init_params)
-        P = torch.cat([lam0.reshape(n_k), mu0.reshape(n_k), tau0.reshape(n_k * M)])
+        P = torch.cat([lam0.reshape(S, n_k), mu0.reshape(S, n_k),
+                       tau0.reshape(S, n_k * M)], dim=-1)
     else:
-        P = torch.zeros(n_k * (2 + M), dtype=f32, device=dev)
+        P = torch.zeros((S, n_k * (2 + M)), dtype=f32, device=dev)
 
     def split(x):
-        return x[:n_k], x[n_k:2 * n_k], x[2 * n_k:].view(n_k, M)
+        return x[..., :n_k], x[..., n_k:2 * n_k], x[..., 2 * n_k:].reshape(S, n_k, M)
 
     if steps <= 0:
         return split(P)
     ar = torch.arange(n_k, device=dev)
     kmap = torch.cat([ar, ar, ar.repeat_interleave(M)])
-    cells = None if kernels.on_cuda(p32.rdv) else decomp_cells(p32)
-    neg_one = torch.full((n_k,), -1.0, dtype=f32, device=dev)
+    cells = None
+    if not kernels.on_cuda(p32.rdv):
+        cells = [decomp_cells(p32.instance(i)) for i in range(S)]
+    neg_one = torch.full((S, n_k), -1.0, dtype=f32, device=dev)
 
     b, stats = eval32(p32, *split(P), cells=cells)
     best_b, best_P = b, P
     m = torch.zeros_like(P)
     v = torch.zeros_like(P)
     for lr, bc1, bc2 in _adam_constants(steps):
-        g = torch.cat([t.reshape(-1) for t in bound_grads(p32, stats, neg_one)])
+        g = torch.cat([t.reshape(S, -1) for t in bound_grads(p32, stats, neg_one)], dim=-1)
         m = ADAM_B1 * m + (1 - ADAM_B1) * g
         v = ADAM_B2 * v + (1 - ADAM_B2) * g * g
         P = P - lr * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
         b, stats = eval32(p32, *split(P), cells=cells)
         better = b > best_b
-        best_P = torch.where(better[kmap], P, best_P)
+        best_P = torch.where(better[..., kmap], P, best_P)
         best_b = torch.maximum(best_b, b)
     return split(best_P)
 
 
 def decomp_bound_roots(
-    p32: DecompProblem,
-    p64: DecompProblem,
+    p32: DecompBatch,
+    p64: DecompBatch,
     rd,
     steps: int,
     init_params=None,
@@ -415,14 +488,14 @@ def decomp_bound_roots(
     ``init_params`` (the stored duals on a warm tick), then the float64
     evaluation at the chosen multipliers. With ``steps == 0`` only that
     evaluation runs, and the hint (w*, n*, y*) is zeros. ``rd`` is the
-    float64 :class:`~distilp_torch.solver.rounding.RoundingData` on the same
-    device (for n*)."""
+    float64 stack of the instances'
+    :class:`~distilp_torch.solver.rounding.RoundingData` on the same device
+    (for n*). Every output carries the leading instance axis."""
     lam, mu, tau = (x.to(torch.float64) for x in ascend(p32, steps, init_params))
     track_hint = steps > 0
     bound, m_y, _, hint_w, hint_flat = eval64(p64, lam, mu, tau, track_hint)
-    n_k, M = tau.shape
     if not track_hint:
-        z = torch.zeros((n_k, M), dtype=torch.float64, device=tau.device)
+        z = torch.zeros(tau.shape, dtype=torch.float64, device=tau.device)
         return bound, z, z, z, (lam, mu, tau), m_y
     w_star, n_star, y_star = primal_hint(rd, hint_w, hint_flat, p64.e_max + 1)
     return bound, w_star, n_star, y_star, (lam, mu, tau), m_y
@@ -432,30 +505,35 @@ def primal_hint(rd, hint_w, hint_flat, Y: int):
     """(w*, n*, y*) of the hint cells: y* and the candidate from the flat
     (candidate, y) index, and n* rebuilt from the candidate (0, w, the VRAM
     boundary, the RAM-slack kink or the s <= w endpoint) as
-    ``_decomp_bound_roots`` rebuilds it, in float64 from ``rd``."""
+    ``_decomp_bound_roots`` rebuilds it, in float64 from ``rd`` ((n_k, M)
+    hints of one instance, or (S, n_k, M) of a stack of S)."""
     flat = hint_flat.to(torch.int64)
     c_star = flat // Y
     w_star = hint_w
     y_star = (flat % Y).to(torch.float64)
-    hg = rd.has_gpu[None, :]
-    rm = rd.ram_minus_n[None, :]
-    bp = rd.bprime
+
+    def dev_(x):  # a per-device vector against the (…, n_k, M) hints
+        return x[..., None, :]
+
+    hg = dev_(rd.has_gpu)
+    rm = dev_(rd.ram_minus_n)
+    bp = rd.bprime[..., None, None]
     zero = torch.zeros((), dtype=torch.float64, device=w_star.device)
 
     def clip(x, hi):
         return torch.minimum(torch.maximum(x, zero), hi)
 
-    vram_rhs = torch.minimum(rd.cuda_rhs[None, :] - rd.eb_vram[None, :] * y_star,
-                             rd.metal_rhs[None, :] - rd.eb_metal[None, :] * y_star)
+    vram_rhs = torch.minimum(dev_(rd.cuda_rhs) - dev_(rd.eb_vram) * y_star,
+                             dev_(rd.metal_rhs) - dev_(rd.eb_metal) * y_star)
     n_bnd = clip(torch.floor(vram_rhs / bp), w_star) * hg
     n_bnd = torch.where(torch.isfinite(n_bnd), n_bnd, w_star * hg)
     n_kink = clip(
-        torch.ceil((bp * w_star + rd.eb_ram[None, :] * y_star - rd.ram_rhs[None, :]) / bp - 1e-9),
+        torch.ceil((bp * w_star + dev_(rd.eb_ram) * y_star - dev_(rd.ram_rhs)) / bp - 1e-9),
         w_star,
     ) * hg * rm
     n_kink = torch.where(torch.isfinite(n_kink), n_kink, zero)
     n_smin = clip(
-        torch.ceil((rd.eb_ram[None, :] * y_star - rd.ram_rhs[None, :]) / bp - 1e-9), w_star
+        torch.ceil((dev_(rd.eb_ram) * y_star - dev_(rd.ram_rhs)) / bp - 1e-9), w_star
     ) * hg * rm
     n_smin = torch.where(torch.isfinite(n_smin), n_smin, zero)
     n_star = torch.where(

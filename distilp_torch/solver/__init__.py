@@ -1,7 +1,22 @@
 """HALDA placement solver on PyTorch/CUDA: GPU backend + CPU/HiGHS oracle."""
 
-from .api import PendingHalda, halda_solve, halda_solve_async, halda_solve_per_k
+from .api import (
+    PendingHalda,
+    halda_solve,
+    halda_solve_async,
+    halda_solve_per_k,
+    halda_solve_scenarios,
+)
 from .backend_torch import resolve_device
+from .batchlayout import (
+    PackedInstance,
+    clear_lane_static_cache,
+    lane_static_to_device,
+    pack_instance,
+    pad_instance,
+    solve_batch,
+    unpad_result,
+)
 from .coeffs import (
     HaldaCoeffs,
     alpha_beta_xi,
@@ -22,12 +37,22 @@ from .routing import (
     realized_objective,
     solve_load_aware,
 )
+from .streaming import StreamingReplanner
 
 __all__ = [
     "halda_solve",
     "halda_solve_async",
     "halda_solve_per_k",
+    "halda_solve_scenarios",
     "PendingHalda",
+    "StreamingReplanner",
+    "PackedInstance",
+    "clear_lane_static_cache",
+    "lane_static_to_device",
+    "pack_instance",
+    "pad_instance",
+    "solve_batch",
+    "unpad_result",
     "ExpertMapping",
     "expert_makespan",
     "map_experts",

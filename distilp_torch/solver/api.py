@@ -1,5 +1,5 @@
-"""Public solver API of the port: ``halda_solve``, ``halda_solve_per_k``
-and ``halda_solve_async`` on a CUDA device.
+"""Public solver API of the port: ``halda_solve``, ``halda_solve_per_k``,
+``halda_solve_async`` and ``halda_solve_scenarios`` on a CUDA device.
 
 ``backend='torch'`` (default) — batched branch-and-bound with the hand-written
 IPM or PDHG, rounding and epilogue kernels on ``device`` (None = ``cuda``; raises when
@@ -11,8 +11,9 @@ versions, which is what the CPU tests do.
 Same signatures and result types as the JAX package's functions of these
 names plus ``device`` (the JAX package's ``backend='jax'`` is ``'torch'``
 here); the knobs of parts the port does not have yet (the multi-GPU mesh,
-convergence traces, the MoE margin chain, MoE on the PDHG engine, the
-k-objective plot) raise when set.
+convergence traces, MoE on the PDHG engine, batch lanes with an A each on
+the PDHG engine, the k-objective plot) raise when set, naming the later
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -22,7 +23,13 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 from ..common import DeviceProfile, ModelProfile, kv_bits_to_factor
 from .assemble import assemble
 from .backend_cpu import Infeasible, solve_fixed_k_cpu
-from .backend_torch import PendingSweep, collect_sweep, resolve_device, solve_sweep_torch
+from .backend_torch import (
+    PendingSweep,
+    collect_sweep,
+    resolve_device,
+    solve_sweep_scenarios,
+    solve_sweep_torch,
+)
 from .coeffs import assign_sets, build_coeffs, valid_factors_of_L
 from .moe import adjust_model, build_moe_arrays, resolve_moe
 from .result import HALDAResult, ILPResult
@@ -100,19 +107,16 @@ def _build_instance(
     return Ks, sets, coeffs, arrays
 
 
-def _refuse_later_options(margin_state=None, convergence=None, plot=False) -> None:
+def _refuse_later_options(convergence=None, plot=False) -> None:
     """Options of parts the port does not have yet raise when set."""
-    if margin_state is not None:
+    if convergence is not None:
         raise NotImplementedError(
-            "margin_state (the MoE margin fast path of streaming ticks) is not "
-            "part of the port yet (ROADMAP.md A5)"
+            "convergence (the solver's in-kernel convergence traces, B13) is "
+            "not part of the port yet (ROADMAP.md A9)"
         )
-    unsupported = ["convergence"] if convergence is not None else []
     if plot:
-        unsupported.append("plot")
-    if unsupported:
         raise NotImplementedError(
-            f"{unsupported}: not part of the port yet (later slices)"
+            "plot (the k-objective plot) is not part of the port yet"
         )
 
 
@@ -173,11 +177,16 @@ def halda_solve(
     bounds; a ``warm`` result that carries ``duals`` re-evaluates the bound
     at them instead of running the ascent.
 
+    ``margin_state``: a dict threaded across streaming MoE ticks that turns
+    on the margin fast path (the previous tick's decomposition bounds reused
+    under drift accounted for on the host, ``margin_bounds_from_state``);
+    ``StreamingReplanner`` threads one.
+
     Returns the assignment minimizing the modeled per-round latency with its
     certificate; raises ``Infeasible`` (a ``RuntimeError``) if no k admits
     a feasible one.
     """
-    _refuse_later_options(margin_state=margin_state, convergence=convergence, plot=plot)
+    _refuse_later_options(convergence=convergence, plot=plot)
     import time as _time
 
     t0 = _time.perf_counter()
@@ -202,6 +211,7 @@ def halda_solve(
             node_cap=node_cap, timings=tm, lp_backend=lp_backend,
             pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
             mesh_shards=mesh_shards, pdhg_dtype=pdhg_dtype, device=dev,
+            margin_state=margin_state,
         )
         defaults_used = all(
             v is None
@@ -323,9 +333,10 @@ def halda_solve_async(
     ``halda_solve``: no GPU raises here, at dispatch; there is no fall-back to
     a synchronous CPU solve. A sweep with no structurally feasible k raises
     ``Infeasible`` at dispatch. ``timings`` is filled when ``collect()``
-    returns.
+    returns. The margin chain (``margin_state``) works pipelined too: the
+    bound reuse is decided at dispatch, the anchor refresh at collect.
     """
-    _refuse_later_options(margin_state=margin_state, convergence=convergence)
+    _refuse_later_options(convergence=convergence)
     dev = resolve_device(device)
     Ks, sets, coeffs, arrays = _build_instance(
         devs, model, k_candidates, kv_bits, moe, load_factors, batch_size
@@ -337,11 +348,135 @@ def halda_solve_async(
         ipm_warm_iters=ipm_warm_iters, node_cap=node_cap, timings=timings,
         lp_backend=lp_backend, pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
         mesh_shards=mesh_shards, pdhg_dtype=pdhg_dtype, device=dev, collect=False,
+        margin_state=margin_state,
     )
     if not isinstance(pending, PendingSweep):
         # The plain (results, None) of a sweep with no k where W >= M.
         raise Infeasible("No feasible MILP found for any k.")
     return PendingHalda(pending, sets)
+
+
+def _scenarios_via_batchlayout(built, kWs, mip_gap: float, warm_ilps, *, max_rounds, beam,
+                               ipm_iters, ipm_warm_iters, node_cap, lp_backend, pdhg_iters,
+                               pdhg_restart_tol, pdhg_dtype=None, timings=None, device=None):
+    """The fallback of ``halda_solve_scenarios`` when the static halves
+    differ: one packed instance per scenario, each with its own A, searched
+    as lanes of one batch (``batchlayout.solve_batch``)."""
+    from .batchlayout import pack_instance, solve_batch
+
+    S = len(built)
+
+    def mk(warms_l):
+        return [
+            pack_instance(
+                arrays, kWs, mip_gap=mip_gap, coeffs=coeffs, warm=warms_l[i],
+                ipm_iters=ipm_iters, max_rounds=max_rounds, beam=beam, node_cap=node_cap,
+                ipm_warm_iters=ipm_warm_iters, lp_backend=lp_backend, pdhg_iters=pdhg_iters,
+                pdhg_restart_tol=pdhg_restart_tol, pdhg_dtype=pdhg_dtype,
+            )
+            for i, (_, _, coeffs, arrays) in enumerate(built)
+        ]
+
+    insts = mk(warm_ilps if warm_ilps is not None else [None] * S)
+    if any(inst is None for inst in insts):
+        return [([None] * len(kWs), None) for _ in range(S)]
+    if len({inst.signature for inst in insts}) > 1:
+        # Warm hints engaged unevenly across lanes: drop them everywhere
+        # (the both-or-cold rule of the shared-static path).
+        insts = mk([None] * S)
+        if len({inst.signature for inst in insts}) > 1:
+            raise ValueError(
+                "scenarios do not share a packed shape family (fleet size, k grid, "
+                "or model shape differ across scenarios); solve them as separate sweeps"
+            )
+    if timings is not None:
+        timings["scenario_fallback"] = 1.0
+        timings["lp_backend"] = insts[0].statics["lp_backend"]
+    return solve_batch(insts, timings=timings, device=device)
+
+
+def halda_solve_scenarios(
+    scenarios: Sequence[Sequence[DeviceProfile]],
+    model: ModelProfile,
+    k_candidates: Optional[Iterable[int]] = None,
+    mip_gap: Optional[float] = 1e-4,
+    kv_bits: str = "8bit",
+    moe: Optional[bool] = None,
+    warms: Optional[Sequence[Optional[HALDAResult]]] = None,
+    max_rounds: Optional[int] = None,
+    beam: Optional[int] = None,
+    ipm_iters: Optional[int] = None,
+    ipm_warm_iters: Optional[int] = None,
+    node_cap: Optional[int] = None,
+    load_factors_list: Optional[Sequence[Optional[Sequence[float]]]] = None,
+    timings: Optional[dict] = None,
+    batch_size: int = 1,
+    lp_backend: str = "auto",
+    pdhg_iters: Optional[int] = None,
+    pdhg_restart_tol: Optional[float] = None,
+    pdhg_dtype: Optional[str] = None,
+    device=None,
+) -> List[HALDAResult]:
+    """Solve S what-if variants of one fleet as the lanes of one search.
+
+    Each scenario is the same fleet under different profile drift
+    (candidate t_comm futures, per-device expert load factors). Their static
+    halves match, so they share one A on ``device`` (None = cuda, raises
+    without a GPU; ``'cpu'`` runs the kernels' plain versions), and every
+    round runs all S scenarios' rows in one LP call and one rounding and one
+    epilogue launch; a MoE batch runs one decomposition ascent over the S
+    instances (K7's instance axis).
+
+    Scenarios whose static halves diverge (device speeds or memories, or a
+    t_comm/load excursion that moves a row's scaling) fall back to the batch
+    layout (``batchlayout``: each scenario its own A, still one search;
+    ``timings['scenario_fallback']`` reports it). Only scenarios that do not
+    share a packed shape family (fleet size, k grid, model shape) raise
+    ValueError.
+
+    ``warms``/``load_factors_list``: optional per-scenario seeds and MoE
+    load factors. Warm hints, MoE duals and root iterates engage only when
+    every scenario has them. Raises ``RuntimeError`` if a scenario admits no
+    feasible placement.
+    """
+    S = len(scenarios)
+    if S == 0:
+        return []
+    if load_factors_list is not None and len(load_factors_list) != S:
+        raise ValueError("load_factors_list must have one entry per scenario")
+    if warms is not None and len(warms) != S:
+        raise ValueError("warms must have one entry per scenario")
+    dev = resolve_device(device)
+    built = [
+        _build_instance(devs, model, k_candidates, kv_bits, moe,
+                        load_factors_list[i] if load_factors_list is not None else None,
+                        batch_size)
+        for i, devs in enumerate(scenarios)
+    ]
+    Ks = built[0][0]
+    kWs = [(k, model.L // k) for k in Ks]
+    gap = mip_gap if mip_gap is not None else 1e-4
+    warm_ilps = [_warm_to_ilp(w) for w in warms] if warms is not None else None
+    knobs = dict(max_rounds=max_rounds, beam=beam, ipm_iters=ipm_iters,
+                 ipm_warm_iters=ipm_warm_iters, node_cap=node_cap, lp_backend=lp_backend,
+                 pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
+                 pdhg_dtype=pdhg_dtype)
+    try:
+        outs = solve_sweep_scenarios(
+            [arrays for _, _, _, arrays in built], kWs, [coeffs for _, _, coeffs, _ in built],
+            mip_gap=gap, warms=warm_ilps, timings=timings, device=dev, **knobs,
+        )
+    except ValueError:
+        # Static halves diverged: the scenarios still share a signature,
+        # which is all the batch layout needs.
+        outs = _scenarios_via_batchlayout(built, kWs, gap, warm_ilps, timings=timings,
+                                          device=dev, **knobs)
+    results: List[HALDAResult] = []
+    for i, (_, best) in enumerate(outs):
+        if best is None:
+            raise RuntimeError(f"No feasible MILP found for scenario {i}.")
+        results.append(_best_to_result(best, built[i][1]))
+    return results
 
 
 def halda_solve_per_k(

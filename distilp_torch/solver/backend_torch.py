@@ -17,6 +17,14 @@ multipliers (``duals``), which the result carries on. ``per_k_optima``
 (K3's per-k mode) certifies every k on its own, with the per-k decode of
 ``_decode_sweep_out``; ``collect=False`` (``PendingSweep``/``collect_sweep``)
 runs the search on a worker thread while the caller goes on.
+
+Several sweeps search as lanes of one batch (the reference's
+``_solve_scenarios_packed``/``_solve_batched``, B12): each sweep's host
+half is a :class:`LaneInput`; :func:`solve_sweep_scenarios` runs S
+scenarios of one fleet on one shared A, and ``batchlayout.solve_batch``
+runs lanes with an A each. A single sweep is one lane. MoE streaming ticks
+may take their root bounds from the margin fast path
+(:func:`margin_bounds_from_state`).
 """
 
 from __future__ import annotations
@@ -30,11 +38,11 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.decomp import decomp_problem
+from ..ops.decomp import decomp_problem, stack_problems
 from .assemble import MilpArrays, VarLayout
 from .coeffs import HaldaCoeffs
 from .result import ILPResult
-from .rounding import pack_rounding_data, round_to_incumbent, rounding_data
+from .rounding import RoundingData, pack_rounding_data
 from .search import (
     BDTYPE,
     SearchState,
@@ -45,11 +53,13 @@ from .search import (
     root_state,
     run_bnb_loop,
     seed_root_bounds,
+    seed_warm,
 )
 from .standard_form import (
     DECOMP_STEPS_COLD,
     DECOMP_STEPS_WARM,
     MOE_LOCAL_MOVES_WARM,
+    RD_VEC_FIELDS,
     StandardForm,
     build_standard_form,
     gky_scatter_table,
@@ -162,6 +172,146 @@ def device_arrays(sf: StandardForm, g_raw=None) -> dict:
     return out
 
 
+def pack_static(sf: StandardForm) -> np.ndarray:
+    """The drift-invariant half of a sweep as one float32 vector, as the
+    reference packs it (``_pack_static``): the base A, the structural
+    objective (MoE: y columns zeroed), the root boxes (slack columns and the
+    C entry of ``hi`` zeroed: they move with the right-hand side), the slack
+    minima and the integer mask. Scenarios share one A exactly when these
+    bytes are equal; a batch lane's device copy is cached by them."""
+    lay = VarLayout(sf.M, sf.moe)
+    c_struct = np.asarray(sf.c_k, np.float64).copy()
+    hi_struct = np.asarray(sf.hi_k, np.float64).copy()
+    hi_struct[:, lay.n_vars:] = 0.0
+    hi_struct[:, lay.C] = 0.0
+    if sf.moe:
+        c_struct[:, 2 * sf.M : 3 * sf.M] = 0.0
+    return np.concatenate(
+        [
+            np.asarray(sf.A_base, np.float32).ravel(),
+            c_struct.astype(np.float32).ravel(),
+            np.asarray(sf.lo_k, np.float32).ravel(),
+            hi_struct.astype(np.float32).ravel(),
+            np.asarray(sf.smin_k, np.float32).ravel(),
+            sf.int_mask.astype(np.float32),
+        ],
+        dtype=np.float32,
+    )
+
+
+# rd fields the margin path absorbs as drift, and those that must equal the
+# anchor's exactly (they shape the ceil staircases, the ok mask, or enter
+# cells with cell-internal coefficients).
+MARGIN_DRIFT_FIELDS = ("a", "busy_const", "g_raw")
+MARGIN_EXACT_FIELDS = tuple(f for f in RD_VEC_FIELDS if f not in MARGIN_DRIFT_FIELDS)
+
+
+def margin_bounds_from_state(
+    margin_state: dict, rd: dict, sf: StandardForm,
+    duals: Tuple[np.ndarray, np.ndarray, np.ndarray],
+) -> Optional[np.ndarray]:
+    """Per-k Lagrangian bounds for THIS tick, re-derived on the host from
+    the last full evaluation's y-profile ``m_y`` (K7's float64 minima per
+    (k, device, y)), or None when reuse is unsound (the reference's
+    ``margin_bounds_from_state``, host numpy).
+
+    At fixed multipliers the per-device term decomposes exactly over drift
+    confined to the linear channels: g_raw shifts the y-profile by
+    (1 + theta) (dg/k) y (exact, re-minimised over y), ``a`` adds
+    (1 + theta) da w (a separate min over w in [1, W]: a valid lower bound,
+    exact when da = 0), busy_const adds theta dbusy. Every correction is
+    taken against the fixed anchor, so margin ticks do not decay the chain.
+    Reuse needs the same k grid and fleet size, byte-identical exact-match
+    fields, b' and E, and the multipliers the anchor was evaluated at; the
+    bound is slackened by 1e-9 (1 + |bound|) against host-versus-device
+    rounding of theta."""
+    prev_rd = margin_state.get("rd")
+    m_y = margin_state.get("m_y")
+    if prev_rd is None or m_y is None:
+        return None
+    ks = np.asarray(sf.ks, np.float64)
+    Ws = np.asarray(sf.Ws, np.float64)
+    if not (np.array_equal(margin_state.get("ks"), ks)
+            and np.array_equal(margin_state.get("Ws"), Ws)):
+        return None
+    M = rd["a"].shape[0]
+    E = float(rd["E"])
+    if m_y.shape != (ks.shape[0], M, int(E) + 1):
+        return None
+    for f in MARGIN_EXACT_FIELDS:
+        if not np.array_equal(prev_rd[f], rd[f]):
+            return None
+    if not (np.array_equal(prev_rd["bprime"], rd["bprime"])
+            and np.array_equal(prev_rd["E"], rd["E"])):
+        return None
+    prev_duals = margin_state.get("duals")
+    if prev_duals is None or not all(
+        np.array_equal(np.asarray(p, np.float64), np.asarray(q, np.float64))
+        for p, q in zip(prev_duals, duals)
+    ):
+        return None
+
+    lam, mu, tau = (np.asarray(p, np.float64) for p in duals)
+    t = np.exp(tau - tau.max(axis=1, keepdims=True))
+    theta = (ks - 1.0)[:, None] * (t / t.sum(axis=1, keepdims=True))
+    dG = np.asarray(rd["g_raw"] - prev_rd["g_raw"], np.float64)
+    dA = np.asarray(rd["a"] - prev_rd["a"], np.float64)
+    dB = np.asarray(rd["busy_const"] - prev_rd["busy_const"], np.float64)
+    y_vals = np.arange(0, int(E) + 1, dtype=np.float64)
+    kappa = (1.0 + theta) * dG[None, :] / ks[:, None]
+    per_dev = (m_y + kappa[:, :, None] * y_vals[None, None, :]).min(axis=2)
+    a_coef = (1.0 + theta) * dA[None, :]
+    per_dev = per_dev + np.minimum(a_coef, a_coef * Ws[:, None])
+    per_dev = per_dev + theta * dB[None, :]
+    bound = per_dev.sum(axis=1) + lam * Ws + mu * E
+    bound = bound - 1e-9 * (1.0 + np.abs(bound))
+    infeasible = np.isposinf(per_dev).any(axis=1)
+    bound = np.where(infeasible, np.inf, bound)
+    if np.isnan(bound).any():
+        return None
+    return bound
+
+
+class LaneInput(NamedTuple):
+    """The host half of one sweep (one lane), built and not yet uploaded."""
+
+    sf: StandardForm
+    host: dict  # device_arrays(sf, g_raw): the float32 LP family
+    rd_np: dict  # float64 rounding data
+    feasible: List[Tuple[int, int]]
+    kWs: List[Tuple[int, int]]
+    E: int
+    warm_tuple: Optional[tuple] = None
+    duals_tuple: Optional[tuple] = None
+    root_warm_tuple: Optional[tuple] = None
+    margin_np: Optional[np.ndarray] = None
+    # (margin_state, has_margin) when the caller threads a margin chain: the
+    # anchor refresh happens at decode (it needs this solve's y-profile).
+    margin_ctx: Optional[tuple] = None
+
+
+def lane_input(arrays: MilpArrays, coeffs: HaldaCoeffs, kWs, feasible, warm=None,
+               margin_state: Optional[dict] = None, per_k: bool = False) -> LaneInput:
+    """Standard form, warm inputs, rounding data and the float32 device
+    arrays of one sweep, on the host. ``margin_state`` (MoE, a warm tick
+    with stored duals, not per-k) may supply pre-slackened root bounds."""
+    sf = build_standard_form(arrays, coeffs, feasible)
+    E = int(arrays.moe.E) if sf.moe else 0
+    warm_tuple, duals_tuple, root_warm_tuple = warm_inputs(sf, warm, feasible, E)
+    rd_np = rounding_arrays_np(coeffs, arrays.moe)
+    margin_np = None
+    if (margin_state is not None and sf.moe and warm_tuple is not None
+            and duals_tuple is not None and not per_k):
+        margin_np = margin_bounds_from_state(margin_state, rd_np, sf, duals_tuple)
+    return LaneInput(
+        sf=sf, host=device_arrays(sf, rd_np["g_raw"]), rd_np=rd_np, feasible=list(feasible),
+        kWs=list(kWs), E=E, warm_tuple=warm_tuple, duals_tuple=duals_tuple,
+        root_warm_tuple=root_warm_tuple, margin_np=margin_np,
+        margin_ctx=((margin_state, margin_np is not None)
+                    if margin_state is not None and sf.moe else None),
+    )
+
+
 def solve_sweep_torch(
     arrays: MilpArrays,
     kWs: Sequence[Tuple[int, int]],
@@ -183,6 +333,7 @@ def solve_sweep_torch(
     device=None,
     per_k_optima: bool = False,
     collect: bool = True,
+    margin_state: Optional[dict] = None,
 ):
     """Solve the whole k-sweep on ``device`` (None = cuda).
 
@@ -207,193 +358,240 @@ def solve_sweep_torch(
     exhausted reports gap = ``mip_gap``; one never explored is uncertified
     with gap None, and a ``RuntimeWarning`` names the k's that missed).
 
+    ``margin_state`` (a dict the caller threads across MoE streaming ticks)
+    turns on the margin fast path: a warm tick whose drift stayed in the
+    reusable class takes its root bounds from
+    :func:`margin_bounds_from_state` instead of K7; a full evaluation
+    refreshes the anchor in the dict when the sweep is decoded, and
+    ``margin_state['used']`` reports which the tick was.
+
     ``collect=False`` returns a :class:`PendingSweep` once the instance is
     built and uploaded: the search runs on a worker thread (on a CUDA stream
     of its own) and :func:`collect_sweep` redeems it. A structurally
     infeasible sweep still returns the plain ``(results, None)``.
     """
-    prep = _prepare_sweep(
-        arrays, kWs, mip_gap, coeffs, ipm_iters, max_rounds, beam, node_cap, debug,
-        warm, timings, ipm_warm_iters, lp_backend, pdhg_iters, pdhg_restart_tol,
-        mesh_shards, pdhg_dtype, device, per_k_optima,
-    )
-    if prep.data is None:
-        return prep.results, None
-    if not collect:
-        return PendingSweep(prep)
-    return _decode_sweep(prep, _search(prep))
-
-
-class _Prepared(NamedTuple):
-    """A sweep built and uploaded, ready for its search (``data`` None when
-    no k is structurally feasible)."""
-
-    results: List[Optional[ILPResult]]
-    kWs: List[Tuple[int, int]]
-    feasible: List[Tuple[int, int]]
-    mip_gap: float
-    debug: bool
-    per_k: bool
-    timings: Optional[dict]
-    sf: Optional[StandardForm] = None
-    data: Optional[SweepData] = None
-    state: Optional[SearchState] = None
-    loop_kw: Optional[dict] = None
-    moe_ctx: Optional[tuple] = None  # (rd_np, w_max, E, decomp_steps, duals_tuple)
-    warm_tuple: Optional[tuple] = None
-    stats: Optional[dict] = None
-
-
-def _prepare_sweep(
-    arrays, kWs, mip_gap, coeffs, ipm_iters, max_rounds, beam, node_cap, debug, warm,
-    timings, ipm_warm_iters, lp_backend, pdhg_iters, pdhg_restart_tol, mesh_shards,
-    pdhg_dtype, device, per_k,
-) -> _Prepared:
-    """The host half of a sweep on the caller's thread: the standard form,
-    the search parameters, the warm inputs and the upload of the device
-    arrays and the root frontier."""
     if coeffs is None:
         raise ValueError("solve_sweep_torch requires the HaldaCoeffs used for assembly")
     M = arrays.layout.M
     feasible = [(k, W) for (k, W) in kWs if W >= M]
-    results: List[Optional[ILPResult]] = [None] * len(kWs)
-    prep = _Prepared(results=results, kWs=list(kWs), feasible=feasible,
-                     mip_gap=mip_gap, debug=debug, per_k=per_k, timings=timings)
     if not feasible:
-        return prep
+        return [None] * len(kWs), None
     dev = resolve_device(device)
-
     t0 = time.perf_counter()
-    sf = build_standard_form(arrays, coeffs, feasible)
-    n_k = len(sf.ks)
+    lane = lane_input(arrays, coeffs, kWs, feasible, warm, margin_state, per_k_optima)
+    params = _search_params(lane.sf, node_cap, beam, ipm_iters, max_rounds, ipm_warm_iters,
+                            lp_backend, pdhg_iters, mesh_shards, pdhg_dtype, per_k_optima,
+                            pdhg_restart_tol)
+    if params["mesh_shards"] > 1:
+        raise NotImplementedError(
+            f"mesh_shards={params['mesh_shards']}: the row-sharded PDHG runs across GPUs, "
+            f"a later slice of the port (ROADMAP.md A13)"
+        )
+    if timings is not None:
+        timings["lp_backend"] = params["lp_backend"]
+        timings["mesh_shards"] = params["mesh_shards"]
+    t1 = time.perf_counter()
+    prep = _prepare([lane], params, mip_gap, dev, debug=debug, per_k=per_k_optima,
+                    timings=timings, shared_A=True)
+    prep.stats["build_sf_ms"] = (t1 - t0) * 1e3
+    if not collect:
+        return PendingSweep(prep)
+    return _decode_sweep(prep, _search(prep), 0)
+
+
+def _search_params(sf: StandardForm, node_cap, beam, ipm_iters, max_rounds, ipm_warm_iters,
+                   lp_backend, pdhg_iters, mesh_shards, pdhg_dtype, per_k,
+                   pdhg_restart_tol=None) -> dict:
+    """The resolved search parameters of a sweep; raises for MoE on the
+    PDHG engine."""
     (
         cap, beam, ipm_iters, ipm_warm_iters, max_rounds, engine, mesh_shards,
         pdhg_dtype,
     ) = resolve_search_params(
-        sf.moe, n_k, node_cap, beam, ipm_iters, max_rounds,
+        sf.moe, len(sf.ks), node_cap, beam, ipm_iters, max_rounds,
         ipm_warm_iters=ipm_warm_iters, lp_backend=lp_backend,
-        pdhg_iters=pdhg_iters, M=M, mesh_shards=mesh_shards,
+        pdhg_iters=pdhg_iters, M=sf.M, mesh_shards=mesh_shards,
         pdhg_dtype=pdhg_dtype, per_k=per_k,
     )
-    if mesh_shards > 1:
-        raise NotImplementedError(
-            f"mesh_shards={mesh_shards}: the row-sharded PDHG runs across GPUs, "
-            f"a later slice of the port (ROADMAP.md A13)"
-        )
     if sf.moe and engine == "pdhg":
         raise NotImplementedError(
             "MoE co-assignment on the PDHG engine: its kernel takes one A shared "
             "by the batch, and each MoE node has its own (ROADMAP.md A15); pass "
             "lp_backend='ipm'"
         )
-    if timings is not None:
-        timings["lp_backend"] = engine
-        timings["mesh_shards"] = mesh_shards
-    E = int(arrays.moe.E) if sf.moe else 0
-    warm_tuple, duals_tuple, root_warm_tuple = warm_inputs(sf, warm, feasible, E)
-    rd_np = rounding_arrays_np(coeffs, arrays.moe)
-    host = device_arrays(sf, rd_np["g_raw"])
-    moe_ctx = None
-    if sf.moe:
-        # The decomposition bound certifies wide-expert instances (their LP
-        # root gap is structural). A warm tick with both the stored
-        # multipliers and a warm incumbent only re-evaluates it.
-        decomp_steps = (
-            DECOMP_STEPS_WARM
-            if duals_tuple is not None and warm_tuple is not None
-            else DECOMP_STEPS_COLD
-        )
-        moe_ctx = (rd_np, max(W for _, W in feasible), E, decomp_steps, duals_tuple)
-    t1 = time.perf_counter()
+    return dict(cap=cap, beam=beam, ipm_iters=ipm_iters, ipm_warm_iters=ipm_warm_iters,
+                max_rounds=max_rounds, lp_backend=engine, mesh_shards=mesh_shards,
+                pdhg_dtype=pdhg_dtype, pdhg_restart_tol=pdhg_restart_tol)
 
-    tensors = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
-    rd = rounding_data(rd_np, dev)
+
+class _Prepared(NamedTuple):
+    """L sweeps built and uploaded, ready for their search."""
+
+    lanes: List[LaneInput]
+    mip_gap: float
+    debug: bool
+    per_k: bool
+    timings: Optional[dict]
+    data: SweepData  # lane data
+    state: SearchState  # lane state
+    loop_kw: dict
+    moe_ctx: Optional[tuple]  # (w_max, e_max, decomp_steps)
+    warm: Optional[tuple]  # (k index (L,), w, n, y (L, M)) on the device
+    duals: Optional[tuple]  # (lam (L, n_k), mu, tau (L, n_k, M)), float64 numpy
+    margin: Optional[torch.Tensor]  # (L, n_k) pre-slackened root bounds
+    stats: dict
+
+
+def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=False,
+             per_k=False, timings=None, shared_A=False, A_lanes=None) -> _Prepared:
+    """Upload L sweeps (same shapes and search parameters) as lane data and
+    the root frontiers. ``shared_A``: every lane has lane 0's A (scenarios
+    of one fleet: one (m, nf) matrix); else ``A_lanes`` (L, m, nf) on the
+    device, or each lane's own A stacked. Warm hints, stored duals, root
+    iterates and margin bounds are used only when every lane has them."""
+    t1 = time.perf_counter()
+    L = len(lanes)
+    sf0 = lanes[0].sf
+    M, moe = sf0.M, sf0.moe
+
+    def stack(key):
+        return torch.as_tensor(np.stack([ln.host[key] for ln in lanes]), device=dev)
+
+    if A_lanes is not None:
+        A = A_lanes
+    elif shared_A or L == 1:
+        A = torch.as_tensor(lanes[0].host["A"], device=dev)
+    else:
+        A = stack("A")
+    rd_np = {f: np.stack([np.broadcast_to(np.asarray(ln.rd_np[f], np.float64),
+                                          np.shape(lanes[0].rd_np[f])) for ln in lanes])
+             for f in RoundingData._fields}
+    rd = RoundingData(**{f: torch.as_tensor(v, dtype=torch.float64, device=dev)
+                         for f, v in rd_np.items()})
+    engine = params["lp_backend"]
     data = SweepData(
-        A=tensors["A"],
-        b_k=tensors["b_k"],
-        c_k=tensors["c_k"],
-        int_mask=tensors["int_mask"],
-        ks=torch.as_tensor(np.asarray(sf.ks, np.float64), device=dev),
-        Ws=torch.as_tensor(np.asarray(sf.Ws, np.float64), device=dev),
-        obj_const=float(sf.obj_const),
+        A=A,
+        b_k=stack("b_k"),
+        c_k=stack("c_k"),
+        int_mask=stack("int_mask"),
+        ks=torch.as_tensor(np.stack([np.asarray(ln.sf.ks, np.float64) for ln in lanes]),
+                           device=dev),
+        Ws=torch.as_tensor(np.stack([np.asarray(ln.sf.Ws, np.float64) for ln in lanes]),
+                           device=dev),
+        obj_const=torch.as_tensor([float(ln.sf.obj_const) for ln in lanes],
+                                  dtype=torch.float64, device=dev),
         rd=rd,
         rd_packed=pack_rounding_data(rd),
-        gky=tensors.get("gky"),
-        A_sparsity=node_sparsity(tensors["A"], M, sf.moe) if engine == "ipm" else None,
+        gky=stack("gky") if moe else None,
+        A_sparsity=node_sparsity(A, M, moe) if engine == "ipm" else None,
     )
-    m = data.A.shape[0]
+    m = A.shape[-2]
+    use_root_warm = all(ln.root_warm_tuple is not None for ln in lanes)
     root_warm = None
-    if root_warm_tuple is not None:
-        root_warm = tuple(torch.as_tensor(a, device=dev) for a in root_warm_tuple)
-        root_warm = (root_warm[0] > 0.5, *root_warm[1:])
-    state = root_state(tensors["lo_k"], tensors["hi_k"], M, cap, m, root_warm)
-    t2 = time.perf_counter()
+    if use_root_warm:
+        parts = [torch.as_tensor(np.stack([ln.root_warm_tuple[i] for ln in lanes]), device=dev)
+                 for i in range(5)]
+        root_warm = (parts[0] > 0.5, *parts[1:])
+    state = root_state(stack("lo_k"), stack("hi_k"), M, params["cap"], m, root_warm)
+    warm = None
+    if all(ln.warm_tuple is not None for ln in lanes):
+        warm = (
+            torch.as_tensor([int(ln.warm_tuple[0]) for ln in lanes], device=dev),
+            *(torch.as_tensor(np.stack([np.asarray(ln.warm_tuple[i], np.float64)
+                                        for ln in lanes]), device=dev) for i in (1, 2, 3)),
+        )
+    duals = margin = moe_ctx = None
+    if moe:
+        if all(ln.duals_tuple is not None for ln in lanes):
+            duals = tuple(np.stack([ln.duals_tuple[i] for ln in lanes]) for i in range(3))
+        # The decomposition bound certifies wide-expert instances (their LP
+        # root gap is structural). A warm tick with both the stored
+        # multipliers and a warm incumbent only re-evaluates it, or, on the
+        # margin path, takes the host's re-derived bounds.
+        decomp_steps = (DECOMP_STEPS_WARM if duals is not None and warm is not None
+                        else DECOMP_STEPS_COLD)
+        if decomp_steps == DECOMP_STEPS_WARM and all(ln.margin_np is not None for ln in lanes):
+            margin = torch.as_tensor(np.stack([ln.margin_np for ln in lanes]), device=dev)
+        moe_ctx = (max(W for _, W in lanes[0].feasible), lanes[0].E, decomp_steps)
     loop_kw = dict(
-        ipm_iters=ipm_iters, max_rounds=max_rounds, beam=beam,
-        ipm_warm_iters=ipm_warm_iters, root_warm_chunk=root_warm_tuple is not None,
-        lp_backend=engine, pdhg_restart_tol=pdhg_restart_tol, pdhg_dtype=pdhg_dtype,
-        per_k=per_k,
+        ipm_iters=params["ipm_iters"], max_rounds=params["max_rounds"], beam=params["beam"],
+        ipm_warm_iters=params["ipm_warm_iters"], root_warm_chunk=use_root_warm,
+        lp_backend=engine, pdhg_restart_tol=params["pdhg_restart_tol"],
+        pdhg_dtype=params["pdhg_dtype"], per_k=per_k,
     )
-    stats = {"build_sf_ms": (t1 - t0) * 1e3, "upload_ms": (t2 - t1) * 1e3}
-    return prep._replace(sf=sf, data=data, state=state, loop_kw=loop_kw,
-                         moe_ctx=moe_ctx, warm_tuple=warm_tuple, stats=stats)
+    stats = {"upload_ms": (time.perf_counter() - t1) * 1e3}
+    return _Prepared(lanes=lanes, mip_gap=mip_gap, debug=debug, per_k=per_k,
+                     timings=timings, data=data, state=state, loop_kw=loop_kw,
+                     moe_ctx=moe_ctx, warm=warm, duals=duals, margin=margin, stats=stats)
 
 
 def _search(prep: _Prepared) -> dict:
-    """The device half of a sweep: the MoE root bounds, the warm incumbent,
-    the branch-and-bound loop, and one read-back of what the decode needs."""
-    data, state, sf = prep.data, prep.state, prep.sf
-    M, n_k = sf.M, len(sf.ks)
-    nf = data.A.shape[1]
-    dev = data.A.device
+    """The device half of L sweeps: the MoE root bounds (one ascent over
+    every lane), the warm incumbents, the branch-and-bound loop, and one
+    read-back of what the decode needs."""
+    data, state = prep.data, prep.state
+    sf = prep.lanes[0].sf
+    L, n_k = data.ks.shape
+    dev = data.ks.device
     t2 = time.perf_counter()
-    duals_t = None
-    raw_bounds = None
+    duals_t = raw_bounds = m_y = None
     if prep.moe_ctx is not None:
-        rd_np, w_max, E, decomp_steps, duals_tuple = prep.moe_ctx
-        problems = [
-            decomp_problem(rd_np, sf.ks, sf.Ws, w_max, E, dt, dev)
-            for dt in (torch.float32, torch.float64)
-        ]
-        state, duals_t, raw_bounds, _ = seed_root_bounds(
-            state, data, *problems, decomp_steps, init_duals=duals_tuple
+        w_max, E, decomp_steps = prep.moe_ctx
+        problems = [None, None]
+        if prep.margin is None:
+            problems = [
+                stack_problems([decomp_problem(ln.rd_np, ln.sf.ks, ln.sf.Ws, w_max, E, dt, dev)
+                                for ln in prep.lanes])
+                for dt in (torch.float32, torch.float64)
+            ]
+        init = prep.duals
+        state, duals_t, raw_bounds, m_y = seed_root_bounds(
+            state, data, *problems, decomp_steps, init_duals=init, margin=prep.margin
         )
+        if prep.margin is not None:
+            duals_t = tuple(torch.as_tensor(d, dtype=BDTYPE, device=dev) for d in init)
     t_decomp = time.perf_counter()
-    if prep.warm_tuple is not None:
-        state = _seed_warm(state, data, prep.warm_tuple, M, nf, sf.moe)
+    if prep.warm is not None:
+        state = seed_warm(state, data, prep.warm, sf.moe, MOE_LOCAL_MOVES_WARM)
 
     state, root_iters = run_bnb_loop(data, state, prep.mip_gap, **prep.loop_kw)
     head_parts = [
         torch.stack([
             state.incumbent, best_bound(state), state.inc_kidx.to(BDTYPE),
             state.stat_ipm_iters, state.stat_rounds,
-        ]),
+        ], dim=1),
         state.inc_w, state.inc_n, state.inc_y, state.per_k_best,
     ]
     if duals_t is not None:
-        head_parts += [t.reshape(-1) for t in duals_t] + [raw_bounds]
+        head_parts += [t.reshape(L, -1) for t in duals_t] + [raw_bounds]
     if prep.per_k:
-        head_parts += [state.per_k_w.reshape(-1), state.per_k_n.reshape(-1),
-                       state.per_k_y.reshape(-1), per_k_bound(state)]
-    head = torch.cat(head_parts).cpu().numpy()
-    root = [t[:n_k].to(BDTYPE).cpu().numpy() for t in root_iters]
+        head_parts += [state.per_k_w.reshape(L, -1), state.per_k_n.reshape(L, -1),
+                       state.per_k_y.reshape(L, -1), per_k_bound(state)]
+    head = torch.cat(head_parts, dim=1).cpu().numpy()
+    root = [t[:, :n_k].to(BDTYPE).cpu().numpy() for t in root_iters]
+    anchor = None
+    if m_y is not None and any(ln.margin_ctx is not None for ln in prep.lanes):
+        anchor = m_y.cpu().numpy()
     t3 = time.perf_counter()
     stats = {"solve_ms": (t3 - t2) * 1e3}
     if prep.moe_ctx is not None:
         # Host time to enqueue the bound (the ascent reads nothing back).
-        stats.update(decomp_steps=prep.moe_ctx[3], decomp_enqueue_ms=(t_decomp - t2) * 1e3)
-    return {"head": head, "root": root, "stats": stats, "has_duals": duals_t is not None}
+        stats.update(decomp_steps=prep.moe_ctx[2], decomp_enqueue_ms=(t_decomp - t2) * 1e3)
+    return {"head": head, "root": root, "stats": stats, "has_duals": duals_t is not None,
+            "m_y": anchor}
 
 
-def _decode_sweep(prep: _Prepared, out: dict):
-    """``(results, best)`` from a search's read-back (host only)."""
-    results, feasible, mip_gap = prep.results, prep.feasible, prep.mip_gap
-    sf = prep.sf
+def _decode_sweep(prep: _Prepared, out: dict, q: int):
+    """``(results, best)`` of lane ``q`` from a search's read-back (host
+    only); refreshes the lane's margin anchor."""
+    lane = prep.lanes[q]
+    results: List[Optional[ILPResult]] = [None] * len(lane.kWs)
+    sf = lane.sf
     M, n_k, moe = sf.M, len(sf.ks), sf.moe
-    head = out["head"]
+    head = out["head"][q]
     stats = {**prep.stats, **out["stats"], "ipm_iters_executed": float(head[3]),
              "bnb_rounds": float(head[4])}
-    if prep.timings is not None:
+    if prep.timings is not None and len(prep.lanes) == 1:
         prep.timings.update(stats)
     incumbent, bound = float(head[0]), float(head[1])
     if prep.debug:
@@ -426,6 +624,17 @@ def _decode_sweep(prep: _Prepared, out: dict):
         pk = (head[o : o + blk].reshape(n_k, M), head[o + blk : o + 2 * blk].reshape(n_k, M),
               head[o + 2 * blk : o + 3 * blk].reshape(n_k, M),
               head[o + 3 * blk : o + 3 * blk + n_k])
+    best = _decode_best(prep, out, q, results, incumbent, bound, per_k_best, pk,
+                        (inc_w, inc_n, inc_y), out_duals)
+    _refresh_margin(lane, best, out["m_y"], q)
+    return results, best
+
+
+def _decode_best(prep, out, q, results, incumbent, bound, per_k_best, pk, inc, out_duals):
+    """Fill lane ``q``'s per-k ``results`` and return its optimum (None
+    when no k found an incumbent)."""
+    lane = prep.lanes[q]
+    feasible, mip_gap, moe = lane.feasible, prep.mip_gap, lane.sf.moe
     if not np.isfinite(incumbent):
         if pk is not None and not np.all(np.isposinf(pk[3])):
             # Budget starvation (some subtree left), not proven infeasibility.
@@ -434,9 +643,9 @@ def _decode_sweep(prep: _Prepared, out: dict):
                 "budget (all entries omitted: budget starvation, not proven "
                 "infeasibility); raise max_rounds.",
                 RuntimeWarning,
-                stacklevel=3,
+                stacklevel=4,
             )
-        return results, None
+        return None
 
     gap = (incumbent - bound) / abs(incumbent) if incumbent != 0.0 else incumbent - bound
     gap = max(0.0, gap)
@@ -449,16 +658,16 @@ def _decode_sweep(prep: _Prepared, out: dict):
             f"halda_solve(max_rounds=..., node_cap=...) or relax mip_gap. "
             f"The result carries certified=False and the achieved gap.",
             RuntimeWarning,
-            stacklevel=3,
+            stacklevel=4,
         )
-    inc_k_idx = int(head[2])
-    ok_r, v_r, y_r, z_r, f_r = out["root"]
+    inc_k_idx = int(out["head"][q][2])
+    ok_r, v_r, y_r, z_r, f_r = (r[q] for r in out["root"])
     ipm_state = None
     if np.any(ok_r > 0.5):
         ipm_state = {"ok": ok_r > 0.5, "v": v_r, "y": y_r, "z": z_r, "f": f_r}
-
+    inc_w, inc_n, inc_y = inc
     best: Optional[ILPResult] = None
-    pos_of = {kW: i for i, kW in enumerate(prep.kWs)}
+    pos_of = {kW: i for i, kW in enumerate(lane.kWs)}
     for j, (k, W) in enumerate(feasible):
         obj_j = float(per_k_best[j])
         if not np.isfinite(obj_j):
@@ -479,7 +688,106 @@ def _decode_sweep(prep: _Prepared, out: dict):
             results[pos_of[(k, W)]] = ILPResult(k=k, obj_value=obj_j, certified=False)
     if pk is not None:
         _warn_per_k(results, feasible, per_k_best, pk[3])
-    return results, best
+    return best
+
+
+def _refresh_margin(lane: LaneInput, best: Optional[ILPResult], m_y, q: int) -> None:
+    """The margin chain at decode: a margin tick keeps its fixed anchor; a
+    full evaluation makes this solve's y-profile, rounding data, k grid and
+    multipliers the anchor; anything else drops it."""
+    if lane.margin_ctx is None:
+        return
+    margin_state, has_margin = lane.margin_ctx
+    margin_state["used"] = has_margin
+    if has_margin:
+        return
+    if best is not None and best.duals is not None and "root_bounds" in best.duals \
+            and m_y is not None:
+        margin_state.update(
+            rd=lane.rd_np,
+            ks=np.asarray(lane.sf.ks, np.float64),
+            Ws=np.asarray(lane.sf.Ws, np.float64),
+            m_y=m_y[q],
+            duals=tuple(np.asarray(best.duals[f], np.float64) for f in ("lam", "mu", "tau")),
+        )
+    else:
+        margin_state.pop("m_y", None)
+        margin_state.pop("duals", None)
+
+
+def solve_sweep_scenarios(
+    arrays_list: Sequence[MilpArrays],
+    kWs: Sequence[Tuple[int, int]],
+    coeffs_list: Sequence[HaldaCoeffs],
+    mip_gap: float = 1e-4,
+    warms: Optional[Sequence[Optional[ILPResult]]] = None,
+    ipm_iters: Optional[int] = None,
+    max_rounds: Optional[int] = None,
+    beam: Optional[int] = None,
+    node_cap: Optional[int] = None,
+    timings: Optional[dict] = None,
+    ipm_warm_iters: Optional[int] = None,
+    lp_backend: Optional[str] = None,
+    pdhg_iters: Optional[int] = None,
+    pdhg_restart_tol: Optional[float] = None,
+    mesh_shards: Optional[int] = None,
+    pdhg_dtype: Optional[str] = None,
+    device=None,
+) -> List[Tuple[List[Optional[ILPResult]], Optional[ILPResult]]]:
+    """Solve S what-if scenarios of one fleet as S lanes of one search.
+
+    Scenarios are profile-drift variants of one instance (t_comm futures,
+    load factors) whose static half (:func:`pack_static`: base A,
+    structural objective, boxes, slack minima) is byte-identical: they
+    share one A on the device, and every round runs all S lanes' rows in
+    one LP call, one rounding and one epilogue launch (a MoE batch runs one
+    K7 ascent over the S instances). Scenarios whose static half differs
+    raise ValueError (``halda_solve_scenarios`` then takes the batch-layout
+    fallback). ``warms`` seeds each scenario; warm hints, MoE duals and root
+    iterates engage only when EVERY scenario has them, else all run cold.
+    ``mesh_shards`` is accepted and not used (the lanes are the batch).
+    Returns one ``(per_k_results, best)`` per scenario, the contract of
+    :func:`solve_sweep_torch`; ``timings`` gets ``build_sf_ms``,
+    ``upload_ms``, ``solve_ms``, ``scenarios``, ``bnb_rounds`` (the most
+    any lane ran) and ``lp_backend``."""
+    S = len(arrays_list)
+    if S == 0:
+        return []
+    if len(coeffs_list) != S or (warms is not None and len(warms) != S):
+        raise ValueError("arrays_list/coeffs_list/warms lengths must match")
+    M = arrays_list[0].layout.M
+    feasible = [(k, W) for (k, W) in kWs if W >= M]
+    if not feasible:
+        return [([None] * len(kWs), None) for _ in range(S)]
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    lanes = [lane_input(a, c, kWs, feasible, warms[i] if warms is not None else None)
+             for i, (a, c) in enumerate(zip(arrays_list, coeffs_list))]
+    static0 = pack_static(lanes[0].sf)
+    for i, ln in enumerate(lanes[1:], start=1):
+        if not np.array_equal(pack_static(ln.sf), static0):
+            raise ValueError(
+                f"scenario {i}'s packed static half differs from scenario 0's, so they "
+                f"cannot share one A: device speed/memory/fleet/model changes, or a "
+                f"t_comm/load excursion large enough to move a row's scaling. Solve the "
+                f"scenarios as separate sweeps (or through the batch layout) instead"
+            )
+    params = _search_params(lanes[0].sf, node_cap, beam, ipm_iters, max_rounds,
+                            ipm_warm_iters, lp_backend, pdhg_iters, mesh_shards, pdhg_dtype,
+                            False, pdhg_restart_tol)
+    t1 = time.perf_counter()
+    prep = _prepare(lanes, params, mip_gap, dev, shared_A=True)
+    out = _search(prep)
+    decoded = [_decode_sweep(prep, out, q) for q in range(S)]
+    if timings is not None:
+        timings.update(build_sf_ms=(t1 - t0) * 1e3, upload_ms=prep.stats["upload_ms"],
+                       solve_ms=out["stats"]["solve_ms"], scenarios=float(S),
+                       bnb_rounds=float(out["head"][:, 4].max()),
+                       ipm_iters_executed=float(out["head"][:, 3].sum()),
+                       lp_backend=params["lp_backend"])
+        if prep.moe_ctx is not None:
+            timings["decomp_steps"] = prep.moe_ctx[2]
+    return decoded
 
 
 def _per_k_entry(k: int, j: int, obj_j: float, pk, moe: bool, mip_gap: float) -> ILPResult:
@@ -556,7 +864,7 @@ class PendingSweep:
 
     def __init__(self, prep: _Prepared):
         self._prep = prep
-        dev = prep.data.A.device
+        dev = prep.data.ks.device
         stream = None
         if dev.type == "cuda":
             stream = torch.cuda.Stream(device=dev)
@@ -567,49 +875,5 @@ class PendingSweep:
 def collect_sweep(pending: PendingSweep):
     """Wait for a dispatched sweep and decode it: the ``(results, best)`` of
     ``solve_sweep_torch``; the search's exception, if it raised, is raised
-    here."""
-    return _decode_sweep(pending._prep, pending._future.result())
-
-
-def _seed_warm(state, data: SweepData, warm_tuple, M: int, nf: int, moe: bool = False):
-    """Re-price a previous assignment exactly under THIS sweep's
-    coefficients and seed the incumbent with it (an infeasible hint prices
-    to +inf and leaves the state cold). In MoE mode the re-pricing runs
-    the rounding kernel's short warm move search."""
-    kidx, w, n, y = warm_tuple
-    dev = data.A.device
-    n_k = data.ks.shape[0]
-    kidx = min(max(int(kidx), 0), n_k - 1)
-    v = torch.zeros((1, nf), dtype=BDTYPE, device=dev)
-    v[0, :M] = torch.as_tensor(np.asarray(w, np.float64), device=dev)
-    v[0, M : 2 * M] = torch.as_tensor(np.asarray(n, np.float64), device=dev)
-    if moe:
-        v[0, 2 * M : 3 * M] = torch.as_tensor(np.asarray(y, np.float64), device=dev)
-    out = round_to_incumbent(
-        v, data.Ws[kidx : kidx + 1], data.ks[kidx : kidx + 1], data.rd, data.rd_packed,
-        moe=moe, moves=MOE_LOCAL_MOVES_WARM,
-    )
-    obj, w_rep, n_rep = out[:3]
-    y_rep = out[3] if moe else state.inc_y[None]
-    warm_obj = obj[0] + data.obj_const
-    seeded = torch.isfinite(warm_obj) & (warm_obj < state.incumbent)
-    clean = torch.where(torch.isfinite(warm_obj), warm_obj, float("inf"))
-    seeded_k = clean < state.per_k_best[kidx]
-    per_k_best = state.per_k_best.clone()
-    per_k_best[kidx] = torch.minimum(per_k_best[kidx], clean)
-    per_k = {}
-    for name, rep in (("per_k_w", w_rep), ("per_k_n", n_rep), ("per_k_y", y_rep)):
-        t = getattr(state, name).clone()
-        t[kidx] = torch.where(seeded_k, rep[0], t[kidx])
-        per_k[name] = t
-    return state._replace(
-        incumbent=torch.where(seeded, warm_obj, state.incumbent),
-        inc_w=torch.where(seeded, w_rep[0], state.inc_w),
-        inc_n=torch.where(seeded, n_rep[0], state.inc_n),
-        inc_y=torch.where(seeded, y_rep[0], state.inc_y),
-        inc_kidx=torch.where(
-            seeded, torch.tensor(kidx, dtype=torch.int32, device=dev), state.inc_kidx
-        ),
-        per_k_best=per_k_best,
-        **per_k,
-    )
+    here. A margin chain's anchor is refreshed here."""
+    return _decode_sweep(pending._prep, pending._future.result(), 0)

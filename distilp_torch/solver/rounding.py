@@ -18,6 +18,12 @@ tensors and runs the plain PyTorch version on CPU tensors:
   pricer alone, with no rounding (``round_moe_kernel.cu``'s
   ``dtk_price_fixed_f64``).
 
+Several sweeps round in one launch (scenarios, batch lanes: the
+reference's vmap over sweeps): ``rd`` then holds one instance per leading
+index (:func:`stack_rounding_data`; vectors (R, M), ``bprime`` and ``E``
+(R,)) and ``inst`` gives each row its instance. The plain versions round
+each instance's rows on their own.
+
 Both compute ``distilp_tpu/solver/backend_jax.py::_round_to_incumbent`` with
 its ``_int_redistribute`` scan. The MoE pricer sums the devices' linear
 costs in device order 0..M-1 in the kernel and in the plain version alike,
@@ -78,13 +84,25 @@ def rounding_data(rd_np: dict, device) -> RoundingData:
 
 
 def pack_rounding_data(rd: RoundingData) -> torch.Tensor:
-    """The kernels' (17, M) float64 view of ``rd``: the dense vectors, b'
-    broadcast over a row, then the MoE vectors. A sweep packs once and
-    reuses it every round."""
+    """The kernels' (17, M) float64 view of ``rd`` ((R, 17, M) for a stack
+    of R instances): the dense vectors, b' broadcast over a row, then the
+    MoE vectors. A sweep packs once and reuses it every round."""
     rows = [getattr(rd, f) for f in KERNEL_RD_FIELDS]
-    rows.append(rd.bprime.to(torch.float64).expand_as(rd.a))
+    rows.append(rd.bprime.to(torch.float64)[..., None].expand_as(rd.a))
     rows += [getattr(rd, f) for f in MOE_RD_FIELDS]
-    return torch.stack(rows).contiguous()
+    return torch.stack(rows, dim=-2).contiguous()
+
+
+def stack_rounding_data(rds) -> RoundingData:
+    """R instances' rounding data as one stack: vectors (R, M), ``bprime``
+    and ``E`` (R,)."""
+    return RoundingData(*[torch.stack([getattr(r, f) for r in rds])
+                          for f in RoundingData._fields])
+
+
+def rd_instance(rd: RoundingData, q: int) -> RoundingData:
+    """Instance ``q`` of a stack (:func:`stack_rounding_data`)."""
+    return RoundingData(*[getattr(rd, f)[q] for f in RoundingData._fields])
 
 
 def round_to_incumbent(
@@ -96,12 +114,14 @@ def round_to_incumbent(
     moe: bool = False,
     y_steps: Optional[int] = None,
     moves: int = MOE_LOCAL_MOVES,
+    inst: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(obj_linear (B,), w (B, M), n (B, M)), float64, of the rows of LP
     points ``v`` (B, nf) at layers-per-segment ``W`` and segments ``k``
     (both (B,) float64). ``obj_linear`` is +inf where rounding failed.
     ``packed`` is :func:`pack_rounding_data` of ``rd``, when the caller
-    keeps one.
+    keeps one. With a stack of instances in ``rd``, ``inst`` (B,) names
+    each row's (None: instance 0 for every row).
 
     ``moe=True`` also rounds the expert counts ``v[:, 2M:3M]`` and returns
     ``(obj_linear, w, n, y)``: LP points (``y_steps=None``) by floor and
@@ -109,11 +129,32 @@ def round_to_incumbent(
     steps; then ``moves`` expert-move steps."""
     if kernels.on_cuda(v, W, k, rd.a):
         if moe:
-            return _round_moe_kernel(v, W, k, rd, packed, y_steps, moves)
-        return _round_kernel(v, W, k, rd, packed)
+            return _round_moe_kernel(v, W, k, rd, packed, y_steps, moves, inst)
+        return _round_kernel(v, W, k, rd, packed, inst)
     if moe:
-        return round_moe_reference(v, W, k, rd, y_steps, moves)
-    return round_to_incumbent_reference(v, W, k, rd)
+        return _by_instance(round_moe_reference, v, W, k, rd, inst, y_steps, moves)
+    return _by_instance(round_to_incumbent_reference, v, W, k, rd, inst)
+
+
+def _by_instance(fn, v, W, k, rd: RoundingData, inst, *args):
+    """A plain single-instance version over rows of several instances: each
+    instance's rows on their own, the results back in row order."""
+    if rd.a.dim() == 1:
+        return fn(v, W, k, rd, *args)
+    B = v.shape[0]
+    if inst is None:
+        inst = torch.zeros(B, dtype=torch.int64, device=v.device)
+    groups = torch.unique(inst).tolist() if B else [0]
+    outs = None
+    for q in groups:
+        rows = (inst == q).nonzero()[:, 0]
+        got = fn(v[rows], W[rows], k[rows], rd_instance(rd, q), *args)
+        if outs is None:
+            outs = [torch.empty((B, *t.shape[1:]), dtype=t.dtype, device=t.device)
+                    for t in got]
+        for o, t in zip(outs, got):
+            o[rows] = t
+    return tuple(outs)
 
 
 def _clip(x, lo, hi):
@@ -350,17 +391,37 @@ def round_moe_reference(
 
 
 def _check_packed(packed: torch.Tensor, M: int) -> None:
-    if packed.shape != (PACKED_ROWS, M) or packed.dtype != torch.float64:
-        raise ValueError(f"packed rounding data must be float64 ({PACKED_ROWS}, M)")
+    if packed.shape[-2:] != (PACKED_ROWS, M) or packed.dim() > 3 \
+            or packed.dtype != torch.float64:
+        raise ValueError(f"packed rounding data must be float64 ([R,] {PACKED_ROWS}, M)")
 
 
-def _round_kernel(v, W, k, rd: RoundingData, packed=None):
+def _lane_name(name: str, packed: torch.Tensor) -> str:
+    """The launch counter of a K2 launch: ``<name>_lanes`` when it carries
+    more than one instance."""
+    return f"{name}_lanes" if packed.dim() == 3 and packed.shape[0] > 1 else name
+
+
+def _instance_index(inst, B: int):
+    """The rows' instance indices as a contiguous int32 tensor (None: the
+    kernel reads instance 0 for every row). Their range is the caller's to
+    keep: a check here would read the device back in the middle of a
+    round."""
+    if inst is None:
+        return None
+    inst = inst.to(torch.int32).contiguous()
+    if inst.shape != (B,):
+        raise ValueError(f"inst must be ({B},), got {tuple(inst.shape)}")
+    return inst
+
+
+def _round_kernel(v, W, k, rd: RoundingData, packed=None, inst=None):
     from ..kernels.build import library
 
     if v.dim() != 2:
         raise ValueError(f"v must be (B, nf), got {tuple(v.shape)}")
     B = v.shape[0]
-    M = rd.a.shape[0]
+    M = rd.a.shape[-1]
     if v.shape[1] < 2 * M:
         raise ValueError(f"v has {v.shape[1]} columns, fewer than 2M = {2 * M}")
     if v.dtype == torch.float32:
@@ -378,6 +439,7 @@ def _round_kernel(v, W, k, rd: RoundingData, packed=None):
     if packed is None:
         packed = pack_rounding_data(rd)
     _check_packed(packed, M)
+    inst = _instance_index(inst, B)
     obj = torch.empty(B, dtype=torch.float64, device=dev)
     w = torch.empty((B, M), dtype=torch.float64, device=dev)
     n = torch.empty((B, M), dtype=torch.float64, device=dev)
@@ -385,21 +447,21 @@ def _round_kernel(v, W, k, rd: RoundingData, packed=None):
         return obj, w, n
     P = kernels.ptr
     err = getattr(library("round"), fn_name)(
-        P(v), v.shape[1], P(Wr), P(kr), P(packed), M, B,
-        P(obj), P(w), P(n), kernels.stream_handle(dev),
+        P(v), v.shape[1], P(Wr), P(kr), P(packed), kernels.opt_ptr(inst),
+        PACKED_ROWS * M, M, B, P(obj), P(w), P(n), kernels.stream_handle(dev),
     )
     kernels.check(err, "round_incumbent")
-    kernels.LAUNCHES["round_incumbent"] += 1
+    kernels.LAUNCHES[_lane_name("round_incumbent", packed)] += 1
     return obj, w, n
 
 
-def _round_moe_kernel(v, W, k, rd: RoundingData, packed, y_steps, moves):
+def _round_moe_kernel(v, W, k, rd: RoundingData, packed, y_steps, moves, inst=None):
     from ..kernels.build import library
 
     if v.dim() != 2:
         raise ValueError(f"v must be (B, nf), got {tuple(v.shape)}")
     B = v.shape[0]
-    M = rd.a.shape[0]
+    M = rd.a.shape[-1]
     if v.shape[1] < 3 * M:
         raise ValueError(f"v has {v.shape[1]} columns, fewer than 3M = {3 * M}")
     if v.dtype == torch.float32:
@@ -419,6 +481,10 @@ def _round_moe_kernel(v, W, k, rd: RoundingData, packed, y_steps, moves):
     if packed is None:
         packed = pack_rounding_data(rd)
     _check_packed(packed, M)
+    inst = _instance_index(inst, B)
+    # Held until the launch: a temporary freed inside the argument list could
+    # hand its memory to the next one.
+    E = rd.E.to(torch.float64).reshape(-1).contiguous()
     obj = torch.empty(B, dtype=torch.float64, device=dev)
     w = torch.empty((B, M), dtype=torch.float64, device=dev)
     n = torch.empty((B, M), dtype=torch.float64, device=dev)
@@ -427,10 +493,10 @@ def _round_moe_kernel(v, W, k, rd: RoundingData, packed, y_steps, moves):
         return obj, w, n, y
     P = kernels.ptr
     err = getattr(library("round_moe"), fn_name)(
-        P(v), v.shape[1], P(Wr), P(kr), P(packed), P(rd.E.to(torch.float64).contiguous()), M, B,
+        P(v), v.shape[1], P(Wr), P(kr), P(packed), P(E), kernels.opt_ptr(inst), M, B,
         -1 if y_steps is None else int(y_steps), int(moves),
         P(obj), P(w), P(n), P(y), MOE_THREADS, kernels.stream_handle(dev),
     )
     kernels.check(err, "round_moe")
-    kernels.LAUNCHES["round_moe"] += 1
+    kernels.LAUNCHES[_lane_name("round_moe", packed)] += 1
     return obj, w, n, y

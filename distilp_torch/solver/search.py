@@ -14,15 +14,28 @@ K3's per-k entries keep each k's incumbent assignment, its prune threshold,
 a k-fair compaction order and each k's overflow floor, so that every k ends
 with its own certificate.
 
+Lanes: the search runs L sweeps at once (the scenarios of one fleet that
+share its A, or batch lanes with an A each; the reference's vmap of the
+whole search, B12). Every array of :class:`SearchState` and
+:class:`SweepData` carries a leading lane axis; a round sends all lanes'
+beam rows through one K1 (or K5) call, one K2 launch and one K3 launch, each
+row reading its own lane's data through its instance index; the incumbent
+update is a per-lane argmin and the compaction a per-lane stable argsort.
+A lane that has settled is frozen, as under the reference's vmapped
+``while_loop``: its rows go to the LP as ``skip`` and its state is carried
+through unchanged. One sweep is the L = 1 case of the same code.
+
 Ported from ``distilp_tpu/solver/backend_jax.py`` (``SearchState``,
 ``SweepData``, ``_root_state``, the IPM and single-device PDHG branches of
 ``_bnb_round`` with its MoE A scatter and its per-k mode,
 ``_seed_root_bounds``, ``_cast_lp_result``, ``_best_bound``, ``_certified``,
-``_per_k_bound``, ``_certified_per_k``, ``_run_bnb_loop``).
-MoE sweeps seed the roots with the Lagrangian decomposition bounds (K7) and
-an incumbent repaired from the Lagrangian primal. The reference runs the
-loop as one device program; here it is a host loop that reads one boolean
-from the device per round.
+``_per_k_bound``, ``_certified_per_k``, ``_run_bnb_loop``, and their vmap
+in ``_solve_scenarios_packed``/``_solve_batched``).
+MoE sweeps seed the roots with the Lagrangian decomposition bounds (K7, all
+lanes in one ascent) and an incumbent repaired from the Lagrangian primal,
+or, on a margin tick, with bounds re-derived on the host. The reference runs
+the loop as one device program; here it is a host loop that reads the
+lanes' go flags from the device once per round.
 
 Precision: search arrays and IPM iterations are float32; everything the
 mip-gap certificate touches (bounds, incumbents, thresholds) is float64.
@@ -35,7 +48,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import kernels
-from ..ops.decomp import DecompProblem, decomp_bound_roots
+from ..ops.decomp import decomp_bound_roots
 from ..ops.ipm import IPMResult, IPMSparsity, IPMWarmState, LPBatch, ipm_solve_batch, ipm_sparsity
 from ..ops.pdhg import pdhg_solve_batch
 from .rounding import RoundingData, round_to_incumbent
@@ -49,6 +62,8 @@ PER_K_RANK_THREADS = 512  # K3's per-k rank entry: tiles of the child rows
 
 
 class SearchState(NamedTuple):
+    """The search of L lanes (shapes below after the leading (L,))."""
+
     node_lo: torch.Tensor  # (cap, nf) float32
     node_hi: torch.Tensor  # (cap, nf) float32
     node_kidx: torch.Tensor  # (cap,) int32
@@ -77,23 +92,27 @@ class SearchState(NamedTuple):
 
 
 class SweepData(NamedTuple):
-    """Device-resident arrays of one sweep, shared by every round."""
+    """Device-resident arrays of L sweeps, shared by every round (shapes
+    after the leading (L,))."""
 
-    A: torch.Tensor  # (m, nf) float32, shared by every k (the MoE base)
+    # (m, nf) float32 shared by every k (the MoE base): one A for every lane
+    # (scenarios of one fleet), or (L, m, nf), one per lane.
+    A: torch.Tensor
     b_k: torch.Tensor  # (n_k, m) float32
     c_k: torch.Tensor  # (n_k, nf) float32
     int_mask: torch.Tensor  # (nf,) bool
     ks: torch.Tensor  # (n_k,) float64
     Ws: torch.Tensor  # (n_k,) float64
-    obj_const: float
-    rd: RoundingData
+    obj_const: torch.Tensor  # () float64
+    rd: RoundingData  # (M,) vectors; bprime, E ()
     rd_packed: Optional[torch.Tensor] = None  # rounding.pack_rounding_data(rd)
     # MoE: the per-k expert-busy entries of A (standard_form.gky_scatter_table),
     # scattered onto each node's copy of the base at rows 4M..6M, columns
     # 2M..3M. None in dense mode (A is k-free).
     gky: Optional[torch.Tensor] = None  # (n_k, 2, M) float32
-    # K1's structure of every node's A (node_pattern), built once per sweep
-    # on the IPM engine; None builds it per call.
+    # K1's structure of every node's A (node_pattern; for lanes with an A
+    # each, the union over the lanes), built once per sweep on the IPM
+    # engine; None builds it per call.
     A_sparsity: Optional[IPMSparsity] = None
 
 
@@ -113,53 +132,66 @@ class EpilogueOut(NamedTuple):
     warm_new: torch.Tensor  # (B,) bool
 
 
+def select_lanes(keep_old: torch.Tensor, old: SearchState, new: SearchState) -> SearchState:
+    """``old`` in the lanes where ``keep_old`` (L,) holds, ``new`` elsewhere:
+    a frozen lane's state carried through a round unchanged."""
+    def pick(a, b):
+        return torch.where(keep_old.view(-1, *([1] * (a.dim() - 1))), a, b)
+    return SearchState(*[pick(a, b) for a, b in zip(old, new)])
+
+
 def root_state(
     lo_k: torch.Tensor, hi_k: torch.Tensor, M: int, cap: int, m: int,
     root_warm=None,
 ) -> SearchState:
     """Root frontier: one node per k. ``root_warm`` = (ok (n_k,), v, y, z, f)
-    seeds the roots' IPM iterates from a previous solve's root round."""
-    n_k, nf = lo_k.shape
+    seeds the roots' IPM iterates from a previous solve's root round. Every
+    argument carries the leading lane axis: ``lo_k``/``hi_k`` (L, n_k, nf),
+    ``ok`` (L, n_k)."""
+    L, n_k, nf = lo_k.shape
     dev = lo_k.device
 
     def zeros(*shape, dtype=DTYPE):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros((L, *shape), dtype=dtype, device=dev)
+
+    def full(shape, value):
+        return torch.full((L, *shape), value, dtype=BDTYPE, device=dev)
 
     node_v, node_y, node_z, node_f = zeros(cap, nf), zeros(cap, m), zeros(cap, nf), zeros(cap, nf)
     node_warm = zeros(cap, dtype=torch.bool)
     if root_warm is not None:
         ok_w, v_w, y_w, z_w, f_w = root_warm
-        node_v[:n_k] = v_w.to(DTYPE)
-        node_y[:n_k] = y_w.to(DTYPE)
-        node_z[:n_k] = z_w.to(DTYPE)
-        node_f[:n_k] = f_w.to(DTYPE)
-        node_warm[:n_k] = ok_w.to(torch.bool)
+        node_v[:, :n_k] = v_w.to(DTYPE)
+        node_y[:, :n_k] = y_w.to(DTYPE)
+        node_z[:, :n_k] = z_w.to(DTYPE)
+        node_f[:, :n_k] = f_w.to(DTYPE)
+        node_warm[:, :n_k] = ok_w.to(torch.bool)
     node_lo = zeros(cap, nf)
-    node_lo[:n_k] = lo_k.to(DTYPE)
+    node_lo[:, :n_k] = lo_k.to(DTYPE)
     node_hi = zeros(cap, nf)
-    node_hi[:n_k] = hi_k.to(DTYPE)
+    node_hi[:, :n_k] = hi_k.to(DTYPE)
     node_kidx = zeros(cap, dtype=torch.int32)
-    node_kidx[:n_k] = torch.arange(n_k, dtype=torch.int32, device=dev)
+    node_kidx[:, :n_k] = torch.arange(n_k, dtype=torch.int32, device=dev)
     active = zeros(cap, dtype=torch.bool)
-    active[:n_k] = True
+    active[:, :n_k] = True
     inf = float("inf")
     return SearchState(
         node_lo=node_lo,
         node_hi=node_hi,
         node_kidx=node_kidx,
-        node_bound=torch.full((cap,), -inf, dtype=BDTYPE, device=dev),
+        node_bound=full((cap,), -inf),
         active=active,
-        incumbent=torch.tensor(inf, dtype=BDTYPE, device=dev),
+        incumbent=full((), inf),
         inc_w=zeros(M, dtype=BDTYPE),
         inc_n=zeros(M, dtype=BDTYPE),
         inc_y=zeros(M, dtype=BDTYPE),
-        inc_kidx=torch.tensor(0, dtype=torch.int32, device=dev),
-        dropped_bound=torch.tensor(inf, dtype=BDTYPE, device=dev),
-        per_k_best=torch.full((n_k,), inf, dtype=BDTYPE, device=dev),
+        inc_kidx=zeros(dtype=torch.int32),
+        dropped_bound=full((), inf),
+        per_k_best=full((n_k,), inf),
         per_k_w=zeros(n_k, M, dtype=BDTYPE),
         per_k_n=zeros(n_k, M, dtype=BDTYPE),
         per_k_y=zeros(n_k, M, dtype=BDTYPE),
-        per_k_dropped=torch.full((n_k,), inf, dtype=BDTYPE, device=dev),
+        per_k_dropped=full((n_k,), inf),
         node_v=node_v,
         node_y=node_y,
         node_z=node_z,
@@ -171,8 +203,9 @@ def root_state(
 
 
 def best_bound(state: SearchState) -> torch.Tensor:
+    """The proven lower bound of each lane, (L,)."""
     inf = torch.full_like(state.node_bound, float("inf"))
-    live = torch.where(state.active, state.node_bound, inf).amin()
+    live = torch.where(state.active, state.node_bound, inf).amin(-1)
     return torch.minimum(live, state.dropped_bound)
 
 
@@ -182,26 +215,25 @@ def certified(state: SearchState, mip_gap: float) -> torch.Tensor:
 
 
 def per_k_bound(state: SearchState) -> torch.Tensor:
-    """(n_k,) proven lower bound of each k: the least bound of its live
-    nodes and its own overflow floor."""
-    n_k = state.per_k_best.shape[0]
+    """(n_k,) proven lower bound of each k (per lane): the least bound of its
+    live nodes and its own overflow floor."""
     live = torch.where(state.active, state.node_bound, float("inf"))
-    bound = torch.full((n_k,), float("inf"), dtype=BDTYPE, device=live.device)
-    bound = bound.scatter_reduce(0, state.node_kidx.long(), live, "amin")
+    bound = torch.full_like(state.per_k_best, float("inf"))
+    bound = bound.scatter_reduce(-1, state.node_kidx.long(), live, "amin")
     return torch.minimum(bound, state.per_k_dropped)
 
 
 def certified_per_k(state: SearchState, mip_gap: float) -> torch.Tensor:
-    """True when every k is settled: its own gap closed, or its subtree
-    exhausted (bound +inf; a -inf bound is an unexplored root)."""
+    """True when every k is settled (per lane): its own gap closed, or its
+    subtree exhausted (bound +inf; a -inf bound is an unexplored root)."""
     bound_k = per_k_bound(state)
     inc_k = state.per_k_best
     done = torch.isfinite(inc_k) & (inc_k - bound_k <= mip_gap * inc_k.abs())
-    return (done | torch.isposinf(bound_k)).all()
+    return (done | torch.isposinf(bound_k)).all(-1)
 
 
 class PerKIncumbent(NamedTuple):
-    """Result of K3's per-k incumbent entry."""
+    """Result of K3's per-k incumbent entry (per lane)."""
 
     per_k_best: torch.Tensor  # (n_k,) float64
     per_k_w: torch.Tensor  # (n_k, M) float64
@@ -223,11 +255,14 @@ def per_k_incumbent(
     (``obj_full`` over the (B,) rows of k ``kidx_p``, first index on ties),
     the per-k incumbents and assignments it improves (``y_int`` None in dense
     mode: a zero row), and the prune threshold of every frontier row from its
-    own k's incumbent. The CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors."""
+    own k's incumbent. Every argument carries the leading lane axis (L, …):
+    one launch, one block per lane. The CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors."""
     if kernels.on_cuda(obj_full, kidx_p, w_int, n_int, state.per_k_best):
-        return _per_k_incumbent_kernel(obj_full, kidx_p, w_int, n_int, y_int, state, mip_gap)
-    return per_k_incumbent_reference(obj_full, kidx_p, w_int, n_int, y_int, state, mip_gap)
+        fn = _per_k_incumbent_kernel
+    else:
+        fn = per_k_incumbent_reference
+    return fn(obj_full, kidx_p, w_int, n_int, y_int, state, mip_gap)
 
 
 def per_k_incumbent_reference(
@@ -235,23 +270,24 @@ def per_k_incumbent_reference(
 ) -> PerKIncumbent:
     """Plain PyTorch version of K3's per-k incumbent entry."""
     inf = float("inf")
-    n_k = state.per_k_best.shape[0]
+    L, n_k = state.per_k_best.shape
     kidx = kidx_p.long()
-    round_best = torch.full((n_k,), inf, dtype=BDTYPE, device=obj_full.device)
-    round_best = round_best.scatter_reduce(0, kidx, obj_full, "amin")
-    improved = (round_best < state.per_k_best)[:, None]
-    k_mask = kidx[:, None] == torch.arange(n_k, device=kidx.device)[None, :]
-    r_star = torch.where(k_mask, obj_full[:, None], inf).argmin(0)
+    round_best = torch.full((L, n_k), inf, dtype=BDTYPE, device=obj_full.device)
+    round_best = round_best.scatter_reduce(1, kidx, obj_full, "amin")
+    improved = (round_best < state.per_k_best)[..., None]
+    k_mask = kidx[:, :, None] == torch.arange(n_k, device=kidx.device)
+    r_star = torch.where(k_mask, obj_full[:, :, None], inf).argmin(1)  # (L, n_k)
     if y_int is None:
         y_int = torch.zeros_like(w_int)
+    lanes = torch.arange(L, device=kidx.device)[:, None]
     best = torch.minimum(state.per_k_best, round_best)
     threshold_k = torch.where(torch.isfinite(best), best - mip_gap * best.abs(), inf)
     return PerKIncumbent(
         per_k_best=best,
-        per_k_w=torch.where(improved, w_int[r_star], state.per_k_w),
-        per_k_n=torch.where(improved, n_int[r_star], state.per_k_n),
-        per_k_y=torch.where(improved, y_int[r_star], state.per_k_y),
-        threshold=threshold_k[state.node_kidx.long()],
+        per_k_w=torch.where(improved, w_int[lanes, r_star], state.per_k_w),
+        per_k_n=torch.where(improved, n_int[lanes, r_star], state.per_k_n),
+        per_k_y=torch.where(improved, y_int[lanes, r_star], state.per_k_y),
+        threshold=threshold_k.gather(1, state.node_kidx.long()),
     )
 
 
@@ -260,9 +296,9 @@ def _per_k_incumbent_kernel(
 ) -> PerKIncumbent:
     from ..kernels.build import library
 
-    B, M = w_int.shape
-    n_k = state.per_k_best.shape[0]
-    cap = state.node_kidx.shape[0]
+    L, B, M = w_int.shape
+    n_k = state.per_k_best.shape[1]
+    cap = state.node_kidx.shape[1]
     f64 = [obj_full, w_int, n_int, state.per_k_best, state.per_k_w, state.per_k_n,
            state.per_k_y] + ([] if y_int is None else [y_int])
     if any(t.dtype != BDTYPE for t in f64):
@@ -277,20 +313,20 @@ def _per_k_incumbent_kernel(
                                     state.per_k_y)]
     node_kidx = state.node_kidx.to(torch.int32).contiguous()
     out = PerKIncumbent(
-        per_k_best=torch.empty(n_k, dtype=BDTYPE, device=dev),
-        per_k_w=torch.empty((n_k, M), dtype=BDTYPE, device=dev),
-        per_k_n=torch.empty((n_k, M), dtype=BDTYPE, device=dev),
-        per_k_y=torch.empty((n_k, M), dtype=BDTYPE, device=dev),
-        threshold=torch.empty(cap, dtype=BDTYPE, device=dev),
+        per_k_best=torch.empty((L, n_k), dtype=BDTYPE, device=dev),
+        per_k_w=torch.empty((L, n_k, M), dtype=BDTYPE, device=dev),
+        per_k_n=torch.empty((L, n_k, M), dtype=BDTYPE, device=dev),
+        per_k_y=torch.empty((L, n_k, M), dtype=BDTYPE, device=dev),
+        threshold=torch.empty((L, cap), dtype=BDTYPE, device=dev),
     )
     P = kernels.ptr
     err = library("bnb_epilogue").dtk_bnb_per_k_incumbent(
         P(rows[0]), P(rows[1]), B, P(rows[2]), P(rows[3]), kernels.opt_ptr(y_c), M,
         *[P(t) for t in old], n_k, P(node_kidx), cap, float(mip_gap),
-        *[P(t) for t in out], PER_K_THREADS, kernels.stream_handle(dev),
+        *[P(t) for t in out], L, PER_K_THREADS, kernels.stream_handle(dev),
     )
     kernels.check(err, "bnb_per_k")
-    kernels.LAUNCHES["bnb_per_k"] += 1
+    kernels.LAUNCHES["bnb_per_k_lanes" if L > 1 else "bnb_per_k"] += 1
     return out
 
 
@@ -308,34 +344,37 @@ def per_k_fair_rank(
     row's place among its k's active rows (``total`` for an inactive row),
     so that sorting it shares the capacity round-robin between the k's;
     ``per_k_dropped`` folds in, per k, the least bound of the active rows
-    that order puts past ``cap``. The CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    that order puts past ``cap``. Every argument carries the leading lane
+    axis (``order`` indexes each lane's own rows): one launch, one block per
+    lane. The CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     if kernels.on_cuda(order, child_kidx, child_active, child_bound, per_k_dropped):
-        return _per_k_fair_rank_kernel(order, child_kidx, child_active, child_bound, cap,
-                                       per_k_dropped)
-    return per_k_fair_rank_reference(order, child_kidx, child_active, child_bound, cap,
-                                     per_k_dropped)
+        fn = _per_k_fair_rank_kernel
+    else:
+        fn = per_k_fair_rank_reference
+    return fn(order, child_kidx, child_active, child_bound, cap, per_k_dropped)
 
 
 def per_k_fair_rank_reference(
     order, child_kidx, child_active, child_bound, cap: int, per_k_dropped
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3's per-k rank entry."""
-    n_k = per_k_dropped.shape[0]
-    total = order.shape[0]
+    L, n_k = per_k_dropped.shape
+    total = order.shape[1]
     dev = order.device
-    kidx_sorted = child_kidx[order].long()
-    active_sorted = child_active[order]
-    onehot = (kidx_sorted[:, None] == torch.arange(n_k, device=dev)[None, :]) & \
-        active_sorted[:, None]
-    counts = torch.cumsum(onehot.to(torch.int32), 0)
-    rank = counts.gather(1, kidx_sorted.clamp(0, n_k - 1)[:, None])[:, 0].long() - 1
+    kidx_sorted = child_kidx.gather(1, order).long()
+    active_sorted = child_active.gather(1, order)
+    onehot = (kidx_sorted[..., None] == torch.arange(n_k, device=dev)) & \
+        active_sorted[..., None]
+    counts = torch.cumsum(onehot.to(torch.int32), 1)
+    rank = counts.gather(2, kidx_sorted.clamp(0, n_k - 1)[..., None])[..., 0].long() - 1
     pos = torch.arange(total, dtype=torch.int64, device=dev)
     fair_key = torch.where(active_sorted, rank, total) * (total + 1) + pos
-    spill = order[torch.argsort(fair_key, stable=True)][cap:]
-    spill_live = torch.where(child_active[spill], child_bound[spill], float("inf"))
-    floor = torch.full((n_k,), float("inf"), dtype=BDTYPE, device=dev)
-    floor = floor.scatter_reduce(0, child_kidx[spill].long(), spill_live, "amin")
+    spill = order.gather(1, torch.argsort(fair_key, dim=1, stable=True))[:, cap:]
+    spill_live = torch.where(child_active.gather(1, spill), child_bound.gather(1, spill),
+                             float("inf"))
+    floor = torch.full((L, n_k), float("inf"), dtype=BDTYPE, device=dev)
+    floor = floor.scatter_reduce(1, child_kidx.gather(1, spill).long(), spill_live, "amin")
     return fair_key, torch.minimum(per_k_dropped, floor)
 
 
@@ -345,21 +384,21 @@ def _per_k_fair_rank_kernel(order, child_kidx, child_active, child_bound, cap: i
 
     if child_bound.dtype != BDTYPE or per_k_dropped.dtype != BDTYPE:
         raise TypeError("per-k rank kernel takes float64 bounds")
-    n_k = per_k_dropped.shape[0]
-    total = order.shape[0]
+    L, n_k = per_k_dropped.shape
+    total = order.shape[1]
     dev = order.device
-    fair_key = torch.empty(total, dtype=torch.int64, device=dev)
-    dropped = torch.empty(n_k, dtype=BDTYPE, device=dev)
+    fair_key = torch.empty((L, total), dtype=torch.int64, device=dev)
+    dropped = torch.empty((L, n_k), dtype=BDTYPE, device=dev)
     P = kernels.ptr
     ins = [order.to(torch.int64).contiguous(), child_kidx.to(torch.int32).contiguous(),
            child_active.to(torch.uint8).contiguous(), child_bound.contiguous(),
            per_k_dropped.contiguous()]
     err = library("bnb_epilogue").dtk_bnb_per_k_rank(
         P(ins[0]), total, P(ins[1]), P(ins[2]), P(ins[3]), n_k, cap, P(ins[4]),
-        P(fair_key), P(dropped), PER_K_RANK_THREADS, kernels.stream_handle(dev),
+        P(fair_key), P(dropped), L, PER_K_RANK_THREADS, kernels.stream_handle(dev),
     )
     kernels.check(err, "bnb_per_k")
-    kernels.LAUNCHES["bnb_per_k"] += 1
+    kernels.LAUNCHES["bnb_per_k_lanes" if L > 1 else "bnb_per_k"] += 1
     return fair_key, dropped
 
 
@@ -372,35 +411,37 @@ def bnb_epilogue(
     obj_full: torch.Tensor,
     threshold: torch.Tensor,
     int_mask: torch.Tensor,
-    obj_const: float,
+    obj_const: torch.Tensor,
     node_v: torch.Tensor,
     node_y: torch.Tensor,
     node_z: torch.Tensor,
     node_f: torch.Tensor,
     node_warm: torch.Tensor,
+    inst: torch.Tensor,
 ) -> EpilogueOut:
     """Per-row epilogue of one round (see :class:`EpilogueOut`): the CUDA
     kernel on CUDA tensors, the plain version on CPU tensors. ``threshold``
-    is the (B,) pruning threshold of each row."""
+    is the (B,) pruning threshold of each row. ``int_mask`` (R, nf) and
+    ``obj_const`` (R,) float64 are R sweeps'; ``inst`` (B,) names each
+    row's sweep."""
     if kernels.on_cuda(lo, hi, res.v, parent_bound, obj_full, threshold, node_v):
-        return _epilogue_kernel(
-            lo, hi, res, parent_bound, active, obj_full, threshold, int_mask,
-            obj_const, node_v, node_y, node_z, node_f, node_warm,
-        )
-    return bnb_epilogue_reference(
-        lo, hi, res, parent_bound, active, obj_full, threshold, int_mask,
-        obj_const, node_v, node_y, node_z, node_f, node_warm,
-    )
+        fn = _epilogue_kernel
+    else:
+        fn = bnb_epilogue_reference
+    return fn(lo, hi, res, parent_bound, active, obj_full, threshold, int_mask,
+              obj_const, node_v, node_y, node_z, node_f, node_warm, inst)
 
 
 def bnb_epilogue_reference(
     lo, hi, res, parent_bound, active, obj_full, threshold, int_mask,
-    obj_const, node_v, node_y, node_z, node_f, node_warm,
+    obj_const, node_v, node_y, node_z, node_f, node_warm, inst,
 ) -> EpilogueOut:
     """Plain PyTorch version of the epilogue kernel."""
     inf = float("inf")
     B = lo.shape[0]
     rows = torch.arange(B, device=lo.device)
+    im = int_mask[inst.long()]
+    obj_const = obj_const[inst.long()]
     # A diverged LP reports -inf; fold with the parent bound. Rows that were
     # not processed get +inf.
     bound_raw = res.bound + obj_const
@@ -414,7 +455,6 @@ def bnb_epilogue_reference(
     budget = torch.where(torch.isfinite(budget) & (budget >= 0), budget, inf)[:, None]
     lo64, hi64 = lo.to(BDTYPE), hi.to(BDTYPE)
     red = res.reduced
-    im = int_mask[None, :]
     tight_hi = torch.where(
         im & (red > 1e-12),
         torch.floor(lo64 + budget / torch.clamp(red, min=1e-12) + 1e-9),
@@ -472,7 +512,7 @@ def bnb_epilogue_reference(
 
 def _epilogue_kernel(
     lo, hi, res, parent_bound, active, obj_full, threshold, int_mask,
-    obj_const, node_v, node_y, node_z, node_f, node_warm,
+    obj_const, node_v, node_y, node_z, node_f, node_warm, inst,
 ) -> EpilogueOut:
     from ..kernels.build import library
 
@@ -482,7 +522,7 @@ def _epilogue_kernel(
            node_v, node_y, node_z, node_f]
     if any(t.dtype != DTYPE for t in f32):
         raise TypeError("epilogue kernel takes float32 boxes, iterates and duals")
-    f64 = [res.reduced, res.bound, parent_bound, obj_full, threshold]
+    f64 = [res.reduced, res.bound, parent_bound, obj_full, threshold, obj_const]
     if any(t.dtype != BDTYPE for t in f64):
         raise TypeError("epilogue kernel takes float64 bounds and reduced costs")
     c = lambda t: t.contiguous()  # noqa: E731
@@ -503,18 +543,21 @@ def _epilogue_kernel(
     )
     if B == 0:
         return out
+    inst = inst.to(torch.int32).contiguous()
+    if inst.shape != (B,) or int_mask.dim() != 2 or obj_const.shape != int_mask.shape[:1]:
+        raise ValueError("epilogue kernel takes inst (B,), int_mask (R, nf), obj_const (R,)")
     ins = [c(lo), c(hi), c(res.v), c(res.reduced), c(res.y_dual), c(res.z_dual),
            c(res.f_dual), c(res.bound), c(parent_bound), u8(active), c(obj_full),
-           c(threshold), u8(int_mask)]
+           c(threshold), u8(int_mask), c(obj_const)]
     warm_ins = [c(node_v), c(node_y), c(node_z), c(node_f), u8(node_warm)]
     P = kernels.ptr
     err = library("bnb_epilogue").dtk_bnb_epilogue(
-        *[P(t) for t in ins], float(obj_const), *[P(t) for t in warm_ins],
+        *[P(t) for t in ins], P(inst), *[P(t) for t in warm_ins],
         B, nf, m, *[P(t) for t in out], EPILOGUE_THREADS,
         kernels.stream_handle(dev),
     )
     kernels.check(err, "bnb_epilogue")
-    kernels.LAUNCHES["bnb_epilogue"] += 1
+    kernels.LAUNCHES["bnb_epilogue_lanes" if int_mask.shape[0] > 1 else "bnb_epilogue"] += 1
     return out
 
 
@@ -536,26 +579,35 @@ def cast_lp_result(res: IPMResult, tgt: torch.dtype) -> IPMResult:
     return res._replace(**cast)
 
 
-def node_A(data: SweepData, kidx: torch.Tensor, M: int) -> torch.Tensor:
-    """The constraint matrix of each node: the shared (m, nf) A in dense
-    mode; in MoE mode a contiguous (B, m, nf) copy of the base per node with
-    its k's 2M expert-busy entries scattered in (K1's per-element route)."""
-    if data.gky is None:
-        return data.A
-    B = kidx.shape[0]
-    m, nf = data.A.shape
-    A_p = data.A.expand(B, m, nf).clone()
-    g_p = data.gky[kidx]  # (B, 2, M)
-    ar = torch.arange(M, device=data.A.device)
+def node_A(data: SweepData, kidx: torch.Tensor, M: int, lane: torch.Tensor) -> torch.Tensor:
+    """The constraint matrix of each node of (B,) rows of k ``kidx`` in lane
+    ``lane``: the shared (m, nf) A in dense mode (one lane's own A, gathered
+    per row, for lanes with an A each); in MoE mode a contiguous (B, m, nf)
+    copy of the base per node with its k's 2M expert-busy entries scattered
+    in (K1's per-element route)."""
+    A = data.A
+    if A.dim() == 2 or A.shape[0] == 1:
+        A = A if A.dim() == 2 else A[0]
+        base = A.expand(kidx.shape[0], *A.shape)
+    else:
+        base = A[lane]
+    g_p = None if data.gky is None else data.gky[lane, kidx]  # (B, 2, M)
+    if g_p is None:
+        return A if A.dim() == 2 else base
+    A_p = base.clone()
+    ar = torch.arange(M, device=A.device)
     A_p[:, 4 * M + ar, 2 * M + ar] = g_p[:, 0, :]
     A_p[:, 5 * M + ar, 2 * M + ar] = g_p[:, 1, :]
     return A_p
 
 
 def node_sparsity(A: torch.Tensor, M: int, moe: bool) -> IPMSparsity:
-    """K1's structure of every node's A: the base's nonzeros, and in MoE
-    mode the 2M expert-busy entries ``node_A`` scatters in."""
+    """K1's structure of every node's A: the base's nonzeros (the union over
+    the lanes for a (L, m, nf) stack), and in MoE mode the 2M expert-busy
+    entries ``node_A`` scatters in."""
     pattern = A != 0
+    if pattern.dim() == 3:
+        pattern = pattern.any(0)
     if moe:
         ar = torch.arange(M, device=A.device)
         pattern[4 * M + ar, 2 * M + ar] = True
@@ -563,51 +615,72 @@ def node_sparsity(A: torch.Tensor, M: int, moe: bool) -> IPMSparsity:
     return ipm_sparsity(pattern)
 
 
+def _lanes_of(L: int, per_lane: int, device) -> torch.Tensor:
+    """(L * per_lane,) lane index of each flattened row."""
+    return torch.arange(L, device=device).repeat_interleave(per_lane)
+
+
 def seed_root_bounds(
     state: SearchState,
     data: SweepData,
-    p32: DecompProblem,
-    p64: DecompProblem,
+    p32,
+    p64,
     decomp_steps: int,
     init_duals=None,
+    margin=None,
 ):
-    """Root Lagrangian decomposition bounds (K7) into the roots' node
-    bounds, and, on cold solves (``decomp_steps > 0``), each k's
-    Lagrangian-primal cell repaired to a feasible placement (K2's hint mode,
-    ``e_max + 4`` repair steps) as incumbent candidates. Returns
+    """Root Lagrangian decomposition bounds (K7, every lane in one ascent)
+    into the roots' node bounds, and, on cold solves (``decomp_steps >
+    0``), each k's Lagrangian-primal cell repaired to a feasible placement
+    (K2's hint mode, ``e_max + 4`` repair steps) as incumbent candidates.
+    Lane data and state; ``p32``/``p64`` are the lanes' ``DecompBatch``es
+    and ``init_duals`` (lam (L, n_k), mu, tau (L, n_k, M)). Returns
     ``(state, duals, raw_bounds, m_y)``; the raw bounds exclude
     ``obj_const``. A warm tick (``decomp_steps == 0``) only re-evaluates the
-    bound at ``init_duals``: its incumbent is the previous optimum."""
-    n_k = data.ks.shape[0]
-    M = state.inc_w.shape[0]
-    nf = state.node_lo.shape[1]
+    bound at ``init_duals``: its incumbent is the previous optimum.
+
+    ``margin`` (L, n_k), the margin fast path: bounds already re-derived on
+    the host from a previous full evaluation replace the evaluation
+    entirely; the stored duals pass through and ``m_y`` is None."""
+    L, n_k = data.ks.shape
+    M = state.inc_w.shape[-1]
+    nf = state.node_lo.shape[-1]
+    node_bound = state.node_bound.clone()
+    if margin is not None:
+        node_bound[:, :n_k] = margin + data.obj_const[:, None]
+        return state._replace(node_bound=node_bound), init_duals, margin, None
     raw, w_star, n_star, y_star, duals, m_y = decomp_bound_roots(
         p32, p64, data.rd, decomp_steps, init_duals
     )
-    node_bound = state.node_bound.clone()
-    node_bound[:n_k] = raw + data.obj_const
+    node_bound[:, :n_k] = raw + data.obj_const[:, None]
     state = state._replace(node_bound=node_bound)
     if decomp_steps == 0:
         return state, duals, raw, m_y
 
-    v_hint = torch.zeros((n_k, nf), dtype=BDTYPE, device=raw.device)
-    v_hint[:, :M] = w_star
-    v_hint[:, M : 2 * M] = n_star
-    v_hint[:, 2 * M : 3 * M] = y_star
-    lag_obj, lag_w, lag_n, lag_y = round_to_incumbent(
-        v_hint, data.Ws, data.ks, data.rd, data.rd_packed, moe=True,
-        y_steps=p64.e_max + 4,
+    v_hint = torch.zeros((L, n_k, nf), dtype=BDTYPE, device=raw.device)
+    v_hint[..., :M] = w_star
+    v_hint[..., M : 2 * M] = n_star
+    v_hint[..., 2 * M : 3 * M] = y_star
+    lag_obj, lag_w, lag_n, lag_y = (
+        t.reshape(L, n_k, *t.shape[1:]) for t in round_to_incumbent(
+            v_hint.reshape(L * n_k, nf), data.Ws.reshape(-1), data.ks.reshape(-1), data.rd,
+            data.rd_packed, moe=True, y_steps=p64.e_max + 4,
+            inst=_lanes_of(L, n_k, raw.device),
+        )
     )
-    lag_obj = lag_obj + data.obj_const
-    jbest = lag_obj.argmin()
-    better = lag_obj[jbest] < state.incumbent
+    lag_obj = lag_obj + data.obj_const[:, None]
+    lanes = torch.arange(L, device=raw.device)
+    jbest = lag_obj.argmin(1)
+    best = lag_obj[lanes, jbest]
+    better = best < state.incumbent
+    b1 = better[:, None]
     clean = torch.where(torch.isfinite(lag_obj), lag_obj, float("inf"))
-    seeded_k = (clean < state.per_k_best)[:, None]
+    seeded_k = (clean < state.per_k_best)[..., None]
     state = state._replace(
-        incumbent=torch.where(better, lag_obj[jbest], state.incumbent),
-        inc_w=torch.where(better, lag_w[jbest], state.inc_w),
-        inc_n=torch.where(better, lag_n[jbest], state.inc_n),
-        inc_y=torch.where(better, lag_y[jbest], state.inc_y),
+        incumbent=torch.where(better, best, state.incumbent),
+        inc_w=torch.where(b1, lag_w[lanes, jbest], state.inc_w),
+        inc_n=torch.where(b1, lag_n[lanes, jbest], state.inc_n),
+        inc_y=torch.where(b1, lag_y[lanes, jbest], state.inc_y),
         inc_kidx=torch.where(better, jbest.to(torch.int32), state.inc_kidx),
         per_k_best=torch.minimum(state.per_k_best, clean),
         per_k_w=torch.where(seeded_k, lag_w, state.per_k_w),
@@ -615,6 +688,53 @@ def seed_root_bounds(
         per_k_y=torch.where(seeded_k, lag_y, state.per_k_y),
     )
     return state, duals, raw, m_y
+
+
+def seed_warm(state: SearchState, data: SweepData, warm, moe: bool, moves: int):
+    """Re-price each lane's previous assignment exactly under THIS sweep's
+    coefficients and seed the incumbent with it (an infeasible hint prices
+    to +inf and leaves the lane cold). ``warm`` = (k index (L,), w, n, y
+    (L, M)) on the device; one K2 launch over the L hints (MoE: its short
+    warm move search, ``moves`` steps)."""
+    kidx_in, w, n, y = warm
+    L, n_k = data.ks.shape
+    M = state.inc_w.shape[-1]
+    nf = state.node_lo.shape[-1]
+    dev = data.ks.device
+    lanes = torch.arange(L, device=dev)
+    kidx = kidx_in.long().clamp(0, n_k - 1)
+    v = torch.zeros((L, nf), dtype=BDTYPE, device=dev)
+    v[:, :M] = w
+    v[:, M : 2 * M] = n
+    if moe:
+        v[:, 2 * M : 3 * M] = y
+    out = round_to_incumbent(
+        v, data.Ws[lanes, kidx], data.ks[lanes, kidx], data.rd, data.rd_packed,
+        moe=moe, moves=moves, inst=lanes,
+    )
+    obj, w_rep, n_rep = out[:3]
+    y_rep = out[3] if moe else state.inc_y
+    warm_obj = obj + data.obj_const
+    seeded = torch.isfinite(warm_obj) & (warm_obj < state.incumbent)
+    clean = torch.where(torch.isfinite(warm_obj), warm_obj, float("inf"))
+    seeded_k = (clean < state.per_k_best[lanes, kidx])[:, None]
+    per_k_best = state.per_k_best.clone()
+    per_k_best[lanes, kidx] = torch.minimum(per_k_best[lanes, kidx], clean)
+    per_k = {}
+    for name, rep in (("per_k_w", w_rep), ("per_k_n", n_rep), ("per_k_y", y_rep)):
+        t = getattr(state, name).clone()
+        t[lanes, kidx] = torch.where(seeded_k, rep, t[lanes, kidx])
+        per_k[name] = t
+    s1 = seeded[:, None]
+    return state._replace(
+        incumbent=torch.where(seeded, warm_obj, state.incumbent),
+        inc_w=torch.where(s1, w_rep, state.inc_w),
+        inc_n=torch.where(s1, n_rep, state.inc_n),
+        inc_y=torch.where(s1, y_rep, state.inc_y),
+        inc_kidx=torch.where(seeded, kidx.to(torch.int32), state.inc_kidx),
+        per_k_best=per_k_best,
+        **per_k,
+    )
 
 
 def bnb_round(
@@ -628,109 +748,141 @@ def bnb_round(
     pdhg_restart_tol: Optional[float] = None,
     pdhg_dtype: Optional[str] = None,
     per_k: bool = False,
+    frozen: Optional[torch.Tensor] = None,
 ) -> Tuple[SearchState, IPMResult]:
     """One batched branch-and-bound round over the frontier prefix of
-    ``beam`` rows (rows past it pass through with their parent bound).
-    ``ipm_iters`` is the LP budget of whichever engine ``lp_backend``
-    names; ``ipm_chunk`` (the IPM's cold-root full-length chunk) is never
-    passed to the PDHG, whose convergence point inside its budget is unknown
-    even cold. ``per_k`` prunes every node against its own k's incumbent and
-    keeps the per-k assignments, a k-fair compaction and the per-k overflow
-    floors (K3's per-k entries). Returns the new state and the beam rows'
-    raw LP result."""
-    M = state.inc_w.shape[0]
-    cap = state.node_lo.shape[0]
-    n_k = state.per_k_best.shape[0]
+    ``beam`` rows of every lane (rows past it pass through with their parent
+    bound). ``ipm_iters`` is the LP budget of whichever engine
+    ``lp_backend`` names; ``ipm_chunk`` (the IPM's cold-root full-length
+    chunk) is never passed to the PDHG, whose convergence point inside its
+    budget is unknown even cold. ``per_k`` prunes every node against its own
+    k's incumbent and keeps the per-k assignments, a k-fair compaction and
+    the per-k overflow floors (K3's per-k entries). ``frozen`` (L,) bool
+    marks settled lanes: their rows go to the LP as skipped and their state
+    comes back unchanged. Returns the new state and the beam rows' raw LP
+    result (L * beam rows, lane-major)."""
+    L, cap = state.node_lo.shape[:2]
+    M = state.inc_w.shape[-1]
+    n_k = state.per_k_best.shape[-1]
     B = cap if beam is None else min(beam, cap)
     inf = float("inf")
+    dev = state.node_lo.device
+    lanes = torch.arange(L, device=dev)
+    lanes_c = lanes[:, None]
+    row_lane = _lanes_of(L, B, dev)
 
-    lo_p = state.node_lo[:B]
-    hi_p = state.node_hi[:B]
-    kidx_p = state.node_kidx[:B].long()
-    active_p = state.active[:B]
+    def flat(t):
+        return t.reshape(L * B, *t.shape[2:])
+
+    def lanes_b(t):
+        return t.reshape(L, B, *t.shape[1:])
+
+    kidx_p = state.node_kidx[:, :B].long()
+    active_p = state.active[:, :B]
+    if frozen is not None:
+        active_p = active_p & ~frozen[:, None]
+    kidx_r = flat(kidx_p)
     warm = IPMWarmState(
-        v=state.node_v[:B],
-        y=state.node_y[:B],
-        z=state.node_z[:B],
-        f=state.node_f[:B],
-        ok=state.node_warm[:B],
+        v=flat(state.node_v[:, :B]),
+        y=flat(state.node_y[:, :B]),
+        z=flat(state.node_z[:, :B]),
+        f=flat(state.node_f[:, :B]),
+        ok=flat(state.node_warm[:, :B]),
     )
     moe = data.gky is not None
-    lp_batch = LPBatch(A=node_A(data, kidx_p, M), b=data.b_k[kidx_p], c=data.c_k[kidx_p],
-                       l=lo_p, u=hi_p)
+    lo_r, hi_r = flat(state.node_lo[:, :B]), flat(state.node_hi[:, :B])
+    lp_batch = LPBatch(A=node_A(data, kidx_r, M, row_lane), b=data.b_k[row_lane, kidx_r],
+                       c=data.c_k[row_lane, kidx_r], l=lo_r, u=hi_r)
+    skip = ~flat(active_p)
     if lp_backend == "pdhg":
+        if lp_batch.A.dim() != 2:
+            raise NotImplementedError(
+                "lanes with an A each on the PDHG engine need its per-element-A "
+                "mode (B11, ROADMAP.md A15); solve them apart or with lp_backend='ipm'"
+            )
         res = pdhg_solve_batch(
             lp_batch, iters=ipm_iters, restart_tol=pdhg_restart_tol, warm=warm,
-            skip=~active_p, dtype=pdhg_dtype,
+            skip=skip, dtype=pdhg_dtype,
         )
-        res = cast_lp_result(res, data.A.dtype)
+        res = cast_lp_result(res, DTYPE)
     else:
         chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
         res = ipm_solve_batch(
-            lp_batch, iters=ipm_iters, warm=warm, skip=~active_p, **chunk_kw,
+            lp_batch, iters=ipm_iters, warm=warm, skip=skip, **chunk_kw,
             sparsity=data.A_sparsity,
         )
 
-    # Exact integer incumbents from every processed row's LP point.
+    # Exact integer incumbents from every processed row's LP point, each row
+    # against its own lane's data.
     rounded = round_to_incumbent(
-        res.v, data.Ws[kidx_p], data.ks[kidx_p], data.rd, data.rd_packed, moe=moe
+        res.v, data.Ws[row_lane, kidx_r], data.ks[row_lane, kidx_r], data.rd,
+        data.rd_packed, moe=moe, inst=row_lane,
     )
-    obj_lin, w_int, n_int = rounded[:3]
-    obj_full = torch.where(active_p, obj_lin + data.obj_const, inf)
-    best_i = obj_full.argmin()
-    best_obj = obj_full[best_i]
+    obj_lin = lanes_b(rounded[0])
+    w_int, n_int = lanes_b(rounded[1]), lanes_b(rounded[2])
+    y_int = lanes_b(rounded[3]) if moe else None
+    obj_full = torch.where(active_p, obj_lin + data.obj_const[:, None], inf)
+    best_i = obj_full.argmin(1)
+    best_obj = obj_full[lanes, best_i]
     better = best_obj < state.incumbent
+    b1 = better[:, None]
     incumbent = torch.where(better, best_obj, state.incumbent)
-    inc_w = torch.where(better, w_int[best_i], state.inc_w)
-    inc_n = torch.where(better, n_int[best_i], state.inc_n)
-    inc_y = torch.where(better, rounded[3][best_i], state.inc_y) if moe else state.inc_y
-    inc_kidx = torch.where(better, kidx_p[best_i].to(torch.int32), state.inc_kidx)
+    inc_w = torch.where(b1, w_int[lanes, best_i], state.inc_w)
+    inc_n = torch.where(b1, n_int[lanes, best_i], state.inc_n)
+    inc_y = torch.where(b1, y_int[lanes, best_i], state.inc_y) if moe else state.inc_y
+    inc_kidx = torch.where(better, kidx_p[lanes, best_i].to(torch.int32), state.inc_kidx)
     per_k_w, per_k_n, per_k_y = state.per_k_w, state.per_k_n, state.per_k_y
     if per_k:
         # Each node prunes against its own k's incumbent (a losing k must
         # still close its own gap): K3's per-k entry updates the per-k
         # incumbents and gives every frontier row its threshold.
-        pk = per_k_incumbent(obj_full, kidx_p, w_int, n_int,
-                             rounded[3] if moe else None, state, mip_gap)
+        pk = per_k_incumbent(obj_full, kidx_p, w_int, n_int, y_int, state, mip_gap)
         per_k_best = pk.per_k_best
         per_k_w, per_k_n, per_k_y = pk.per_k_w, pk.per_k_n, pk.per_k_y
-        threshold, rest_threshold = pk.threshold[:B], pk.threshold[B:]
+        threshold, rest_threshold = pk.threshold[:, :B], pk.threshold[:, B:]
     else:
-        round_best_k = torch.full((n_k,), inf, dtype=BDTYPE, device=obj_full.device)
-        round_best_k = round_best_k.scatter_reduce(0, kidx_p, obj_full, "amin")
+        round_best_k = torch.full((L, n_k), inf, dtype=BDTYPE, device=dev)
+        round_best_k = round_best_k.scatter_reduce(1, kidx_p, obj_full, "amin")
         per_k_best = torch.minimum(state.per_k_best, round_best_k)
         # Prune threshold: a node survives only if its bound can still beat
         # the incumbent by more than the relative gap (+inf with no
         # incumbent yet).
-        threshold = torch.where(
+        thr = torch.where(
             torch.isfinite(incumbent), incumbent - mip_gap * incumbent.abs(), inf
-        )
-        rest_threshold = threshold
-        threshold = threshold.expand(B)
+        )[:, None]
+        rest_threshold = thr
+        threshold = thr.expand(L, B)
     ep = bnb_epilogue(
-        lo_p, hi_p, res, state.node_bound[:B], active_p, obj_full,
-        threshold, data.int_mask, data.obj_const,
-        warm.v, warm.y, warm.z, warm.f, warm.ok,
+        lo_r, hi_r, res, flat(state.node_bound[:, :B]), flat(active_p), flat(obj_full),
+        flat(threshold), data.int_mask, data.obj_const,
+        warm.v, warm.y, warm.z, warm.f, warm.ok, inst=row_lane,
     )
+    ep = EpilogueOut(*[lanes_b(t) for t in ep])
 
     # Unprocessed rows pass through, still subject to the new threshold.
-    rest_bound = state.node_bound[B:]
-    rest_active = state.active[B:] & (rest_bound < rest_threshold)
-    child_lo = torch.cat([ep.lo_a, ep.lo_b, state.node_lo[B:]])
-    child_hi = torch.cat([ep.hi_a, ep.hi_b, state.node_hi[B:]])
-    child_kidx = torch.cat([state.node_kidx[:B], state.node_kidx[:B], state.node_kidx[B:]])
-    child_bound = torch.cat([ep.bound, ep.bound, rest_bound])
-    child_active = torch.cat([ep.survive, ep.survive, rest_active])
-    child_v = torch.cat([ep.v_new, ep.v_new, state.node_v[B:]])
-    child_y = torch.cat([ep.y_new, ep.y_new, state.node_y[B:]])
-    child_z = torch.cat([ep.z_new, ep.z_new, state.node_z[B:]])
-    child_f = torch.cat([ep.f_new, ep.f_new, state.node_f[B:]])
-    child_warm = torch.cat([ep.warm_new, ep.warm_new, state.node_warm[B:]])
+    rest_bound = state.node_bound[:, B:]
+    rest_active = state.active[:, B:] & (rest_bound < rest_threshold)
 
-    # Best-bound-first compaction back to the capacity. Both children of a
-    # node share one bound; the stable sort keeps child A ahead of child B.
+    def children(a, b, rest):
+        return torch.cat([a, b, rest], 1)
+
+    child_lo = children(ep.lo_a, ep.lo_b, state.node_lo[:, B:])
+    child_hi = children(ep.hi_a, ep.hi_b, state.node_hi[:, B:])
+    kidx_b = state.node_kidx[:, :B]
+    child_kidx = children(kidx_b, kidx_b, state.node_kidx[:, B:])
+    child_bound = children(ep.bound, ep.bound, rest_bound)
+    child_active = children(ep.survive, ep.survive, rest_active)
+    child_v = children(ep.v_new, ep.v_new, state.node_v[:, B:])
+    child_y = children(ep.y_new, ep.y_new, state.node_y[:, B:])
+    child_z = children(ep.z_new, ep.z_new, state.node_z[:, B:])
+    child_f = children(ep.f_new, ep.f_new, state.node_f[:, B:])
+    child_warm = children(ep.warm_new, ep.warm_new, state.node_warm[:, B:])
+
+    # Best-bound-first compaction back to the capacity, per lane. Both
+    # children of a node share one bound; the stable sort keeps child A
+    # ahead of child B.
     sort_key = torch.where(child_active, child_bound, inf)
-    order = torch.argsort(sort_key, stable=True)
+    order = torch.argsort(sort_key, dim=1, stable=True)
     per_k_dropped = state.per_k_dropped
     if per_k:
         # K-fair compaction: re-rank so each k keeps its best nodes first
@@ -740,18 +892,21 @@ def bnb_round(
         fair_key, per_k_dropped = per_k_fair_rank(
             order, child_kidx, child_active, child_bound, cap, state.per_k_dropped
         )
-        order = order[torch.argsort(fair_key, stable=True)]
-    keep = order[:cap]
-    spill = order[cap:]
-    spill_live = torch.where(child_active[spill], child_bound[spill], inf)
-    dropped_bound = torch.minimum(state.dropped_bound, spill_live.amin())
+        order = order.gather(1, torch.argsort(fair_key, dim=1, stable=True))
+    keep = order[:, :cap]
+    spill = order[:, cap:]
+    spill_live = torch.where(child_active.gather(1, spill), child_bound.gather(1, spill), inf)
+    dropped_bound = torch.minimum(state.dropped_bound, spill_live.amin(1))
+
+    def kept(t):
+        return t[lanes_c, keep]
 
     out = SearchState(
-        node_lo=child_lo[keep],
-        node_hi=child_hi[keep],
-        node_kidx=child_kidx[keep],
-        node_bound=child_bound[keep],
-        active=child_active[keep],
+        node_lo=kept(child_lo),
+        node_hi=kept(child_hi),
+        node_kidx=kept(child_kidx),
+        node_bound=kept(child_bound),
+        active=kept(child_active),
         incumbent=incumbent,
         inc_w=inc_w,
         inc_n=inc_n,
@@ -763,14 +918,16 @@ def bnb_round(
         per_k_n=per_k_n,
         per_k_y=per_k_y,
         per_k_dropped=per_k_dropped,
-        node_v=child_v[keep],
-        node_y=child_y[keep],
-        node_z=child_z[keep],
-        node_f=child_f[keep],
-        node_warm=child_warm[keep],
-        stat_ipm_iters=state.stat_ipm_iters + res.iters_run.sum().to(BDTYPE),
+        node_v=kept(child_v),
+        node_y=kept(child_y),
+        node_z=kept(child_z),
+        node_f=kept(child_f),
+        node_warm=kept(child_warm),
+        stat_ipm_iters=state.stat_ipm_iters + lanes_b(res.iters_run).sum(1).to(BDTYPE),
         stat_rounds=state.stat_rounds + 1.0,
     )
+    if frozen is not None:
+        out = select_lanes(frozen, state, out)
     return out, res
 
 
@@ -788,49 +945,63 @@ def run_bnb_loop(
     pdhg_dtype: Optional[str] = None,
     per_k: bool = False,
 ):
-    """Root round, then warm rounds until the mip-gap certificate closes
-    (in per-k mode: every k's own certificate, ``certified_per_k``), the
-    frontier empties, or ``max_rounds`` rounds ran.
+    """Root round, then warm rounds until, in every lane, the mip-gap
+    certificate closes (in per-k mode: every k's own certificate,
+    ``certified_per_k``), the frontier empties, or ``max_rounds`` rounds ran.
 
     The root round covers exactly the n_k roots at the full ``ipm_iters``
     budget (for the IPM one full-length chunk when cold, the kernel's small
     chunks when the roots carry a previous solve's iterates; the PDHG always
     uses its own chunk); later rounds warm-start from their parents at
-    ``ipm_warm_iters``. It is skipped when the seeded
-    state already certifies. Returns ``(state, root_iters)`` where
-    root_iters = (ok, v, y, z, f) are the root round's iterates (the
-    carried-in ones when the root round was skipped).
+    ``ipm_warm_iters``. A lane whose seeded state already certifies skips it.
+    Each round first reads the lanes' go flags (a frontier left and no
+    certificate yet) from the device, the round's one read; a lane that
+    stopped stays frozen to the end, its state exactly where it settled.
+    Returns ``(state, root_iters)`` where root_iters = (ok, v, y, z, f) are
+    each lane's root-round iterates (the carried-in ones for a lane that
+    skipped the root round).
     """
     warm_iters = ipm_iters if ipm_warm_iters is None else ipm_warm_iters
-    n_k = state.per_k_best.shape[0]
-    cap = state.node_lo.shape[0]
+    L, cap = state.node_kidx.shape
+    n_k = state.per_k_best.shape[-1]
     B0 = min(cap, n_k)
 
     settled = certified_per_k if per_k else certified
 
-    def go(st: SearchState) -> bool:
-        # The one device-to-host read of a round.
-        return bool((st.active.any() & ~settled(st, mip_gap)).item())
+    def go(st: SearchState):
+        """(device mask of the lanes that go on, whether any does): the one
+        device-to-host read of a round."""
+        mask = st.active.any(-1) & ~settled(st, mip_gap)
+        live = mask.tolist()
+        return mask, any(live), None if all(live) else ~mask
 
     engine = dict(lp_backend=lp_backend, pdhg_restart_tol=pdhg_restart_tol,
                   pdhg_dtype=pdhg_dtype, per_k=per_k)
     root_iters = (
-        state.node_warm[:B0], state.node_v[:B0], state.node_y[:B0],
-        state.node_z[:B0], state.node_f[:B0],
+        state.node_warm[:, :B0], state.node_v[:, :B0], state.node_y[:, :B0],
+        state.node_z[:, :B0], state.node_f[:, :B0],
     )
-    if max_rounds >= 1 and go(state):
-        ok = state.active[:B0]
-        state, res = bnb_round(
-            data, state, mip_gap, ipm_iters=ipm_iters, beam=B0,
-            ipm_chunk=None if root_warm_chunk else ipm_iters, **engine,
-        )
-        root_iters = (
-            ok, res.v.to(DTYPE), res.y_dual.to(DTYPE), res.z_dual.to(DTYPE),
-            res.f_dual.to(DTYPE),
-        )
+    if max_rounds >= 1:
+        mask, any_go, frozen = go(state)
+        if any_go:
+            ok = state.active[:, :B0]
+            state, res = bnb_round(
+                data, state, mip_gap, ipm_iters=ipm_iters, beam=B0,
+                ipm_chunk=None if root_warm_chunk else ipm_iters, frozen=frozen, **engine,
+            )
+            ran = (ok, *(t.reshape(L, B0, -1).to(DTYPE)
+                         for t in (res.v, res.y_dual, res.z_dual, res.f_dual)))
+            m1 = mask[:, None]
+            root_iters = tuple(
+                torch.where(m1 if a.dim() == 2 else m1[..., None], a, b)
+                for a, b in zip(ran, root_iters)
+            )
     i = 1
-    while i < max_rounds and go(state):
+    while i < max_rounds:
+        _, any_go, frozen = go(state)
+        if not any_go:
+            break
         state, _ = bnb_round(data, state, mip_gap, ipm_iters=warm_iters, beam=beam,
-                             **engine)
+                             frozen=frozen, **engine)
         i += 1
     return state, root_iters

@@ -73,7 +73,10 @@ def test_worker_exception_is_raised_by_collect(profiles_dir, monkeypatch):
 
 def test_options_of_later_slices_raise(profiles_dir):
     devs, model = load_from_profile_folder(profiles_dir / "llama_3_70b" / "online")
-    with pytest.raises(NotImplementedError, match="A5"):
-        halda_solve_async(devs, model, margin_state={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="convergence"):
+    # The margin chain is ported: a dense solve accepts the dict and
+    # leaves it alone (the chain is MoE-only).
+    ms = {}
+    assert halda_solve_async(devs, model, margin_state=ms, device="cpu").collect().certified
+    assert ms == {}
+    with pytest.raises(NotImplementedError, match="convergence.*A9"):
         halda_solve_async(devs, model, convergence={}, device="cpu")

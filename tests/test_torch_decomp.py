@@ -30,7 +30,7 @@ import jax.numpy as jnp  # noqa: E402
 from distilp_torch.ops import decomp as D  # noqa: E402
 from distilp_torch.profiler import profile_model  # noqa: E402
 from distilp_torch.solver.api import _build_instance  # noqa: E402
-from distilp_torch.solver.rounding import rounding_data  # noqa: E402
+from distilp_torch.solver.rounding import rounding_data, stack_rounding_data  # noqa: E402
 from distilp_torch.solver.standard_form import rounding_arrays_np  # noqa: E402
 from distilp_torch.utils import make_synthetic_fleet  # noqa: E402
 from distilp_tpu.solver import backend_jax as BJ  # noqa: E402
@@ -62,6 +62,8 @@ class Inst:
             D.decomp_problem(self.rd_np, self.ks, self.Ws, self.w_max, self.e_max, dt, "cpu")
             for dt in (torch.float32, torch.float64)
         )
+        # The batch API's S = 1 batches of the same problem.
+        self.b32, self.b64 = D.stack_problems([self.p32]), D.stack_problems([self.p64])
         self.jrd = BJ.RoundingData(
             **{k: jnp.asarray(v, jnp.float64) for k, v in self.rd_np.items()}
         )
@@ -113,6 +115,11 @@ def inst(name) -> Inst:
     return _INST[name]
 
 
+def _rd_stack(I):
+    """The instance's rounding data as the S = 1 stack the batch API takes."""
+    return stack_rounding_data([rounding_data(I.rd_np, "cpu")])
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
@@ -123,7 +130,7 @@ def _value_and_grads(I, params):
         tuple(jnp.asarray(p) for p in params)
     )
     t = [torch.tensor(p, requires_grad=True) for p in params]
-    b = D.DecompBound32.apply(*t, I.p32)
+    b = D.DecompBound32.apply(*(x[None] for x in t), I.b32)[0]
     (-b.sum()).backward()
     return (np.asarray(jb), [np.asarray(g) for g in jg]), (
         b.detach().numpy(), [x.grad.numpy() for x in t]
@@ -219,7 +226,8 @@ def test_float64_evaluation_matches_jax(name):
     )
     # steps=0 keeps the float32 multipliers, cast to float64.
     lam64, mu64, tau64 = (torch.tensor(x).double() for x in (lam, mu, tau))
-    bound, m_y, any_ok, hint_w, hint_flat = D.eval64(I.p64, lam64, mu64, tau64, True)
+    bound, m_y, any_ok, hint_w, hint_flat = (
+        x[0] for x in D.eval64(I.b64, lam64[None], mu64[None], tau64[None], True))
     assert _rel(bound.numpy(), np.asarray(jout[0])) <= TOL_F64
     jm = np.asarray(jout[5])
     assert np.array_equal(np.isfinite(jm), np.isfinite(m_y.numpy()))
@@ -230,9 +238,9 @@ def test_float64_evaluation_matches_jax(name):
         assert np.array_equal(np.asarray(x), y.numpy())
     # The hint at the same multipliers, as the reference folds it.
     w_ref, n_ref, y_ref = _reference_hint(I, lam, mu, tau)
-    out = D.decomp_bound_roots(I.p32, I.p64, rounding_data(I.rd_np, "cpu"), 0,
-                               init_params=(lam, mu, tau))
-    assert np.array_equal(out[0].numpy(), bound.numpy())
+    out = D.decomp_bound_roots(I.b32, I.b64, _rd_stack(I), 0,
+                               init_params=tuple(x[None] for x in (lam, mu, tau)))
+    assert np.array_equal(out[0][0].numpy(), bound.numpy())
     Y = I.e_max + 1
     flat = hint_flat.numpy().astype(np.int64)
     assert np.array_equal(hint_w.numpy(), w_ref)
@@ -247,12 +255,12 @@ def test_float64_evaluation_matches_jax(name):
 def test_thirty_step_ascent_matches_jax(name):
     I = inst(name)
     jout = BJ._decomp_bound_roots(I.jrd, I.jks, I.jWs, I.w_max, I.e_max, steps=30, moe=True)
-    out = D.decomp_bound_roots(I.p32, I.p64, rounding_data(I.rd_np, "cpu"), 30)
-    jb, tb = np.asarray(jout[0]), out[0].numpy()
+    out = D.decomp_bound_roots(I.b32, I.b64, _rd_stack(I), 30)
+    jb, tb = np.asarray(jout[0]), out[0][0].numpy()
     assert np.all(np.isfinite(tb)) == np.all(np.isfinite(jb))
     assert np.max(np.abs(tb - jb) / np.abs(jb)) <= TOL_ASCENT
     # The ascent only improves on the initial (zero) multipliers.
-    zero = D.eval64(I.p64, *(torch.zeros_like(x) for x in out[4]), False)[0]
+    zero = D.eval64(I.b64, *(torch.zeros_like(x) for x in out[4]), False)[0][0]
     assert np.all(tb >= zero.numpy() - 1e-9 * np.abs(zero.numpy()))
 
 
@@ -267,5 +275,5 @@ def test_ascent_reads_nothing_back_and_evaluates_once_per_step(monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(D, "eval32", counting)
-    D.ascend(I.p32, 7)
+    D.ascend(I.b32, 7)
     assert len(calls) == 8

@@ -160,10 +160,10 @@ def test_moe_per_node_normal_matrices_equal_the_dense_sums(profiles_dir):
     host = device_arrays(sf, rounding_arrays_np(coeffs, arrays.moe)["g_raw"])
     A = torch.as_tensor(host["A"])
     data = SweepData(A=A, b_k=None, c_k=None, int_mask=None, ks=None, Ws=None,
-                     obj_const=0.0, rd=None, gky=torch.as_tensor(host["gky"]))
+                     obj_const=None, rd=None, gky=torch.as_tensor(host["gky"])[None])
     sp = node_sparsity(A, M, moe=True)
     kidx = torch.arange(4) % host["gky"].shape[0]
-    A_p = node_A(data, kidx, M).to(torch.float64)
+    A_p = node_A(data, kidx, M, torch.zeros(4, dtype=torch.int64)).to(torch.float64)
     assert A_p.shape == (4, 258, 513)
     assert not bool(((A_p != 0).any(0) & ~(sp_dense := _pattern(sp))).any())
     vals = A_p.reshape(4, -1)[:, sp.src]

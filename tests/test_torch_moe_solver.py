@@ -373,5 +373,7 @@ def test_moe_api_rules(mixtral):
         _solve(devs, model, batch_size=2)
     with pytest.raises(NotImplementedError, match="A15"):
         _solve(devs, model, lp_backend="pdhg")
-    with pytest.raises(NotImplementedError, match="A5"):
-        _solve(devs, model, margin_state={})
+    # The margin chain is ported: a full evaluation stores its anchor.
+    ms = {}
+    assert _solve(devs, model, margin_state=ms).certified
+    assert {"m_y", "rd", "duals"} <= set(ms) and ms["used"] is False

@@ -43,6 +43,7 @@ from distilp_torch.solver.rounding import pack_rounding_data, rounding_data  # n
 from distilp_torch.utils import make_synthetic_fleet  # noqa: E402
 from distilp_tpu.ops.ipm import IPMResult as JResult  # noqa: E402
 from distilp_tpu.solver import backend_jax as BJ  # noqa: E402
+from torch_lanes import lane_data, lane_state, unlane_state  # noqa: E402
 
 PER_K_FIELDS = ("per_k_best", "per_k_w", "per_k_n", "per_k_y", "per_k_dropped", "node_kidx",
                 "active")
@@ -130,8 +131,9 @@ def test_per_k_round_matches_jax_bnb_round(profiles_dir, monkeypatch, name, gap,
         monkeypatch.setattr(S, "ipm_solve_batch", lambda *a, **k: pres)
         jnext = BJ._bnb_round(jdata, jstate, gap, ipm_iters=iters, beam=B, ipm_chunk=chunk,
                               per_k=True)
-        pnext, _ = S.bnb_round(pdata, pstate, gap, ipm_iters=iters, beam=B, ipm_chunk=chunk,
-                               per_k=True)
+        pnext, _ = S.bnb_round(lane_data(pdata), lane_state(pstate), gap, ipm_iters=iters,
+                               beam=B, ipm_chunk=chunk, per_k=True)
+        pnext = unlane_state(pnext)
         _assert_states_match(pnext, jnext)
         np.testing.assert_array_equal(S.per_k_bound(pnext).numpy(),
                                       np.asarray(BJ._per_k_bound(jnext)))
@@ -155,7 +157,8 @@ def test_fair_rank_keeps_each_k_its_best_rows():
     active = torch.tensor([True, True, True, True, False])
     order = torch.argsort(torch.where(active, bound, np.inf), stable=True)
     dropped = torch.full((2,), np.inf, dtype=torch.float64)
-    key, floor = S.per_k_fair_rank(order, kidx, active, bound, 2, dropped)
+    key, floor = (x[0] for x in S.per_k_fair_rank(order[None], kidx[None], active[None],
+                                                   bound[None], 2, dropped[None]))
     kept = order[torch.argsort(key, stable=True)][:2]
     assert kept.tolist() == [0, 3]
     assert floor.tolist() == [2.0, np.inf]

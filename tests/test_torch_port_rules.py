@@ -1,8 +1,8 @@
 """Rules of the PyTorch/CUDA port, checked on its source.
 
 - No module of ``distilp_torch`` (its model profiler included), not
-  ``chip_smoke.py`` and not the test helper it imports
-  (``tests/torch_price_edits.py``) imports JAX or anything of the JAX package
+  ``chip_smoke.py`` and not the test helpers it imports
+  (``tests/torch_price_edits.py``, ``tests/torch_lanes.py``) imports JAX or anything of the JAX package
   (``distilp_tpu``), jax-free modules included: the port keeps its own
   copies.
 - ``triton``/kernel builds never happen at import time: importing every
@@ -12,6 +12,7 @@
 - The sweep variants (per-k, load-aware routing, the async solve and its
   worker thread) run without JAX in the process, and their entry points
   raise without a GPU unless the caller asks for the CPU.
+- So do the streaming replanner, the scenario sweep and the batch layout.
 """
 
 import ast
@@ -30,8 +31,9 @@ FORBIDDEN = ("jax", "jaxlib", "distilp_tpu")
 def _port_files():
     files = sorted((REPO / "distilp_torch").rglob("*.py"))
     assert files, "distilp_torch has no modules"
-    # chip_smoke.py and the test helper it imports.
-    return files + [REPO / "chip_smoke.py", REPO / "tests" / "torch_price_edits.py"]
+    # chip_smoke.py and the test helpers it imports.
+    return files + [REPO / "chip_smoke.py", REPO / "tests" / "torch_price_edits.py",
+                    REPO / "tests" / "torch_lanes.py"]
 
 
 def _imported_roots(path: Path):
@@ -94,6 +96,8 @@ def test_kernel_sources_and_launch_counters():
     assert set(kernels.LAUNCHES) == {
         "ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
         "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
+        "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes", "bnb_per_k_lanes",
+        "decomp_lanes",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
@@ -155,6 +159,42 @@ def test_sweep_variants_are_checked_modules_and_run_without_jax(tmp_path):
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
 
 
+def test_streaming_and_batch_layout_are_checked_modules_and_run_without_jax(tmp_path):
+    """The replanner and the batch layout are among the checked files, and a
+    replanner tick, a scenario sweep and a lane batch run in a process that
+    never loads JAX."""
+    import subprocess
+    import sys
+
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in ("streaming", "batchlayout"):
+        assert f"distilp_torch/solver/{name}.py" in files
+    script = (
+        "import sys\n"
+        "from distilp_torch.common import load_from_profile_folder\n"
+        "from distilp_torch.solver import (StreamingReplanner, halda_solve_scenarios,\n"
+        "    pack_instance, solve_batch)\n"
+        "from distilp_torch.solver.api import _build_instance\n"
+        "devs, model = load_from_profile_folder('tests/profiles/llama_3_70b/online')\n"
+        "p = StreamingReplanner(kv_bits='4bit', device='cpu')\n"
+        "assert p.step(devs, model).k == 2 and p.step(devs, model).certified\n"
+        "rs = halda_solve_scenarios([devs, devs], model, kv_bits='4bit', device='cpu')\n"
+        "assert [r.k for r in rs] == [2, 2]\n"
+        "Ks, _, c, a = _build_instance(devs, model, None, '4bit', None, None)\n"
+        "inst = pack_instance(a, [(k, model.L // k) for k in Ks], coeffs=c, M_pad=4)\n"
+        "assert solve_batch([inst], device='cpu')[0][1].k == 2\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "    'distilp_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=600, env={"PATH": "/usr/bin:/bin",
+                                                       "PYTHONPATH": str(REPO),
+                                                       "HOME": str(tmp_path)})
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
 def test_sweep_variant_entry_points_need_a_gpu_by_default(profiles_dir, monkeypatch):
     from distilp_torch.common import load_from_profile_folder
     from distilp_torch.solver import (
@@ -170,6 +210,20 @@ def test_sweep_variant_entry_points_need_a_gpu_by_default(profiles_dir, monkeypa
     for fn in (halda_solve_per_k, halda_solve_async):
         with pytest.raises(RuntimeError, match="CUDA device"):
             fn(devs, model, kv_bits="4bit", device=None)
+    from distilp_torch.solver import StreamingReplanner, halda_solve_scenarios, solve_batch
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.solver.batchlayout import pack_instance
+
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        halda_solve_scenarios([devs, devs], model, kv_bits="4bit")
+    planner = StreamingReplanner(kv_bits="4bit")
+    for tick in (planner.step, planner.submit):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tick(devs, model)
+    Ks, _, coeffs, arrays = _build_instance(devs, model, None, "4bit", None, None)
+    inst = pack_instance(arrays, [(k, model.L // k) for k in Ks], coeffs=coeffs)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        solve_batch([inst])
     devs, model = load_from_profile_folder(profiles_dir / "mixtral_8x7b")
     result = type("R", (), {"k": 4, "w": [5, 5, 5, 5], "n": [0] * 4, "y": [2, 2, 2, 2]})
     mapping = map_experts(result.y, [1.0] * 4, normalize_loads(None, 8))

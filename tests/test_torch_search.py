@@ -32,6 +32,7 @@ from distilp_torch.solver.rounding import pack_rounding_data, rounding_data  # n
 from distilp_torch.utils import make_synthetic_fleet  # noqa: E402
 from distilp_tpu.ops.ipm import IPMResult as JResult  # noqa: E402
 from distilp_tpu.solver import backend_jax as BJ  # noqa: E402
+from torch_lanes import lane_data, lane_state, unlane_state  # noqa: E402
 
 
 def _setup(profiles_dir, name):
@@ -109,7 +110,9 @@ def test_round_matches_jax_bnb_round(profiles_dir, monkeypatch, name, gap):
         monkeypatch.setattr(BJ, "ipm_solve_batch", lambda *a, **k: jres)
         monkeypatch.setattr(S, "ipm_solve_batch", lambda *a, **k: pres)
         jnext = BJ._bnb_round(jdata, jstate, gap, ipm_iters=iters, beam=B, ipm_chunk=chunk)
-        pnext, _ = S.bnb_round(pdata, pstate, gap, ipm_iters=iters, beam=B, ipm_chunk=chunk)
+        pnext, _ = S.bnb_round(lane_data(pdata), lane_state(pstate), gap, ipm_iters=iters,
+                               beam=B, ipm_chunk=chunk)
+        pnext = unlane_state(pnext)
         _assert_states_match(pnext, jnext)
         assert float(S.best_bound(pnext)) == pytest.approx(
             float(BJ._best_bound(jnext)), rel=1e-12
@@ -141,9 +144,10 @@ def test_epilogue_handles_inactive_and_diverged_rows():
     active = torch.tensor([True, True, True, False])
     out = S.bnb_epilogue(
         lo, hi, res, parent, active, torch.full((B,), np.inf, dtype=torch.float64),
-        torch.full((B,), 10.0, dtype=torch.float64), torch.ones(nf, dtype=torch.bool),
-        0.0, torch.zeros((B, nf)), torch.zeros((B, m)), torch.zeros((B, nf)),
-        torch.zeros((B, nf)), torch.zeros(B, dtype=torch.bool),
+        torch.full((B,), 10.0, dtype=torch.float64), torch.ones((1, nf), dtype=torch.bool),
+        torch.zeros(1, dtype=torch.float64), torch.zeros((B, nf)), torch.zeros((B, m)),
+        torch.zeros((B, nf)), torch.zeros((B, nf)), torch.zeros(B, dtype=torch.bool),
+        torch.zeros(B, dtype=torch.int64),
     )
     assert out.bound.tolist() == [0.5, 0.25, 0.75, np.inf]
     assert out.survive.tolist() == [True, True, True, False]
