@@ -43,10 +43,12 @@ Phases (any failure exits non-zero and prints no result line):
      stream path's per-k lanes and over 200 random frontiers of 2-8 lanes,
      K7 over 4 Mixtral load regimes and 2 flagship instances, each against
      its plain version and, bit for bit, against one single-instance launch
-     per instance;
+     per instance; the convergence traces (B13) of K1 on each route and of
+     K5 on both entries: traced results bit for bit equal to untraced ones,
+     the trace against the plain version's (float64);
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
-  4. the main path, in five runs, each with the launch counts zeroed before
+  4. the main path, in eight runs, each with the launch counts zeroed before
      it and read after it: (a) the dense slice, ``halda_solve`` on the four
      golden fixtures (pinned k and objective), the north star (pinned
      objective) and a 32-device fleet (against the port's HiGHS oracle);
@@ -86,6 +88,18 @@ Phases (any failure exits non-zero and prints no result line):
      one margin bound against a full K7 evaluation) and a Mixtral M=4
      scenario batch under four load regimes (K7's instance axis); tick
      walls and busy shares beside them;
+     (g) K5's per-element entry (B11): two 128-device fleets as lanes with
+     an A each through ``solve_batch``, the 128-device scenario fallback
+     (a future whose first device's CPU table doubles), Mixtral M=4 and
+     Qwen3-30B-A3B M=16 with ``lp_backend='pdhg'``, all pinned against the
+     JAX package; every per-element K5 call of these solves is then held
+     against its plain version (float64 field by field, float32 on the
+     bound), an equal-A batch against the shared entry, a structure missing
+     a nonzero refused; (h) the convergence telemetry (B13):
+     ``halda_solve(convergence=...)`` on the north star (IPM) and the
+     128-device fleet (PDHG) equal to the untraced solves (digest and walls
+     printed), a diagnostics replanner over three drifting ticks, and
+     ``solver diagnose`` with its JSONL export and ``--load``;
      a path's comparison solves (its references) are left out of its launch
      counts; K1's and K5's launches of each path are also printed by shape;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
@@ -511,7 +525,7 @@ def check_ipm(report: dict) -> None:
         r = ipm_solve_batch_reference(batch, iters=iters, warm=warm, skip=skip, chunk=chunk)
         torch.cuda.synchronize()
         errs = {f: max_err(getattr(k, f), getattr(r, f))
-                for f in k._fields if f not in ("converged", "iters_run")}
+                for f in k._fields if f not in ("converged", "iters_run", "trace_buf")}
         d_it = int((k.iters_run - r.iters_run).abs().max())
         conv_eq = bool(torch.equal(k.converged, r.converged))
         if dtype == torch.float64:
@@ -541,7 +555,7 @@ def check_ipm(report: dict) -> None:
     torch.cuda.synchronize()
     norms = ("rp_norm", "rd_norm")
     errs = {f: max_err(getattr(k, f), getattr(r, f))
-            for f in k._fields if f not in ("converged", "iters_run") + norms}
+            for f in k._fields if f not in ("converged", "iters_run", "trace_buf") + norms}
     errs.update({f: max_err(getattr(k, f)[1:], getattr(r, f)[1:]) for f in norms})
     nonfin = all(not bool(torch.isfinite(getattr(t, f)[0])) for t in (k, r) for f in norms)
     d_it = int((k.iters_run - r.iters_run).abs().max())
@@ -782,23 +796,42 @@ def lp_optima(host) -> list:
 
 
 def pdhg_flops_bytes(m: int, n: int, nnz: int, B: int, iters_run, chunk: int,
-                     itemsize: int, warm: bool = False):
+                     itemsize: int, warm: bool = False, a_bytes=None, trace_rows: int = 0):
     """Least work of one PDHG launch: (operations, bytes, operations if A
     were dense). Operations, counted on A's nonzeros (the products need no
     others): per executed step the two products (4 nnz); per executed chunk
     the convergence test's two products (4 nnz); per element the setup's
     three passes over A (|A| diag(cs) row maxima and sums, A l; 6 nnz), the
     warm gate's extra step (4 nnz) and the float64 certificate (4 nnz).
-    Bytes: every input read once (A shared; it is given dense, so all m n
-    entries are read to find its nonzeros), every output written once."""
+    Bytes: every input read once (a shared A is given dense, so all m n
+    entries are read to find its nonzeros; a per-element A passes
+    ``a_bytes``: B nnz values and the structure once), every output (the
+    trace's ``trace_rows`` rows included) written once."""
     steps = sum(int(i) for i in iters_run)
     chunks = sum(-(-int(i) // chunk) for i in iters_run)
     per_nnz = 4 * (steps + chunks) + B * (10 + (4 if warm else 0))
-    inputs = m * n * itemsize + B * (m + 3 * n) * itemsize
+    a_in = m * n * itemsize if a_bytes is None else a_bytes
+    inputs = a_in + B * (m + 3 * n) * itemsize
     if warm:
         inputs += B * (3 * n + m) * itemsize + B
     outputs = B * (4 * n + m) * itemsize + B * n * 8 + B * (8 + 4 * itemsize + 5)
+    outputs += B * trace_rows * 6 * itemsize
     return per_nnz * nnz, inputs + outputs, per_nnz * m * n
+
+
+def elem_a_bytes(sp, B: int, itemsize: int) -> int:
+    """Bytes of a per-element A as K5's per-element entry reads it: each
+    element's nonzero values, and the structure's row and column index
+    arrays (int32) once."""
+    return B * sp.nnz * itemsize + 4 * (sp.m + 1 + 2 * sp.nnz + sp.n + 1 + sp.nnz)
+
+
+def a_rows(A, e0: int, e1: int):
+    """Elements e0:e1 of an LP batch's A: a shared (m, n) A as it is, a
+    per-element one (ElemA) sliced."""
+    from distilp_torch.ops.pdhg import ElemA
+
+    return A._replace(values=A.values[e0:e1]) if isinstance(A, ElemA) else A
 
 
 def pdhg_f32_bounds(k, r, batch, iters: int, warm):
@@ -822,7 +855,7 @@ def pdhg_f32_bounds(k, r, batch, iters: int, warm):
     rerun = {}
     for e in torch.nonzero(~same).flatten().tolist():
         steps = int(torch.minimum(k.iters_run[e], r.iters_run[e]))
-        sub = LPBatch(batch.A, *(t[e:e + 1] for t in batch[1:]))
+        sub = LPBatch(a_rows(batch.A, e, e + 1), *(t[e:e + 1] for t in batch[1:]))
         sw = None if warm is None else PDHGWarmState(*(t[e:e + 1] for t in warm))
         ke = pdhg_solve_batch(sub, iters=steps, warm=sw)
         re = pdhg_solve_batch_reference(sub, iters=steps, warm=sw)
@@ -857,7 +890,7 @@ def check_pdhg(report: dict) -> None:
                 r = pdhg_solve_batch_reference(batch, iters=iters, warm=w)
                 torch.cuda.synchronize()
                 errs = {f: max_err(getattr(k, f), getattr(r, f))
-                        for f in k._fields if f not in ("converged", "iters_run")}
+                        for f in k._fields if f not in ("converged", "iters_run", "trace_buf")}
                 d_it = int((k.iters_run - r.iters_run).abs().max())
                 conv_eq = bool(torch.equal(k.converged, r.converged))
                 slack = (k.bound.cpu() - optima) / optima.abs().clamp(min=1.0)
@@ -980,13 +1013,319 @@ def check_pdhg_mp() -> None:
     spliced = all(
         torch.equal(getattr(res, f)[bad], getattr(r64, f).to(getattr(res, f).dtype)[bad])
         and torch.equal(getattr(res, f)[~bad], getattr(r32, f)[~bad])
-        for f in res._fields
+        for f in res._fields[:-1]  # trace_buf: None
     )
     line = {"n_fallback_healthy": healthy, "n_fallback_poisoned": rep["n_fallback"],
             "poisoned_row_fell_back": bool(bad[0]), "splice_exact": spliced}
     print("pdhg_mp", json.dumps(line), flush=True)
     if healthy != 0 or rep["n_fallback"] < 1 or not bool(bad[0]) or not spliced:
         fail(f"pdhg_solve_batch_mp fallback check failed: {line}")
+
+
+def pdhg_call_opts(kw: dict) -> dict:
+    """The options of a captured ``pdhg_solve_batch`` call that a rerun
+    repeats (iteration precision aside)."""
+    return {k: kw[k] for k in ("iters", "restart_tol", "warm", "skip") if k in kw}
+
+
+def check_pdhg_elem(report: dict, calls: list) -> None:
+    """K5's per-element entry (B11) on every call that the ``elem`` path's
+    solves made of it (captured in the path; reruns here are comparisons,
+    not counted): in float64 field by field against the plain version within
+    TOL_PDHG_F64 with equal step counts, and at the call's own float32
+    precision the float64 bound within TOL_PDHG_F32_CERT at equal step
+    counts (as check_pdhg). Then a batch whose elements all carry the
+    128-device fleet's A against the shared-A entry (float64), a structure
+    missing a nonzero refused before launch, and the time at the lanes'
+    root round."""
+    import torch
+
+    from distilp_torch.kernels import LAUNCHES
+    from distilp_torch.ops.ipm import LPBatch, ipm_sparsity
+    from distilp_torch.ops.pdhg import (
+        PDHG_DEFAULT_CHUNK,
+        ElemA,
+        elem_a,
+        pdhg_solve_batch,
+        pdhg_solve_batch_reference,
+    )
+    from distilp_torch.solver.standard_form import default_pdhg_iters
+
+    elem_calls = [(a[0], kw) for a, kw in calls if isinstance(a[0].A, ElemA)]
+    if not elem_calls:
+        fail("the elem path made no per-element PDHG call")
+    rows, bad = [], []
+    for i, (batch, kw) in enumerate(elem_calls):
+        opts = pdhg_call_opts(kw)
+        B, n = batch.c.shape
+        m = batch.b.shape[1]
+        b64 = LPBatch(batch.A._replace(values=batch.A.values.double()),
+                      *(t.double() for t in batch[1:]))
+        k = pdhg_solve_batch(b64, **opts)
+        r = pdhg_solve_batch_reference(b64, **opts)
+        torch.cuda.synchronize()
+        errs = {f: max_err(getattr(k, f), getattr(r, f))
+                for f in k._fields if f not in ("converged", "iters_run", "trace_buf")}
+        d_it = int((k.iters_run - r.iters_run).abs().max())
+        ok64 = d_it == 0 and bool(torch.equal(k.converged, r.converged)) and all(
+            e[1] <= TOL_PDHG_F64 for e in errs.values())
+        k32 = pdhg_solve_batch(batch, dtype=kw.get("dtype"), **opts)
+        b32 = batch if batch.b.dtype == k32.v.dtype else LPBatch(
+            batch.A._replace(values=batch.A.values.to(k32.v.dtype)),
+            *(t.to(k32.v.dtype) for t in batch[1:]))
+        r32 = pdhg_solve_batch_reference(b32, **opts)
+        kb, rb, rerun = pdhg_f32_bounds(k32, r32, b32, opts["iters"], opts.get("warm"))
+        f32_rel = max_err(kb, rb)[1]
+        line = {"call": i, "B": B, "m": m, "n": n, "nnz": batch.A.sparsity.nnz,
+                "iters": opts["iters"], "warm": opts.get("warm") is not None,
+                "iters_run_f64": k.iters_run.tolist(), "d_iters_f64": d_it,
+                "max_rel_f64": {f: e[1] for f, e in errs.items()},
+                "bound_max_abs_f64": errs["bound"][0],
+                "f32_bound_max_rel": f32_rel, "f32_rerun_at_equal_steps": rerun,
+                "ok": ok64 and f32_rel <= TOL_PDHG_F32_CERT}
+        print("pdhg_elem vs plain", json.dumps(line), flush=True)
+        rows.append(line)
+        if not line["ok"]:
+            bad.append(i)
+
+    # Every element carries the same A: the per-element entry against the
+    # shared one (float64, the 128-device root batch).
+    iters = 1000
+    roots, _ = pdhg_roots(128, torch.float64)
+    B, (m, n) = roots.b.shape[0], roots.A.shape
+    shared = pdhg_solve_batch(roots, iters=iters)
+    per = pdhg_solve_batch(roots._replace(A=elem_a(roots.A.expand(B, m, n))), iters=iters)
+    torch.cuda.synchronize()
+    errs = {f: max_err(getattr(per, f), getattr(shared, f))
+            for f in per._fields if f not in ("converged", "iters_run", "trace_buf")}
+    same_ok = bool(torch.equal(per.iters_run, shared.iters_run)) and all(
+        e[1] <= TOL_PDHG_F64 for e in errs.values())
+    line = {"case": "every element the shared A", "M": 128, "B": B,
+            "iters_run": per.iters_run.tolist(),
+            "max_rel": {f: e[1] for f, e in errs.items()}, "ok": same_ok}
+    print("pdhg_elem vs shared", json.dumps(line), flush=True)
+    # A structure missing one nonzero: refused, nothing launched.
+    A3 = roots.A.expand(B, m, n).contiguous()
+    short = A3[0] != 0
+    short[tuple(t[0] for t in short.nonzero(as_tuple=True))] = False
+    before = LAUNCHES["pdhg_elem"]
+    try:
+        pdhg_solve_batch(roots._replace(A=A3), iters=8, sparsity=ipm_sparsity(short))
+        refused = False
+    except ValueError:
+        refused = True
+    refused = refused and LAUNCHES["pdhg_elem"] == before
+    print("pdhg_elem structure missing a nonzero refused before launch:", refused, flush=True)
+    if bad or not same_ok or not refused:
+        fail(f"pdhg_elem: calls {bad} disagree with the plain version, equal-A check "
+             f"{same_ok}, refusal {refused}")
+
+    # Time at the lanes' root round (of the captured calls, the 128-device
+    # fleets' with the largest budget: 2 lanes x 2 roots, float32, the
+    # cold 2000-step budget).
+    batch, kw = max(elem_calls, key=lambda c: (c[0].b.shape[1], c[1]["iters"],
+                                              c[0].b.shape[0]))
+    opts = pdhg_call_opts(kw)
+    B, n = batch.c.shape
+    m = batch.b.shape[1]
+    sp = batch.A.sparsity
+    run_k = lambda: pdhg_solve_batch(batch, **opts)  # noqa: E731
+    res = run_k()
+    flops, nbytes, _ = pdhg_flops_bytes(
+        m, n, sp.nnz, B, res.iters_run.tolist(), PDHG_DEFAULT_CHUNK, 4,
+        warm=opts.get("warm") is not None, a_bytes=elem_a_bytes(sp, B, 4))
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+    ms, call, src = time_kernel(run_k, "pdhg_kernel")
+    plain = cuda_ms(lambda: pdhg_solve_batch_reference(batch, **opts), reps=1, warmup=0)
+    # Yardstick: one step's two products as batched library calls on the
+    # dense (B, m, n) A, times the steps the batch executed.
+    A3 = batch.A.dense()
+    X = torch.rand(B, n, 1, device="cuda")
+    Y = torch.rand(B, m, 1, device="cuda")
+    mm = cuda_ms(lambda: (torch.bmm(A3, X), torch.bmm(A3.transpose(1, 2), Y)))
+    steps = int(res.iters_run.max())
+    print(f"pdhg_elem: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
+          f"{plain:.3f} ms, bound {b_ms:.6f} ms by {b_by}; library bmm pair "
+          f"{mm:.4f} ms x {steps} steps) at B={B} m={m} n={n} nnz={sp.nnz} "
+          f"iters_run={res.iters_run.tolist()}; {ms / max(steps, 1) * 1e3:.2f} us a step",
+          flush=True)
+    # The two entries on one batch whose elements share the fleet's A (the
+    # 128-device root round, float32, cold), in turns: shared, per-element,
+    # per-element, shared.
+    roots32, _ = pdhg_roots(128, torch.float32)
+    B2 = roots32.b.shape[0]
+    per32 = roots32._replace(A=elem_a(roots32.A.expand(B2, *roots32.A.shape)))
+    it128 = default_pdhg_iters(128)
+    ab = {"shared": [], "per_element": []}
+    for name, bt in (("shared", roots32), ("per_element", per32), ("per_element", per32),
+                     ("shared", roots32)):
+        ab[name].append(cuda_ms(lambda: pdhg_solve_batch(bt, iters=it128), reps=5,
+                                warmup=1))
+    steps_ab = int(pdhg_solve_batch(per32, iters=it128).iters_run.max())
+    print(f"pdhg same A, shared vs per-element entry (B={B2}, {steps_ab} steps, ms per "
+          f"call by CUDA events, in turns): {json.dumps(ab)}; a step "
+          f"{min(ab['shared']) / steps_ab * 1e3:.2f} us vs "
+          f"{min(ab['per_element']) / steps_ab * 1e3:.2f} us", flush=True)
+    report["pdhg_elem"] = dict(
+        name="pdhg_elem", route="cuda", source="distilp_torch/kernels/csrc/pdhg_kernel.cu",
+        replaces="distilp_tpu/ops/pdhg.py:569",
+        max_abs_err=max(r["bound_max_abs_f64"] for r in rows),
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=mm * steps,
+        library_step_ms=mm, held_against_plain="ok", call_ms=call, ms_source=src,
+        calls_held=len(elem_calls), steps=steps, us_per_step=ms / max(steps, 1) * 1e3,
+        same_a_ms={"B": B2, "steps": steps_ab, **ab},
+        shapes_timed=f"B={B} m={m} n={n} nnz={sp.nnz} float32 "
+                     f"{'warm' if opts.get('warm') is not None else 'cold'}, "
+                     f"{opts['iters']} steps budget",
+    )
+
+
+def check_traces(report: dict) -> None:
+    """The convergence trace (B13) of K1 on each route (shared,
+    factor_global, global, per-node A) and of K5 on both entries: the traced
+    launch's every output field equals the untraced one's bit for bit, and
+    its trace (float64) equals the plain version's in the iters, restarts
+    and live columns, rp/rd/gap within the kernel's float64 tolerance
+    (scale max(1, |ref|)). Then the traced launch's time against the
+    untraced one's at a main-path shape of each kernel."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.ops.ipm import (
+        ipm_solve_batch,
+        ipm_solve_batch_reference,
+        ipm_workspace_route,
+    )
+    from distilp_torch.ops.pdhg import (
+        PDHG_DEFAULT_CHUNK,
+        elem_a,
+        pdhg_solve_batch,
+        pdhg_solve_batch_reference,
+    )
+    from distilp_torch.solver.search import node_sparsity
+    from distilp_torch.solver.standard_form import default_pdhg_iters
+
+    rng = np.random.default_rng(99)
+    rows = []
+
+    def held(name, k0, k1, r, tol):
+        same = all(torch.equal(getattr(k0, f), getattr(k1, f)) for f in k0._fields[:-1])
+        tk, tr = k1.trace_buf.double().cpu(), r.trace_buf.double().cpu()
+        cols = bool(torch.equal(tk[..., [0, 4, 5]], tr[..., [0, 4, 5]]))
+        diff = (tk[..., 1:4] - tr[..., 1:4]).abs()
+        rel = float((diff / tr[..., 1:4].abs().clamp(min=1.0)).max()) if tk.numel() else 0.0
+        line = {"case": name, "engine": name.split()[0], "trace_shape": list(tk.shape),
+                "max_abs": float(diff.max()) if tk.numel() else 0.0,
+                "live_rows": int((tk[..., 5] > 0.5).sum()), "traced_equals_untraced": same,
+                "iters_restarts_live_equal": cols, "rp_rd_gap_max_rel": rel,
+                "ok": same and cols and rel <= tol}
+        print("trace", json.dumps(line), flush=True)
+        rows.append(line)
+        return tk
+
+    # K1: the routes at float64 (edges M=31/86), and a per-node A.
+    mix = moe_instance(MOE_CASES[0])
+    cases = [("ipm shared", *ipm_batch(16, 123, 8, torch.float64, rng)),
+             ("ipm factor_global", *ipm_batch(32, 32, 4, torch.float64, rng)),
+             ("ipm global", *ipm_batch(87, 87, 2, torch.float64, rng)),
+             ("ipm per-node A", *moe_ipm_batch(mix[7], mix[9], 8, torch.float64, rng))]
+    for name, batch, warm, skip in cases:
+        route = ipm_workspace_route(*batch.A.shape[-2:], torch.float64, "cuda")
+        kw = dict(iters=12, warm=warm, skip=skip, chunk=4)
+        k0 = ipm_solve_batch(batch, **kw)
+        k1 = ipm_solve_batch(batch, trace=True, **kw)
+        r = ipm_solve_batch_reference(batch, trace=True, **kw)
+        torch.cuda.synchronize()
+        held(f"{name} (route {route})", k0, k1, r, TOL_IPM_F64)
+    # K5: the shared entry on the 128-device root batch, the per-element
+    # entry on Mixtral M=4's per-node A's.
+    roots, _ = pdhg_roots(128, torch.float64)
+    from distilp_torch.solver.search import node_A
+
+    data = tests_module("torch_lanes").lane_data(mix[7])
+    host = mix[9]
+    n_k = host["b_k"].shape[0]
+    kidx = torch.arange(n_k, device="cuda").repeat(2)
+    A3 = node_A(data, kidx, data.rd.a.shape[-1], torch.zeros_like(kidx)).double()
+    T = lambda a: torch.as_tensor(np.asarray(a)[kidx.cpu().numpy()], dtype=torch.float64,  # noqa: E731
+                                  device="cuda")
+    elem = type(roots)(A=elem_a(A3), b=T(host["b_k"]), c=T(host["c_k"]), l=T(host["lo_k"]),
+                       u=T(host["hi_k"]))
+    skip = torch.zeros(2 * n_k, dtype=torch.bool, device="cuda")
+    skip[1] = True
+    for name, batch, kw in (("pdhg shared", roots, dict(iters=600)),
+                            ("pdhg per-element", elem, dict(iters=600, skip=skip))):
+        k0 = pdhg_solve_batch(batch, **kw)
+        k1 = pdhg_solve_batch(batch, trace=True, **kw)
+        r = pdhg_solve_batch_reference(batch, trace=True, **kw)
+        torch.cuda.synchronize()
+        held(name, k0, k1, r, TOL_PDHG_F64)
+    bad = [r["case"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"traces: {bad} disagree (traced vs untraced, or against the plain trace)")
+
+    # Traced against untraced at main-path shapes: K1 on the north-star root
+    # round at a warm root's chunk (B=16, float32, 26 steps in chunks of 4),
+    # K5 on the 128-device fleet's root round (B=2, float32, cold).
+    batch, _, _ = ipm_batch(16, 123, 16, torch.float32, np.random.default_rng(7))
+    sp = node_sparsity(batch.A, 16, moe=False)
+    kw = dict(iters=26, chunk=4, sparsity=sp)
+    res = ipm_solve_batch(batch, trace=True, **kw)
+    steps = int(res.iters_run.sum())
+    chunks = int((res.trace_buf[..., 5] > 0.5).sum())
+    flops, nbytes = ipm_flops_bytes(sp, 16, steps, 4)
+    # The trace adds no operation (a chunk's row is the residuals the next
+    # step computes anyway), only the rows written.
+    b_ms, b_by = bound_ms(flops, nbytes + res.trace_buf.numel() * 4, PEAK_F32_S)
+    untraced = time_kernel(lambda: ipm_solve_batch(batch, **kw), "ipm_kernel")
+    ms, call, src = time_kernel(lambda: ipm_solve_batch(batch, trace=True, **kw), "ipm_kernel")
+    plain = cuda_ms(lambda: ipm_solve_batch_reference(batch, iters=26, chunk=4, trace=True),
+                    reps=3, warmup=1)
+    print(f"ipm_trace: traced {ms:.4f} ms, untraced {untraced[0]:.4f} ms on the card "
+          f"(calls {call:.4f} / {untraced[1]:.4f} ms; plain traced {plain:.3f} ms; bound "
+          f"{b_ms:.6f} ms by {b_by}) at B=16 m={sp.m} n={sp.n} float32, {steps} steps, "
+          f"{chunks} trace rows", flush=True)
+    report["ipm_trace"] = dict(
+        name="ipm_trace", route="cuda", source="distilp_torch/kernels/csrc/ipm_kernel.cu",
+        replaces="distilp_tpu/ops/ipm.py:372",
+        max_abs_err=max(r["max_abs"] for r in rows if r["engine"] == "ipm"), ms=ms,
+        plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, untraced_ms=untraced[0],
+        untraced_call_ms=untraced[1], call_ms=call, ms_source=src,
+        held_against_plain="ok", trace_rows=chunks,
+        shapes_timed=f"B=16 m={sp.m} n={sp.n} float32, 26 steps in chunks of 4",
+    )
+    batch, _ = pdhg_roots(128, torch.float32)
+    iters = default_pdhg_iters(128)
+    m, n = batch.A.shape
+    B = batch.b.shape[0]
+    res = pdhg_solve_batch(batch, iters=iters, trace=True)
+    nnz = int(torch.count_nonzero(batch.A))
+    flops, nbytes, _ = pdhg_flops_bytes(m, n, nnz, B, res.iters_run.tolist(),
+                                        PDHG_DEFAULT_CHUNK, 4,
+                                        trace_rows=res.trace_buf.shape[1])
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+    untraced = time_kernel(lambda: pdhg_solve_batch(batch, iters=iters), "pdhg_kernel")
+    ms, call, src = time_kernel(lambda: pdhg_solve_batch(batch, iters=iters, trace=True),
+                                "pdhg_kernel")
+    plain = cuda_ms(lambda: pdhg_solve_batch_reference(batch, iters=iters, trace=True),
+                    reps=1, warmup=0)
+    print(f"pdhg_trace: traced {ms:.4f} ms, untraced {untraced[0]:.4f} ms on the card "
+          f"(calls {call:.4f} / {untraced[1]:.4f} ms; plain traced {plain:.3f} ms; bound "
+          f"{b_ms:.6f} ms by {b_by}) at B={B} m={m} n={n} float32, "
+          f"iters_run={res.iters_run.tolist()}", flush=True)
+    report["pdhg_trace"] = dict(
+        name="pdhg_trace", route="cuda", source="distilp_torch/kernels/csrc/pdhg_kernel.cu",
+        replaces="distilp_tpu/ops/pdhg.py:408",
+        max_abs_err=max(r["max_abs"] for r in rows if r["engine"] == "pdhg"), ms=ms,
+        plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, untraced_ms=untraced[0],
+        untraced_call_ms=untraced[1], call_ms=call, ms_source=src,
+        held_against_plain="ok", trace_rows=int(res.trace_buf.shape[1]),
+        shapes_timed=f"B={B} m={m} n={n} float32 cold, {iters} steps budget",
+    )
+    report["ipm_trace"]["cases_held"] = report["pdhg_trace"]["cases_held"] = [
+        r["case"] for r in rows]
 
 
 # ---------------------------------------------------------------- MoE shapes
@@ -1121,16 +1460,16 @@ def check_ipm_moe(report: dict) -> None:
                                      warm=IPMWarmState(*(t[e:e + 1] for t in warm)),
                                      sparsity=sp)
                 alone_equal &= all(torch.equal(getattr(ke, f), getattr(k, f)[e:e + 1])
-                                   for f in k._fields)
+                                   for f in k._fields[:-1])
         sens = None
         if dtype == torch.float64:
             bumped = batch._replace(b=batch.b * (1.0 + 2.0 ** -50))
             rs = ipm_solve_batch_reference(bumped, iters=iters, warm=w, skip=skip, chunk=chunk)
             sens = {f: max_err(getattr(rs, f), getattr(r, f))[1]
-                    for f in k._fields if f not in ("converged", "iters_run")}
+                    for f in k._fields if f not in ("converged", "iters_run", "trace_buf")}
         torch.cuda.synchronize()
         errs = {f: max_err(getattr(k, f), getattr(r, f))
-                for f in k._fields if f not in ("converged", "iters_run")}
+                for f in k._fields if f not in ("converged", "iters_run", "trace_buf")}
         d_it = int((k.iters_run - r.iters_run).abs().max())
         conv_eq = bool(torch.equal(k.converged, r.converged))
         if dtype == torch.float64:
@@ -2248,7 +2587,8 @@ def check_epilogue_lanes(report: dict) -> None:
         out = []
         for q in range(L):
             rows = (inst == q).nonzero()[:, 0]
-            a = [t[rows] for t in args[:2]] + [IPMResult(*[f[rows] for f in args[2]])] + \
+            a = [t[rows] for t in args[:2]] + \
+                [IPMResult(*[None if f is None else f[rows] for f in args[2]])] + \
                 [t[rows] for t in args[3:7]] + [args[7][q:q + 1], args[8][q:q + 1]] + \
                 [t[rows] for t in args[9:]]
             out.append((rows, orig(*a, inst=torch.zeros_like(rows))))
@@ -3468,6 +3808,175 @@ def stream_path() -> dict:
     return launches
 
 
+# B11's paths: the 128-device fleet (model stretched to L = 256) as two
+# batch lanes, each with its own A (distilp_tpu.solver.batchlayout:
+# solve_batch([pack_instance(make_synthetic_fleet(128, seed=s), ...,
+# mip_gap=1e-3) for s in (123, 124)]), kv 4bit, engine auto = pdhg), and as
+# two futures whose static halves differ (halda_solve_scenarios([base, bad],
+# ..., kv_bits="4bit", mip_gap=1e-3) with base = make_synthetic_fleet(128,
+# seed=123) and bad = base with its first device's CPU table doubled: the
+# batch-layout fallback); pins (k, objective) from the JAX package on the CPU.
+LANES128 = [(123, (1, -312.9522665906968)), (124, (1, -315.7883953351909))]
+FALLBACK128_PINS = [(1, -312.9522665906968), (1, -312.95378065386245)]
+# MoE on the PDHG engine (lp_backend='pdhg'): Mixtral M=4 and Qwen3-30B-A3B
+# M=16, pinned as on the IPM engine (the JAX package certifies the same
+# objectives on its PDHG engine).
+MOE_PDHG_CASES = [MOE_CASES[0], MOE_CASES[2]]
+ELEM_KERNELS = ("pdhg_elem", "round_incumbent_lanes", "bnb_epilogue_lanes", "round_moe",
+                "decomp")
+DIAGNOSE_KERNELS = ("ipm_trace", "pdhg_trace", "ipm", "pdhg")
+
+
+def doubled_cpu_table(devs):
+    """A copy of a fleet whose first device's CPU throughput table is
+    doubled: its static half differs from the fleet's (the stream path's
+    fallback future)."""
+    bad = [d.model_copy(deep=True) for d in devs]
+    for q in bad[0].scpu:
+        bad[0].scpu[q] = {col: v * 2.0 for col, v in bad[0].scpu[q].items()}
+    return bad
+
+
+def elem_path():
+    """K5's per-element entry (B11) on its main paths: the 128-device fleets
+    as batch lanes with an A each and as the scenario fallback, and MoE
+    solves on the PDHG engine. Every K5 call the paths make is captured for
+    check_pdhg_elem. Returns (launches, calls)."""
+    from distilp_torch import kernels
+    from distilp_torch.solver import halda_solve, halda_solve_scenarios, search, solve_batch
+    from distilp_torch.utils import make_synthetic_fleet
+
+    kernels.reset_launch_counts()
+    calls: list = []
+    model128 = online_model(128)
+    fleets = {s: make_synthetic_fleet(128, seed=s) for s, _ in LANES128}
+    with captured(search, "pdhg_solve_batch", calls):
+        insts = [pack_lane(fleets[s], model128, FLEET128_GAP)[0] for s, _ in LANES128]
+        tm = {}
+        out, ms = timed(lambda: solve_batch(insts, timings=tm))
+        print(f"lanes fleet_M128 x2: wall_ms={ms:.2f} engine={tm.get('lp_backend')} "
+              f"rounds={tm.get('bnb_rounds')} search_ms={tm.get('solve_ms', 0.0):.2f}",
+              flush=True)
+        if tm.get("lp_backend") != "pdhg":
+            fail(f"the 128-device lanes ran on {tm.get('lp_backend')}")
+        for (s, (k, pin)), (_, best) in zip(LANES128, out):
+            held_to(f"lane fleet_M128 seed {s}", best, pin, FLEET128_GAP, k=k)
+        lanes_elem = kernels.LAUNCHES["pdhg_elem"]
+        base = fleets[123]
+        tm = {}
+        rs, ms = timed(lambda: halda_solve_scenarios(
+            [base, doubled_cpu_table(base)], model128, kv_bits="4bit", mip_gap=FLEET128_GAP,
+            timings=tm))
+        print(f"scenario fallback fleet_M128: {tm.get('scenario_fallback')} "
+              f"engine={tm.get('lp_backend')} wall_ms={ms:.2f}", flush=True)
+        if tm.get("scenario_fallback") != 1.0 or tm.get("lp_backend") != "pdhg":
+            fail("the 128-device futures did not take the fallback on the PDHG engine")
+        for i, (r, (k, pin)) in enumerate(zip(rs, FALLBACK128_PINS)):
+            held_to(f"fallback fleet_M128 future {i}", r, pin, FLEET128_GAP, k=k)
+        moe_before = kernels.LAUNCHES["pdhg_elem"]
+        for name, config, M, seed, pool, (k, pin) in MOE_PDHG_CASES:
+            model = moe_model(config)
+            devs = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool))
+            tm = {}
+            r, ms = timed(lambda: halda_solve(devs, model, mip_gap=MOE_GAP, kv_bits="8bit",
+                                              lp_backend="pdhg", timings=tm))
+            show(f"{name}_pdhg", r, ms, tm)
+            held_to(f"{name} on the PDHG engine", r, pin, MOE_GAP, k=k)
+            if tm.get("lp_backend") != "pdhg" or sum(r.y) != model.n_routed_experts:
+                fail(f"{name} pdhg: engine {tm.get('lp_backend')}, sum(y)={sum(r.y)}")
+        moe_elem = kernels.LAUNCHES["pdhg_elem"] - moe_before
+    launches = path_launches()
+    print("elem path launches", json.dumps(launches), flush=True)
+    missing = [k for k in ELEM_KERNELS if launches[k] == 0]
+    if missing or lanes_elem == 0 or moe_elem == 0:
+        fail(f"elem path never launched {missing} (pdhg_elem: lanes {lanes_elem}, "
+             f"MoE {moe_elem})")
+    with uncounted():
+        for (s, _), (_, best) in zip(LANES128, out):
+            own = halda_solve(fleets[s], model128, mip_gap=FLEET128_GAP, kv_bits="4bit")
+            print(f"  lane seed {s}: {best.obj_value!r} vs its own solve {own.obj_value!r}",
+                  flush=True)
+            if abs(best.obj_value - own.obj_value) > 2 * FLEET128_GAP * abs(own.obj_value):
+                fail(f"lane seed {s}: {best.obj_value} vs its own solve {own.obj_value}")
+        profile_call("fleet_M128_lanes_x2", lambda: solve_batch(insts))
+    return launches, calls
+
+
+def diagnose_path() -> dict:
+    """The convergence telemetry (B13) through the port's entry points:
+    ``halda_solve(convergence=...)`` on the north star (IPM) and the
+    128-device fleet (PDHG) against the untraced solves, a diagnostics
+    replanner over three drifting north-star ticks, and the ``diagnose``
+    CLI with its JSONL export and ``--load``."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from distilp_torch import kernels
+    from distilp_torch.obs.convergence import CONV_DIGEST_KEYS
+    from distilp_torch.solver import StreamingReplanner, halda_solve
+    from distilp_torch.utils import make_synthetic_fleet
+
+    kernels.reset_launch_counts()
+    cases = [("north_star_M16", make_synthetic_fleet(16, seed=123), online_model(), 1e-3,
+              "ipm"),
+             ("fleet_M128", make_synthetic_fleet(128, seed=123), online_model(128),
+              FLEET128_GAP, "pdhg")]
+    for name, devs, model, gap, engine in cases:
+        conv, tm = {}, {}
+        r, ms = timed(lambda: halda_solve(devs, model, mip_gap=gap, kv_bits="4bit",
+                                          convergence=conv, timings=tm))
+        with uncounted():
+            r0 = halda_solve(devs, model, mip_gap=gap, kv_bits="4bit")
+            walls = {}
+            for label, c in (("traced", {}), ("untraced", None)):
+                walls[label] = statistics.median(
+                    timed(lambda: halda_solve(devs, model, mip_gap=gap, kv_bits="4bit",
+                                              convergence=c))[1] for _ in range(5))
+        same = (r.k, r.w, r.n, r.obj_value) == (r0.k, r0.w, r0.n, r0.obj_value)
+        digest = {k: tm[k] for k in CONV_DIGEST_KEYS if k in tm}
+        print(f"diagnose {name}: engine={conv.get('lp_backend')} k={r.k} obj={r.obj_value!r} "
+              f"same_as_untraced={same} digest={json.dumps(digest)} "
+              f"walls_ms_median_of_5 traced={walls['traced']:.2f} "
+              f"untraced={walls['untraced']:.2f}", flush=True)
+        if not same or conv.get("lp_backend") != engine or not conv.get("round_log") \
+                or not digest.get("conv_certified"):
+            fail(f"diagnose {name}: same={same} engine={conv.get('lp_backend')} "
+                 f"digest={digest}")
+    planner = StreamingReplanner(mip_gap=1e-3, kv_bits="4bit", diagnostics=True)
+    devs, model = make_synthetic_fleet(16, seed=123), online_model()
+    rng = np.random.default_rng(11)
+    for t in range(3):
+        if t:
+            drift(devs, rng)
+        tm = {}
+        planner.step(devs, model, timings=tm)
+        rounds = len(planner.last_convergence.get("round_log", []))
+        print(f"diagnostics tick {t}: mode={planner.last_tick_mode} rounds={rounds} "
+              f"conv_lp_iters={tm.get('conv_lp_iters')}", flush=True)
+        if not rounds or "conv_rounds" not in tm:
+            fail(f"diagnostics tick {t}: empty convergence report")
+    child: dict = {}
+    with tempfile.TemporaryDirectory(prefix="distilp_diagnose_") as tmp:
+        out = Path(tmp) / "diag.jsonl"
+        rc, stdout, err, wall = run_cli("distilp_torch.cli.solver_cli", [
+            "diagnose", "-p", "tests/profiles/llama_3_70b/online", "--out", str(out)], child)
+        print(stdout[-1500:], flush=True)
+        if rc != 0 or not out.is_file():
+            fail(f"solver diagnose exited {rc}:\n{err[-2000:]}")
+        rc2, stdout2, err2, _ = run_cli("distilp_torch.cli.solver_cli", [
+            "diagnose", "--load", str(out)], child)
+        if rc2 != 0 or "search:" not in stdout2:
+            fail(f"solver diagnose --load exited {rc2}:\n{err2[-2000:]}")
+    launches = path_launches(child)
+    print("diagnose path launches", json.dumps(launches), flush=True)
+    missing = [k for k in DIAGNOSE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"diagnose path never launched {missing}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3504,11 +4013,11 @@ def main() -> int:
               lambda r: check_pdhg_mp(), check_ipm_moe, check_round_moe, check_decomp,
               lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale,
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
-              check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes]
+              check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
-             "per_k_lanes", "decomp_lanes"]
+             "per_k_lanes", "decomp_lanes", "traces"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -3518,9 +4027,17 @@ def main() -> int:
 
     paths = {"dense": main_path(), "fleet": fleet_path(), "moe": moe_path(),
              "profile": profile_path(cases), "sweep": sweep_path(), "stream": stream_path()}
+    paths["elem"], elem_calls = elem_path()
+    paths["diagnose"] = diagnose_path()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with uncounted():
+        check_pdhg_elem(report, elem_calls)
+    print(f"check pdhg_elem: {time.perf_counter() - t:.1f} s", flush=True)
     launches = {k: sum(p[k] for p in paths.values()) for k in report}
     print("main path launches", json.dumps(launches), flush=True)
-    by_shape = {k: {p: c["_shapes"][k] for p, c in paths.items()} for k in ("ipm", "pdhg")}
+    by_shape = {k: {p: c["_shapes"].get(k, {}) for p, c in paths.items()}
+                for k in ("ipm", "pdhg", "pdhg_elem", "ipm_trace", "pdhg_trace")}
     print("main path launches by shape", json.dumps(by_shape), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -3529,7 +4046,7 @@ def main() -> int:
     for name in ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
                  "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
                  "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes",
-                 "bnb_per_k_lanes", "decomp_lanes"):
+                 "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

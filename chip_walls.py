@@ -12,7 +12,10 @@ builds its kernels, and times ``halda_solve`` on:
   +-5% t_comm drift (default_rng(7));
 - Mixtral 8x7B over make_synthetic_fleet(4, seed=7, pool_bytes=64e9) and
   the DeepSeek-V3 flagship over make_synthetic_fleet(32, seed=11,
-  pool_bytes=32e9), kv 8bit, gap 1e-3, cold.
+  pool_bytes=32e9), kv 8bit, gap 1e-3, cold;
+- the 128-device fleet (make_synthetic_fleet(128, seed=123), the model
+  stretched to L = 256) forced onto the IPM engine, kv 4bit, gap 1e-3,
+  cold: K1's factor_global route.
 
 Each solve runs once untimed (kernel loads, first launches), then ``--reps``
 times; the card is synchronized around each. Prints the card's name and
@@ -53,7 +56,7 @@ def main() -> int:
     from distilp_torch.kernels import build
     from distilp_torch.profiler import profile_model
     from distilp_torch.solver import halda_solve
-    from distilp_torch.utils import make_synthetic_fleet
+    from distilp_torch.utils import make_synthetic_fleet, stretch_model_for_fleet
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -76,15 +79,17 @@ def main() -> int:
         d.t_comm = max(0.0, d.t_comm * float(rng.uniform(0.95, 1.05)))
     north_cold = halda_solve(north, online, mip_gap=1e-3, kv_bits="4bit")
     cases = {
-        "north_star_M16_cold": (north, online, "4bit", None),
-        "north_star_M16_warm": (drifted, online, "4bit", north_cold),
+        "north_star_M16_cold": (north, online, "4bit", None, "auto"),
+        "north_star_M16_warm": (drifted, online, "4bit", north_cold, "auto"),
         "mixtral_M4_cold": (make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9)),
-                            moe_model("mixtral_8x7b"), "8bit", None),
+                            moe_model("mixtral_8x7b"), "8bit", None, "auto"),
         "deepseek_v3_M32_cold": (make_synthetic_fleet(32, seed=11, pool_bytes=int(32e9)),
-                                 moe_model("deepseek_v3"), "8bit", None),
+                                 moe_model("deepseek_v3"), "8bit", None, "auto"),
+        "fleet_M128_ipm_cold": (make_synthetic_fleet(128, seed=123),
+                                stretch_model_for_fleet(online, 128), "4bit", None, "ipm"),
     }
     out = {"label": args.label, "root": str(root), "gpu": smi.strip(), "solves": {}}
-    for name, (devs, model, kv, warm) in cases.items():
+    for name, (devs, model, kv, warm, engine) in cases.items():
         walls, rounds, obj = [], None, None
         for i in range(args.reps + 1):
             tm = {}
@@ -92,7 +97,8 @@ def main() -> int:
             t = time.perf_counter()
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                r = halda_solve(devs, model, mip_gap=1e-3, kv_bits=kv, warm=warm, timings=tm)
+                r = halda_solve(devs, model, mip_gap=1e-3, kv_bits=kv, warm=warm, timings=tm,
+                                lp_backend=engine)
             torch.cuda.synchronize()
             if i:
                 walls.append((time.perf_counter() - t) * 1e3)

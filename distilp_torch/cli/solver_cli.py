@@ -5,9 +5,14 @@ device; the head device is whichever sorts first):
 
     python -m distilp_torch.cli.solver_cli -p <folder> [--backend torch|cpu]
 
-and the digital-twin report of a placement:
+the digital-twin report of a placement:
 
     python -m distilp_torch.cli.solver_cli evaluate -p <folder> [--solution S]
+
+and the solver's convergence report of one solve (per-round search log and
+the root LP relaxations' per-chunk traces, optionally exported as JSONL):
+
+    python -m distilp_torch.cli.solver_cli diagnose -p <folder> [--out F | --load F]
 
 ``--backend torch`` (default) runs the branch-and-bound search on
 ``--device`` (default cuda; ``cpu`` runs the kernels' plain versions),
@@ -29,7 +34,6 @@ DEFERRED_SUBCOMMANDS = {
     "serve": "A12 (serving tiers on the port's engine)",
     "overload": "A12 (serving tiers on the port's engine)",
     "autoscale": "A12 (serving tiers on the port's engine)",
-    "diagnose": "A9 (convergence telemetry)",
     "spans": "A14 (observability analogues)",
     "slo": "A14 (observability analogues)",
     "compiles": "A14 (observability analogues)",
@@ -330,11 +334,156 @@ def evaluate_main(argv=None) -> int:
     return 0
 
 
+def build_diagnose_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli diagnose",
+        description="solver-interior convergence report: run one HALDA solve "
+        "with its telemetry on (the per-branch-and-bound-round search log and "
+        "the root LP relaxations' per-chunk residual/restart traces), render "
+        "the per-round tables, and optionally export the report as JSONL "
+        "(reload with --load). The solve itself is the normal certified "
+        "solve",
+    )
+    p.add_argument(
+        "--profile", "-p", default=None,
+        help="folder containing model_profile.json and per-device JSONs "
+        "(required unless --load)",
+    )
+    p.add_argument(
+        "--synthetic-fleet", type=int, default=0, metavar="M",
+        help="solve M synthetic devices instead of the folder's device JSONs "
+        "(the 16-device north star: --synthetic-fleet 16 --fleet-seed 123)",
+    )
+    p.add_argument("--fleet-seed", type=int, default=0)
+    _add_device(p)
+    p.add_argument("--mip-gap", type=float, default=1e-3)
+    p.add_argument("--kv-bits", default="4bit")
+    p.add_argument(
+        "--k-candidates", default=None,
+        help="comma-separated k values (default: all proper factors of L)",
+    )
+    p.add_argument(
+        "--moe", choices=["auto", "on", "off"], default="auto",
+        help="expert+layer co-assignment mode (see the solver's --moe)",
+    )
+    p.add_argument(
+        "--lp-backend", choices=["ipm", "pdhg", "auto"], default="auto",
+        help="LP relaxation engine to diagnose (its traces carry the engine's "
+        "own gauges: the complementarity mu for ipm, the normalized duality "
+        "gap and the Halpern restart cadence for pdhg)",
+    )
+    p.add_argument("--pdhg-iters", type=int, default=None)
+    p.add_argument("--pdhg-restart-tol", type=float, default=None)
+    p.add_argument("--max-rounds", type=int, default=None)
+    p.add_argument("--beam", type=int, default=None)
+    p.add_argument("--ipm-iters", type=int, default=None)
+    p.add_argument("--ipm-warm-iters", type=int, default=None)
+    p.add_argument("--node-cap", type=int, default=None)
+    p.add_argument(
+        "--out", default=None, metavar="FILE",
+        help="also export the report as JSONL (one 'search' header line, one "
+        "'round' line per round, one 'lp' line per root trace)",
+    )
+    p.add_argument(
+        "--load", default=None, metavar="FILE",
+        help="render a previously exported JSONL report (of either package) "
+        "instead of solving",
+    )
+    p.add_argument(
+        "--json", action="store_true",
+        help="print the full report as one JSON object (SearchTrace fields + "
+        "digest + solver timings) instead of tables",
+    )
+    return p
+
+
+def diagnose_main(argv=None) -> int:
+    """``diagnose``: one solve with its telemetry -> convergence report."""
+    args = build_diagnose_parser().parse_args(argv)
+
+    from ..obs.convergence import (
+        build_search_trace,
+        search_trace_from_jsonl,
+        search_trace_to_jsonl,
+    )
+
+    tm: dict = {}
+    if args.load:
+        try:
+            trace = search_trace_from_jsonl(Path(args.load).read_text())
+        except (OSError, ValueError, TypeError) as e:
+            print(f"error: cannot load {args.load}: {e}", file=sys.stderr)
+            return 2
+    else:
+        if not args.profile:
+            print("error: --profile is required unless --load", file=sys.stderr)
+            return 2
+        from ..common import load_from_profile_folder, load_model_profile
+        from ..solver import halda_solve
+        from ..utils import make_synthetic_fleet
+
+        folder = Path(args.profile)
+        if not folder.is_dir():
+            print(f"error: {folder} is not a directory", file=sys.stderr)
+            return 2
+        if args.synthetic_fleet > 0:
+            model = load_model_profile(folder / "model_profile.json")
+            devices = make_synthetic_fleet(args.synthetic_fleet, seed=args.fleet_seed)
+        else:
+            devices, model = load_from_profile_folder(folder)
+        conv: dict = {}
+        try:
+            halda_solve(
+                devices, model, k_candidates=_k_candidates(args.k_candidates),
+                mip_gap=args.mip_gap, kv_bits=args.kv_bits,
+                moe={"auto": None, "on": True, "off": False}[args.moe],
+                max_rounds=args.max_rounds, beam=args.beam, ipm_iters=args.ipm_iters,
+                ipm_warm_iters=args.ipm_warm_iters, node_cap=args.node_cap,
+                lp_backend=args.lp_backend, pdhg_iters=args.pdhg_iters,
+                pdhg_restart_tol=args.pdhg_restart_tol, timings=tm, convergence=conv,
+                device=args.device,
+            )
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        trace = build_search_trace(conv)
+
+    if not trace.rounds:
+        print(
+            "error: empty convergence report (no branch-and-bound round executed: "
+            "was the sweep structurally infeasible?)",
+            file=sys.stderr,
+        )
+        return 1
+    if args.json:
+        payload = trace.model_dump()
+        payload["digest"] = trace.digest()
+        if tm:
+            payload["timings"] = {k: v for k, v in tm.items()
+                                  if isinstance(v, (int, float, str, bool))}
+        print(json.dumps(payload))
+    else:
+        print(trace.render_text())
+        if tm.get("solve_ms") is not None:
+            print(
+                f"solve: {tm.get('solve_ms', 0.0):.1f} ms of search (upload "
+                f"{tm.get('upload_ms', 0.0):.1f} ms)"
+                + (" [escalated]" if tm.get("escalated") else "")
+            )
+    if args.out:
+        Path(args.out).write_text(search_trace_to_jsonl(trace))
+        if not args.json:
+            print(f"wrote {args.out}")
+    return 0
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "evaluate":
         return evaluate_main(argv[1:])
+    if argv and argv[0] == "diagnose":
+        return diagnose_main(argv[1:])
     if argv and argv[0] in DEFERRED_SUBCOMMANDS:
         print(
             f"error: the '{argv[0]}' subcommand is not part of the port yet "

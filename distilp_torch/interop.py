@@ -38,8 +38,8 @@ def from_jax_arrays(obj: Any, device="cpu", kind: str = None):
 
     ``obj`` is a NamedTuple of the JAX package (matched by class name, or
     by ``kind``), a mapping of field name to array for one of those kinds,
-    or an ``ipm_state`` dict (keys ok/v/y/z/f). Fields the port's type does
-    not have (the reference's trace buffers) are dropped.
+    or an ``ipm_state`` dict (keys ok/v/y/z/f). A field that is None (an
+    untraced result's trace buffer) stays None.
     """
     if isinstance(obj, dict) and kind is None and set(obj) == set(IPM_STATE_KEYS):
         return {
@@ -51,4 +51,5 @@ def from_jax_arrays(obj: Any, device="cpu", kind: str = None):
         raise TypeError(f"no port counterpart for {name!r}")
     cls = _TYPES[name]
     fields = obj if isinstance(obj, dict) else obj._asdict()
-    return cls(**{f: to_tensor(fields[f], device) for f in cls._fields})
+    return cls(**{f: None if fields.get(f) is None else to_tensor(fields[f], device)
+                  for f in cls._fields})

@@ -19,18 +19,23 @@ import torch
 # Kernel name -> launches since the last reset (only the wrappers add to it).
 # The per-instance entries of K2, K2 MoE, K3 and K7 count a launch that
 # carries more than one sweep (scenario or batch lanes) under "<name>_lanes",
-# one that carries a single sweep under the kernel's own name.
+# one that carries a single sweep under the kernel's own name. K5's
+# per-element entry counts as "pdhg_elem"; a launch of K1 or K5 that records
+# the convergence trace counts as "ipm_trace" or "pdhg_trace" (either K5
+# entry), not under the untraced name.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
     "bnb_per_k": 0, "price_fixed": 0, "round_incumbent_lanes": 0, "round_moe_lanes": 0,
-    "bnb_epilogue_lanes": 0, "bnb_per_k_lanes": 0, "decomp_lanes": 0,
+    "bnb_epilogue_lanes": 0, "bnb_per_k_lanes": 0, "decomp_lanes": 0, "pdhg_elem": 0,
+    "ipm_trace": 0, "pdhg_trace": 0,
 }
 
 
 # Kernel name -> {shape: launches} for the kernels whose wrappers break
 # their count down by the shape they were launched at (K1, K5).
-SHAPES: Dict[str, Dict[str, int]] = {"ipm": {}, "pdhg": {}}
+SHAPES: Dict[str, Dict[str, int]] = {"ipm": {}, "pdhg": {}, "pdhg_elem": {},
+                                     "ipm_trace": {}, "pdhg_trace": {}}
 
 
 def reset_launch_counts() -> None:

@@ -61,9 +61,9 @@ SIGNATURES = {
     "ipm": {
         "dtk_ipm_workspace": [_I] * 5 + [_P] * 3,
         "dtk_ipm_f32": [_P, _L, _P] + [_I] * 3 + [_P, _L] + [_P] * 10 + [_I] * 5
-        + [_D] * 2 + [_P] * 14 + [_I, _P],
+        + [_D] * 2 + [_P] * 15 + [_I] * 2 + [_P],
         "dtk_ipm_f64": [_P, _L, _P] + [_I] * 3 + [_P, _L] + [_P] * 10 + [_I] * 5
-        + [_D] * 2 + [_P] * 14 + [_I, _P],
+        + [_D] * 2 + [_P] * 15 + [_I] * 2 + [_P],
     },
     "round": {
         "dtk_round_f32": [_P, _L, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P],
@@ -98,9 +98,13 @@ SIGNATURES = {
         "dtk_absmax_rescale_bf16": [_P, _L, _P, _I, _F, _I, _P],
     },
     "pdhg": {
-        "dtk_pdhg_ws_bytes": [_I] * 4,
-        "dtk_pdhg_f32": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P, _L] + [_P] * 13,
-        "dtk_pdhg_f64": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P, _L] + [_P] * 13,
+        "dtk_pdhg_ws_bytes": [_I] * 5,
+        "dtk_pdhg_f32": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P, _L] + [_P] * 13 + [_I, _P],
+        "dtk_pdhg_f64": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P, _L] + [_P] * 13 + [_I, _P],
+        "dtk_pdhg_elem_f32": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L]
+        + [_P] * 13 + [_I, _P],
+        "dtk_pdhg_elem_f64": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L]
+        + [_P] * 13 + [_I, _P],
     },
 }
 RESTYPES = {"dtk_pdhg_ws_bytes": _S}

@@ -14,6 +14,16 @@
 // the Lagrangian bound and the reduced costs in float64 from the (unscaled)
 // iteration-dtype A upcast, exactly as the reference does.
 //
+// The convergence trace (B13): with a trace buffer (B, rows, 6) each block
+// writes one row for every chunk it runs, [cumulative steps, rp, rd, mu, 0,
+// 1] with the norms of the scaled system at the chunk's end (the
+// reference's chunk_diag). Those are the residuals the next step computes
+// at its start, so the first step of each chunk writes the previous
+// chunk's row and the final-residual block the last one: no extra product.
+// A block that stopped writes nothing further: its later rows stay zero, as
+// the vmapped while_loop's per-element select leaves them. The iteration
+// never reads the trace, so traced and untraced results are bit-identical.
+//
 // A non-positive (or NaN) Cholesky pivot makes the whole factor NaN, as
 // jax.scipy.linalg.cho_factor does; the finite guard then zeroes the step.
 // A non-finite theta does the same (the dense normal matrix would be
@@ -399,6 +409,18 @@ __device__ void directions(const Vecs<T>& s, const Sparsity& S, const T* val, co
   __syncthreads();
 }
 
+// One convergence-trace row (B13): [cumulative steps, rp, rd, mu,
+// restarts (none in an IPM), live].
+template <typename T>
+__device__ __forceinline__ void trace_row(T* row, int it, T rp, T rd, T mu) {
+  row[0] = T(it);
+  row[1] = rp;
+  row[2] = rd;
+  row[3] = mu;
+  row[4] = T(0);
+  row[5] = T(1);
+}
+
 // kGlobalVecs and kSharedFactor select where the per-LP vectors and the
 // factor live at compile time, so the shared-memory instances keep
 // shared-memory loads and stores (a pointer chosen at run time would be a
@@ -422,7 +444,7 @@ __global__ void ipm_kernel(
     T* __restrict__ rp_out, T* __restrict__ rd_out, T* __restrict__ mu_out,
     uint8_t* __restrict__ conv_out, double* __restrict__ reduced_out,
     T* __restrict__ y_out, T* __restrict__ z_out, T* __restrict__ f_out,
-    int* __restrict__ iters_out) {
+    int* __restrict__ iters_out, T* __restrict__ trace_out, int trace_rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int e = blockIdx.x;
   const T* A = A_all + (size_t)e * a_stride;
@@ -506,7 +528,9 @@ __global__ void ipm_kernel(
   int it = 0;
 
   // ---- chunked Mehrotra loop ----
+  int chunks_run = 0;
   for (int ci = 0; ci < n_chunks && !done; ++ci) {
+    ++chunks_run;
     for (int st = 0; st < chunk && !done; ++st) {
       ++it;
       for (int j = tid; j < n; j += bs) s.tn[j] = s.x[j] * s.act[j];
@@ -543,6 +567,12 @@ __global__ void ipm_kernel(
       xz = block_reduce(xz, Sum(), s.red);
       wf = block_reduce(wf, Sum(), s.red);
       const T mu = (xz + wf) / two_na;
+      // The residuals a step takes at its start are those of the state the
+      // previous chunk left: the first step of a chunk writes that chunk's
+      // trace row.
+      if (trace_out != nullptr && st == 0 && ci > 0 && tid == 0)
+        trace_row(trace_out + ((size_t)e * trace_rows + ci - 1) * 6, it - 1, rpmax, rdmax,
+                  mu);
 
       // A non-finite theta_j makes every entry of the dense sum non-finite
       // (0 * theta_j where A has a zero), so the factor fails.
@@ -637,6 +667,10 @@ __global__ void ipm_kernel(
   rdmax = block_reduce(rdmax, Max(), s.red);
   xz = block_reduce(xz, Sum(), s.red);
   wf = block_reduce(wf, Sum(), s.red);
+  // The trace row of the last chunk the block ran is the final state's.
+  if (trace_out != nullptr && tid == 0 && chunks_run > 0)
+    trace_row(trace_out + ((size_t)e * trace_rows + chunks_run - 1) * 6, it, rpmax, rdmax,
+              (xz + wf) / two_na);
 
   // ---- float64 certificate from the unscaled A upcast ----
   __shared__ double red_d[32];
@@ -728,7 +762,7 @@ int launch_route(size_t smem, const T* A, long a_stride, const int* sp, int nnz,
                  int n, int chunk, int n_chunks, double tol, double reg, T* ws,
                  T* vec_ws, T* v, double* bound, T* obj, T* rp, T* rd, T* mu,
                  uint8_t* conv, double* reduced, T* y, T* z, T* f, int* iters,
-                 int threads, cudaStream_t stream) {
+                 T* trace, int trace_rows, int threads, cudaStream_t stream) {
   auto kernel = ipm_kernel<T, kGlobalVecs, kSharedFactor>;
   if (smem > 48 * 1024) {
     cudaError_t err =
@@ -738,7 +772,7 @@ int launch_route(size_t smem, const T* A, long a_stride, const int* sp, int nnz,
   kernel<<<B, threads, smem, stream>>>(
       A, a_stride, sp, nnz, nent, ncontrib, val, val_stride, b, c, l, u, wv, wy, wz, wf,
       wok, skip, m, n, chunk, n_chunks, (T)tol, (T)reg, ws, vec_ws, v, bound, obj, rp, rd,
-      mu, conv, reduced, y, z, f, iters);
+      mu, conv, reduced, y, z, f, iters, trace, trace_rows);
   return (int)cudaGetLastError();
 }
 
@@ -750,7 +784,7 @@ int launch(const T* A, long a_stride, const int* sp, int nnz, int nent, int ncon
            int n, int chunk, int n_chunks, double tol, double reg, T* ws,
            T* vec_ws, T* v, double* bound, T* obj, T* rp, T* rd, T* mu,
            uint8_t* conv, double* reduced, T* y, T* z, T* f, int* iters,
-           int threads, cudaStream_t stream) {
+           T* trace, int trace_rows, int threads, cudaStream_t stream) {
   // The workspaces the wrapper allocates name the route (dtk_ipm_workspace):
   // no factor workspace: route 0; a factor workspace alone: route 1; both:
   // route 2.
@@ -760,19 +794,19 @@ int launch(const T* A, long a_stride, const int* sp, int nnz, int nent, int ncon
                                         val_stride, b, c, l, u, wv, wy, wz, wf, wok, skip,
                                         B, m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v,
                                         bound, obj, rp, rd, mu, conv, reduced, y, z, f,
-                                        iters, threads, stream);
+                                        iters, trace, trace_rows, threads, stream);
   if (ws == nullptr) return (int)cudaErrorInvalidValue;
   if (vec_ws == nullptr)
     return launch_route<T, false, false>(vb, A, a_stride, sp, nnz, nent, ncontrib, val,
                                          val_stride, b, c, l, u, wv, wy, wz, wf, wok, skip,
                                          B, m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v,
                                          bound, obj, rp, rd, mu, conv, reduced, y, z, f,
-                                         iters, threads, stream);
+                                         iters, trace, trace_rows, threads, stream);
   return launch_route<T, true, false>(0, A, a_stride, sp, nnz, nent, ncontrib, val,
                                       val_stride, b, c, l, u, wv, wy, wz, wf, wok, skip, B,
                                       m, n, chunk, n_chunks, tol, reg, ws, vec_ws, v, bound,
                                       obj, rp, rd, mu, conv, reduced, y, z, f, iters,
-                                      threads, stream);
+                                      trace, trace_rows, threads, stream);
 }
 
 }  // namespace
@@ -793,11 +827,12 @@ int dtk_ipm_f32(const float* A, long a_stride, const int* sp, int nnz, int nent,
                 int chunk, int n_chunks, double tol, double reg, float* ws,
                 float* vec_ws, float* v, double* bound, float* obj, float* rp,
                 float* rd, float* mu, uint8_t* conv, double* reduced, float* y, float* z,
-                float* f, int* iters, int threads, void* stream) {
+                float* f, int* iters, float* trace, int trace_rows, int threads,
+                void* stream) {
   return launch<float>(A, a_stride, sp, nnz, nent, ncontrib, val, val_stride, b, c, l, u,
                        wv, wy, wz, wf, wok, skip, B, m, n, chunk, n_chunks, tol, reg, ws,
                        vec_ws, v, bound, obj, rp, rd, mu, conv, reduced, y, z, f, iters,
-                       threads, (cudaStream_t)stream);
+                       trace, trace_rows, threads, (cudaStream_t)stream);
 }
 
 int dtk_ipm_f64(const double* A, long a_stride, const int* sp, int nnz, int nent,
@@ -809,11 +844,11 @@ int dtk_ipm_f64(const double* A, long a_stride, const int* sp, int nnz, int nent
                 double* vec_ws, double* v, double* bound, double* obj,
                 double* rp, double* rd, double* mu,
                 uint8_t* conv, double* reduced, double* y, double* z, double* f,
-                int* iters, int threads, void* stream) {
+                int* iters, double* trace, int trace_rows, int threads, void* stream) {
   return launch<double>(A, a_stride, sp, nnz, nent, ncontrib, val, val_stride, b, c, l, u,
                         wv, wy, wz, wf, wok, skip, B, m, n, chunk, n_chunks, tol, reg, ws,
                         vec_ws, v, bound, obj, rp, rd, mu, conv, reduced, y, z, f, iters,
-                        threads, (cudaStream_t)stream);
+                        trace, trace_rows, threads, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,12 @@
-// K5: batched restarted Halpern PDHG for boxed LPs that share one A,
+// K5: batched restarted Halpern PDHG for boxed LPs,
 //     min c'v  s.t.  A v = b,  l <= v <= u,
-// the whole solve of up to BMAX elements in ONE cooperative launch.
+// the whole solve of up to BMAX elements in ONE cooperative launch, with one
+// A shared by the batch (dtk_pdhg_f32/f64) or one A per element given as its
+// values on a shared sparse structure (dtk_pdhg_elem_f32/f64, B11).
 //
 // Replaces distilp_tpu/ops/pdhg.py::_pdhg_single under pdhg_solve_batch (the
-// vmapped jit/lax device program of the JAX package). Per element it computes
+// vmapped jit/lax device program of the JAX package; the per-element entry
+// its a_axis = 0 case, pdhg.py:569). Per element it computes
 // what the vmapped reference computes: box-width column equilibration and an
 // inf-norm row equilibration (both kept as per-element VECTORS: A is only read
 // as A, never as a scaled (B, m, n) copy), diagonal Pock-Chambolle steps from
@@ -48,6 +51,26 @@
 //   restart point T(z) and the Halpern point), so the commit phase picks the
 //   flag of the branch it takes without another pass.
 //
+// The per-element route (MoE nodes, batch lanes with an A each). Each
+// element's A is its values on the union pattern of the batch (the
+// structure ops/ipm.py::ipm_sparsity builds, also K1's: rows of A with each
+// nonzero's place in column order, rows of A'), vals + e * vstride (vstride
+// nnz; 0 would share one value set). Every phase that reads A walks the
+// structure instead of a dense row: lane e of a warp sums element e's
+// products over the row's nonzeros in ascending order (no shuffles); the
+// setup's row maxima and 1-norms and the float64 certificate the same way.
+// No dense (B, m, n) A and no transpose exist: at 128 devices (769 x 1665,
+// 3936 nonzeros) an element's A is 15.7 KB of values against 5.1 MB dense.
+//
+// The convergence trace (B13). With a trace buffer (B, rows, 6), block 0
+// writes one row per executed chunk of each element live at the chunk's
+// start, at the boundary the loop already tests: [cumulative steps, rp, rd,
+// normalized gap, cumulative restart chunks, 1] (the reference's
+// chunk_body_traced); a chunk whose Halpern counter did not advance by the
+// whole chunk restarted. The values are the convergence test's own
+// reductions, so a traced launch does no extra work but the writes, and its
+// results are bit-identical to an untraced one's.
+//
 // What bounds it on an H100. Each step streams A twice (A z and A' y), 2 m n
 // elements: at M=512 devices (m=3073, n=6657) A is 81.8 MB in float32 and does
 // not fit the 50 MB L2, so a step is bound by 2 * 81.8 MB over 3.35 TB/s
@@ -55,8 +78,10 @@
 // limit is latency: three grid barriers and a short reduction per step.
 // That is the bound of this dense kernel, not of the function: the fleet LPs'
 // A is about 0.08% nonzero (15 744 of 3073 x 6657 at M=512), so the least
-// work is A read once plus 4 operations per nonzero per step. A sparse layout
-// of A, fewer barriers per step and a persistent frontier are later work.
+// work is A read once plus 4 operations per nonzero per step. The per-element
+// route reads only the nonzeros (B nnz values a step's products); moving the
+// shared route onto it (vstride 0), fewer barriers per step and a persistent
+// frontier are later work.
 
 #include <cooperative_groups.h>
 
@@ -92,8 +117,14 @@ struct Or {
 
 template <typename T>
 struct Params {
-  const T* A;   // (m, n)
+  const T* A;   // (m, n), the shared route
   const T* At;  // (n, m)
+  // The per-element route: the union structure's rows of A (columns, and
+  // each nonzero's place in column order) and rows of A' (rows), and each
+  // element's values in column order at vals + e * vstride.
+  const int *a_ptr, *a_col, *a_pos, *t_ptr, *t_row;
+  const T* vals;
+  long vstride;
   const T* b;
   const T* c;
   const T* l;
@@ -121,6 +152,8 @@ struct Params {
   T* z_out;
   T* f_out;
   int* iters_out;
+  T* trace;        // (B, trace_rows, 6) or null: the convergence trace
+  int trace_rows;
 };
 
 // Per-block state; every block holds the same values.
@@ -134,6 +167,7 @@ struct Blk {
   int swi[NWARP * BMAX];
   int rvi[BMAX];
   int t[BMAX], it[BMAX], done[BMAX], restart[BMAX], fin[BMAX], usew[BMAX];
+  int t0[BMAX], nre[BMAX];  // Halpern counter at the chunk's start; restart chunks
 };
 
 template <typename T>
@@ -191,6 +225,52 @@ __device__ __forceinline__ S pick(const S (&acc)[BMAX], int lane) {
   return r;
 }
 
+// Row i of A against each element's (B, n) vector ``vec``: lane e < B of
+// the calling warp returns element e's sum, the other lanes 0. The shared
+// route reads the row once for every element (a full warp per row); the
+// per-element route has lane e walk the row's nonzeros in ascending column
+// order with element e's own values. Every lane of the warp calls it.
+template <bool kElem, typename S, typename T, typename V>
+__device__ __forceinline__ S row_dot(const Params<T>& p, int i, const V* vec,
+                                     unsigned mask) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kElem) {
+    S acc = S(0);
+    if (lane < p.B && on(mask, lane)) {
+      const T* va = p.vals + (size_t)lane * p.vstride;
+      const V* x = vec + (size_t)lane * p.n;
+      for (int q = p.a_ptr[i]; q < p.a_ptr[i + 1]; ++q)
+        acc += S(va[p.a_pos[q]]) * S(x[p.a_col[q]]);
+    }
+    return acc;
+  } else {
+    S acc[BMAX];
+    warp_dots(p.A + (size_t)i * p.n, vec, p.n, p.n, mask, p.B, acc);
+    return pick(acc, lane);
+  }
+}
+
+// Column j of A (row j of A') against each element's (B, m) vector, as
+// row_dot (the per-element route in ascending row order).
+template <bool kElem, typename S, typename T, typename V>
+__device__ __forceinline__ S col_dot(const Params<T>& p, int j, const V* vec,
+                                     unsigned mask) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kElem) {
+    S acc = S(0);
+    if (lane < p.B && on(mask, lane)) {
+      const T* va = p.vals + (size_t)lane * p.vstride;
+      const V* y = vec + (size_t)lane * p.m;
+      for (int q = p.t_ptr[j]; q < p.t_ptr[j + 1]; ++q) acc += S(va[q]) * S(y[p.t_row[q]]);
+    }
+    return acc;
+  } else {
+    S acc[BMAX];
+    warp_dots(p.At + (size_t)j * p.m, vec, p.m, p.m, mask, p.B, acc);
+    return pick(acc, lane);
+  }
+}
+
 // Per-lane values (lane e holds element e) of every warp -> one partial per
 // (block, element), combined over the warps in a fixed order. Every thread of
 // the block calls it.
@@ -228,7 +308,7 @@ __device__ void grid_reduce(const T* part, int nslot, int slot, int B, Op op,
 // Column phase of T(x, y): Tx = clip(x - tau (cm - cs_a (A' ys)), 0, 1) and
 // zb = cs_a (2 Tx - x); the weighted residual's column part goes to the C_Q
 // partial; with ``halpern`` also the Halpern candidate and the flags.
-template <typename T>
+template <bool kElem, typename T>
 __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, const T* ys,
                        unsigned mask, bool halpern) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -244,9 +324,7 @@ __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, const T* ys,
   T q = T(0);
   int fl = 0;
   for (int j = gw; j < n; j += tw) {
-    T acc[BMAX];
-    warp_dots(p.At + (size_t)j * m, ys, m, m, mask, B, acc);
-    const T g = pick(acc, lane);
+    const T g = col_dot<kElem, T>(p, j, ys, mask);
     if (lane < B && on(mask, lane)) {
       const size_t k = (size_t)lane * n + j;
       const T ca = csa[k], tk = tau[k], xj = x[k];
@@ -269,7 +347,7 @@ __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, const T* ys,
 
 // Row phase of T(x, y): Ty = y + sigma (b_s - row_s (A zb)); adds the row part
 // of the residual (and of the flags) to the column phase's partials.
-template <typename T>
+template <bool kElem, typename T>
 __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
                        bool halpern) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -285,9 +363,7 @@ __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
   T q = T(0);
   int fl = 0;
   for (int i = gw; i < m; i += tw) {
-    T acc[BMAX];
-    warp_dots(p.A + (size_t)i * n, zb, n, n, mask, B, acc);
-    const T az = pick(acc, lane);
+    const T az = row_dot<kElem, T>(p, i, zb, mask);
     if (lane < B && on(mask, lane)) {
       const size_t k = (size_t)lane * m + i;
       const T sg = sig[k], yi = y[k];
@@ -310,7 +386,7 @@ __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
 // Residual norms and objective pieces at the committed (x, y), as the
 // reference's conv_stats: max|b_s - opA(x)|, cm'x, b_s'y, act'min(0, red)
 // and max|red - min(0, red) act| with red = cm - opAT(y).
-template <typename T>
+template <bool kElem, typename T>
 __device__ void stats(const Params<T>& p, Blk<T>& s, unsigned mask) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int gw = blockIdx.x * NWARP + wid, tw = gridDim.x * NWARP;
@@ -325,11 +401,9 @@ __device__ void stats(const Params<T>& p, Blk<T>& s, unsigned mask) {
   const T* ys = rowv(p, R_YS);
   T rp = T(0), obj = T(0), by = T(0), lag = T(0), rd = T(0);
   for (int task = gw; task < n + m; task += tw) {
-    T acc[BMAX];
     if (task < n) {
       const int j = task;
-      warp_dots(p.At + (size_t)j * m, ys, m, m, mask, B, acc);
-      const T g = pick(acc, lane);
+      const T g = col_dot<kElem, T>(p, j, ys, mask);
       if (lane < B && on(mask, lane)) {
         const size_t k = (size_t)lane * n + j;
         const T red = cm[k] - csa[k] * g;
@@ -341,8 +415,7 @@ __device__ void stats(const Params<T>& p, Blk<T>& s, unsigned mask) {
       }
     } else {
       const int i = task - n;
-      warp_dots(p.A + (size_t)i * n, zx, n, n, mask, B, acc);
-      const T az = pick(acc, lane);
+      const T az = row_dot<kElem, T>(p, i, zx, mask);
       if (lane < B && on(mask, lane)) {
         const size_t k = (size_t)lane * m + i;
         rp = nan_max(rp, fabs(bs[k] - rows[k] * az));
@@ -367,7 +440,7 @@ __device__ void reduce_stats(const Params<T>& p, Blk<T>& s) {
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool kElem>
 __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Blk<T>& s = *reinterpret_cast<Blk<T>*>(smem_raw);
@@ -422,31 +495,49 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
   // ---- setup 2 (rows): row_s, b_s, sigma, cold/warm duals ----
   T bmax = T(0);
   for (int i = gw; i < m; i += tw) {
-    const T* arow = p.A + (size_t)i * n;
-    T mx[BMAX], al[BMAX], acs[BMAX];
+    // Row i's max |a| cs_a, sum a l and sum |a| cs_a, per element.
+    T rmax = T(0), alv = T(0), acv = T(0);
+    if constexpr (kElem) {
+      if (lane < B) {
+        const T* va = p.vals + (size_t)lane * p.vstride;
+        for (int q = p.a_ptr[i]; q < p.a_ptr[i + 1]; ++q) {
+          const int j = p.a_col[q];
+          const T a = va[p.a_pos[q]], aa = fabs(a);
+          const T ca = csa[(size_t)lane * n + j];
+          rmax = nan_max(rmax, aa * ca);
+          alv += a * p.l[(size_t)lane * n + j];
+          acv += aa * ca;
+        }
+      }
+    } else {
+      const T* arow = p.A + (size_t)i * n;
+      T mx[BMAX], al[BMAX], acs[BMAX];
 #pragma unroll
-    for (int e = 0; e < BMAX; ++e) mx[e] = al[e] = acs[e] = T(0);
-    for (int j = lane; j < n; j += 32) {
-      const T a = arow[j], aa = fabs(a);
+      for (int e = 0; e < BMAX; ++e) mx[e] = al[e] = acs[e] = T(0);
+      for (int j = lane; j < n; j += 32) {
+        const T a = arow[j], aa = fabs(a);
+#pragma unroll
+        for (int e = 0; e < BMAX; ++e) {
+          if (e < B) {
+            const T ca = csa[(size_t)e * n + j];
+            mx[e] = nan_max(mx[e], aa * ca);
+            al[e] += a * p.l[(size_t)e * n + j];
+            acs[e] += aa * ca;
+          }
+        }
+      }
 #pragma unroll
       for (int e = 0; e < BMAX; ++e) {
         if (e < B) {
-          const T ca = csa[(size_t)e * n + j];
-          mx[e] = nan_max(mx[e], aa * ca);
-          al[e] += a * p.l[(size_t)e * n + j];
-          acs[e] += aa * ca;
+          mx[e] = warp_reduce(mx[e], Max());
+          al[e] = warp_reduce(al[e], Sum());
+          acs[e] = warp_reduce(acs[e], Sum());
         }
       }
+      rmax = pick(mx, lane);
+      alv = pick(al, lane);
+      acv = pick(acs, lane);
     }
-#pragma unroll
-    for (int e = 0; e < BMAX; ++e) {
-      if (e < B) {
-        mx[e] = warp_reduce(mx[e], Max());
-        al[e] = warp_reduce(al[e], Sum());
-        acs[e] = warp_reduce(acs[e], Sum());
-      }
-    }
-    const T rmax = pick(mx, lane), alv = pick(al, lane), acv = pick(acs, lane);
     if (lane < B) {
       const size_t k = (size_t)lane * m + i;
       const T rs = T(1) / nan_max(rmax, T(1e-12));
@@ -470,20 +561,30 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
 
   // ---- setup 3 (columns): tau; b_scale, c_scale ----
   for (int j = gw; j < n; j += tw) {
-    T acc[BMAX];
-    const T* arow = p.At + (size_t)j * m;
+    // Column j's sum |a| row_s, per element.
+    T g = T(0);
+    if constexpr (kElem) {
+      if (lane < B) {
+        const T* va = p.vals + (size_t)lane * p.vstride;
+        for (int q = p.t_ptr[j]; q < p.t_ptr[j + 1]; ++q)
+          g += fabs(va[q]) * rows[(size_t)lane * m + p.t_row[q]];
+      }
+    } else {
+      T acc[BMAX];
+      const T* arow = p.At + (size_t)j * m;
 #pragma unroll
-    for (int e = 0; e < BMAX; ++e) acc[e] = T(0);
-    for (int i = lane; i < m; i += 32) {
-      const T aa = fabs(arow[i]);
+      for (int e = 0; e < BMAX; ++e) acc[e] = T(0);
+      for (int i = lane; i < m; i += 32) {
+        const T aa = fabs(arow[i]);
+#pragma unroll
+        for (int e = 0; e < BMAX; ++e)
+          if (e < B) acc[e] += aa * rows[(size_t)e * m + i];
+      }
 #pragma unroll
       for (int e = 0; e < BMAX; ++e)
-        if (e < B) acc[e] += aa * rows[(size_t)e * m + i];
+        if (e < B) acc[e] = warp_reduce(acc[e], Sum());
+      g = pick(acc, lane);
     }
-#pragma unroll
-    for (int e = 0; e < BMAX; ++e)
-      if (e < B) acc[e] = warp_reduce(acc[e], Sum());
-    const T g = pick(acc, lane);
     if (lane < B) {
       const size_t k = (size_t)lane * n + j;
       const T ca = csa[k];
@@ -503,18 +604,18 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
 
   // ---- warm entry: best of the projected warm point and the cold start ----
   if (warm) {
-    t_cols(p, s, xw, ysw, all, false);
+    t_cols<kElem>(p, s, xw, ysw, all, false);
     grid.sync();
-    t_rows(p, s, yw, all, false);
+    t_rows<kElem>(p, s, yw, all, false);
     grid.sync();
     grid_reduce(p.pc, N_C, C_Q, B, Sum(), T(0), s.rv[C_Q]);
     __syncthreads();
     if (tid < B) s.resw[tid] = sqrt(s.rv[C_Q][tid]);
     grid.sync();  // every block has read the partials
   }
-  t_cols(p, s, x, ys, all, false);
+  t_cols<kElem>(p, s, x, ys, all, false);
   grid.sync();
-  t_rows(p, s, y, all, false);
+  t_rows<kElem>(p, s, y, all, false);
   grid.sync();
   grid_reduce(p.pc, N_C, C_Q, B, Sum(), T(0), s.rv[C_Q]);
   __syncthreads();
@@ -532,6 +633,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
     s.res_a[tid] = nan_max(res0, T(1e-30));
     s.t[tid] = 0;
     s.it[tid] = 0;
+    s.nre[tid] = 0;
     s.done[tid] = (p.skip != nullptr && p.skip[tid] != 0) ? 1 : 0;
   }
   __syncthreads();
@@ -561,15 +663,16 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
     for (int e = 0; e < B; ++e)
       if (!s.done[e]) live |= 1u << e;
     if (live == 0) break;
+    if (tid < B) s.t0[tid] = s.t[tid];
     for (int st = 0; st < p.chunk; ++st) {
       if (tid < B) {
         const T tf = T(s.t[tid]);
         s.w[tid] = (tf + T(1)) / (tf + T(2));
       }
       __syncthreads();
-      t_cols(p, s, x, ys, live, true);
+      t_cols<kElem>(p, s, x, ys, live, true);
       grid.sync();
-      t_rows(p, s, y, live, true);
+      t_rows<kElem>(p, s, y, live, true);
       grid.sync();
       grid_reduce(p.pc, N_C, C_Q, B, Sum(), T(0), s.rv[C_Q]);
       grid_reduce(p.pf, 1, 0, B, Or(), 0, s.rvi);
@@ -611,7 +714,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
       grid.sync();
     }
     // convergence: primal feasibility and relative duality gap
-    stats(p, s, live);
+    stats<kElem>(p, s, live);
     grid.sync();
     reduce_stats(p, s);
     if (tid < B && on(live, tid)) {
@@ -621,12 +724,24 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
       const bool conv = (s.rv[C_RP][tid] < p.tol * bsc) &&
                         (gap < p.tol * (bsc + csc + fabs(obj)));
       if (conv) s.done[tid] = 1;
+      // A live chunk without a restart advances t by exactly chunk: a
+      // shortfall counts one restart chunk (the reference's column).
+      if (s.t[tid] != s.t0[tid] + p.chunk) s.nre[tid] += 1;
+      if (p.trace != nullptr && blockIdx.x == 0 && ci < p.trace_rows) {
+        T* row = p.trace + ((size_t)tid * p.trace_rows + ci) * 6;
+        row[0] = T(s.it[tid]);
+        row[1] = s.rv[C_RP][tid];
+        row[2] = s.rv[C_RD][tid];
+        row[3] = gap / (bsc + csc);
+        row[4] = T(s.nre[tid]);
+        row[5] = T(1);
+      }
     }
     grid.sync();  // every block has read the partials and the done flags
   }
 
   // ---- epilogue 1: final residuals; v, y in original units ----
-  stats(p, s, all);
+  stats<kElem>(p, s, all);
   {
     T objv = T(0);
     double shift = 0.0;
@@ -653,11 +768,9 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
   {
     double by64 = 0.0, lag64 = 0.0;
     for (int task = gw; task < n + m; task += tw) {
-      double acc[BMAX];
       if (task < n) {
         const int j = task;
-        warp_dots(p.At + (size_t)j * m, p.y_out, m, m, all, B, acc);
-        const double g = pick(acc, lane);
+        const double g = col_dot<kElem, double>(p, j, p.y_out, all);
         if (lane < B) {
           const size_t k = (size_t)lane * n + j;
           const double red = (double)p.c[k] - g;
@@ -671,8 +784,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
         }
       } else {
         const int i = task - n;
-        warp_dots(p.A + (size_t)i * n, p.l, n, n, all, B, acc);
-        const double al = pick(acc, lane);
+        const double al = row_dot<kElem, double>(p, i, p.l, all);
         if (lane < B) {
           const size_t k = (size_t)lane * m + i;
           by64 += ((double)p.b[k] - al) * (double)p.y_out[k];
@@ -717,14 +829,14 @@ size_t ws_bytes(int B, int m, int n, int G) {
          align_up(sizeof(T) * (size_t)N_ROWV * B * m);
 }
 
-template <typename T>
+template <typename T, bool kElem>
 int grid_size(int* G) {
   int dev = 0, sms = 0, occ = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pdhg_kernel<T>, THREADS,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pdhg_kernel<T, kElem>, THREADS,
                                                       sizeof(Blk<T>));
   if (err != cudaSuccess) return (int)err;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -732,22 +844,42 @@ int grid_size(int* G) {
   return 0;
 }
 
-template <typename T>
-int launch(const T* A, const T* At, const T* b, const T* c, const T* l,
-           const T* u, const T* wv, const T* wy, const uint8_t* wok,
-           const uint8_t* skip, int B, int m, int n, int chunk, int n_chunks,
-           double tol, double rt, void* ws, long ws_len, T* v, double* bound,
-           T* obj, T* rp, T* rd, T* mu, uint8_t* conv, double* reduced, T* y,
-           T* z, T* f, int* iters, cudaStream_t stream) {
-  if (B < 1 || B > BMAX) return (int)cudaErrorInvalidValue;
+// One cooperative launch of B <= BMAX elements. p carries the A route
+// (A and At, or the structure and values), the data, the outputs and the
+// trace; the workspace is carved here.
+template <typename T, bool kElem>
+int launch(Params<T> p, void* ws, long ws_len, cudaStream_t stream) {
+  if (p.B < 1 || p.B > BMAX) return (int)cudaErrorInvalidValue;
   int G = 0;
-  int gerr = grid_size<T>(&G);
+  int gerr = grid_size<T, kElem>(&G);
   if (gerr != 0) return gerr;
+  const int B = p.B, m = p.m, n = p.n;
   if ((size_t)ws_len < ws_bytes<T>(B, m, n, G)) return (int)cudaErrorInvalidValue;
   unsigned char* w = static_cast<unsigned char*>(ws);
-  Params<T> p;
-  p.A = A;
-  p.At = At;
+  p.pd = reinterpret_cast<double*>(w);
+  w += align_up(sizeof(double) * (size_t)G * B * N_D);
+  p.pc = reinterpret_cast<T*>(w);
+  w += align_up(sizeof(T) * (size_t)G * B * N_C);
+  p.pf = reinterpret_cast<int*>(w);
+  w += align_up(sizeof(int) * (size_t)G * B);
+  p.colv = reinterpret_cast<T*>(w);
+  w += align_up(sizeof(T) * (size_t)N_COLV * B * n);
+  p.rowv = reinterpret_cast<T*>(w);
+  void* args[] = {&p};
+  cudaError_t err = cudaLaunchCooperativeKernel(pdhg_kernel<T, kElem>, dim3(G),
+                                                dim3(THREADS), args, sizeof(Blk<T>), stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The data, options and outputs every entry shares.
+template <typename T>
+Params<T> params(const T* b, const T* c, const T* l, const T* u, const T* wv, const T* wy,
+                 const uint8_t* wok, const uint8_t* skip, int B, int m, int n, int chunk,
+                 int n_chunks, double tol, double rt, T* v, double* bound, T* obj, T* rp,
+                 T* rd, T* mu, uint8_t* conv, double* reduced, T* y, T* z, T* f, int* iters,
+                 T* trace, int trace_rows) {
+  Params<T> p = {};
   p.b = b;
   p.c = c;
   p.l = l;
@@ -763,15 +895,6 @@ int launch(const T* A, const T* At, const T* b, const T* c, const T* l,
   p.n_chunks = n_chunks;
   p.tol = (T)tol;
   p.rt = (T)rt;
-  p.pd = reinterpret_cast<double*>(w);
-  w += align_up(sizeof(double) * (size_t)G * B * N_D);
-  p.pc = reinterpret_cast<T*>(w);
-  w += align_up(sizeof(T) * (size_t)G * B * N_C);
-  p.pf = reinterpret_cast<int*>(w);
-  w += align_up(sizeof(int) * (size_t)G * B);
-  p.colv = reinterpret_cast<T*>(w);
-  w += align_up(sizeof(T) * (size_t)N_COLV * B * n);
-  p.rowv = reinterpret_cast<T*>(w);
   p.v_out = v;
   p.bound_out = bound;
   p.obj_out = obj;
@@ -784,27 +907,67 @@ int launch(const T* A, const T* At, const T* b, const T* c, const T* l,
   p.z_out = z;
   p.f_out = f;
   p.iters_out = iters;
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(pdhg_kernel<T>, dim3(G), dim3(THREADS),
-                                                args, sizeof(Blk<T>), stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  p.trace = trace;
+  p.trace_rows = trace_rows;
+  return p;
+}
+
+template <typename T>
+int launch_shared(const T* A, const T* At, const T* b, const T* c, const T* l,
+                  const T* u, const T* wv, const T* wy, const uint8_t* wok,
+                  const uint8_t* skip, int B, int m, int n, int chunk, int n_chunks,
+                  double tol, double rt, void* ws, long ws_len, T* v, double* bound,
+                  T* obj, T* rp, T* rd, T* mu, uint8_t* conv, double* reduced, T* y,
+                  T* z, T* f, int* iters, T* trace, int trace_rows, cudaStream_t stream) {
+  Params<T> p = params(b, c, l, u, wv, wy, wok, skip, B, m, n, chunk, n_chunks, tol, rt, v,
+                       bound, obj, rp, rd, mu, conv, reduced, y, z, f, iters, trace,
+                       trace_rows);
+  p.A = A;
+  p.At = At;
+  return launch<T, false>(p, ws, ws_len, stream);
+}
+
+// sp: the structure's int32 buffer as ops/ipm.py::ipm_sparsity lays it out
+// (a_ptr m+1, a_col nnz, a_pos nnz, t_ptr n+1, t_row nnz, then K1's normal-
+// matrix parts, not read here).
+template <typename T>
+int launch_elem(const int* sp, int nnz, const T* vals, long vstride, const T* b,
+                const T* c, const T* l, const T* u, const T* wv, const T* wy,
+                const uint8_t* wok, const uint8_t* skip, int B, int m, int n, int chunk,
+                int n_chunks, double tol, double rt, void* ws, long ws_len, T* v,
+                double* bound, T* obj, T* rp, T* rd, T* mu, uint8_t* conv,
+                double* reduced, T* y, T* z, T* f, int* iters, T* trace, int trace_rows,
+                cudaStream_t stream) {
+  if (vstride < 0 || (vstride > 0 && vstride < nnz)) return (int)cudaErrorInvalidValue;
+  Params<T> p = params(b, c, l, u, wv, wy, wok, skip, B, m, n, chunk, n_chunks, tol, rt, v,
+                       bound, obj, rp, rd, mu, conv, reduced, y, z, f, iters, trace,
+                       trace_rows);
+  p.a_ptr = sp;
+  p.a_col = p.a_ptr + m + 1;
+  p.a_pos = p.a_col + nnz;
+  p.t_ptr = p.a_pos + nnz;
+  p.t_row = p.t_ptr + n + 1;
+  p.vals = vals;
+  p.vstride = vstride;
+  return launch<T, true>(p, ws, ws_len, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace bytes of one launch of B elements (0 when the grid cannot be
-// sized on the current device).
-size_t dtk_pdhg_ws_bytes(int B, int m, int n, int is_f64) {
+// Workspace bytes of one launch of B elements on the shared (elem = 0) or
+// the per-element route (0 when the grid cannot be sized on the current
+// device).
+size_t dtk_pdhg_ws_bytes(int B, int m, int n, int is_f64, int elem) {
   int G = 0;
+  int err;
   if (is_f64) {
-    if (grid_size<double>(&G) != 0) return 0;
-    return ws_bytes<double>(B, m, n, G);
+    err = elem ? grid_size<double, true>(&G) : grid_size<double, false>(&G);
+    return err != 0 ? 0 : ws_bytes<double>(B, m, n, G);
   }
-  if (grid_size<float>(&G) != 0) return 0;
-  return ws_bytes<float>(B, m, n, G);
+  err = elem ? grid_size<float, true>(&G) : grid_size<float, false>(&G);
+  return err != 0 ? 0 : ws_bytes<float>(B, m, n, G);
 }
 
 int dtk_pdhg_f32(const float* A, const float* At, const float* b, const float* c,
@@ -813,10 +976,12 @@ int dtk_pdhg_f32(const float* A, const float* At, const float* b, const float* c
                  int chunk, int n_chunks, double tol, double rt, void* ws,
                  long ws_len, float* v, double* bound, float* obj, float* rp,
                  float* rd, float* mu, uint8_t* conv, double* reduced, float* y,
-                 float* z, float* f, int* iters, void* stream) {
-  return launch<float>(A, At, b, c, l, u, wv, wy, wok, skip, B, m, n, chunk,
-                       n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp, rd, mu,
-                       conv, reduced, y, z, f, iters, (cudaStream_t)stream);
+                 float* z, float* f, int* iters, float* trace, int trace_rows,
+                 void* stream) {
+  return launch_shared<float>(A, At, b, c, l, u, wv, wy, wok, skip, B, m, n, chunk,
+                              n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp, rd, mu,
+                              conv, reduced, y, z, f, iters, trace, trace_rows,
+                              (cudaStream_t)stream);
 }
 
 int dtk_pdhg_f64(const double* A, const double* At, const double* b,
@@ -826,10 +991,40 @@ int dtk_pdhg_f64(const double* A, const double* At, const double* b,
                  int n_chunks, double tol, double rt, void* ws, long ws_len,
                  double* v, double* bound, double* obj, double* rp, double* rd,
                  double* mu, uint8_t* conv, double* reduced, double* y,
-                 double* z, double* f, int* iters, void* stream) {
-  return launch<double>(A, At, b, c, l, u, wv, wy, wok, skip, B, m, n, chunk,
-                        n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp, rd, mu,
-                        conv, reduced, y, z, f, iters, (cudaStream_t)stream);
+                 double* z, double* f, int* iters, double* trace, int trace_rows,
+                 void* stream) {
+  return launch_shared<double>(A, At, b, c, l, u, wv, wy, wok, skip, B, m, n, chunk,
+                               n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp, rd, mu,
+                               conv, reduced, y, z, f, iters, trace, trace_rows,
+                               (cudaStream_t)stream);
+}
+
+int dtk_pdhg_elem_f32(const int* sp, int nnz, const float* vals, long vstride,
+                      const float* b, const float* c, const float* l, const float* u,
+                      const float* wv, const float* wy, const uint8_t* wok,
+                      const uint8_t* skip, int B, int m, int n, int chunk, int n_chunks,
+                      double tol, double rt, void* ws, long ws_len, float* v,
+                      double* bound, float* obj, float* rp, float* rd, float* mu,
+                      uint8_t* conv, double* reduced, float* y, float* z, float* f,
+                      int* iters, float* trace, int trace_rows, void* stream) {
+  return launch_elem<float>(sp, nnz, vals, vstride, b, c, l, u, wv, wy, wok, skip, B, m, n,
+                            chunk, n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp, rd,
+                            mu, conv, reduced, y, z, f, iters, trace, trace_rows,
+                            (cudaStream_t)stream);
+}
+
+int dtk_pdhg_elem_f64(const int* sp, int nnz, const double* vals, long vstride,
+                      const double* b, const double* c, const double* l, const double* u,
+                      const double* wv, const double* wy, const uint8_t* wok,
+                      const uint8_t* skip, int B, int m, int n, int chunk, int n_chunks,
+                      double tol, double rt, void* ws, long ws_len, double* v,
+                      double* bound, double* obj, double* rp, double* rd, double* mu,
+                      uint8_t* conv, double* reduced, double* y, double* z, double* f,
+                      int* iters, double* trace, int trace_rows, void* stream) {
+  return launch_elem<double>(sp, nnz, vals, vstride, b, c, l, u, wv, wy, wok, skip, B, m,
+                             n, chunk, n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp,
+                             rd, mu, conv, reduced, y, z, f, iters, trace, trace_rows,
+                             (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -19,7 +19,8 @@ runs :func:`ipm_solve_batch_reference`, the plain PyTorch version, on CPU
 tensors. Both compute what ``distilp_tpu/ops/ipm.py::ipm_solve_batch``
 computes element by element, including its chunked early exit: an element
 stops at the first chunk boundary after it converged, and ``iters_run``
-counts only the steps it executed.
+counts only the steps it executed. ``trace=True`` records the convergence
+trace (:data:`TRACE_COLS`, B13) of both engines' kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +35,25 @@ from .. import kernels
 
 IPM_DEFAULT_CHUNK = 4
 THREADS = 256
+
+# The convergence trace (``trace=True``): one row per executed chunk of each
+# element, written at the chunk boundary,
+#   [iters, rp_norm, rd_norm, gap, restarts, live]
+# iters the element's cumulative executed steps, rp/rd the scaled system's
+# residual inf-norms, gap the engine's gauge (the complementarity mu here;
+# the normalized duality gap in ops/pdhg.py), restarts the cumulative count
+# of chunks in which the PDHG's Halpern anchor restarted (0 for the IPM),
+# live whether the element was iterating when the chunk started. An element
+# writes rows only for the chunks it runs: the rows after it stopped, and
+# every row of a skipped element, stay zero, as the reference's vmapped
+# while_loop leaves them (``distilp_tpu/ops/ipm.py:60-71``). The untraced
+# solve's results are bit-identical to the traced one's.
+TRACE_COLS = 6
+
+
+def n_trace_rows(iters: int, chunk: int) -> int:
+    """Rows of the trace buffer of an (iters, chunk) budget."""
+    return chunking(iters, chunk)[1]
 
 
 # K1's routes, by where one LP's vectors and its packed factor live.
@@ -178,6 +198,9 @@ class IPMResult(NamedTuple):
     z_dual: torch.Tensor  # (B, n)
     f_dual: torch.Tensor  # (B, n)
     iters_run: torch.Tensor  # (B,) int32
+    # (B, n_trace_rows, TRACE_COLS) in the iteration dtype with trace=True;
+    # None untraced.
+    trace_buf: Optional[torch.Tensor] = None
 
 
 def _default_tol(dtype) -> float:
@@ -204,19 +227,21 @@ def ipm_solve_batch(
     skip: Optional[torch.Tensor] = None,
     chunk: int = IPM_DEFAULT_CHUNK,
     sparsity: Optional[IPMSparsity] = None,
+    trace: bool = False,
 ) -> IPMResult:
     """Solve a batch of boxed LPs: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. ``tol``/``reg`` default by dtype.
     ``sparsity`` is A's structure (:func:`ipm_sparsity`) when the caller
     keeps it across calls; every nonzero of A must lie in its pattern
     (:func:`check_sparsity`). The kernel's wrapper builds it from A
-    otherwise."""
+    otherwise. ``trace`` records the convergence trace (:data:`TRACE_COLS`)
+    into ``trace_buf``."""
     if sparsity is not None:
         check_sparsity(batch.A, sparsity)
     tensors = list(batch) + ([] if warm is None else list(warm)) + [skip]
     if kernels.on_cuda(*tensors):
-        return _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity)
-    return ipm_solve_batch_reference(batch, iters, tol, reg, warm, skip, chunk)
+        return _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity, trace)
+    return ipm_solve_batch_reference(batch, iters, tol, reg, warm, skip, chunk, trace)
 
 
 def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -249,13 +274,14 @@ def ipm_solve_batch_reference(
     warm: Optional[IPMWarmState] = None,
     skip: Optional[torch.Tensor] = None,
     chunk: int = IPM_DEFAULT_CHUNK,
+    trace: bool = False,
 ) -> IPMResult:
     """Plain PyTorch version of the IPM kernel (same signature and result)."""
     with _full_f32_matmul():
-        return _reference(batch, iters, tol, reg, warm, skip, chunk)
+        return _reference(batch, iters, tol, reg, warm, skip, chunk, trace)
 
 
-def _reference(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
+def _reference(batch, iters, tol, reg, warm, skip, chunk, trace) -> IPMResult:
     A, b, c, l, u = batch
     dtype = A.dtype
     dev = A.device
@@ -382,17 +408,28 @@ def _reference(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
         )
         return x, w, y, z, f, done | conv, it
 
+    def residuals(x, w, y, z, f):
+        xa = x * act
+        rp = b_hat - _bmv(As, xa)
+        rd = cm - _bmvT(As, y) - z + f
+        mu = ((xa * z).sum(1) + ((w * act) * f).sum(1)) / two_na
+        return rp.abs().amax(1), (rd * act).abs().amax(1), mu
+
     chunk, n_chunks = chunking(iters, chunk)
-    for _ in range(n_chunks):
+    tbuf = torch.zeros((B, n_chunks, TRACE_COLS), dtype=dtype, device=dev) if trace else None
+    for ci in range(n_chunks):
         if bool(done.all()):
             break
+        live = ~done
         for _ in range(chunk):
             x, w, y, z, f, done, it = step(x, w, y, z, f, done, it)
+        if trace:
+            rp_n, rd_n, mu_n = residuals(x, w, y, z, f)
+            row = torch.stack([it.to(dtype), rp_n, rd_n, mu_n, torch.zeros_like(mu_n),
+                               torch.ones_like(mu_n)], 1)
+            tbuf[:, ci] = torch.where(live[:, None], row, tbuf[:, ci])
 
-    xa = x * act
-    rp = b_hat - _bmv(As, xa)
-    rd = cm - _bmvT(As, y) - z + f
-    mu = ((xa * z).sum(1) + ((w * act) * f).sum(1)) / two_na
+    rp_norm, rd_norm, mu = residuals(x, w, y, z, f)
 
     f64 = torch.float64
     A64 = A3.to(f64)
@@ -408,8 +445,8 @@ def _reference(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
         v=v,
         bound=bound + shift,
         obj=(c * v).sum(1),
-        rp_norm=rp.abs().amax(1),
-        rd_norm=(rd * act).abs().amax(1),
+        rp_norm=rp_norm,
+        rd_norm=rd_norm,
         mu=mu,
         converged=done,
         reduced=reduced,
@@ -417,10 +454,11 @@ def _reference(batch, iters, tol, reg, warm, skip, chunk) -> IPMResult:
         z_dual=torch.where(active, z / col_s, zero),
         f_dual=torch.where(active, f / col_s, zero),
         iters_run=it,
+        trace_buf=tbuf,
     )
 
 
-def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity) -> IPMResult:
+def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity, trace) -> IPMResult:
     from ..kernels.build import library
 
     A, b, c, l, u = batch
@@ -463,6 +501,9 @@ def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity) -> IPMResul
         f_dual=torch.empty((B, n), **kw),
         iters_run=torch.empty(B, dtype=torch.int32, device=dev),
     )
+    chunk, n_chunks = chunking(iters, chunk)
+    if trace:
+        out = out._replace(trace_buf=torch.zeros((B, n_chunks, TRACE_COLS), **kw))
     if B == 0:
         return out
     if warm is not None:
@@ -477,7 +518,6 @@ def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity) -> IPMResul
     _, vec_bytes, factor_bytes = ipm_workspace(B, m, n, dtype, dev)
     ws = torch.empty(factor_bytes // A.element_size(), **kw) if factor_bytes else None
     vec_ws = torch.empty(vec_bytes // A.element_size(), **kw) if vec_bytes else None
-    chunk, n_chunks = chunking(iters, chunk)
     lib = library("ipm")
     fn = lib.dtk_ipm_f64 if dtype == torch.float64 else lib.dtk_ipm_f32
     P, O = kernels.ptr, kernels.opt_ptr
@@ -491,8 +531,9 @@ def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity) -> IPMResul
         O(ws), O(vec_ws), P(out.v), P(out.bound), P(out.obj), P(out.rp_norm),
         P(out.rd_norm), P(out.mu), P(out.converged), P(out.reduced),
         P(out.y_dual), P(out.z_dual), P(out.f_dual), P(out.iters_run),
-        THREADS, kernels.stream_handle(dev),
+        O(out.trace_buf), n_chunks, THREADS, kernels.stream_handle(dev),
     )
     kernels.check(err, "ipm")
-    kernels.count_launch("ipm", f"B={B} m={m} n={n}{' per-node A' if a_stride else ''}")
+    kernels.count_launch("ipm_trace" if trace else "ipm",
+                         f"B={B} m={m} n={n}{' per-node A' if a_stride else ''}")
     return out

@@ -56,6 +56,8 @@ def pdhg_solve_batch_mp(
             res64 = pdhg_solve_batch(batch, dtype="f64", **kw)
 
             def splice(a, a64):
+                if a is None:  # no trace buffer
+                    return None
                 sel = bad.reshape((-1,) + (1,) * (a.dim() - 1))
                 return torch.where(sel, a64.to(a.dtype), a)
 

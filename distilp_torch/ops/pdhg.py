@@ -1,8 +1,8 @@
 """Batched restarted Halpern PDHG for box-constrained LPs: the matrix-free
 fleet-scale sibling of :mod:`distilp_torch.ops.ipm`.
 
-Same problem family, batch layout (:class:`~distilp_torch.ops.ipm.LPBatch`
-with one shared (m, n) A) and result contract
+Same problem family, batch layout (:class:`~distilp_torch.ops.ipm.LPBatch`,
+one shared (m, n) A or one A per element) and result contract
 (:class:`~distilp_torch.ops.ipm.IPMResult`)::
 
     min c'v   s.t.  A v = b,   l <= v <= u
@@ -27,6 +27,11 @@ batch-wide early exit. The exit certificate is the float64 Lagrangian bound
 (``kernels/csrc/pdhg_kernel.cu``, one cooperative launch per batch of up to
 :data:`BMAX` elements) on CUDA tensors and runs
 :func:`pdhg_solve_batch_reference`, the plain PyTorch version, on CPU tensors.
+A per-element A (the reference's ``a_axis = 0``: MoE nodes, batch lanes)
+goes to the kernel's per-element entry as values on one union sparse
+structure (:class:`ElemA`), never as a dense (B, m, n) stack. ``trace=True``
+records the convergence trace of ``ops/ipm.py`` (:data:`TRACE_COLS`), with
+the cumulative restart-chunk count in its restarts column.
 """
 
 from __future__ import annotations
@@ -36,7 +41,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import kernels
-from .ipm import IPMResult, LPBatch, _full_f32_matmul, chunking
+from .ipm import (
+    TRACE_COLS,
+    IPMResult,
+    IPMSparsity,
+    LPBatch,
+    _bmv,
+    _bmvT,
+    _full_f32_matmul,
+    check_sparsity,
+    chunking,
+    ipm_sparsity,
+)
 
 # Convergence-test granularity (steps per chunk).
 PDHG_DEFAULT_CHUNK = 32
@@ -67,6 +83,37 @@ def resolve_pdhg_dtype(name):
     raise ValueError(f"unknown pdhg_dtype {name!r}; expected one of {PDHG_DTYPES}")
 
 
+class ElemA(NamedTuple):
+    """A per-element A as each element's values on one shared sparse
+    structure (for a batch, the union of the elements' patterns): element
+    e's A has ``values[e, q]`` at the q-th nonzero of ``sparsity`` in column
+    order, so ``A.reshape(B, m*n)[:, sparsity.src] == values``."""
+
+    values: torch.Tensor  # (B, nnz)
+    sparsity: IPMSparsity
+
+    def dense(self) -> torch.Tensor:
+        """The (B, m, n) A these values describe."""
+        sp = self.sparsity
+        B = self.values.shape[0]
+        flat = self.values.new_zeros((B, sp.m * sp.n))
+        flat[:, sp.src] = self.values
+        return flat.reshape(B, sp.m, sp.n)
+
+
+def elem_a(A: torch.Tensor, sparsity: Optional[IPMSparsity] = None) -> ElemA:
+    """A dense (B, m, n) A as :class:`ElemA`: its values gathered on
+    ``sparsity`` (which must hold every nonzero of every element,
+    :func:`~distilp_torch.ops.ipm.check_sparsity`), or on the union of its
+    elements' patterns."""
+    if sparsity is None:
+        sparsity = ipm_sparsity((A != 0).any(0))
+    else:
+        check_sparsity(A, sparsity)
+    B, m, n = A.shape
+    return ElemA(A.reshape(B, m * n)[:, sparsity.src], sparsity)
+
+
 class PDHGWarmState(NamedTuple):
     """Warm-start iterate in ORIGINAL coordinates, field for field the port's
     ``IPMWarmState``: either engine's iterates seed the other. ``z``/``f``
@@ -91,34 +138,47 @@ def pdhg_solve_batch(
     chunk: int = PDHG_DEFAULT_CHUNK,
     trace: bool = False,
     dtype: Optional[str] = None,
+    sparsity: Optional[IPMSparsity] = None,
 ) -> IPMResult:
-    """Solve a batch of boxed LPs sharing one (m, n) A: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors.
+    """Solve a batch of boxed LPs: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.
 
-    ``iters`` is the per-element budget, spent ``chunk`` steps at a time with
-    a batch-wide convergence test between chunks; ``restart_tol`` is the
-    restart's sufficient-decay factor; ``warm`` takes a
-    :class:`PDHGWarmState` or an ``IPMWarmState``. ``dtype`` ('f32'/'f64',
-    None = the batch's own) sets the iteration precision: the batch is cast
-    on entry, the certificate stays the float64 bound either way.
+    ``batch.A`` is one shared (m, n) A, a per-element (B, m, n) A, or an
+    :class:`ElemA` (each element's values on one sparse structure). A dense
+    per-element A is gathered onto ``sparsity`` (it must hold every nonzero;
+    a pattern that misses one raises) or onto the union of its elements'
+    patterns. ``iters`` is the per-element budget, spent ``chunk`` steps at
+    a time with a batch-wide convergence test between chunks;
+    ``restart_tol`` is the restart's sufficient-decay factor; ``warm`` takes
+    a :class:`PDHGWarmState` or an ``IPMWarmState``. ``trace`` records one
+    convergence-trace row per executed chunk into ``trace_buf``. ``dtype``
+    ('f32'/'f64', None = the batch's own) sets the iteration precision: the
+    batch is cast on entry, the certificate stays the float64 bound either
+    way.
     """
-    if trace:
-        raise NotImplementedError(
-            "PDHG convergence traces are not ported yet (ROADMAP.md A9)"
-        )
+    A = batch.A
+    if isinstance(A, torch.Tensor) and A.dim() == 3:
+        A = elem_a(A, sparsity)
+    elif sparsity is not None:
+        raise ValueError("sparsity= goes with a dense per-element (B, m, n) A")
     dt = resolve_pdhg_dtype(dtype)
-    if dt is not None and dt != batch.A.dtype:
-        batch = LPBatch(*(t.to(dt) for t in batch))
-    if batch.A.dim() != 2:
-        raise ValueError(
-            f"pdhg_solve_batch takes one shared (m, n) A, got {tuple(batch.A.shape)}"
-        )
-    tol_v = _default_tol_pdhg(batch.A.dtype) if tol is None else float(tol)
+    if isinstance(A, ElemA):
+        if dt is not None:
+            A = A._replace(values=A.values.to(dt))
+        batch = LPBatch(A, *(t.to(A.values.dtype) for t in batch[1:]))
+        a_dtype, a_tensors = A.values.dtype, [A.values]
+    else:
+        if A.dim() != 2:
+            raise ValueError(f"A must be (m, n), (B, m, n) or ElemA, got {tuple(A.shape)}")
+        if dt is not None and dt != A.dtype:
+            batch = LPBatch(*(t.to(dt) for t in batch))
+        a_dtype, a_tensors = batch.A.dtype, [batch.A]
+    tol_v = _default_tol_pdhg(a_dtype) if tol is None else float(tol)
     rt_v = DEFAULT_RESTART_TOL if restart_tol is None else float(restart_tol)
-    tensors = list(batch) + ([] if warm is None else list(warm)) + [skip]
+    tensors = a_tensors + list(batch[1:]) + ([] if warm is None else list(warm)) + [skip]
     if kernels.on_cuda(*tensors):
-        return _pdhg_kernel(batch, iters, tol_v, rt_v, warm, skip, chunk)
-    return pdhg_solve_batch_reference(batch, iters, tol_v, rt_v, warm, skip, chunk)
+        return _pdhg_kernel(batch, iters, tol_v, rt_v, warm, skip, chunk, trace)
+    return pdhg_solve_batch_reference(batch, iters, tol_v, rt_v, warm, skip, chunk, trace)
 
 
 def pdhg_solve_batch_reference(
@@ -129,44 +189,58 @@ def pdhg_solve_batch_reference(
     warm=None,
     skip: Optional[torch.Tensor] = None,
     chunk: int = PDHG_DEFAULT_CHUNK,
+    trace: bool = False,
 ) -> IPMResult:
-    """Plain PyTorch version of the PDHG kernel (batch axis written out)."""
+    """Plain PyTorch version of the PDHG kernel (batch axis written out).
+    A per-element A (dense (B, m, n), or :class:`ElemA`, made dense here)
+    goes through batched products."""
+    if isinstance(batch.A, ElemA):
+        batch = batch._replace(A=batch.A.dense())
     tol = _default_tol_pdhg(batch.A.dtype) if tol is None else tol
     restart_tol = DEFAULT_RESTART_TOL if restart_tol is None else restart_tol
     with _full_f32_matmul():
-        return _reference(batch, iters, tol, restart_tol, warm, skip, chunk)
+        return _reference(batch, iters, tol, restart_tol, warm, skip, chunk, trace)
 
 
-def _reference(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult:
+def _reference(batch, iters, tol, restart_tol, warm, skip, chunk, trace) -> IPMResult:
     A, b, c, l, u = batch
     dtype, dev = A.dtype, A.device
     B, n = c.shape
-    m = A.shape[0]
+    m = b.shape[1]
     inf = float("inf")
+    if A.dim() == 2:
+        def mv(M, x):
+            return x @ M.T
+
+        def mvT(M, y):
+            return y @ M
+    else:
+        mv, mvT = _bmv, _bmvT
 
     r_raw = u - l
     active = r_raw > 0
-    b_hat = b - l @ A.T
+    b_hat = b - mv(A, l)
     col_s = torch.where(active, r_raw, 1.0)
     cs_a = torch.where(active, r_raw, 0.0)
     act = active.to(dtype)
     cm = torch.where(active, c * col_s, 0.0)
     absA = A.abs()
     # Row inf-norms of |A| diag(cs_a), one element at a time: never a
-    # (B, m, n) scaled copy of A.
-    row_max = torch.stack([(absA * cs_a[e]).amax(1) for e in range(B)]) if B else \
-        torch.zeros((0, m), dtype=dtype, device=dev)
+    # (B, m, n) scaled copy of a shared A.
+    row_max = torch.stack([
+        (absA if A.dim() == 2 else absA[e]).mul(cs_a[e]).amax(1) for e in range(B)
+    ]) if B else torch.zeros((0, m), dtype=dtype, device=dev)
     row_s = 1.0 / torch.clamp(row_max, min=1e-12)
     b_s = b_hat * row_s
 
     def opA(x):
-        return row_s * ((cs_a * x) @ A.T)
+        return row_s * mv(A, cs_a * x)
 
     def opAT(y):
-        return cs_a * ((row_s * y) @ A)
+        return cs_a * mvT(A, row_s * y)
 
-    row_1n = row_s * (cs_a @ absA.T)
-    col_1n = cs_a * (row_s @ absA)
+    row_1n = row_s * mv(absA, cs_a)
+    col_1n = cs_a * mvT(absA, row_s)
     tau = torch.where(col_1n > 1e-12, 0.9 / torch.clamp(col_1n, min=1e-12), 0.0)
     tau = torch.where(active, tau, 0.0)
     sigma = torch.where(row_1n > 1e-12, 0.9 / torch.clamp(row_1n, min=1e-12), 0.0)
@@ -190,15 +264,18 @@ def _reference(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult:
         Tx, Ty = T(x, y)
         return weighted_res(Tx - x, Ty - y)
 
-    def conv_of(x, y):
+    def conv_stats(x, y):
+        """(converged, rp_norm, rd_norm, normalized gap) at (x, y)."""
         rp = b_s - opA(x)
         obj = (cm * x).sum(1)
         red = cm - opAT(y)
-        lag = (b_s * y).sum(1) + (act * torch.clamp(red, max=0.0)).sum(1)
+        neg = torch.clamp(red, max=0.0)
+        lag = (b_s * y).sum(1) + (act * neg).sum(1)
         gap = (obj - lag).abs()
-        return (rp.abs().amax(1) < tol * b_scale) & (
-            gap < tol * (b_scale + c_scale + obj.abs())
-        )
+        rp_n = rp.abs().amax(1)
+        conv = (rp_n < tol * b_scale) & (gap < tol * (b_scale + c_scale + obj.abs()))
+        rd_n = (red - neg * act).abs().amax(1)
+        return conv, rp_n, rd_n, gap / (b_scale + c_scale)
 
     if warm is not None:
         v_w, y_w, z_w, f_w, ok_w = warm
@@ -258,13 +335,23 @@ def _reference(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult:
         )
 
     chunk, n_chunks = chunking(iters, chunk)
-    for _ in range(n_chunks):
+    tbuf = torch.zeros((B, n_chunks, TRACE_COLS), dtype=dtype, device=dev) if trace else None
+    n_restart = torch.zeros(B, dtype=torch.int32, device=dev)
+    for ci in range(n_chunks):
         if bool(done.all()):
             break
         live = ~done
+        t_start = t
         for _ in range(chunk):
             x, y, xa, ya, res_a, t, it = step(x, y, xa, ya, res_a, t, it, live)
-        done = done | (live & conv_of(x, y))
+        conv, rp_n, rd_n, gap_n = conv_stats(x, y)
+        done = done | (live & conv)
+        if trace:
+            # A live chunk without a restart advances t by exactly chunk.
+            n_restart = n_restart + (live & (t != t_start + chunk)).to(torch.int32)
+            row = torch.stack([it.to(dtype), rp_n, rd_n, gap_n, n_restart.to(dtype),
+                               torch.ones_like(gap_n)], 1)
+            tbuf[:, ci] = torch.where(live[:, None], row, tbuf[:, ci])
 
     # Final residuals (iteration dtype, scaled units; diagnostics only).
     rp = b_s - opA(x)
@@ -282,8 +369,8 @@ def _reference(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult:
     r64 = (r_raw * act).to(f64)
     l64 = l.to(f64)
     c64 = c.to(f64)
-    bh64 = b.to(f64) - l64 @ A64.T
-    reduced = c64 - y64 @ A64
+    bh64 = b.to(f64) - mv(A64, l64)
+    reduced = c64 - mvT(A64, y64)
     bound = (bh64 * y64).sum(1) + (r64 * torch.clamp(reduced, max=0.0)).sum(1)
     bound = torch.where(torch.isfinite(bound), bound, -inf)
     shift = (c64 * l64).sum(1)
@@ -302,27 +389,39 @@ def _reference(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult:
         z_dual=torch.where(active, torch.clamp(red_orig, min=0.0), 0.0),
         f_dual=torch.where(active, torch.clamp(-red_orig, min=0.0), 0.0),
         iters_run=it,
+        trace_buf=tbuf,
     )
 
 
-def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult:
+def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk, trace) -> IPMResult:
     from ..kernels.build import library
 
     A, b, c, l, u = batch
-    dtype = A.dtype
+    elem = isinstance(A, ElemA)
+    dtype = A.values.dtype if elem else A.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"pdhg kernel takes float32 or float64 A, got {dtype}")
     B, n = c.shape
     m = b.shape[1]
-    if tuple(A.shape) != (m, n):
-        raise ValueError(f"A {tuple(A.shape)} does not match (m, n) = {(m, n)}")
+    if elem:
+        sp = A.sparsity
+        if (sp.m, sp.n) != (m, n) or tuple(A.values.shape) != (B, sp.nnz):
+            raise ValueError(f"per-element A: structure ({sp.m}, {sp.n}) and values "
+                             f"{tuple(A.values.shape)} do not match B={B}, (m, n) = {(m, n)}")
+        dev = A.values.device
+        if sp.index.device != dev:
+            raise ValueError(f"the structure lies on {sp.index.device}, the values on {dev}")
+    else:
+        if tuple(A.shape) != (m, n):
+            raise ValueError(f"A {tuple(A.shape)} does not match (m, n) = {(m, n)}")
+        dev = A.device
     for name, t, shape in (("b", b, (B, m)), ("c", c, (B, n)),
                            ("l", l, (B, n)), ("u", u, (B, n))):
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    dev = A.device
     kw = dict(dtype=dtype, device=dev)
+    chunk, n_chunks = chunking(iters, chunk)
     out = IPMResult(
         v=torch.empty((B, n), **kw),
         bound=torch.empty(B, dtype=torch.float64, device=dev),
@@ -336,12 +435,19 @@ def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult
         z_dual=torch.empty((B, n), **kw),
         f_dual=torch.empty((B, n), **kw),
         iters_run=torch.empty(B, dtype=torch.int32, device=dev),
+        trace_buf=torch.zeros((B, n_chunks, TRACE_COLS), **kw) if trace else None,
     )
     if B == 0:
         return out
-    A = A.contiguous()
-    At = A.t().contiguous()  # column products read rows of A'
     b, c, l, u = (t.contiguous() for t in (b, c, l, u))
+    if elem:
+        vals = A.values.contiguous()
+        a_args = lambda s, e: (kernels.ptr(sp.index), sp.nnz, kernels.ptr(vals[s:e]),  # noqa: E731
+                               sp.nnz)
+    else:
+        A_c = A.contiguous()
+        At = A_c.t().contiguous()  # column products read rows of A'
+        a_args = lambda s, e: (kernels.ptr(A_c), kernels.ptr(At))  # noqa: E731
     if warm is not None:
         if tuple(warm.v.shape) != (B, n) or tuple(warm.y.shape) != (B, m) \
                 or tuple(warm.z.shape) != (B, n) or tuple(warm.f.shape) != (B, n) \
@@ -359,19 +465,23 @@ def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult
     if skip is not None and tuple(skip.shape) != (B,):
         raise ValueError(f"skip: expected shape {(B,)}, got {tuple(skip.shape)}")
     sk = None if skip is None else skip.to(torch.uint8).contiguous()
-    chunk, n_chunks = chunking(iters, chunk)
     lib = library("pdhg")
     f64 = dtype == torch.float64
-    fn = lib.dtk_pdhg_f64 if f64 else lib.dtk_pdhg_f32
+    if elem:
+        fn = lib.dtk_pdhg_elem_f64 if f64 else lib.dtk_pdhg_elem_f32
+    else:
+        fn = lib.dtk_pdhg_f64 if f64 else lib.dtk_pdhg_f32
+    name = "pdhg_trace" if trace else ("pdhg_elem" if elem else "pdhg")
+    shape = f"B={B} m={m} n={n}" + (f" per-element A nnz={sp.nnz}" if elem else "")
     P, O = kernels.ptr, kernels.opt_ptr
     for s in range(0, B, BMAX):
         e = min(B, s + BMAX)
         nb = e - s
-        ws = torch.empty(int(lib.dtk_pdhg_ws_bytes(nb, m, n, int(f64))),
+        ws = torch.empty(int(lib.dtk_pdhg_ws_bytes(nb, m, n, int(f64), int(elem))),
                          dtype=torch.uint8, device=dev)
         sl = lambda t: None if t is None else t[s:e]  # noqa: E731
         err = fn(
-            P(A), P(At), P(b[s:e]), P(c[s:e]), P(l[s:e]), P(u[s:e]),
+            *a_args(s, e), P(b[s:e]), P(c[s:e]), P(l[s:e]), P(u[s:e]),
             O(sl(wv)), O(sl(wy)), O(sl(wok)), O(sl(sk)),
             nb, m, n, chunk, n_chunks, float(tol), float(restart_tol),
             P(ws), ws.numel(),
@@ -379,8 +489,8 @@ def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk) -> IPMResult
             P(out.rp_norm[s:e]), P(out.rd_norm[s:e]), P(out.mu[s:e]),
             P(out.converged[s:e]), P(out.reduced[s:e]), P(out.y_dual[s:e]),
             P(out.z_dual[s:e]), P(out.f_dual[s:e]), P(out.iters_run[s:e]),
-            kernels.stream_handle(dev),
+            O(sl(out.trace_buf)), n_chunks, kernels.stream_handle(dev),
         )
         kernels.check(err, "pdhg")
-        kernels.count_launch("pdhg", f"B={B} m={m} n={n}")
+        kernels.count_launch(name, shape)
     return out

@@ -11,9 +11,7 @@ versions, which is what the CPU tests do.
 Same signatures and result types as the JAX package's functions of these
 names plus ``device`` (the JAX package's ``backend='jax'`` is ``'torch'``
 here); the knobs of parts the port does not have yet (the multi-GPU mesh,
-convergence traces, MoE on the PDHG engine, batch lanes with an A each on
-the PDHG engine, the k-objective plot) raise when set, naming the later
-slice that brings them.
+the k-objective plot) raise when set.
 """
 
 from __future__ import annotations
@@ -107,13 +105,8 @@ def _build_instance(
     return Ks, sets, coeffs, arrays
 
 
-def _refuse_later_options(convergence=None, plot=False) -> None:
+def _refuse_later_options(plot=False) -> None:
     """Options of parts the port does not have yet raise when set."""
-    if convergence is not None:
-        raise NotImplementedError(
-            "convergence (the solver's in-kernel convergence traces, B13) is "
-            "not part of the port yet (ROADMAP.md A9)"
-        )
     if plot:
         raise NotImplementedError(
             "plot (the k-objective plot) is not part of the port yet"
@@ -172,10 +165,17 @@ def halda_solve(
     ``moe=None`` co-assigns routed experts (``y``, one count per device)
     when the profile carries MoE metrics (``moe=False`` forces the dense
     formulation); ``load_factors`` prices each device's experts at a
-    realized load. MoE solves run the IPM engine (``lp_backend='auto'``
-    below 128 devices, or ``'ipm'``) with the Lagrangian decomposition root
-    bounds; a ``warm`` result that carries ``duals`` re-evaluates the bound
-    at them instead of running the ascent.
+    realized load. MoE solves take the Lagrangian decomposition root
+    bounds, on either engine (each node's A is its own on the PDHG: K5's
+    per-element entry); a ``warm`` result that carries ``duals``
+    re-evaluates the bound at them instead of running the ascent.
+
+    ``convergence``: pass a dict (``backend='torch'``) to receive the
+    solver's convergence telemetry: the per-round search log and the root
+    LP relaxations' per-chunk traces (see ``solve_sweep_torch`` and
+    ``distilp_torch.obs.convergence.build_search_trace``); the ``conv_*``
+    digest lands in ``timings``. The solve is the same as without it; an
+    escalated retry re-fills the dict with the final solve's telemetry.
 
     ``margin_state``: a dict threaded across streaming MoE ticks that turns
     on the margin fast path (the previous tick's decomposition bounds reused
@@ -186,7 +186,7 @@ def halda_solve(
     certificate; raises ``Infeasible`` (a ``RuntimeError``) if no k admits
     a feasible one.
     """
-    _refuse_later_options(convergence=convergence, plot=plot)
+    _refuse_later_options(plot=plot)
     import time as _time
 
     t0 = _time.perf_counter()
@@ -211,7 +211,7 @@ def halda_solve(
             node_cap=node_cap, timings=tm, lp_backend=lp_backend,
             pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
             mesh_shards=mesh_shards, pdhg_dtype=pdhg_dtype, device=dev,
-            margin_state=margin_state,
+            margin_state=margin_state, convergence=convergence,
         )
         defaults_used = all(
             v is None
@@ -246,7 +246,7 @@ def halda_solve(
                 arrays, kWs, mip_gap=gap, coeffs=coeffs, debug=debug,
                 warm=best, max_rounds=MAX_ROUNDS, beam=BEAM, node_cap=NODE_CAP,
                 timings=tm, lp_backend=engine, pdhg_restart_tol=pdhg_restart_tol,
-                device=dev, **esc_kw,
+                device=dev, convergence=convergence, **esc_kw,
             )
             if best2 is not None:
                 results, best = results2, best2
@@ -334,9 +334,10 @@ def halda_solve_async(
     a synchronous CPU solve. A sweep with no structurally feasible k raises
     ``Infeasible`` at dispatch. ``timings`` is filled when ``collect()``
     returns. The margin chain (``margin_state``) works pipelined too: the
-    bound reuse is decided at dispatch, the anchor refresh at collect.
+    bound reuse is decided at dispatch, the anchor refresh at collect; and
+    so does ``convergence``: recorded by the search, decoded into the dict
+    by ``collect()``.
     """
-    _refuse_later_options(convergence=convergence)
     dev = resolve_device(device)
     Ks, sets, coeffs, arrays = _build_instance(
         devs, model, k_candidates, kv_bits, moe, load_factors, batch_size
@@ -348,7 +349,7 @@ def halda_solve_async(
         ipm_warm_iters=ipm_warm_iters, node_cap=node_cap, timings=timings,
         lp_backend=lp_backend, pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
         mesh_shards=mesh_shards, pdhg_dtype=pdhg_dtype, device=dev, collect=False,
-        margin_state=margin_state,
+        margin_state=margin_state, convergence=convergence,
     )
     if not isinstance(pending, PendingSweep):
         # The plain (results, None) of a sweep with no k where W >= M.

@@ -11,7 +11,7 @@ form, the same float32 materialization of the device arrays (slack and cycle
 boxes recomputed in float32 from ``smin_k``/``C_ub_k``; in MoE mode the
 objective's y block from the per-k expert-busy table), the same warm
 incumbent re-pricing and root-iterate carry, and the same ``(results, best)``
-contract. MoE sweeps (IPM engine) add the Lagrangian decomposition root
+contract. MoE sweeps add the Lagrangian decomposition root
 bounds (K7), from scratch or, on a warm tick, at the previous solve's
 multipliers (``duals``), which the result carries on. ``per_k_optima``
 (K3's per-k mode) certifies every k on its own, with the per-k decode of
@@ -45,6 +45,7 @@ from .result import ILPResult
 from .rounding import RoundingData, pack_rounding_data
 from .search import (
     BDTYPE,
+    RL_COLS,
     SearchState,
     SweepData,
     best_bound,
@@ -54,6 +55,7 @@ from .search import (
     run_bnb_loop,
     seed_root_bounds,
     seed_warm,
+    sweep_values,
 )
 from .standard_form import (
     DECOMP_STEPS_COLD,
@@ -334,6 +336,7 @@ def solve_sweep_torch(
     per_k_optima: bool = False,
     collect: bool = True,
     margin_state: Optional[dict] = None,
+    convergence: Optional[dict] = None,
 ):
     """Solve the whole k-sweep on ``device`` (None = cuda).
 
@@ -348,9 +351,9 @@ def solve_sweep_torch(
     ``bnb_rounds`` and, in MoE mode, ``decomp_steps`` and ``decomp_ms``;
     the chosen engine is echoed as ``lp_backend`` and the shard count as
     ``mesh_shards``. ``pdhg_iters``/``pdhg_restart_tol``/``pdhg_dtype`` set
-    the PDHG engine's budget, restart factor and iterate precision;
-    ``mesh_shards`` above 1 (the multi-GPU engine) raises, and so does a MoE
-    sweep on the PDHG engine.
+    the PDHG engine's budget, restart factor and iterate precision (a MoE
+    sweep runs it through K5's per-element entry); ``mesh_shards`` above 1
+    (the multi-GPU engine) raises.
 
     ``per_k_optima=True`` prunes every node against its own k's incumbent
     (K3's per-k mode): every feasible k ends with its own certified optimum
@@ -365,11 +368,23 @@ def solve_sweep_torch(
     refreshes the anchor in the dict when the sweep is decoded, and
     ``margin_state['used']`` reports which the tick was.
 
+    ``convergence`` (a dict, emptied first) turns on the solver's
+    convergence telemetry: the search logs every executed round and runs the
+    root round's LP with its convergence trace (B13), and the decode fills
+    the dict with the reference's keys (``lp_backend``, ``mip_gap``, ``ks``,
+    ``incumbent``, ``best_bound``, ``ipm_iters_executed``, ``bnb_rounds``,
+    ``round_log``, ``root_trace``; plain lists, see
+    ``distilp_torch.obs.convergence``) and puts the ``conv_*`` digest into
+    ``timings``. The search itself is the untraced one.
+
     ``collect=False`` returns a :class:`PendingSweep` once the instance is
     built and uploaded: the search runs on a worker thread (on a CUDA stream
-    of its own) and :func:`collect_sweep` redeems it. A structurally
-    infeasible sweep still returns the plain ``(results, None)``.
+    of its own) and :func:`collect_sweep` redeems it (and decodes the
+    convergence dict). A structurally infeasible sweep still returns the
+    plain ``(results, None)``.
     """
+    if convergence is not None:
+        convergence.clear()  # one solve, one report
     if coeffs is None:
         raise ValueError("solve_sweep_torch requires the HaldaCoeffs used for assembly")
     M = arrays.layout.M
@@ -392,7 +407,7 @@ def solve_sweep_torch(
         timings["mesh_shards"] = params["mesh_shards"]
     t1 = time.perf_counter()
     prep = _prepare([lane], params, mip_gap, dev, debug=debug, per_k=per_k_optima,
-                    timings=timings, shared_A=True)
+                    timings=timings, shared_A=True, convergence=convergence)
     prep.stats["build_sf_ms"] = (t1 - t0) * 1e3
     if not collect:
         return PendingSweep(prep)
@@ -402,8 +417,7 @@ def solve_sweep_torch(
 def _search_params(sf: StandardForm, node_cap, beam, ipm_iters, max_rounds, ipm_warm_iters,
                    lp_backend, pdhg_iters, mesh_shards, pdhg_dtype, per_k,
                    pdhg_restart_tol=None) -> dict:
-    """The resolved search parameters of a sweep; raises for MoE on the
-    PDHG engine."""
+    """The resolved search parameters of a sweep."""
     (
         cap, beam, ipm_iters, ipm_warm_iters, max_rounds, engine, mesh_shards,
         pdhg_dtype,
@@ -413,12 +427,6 @@ def _search_params(sf: StandardForm, node_cap, beam, ipm_iters, max_rounds, ipm_
         pdhg_iters=pdhg_iters, M=sf.M, mesh_shards=mesh_shards,
         pdhg_dtype=pdhg_dtype, per_k=per_k,
     )
-    if sf.moe and engine == "pdhg":
-        raise NotImplementedError(
-            "MoE co-assignment on the PDHG engine: its kernel takes one A shared "
-            "by the batch, and each MoE node has its own (ROADMAP.md A15); pass "
-            "lp_backend='ipm'"
-        )
     return dict(cap=cap, beam=beam, ipm_iters=ipm_iters, ipm_warm_iters=ipm_warm_iters,
                 max_rounds=max_rounds, lp_backend=engine, mesh_shards=mesh_shards,
                 pdhg_dtype=pdhg_dtype, pdhg_restart_tol=pdhg_restart_tol)
@@ -440,15 +448,23 @@ class _Prepared(NamedTuple):
     duals: Optional[tuple]  # (lam (L, n_k), mu, tau (L, n_k, M)), float64 numpy
     margin: Optional[torch.Tensor]  # (L, n_k) pre-slackened root bounds
     stats: dict
+    # The caller's convergence dict (one sweep): the search logs its rounds
+    # and the root round's LP trace, decoded into it.
+    convergence: Optional[dict] = None
 
 
 def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=False,
-             per_k=False, timings=None, shared_A=False, A_lanes=None) -> _Prepared:
+             per_k=False, timings=None, shared_A=False, A_lanes=None,
+             convergence: Optional[dict] = None) -> _Prepared:
     """Upload L sweeps (same shapes and search parameters) as lane data and
     the root frontiers. ``shared_A``: every lane has lane 0's A (scenarios
     of one fleet: one (m, nf) matrix); else ``A_lanes`` (L, m, nf) on the
     device, or each lane's own A stacked. Warm hints, stored duals, root
-    iterates and margin bounds are used only when every lane has them."""
+    iterates and margin bounds are used only when every lane has them. A's
+    structure is built here, once per sweep, for K1 and, where the nodes
+    have an A each (MoE, lanes with their own A), for K5's per-element
+    entry with each lane's values on it. ``convergence`` (one lane) turns
+    on the round log and the root round's LP trace."""
     t1 = time.perf_counter()
     L = len(lanes)
     sf0 = lanes[0].sf
@@ -469,6 +485,12 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     rd = RoundingData(**{f: torch.as_tensor(v, dtype=torch.float64, device=dev)
                          for f, v in rd_np.items()})
     engine = params["lp_backend"]
+    per_element = moe or (A.dim() == 3 and A.shape[0] > 1)
+    A_sparsity = A_values = gky_pos = None
+    if engine == "ipm" or per_element:
+        A_sparsity = node_sparsity(A, M, moe)
+    if engine == "pdhg" and per_element:
+        A_values, gky_pos = sweep_values(A, A_sparsity, M, moe)
     data = SweepData(
         A=A,
         b_k=stack("b_k"),
@@ -483,7 +505,9 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         rd=rd,
         rd_packed=pack_rounding_data(rd),
         gky=stack("gky") if moe else None,
-        A_sparsity=node_sparsity(A, M, moe) if engine == "ipm" else None,
+        A_sparsity=A_sparsity,
+        A_values=A_values,
+        gky_pos=gky_pos,
     )
     m = A.shape[-2]
     use_root_warm = all(ln.root_warm_tuple is not None for ln in lanes)
@@ -518,11 +542,13 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         ipm_warm_iters=params["ipm_warm_iters"], root_warm_chunk=use_root_warm,
         lp_backend=engine, pdhg_restart_tol=params["pdhg_restart_tol"],
         pdhg_dtype=params["pdhg_dtype"], per_k=per_k,
+        collect_rounds=convergence is not None,
     )
     stats = {"upload_ms": (time.perf_counter() - t1) * 1e3}
     return _Prepared(lanes=lanes, mip_gap=mip_gap, debug=debug, per_k=per_k,
                      timings=timings, data=data, state=state, loop_kw=loop_kw,
-                     moe_ctx=moe_ctx, warm=warm, duals=duals, margin=margin, stats=stats)
+                     moe_ctx=moe_ctx, warm=warm, duals=duals, margin=margin, stats=stats,
+                     convergence=convergence)
 
 
 def _search(prep: _Prepared) -> dict:
@@ -554,7 +580,7 @@ def _search(prep: _Prepared) -> dict:
     if prep.warm is not None:
         state = seed_warm(state, data, prep.warm, sf.moe, MOE_LOCAL_MOVES_WARM)
 
-    state, root_iters = run_bnb_loop(data, state, prep.mip_gap, **prep.loop_kw)
+    state, root_iters, log = run_bnb_loop(data, state, prep.mip_gap, **prep.loop_kw)
     head_parts = [
         torch.stack([
             state.incumbent, best_bound(state), state.inc_kidx.to(BDTYPE),
@@ -572,13 +598,18 @@ def _search(prep: _Prepared) -> dict:
     anchor = None
     if m_y is not None and any(ln.margin_ctx is not None for ln in prep.lanes):
         anchor = m_y.cpu().numpy()
+    conv = None
+    if log is not None:
+        rows, root_trace = log
+        rl = torch.stack(rows) if rows else torch.zeros((0, L, RL_COLS), dtype=BDTYPE)
+        conv = (rl.cpu().numpy(), root_trace[:, :n_k].cpu().numpy())
     t3 = time.perf_counter()
     stats = {"solve_ms": (t3 - t2) * 1e3}
     if prep.moe_ctx is not None:
         # Host time to enqueue the bound (the ascent reads nothing back).
         stats.update(decomp_steps=prep.moe_ctx[2], decomp_enqueue_ms=(t_decomp - t2) * 1e3)
     return {"head": head, "root": root, "stats": stats, "has_duals": duals_t is not None,
-            "m_y": anchor}
+            "m_y": anchor, "conv": conv}
 
 
 def _decode_sweep(prep: _Prepared, out: dict, q: int):
@@ -627,7 +658,37 @@ def _decode_sweep(prep: _Prepared, out: dict, q: int):
     best = _decode_best(prep, out, q, results, incumbent, bound, per_k_best, pk,
                         (inc_w, inc_n, inc_y), out_duals)
     _refresh_margin(lane, best, out["m_y"], q)
+    if prep.convergence is not None:
+        _decode_convergence(prep, out, q)
     return results, best
+
+
+def _decode_convergence(prep: _Prepared, out: dict, q: int) -> None:
+    """Lane ``q``'s round log and root LP trace into the caller's
+    convergence dict, in the reference's keys and plain-list layout
+    (``_decode_convergence``); the ``conv_*`` digest into ``timings``."""
+    from ..obs.convergence import build_search_trace
+
+    lane = prep.lanes[q]
+    head = out["head"][q]
+    rl, rtr = out["conv"][0][:, q], out["conv"][1][q]
+    conv = prep.convergence
+    conv.update(
+        lp_backend=prep.loop_kw["lp_backend"],
+        mip_gap=float(prep.mip_gap),
+        ks=[k for k, _ in lane.feasible],
+        incumbent=float(head[0]),
+        best_bound=float(head[1]),
+        ipm_iters_executed=float(head[3]),
+        bnb_rounds=float(head[4]),
+        # Executed rounds only, each prefixed with its round index (0 is
+        # the root round).
+        round_log=[[int(i)] + [float(v) for v in rl[i, : RL_COLS - 1]]
+                   for i in range(rl.shape[0]) if rl[i, RL_COLS - 1] > 0.5],
+        root_trace=[[list(map(float, r)) for r in el] for el in rtr],
+    )
+    if prep.timings is not None:
+        prep.timings.update(build_search_trace(conv).digest())
 
 
 def _decode_best(prep, out, q, results, incumbent, bound, per_k_best, pk, inc, out_duals):

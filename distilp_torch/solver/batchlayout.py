@@ -26,9 +26,9 @@ instances bucket by exact M instead.
 A lane's static half is uploaded once and then lives on the device behind
 :func:`lane_static_to_device`'s content-addressed cache; a batch stacks its
 lanes' A matrices from the cached device copies (a device-side copy, not a
-host upload). A lane batch on the PDHG engine (M >= 128) raises: its kernel
-(K5) takes one A for the batch, and the per-element-A mode (B11) is a later
-slice (ROADMAP.md A15).
+host upload). A lane batch on the PDHG engine (M >= 128) runs K5's
+per-element entry on the union of the lanes' sparse patterns, each lane's
+values gathered once per batch.
 
 Ported from ``distilp_tpu/solver/batchlayout.py``; nothing here imports JAX.
 """
@@ -317,11 +317,10 @@ def solve_batch(
     ``lane_pad`` (>= N) pads the batch to a fixed lane count by repeating
     the last instance: duplicate lanes are solved and never decoded. A
     mixed-signature batch, or one with more than one ``mip_gap``, raises
-    ValueError; a batch of several lanes on the PDHG engine raises
-    NotImplementedError (B11, ROADMAP.md A15). ``timings`` gets
-    ``batch_size``, ``lanes``, ``pack_ms``, ``solve_ms``, ``static_hit``
-    (the share of lanes whose static half was already on the device) and
-    ``decode_ms``."""
+    ValueError. Lanes on the PDHG engine run K5's per-element entry.
+    ``timings`` gets ``batch_size``, ``lanes``, ``pack_ms``, ``solve_ms``,
+    ``static_hit`` (the share of lanes whose static half was already on the
+    device) and ``decode_ms``."""
     if not instances:
         return []
     sig0 = instances[0].signature
@@ -339,12 +338,6 @@ def solve_batch(
         raise ValueError(f"lane_pad {lane_pad} < batch size {n_real}")
     n_lanes = lane_pad if lane_pad is not None else n_real
     st = instances[0].statics
-    if st["lp_backend"] == "pdhg" and n_lanes > 1:
-        raise NotImplementedError(
-            "a lane batch on the PDHG engine (M >= 128) needs K5 with a "
-            "per-element A (B11), a later slice of the port (ROADMAP.md A15); "
-            "solve the lanes apart or pass lp_backend='ipm'"
-        )
     dev = kernels.resolve_device(device, "solve_batch")
     t0 = time.perf_counter()
     lanes = list(instances) + [instances[-1]] * (n_lanes - n_real)

@@ -25,9 +25,18 @@ A lane that has settled is frozen, as under the reference's vmapped
 ``while_loop``: its rows go to the LP as ``skip`` and its state is carried
 through unchanged. One sweep is the L = 1 case of the same code.
 
+Nodes with an A of their own (MoE nodes, whose k's expert-busy entries sit
+in A; lanes with an A each) go to K1 as dense per-node matrices
+(:func:`node_A`) and to the PDHG's per-element entry (B11) as values on the
+sweep's sparse structure (:func:`node_values`: each lane's values gathered
+once per sweep, a MoE row's 2M entries written at their places).
+``run_bnb_loop(collect_rounds=True)`` logs one row per executed round and
+the root round's LP convergence trace (B13), read only at decode.
+
 Ported from ``distilp_tpu/solver/backend_jax.py`` (``SearchState``,
 ``SweepData``, ``_root_state``, the IPM and single-device PDHG branches of
-``_bnb_round`` with its MoE A scatter and its per-k mode,
+``_bnb_round`` with its MoE A scatter and its per-k mode, ``RL_COLS``,
+``_round_row``, ``_root_trace_rows``,
 ``_seed_root_bounds``, ``_cast_lp_result``, ``_best_bound``, ``_certified``,
 ``_per_k_bound``, ``_certified_per_k``, ``_run_bnb_loop``, and their vmap
 in ``_solve_scenarios_packed``/``_solve_batched``).
@@ -49,8 +58,18 @@ import torch
 
 from .. import kernels
 from ..ops.decomp import decomp_bound_roots
-from ..ops.ipm import IPMResult, IPMSparsity, IPMWarmState, LPBatch, ipm_solve_batch, ipm_sparsity
-from ..ops.pdhg import pdhg_solve_batch
+from ..ops.ipm import (
+    IPM_DEFAULT_CHUNK,
+    TRACE_COLS,
+    IPMResult,
+    IPMSparsity,
+    IPMWarmState,
+    LPBatch,
+    ipm_solve_batch,
+    ipm_sparsity,
+    n_trace_rows,
+)
+from ..ops.pdhg import PDHG_DEFAULT_CHUNK, ElemA, pdhg_solve_batch
 from .rounding import RoundingData, round_to_incumbent
 from .standard_form import FRAC_TOL, IPM_ITERS, MAX_ROUNDS
 
@@ -110,10 +129,17 @@ class SweepData(NamedTuple):
     # scattered onto each node's copy of the base at rows 4M..6M, columns
     # 2M..3M. None in dense mode (A is k-free).
     gky: Optional[torch.Tensor] = None  # (n_k, 2, M) float32
-    # K1's structure of every node's A (node_pattern; for lanes with an A
-    # each, the union over the lanes), built once per sweep on the IPM
-    # engine; None builds it per call.
+    # The structure of every node's A (node_sparsity; for lanes with an A
+    # each, the union over the lanes), built once per sweep for K1 and for
+    # K5's per-element entry; None builds it per call (K1) or means the PDHG
+    # takes the shared A.
     A_sparsity: Optional[IPMSparsity] = None
+    # K5's per-element A (MoE nodes, lanes with an A each): each lane's
+    # base values on A_sparsity (L, nnz), gathered once per sweep, and the
+    # places in that vector of the 2M expert-busy entries a MoE node writes
+    # its k's values to (2, M; rows 4M+i and 5M+i of column 2M+i).
+    A_values: Optional[torch.Tensor] = None
+    gky_pos: Optional[torch.Tensor] = None
 
 
 class EpilogueOut(NamedTuple):
@@ -576,6 +602,8 @@ def cast_lp_result(res: IPMResult, tgt: torch.dtype) -> IPMResult:
                   "f_dual", "iters_run")
     }
     cast["reduced"] = res.reduced.to(tgt).to(BDTYPE)
+    if res.trace_buf is not None:
+        cast["trace_buf"] = res.trace_buf.to(tgt)
     return res._replace(**cast)
 
 
@@ -601,10 +629,44 @@ def node_A(data: SweepData, kidx: torch.Tensor, M: int, lane: torch.Tensor) -> t
     return A_p
 
 
+def node_values(data: SweepData, kidx: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """K5's per-element A of (B,) rows of k ``kidx`` in lane ``lane``: each
+    row's lane's base values on ``data.A_sparsity`` with, in MoE mode, its
+    k's 2M expert-busy entries written at their places (the values form of
+    :func:`node_A`), (B, nnz). Scenario lanes share one A: one value
+    set."""
+    vals = data.A_values[lane if data.A_values.shape[0] > 1 else torch.zeros_like(lane)]
+    if data.gky is not None:
+        g_p = data.gky[lane, kidx]  # (B, 2, M)
+        rows = torch.arange(vals.shape[0], device=vals.device)[:, None]
+        vals[rows, data.gky_pos[0]] = g_p[:, 0, :]
+        vals[rows, data.gky_pos[1]] = g_p[:, 1, :]
+    return vals
+
+
+def sweep_values(A: torch.Tensor, sparsity: IPMSparsity, M: int, moe: bool):
+    """(A_values, gky_pos) of :class:`SweepData` for K5's per-element
+    entry: each lane's A (L, m, nf), or the one (m, nf) A, gathered on
+    ``sparsity`` once; in MoE mode the places of the expert-busy entries
+    (which ``sparsity`` holds, see :func:`node_sparsity`)."""
+    m, n = sparsity.m, sparsity.n
+    A3 = A if A.dim() == 3 else A[None]
+    values = A3.reshape(A3.shape[0], m * n)[:, sparsity.src]
+    gky_pos = None
+    if moe:
+        place = torch.full((m * n,), -1, dtype=torch.int64, device=A.device)
+        place[sparsity.src] = torch.arange(sparsity.nnz, device=A.device)
+        ar = torch.arange(M, device=A.device)
+        gky_pos = torch.stack([place[(4 * M + ar) * n + 2 * M + ar],
+                               place[(5 * M + ar) * n + 2 * M + ar]])
+    return values, gky_pos
+
+
 def node_sparsity(A: torch.Tensor, M: int, moe: bool) -> IPMSparsity:
-    """K1's structure of every node's A: the base's nonzeros (the union over
-    the lanes for a (L, m, nf) stack), and in MoE mode the 2M expert-busy
-    entries ``node_A`` scatters in."""
+    """The structure of every node's A (K1's, and K5's per-element
+    entry's): the base's nonzeros (the union over the lanes for a (L, m, nf)
+    stack), and in MoE mode the 2M expert-busy entries ``node_A`` scatters
+    in."""
     pattern = A != 0
     if pattern.dim() == 3:
         pattern = pattern.any(0)
@@ -749,6 +811,7 @@ def bnb_round(
     pdhg_dtype: Optional[str] = None,
     per_k: bool = False,
     frozen: Optional[torch.Tensor] = None,
+    lp_trace: bool = False,
 ) -> Tuple[SearchState, IPMResult]:
     """One batched branch-and-bound round over the frontier prefix of
     ``beam`` rows of every lane (rows past it pass through with their parent
@@ -759,8 +822,9 @@ def bnb_round(
     k's incumbent and keeps the per-k assignments, a k-fair compaction and
     the per-k overflow floors (K3's per-k entries). ``frozen`` (L,) bool
     marks settled lanes: their rows go to the LP as skipped and their state
-    comes back unchanged. Returns the new state and the beam rows' raw LP
-    result (L * beam rows, lane-major)."""
+    comes back unchanged. ``lp_trace`` records the LP engine's convergence
+    trace (the result's ``trace_buf``). Returns the new state and the beam
+    rows' raw LP result (L * beam rows, lane-major)."""
     L, cap = state.node_lo.shape[:2]
     M = state.inc_w.shape[-1]
     n_k = state.per_k_best.shape[-1]
@@ -791,25 +855,25 @@ def bnb_round(
     )
     moe = data.gky is not None
     lo_r, hi_r = flat(state.node_lo[:, :B]), flat(state.node_hi[:, :B])
-    lp_batch = LPBatch(A=node_A(data, kidx_r, M, row_lane), b=data.b_k[row_lane, kidx_r],
-                       c=data.c_k[row_lane, kidx_r], l=lo_r, u=hi_r)
+    b_r, c_r = data.b_k[row_lane, kidx_r], data.c_k[row_lane, kidx_r]
     skip = ~flat(active_p)
     if lp_backend == "pdhg":
-        if lp_batch.A.dim() != 2:
-            raise NotImplementedError(
-                "lanes with an A each on the PDHG engine need its per-element-A "
-                "mode (B11, ROADMAP.md A15); solve them apart or with lp_backend='ipm'"
-            )
+        # MoE nodes and lanes with an A each: K5's per-element entry on the
+        # sweep's structure; else the one shared A.
+        A_r = (data.A if data.A.dim() == 2 else data.A[0]) if data.A_values is None \
+            else ElemA(node_values(data, kidx_r, row_lane), data.A_sparsity)
         res = pdhg_solve_batch(
-            lp_batch, iters=ipm_iters, restart_tol=pdhg_restart_tol, warm=warm,
-            skip=skip, dtype=pdhg_dtype,
+            LPBatch(A=A_r, b=b_r, c=c_r, l=lo_r, u=hi_r), iters=ipm_iters,
+            restart_tol=pdhg_restart_tol, warm=warm, skip=skip, dtype=pdhg_dtype,
+            trace=lp_trace,
         )
         res = cast_lp_result(res, DTYPE)
     else:
         chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
         res = ipm_solve_batch(
-            lp_batch, iters=ipm_iters, warm=warm, skip=skip, **chunk_kw,
-            sparsity=data.A_sparsity,
+            LPBatch(A=node_A(data, kidx_r, M, row_lane), b=b_r, c=c_r, l=lo_r, u=hi_r),
+            iters=ipm_iters, warm=warm, skip=skip, **chunk_kw,
+            sparsity=data.A_sparsity, trace=lp_trace,
         )
 
     # Exact integer incumbents from every processed row's LP point, each row
@@ -931,6 +995,40 @@ def bnb_round(
     return out, res
 
 
+# One round-log row per executed round (``run_bnb_loop(collect_rounds=True)``,
+# the reference's ``RL_COLS``/``_round_row``):
+#   [expanded, live_after, incumbent, best_bound, lp_iters, executed]
+RL_COLS = 6
+
+
+def round_row(before: SearchState, after: SearchState, nbeam: int,
+              executed: torch.Tensor) -> torch.Tensor:
+    """(L, RL_COLS) float64 round-log rows from the states that bracket a
+    round: the beam's active rows before it, the live nodes, the incumbent
+    and the proven bound after it, the LP steps it spent, and whether the
+    lane ran it (``executed``, (L,) bool). Bookkeeping only: the round is
+    untouched."""
+    return torch.stack([
+        before.active[:, :nbeam].sum(-1).to(BDTYPE),
+        after.active.sum(-1).to(BDTYPE),
+        after.incumbent,
+        best_bound(after),
+        after.stat_ipm_iters - before.stat_ipm_iters,
+        executed.to(BDTYPE),
+    ], dim=1)
+
+
+def root_trace_rows(lp_backend: str, lp_iters: int, root_warm_chunk: bool) -> int:
+    """Trace rows of the root round's LP solve, from the chunk that round
+    hands its engine: the PDHG its own chunk, a cold IPM root one chunk of
+    the whole budget, a warm one the IPM's chunk."""
+    if lp_backend == "pdhg":
+        chunk = PDHG_DEFAULT_CHUNK
+    else:
+        chunk = IPM_DEFAULT_CHUNK if root_warm_chunk else lp_iters
+    return n_trace_rows(lp_iters, chunk)
+
+
 def run_bnb_loop(
     data: SweepData,
     state: SearchState,
@@ -944,6 +1042,7 @@ def run_bnb_loop(
     pdhg_restart_tol: Optional[float] = None,
     pdhg_dtype: Optional[str] = None,
     per_k: bool = False,
+    collect_rounds: bool = False,
 ):
     """Root round, then warm rounds until, in every lane, the mip-gap
     certificate closes (in per-k mode: every k's own certificate,
@@ -957,9 +1056,14 @@ def run_bnb_loop(
     Each round first reads the lanes' go flags (a frontier left and no
     certificate yet) from the device, the round's one read; a lane that
     stopped stays frozen to the end, its state exactly where it settled.
-    Returns ``(state, root_iters)`` where root_iters = (ok, v, y, z, f) are
-    each lane's root-round iterates (the carried-in ones for a lane that
-    skipped the root round).
+    Returns ``(state, root_iters, log)`` where root_iters = (ok, v, y, z, f)
+    are each lane's root-round iterates (the carried-in ones for a lane that
+    skipped the root round). ``log`` is None unless ``collect_rounds``: then
+    ``(rows, root_trace)``, one :func:`round_row` device tensor per executed
+    round (root first) and the root round's LP convergence trace (L, n_k
+    roots, :func:`root_trace_rows`, TRACE_COLS) in float32 (zeros for a lane
+    that skipped it); the root round then runs its LP with the trace on.
+    Nothing of it is read from the device during the loop.
     """
     warm_iters = ipm_iters if ipm_warm_iters is None else ipm_warm_iters
     L, cap = state.node_kidx.shape
@@ -981,13 +1085,21 @@ def run_bnb_loop(
         state.node_warm[:, :B0], state.node_v[:, :B0], state.node_y[:, :B0],
         state.node_z[:, :B0], state.node_f[:, :B0],
     )
+    rows: list = []
+    root_trace = None
+    if collect_rounds:
+        root_trace = torch.zeros(
+            (L, B0, root_trace_rows(lp_backend, ipm_iters, root_warm_chunk), TRACE_COLS),
+            dtype=DTYPE, device=state.node_lo.device)
     if max_rounds >= 1:
         mask, any_go, frozen = go(state)
         if any_go:
             ok = state.active[:, :B0]
+            before = state
             state, res = bnb_round(
                 data, state, mip_gap, ipm_iters=ipm_iters, beam=B0,
-                ipm_chunk=None if root_warm_chunk else ipm_iters, frozen=frozen, **engine,
+                ipm_chunk=None if root_warm_chunk else ipm_iters, frozen=frozen,
+                lp_trace=collect_rounds, **engine,
             )
             ran = (ok, *(t.reshape(L, B0, -1).to(DTYPE)
                          for t in (res.v, res.y_dual, res.z_dual, res.f_dual)))
@@ -996,12 +1108,20 @@ def run_bnb_loop(
                 torch.where(m1 if a.dim() == 2 else m1[..., None], a, b)
                 for a, b in zip(ran, root_iters)
             )
+            if collect_rounds:
+                rows.append(round_row(before, state, B0, mask))
+                tb = res.trace_buf.reshape(root_trace.shape).to(DTYPE)
+                root_trace = torch.where(mask[:, None, None, None], tb, root_trace)
     i = 1
+    Bw = cap if beam is None else min(beam, cap)
     while i < max_rounds:
-        _, any_go, frozen = go(state)
+        mask, any_go, frozen = go(state)
         if not any_go:
             break
+        before = state
         state, _ = bnb_round(data, state, mip_gap, ipm_iters=warm_iters, beam=beam,
                              frozen=frozen, **engine)
+        if collect_rounds:
+            rows.append(round_row(before, state, Bw, mask))
         i += 1
-    return state, root_iters
+    return state, root_iters, ((rows, root_trace) if collect_rounds else None)

@@ -124,11 +124,6 @@ class StreamingReplanner:
     ) -> None:
         if backend not in ("torch", "cpu"):
             raise ValueError(f"Unknown backend {backend!r}; expected 'torch' or 'cpu'")
-        if diagnostics:
-            raise NotImplementedError(
-                "diagnostics=True (the solver's convergence traces, B13) is not part "
-                "of the port yet (ROADMAP.md A9)"
-            )
         self.mip_gap = mip_gap
         self.kv_bits = kv_bits
         self.backend = backend
@@ -144,6 +139,10 @@ class StreamingReplanner:
                 f"unknown search override(s) {sorted(bad)}; "
                 f"valid keys: {list(self._SEARCH_KEYS)}"
             )
+        # Solver-interior telemetry: every tick (sync or pipelined) solves
+        # with a convergence dict, the raw report lands on last_convergence
+        # (obs.convergence decodes it) and the conv_* digest rides the tick's
+        # timings. The solves are the untraced ones.
         self.diagnostics = diagnostics
         self.last_convergence: dict = {}
         self.last: Optional[HALDAResult] = None
@@ -208,14 +207,16 @@ class StreamingReplanner:
         the solve (``self.last_mapping``).
         """
         shape, warm, loads, factors = self._tick_inputs(devs, model)
+        conv = {} if (self.diagnostics and self.backend == "torch") else None
         result = halda_solve(
             devs, model, k_candidates=k_candidates, backend=self.backend, warm=warm,
             load_factors=factors, timings=timings,
             margin_state=None if self.cold_start else self._margin_state,
-            **self._solve_kw(),
+            convergence=conv, **self._solve_kw(),
         )
         result = self._certify_or_fallback(result, devs, model, k_candidates, factors, warm,
-                                           timings)
+                                           timings, conv)
+        self.last_convergence = conv if conv is not None else {}
         self._map_loads(result, devs, model, loads)
         self.last = result
         self._last_shape = shape
@@ -223,14 +224,14 @@ class StreamingReplanner:
         return result
 
     def _certify_or_fallback(self, result, devs, model, k_candidates, factors, warm,
-                             timings) -> HALDAResult:
+                             timings, convergence=None) -> HALDAResult:
         """The certification ladder shared by ``step()`` and ``collect()``.
 
         Rung 1: a margin tick that missed its certificate drops the anchor
         and retries with one full bound evaluation, still warm (it also
         refreshes the anchor). Rung 2: a warm tick whose stored duals went
         stale re-solves cold (full ascent, fresh duals); MoE only, gated on
-        those duals."""
+        those duals. A re-solve refills ``convergence``."""
         margin_used = self._margin_state.pop("used", False)
         escalations = 0
         if not result.certified and margin_used and warm is not None:
@@ -239,7 +240,7 @@ class StreamingReplanner:
             result = halda_solve(
                 devs, model, k_candidates=k_candidates, backend=self.backend, warm=warm,
                 load_factors=factors, timings=timings, margin_state=self._margin_state,
-                **self._solve_kw(),
+                convergence=convergence, **self._solve_kw(),
             )
             self._margin_state.pop("used", None)
         if warm is not None and warm.duals is not None and not result.certified:
@@ -247,7 +248,7 @@ class StreamingReplanner:
             result = halda_solve(
                 devs, model, k_candidates=k_candidates, backend=self.backend,
                 load_factors=factors, timings=timings, margin_state=self._margin_state,
-                **self._solve_kw(),
+                convergence=convergence, **self._solve_kw(),
             )
             self._margin_state.pop("used", None)
         self.last_tick_mode = (
@@ -273,17 +274,18 @@ class StreamingReplanner:
         if self.backend != "torch":
             raise RuntimeError("pipelined ticks need backend='torch'")
         shape, warm, loads, factors = self._tick_inputs(devs, model)
+        conv = {} if self.diagnostics else None
         pending = halda_solve_async(
             devs, model, k_candidates=k_candidates, warm=warm, load_factors=factors,
             margin_state=None if self.cold_start else self._margin_state,
-            **self._solve_kw(),
+            convergence=conv, **self._solve_kw(),
         )
         # Shallow snapshots of the fleet and the model: callers mutate scalar
         # fields in place and replace containers between ticks, and the
         # fallback re-solve and the expert map must price THIS tick.
         self._in_flight.append(
             (pending, shape, [d.model_copy() for d in devs], model.model_copy(), loads,
-             k_candidates, factors, warm)
+             k_candidates, factors, warm, conv)
         )
         return pending
 
@@ -291,13 +293,16 @@ class StreamingReplanner:
         """Pipelined tick, blocking half: redeem the oldest in-flight solve."""
         if not self._in_flight:
             raise RuntimeError("no in-flight tick; call submit() first")
-        pending, shape, devs, model, loads, k_candidates, factors, warm = \
+        pending, shape, devs, model, loads, k_candidates, factors, warm, conv = \
             self._in_flight.pop(0)
         result = pending.collect()
         # Pipelined misses escalate synchronously: the pipeline hiccups,
-        # correctness does not.
+        # correctness does not. The convergence dict was decoded by the
+        # collect and is refilled by an escalation, so last_convergence
+        # describes the tick just redeemed.
         result = self._certify_or_fallback(result, devs, model, k_candidates, factors, warm,
-                                           None)
+                                           None, conv)
+        self.last_convergence = conv if conv is not None else {}
         self._map_loads(result, devs, model, loads)
         self.last = result
         self._last_shape = shape

@@ -78,5 +78,10 @@ def test_options_of_later_slices_raise(profiles_dir):
     ms = {}
     assert halda_solve_async(devs, model, margin_state=ms, device="cpu").collect().certified
     assert ms == {}
-    with pytest.raises(NotImplementedError, match="convergence.*A9"):
-        halda_solve_async(devs, model, convergence={}, device="cpu")
+    # Convergence telemetry is ported: the dict is decoded at collect().
+    conv, tm = {}, {}
+    pending = halda_solve_async(devs, model, convergence=conv, timings=tm, device="cpu")
+    assert conv == {}
+    assert pending.collect().certified
+    assert conv["round_log"] and conv["root_trace"] and conv["lp_backend"] == "ipm"
+    assert tm["conv_rounds"] == len(conv["round_log"])

@@ -243,7 +243,8 @@ def test_two_lane_round_matches_jax_per_lane(profiles_dir, monkeypatch, per_k):
         lanes = [from_jax_arrays(js) for js in jstates]
         B = B or int(jstates[0].per_k_best.shape[0])
         fixed = [_fixed_lp(data, st, q, B, iters, chunk) for q, st in enumerate(lanes)]
-        both = IPMResult(*[torch.cat([getattr(r, f) for r in fixed]) for f in IPMResult._fields])
+        both = IPMResult(**{f: torch.cat([getattr(r, f) for r in fixed])
+                            for f in IPMResult._fields if f != "trace_buf"})
         monkeypatch.setattr(S, "ipm_solve_batch", lambda *a, **k: both)
         state = S.SearchState(*[torch.stack(t) for t in zip(*lanes)])
         frozen = torch.tensor([False, rnd == 1])
@@ -254,7 +255,7 @@ def test_two_lane_round_matches_jax_per_lane(profiles_dir, monkeypatch, per_k):
                 _assert_lane_matches(unlane_state(nxt, q), js)
                 continue
             jres = JResult(**{f: jnp.asarray(getattr(fixed[q], f).numpy())
-                              for f in IPMResult._fields})
+                              for f in IPMResult._fields if f != "trace_buf"})
             monkeypatch.setattr(BJ, "ipm_solve_batch", lambda *a, **k: jres)
             jstates[q] = BJ._bnb_round(jd, js, gap, ipm_iters=iters, beam=B, ipm_chunk=chunk,
                                        per_k=per_k)

@@ -5,8 +5,8 @@ Mirrors the JAX package's ``tests/test_combine.py``: the golden fixtures
 padded to their bucket boundary (at the reference's k, w, n and the golden
 objective), a mixed-M bucket with per-lane certificates, ``lane_pad``
 duplicates, the per-lane static cache and the warm round trip through a
-batched tick; plus the refusals (mixed signatures, lanes on the PDHG
-engine).
+batched tick; plus the refusal of mixed signatures and lanes on the PDHG
+engine (K5's per-element entry).
 """
 
 import warnings
@@ -134,10 +134,21 @@ def test_mixed_signatures_and_pdhg_lanes_are_refused(profiles_dir):
     b, _ = _pack(make_synthetic_fleet(4, seed=2), model, GAP, M_pad=8, k_candidates=[8, 10])
     with pytest.raises(ValueError, match="signature"):
         solve_batch([a, b], device="cpu")
-    lanes = [_pack(make_synthetic_fleet(4, seed=s), model, GAP, lp_backend="pdhg")[0]
-             for s in (1, 2)]
-    with pytest.raises(NotImplementedError, match="B11"):
-        solve_batch(lanes, device="cpu")
+    # Lanes with an A each on the PDHG engine run K5's per-element entry:
+    # each lane ends where its own single-lane batch ends (the frozen-lane
+    # rule). A single lane takes the shared-A route, so the LP bounds, and
+    # with them the gap, differ in summation order only (float64 iterates:
+    # no float32 restart decision can flip between the two routes).
+    lanes = [_pack(make_synthetic_fleet(4, seed=s), model, GAP, lp_backend="pdhg",
+                   pdhg_dtype="f64", k_candidates=[8, 10])[0] for s in (1, 2)]
+    tm = {}
+    out = _quiet(solve_batch, lanes, timings=tm, device="cpu")
+    assert tm["lp_backend"] == "pdhg"
+    for inst, (_, best) in zip(lanes, out):
+        (_, own), = _quiet(solve_batch, [inst], device="cpu")
+        assert (best.k, best.w, best.n, best.obj_value, best.certified) == \
+            (own.k, own.w, own.n, own.obj_value, own.certified)
+        assert abs(best.gap - own.gap) <= 1e-9
 
 
 def test_warm_roundtrip_through_a_batched_tick(profiles_dir):

@@ -169,7 +169,7 @@ def test_expert_loads_matches_the_jax_cli(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("sub, item", [
-    ("serve", "A12"), ("overload", "A12"), ("autoscale", "A12"), ("diagnose", "A9"),
+    ("serve", "A12"), ("overload", "A12"), ("autoscale", "A12"),
     ("spans", "A14"), ("slo", "A14"), ("compiles", "A14"), ("memory", "A14"),
 ])
 def test_deferred_subcommands_exit_2(capsys, sub, item):

@@ -261,4 +261,5 @@ def test_a_pattern_that_holds_every_nonzero_is_accepted(per_node):
         check_sparsity(batch.A, sp)
         got = ipm_solve_batch(batch, iters=3, sparsity=sp)
         want = ipm_solve_batch(batch, iters=3)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert got.trace_buf is None and want.trace_buf is None
+        assert all(torch.equal(a, b) for a, b in zip(got[:-1], want[:-1]))

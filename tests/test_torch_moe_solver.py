@@ -371,8 +371,12 @@ def test_moe_api_rules(mixtral):
         _solve(devs, model, load_factors=[1.0])
     with pytest.raises(ValueError, match="batch_size"):
         _solve(devs, model, batch_size=2)
-    with pytest.raises(NotImplementedError, match="A15"):
-        _solve(devs, model, lp_backend="pdhg")
+    # MoE on the PDHG engine (K5's per-element entry) meets the JAX
+    # package's pin (halda_solve(..., lp_backend="pdhg", backend="jax")).
+    tm = {}
+    r = _solve(devs, model, lp_backend="pdhg", timings=tm)
+    assert tm["lp_backend"] == "pdhg" and r.certified and r.k == 4
+    _agree(-132.93320566181376, r)
     # The margin chain is ported: a full evaluation stores its anchor.
     ms = {}
     assert _solve(devs, model, margin_state=ms).certified

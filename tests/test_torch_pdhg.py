@@ -226,12 +226,12 @@ def test_route_follows_the_tensors_device():
     batch = _port(arrs)
     a = pdhg_solve_batch(batch, iters=64)
     b = pdhg_solve_batch_reference(batch, iters=64)
-    for f in a._fields:
+    for f in a._fields[:-1]:  # trace_buf: None on both
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     with pytest.raises(ValueError, match="mixed"):
         pdhg_solve_batch(batch._replace(A=batch.A.to("meta")), iters=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        pdhg_solve_batch(batch, iters=2, trace=True)
+    t = pdhg_solve_batch(batch, iters=64, trace=True)
+    assert a.trace_buf is None and t.trace_buf.shape == (2, 2, 6)
 
 
 # ------------------------------------------------------- against the JAX engine

@@ -97,7 +97,7 @@ def _fixed_result(pdata, pstate, B, iters, chunk):
         warm=IPMWarmState(pstate.node_v[:B], pstate.node_y[:B], pstate.node_z[:B],
                           pstate.node_f[:B], pstate.node_warm[:B]),
     )
-    return {f: getattr(res, f).numpy() for f in IPMResult._fields}
+    return {f: getattr(res, f).numpy() for f in IPMResult._fields if f != "trace_buf"}
 
 
 def _assert_states_match(got, ref):

@@ -13,6 +13,8 @@
   worker thread) run without JAX in the process, and their entry points
   raise without a GPU unless the caller asks for the CPU.
 - So do the streaming replanner, the scenario sweep and the batch layout.
+- The convergence report layer (``distilp_torch/obs``) is the port's own
+  copy and is checked like every other module.
 """
 
 import ast
@@ -72,6 +74,17 @@ def test_the_profiler_copy_is_checked_and_stays_offline(tmp_path):
     assert cfg.raw["model_type"] == "mixtral"
 
 
+def test_the_convergence_copy_is_checked():
+    """The port's own copy of the convergence report layer is one of the
+    checked modules, and it loads with neither torch nor numpy imported by
+    it (plain lists in, pydantic reports out)."""
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in ("__init__", "convergence"):
+        assert f"distilp_torch/obs/{name}.py" in files
+    roots = {mod for _, mod in _imported_roots(REPO / "distilp_torch" / "obs" / "convergence.py")}
+    assert not roots & {"torch", "numpy", *FORBIDDEN}
+
+
 def test_every_port_module_imports_without_a_gpu():
     import distilp_torch
 
@@ -79,7 +92,8 @@ def test_every_port_module_imports_without_a_gpu():
     assert "distilp_torch.solver.backend_torch" in names
     assert "distilp_torch.profiler.analytic" in names
     for name in ("distilp_torch.twin.engine", "distilp_torch.profiler.device",
-                 "distilp_torch.cli.solver_cli", "distilp_torch.cli.profiler_cli"):
+                 "distilp_torch.cli.solver_cli", "distilp_torch.cli.profiler_cli",
+                 "distilp_torch.obs.convergence"):
         assert name in names
     for name in names:
         importlib.import_module(name)
@@ -97,7 +111,7 @@ def test_kernel_sources_and_launch_counters():
         "ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
         "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
         "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes", "bnb_per_k_lanes",
-        "decomp_lanes",
+        "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()

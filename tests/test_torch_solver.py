@@ -195,8 +195,11 @@ def test_unported_options_raise(profiles_dir):
     with pytest.raises(NotImplementedError):
         halda_solve(devs, model, kv_bits="4bit", device="cpu", lp_backend="pdhg",
                     mesh_shards=2)
-    with pytest.raises(NotImplementedError):
-        halda_solve(devs, model, kv_bits="4bit", device="cpu", convergence={})
+    # Convergence telemetry is ported: the JAX package's keys.
+    conv = {}
+    assert halda_solve(devs, model, kv_bits="4bit", device="cpu", convergence=conv).certified
+    assert set(conv) == {"lp_backend", "mip_gap", "ks", "incumbent", "best_bound",
+                         "ipm_iters_executed", "bnb_rounds", "round_log", "root_trace"}
 
 
 def _perturb_fleet(devs, rng):

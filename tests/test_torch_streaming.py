@@ -109,8 +109,9 @@ def test_search_overrides_apply_to_every_tick(fleet_and_model, monkeypatch):
     assert all(c == {"beam": 6, "ipm_iters": 8, "device": "cpu"} for c in captured)
     with pytest.raises(ValueError, match="unknown search override"):
         StreamingReplanner(search={"beams": 8})
-    with pytest.raises(NotImplementedError, match="A9"):
-        StreamingReplanner(diagnostics=True)
+    planner = _planner(diagnostics=True)
+    planner.step(devs, model)
+    assert planner.last_convergence["round_log"]
 
 
 def _small():
