@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the eight kernel libraries from ``distilp_torch/kernels/csrc``,
+  2. build the ten kernel libraries from ``distilp_torch/kernels/csrc``,
      one nvcc each, all started together (timed);
   3. each kernel against its plain PyTorch version on the card, at the shapes
      of the 16-device north-star instance (the IPM also at M=32, at M=128
@@ -45,10 +45,16 @@ Phases (any failure exits non-zero and prints no result line):
      its plain version and, bit for bit, against one single-instance launch
      per instance; the convergence traces (B13) of K1 on each route and of
      K5 on both entries: traced results bit for bit equal to untraced ones,
-     the trace against the plain version's (float64);
+     the trace against the plain version's (float64); the mesh's collectives
+     (psum and pmax over 4 shards of a virtual mesh of this card, bit for bit
+     against their plain versions on every shard, a NaN part included) and
+     the row-sharded PDHG (K6b) on the 128-device fleet's root LPs at 2 and 4
+     shards in float64 and float32, against the unsharded K5 at equal step
+     counts and its own plain version, every shard's copy of the result bit
+     for bit equal;
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
-  4. the main path, in eight runs, each with the launch counts zeroed before
+  4. the main path, in nine runs, each with the launch counts zeroed before
      it and read after it: (a) the dense slice, ``halda_solve`` on the four
      golden fixtures (pinned k and objective), the north star (pinned
      objective) and a 32-device fleet (against the port's HiGHS oracle);
@@ -99,7 +105,14 @@ Phases (any failure exits non-zero and prints no result line):
      ``halda_solve(convergence=...)`` on the north star (IPM) and the
      128-device fleet (PDHG) equal to the untraced solves (digest and walls
      printed), a diagnostics replanner over three drifting ticks, and
-     ``solver diagnose`` with its JSONL export and ``--load``;
+     ``solver diagnose`` with its JSONL export and ``--load``; (i) the
+     multi-device engine on a virtual mesh of this card: the 128-device fleet
+     with ``mesh_shards=4`` (pinned; ``mesh_shards=1`` bit-identical to the
+     default), the 512-device fleet and the online golden at 4 shards, the
+     north star and Mixtral M=8 through the node-sharded sweep (K10) on 8
+     shards (pinned; the north star's placement equal to the unsharded
+     sweep's), ``solver --mesh-shards 4`` and ``measure_interconnect`` (K9c)
+     over 4 shards (provenance "virtual");
      a path's comparison solves (its references) are left out of its launch
      counts; K1's and K5's launches of each path are also printed by shape;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
@@ -3977,6 +3990,398 @@ def diagnose_path() -> dict:
     return launches
 
 
+# ------------------------------------------------------------- the mesh (K6b, K9c, K10)
+
+# Collective bounds: a reduction reads S parts once and writes one result,
+# per receiving shard; S - 1 operations per element.
+MESH_SHARDS = (2, 4)
+MESH_KERNELS = ("pdhg_sharded", "collective", "pdhg", "ipm", "round_incumbent", "round_moe",
+                "bnb_epilogue", "decomp")
+# K6b against the unsharded K5 at equal step counts: float64 obj and bound
+# within 1e-9 relative (the two sum the same products in another order);
+# float32 holds the float64 bound as check_pdhg does (TOL_PDHG_F32_CERT).
+TOL_PDHG_SHARDED_F64 = 1e-9
+
+
+def virtual_mesh(S: int):
+    """S shards on cuda:0: a virtual mesh of this one card."""
+    import torch
+
+    from distilp_torch.parallel import Mesh
+
+    return Mesh((torch.device("cuda", 0),) * S, True)
+
+
+def bits(t):
+    """A tensor's bit pattern (NaN payloads included), for bit-for-bit checks."""
+    import torch
+
+    t = t.detach().contiguous()
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def check_collective(report: dict) -> None:
+    """psum and pmax over a 4-shard virtual mesh against their plain versions
+    on the card, bit for bit on every shard (a NaN part included), at the
+    PDHG's per-step exchange (B=2 x n=1665) and a (1, 8) latency probe;
+    all_gather against torch.cat."""
+    import torch
+
+    from distilp_torch.parallel.collectives import (
+        AllReduce,
+        all_gather,
+        allreduce_reference,
+    )
+
+    S = 4
+    mesh = virtual_mesh(S)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bad, lines = [], []
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((2, 1665), (1, 8)):
+            parts = [torch.randn(shape, dtype=dtype, device="cuda", generator=gen)
+                     for _ in range(S)]
+            parts[2].view(-1)[3] = float("nan")
+            for op in ("sum", "max"):
+                out = [torch.empty_like(parts[0]) for _ in range(S)]
+                AllReduce(parts, out, mesh, op)()
+                ref = allreduce_reference(parts, op)
+                torch.cuda.synchronize()
+                same = all(torch.equal(bits(o), bits(ref)) for o in out)
+                lines.append({"dtype": str(dtype).split(".")[-1], "shape": list(shape),
+                              "op": op, "bit_equal_every_shard": same,
+                              "nan_propagated": bool(torch.isnan(out[0].view(-1)[3]))})
+                if not same or not lines[-1]["nan_propagated"]:
+                    bad.append(lines[-1])
+    blocks = [torch.randn((2, 193), device="cuda", generator=gen) for _ in range(S)]
+    gathered = all_gather(blocks, mesh, dim=1)
+    cat_ok = all(torch.equal(g, torch.cat(blocks, 1)) for g in gathered)
+    print("collective vs plain", json.dumps({"cases": lines, "all_gather_equal": cat_ok}),
+          flush=True)
+    if bad or not cat_ok:
+        fail(f"collective kernel disagrees with its plain version: {bad} "
+             f"all_gather {cat_ok}")
+    # Time at the per-step exchange: the S-receiver plan is S launches.
+    parts = [torch.randn((2, 1665), device="cuda", generator=gen) for _ in range(S)]
+    outs = [torch.empty_like(parts[0]) for _ in range(S)]
+    plan = AllReduce(parts, outs, mesh, "sum")
+    call = cuda_ms(plan) / S
+    dev = device_ms(plan, "reduce_parts", reps=20)
+    ms, src = (dev, "profiler") if dev is not None else (call, "cuda_events")
+    plain = cuda_ms(lambda: allreduce_reference(parts, "sum"))
+    lib = cuda_ms(lambda: torch.stack(parts).sum(0))
+    n = parts[0].numel()
+    b_ms, b_by = bound_ms((S - 1) * n, (S + 1) * n * 4, PEAK_F32_S)
+    print(f"collective psum S={S} (2, 1665) float32: {ms:.5f} ms a launch ({src}), "
+          f"{call:.5f} ms a launch with the host's share (plain {plain:.4f}, "
+          f"torch.stack(...).sum(0) {lib:.4f}, bound {b_ms:.7f} by {b_by})", flush=True)
+    report["collective"] = dict(
+        name="collective", route="cuda",
+        source="distilp_torch/kernels/csrc/collective_kernel.cu",
+        replaces="distilp_tpu/ops/pdhg.py:164", max_abs_err=0.0, ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib, held_against_plain="bit for bit",
+        call_ms=call, ms_source=src,
+        shapes_timed=f"psum of {S} float32 (2, 1665) parts, one receiving shard",
+    )
+
+
+def sharded_flops_bytes(m: int, n: int, nnz: int, B: int, S: int, iters_run, chunk: int,
+                        itemsize: int, warm: bool = False):
+    """Least work of one row-sharded solve: K5's (pdhg_flops_bytes, A read
+    once over all shards) plus the collectives' bytes, each exchange S
+    parts read and one result written per receiving shard: per step the
+    (B, n) column partial and the (B, 3) step scalars, per chunk two (B,)
+    scalars, at setup and exit the column 1-norms, the warm start's and the
+    certificate's (float64) column partials."""
+    flops, nbytes, _ = pdhg_flops_bytes(m, n, nnz, B, iters_run, chunk, itemsize, warm)
+    steps = max(int(i) for i in iters_run)
+    chunks = -(-steps // chunk) + 1
+    per = lambda ln, sz: S * (S + 1) * ln * sz  # noqa: E731
+    coll = steps * (per(B * n, itemsize) + per(3 * B, itemsize))
+    coll += chunks * 2 * per(B, itemsize)
+    coll += (3 + (2 if warm else 0)) * per(B * n, itemsize) + per(B * n, 8) + per(B, 8)
+    return flops, nbytes + coll
+
+
+def at_equal_steps(batch, k, r, run_k, run_r):
+    """Two runs' (bound, obj) with every element at equal step counts: an
+    element the two stopped at different chunks is run again in both
+    (``run_k(sub_batch, steps)``, ``run_r(...)``) with the budget cut to the
+    earlier stop. Returns ((bound, obj) of k, of r, {element: steps})."""
+    import torch
+
+    from distilp_torch.ops.ipm import LPBatch
+
+    kb, rb = k.bound.clone(), r.bound.clone()
+    ko, ro = k.obj.clone().double(), r.obj.clone().double()
+    rerun = {}
+    for e in torch.nonzero(k.iters_run != r.iters_run).flatten().tolist():
+        steps = int(torch.minimum(k.iters_run[e], r.iters_run[e]))
+        sub = LPBatch(batch.A, *(t[e:e + 1] for t in batch[1:]))
+        ke, re = run_k(sub, steps), run_r(sub, steps)
+        kb[e], rb[e], ko[e], ro[e] = ke.bound[0], re.bound[0], ke.obj[0], re.obj[0]
+        rerun[e] = steps
+    return (kb, ko), (rb, ro), rerun
+
+
+def check_pdhg_sharded(report: dict) -> None:
+    """K6b on the 128-device fleet's root LPs (B=2, m=769, n=1665) at S=2
+    and S=4 on a virtual mesh of cuda:0, float64 and float32: against the
+    unsharded K5 at equal step counts, against the sharded plain version on
+    the card, every shard's copy of the result bit for bit equal; then its
+    time per call, launches per step and bound."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.ops.meshlp import shard_rows, sharded_pdhg, sharded_pdhg_reference
+    from distilp_torch.ops.pdhg import (
+        DEFAULT_RESTART_TOL,
+        PDHG_DEFAULT_CHUNK,
+        _default_tol_pdhg,
+        pdhg_solve_batch,
+    )
+    from distilp_torch.solver.standard_form import default_pdhg_iters
+
+    iters = default_pdhg_iters(128)
+    rt = DEFAULT_RESTART_TOL
+    rows, bad = [], []
+    for dtype in (torch.float64, torch.float32):
+        batch, host = pdhg_roots(128, dtype)
+        tol = _default_tol_pdhg(dtype)
+        k5 = pdhg_solve_batch(batch, iters=iters)
+        for S in MESH_SHARDS:
+            mesh = virtual_mesh(S)
+            reps: list = []
+            kernels.reset_launch_counts()
+            k = sharded_pdhg(batch, mesh, iters, tol, rt, replicas=reps)
+            torch.cuda.synchronize()
+            n_launch = kernels.LAUNCHES["pdhg_sharded"]
+            n_coll = kernels.LAUNCHES["collective"]
+            same = all(torch.equal(bits(getattr(a, f)), bits(getattr(reps[0], f)))
+                       for a in reps for f in ("v", "bound", "obj", "reduced", "y_dual",
+                                               "z_dual", "f_dual")) and all(
+                torch.equal(a.iters_run, reps[0].iters_run)
+                and torch.equal(a.converged, reps[0].converged) for a in reps)
+            run_s = (lambda sub, st, mesh=mesh, tol=tol:  # noqa: E731
+                     sharded_pdhg(sub, mesh, st, tol, rt))
+            (kb, ko), (rb, ro), rerun = at_equal_steps(
+                batch, k, k5, run_s,
+                lambda sub, st, tol=tol: pdhg_solve_batch(sub, iters=st, tol=tol,
+                                                          restart_tol=rt))
+            vs_k5 = {"bound": max_err(kb, rb)[1], "obj": max_err(ko, ro)[1]}
+            line = {"S": S, "dtype": str(dtype).split(".")[-1], "iters": iters,
+                    "iters_run": k.iters_run.tolist(), "iters_run_k5": k5.iters_run.tolist(),
+                    "converged": k.converged.tolist(), "bound": k.bound.tolist(),
+                    "max_rel_vs_unsharded_k5": vs_k5, "rerun_at_equal_steps": rerun,
+                    "replicas_bit_equal": same, "launches": n_launch,
+                    "collective_launches": n_coll,
+                    "launches_per_step": (n_launch + n_coll) / max(1, int(k.iters_run.max()))}
+            if dtype == torch.float64 or S == 4:
+                m = batch.b.shape[1]
+
+                def plain(sub, st, S=S, tol=tol):
+                    A_b, b_b, *_ = shard_rows(sub, S)
+                    out = sharded_pdhg_reference(A_b, b_b, sub.c, sub.l, sub.u, st, tol, rt)
+                    return out._replace(y_dual=out.y_dual[:, :m])
+
+                r = plain(batch, iters)
+                torch.cuda.synchronize()
+                errs = {f: max_err(getattr(k, f), getattr(r, f))
+                        for f in ("v", "bound", "obj", "y_dual", "reduced")}
+                (kb2, _), (rb2, _), rerun2 = at_equal_steps(batch, k, r, run_s, plain)
+                line["max_rel_vs_sharded_plain"] = {f: e[1] for f, e in errs.items()}
+                line["max_abs_bound_vs_sharded_plain"] = max_err(kb2, rb2)[0]
+                line["iters_run_plain"] = r.iters_run.tolist()
+                line["plain_rerun_at_equal_steps"] = rerun2
+                if dtype == torch.float64:
+                    line["plain_ok"] = not rerun2 and all(
+                        e[1] <= TOL_PDHG_F64 for e in errs.values())
+                else:
+                    line["plain_ok"] = max_err(kb2, rb2)[1] <= TOL_PDHG_F32_CERT
+            tol_k5 = TOL_PDHG_SHARDED_F64 if dtype == torch.float64 else TOL_PDHG_F32_CERT
+            held = vs_k5["bound"] <= tol_k5 and (
+                dtype != torch.float64 or vs_k5["obj"] <= tol_k5)
+            line["ok"] = bool(held and same and line.get("plain_ok", True))
+            print("pdhg_sharded", json.dumps(line), flush=True)
+            rows.append(line)
+            if not line["ok"]:
+                bad.append((S, line["dtype"]))
+    if bad:
+        fail(f"pdhg_sharded disagrees with K5, its plain version, or across shards in "
+             f"(S, dtype) {bad}")
+
+    # Time at the main path's shape: the 128-device root round in float32,
+    # S=2 and 4, beside the unsharded K5 launch on the same rows.
+    batch, _ = pdhg_roots(128, torch.float32)
+    m, n = batch.A.shape
+    B = int(batch.b.shape[0])
+    nnz = int(torch.count_nonzero(batch.A))
+    tol = _default_tol_pdhg(torch.float32)
+    timing = {}
+    for S in MESH_SHARDS:
+        mesh = virtual_mesh(S)
+        run = lambda: sharded_pdhg(batch, mesh, iters, tol, rt)  # noqa: E731
+        res = run()
+        call = cuda_ms(run, reps=3, warmup=1)
+        busy = device_ms(run, "pdhgs_kernel", reps=2)
+        kernels.reset_launch_counts()
+        run()
+        launches = kernels.LAUNCHES["pdhg_sharded"]
+        busy_total = None if busy is None else busy * launches
+        flops, nbytes = sharded_flops_bytes(m, n, nnz, B, S, res.iters_run.tolist(),
+                                            PDHG_DEFAULT_CHUNK, 4)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+        k5 = cuda_ms(lambda: pdhg_solve_batch(batch, iters=iters), reps=5, warmup=1)
+        timing[S] = dict(ms=call, device_busy_ms=busy_total, launches=launches,
+                         steps=int(res.iters_run.max()), bound_ms=b_ms, bound_by=b_by,
+                         k5_ms=k5)
+        print(f"pdhg_sharded M=128 S={S} float32: {call:.3f} ms a call (CUDA events), "
+              f"device busy {busy_total} ms in {launches} launches, "
+              f"{int(res.iters_run.max())} steps, bound {b_ms:.5f} ms by {b_by}; "
+              f"unsharded K5 {k5:.3f} ms", flush=True)
+    A_b, b_b, *_ = shard_rows(batch, 4)
+    plain = cuda_ms(lambda: sharded_pdhg_reference(A_b, b_b, batch.c, batch.l, batch.u,
+                                                   iters, tol, rt), reps=1, warmup=0)
+    t4 = timing[4]
+    report["pdhg_sharded"] = dict(
+        name="pdhg_sharded", route="cuda",
+        source="distilp_torch/kernels/csrc/pdhg_sharded_kernel.cu",
+        replaces="distilp_tpu/ops/meshlp.py:96",
+        max_abs_err=max(r_["max_abs_bound_vs_sharded_plain"] for r_ in rows
+                        if "max_abs_bound_vs_sharded_plain" in r_),
+        max_rel_vs_unsharded_k5=max(r_["max_rel_vs_unsharded_k5"]["bound"] for r_ in rows),
+        ms=t4["ms"], plain_ms=plain, bound_ms=t4["bound_ms"], bound_by=t4["bound_by"],
+        library_ms=t4["k5_ms"], library="the unsharded K5 launch on the same rows",
+        held_against_plain="ok", device_busy_ms=t4["device_busy_ms"],
+        steps=t4["steps"], shapes_timed=f"M=128 root round, float32, S=4, {iters} steps",
+        s2=timing[2],
+    )
+
+
+MESH_SWEEP_GAP = 1e-4  # the north star through the node-sharded sweep (pin at 1e-4)
+
+
+def mesh_path() -> dict:
+    """The multi-device engine on a virtual mesh of this card: the 128-device
+    fleet with ``mesh_shards=4`` (median of 3; ``mesh_shards=1`` equal to the
+    default solve bit for bit), the 512-device fleet at S=4, the online
+    golden at S=4, the north star and Mixtral M=8 through the node-sharded
+    sweep on 8 shards (the north star's placement equal to the unsharded
+    sweep's at the padded capacity and beam), ``solver --mesh-shards 4``,
+    and ``measure_interconnect`` over 4 shards."""
+    import statistics
+
+    from distilp_torch import kernels
+    from distilp_torch.parallel import force_virtual_devices, make_mesh, solve_sweep_sharded
+    from distilp_torch.profiler.topology import measure_interconnect
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.solver.backend_torch import solve_sweep_torch
+    from distilp_torch.solver.search import best_bound
+    from distilp_torch.utils import make_synthetic_fleet
+
+    force_virtual_devices(8)
+    kernels.reset_launch_counts()
+    t_path = time.perf_counter()
+    model128, devs128 = online_model(128), make_synthetic_fleet(128, seed=123)
+    walls = []
+    for _ in range(3):
+        r4, ms, tm = solve(devs128, model128, FLEET128_GAP, mesh_shards=4)
+        walls.append(ms)
+    show("fleet_M128_S4", r4, statistics.median(walls), tm)
+    held_to("fleet_M128 mesh_shards=4", r4, FLEET128_PDHG[1], FLEET128_GAP, k=FLEET128_PDHG[0])
+    if tm.get("mesh_shards") != 4 or tm.get("lp_backend") != "pdhg":
+        fail(f"fleet_M128 S=4 echoed {tm.get('mesh_shards')} on {tm.get('lp_backend')}")
+    r1, ms1, _ = solve(devs128, model128, FLEET128_GAP, mesh_shards=1)
+    with uncounted():
+        r0, ms0, _ = solve(devs128, model128, FLEET128_GAP)
+    same1 = (r1.k, r1.w, r1.n, r1.obj_value) == (r0.k, r0.w, r0.n, r0.obj_value)
+    print(f"  fleet_M128 mesh_shards=1 {r1.obj_value!r} vs default {r0.obj_value!r}: "
+          f"bit-identical={same1} (walls {ms1:.2f} / {ms0:.2f} ms; S=4 walls "
+          f"{[round(w, 2) for w in walls]})", flush=True)
+    if not same1:
+        fail("mesh_shards=1 is not bit-identical to the default solve")
+    model512, devs512 = online_model(512), make_synthetic_fleet(512, seed=123)
+    r5, ms, tm = solve(devs512, model512, FLEET512_GAP, mesh_shards=4)
+    show("fleet_M512_S4", r5, ms, tm)
+    held_to("fleet_M512 mesh_shards=4", r5, FLEET512_PDHG[1], FLEET512_GAP, k=FLEET512_PDHG[0])
+    from distilp_torch.common import load_from_profile_folder
+
+    devs_o, model_o = load_from_profile_folder(ROOT / "tests" / "profiles" / "llama_3_70b" /
+                                               "online")
+    ro, ms, tm = solve(devs_o, model_o, 1e-4, lp_backend="pdhg", mesh_shards=4)
+    show("online_S4", ro, ms, tm)
+    held_to("online golden mesh_shards=4", ro, 1.934942, 1e-4, k=2)
+    if ro.w != [13, 27]:
+        fail(f"online golden at S=4: w={ro.w}")
+
+    mesh8 = make_mesh(8)
+    print(f"node mesh: {len(mesh8.devices)} shards on {sorted({str(d) for d in mesh8.devices})}"
+          f" virtual={mesh8.virtual}", flush=True)
+    devs, model, coeffs, arrays, feasible, sf, _ = load_instance(16, 123)
+    (state, _), ms = timed(lambda: solve_sweep_sharded(arrays, feasible, coeffs, mesh8,
+                                                       mip_gap=MESH_SWEEP_GAP))
+    inc, bd = float(state.incumbent[0]), float(best_bound(state)[0])
+    kidx = int(state.inc_kidx[0])
+    w = [int(round(float(x))) for x in state.inc_w[0]]
+    nn = [int(round(float(x))) for x in state.inc_n[0]]
+    cap, beam = state.node_lo.shape[1], None
+    print(f"sweep north_star_M16 on 8 shards: incumbent {inc!r} bound {bd!r} k={sf.ks[kidx]} "
+          f"cap={cap} wall_ms={ms:.2f}", flush=True)
+    if not (inc - bd <= MESH_SWEEP_GAP * abs(inc) + 1e-12) or \
+            abs(inc - NORTH_STAR_OBJ) > 2 * MESH_SWEEP_GAP * abs(NORTH_STAR_OBJ) or cap % 8:
+        fail(f"sharded sweep north star: {inc} bound {bd} cap {cap}")
+    with uncounted():
+        from distilp_torch.parallel import pad_cap_to_mesh
+        from distilp_torch.solver.standard_form import default_search_params
+
+        d_beam = default_search_params(False, len(sf.ks))[1]
+        beam = min(pad_cap_to_mesh(d_beam, mesh8), cap)
+        _, best = solve_sweep_torch(arrays, feasible, mip_gap=MESH_SWEEP_GAP, coeffs=coeffs,
+                                    node_cap=cap, beam=beam)
+    same = (best.k, best.w, best.n) == (int(sf.ks[kidx]), w, nn)
+    print(f"  unsharded sweep at cap={cap} beam={beam}: k={best.k} obj={best.obj_value!r} "
+          f"same (k, w, n)={same}", flush=True)
+    if not same:
+        fail(f"sharded sweep placement {(sf.ks[kidx], w, nn)} vs unsharded "
+             f"{(best.k, best.w, best.n)}")
+    name, config, M, seed, pool, (k_pin, pin) = MOE_CASES[1]
+    model_m = moe_model(config)
+    devs_m = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool))
+    Ks, _, coeffs_m, arrays_m = _build_instance(devs_m, model_m, None, "8bit", None, None)
+    kWs_m = [(k, model_m.L // k) for k in Ks]
+    (state, sf_m), ms = timed(lambda: solve_sweep_sharded(arrays_m, kWs_m, coeffs_m, mesh8,
+                                                          mip_gap=MOE_GAP))
+    inc, bd = float(state.incumbent[0]), float(best_bound(state)[0])
+    ysum = int(round(float(state.inc_y[0].sum())))
+    print(f"sweep {name} on 8 shards: incumbent {inc!r} (pin {pin!r}) bound {bd!r} "
+          f"sum(y)={ysum} wall_ms={ms:.2f}", flush=True)
+    if not (inc - bd <= MOE_GAP * abs(inc) + 1e-12) or abs(inc - pin) > 2 * MOE_GAP * abs(pin) \
+            or ysum != model_m.n_routed_experts:
+        fail(f"sharded sweep {name}: {inc} bound {bd} sum(y) {ysum}")
+
+    child: dict = {}
+    rc, stdout, err, wall = run_cli("distilp_torch.cli.solver_cli", [
+        "-p", "tests/profiles/llama_3_70b/online", "--lp-backend", "pdhg",
+        "--mesh-shards", "4"], child)
+    print(stdout[-800:], flush=True)
+    if rc != 0 or "Optimality: certified" not in stdout:
+        fail(f"solver --mesh-shards 4 exited {rc}:\n{err[-2000:]}")
+    info = measure_interconnect(devices=virtual_mesh(4))
+    print(f"interconnect over 4 virtual shards of {smi_line()}: provenance={info.provenance} "
+          f"allreduce latency {info.ici_allreduce_latency_s!r} s, all_gather "
+          f"{info.ici_bandwidth!r} B/s (the card's own memory: no link)", flush=True)
+    if info.provenance != "virtual" or not (info.ici_allreduce_latency_s > 0
+                                            and info.ici_bandwidth > 0):
+        fail(f"measure_interconnect over the virtual mesh: {info}")
+    launches = path_launches(child)
+    print("mesh path launches", json.dumps(launches), flush=True)
+    print(f"mesh path: {time.perf_counter() - t_path:.1f} s", flush=True)
+    missing = [k for k in MESH_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"mesh path never launched {missing}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4013,11 +4418,12 @@ def main() -> int:
               lambda r: check_pdhg_mp(), check_ipm_moe, check_round_moe, check_decomp,
               lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale,
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
-              check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces]
+              check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces,
+              check_collective, check_pdhg_sharded]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
-             "per_k_lanes", "decomp_lanes", "traces"]
+             "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -4029,6 +4435,7 @@ def main() -> int:
              "profile": profile_path(cases), "sweep": sweep_path(), "stream": stream_path()}
     paths["elem"], elem_calls = elem_path()
     paths["diagnose"] = diagnose_path()
+    paths["mesh"] = mesh_path()
     kernels.reset_launch_counts()
     t = time.perf_counter()
     with uncounted():
@@ -4037,7 +4444,8 @@ def main() -> int:
     launches = {k: sum(p[k] for p in paths.values()) for k in report}
     print("main path launches", json.dumps(launches), flush=True)
     by_shape = {k: {p: c["_shapes"].get(k, {}) for p, c in paths.items()}
-                for k in ("ipm", "pdhg", "pdhg_elem", "ipm_trace", "pdhg_trace")}
+                for k in ("ipm", "pdhg", "pdhg_elem", "ipm_trace", "pdhg_trace",
+                          "pdhg_sharded")}
     print("main path launches by shape", json.dumps(by_shape), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -4046,7 +4454,8 @@ def main() -> int:
     for name in ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
                  "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
                  "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes",
-                 "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace"):
+                 "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
+                 "pdhg_sharded", "collective"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -120,8 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Halpern restart sufficient-decay factor in (0, 1) (pdhg engine)")
     p.add_argument(
         "--mesh-shards", type=int, default=None,
-        help="row-partition every PDHG LP relaxation across this many GPUs "
-        "(above 1 not ported yet: ROADMAP A13)",
+        help="row-partition every PDHG LP relaxation across this many shards "
+        "(the first GPUs; with fewer visible, a virtual mesh whose shards share "
+        "them, which the CLI declares itself)",
     )
     p.add_argument("--pdhg-dtype", choices=["f32", "f64"], default=None,
                    help="first-order iterate precision (pdhg engine)")
@@ -141,8 +142,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _deferred_options(args) -> list:
     """(option, ROADMAP item) of each option set that a later slice ports."""
     out = []
-    if (args.mesh_shards or 1) > 1:
-        out.append(("--mesh-shards > 1", "A13 (multi-GPU)"))
     if args.plot:
         out.append(("--plot", "A16 (the k-objective plotter)"))
     return out
@@ -498,6 +497,12 @@ def main(argv=None) -> int:
             print(f"error: {opt} is not part of the port yet (ROADMAP.md {item})",
                   file=sys.stderr)
         return 2
+    if (args.mesh_shards or 1) > 1:
+        # As the reference's CLI forces its host mesh: with fewer devices
+        # than shards, the shards share them (a virtual mesh).
+        from ..parallel import force_virtual_devices
+
+        force_virtual_devices(args.mesh_shards)
 
     from ..common import load_from_profile_folder
     from ..solver import HALDAResult, halda_solve

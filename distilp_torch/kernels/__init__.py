@@ -3,7 +3,8 @@
 The sources live in ``csrc/`` and are built at first use by
 :mod:`distilp_torch.kernels.build`. Each kernel's Python wrapper sits beside
 its plain PyTorch version (``ops/ipm.py``, ``ops/pdhg.py``,
-``ops/decomp.py``, ``solver/rounding.py``, ``solver/search.py``,
+``ops/meshlp.py``, ``parallel/collectives.py``, ``ops/decomp.py``,
+``solver/rounding.py``, ``solver/search.py``,
 ``twin/engine.py``, ``profiler/device.py``): on a CUDA tensor the wrapper
 launches the kernel and adds one to :data:`LAUNCHES`; on a CPU tensor it runs
 the plain version.
@@ -22,20 +23,22 @@ import torch
 # one that carries a single sweep under the kernel's own name. K5's
 # per-element entry counts as "pdhg_elem"; a launch of K1 or K5 that records
 # the convergence trace counts as "ipm_trace" or "pdhg_trace" (either K5
-# entry), not under the untraced name.
+# entry), not under the untraced name. The row-sharded PDHG (K6b) counts one
+# "pdhg_sharded" launch per phase per shard, the mesh's psum/pmax one
+# "collective" launch per receiving shard.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
     "bnb_per_k": 0, "price_fixed": 0, "round_incumbent_lanes": 0, "round_moe_lanes": 0,
     "bnb_epilogue_lanes": 0, "bnb_per_k_lanes": 0, "decomp_lanes": 0, "pdhg_elem": 0,
-    "ipm_trace": 0, "pdhg_trace": 0,
+    "ipm_trace": 0, "pdhg_trace": 0, "pdhg_sharded": 0, "collective": 0,
 }
 
 
 # Kernel name -> {shape: launches} for the kernels whose wrappers break
 # their count down by the shape they were launched at (K1, K5).
 SHAPES: Dict[str, Dict[str, int]] = {"ipm": {}, "pdhg": {}, "pdhg_elem": {},
-                                     "ipm_trace": {}, "pdhg_trace": {}}
+                                     "ipm_trace": {}, "pdhg_trace": {}, "pdhg_sharded": {}}
 
 
 def reset_launch_counts() -> None:

@@ -41,6 +41,8 @@ SOURCES: Dict[str, tuple] = {
     "decomp": ("decomp_kernel.cu", ["--fmad=false"]),
     "twin_mc": ("twin_mc_kernel.cu", ["--fmad=false"]),
     "profiler": ("profiler_kernel.cu", ["--fmad=false"]),
+    "pdhg_sharded": ("pdhg_sharded_kernel.cu", []),
+    "collective": ("collective_kernel.cu", []),
 }
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -106,8 +108,18 @@ SIGNATURES = {
         "dtk_pdhg_elem_f64": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L]
         + [_P] * 13 + [_I, _P],
     },
+    "pdhg_sharded": {
+        "dtk_pdhgs_grid": [_I],
+        "dtk_pdhgs_ws_bytes": [_I] * 5,
+        "dtk_pdhgs_f32": [_I, _P, _P, _P, _L, _P],
+        "dtk_pdhgs_f64": [_I, _P, _P, _P, _L, _P],
+    },
+    "collective": {
+        "dtk_allreduce_f32": [_P, _I, _L, _I, _P, _P],
+        "dtk_allreduce_f64": [_P, _I, _L, _I, _P, _P],
+    },
 }
-RESTYPES = {"dtk_pdhg_ws_bytes": _S}
+RESTYPES = {"dtk_pdhg_ws_bytes": _S, "dtk_pdhgs_ws_bytes": _S}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

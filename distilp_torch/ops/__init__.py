@@ -7,7 +7,7 @@ from .ipm import (
     ipm_solve_batch,
     ipm_solve_batch_reference,
 )
-from .meshlp import pdhg_solve_batch_mp
+from .meshlp import pdhg_solve_batch_mp, pdhg_solve_batch_sharded
 from .pdhg import (
     PDHGWarmState,
     pdhg_solve_batch,
@@ -23,5 +23,6 @@ __all__ = [
     "ipm_solve_batch_reference",
     "pdhg_solve_batch",
     "pdhg_solve_batch_mp",
+    "pdhg_solve_batch_sharded",
     "pdhg_solve_batch_reference",
 ]

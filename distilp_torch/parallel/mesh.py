@@ -1,0 +1,80 @@
+"""The branch-and-bound sweep with its frontier node-sharded over a mesh (K10):
+the port of ``distilp_tpu/parallel/mesh.py``.
+
+The parallel axis of the search is its frontier: every node's LP relaxation
+is independent. :func:`solve_sweep_sharded` runs the port's sweep
+(``solver/search.py``) with each round's beam rows split over the mesh in
+order: each shard's rows go through the LP engine (K1, or K5 at fleet scale)
+and the exact rounding (K2, or its MoE mode) on that shard's device, and the
+results are gathered onto shard 0, where the incumbent reduction, the round
+epilogue (K3, and its per-k entries) and the best-bound-first compaction run
+as in the unsharded sweep. The capacity, the beam and the root round's batch
+are padded to multiples of the mesh size, as the reference does, so every
+shard solves the same number of rows. A MoE sweep is seeded once with the
+Lagrangian decomposition bounds (K7) before the frontier is split.
+
+A row's LP result does not depend on its batch neighbours (an element that
+converged or is skipped is frozen), so the sharded sweep reaches the
+unsharded sweep's placement at the same padded capacity and beam.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from .devices import Mesh
+
+NODE_AXIS = "nodes"
+
+
+def pad_cap_to_mesh(cap: int, mesh: Mesh) -> int:
+    """Round a frontier capacity (or beam) up to a multiple of the mesh size."""
+    n = mesh.size
+    return int(-(-int(cap) // n) * n)
+
+
+def solve_sweep_sharded(
+    arrays,
+    kWs: Sequence,
+    coeffs,
+    mesh: Mesh,
+    mip_gap: float = 1e-3,
+    ipm_iters: Optional[int] = None,
+    max_rounds: int = 48,
+    beam: Optional[int] = None,
+    node_cap: Optional[int] = None,
+    per_k: bool = False,
+    ipm_warm_iters: Optional[int] = None,
+    lp_backend: Optional[str] = None,
+    pdhg_iters: Optional[int] = None,
+    pdhg_restart_tol: Optional[float] = None,
+):
+    """Run the sweep with the frontier node-sharded across ``mesh`` (its
+    shard 0's device holds the search). Search parameters default as in the
+    unsharded sweep, then the capacity (at least 2 n_k), the beam and the
+    root round's batch are rounded up to multiples of the mesh size.
+    ``per_k`` prunes every node against its own k's incumbent (read the per-k
+    assignments off the state's ``per_k_w/n/y``).
+
+    Returns ``(state, sf)``: the final
+    :class:`~distilp_torch.solver.search.SearchState` (one lane: every field
+    carries a leading axis of 1) and the sweep's standard form."""
+    from ..solver.backend_torch import _prepare, _search_params, lane_input, seeded_state
+    from ..solver.search import node_mesh_of, run_bnb_loop
+
+    M = arrays.layout.M
+    feasible = [(k, W) for (k, W) in kWs if W >= M]
+    if not feasible:
+        raise RuntimeError("No feasible MILP found for any k.")
+    lane = lane_input(arrays, coeffs, kWs, feasible, per_k=per_k)
+    n_k = len(lane.sf.ks)
+    params = _search_params(lane.sf, node_cap, beam, ipm_iters, max_rounds, ipm_warm_iters,
+                            lp_backend, pdhg_iters, None, None, per_k, pdhg_restart_tol)
+    cap = pad_cap_to_mesh(max(params["cap"], 2 * n_k), mesh)
+    params.update(cap=cap, beam=min(pad_cap_to_mesh(params["beam"], mesh), cap))
+    root_beam = min(pad_cap_to_mesh(n_k, mesh), cap)
+    prep = _prepare([lane], params, mip_gap, mesh.devices[0], per_k=per_k, shared_A=True)
+    state = seeded_state(prep)[0]
+    state, _, _ = run_bnb_loop(prep.data, state, mip_gap, **prep.loop_kw,
+                               node_mesh=node_mesh_of(mesh, prep.data), root_beam=root_beam)
+    return state, lane.sf

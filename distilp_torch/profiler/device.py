@@ -785,15 +785,12 @@ def device_profile_from_info(
     di: DeviceInfo, config: HFConfig, max_batch_exp: int = 6, is_head: bool = True
 ) -> DeviceProfile:
     """The solver's ``DeviceProfile`` of a ``DeviceInfo`` this port measured
-    (a CUDA card, ``gpu.name`` 'cuda', or none, '') on one device: the
-    mapping of ``distilp_tpu/profiler/device.py::profile_device``, field for
-    field. Other accelerators and several devices raise."""
-    from .topology import _LATER
-
+    (a CUDA card, ``gpu.name`` 'cuda', or none, ''): the mapping of
+    ``distilp_tpu/profiler/device.py::profile_device``, field for field,
+    several devices' timed collectives included (``t_comm``, ``comm_latency``,
+    ``comm_bandwidth``). Other accelerators raise."""
     if di.gpu.name not in ("cuda", ""):
         raise ValueError(f"the port profiles CUDA cards only, got gpu.name={di.gpu.name!r}")
-    if di.interconnect.num_devices > 1:
-        raise NotImplementedError(f"{di.interconnect.num_devices} devices: {_LATER}")
     ret = DeviceProfile()
     ret.name = platform.node() or "device"
     ret.has_cuda = di.gpu.name == "cuda"
@@ -836,6 +833,21 @@ def device_profile_from_info(
         ret.t_ram2vram = transfer / di.gpu.memory.read_bw
     if di.gpu.memory.write_bw > 0:
         ret.t_vram2ram = transfer / di.gpu.memory.write_bw
+
+    # Inter-device communication from the timed collectives, with the
+    # payload of one token's hidden state in bf16 (0 on one device); the link
+    # terms ride along, chosen by the same rule as estimate_t_comm.
+    if di.interconnect.num_devices > 1:
+        from .topology import estimate_t_comm
+
+        ret.t_comm = estimate_t_comm(config.hidden_size() * 2, info=di.interconnect)
+        ic = di.interconnect
+        if ic.num_slices > 1 and (ic.dcn_latency_s > 0 or ic.dcn_bandwidth > 0):
+            ret.comm_latency = ic.dcn_latency_s
+            ret.comm_bandwidth = ic.dcn_bandwidth
+        else:
+            ret.comm_latency = ic.ici_allreduce_latency_s
+            ret.comm_bandwidth = ic.ici_bandwidth
 
     ret.s_disk = di.disk.read
     ret.d_avail_ram = int(di.memory.available)

@@ -10,8 +10,9 @@ versions, which is what the CPU tests do.
 
 Same signatures and result types as the JAX package's functions of these
 names plus ``device`` (the JAX package's ``backend='jax'`` is ``'torch'``
-here); the knobs of parts the port does not have yet (the multi-GPU mesh,
-the k-objective plot) raise when set.
+here); the knobs of parts the port does not have yet (the k-objective
+plot) raise when set. ``mesh_shards`` above 1 row-partitions every PDHG
+relaxation over a mesh of that many shards (``distilp_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -154,7 +155,11 @@ def halda_solve(
     LP engine: ``lp_backend`` 'ipm', 'pdhg' or 'auto' (PDHG at 128 devices
     and more); ``pdhg_iters`` (cold budget; warm rounds a quarter of it),
     ``pdhg_restart_tol`` and ``pdhg_dtype`` ('f32'/'f64' iterates) set the
-    PDHG engine. ``mesh_shards`` above 1 (multi-GPU) is a later slice.
+    PDHG engine. ``mesh_shards`` above 1 row-partitions every PDHG relaxation
+    over that many shards (K6b): the first devices of ``device``'s type, or a
+    virtual mesh the process declared
+    (:func:`distilp_torch.parallel.force_virtual_devices`); a MoE instance
+    with shards raises (ROADMAP.md B6c).
 
     Certification escalation: a solve that misses the mip-gap certificate
     while every search knob is None retries once at the escalated budget

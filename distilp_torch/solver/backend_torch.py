@@ -39,6 +39,7 @@ import torch
 
 from .. import kernels
 from ..ops.decomp import decomp_problem, stack_problems
+from ..parallel.devices import shard_mesh
 from .assemble import MilpArrays, VarLayout
 from .coeffs import HaldaCoeffs
 from .result import ILPResult
@@ -353,7 +354,9 @@ def solve_sweep_torch(
     ``mesh_shards``. ``pdhg_iters``/``pdhg_restart_tol``/``pdhg_dtype`` set
     the PDHG engine's budget, restart factor and iterate precision (a MoE
     sweep runs it through K5's per-element entry); ``mesh_shards`` above 1
-    (the multi-GPU engine) raises.
+    row-partitions every LP relaxation of every round over that many shards
+    (K6b, :func:`~distilp_torch.parallel.devices.shard_mesh` on ``device``'s
+    type; a MoE instance raises, ROADMAP.md B6c).
 
     ``per_k_optima=True`` prunes every node against its own k's incumbent
     (K3's per-k mode): every feasible k ends with its own certified optimum
@@ -397,17 +400,21 @@ def solve_sweep_torch(
     params = _search_params(lane.sf, node_cap, beam, ipm_iters, max_rounds, ipm_warm_iters,
                             lp_backend, pdhg_iters, mesh_shards, pdhg_dtype, per_k_optima,
                             pdhg_restart_tol)
+    row_mesh = None
     if params["mesh_shards"] > 1:
-        raise NotImplementedError(
-            f"mesh_shards={params['mesh_shards']}: the row-sharded PDHG runs across GPUs, "
-            f"a later slice of the port (ROADMAP.md A13)"
-        )
+        if lane.sf.moe:
+            raise NotImplementedError(
+                f"mesh_shards={params['mesh_shards']} on a MoE instance: the row-sharded "
+                f"PDHG with a per-element A is not ported yet (ROADMAP.md B6c)"
+            )
+        row_mesh = shard_mesh(params["mesh_shards"], dev)
     if timings is not None:
         timings["lp_backend"] = params["lp_backend"]
         timings["mesh_shards"] = params["mesh_shards"]
     t1 = time.perf_counter()
     prep = _prepare([lane], params, mip_gap, dev, debug=debug, per_k=per_k_optima,
-                    timings=timings, shared_A=True, convergence=convergence)
+                    timings=timings, shared_A=True, convergence=convergence,
+                    row_mesh=row_mesh)
     prep.stats["build_sf_ms"] = (t1 - t0) * 1e3
     if not collect:
         return PendingSweep(prep)
@@ -455,7 +462,7 @@ class _Prepared(NamedTuple):
 
 def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=False,
              per_k=False, timings=None, shared_A=False, A_lanes=None,
-             convergence: Optional[dict] = None) -> _Prepared:
+             convergence: Optional[dict] = None, row_mesh=None) -> _Prepared:
     """Upload L sweeps (same shapes and search parameters) as lane data and
     the root frontiers. ``shared_A``: every lane has lane 0's A (scenarios
     of one fleet: one (m, nf) matrix); else ``A_lanes`` (L, m, nf) on the
@@ -464,7 +471,9 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     structure is built here, once per sweep, for K1 and, where the nodes
     have an A each (MoE, lanes with their own A), for K5's per-element
     entry with each lane's values on it. ``convergence`` (one lane) turns
-    on the round log and the root round's LP trace."""
+    on the round log and the root round's LP trace. ``row_mesh`` (one
+    sweep on the PDHG engine) row-partitions every LP relaxation over its
+    shards."""
     t1 = time.perf_counter()
     L = len(lanes)
     sf0 = lanes[0].sf
@@ -542,7 +551,7 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         ipm_warm_iters=params["ipm_warm_iters"], root_warm_chunk=use_root_warm,
         lp_backend=engine, pdhg_restart_tol=params["pdhg_restart_tol"],
         pdhg_dtype=params["pdhg_dtype"], per_k=per_k,
-        collect_rounds=convergence is not None,
+        collect_rounds=convergence is not None, row_mesh=row_mesh,
     )
     stats = {"upload_ms": (time.perf_counter() - t1) * 1e3}
     return _Prepared(lanes=lanes, mip_gap=mip_gap, debug=debug, per_k=per_k,
@@ -551,15 +560,14 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
                      convergence=convergence)
 
 
-def _search(prep: _Prepared) -> dict:
-    """The device half of L sweeps: the MoE root bounds (one ascent over
-    every lane), the warm incumbents, the branch-and-bound loop, and one
-    read-back of what the decode needs."""
+def seeded_state(prep: _Prepared):
+    """The root state of L prepared sweeps seeded for their search: the MoE
+    root bounds (one K7 ascent over every lane, or the margin bounds) and
+    the warm incumbents. Returns ``(state, duals, raw_bounds, m_y,
+    t_decomp)``, the last the host clock after the bounds were enqueued."""
     data, state = prep.data, prep.state
-    sf = prep.lanes[0].sf
-    L, n_k = data.ks.shape
     dev = data.ks.device
-    t2 = time.perf_counter()
+    sf = prep.lanes[0].sf
     duals_t = raw_bounds = m_y = None
     if prep.moe_ctx is not None:
         w_max, E, decomp_steps = prep.moe_ctx
@@ -579,7 +587,17 @@ def _search(prep: _Prepared) -> dict:
     t_decomp = time.perf_counter()
     if prep.warm is not None:
         state = seed_warm(state, data, prep.warm, sf.moe, MOE_LOCAL_MOVES_WARM)
+    return state, duals_t, raw_bounds, m_y, t_decomp
 
+
+def _search(prep: _Prepared) -> dict:
+    """The device half of L sweeps: the MoE root bounds (one ascent over
+    every lane), the warm incumbents, the branch-and-bound loop, and one
+    read-back of what the decode needs."""
+    data = prep.data
+    L, n_k = data.ks.shape
+    t2 = time.perf_counter()
+    state, duals_t, raw_bounds, m_y, t_decomp = seeded_state(prep)
     state, root_iters, log = run_bnb_loop(data, state, prep.mip_gap, **prep.loop_kw)
     head_parts = [
         torch.stack([

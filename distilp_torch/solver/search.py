@@ -38,6 +38,8 @@ Ported from ``distilp_tpu/solver/backend_jax.py`` (``SearchState``,
 ``_bnb_round`` with its MoE A scatter and its per-k mode, ``RL_COLS``,
 ``_round_row``, ``_root_trace_rows``,
 ``_seed_root_bounds``, ``_cast_lp_result``, ``_best_bound``, ``_certified``,
+the mesh branch of ``_bnb_round`` (the row-sharded PDHG, ``mesh_shards``), the
+node-sharded frontier of ``distilp_tpu/parallel/mesh.py`` (:class:`NodeMesh`),
 ``_per_k_bound``, ``_certified_per_k``, ``_run_bnb_loop``, and their vmap
 in ``_solve_scenarios_packed``/``_solve_batched``).
 MoE sweeps seed the roots with the Lagrangian decomposition bounds (K7, all
@@ -69,7 +71,16 @@ from ..ops.ipm import (
     ipm_sparsity,
     n_trace_rows,
 )
-from ..ops.pdhg import PDHG_DEFAULT_CHUNK, ElemA, pdhg_solve_batch
+from ..ops.meshlp import sharded_pdhg
+from ..ops.pdhg import (
+    DEFAULT_RESTART_TOL,
+    PDHG_DEFAULT_CHUNK,
+    ElemA,
+    _default_tol_pdhg,
+    pdhg_solve_batch,
+    resolve_pdhg_dtype,
+)
+from ..parallel.devices import Mesh
 from .rounding import RoundingData, round_to_incumbent
 from .standard_form import FRAC_TOL, IPM_ITERS, MAX_ROUNDS
 
@@ -812,6 +823,8 @@ def bnb_round(
     per_k: bool = False,
     frozen: Optional[torch.Tensor] = None,
     lp_trace: bool = False,
+    row_mesh: Optional[Mesh] = None,
+    node_mesh: Optional["NodeMesh"] = None,
 ) -> Tuple[SearchState, IPMResult]:
     """One batched branch-and-bound round over the frontier prefix of
     ``beam`` rows of every lane (rows past it pass through with their parent
@@ -823,8 +836,13 @@ def bnb_round(
     the per-k overflow floors (K3's per-k entries). ``frozen`` (L,) bool
     marks settled lanes: their rows go to the LP as skipped and their state
     comes back unchanged. ``lp_trace`` records the LP engine's convergence
-    trace (the result's ``trace_buf``). Returns the new state and the beam
-    rows' raw LP result (L * beam rows, lane-major)."""
+    trace (the result's ``trace_buf``). ``row_mesh`` (more than one shard)
+    row-partitions every PDHG relaxation over its shards (K6b); ``node_mesh``
+    (K10) splits the beam rows over its shards, each shard's rows going
+    through the LP engine and the rounding on that shard's device, then
+    gathered onto shard 0 for the incumbent reduction, the epilogue and the
+    compaction (the beam a multiple of the mesh size). Returns the new state
+    and the beam rows' raw LP result (L * beam rows, lane-major)."""
     L, cap = state.node_lo.shape[:2]
     M = state.inc_w.shape[-1]
     n_k = state.per_k_best.shape[-1]
@@ -855,33 +873,15 @@ def bnb_round(
     )
     moe = data.gky is not None
     lo_r, hi_r = flat(state.node_lo[:, :B]), flat(state.node_hi[:, :B])
-    b_r, c_r = data.b_k[row_lane, kidx_r], data.c_k[row_lane, kidx_r]
     skip = ~flat(active_p)
-    if lp_backend == "pdhg":
-        # MoE nodes and lanes with an A each: K5's per-element entry on the
-        # sweep's structure; else the one shared A.
-        A_r = (data.A if data.A.dim() == 2 else data.A[0]) if data.A_values is None \
-            else ElemA(node_values(data, kidx_r, row_lane), data.A_sparsity)
-        res = pdhg_solve_batch(
-            LPBatch(A=A_r, b=b_r, c=c_r, l=lo_r, u=hi_r), iters=ipm_iters,
-            restart_tol=pdhg_restart_tol, warm=warm, skip=skip, dtype=pdhg_dtype,
-            trace=lp_trace,
-        )
-        res = cast_lp_result(res, DTYPE)
+    lp_kw = dict(ipm_iters=ipm_iters, ipm_chunk=ipm_chunk, lp_backend=lp_backend,
+                 pdhg_restart_tol=pdhg_restart_tol, pdhg_dtype=pdhg_dtype, lp_trace=lp_trace,
+                 row_mesh=row_mesh)
+    if node_mesh is None:
+        res, rounded = lp_and_round(data, lo_r, hi_r, kidx_r, row_lane, warm, skip, **lp_kw)
     else:
-        chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
-        res = ipm_solve_batch(
-            LPBatch(A=node_A(data, kidx_r, M, row_lane), b=b_r, c=c_r, l=lo_r, u=hi_r),
-            iters=ipm_iters, warm=warm, skip=skip, **chunk_kw,
-            sparsity=data.A_sparsity, trace=lp_trace,
-        )
-
-    # Exact integer incumbents from every processed row's LP point, each row
-    # against its own lane's data.
-    rounded = round_to_incumbent(
-        res.v, data.Ws[row_lane, kidx_r], data.ks[row_lane, kidx_r], data.rd,
-        data.rd_packed, moe=moe, inst=row_lane,
-    )
+        res, rounded = _node_sharded(node_mesh, lo_r, hi_r, kidx_r, row_lane, warm, skip,
+                                     lp_kw)
     obj_lin = lanes_b(rounded[0])
     w_int, n_int = lanes_b(rounded[1]), lanes_b(rounded[2])
     y_int = lanes_b(rounded[3]) if moe else None
@@ -995,6 +995,102 @@ def bnb_round(
     return out, res
 
 
+def lp_and_round(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_iters,
+                 ipm_chunk=None, lp_backend="ipm", pdhg_restart_tol=None, pdhg_dtype=None,
+                 lp_trace=False, row_mesh: Optional[Mesh] = None):
+    """The LP relaxations of a round's rows (each with its box ``lo_r``/
+    ``hi_r``, its k index and lane) and their exact integer incumbents:
+    ``(res, rounded)``, every row against its own lane's data."""
+    M = data.rd.a.shape[-1]
+    moe = data.gky is not None
+    b_r, c_r = data.b_k[row_lane, kidx_r], data.c_k[row_lane, kidx_r]
+    if lp_backend == "pdhg":
+        # MoE nodes and lanes with an A each: K5's per-element entry on the
+        # sweep's structure; else the one shared A.
+        A_r = (data.A if data.A.dim() == 2 else data.A[0]) if data.A_values is None \
+            else ElemA(node_values(data, kidx_r, row_lane), data.A_sparsity)
+        batch = LPBatch(A=A_r, b=b_r, c=c_r, l=lo_r, u=hi_r)
+        if row_mesh is not None and row_mesh.size > 1:
+            # The row-sharded engine (K6b), the reference's mesh branch: the
+            # iterate dtype follows pdhg_dtype, the tolerance the default.
+            dt = resolve_pdhg_dtype(pdhg_dtype)
+            if dt is not None and dt != A_r.dtype:
+                batch = LPBatch(*(t.to(dt) for t in batch))
+            rt = DEFAULT_RESTART_TOL if pdhg_restart_tol is None else pdhg_restart_tol
+            res = sharded_pdhg(batch, row_mesh, ipm_iters, _default_tol_pdhg(batch.b.dtype),
+                               rt, warm=warm, skip=skip, trace=lp_trace)
+        else:
+            res = pdhg_solve_batch(batch, iters=ipm_iters, restart_tol=pdhg_restart_tol,
+                                   warm=warm, skip=skip, dtype=pdhg_dtype, trace=lp_trace)
+        res = cast_lp_result(res, DTYPE)
+    else:
+        chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
+        res = ipm_solve_batch(
+            LPBatch(A=node_A(data, kidx_r, M, row_lane), b=b_r, c=c_r, l=lo_r, u=hi_r),
+            iters=ipm_iters, warm=warm, skip=skip, **chunk_kw,
+            sparsity=data.A_sparsity, trace=lp_trace,
+        )
+    rounded = round_to_incumbent(
+        res.v, data.Ws[row_lane, kidx_r], data.ks[row_lane, kidx_r], data.rd,
+        data.rd_packed, moe=moe, inst=row_lane,
+    )
+    return res, rounded
+
+
+class NodeMesh(NamedTuple):
+    """K10's node mesh: the shards' devices and the sweep's data on each
+    (the same object where a shard shares the search's device)."""
+
+    mesh: Mesh
+    data: Tuple[SweepData, ...]
+
+
+def node_mesh_of(mesh: Mesh, data: SweepData) -> NodeMesh:
+    """The sweep's data placed once on every shard's device."""
+    def move(t, dev):
+        if t is None:
+            return None
+        if isinstance(t, torch.Tensor):
+            return t.to(dev)
+        return type(t)(*(move(f, dev) for f in t))
+
+    return NodeMesh(mesh, tuple(data if dev == data.ks.device else move(data, dev)
+                                for dev in mesh.devices))
+
+
+def _node_sharded(node_mesh: NodeMesh, lo_r, hi_r, kidx_r, row_lane, warm, skip,
+                  lp_kw: dict):
+    """K10's round: the rows split into the mesh's shards in order, each
+    shard's rows through :func:`lp_and_round` on its device, the results
+    gathered onto shard 0 in mesh order."""
+    mesh = node_mesh.mesh
+    R = lo_r.shape[0]
+    S = mesh.size
+    if R % S:
+        raise ValueError(f"{R} beam rows do not split over {S} shards")
+    per = R // S
+    dev0 = lo_r.device
+    parts = []
+    for s, dev in enumerate(mesh.devices):
+        sl = slice(s * per, (s + 1) * per)
+
+        def on(t):
+            return t[sl].to(dev)
+
+        w = IPMWarmState(*(on(t) for t in warm))
+        parts.append(lp_and_round(node_mesh.data[s], on(lo_r), on(hi_r), on(kidx_r),
+                                  on(row_lane), w, on(skip), **lp_kw))
+
+    def gather(ts):
+        if ts[0] is None:
+            return None
+        return torch.cat([t.to(dev0) for t in ts], 0)
+
+    res = IPMResult(*(gather([p[0][f] for p in parts]) for f in range(len(IPMResult._fields))))
+    rounded = tuple(gather([p[1][f] for p in parts]) for f in range(len(parts[0][1])))
+    return res, rounded
+
+
 # One round-log row per executed round (``run_bnb_loop(collect_rounds=True)``,
 # the reference's ``RL_COLS``/``_round_row``):
 #   [expanded, live_after, incumbent, best_bound, lp_iters, executed]
@@ -1043,6 +1139,9 @@ def run_bnb_loop(
     pdhg_dtype: Optional[str] = None,
     per_k: bool = False,
     collect_rounds: bool = False,
+    row_mesh: Optional[Mesh] = None,
+    node_mesh: Optional["NodeMesh"] = None,
+    root_beam: Optional[int] = None,
 ):
     """Root round, then warm rounds until, in every lane, the mip-gap
     certificate closes (in per-k mode: every k's own certificate,
@@ -1064,11 +1163,15 @@ def run_bnb_loop(
     roots, :func:`root_trace_rows`, TRACE_COLS) in float32 (zeros for a lane
     that skipped it); the root round then runs its LP with the trace on.
     Nothing of it is read from the device during the loop.
+
+    ``row_mesh`` and ``node_mesh`` go to every round (:func:`bnb_round`);
+    ``root_beam`` widens the root round past the n_k roots (never below),
+    as the node-sharded sweep pads it to a multiple of its mesh.
     """
     warm_iters = ipm_iters if ipm_warm_iters is None else ipm_warm_iters
     L, cap = state.node_kidx.shape
     n_k = state.per_k_best.shape[-1]
-    B0 = min(cap, n_k)
+    B0 = min(cap, max(n_k, root_beam or 0))
 
     settled = certified_per_k if per_k else certified
 
@@ -1080,7 +1183,7 @@ def run_bnb_loop(
         return mask, any(live), None if all(live) else ~mask
 
     engine = dict(lp_backend=lp_backend, pdhg_restart_tol=pdhg_restart_tol,
-                  pdhg_dtype=pdhg_dtype, per_k=per_k)
+                  pdhg_dtype=pdhg_dtype, per_k=per_k, row_mesh=row_mesh, node_mesh=node_mesh)
     root_iters = (
         state.node_warm[:, :B0], state.node_v[:, :B0], state.node_y[:, :B0],
         state.node_z[:, :B0], state.node_f[:, :B0],

@@ -13,6 +13,9 @@ on the CPU (``--device cpu``, ``--backend cpu``), against the JAX package's.
   same conflicting options.
 - Every option and subcommand of a later slice exits 2 naming its ROADMAP
   item.
+- ``--mesh-shards 4`` (the CLI declares its virtual mesh itself) certifies
+  the online golden as the JAX CLI's ``smoke-shard`` does, and
+  ``--mesh-shards 1`` prints the plain run's output byte for byte.
 Both CLIs run in this process (``main(argv)``), so no interpreter start or
 JAX compile is paid twice.
 """
@@ -94,11 +97,15 @@ def test_solutions_cross_packages(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mesh-shards", "2"], "A13"),
+    (["--mesh-shards", "2", "--lp-backend", "ipm", "--device", "cpu"],
+     "requires the matrix-free pdhg engine"),
     (["--plot"], "A16"),
     (["--backend", "cpu", "--warm-from", "x.json"], "--backend torch"),
 ])
-def test_deferred_options_exit_2(capsys, argv, item):
+def test_deferred_options_exit_2(capsys, monkeypatch, argv, item):
+    # The CLI declares a virtual mesh for --mesh-shards itself; keep it to
+    # this test.
+    monkeypatch.setenv("DISTILP_TORCH_VIRTUAL_DEVICES", "0")
     rc, _, err = _run(solver_cli.main, ["-p", ONLINE, *argv], capsys)
     assert rc == 2 and item in err
 
@@ -215,3 +222,19 @@ def test_profiler_cli_on_the_cpu(capsys, tmp_path, monkeypatch):
     rc, _, err = _run(profiler_cli.main, ["model", "-r", "tests/configs/phi3_mini.json",
                                           "-o", str(model_out), "--batches", "1,2"], capsys)
     assert rc == 0 and json.loads(model_out.read_text())
+
+
+def test_mesh_shards_on_a_virtual_mesh(capsys, monkeypatch):
+    """The reference's ``smoke-shard``: plain, one shard and four shards on
+    the online fixture with the PDHG engine."""
+    monkeypatch.setenv("DISTILP_TORCH_VIRTUAL_DEVICES", "0")
+    base = ["-p", ONLINE, "--device", "cpu", "--lp-backend", "pdhg"]
+    rc, plain, err = _run(solver_cli.main, base, capsys)
+    assert rc == 0, err
+    rc, one, err = _run(solver_cli.main, base + ["--mesh-shards", "1"], capsys)
+    assert rc == 0, err
+    assert one == plain
+    rc, four, err = _run(solver_cli.main, base + ["--mesh-shards", "4"], capsys)
+    assert rc == 0, err
+    assert "Optimal k: 2" in four and "Objective value: 1.934942" in four
+    assert "Optimality: certified" in four

@@ -330,5 +330,11 @@ def test_mp_rejects_unknown_dtype_and_shards():
     arrs, _ = _random_feasible(np.random.default_rng(3), m=6, n=12, B=2)
     with pytest.raises(ValueError, match="pdhg_dtype"):
         pdhg_solve_batch_mp(_port(arrs), dtype="bf16")
-    with pytest.raises(NotImplementedError, match="A13"):
-        pdhg_solve_batch_mp(_port(arrs), mesh_shards=2)
+    # The row-sharded engine takes one shared A: a per-element A on several
+    # shards is the refusal that remains; a shard count below 1 is refused.
+    A, b, c, l, u = _port(arrs)
+    per_element = LPBatch(A.expand(2, -1, -1).contiguous(), b, c, l, u)
+    with pytest.raises(NotImplementedError, match="B6c"):
+        pdhg_solve_batch_mp(per_element, mesh_shards=2)
+    with pytest.raises(ValueError, match="mesh_shards"):
+        pdhg_solve_batch_mp(_port(arrs), mesh_shards=0)

@@ -129,7 +129,7 @@ _SEARCH_CASES = [
     for M in (16, 128, 512)
     for lb in (None, "ipm", "pdhg")
     for it, dt, sh in ((None, None, None), (3000, None, None), (None, "f32", None),
-                       (500, "f64", None), (None, None, 2))
+                       (500, "f64", None), (None, None, 2), (None, "f32", 4))
 ]
 
 

@@ -15,6 +15,8 @@
 - So do the streaming replanner, the scenario sweep and the batch layout.
 - The convergence report layer (``distilp_torch/obs``) is the port's own
   copy and is checked like every other module.
+- So are the mesh, its collectives and the node-sharded sweep
+  (``distilp_torch/parallel``), with their kernel sources.
 """
 
 import ast
@@ -111,7 +113,7 @@ def test_kernel_sources_and_launch_counters():
         "ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
         "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
         "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes", "bnb_per_k_lanes",
-        "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
+        "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace", "pdhg_sharded", "collective",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
@@ -243,3 +245,49 @@ def test_sweep_variant_entry_points_need_a_gpu_by_default(profiles_dir, monkeypa
     mapping = map_experts(result.y, [1.0] * 4, normalize_loads(None, 8))
     with pytest.raises(RuntimeError, match="CUDA device"):
         realized_objective(devs, model, result, mapping, device=None)
+
+
+def test_the_mesh_modules_and_kernels_are_checked_and_run_without_jax(tmp_path):
+    """``distilp_torch/parallel`` is among the checked files, the row-sharded
+    PDHG (K6b) and the collectives have their own sources beside K5's
+    (whose source and flags stay as they were), each wrapper counts under
+    the name ``chip_smoke.py`` reads, and a sharded solve on a virtual CPU
+    mesh runs in a process that never loads JAX."""
+    import subprocess
+    import sys
+
+    from distilp_torch.kernels import build
+
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in ("__init__", "devices", "collectives", "mesh"):
+        assert f"distilp_torch/parallel/{name}.py" in files
+    assert build.SOURCES["pdhg_sharded"] == ("pdhg_sharded_kernel.cu", [])
+    assert build.SOURCES["collective"] == ("collective_kernel.cu", [])
+    assert build.SOURCES["pdhg"] == ("pdhg_kernel.cu", [])
+    for src in ("pdhg_sharded_kernel.cu", "collective_kernel.cu"):
+        text = (build.CSRC / src).read_text()
+        assert "Replaces" in text and "distilp_tpu/" in text and "What bounds it on an H100" in text
+    assert 'count_launch("pdhg_sharded"' in (REPO / "distilp_torch" / "ops" /
+                                              "meshlp.py").read_text()
+    assert 'count_launch("collective")' in (REPO / "distilp_torch" / "parallel" /
+                                             "collectives.py").read_text()
+    script = (
+        "import os, sys\n"
+        "os.environ['DISTILP_TORCH_VIRTUAL_DEVICES'] = '2'\n"
+        "from distilp_torch.common import load_from_profile_folder\n"
+        "from distilp_torch.solver import halda_solve\n"
+        "devs, model = load_from_profile_folder('tests/profiles/llama_3_70b/online')\n"
+        "tm = {}\n"
+        "r = halda_solve(devs, model, kv_bits='4bit', device='cpu', lp_backend='pdhg',\n"
+        "                mesh_shards=2, timings=tm)\n"
+        "assert r.certified and r.k == 2 and tm['mesh_shards'] == 2, (r, tm)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "    'distilp_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=600, env={"PATH": "/usr/bin:/bin",
+                                                       "PYTHONPATH": str(REPO),
+                                                       "HOME": str(tmp_path)})
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]

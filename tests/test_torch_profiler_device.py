@@ -68,9 +68,9 @@ def _device_info(gpu_name: str, multi: bool) -> DeviceInfo:
     return di
 
 
-@pytest.mark.parametrize("gpu_name", ["cuda", ""])
-def test_device_profile_mapping_equals_the_jax_package(monkeypatch, gpu_name):
-    di = _device_info(gpu_name, False)
+@pytest.mark.parametrize("gpu_name,multi", [("cuda", False), ("", False), ("cuda", True)])
+def test_device_profile_mapping_equals_the_jax_package(monkeypatch, gpu_name, multi):
+    di = _device_info(gpu_name, multi)
     jdi = jdt.DeviceInfo.model_validate_json(di.model_dump_json())
     monkeypatch.setattr(jdevice, "profile", lambda config, max_batch_exp=6: jdi)
     want = jdevice.profile_device(jload_config(CONFIG), max_batch_exp=3, is_head=False)
@@ -78,11 +78,12 @@ def test_device_profile_mapping_equals_the_jax_package(monkeypatch, gpu_name):
     assert got.model_dump() == want.model_dump()
     if gpu_name == "cuda":
         assert got.has_cuda and got.T_cuda == 2.9e12 and got.d_avail_cuda == int(8.4e10)
+    if multi:  # several devices: the timed collectives' terms (DCN: two slices)
+        assert got.t_comm > 0 and (got.comm_latency, got.comm_bandwidth) == (1e-3, 3e9)
 
 
 @pytest.mark.parametrize("gpu_name,multi,error", [
-    ("tpu", False, ValueError), ("metal", False, ValueError),
-    ("cuda", True, NotImplementedError)])
+    ("tpu", False, ValueError), ("metal", False, ValueError)])
 def test_device_profile_mapping_refuses_what_the_port_does_not_measure(gpu_name, multi,
                                                                        error):
     with pytest.raises(error):
@@ -297,12 +298,18 @@ def test_one_device_interconnect_is_unmeasured(monkeypatch):
     assert topology.estimate_t_comm(16384, info=info) == 0.0
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert topology.measure_interconnect(device="cuda").provenance == "unmeasured"
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        topology.measure_interconnect(device="cuda")
+    # Several devices are probed now (K9c): two shards of a virtual CPU mesh
+    # time the collectives and say so; a multi-slice info prices the
+    # slowest link as the JAX package does.
+    two = topology.measure_interconnect(latency_iters=2, bandwidth_mb=1,
+                                        devices=["cpu", "cpu"])
+    assert two.num_devices == 2 and two.provenance == "virtual"
     multi = _device_info("cuda", True).interconnect
-    with pytest.raises(NotImplementedError, match="A13"):
-        topology.estimate_t_comm(16384, info=multi)
+    from distilp_tpu.profiler import topology as jtopology
+
+    jmulti = jdt.InterconnectInfo.model_validate_json(multi.model_dump_json())
+    assert topology.estimate_t_comm(16384, info=multi) == \
+        jtopology.estimate_t_comm(16384, info=jmulti) == 1e-3 + 16384 / 3e9
 
 
 def test_profile_device_needs_a_gpu_by_default(monkeypatch):

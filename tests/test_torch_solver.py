@@ -190,9 +190,12 @@ def test_jax_result_seeds_the_port(profiles_dir):
     assert np.asarray(warm.ipm_state["v"]).dtype == np.float64
 
 
-def test_unported_options_raise(profiles_dir):
+def test_unported_options_raise(profiles_dir, monkeypatch):
     devs, model = load_from_profile_folder(profiles_dir / "llama_3_70b" / "online")
-    with pytest.raises(NotImplementedError):
+    # Shards need devices: with one CPU and no virtual mesh declared, the
+    # mesh is refused as the reference's shard_mesh refuses it.
+    monkeypatch.delenv("DISTILP_TORCH_VIRTUAL_DEVICES", raising=False)
+    with pytest.raises(ValueError, match="DISTILP_TORCH_VIRTUAL_DEVICES"):
         halda_solve(devs, model, kv_bits="4bit", device="cpu", lp_backend="pdhg",
                     mesh_shards=2)
     # Convergence telemetry is ported: the JAX package's keys.
