@@ -453,6 +453,101 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+@contextlib.contextmanager
+def launch_bounds(out: dict):
+    """Sum into ``out`` ({kernel: ms}) the bound of every kernel call the
+    search makes inside the block, each from the call's own inputs and
+    executed work: an LP call's as phase 3 computes it (``ipm_flops_bytes``
+    on the sweep's structure, ``pdhg_flops_bytes``; the executed steps),
+    K7's from the evaluations its ascent launched (``decomp_flops_bytes``
+    per instance, at the float32 peak), K2 MoE's from
+    ``round_moe_bytes_flops``, dense K2's and K3's from their tensors' bytes
+    (each input read once, each output written once). A host loop's bound
+    (B12, K10) is the sum over its launches. The hooks read results back,
+    so the block is a separate, untimed run."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.ops.ipm import ipm_sparsity
+    from distilp_torch.ops.pdhg import PDHG_DEFAULT_CHUNK, ElemA
+    from distilp_torch.solver import search
+    from distilp_torch.solver.standard_form import MOE_LOCAL_MOVES
+
+    def nbytes(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.numel() * obj.element_size()
+        if isinstance(obj, (tuple, list)):
+            return sum(nbytes(o) for o in obj)
+        return 0
+
+    def add(name, flops, nb, peak):
+        out[name] = out.get(name, 0.0) + bound_ms(flops, nb, peak)[0]
+
+    def ipm(batch, *a, **kw):
+        res = orig["ipm_solve_batch"](batch, *a, **kw)
+        A = batch.A
+        sp = kw.get("sparsity") or ipm_sparsity((A != 0).reshape(-1, *A.shape[-2:]).any(0))
+        isz = res.v.element_size()
+        flops, nb = ipm_flops_bytes(sp, batch.b.shape[0], int(res.iters_run.sum()), isz,
+                                    kw.get("warm") is not None,
+                                    a_copies=A.shape[0] if A.dim() == 3 else 1)
+        add("ipm", flops, nb, PEAK_F64_S if isz == 8 else PEAK_F32_S)
+        return res
+
+    def pdhg(batch, *a, **kw):
+        res = orig["pdhg_solve_batch"](batch, *a, **kw)
+        A, (B, n), m = batch.A, batch.c.shape, batch.b.shape[1]
+        isz = res.v.element_size()
+        if isinstance(A, ElemA):
+            nnz, a_bytes = A.sparsity.nnz, elem_a_bytes(A.sparsity, B, isz)
+        else:
+            nnz, a_bytes = int(torch.count_nonzero(A)), None
+        flops, nb, _ = pdhg_flops_bytes(m, n, nnz, B, res.iters_run.tolist(),
+                                        PDHG_DEFAULT_CHUNK, isz, kw.get("warm") is not None,
+                                        a_bytes=a_bytes)
+        add("pdhg_elem" if isinstance(A, ElemA) else "pdhg", flops, nb,
+            PEAK_F64_S if isz == 8 else PEAK_F32_S)
+        return res
+
+    def rounding(v, W, k, rd, packed=None, moe=False, y_steps=None, *a, **kw):
+        res = orig["round_to_incumbent"](v, W, k, rd, packed, moe, y_steps, *a, **kw)
+        if moe:
+            moves = kw.get("moves", a[0] if a else MOE_LOCAL_MOVES)
+            flops, nb = round_moe_bytes_flops(v.shape[0], rd.a.shape[-1], moves,
+                                              y_steps or 0, 0)
+            add("round_moe", flops, nb, PEAK_F64_S)
+        else:
+            nb = nbytes((v, W, k, rd if packed is None else packed, kw.get("inst"), res))
+            add("round_incumbent", 0, nb, PEAK_F64_S)
+        return res
+
+    def epilogue(*a, **kw):
+        res = orig["bnb_epilogue"](*a, **kw)
+        add("bnb_epilogue", 0, nbytes((a, tuple(kw.values()), res)), PEAK_F64_S)
+        return res
+
+    def decomp(p32, *a, **kw):
+        before = kernels.LAUNCHES["decomp"] + kernels.LAUNCHES["decomp_lanes"]
+        res = orig["decomp_bound_roots"](p32, *a, **kw)
+        evals = kernels.LAUNCHES["decomp"] + kernels.LAUNCHES["decomp_lanes"] - before
+        for s in range(p32.ks.shape[0]):
+            flops, nb, _ = decomp_flops_bytes(p32.instance(s), evals)
+            add("decomp", flops, nb, PEAK_F32_S)
+        return res
+
+    hooks = {"ipm_solve_batch": ipm, "pdhg_solve_batch": pdhg,
+             "round_to_incumbent": rounding, "bnb_epilogue": epilogue,
+             "decomp_bound_roots": decomp}
+    orig = {name: getattr(search, name) for name in hooks}
+    for name, fn in hooks.items():
+        setattr(search, name, fn)
+    try:
+        yield out
+    finally:
+        for name, fn in orig.items():
+            setattr(search, name, fn)
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -3671,9 +3766,13 @@ def stream_path() -> dict:
     sc_ms = [timed(lambda: halda_solve_scenarios(scen, model, kv_bits="4bit", mip_gap=gap,
                                                  warms=[planner.last] * 8))[1]
              for _ in range(3)]
+    with uncounted(), launch_bounds({}) as lb:
+        halda_solve_scenarios(scen, model, kv_bits="4bit", mip_gap=gap,
+                              warms=[planner.last] * 8)
     print(f"scenarios north_star x8: median {statistics.median(sc_ms):.2f} ms "
           f"({8000.0 / statistics.median(sc_ms):.1f} placements/s); rounds="
-          f"{tm.get('bnb_rounds')} search_ms={tm.get('solve_ms', 0.0):.2f}", flush=True)
+          f"{tm.get('bnb_rounds')} search_ms={tm.get('solve_ms', 0.0):.2f}; bound of its "
+          f"launches {sum(lb.values())!r} ms {json.dumps(lb)}", flush=True)
     if "scenario_fallback" in tm:
         fail("the north-star scenarios took the fallback")
     for i, (f, r) in enumerate(zip(scen, rs)):
@@ -3875,6 +3974,10 @@ def elem_path():
         for (s, (k, pin)), (_, best) in zip(LANES128, out):
             held_to(f"lane fleet_M128 seed {s}", best, pin, FLEET128_GAP, k=k)
         lanes_elem = kernels.LAUNCHES["pdhg_elem"]
+        with uncounted(), launch_bounds({}) as lb:
+            solve_batch(insts)
+        print(f"lanes fleet_M128 x2: bound of its launches {sum(lb.values())!r} ms "
+              f"{json.dumps(lb)}", flush=True)
         base = fleets[123]
         tm = {}
         rs, ms = timed(lambda: halda_solve_scenarios(
@@ -3995,8 +4098,8 @@ def diagnose_path() -> dict:
 # Collective bounds: a reduction reads S parts once and writes one result,
 # per receiving shard; S - 1 operations per element.
 MESH_SHARDS = (2, 4)
-MESH_KERNELS = ("pdhg_sharded", "collective", "pdhg", "ipm", "round_incumbent", "round_moe",
-                "bnb_epilogue", "decomp")
+MESH_KERNELS = ("pdhg_sharded", "pdhg_sharded_elem", "collective", "pdhg", "ipm",
+                "round_incumbent", "round_moe", "bnb_epilogue", "decomp")
 # K6b against the unsharded K5 at equal step counts: float64 obj and bound
 # within 1e-9 relative (the two sum the same products in another order);
 # float32 holds the float64 bound as check_pdhg does (TOL_PDHG_F32_CERT).
@@ -4086,14 +4189,17 @@ def check_collective(report: dict) -> None:
 
 
 def sharded_flops_bytes(m: int, n: int, nnz: int, B: int, S: int, iters_run, chunk: int,
-                        itemsize: int, warm: bool = False):
+                        itemsize: int, warm: bool = False, a_bytes=None):
     """Least work of one row-sharded solve: K5's (pdhg_flops_bytes, A read
-    once over all shards) plus the collectives' bytes, each exchange S
-    parts read and one result written per receiving shard: per step the
-    (B, n) column partial and the (B, 3) step scalars, per chunk two (B,)
-    scalars, at setup and exit the column 1-norms, the warm start's and the
-    certificate's (float64) column partials."""
-    flops, nbytes, _ = pdhg_flops_bytes(m, n, nnz, B, iters_run, chunk, itemsize, warm)
+    once over all shards; a per-element A passes ``a_bytes``: each shard's
+    values read once per element and its block's structure once) plus the
+    collectives' bytes, each exchange S parts read and one result written
+    per receiving shard: per step the (B, n) column partial and the (B, 3)
+    step scalars, per chunk two (B,) scalars, at setup and exit the column
+    1-norms, the warm start's and the certificate's (float64) column
+    partials."""
+    flops, nbytes, _ = pdhg_flops_bytes(m, n, nnz, B, iters_run, chunk, itemsize, warm,
+                                        a_bytes=a_bytes)
     steps = max(int(i) for i in iters_run)
     chunks = -(-steps // chunk) + 1
     per = lambda ln, sz: S * (S + 1) * ln * sz  # noqa: E731
@@ -4103,10 +4209,11 @@ def sharded_flops_bytes(m: int, n: int, nnz: int, B: int, S: int, iters_run, chu
     return flops, nbytes + coll
 
 
-def at_equal_steps(batch, k, r, run_k, run_r):
+def at_equal_steps(batch, k, r, run_k, run_r, warm=None):
     """Two runs' (bound, obj) with every element at equal step counts: an
     element the two stopped at different chunks is run again in both
-    (``run_k(sub_batch, steps)``, ``run_r(...)``) with the budget cut to the
+    (``run_k(sub_batch, steps)``, ``run_r(...)``; with ``warm``, the
+    element's warm state as a third argument) with the budget cut to the
     earlier stop. Returns ((bound, obj) of k, of r, {element: steps})."""
     import torch
 
@@ -4117,8 +4224,10 @@ def at_equal_steps(batch, k, r, run_k, run_r):
     rerun = {}
     for e in torch.nonzero(k.iters_run != r.iters_run).flatten().tolist():
         steps = int(torch.minimum(k.iters_run[e], r.iters_run[e]))
-        sub = LPBatch(batch.A, *(t[e:e + 1] for t in batch[1:]))
-        ke, re = run_k(sub, steps), run_r(sub, steps)
+        sub = LPBatch(a_rows(batch.A, e, e + 1), *(t[e:e + 1] for t in batch[1:]))
+        args = (sub, steps) if warm is None else (
+            sub, steps, type(warm)(*(t[e:e + 1] for t in warm)))
+        ke, re = run_k(*args), run_r(*args)
         kb[e], rb[e], ko[e], ro[e] = ke.bound[0], re.bound[0], ke.obj[0], re.obj[0]
         rerun[e] = steps
     return (kb, ko), (rb, ro), rerun
@@ -4258,17 +4367,328 @@ def check_pdhg_sharded(report: dict) -> None:
     )
 
 
+def mixtral_mesh_calls(S: int = 2):
+    """The K6b calls of Mixtral M=4's solve at ``S`` shards (gap 1e-3, kv
+    8bit, the PDHG engine; run here uncounted): the root round's (B=4, m=34,
+    n=65) and the first 16-node round's, each ``(batch, iters, warm, skip)``
+    as the search sends them."""
+    import os
+
+    from distilp_torch.parallel import VIRTUAL_DEVICES_ENV
+    from distilp_torch.solver import halda_solve, search
+    from distilp_torch.utils import make_synthetic_fleet
+
+    name, config, M, seed, pool, _ = MOE_CASES[0]
+    model = moe_model(config)
+    devs = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool))
+    calls: list = []
+    saved = os.environ.get(VIRTUAL_DEVICES_ENV)
+    os.environ[VIRTUAL_DEVICES_ENV] = "8"  # this solve's own virtual mesh
+    try:
+        with uncounted(), captured(search, "sharded_pdhg", calls):
+            halda_solve(devs, model, mip_gap=MOE_GAP, kv_bits="8bit", lp_backend="pdhg",
+                        mesh_shards=S)
+    finally:
+        if saved is None:
+            del os.environ[VIRTUAL_DEVICES_ENV]
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = saved
+    root = calls[0]
+    wide = next((c for c in calls if c[0][0].b.shape[0] == 16), None)
+    if wide is None:
+        fail(f"the {name} solve at S={S} sent no 16-node batch to K6b")
+    return [(label, a[0], a[2], kw.get("warm"), kw.get("skip"))
+            for label, (a, kw) in (("root", root), ("nodes16", wide))]
+
+
+def check_pdhg_sharded_elem(report: dict) -> None:
+    """K6b's per-element entry (B6c) on Mixtral M=4's MoE node A's as its
+    solve at S=2 sends them (the root round, B=4, m=34, n=65, and the first
+    round of 16 nodes, warm, some skipped), at S=2 and S=4 on a virtual mesh
+    of cuda:0, float64 and float32: against the unsharded K5 per-element
+    entry at equal step counts, against the sharded plain version on the
+    card, every shard's copy of the result bit for bit equal, a traced
+    launch equal to the untraced one; then its time per call, launches per
+    step and bound at the root round."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.ops.meshlp import shard_rows, sharded_pdhg, sharded_pdhg_reference
+    from distilp_torch.ops.pdhg import (
+        DEFAULT_RESTART_TOL,
+        PDHG_DEFAULT_CHUNK,
+        _default_tol_pdhg,
+        cast_batch,
+        pdhg_solve_batch,
+    )
+
+    rt = DEFAULT_RESTART_TOL
+    fields = ("v", "bound", "obj", "reduced", "y_dual", "z_dual", "f_dual")
+    cases = mixtral_mesh_calls()
+    rows, bad = [], []
+    for label, batch0, iters, warm0, skip in cases:
+        for dtype in (torch.float64, torch.float32):
+            batch = cast_batch(batch0, dtype)
+            warm = None if warm0 is None else type(warm0)(
+                *(t.to(dtype) if t.is_floating_point() else t for t in warm0))
+            tol = _default_tol_pdhg(dtype)
+            m = batch.b.shape[1]
+            k5 = pdhg_solve_batch(batch, iters=iters, tol=tol, restart_tol=rt, warm=warm,
+                                  skip=skip)
+            for S in MESH_SHARDS:
+                mesh = virtual_mesh(S)
+                reps: list = []
+                kernels.reset_launch_counts()
+                k = sharded_pdhg(batch, mesh, iters, tol, rt, warm=warm, skip=skip,
+                                 replicas=reps)
+                torch.cuda.synchronize()
+                n_launch = kernels.LAUNCHES["pdhg_sharded_elem"]
+                n_coll = kernels.LAUNCHES["collective"]
+                same = all(torch.equal(bits(getattr(a, f)), bits(getattr(reps[0], f)))
+                           for a in reps for f in fields) and all(
+                    torch.equal(a.iters_run, reps[0].iters_run)
+                    and torch.equal(a.converged, reps[0].converged) for a in reps)
+                tr = sharded_pdhg(batch, mesh, iters, tol, rt, warm=warm, skip=skip,
+                                  trace=True)
+                torch.cuda.synchronize()
+                traced_same = all(torch.equal(bits(getattr(tr, f)), bits(getattr(k, f)))
+                                  for f in fields) and torch.equal(
+                    tr.iters_run, k.iters_run) and torch.equal(tr.converged, k.converged)
+                traced_rows = int((tr.trace_buf[..., 5] > 0).sum())
+                run_s = (lambda sub, st, sw=None, mesh=mesh, tol=tol:  # noqa: E731
+                         sharded_pdhg(sub, mesh, st, tol, rt, warm=sw))
+                run_5 = (lambda sub, st, sw=None, tol=tol:  # noqa: E731
+                         pdhg_solve_batch(sub, iters=st, tol=tol, restart_tol=rt, warm=sw))
+                (kb, ko), (rb, ro), rerun = at_equal_steps(batch, k, k5, run_s, run_5, warm)
+                vs_k5 = {"bound": max_err(kb, rb)[1], "obj": max_err(ko, ro)[1]}
+                line = {"batch": label, "S": S, "dtype": str(dtype).split(".")[-1],
+                        "B": int(batch.b.shape[0]), "m": m, "n": int(batch.c.shape[1]),
+                        "nnz": batch.A.sparsity.nnz, "iters": iters,
+                        "iters_run": k.iters_run.tolist(),
+                        "iters_run_k5": k5.iters_run.tolist(),
+                        "converged": k.converged.tolist(),
+                        "max_rel_vs_unsharded_k5": vs_k5, "rerun_at_equal_steps": rerun,
+                        "replicas_bit_equal": same, "traced_equal_untraced": traced_same,
+                        "trace_rows": traced_rows, "launches": n_launch,
+                        "collective_launches": n_coll,
+                        "launches_per_step": (n_launch + n_coll) / max(
+                            1, int(k.iters_run.max()))}
+                if dtype == torch.float64 or S == 4:
+
+                    def plain(sub, st, sw=None, S=S, tol=tol, m=m, sk=None):
+                        A_b, b_b, wv, wy_b, wok = shard_rows(sub, S, sw)
+                        out = sharded_pdhg_reference(A_b, b_b, sub.c, sub.l, sub.u, st, tol,
+                                                     rt, wv=wv, wy=wy_b, wok=wok, skip=sk)
+                        return out._replace(y_dual=out.y_dual[:, :m])
+
+                    r = plain(batch, iters, warm, sk=skip)
+                    torch.cuda.synchronize()
+                    errs = {f: max_err(getattr(k, f), getattr(r, f))
+                            for f in ("v", "bound", "obj", "y_dual", "reduced")}
+                    (kb2, _), (rb2, _), rerun2 = at_equal_steps(batch, k, r, run_s, plain,
+                                                                warm)
+                    line["max_rel_vs_sharded_plain"] = {f: e[1] for f, e in errs.items()}
+                    line["max_abs_bound_vs_sharded_plain"] = max_err(kb2, rb2)[0]
+                    line["iters_run_plain"] = r.iters_run.tolist()
+                    line["plain_rerun_at_equal_steps"] = rerun2
+                    if dtype == torch.float64:
+                        line["plain_ok"] = not rerun2 and all(
+                            e[1] <= TOL_PDHG_F64 for e in errs.values())
+                    else:
+                        line["plain_ok"] = max_err(kb2, rb2)[1] <= TOL_PDHG_F32_CERT
+                tol_k5 = TOL_PDHG_SHARDED_F64 if dtype == torch.float64 else TOL_PDHG_F32_CERT
+                held = vs_k5["bound"] <= tol_k5 and (
+                    dtype != torch.float64 or vs_k5["obj"] <= tol_k5)
+                line["ok"] = bool(held and same and traced_same and traced_rows > 0
+                                  and line.get("plain_ok", True))
+                print("pdhg_sharded_elem", json.dumps(line), flush=True)
+                rows.append(line)
+                if not line["ok"]:
+                    bad.append((label, S, line["dtype"]))
+    if bad:
+        fail(f"pdhg_sharded_elem disagrees with K5's per-element entry, its plain version, "
+             f"across shards or traced in (batch, S, dtype) {bad}")
+
+    # Time at the main path's shape: the root round in float32 (the solve's
+    # iterate dtype), S=2 and 4, beside the unsharded K5 per-element launch
+    # on the same rows and two batched library products a step.
+    _, batch, iters, warm, skip = cases[0]
+    B, n = batch.c.shape
+    m = batch.b.shape[1]
+    sp = batch.A.sparsity
+    tol = _default_tol_pdhg(torch.float32)
+    timing = {}
+    for S in MESH_SHARDS:
+        mesh = virtual_mesh(S)
+        run = lambda: sharded_pdhg(batch, mesh, iters, tol, rt, warm=warm,  # noqa: E731
+                                   skip=skip)
+        res = run()
+        call = cuda_ms(run, reps=3, warmup=1)
+        busy = device_ms(run, "pdhgs_kernel", reps=2)
+        kernels.reset_launch_counts()
+        run()
+        launches = kernels.LAUNCHES["pdhg_sharded_elem"]
+        coll = kernels.LAUNCHES["collective"]
+        busy_total = None if busy is None else busy * launches
+        blocks, _, _, _, _ = shard_rows(batch, S)
+        a_bytes = sum(elem_a_bytes(b.sparsity, B, 4) for b in blocks)
+        flops, nbytes = sharded_flops_bytes(m, n, sp.nnz, B, S, res.iters_run.tolist(),
+                                            PDHG_DEFAULT_CHUNK, 4, warm=warm is not None,
+                                            a_bytes=a_bytes)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+        steps = int(res.iters_run.max())
+        timing[S] = dict(ms=call, device_busy_ms=busy_total, launches=launches,
+                         collective_launches=coll, steps=steps,
+                         launches_per_step=(launches + coll) / max(1, steps),
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"pdhg_sharded_elem Mixtral M=4 root S={S} float32: {call:.3f} ms a call "
+              f"(CUDA events), device busy {busy_total} ms in {launches} launches "
+              f"(+{coll} collective), {steps} steps, {(launches + coll) / max(1, steps):.2f} "
+              f"launches a step, bound {b_ms:.7f} ms by {b_by}", flush=True)
+    k5 = cuda_ms(lambda: pdhg_solve_batch(batch, iters=iters, tol=tol, restart_tol=rt,
+                                          warm=warm, skip=skip), reps=5, warmup=1)
+    A3 = batch.A.dense()
+    X = torch.rand(B, n, 1, device="cuda")
+    Y = torch.rand(B, m, 1, device="cuda")
+    mm = cuda_ms(lambda: (torch.bmm(A3, X), torch.bmm(A3.transpose(1, 2), Y)))
+    A_b, b_b, wv, wy_b, wok = shard_rows(batch, 4, warm)
+    plain = cuda_ms(lambda: sharded_pdhg_reference(A_b, b_b, batch.c, batch.l, batch.u,
+                                                   iters, tol, rt, wv=wv, wy=wy_b, wok=wok,
+                                                   skip=skip), reps=1, warmup=0)
+    t4 = timing[4]
+    print(f"pdhg_sharded_elem root: unsharded K5 per-element {k5:.3f} ms, bmm pair "
+          f"{mm:.4f} ms x {t4['steps']} steps, sharded plain S=4 {plain:.1f} ms", flush=True)
+    report["pdhg_sharded_elem"] = dict(
+        name="pdhg_sharded_elem", route="cuda",
+        source="distilp_torch/kernels/csrc/pdhg_sharded_kernel.cu",
+        replaces="distilp_tpu/ops/meshlp.py:155",
+        max_abs_err=max(r_["max_abs_bound_vs_sharded_plain"] for r_ in rows
+                        if "max_abs_bound_vs_sharded_plain" in r_),
+        max_rel_vs_unsharded_k5=max(r_["max_rel_vs_unsharded_k5"]["bound"] for r_ in rows),
+        ms=t4["ms"], plain_ms=plain, bound_ms=t4["bound_ms"], bound_by=t4["bound_by"],
+        library_ms=k5, library="the unsharded K5 per-element launch on the same rows",
+        library_bmm_ms=mm * t4["steps"], library_bmm_step_ms=mm,
+        held_against_plain="ok", device_busy_ms=t4["device_busy_ms"], steps=t4["steps"],
+        launches_per_step=t4["launches_per_step"],
+        shapes_timed=f"Mixtral M=4 root round B={B} m={m} n={n} nnz={sp.nnz}, float32, "
+                     f"S=4, {iters} steps budget",
+        s2=timing[2],
+    )
+
+
 MESH_SWEEP_GAP = 1e-4  # the north star through the node-sharded sweep (pin at 1e-4)
+# MoE on the row mesh (B6c), pins from the JAX package on the CPU
+# (distilp_tpu.solver.halda_solve(make_synthetic_fleet(M, seed=7,
+# pool_bytes=64e9), Mixtral 8x7B, kv_bits="8bit", backend="jax",
+# lp_backend="pdhg", mesh_shards=S) on a forced 4-device host mesh):
+# (name, M, gap, S, (k, objective), w or None).
+MIXTRAL_MESH_CASES = [
+    ("mixtral_M4", 4, 1e-3, 2, (4, -132.93320566181376), [1, 5, 1, 1]),
+    ("mixtral_M4", 4, 1e-3, 4, (4, -132.93320566181376), [1, 5, 1, 1]),
+    ("mixtral_M16", 16, 1e-4, 2, (2, -405.8689785429697), [1] * 16),
+]
+# The JAX package's StreamingReplanner(mip_gap=1e-3, kv_bits="8bit",
+# backend="jax", search={"lp_backend": "pdhg", "mesh_shards": 2}) on Mixtral
+# M=4 (the fleet above), a cold tick and three ticks of +-5% t_comm drift
+# (numpy default_rng(7), drift() below): (objective, tick mode), each k=4.
+MIXTRAL_MESH_TICK_PINS = [(-132.93320566181376, "cold"), (-132.8993793850156, "margin"),
+                          (-132.92550041503156, "margin"), (-132.94391814495046, "margin")]
+
+
+def moe_mesh_solves() -> None:
+    """MoE nodes on the row mesh (K6b's per-element entry, B6c), counted as
+    the ``mesh`` path's own work: Mixtral M=4 at S=2 and S=4, M=16 at S=2,
+    M=4's per-k optima, its async solve with the convergence telemetry and
+    its streaming replanner at S=2, each held to the JAX package's pin,
+    each wall with its launches by shape."""
+    import numpy as np
+
+    from distilp_torch import kernels
+    from distilp_torch.solver import (
+        StreamingReplanner,
+        halda_solve,
+        halda_solve_async,
+        halda_solve_per_k,
+    )
+    from distilp_torch.utils import make_synthetic_fleet
+
+    name, config, M, seed, pool, _ = MOE_CASES[0]
+    model = moe_model(config)
+
+    def counted(label, fn):
+        before = dict(kernels.LAUNCHES)
+        shapes = dict(kernels.SHAPES["pdhg_sharded_elem"])
+        out, ms = timed(fn)
+        delta = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        by_shape = {sh: c - shapes.get(sh, 0)
+                    for sh, c in kernels.SHAPES["pdhg_sharded_elem"].items()
+                    if c != shapes.get(sh, 0)}
+        print(f"  {label}: wall_ms={ms:.2f} launches {json.dumps(delta)} "
+              f"pdhg_sharded_elem by shape {json.dumps(by_shape)}", flush=True)
+        if not delta.get("pdhg_sharded_elem"):
+            fail(f"{label} never launched pdhg_sharded_elem")
+        return out, ms
+
+    for case, Mx, gap, S, (k_pin, pin), w_pin in MIXTRAL_MESH_CASES:
+        devs = make_synthetic_fleet(Mx, seed=seed, pool_bytes=int(pool))
+        tm: dict = {}
+        r, ms = counted(f"{case} mesh_shards={S}", lambda: halda_solve(
+            devs, model, mip_gap=gap, kv_bits="8bit", lp_backend="pdhg", mesh_shards=S,
+            timings=tm))
+        show(f"{case}_S{S}", r, ms, tm)
+        held_to(f"{case} mesh_shards={S}", r, pin, gap, k=k_pin)
+        if r.w != w_pin or tm.get("mesh_shards") != S or sum(r.y) != model.n_routed_experts:
+            fail(f"{case} at S={S}: w={r.w} shards {tm.get('mesh_shards')} sum(y)={sum(r.y)}")
+
+    devs = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool))
+    rs, ms = counted("mixtral_M4 per-k mesh_shards=2", lambda: halda_solve_per_k(
+        devs, model, mip_gap=MOE_GAP, kv_bits="8bit", lp_backend="pdhg", mesh_shards=2))
+    got = {r.k: r for r in rs}
+    if sorted(got) != sorted(MIXTRAL_PER_K):
+        fail(f"per-k mixtral_M4 at S=2: k's {sorted(got)}, pinned {sorted(MIXTRAL_PER_K)}")
+    for k, pin in sorted(MIXTRAL_PER_K.items()):
+        rel = abs(got[k].obj_value - pin) / abs(pin)
+        print(f"  mixtral_M4 per-k S=2 k={k}: objective {got[k].obj_value!r} vs {pin!r}: "
+              f"relative difference {rel!r} (allowed {2 * MOE_GAP!r}) "
+              f"certified={got[k].certified}", flush=True)
+        if rel > 2 * MOE_GAP or not got[k].certified:
+            fail(f"per-k mixtral_M4 at S=2 k={k}: {got[k].obj_value} vs {pin}")
+
+    conv: dict = {}
+    tm: dict = {}
+    r, _ = counted("mixtral_M4 async mesh_shards=2 with convergence", lambda: halda_solve_async(
+        devs, model, mip_gap=MOE_GAP, kv_bits="8bit", lp_backend="pdhg", mesh_shards=2,
+        timings=tm, convergence=conv).collect())
+    held_to("mixtral_M4 async mesh_shards=2", r, MIXTRAL_MESH_CASES[0][4][1], MOE_GAP, k=4)
+    print(f"  convergence: {len(conv.get('round_log', []))} rounds logged of "
+          f"{tm.get('bnb_rounds')}, root trace rows {len(conv.get('root_trace') or [])}",
+          flush=True)
+    if len(conv.get("round_log", [])) != int(tm.get("bnb_rounds", -1)) or \
+            not conv.get("root_trace"):
+        fail(f"mixtral_M4 async at S=2: convergence {sorted(conv)} timings {tm}")
+
+    planner = StreamingReplanner(mip_gap=MOE_GAP, kv_bits="8bit",
+                                 search={"lp_backend": "pdhg", "mesh_shards": 2})
+    rng = np.random.default_rng(7)
+    for t, (pin, mode) in enumerate(MIXTRAL_MESH_TICK_PINS):
+        if t:
+            drift(devs, rng)
+        r, _ = counted(f"mixtral_M4 tick {t} mesh_shards=2", lambda: planner.step(devs, model))
+        held_to(f"mixtral_M4 tick {t} ({planner.last_tick_mode}) mesh_shards=2", r, pin,
+                MOE_GAP, k=4)
+        if planner.last_tick_mode != mode:
+            fail(f"mixtral_M4 tick {t} at S=2: mode {planner.last_tick_mode}, JAX {mode}")
 
 
 def mesh_path() -> dict:
     """The multi-device engine on a virtual mesh of this card: the 128-device
     fleet with ``mesh_shards=4`` (median of 3; ``mesh_shards=1`` equal to the
     default solve bit for bit), the 512-device fleet at S=4, the online
-    golden at S=4, the north star and Mixtral M=8 through the node-sharded
-    sweep on 8 shards (the north star's placement equal to the unsharded
-    sweep's at the padded capacity and beam), ``solver --mesh-shards 4``,
-    and ``measure_interconnect`` over 4 shards."""
+    golden at S=4, MoE nodes on the row mesh (``moe_mesh_solves``), the
+    north star and Mixtral M=8 through the node-sharded sweep on 8 shards
+    (the north star's placement equal to the unsharded sweep's at the padded
+    capacity and beam), ``solver --mesh-shards 4`` and ``--mesh-shards 2``
+    on the Mixtral profile, and ``measure_interconnect`` over 4 shards."""
     import statistics
 
     from distilp_torch import kernels
@@ -4313,6 +4733,7 @@ def mesh_path() -> dict:
     held_to("online golden mesh_shards=4", ro, 1.934942, 1e-4, k=2)
     if ro.w != [13, 27]:
         fail(f"online golden at S=4: w={ro.w}")
+    moe_mesh_solves()
 
     mesh8 = make_mesh(8)
     print(f"node mesh: {len(mesh8.devices)} shards on {sorted({str(d) for d in mesh8.devices})}"
@@ -4325,8 +4746,11 @@ def mesh_path() -> dict:
     w = [int(round(float(x))) for x in state.inc_w[0]]
     nn = [int(round(float(x))) for x in state.inc_n[0]]
     cap, beam = state.node_lo.shape[1], None
+    with uncounted(), launch_bounds({}) as lb:
+        solve_sweep_sharded(arrays, feasible, coeffs, mesh8, mip_gap=MESH_SWEEP_GAP)
     print(f"sweep north_star_M16 on 8 shards: incumbent {inc!r} bound {bd!r} k={sf.ks[kidx]} "
-          f"cap={cap} wall_ms={ms:.2f}", flush=True)
+          f"cap={cap} wall_ms={ms:.2f}; bound of its launches {sum(lb.values())!r} ms "
+          f"{json.dumps(lb)}", flush=True)
     if not (inc - bd <= MESH_SWEEP_GAP * abs(inc) + 1e-12) or \
             abs(inc - NORTH_STAR_OBJ) > 2 * MESH_SWEEP_GAP * abs(NORTH_STAR_OBJ) or cap % 8:
         fail(f"sharded sweep north star: {inc} bound {bd} cap {cap}")
@@ -4353,8 +4777,11 @@ def mesh_path() -> dict:
                                                           mip_gap=MOE_GAP))
     inc, bd = float(state.incumbent[0]), float(best_bound(state)[0])
     ysum = int(round(float(state.inc_y[0].sum())))
+    with uncounted(), launch_bounds({}) as lb:
+        solve_sweep_sharded(arrays_m, kWs_m, coeffs_m, mesh8, mip_gap=MOE_GAP)
     print(f"sweep {name} on 8 shards: incumbent {inc!r} (pin {pin!r}) bound {bd!r} "
-          f"sum(y)={ysum} wall_ms={ms:.2f}", flush=True)
+          f"sum(y)={ysum} wall_ms={ms:.2f}; bound of its launches {sum(lb.values())!r} ms "
+          f"{json.dumps(lb)}", flush=True)
     if not (inc - bd <= MOE_GAP * abs(inc) + 1e-12) or abs(inc - pin) > 2 * MOE_GAP * abs(pin) \
             or ysum != model_m.n_routed_experts:
         fail(f"sharded sweep {name}: {inc} bound {bd} sum(y) {ysum}")
@@ -4366,10 +4793,37 @@ def mesh_path() -> dict:
     print(stdout[-800:], flush=True)
     if rc != 0 or "Optimality: certified" not in stdout:
         fail(f"solver --mesh-shards 4 exited {rc}:\n{err[-2000:]}")
+    moe_child: dict = {}
+    rc, stdout, err, wall = run_cli("distilp_torch.cli.solver_cli", [
+        "-p", "tests/profiles/mixtral_8x7b", "--kv-bits", "8bit", "--lp-backend", "pdhg",
+        "--mesh-shards", "2"], moe_child)
+    print(stdout[-400:], flush=True)
+    print(f"  solver --mesh-shards 2 mixtral_8x7b: {wall:.1f} s, launches "
+          f"{json.dumps({k: v for k, v in moe_child.items() if v and k != '_shapes'})} "
+          f"by shape {json.dumps(moe_child.get('_shapes', {}).get('pdhg_sharded_elem', {}))}",
+          flush=True)
+    # The JAX CLI prints k 4 and -82.677178 on this profile (tests/test_torch_cli.py).
+    if rc != 0 or "Optimality: certified" not in stdout or "Optimal k: 4" not in stdout \
+            or "Objective value: -82.677178" not in stdout:
+        fail(f"solver --mesh-shards 2 on mixtral_8x7b exited {rc}:\n{err[-2000:]}")
+    for k, v in moe_child.items():
+        if k == "_shapes":
+            merge_shapes(child.setdefault("_shapes", {}), v)
+        else:
+            child[k] = child.get(k, 0) + v
     info = measure_interconnect(devices=virtual_mesh(4))
+    # Its bound: 11 psums of a (1, 8) float32 row a shard, one launch per
+    # receiving shard (S parts read, one result written, S - 1 additions a
+    # value), and the all_gather of 32 MiB of float32 a shard (each block
+    # read once, every shard's S blocks written once).
+    S, per = 4, 32 * 1024 * 1024
+    psum_ms = 11 * S * bound_ms((S - 1) * 8, (S + 1) * 8 * 4, PEAK_F32_S)[0]
+    gather_ms = bound_ms(0, S * per + S * S * per, PEAK_F32_S)[0]
     print(f"interconnect over 4 virtual shards of {smi_line()}: provenance={info.provenance} "
           f"allreduce latency {info.ici_allreduce_latency_s!r} s, all_gather "
-          f"{info.ici_bandwidth!r} B/s (the card's own memory: no link)", flush=True)
+          f"{info.ici_bandwidth!r} B/s (the card's own memory: no link); bound of its "
+          f"44 collective launches {psum_ms!r} ms, of the all_gather {gather_ms!r} ms",
+          flush=True)
     if info.provenance != "virtual" or not (info.ici_allreduce_latency_s > 0
                                             and info.ici_bandwidth > 0):
         fail(f"measure_interconnect over the virtual mesh: {info}")
@@ -4419,11 +4873,12 @@ def main() -> int:
               lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale,
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
               check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces,
-              check_collective, check_pdhg_sharded]
+              check_collective, check_pdhg_sharded, check_pdhg_sharded_elem]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
-             "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded"]
+             "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded",
+             "pdhg_sharded_elem"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -4445,7 +4900,7 @@ def main() -> int:
     print("main path launches", json.dumps(launches), flush=True)
     by_shape = {k: {p: c["_shapes"].get(k, {}) for p, c in paths.items()}
                 for k in ("ipm", "pdhg", "pdhg_elem", "ipm_trace", "pdhg_trace",
-                          "pdhg_sharded")}
+                          "pdhg_sharded", "pdhg_sharded_elem")}
     print("main path launches by shape", json.dumps(by_shape), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -4455,7 +4910,7 @@ def main() -> int:
                  "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
                  "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes",
                  "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
-                 "pdhg_sharded", "collective"):
+                 "pdhg_sharded", "pdhg_sharded_elem", "collective"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

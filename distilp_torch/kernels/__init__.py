@@ -24,21 +24,24 @@ import torch
 # per-element entry counts as "pdhg_elem"; a launch of K1 or K5 that records
 # the convergence trace counts as "ipm_trace" or "pdhg_trace" (either K5
 # entry), not under the untraced name. The row-sharded PDHG (K6b) counts one
-# "pdhg_sharded" launch per phase per shard, the mesh's psum/pmax one
-# "collective" launch per receiving shard.
+# "pdhg_sharded" launch per phase per shard (its per-element entry
+# "pdhg_sharded_elem"; traced or not), the mesh's psum/pmax one "collective"
+# launch per receiving shard.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
     "bnb_per_k": 0, "price_fixed": 0, "round_incumbent_lanes": 0, "round_moe_lanes": 0,
     "bnb_epilogue_lanes": 0, "bnb_per_k_lanes": 0, "decomp_lanes": 0, "pdhg_elem": 0,
-    "ipm_trace": 0, "pdhg_trace": 0, "pdhg_sharded": 0, "collective": 0,
+    "ipm_trace": 0, "pdhg_trace": 0, "pdhg_sharded": 0, "pdhg_sharded_elem": 0,
+    "collective": 0,
 }
 
 
 # Kernel name -> {shape: launches} for the kernels whose wrappers break
-# their count down by the shape they were launched at (K1, K5).
+# their count down by the shape they were launched at (K1, K5, K6b).
 SHAPES: Dict[str, Dict[str, int]] = {"ipm": {}, "pdhg": {}, "pdhg_elem": {},
-                                     "ipm_trace": {}, "pdhg_trace": {}, "pdhg_sharded": {}}
+                                     "ipm_trace": {}, "pdhg_trace": {}, "pdhg_sharded": {},
+                                     "pdhg_sharded_elem": {}}
 
 
 def reset_launch_counts() -> None:

@@ -113,6 +113,9 @@ SIGNATURES = {
         "dtk_pdhgs_ws_bytes": [_I] * 5,
         "dtk_pdhgs_f32": [_I, _P, _P, _P, _L, _P],
         "dtk_pdhgs_f64": [_I, _P, _P, _P, _L, _P],
+        "dtk_pdhgs_elem_grid": [_I],
+        "dtk_pdhgs_elem_f32": [_I, _P, _P, _P, _L, _P],
+        "dtk_pdhgs_elem_f64": [_I, _P, _P, _P, _L, _P],
     },
     "collective": {
         "dtk_allreduce_f32": [_P, _I, _L, _I, _P, _P],

@@ -39,6 +39,20 @@
 // Padded rows (all zero) get row scale 1e12, sigma 0 and dual 0 (the step
 // guards of K5), and add nothing to any product or to the certificate.
 //
+// The per-element entry (dtk_pdhgs_elem_f32/f64, B6c: the reference's 3-D
+// a_spec P(None, axis, None), MoE nodes with one A each). Shard s holds its
+// rows' part of the union structure as a structure of its own (ms x n: row
+// pointers, columns, each nonzero's place in the block's column order, then
+// column pointers and rows: the first parts of ops/ipm.py's IPMSparsity),
+// and each element's values on those nonzeros, vals + e * nnz_s: K5's
+// per-element form (pdhg_kernel.cu), per shard. The phases that read A
+// (setup's row maxima and |A|' row_s, the step's A_blk z, the column
+// partials, the statistics, the float64 certificate) walk the structure
+// with element e's values on lane e, in ascending order, as K5's route does;
+// everything else, the collectives and their order included, is the shared
+// entry's code. No dense (B, ms, n) block and no transpose exist. Padded rows
+// are empty rows of the block's structure, inert as above.
+//
 // What bounds it on an H100. Per step a shard streams its block of A twice
 // (At_blk for the column partial, A_blk for the dual update), and the mesh
 // together the whole A, as K5 does; at 128 devices both copies of a 769 / S
@@ -106,6 +120,12 @@ template <typename T>
 struct Params {
   const T* A;   // (ms, n) the shard's rows of A
   const T* At;  // (n, ms)
+  // The per-element entry: the block's structure (rows of A_blk with their
+  // columns and each nonzero's place in column order; rows of A_blk' with
+  // their rows) and each element's values at vals + e * vstride.
+  const int *a_ptr, *a_col, *a_pos, *t_ptr, *t_row;
+  const T* vals;
+  long vstride;
   const T* b;   // (B, ms)
   const T* c;   // (B, n)
   const T* l;
@@ -228,21 +248,49 @@ __device__ __forceinline__ S pick(const S (&acc)[BMAX], int lane) {
 }
 
 // Row i of A_blk against each element's (B, n) vector; lane e < B returns
-// element e's sum.
-template <typename S, typename T, typename V>
+// element e's sum. The per-element entry has lane e walk the row's nonzeros
+// in ascending column order with element e's values.
+template <bool kElem, typename S, typename T, typename V>
 __device__ __forceinline__ S row_dot(const Params<T>& p, int i, const V* vec, unsigned mask) {
-  S acc[BMAX];
-  warp_dots(p.A + (size_t)i * p.n, vec, p.n, p.n, mask, p.B, acc, false);
-  return pick(acc, threadIdx.x & 31);
+  const int lane = threadIdx.x & 31;
+  if constexpr (kElem) {
+    S acc = S(0);
+    if (lane < p.B && on(mask, lane)) {
+      const T* va = p.vals + (size_t)lane * p.vstride;
+      const V* x = vec + (size_t)lane * p.n;
+      for (int q = p.a_ptr[i]; q < p.a_ptr[i + 1]; ++q)
+        acc += S(va[p.a_pos[q]]) * S(x[p.a_col[q]]);
+    }
+    return acc;
+  } else {
+    S acc[BMAX];
+    warp_dots(p.A + (size_t)i * p.n, vec, p.n, p.n, mask, p.B, acc, false);
+    return pick(acc, lane);
+  }
 }
 
-// Column j of A_blk (row j of At_blk) against each element's (B, ms) vector.
-template <typename S, typename T, typename V>
+// Column j of A_blk (row j of At_blk) against each element's (B, ms) vector
+// (the per-element entry in ascending row order, as row_dot).
+template <bool kElem, typename S, typename T, typename V>
 __device__ __forceinline__ S col_dot(const Params<T>& p, int j, const V* vec, unsigned mask,
                                      bool absa = false) {
-  S acc[BMAX];
-  warp_dots(p.At + (size_t)j * p.ms, vec, p.ms, p.ms, mask, p.B, acc, absa);
-  return pick(acc, threadIdx.x & 31);
+  const int lane = threadIdx.x & 31;
+  if constexpr (kElem) {
+    S acc = S(0);
+    if (lane < p.B && on(mask, lane)) {
+      const T* va = p.vals + (size_t)lane * p.vstride;
+      const V* y = vec + (size_t)lane * p.ms;
+      for (int q = p.t_ptr[j]; q < p.t_ptr[j + 1]; ++q) {
+        const S a = S(va[q]);
+        acc += (absa ? S(fabs(a)) : a) * S(y[p.t_row[q]]);
+      }
+    }
+    return acc;
+  } else {
+    S acc[BMAX];
+    warp_dots(p.At + (size_t)j * p.ms, vec, p.ms, p.ms, mask, p.B, acc, absa);
+    return pick(acc, lane);
+  }
 }
 
 // Per-lane values (lane e holds element e) of every warp -> one partial per
@@ -279,12 +327,12 @@ __device__ void grid_reduce(const T* part, int nslot, int slot, int B, Op op, T 
 
 // part[e, j] = sum_i |A_blk|^(absa) [i, j] vec[e, i] for every column j
 // (this shard's column partial), for the elements of ``mask``.
-template <typename S, typename T, typename V>
+template <bool kElem, typename S, typename T, typename V>
 __device__ void colpart(const Params<T>& p, const V* vec, S* out, unsigned mask, bool absa) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int gw = blockIdx.x * NWARP + wid, tw = gridDim.x * NWARP;
   for (int j = gw; j < p.n; j += tw) {
-    const S s = col_dot<S>(p, j, vec, mask, absa);
+    const S s = col_dot<kElem, S>(p, j, vec, mask, absa);
     if (lane < p.B && on(mask, lane)) out[(size_t)lane * p.n + j] = s;
   }
 }
@@ -353,7 +401,7 @@ __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, unsigned mask,
 // Row half of T(x, y) on the shard's rows: Ty = y + sigma (b_s - row_s
 // (A_blk zb)), the residual's row part; with ``halpern`` the candidate and
 // its flags, OR-ed into the column half's.
-template <typename T>
+template <bool kElem, typename T>
 __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
                        bool halpern) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -369,7 +417,7 @@ __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
   T q = T(0);
   int fl = 0;
   for (int i = gw; i < ms; i += tw) {
-    const T az = row_dot<T>(p, i, zb, mask);
+    const T az = row_dot<kElem, T>(p, i, zb, mask);
     if (lane < B && on(mask, lane)) {
       const size_t k = (size_t)lane * ms + i;
       const T sg = sig[k], yi = y[k];
@@ -394,13 +442,13 @@ __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
 
 // T(x, y) and the partials of its residual (and flags), reduced by block 0
 // into the replicated column part (state S_QX) and the shard's step scalars.
-template <typename T>
+template <bool kElem, typename T>
 __device__ void t_step(const Params<T>& p, Blk<T>& s, cg::grid_group& grid, const T* x,
                        const T* y, unsigned mask, bool halpern) {
   const int B = p.B, tid = threadIdx.x;
   t_cols(p, s, x, mask, halpern);
   grid.sync();
-  t_rows(p, s, y, mask, halpern);
+  t_rows<kElem>(p, s, y, mask, halpern);
   grid.sync();
   if (blockIdx.x == 0) {
     grid_reduce(p.pc, N_C, C_QX, B, Sum(), T(0), s.rv[C_QX]);
@@ -428,7 +476,7 @@ __device__ unsigned live_mask(const Params<T>& p) {
   return live;
 }
 
-template <typename T>
+template <typename T, bool kElem>
 __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phase) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Blk<T>& s = *reinterpret_cast<Blk<T>*>(smem_raw);
@@ -483,31 +531,49 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
     // the shard's rows: row_s, b_s, sigma, cold and warm duals
     T bmax = T(0);
     for (int i = gw; i < ms; i += tw) {
-      const T* arow = p.A + (size_t)i * n;
-      T mx[BMAX], al[BMAX], acs[BMAX];
+      // Row i's max |a| cs_a, sum a l and sum |a| cs_a, per element.
+      T rmax = T(0), alv = T(0), acv = T(0);
+      if constexpr (kElem) {
+        if (lane < B) {
+          const T* va = p.vals + (size_t)lane * p.vstride;
+          for (int q = p.a_ptr[i]; q < p.a_ptr[i + 1]; ++q) {
+            const int j = p.a_col[q];
+            const T a = va[p.a_pos[q]], aa = fabs(a);
+            const T ca = csa[(size_t)lane * n + j];
+            rmax = nan_max(rmax, aa * ca);
+            alv += a * p.l[(size_t)lane * n + j];
+            acv += aa * ca;
+          }
+        }
+      } else {
+        const T* arow = p.A + (size_t)i * n;
+        T mx[BMAX], al[BMAX], acs[BMAX];
 #pragma unroll
-      for (int e = 0; e < BMAX; ++e) mx[e] = al[e] = acs[e] = T(0);
-      for (int j = lane; j < n; j += 32) {
-        const T a = arow[j], aa = fabs(a);
+        for (int e = 0; e < BMAX; ++e) mx[e] = al[e] = acs[e] = T(0);
+        for (int j = lane; j < n; j += 32) {
+          const T a = arow[j], aa = fabs(a);
+#pragma unroll
+          for (int e = 0; e < BMAX; ++e) {
+            if (e < B) {
+              const T ca = csa[(size_t)e * n + j];
+              mx[e] = nan_max(mx[e], aa * ca);
+              al[e] += a * p.l[(size_t)e * n + j];
+              acs[e] += aa * ca;
+            }
+          }
+        }
 #pragma unroll
         for (int e = 0; e < BMAX; ++e) {
           if (e < B) {
-            const T ca = csa[(size_t)e * n + j];
-            mx[e] = nan_max(mx[e], aa * ca);
-            al[e] += a * p.l[(size_t)e * n + j];
-            acs[e] += aa * ca;
+            mx[e] = warp_reduce(mx[e], Max());
+            al[e] = warp_reduce(al[e], Sum());
+            acs[e] = warp_reduce(acs[e], Sum());
           }
         }
+        rmax = pick(mx, lane);
+        alv = pick(al, lane);
+        acv = pick(acs, lane);
       }
-#pragma unroll
-      for (int e = 0; e < BMAX; ++e) {
-        if (e < B) {
-          mx[e] = warp_reduce(mx[e], Max());
-          al[e] = warp_reduce(al[e], Sum());
-          acs[e] = warp_reduce(acs[e], Sum());
-        }
-      }
-      const T rmax = pick(mx, lane), alv = pick(al, lane), acv = pick(acs, lane);
       if (lane < B) {
         const size_t k = (size_t)lane * ms + i;
         const T rs = T(1) / nan_max(rmax, T(1e-12));
@@ -529,7 +595,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
     block_partial(bmax, Max(), T(0), s.sw, p.pc, N_C, C_BMAX, B, false);
     grid.sync();
     // this shard's part of the column 1-norms: |A_blk|' row_s
-    colpart<T>(p, rows, p.part, all, true);
+    colpart<kElem, T>(p, rows, p.part, all, true);
     if (blockIdx.x == 0) {
       grid_reduce(p.pc, N_C, C_CMAX, B, Max(), T(0), s.rv[C_CMAX]);
       grid_reduce(p.pc, N_C, C_BMAX, B, Max(), T(0), s.rv[C_BMAX]);
@@ -548,14 +614,14 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
       tau[idx] = ca > T(0) ? tk : T(0);
     }
     if (blockIdx.x == 0 && tid < B) p.st[S_BSC * B + tid] = T(1) + p.srpg[tid];
-    colpart<T>(p, warm ? ysw : ys, p.part, all, false);
+    colpart<kElem, T>(p, warm ? ysw : ys, p.part, all, false);
   } else if (phase == P_RES) {
     const bool wpt = p.arg != 0;
-    t_step(p, s, grid, wpt ? xw : x, wpt ? yw : y, all, false);
+    t_step<kElem>(p, s, grid, wpt ? xw : x, wpt ? yw : y, all, false);
   } else if (phase == P_RESW) {
     if (blockIdx.x == 0 && tid < B)
       p.st[S_RESW * B + tid] = sqrt(p.st[S_QX * B + tid] + p.sqg[tid * N_SQ + Q_QY]);
-    colpart<T>(p, ys, p.part, all, false);
+    colpart<kElem, T>(p, ys, p.part, all, false);
   } else if (phase == P_INIT) {
     if (tid < B) {
       const T res_c = sqrt(p.st[S_QX * B + tid] + p.sqg[tid * N_SQ + Q_QY]);
@@ -596,7 +662,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
       ya[idx] = y[idx];
     }
     grid.sync();
-    colpart<T>(p, ys, p.part, all, false);
+    colpart<kElem, T>(p, ys, p.part, all, false);
   } else if (phase == P_STEP) {
     const unsigned live = live_mask(p);
     if (tid < B) {
@@ -604,7 +670,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
       s.w[tid] = (tf + T(1)) / (tf + T(2));
     }
     __syncthreads();
-    t_step(p, s, grid, x, y, live, true);
+    t_step<kElem>(p, s, grid, x, y, live, true);
   } else if (phase == P_COMMIT) {
     const unsigned live = live_mask(p);
     T ra = T(0), res = T(0);
@@ -652,7 +718,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
       }
     }
     grid.sync();
-    colpart<T>(p, ys, p.part, live, false);
+    colpart<kElem, T>(p, ys, p.part, live, false);
   } else if (phase == P_STATS) {
     // conv_stats at the committed (x, y): the column half (replicated) from
     // the psum'd column product, the row half on the shard's rows.
@@ -684,7 +750,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
     }
     T rp = T(0), by = T(0);
     for (int i = gw; i < ms; i += tw) {
-      const T az = row_dot<T>(p, i, zx, mask);
+      const T az = row_dot<kElem, T>(p, i, zx, mask);
       if (lane < B && on(mask, lane)) {
         const size_t k = (size_t)lane * ms + i;
         rp = nan_max(rp, fabs(bs[k] - rows[k] * az));
@@ -760,14 +826,14 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
     // A_blk' y per column
     double by64 = 0.0;
     for (int i = gw; i < ms; i += tw) {
-      const double al = row_dot<double>(p, i, p.l, all);
+      const double al = row_dot<kElem, double>(p, i, p.l, all);
       if (lane < B) {
         const size_t k = (size_t)lane * ms + i;
         by64 += ((double)p.b[k] - al) * (double)p.y_out[k];
       }
     }
     block_partial(by64, Sum(), 0.0, s.swd, p.pd, N_D, D_BY, B, false);
-    colpart<double>(p, p.y_out, p.part64, all, false);
+    colpart<kElem, double>(p, p.y_out, p.part64, all, false);
     grid.sync();
     if (blockIdx.x == 0) {
       grid_reduce(p.pc, N_C, C_OBJV, B, Sum(), T(0), s.rv[C_OBJV]);
@@ -833,14 +899,14 @@ size_t ws_bytes(int B, int ms, int n, int G) {
          align_up(sizeof(T) * (size_t)N_ROWV * B * ms);
 }
 
-template <typename T>
+template <typename T, bool kElem>
 int grid_size(int* G) {
   int dev = 0, sms = 0, occ = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pdhgs_kernel<T>, THREADS,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pdhgs_kernel<T, kElem>, THREADS,
                                                       sizeof(Blk<T>));
   if (err != cudaSuccess) return (int)err;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -855,10 +921,13 @@ enum {
   A_DONE, A_V, A_BOUND, A_OBJ, A_RP, A_RD, A_MU, A_CONV, A_REDUCED, A_Y, A_Z, A_F,
   A_ITERS, A_TRACE, N_PTR
 };
-// Int slots
-enum { J_B, J_MS, J_N, J_CHUNK, J_NCHUNKS, J_TROWS, J_G, J_ARG, N_INT };
+// Int slots (J_NNZ: the per-element entry's nonzeros of the block)
+enum { J_B, J_MS, J_N, J_CHUNK, J_NCHUNKS, J_TROWS, J_G, J_ARG, J_NNZ, N_INT };
 
-template <typename T>
+// The shared entry reads A_blk and At_blk at P[A_A] and P[A_AT]; the
+// per-element entry reads each element's values (B, nnz) at P[A_A] and the
+// block's structure (int32, ops/ipm.py's IPMSparsity.index) at P[A_AT].
+template <typename T, bool kElem>
 int launch(int phase, void* const* P, const int* I, const double* D, long ws_len,
            cudaStream_t stream) {
   if (phase < 0 || phase >= N_PHASES) return (int)cudaErrorInvalidValue;
@@ -873,14 +942,28 @@ int launch(int phase, void* const* P, const int* I, const double* D, long ws_len
   const int G = I[J_G];
   if (p.B < 1 || p.B > BMAX || p.ms < 1 || p.n < 1) return (int)cudaErrorInvalidValue;
   int Gmax = 0;
-  const int gerr = grid_size<T>(&Gmax);
+  const int gerr = grid_size<T, kElem>(&Gmax);
   if (gerr != 0) return gerr;
   if (G < 1 || G > Gmax) return (int)cudaErrorCooperativeLaunchTooLarge;
   if ((size_t)ws_len < ws_bytes<T>(p.B, p.ms, p.n, G)) return (int)cudaErrorInvalidValue;
   p.tol = (T)D[0];
   p.rt = (T)D[1];
-  p.A = static_cast<const T*>(P[A_A]);
-  p.At = static_cast<const T*>(P[A_AT]);
+  if constexpr (kElem) {
+    const int nnz = I[J_NNZ];
+    const int* idx = static_cast<const int*>(P[A_AT]);
+    if (nnz < 0 || idx == nullptr || (nnz > 0 && P[A_A] == nullptr))
+      return (int)cudaErrorInvalidValue;
+    p.vals = static_cast<const T*>(P[A_A]);
+    p.vstride = nnz;
+    p.a_ptr = idx;
+    p.a_col = p.a_ptr + p.ms + 1;
+    p.a_pos = p.a_col + nnz;
+    p.t_ptr = p.a_pos + nnz;
+    p.t_row = p.t_ptr + p.n + 1;
+  } else {
+    p.A = static_cast<const T*>(P[A_A]);
+    p.At = static_cast<const T*>(P[A_AT]);
+  }
   p.b = static_cast<const T*>(P[A_B]);
   p.c = static_cast<const T*>(P[A_C]);
   p.l = static_cast<const T*>(P[A_L]);
@@ -934,7 +1017,7 @@ int launch(int phase, void* const* P, const int* I, const double* D, long ws_len
   w += align_up(sizeof(T) * (size_t)N_COLV * B * p.n);
   p.rowv = reinterpret_cast<T*>(w);
   void* args[] = {&p, &phase};
-  cudaError_t err = cudaLaunchCooperativeKernel(pdhgs_kernel<T>, dim3(G), dim3(THREADS), args,
+  cudaError_t err = cudaLaunchCooperativeKernel(pdhgs_kernel<T, kElem>, dim3(G), dim3(THREADS), args,
                                                 sizeof(Blk<T>), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -948,7 +1031,14 @@ extern "C" {
 // cudaError_t. The caller passes one grid size for every shard of a mesh.
 int dtk_pdhgs_grid(int is_f64) {
   int G = 0;
-  const int err = is_f64 ? grid_size<double>(&G) : grid_size<float>(&G);
+  const int err = is_f64 ? grid_size<double, false>(&G) : grid_size<float, false>(&G);
+  return err != 0 ? -err : G;
+}
+
+// The same for the per-element entry.
+int dtk_pdhgs_elem_grid(int is_f64) {
+  int G = 0;
+  const int err = is_f64 ? grid_size<double, true>(&G) : grid_size<float, true>(&G);
   return err != 0 ? -err : G;
 }
 
@@ -961,12 +1051,24 @@ size_t dtk_pdhgs_ws_bytes(int B, int ms, int n, int G, int is_f64) {
 // N_INT ints, D {tol, restart_tol}.
 int dtk_pdhgs_f32(int phase, void* const* P, const int* I, const double* D, long ws_len,
                   void* stream) {
-  return launch<float>(phase, P, I, D, ws_len, (cudaStream_t)stream);
+  return launch<float, false>(phase, P, I, D, ws_len, (cudaStream_t)stream);
 }
 
 int dtk_pdhgs_f64(int phase, void* const* P, const int* I, const double* D, long ws_len,
                   void* stream) {
-  return launch<double>(phase, P, I, D, ws_len, (cudaStream_t)stream);
+  return launch<double, false>(phase, P, I, D, ws_len, (cudaStream_t)stream);
+}
+
+// One phase of one shard with a per-element A: P[0] each element's values
+// on the block's structure, P[1] the structure, I[8] its nonzeros.
+int dtk_pdhgs_elem_f32(int phase, void* const* P, const int* I, const double* D, long ws_len,
+                       void* stream) {
+  return launch<float, true>(phase, P, I, D, ws_len, (cudaStream_t)stream);
+}
+
+int dtk_pdhgs_elem_f64(int phase, void* const* P, const int* I, const double* D, long ws_len,
+                       void* stream) {
+  return launch<double, true>(phase, P, I, D, ws_len, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
 """Row-partitioned PDHG across a device mesh, and the mixed-precision entry
 with the per-element float64 re-solve: the port of ``distilp_tpu/ops/meshlp.py``.
 
-:func:`sharded_pdhg` (kernel K6b on CUDA tensors) splits the rows of a shared
-A over the S shards of a :class:`~distilp_torch.parallel.devices.Mesh`. Each
-shard holds an ``(m/S, n)`` block of A and the matching slices of b, of the
+:func:`sharded_pdhg` (kernel K6b on CUDA tensors) splits the rows of A over
+the S shards of a :class:`~distilp_torch.parallel.devices.Mesh`. Each shard
+holds an ``(m/S, n)`` block of A and the matching slices of b, of the
 row equilibration and step vectors and of the dual iterate; the column data,
 the primal iterate and every restart scalar are replicated, so every shard
 takes the same branch every step. The cross-row reductions close over the
@@ -19,8 +19,17 @@ give them step 0 and dual 0, and they add nothing to any product or to the
 certificate, so padding is exact. Warm states stay in the original
 full-array coordinates: ``y`` is sliced into row blocks on entry and the
 final duals all-gathered in mesh order on exit, so a warm state never carries
-a shard count. A per-element A (MoE nodes) on several shards is not ported
-(ROADMAP.md B6c) and raises.
+a shard count.
+
+A per-element A (MoE nodes: the reference's ``A.ndim == 3``, sharded as
+``P(None, axis, None)``) comes as an :class:`~distilp_torch.ops.pdhg.ElemA`,
+each element's values on one union structure, or as a dense (B, m, n) A
+gathered onto ``sparsity=`` or its union pattern. :func:`row_blocks` splits
+the structure by row block (each block's own structure and the places of
+its nonzeros among the full structure's; the search builds them once per
+sweep), and each call takes every shard's values with one
+``index_select``: no dense node A and no per-call transpose. The kernel's per-element entry walks each block's
+structure with each element's values, as K5's per-element entry does.
 
 On CUDA tensors the step is cut at its collectives into phases, each one
 cooperative launch of ``kernels/csrc/pdhg_sharded_kernel.cu`` on one shard,
@@ -33,20 +42,32 @@ plain K5 call, bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import kernels
 from ..parallel.collectives import AllReduce, all_gather, allreduce_reference
 from ..parallel.devices import Mesh, shard_mesh
-from .ipm import TRACE_COLS, IPMResult, LPBatch, _full_f32_matmul, chunking
+from .ipm import (
+    TRACE_COLS,
+    IPMResult,
+    IPMSparsity,
+    LPBatch,
+    _bmv,
+    _bmvT,
+    _full_f32_matmul,
+    chunking,
+    ipm_sparsity,
+)
 from .pdhg import (
     BMAX,
     DEFAULT_RESTART_TOL,
     PDHG_DEFAULT_CHUNK,
     ElemA,
     _default_tol_pdhg,
+    cast_batch,
+    elem_a,
     pdhg_solve_batch,
     resolve_pdhg_dtype,
 )
@@ -56,6 +77,7 @@ from .pdhg import (
  P_EPI1, P_EPI2) = range(11)
 N_PTR = 37
 J_ARG = 7
+N_INT = 9
 N_SQ = 3
 
 
@@ -87,23 +109,37 @@ def sharded_pdhg(
     chunk: int = PDHG_DEFAULT_CHUNK,
     trace: bool = False,
     replicas: Optional[list] = None,
+    sparsity: Optional[IPMSparsity] = None,
+    blocks: Optional["RowBlocks"] = None,
 ) -> IPMResult:
-    """Row-shard one LP batch (one shared (m, n) A) over ``mesh_shards`` (a
-    shard count resolved with :func:`shard_mesh` on the batch's device type,
-    or a :class:`Mesh`) and solve it. Returns the unsharded engine's
-    :class:`IPMResult` contract, every array in full coordinates on shard 0's
-    device. ``replicas`` (a list) receives each shard's own copy of the
-    result (the kernel route computes the replicated values once per shard)."""
+    """Row-shard one LP batch over ``mesh_shards`` (a shard count resolved
+    with :func:`shard_mesh` on the batch's device type, or a :class:`Mesh`)
+    and solve it. ``batch.A`` is one shared (m, n) A, an :class:`ElemA`, or
+    a dense per-element (B, m, n) A gathered onto ``sparsity`` (which must
+    hold every nonzero) or onto the union of its elements' patterns.
+    ``blocks`` is the per-element structure's :func:`row_blocks` for this
+    shard count (built here when None). Returns the
+    unsharded engine's :class:`IPMResult` contract, every array in full
+    coordinates on shard 0's device. ``replicas`` (a list) receives each
+    shard's own copy of the result (the kernel route computes the
+    replicated values once per shard)."""
     A = batch.A
-    if isinstance(A, ElemA) or A.dim() != 2:
-        raise NotImplementedError(
-            "the row-sharded PDHG takes one shared (m, n) A; a per-element A "
-            "(MoE nodes) on several shards is not ported yet (ROADMAP.md B6c)"
-        )
-    mesh = mesh_shards if isinstance(mesh_shards, Mesh) else shard_mesh(mesh_shards, A.device)
+    if isinstance(A, torch.Tensor) and A.dim() == 3:
+        A = elem_a(A, sparsity)
+    elif sparsity is not None:
+        raise ValueError("sparsity= goes with a dense per-element (B, m, n) A")
+    if isinstance(A, ElemA):
+        batch = LPBatch(A, *(t.to(A.values.dtype) for t in batch[1:]))
+        a_tensors = [A.values]
+    elif A.dim() != 2:
+        raise ValueError(f"A must be (m, n), (B, m, n) or ElemA, got {tuple(A.shape)}")
+    else:
+        a_tensors = [A]
+    mesh = (mesh_shards if isinstance(mesh_shards, Mesh)
+            else shard_mesh(mesh_shards, a_tensors[0].device))
     m = batch.b.shape[1]
-    A_b, b_b, wv, wy_b, wok = shard_rows(batch, mesh.size, warm)
-    tensors = [A, *batch[1:]] + ([] if warm is None else list(warm)) + [skip]
+    A_b, b_b, wv, wy_b, wok = shard_rows(batch, mesh.size, warm, blocks)
+    tensors = a_tensors + list(batch[1:]) + ([] if warm is None else list(warm)) + [skip]
     if kernels.on_cuda(*tensors):
         if mesh.devices[0].type != "cuda":
             raise ValueError(f"CUDA tensors on a mesh of {mesh.devices[0].type} devices")
@@ -119,39 +155,84 @@ def sharded_pdhg(
     return outs[0]
 
 
-def shard_rows(batch: LPBatch, shards: int, warm=None):
-    """The row blocks of a shared-A batch on ``shards`` shards, rows padded
-    with zeros to a multiple of the shard count: ``(A blocks (ms, n), b
-    blocks (B, ms), warm v, warm y blocks, warm verdict)``, the warm parts
-    None without a warm state. The verdict (ok and every component finite)
-    is judged on the caller's full arrays, before any cast."""
+class RowBlocks(NamedTuple):
+    """A per-element A's union structure split into the row blocks of S
+    shards (rows padded to a multiple of S: a padded row is an empty row of
+    its block): block s's own structure (ms, n) and the places of its
+    nonzeros among the full structure's (column order), so that
+    ``values.index_select(1, take[s])`` are its values."""
+
+    sparsity: Tuple[IPMSparsity, ...]
+    take: Tuple[torch.Tensor, ...]  # (nnz_s,) int64 each
+
+
+def row_blocks(sparsity: IPMSparsity, shards: int) -> RowBlocks:
+    """The row blocks of ``sparsity`` on ``shards`` shards (on the
+    structure's device)."""
+    m, n = sparsity.m, sparsity.n
+    ms = pad_rows_to(m, shards) // shards
+    rows = sparsity.src // n  # each nonzero's row, in column order
+    cols = sparsity.src % n
+    blocks, take = [], []
+    for s in range(shards):
+        sel = torch.nonzero((rows >= s * ms) & (rows < (s + 1) * ms)).flatten()
+        pattern = torch.zeros((ms, n), dtype=torch.bool, device=sparsity.src.device)
+        pattern[rows[sel] - s * ms, cols[sel]] = True
+        blocks.append(ipm_sparsity(pattern))
+        take.append(sel)
+    return RowBlocks(tuple(blocks), tuple(take))
+
+
+def shard_rows(batch: LPBatch, shards: int, warm=None, blocks: Optional[RowBlocks] = None):
+    """The row blocks of a batch on ``shards`` shards, rows padded with
+    zeros to a multiple of the shard count: ``(A blocks, b blocks (B, ms),
+    warm v, warm y blocks, warm verdict)``, the warm parts None without a
+    warm state. A shared A gives (ms, n) blocks; an :class:`ElemA` gives an
+    ``ElemA`` per block, its values taken on the block's structure
+    (``blocks``, else :func:`row_blocks` of the batch's). The verdict (ok and
+    every component finite) is judged on the caller's full arrays, before
+    any cast."""
     A = batch.A
     m = batch.b.shape[1]
     m_pad = pad_rows_to(m, shards)
     ms = m_pad // shards
     rows = [slice(s * ms, (s + 1) * ms) for s in range(shards)]
-    A_p = _pad_axis(A, m_pad, 0)
     b_p = _pad_axis(batch.b, m_pad, 1)
+    if isinstance(A, ElemA):
+        dtype = A.values.dtype
+        if blocks is None:
+            blocks = row_blocks(A.sparsity, shards)
+        if len(blocks.take) != shards:
+            raise ValueError(f"row blocks of {len(blocks.take)} shards for {shards}")
+        A_b = [ElemA(A.values.index_select(1, t), sp)
+               for t, sp in zip(blocks.take, blocks.sparsity)]
+    else:
+        dtype = A.dtype
+        A_p = _pad_axis(A, m_pad, 0)
+        A_b = [A_p[r] for r in rows]
     wv = wy_b = wok = None
     if warm is not None:
         wok = (warm.ok.to(torch.bool) & torch.isfinite(warm.v).all(1)
                & torch.isfinite(warm.y).all(1) & torch.isfinite(warm.z).all(1)
                & torch.isfinite(warm.f).all(1))
-        wv = warm.v.to(A.dtype)
-        wy = _pad_axis(warm.y.to(A.dtype), m_pad, 1)
+        wv = warm.v.to(dtype)
+        wy = _pad_axis(warm.y.to(dtype), m_pad, 1)
         wy_b = [wy[:, r] for r in rows]
-    return [A_p[r] for r in rows], [b_p[:, r] for r in rows], wv, wy_b, wok
+    return A_b, [b_p[:, r] for r in rows], wv, wy_b, wok
 
 
 def sharded_pdhg_reference(A_b, b_b, c, l, u, iters: int, tol, restart_tol, wv=None,
                            wy=None, wok=None, skip=None, chunk: int = PDHG_DEFAULT_CHUNK,
                            trace: bool = False) -> IPMResult:
     """Plain version of the row-sharded PDHG: the shards' row blocks ``A_b``
-    (each (ms, n)) and ``b_b`` (each (B, ms)), the replicated column data;
+    (each (ms, n), or per element (B, ms, n) or an :class:`ElemA`, made
+    dense here) and ``b_b`` (each (B, ms)), the replicated column data;
     ``wy`` the warm dual's row blocks and ``wok`` (B,) the caller's verdict
-    on the warm state. A loop over the shards inside each step; the
+    on the warm state. A loop over the shards inside each step (a
+    per-element A through batched products over the blocks); the
     collectives are fixed-order sums (and maxima) over the shards' parts.
     ``y_dual`` comes back over every padded row."""
+    A_b = [a.dense() if isinstance(a, ElemA) else a for a in A_b]
     with _full_f32_matmul():
         return _sharded_reference(A_b, b_b, c, l, u, iters, tol, restart_tol, wv, wy, wok,
                                   skip, chunk, trace)
@@ -171,11 +252,15 @@ def _sharded_reference(A_b, b_b, c, l, u, iters, tol, restart_tol, wv, wy, wok, 
     def pmax(parts):
         return allreduce_reference(parts, "max")
 
-    def mv(M, x):
-        return x @ M.T
+    per_element = A_b[0].dim() == 3
+    if per_element:
+        mv, mvT = _bmv, _bmvT
+    else:
+        def mv(M, x):
+            return x @ M.T
 
-    def mvT(M, y):
-        return y @ M
+        def mvT(M, y):
+            return y @ M
 
     r_raw = u - l
     active = r_raw > 0
@@ -184,8 +269,8 @@ def _sharded_reference(A_b, b_b, c, l, u, iters, tol, restart_tol, wv, wy, wok, 
     act = active.to(dtype)
     cm = torch.where(active, c * col_s, 0.0)
     absA = [A.abs() for A in A_b]
-    row_s = [1.0 / torch.clamp(torch.stack([a.mul(cs_a[e]).amax(1) for e in range(B)]),
-                               min=1e-12) for a in absA]
+    row_s = [1.0 / torch.clamp(torch.stack([(a[e] if per_element else a).mul(cs_a[e]).amax(1)
+                                            for e in range(B)]), min=1e-12) for a in absA]
     b_s = [(b_b[s] - mv(A_b[s], l)) * row_s[s] for s in shards]
 
     def opA(s, x):
@@ -338,18 +423,26 @@ def _sharded_reference(A_b, b_b, c, l, u, iters, tol, restart_tol, wv, wy, wok, 
 
 class _Shard:
     """One shard's buffers and launch arguments for a slice of at most BMAX
-    elements (the kernel's per-element state lives in ``ws``)."""
+    elements (the kernel's per-element state lives in ``ws``). ``A_blk`` is
+    the shard's (ms, n) block, or for the per-element entry its elements'
+    values (B, nnz_s) with ``index`` the block's structure."""
 
-    def __init__(self, lib, dev, A_blk, b_blk, c, l, u, wv, wy, wok, skip, G: int,
+    def __init__(self, lib, dev, A_blk, index, b_blk, c, l, u, wv, wy, wok, skip, G: int,
                  chunk: int, n_chunks: int, trace_rows: int, tol: float, rt: float,
                  out: IPMResult, y_out: torch.Tensor, shape: str):
         f64 = A_blk.dtype == torch.float64
         B, n = c.shape
-        ms = A_blk.shape[0]
+        ms = b_blk.shape[1]
         kw = dict(dtype=A_blk.dtype, device=dev)
-        self.fn = lib.dtk_pdhgs_f64 if f64 else lib.dtk_pdhgs_f32
+        self.elem = elem = index is not None
+        if elem:
+            self.fn = lib.dtk_pdhgs_elem_f64 if f64 else lib.dtk_pdhgs_elem_f32
+            a_held, nnz = [A_blk, index], A_blk.shape[1]
+        else:
+            self.fn = lib.dtk_pdhgs_f64 if f64 else lib.dtk_pdhgs_f32
+            a_held, nnz = [A_blk, A_blk.t().contiguous()], 0
         self.dev, self.shape = dev, shape
-        self.held = [A_blk, A_blk.t().contiguous(), *(t.contiguous() for t in (b_blk, c, l, u)),
+        self.held = [*a_held, *(t.contiguous() for t in (b_blk, c, l, u)),
                      None if wv is None else wv.contiguous(),
                      None if wy is None else wy.contiguous(),
                      None if wok is None else wok.to(torch.uint8).contiguous(),
@@ -373,7 +466,7 @@ class _Shard:
         assert len(ptrs) == N_PTR
         self.P = (ctypes.c_void_p * N_PTR)(*(None if t is None else t.data_ptr()
                                              for t in ptrs))
-        self.I = (ctypes.c_int * 8)(B, ms, n, chunk, n_chunks, trace_rows, G, 0)
+        self.I = (ctypes.c_int * N_INT)(B, ms, n, chunk, n_chunks, trace_rows, G, 0, nnz)
         self.D = (ctypes.c_double * 2)(tol, rt)
         self.stream = kernels.stream_handle(dev)
 
@@ -381,19 +474,30 @@ class _Shard:
         self.I[J_ARG] = arg
         err = self.fn(phase, self.P, self.I, self.D, self.ws.numel(), self.stream)
         kernels.check(err, "pdhg_sharded")
-        kernels.count_launch("pdhg_sharded", self.shape)
+        if self.elem:
+            kernels.count_launch("pdhg_sharded_elem", self.shape)
+        else:
+            kernels.count_launch("pdhg_sharded", self.shape)
 
 
 def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol, rt,
                     chunk, trace, m) -> List[IPMResult]:
     from ..kernels.build import library
 
-    dtype = A_b[0].dtype
+    elem = isinstance(A_b[0], ElemA)
+    dtype = A_b[0].values.dtype if elem else A_b[0].dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sharded pdhg kernel takes float32 or float64 A, got {dtype}")
     c, l, u = batch.c, batch.l, batch.u
     B, n = c.shape
-    ms = A_b[0].shape[0]
+    ms = b_b[0].shape[1]
+    if elem:
+        for a in A_b:
+            sp = a.sparsity
+            if (sp.m, sp.n) != (ms, n) or tuple(a.values.shape) != (B, sp.nnz):
+                raise ValueError(f"per-element block: structure ({sp.m}, {sp.n}) and values "
+                                 f"{tuple(a.values.shape)} do not match B={B}, (ms, n) = "
+                                 f"{(ms, n)}")
     for name, t, shape in (("b", batch.b, (B, m)), ("c", c, (B, n)),
                            ("l", l, (B, n)), ("u", u, (B, n))):
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -405,10 +509,11 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
     f64 = dtype == torch.float64
     # One grid for the whole mesh, so every shard reduces its replicated
     # partials in the same order.
+    grid_of = lib.dtk_pdhgs_elem_grid if elem else lib.dtk_pdhgs_grid
     grids = []
     for dev in dict.fromkeys(mesh.devices):
         with torch.cuda.device(dev):
-            grids.append(int(lib.dtk_pdhgs_grid(int(f64))))
+            grids.append(int(grid_of(int(f64))))
     if min(grids) < 1:
         raise RuntimeError(f"pdhg_sharded grid query failed with cudaError {-min(grids)}")
     G = min(grids)
@@ -431,7 +536,8 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
             trace_buf=torch.zeros((B, n_chunks, TRACE_COLS), **kw) if trace else None,
         ))
     if B:
-        shape = f"B={B} m={m} n={n} S={S}"
+        shape = f"B={B} m={m} n={n} S={S}" + (
+            f" per-element A nnz={sum(a.sparsity.nnz for a in A_b)}" if elem else "")
         multi = len(set(mesh.devices)) > 1
         for e0 in range(0, B, BMAX):
             e1 = min(B, e0 + BMAX)
@@ -444,8 +550,13 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
             for s, dev in enumerate(mesh.devices):
                 on = (lambda t, d=dev: None if t is None else t.to(d))
                 o = outs[s]
+                if elem:
+                    a_blk = on(A_b[s].values[sl]).contiguous()
+                    index = on(A_b[s].sparsity.index)
+                else:
+                    a_blk, index = on(A_b[s]).contiguous(), None
                 shards.append(_Shard(
-                    lib, dev, on(A_b[s]).contiguous(), on(b_b[s][sl]), on(c[sl]),
+                    lib, dev, a_blk, index, on(b_b[s][sl]), on(c[sl]),
                     on(l[sl]), on(u[sl]), on(cut(wv)),
                     None if wy_b is None else on(wy_b[s][sl]), on(cut(wok)), on(cut(skip)),
                     G, chunk, n_chunks, trace_rows, tol, rt,
@@ -527,17 +638,19 @@ def pdhg_solve_batch_sharded(
     dtype: Optional[str] = None,
 ) -> IPMResult:
     """The sharded sibling of :func:`~distilp_torch.ops.pdhg.pdhg_solve_batch`
-    (``dtype`` the iterate precision, None = the batch's own). One shard is
-    the plain K5 call, bit for bit."""
+    (``dtype`` the iterate precision, None = the batch's own; ``batch.A``
+    shared, per element dense or an :class:`ElemA`). One shard is the plain
+    K5 call, bit for bit."""
     if not isinstance(mesh_shards, Mesh) and int(mesh_shards) < 1:
         raise ValueError(f"mesh_shards must be >= 1 (got {mesh_shards})")
     if not isinstance(mesh_shards, Mesh) and int(mesh_shards) == 1:
         return pdhg_solve_batch(batch, iters=iters, tol=tol, restart_tol=restart_tol,
                                 warm=warm, skip=skip, chunk=chunk, trace=trace, dtype=dtype)
     dt = resolve_pdhg_dtype(dtype)
-    if dt is not None and dt != batch.A.dtype:
-        batch = LPBatch(*(t.to(dt) for t in batch))
-    tol_v = _default_tol_pdhg(batch.A.dtype) if tol is None else tol
+    if dt is not None:
+        batch = cast_batch(batch, dt)
+    a_dtype = batch.A.values.dtype if isinstance(batch.A, ElemA) else batch.A.dtype
+    tol_v = _default_tol_pdhg(a_dtype) if tol is None else tol
     rt_v = DEFAULT_RESTART_TOL if restart_tol is None else restart_tol
     return sharded_pdhg(batch, mesh_shards, iters, tol_v, rt_v, warm=warm, skip=skip,
                         chunk=chunk, trace=trace)

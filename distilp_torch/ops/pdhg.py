@@ -114,6 +114,13 @@ def elem_a(A: torch.Tensor, sparsity: Optional[IPMSparsity] = None) -> ElemA:
     return ElemA(A.reshape(B, m * n)[:, sparsity.src], sparsity)
 
 
+def cast_batch(batch: LPBatch, dtype) -> LPBatch:
+    """``batch`` in ``dtype``, an :class:`ElemA`'s values included."""
+    A = batch.A
+    A = A._replace(values=A.values.to(dtype)) if isinstance(A, ElemA) else A.to(dtype)
+    return LPBatch(A, *(t.to(dtype) for t in batch[1:]))
+
+
 class PDHGWarmState(NamedTuple):
     """Warm-start iterate in ORIGINAL coordinates, field for field the port's
     ``IPMWarmState``: either engine's iterates seed the other. ``z``/``f``

@@ -158,8 +158,9 @@ def halda_solve(
     PDHG engine. ``mesh_shards`` above 1 row-partitions every PDHG relaxation
     over that many shards (K6b): the first devices of ``device``'s type, or a
     virtual mesh the process declared
-    (:func:`distilp_torch.parallel.force_virtual_devices`); a MoE instance
-    with shards raises (ROADMAP.md B6c).
+    (:func:`distilp_torch.parallel.force_virtual_devices`); MoE nodes run
+    its per-element entry, each shard's rows of every node's A on the
+    sweep's sparse structure.
 
     Certification escalation: a solve that misses the mip-gap certificate
     while every search knob is None retries once at the escalated budget

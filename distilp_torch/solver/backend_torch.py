@@ -39,6 +39,7 @@ import torch
 
 from .. import kernels
 from ..ops.decomp import decomp_problem, stack_problems
+from ..ops.meshlp import row_blocks
 from ..parallel.devices import shard_mesh
 from .assemble import MilpArrays, VarLayout
 from .coeffs import HaldaCoeffs
@@ -356,7 +357,7 @@ def solve_sweep_torch(
     sweep runs it through K5's per-element entry); ``mesh_shards`` above 1
     row-partitions every LP relaxation of every round over that many shards
     (K6b, :func:`~distilp_torch.parallel.devices.shard_mesh` on ``device``'s
-    type; a MoE instance raises, ROADMAP.md B6c).
+    type; MoE nodes through its per-element entry).
 
     ``per_k_optima=True`` prunes every node against its own k's incumbent
     (K3's per-k mode): every feasible k ends with its own certified optimum
@@ -402,11 +403,6 @@ def solve_sweep_torch(
                             pdhg_restart_tol)
     row_mesh = None
     if params["mesh_shards"] > 1:
-        if lane.sf.moe:
-            raise NotImplementedError(
-                f"mesh_shards={params['mesh_shards']} on a MoE instance: the row-sharded "
-                f"PDHG with a per-element A is not ported yet (ROADMAP.md B6c)"
-            )
         row_mesh = shard_mesh(params["mesh_shards"], dev)
     if timings is not None:
         timings["lp_backend"] = params["lp_backend"]
@@ -470,10 +466,10 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     iterates and margin bounds are used only when every lane has them. A's
     structure is built here, once per sweep, for K1 and, where the nodes
     have an A each (MoE, lanes with their own A), for K5's per-element
-    entry with each lane's values on it. ``convergence`` (one lane) turns
-    on the round log and the root round's LP trace. ``row_mesh`` (one
-    sweep on the PDHG engine) row-partitions every LP relaxation over its
-    shards."""
+    entry with each lane's values on it (and on a row mesh their row
+    blocks). ``convergence`` (one lane) turns on the round log and the root
+    round's LP trace. ``row_mesh`` (one sweep on the PDHG engine)
+    row-partitions every LP relaxation over its shards."""
     t1 = time.perf_counter()
     L = len(lanes)
     sf0 = lanes[0].sf
@@ -495,11 +491,13 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
                          for f, v in rd_np.items()})
     engine = params["lp_backend"]
     per_element = moe or (A.dim() == 3 and A.shape[0] > 1)
-    A_sparsity = A_values = gky_pos = None
+    A_sparsity = A_values = gky_pos = A_shards = None
     if engine == "ipm" or per_element:
         A_sparsity = node_sparsity(A, M, moe)
     if engine == "pdhg" and per_element:
         A_values, gky_pos = sweep_values(A, A_sparsity, M, moe)
+        if row_mesh is not None and row_mesh.size > 1:
+            A_shards = row_blocks(A_sparsity, row_mesh.size)
     data = SweepData(
         A=A,
         b_k=stack("b_k"),
@@ -517,6 +515,7 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         A_sparsity=A_sparsity,
         A_values=A_values,
         gky_pos=gky_pos,
+        A_shards=A_shards,
     )
     m = A.shape[-2]
     use_root_warm = all(ln.root_warm_tuple is not None for ln in lanes)

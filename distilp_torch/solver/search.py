@@ -71,12 +71,13 @@ from ..ops.ipm import (
     ipm_sparsity,
     n_trace_rows,
 )
-from ..ops.meshlp import sharded_pdhg
+from ..ops.meshlp import RowBlocks, sharded_pdhg
 from ..ops.pdhg import (
     DEFAULT_RESTART_TOL,
     PDHG_DEFAULT_CHUNK,
     ElemA,
     _default_tol_pdhg,
+    cast_batch,
     pdhg_solve_batch,
     resolve_pdhg_dtype,
 )
@@ -151,6 +152,12 @@ class SweepData(NamedTuple):
     # its k's values to (2, M; rows 4M+i and 5M+i of column 2M+i).
     A_values: Optional[torch.Tensor] = None
     gky_pos: Optional[torch.Tensor] = None
+    # The per-element A on a row mesh (K6b's per-element entry): A_sparsity
+    # split into the mesh's row blocks (ops/meshlp.py::row_blocks), each
+    # block's structure and the places of its nonzeros in A_values' rows,
+    # built once per sweep; a round takes each shard's values with one
+    # index_select. None off the mesh.
+    A_shards: Optional[RowBlocks] = None
 
 
 class EpilogueOut(NamedTuple):
@@ -1005,8 +1012,8 @@ def lp_and_round(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_
     moe = data.gky is not None
     b_r, c_r = data.b_k[row_lane, kidx_r], data.c_k[row_lane, kidx_r]
     if lp_backend == "pdhg":
-        # MoE nodes and lanes with an A each: K5's per-element entry on the
-        # sweep's structure; else the one shared A.
+        # MoE nodes and lanes with an A each: K5's (or on a row mesh K6b's)
+        # per-element entry on the sweep's structure; else the one shared A.
         A_r = (data.A if data.A.dim() == 2 else data.A[0]) if data.A_values is None \
             else ElemA(node_values(data, kidx_r, row_lane), data.A_sparsity)
         batch = LPBatch(A=A_r, b=b_r, c=c_r, l=lo_r, u=hi_r)
@@ -1014,11 +1021,12 @@ def lp_and_round(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_
             # The row-sharded engine (K6b), the reference's mesh branch: the
             # iterate dtype follows pdhg_dtype, the tolerance the default.
             dt = resolve_pdhg_dtype(pdhg_dtype)
-            if dt is not None and dt != A_r.dtype:
-                batch = LPBatch(*(t.to(dt) for t in batch))
+            if dt is not None:
+                batch = cast_batch(batch, dt)
             rt = DEFAULT_RESTART_TOL if pdhg_restart_tol is None else pdhg_restart_tol
             res = sharded_pdhg(batch, row_mesh, ipm_iters, _default_tol_pdhg(batch.b.dtype),
-                               rt, warm=warm, skip=skip, trace=lp_trace)
+                               rt, warm=warm, skip=skip, trace=lp_trace,
+                               blocks=data.A_shards)
         else:
             res = pdhg_solve_batch(batch, iters=ipm_iters, restart_tol=pdhg_restart_tol,
                                    warm=warm, skip=skip, dtype=pdhg_dtype, trace=lp_trace)

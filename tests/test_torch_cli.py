@@ -15,7 +15,9 @@ on the CPU (``--device cpu``, ``--backend cpu``), against the JAX package's.
   item.
 - ``--mesh-shards 4`` (the CLI declares its virtual mesh itself) certifies
   the online golden as the JAX CLI's ``smoke-shard`` does, and
-  ``--mesh-shards 1`` prints the plain run's output byte for byte.
+  ``--mesh-shards 1`` prints the plain run's output byte for byte;
+  ``--mesh-shards 2`` on the Mixtral profile prints the JAX CLI's k and
+  objective.
 Both CLIs run in this process (``main(argv)``), so no interpreter start or
 JAX compile is paid twice.
 """
@@ -238,3 +240,23 @@ def test_mesh_shards_on_a_virtual_mesh(capsys, monkeypatch):
     assert rc == 0, err
     assert "Optimal k: 2" in four and "Objective value: 1.934942" in four
     assert "Optimality: certified" in four
+
+
+def test_mesh_shards_on_a_moe_profile(capsys, monkeypatch):
+    """MoE nodes on the row mesh (K6b's per-element route): the JAX CLI's
+    ``-p tests/profiles/mixtral_8x7b --kv-bits 8bit --lp-backend pdhg
+    --mesh-shards 2`` prints k 4 and objective -82.677178, certified."""
+    monkeypatch.setenv("DISTILP_TORCH_VIRTUAL_DEVICES", "0")
+    # One intra-op thread: the plain per-element products are small, and a
+    # parallel region each costs far more with several test processes.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rc, out, err = _run(solver_cli.main, [
+            "-p", "tests/profiles/mixtral_8x7b", "--device", "cpu", "--kv-bits", "8bit",
+            "--lp-backend", "pdhg", "--mesh-shards", "2"], capsys)
+    finally:
+        torch.set_num_threads(threads)
+    assert rc == 0, err
+    assert "Optimal k: 4" in out and "Objective value: -82.677178" in out
+    assert "Optimality: certified" in out and "Expert placement" in out

@@ -1,5 +1,7 @@
 """The port's row-sharded PDHG (K6b, ``distilp_torch/ops/meshlp.py``) and its
-collectives against the JAX package's ``ops/meshlp.py`` on the CPU.
+collectives against the JAX package's ``ops/meshlp.py`` on the CPU, with one
+shared A and with one A per element (MoE nodes: the port's ``ElemA``, each
+element's values on one union structure, split by row block).
 
 The JAX side runs ``shard_map`` on conftest's eight virtual CPU devices; the
 port runs its plain versions (a loop over the shards inside each step, the
@@ -30,11 +32,18 @@ from distilp_torch.ops.meshlp import (  # noqa: E402
     pad_rows_to,
     pdhg_solve_batch_mp,
     pdhg_solve_batch_sharded,
+    row_blocks,
     shard_rows,
     sharded_pdhg,
     sharded_pdhg_reference,
 )
-from distilp_torch.ops.pdhg import PDHGWarmState, pdhg_solve_batch  # noqa: E402
+from distilp_torch.ops.pdhg import (  # noqa: E402
+    ElemA,
+    PDHGWarmState,
+    elem_a,
+    pdhg_solve_batch,
+    pdhg_solve_batch_reference,
+)
 from distilp_torch.parallel import (  # noqa: E402
     VIRTUAL_DEVICES_ENV,
     Mesh,
@@ -60,6 +69,20 @@ GOLDEN = [
     ("qwen3_32b/bf16", 16, 12.072837),
 ]
 NORTH_STAR_GAP3 = -38.36824122348659  # the JAX package at gap 1e-3
+# Mixtral 8x7B on make_synthetic_fleet(4, seed=7, pool_bytes=64e9), kv 8bit,
+# gap 1e-3, PDHG engine: the JAX package's optimum on 2 shards (and on 1).
+MIXTRAL_M4 = (4, -132.93320566181376, [1, 5, 1, 1])
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: the per-element plain versions'
+    many small batched products each open a parallel region, which with
+    several test processes on few cores costs far more than the product."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -90,6 +113,32 @@ def _random_feasible(rng, m, n, B, fix_frac=0.2):
         ls.append(l)
         us.append(u)
     return (A, np.array(bs), np.array(cs), np.array(ls), np.array(us)), np.array(refs)
+
+
+def _random_feasible_elem(rng, m, n, B):
+    """B feasible boxed LPs with an A each on one sparse pattern (about 60%
+    nonzero; element 0 has an explicit zero inside the union), with their
+    HiGHS optima."""
+    from scipy.optimize import linprog
+
+    pattern = rng.random((m, n)) < 0.6
+    A3 = np.where(pattern, rng.normal(size=(B, m, n)), 0.0)
+    A3[0][np.argwhere(pattern)[0][0], np.argwhere(pattern)[0][1]] = 0.0
+    bs, cs, ls, us, refs = [], [], [], [], []
+    for e in range(B):
+        l = rng.uniform(-2, 0, n)
+        u = l + rng.uniform(0.5, 3, n)
+        x = l + rng.uniform(0, 1, n) * (u - l)
+        b = A3[e] @ x
+        c = rng.normal(size=n)
+        r = linprog(c, A_eq=A3[e], b_eq=b, bounds=np.stack([l, u], 1), method="highs")
+        assert r.status == 0
+        refs.append(r.fun)
+        bs.append(b)
+        cs.append(c)
+        ls.append(l)
+        us.append(u)
+    return (A3, np.array(bs), np.array(cs), np.array(ls), np.array(us)), np.array(refs)
 
 
 def _port(arrs, dtype=torch.float64):
@@ -229,11 +278,103 @@ def test_mp_nonfinite_float32_falls_back_with_shards(vmesh):
     assert bool(torch.isfinite(res.bound[~bad]).all())
 
 
-def test_sharded_refuses_a_per_element_a(vmesh):
-    arrs, _ = _random_feasible(np.random.default_rng(3), m=6, n=12, B=2)
-    A, b, c, l, u = _port(arrs)
-    with pytest.raises(NotImplementedError, match="B6c"):
-        sharded_pdhg(LPBatch(A.expand(2, -1, -1), b, c, l, u), SHARDS, 100, 1e-7, 0.2)
+def test_sharded_refuses_a_per_element_a(one_thread, vmesh):
+    """A per-element (B, m, n) A (m=10 rows on 2 and 4 shards, padded to 12
+    on 4) against the JAX package's sharded solve of the same 3-D A and the
+    port's unsharded per-element solve, at the shared-A test's tolerances."""
+    arrs, refs = _random_feasible_elem(np.random.default_rng(3), m=10, n=25, B=5)
+    flat = pdhg_solve_batch(_port(arrs), iters=20000, tol=1e-8)
+    for S in (2, SHARDS):
+        got = pdhg_solve_batch_sharded(_port(arrs), tol=1e-8, mesh_shards=S, iters=20000)
+        want = jax_sharded(_jax(arrs), tol=1e-8, mesh_shards=S, iters=20000)
+        assert bool(got.converged.all()) and got.y_dual.shape == (5, 10)
+        for ref in (want, flat):
+            _close(got.obj, ref.obj, 1e-9, 1e-9)
+            _close(got.bound, ref.bound, 1e-9, 1e-9)
+            _close(got.y_dual, ref.y_dual, 1e-7, 1e-9)
+            _close(got.v, ref.v, 1e-7, 1e-9)
+            _close(got.reduced, ref.reduced, 1e-7, 1e-9)
+        np.testing.assert_array_equal(got.iters_run.numpy(), np.asarray(want.iters_run))
+        np.testing.assert_array_equal(got.converged.numpy(), np.asarray(want.converged))
+        assert np.all(got.bound.numpy() <= refs + 1e-6)
+
+
+def test_sharded_elem_plain_version_over_its_blocks(one_thread, vmesh):
+    """Each shard's values are the full values restricted to its row block,
+    on a structure of its own; the plain version over those blocks equals
+    the unsharded per-element plain version, and padded rows carry a zero
+    dual."""
+    arrs, _ = _random_feasible_elem(np.random.default_rng(5), m=10, n=25, B=3)
+    batch = _port(arrs)
+    A = elem_a(batch.A)
+    A_b, b_b, *_ = shard_rows(batch._replace(A=A), SHARDS)
+    dense = A.dense()
+    for s, blk in enumerate(A_b):
+        assert isinstance(blk, ElemA) and (blk.sparsity.m, blk.sparsity.n) == (3, 25)
+        rows = dense[:, 3 * s:3 * s + 3]
+        want = torch.cat([rows, rows.new_zeros((3, 3 - rows.shape[1], 25))], 1)
+        assert torch.equal(blk.dense(), want)
+    assert sum(b.sparsity.nnz for b in A_b) == A.sparsity.nnz
+    res = sharded_pdhg_reference(A_b, b_b, batch.c, batch.l, batch.u, 20000, 1e-7, 0.2)
+    assert res.y_dual.shape == (3, 12) and float(res.y_dual[:, 10:].abs().max()) == 0.0
+    flat = pdhg_solve_batch_reference(batch, 20000, 1e-7, 0.2)
+    _close(res.obj, flat.obj, 1e-9, 1e-9)
+    _close(res.bound, flat.bound, 1e-9, 1e-9)
+    _close(res.y_dual[:, :10], flat.y_dual, 1e-7, 1e-9)
+    np.testing.assert_array_equal(res.iters_run.numpy(), flat.iters_run.numpy())
+    full = sharded_pdhg(batch, SHARDS, 20000, 1e-7, 0.2, sparsity=A.sparsity)
+    assert torch.equal(full.y_dual, res.y_dual[:, :10]) and torch.equal(full.bound, res.bound)
+    with pytest.raises(ValueError, match="sparsity"):
+        sharded_pdhg(batch._replace(A=batch.A[0]), SHARDS, 10, 1e-8, 0.2,
+                     sparsity=A.sparsity)
+
+
+def test_sharded_elem_trace_and_warm_states(one_thread, vmesh):
+    """The per-element sharded trace equals the unsharded one, and warm
+    states interchange between the sharded and unsharded per-element runs."""
+    B = 4
+    arrs, refs = _random_feasible_elem(np.random.default_rng(8), m=10, n=25, B=B)
+    got = pdhg_solve_batch_sharded(_port(arrs), mesh_shards=SHARDS, iters=2000, trace=True)
+    flat = pdhg_solve_batch(_port(arrs), iters=2000, trace=True)
+    assert got.trace_buf.shape == flat.trace_buf.shape
+    np.testing.assert_array_equal(got.trace_buf[..., [0, 4, 5]].numpy(),
+                                  flat.trace_buf[..., [0, 4, 5]].numpy())
+    _close(got.trace_buf, flat.trace_buf, 1e-7, 1e-9)
+    cold = pdhg_solve_batch(_port(arrs), tol=1e-8, iters=20000)
+    assert bool(cold.converged.all())
+    warm = PDHGWarmState(cold.v, cold.y_dual, cold.z_dual, cold.f_dual,
+                         torch.ones(B, dtype=torch.bool))
+    w_s = pdhg_solve_batch_sharded(_port(arrs), tol=1e-8, mesh_shards=SHARDS, iters=20000,
+                                   warm=warm)
+    assert bool(w_s.converged.all())
+    assert int(w_s.iters_run.max()) < int(cold.iters_run.max())
+    _close(w_s.obj, refs, 1e-5, 1e-5)
+    back = PDHGWarmState(w_s.v, w_s.y_dual, w_s.z_dual, w_s.f_dual,
+                         torch.ones(B, dtype=torch.bool))
+    w_u = pdhg_solve_batch(_port(arrs), tol=1e-8, iters=20000, warm=back)
+    assert bool(w_u.converged.all())
+    assert int(w_u.iters_run.max()) < int(cold.iters_run.max())
+
+
+def test_mp_float32_elem_with_shards_falls_back(one_thread, vmesh):
+    """The float32 run with a per-element A on shards: the poisoned element
+    is re-solved in float64 and spliced in, the others stay float32's."""
+    arrs, _ = _random_feasible_elem(np.random.default_rng(33), m=8, n=18, B=2)
+    batch = _port(arrs)
+    b_bad = batch.b.clone()
+    b_bad[0] *= 1e39
+    poisoned = batch._replace(b=b_bad)
+    rep: dict = {}
+    res = pdhg_solve_batch_mp(poisoned, mesh_shards=2, iters=4000, dtype="f32",
+                              fallback_report=rep)
+    r32 = pdhg_solve_batch_mp(poisoned, mesh_shards=2, iters=4000, dtype="f32",
+                              f64_fallback=False)
+    r64 = pdhg_solve_batch_mp(poisoned, mesh_shards=2, iters=4000, dtype="f64")
+    bad = ~r32.converged | ~torch.isfinite(r32.bound)
+    assert rep["n_fallback"] >= 1 and bool(bad[0])
+    assert torch.equal(res.obj[bad], r64.obj.to(res.obj.dtype)[bad])
+    assert torch.equal(res.obj[~bad], r32.obj[~bad])
+    assert bool(torch.isfinite(res.bound[~bad]).all())
 
 
 # ------------------------------------------------------------- the mesh
@@ -321,16 +462,71 @@ def test_sharded_north_star_in_both_precisions(profiles_dir, vmesh):
         assert r.obj_value == pytest.approx(base.obj_value, rel=2 * GAP)
 
 
-def test_mesh_knob_validation(profiles_dir, vmesh):
+def test_mesh_knob_validation(one_thread, profiles_dir, vmesh):
     devs, model = load_from_profile_folder(profiles_dir / "llama_3_70b" / "online")
     with pytest.raises(ValueError, match="mesh_shards"):
         halda_solve(devs, model, device="cpu", lp_backend="ipm", mesh_shards=2)
     with pytest.raises(ValueError, match="mesh_shards"):
         halda_solve(devs, model, device="cpu", lp_backend="pdhg", mesh_shards=0)
     mdevs, mmodel = load_from_profile_folder(profiles_dir / "mixtral_8x7b")
-    with pytest.raises(NotImplementedError, match="B6c"):
-        halda_solve(mdevs, mmodel, kv_bits="8bit", device="cpu", lp_backend="pdhg",
-                    mesh_shards=2)
+    tm: dict = {}
+    r = halda_solve(mdevs, mmodel, mip_gap=GAP, kv_bits="8bit", device="cpu",
+                    lp_backend="pdhg", mesh_shards=2, timings=tm)
+    assert tm["mesh_shards"] == 2 and r.certified and r.k * sum(r.w) == mmodel.L
+    assert sum(r.y) == mmodel.n_routed_experts
+
+
+@pytest.fixture(scope="module")
+def mixtral_m4():
+    from distilp_torch.profiler import profile_model
+
+    model = profile_model("tests/configs/mixtral_8x7b.json", batch_sizes=[1],
+                          sequence_length=128).to_model_profile()
+    return make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9)), model
+
+
+@pytest.mark.parametrize("shards", [2, SHARDS])
+def test_sharded_mixtral_m4_matches_jax(one_thread, vmesh, mixtral_m4, shards):
+    """MoE nodes on the row mesh: K6b's per-element route through every LP
+    round, at the JAX package's optimum."""
+    devs, model = mixtral_m4
+    tm: dict = {}
+    r = halda_solve(devs, model, mip_gap=GAP, kv_bits="8bit", device="cpu",
+                    lp_backend="pdhg", mesh_shards=shards, timings=tm)
+    k, obj, w = MIXTRAL_M4
+    assert tm["mesh_shards"] == shards and tm["bnb_rounds"] >= 1
+    assert r.certified and r.k == k and r.w == w
+    assert r.obj_value == pytest.approx(obj, rel=2 * GAP)
+
+
+def test_sharded_mixtral_value_maps(one_thread, vmesh, mixtral_m4):
+    """The sweep's per-shard value maps: each shard's values of a round's
+    nodes are node_values restricted to its row block."""
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.solver.backend_torch import _prepare, _search_params, lane_input
+    from distilp_torch.solver.search import node_values
+
+    devs, model = mixtral_m4
+    Ks, _, coeffs, arrays = _build_instance(devs, model, None, "8bit", None, None)
+    kWs = [(k, model.L // k) for k in Ks]
+    lane = lane_input(arrays, coeffs, kWs, [(k, W) for k, W in kWs if W >= len(devs)])
+    params = _search_params(lane.sf, None, None, None, None, None, "pdhg", None, SHARDS,
+                            None, False)
+    mesh = shard_mesh(SHARDS, "cpu")
+    d = _prepare([lane], params, GAP, torch.device("cpu"), shared_A=True, row_mesh=mesh).data
+    fresh = row_blocks(d.A_sparsity, SHARDS)
+    assert all(torch.equal(a, b) for a, b in zip(d.A_shards.take, fresh.take))
+    n_k = d.ks.shape[1]
+    kidx = torch.arange(n_k)
+    vals = node_values(d, kidx, torch.zeros(n_k, dtype=torch.long))
+    dense = ElemA(vals, d.A_sparsity).dense()
+    m = dense.shape[1]
+    ms = pad_rows_to(m, SHARDS) // SHARDS
+    for s, (sp, take) in enumerate(zip(d.A_shards.sparsity, d.A_shards.take)):
+        rows = dense[:, s * ms:min(m, (s + 1) * ms)]
+        pad = rows.new_zeros((n_k, ms - rows.shape[1], dense.shape[2]))
+        assert torch.equal(ElemA(vals.index_select(1, take), sp).dense(),
+                           torch.cat([rows, pad], 1))
 
 
 def test_sharded_warm_blob_roundtrips_and_crosses_mesh_sizes(profiles_dir, vmesh):

@@ -326,15 +326,31 @@ def test_mp_nonfinite_f32_falls_back_to_f64():
     assert torch.isfinite(res.bound[~bad]).all()
 
 
-def test_mp_rejects_unknown_dtype_and_shards():
+def test_mp_rejects_unknown_dtype_and_shards(monkeypatch):
     arrs, _ = _random_feasible(np.random.default_rng(3), m=6, n=12, B=2)
     with pytest.raises(ValueError, match="pdhg_dtype"):
         pdhg_solve_batch_mp(_port(arrs), dtype="bf16")
-    # The row-sharded engine takes one shared A: a per-element A on several
-    # shards is the refusal that remains; a shard count below 1 is refused.
+    # A per-element A on several shards gives the call without them (the
+    # row-sharded engine's per-element route); a shard count below 1 is
+    # refused.
     A, b, c, l, u = _port(arrs)
-    per_element = LPBatch(A.expand(2, -1, -1).contiguous(), b, c, l, u)
-    with pytest.raises(NotImplementedError, match="B6c"):
-        pdhg_solve_batch_mp(per_element, mesh_shards=2)
+    A3 = A.expand(2, -1, -1).clone()
+    A3[1] *= 1.5
+    per_element = LPBatch(A3, b, c, l, u)
+    monkeypatch.setenv("DISTILP_TORCH_VIRTUAL_DEVICES", "8")
+    # One intra-op thread: the plain per-element products are small, and a
+    # parallel region each costs far more with several test processes.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        sharded = pdhg_solve_batch_mp(per_element, mesh_shards=2, iters=4000, dtype="f64")
+        flat = pdhg_solve_batch_mp(per_element, iters=4000, dtype="f64")
+    finally:
+        torch.set_num_threads(threads)
+    for f in ("obj", "bound", "v", "y_dual"):
+        np.testing.assert_allclose(getattr(sharded, f).numpy(), getattr(flat, f).numpy(),
+                                   rtol=1e-9, atol=1e-9, err_msg=f)
+    assert torch.equal(sharded.iters_run, flat.iters_run)
+    assert torch.equal(sharded.converged, flat.converged)
     with pytest.raises(ValueError, match="mesh_shards"):
         pdhg_solve_batch_mp(_port(arrs), mesh_shards=0)

@@ -113,7 +113,8 @@ def test_kernel_sources_and_launch_counters():
         "ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
         "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
         "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes", "bnb_per_k_lanes",
-        "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace", "pdhg_sharded", "collective",
+        "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace", "pdhg_sharded",
+        "pdhg_sharded_elem", "collective",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
@@ -251,8 +252,9 @@ def test_the_mesh_modules_and_kernels_are_checked_and_run_without_jax(tmp_path):
     """``distilp_torch/parallel`` is among the checked files, the row-sharded
     PDHG (K6b) and the collectives have their own sources beside K5's
     (whose source and flags stay as they were), each wrapper counts under
-    the name ``chip_smoke.py`` reads, and a sharded solve on a virtual CPU
-    mesh runs in a process that never loads JAX."""
+    the name ``chip_smoke.py`` reads (K6b's per-element entry under its
+    own), and a sharded solve on a virtual CPU mesh runs in a process that
+    never loads JAX."""
     import subprocess
     import sys
 
@@ -267,8 +269,9 @@ def test_the_mesh_modules_and_kernels_are_checked_and_run_without_jax(tmp_path):
     for src in ("pdhg_sharded_kernel.cu", "collective_kernel.cu"):
         text = (build.CSRC / src).read_text()
         assert "Replaces" in text and "distilp_tpu/" in text and "What bounds it on an H100" in text
-    assert 'count_launch("pdhg_sharded"' in (REPO / "distilp_torch" / "ops" /
-                                              "meshlp.py").read_text()
+    meshlp = (REPO / "distilp_torch" / "ops" / "meshlp.py").read_text()
+    assert 'count_launch("pdhg_sharded"' in meshlp
+    assert 'count_launch("pdhg_sharded_elem"' in meshlp
     assert 'count_launch("collective")' in (REPO / "distilp_torch" / "parallel" /
                                              "collectives.py").read_text()
     script = (
