@@ -4116,11 +4116,73 @@ def virtual_mesh(S: int):
 
 
 def bits(t):
-    """A tensor's bit pattern (NaN payloads included), for bit-for-bit checks."""
+    """A tensor's bit pattern (NaN payloads included), for bit-for-bit checks;
+    a non-float tensor as it is."""
     import torch
 
     t = t.detach().contiguous()
-    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+# Every output of K6b (trace_buf None when untraced).
+K6B_FIELDS = ("v", "bound", "obj", "rp_norm", "rd_norm", "mu", "converged", "reduced",
+              "y_dual", "z_dual", "f_dual", "iters_run", "trace_buf")
+
+
+def same_bits(a, b, fields=K6B_FIELDS) -> bool:
+    """Two IPMResults equal bit for bit in ``fields``."""
+    import torch
+
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                return False
+        elif not torch.equal(bits(x), bits(y)):
+            return False
+    return True
+
+
+def route_launches(name: str) -> dict:
+    """K6b launches (``name``: either entry's count) since the last reset, by
+    route: the fused one (every shard of one card in one launch a slice)
+    and the sequenced one (a launch per phase per shard)."""
+    from distilp_torch import kernels
+
+    out = {"fused": 0, "sequenced": 0}
+    for shape, c in kernels.SHAPES[name].items():
+        out[shape.rsplit("route=", 1)[-1]] += c
+    return out
+
+
+def routes_agree(name: str, run, k) -> dict:
+    """The fused route's result ``k`` of ``run(**kw)`` (``sharded_pdhg`` on
+    a one-card mesh) against a traced fused launch (equal to ``k`` in every
+    untraced field) and the sequenced route at the fused route's per-shard
+    grid, traced (equal to the traced fused launch in every field, the
+    trace and every shard's copy included); with each route's launches a
+    call."""
+    import torch
+
+    from distilp_torch import kernels
+
+    kernels.reset_launch_counts()
+    tr = run(trace=True)
+    torch.cuda.synchronize()
+    fused = route_launches(name)
+    reps: list = []
+    kernels.reset_launch_counts()
+    sq = run(trace=True, _sequenced=True, replicas=reps)
+    torch.cuda.synchronize()
+    seq = route_launches(name)
+    untraced = K6B_FIELDS[:-1]
+    return {"traced_equal_untraced": same_bits(tr, k, untraced),
+            "trace_rows": int((tr.trace_buf[..., 5] > 0).sum()),
+            "sequenced_equal_fused": same_bits(sq, tr) and all(same_bits(r, sq) for r in reps),
+            "launches_per_call": {"fused": fused["fused"], "sequenced": seq["sequenced"]},
+            "fused_only": fused["sequenced"] == 0 and seq["fused"] == 0}
 
 
 def check_collective(report: dict) -> None:
@@ -4233,12 +4295,28 @@ def at_equal_steps(batch, k, r, run_k, run_r, warm=None):
     return (kb, ko), (rb, ro), rerun
 
 
+def fused_route_ok(line: dict, n_launch: int, n_coll: int, B: int) -> bool:
+    """The fused route's call: one launch a slice of at most BMAX elements
+    and no collective launch; its traced launch and the sequenced route
+    equal to it (``routes_agree``)."""
+    from distilp_torch.ops.pdhg import BMAX
+
+    return (n_launch == -(-B // BMAX) and n_coll == 0
+            and line["launches_per_call"]["fused"] == n_launch and line["fused_only"]
+            and line["traced_equal_untraced"] and line["trace_rows"] > 0
+            and line["sequenced_equal_fused"])
+
+
 def check_pdhg_sharded(report: dict) -> None:
     """K6b on the 128-device fleet's root LPs (B=2, m=769, n=1665) at S=2
-    and S=4 on a virtual mesh of cuda:0, float64 and float32: against the
-    unsharded K5 at equal step counts, against the sharded plain version on
-    the card, every shard's copy of the result bit for bit equal; then its
-    time per call, launches per step and bound."""
+    and S=4 on a virtual mesh of cuda:0, float64 and float32, by its fused
+    route (one launch a call): against the sequenced route at the same
+    per-shard grid bit for bit (``routes_agree``), against the unsharded K5
+    at equal step counts, against the sharded plain version on the card,
+    every shard's copy of the result bit for bit equal, a traced launch
+    equal to the untraced one; then the time per call of both routes,
+    launches per call and per step, device busy and bound, beside two
+    ``torch.matmul`` a step on each shard's block."""
     import torch
 
     from distilp_torch import kernels
@@ -4266,11 +4344,9 @@ def check_pdhg_sharded(report: dict) -> None:
             torch.cuda.synchronize()
             n_launch = kernels.LAUNCHES["pdhg_sharded"]
             n_coll = kernels.LAUNCHES["collective"]
-            same = all(torch.equal(bits(getattr(a, f)), bits(getattr(reps[0], f)))
-                       for a in reps for f in ("v", "bound", "obj", "reduced", "y_dual",
-                                               "z_dual", "f_dual")) and all(
-                torch.equal(a.iters_run, reps[0].iters_run)
-                and torch.equal(a.converged, reps[0].converged) for a in reps)
+            same = all(same_bits(a, reps[0]) for a in reps)
+            routes = routes_agree("pdhg_sharded", lambda mesh=mesh, tol=tol, **kw: sharded_pdhg(
+                batch, mesh, iters, tol, rt, **kw), k)
             run_s = (lambda sub, st, mesh=mesh, tol=tol:  # noqa: E731
                      sharded_pdhg(sub, mesh, st, tol, rt))
             (kb, ko), (rb, ro), rerun = at_equal_steps(
@@ -4284,7 +4360,8 @@ def check_pdhg_sharded(report: dict) -> None:
                     "max_rel_vs_unsharded_k5": vs_k5, "rerun_at_equal_steps": rerun,
                     "replicas_bit_equal": same, "launches": n_launch,
                     "collective_launches": n_coll,
-                    "launches_per_step": (n_launch + n_coll) / max(1, int(k.iters_run.max()))}
+                    "launches_per_step": (n_launch + n_coll) / max(1, int(k.iters_run.max())),
+                    **routes}
             if dtype == torch.float64 or S == 4:
                 m = batch.b.shape[1]
 
@@ -4310,43 +4387,37 @@ def check_pdhg_sharded(report: dict) -> None:
             tol_k5 = TOL_PDHG_SHARDED_F64 if dtype == torch.float64 else TOL_PDHG_F32_CERT
             held = vs_k5["bound"] <= tol_k5 and (
                 dtype != torch.float64 or vs_k5["obj"] <= tol_k5)
-            line["ok"] = bool(held and same and line.get("plain_ok", True))
+            line["ok"] = bool(held and same and line.get("plain_ok", True)
+                              and fused_route_ok(line, n_launch, n_coll, int(batch.b.shape[0])))
             print("pdhg_sharded", json.dumps(line), flush=True)
             rows.append(line)
             if not line["ok"]:
                 bad.append((S, line["dtype"]))
     if bad:
-        fail(f"pdhg_sharded disagrees with K5, its plain version, or across shards in "
-             f"(S, dtype) {bad}")
+        fail(f"pdhg_sharded disagrees with K5, its plain version, the sequenced route, "
+             f"across shards or traced in (S, dtype) {bad}")
 
     # Time at the main path's shape: the 128-device root round in float32,
-    # S=2 and 4, beside the unsharded K5 launch on the same rows.
+    # S=2 and 4, both routes, beside the unsharded K5 launch on the same
+    # rows and two torch.matmul a step on each shard's block.
     batch, _ = pdhg_roots(128, torch.float32)
     m, n = batch.A.shape
     B = int(batch.b.shape[0])
     nnz = int(torch.count_nonzero(batch.A))
     tol = _default_tol_pdhg(torch.float32)
+    k5 = cuda_ms(lambda: pdhg_solve_batch(batch, iters=iters), reps=5, warmup=1)
     timing = {}
     for S in MESH_SHARDS:
         mesh = virtual_mesh(S)
-        run = lambda: sharded_pdhg(batch, mesh, iters, tol, rt)  # noqa: E731
-        res = run()
-        call = cuda_ms(run, reps=3, warmup=1)
-        busy = device_ms(run, "pdhgs_kernel", reps=2)
-        kernels.reset_launch_counts()
-        run()
-        launches = kernels.LAUNCHES["pdhg_sharded"]
-        busy_total = None if busy is None else busy * launches
-        flops, nbytes = sharded_flops_bytes(m, n, nnz, B, S, res.iters_run.tolist(),
-                                            PDHG_DEFAULT_CHUNK, 4)
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
-        k5 = cuda_ms(lambda: pdhg_solve_batch(batch, iters=iters), reps=5, warmup=1)
-        timing[S] = dict(ms=call, device_busy_ms=busy_total, launches=launches,
-                         steps=int(res.iters_run.max()), bound_ms=b_ms, bound_by=b_by,
-                         k5_ms=k5)
-        print(f"pdhg_sharded M=128 S={S} float32: {call:.3f} ms a call (CUDA events), "
-              f"device busy {busy_total} ms in {launches} launches, "
-              f"{int(res.iters_run.max())} steps, bound {b_ms:.5f} ms by {b_by}; "
+        run = lambda **kw: sharded_pdhg(batch, mesh, iters, tol, rt, **kw)  # noqa: E731
+        timing[S] = k6b_timing("pdhg_sharded", run, S, sharded_flops_bytes(
+            m, n, nnz, B, S, run().iters_run.tolist(), PDHG_DEFAULT_CHUNK, 4))
+        A_b, b_b, *_ = shard_rows(batch, S)
+        X = torch.rand(n, B, device="cuda")
+        Ys = [torch.rand(a.shape[0], B, device="cuda") for a in A_b]
+        mm = cuda_ms(lambda: [(a @ X, a.T @ y) for a, y in zip(A_b, Ys)])
+        timing[S].update(matmul_step_ms=mm, library_ms=mm * timing[S]["steps"], k5_ms=k5)
+        print(f"pdhg_sharded M=128 S={S} float32: {json.dumps(timing[S])}; "
               f"unsharded K5 {k5:.3f} ms", flush=True)
     A_b, b_b, *_ = shard_rows(batch, 4)
     plain = cuda_ms(lambda: sharded_pdhg_reference(A_b, b_b, batch.c, batch.l, batch.u,
@@ -4360,11 +4431,43 @@ def check_pdhg_sharded(report: dict) -> None:
                         if "max_abs_bound_vs_sharded_plain" in r_),
         max_rel_vs_unsharded_k5=max(r_["max_rel_vs_unsharded_k5"]["bound"] for r_ in rows),
         ms=t4["ms"], plain_ms=plain, bound_ms=t4["bound_ms"], bound_by=t4["bound_by"],
-        library_ms=t4["k5_ms"], library="the unsharded K5 launch on the same rows",
-        held_against_plain="ok", device_busy_ms=t4["device_busy_ms"],
-        steps=t4["steps"], shapes_timed=f"M=128 root round, float32, S=4, {iters} steps",
+        library_ms=t4["library_ms"],
+        library="two torch.matmul a step on each shard's block x steps",
+        k5_ms=k5, held_against_plain="ok", device_busy_ms=t4["device_busy_ms"],
+        launches_per_call=t4["launches_per_call"], sequenced_ms=t4["sequenced_ms"],
+        steps=t4["steps"],
+        shapes_timed=f"M=128 root round, float32, S=4, {iters} steps, fused route",
         s2=timing[2],
     )
+
+
+def k6b_timing(name: str, run, S: int, work) -> dict:
+    """A K6b call (``run(**kw)`` on a one-card mesh) timed by both routes:
+    the fused route's ms a call (CUDA events), its device busy ms a call
+    (profiler) and launches a call; the sequenced route's at the fused
+    route's per-shard grid, its launches and collective launches a call;
+    the bound from ``work`` = (operations, bytes)."""
+    from distilp_torch import kernels
+
+    res = run()
+    call = cuda_ms(lambda: run(), reps=3, warmup=1)
+    busy = device_ms(lambda: run(), "pdhgs_fused_kernel", reps=2)
+    kernels.reset_launch_counts()
+    run()
+    per_call = route_launches(name)["fused"]
+    seq = cuda_ms(lambda: run(_sequenced=True), reps=3, warmup=1)
+    kernels.reset_launch_counts()
+    run(_sequenced=True)
+    seq_launches = route_launches(name)["sequenced"]
+    seq_coll = kernels.LAUNCHES["collective"]
+    steps = int(res.iters_run.max())
+    b_ms, b_by = bound_ms(work[0], work[1], PEAK_F32_S)
+    return dict(S=S, ms=call, device_busy_ms=None if busy is None else busy * per_call,
+                launches_per_call=per_call, steps=steps, sequenced_ms=seq,
+                sequenced_launches_per_call=seq_launches,
+                sequenced_collective_launches_per_call=seq_coll,
+                sequenced_launches_per_step=(seq_launches + seq_coll) / max(1, steps),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def mixtral_mesh_calls(S: int = 2):
@@ -4405,11 +4508,13 @@ def check_pdhg_sharded_elem(report: dict) -> None:
     """K6b's per-element entry (B6c) on Mixtral M=4's MoE node A's as its
     solve at S=2 sends them (the root round, B=4, m=34, n=65, and the first
     round of 16 nodes, warm, some skipped), at S=2 and S=4 on a virtual mesh
-    of cuda:0, float64 and float32: against the unsharded K5 per-element
-    entry at equal step counts, against the sharded plain version on the
-    card, every shard's copy of the result bit for bit equal, a traced
-    launch equal to the untraced one; then its time per call, launches per
-    step and bound at the root round."""
+    of cuda:0, float64 and float32, by its fused route: against the
+    sequenced route at the same per-shard grid bit for bit, against the
+    unsharded K5 per-element entry at equal step counts, against the sharded
+    plain version on the card, every shard's copy of the result bit for bit
+    equal, a traced launch equal to the untraced one; then both routes'
+    time per call, launches per call and per step and the bound at the root
+    round, beside two ``torch.bmm`` a step."""
     import torch
 
     from distilp_torch import kernels
@@ -4423,7 +4528,6 @@ def check_pdhg_sharded_elem(report: dict) -> None:
     )
 
     rt = DEFAULT_RESTART_TOL
-    fields = ("v", "bound", "obj", "reduced", "y_dual", "z_dual", "f_dual")
     cases = mixtral_mesh_calls()
     rows, bad = [], []
     for label, batch0, iters, warm0, skip in cases:
@@ -4444,17 +4548,11 @@ def check_pdhg_sharded_elem(report: dict) -> None:
                 torch.cuda.synchronize()
                 n_launch = kernels.LAUNCHES["pdhg_sharded_elem"]
                 n_coll = kernels.LAUNCHES["collective"]
-                same = all(torch.equal(bits(getattr(a, f)), bits(getattr(reps[0], f)))
-                           for a in reps for f in fields) and all(
-                    torch.equal(a.iters_run, reps[0].iters_run)
-                    and torch.equal(a.converged, reps[0].converged) for a in reps)
-                tr = sharded_pdhg(batch, mesh, iters, tol, rt, warm=warm, skip=skip,
-                                  trace=True)
-                torch.cuda.synchronize()
-                traced_same = all(torch.equal(bits(getattr(tr, f)), bits(getattr(k, f)))
-                                  for f in fields) and torch.equal(
-                    tr.iters_run, k.iters_run) and torch.equal(tr.converged, k.converged)
-                traced_rows = int((tr.trace_buf[..., 5] > 0).sum())
+                same = all(same_bits(a, reps[0]) for a in reps)
+                routes = routes_agree(
+                    "pdhg_sharded_elem",
+                    lambda mesh=mesh, tol=tol, warm=warm, **kw: sharded_pdhg(
+                        batch, mesh, iters, tol, rt, warm=warm, skip=skip, **kw), k)
                 run_s = (lambda sub, st, sw=None, mesh=mesh, tol=tol:  # noqa: E731
                          sharded_pdhg(sub, mesh, st, tol, rt, warm=sw))
                 run_5 = (lambda sub, st, sw=None, tol=tol:  # noqa: E731
@@ -4468,11 +4566,10 @@ def check_pdhg_sharded_elem(report: dict) -> None:
                         "iters_run_k5": k5.iters_run.tolist(),
                         "converged": k.converged.tolist(),
                         "max_rel_vs_unsharded_k5": vs_k5, "rerun_at_equal_steps": rerun,
-                        "replicas_bit_equal": same, "traced_equal_untraced": traced_same,
-                        "trace_rows": traced_rows, "launches": n_launch,
+                        "replicas_bit_equal": same, "launches": n_launch,
                         "collective_launches": n_coll,
                         "launches_per_step": (n_launch + n_coll) / max(
-                            1, int(k.iters_run.max()))}
+                            1, int(k.iters_run.max())), **routes}
                 if dtype == torch.float64 or S == 4:
 
                     def plain(sub, st, sw=None, S=S, tol=tol, m=m, sk=None):
@@ -4499,58 +4596,44 @@ def check_pdhg_sharded_elem(report: dict) -> None:
                 tol_k5 = TOL_PDHG_SHARDED_F64 if dtype == torch.float64 else TOL_PDHG_F32_CERT
                 held = vs_k5["bound"] <= tol_k5 and (
                     dtype != torch.float64 or vs_k5["obj"] <= tol_k5)
-                line["ok"] = bool(held and same and traced_same and traced_rows > 0
-                                  and line.get("plain_ok", True))
+                line["ok"] = bool(held and same and line.get("plain_ok", True)
+                                  and fused_route_ok(line, n_launch, n_coll, line["B"]))
                 print("pdhg_sharded_elem", json.dumps(line), flush=True)
                 rows.append(line)
                 if not line["ok"]:
                     bad.append((label, S, line["dtype"]))
     if bad:
         fail(f"pdhg_sharded_elem disagrees with K5's per-element entry, its plain version, "
-             f"across shards or traced in (batch, S, dtype) {bad}")
+             f"the sequenced route, across shards or traced in (batch, S, dtype) {bad}")
 
     # Time at the main path's shape: the root round in float32 (the solve's
-    # iterate dtype), S=2 and 4, beside the unsharded K5 per-element launch
-    # on the same rows and two batched library products a step.
+    # iterate dtype), S=2 and 4, both routes, beside the unsharded K5
+    # per-element launch on the same rows and two batched library products
+    # a step.
     _, batch, iters, warm, skip = cases[0]
     B, n = batch.c.shape
     m = batch.b.shape[1]
     sp = batch.A.sparsity
     tol = _default_tol_pdhg(torch.float32)
-    timing = {}
-    for S in MESH_SHARDS:
-        mesh = virtual_mesh(S)
-        run = lambda: sharded_pdhg(batch, mesh, iters, tol, rt, warm=warm,  # noqa: E731
-                                   skip=skip)
-        res = run()
-        call = cuda_ms(run, reps=3, warmup=1)
-        busy = device_ms(run, "pdhgs_kernel", reps=2)
-        kernels.reset_launch_counts()
-        run()
-        launches = kernels.LAUNCHES["pdhg_sharded_elem"]
-        coll = kernels.LAUNCHES["collective"]
-        busy_total = None if busy is None else busy * launches
-        blocks, _, _, _, _ = shard_rows(batch, S)
-        a_bytes = sum(elem_a_bytes(b.sparsity, B, 4) for b in blocks)
-        flops, nbytes = sharded_flops_bytes(m, n, sp.nnz, B, S, res.iters_run.tolist(),
-                                            PDHG_DEFAULT_CHUNK, 4, warm=warm is not None,
-                                            a_bytes=a_bytes)
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
-        steps = int(res.iters_run.max())
-        timing[S] = dict(ms=call, device_busy_ms=busy_total, launches=launches,
-                         collective_launches=coll, steps=steps,
-                         launches_per_step=(launches + coll) / max(1, steps),
-                         bound_ms=b_ms, bound_by=b_by)
-        print(f"pdhg_sharded_elem Mixtral M=4 root S={S} float32: {call:.3f} ms a call "
-              f"(CUDA events), device busy {busy_total} ms in {launches} launches "
-              f"(+{coll} collective), {steps} steps, {(launches + coll) / max(1, steps):.2f} "
-              f"launches a step, bound {b_ms:.7f} ms by {b_by}", flush=True)
-    k5 = cuda_ms(lambda: pdhg_solve_batch(batch, iters=iters, tol=tol, restart_tol=rt,
-                                          warm=warm, skip=skip), reps=5, warmup=1)
     A3 = batch.A.dense()
     X = torch.rand(B, n, 1, device="cuda")
     Y = torch.rand(B, m, 1, device="cuda")
     mm = cuda_ms(lambda: (torch.bmm(A3, X), torch.bmm(A3.transpose(1, 2), Y)))
+    timing = {}
+    for S in MESH_SHARDS:
+        mesh = virtual_mesh(S)
+        run = lambda **kw: sharded_pdhg(batch, mesh, iters, tol, rt, warm=warm,  # noqa: E731
+                                        skip=skip, **kw)
+        blocks, _, _, _, _ = shard_rows(batch, S)
+        a_bytes = sum(elem_a_bytes(b.sparsity, B, 4) for b in blocks)
+        timing[S] = k6b_timing("pdhg_sharded_elem", run, S, sharded_flops_bytes(
+            m, n, sp.nnz, B, S, run().iters_run.tolist(), PDHG_DEFAULT_CHUNK, 4,
+            warm=warm is not None, a_bytes=a_bytes))
+        timing[S].update(library_ms=mm * timing[S]["steps"], bmm_step_ms=mm)
+        print(f"pdhg_sharded_elem Mixtral M=4 root S={S} float32: {json.dumps(timing[S])}",
+              flush=True)
+    k5 = cuda_ms(lambda: pdhg_solve_batch(batch, iters=iters, tol=tol, restart_tol=rt,
+                                          warm=warm, skip=skip), reps=5, warmup=1)
     A_b, b_b, wv, wy_b, wok = shard_rows(batch, 4, warm)
     plain = cuda_ms(lambda: sharded_pdhg_reference(A_b, b_b, batch.c, batch.l, batch.u,
                                                    iters, tol, rt, wv=wv, wy=wy_b, wok=wok,
@@ -4566,12 +4649,13 @@ def check_pdhg_sharded_elem(report: dict) -> None:
                         if "max_abs_bound_vs_sharded_plain" in r_),
         max_rel_vs_unsharded_k5=max(r_["max_rel_vs_unsharded_k5"]["bound"] for r_ in rows),
         ms=t4["ms"], plain_ms=plain, bound_ms=t4["bound_ms"], bound_by=t4["bound_by"],
-        library_ms=k5, library="the unsharded K5 per-element launch on the same rows",
-        library_bmm_ms=mm * t4["steps"], library_bmm_step_ms=mm,
+        library_ms=t4["library_ms"],
+        library="two torch.bmm a step on the dense (B, m, n) A x steps",
+        library_bmm_step_ms=mm, k5_elem_ms=k5,
         held_against_plain="ok", device_busy_ms=t4["device_busy_ms"], steps=t4["steps"],
-        launches_per_step=t4["launches_per_step"],
+        launches_per_call=t4["launches_per_call"], sequenced_ms=t4["sequenced_ms"],
         shapes_timed=f"Mixtral M=4 root round B={B} m={m} n={n} nnz={sp.nnz}, float32, "
-                     f"S=4, {iters} steps budget",
+                     f"S=4, {iters} steps budget, fused route",
         s2=timing[2],
     )
 
@@ -4829,7 +4913,13 @@ def mesh_path() -> dict:
         fail(f"measure_interconnect over the virtual mesh: {info}")
     launches = path_launches(child)
     print("mesh path launches", json.dumps(launches), flush=True)
+    by_route = {name: {r: sum(c for sh, c in launches["_shapes"].get(name, {}).items()
+                              if sh.endswith("route=" + r)) for r in ("fused", "sequenced")}
+                for name in ("pdhg_sharded", "pdhg_sharded_elem")}
+    print("mesh path K6b launches by route", json.dumps(by_route), flush=True)
     print(f"mesh path: {time.perf_counter() - t_path:.1f} s", flush=True)
+    if any(v["sequenced"] for v in by_route.values()):
+        fail(f"the mesh path ran K6b's sequenced route on one card: {by_route}")
     missing = [k for k in MESH_KERNELS if launches[k] == 0]
     if missing:
         fail(f"mesh path never launched {missing}")

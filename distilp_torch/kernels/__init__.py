@@ -24,9 +24,11 @@ import torch
 # per-element entry counts as "pdhg_elem"; a launch of K1 or K5 that records
 # the convergence trace counts as "ipm_trace" or "pdhg_trace" (either K5
 # entry), not under the untraced name. The row-sharded PDHG (K6b) counts one
-# "pdhg_sharded" launch per phase per shard (its per-element entry
-# "pdhg_sharded_elem"; traced or not), the mesh's psum/pmax one "collective"
-# launch per receiving shard.
+# "pdhg_sharded" launch per slice on its fused route (every shard on one
+# device) and one per phase per shard on its sequenced route (its
+# per-element entry "pdhg_sharded_elem"; traced or not; the shape key ends
+# in the route), the mesh's psum/pmax one "collective" launch per receiving
+# shard.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,

@@ -31,7 +31,10 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 # do the decomposition bound (K7), whose cell pricing has the same ones, the
 # twin's Monte-Carlo engine (K8, the spill-need staircase) and the profiler's
 # scale (K9b, bit for bit against its plain version; K9b's product uses
-# explicit fmaf and the tensor cores, which the flag does not touch).
+# explicit fmaf and the tensor cores, which the flag does not touch). So
+# does K6b: its two routes inline the same phase code into two kernels, and
+# only without contraction do both round every operation alike (bit for bit
+# on the card; with it, they part at the last bit).
 SOURCES: Dict[str, tuple] = {
     "ipm": ("ipm_kernel.cu", []),
     "round": ("round_kernel.cu", ["--fmad=false"]),
@@ -41,7 +44,7 @@ SOURCES: Dict[str, tuple] = {
     "decomp": ("decomp_kernel.cu", ["--fmad=false"]),
     "twin_mc": ("twin_mc_kernel.cu", ["--fmad=false"]),
     "profiler": ("profiler_kernel.cu", ["--fmad=false"]),
-    "pdhg_sharded": ("pdhg_sharded_kernel.cu", []),
+    "pdhg_sharded": ("pdhg_sharded_kernel.cu", ["--fmad=false"]),
     "collective": ("collective_kernel.cu", []),
 }
 HEADERS = ("common.cuh",)
@@ -116,6 +119,12 @@ SIGNATURES = {
         "dtk_pdhgs_elem_grid": [_I],
         "dtk_pdhgs_elem_f32": [_I, _P, _P, _P, _L, _P],
         "dtk_pdhgs_elem_f64": [_I, _P, _P, _P, _L, _P],
+        "dtk_pdhgs_fused_grid": [_I, _I],
+        "dtk_pdhgs_fused_max_shards": [],
+        "dtk_pdhgs_fused_f32": [_I, _P, _P, _P, _P, _I, _P],
+        "dtk_pdhgs_fused_f64": [_I, _P, _P, _P, _P, _I, _P],
+        "dtk_pdhgs_elem_fused_f32": [_I, _P, _P, _P, _P, _I, _P],
+        "dtk_pdhgs_elem_fused_f64": [_I, _P, _P, _P, _P, _I, _P],
     },
     "collective": {
         "dtk_allreduce_f32": [_P, _I, _L, _I, _P, _P],

@@ -12,57 +12,95 @@
 // and |A|' row_s for the column 1-norms), the psum of the dual half of the
 // weighted residual and of the non-finite flags, the pmax of max|b_s| and of
 // the primal residual, the psum of b_s'y, and the float64 psums of the
-// certificate's A'y and b'y. They run between launches of this kernel
-// (collective_kernel.cu, in shard order, so every shard gets the same bits).
+// certificate's A'y and b'y.
 //
-// Why phases. K5 is one cooperative launch per solve with grid barriers
-// inside. A collective in the middle of a step cannot live inside such a
-// launch: on a virtual mesh the shards' launches share one card and are not
-// co-resident, so a kernel that spin-waited on another shard's launch would
-// deadlock. So the step is cut at its collectives into phases, each one
-// cooperative launch on one shard (its grid barriers are its own), and the
-// host sequences them: per step STEP (the primal update from the psum'd column
-// product, the shard's rows of the dual update, the residual partials) ->
-// psum of the step scalars -> COMMIT (restart, rollback, Halpern counter, then
-// the next column partial) -> psum of the column partial; per chunk STATS ->
-// pmax / psum -> DECIDE (convergence, trace row). No kernel waits on another
-// shard. The per-element state (anchor residual, Halpern counter, done flag,
-// step count) lives in each shard's workspace; every block of a launch
-// computes the same decisions from the same global values.
+// The solve is one fixed sequence of phases cut at those collectives:
+// SETUP_A, SETUP_B, (warm: RES, RESW), RES, INIT; per chunk `chunk` x (STEP
+// -> psum of the step scalars -> COMMIT -> psum of the column partial), then
+// STATS -> pmax / psum -> DECIDE (convergence, trace row); then STATS, EPI1
+// -> float64 psums -> EPI2. Two routes run it.
+//
+// The fused route (pdhgs_fused_kernel; dtk_pdhgs_fused_*, _elem_fused_*) runs
+// when every shard lies on one card: one cooperative launch per slice for all
+// of them. A collective inside a launch deadlocks only when it waits on a
+// launch that is not co-resident; here the card's G blocks (one per SM) are
+// split into S groups of Gs = G / S, shard s runs on group s with its own
+// Params, workspace and outputs (block index and group size in place of
+// blockIdx.x and gridDim.x), and the cooperative launch makes every group
+// co-resident, so the shards meet at grid syncs of one launch. The phases
+// follow the sequence above with a grid sync between two phases, where the
+// sequenced route has a launch boundary. Each psum / pmax is the next phase's
+// own read of the S shards' parts in shard order (r = part_0, then r = op(r,
+// part_s), the NaN-propagating max of common.cuh): collective_kernel.cu's
+// order, so every shard gets the same bits with no pass and no barrier of its
+// own. One barrier is added, in SETUP_B, which reads the parts and rewrites
+// its own in one phase. The host's read of the done flags after each chunk
+// becomes an in-kernel test, as in K5. Removed per step: the launches of
+// STEP and COMMIT on every shard and the two collectives' launches per
+// receiving shard (4 + 2S launches); per chunk: STATS's and DECIDE's
+// launches, three collectives and the host's device-to-host read.
+//
+// The rule that keeps one launch from hanging the card: a grid sync that only
+// some groups reach never completes, so no branch around a barrier depends on
+// the shard. Every such branch tests the phase, its argument, `warm` (a
+// launch argument), the chunk index, the peers (set for every group), or shard
+// 0's done flags, which every block reads after the same sync; inside a
+// phase the barriers sit outside every element- and block-dependent branch
+// (DECIDE's block-0 work no longer returns early).
+//
+// The sequenced route (pdhgs_kernel; dtk_pdhgs_*, _elem_*) runs when the
+// shards span cards: each phase one cooperative launch on one shard (its grid
+// barriers are its own), sequenced by the host (ops/meshlp.py) with
+// collective_kernel.cu between them, the parts moved by peer copies until the
+// cross-card transport exists. No kernel waits on another shard. Run at the
+// fused route's group size it is the same code on the same grid, so the two
+// agree bit for bit. That needs the file built without FMA contraction
+// (kernels/build.py): the two kernels inline the phases into different
+// code, and nvcc's contraction of a * b + c differs between them.
 //
 // Replicated decisions must be bit-identical on every shard: the restart test
 // is a discrete branch. Every replicated quantity (the primal update, its half
 // of the residual) is computed by the same code on the same inputs with the
-// same grid (the caller passes one grid size for the whole mesh), and the
-// cross-shard sums arrive in one fixed order.
+// same grid (one group size for the whole mesh), and the cross-shard sums
+// arrive in one fixed order.
 //
 // Padded rows (all zero) get row scale 1e12, sigma 0 and dual 0 (the step
 // guards of K5), and add nothing to any product or to the certificate.
 //
-// The per-element entry (dtk_pdhgs_elem_f32/f64, B6c: the reference's 3-D
-// a_spec P(None, axis, None), MoE nodes with one A each). Shard s holds its
-// rows' part of the union structure as a structure of its own (ms x n: row
-// pointers, columns, each nonzero's place in the block's column order, then
-// column pointers and rows: the first parts of ops/ipm.py's IPMSparsity),
-// and each element's values on those nonzeros, vals + e * nnz_s: K5's
-// per-element form (pdhg_kernel.cu), per shard. The phases that read A
-// (setup's row maxima and |A|' row_s, the step's A_blk z, the column
-// partials, the statistics, the float64 certificate) walk the structure
-// with element e's values on lane e, in ascending order, as K5's route does;
-// everything else, the collectives and their order included, is the shared
-// entry's code. No dense (B, ms, n) block and no transpose exist. Padded rows
-// are empty rows of the block's structure, inert as above.
+// The per-element entry (B6c: the reference's 3-D a_spec P(None, axis, None),
+// MoE nodes with one A each). Shard s holds its rows' part of the union
+// structure as a structure of its own (ms x n: row pointers, columns, each
+// nonzero's place in the block's column order, then column pointers and rows:
+// the first parts of ops/ipm.py's IPMSparsity), and each element's values on
+// those nonzeros, vals + e * nnz_s: K5's per-element form (pdhg_kernel.cu),
+// per shard. The phases that read A (setup's row maxima and |A|' row_s, the
+// step's A_blk z, the column partials, the statistics, the float64
+// certificate) walk the structure with element e's values on lane e, in
+// ascending order, as K5's route does; everything else, the collectives and
+// their order included, is the shared entry's code. No dense (B, ms, n) block
+// and no transpose exist. Padded rows are empty rows of the block's structure,
+// inert as above.
 //
 // What bounds it on an H100. Per step a shard streams its block of A twice
 // (At_blk for the column partial, A_blk for the dual update), and the mesh
 // together the whole A, as K5 does; at 128 devices both copies of a 769 / S
-// row block fit L2 and a step is latency: about 4 launches and 2 collective
-// launches per shard, on the order of 10 us each. The launches are the cost,
-// so a step is launch-bound (a CUDA graph of one step across the shards, or a
-// persistent kernel per card with flag barriers between distinct cards, is the
-// redesign that removes them).
+// row block fit L2, so bytes do not bound a step. On the sequenced route a
+// step is 4 + 2S launches: launch-bound. On the fused route a step is five
+// grid syncs of one launch (two in STEP, one between STEP and COMMIT, one in
+// COMMIT, whose state writes wait for it, one after the column partial), ~1.1
+// us each, and latency-bound dot products: a warp walks a row or column 128
+// values an iteration, and all of an iteration's loads go out before its
+// products (issued element by element they cost a memory round trip per
+// element). At S shards a group has G / S blocks for all n columns, so the
+// column partial's short columns (ms = m / S rows) take S times the warps'
+// turns. chip_k6b_profile.py prints the cycles of each part of a step. The
+// next cut: every block reduces the shards' step partials itself (no block-0
+// pass and no sync between STEP and COMMIT), four syncs a step against K5's
+// three.
 
 #include <cooperative_groups.h>
+
+#include <memory>
 
 #include "common.cuh"
 
@@ -172,6 +210,21 @@ struct Params {
   T* trace;  // (B, trace_rows, 6) or null
 };
 
+// The fused route's shards: every shard's Params (in the launch's parameter
+// space) and their count; none on the sequenced route, which reads the
+// collectives' results.
+template <typename T>
+struct Peers {
+  const Params<T>* p;
+  int S;
+};
+
+// A block's place in its shard's group: its index and the group's size
+// (the sequenced route's group is the whole grid).
+struct Grp {
+  int bid, nb;
+};
+
 // Per-block scratch and the per-element decisions of a phase; every block
 // computes the same values.
 template <typename T>
@@ -197,6 +250,59 @@ __device__ __forceinline__ T* rowv(const Params<T>& p, int v) {
 
 __device__ __forceinline__ bool on(unsigned mask, int e) { return (mask >> e) & 1u; }
 
+// The collectives' results. The sequenced route reads what
+// collective_kernel.cu wrote; the fused route reduces the shards' parts
+// itself, in shard order (r = part_0, then r = op(r, part_s)), as
+// collective_kernel.cu's reduce_parts does: the same bits on every shard.
+// psum of the column partials at idx = (e, j)
+template <typename T>
+__device__ __forceinline__ T g_at(const Params<T>& p, Peers<T> pr, size_t idx) {
+  if (pr.p == nullptr) return p.g[idx];
+  T r = pr.p[0].part[idx];
+  for (int s = 1; s < pr.S; ++s) r = r + pr.p[s].part[idx];
+  return r;
+}
+// psum of the step scalars: element e's slot k
+template <typename T>
+__device__ __forceinline__ T sq_at(const Params<T>& p, Peers<T> pr, int e, int k) {
+  const int i = e * N_SQ + k;
+  if (pr.p == nullptr) return p.sqg[i];
+  T r = pr.p[0].sq[i];
+  for (int s = 1; s < pr.S; ++s) r = r + pr.p[s].sq[i];
+  return r;
+}
+// pmax of max|b_s| (setup) or of the primal residual (statistics)
+template <typename T>
+__device__ __forceinline__ T rp_at(const Params<T>& p, Peers<T> pr, int e) {
+  if (pr.p == nullptr) return p.srpg[e];
+  T r = pr.p[0].srp[e];
+  for (int s = 1; s < pr.S; ++s) r = nan_max(r, pr.p[s].srp[e]);
+  return r;
+}
+// psum of b_s'y
+template <typename T>
+__device__ __forceinline__ T by_at(const Params<T>& p, Peers<T> pr, int e) {
+  if (pr.p == nullptr) return p.sbyg[e];
+  T r = pr.p[0].sby[e];
+  for (int s = 1; s < pr.S; ++s) r = r + pr.p[s].sby[e];
+  return r;
+}
+// float64 psums of the certificate: A'y at idx, b'y of element e
+template <typename T>
+__device__ __forceinline__ double g64_at(const Params<T>& p, Peers<T> pr, size_t idx) {
+  if (pr.p == nullptr) return p.g64[idx];
+  double r = pr.p[0].part64[idx];
+  for (int s = 1; s < pr.S; ++s) r = r + pr.p[s].part64[idx];
+  return r;
+}
+template <typename T>
+__device__ __forceinline__ double s64_at(const Params<T>& p, Peers<T> pr, int e) {
+  if (pr.p == nullptr) return p.s64g[e];
+  double r = pr.p[0].s64[e];
+  for (int s = 1; s < pr.S; ++s) r = r + pr.p[s].s64[e];
+  return r;
+}
+
 // acc[e] = sum_k S(row[k]) * S(vec[e*stride + k]) over k < len, for the
 // elements of ``mask``; one warp, every lane ends with every element's sum.
 template <typename S, typename TA, typename TV>
@@ -215,23 +321,65 @@ __device__ __forceinline__ void warp_dots(const TA* __restrict__ row, const TV* 
       a2 = fabs(a2);
       a3 = fabs(a3);
     }
+    // Four elements at a time: every load first, then the products, so the
+    // loads of an iteration share one memory round trip (each element's
+    // sum keeps its order).
 #pragma unroll
-    for (int e = 0; e < BMAX; ++e) {
-      if (e < B && on(mask, e)) {
-        const TV* v = vec + e * stride + k;
-        acc[e] += a0 * S(v[0]);
-        acc[e] += a1 * S(v[32]);
-        acc[e] += a2 * S(v[64]);
-        acc[e] += a3 * S(v[96]);
+    for (int e0 = 0; e0 < BMAX; e0 += 4) {
+      if (e0 < B) {
+        S v[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u;
+          if (e < B && on(mask, e)) {
+            const TV* vp = vec + e * stride + k;
+            v[u][0] = S(vp[0]);
+            v[u][1] = S(vp[32]);
+            v[u][2] = S(vp[64]);
+            v[u][3] = S(vp[96]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u;
+          if (e < B && on(mask, e)) {
+            acc[e] += a0 * v[u][0];
+            acc[e] += a1 * v[u][1];
+            acc[e] += a2 * v[u][2];
+            acc[e] += a3 * v[u][3];
+          }
+        }
       }
     }
   }
-  for (; k < len; k += 32) {
-    S a = S(row[k]);
-    if (absa) a = fabs(a);
+  // The rest, at most three strides: loads first here too, then the
+  // products in the same order.
+  const int nt = k < len ? (len - k + 31) / 32 : 0;
+  S at[3];
 #pragma unroll
-    for (int e = 0; e < BMAX; ++e)
-      if (e < B && on(mask, e)) acc[e] += a * S(vec[e * stride + k]);
+  for (int q = 0; q < 3; ++q) {
+    at[q] = q < nt ? S(row[k + 32 * q]) : S(0);
+    if (absa) at[q] = fabs(at[q]);
+  }
+#pragma unroll
+  for (int e0 = 0; e0 < BMAX; e0 += 4) {
+    if (e0 < B) {
+      S v[4][3];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u;
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          if (e < B && on(mask, e) && q < nt) v[u][q] = S(vec[e * stride + k + 32 * q]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u;
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          if (e < B && on(mask, e) && q < nt) acc[e] += at[q] * v[u][q];
+      }
+    }
   }
 #pragma unroll
   for (int e = 0; e < BMAX; ++e)
@@ -297,28 +445,71 @@ __device__ __forceinline__ S col_dot(const Params<T>& p, int j, const V* vec, un
 // (block, element), combined over the warps in a fixed order.
 template <typename T, typename Op>
 __device__ void block_partial(T v, Op op, T init, T* sw, T* dst, int nslot, int slot, int B,
-                              bool accumulate) {
+                              bool accumulate, Grp grp) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  // Every warp is done reading sw: the statistics' block_reduce calls use
+  // the same scratch just before, and a warp with no rows would otherwise
+  // overwrite a slot another warp has yet to read.
+  __syncthreads();
   if (lane < BMAX) sw[wid * BMAX + lane] = lane < B ? v : init;
   __syncthreads();
   if ((int)threadIdx.x < B) {
     const int e = threadIdx.x;
     T r = init;
     for (int q = 0; q < NWARP; ++q) r = op(r, sw[q * BMAX + e]);
-    const size_t i = ((size_t)blockIdx.x * B + e) * nslot + slot;
+    const size_t i = ((size_t)grp.bid * B + e) * nslot + slot;
     dst[i] = accumulate ? op(dst[i], r) : r;
   }
   __syncthreads();
 }
 
-// out[e] = op over every block's partial (fixed order). Call after a grid
+// Every element's block_reduce at once: element e's value v[e] (per thread)
+// reduced over the warp (the butterfly of warp_reduce), then over the
+// block's warps in order, as common.cuh's block_reduce does, into
+// dst[(bid, e), slot] by thread e. Two barriers for all B elements.
+template <typename T, typename Op>
+__device__ __forceinline__ void block_partials(const T (&v)[BMAX], Op op, T* sw, T* dst,
+                                               int nslot, int slot, int B, Grp grp) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  __syncthreads();  // every warp is done reading sw
+#pragma unroll
+  for (int e = 0; e < BMAX; ++e) {
+    if (e < B) {
+      const T r = warp_reduce(v[e], op);
+      if (lane == 0) sw[wid * BMAX + e] = r;
+    }
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < B) {
+    const int e = threadIdx.x;
+    T r = sw[e];
+    for (int q = 1; q < NWARP; ++q) r = op(r, sw[q * BMAX + e]);
+    dst[((size_t)grp.bid * B + e) * nslot + slot] = r;
+  }
+}
+
+// Warps of task k of ``tasks`` reductions run side by side: a share of the
+// block's warps each, or every warp (one task after another) when the block
+// has fewer warps than tasks.
+__host__ __device__ constexpr int task_w0(int k, int tasks) {
+  return NWARP >= tasks ? k * (NWARP / tasks) : 0;
+}
+__host__ __device__ constexpr int task_nw(int tasks) {
+  return NWARP >= tasks ? NWARP / tasks : NWARP;
+}
+
+// out[e] = op over the group's nb block partials (fixed order), on warps
+// [w0, w0 + nw) of the block (several reductions run side by side on
+// disjoint warps; which warp reduces changes no bit). Call after a grid
 // sync; follow by __syncthreads.
 template <typename T, typename Op>
-__device__ void grid_reduce(const T* part, int nslot, int slot, int B, Op op, T init, T* out) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  for (int e = wid; e < B; e += NWARP) {
+__device__ void grid_reduce(const T* part, int nslot, int slot, int B, Op op, T init, T* out,
+                            int nb, int w0 = 0, int nw = NWARP) {
+  const int lane = threadIdx.x & 31, wid = (threadIdx.x >> 5) - w0;
+  if (wid < 0 || wid >= nw) return;
+  for (int e = wid; e < B; e += nw) {
     T v = init;
-    for (int g = lane; g < (int)gridDim.x; g += 32)
+    for (int g = lane; g < nb; g += 32)
       v = op(v, part[((size_t)g * B + e) * nslot + slot]);
     v = warp_reduce(v, op);
     if (lane == 0) out[e] = v;
@@ -328,9 +519,10 @@ __device__ void grid_reduce(const T* part, int nslot, int slot, int B, Op op, T 
 // part[e, j] = sum_i |A_blk|^(absa) [i, j] vec[e, i] for every column j
 // (this shard's column partial), for the elements of ``mask``.
 template <bool kElem, typename S, typename T, typename V>
-__device__ void colpart(const Params<T>& p, const V* vec, S* out, unsigned mask, bool absa) {
+__device__ __forceinline__ void colpart(const Params<T>& p, Grp grp, const V* vec, S* out, unsigned mask,
+                        bool absa) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int gw = blockIdx.x * NWARP + wid, tw = gridDim.x * NWARP;
+  const int gw = grp.bid * NWARP + wid, tw = grp.nb * NWARP;
   for (int j = gw; j < p.n; j += tw) {
     const S s = col_dot<kElem, S>(p, j, vec, mask, absa);
     if (lane < p.B && on(mask, lane)) out[(size_t)lane * p.n + j] = s;
@@ -341,10 +533,10 @@ __device__ void colpart(const Params<T>& p, const V* vec, S* out, unsigned mask,
 // residual's column part (replicated on every shard); with ``halpern`` also
 // the Halpern candidate and its flags.
 template <typename T>
-__device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, unsigned mask,
-                       bool halpern) {
-  const long gtid = (long)blockIdx.x * THREADS + threadIdx.x;
-  const long gthreads = (long)gridDim.x * THREADS;
+__device__ __forceinline__ void t_cols(const Params<T>& p, Blk<T>& s, Grp grp, Peers<T> pr,
+                                       const T* x, unsigned mask, bool halpern) {
+  const long gtid = (long)grp.bid * THREADS + threadIdx.x;
+  const long gthreads = (long)grp.nb * THREADS;
   const int B = p.B, n = p.n;
   const T* csa = colv(p, V_CSA);
   const T* cm = colv(p, V_CM);
@@ -366,7 +558,7 @@ __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, unsigned mask,
     const int e = (int)(idx / n);
     if (!on(mask, e)) continue;
     const T ca = csa[idx], tk = tau[idx], xj = x[idx];
-    const T tx = clip(xj - tk * (cm[idx] - ca * p.g[idx]), T(0), T(1));
+    const T tx = clip(xj - tk * (cm[idx] - ca * g_at(p, pr, (size_t)idx)), T(0), T(1));
     tx_o[idx] = tx;
     zb[idx] = ca * (T(2) * tx - xj);
     const T dx = tx - xj;
@@ -385,15 +577,25 @@ __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, unsigned mask,
         fl[k] |= f;
       }
   }
-  for (int e = 0; e < B; ++e) {
-    const T r = block_reduce(q[e], Sum(), s.sw);
-    if (threadIdx.x == 0) p.pc[((size_t)blockIdx.x * B + e) * N_C + C_QX] = r;
-    if (halpern) {
-      const int f = block_reduce(fl[e], Or(), s.swi);
-      if (threadIdx.x == 0) {
-        p.pf[((size_t)blockIdx.x * B + e) * N_F + F_1] = f & 1;
-        p.pf[((size_t)blockIdx.x * B + e) * N_F + F_2] = (f >> 1) & 1;
+  block_partials(q, Sum(), s.sw, p.pc, N_C, C_QX, B, grp);
+  if (halpern) {
+    // the flags OR-ed as block_reduce would, then split into their slots
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < BMAX; ++e) {
+      if (e < B) {
+        const int r = warp_reduce(fl[e], Or());
+        if (lane == 0) s.swi[wid * BMAX + e] = r;
       }
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < B) {
+      const int e = threadIdx.x;
+      int f = s.swi[e];
+      for (int w = 1; w < NWARP; ++w) f |= s.swi[w * BMAX + e];
+      p.pf[((size_t)grp.bid * B + e) * N_F + F_1] = f & 1;
+      p.pf[((size_t)grp.bid * B + e) * N_F + F_2] = (f >> 1) & 1;
     }
   }
 }
@@ -402,10 +604,10 @@ __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, unsigned mask,
 // (A_blk zb)), the residual's row part; with ``halpern`` the candidate and
 // its flags, OR-ed into the column half's.
 template <bool kElem, typename T>
-__device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
+__device__ __forceinline__ void t_rows(const Params<T>& p, Blk<T>& s, Grp grp, const T* y, unsigned mask,
                        bool halpern) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int gw = blockIdx.x * NWARP + wid, tw = gridDim.x * NWARP;
+  const int gw = grp.bid * NWARP + wid, tw = grp.nb * NWARP;
   const int B = p.B, ms = p.ms;
   const T* rows = rowv(p, R_ROWS);
   const T* bs = rowv(p, R_BS);
@@ -433,29 +635,31 @@ __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
       }
     }
   }
-  block_partial(q, Sum(), T(0), s.sw, p.pc, N_C, C_QY, B, false);
+  block_partial(q, Sum(), T(0), s.sw, p.pc, N_C, C_QY, B, false, grp);
   if (halpern) {
-    block_partial(fl & 1, Or(), 0, s.swi, p.pf, N_F, F_1, B, true);
-    block_partial((fl >> 1) & 1, Or(), 0, s.swi, p.pf, N_F, F_2, B, true);
+    block_partial(fl & 1, Or(), 0, s.swi, p.pf, N_F, F_1, B, true, grp);
+    block_partial((fl >> 1) & 1, Or(), 0, s.swi, p.pf, N_F, F_2, B, true, grp);
   }
 }
 
 // T(x, y) and the partials of its residual (and flags), reduced by block 0
 // into the replicated column part (state S_QX) and the shard's step scalars.
 template <bool kElem, typename T>
-__device__ void t_step(const Params<T>& p, Blk<T>& s, cg::grid_group& grid, const T* x,
-                       const T* y, unsigned mask, bool halpern) {
+__device__ __forceinline__ void t_step(const Params<T>& p, Blk<T>& s, cg::grid_group& grid,
+                                       Grp grp, Peers<T> pr, const T* x, const T* y,
+                                       unsigned mask, bool halpern) {
   const int B = p.B, tid = threadIdx.x;
-  t_cols(p, s, x, mask, halpern);
+  t_cols(p, s, grp, pr, x, mask, halpern);
   grid.sync();
-  t_rows<kElem>(p, s, y, mask, halpern);
+  t_rows<kElem>(p, s, grp, y, mask, halpern);
   grid.sync();
-  if (blockIdx.x == 0) {
-    grid_reduce(p.pc, N_C, C_QX, B, Sum(), T(0), s.rv[C_QX]);
-    grid_reduce(p.pc, N_C, C_QY, B, Sum(), T(0), s.rv[C_QY]);
+  if (grp.bid == 0) {
+    constexpr int Q = task_nw(4);
+    grid_reduce(p.pc, N_C, C_QX, B, Sum(), T(0), s.rv[C_QX], grp.nb, task_w0(0, 4), Q);
+    grid_reduce(p.pc, N_C, C_QY, B, Sum(), T(0), s.rv[C_QY], grp.nb, task_w0(1, 4), Q);
     if (halpern) {
-      grid_reduce(p.pf, N_F, F_1, B, Or(), 0, s.rvi[F_1]);
-      grid_reduce(p.pf, N_F, F_2, B, Or(), 0, s.rvi[F_2]);
+      grid_reduce(p.pf, N_F, F_1, B, Or(), 0, s.rvi[F_1], grp.nb, task_w0(2, 4), Q);
+      grid_reduce(p.pf, N_F, F_2, B, Or(), 0, s.rvi[F_2], grp.nb, task_w0(3, 4), Q);
     }
     __syncthreads();
     if (tid < B) {
@@ -476,16 +680,18 @@ __device__ unsigned live_mask(const Params<T>& p) {
   return live;
 }
 
-template <typename T, bool kElem>
-__global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phase) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Blk<T>& s = *reinterpret_cast<Blk<T>*>(smem_raw);
-  cg::grid_group grid = cg::this_grid();
+// One phase (PHASE) of one shard on its group of blocks (``grp``), inlined
+// where it is called. Every grid sync in here is reached by every block of
+// the launch: no branch around one depends on the shard (only on the
+// phase, its argument, or pr).
+template <typename T, bool kElem, int PHASE>
+__device__ __forceinline__ void run_phase(const Params<T>& p, Blk<T>& s, cg::grid_group& grid,
+                                          const Grp grp, const Peers<T> pr, const int arg) {
   const int B = p.B, ms = p.ms, n = p.n;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const int gw = blockIdx.x * NWARP + wid, tw = gridDim.x * NWARP;
-  const long gtid = (long)blockIdx.x * THREADS + tid;
-  const long gthreads = (long)gridDim.x * THREADS;
+  const int gw = grp.bid * NWARP + wid, tw = grp.nb * NWARP;
+  const long gtid = (long)grp.bid * THREADS + tid;
+  const long gthreads = (long)grp.nb * THREADS;
   const unsigned all = B >= 32 ? ~0u : ((1u << B) - 1u);
   const bool warm = p.wv != nullptr;
 
@@ -505,7 +711,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
   T* yw = rowv(p, R_YW);
   T* ysw = rowv(p, R_YSW);
 
-  if (phase == P_SETUP_A) {
+  if constexpr (PHASE == P_SETUP_A) {
     // columns, elementwise (replicated): scalings, cold x, warm projection
     for (int e = 0; e < B; ++e) {
       T cmax = T(0);
@@ -525,7 +731,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         }
       }
       cmax = block_reduce(cmax, Max(), s.sw);
-      if (tid == 0) p.pc[((size_t)blockIdx.x * B + e) * N_C + C_CMAX] = cmax;
+      if (tid == 0) p.pc[((size_t)grp.bid * B + e) * N_C + C_CMAX] = cmax;
     }
     grid.sync();
     // the shard's rows: row_s, b_s, sigma, cold and warm duals
@@ -592,39 +798,42 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         }
       }
     }
-    block_partial(bmax, Max(), T(0), s.sw, p.pc, N_C, C_BMAX, B, false);
+    block_partial(bmax, Max(), T(0), s.sw, p.pc, N_C, C_BMAX, B, false, grp);
     grid.sync();
     // this shard's part of the column 1-norms: |A_blk|' row_s
-    colpart<kElem, T>(p, rows, p.part, all, true);
-    if (blockIdx.x == 0) {
-      grid_reduce(p.pc, N_C, C_CMAX, B, Max(), T(0), s.rv[C_CMAX]);
-      grid_reduce(p.pc, N_C, C_BMAX, B, Max(), T(0), s.rv[C_BMAX]);
+    colpart<kElem, T>(p, grp, rows, p.part, all, true);
+    if (grp.bid == 0) {
+      grid_reduce(p.pc, N_C, C_CMAX, B, Max(), T(0), s.rv[C_CMAX], grp.nb);
+      grid_reduce(p.pc, N_C, C_BMAX, B, Max(), T(0), s.rv[C_BMAX], grp.nb);
       __syncthreads();
       if (tid < B) {
         p.st[S_CSC * B + tid] = T(1) + s.rv[C_CMAX][tid];
         p.srp[tid] = s.rv[C_BMAX][tid];
       }
     }
-  } else if (phase == P_SETUP_B) {
+  } else if constexpr (PHASE == P_SETUP_B) {
     // tau from the psum'd column 1-norms; b_scale from the pmax'd max|b_s|
     for (long idx = gtid; idx < (long)B * n; idx += gthreads) {
       const T ca = csa[idx];
-      const T c1 = ca * p.g[idx];
+      const T c1 = ca * g_at(p, pr, (size_t)idx);
       const T tk = c1 > T(1e-12) ? T(0.9) / nan_max(c1, T(1e-12)) : T(0);
       tau[idx] = ca > T(0) ? tk : T(0);
     }
-    if (blockIdx.x == 0 && tid < B) p.st[S_BSC * B + tid] = T(1) + p.srpg[tid];
-    colpart<kElem, T>(p, warm ? ysw : ys, p.part, all, false);
-  } else if (phase == P_RES) {
-    const bool wpt = p.arg != 0;
-    t_step<kElem>(p, s, grid, wpt ? xw : x, wpt ? yw : y, all, false);
-  } else if (phase == P_RESW) {
-    if (blockIdx.x == 0 && tid < B)
-      p.st[S_RESW * B + tid] = sqrt(p.st[S_QX * B + tid] + p.sqg[tid * N_SQ + Q_QY]);
-    colpart<kElem, T>(p, ys, p.part, all, false);
-  } else if (phase == P_INIT) {
+    if (grp.bid == 0 && tid < B) p.st[S_BSC * B + tid] = T(1) + rp_at(p, pr, tid);
+    // The fused route reads the column parts in place: every block is done
+    // with them before this shard's part is overwritten.
+    if (pr.p != nullptr) grid.sync();
+    colpart<kElem, T>(p, grp, warm ? ysw : ys, p.part, all, false);
+  } else if constexpr (PHASE == P_RES) {
+    const bool wpt = arg != 0;
+    t_step<kElem>(p, s, grid, grp, pr, wpt ? xw : x, wpt ? yw : y, all, false);
+  } else if constexpr (PHASE == P_RESW) {
+    if (grp.bid == 0 && tid < B)
+      p.st[S_RESW * B + tid] = sqrt(p.st[S_QX * B + tid] + sq_at(p, pr, tid, Q_QY));
+    colpart<kElem, T>(p, grp, ys, p.part, all, false);
+  } else if constexpr (PHASE == P_INIT) {
     if (tid < B) {
-      const T res_c = sqrt(p.st[S_QX * B + tid] + p.sqg[tid * N_SQ + Q_QY]);
+      const T res_c = sqrt(p.st[S_QX * B + tid] + sq_at(p, pr, tid, Q_QY));
       T res0 = res_c;
       bool use_w = false;
       if (warm) {
@@ -634,7 +843,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         if (use_w) res0 = rw;
       }
       s.usew[tid] = use_w ? 1 : 0;
-      if (blockIdx.x == 0) {
+      if (grp.bid == 0) {
         const int done = (p.skip != nullptr && p.skip[tid] != 0) ? 1 : 0;
         p.st[S_RESA * B + tid] = nan_max(res0, T(1e-30));
         p.sti[I_T * B + tid] = 0;
@@ -662,35 +871,29 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
       ya[idx] = y[idx];
     }
     grid.sync();
-    colpart<kElem, T>(p, ys, p.part, all, false);
-  } else if (phase == P_STEP) {
+    colpart<kElem, T>(p, grp, ys, p.part, all, false);
+  } else if constexpr (PHASE == P_STEP) {
     const unsigned live = live_mask(p);
     if (tid < B) {
       const T tf = T(p.sti[I_T * B + tid]);
       s.w[tid] = (tf + T(1)) / (tf + T(2));
     }
     __syncthreads();
-    t_step<kElem>(p, s, grid, x, y, live, true);
-  } else if (phase == P_COMMIT) {
+    t_step<kElem>(p, s, grid, grp, pr, x, y, live, true);
+  } else if constexpr (PHASE == P_COMMIT) {
     const unsigned live = live_mask(p);
     T ra = T(0), res = T(0);
     bool rs = false;
     if (tid < B && on(live, tid)) {
-      res = sqrt(p.st[S_QX * B + tid] + p.sqg[tid * N_SQ + Q_QY]);
+      res = sqrt(p.st[S_QX * B + tid] + sq_at(p, pr, tid, Q_QY));
       ra = p.st[S_RESA * B + tid];
       rs = (res <= p.rt * ra) || (res > ra);
-      const bool f1 = p.sqg[tid * N_SQ + Q_F1] > T(0.5);
-      const bool f2 = p.sqg[tid * N_SQ + Q_F2] > T(0.5);
+      const bool f1 = sq_at(p, pr, tid, Q_F1) > T(0.5);
+      const bool f2 = sq_at(p, pr, tid, Q_F2) > T(0.5);
       s.restart[tid] = rs ? 1 : 0;
       s.fin[tid] = rs ? !f1 : !f2;
     }
     __syncthreads();
-    grid.sync();  // every block has read the state block 0 writes below
-    if (blockIdx.x == 0 && tid < B && on(live, tid)) {
-      p.st[S_RESA * B + tid] = rs ? res : ra;
-      p.sti[I_T * B + tid] = rs ? 0 : p.sti[I_T * B + tid] + 1;
-      p.sti[I_IT * B + tid] += 1;
-    }
     const T* tx = colv(p, V_TX);
     const T* xh = colv(p, V_XH);
     const T* ty = rowv(p, R_TY);
@@ -718,18 +921,24 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
       }
     }
     grid.sync();
-    colpart<kElem, T>(p, ys, p.part, live, false);
-  } else if (phase == P_STATS) {
+    // Every block has read the state it decided from: block 0 commits it.
+    if (grp.bid == 0 && tid < B && on(live, tid)) {
+      p.st[S_RESA * B + tid] = rs ? res : ra;
+      p.sti[I_T * B + tid] = rs ? 0 : p.sti[I_T * B + tid] + 1;
+      p.sti[I_IT * B + tid] += 1;
+    }
+    colpart<kElem, T>(p, grp, ys, p.part, live, false);
+  } else if constexpr (PHASE == P_STATS) {
     // conv_stats at the committed (x, y): the column half (replicated) from
     // the psum'd column product, the row half on the shard's rows.
-    const unsigned mask = p.arg ? all : live_mask(p);
+    const unsigned mask = arg ? all : live_mask(p);
     T obj[BMAX], lag[BMAX], rd[BMAX];
 #pragma unroll
     for (int e = 0; e < BMAX; ++e) obj[e] = lag[e] = rd[e] = T(0);
     for (long idx = gtid; idx < (long)B * n; idx += gthreads) {
       const int e = (int)(idx / n);
       if (!on(mask, e)) continue;
-      const T red = cm[idx] - csa[idx] * p.g[idx];
+      const T red = cm[idx] - csa[idx] * g_at(p, pr, (size_t)idx);
       const T act = csa[idx] > T(0) ? T(1) : T(0);
       const T neg = nan_min(T(0), red);
 #pragma unroll
@@ -740,14 +949,9 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
           rd[k] = nan_max(rd[k], fabs(red - neg * act));
         }
     }
-    for (int e = 0; e < B; ++e) {
-      T r = block_reduce(obj[e], Sum(), s.sw);
-      if (tid == 0) p.pc[((size_t)blockIdx.x * B + e) * N_C + C_OBJ] = r;
-      r = block_reduce(lag[e], Sum(), s.sw);
-      if (tid == 0) p.pc[((size_t)blockIdx.x * B + e) * N_C + C_LAG] = r;
-      r = block_reduce(rd[e], Max(), s.sw);
-      if (tid == 0) p.pc[((size_t)blockIdx.x * B + e) * N_C + C_RD] = r;
-    }
+    block_partials(obj, Sum(), s.sw, p.pc, N_C, C_OBJ, B, grp);
+    block_partials(lag, Sum(), s.sw, p.pc, N_C, C_LAG, B, grp);
+    block_partials(rd, Max(), s.sw, p.pc, N_C, C_RD, B, grp);
     T rp = T(0), by = T(0);
     for (int i = gw; i < ms; i += tw) {
       const T az = row_dot<kElem, T>(p, i, zx, mask);
@@ -757,15 +961,16 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         by += bs[k] * y[k];
       }
     }
-    block_partial(rp, Max(), T(0), s.sw, p.pc, N_C, C_RP, B, false);
-    block_partial(by, Sum(), T(0), s.sw, p.pc, N_C, C_BY, B, false);
+    block_partial(rp, Max(), T(0), s.sw, p.pc, N_C, C_RP, B, false, grp);
+    block_partial(by, Sum(), T(0), s.sw, p.pc, N_C, C_BY, B, false, grp);
     grid.sync();
-    if (blockIdx.x == 0) {
-      grid_reduce(p.pc, N_C, C_OBJ, B, Sum(), T(0), s.rv[C_OBJ]);
-      grid_reduce(p.pc, N_C, C_LAG, B, Sum(), T(0), s.rv[C_LAG]);
-      grid_reduce(p.pc, N_C, C_RD, B, Max(), T(0), s.rv[C_RD]);
-      grid_reduce(p.pc, N_C, C_RP, B, Max(), T(0), s.rv[C_RP]);
-      grid_reduce(p.pc, N_C, C_BY, B, Sum(), T(0), s.rv[C_BY]);
+    if (grp.bid == 0) {
+      constexpr int Q = task_nw(5);
+      grid_reduce(p.pc, N_C, C_OBJ, B, Sum(), T(0), s.rv[C_OBJ], grp.nb, task_w0(0, 5), Q);
+      grid_reduce(p.pc, N_C, C_LAG, B, Sum(), T(0), s.rv[C_LAG], grp.nb, task_w0(1, 5), Q);
+      grid_reduce(p.pc, N_C, C_RD, B, Max(), T(0), s.rv[C_RD], grp.nb, task_w0(2, 5), Q);
+      grid_reduce(p.pc, N_C, C_RP, B, Max(), T(0), s.rv[C_RP], grp.nb, task_w0(3, 5), Q);
+      grid_reduce(p.pc, N_C, C_BY, B, Sum(), T(0), s.rv[C_BY], grp.nb, task_w0(4, 5), Q);
       __syncthreads();
       if (tid < B && on(mask, tid)) {
         p.st[S_OBJ * B + tid] = s.rv[C_OBJ][tid];
@@ -775,14 +980,13 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         p.sby[tid] = s.rv[C_BY][tid];
       }
     }
-  } else if (phase == P_DECIDE) {
-    if (blockIdx.x != 0) return;
-    if (tid < B && !p.sti[I_DONE * B + tid]) {
-      const int e = tid, ci = p.arg;
+  } else if constexpr (PHASE == P_DECIDE) {
+    if (grp.bid == 0 && tid < B && !p.sti[I_DONE * B + tid]) {
+      const int e = tid, ci = arg;
       const T bsc = p.st[S_BSC * B + e], csc = p.st[S_CSC * B + e];
       const T obj = p.st[S_OBJ * B + e];
-      const T gap = fabs(obj - (p.sbyg[e] + p.st[S_LAG * B + e]));
-      const T rp = p.srpg[e];
+      const T gap = fabs(obj - (by_at(p, pr, e) + p.st[S_LAG * B + e]));
+      const T rp = rp_at(p, pr, e);
       const bool conv = (rp < p.tol * bsc) && (gap < p.tol * (bsc + csc + fabs(obj)));
       // A live chunk without a restart advances t by exactly chunk: a
       // shortfall counts one restart chunk.
@@ -801,7 +1005,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
       p.sti[I_T0 * B + e] = t;
       p.done_out[e] = p.sti[I_DONE * B + e];
     }
-  } else if (phase == P_EPI1) {
+  } else if constexpr (PHASE == P_EPI1) {
     // v (replicated) and the shard's rows of y in original units
     T objv = T(0);
     double shift = 0.0;
@@ -819,8 +1023,8 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         const size_t k = (size_t)lane * ms + i;
         p.y_out[k] = y[k] * rows[k];
       }
-    block_partial(objv, Sum(), T(0), s.sw, p.pc, N_C, C_OBJV, B, false);
-    block_partial(shift, Sum(), 0.0, s.swd, p.pd, N_D, D_SHIFT, B, false);
+    block_partial(objv, Sum(), T(0), s.sw, p.pc, N_C, C_OBJV, B, false, grp);
+    block_partial(shift, Sum(), 0.0, s.swd, p.pd, N_D, D_SHIFT, B, false, grp);
     grid.sync();
     // the certificate's shard parts in float64: (b - A l)'y on the rows,
     // A_blk' y per column
@@ -832,13 +1036,13 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         by64 += ((double)p.b[k] - al) * (double)p.y_out[k];
       }
     }
-    block_partial(by64, Sum(), 0.0, s.swd, p.pd, N_D, D_BY, B, false);
-    colpart<kElem, double>(p, p.y_out, p.part64, all, false);
+    block_partial(by64, Sum(), 0.0, s.swd, p.pd, N_D, D_BY, B, false, grp);
+    colpart<kElem, double>(p, grp, p.y_out, p.part64, all, false);
     grid.sync();
-    if (blockIdx.x == 0) {
-      grid_reduce(p.pc, N_C, C_OBJV, B, Sum(), T(0), s.rv[C_OBJV]);
-      grid_reduce(p.pd, N_D, D_SHIFT, B, Sum(), 0.0, s.rvd[D_SHIFT]);
-      grid_reduce(p.pd, N_D, D_BY, B, Sum(), 0.0, s.rvd[D_BY]);
+    if (grp.bid == 0) {
+      grid_reduce(p.pc, N_C, C_OBJV, B, Sum(), T(0), s.rv[C_OBJV], grp.nb);
+      grid_reduce(p.pd, N_D, D_SHIFT, B, Sum(), 0.0, s.rvd[D_SHIFT], grp.nb);
+      grid_reduce(p.pd, N_D, D_BY, B, Sum(), 0.0, s.rvd[D_BY], grp.nb);
       __syncthreads();
       if (tid < B) {
         p.st[S_OBJV * B + tid] = s.rv[C_OBJV][tid];
@@ -846,14 +1050,14 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         p.s64[tid] = s.rvd[D_BY][tid];
       }
     }
-  } else if (phase == P_EPI2) {
+  } else if constexpr (PHASE == P_EPI2) {
     // reduced costs from the psum'd float64 A'y (replicated), box duals,
     // the bound's column half; then every scalar output
     double lag64 = 0.0;
     for (int j = gw; j < n; j += tw) {
       if (lane < B) {
         const size_t k = (size_t)lane * n + j;
-        const double red = (double)p.c[k] - p.g64[k];
+        const double red = (double)p.c[k] - g64_at(p, pr, k);
         p.reduced_out[k] = red;
         const bool active = csa[k] > T(0);
         const double r64 = (double)((p.u[k] - p.l[k]) * (active ? T(1) : T(0)));
@@ -863,27 +1067,122 @@ __global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phas
         p.f_out[k] = active ? nan_max(-ro, T(0)) : T(0);
       }
     }
-    block_partial(lag64, Sum(), 0.0, s.swd, p.pd, N_D, D_LAG, B, false);
+    block_partial(lag64, Sum(), 0.0, s.swd, p.pd, N_D, D_LAG, B, false, grp);
     grid.sync();
-    if (blockIdx.x == 0) {
-      grid_reduce(p.pd, N_D, D_LAG, B, Sum(), 0.0, s.rvd[D_LAG]);
+    if (grp.bid == 0) {
+      grid_reduce(p.pd, N_D, D_LAG, B, Sum(), 0.0, s.rvd[D_LAG], grp.nb);
       __syncthreads();
       if (tid < B) {
         const int e = tid;
-        double bound = p.s64g[e] + s.rvd[D_LAG][e];
+        double bound = s64_at(p, pr, e) + s.rvd[D_LAG][e];
         if (!is_finite(bound)) bound = -INFINITY;
         const T bsc = p.st[S_BSC * B + e], csc = p.st[S_CSC * B + e];
         p.bound_out[e] = bound + p.sd[SD_SHIFT * B + e];
         p.obj_out[e] = p.st[S_OBJV * B + e];
-        p.rp_out[e] = p.srpg[e];
+        p.rp_out[e] = rp_at(p, pr, e);
         p.rd_out[e] = p.st[S_RD * B + e];
-        p.mu_out[e] = fabs(p.st[S_OBJ * B + e] - (p.sbyg[e] + p.st[S_LAG * B + e])) /
+        p.mu_out[e] = fabs(p.st[S_OBJ * B + e] - (by_at(p, pr, e) + p.st[S_LAG * B + e])) /
                       (bsc + csc);
         p.conv_out[e] = p.sti[I_DONE * B + e] ? 1 : 0;
         p.iters_out[e] = p.sti[I_IT * B + e];
       }
     }
   }
+}
+
+// The sequenced route: one phase of one shard, the whole grid its group.
+template <typename T, bool kElem>
+__global__ void __launch_bounds__(THREADS, 1) pdhgs_kernel(Params<T> p, int phase) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Blk<T>& s = *reinterpret_cast<Blk<T>*>(smem_raw);
+  cg::grid_group grid = cg::this_grid();
+  const Grp grp{(int)blockIdx.x, (int)gridDim.x};
+  switch (phase) {
+    case P_SETUP_A: run_phase<T, kElem, P_SETUP_A>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_SETUP_B: run_phase<T, kElem, P_SETUP_B>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_RES: run_phase<T, kElem, P_RES>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_RESW: run_phase<T, kElem, P_RESW>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_INIT: run_phase<T, kElem, P_INIT>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_STEP: run_phase<T, kElem, P_STEP>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_COMMIT: run_phase<T, kElem, P_COMMIT>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_STATS: run_phase<T, kElem, P_STATS>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_DECIDE: run_phase<T, kElem, P_DECIDE>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_EPI1: run_phase<T, kElem, P_EPI1>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+    case P_EPI2: run_phase<T, kElem, P_EPI2>(p, s, grid, grp, Peers<T>{nullptr, 1}, p.arg); break;
+  }
+}
+
+// The fused launch's argument: every shard's Params in the kernel's
+// parameter space (__grid_constant__: read in place, never copied), so the
+// compiler knows every pointer in them is global memory and the products
+// read A with global loads, as the sequenced kernel does (a Params copy in
+// shared memory made them generic loads). 64 shards of one card at most:
+// 64 Params fill ~30 KB of the 32 KB a launch's parameters may hold.
+constexpr int MAX_FUSED = 64;
+template <typename T>
+struct FusedArgs {
+  Params<T> p[MAX_FUSED];
+};
+
+// True when every element of shard 0 is done (the fused loop's one test,
+// read by every block after a grid sync; __ldcg reads it past L1).
+__device__ __forceinline__ bool all_done(const int* done, int B) {
+  for (int e = 0; e < B; ++e)
+    if (!__ldcg(done + e)) return false;
+  return true;
+}
+
+// The fused route: every shard of the card in one cooperative launch, shard
+// s on blocks [s * Gs, (s + 1) * Gs). The phases run in the host sequence's
+// order with a grid sync between two phases (where the sequenced route has
+// a launch boundary); a collective is the next phase's read of the shards'
+// parts in shard order (g_at, sq_at, ...). Every branch around a sync tests
+// a value that is the same in every block: the phase, ``warm`` (an
+// argument), the chunk index, and shard 0's done flags.
+template <typename T, bool kElem>
+__global__ void __launch_bounds__(THREADS, 1)
+    pdhgs_fused_kernel(const __grid_constant__ FusedArgs<T> f, int S, int Gs, int warm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Blk<T>& s = *reinterpret_cast<Blk<T>*>(smem_raw);
+  const Params<T>& p = f.p[blockIdx.x / Gs];
+  cg::grid_group grid = cg::this_grid();
+  const Grp grp{(int)(blockIdx.x % Gs), Gs};
+  const Peers<T> pr{f.p, S};
+  const int* done0 = f.p[0].sti + I_DONE * p.B;
+  run_phase<T, kElem, P_SETUP_A>(p, s, grid, grp, pr, 0);
+  grid.sync();
+  run_phase<T, kElem, P_SETUP_B>(p, s, grid, grp, pr, 0);
+  grid.sync();
+  if (warm) {
+    run_phase<T, kElem, P_RES>(p, s, grid, grp, pr, 1);
+    grid.sync();
+    run_phase<T, kElem, P_RESW>(p, s, grid, grp, pr, 0);
+    grid.sync();
+  }
+  run_phase<T, kElem, P_RES>(p, s, grid, grp, pr, 0);
+  grid.sync();
+  run_phase<T, kElem, P_INIT>(p, s, grid, grp, pr, 0);
+  grid.sync();
+  if (!all_done(done0, p.B)) {
+    for (int ci = 0; ci < p.n_chunks; ++ci) {
+      for (int st = 0; st < p.chunk; ++st) {
+        run_phase<T, kElem, P_STEP>(p, s, grid, grp, pr, 0);
+        grid.sync();
+        run_phase<T, kElem, P_COMMIT>(p, s, grid, grp, pr, 0);
+        grid.sync();
+      }
+      run_phase<T, kElem, P_STATS>(p, s, grid, grp, pr, 0);
+      grid.sync();
+      run_phase<T, kElem, P_DECIDE>(p, s, grid, grp, pr, ci);
+      grid.sync();
+      if (all_done(done0, p.B)) break;
+    }
+  }
+  run_phase<T, kElem, P_STATS>(p, s, grid, grp, pr, 1);
+  grid.sync();
+  run_phase<T, kElem, P_EPI1>(p, s, grid, grp, pr, 0);
+  grid.sync();
+  run_phase<T, kElem, P_EPI2>(p, s, grid, grp, pr, 0);
 }
 
 size_t align_up(size_t x) { return (x + 255) & ~(size_t)255; }
@@ -899,22 +1198,32 @@ size_t ws_bytes(int B, int ms, int n, int G) {
          align_up(sizeof(T) * (size_t)N_ROWV * B * ms);
 }
 
-template <typename T, bool kElem>
-int grid_size(int* G) {
+// Blocks the card holds co-resident for ``kernel`` (one per SM: every block
+// re-reduces the partials), or a cudaError_t.
+int grid_size(const void* kernel, size_t smem, int* G) {
   int dev = 0, sms = 0, occ = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pdhgs_kernel<T, kElem>, THREADS,
-                                                      sizeof(Blk<T>));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  *G = sms;  // one block per SM: every block re-reduces the partials
+  *G = sms;
   return 0;
 }
 
-// Pointer slots of a launch (ops/meshlp.py builds the array in this order).
+template <typename T, bool kElem>
+int phase_grid(int* G) {
+  return grid_size((const void*)pdhgs_kernel<T, kElem>, sizeof(Blk<T>), G);
+}
+
+template <typename T, bool kElem>
+int fused_grid(int* G) {
+  return grid_size((const void*)pdhgs_fused_kernel<T, kElem>, sizeof(Blk<T>), G);
+}
+
+// Pointer slots of a shard (ops/meshlp.py builds the array in this order).
 enum {
   A_A, A_AT, A_B, A_C, A_L, A_U, A_WV, A_WY, A_WOK, A_SKIP, A_WS,
   A_PART, A_G, A_PART64, A_G64, A_SQ, A_SQG, A_SRP, A_SRPG, A_SBY, A_SBYG, A_S64, A_S64G,
@@ -924,13 +1233,13 @@ enum {
 // Int slots (J_NNZ: the per-element entry's nonzeros of the block)
 enum { J_B, J_MS, J_N, J_CHUNK, J_NCHUNKS, J_TROWS, J_G, J_ARG, J_NNZ, N_INT };
 
-// The shared entry reads A_blk and At_blk at P[A_A] and P[A_AT]; the
+// One shard's Params from its slots (checked against its workspace at grid
+// G). The shared entry reads A_blk and At_blk at P[A_A] and P[A_AT]; the
 // per-element entry reads each element's values (B, nnz) at P[A_A] and the
 // block's structure (int32, ops/ipm.py's IPMSparsity.index) at P[A_AT].
 template <typename T, bool kElem>
-int launch(int phase, void* const* P, const int* I, const double* D, long ws_len,
-           cudaStream_t stream) {
-  if (phase < 0 || phase >= N_PHASES) return (int)cudaErrorInvalidValue;
+int make_params(void* const* P, const int* I, const double* D, long ws_len, int G,
+                Params<T>* out) {
   Params<T> p = {};
   p.B = I[J_B];
   p.ms = I[J_MS];
@@ -939,12 +1248,7 @@ int launch(int phase, void* const* P, const int* I, const double* D, long ws_len
   p.n_chunks = I[J_NCHUNKS];
   p.trace_rows = I[J_TROWS];
   p.arg = I[J_ARG];
-  const int G = I[J_G];
   if (p.B < 1 || p.B > BMAX || p.ms < 1 || p.n < 1) return (int)cudaErrorInvalidValue;
-  int Gmax = 0;
-  const int gerr = grid_size<T, kElem>(&Gmax);
-  if (gerr != 0) return gerr;
-  if (G < 1 || G > Gmax) return (int)cudaErrorCooperativeLaunchTooLarge;
   if ((size_t)ws_len < ws_bytes<T>(p.B, p.ms, p.n, G)) return (int)cudaErrorInvalidValue;
   p.tol = (T)D[0];
   p.rt = (T)D[1];
@@ -1016,9 +1320,56 @@ int launch(int phase, void* const* P, const int* I, const double* D, long ws_len
   p.colv = reinterpret_cast<T*>(w);
   w += align_up(sizeof(T) * (size_t)N_COLV * B * p.n);
   p.rowv = reinterpret_cast<T*>(w);
+  *out = p;
+  return 0;
+}
+
+template <typename T, bool kElem>
+int launch(int phase, void* const* P, const int* I, const double* D, long ws_len,
+           cudaStream_t stream) {
+  if (phase < 0 || phase >= N_PHASES) return (int)cudaErrorInvalidValue;
+  const int G = I[J_G];
+  int Gmax = 0;
+  const int gerr = phase_grid<T, kElem>(&Gmax);
+  if (gerr != 0) return gerr;
+  if (G < 1 || G > Gmax) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Params<T> p;
+  const int perr = make_params<T, kElem>(P, I, D, ws_len, G, &p);
+  if (perr != 0) return perr;
   void* args[] = {&p, &phase};
-  cudaError_t err = cudaLaunchCooperativeKernel(pdhgs_kernel<T, kElem>, dim3(G), dim3(THREADS), args,
-                                                sizeof(Blk<T>), stream);
+  cudaError_t err = cudaLaunchCooperativeKernel(pdhgs_kernel<T, kElem>, dim3(G), dim3(THREADS),
+                                                args, sizeof(Blk<T>), stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The fused route: S shards' slots (P: S x N_PTR, I: S x N_INT, ws_len: S),
+// each shard on a group of I[J_G] blocks.
+template <typename T, bool kElem>
+int launch_fused(int S, void* const* P, const int* I, const double* D, const long* ws_len,
+                 int warm, cudaStream_t stream) {
+  if (S < 1 || S > MAX_FUSED) return (int)cudaErrorInvalidValue;
+  const int Gs = I[J_G];
+  int Gmax = 0;
+  const int gerr = fused_grid<T, kElem>(&Gmax);
+  if (gerr != 0) return gerr;
+  if (Gs < 1 || (long)S * Gs > Gmax) return (int)cudaErrorCooperativeLaunchTooLarge;
+  std::unique_ptr<FusedArgs<T>> args(new FusedArgs<T>());
+  Params<T>* host = args->p;
+  for (int s = 0; s < S; ++s) {
+    const int* Is = I + (size_t)s * N_INT;
+    // every group runs the same loop and grid: one B, chunking and G
+    for (int j : {J_B, J_N, J_CHUNK, J_NCHUNKS, J_TROWS, J_G})
+      if (Is[j] != I[j]) return (int)cudaErrorInvalidValue;
+    const int perr =
+        make_params<T, kElem>(P + (size_t)s * N_PTR, Is, D, ws_len[s], Gs, &host[s]);
+    if (perr != 0) return perr;
+    if ((host[s].wv != nullptr) != (warm != 0)) return (int)cudaErrorInvalidValue;
+  }
+  int ns = S, gs = Gs, wm = warm ? 1 : 0;
+  void* kargs[] = {args.get(), &ns, &gs, &wm};
+  cudaError_t err = cudaLaunchCooperativeKernel(pdhgs_fused_kernel<T, kElem>, dim3(S * Gs), dim3(THREADS),
+                                    kargs, sizeof(Blk<T>), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1028,19 +1379,35 @@ int launch(int phase, void* const* P, const int* I, const double* D, long ws_len
 extern "C" {
 
 // Blocks of one launch on the current device (one per SM), or minus a
-// cudaError_t. The caller passes one grid size for every shard of a mesh.
+// cudaError_t. The sequenced route passes one grid size for every shard of
+// a mesh.
 int dtk_pdhgs_grid(int is_f64) {
   int G = 0;
-  const int err = is_f64 ? grid_size<double, false>(&G) : grid_size<float, false>(&G);
+  const int err = is_f64 ? phase_grid<double, false>(&G) : phase_grid<float, false>(&G);
   return err != 0 ? -err : G;
 }
 
 // The same for the per-element entry.
 int dtk_pdhgs_elem_grid(int is_f64) {
   int G = 0;
-  const int err = is_f64 ? grid_size<double, true>(&G) : grid_size<float, true>(&G);
+  const int err = is_f64 ? phase_grid<double, true>(&G) : phase_grid<float, true>(&G);
   return err != 0 ? -err : G;
 }
+
+// The same for the fused route (either entry): the caller splits the G
+// blocks into S groups of G / S (S <= dtk_pdhgs_fused_max_shards()).
+int dtk_pdhgs_fused_grid(int is_f64, int elem) {
+  int G = 0;
+  int err;
+  if (elem)
+    err = is_f64 ? fused_grid<double, true>(&G) : fused_grid<float, true>(&G);
+  else
+    err = is_f64 ? fused_grid<double, false>(&G) : fused_grid<float, false>(&G);
+  return err != 0 ? -err : G;
+}
+
+// Shards one fused launch holds at most.
+int dtk_pdhgs_fused_max_shards() { return MAX_FUSED; }
 
 // Workspace bytes of one shard (B elements, ms rows, n columns, grid G).
 size_t dtk_pdhgs_ws_bytes(int B, int ms, int n, int G, int is_f64) {
@@ -1069,6 +1436,30 @@ int dtk_pdhgs_elem_f32(int phase, void* const* P, const int* I, const double* D,
 int dtk_pdhgs_elem_f64(int phase, void* const* P, const int* I, const double* D, long ws_len,
                        void* stream) {
   return launch<double, true>(phase, P, I, D, ws_len, (cudaStream_t)stream);
+}
+
+// The whole solve of S shards on one card in one cooperative launch: P the
+// S shards' N_PTR pointers one after another, I their N_INT ints, ws_len
+// their workspaces' bytes; warm 1 when every shard has a warm state.
+int dtk_pdhgs_fused_f32(int S, void* const* P, const int* I, const double* D,
+                        const long* ws_len, int warm, void* stream) {
+  return launch_fused<float, false>(S, P, I, D, ws_len, warm, (cudaStream_t)stream);
+}
+
+int dtk_pdhgs_fused_f64(int S, void* const* P, const int* I, const double* D,
+                        const long* ws_len, int warm, void* stream) {
+  return launch_fused<double, false>(S, P, I, D, ws_len, warm, (cudaStream_t)stream);
+}
+
+// The same with a per-element A (each shard's slots as dtk_pdhgs_elem_*).
+int dtk_pdhgs_elem_fused_f32(int S, void* const* P, const int* I, const double* D,
+                             const long* ws_len, int warm, void* stream) {
+  return launch_fused<float, true>(S, P, I, D, ws_len, warm, (cudaStream_t)stream);
+}
+
+int dtk_pdhgs_elem_fused_f64(int S, void* const* P, const int* I, const double* D,
+                             const long* ws_len, int warm, void* stream) {
+  return launch_fused<double, true>(S, P, I, D, ws_len, warm, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -31,12 +31,18 @@ sweep), and each call takes every shard's values with one
 ``index_select``: no dense node A and no per-call transpose. The kernel's per-element entry walks each block's
 structure with each element's values, as K5's per-element entry does.
 
-On CUDA tensors the step is cut at its collectives into phases, each one
-cooperative launch of ``kernels/csrc/pdhg_sharded_kernel.cu`` on one shard,
-sequenced here; on CPU tensors :func:`sharded_pdhg_reference` runs the plain
-version, a loop over the shards inside each step with the collectives as
-fixed-order sums. :func:`pdhg_solve_batch_sharded` with one shard is the
-plain K5 call, bit for bit.
+On CUDA tensors ``kernels/csrc/pdhg_sharded_kernel.cu`` runs by one of two
+routes (:func:`kernel_route`). When every shard lies on one device (a
+virtual mesh), each slice of at most BMAX elements is one cooperative launch
+of the fused entry: shard s on its own group of the card's blocks, the step
+loop inside the kernel, each collective a read of the shards' parts in shard
+order between grid syncs. When the shards span devices, the step is cut at
+its collectives into phases, each one cooperative launch on one shard,
+sequenced here with the collectives of :mod:`~distilp_torch.parallel.
+collectives` between them. On CPU tensors :func:`sharded_pdhg_reference`
+runs the plain version, a loop over the shards inside each step with the
+collectives as fixed-order sums. :func:`pdhg_solve_batch_sharded` with one
+shard is the plain K5 call, bit for bit.
 """
 
 from __future__ import annotations
@@ -98,6 +104,29 @@ def _pad_axis(x: torch.Tensor, target: int, axis: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], axis)
 
 
+def kernel_route(mesh: Mesh, cuda: bool) -> str:
+    """The route of a sharded solve: ``"plain"`` on CPU tensors, ``"fused"``
+    when every shard of ``mesh`` lies on one device (one cooperative launch
+    per slice holds them all), ``"sequenced"`` when the shards span devices
+    (a launch per phase per shard, the collectives between them)."""
+    if not cuda:
+        return "plain"
+    return "fused" if len(set(mesh.devices)) == 1 else "sequenced"
+
+
+def group_blocks(G: int, S: int, max_shards: int) -> int:
+    """Blocks of each shard's group when a fused launch splits the card's
+    ``G`` co-resident blocks over ``S`` shards; raises when S > G or S is
+    more than the launch holds (``max_shards``, the library's)."""
+    if S > max_shards:
+        raise ValueError(f"the fused route takes at most {max_shards} shards on one device; "
+                         f"got {S}")
+    if S > G:
+        raise ValueError(f"{S} shards on one device need at least {S} co-resident blocks; "
+                         f"the fused launch has {G}")
+    return G // S
+
+
 def sharded_pdhg(
     batch: LPBatch,
     mesh_shards,
@@ -111,6 +140,7 @@ def sharded_pdhg(
     replicas: Optional[list] = None,
     sparsity: Optional[IPMSparsity] = None,
     blocks: Optional["RowBlocks"] = None,
+    _sequenced: bool = False,
 ) -> IPMResult:
     """Row-shard one LP batch over ``mesh_shards`` (a shard count resolved
     with :func:`shard_mesh` on the batch's device type, or a :class:`Mesh`)
@@ -121,8 +151,10 @@ def sharded_pdhg(
     shard count (built here when None). Returns the
     unsharded engine's :class:`IPMResult` contract, every array in full
     coordinates on shard 0's device. ``replicas`` (a list) receives each
-    shard's own copy of the result (the kernel route computes the
-    replicated values once per shard)."""
+    shard's own copy of the result (the kernel routes compute the
+    replicated values once per shard). ``_sequenced`` (for the card check
+    only) runs the sequenced route on CUDA tensors at the fused route's
+    per-shard grid, where the two agree bit for bit."""
     A = batch.A
     if isinstance(A, torch.Tensor) and A.dim() == 3:
         A = elem_a(A, sparsity)
@@ -144,7 +176,7 @@ def sharded_pdhg(
         if mesh.devices[0].type != "cuda":
             raise ValueError(f"CUDA tensors on a mesh of {mesh.devices[0].type} devices")
         outs = _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh, iters,
-                               float(tol), float(restart_tol), chunk, trace, m)
+                               float(tol), float(restart_tol), chunk, trace, m, _sequenced)
     else:
         res = sharded_pdhg_reference(A_b, b_b, batch.c, batch.l, batch.u, iters, tol,
                                      restart_tol, wv=wv, wy=wy_b, wok=wok, skip=skip,
@@ -474,6 +506,9 @@ class _Shard:
         self.I[J_ARG] = arg
         err = self.fn(phase, self.P, self.I, self.D, self.ws.numel(), self.stream)
         kernels.check(err, "pdhg_sharded")
+        self.count()
+
+    def count(self) -> None:
         if self.elem:
             kernels.count_launch("pdhg_sharded_elem", self.shape)
         else:
@@ -481,7 +516,7 @@ class _Shard:
 
 
 def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol, rt,
-                    chunk, trace, m) -> List[IPMResult]:
+                    chunk, trace, m, sequenced: bool = False) -> List[IPMResult]:
     from ..kernels.build import library
 
     elem = isinstance(A_b[0], ElemA)
@@ -507,17 +542,25 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
         raise ValueError(f"skip: expected shape {(B,)}, got {tuple(skip.shape)}")
     lib = library("pdhg_sharded")
     f64 = dtype == torch.float64
-    # One grid for the whole mesh, so every shard reduces its replicated
-    # partials in the same order.
-    grid_of = lib.dtk_pdhgs_elem_grid if elem else lib.dtk_pdhgs_grid
+    S = mesh.size
+    route = "sequenced" if sequenced else kernel_route(mesh, True)
+    # One grid for every shard, so every shard reduces its replicated
+    # partials in the same order: the fused route's group of the card's
+    # blocks (the card check runs the sequenced route on it too), else the
+    # smallest of the devices' grids.
+    grouped = route == "fused" or sequenced
+    if grouped:
+        grid_of = lambda f: lib.dtk_pdhgs_fused_grid(f, int(elem))  # noqa: E731
+    else:
+        grid_of = lib.dtk_pdhgs_elem_grid if elem else lib.dtk_pdhgs_grid
     grids = []
-    for dev in dict.fromkeys(mesh.devices):
+    for dev in dict.fromkeys(mesh.devices[:1] if grouped else mesh.devices):
         with torch.cuda.device(dev):
             grids.append(int(grid_of(int(f64))))
     if min(grids) < 1:
         raise RuntimeError(f"pdhg_sharded grid query failed with cudaError {-min(grids)}")
-    G = min(grids)
-    S = mesh.size
+    G = group_blocks(grids[0], S, int(lib.dtk_pdhgs_fused_max_shards())) if grouped \
+        else min(grids)
     chunk, n_chunks = chunking(iters, chunk)
     trace_rows = n_chunks if trace else 0
     outs = []
@@ -537,7 +580,8 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
         ))
     if B:
         shape = f"B={B} m={m} n={n} S={S}" + (
-            f" per-element A nnz={sum(a.sparsity.nnz for a in A_b)}" if elem else "")
+            f" per-element A nnz={sum(a.sparsity.nnz for a in A_b)}" if elem else "") + (
+            f" route={route}")
         multi = len(set(mesh.devices)) > 1
         for e0 in range(0, B, BMAX):
             e1 = min(B, e0 + BMAX)
@@ -562,11 +606,30 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
                     G, chunk, n_chunks, trace_rows, tol, rt,
                     IPMResult(*(None if t is None else t[sl] for t in o)),
                     o.y_dual[sl], shape))
-            _run_phases(shards, mesh, n_chunks, chunk, wv is not None, multi)
+            if route == "fused":
+                _run_fused(lib, shards, f64, wv is not None)
+            else:
+                _run_phases(shards, mesh, n_chunks, chunk, wv is not None, multi)
     # The dual blocks are the only row-sharded output: gather them in mesh
     # order and drop the padding, as the reference's tiled all_gather.
     ys = all_gather([o.y_dual for o in outs], mesh, dim=1)
     return [o._replace(y_dual=y[:, :m]) for o, y in zip(outs, ys)]
+
+
+def _run_fused(lib, shards: List[_Shard], f64: bool, warm: bool) -> None:
+    """One cooperative launch for a slice of every shard of one device: the
+    shards' slots side by side."""
+    S, sh0 = len(shards), shards[0]
+    if sh0.elem:
+        fn = lib.dtk_pdhgs_elem_fused_f64 if f64 else lib.dtk_pdhgs_elem_fused_f32
+    else:
+        fn = lib.dtk_pdhgs_fused_f64 if f64 else lib.dtk_pdhgs_fused_f32
+    P = (ctypes.c_void_p * (S * N_PTR))(*(v for sh in shards for v in sh.P))
+    I = (ctypes.c_int * (S * N_INT))(*(v for sh in shards for v in sh.I))
+    ws = (ctypes.c_long * S)(*(sh.ws.numel() for sh in shards))
+    err = fn(S, P, I, sh0.D, ws, int(warm), sh0.stream)
+    kernels.check(err, "pdhg_sharded fused")
+    sh0.count()
 
 
 def _run_phases(shards: List[_Shard], mesh: Mesh, n_chunks: int, chunk: int, warm: bool,

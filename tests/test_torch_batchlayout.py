@@ -27,6 +27,17 @@ from distilp_torch.solver.batchlayout import (  # noqa: E402
 )
 from distilp_torch.utils import make_synthetic_fleet  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: the plain PDHG's and IPM's many
+    small batched products each open a parallel region, which with several
+    test processes on few cores costs far more than the product."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 GOLDEN = [
     ("hermes_70b", 40, 29.643569),
     ("llama_3_70b/4bit", 8, 12.834690),

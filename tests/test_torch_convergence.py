@@ -42,6 +42,17 @@ from distilp_torch.obs.convergence import (  # noqa: E402
 from distilp_torch.ops import LPBatch, ipm_solve_batch, pdhg_solve_batch  # noqa: E402
 from distilp_torch.ops.ipm import TRACE_COLS  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: the plain PDHG's and IPM's many
+    small batched products each open a parallel region, which with several
+    test processes on few cores costs far more than the product."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 GAP = 1e-3
 KS = [8, 10]  # proper factors of L=80
 ONLINE = "tests/profiles/llama_3_70b/online"

@@ -39,6 +39,17 @@ from distilp_tpu.profiler.api import profile_model as jax_profile_model  # noqa:
 from distilp_tpu.solver import halda_solve as jax_halda_solve  # noqa: E402
 from distilp_tpu.utils import make_synthetic_fleet as jax_fleet  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: the plain PDHG's and IPM's many
+    small batched products each open a parallel region, which with several
+    test processes on few cores costs far more than the product."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 GAP = 1e-3
 MIXTRAL = "tests/configs/mixtral_8x7b.json"
 

@@ -28,6 +28,17 @@ from distilp_torch.ops.pdhg import ElemA, elem_a  # noqa: E402
 from distilp_tpu.ops import LPBatch as JBatch  # noqa: E402
 from distilp_tpu.ops import pdhg_solve_batch as j_pdhg  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: the plain PDHG's and IPM's many
+    small batched products each open a parallel region, which with several
+    test processes on few cores costs far more than the product."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 GAP = 1e-3
 ONLINE = "tests/profiles/llama_3_70b/online"
 

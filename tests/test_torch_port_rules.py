@@ -263,7 +263,7 @@ def test_the_mesh_modules_and_kernels_are_checked_and_run_without_jax(tmp_path):
     files = {p.relative_to(REPO).as_posix() for p in _port_files()}
     for name in ("__init__", "devices", "collectives", "mesh"):
         assert f"distilp_torch/parallel/{name}.py" in files
-    assert build.SOURCES["pdhg_sharded"] == ("pdhg_sharded_kernel.cu", [])
+    assert build.SOURCES["pdhg_sharded"] == ("pdhg_sharded_kernel.cu", ["--fmad=false"])
     assert build.SOURCES["collective"] == ("collective_kernel.cu", [])
     assert build.SOURCES["pdhg"] == ("pdhg_kernel.cu", [])
     for src in ("pdhg_sharded_kernel.cu", "collective_kernel.cu"):
@@ -272,6 +272,15 @@ def test_the_mesh_modules_and_kernels_are_checked_and_run_without_jax(tmp_path):
     meshlp = (REPO / "distilp_torch" / "ops" / "meshlp.py").read_text()
     assert 'count_launch("pdhg_sharded"' in meshlp
     assert 'count_launch("pdhg_sharded_elem"' in meshlp
+    # K6b's fused route: its entry points in the kernel source, the library's
+    # signatures and the wrapper (both entries, both dtypes)
+    sharded = (build.CSRC / "pdhg_sharded_kernel.cu").read_text()
+    assert "pdhgs_fused_kernel" in sharded
+    for fn in ("dtk_pdhgs_fused_f32", "dtk_pdhgs_fused_f64", "dtk_pdhgs_elem_fused_f32",
+               "dtk_pdhgs_elem_fused_f64", "dtk_pdhgs_fused_grid",
+               "dtk_pdhgs_fused_max_shards"):
+        assert f"int {fn}(" in sharded or f"size_t {fn}(" in sharded, fn
+        assert fn in build.SIGNATURES["pdhg_sharded"] and f"lib.{fn}" in meshlp, fn
     assert 'count_launch("collective")' in (REPO / "distilp_torch" / "parallel" /
                                              "collectives.py").read_text()
     script = (

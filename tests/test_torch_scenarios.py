@@ -23,6 +23,17 @@ from distilp_torch.utils import make_synthetic_fleet  # noqa: E402
 from distilp_tpu.solver import api as japi  # noqa: E402
 from distilp_tpu.solver import backend_jax as BJ  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module: the plain PDHG's and IPM's many
+    small batched products each open a parallel region, which with several
+    test processes on few cores costs far more than the product."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 GAP = 1e-3
 
 
