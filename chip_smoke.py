@@ -499,14 +499,14 @@ def launch_bounds(out: dict):
         A, (B, n), m = batch.A, batch.c.shape, batch.b.shape[1]
         isz = res.v.element_size()
         if isinstance(A, ElemA):
-            nnz, a_bytes = A.sparsity.nnz, elem_a_bytes(A.sparsity, B, isz)
+            per = not A.shared
+            nnz, a_bytes = A.sparsity.nnz, elem_a_bytes(A.sparsity, B if per else 1, isz)
         else:
-            nnz, a_bytes = int(torch.count_nonzero(A)), None
+            per, nnz, a_bytes = False, int(torch.count_nonzero(A)), None
         flops, nb, _ = pdhg_flops_bytes(m, n, nnz, B, res.iters_run.tolist(),
                                         PDHG_DEFAULT_CHUNK, isz, kw.get("warm") is not None,
                                         a_bytes=a_bytes)
-        add("pdhg_elem" if isinstance(A, ElemA) else "pdhg", flops, nb,
-            PEAK_F64_S if isz == 8 else PEAK_F32_S)
+        add("pdhg_elem" if per else "pdhg", flops, nb, PEAK_F64_S if isz == 8 else PEAK_F32_S)
         return res
 
     def rounding(v, W, k, rd, packed=None, moe=False, y_steps=None, *a, **kw):
@@ -870,7 +870,7 @@ def check_epilogue(report: dict) -> None:
           f"by {b_by}) at B={B} nf={nf}", flush=True)
 
 
-def pdhg_roots(M: int, dtype):
+def pdhg_roots(M: int, dtype, seed: int = 123):
     """The root-round LP batch (one LP per feasible k) of the M-device
     fleet, on the card, and the host arrays it came from."""
     import numpy as np
@@ -878,7 +878,7 @@ def pdhg_roots(M: int, dtype):
 
     from distilp_torch.ops.ipm import LPBatch
 
-    *_, host = load_instance(M, 123)
+    *_, host = load_instance(M, seed)
     T = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")  # noqa: E731
     batch = LPBatch(A=T(host["A"]), b=T(host["b_k"]), c=T(host["c_k"]),
                     l=T(host["lo_k"]), u=T(host["hi_k"]))
@@ -911,10 +911,10 @@ def pdhg_flops_bytes(m: int, n: int, nnz: int, B: int, iters_run, chunk: int,
     the convergence test's two products (4 nnz); per element the setup's
     three passes over A (|A| diag(cs) row maxima and sums, A l; 6 nnz), the
     warm gate's extra step (4 nnz) and the float64 certificate (4 nnz).
-    Bytes: every input read once (a shared A is given dense, so all m n
-    entries are read to find its nonzeros; a per-element A passes
-    ``a_bytes``: B nnz values and the structure once), every output (the
-    trace's ``trace_rows`` rows included) written once."""
+    Bytes: every input read once (A as the kernel reads it, ``a_bytes``:
+    its structure once and nnz values, B nnz for a per-element A; a dense A
+    given without them counts all m n entries), every output (the trace's
+    ``trace_rows`` rows included) written once."""
     steps = sum(int(i) for i in iters_run)
     chunks = sum(-(-int(i) // chunk) for i in iters_run)
     per_nnz = 4 * (steps + chunks) + B * (10 + (4 if warm else 0))
@@ -928,9 +928,8 @@ def pdhg_flops_bytes(m: int, n: int, nnz: int, B: int, iters_run, chunk: int,
 
 
 def elem_a_bytes(sp, B: int, itemsize: int) -> int:
-    """Bytes of a per-element A as K5's per-element entry reads it: each
-    element's nonzero values, and the structure's row and column index
-    arrays (int32) once."""
+    """Bytes of A as K5 reads it: B value sets of nnz (B = 1 for one shared
+    A), and the structure's row and column index arrays (int32) once."""
     return B * sp.nnz * itemsize + 4 * (sp.m + 1 + 2 * sp.nnz + sp.n + 1 + sp.nnz)
 
 
@@ -972,12 +971,135 @@ def pdhg_f32_bounds(k, r, batch, iters: int, warm):
     return kb, rb, rerun
 
 
-def check_pdhg(report: dict) -> None:
+K5_CLUSTER_SRC = "distilp_torch/kernels/csrc/pdhg_cluster_kernel.cu"
+K5_GRID_SRC = "distilp_torch/kernels/csrc/pdhg_kernel.cu"
+# K5's two routes as the profiler names their kernels.
+K5_KERNEL = {"cluster": "pdhg_cluster_kernel", "grid": "pdhg_kernel"}
+# Where pdhg_route changes K5's route for the M-device fleet (m = 6M+1,
+# n = 13M+1): the cluster size C just below and just above each edge, and
+# the grid route (0) past the largest cluster (tests/test_torch_pdhg_cluster.py
+# holds the route function to the same table).
+PDHG_ROUTE_EDGES = {"float32": [(181, 1), (182, 2), (341, 2), (342, 4), (609, 4), (610, 8),
+                                (1002, 8), (1003, 0)],
+                    "float64": [(105, 1), (106, 2), (196, 2), (197, 4), (344, 4), (345, 8),
+                                (553, 8), (554, 0)]}
+
+
+@contextlib.contextmanager
+def forced_route(route: str):
+    """K5's launches inside the block take ``route`` ('grid', or a cluster
+    size as 'cluster<C>'), whatever pdhg_route would pick: a comparison of
+    the two routes on the same inputs."""
     import torch
 
+    from distilp_torch.ops import pdhg
+
+    real = pdhg.kernel_route
+
+    def pick(sp, dtype, c_max=8):
+        if route == "grid":
+            return "grid", 0, None
+        C = int(route[len("cluster"):])
+        return "cluster", C, pdhg.cluster_plan(sp, torch.empty((), dtype=dtype).element_size(), C)
+
+    pdhg.kernel_route = pick
+    try:
+        yield
+    finally:
+        pdhg.kernel_route = real
+
+
+def k5_route(A, dtype) -> str:
+    """The route K5 takes for an LP batch's A (dense 2-D, or ElemA)."""
+    import torch
+
+    from distilp_torch.ops.ipm import ipm_sparsity
+    from distilp_torch.ops.pdhg import ElemA, _cluster_max, kernel_route
+
+    sp = A.sparsity if isinstance(A, ElemA) else ipm_sparsity(A != 0)
+    route, C, _ = kernel_route(sp, dtype, _cluster_max(torch.device("cuda"),
+                                                       dtype == torch.float64))
+    return f"{route}{C or ''}"
+
+
+def hold_pdhg(batch, iters: int, warm=None, skip=None, optima=None) -> dict:
+    """K5 against its plain version on one batch: float64 field by field
+    within TOL_PDHG_F64 with equal step counts and flags, float32 by the
+    float64 bound at equal step counts (pdhg_f32_bounds); sound against the
+    HiGHS optima where given."""
+    import torch
+
+    from distilp_torch.ops.pdhg import ElemA, pdhg_solve_batch, pdhg_solve_batch_reference
+
+    k = pdhg_solve_batch(batch, iters=iters, warm=warm, skip=skip)
+    r = pdhg_solve_batch_reference(batch, iters=iters, warm=warm, skip=skip)
+    torch.cuda.synchronize()
+    errs = {f: max_err(getattr(k, f), getattr(r, f))
+            for f in k._fields if f not in ("converged", "iters_run", "trace_buf")}
+    d_it = int((k.iters_run - r.iters_run).abs().max())
+    conv_eq = bool(torch.equal(k.converged, r.converged))
+    dtype = k.v.dtype
+    A = batch.A
+    rerun, f32_bound_rel = None, None
+    if dtype == torch.float64:
+        ok = d_it == 0 and conv_eq and all(e[1] <= TOL_PDHG_F64 for e in errs.values())
+    else:
+        sw = None if warm is None else warm
+        kb, rb, rerun = pdhg_f32_bounds(k, r, batch, iters, sw)
+        f32_bound_rel = max_err(kb, rb)[1]
+        ok = f32_bound_rel <= TOL_PDHG_F32_CERT
+    line = {"dtype": str(dtype).split(".")[-1], "iters": iters, "B": int(batch.b.shape[0]),
+            "m": int(batch.b.shape[1]), "n": int(batch.c.shape[1]),
+            "route": k5_route(A, dtype),
+            "entry": "per-element" if isinstance(A, ElemA) and not A.shared else "shared",
+            "iters_run": k.iters_run.tolist(), "iters_run_plain": r.iters_run.tolist(),
+            "converged": k.converged.tolist(), "converged_plain": r.converged.tolist(),
+            "bound": k.bound.tolist(),
+            "max_abs": {f: e[0] for f, e in errs.items()},
+            "max_rel": {f: e[1] for f, e in errs.items()},
+            "f32_bound_max_rel_all_elements": f32_bound_rel,
+            "f32_rerun_at_equal_steps": rerun}
+    if optima is not None:
+        slack = (k.bound.cpu() - optima) / optima.abs().clamp(min=1.0)
+        sound = bool((slack <= TOL_SOUND).all() & torch.isfinite(slack).all())
+        line.update(lp_optimum=optima.tolist(), max_rel_slack_over_optimum=float(slack.max()),
+                    sound=sound)
+        ok = ok and sound
+    line["ok"] = ok
+    return line
+
+
+def k5_timing(batch, iters: int, route: str, reps: int, **kw) -> dict:
+    """K5's device time a launch (the profiler's, else CUDA events) and its
+    call time on one batch by ``route``, with its steps and microseconds a
+    step."""
+    from distilp_torch.ops.pdhg import pdhg_solve_batch
+
+    with forced_route(route):
+        run = lambda: pdhg_solve_batch(batch, iters=iters, **kw)  # noqa: E731
+        res = run()
+        call = cuda_ms(run, reps=reps, warmup=1)
+        dev = device_ms(run, K5_KERNEL["grid" if route == "grid" else "cluster"], reps=reps)
+    ms, src = (dev, "profiler") if dev is not None else (call, "cuda_events")
+    steps = int(res.iters_run.max())
+    return dict(route=route, ms=ms, call_ms=call, ms_source=src, steps=steps,
+                iters_run=res.iters_run.tolist(), us_per_step=ms / max(steps, 1) * 1e3)
+
+
+def check_pdhg(report: dict) -> None:
+    """K5 on one shared A, read as values on its structure (the cluster
+    route at the fleet's M=128 and M=512 roots): held against the plain
+    version cold, warm and warm with a skip mask, in float64 field by field
+    and in float32 by the bound; timed on both entries (the shared A, and
+    every element its own copy of it) beside the grid route on the same
+    inputs."""
+    import torch
+
+    from distilp_torch.ops.ipm import ipm_sparsity
     from distilp_torch.ops.pdhg import (
         PDHG_DEFAULT_CHUNK,
         PDHGWarmState,
+        elem_a,
         pdhg_solve_batch,
         pdhg_solve_batch_reference,
     )
@@ -991,41 +1113,17 @@ def check_pdhg(report: dict) -> None:
             if optima is None:
                 optima = torch.tensor(lp_optima(host), dtype=torch.float64)
             cold = pdhg_solve_batch(batch, iters=iters)
+            B = int(batch.b.shape[0])
             warm = PDHGWarmState(cold.v, cold.y_dual, cold.z_dual, cold.f_dual,
                                  torch.ones_like(cold.converged))
-            for start, w in (("cold", None), ("warm", warm)):
-                k = cold if w is None else pdhg_solve_batch(batch, iters=iters, warm=w)
-                r = pdhg_solve_batch_reference(batch, iters=iters, warm=w)
-                torch.cuda.synchronize()
-                errs = {f: max_err(getattr(k, f), getattr(r, f))
-                        for f in k._fields if f not in ("converged", "iters_run", "trace_buf")}
-                d_it = int((k.iters_run - r.iters_run).abs().max())
-                conv_eq = bool(torch.equal(k.converged, r.converged))
-                slack = (k.bound.cpu() - optima) / optima.abs().clamp(min=1.0)
-                sound = bool((slack <= TOL_SOUND).all() & torch.isfinite(slack).all())
-                rerun, f32_bound_rel = None, None
-                if dtype == torch.float64:
-                    ok = d_it == 0 and conv_eq and all(
-                        e[1] <= TOL_PDHG_F64 for e in errs.values())
-                else:
-                    kb, rb, rerun = pdhg_f32_bounds(k, r, batch, iters, w)
-                    f32_bound_rel = max_err(kb, rb)[1]
-                    ok = f32_bound_rel <= TOL_PDHG_F32_CERT
-                line = {
-                    "M": M, "dtype": str(dtype).split(".")[-1], "start": start,
-                    "iters": iters, "B": int(batch.b.shape[0]),
-                    "iters_run": k.iters_run.tolist(),
-                    "iters_run_plain": r.iters_run.tolist(),
-                    "converged": k.converged.tolist(),
-                    "converged_plain": r.converged.tolist(),
-                    "bound": k.bound.tolist(), "lp_optimum": optima.tolist(),
-                    "max_rel_slack_over_optimum": float(slack.max()),
-                    "max_abs": {f: e[0] for f, e in errs.items()},
-                    "max_rel": {f: e[1] for f, e in errs.items()},
-                    "f32_bound_max_rel_all_elements": f32_bound_rel,
-                    "f32_rerun_at_equal_steps": rerun,
-                    "sound": sound, "ok": ok and sound,
-                }
+            skip = torch.zeros(B, dtype=torch.bool, device="cuda")
+            skip[-1] = True
+            for start, w, sk in (("cold", None, None), ("warm", warm, None),
+                                 ("warm+skip", warm, skip)):
+                line = {"M": M, "start": start,
+                        **hold_pdhg(batch, iters, w, sk, None if sk is not None else optima)}
+                if sk is not None:
+                    line["ok"] = line["ok"] and int(line["iters_run"][-1]) == 0
                 print("pdhg vs plain", json.dumps(line), flush=True)
                 rows.append(line)
                 if not line["ok"]:
@@ -1035,69 +1133,145 @@ def check_pdhg(report: dict) -> None:
              f"unsound in (M, dtype, start) {bad}")
 
     # Time at the main path's shapes: the 128-device root round (float32,
-    # cold, the default budget), and the 512-device one (1000 steps).
+    # cold, the default budget), and the 512-device one (1000 steps); each
+    # entry on its route and the shared A on the grid route, in turns.
     timing = {}
     for M, iters, reps in ((128, default_pdhg_iters(128), 10), (512, 1000, 3)):
         batch, _ = pdhg_roots(M, torch.float32)
         m, n = batch.A.shape
         B = int(batch.b.shape[0])
-        nnz = int(torch.count_nonzero(batch.A))
-        run_k = lambda: pdhg_solve_batch(batch, iters=iters)  # noqa: E731
-        res = run_k()
+        sp = ipm_sparsity(batch.A != 0)
+        per = batch._replace(A=elem_a(batch.A.expand(B, m, n), sp))
+        route = k5_route(batch.A, torch.float32)
+        runs = {"shared": [], "per_element": [], "shared_grid": []}
+        for name, bt, rt in (("shared", batch, route), ("shared_grid", batch, "grid"),
+                             ("per_element", per, route), ("per_element", per, route),
+                             ("shared_grid", batch, "grid"), ("shared", batch, route)):
+            runs[name].append(k5_timing(bt, iters, rt, reps, sparsity=None if bt is per
+                                        else sp))
+        res = pdhg_solve_batch(batch, iters=iters, sparsity=sp)
         flops, nbytes, dense_flops = pdhg_flops_bytes(
-            m, n, nnz, B, res.iters_run.tolist(), PDHG_DEFAULT_CHUNK, 4)
+            m, n, sp.nnz, B, res.iters_run.tolist(), PDHG_DEFAULT_CHUNK, 4,
+            a_bytes=elem_a_bytes(sp, 1, 4))
         b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
+        pe_flops, pe_bytes, _ = pdhg_flops_bytes(
+            m, n, sp.nnz, B, res.iters_run.tolist(), PDHG_DEFAULT_CHUNK, 4,
+            a_bytes=elem_a_bytes(sp, B, 4))
+        pe_b_ms, pe_b_by = bound_ms(pe_flops, pe_bytes, PEAK_F32_S)
         dense_b_ms, dense_b_by = bound_ms(dense_flops, nbytes, PEAK_F32_S)
-        call = cuda_ms(run_k, reps=reps, warmup=1)
-        dev = device_ms(run_k, "pdhg_kernel", reps=reps)
-        ms, src = (dev, "profiler") if dev is not None else (call, "cuda_events")
         plain = cuda_ms(lambda: pdhg_solve_batch_reference(batch, iters=iters),
                         reps=1, warmup=0)
-        # Yardstick: one step's two products as library calls at the root
-        # batch width, times the steps the batch executed.
+        # Yardsticks: one step's two products as library calls at the root
+        # batch width, dense and as sparse (CSR) products, times the steps
+        # the batch executed.
         X = torch.rand(n, B, device="cuda")
         Y = torch.rand(m, B, device="cuda")
         A = batch.A
         mm = cuda_ms(lambda: (torch.matmul(A, X), torch.matmul(A.t(), Y)))
-        # The same two products as sparse (CSR) library calls, for scale.
         A_csr, At_csr = A.to_sparse_csr(), A.t().contiguous().to_sparse_csr()
-        sp = cuda_ms(lambda: (torch.sparse.mm(A_csr, X), torch.sparse.mm(At_csr, Y)))
-        steps = int(res.iters_run.max())
+        spm = cuda_ms(lambda: (torch.sparse.mm(A_csr, X), torch.sparse.mm(At_csr, Y)))
+        best = {k: min(v, key=lambda t: t["ms"]) for k, v in runs.items()}
+        steps = best["shared"]["steps"]
         timing[M] = dict(
-            ms=ms, call_ms=call, ms_source=src, plain_ms=plain, bound_ms=b_ms,
-            bound_by=b_by, nnz=nnz, flops=flops, bytes=nbytes,
-            dense_ops_bound_ms=dense_b_ms, dense_ops_bound_by=dense_b_by,
-            library_ms=mm * steps, library_step_ms=mm,
-            library_sparse_ms=sp * steps, library_sparse_step_ms=sp,
-            steps=steps, iters_run=res.iters_run.tolist(), m=m, n=n, B=B,
+            ms=best["shared"]["ms"], call_ms=best["shared"]["call_ms"],
+            ms_source=best["shared"]["ms_source"], route=route,
+            us_per_step=best["shared"]["us_per_step"], plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, bound_us_per_step=b_ms / max(steps, 1) * 1e3, nnz=sp.nnz,
+            flops=flops, bytes=nbytes, dense_ops_bound_ms=dense_b_ms,
+            dense_ops_bound_by=dense_b_by, library_ms=mm * steps, library_step_ms=mm,
+            library_sparse_ms=spm * steps, library_sparse_step_ms=spm, steps=steps,
+            iters_run=best["shared"]["iters_run"], m=m, n=n, B=B,
+            per_element=dict(best["per_element"], bound_ms=pe_b_ms, bound_by=pe_b_by),
+            grid_route=best["shared_grid"], runs_in_turns=runs,
         )
-        print(f"pdhg M={M}: {ms:.4f} ms on the card, {call:.4f} ms per call "
-              f"(plain {plain:.3f} ms, bound {b_ms:.5f} ms by {b_by} with "
-              f"{nnz} nonzeros in A, {dense_b_ms:.5f} ms by {dense_b_by} if A "
-              f"were dense; library products {mm:.4f} ms dense, {sp:.4f} ms "
-              f"sparse, x {steps} steps) at B={B} m={m} n={n} "
-              f"iters_run={res.iters_run.tolist()}", flush=True)
+        print(f"pdhg M={M}: route {route}, {timing[M]['ms']:.4f} ms on the card "
+              f"({timing[M]['us_per_step']:.3f} us a step, {steps} steps), "
+              f"{timing[M]['call_ms']:.4f} ms per call; per-element entry "
+              f"{best['per_element']['ms']:.4f} ms ({best['per_element']['us_per_step']:.3f} "
+              f"us a step); the grid route on the same inputs {best['shared_grid']['ms']:.4f} "
+              f"ms ({best['shared_grid']['us_per_step']:.3f} us a step); plain {plain:.3f} ms; "
+              f"bound {b_ms:.5f} ms by {b_by} with {sp.nnz} nonzeros "
+              f"({timing[M]['bound_us_per_step']:.6f} us a step), {dense_b_ms:.5f} ms by "
+              f"{dense_b_by} if A were dense; library products {mm:.4f} ms dense, "
+              f"{spm:.4f} ms sparse a step) at B={B} m={m} n={n}", flush=True)
     t128 = timing[128]
     report["pdhg"] = dict(
-        name="pdhg", route="cuda", source="distilp_torch/kernels/csrc/pdhg_kernel.cu",
+        name="pdhg", route="cuda", source=K5_CLUSTER_SRC, grid_source=K5_GRID_SRC,
         replaces="distilp_tpu/ops/pdhg.py:139",
         max_abs_err=max(r["max_abs"]["bound"] for r in rows),
         ms=t128["ms"], plain_ms=t128["plain_ms"], bound_ms=t128["bound_ms"],
         bound_by=t128["bound_by"], library_ms=t128["library_ms"],
         held_against_plain="ok", call_ms=t128["call_ms"], ms_source=t128["ms_source"],
+        k5_route=t128["route"], us_per_step=t128["us_per_step"],
+        bound_us_per_step=t128["bound_us_per_step"],
         nnz=t128["nnz"], dense_ops_bound_ms=t128["dense_ops_bound_ms"],
         library_sparse_ms=t128["library_sparse_ms"],
+        per_element=t128["per_element"], grid_route=t128["grid_route"],
         shapes_timed=f"M=128 root round, float32, cold, {default_pdhg_iters(128)} steps",
-        m512_1000_steps=timing[512],
+        m512_1000_steps={k: v for k, v in timing[512].items() if k != "runs_in_turns"},
     )
 
 
+def check_pdhg_routes(report: dict) -> None:
+    """Both of K5's routes at the sizes where pdhg_route changes them (M just
+    below and just above each edge, both dtypes: float64 field by field,
+    float32 by the bound, the root batch for 256 steps; the first float64 M
+    past the largest cluster is the grid route's own check), each launch
+    taking the route the table says."""
+    import torch
+
+    from distilp_torch import kernels
+
+    from distilp_torch.ops.pdhg import PDHGWarmState, pdhg_solve_batch
+
+    rows, bad = [], []
+    for dname, edges in PDHG_ROUTE_EDGES.items():
+        dtype = getattr(torch, dname)
+        for M, C in edges:
+            batch, _ = pdhg_roots(M, dtype)
+            want = f"cluster{C}" if C else "grid"
+            starts = [("cold", None, None)]
+            if not C and dtype == torch.float64:
+                # The grid route's own check: warm, and warm with a skip mask.
+                cold = pdhg_solve_batch(batch, iters=256)
+                warm = PDHGWarmState(cold.v, cold.y_dual, cold.z_dual, cold.f_dual,
+                                     torch.ones_like(cold.converged))
+                skip = torch.zeros_like(cold.converged)
+                skip[-1] = True
+                starts += [("warm", warm, None), ("warm+skip", warm, skip)]
+            for start, w, sk in starts:
+                kernels.reset_launch_counts()
+                line = {"M": M, "want": want, "start": start, **hold_pdhg(batch, 256, w, sk)}
+                shapes = [k for k in kernels.SHAPES["pdhg"]]
+                line["launched"] = shapes
+                line["ok"] = line["ok"] and line["route"] == want and bool(shapes) and all(
+                    k.endswith(f"route={want}") for k in shapes)
+                if sk is not None:
+                    line["ok"] = line["ok"] and int(line["iters_run"][-1]) == 0
+                print("pdhg route edge", json.dumps(line), flush=True)
+                rows.append(line)
+                if not line["ok"]:
+                    bad.append((M, dname, start))
+    if bad:
+        fail(f"pdhg route edges: {bad} took another route or disagree with the plain version")
+    report["pdhg"]["route_edges_held"] = [(r["M"], r["dtype"], r["route"]) for r in rows]
+    report["pdhg"]["route_edges_max_rel"] = max(
+        (r["max_rel"]["bound"] for r in rows), default=0.0)
+
+
 def check_pdhg_mp() -> None:
+    """K6a on both of K5's routes: its own, and the grid route forced."""
+    check_pdhg_mp_route()
+    with forced_route("grid"):
+        check_pdhg_mp_route("grid")
+
+
+def check_pdhg_mp_route(route: str = "") -> None:
     """K6a: the float32 run with the per-element float64 re-solve, on the
     128-device fleet's k=1 root LP (the one that decides the solve) at the
-    escalated budget. (Its k=2 root does not reach the tolerance within
-    16000 steps in either precision, so a batch holding it would rightly
-    count a fallback.)"""
+    escalated budget; its poisoned element's rollback and fallback. (Its k=2
+    root does not reach the tolerance within 16000 steps in either
+    precision, so a batch holding it would rightly count a fallback.)"""
     import torch
 
     from distilp_torch.ops.ipm import LPBatch
@@ -1123,7 +1297,8 @@ def check_pdhg_mp() -> None:
         and torch.equal(getattr(res, f)[~bad], getattr(r32, f)[~bad])
         for f in res._fields[:-1]  # trace_buf: None
     )
-    line = {"n_fallback_healthy": healthy, "n_fallback_poisoned": rep["n_fallback"],
+    line = {"route": route or k5_route(batch.A, torch.float32),
+            "n_fallback_healthy": healthy, "n_fallback_poisoned": rep["n_fallback"],
             "poisoned_row_fell_back": bool(bad[0]), "splice_exact": spliced}
     print("pdhg_mp", json.dumps(line), flush=True)
     if healthy != 0 or rep["n_fallback"] < 1 or not bool(bad[0]) or not spliced:
@@ -1159,7 +1334,8 @@ def check_pdhg_elem(report: dict, calls: list) -> None:
     )
     from distilp_torch.solver.standard_form import default_pdhg_iters
 
-    elem_calls = [(a[0], kw) for a, kw in calls if isinstance(a[0].A, ElemA)]
+    elem_calls = [(a[0], kw) for a, kw in calls
+                  if isinstance(a[0].A, ElemA) and not a[0].A.shared]
     if not elem_calls:
         fail("the elem path made no per-element PDHG call")
     rows, bad = [], []
@@ -1185,6 +1361,8 @@ def check_pdhg_elem(report: dict, calls: list) -> None:
         kb, rb, rerun = pdhg_f32_bounds(k32, r32, b32, opts["iters"], opts.get("warm"))
         f32_rel = max_err(kb, rb)[1]
         line = {"call": i, "B": B, "m": m, "n": n, "nnz": batch.A.sparsity.nnz,
+                "route": k5_route(b64.A, torch.float64),
+                "route_f32": k5_route(batch.A, k32.v.dtype),
                 "iters": opts["iters"], "warm": opts.get("warm") is not None,
                 "iters_run_f64": k.iters_run.tolist(), "d_iters_f64": d_it,
                 "max_rel_f64": {f: e[1] for f, e in errs.items()},
@@ -1243,7 +1421,10 @@ def check_pdhg_elem(report: dict, calls: list) -> None:
         m, n, sp.nnz, B, res.iters_run.tolist(), PDHG_DEFAULT_CHUNK, 4,
         warm=opts.get("warm") is not None, a_bytes=elem_a_bytes(sp, B, 4))
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
-    ms, call, src = time_kernel(run_k, "pdhg_kernel")
+    route = k5_route(batch.A, batch.b.dtype)
+    ms, call, src = time_kernel(run_k, K5_KERNEL["grid" if route == "grid" else "cluster"])
+    with forced_route("grid"):
+        grid = time_kernel(run_k, K5_KERNEL["grid"])
     plain = cuda_ms(lambda: pdhg_solve_batch_reference(batch, **opts), reps=1, warmup=0)
     # Yardstick: one step's two products as batched library calls on the
     # dense (B, m, n) A, times the steps the batch executed.
@@ -1252,10 +1433,12 @@ def check_pdhg_elem(report: dict, calls: list) -> None:
     Y = torch.rand(B, m, 1, device="cuda")
     mm = cuda_ms(lambda: (torch.bmm(A3, X), torch.bmm(A3.transpose(1, 2), Y)))
     steps = int(res.iters_run.max())
-    print(f"pdhg_elem: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
-          f"{plain:.3f} ms, bound {b_ms:.6f} ms by {b_by}; library bmm pair "
-          f"{mm:.4f} ms x {steps} steps) at B={B} m={m} n={n} nnz={sp.nnz} "
-          f"iters_run={res.iters_run.tolist()}; {ms / max(steps, 1) * 1e3:.2f} us a step",
+    print(f"pdhg_elem: route {route}, {ms:.4f} ms on the card, {call:.4f} ms per call "
+          f"(the grid route on the same inputs {grid[0]:.4f} ms, "
+          f"{grid[0] / max(steps, 1) * 1e3:.3f} us a step; plain {plain:.3f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by}, {b_ms / max(steps, 1) * 1e3:.6f} us a step; library bmm "
+          f"pair {mm:.4f} ms x {steps} steps) at B={B} m={m} n={n} nnz={sp.nnz} "
+          f"iters_run={res.iters_run.tolist()}; {ms / max(steps, 1) * 1e3:.3f} us a step",
           flush=True)
     # The two entries on one batch whose elements share the fleet's A (the
     # 128-device root round, float32, cold), in turns: shared, per-element,
@@ -1264,10 +1447,11 @@ def check_pdhg_elem(report: dict, calls: list) -> None:
     B2 = roots32.b.shape[0]
     per32 = roots32._replace(A=elem_a(roots32.A.expand(B2, *roots32.A.shape)))
     it128 = default_pdhg_iters(128)
+    sp32 = per32.A.sparsity
     ab = {"shared": [], "per_element": []}
-    for name, bt in (("shared", roots32), ("per_element", per32), ("per_element", per32),
-                     ("shared", roots32)):
-        ab[name].append(cuda_ms(lambda: pdhg_solve_batch(bt, iters=it128), reps=5,
+    for name, bt, kw in (("shared", roots32, dict(sparsity=sp32)), ("per_element", per32, {}),
+                         ("per_element", per32, {}), ("shared", roots32, dict(sparsity=sp32))):
+        ab[name].append(cuda_ms(lambda: pdhg_solve_batch(bt, iters=it128, **kw), reps=5,
                                 warmup=1))
     steps_ab = int(pdhg_solve_batch(per32, iters=it128).iters_run.max())
     print(f"pdhg same A, shared vs per-element entry (B={B2}, {steps_ab} steps, ms per "
@@ -1275,8 +1459,11 @@ def check_pdhg_elem(report: dict, calls: list) -> None:
           f"{min(ab['shared']) / steps_ab * 1e3:.2f} us vs "
           f"{min(ab['per_element']) / steps_ab * 1e3:.2f} us", flush=True)
     report["pdhg_elem"] = dict(
-        name="pdhg_elem", route="cuda", source="distilp_torch/kernels/csrc/pdhg_kernel.cu",
-        replaces="distilp_tpu/ops/pdhg.py:569",
+        name="pdhg_elem", route="cuda", source=K5_CLUSTER_SRC, grid_source=K5_GRID_SRC,
+        replaces="distilp_tpu/ops/pdhg.py:569", k5_route=route,
+        grid_route=dict(ms=grid[0], call_ms=grid[1], ms_source=grid[2],
+                        us_per_step=grid[0] / max(steps, 1) * 1e3),
+        bound_us_per_step=b_ms / max(steps, 1) * 1e3,
         max_abs_err=max(r["bound_max_abs_f64"] for r in rows),
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=mm * steps,
         library_step_ms=mm, held_against_plain="ok", call_ms=call, ms_source=src,
@@ -1302,6 +1489,7 @@ def check_traces(report: dict) -> None:
     from distilp_torch.ops.ipm import (
         ipm_solve_batch,
         ipm_solve_batch_reference,
+        ipm_sparsity,
         ipm_workspace_route,
     )
     from distilp_torch.ops.pdhg import (
@@ -1361,10 +1549,14 @@ def check_traces(report: dict) -> None:
                        u=T(host["hi_k"]))
     skip = torch.zeros(2 * n_k, dtype=torch.bool, device="cuda")
     skip[1] = True
-    for name, batch, kw in (("pdhg shared", roots, dict(iters=600)),
-                            ("pdhg per-element", elem, dict(iters=600, skip=skip))):
-        k0 = pdhg_solve_batch(batch, **kw)
-        k1 = pdhg_solve_batch(batch, trace=True, **kw)
+    for name, batch, kw, route in (
+            ("pdhg shared", roots, dict(iters=600), None),
+            ("pdhg per-element", elem, dict(iters=600, skip=skip), None),
+            ("pdhg shared, grid route", roots, dict(iters=600), "grid"),
+            ("pdhg per-element, grid route", elem, dict(iters=600, skip=skip), "grid")):
+        with forced_route(route) if route else contextlib.nullcontext():
+            k0 = pdhg_solve_batch(batch, **kw)
+            k1 = pdhg_solve_batch(batch, trace=True, **kw)
         r = pdhg_solve_batch_reference(batch, trace=True, **kw)
         torch.cuda.synchronize()
         held(name, k0, k1, r, TOL_PDHG_F64)
@@ -1407,23 +1599,24 @@ def check_traces(report: dict) -> None:
     iters = default_pdhg_iters(128)
     m, n = batch.A.shape
     B = batch.b.shape[0]
-    res = pdhg_solve_batch(batch, iters=iters, trace=True)
-    nnz = int(torch.count_nonzero(batch.A))
-    flops, nbytes, _ = pdhg_flops_bytes(m, n, nnz, B, res.iters_run.tolist(),
-                                        PDHG_DEFAULT_CHUNK, 4,
+    sp = ipm_sparsity(batch.A != 0)
+    res = pdhg_solve_batch(batch, iters=iters, trace=True, sparsity=sp)
+    flops, nbytes, _ = pdhg_flops_bytes(m, n, sp.nnz, B, res.iters_run.tolist(),
+                                        PDHG_DEFAULT_CHUNK, 4, a_bytes=elem_a_bytes(sp, 1, 4),
                                         trace_rows=res.trace_buf.shape[1])
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
-    untraced = time_kernel(lambda: pdhg_solve_batch(batch, iters=iters), "pdhg_kernel")
-    ms, call, src = time_kernel(lambda: pdhg_solve_batch(batch, iters=iters, trace=True),
-                                "pdhg_kernel")
+    kname = K5_KERNEL["grid" if k5_route(batch.A, torch.float32) == "grid" else "cluster"]
+    untraced = time_kernel(lambda: pdhg_solve_batch(batch, iters=iters, sparsity=sp), kname)
+    ms, call, src = time_kernel(
+        lambda: pdhg_solve_batch(batch, iters=iters, trace=True, sparsity=sp), kname)
     plain = cuda_ms(lambda: pdhg_solve_batch_reference(batch, iters=iters, trace=True),
                     reps=1, warmup=0)
-    print(f"pdhg_trace: traced {ms:.4f} ms, untraced {untraced[0]:.4f} ms on the card "
+    print(f"pdhg_trace: route {k5_route(batch.A, torch.float32)}, traced {ms:.4f} ms, untraced {untraced[0]:.4f} ms on the card "
           f"(calls {call:.4f} / {untraced[1]:.4f} ms; plain traced {plain:.3f} ms; bound "
           f"{b_ms:.6f} ms by {b_by}) at B={B} m={m} n={n} float32, "
           f"iters_run={res.iters_run.tolist()}", flush=True)
     report["pdhg_trace"] = dict(
-        name="pdhg_trace", route="cuda", source="distilp_torch/kernels/csrc/pdhg_kernel.cu",
+        name="pdhg_trace", route="cuda", source=K5_CLUSTER_SRC, grid_source=K5_GRID_SRC,
         replaces="distilp_tpu/ops/pdhg.py:408",
         max_abs_err=max(r["max_abs"] for r in rows if r["engine"] == "pdhg"), ms=ms,
         plain_ms=plain,
@@ -4958,13 +5151,13 @@ def main() -> int:
     t = time.perf_counter()
     cases = twin_cases()
     print(f"twin instances placed in {time.perf_counter() - t:.1f} s", flush=True)
-    checks = [check_ipm, check_round, check_epilogue, check_pdhg,
+    checks = [check_ipm, check_round, check_epilogue, check_pdhg, check_pdhg_routes,
               lambda r: check_pdhg_mp(), check_ipm_moe, check_round_moe, check_decomp,
               lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale,
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
               check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces,
               check_collective, check_pdhg_sharded, check_pdhg_sharded_elem]
-    names = ["ipm", "round", "epilogue", "pdhg", "pdhg_mp", "ipm_moe", "round_moe",
+    names = ["ipm", "round", "epilogue", "pdhg", "pdhg_routes", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
              "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded",
@@ -4995,6 +5188,13 @@ def main() -> int:
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"main path never launched {missing}")
+    # Every K5 element on the main paths fits a cluster: no launch of theirs
+    # may take the grid route.
+    k5_grid = [(k, p, shape) for k in ("pdhg", "pdhg_elem", "pdhg_trace")
+               for p, shapes in by_shape[k].items() for shape in shapes
+               if "route=cluster" not in shape]
+    if k5_grid:
+        fail(f"K5 launches of the main paths off the cluster route: {k5_grid}")
     out = []
     for name in ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "pdhg", "decomp",
                  "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",

@@ -20,10 +20,12 @@ import torch
 # Kernel name -> launches since the last reset (only the wrappers add to it).
 # The per-instance entries of K2, K2 MoE, K3 and K7 count a launch that
 # carries more than one sweep (scenario or batch lanes) under "<name>_lanes",
-# one that carries a single sweep under the kernel's own name. K5's
-# per-element entry counts as "pdhg_elem"; a launch of K1 or K5 that records
-# the convergence trace counts as "ipm_trace" or "pdhg_trace" (either K5
-# entry), not under the untraced name. The row-sharded PDHG (K6b) counts one
+# one that carries a single sweep under the kernel's own name. K5 counts a
+# launch on one shared A as "pdhg" and one on a per-element A as
+# "pdhg_elem", on either route (its shape key ends in the route:
+# "route=cluster<C>" or "route=grid"); a launch of K1 or K5 that records
+# the convergence trace counts as "ipm_trace" or "pdhg_trace", not under
+# the untraced name. The row-sharded PDHG (K6b) counts one
 # "pdhg_sharded" launch per slice on its fused route (every shard on one
 # device) and one per phase per shard on its sequenced route (its
 # per-element entry "pdhg_sharded_elem"; traced or not; the shape key ends

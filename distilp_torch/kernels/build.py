@@ -41,6 +41,7 @@ SOURCES: Dict[str, tuple] = {
     "round_moe": ("round_moe_kernel.cu", ["--fmad=false"]),
     "bnb_epilogue": ("bnb_epilogue_kernel.cu", ["--fmad=false"]),
     "pdhg": ("pdhg_kernel.cu", []),
+    "pdhg_cluster": ("pdhg_cluster_kernel.cu", []),
     "decomp": ("decomp_kernel.cu", ["--fmad=false"]),
     "twin_mc": ("twin_mc_kernel.cu", ["--fmad=false"]),
     "profiler": ("profiler_kernel.cu", ["--fmad=false"]),
@@ -103,12 +104,18 @@ SIGNATURES = {
         "dtk_absmax_rescale_bf16": [_P, _L, _P, _I, _F, _I, _P],
     },
     "pdhg": {
-        "dtk_pdhg_ws_bytes": [_I] * 5,
-        "dtk_pdhg_f32": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P, _L] + [_P] * 13 + [_I, _P],
-        "dtk_pdhg_f64": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P, _L] + [_P] * 13 + [_I, _P],
+        "dtk_pdhg_ws_bytes": [_I] * 4,
         "dtk_pdhg_elem_f32": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L]
         + [_P] * 13 + [_I, _P],
         "dtk_pdhg_elem_f64": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L]
+        + [_P] * 13 + [_I, _P],
+    },
+    "pdhg_cluster": {
+        "dtk_pdhgc_max_cluster": [_I],
+        "dtk_pdhgc_smem_bytes": [_I] * 7,
+        "dtk_pdhgc_f32": [_P, _P, _I, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _I]
+        + [_P] * 13 + [_I, _P],
+        "dtk_pdhgc_f64": [_P, _P, _I, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _I]
         + [_P] * 13 + [_I, _P],
     },
     "pdhg_sharded": {
@@ -131,7 +138,7 @@ SIGNATURES = {
         "dtk_allreduce_f64": [_P, _I, _L, _I, _P, _P],
     },
 }
-RESTYPES = {"dtk_pdhg_ws_bytes": _S, "dtk_pdhgs_ws_bytes": _S}
+RESTYPES = {"dtk_pdhg_ws_bytes": _S, "dtk_pdhgs_ws_bytes": _S, "dtk_pdhgc_smem_bytes": _S}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,8 +1,13 @@
-// K5: batched restarted Halpern PDHG for boxed LPs,
+// K5, the grid route: batched restarted Halpern PDHG for boxed LPs,
 //     min c'v  s.t.  A v = b,  l <= v <= u,
-// the whole solve of up to BMAX elements in ONE cooperative launch, with one
-// A shared by the batch (dtk_pdhg_f32/f64) or one A per element given as its
-// values on a shared sparse structure (dtk_pdhg_elem_f32/f64, B11).
+// the whole solve of up to BMAX elements in ONE cooperative launch, each
+// element's A given as its values on one sparse structure
+// (dtk_pdhg_elem_f32/f64): one A shared by the batch (a values stride of 0)
+// or one A per element (B11, stride nnz). Since the cluster route
+// (pdhg_cluster_kernel.cu) took over every element that one thread-block
+// cluster's shared memory holds, this route serves only the elements no
+// cluster holds (ops/pdhg.py::pdhg_route: around M >= 1000 devices in
+// float32, earlier in float64).
 //
 // Replaces distilp_tpu/ops/pdhg.py::_pdhg_single under pdhg_solve_batch (the
 // vmapped jit/lax device program of the JAX package; the per-element entry
@@ -22,10 +27,10 @@
 //
 // Structure. A grid of one block per SM runs every phase; grid.sync() sits
 // between the phases that need a whole vector: per step (1) the column phase,
-// one warp per column j of A' (a second, transposed copy of A so both products
-// read rows contiguously), computes (A' (row_s y))_j for every element, Tx_j,
-// the Halpern candidate and cs_a (2 Tx - x)_j; (2) the row phase, one warp per
-// row i of A, computes (A z)_i, Ty_i and its Halpern candidate; (3) every block
+// one warp per column j of A (a row of A', from the structure's column
+// order), computes (A' (row_s y))_j for every element, Tx_j, the Halpern
+// candidate and cs_a (2 Tx - x)_j; (2) the row phase, one warp per row i of
+// A, computes (A z)_i, Ty_i and its Halpern candidate; (3) every block
 // reduces the per-block residual partials and non-finite flags, takes the
 // restart / rollback decisions and commits its share of x and y. The operator
 // products are this kernel's own loops (no library call). Cross-block sums are
@@ -51,16 +56,13 @@
 //   restart point T(z) and the Halpern point), so the commit phase picks the
 //   flag of the branch it takes without another pass.
 //
-// The per-element route (MoE nodes, batch lanes with an A each). Each
-// element's A is its values on the union pattern of the batch (the
-// structure ops/ipm.py::ipm_sparsity builds, also K1's: rows of A with each
-// nonzero's place in column order, rows of A'), vals + e * vstride (vstride
-// nnz; 0 would share one value set). Every phase that reads A walks the
-// structure instead of a dense row: lane e of a warp sums element e's
-// products over the row's nonzeros in ascending order (no shuffles); the
+// Reading A. Each element's A is its values on the union pattern of the
+// batch (the structure ops/ipm.py::ipm_sparsity builds, also K1's: rows of A
+// with each nonzero's place in column order, rows of A'), vals + e * vstride.
+// Every phase that reads A walks the structure: lane e of a warp sums element
+// e's products over the row's nonzeros in ascending order (no shuffles); the
 // setup's row maxima and 1-norms and the float64 certificate the same way.
-// No dense (B, m, n) A and no transpose exist: at 128 devices (769 x 1665,
-// 3936 nonzeros) an element's A is 15.7 KB of values against 5.1 MB dense.
+// No dense A and no transpose exist.
 //
 // The convergence trace (B13). With a trace buffer (B, rows, 6), block 0
 // writes one row per executed chunk of each element live at the chunk's
@@ -71,17 +73,12 @@
 // reductions, so a traced launch does no extra work but the writes, and its
 // results are bit-identical to an untraced one's.
 //
-// What bounds it on an H100. Each step streams A twice (A z and A' y), 2 m n
-// elements: at M=512 devices (m=3073, n=6657) A is 81.8 MB in float32 and does
-// not fit the 50 MB L2, so a step is bound by 2 * 81.8 MB over 3.35 TB/s
-// (~49 us). At M=128 (m=769, n=1665) both copies (10.2 MB) stay in L2 and the
-// limit is latency: three grid barriers and a short reduction per step.
-// That is the bound of this dense kernel, not of the function: the fleet LPs'
-// A is about 0.08% nonzero (15 744 of 3073 x 6657 at M=512), so the least
-// work is A read once plus 4 operations per nonzero per step. The per-element
-// route reads only the nonzeros (B nnz values a step's products); moving the
-// shared route onto it (vstride 0), fewer barriers per step and a persistent
-// frontier are later work.
+// What bounds it on an H100. The least work is the values and the structure
+// read once plus 4 operations per nonzero per step, far below a
+// microsecond a step at any size this route takes; the limit is latency:
+// three grid barriers (~1.1 us each on the H100) and a short reduction per
+// step, and each lane's walk of its row as a chain of dependent loads.
+// Spreading a row's nonzeros over lanes is later work.
 
 #include <cooperative_groups.h>
 
@@ -117,11 +114,9 @@ struct Or {
 
 template <typename T>
 struct Params {
-  const T* A;   // (m, n), the shared route
-  const T* At;  // (n, m)
-  // The per-element route: the union structure's rows of A (columns, and
-  // each nonzero's place in column order) and rows of A' (rows), and each
-  // element's values in column order at vals + e * vstride.
+  // The union structure's rows of A (columns, and each nonzero's place in
+  // column order) and rows of A' (rows), and each element's values in column
+  // order at vals + e * vstride.
   const int *a_ptr, *a_col, *a_pos, *t_ptr, *t_row;
   const T* vals;
   long vstride;
@@ -181,94 +176,37 @@ __device__ __forceinline__ T* rowv(const Params<T>& p, int v) {
 
 __device__ __forceinline__ bool on(unsigned mask, int e) { return (mask >> e) & 1u; }
 
-// acc[e] = sum_k S(row[k]) * S(vec[e*stride + k]) over k < len, for the
-// elements of ``mask``; one warp, every lane ends with every element's sum.
-template <typename S, typename TA, typename TV>
-__device__ __forceinline__ void warp_dots(const TA* __restrict__ row, const TV* vec,
-                                          long stride, int len, unsigned mask,
-                                          int B, S (&acc)[BMAX]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int e = 0; e < BMAX; ++e) acc[e] = S(0);
-  int k = lane;
-  for (; k + 96 < len; k += 128) {
-    const S a0 = S(row[k]), a1 = S(row[k + 32]), a2 = S(row[k + 64]), a3 = S(row[k + 96]);
-#pragma unroll
-    for (int e = 0; e < BMAX; ++e) {
-      if (e < B && on(mask, e)) {
-        const TV* v = vec + e * stride + k;
-        acc[e] += a0 * S(v[0]);
-        acc[e] += a1 * S(v[32]);
-        acc[e] += a2 * S(v[64]);
-        acc[e] += a3 * S(v[96]);
-      }
-    }
-  }
-  for (; k < len; k += 32) {
-    const S a = S(row[k]);
-#pragma unroll
-    for (int e = 0; e < BMAX; ++e)
-      if (e < B && on(mask, e)) acc[e] += a * S(vec[e * stride + k]);
-  }
-#pragma unroll
-  for (int e = 0; e < BMAX; ++e)
-    if (e < B && on(mask, e)) acc[e] = warp_reduce(acc[e], Sum());
-}
-
-// acc[lane] without dynamic register indexing.
-template <typename S>
-__device__ __forceinline__ S pick(const S (&acc)[BMAX], int lane) {
-  S r = S(0);
-#pragma unroll
-  for (int e = 0; e < BMAX; ++e)
-    if (e == lane) r = acc[e];
-  return r;
-}
-
 // Row i of A against each element's (B, n) vector ``vec``: lane e < B of
-// the calling warp returns element e's sum, the other lanes 0. The shared
-// route reads the row once for every element (a full warp per row); the
-// per-element route has lane e walk the row's nonzeros in ascending column
-// order with element e's own values. Every lane of the warp calls it.
-template <bool kElem, typename S, typename T, typename V>
+// the calling warp walks the row's nonzeros in ascending column order with
+// element e's own values and returns its sum, the other lanes 0. Every lane
+// of the warp calls it.
+template <typename S, typename T, typename V>
 __device__ __forceinline__ S row_dot(const Params<T>& p, int i, const V* vec,
                                      unsigned mask) {
   const int lane = threadIdx.x & 31;
-  if constexpr (kElem) {
-    S acc = S(0);
-    if (lane < p.B && on(mask, lane)) {
-      const T* va = p.vals + (size_t)lane * p.vstride;
-      const V* x = vec + (size_t)lane * p.n;
-      for (int q = p.a_ptr[i]; q < p.a_ptr[i + 1]; ++q)
-        acc += S(va[p.a_pos[q]]) * S(x[p.a_col[q]]);
-    }
-    return acc;
-  } else {
-    S acc[BMAX];
-    warp_dots(p.A + (size_t)i * p.n, vec, p.n, p.n, mask, p.B, acc);
-    return pick(acc, lane);
+  S acc = S(0);
+  if (lane < p.B && on(mask, lane)) {
+    const T* va = p.vals + (size_t)lane * p.vstride;
+    const V* x = vec + (size_t)lane * p.n;
+    for (int q = p.a_ptr[i]; q < p.a_ptr[i + 1]; ++q)
+      acc += S(va[p.a_pos[q]]) * S(x[p.a_col[q]]);
   }
+  return acc;
 }
 
 // Column j of A (row j of A') against each element's (B, m) vector, as
-// row_dot (the per-element route in ascending row order).
-template <bool kElem, typename S, typename T, typename V>
+// row_dot (in ascending row order).
+template <typename S, typename T, typename V>
 __device__ __forceinline__ S col_dot(const Params<T>& p, int j, const V* vec,
                                      unsigned mask) {
   const int lane = threadIdx.x & 31;
-  if constexpr (kElem) {
-    S acc = S(0);
-    if (lane < p.B && on(mask, lane)) {
-      const T* va = p.vals + (size_t)lane * p.vstride;
-      const V* y = vec + (size_t)lane * p.m;
-      for (int q = p.t_ptr[j]; q < p.t_ptr[j + 1]; ++q) acc += S(va[q]) * S(y[p.t_row[q]]);
-    }
-    return acc;
-  } else {
-    S acc[BMAX];
-    warp_dots(p.At + (size_t)j * p.m, vec, p.m, p.m, mask, p.B, acc);
-    return pick(acc, lane);
+  S acc = S(0);
+  if (lane < p.B && on(mask, lane)) {
+    const T* va = p.vals + (size_t)lane * p.vstride;
+    const V* y = vec + (size_t)lane * p.m;
+    for (int q = p.t_ptr[j]; q < p.t_ptr[j + 1]; ++q) acc += S(va[q]) * S(y[p.t_row[q]]);
   }
+  return acc;
 }
 
 // Per-lane values (lane e holds element e) of every warp -> one partial per
@@ -308,7 +246,7 @@ __device__ void grid_reduce(const T* part, int nslot, int slot, int B, Op op,
 // Column phase of T(x, y): Tx = clip(x - tau (cm - cs_a (A' ys)), 0, 1) and
 // zb = cs_a (2 Tx - x); the weighted residual's column part goes to the C_Q
 // partial; with ``halpern`` also the Halpern candidate and the flags.
-template <bool kElem, typename T>
+template <typename T>
 __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, const T* ys,
                        unsigned mask, bool halpern) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -324,7 +262,7 @@ __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, const T* ys,
   T q = T(0);
   int fl = 0;
   for (int j = gw; j < n; j += tw) {
-    const T g = col_dot<kElem, T>(p, j, ys, mask);
+    const T g = col_dot<T>(p, j, ys, mask);
     if (lane < B && on(mask, lane)) {
       const size_t k = (size_t)lane * n + j;
       const T ca = csa[k], tk = tau[k], xj = x[k];
@@ -347,7 +285,7 @@ __device__ void t_cols(const Params<T>& p, Blk<T>& s, const T* x, const T* ys,
 
 // Row phase of T(x, y): Ty = y + sigma (b_s - row_s (A zb)); adds the row part
 // of the residual (and of the flags) to the column phase's partials.
-template <bool kElem, typename T>
+template <typename T>
 __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
                        bool halpern) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -363,7 +301,7 @@ __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
   T q = T(0);
   int fl = 0;
   for (int i = gw; i < m; i += tw) {
-    const T az = row_dot<kElem, T>(p, i, zb, mask);
+    const T az = row_dot<T>(p, i, zb, mask);
     if (lane < B && on(mask, lane)) {
       const size_t k = (size_t)lane * m + i;
       const T sg = sig[k], yi = y[k];
@@ -386,7 +324,7 @@ __device__ void t_rows(const Params<T>& p, Blk<T>& s, const T* y, unsigned mask,
 // Residual norms and objective pieces at the committed (x, y), as the
 // reference's conv_stats: max|b_s - opA(x)|, cm'x, b_s'y, act'min(0, red)
 // and max|red - min(0, red) act| with red = cm - opAT(y).
-template <bool kElem, typename T>
+template <typename T>
 __device__ void stats(const Params<T>& p, Blk<T>& s, unsigned mask) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int gw = blockIdx.x * NWARP + wid, tw = gridDim.x * NWARP;
@@ -403,7 +341,7 @@ __device__ void stats(const Params<T>& p, Blk<T>& s, unsigned mask) {
   for (int task = gw; task < n + m; task += tw) {
     if (task < n) {
       const int j = task;
-      const T g = col_dot<kElem, T>(p, j, ys, mask);
+      const T g = col_dot<T>(p, j, ys, mask);
       if (lane < B && on(mask, lane)) {
         const size_t k = (size_t)lane * n + j;
         const T red = cm[k] - csa[k] * g;
@@ -415,7 +353,7 @@ __device__ void stats(const Params<T>& p, Blk<T>& s, unsigned mask) {
       }
     } else {
       const int i = task - n;
-      const T az = row_dot<kElem, T>(p, i, zx, mask);
+      const T az = row_dot<T>(p, i, zx, mask);
       if (lane < B && on(mask, lane)) {
         const size_t k = (size_t)lane * m + i;
         rp = nan_max(rp, fabs(bs[k] - rows[k] * az));
@@ -440,7 +378,7 @@ __device__ void reduce_stats(const Params<T>& p, Blk<T>& s) {
   __syncthreads();
 }
 
-template <typename T, bool kElem>
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Blk<T>& s = *reinterpret_cast<Blk<T>*>(smem_raw);
@@ -497,46 +435,16 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
   for (int i = gw; i < m; i += tw) {
     // Row i's max |a| cs_a, sum a l and sum |a| cs_a, per element.
     T rmax = T(0), alv = T(0), acv = T(0);
-    if constexpr (kElem) {
-      if (lane < B) {
-        const T* va = p.vals + (size_t)lane * p.vstride;
-        for (int q = p.a_ptr[i]; q < p.a_ptr[i + 1]; ++q) {
-          const int j = p.a_col[q];
-          const T a = va[p.a_pos[q]], aa = fabs(a);
-          const T ca = csa[(size_t)lane * n + j];
-          rmax = nan_max(rmax, aa * ca);
-          alv += a * p.l[(size_t)lane * n + j];
-          acv += aa * ca;
-        }
+    if (lane < B) {
+      const T* va = p.vals + (size_t)lane * p.vstride;
+      for (int q = p.a_ptr[i]; q < p.a_ptr[i + 1]; ++q) {
+        const int j = p.a_col[q];
+        const T a = va[p.a_pos[q]], aa = fabs(a);
+        const T ca = csa[(size_t)lane * n + j];
+        rmax = nan_max(rmax, aa * ca);
+        alv += a * p.l[(size_t)lane * n + j];
+        acv += aa * ca;
       }
-    } else {
-      const T* arow = p.A + (size_t)i * n;
-      T mx[BMAX], al[BMAX], acs[BMAX];
-#pragma unroll
-      for (int e = 0; e < BMAX; ++e) mx[e] = al[e] = acs[e] = T(0);
-      for (int j = lane; j < n; j += 32) {
-        const T a = arow[j], aa = fabs(a);
-#pragma unroll
-        for (int e = 0; e < BMAX; ++e) {
-          if (e < B) {
-            const T ca = csa[(size_t)e * n + j];
-            mx[e] = nan_max(mx[e], aa * ca);
-            al[e] += a * p.l[(size_t)e * n + j];
-            acs[e] += aa * ca;
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < BMAX; ++e) {
-        if (e < B) {
-          mx[e] = warp_reduce(mx[e], Max());
-          al[e] = warp_reduce(al[e], Sum());
-          acs[e] = warp_reduce(acs[e], Sum());
-        }
-      }
-      rmax = pick(mx, lane);
-      alv = pick(al, lane);
-      acv = pick(acs, lane);
     }
     if (lane < B) {
       const size_t k = (size_t)lane * m + i;
@@ -563,27 +471,10 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
   for (int j = gw; j < n; j += tw) {
     // Column j's sum |a| row_s, per element.
     T g = T(0);
-    if constexpr (kElem) {
-      if (lane < B) {
-        const T* va = p.vals + (size_t)lane * p.vstride;
-        for (int q = p.t_ptr[j]; q < p.t_ptr[j + 1]; ++q)
-          g += fabs(va[q]) * rows[(size_t)lane * m + p.t_row[q]];
-      }
-    } else {
-      T acc[BMAX];
-      const T* arow = p.At + (size_t)j * m;
-#pragma unroll
-      for (int e = 0; e < BMAX; ++e) acc[e] = T(0);
-      for (int i = lane; i < m; i += 32) {
-        const T aa = fabs(arow[i]);
-#pragma unroll
-        for (int e = 0; e < BMAX; ++e)
-          if (e < B) acc[e] += aa * rows[(size_t)e * m + i];
-      }
-#pragma unroll
-      for (int e = 0; e < BMAX; ++e)
-        if (e < B) acc[e] = warp_reduce(acc[e], Sum());
-      g = pick(acc, lane);
+    if (lane < B) {
+      const T* va = p.vals + (size_t)lane * p.vstride;
+      for (int q = p.t_ptr[j]; q < p.t_ptr[j + 1]; ++q)
+        g += fabs(va[q]) * rows[(size_t)lane * m + p.t_row[q]];
     }
     if (lane < B) {
       const size_t k = (size_t)lane * n + j;
@@ -604,18 +495,18 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
 
   // ---- warm entry: best of the projected warm point and the cold start ----
   if (warm) {
-    t_cols<kElem>(p, s, xw, ysw, all, false);
+    t_cols(p, s, xw, ysw, all, false);
     grid.sync();
-    t_rows<kElem>(p, s, yw, all, false);
+    t_rows(p, s, yw, all, false);
     grid.sync();
     grid_reduce(p.pc, N_C, C_Q, B, Sum(), T(0), s.rv[C_Q]);
     __syncthreads();
     if (tid < B) s.resw[tid] = sqrt(s.rv[C_Q][tid]);
     grid.sync();  // every block has read the partials
   }
-  t_cols<kElem>(p, s, x, ys, all, false);
+  t_cols(p, s, x, ys, all, false);
   grid.sync();
-  t_rows<kElem>(p, s, y, all, false);
+  t_rows(p, s, y, all, false);
   grid.sync();
   grid_reduce(p.pc, N_C, C_Q, B, Sum(), T(0), s.rv[C_Q]);
   __syncthreads();
@@ -670,9 +561,9 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
         s.w[tid] = (tf + T(1)) / (tf + T(2));
       }
       __syncthreads();
-      t_cols<kElem>(p, s, x, ys, live, true);
+      t_cols(p, s, x, ys, live, true);
       grid.sync();
-      t_rows<kElem>(p, s, y, live, true);
+      t_rows(p, s, y, live, true);
       grid.sync();
       grid_reduce(p.pc, N_C, C_Q, B, Sum(), T(0), s.rv[C_Q]);
       grid_reduce(p.pf, 1, 0, B, Or(), 0, s.rvi);
@@ -714,7 +605,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
       grid.sync();
     }
     // convergence: primal feasibility and relative duality gap
-    stats<kElem>(p, s, live);
+    stats(p, s, live);
     grid.sync();
     reduce_stats(p, s);
     if (tid < B && on(live, tid)) {
@@ -741,7 +632,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
   }
 
   // ---- epilogue 1: final residuals; v, y in original units ----
-  stats<kElem>(p, s, all);
+  stats(p, s, all);
   {
     T objv = T(0);
     double shift = 0.0;
@@ -770,7 +661,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
     for (int task = gw; task < n + m; task += tw) {
       if (task < n) {
         const int j = task;
-        const double g = col_dot<kElem, double>(p, j, p.y_out, all);
+        const double g = col_dot<double>(p, j, p.y_out, all);
         if (lane < B) {
           const size_t k = (size_t)lane * n + j;
           const double red = (double)p.c[k] - g;
@@ -784,7 +675,7 @@ __global__ void __launch_bounds__(THREADS, 1) pdhg_kernel(Params<T> p) {
         }
       } else {
         const int i = task - n;
-        const double al = row_dot<kElem, double>(p, i, p.l, all);
+        const double al = row_dot<double>(p, i, p.l, all);
         if (lane < B) {
           const size_t k = (size_t)lane * m + i;
           by64 += ((double)p.b[k] - al) * (double)p.y_out[k];
@@ -829,14 +720,14 @@ size_t ws_bytes(int B, int m, int n, int G) {
          align_up(sizeof(T) * (size_t)N_ROWV * B * m);
 }
 
-template <typename T, bool kElem>
+template <typename T>
 int grid_size(int* G) {
   int dev = 0, sms = 0, occ = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pdhg_kernel<T, kElem>, THREADS,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pdhg_kernel<T>, THREADS,
                                                       sizeof(Blk<T>));
   if (err != cudaSuccess) return (int)err;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -844,14 +735,14 @@ int grid_size(int* G) {
   return 0;
 }
 
-// One cooperative launch of B <= BMAX elements. p carries the A route
-// (A and At, or the structure and values), the data, the outputs and the
-// trace; the workspace is carved here.
-template <typename T, bool kElem>
+// One cooperative launch of B <= BMAX elements. p carries the structure
+// and values, the data, the outputs and the trace; the workspace is carved
+// here.
+template <typename T>
 int launch(Params<T> p, void* ws, long ws_len, cudaStream_t stream) {
   if (p.B < 1 || p.B > BMAX) return (int)cudaErrorInvalidValue;
   int G = 0;
-  int gerr = grid_size<T, kElem>(&G);
+  int gerr = grid_size<T>(&G);
   if (gerr != 0) return gerr;
   const int B = p.B, m = p.m, n = p.n;
   if ((size_t)ws_len < ws_bytes<T>(B, m, n, G)) return (int)cudaErrorInvalidValue;
@@ -866,7 +757,7 @@ int launch(Params<T> p, void* ws, long ws_len, cudaStream_t stream) {
   w += align_up(sizeof(T) * (size_t)N_COLV * B * n);
   p.rowv = reinterpret_cast<T*>(w);
   void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(pdhg_kernel<T, kElem>, dim3(G),
+  cudaError_t err = cudaLaunchCooperativeKernel(pdhg_kernel<T>, dim3(G),
                                                 dim3(THREADS), args, sizeof(Blk<T>), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -912,21 +803,6 @@ Params<T> params(const T* b, const T* c, const T* l, const T* u, const T* wv, co
   return p;
 }
 
-template <typename T>
-int launch_shared(const T* A, const T* At, const T* b, const T* c, const T* l,
-                  const T* u, const T* wv, const T* wy, const uint8_t* wok,
-                  const uint8_t* skip, int B, int m, int n, int chunk, int n_chunks,
-                  double tol, double rt, void* ws, long ws_len, T* v, double* bound,
-                  T* obj, T* rp, T* rd, T* mu, uint8_t* conv, double* reduced, T* y,
-                  T* z, T* f, int* iters, T* trace, int trace_rows, cudaStream_t stream) {
-  Params<T> p = params(b, c, l, u, wv, wy, wok, skip, B, m, n, chunk, n_chunks, tol, rt, v,
-                       bound, obj, rp, rd, mu, conv, reduced, y, z, f, iters, trace,
-                       trace_rows);
-  p.A = A;
-  p.At = At;
-  return launch<T, false>(p, ws, ws_len, stream);
-}
-
 // sp: the structure's int32 buffer as ops/ipm.py::ipm_sparsity lays it out
 // (a_ptr m+1, a_col nnz, a_pos nnz, t_ptr n+1, t_row nnz, then K1's normal-
 // matrix parts, not read here).
@@ -949,54 +825,19 @@ int launch_elem(const int* sp, int nnz, const T* vals, long vstride, const T* b,
   p.t_row = p.t_ptr + n + 1;
   p.vals = vals;
   p.vstride = vstride;
-  return launch<T, true>(p, ws, ws_len, stream);
+  return launch<T>(p, ws, ws_len, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace bytes of one launch of B elements on the shared (elem = 0) or
-// the per-element route (0 when the grid cannot be sized on the current
-// device).
-size_t dtk_pdhg_ws_bytes(int B, int m, int n, int is_f64, int elem) {
+// Workspace bytes of one launch of B elements (0 when the grid cannot be
+// sized on the current device).
+size_t dtk_pdhg_ws_bytes(int B, int m, int n, int is_f64) {
   int G = 0;
-  int err;
-  if (is_f64) {
-    err = elem ? grid_size<double, true>(&G) : grid_size<double, false>(&G);
-    return err != 0 ? 0 : ws_bytes<double>(B, m, n, G);
-  }
-  err = elem ? grid_size<float, true>(&G) : grid_size<float, false>(&G);
-  return err != 0 ? 0 : ws_bytes<float>(B, m, n, G);
-}
-
-int dtk_pdhg_f32(const float* A, const float* At, const float* b, const float* c,
-                 const float* l, const float* u, const float* wv, const float* wy,
-                 const uint8_t* wok, const uint8_t* skip, int B, int m, int n,
-                 int chunk, int n_chunks, double tol, double rt, void* ws,
-                 long ws_len, float* v, double* bound, float* obj, float* rp,
-                 float* rd, float* mu, uint8_t* conv, double* reduced, float* y,
-                 float* z, float* f, int* iters, float* trace, int trace_rows,
-                 void* stream) {
-  return launch_shared<float>(A, At, b, c, l, u, wv, wy, wok, skip, B, m, n, chunk,
-                              n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp, rd, mu,
-                              conv, reduced, y, z, f, iters, trace, trace_rows,
-                              (cudaStream_t)stream);
-}
-
-int dtk_pdhg_f64(const double* A, const double* At, const double* b,
-                 const double* c, const double* l, const double* u,
-                 const double* wv, const double* wy, const uint8_t* wok,
-                 const uint8_t* skip, int B, int m, int n, int chunk,
-                 int n_chunks, double tol, double rt, void* ws, long ws_len,
-                 double* v, double* bound, double* obj, double* rp, double* rd,
-                 double* mu, uint8_t* conv, double* reduced, double* y,
-                 double* z, double* f, int* iters, double* trace, int trace_rows,
-                 void* stream) {
-  return launch_shared<double>(A, At, b, c, l, u, wv, wy, wok, skip, B, m, n, chunk,
-                               n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp, rd, mu,
-                               conv, reduced, y, z, f, iters, trace, trace_rows,
-                               (cudaStream_t)stream);
+  if (is_f64) return grid_size<double>(&G) != 0 ? 0 : ws_bytes<double>(B, m, n, G);
+  return grid_size<float>(&G) != 0 ? 0 : ws_bytes<float>(B, m, n, G);
 }
 
 int dtk_pdhg_elem_f32(const int* sp, int nnz, const float* vals, long vstride,

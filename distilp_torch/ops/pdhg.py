@@ -23,21 +23,29 @@ feasibility and relative duality gap) tested once per ``chunk`` steps with a
 batch-wide early exit. The exit certificate is the float64 Lagrangian bound
 ``b'y + sum_j r_j min(0, (c - A'y)_j)`` (+ c'l), valid for any dual.
 
-:func:`pdhg_solve_batch` launches the hand-written CUDA kernel
-(``kernels/csrc/pdhg_kernel.cu``, one cooperative launch per batch of up to
-:data:`BMAX` elements) on CUDA tensors and runs
-:func:`pdhg_solve_batch_reference`, the plain PyTorch version, on CPU tensors.
-A per-element A (the reference's ``a_axis = 0``: MoE nodes, batch lanes)
-goes to the kernel's per-element entry as values on one union sparse
-structure (:class:`ElemA`), never as a dense (B, m, n) stack. ``trace=True``
-records the convergence trace of ``ops/ipm.py`` (:data:`TRACE_COLS`), with
-the cumulative restart-chunk count in its restarts column.
+:func:`pdhg_solve_batch` launches a hand-written CUDA kernel on CUDA tensors
+and runs :func:`pdhg_solve_batch_reference`, the plain PyTorch version, on
+CPU tensors. The kernel reads A only through its sparse structure, as
+values on it (:class:`ElemA`): a per-element A (the reference's
+``a_axis = 0``: MoE nodes, batch lanes) as each element's values on one
+union structure, one shared A as its values with a batch stride of 0; never
+a dense (B, m, n) stack or a dense (m, n) A. It has two routes, chosen by
+:func:`pdhg_route` from the element's shape: the cluster route
+(``kernels/csrc/pdhg_cluster_kernel.cu``, one thread-block cluster per
+element holding its LP in shared memory, all elements in one launch) for
+every element a cluster holds, the grid route (``kernels/csrc/
+pdhg_kernel.cu``, one cooperative launch over the card per batch of up to
+:data:`BMAX` elements) for larger ones. ``trace=True`` records the
+convergence trace of ``ops/ipm.py`` (:data:`TRACE_COLS`), with the
+cumulative restart-chunk count in its restarts column.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -61,9 +69,23 @@ DEFAULT_RESTART_TOL = 0.2
 # Iterate-precision knob values ('f32' iterates with the f64 certificate;
 # 'f64' is the soundness rung an uncertified f32 run escalates to).
 PDHG_DTYPES = ("f32", "f64")
-# Elements per kernel launch; a larger batch is solved in slices (elements
-# are independent: a finished element is frozen whatever the others do).
+# Elements per launch of the grid route; a larger batch is solved in slices
+# (elements are independent: a finished element is frozen whatever the
+# others do). The cluster route takes any batch in one launch.
 BMAX = 16
+
+# The cluster route's layout (kernels/csrc/pdhg_cluster_kernel.cu): cluster
+# sizes, an H100 block's dynamic shared memory, the head of every CTA's
+# shared memory, its column and row vectors, and the length past which a row
+# or column gets a warp of its own.
+CLUSTER_SIZES = (1, 2, 4, 8)
+SMEM_LIMIT = 232448
+HEAD_BYTES = 2048
+N_COLV = N_ROWV = 7
+LONG_NNZ = 32
+# Room pdhg_route leaves in a CTA for the ownership plan's imbalance: a
+# contiguous split is even to within one row's or column's bytes.
+PLAN_SLACK = 16384
 
 
 def _default_tol_pdhg(dtype) -> float:
@@ -87,10 +109,16 @@ class ElemA(NamedTuple):
     """A per-element A as each element's values on one shared sparse
     structure (for a batch, the union of the elements' patterns): element
     e's A has ``values[e, q]`` at the q-th nonzero of ``sparsity`` in column
-    order, so ``A.reshape(B, m*n)[:, sparsity.src] == values``."""
+    order, so ``A.reshape(B, m*n)[:, sparsity.src] == values``. Values with
+    a batch stride of 0 (:func:`shared_a`) are one A shared by the batch."""
 
     values: torch.Tensor  # (B, nnz)
     sparsity: IPMSparsity
+
+    @property
+    def shared(self) -> bool:
+        """One A for every element: the values' batch stride is 0."""
+        return self.values.stride(0) == 0
 
     def dense(self) -> torch.Tensor:
         """The (B, m, n) A these values describe."""
@@ -99,6 +127,13 @@ class ElemA(NamedTuple):
         flat = self.values.new_zeros((B, sp.m * sp.n))
         flat[:, sp.src] = self.values
         return flat.reshape(B, sp.m, sp.n)
+
+    def matrix(self) -> torch.Tensor:
+        """The one (m, n) A of a shared ElemA."""
+        sp = self.sparsity
+        flat = self.values.new_zeros(sp.m * sp.n)
+        flat[sp.src] = self.values.as_strided((sp.nnz,), (1,))
+        return flat.reshape(sp.m, sp.n)
 
 
 def elem_a(A: torch.Tensor, sparsity: Optional[IPMSparsity] = None) -> ElemA:
@@ -114,11 +149,168 @@ def elem_a(A: torch.Tensor, sparsity: Optional[IPMSparsity] = None) -> ElemA:
     return ElemA(A.reshape(B, m * n)[:, sparsity.src], sparsity)
 
 
+def shared_a(A: torch.Tensor, B: int, sparsity: Optional[IPMSparsity] = None) -> ElemA:
+    """One (m, n) A for a batch of B as :class:`ElemA`: its values gathered
+    once on ``sparsity`` (which must hold every nonzero of A), or on A's own
+    pattern, with a batch stride of 0."""
+    if sparsity is None:
+        sparsity = ipm_sparsity(A != 0)
+    else:
+        check_sparsity(A, sparsity)
+    vals = A.reshape(-1)[sparsity.src]
+    return ElemA(vals.as_strided((B, sparsity.nnz), (0, 1)), sparsity)
+
+
+def cast_values(values: torch.Tensor, dtype) -> torch.Tensor:
+    """An :class:`ElemA`'s values in ``dtype``, shared ones kept shared."""
+    if values.dtype == dtype:
+        return values
+    if values.stride(0) == 0:
+        return values.as_strided((values.shape[1],), (1,)).to(dtype).as_strided(
+            tuple(values.shape), (0, 1))
+    return values.to(dtype)
+
+
 def cast_batch(batch: LPBatch, dtype) -> LPBatch:
     """``batch`` in ``dtype``, an :class:`ElemA`'s values included."""
     A = batch.A
-    A = A._replace(values=A.values.to(dtype)) if isinstance(A, ElemA) else A.to(dtype)
+    A = A._replace(values=cast_values(A.values, dtype)) if isinstance(A, ElemA) \
+        else A.to(dtype)
     return LPBatch(A, *(t.to(dtype) for t in batch[1:]))
+
+
+def _al16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def cluster_smem_bytes(m: int, n: int, nr: int, nc: int, zr: int, zc: int,
+                       itemsize: int) -> int:
+    """Shared-memory bytes of one CTA of the cluster route that owns nr rows
+    (zr nonzeros) and nc columns (zc nonzeros) of an (m, n) element: the
+    head, the column and row replicas, its part of the structure and values,
+    its share of the vectors (the kernel's ``smem_bytes``)."""
+    t = itemsize
+    return (HEAD_BYTES + _al16(t * n) + _al16(t * m) + _al16(4 * (nr + 1)) + _al16(4 * zr)
+            + _al16(4 * (nc + 1)) + _al16(4 * zc) + _al16(t * zr) + _al16(t * zc)
+            + N_COLV * _al16(t * nc) + N_ROWV * _al16(t * nr))
+
+
+def pdhg_route(m: int, n: int, nnz: int, dtype, c_max: int = CLUSTER_SIZES[-1]
+               ) -> Tuple[str, int]:
+    """K5's route for an (m, n) element with nnz nonzeros in ``dtype``:
+    ``("cluster", C)`` with the least cluster size C <= ``c_max`` whose CTAs
+    each hold an even share of the element's structure, values and vectors
+    beside the replicas and the head, with :data:`PLAN_SLACK` to spare;
+    ``("grid", 0)`` when none does."""
+    t = torch.empty((), dtype=dtype).element_size()
+    local = 4 * (m + n + 2) + 2 * nnz * (4 + t) + t * (N_COLV * n + N_ROWV * m)
+    fixed = HEAD_BYTES + _al16(t * n) + _al16(t * m) + PLAN_SLACK
+    for C in CLUSTER_SIZES:
+        if C <= c_max and fixed + -(-local // C) <= SMEM_LIMIT:
+            return "cluster", C
+    return "grid", 0
+
+
+class ClusterPlan(NamedTuple):
+    """Which rows and columns each of the C CTAs of an element's cluster
+    owns (contiguous blocks balanced by bytes), its long rows and columns
+    (more than :data:`LONG_NNZ` nonzeros; local indices), each CTA's
+    (rows, columns, row nonzeros, column nonzeros) and shared-memory bytes,
+    and the kernel's copy of the plan on the structure's device."""
+
+    C: int
+    rows: Tuple[int, ...]  # C + 1 starts
+    cols: Tuple[int, ...]
+    long_rows: Tuple[Tuple[int, ...], ...]
+    long_cols: Tuple[Tuple[int, ...], ...]
+    counts: Tuple[Tuple[int, int, int, int], ...]
+    bytes: Tuple[int, ...]
+    smem: int  # the largest CTA's bytes: the launch's dynamic shared memory
+    buf: torch.Tensor  # int32: rows, cols, long-row and long-column starts, the lists
+
+
+def _split(weights: np.ndarray, C: int) -> np.ndarray:
+    """C + 1 starts of C contiguous blocks of ``weights`` whose sums are as
+    even as whole items allow: each cut at the prefix nearest its share."""
+    cum = np.concatenate([[0], np.cumsum(weights)])
+    starts = [0]
+    for k in range(1, C):
+        target = cum[-1] * k / C
+        i = int(np.searchsorted(cum, target))
+        if i > 0 and (i == len(cum) or target - cum[i - 1] <= cum[i] - target):
+            i -= 1
+        starts.append(max(starts[-1], i))
+    starts.append(len(weights))
+    return np.asarray(starts, dtype=np.int64)
+
+
+def _make_plan(sp: IPMSparsity, itemsize: int, C: int) -> ClusterPlan:
+    parts = sp.parts()
+    a_ptr = parts["a_ptr"].cpu().numpy().astype(np.int64)
+    t_ptr = parts["t_ptr"].cpu().numpy().astype(np.int64)
+    rlen, clen = np.diff(a_ptr), np.diff(t_ptr)
+    t = itemsize
+    rows = _split((4 + t) * rlen + 4 + N_ROWV * t, C)
+    cols = _split((4 + t) * clen + 4 + N_COLV * t, C)
+    long_r = [np.nonzero(rlen[rows[r]:rows[r + 1]] > LONG_NNZ)[0] for r in range(C)]
+    long_c = [np.nonzero(clen[cols[r]:cols[r + 1]] > LONG_NNZ)[0] for r in range(C)]
+    counts = tuple((int(rows[r + 1] - rows[r]), int(cols[r + 1] - cols[r]),
+                    int(a_ptr[rows[r + 1]] - a_ptr[rows[r]]),
+                    int(t_ptr[cols[r + 1]] - t_ptr[cols[r]])) for r in range(C))
+    nbytes = tuple(cluster_smem_bytes(sp.m, sp.n, *cnt, t) for cnt in counts)
+    lrp = np.cumsum([0] + [len(x) for x in long_r])
+    lcp = np.cumsum([0] + [len(x) for x in long_c])
+    buf = np.concatenate([rows, cols, lrp, lcp, *long_r, *long_c]).astype(np.int32)
+    return ClusterPlan(C=C, rows=tuple(int(v) for v in rows), cols=tuple(int(v) for v in cols),
+                       long_rows=tuple(tuple(int(v) for v in x) for x in long_r),
+                       long_cols=tuple(tuple(int(v) for v in x) for x in long_c),
+                       counts=counts, bytes=nbytes, smem=max(nbytes),
+                       buf=torch.as_tensor(buf, device=sp.index.device))
+
+
+# id(structure's index tensor) -> (a weak reference to it, {(itemsize, C): plan})
+_PLANS: Dict[int, Tuple[weakref.ref, Dict[Tuple[int, int], ClusterPlan]]] = {}
+
+
+def cluster_plan(sp: IPMSparsity, itemsize: int, C: int) -> ClusterPlan:
+    """The cluster route's ownership plan of structure ``sp`` for C CTAs,
+    built once per structure, itemsize and C (one read of its row and
+    column pointers to the host) and kept while the structure lives."""
+    key = id(sp.index)
+    hit = _PLANS.get(key)
+    if hit is None or hit[0]() is not sp.index:
+        hit = (weakref.ref(sp.index), {})
+        _PLANS[key] = hit
+        weakref.finalize(sp.index, _PLANS.pop, key, None)
+    plans = hit[1]
+    if (itemsize, C) not in plans:
+        plans[(itemsize, C)] = _make_plan(sp, itemsize, C)
+    return plans[(itemsize, C)]
+
+
+def kernel_route(sp: IPMSparsity, dtype, c_max: int = CLUSTER_SIZES[-1]):
+    """(route, C, plan) of a launch on structure ``sp``: :func:`pdhg_route`'s
+    choice, with the grid route where the exact plan of its cluster size
+    does not fit a CTA's shared memory after all."""
+    route, C = pdhg_route(sp.m, sp.n, sp.nnz, dtype, c_max)
+    if route == "cluster":
+        plan = cluster_plan(sp, torch.empty((), dtype=dtype).element_size(), C)
+        if plan.smem <= SMEM_LIMIT:
+            return route, C, plan
+    return "grid", 0, None
+
+
+# (device index, float64) -> the largest cluster size the card schedules.
+_CLUSTER_MAX: Dict[Tuple[int, bool], int] = {}
+
+
+def _cluster_max(dev: torch.device, f64: bool) -> int:
+    from ..kernels.build import library
+
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), f64)
+    if key not in _CLUSTER_MAX:
+        _CLUSTER_MAX[key] = int(library("pdhg_cluster").dtk_pdhgc_max_cluster(int(f64)))
+    return _CLUSTER_MAX[key]
 
 
 class PDHGWarmState(NamedTuple):
@@ -152,9 +344,12 @@ def pdhg_solve_batch(
 
     ``batch.A`` is one shared (m, n) A, a per-element (B, m, n) A, or an
     :class:`ElemA` (each element's values on one sparse structure). A dense
-    per-element A is gathered onto ``sparsity`` (it must hold every nonzero;
-    a pattern that misses one raises) or onto the union of its elements'
-    patterns. ``iters`` is the per-element budget, spent ``chunk`` steps at
+    A is gathered onto ``sparsity`` (it must hold every nonzero; a pattern
+    that misses one raises) or onto A's own pattern (for a per-element A
+    the union of its elements' patterns): always on CUDA, where the kernel
+    reads A only through its structure; on the CPU a shared A given without
+    ``sparsity`` goes to the plain version as it is. ``iters`` is the
+    per-element budget, spent ``chunk`` steps at
     a time with a batch-wide convergence test between chunks;
     ``restart_tol`` is the restart's sufficient-decay factor; ``warm`` takes
     a :class:`PDHGWarmState` or an ``IPMWarmState``. ``trace`` records one
@@ -166,12 +361,15 @@ def pdhg_solve_batch(
     A = batch.A
     if isinstance(A, torch.Tensor) and A.dim() == 3:
         A = elem_a(A, sparsity)
+    elif isinstance(A, torch.Tensor) and A.dim() == 2 and (
+            sparsity is not None or A.device.type == "cuda"):
+        A = shared_a(A, batch.b.shape[0], sparsity)
     elif sparsity is not None:
-        raise ValueError("sparsity= goes with a dense per-element (B, m, n) A")
+        raise ValueError("sparsity= goes with a dense (m, n) or (B, m, n) A")
     dt = resolve_pdhg_dtype(dtype)
     if isinstance(A, ElemA):
         if dt is not None:
-            A = A._replace(values=A.values.to(dt))
+            A = A._replace(values=cast_values(A.values, dt))
         batch = LPBatch(A, *(t.to(A.values.dtype) for t in batch[1:]))
         a_dtype, a_tensors = A.values.dtype, [A.values]
     else:
@@ -200,9 +398,11 @@ def pdhg_solve_batch_reference(
 ) -> IPMResult:
     """Plain PyTorch version of the PDHG kernel (batch axis written out).
     A per-element A (dense (B, m, n), or :class:`ElemA`, made dense here)
-    goes through batched products."""
+    goes through batched products; a shared :class:`ElemA` is made the one
+    dense (m, n) A again."""
     if isinstance(batch.A, ElemA):
-        batch = batch._replace(A=batch.A.dense())
+        A = batch.A
+        batch = batch._replace(A=A.matrix() if A.shared else A.dense())
     tol = _default_tol_pdhg(batch.A.dtype) if tol is None else tol
     restart_tol = DEFAULT_RESTART_TOL if restart_tol is None else restart_tol
     with _full_f32_matmul():
@@ -404,24 +604,20 @@ def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk, trace) -> IP
     from ..kernels.build import library
 
     A, b, c, l, u = batch
-    elem = isinstance(A, ElemA)
-    dtype = A.values.dtype if elem else A.dtype
+    if not isinstance(A, ElemA):
+        raise TypeError("the pdhg kernel reads A as values on its structure (ElemA)")
+    dtype = A.values.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"pdhg kernel takes float32 or float64 A, got {dtype}")
     B, n = c.shape
     m = b.shape[1]
-    if elem:
-        sp = A.sparsity
-        if (sp.m, sp.n) != (m, n) or tuple(A.values.shape) != (B, sp.nnz):
-            raise ValueError(f"per-element A: structure ({sp.m}, {sp.n}) and values "
-                             f"{tuple(A.values.shape)} do not match B={B}, (m, n) = {(m, n)}")
-        dev = A.values.device
-        if sp.index.device != dev:
-            raise ValueError(f"the structure lies on {sp.index.device}, the values on {dev}")
-    else:
-        if tuple(A.shape) != (m, n):
-            raise ValueError(f"A {tuple(A.shape)} does not match (m, n) = {(m, n)}")
-        dev = A.device
+    sp = A.sparsity
+    if (sp.m, sp.n) != (m, n) or tuple(A.values.shape) != (B, sp.nnz):
+        raise ValueError(f"A: structure ({sp.m}, {sp.n}) and values "
+                         f"{tuple(A.values.shape)} do not match B={B}, (m, n) = {(m, n)}")
+    dev = A.values.device
+    if sp.index.device != dev:
+        raise ValueError(f"the structure lies on {sp.index.device}, the values on {dev}")
     for name, t, shape in (("b", b, (B, m)), ("c", c, (B, n)),
                            ("l", l, (B, n)), ("u", u, (B, n))):
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -447,14 +643,11 @@ def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk, trace) -> IP
     if B == 0:
         return out
     b, c, l, u = (t.contiguous() for t in (b, c, l, u))
-    if elem:
-        vals = A.values.contiguous()
-        a_args = lambda s, e: (kernels.ptr(sp.index), sp.nnz, kernels.ptr(vals[s:e]),  # noqa: E731
-                               sp.nnz)
-    else:
-        A_c = A.contiguous()
-        At = A_c.t().contiguous()  # column products read rows of A'
-        a_args = lambda s, e: (kernels.ptr(A_c), kernels.ptr(At))  # noqa: E731
+    shared = A.shared
+    vals = A.values
+    if vals.stride(1) != 1 or 0 < vals.stride(0) < sp.nnz:
+        vals = vals.contiguous()
+    vstride = vals.stride(0)
     if warm is not None:
         if tuple(warm.v.shape) != (B, n) or tuple(warm.y.shape) != (B, m) \
                 or tuple(warm.z.shape) != (B, n) or tuple(warm.f.shape) != (B, n) \
@@ -472,23 +665,40 @@ def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk, trace) -> IP
     if skip is not None and tuple(skip.shape) != (B,):
         raise ValueError(f"skip: expected shape {(B,)}, got {tuple(skip.shape)}")
     sk = None if skip is None else skip.to(torch.uint8).contiguous()
-    lib = library("pdhg")
     f64 = dtype == torch.float64
-    if elem:
-        fn = lib.dtk_pdhg_elem_f64 if f64 else lib.dtk_pdhg_elem_f32
-    else:
-        fn = lib.dtk_pdhg_f64 if f64 else lib.dtk_pdhg_f32
-    name = "pdhg_trace" if trace else ("pdhg_elem" if elem else "pdhg")
-    shape = f"B={B} m={m} n={n}" + (f" per-element A nnz={sp.nnz}" if elem else "")
+    route, C, plan = kernel_route(sp, dtype, _cluster_max(dev, f64))
+    name = "pdhg_trace" if trace else ("pdhg" if shared else "pdhg_elem")
+    shape = f"B={B} m={m} n={n}" + ("" if shared else f" per-element A nnz={sp.nnz}") \
+        + f" route={route}{C or ''}"
     P, O = kernels.ptr, kernels.opt_ptr
+    if route == "cluster":
+        lib = library("pdhg_cluster")
+        for r, cnt in enumerate(plan.counts):
+            if int(lib.dtk_pdhgc_smem_bytes(m, n, *cnt, int(f64))) != plan.bytes[r]:
+                raise RuntimeError("the cluster plan's bytes differ from the kernel's layout")
+        fn = lib.dtk_pdhgc_f64 if f64 else lib.dtk_pdhgc_f32
+        err = fn(
+            P(sp.index), P(plan.buf), C, sp.nnz, P(vals), vstride,
+            P(b), P(c), P(l), P(u), O(wv), O(wy), O(wok), O(sk),
+            B, m, n, chunk, n_chunks, float(tol), float(restart_tol), LONG_NNZ, plan.smem,
+            P(out.v), P(out.bound), P(out.obj), P(out.rp_norm), P(out.rd_norm), P(out.mu),
+            P(out.converged), P(out.reduced), P(out.y_dual), P(out.z_dual), P(out.f_dual),
+            P(out.iters_run), O(out.trace_buf), n_chunks, kernels.stream_handle(dev),
+        )
+        kernels.check(err, "pdhg")
+        kernels.count_launch(name, shape)
+        return out
+    lib = library("pdhg")
+    fn = lib.dtk_pdhg_elem_f64 if f64 else lib.dtk_pdhg_elem_f32
     for s in range(0, B, BMAX):
         e = min(B, s + BMAX)
         nb = e - s
-        ws = torch.empty(int(lib.dtk_pdhg_ws_bytes(nb, m, n, int(f64), int(elem))),
+        ws = torch.empty(int(lib.dtk_pdhg_ws_bytes(nb, m, n, int(f64))),
                          dtype=torch.uint8, device=dev)
         sl = lambda t: None if t is None else t[s:e]  # noqa: E731
         err = fn(
-            *a_args(s, e), P(b[s:e]), P(c[s:e]), P(l[s:e]), P(u[s:e]),
+            P(sp.index), sp.nnz, P(vals[s:e]), vstride,
+            P(b[s:e]), P(c[s:e]), P(l[s:e]), P(u[s:e]),
             O(sl(wv)), O(sl(wy)), O(sl(wok)), O(sl(sk)),
             nb, m, n, chunk, n_chunks, float(tol), float(restart_tol),
             P(ws), ws.numel(),

@@ -464,10 +464,9 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     of one fleet: one (m, nf) matrix); else ``A_lanes`` (L, m, nf) on the
     device, or each lane's own A stacked. Warm hints, stored duals, root
     iterates and margin bounds are used only when every lane has them. A's
-    structure is built here, once per sweep, for K1 and, where the nodes
-    have an A each (MoE, lanes with their own A), for K5's per-element
-    entry with each lane's values on it (and on a row mesh their row
-    blocks). ``convergence`` (one lane) turns on the round log and the root
+    structure is built here, once per sweep, for K1 and for K5 with each
+    lane's values on it (one value set for a shared A; on a row mesh the
+    row blocks of a per-element A, while a shared A stays dense for K6b). ``convergence`` (one lane) turns on the round log and the root
     round's LP trace. ``row_mesh`` (one sweep on the PDHG engine)
     row-partitions every LP relaxation over its shards."""
     t1 = time.perf_counter()
@@ -491,12 +490,16 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
                          for f, v in rd_np.items()})
     engine = params["lp_backend"]
     per_element = moe or (A.dim() == 3 and A.shape[0] > 1)
+    on_mesh = row_mesh is not None and row_mesh.size > 1
+    # The PDHG reads A as values on its structure, except one shared A on a
+    # row mesh, which K6b takes dense.
+    pdhg_values = engine == "pdhg" and (per_element or not on_mesh)
     A_sparsity = A_values = gky_pos = A_shards = None
-    if engine == "ipm" or per_element:
+    if engine == "ipm" or pdhg_values:
         A_sparsity = node_sparsity(A, M, moe)
-    if engine == "pdhg" and per_element:
+    if pdhg_values:
         A_values, gky_pos = sweep_values(A, A_sparsity, M, moe)
-        if row_mesh is not None and row_mesh.size > 1:
+        if on_mesh:
             A_shards = row_blocks(A_sparsity, row_mesh.size)
     data = SweepData(
         A=A,

@@ -143,11 +143,12 @@ class SweepData(NamedTuple):
     gky: Optional[torch.Tensor] = None  # (n_k, 2, M) float32
     # The structure of every node's A (node_sparsity; for lanes with an A
     # each, the union over the lanes), built once per sweep for K1 and for
-    # K5's per-element entry; None builds it per call (K1) or means the PDHG
-    # takes the shared A.
+    # K5; None builds it per call (K1) or, for a shared A on a row mesh,
+    # means K6b takes it dense.
     A_sparsity: Optional[IPMSparsity] = None
-    # K5's per-element A (MoE nodes, lanes with an A each): each lane's
-    # base values on A_sparsity (L, nnz), gathered once per sweep, and the
+    # K5's A as values (MoE nodes, lanes with an A each, one shared A): each
+    # lane's base values on A_sparsity (L, nnz; one row for a shared A),
+    # gathered once per sweep, and the
     # places in that vector of the 2M expert-busy entries a MoE node writes
     # its k's values to (2, M; rows 4M+i and 5M+i of column 2M+i).
     A_values: Optional[torch.Tensor] = None
@@ -652,7 +653,11 @@ def node_values(data: SweepData, kidx: torch.Tensor, lane: torch.Tensor) -> torc
     row's lane's base values on ``data.A_sparsity`` with, in MoE mode, its
     k's 2M expert-busy entries written at their places (the values form of
     :func:`node_A`), (B, nnz). Scenario lanes share one A: one value
-    set."""
+    set; with no expert-busy entries to write, its rows are one row with a
+    batch stride of 0 (the kernel's shared A)."""
+    if data.gky is None and data.A_values.shape[0] == 1:
+        # One A for every row: its one value set with a batch stride of 0.
+        return data.A_values.as_strided((lane.shape[0], data.A_values.shape[1]), (0, 1))
     vals = data.A_values[lane if data.A_values.shape[0] > 1 else torch.zeros_like(lane)]
     if data.gky is not None:
         g_p = data.gky[lane, kidx]  # (B, 2, M)
@@ -1012,8 +1017,9 @@ def lp_and_round(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_
     moe = data.gky is not None
     b_r, c_r = data.b_k[row_lane, kidx_r], data.c_k[row_lane, kidx_r]
     if lp_backend == "pdhg":
-        # MoE nodes and lanes with an A each: K5's (or on a row mesh K6b's)
-        # per-element entry on the sweep's structure; else the one shared A.
+        # A as values on the sweep's structure: MoE nodes and lanes with an A
+        # each per element (on a row mesh K6b's per-element entry), one
+        # shared A with a batch stride of 0; a shared A on a row mesh dense.
         A_r = (data.A if data.A.dim() == 2 else data.A[0]) if data.A_values is None \
             else ElemA(node_values(data, kidx_r, row_lane), data.A_sparsity)
         batch = LPBatch(A=A_r, b=b_r, c=c_r, l=lo_r, u=hi_r)

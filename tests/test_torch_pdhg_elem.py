@@ -178,7 +178,7 @@ def test_a_structure_missing_a_nonzero_is_refused():
                     torch.zeros(2, 5, **f64), torch.ones(2, 5, **f64))
     with pytest.raises(ValueError, match="outside the sparsity pattern"):
         pdhg_solve_batch(batch, iters=4, sparsity=ipm_sparsity(pattern))
-    with pytest.raises(ValueError, match="per-element"):
+    with pytest.raises(ValueError, match="outside the sparsity pattern"):
         pdhg_solve_batch(batch._replace(A=A3[0]), iters=4, sparsity=ipm_sparsity(pattern))
 
 
