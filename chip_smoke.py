@@ -20,7 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
      with a per-node A on the DeepSeek-V3 flagship's root and beam batches,
      the MoE rounding in its three modes, and the decomposition bound (K7)
      in float32 (bound and gradient) and float64 (bound, y-profile, hint)
-     on Qwen3-30B-A3B and the flagship; the twin's Monte-Carlo kernel (K8)
+     on Qwen3-30B-A3B and the flagship, and its fused ascent (one launch
+     for all steps) against the host loop over the per-step entry at 3
+     steps, at 300 steps cold and warm-started from the stored duals (each
+     bound sound against HiGHS per k) and at 0 steps, with lanes too; the twin's Monte-Carlo kernel (K8)
      on the north star's, the flagship's and the 512-device fleet's
      placements and on a vector set edited so that violations occur (equal
      flags, latencies within 1e-12, two launches bit-identical, the base
@@ -114,7 +117,9 @@ Phases (any failure exits non-zero and prints no result line):
      sweep's), ``solver --mesh-shards 4`` and ``measure_interconnect`` (K9c)
      over 4 shards (provenance "virtual");
      a path's comparison solves (its references) are left out of its launch
-     counts; K1's and K5's launches of each path are also printed by shape;
+     counts; K1's and K5's launches of each path are also printed by shape,
+     K7's by entry; every root bound (``decomp_bound_roots``) of the paths
+     makes at most two K7 launches and none of the per-step entry;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
@@ -206,6 +211,15 @@ TOL_SOUND = 1e-6
 # the tied cells' values in another order); float64: bound and m_y within
 # 1e-12 relative, the hint (w*, n*, y*) equal.
 TOL_DECOMP_F32 = 1e-5
+# K7's fused ascent against the host loop over the per-step entry (the
+# yardstick), on the same card: at 3 steps every field within
+# TOL_DECOMP_F32 relative (the two sum over the devices in another order,
+# so the multipliers part at the last bit); at 300 steps each (instance, k)'s
+# float64 bound within TOL_ASCENT_BOUND relative and sound (at most the
+# HiGHS per-k optimum), the hint equal wherever the bounds are; at 0 steps
+# (the float64 evaluation alone) bit for bit. Bit-for-bit equality of the
+# 300-step runs is reported.
+TOL_ASCENT_BOUND = 1e-5
 # K1 with a per-node A in float64: its iterate fields within this multiple
 # of the plain version's own change under a 4-ulp change of b (see
 # check_ipm_moe). Summation order perturbs every step, not b alone, hence
@@ -325,6 +339,30 @@ def tests_module(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@contextlib.contextmanager
+def k7_calls(calls: list):
+    """Record (steps, instances, K7 launches) of every ``decomp_bound_roots``
+    call the search makes inside the block (phase 4: each must make at most
+    two launches, whatever its steps)."""
+    from distilp_torch import kernels
+    from distilp_torch.solver import search
+
+    orig = search.decomp_bound_roots
+
+    def hook(p32, p64, rd, steps, *a, **kw):
+        n0 = kernels.LAUNCHES["decomp"] + kernels.LAUNCHES["decomp_lanes"]
+        res = orig(p32, p64, rd, steps, *a, **kw)
+        n = kernels.LAUNCHES["decomp"] + kernels.LAUNCHES["decomp_lanes"] - n0
+        calls.append((int(steps), int(p32.ks.shape[0]), n))
+        return res
+
+    search.decomp_bound_roots = hook
+    try:
+        yield calls
+    finally:
+        search.decomp_bound_roots = orig
 
 
 @contextlib.contextmanager
@@ -459,15 +497,16 @@ def launch_bounds(out: dict):
     search makes inside the block, each from the call's own inputs and
     executed work: an LP call's as phase 3 computes it (``ipm_flops_bytes``
     on the sweep's structure, ``pdhg_flops_bytes``; the executed steps),
-    K7's from the evaluations its ascent launched (``decomp_flops_bytes``
-    per instance, at the float32 peak), K2 MoE's from
-    ``round_moe_bytes_flops``, dense K2's and K3's from their tensors' bytes
-    (each input read once, each output written once). A host loop's bound
-    (B12, K10) is the sum over its launches. The hooks read results back,
-    so the block is a separate, untimed run."""
+    K7's from the least work of a root bound (per instance: the fused
+    ascent's ``ascent_flops_bytes`` at the float32 peak when the call
+    ascends, one float64 evaluation, ``decomp_flops_bytes``, at the float64
+    peak), K2 MoE's from ``round_moe_bytes_flops`` (the delta table's
+    pricing, a hint row's repair included), dense K2's and K3's from
+    their tensors' bytes (each input read once, each output written once).
+    A host loop's bound (B12, K10) is the sum over its launches. The hooks
+    read results back, so the block is a separate, untimed run."""
     import torch
 
-    from distilp_torch import kernels
     from distilp_torch.ops.ipm import ipm_sparsity
     from distilp_torch.ops.pdhg import PDHG_DEFAULT_CHUNK, ElemA
     from distilp_torch.solver import search
@@ -513,8 +552,8 @@ def launch_bounds(out: dict):
         res = orig["round_to_incumbent"](v, W, k, rd, packed, moe, y_steps, *a, **kw)
         if moe:
             moves = kw.get("moves", a[0] if a else MOE_LOCAL_MOVES)
-            flops, nb = round_moe_bytes_flops(v.shape[0], rd.a.shape[-1], moves,
-                                              y_steps or 0, 0)
+            M = rd.a.shape[-1]
+            flops, nb = round_moe_bytes_flops(v.shape[0], M, moves, y_steps or 0)
             add("round_moe", flops, nb, PEAK_F64_S)
         else:
             nb = nbytes((v, W, k, rd if packed is None else packed, kw.get("inst"), res))
@@ -526,13 +565,14 @@ def launch_bounds(out: dict):
         add("bnb_epilogue", 0, nbytes((a, tuple(kw.values()), res)), PEAK_F64_S)
         return res
 
-    def decomp(p32, *a, **kw):
-        before = kernels.LAUNCHES["decomp"] + kernels.LAUNCHES["decomp_lanes"]
-        res = orig["decomp_bound_roots"](p32, *a, **kw)
-        evals = kernels.LAUNCHES["decomp"] + kernels.LAUNCHES["decomp_lanes"] - before
+    def decomp(p32, p64, rd, steps, *a, **kw):
+        res = orig["decomp_bound_roots"](p32, p64, rd, steps, *a, **kw)
         for s in range(p32.ks.shape[0]):
-            flops, nb, _ = decomp_flops_bytes(p32.instance(s), evals)
-            add("decomp", flops, nb, PEAK_F32_S)
+            if steps > 0:
+                flops, nb = ascent_flops_bytes(p32.instance(s), steps)
+                add("decomp", flops, nb, PEAK_F32_S)
+            flops, nb, _ = decomp_flops_bytes(p64.instance(s))
+            add("decomp", flops, nb, PEAK_F64_S)
         return res
 
     hooks = {"ipm_solve_batch": ipm, "pdhg_solve_batch": pdhg,
@@ -1820,18 +1860,60 @@ def check_ipm_moe(report: dict) -> None:
           f"at B=16 m={m} n={n}", flush=True)
 
 
-def round_moe_bytes_flops(B: int, M: int, moves: int, y_steps: int, cand_per_step: int):
-    """Least work of one MoE rounding launch: every candidate priced once per
-    step over M devices (~30 float64 operations each), the redistributions'
-    O(M^2); bytes: the rows' LP points (float32 here), W and k, the 16 rows
-    of the packed data it reads and b', the outputs."""
-    flops = B * (moves * 5 * M * M + y_steps * cand_per_step) * M * 30 + B * 2 * (M + 4) * 3 * M
+# K2's MoE mode before the delta table (this script on an NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md §6): device ms (LP rows) and CUDA-event ms a call
+# (hint rows); the flagship warm tick's launch (one warm row) took 0.634
+# device ms in that run's profile.
+ROUND_MOE_BEFORE_MS = {"lp_rows_moves8": 2.4786, "hint_rows_repair": 2.6393,
+                     "warm_row_moves2": 0.634}
+
+
+def round_moe_bytes_flops(B: int, M: int, moves: int, y_steps: int):
+    """Least work of one MoE rounding launch of B rows: each device's costs
+    at its 11 deltas priced once (~30 float64 operations each) and again
+    for the devices a step moved (two on a move step, one on a repair
+    step); per candidate one table entry a device, a nan_max and an add
+    (2 M operations): 5 M^2 candidates a move step, M a repair step (its
+    direction follows from the sum of y); the redistributions' O(M^2).
+    Bytes: the rows' LP points (float32 here), W and k, the 16 rows of the
+    packed data it reads and b', the outputs."""
+    table = 11 * 30 * (M + 2 * moves + y_steps)
+    cands = (moves * 5 * M * M + y_steps * M) * 2 * M
+    flops = B * (table + cands) + B * 2 * (M + 4) * 3 * M
     nbytes = B * 3 * M * 4 + 2 * B * 8 + (16 * M + 1) * 8 + B * (1 + 3 * M) * 8
     return flops, nbytes
 
 
+def round_moe_reference_flops(B: int, M: int, moves: int, y_steps: int) -> float:
+    """The reference's pricing work for the same launch, beside the bound:
+    every candidate re-prices all M devices (~30 float64 operations each),
+    a repair step 2 M candidates."""
+    return B * (moves * 5 * M * M + y_steps * 2 * M) * M * 30 + B * 2 * (M + 4) * 3 * M
+
+
+@contextlib.contextmanager
+def moe_table_in_global_memory():
+    """K2's MoE mode keeps each row's delta table in a global workspace,
+    the route its wrapper takes where a block's shared memory cannot hold
+    the row's arrays and its table (M > 668 on an H100): the workspace
+    sized as the kernel lays it out (187 M bytes a row, 256-byte rows)."""
+    import torch
+
+    from distilp_torch.solver import rounding as R
+
+    orig = R.moe_table_workspace
+    R.moe_table_workspace = lambda lib, M, B, dev: torch.empty(  # noqa: E731
+        B * (-(-187 * M // 256) * 256), dtype=torch.uint8, device=dev)
+    try:
+        yield
+    finally:
+        R.moe_table_workspace = orig
+
+
 def check_round_moe(report: dict) -> None:
-    """K2's MoE mode on the flagship, in its three modes."""
+    """K2's MoE mode on the flagship, in its three modes, with the delta
+    table in shared memory (the route of every M up to 668) and in global
+    memory."""
     import numpy as np
     import torch
 
@@ -1869,44 +1951,59 @@ def check_round_moe(report: dict) -> None:
     bad = []
     for name, (v, W, k, kw) in modes.items():
         got = round_to_incumbent(v, W, k, data.rd, data.rd_packed, moe=True, **kw)
+        with moe_table_in_global_memory():
+            glob = round_to_incumbent(v, W, k, data.rd, data.rd_packed, moe=True, **kw)
         ref = round_moe_reference(v, W, k, data.rd, **kw)
         torch.cuda.synchronize()
         eq = {f: bool(torch.equal(a, b)) for f, a, b in zip(("w", "n", "y"), got[1:], ref[1:])}
+        glob_eq = all(torch.equal(a, b) for a, b in zip(got, glob))
         oa, orel = max_err(got[0], ref[0])
         line = {"mode": name, "rows": int(v.shape[0]), **{f"{f}_equal": e for f, e in eq.items()},
                 "obj_max_abs": oa, "obj_max_rel": orel,
                 "finite_rows": int(torch.isfinite(ref[0]).sum()),
+                "global_table_route_bit_for_bit": glob_eq,
                 "sum_y": ref[3].sum(1).tolist()}
         print("round_moe vs plain", json.dumps(line), flush=True)
-        if not (all(eq.values()) and orel <= TOL_EXACT_F64):
+        if not (all(eq.values()) and orel <= TOL_EXACT_F64 and glob_eq):
             bad.append(name)
         report.setdefault("_round_moe_err", []).append(oa)
     if bad:
         fail(f"round_moe kernel disagrees with its plain version in {bad}")
     if not bool(torch.isfinite(ref[0]).all()):
         fail("the warm row did not price finite")
+    times = {}
+    for name, (v, W, k, kw) in modes.items():
+        def run_k():
+            return round_to_incumbent(v, W, k, data.rd, data.rd_packed, moe=True, **kw)  # noqa: B023
+
+        ms, call, src = time_kernel(run_k, "round_moe_kernel")
+        y_steps = kw.get("y_steps", 0)
+        moves = kw.get("moves", MOE_LOCAL_MOVES)
+        flops, nbytes = round_moe_bytes_flops(int(v.shape[0]), M, moves, y_steps)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F64_S)
+        ref_ms = bound_ms(round_moe_reference_flops(int(v.shape[0]), M, moves, y_steps), nbytes,
+                          PEAK_F64_S)[0]
+        times[name] = dict(ms=ms, call_ms=call, ms_source=src, bound_ms=b_ms, bound_by=b_by,
+                           bound_ms_reference_work=ref_ms)
+        print(f"round_moe {name}: {ms:.4f} ms on the card, {call:.4f} ms per call, bound "
+              f"{b_ms:.6f} ms by {b_by} ({ref_ms:.6f} ms for the reference's pricing work; "
+              f"rows={int(v.shape[0])}, y_steps={y_steps}; before the delta table "
+              f"{ROUND_MOE_BEFORE_MS.get(name)} ms)", flush=True)
     v, W, k, kw = modes["lp_rows_moves8"]
-    run_k = lambda: round_to_incumbent(v, W, k, data.rd, data.rd_packed, moe=True, **kw)  # noqa: E731
-    ms, call, src = time_kernel(run_k, "round_moe_kernel")
     plain = cuda_ms(lambda: round_moe_reference(v, W, k, data.rd, **kw), reps=3, warmup=1)
-    flops, nbytes = round_moe_bytes_flops(16, M, MOE_LOCAL_MOVES, 0, 0)
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F64_S)
-    vh, Wh, kh, kwh = modes["hint_rows_repair"]
-    hint_ms = cuda_ms(lambda: round_to_incumbent(vh, Wh, kh, data.rd, data.rd_packed,
-                                                 moe=True, **kwh), reps=5, warmup=1)
+    t = times["lp_rows_moves8"]
     report["round_moe"] = dict(
         name="round_moe", route="cuda",
         source="distilp_torch/kernels/csrc/round_moe_kernel.cu",
         replaces="distilp_tpu/solver/backend_jax.py:721",
-        max_abs_err=max(report.pop("_round_moe_err")), ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, held_against_plain="ok",
-        call_ms=call, ms_source=src,
+        max_abs_err=max(report.pop("_round_moe_err")), ms=t["ms"], plain_ms=plain,
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+        held_against_plain="ok", call_ms=t["call_ms"], ms_source=t["ms_source"],
         shapes_timed=f"{FLAGSHIP[0]}: 16 LP rows, M={M}, E={E}, 8 move steps",
-        hint_rows_ms=hint_ms,
+        by_mode=times,
     )
-    print(f"round_moe: {ms:.4f} ms on the card, {call:.4f} ms per call (plain {plain:.3f} ms, "
-          f"bound {b_ms:.6f} ms by {b_by}) at B=16 M={M} moves=8; hint rows "
-          f"(y_steps={E + 4}) {hint_ms:.4f} ms per call", flush=True)
+    print(f"round_moe: {t['ms']:.4f} ms on the card (plain {plain:.3f} ms) at B=16 M={M} "
+          f"moves=8", flush=True)
 
 
 def decomp_flops_bytes(p, n_evals: int = 1):
@@ -1921,13 +2018,219 @@ def decomp_flops_bytes(p, n_evals: int = 1):
     return n_evals * cells * 60, n_evals * nbytes, cells
 
 
+def ascent_flops_bytes(p, steps: int):
+    """Least work of a ``steps``-step ascent of one float32 instance ``p``:
+    the cells' (lin, cyc), which do not depend on the multipliers, priced
+    once (~60 operations a cell, as ``decomp_flops_bytes``), then steps + 1
+    evaluations of the term over them (three products, three sums) and its
+    minimum (one comparison): 7 operations a cell; a step's gradient and
+    Adam update, ~20 operations for each of the n_k (M + 2) multipliers.
+    Bytes: the packed per-device vectors, k, W, b' and E, the start and the
+    (steps, 3) Adam table read once, the best multipliers written once."""
+    n_k, M = p.ks.shape[0], p.rdv.shape[1]
+    cells = 5 * n_k * M * p.w_max * (p.e_max + 1)
+    flops = cells * 60 + (steps + 1) * cells * 7 + steps * n_k * (M + 2) * 20
+    nbytes = (15 * M + 2 * n_k + 2 + 2 * n_k * (M + 2) + 3 * steps) * 4
+    return flops, nbytes
+
+
+DECOMP_SETTINGS = (("three_steps", 3, False), ("cold_300", 300, False),
+                   ("warm_300", 300, True), ("zero_steps", 0, True))
+DECOMP_FIELDS = ("bound", "w_star", "n_star", "y_star", "lam", "mu", "tau", "m_y")
+# K7 before the fused ascent (this script on an NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md §6): the 300-step ascent's wall, a host loop of one
+# per-step launch and ~50 tensor operations a step.
+ASCENT_300_BEFORE_MS = {"qwen3_30b_a3b_M16": 244.4, "deepseek_v3_M32": 202.8,
+                      "mixtral_M4_x4": 199.7, "deepseek_v3_M32_x2": 248.1}
+
+
+def highs_per_k(arrays, feasible) -> list:
+    """The HiGHS optimum of each fixed k of the instance (inf where none)."""
+    from distilp_torch.solver.backend_cpu import Infeasible, solve_fixed_k_cpu
+
+    out = []
+    for k, W in feasible:
+        try:
+            out.append(solve_fixed_k_cpu(arrays, k, W, mip_gap=1e-9).obj_value)
+        except Infeasible:
+            out.append(float("inf"))
+    return out
+
+
+def hold_fused_ascent(name, p32, p64, rd, oracle, obj_const):
+    """``decomp_bound_roots`` as the solver calls it (the fused ascent, then
+    the float64 evaluation: two K7 launches, one at 0 steps) against the
+    same call with the host loop over the per-step entry, the yardstick, in
+    DECOMP_SETTINGS: at 3 steps every field within TOL_DECOMP_F32 relative;
+    at 300 steps, cold and warm-started from the cold run's multipliers
+    (the duals a warm tick stores), each float64 bound within
+    TOL_ASCENT_BOUND relative and sound against ``oracle`` (S, n_k) (the
+    HiGHS per-k optima; ``obj_const`` (S,)), the hint equal wherever the
+    bounds are; at 0 steps bit for bit. At every setting the fused launch
+    with each unit's owner state in global memory (the route of batches
+    whose states shared memory cannot hold) equals the shared-memory
+    route's bit for bit. (ok, max abs bound error)."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.ops import decomp as D
+
+    def flat(out):
+        return tuple(out[:4]) + tuple(out[4]) + (out[5],)
+
+    def k7():
+        return kernels.LAUNCHES["decomp"] + kernels.LAUNCHES["decomp_lanes"]
+
+    ok_all, err, stored = True, 0.0, None
+    oracle = torch.tensor(oracle, dtype=torch.float64)
+    for label, steps, warm in DECOMP_SETTINGS:
+        init = stored if warm else None
+        n0 = k7()
+        got = flat(D.decomp_bound_roots(p32, p64, rd, steps, init))
+        torch.cuda.synchronize()
+        n_launch = k7() - n0
+        with stepwise_ascent():
+            ref = flat(D.decomp_bound_roots(p32, p64, rd, steps, init))
+        with owners_in_global_memory():
+            glob = flat(D.decomp_bound_roots(p32, p64, rd, steps, init))
+        torch.cuda.synchronize()
+        glob_bits = all(torch.equal(a, b) for a, b in zip(got, glob))
+        if label == "cold_300":
+            stored = got[4:7]
+        errs = {f: max_err(a, b) for f, a, b in zip(DECOMP_FIELDS, got, ref)}
+        bits = all(torch.equal(a, b) for a, b in zip(got, ref))
+        full = got[0].cpu() + torch.as_tensor(obj_const, dtype=torch.float64)[:, None]
+        sound = bool((full <= oracle + 1e-9 * oracle.abs().clamp(min=1.0)).all())
+        line = {"case": name, "setting": label, "steps": steps, "k7_launches": n_launch,
+                "bit_for_bit": bits, **{f"{f}_max_rel": e[1] for f, e in errs.items()},
+                "sound": sound, "global_owner_route_bit_for_bit": glob_bits}
+        if steps == 3:
+            ok = all(e[1] <= TOL_DECOMP_F32 for e in errs.values())
+        elif steps == 0:
+            ok = bits
+        else:
+            same = got[0] == ref[0]
+            hint_eq = all(bool((a[same] == b[same]).all()) for a, b in zip(got[1:4], ref[1:4]))
+            line.update(bounds_equal=f"{int(same.sum())} of {same.numel()}",
+                        hint_equal_where_bounds_equal=hint_eq,
+                        bound_plus_obj_const=full.tolist())
+            ok = errs["bound"][1] <= TOL_ASCENT_BOUND and sound and hint_eq
+        ok = ok and sound and glob_bits and n_launch <= (2 if steps > 0 else 1)
+        line["ok"] = ok
+        print("decomp fused vs stepwise", json.dumps(line), flush=True)
+        err = max(err, errs["bound"][0])
+        ok_all = ok_all and ok
+    return ok_all, err
+
+
+@contextlib.contextmanager
+def stepwise_ascent():
+    """``decomp_bound_roots`` ascends through the host loop over the
+    per-step entry (``ascend_stepwise``, a K7 launch a step): the
+    yardstick of the fused launch."""
+    from distilp_torch.ops import decomp as D
+
+    orig = D.ascend
+    D.ascend = D.ascend_stepwise
+    try:
+        yield
+    finally:
+        D.ascend = orig
+
+
+@contextlib.contextmanager
+def owners_in_global_memory():
+    """The fused ascent keeps every unit's owner state in global memory,
+    the route ``ascent_layout`` takes where shared memory cannot hold a
+    block's states (batches of thousands of rows)."""
+    from distilp_torch.ops import decomp as D
+
+    orig = D.ascent_layout
+    D.ascent_layout = lambda *a: (orig(*a)[0], 0)
+    try:
+        yield
+    finally:
+        D.ascent_layout = orig
+
+
+@contextlib.contextmanager
+def plain_evaluations(p32):
+    """``ascend_stepwise``'s float32 evaluations through the plain version
+    on the card (each instance's cells built once): the plain ascent."""
+    from distilp_torch.ops import decomp as D
+
+    cells = [D.decomp_cells(p32.instance(s)) for s in range(p32.ks.shape[0])]
+    orig = D.eval32_kernel
+    D.eval32_kernel = lambda p, lam, mu, theta: D._reference_by_instance(
+        D.eval32_reference, p, lam, mu, theta, cells=cells)
+    try:
+        yield
+    finally:
+        D.eval32_kernel = orig
+
+
+def time_ascent(name, p32, p64, oracle, obj_const, steps: int = 300):
+    """The 300-step ascent on the card: the fused launch, device ms
+    (profiler) and CUDA-event ms a call; the host loop over the per-step
+    entry (CUDA events and host wall); the plain ascent (CUDA events, one
+    run). The fused launch is held against the plain ascent: at each one's
+    multipliers, the float64 bound of each (s, k) within TOL_ASCENT_BOUND
+    relative and sound against ``oracle`` (S, n_k) (the HiGHS per-k
+    optima; ``obj_const`` (S,)). (times, ok, max abs bound error)."""
+    import torch
+
+    from distilp_torch.ops import decomp as D
+
+    def run():
+        return D.ascend_fused(p32, steps)
+
+    call = cuda_ms(run, reps=5, warmup=1)
+    dev = device_ms(run, "decomp_ascent_kernel", reps=3)
+    stepwise = cuda_ms(lambda: D.ascend_stepwise(p32, steps), reps=3, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D.ascend_stepwise(p32, steps)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    plain_out = []
+    with plain_evaluations(p32):
+        plain = cuda_ms(lambda: plain_out.append(D.ascend_stepwise(p32, steps)), reps=1,
+                        warmup=0)
+
+    def bound64(params):
+        return D.eval64(p64, *(x.double() for x in params), False)[0]
+
+    got, ref = bound64(run()), bound64(plain_out[0])
+    torch.cuda.synchronize()
+    b_abs, b_rel = max_err(got, ref)
+    oracle = torch.tensor(oracle, dtype=torch.float64)
+    full = got.cpu() + torch.as_tensor(obj_const, dtype=torch.float64)[:, None]
+    sound = bool((full <= oracle + 1e-9 * oracle.abs().clamp(min=1.0)).all())
+    ok = b_rel <= TOL_ASCENT_BOUND and sound
+    print("decomp fused vs plain ascent", json.dumps(
+        {"case": name, "steps": steps, "bound_max_abs": b_abs, "bound_max_rel": b_rel,
+         "bounds_equal": f"{int((got == ref).sum())} of {got.numel()}", "sound": sound,
+         "ok": ok}), flush=True)
+    out = dict(ms=dev if dev is not None else call,
+               ms_source="profiler" if dev is not None else "cuda_events", call_ms=call,
+               stepwise_call_ms=stepwise, stepwise_host_ms=host, plain_ms=plain)
+    print(f"decomp ascent {name}: {steps} steps in one launch {out['ms']:.4f} ms on the card "
+          f"({out['ms_source']}), {call:.4f} ms per call; host loop over the per-step entry "
+          f"{stepwise:.2f} ms by CUDA events, {host:.2f} ms of wall (the host loop "
+          f"before: {ASCENT_300_BEFORE_MS.get(name)} ms); plain ascent {plain:.1f} ms",
+          flush=True)
+    return out, ok, b_abs
+
+
 def check_decomp(report: dict) -> None:
-    """K7 on Qwen3-30B-A3B (16 devices) and the flagship."""
+    """K7 on Qwen3-30B-A3B (16 devices) and the flagship: the per-step
+    float32 entry and the float64 entry against their plain versions, the
+    fused ascent against the host loop (``hold_fused_ascent``), times."""
     import numpy as np
     import torch
 
     from distilp_torch.ops import decomp as D
-    from distilp_torch.solver.backend_cpu import Infeasible, solve_fixed_k_cpu
+    from distilp_torch.solver.rounding import stack_rounding_data
 
     rng = np.random.default_rng(11)
     bad, timing, abs_errs = [], {}, []
@@ -1966,12 +2269,8 @@ def check_decomp(report: dict) -> None:
             print("decomp f32 vs plain", json.dumps(line), flush=True)
             if not ok:
                 bad.append((case[0], "f32", trial))
-        # (b) float64 evaluation at the multipliers the port's ascent chose.
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        # (b) float64 evaluation at the multipliers of the fused ascent.
         lam, mu, tau = (x[0].double() for x in D.ascend(p32, 300))
-        torch.cuda.synchronize()
-        ascent_ms = (time.perf_counter() - t0) * 1e3
         theta = (i64.ks - 1.0)[:, None] * D.softmax(tau)
         got = k64(lam, mu, theta)
         ref = D.eval64_reference(i64, lam, mu, theta, True)
@@ -1981,49 +2280,63 @@ def check_decomp(report: dict) -> None:
         my_rel = max_err(got[0], ref[0])[1]
         b_rel = max_err(bound_k, bound_r)[1]
         hint_eq = all(bool(torch.equal(a, b)) for a, b in zip(got[1:], ref[1:]))
-        oracle = []
-        for k, W in feasible:
-            try:
-                oracle.append(solve_fixed_k_cpu(arrays, k, W, mip_gap=1e-9).obj_value)
-            except Infeasible:
-                oracle.append(float("inf"))
+        oracle = highs_per_k(arrays, feasible)
         full = (bound_k + sf.obj_const).tolist()
         sound = all(b <= o + 1e-9 * max(1.0, abs(o)) for b, o in zip(full, oracle))
-        line = {"instance": case[0], "ascent_steps": 300, "ascent_host_ms": ascent_ms,
-                "bound_plus_obj_const": full, "highs_per_k_optimum": oracle,
-                "m_y_max_rel": my_rel, "bound_max_rel": b_rel, "hint_equal": hint_eq,
-                "sound": sound}
+        line = {"instance": case[0], "ascent_steps": 300, "bound_plus_obj_const": full,
+                "highs_per_k_optimum": oracle, "m_y_max_rel": my_rel, "bound_max_rel": b_rel,
+                "hint_equal": hint_eq, "sound": sound}
         ok = my_rel <= TOL_EXACT_F64 and b_rel <= TOL_EXACT_F64 and hint_eq and sound
         line["ok"] = ok
         print("decomp f64 vs plain", json.dumps(line), flush=True)
         if not ok:
             bad.append((case[0], "f64"))
-        # Time one float32 evaluation at the ascent's shapes.
+        # (c) the fused ascent against the host loop over the per-step entry.
+        rd = stack_rounding_data([data.rd])
+        ok, err = hold_fused_ascent(case[0], p32, p64, rd, [oracle], [sf.obj_const])
+        abs_errs.append(err)
+        if not ok:
+            bad.append((case[0], "fused ascent"))
+        # Times: the per-step entry (one evaluation), the float64 entry, the
+        # 300-step ascent.
         lam32, mu32, tau32 = (x.float() for x in (lam, mu, tau))
         th32 = (i32.ks - 1.0)[:, None] * D.softmax(tau32)
-        run_k = lambda: k32(lam32, mu32, th32)  # noqa: E731
-        ms, call, src = time_kernel(run_k, "decomp_f32_kernel")
-        plain = cuda_ms(lambda: D.eval32_reference(i32, lam32, mu32, th32), reps=3, warmup=1)
-        ms64 = cuda_ms(lambda: k64(lam, mu, theta), reps=5, warmup=1)
-        flops, nbytes, cells = decomp_flops_bytes(i32)
+        ev_ms, ev_call, ev_src = time_kernel(lambda: k32(lam32, mu32, th32), "decomp_f32_kernel")
+        ev_plain = cuda_ms(lambda: D.eval32_reference(i32, lam32, mu32, th32), reps=3, warmup=1)
+        ms64, call64, src64 = time_kernel(lambda: k64(lam, mu, theta), "decomp_f64_kernel")
+        t, ok, err = time_ascent(case[0], p32, p64, [oracle], [sf.obj_const])
+        abs_errs.append(err)
+        if not ok:
+            bad.append((case[0], "fused vs plain ascent"))
+        flops, nbytes = ascent_flops_bytes(i32, 300)
+        ref_flops, ref_bytes, cells = decomp_flops_bytes(i32, 301)
         b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_S)
-        timing[case[0]] = dict(ms=ms, call_ms=call, ms_source=src, plain_ms=plain,
-                               bound_ms=b_ms, bound_by=b_by, cells=cells,
-                               f64_eval_ms=ms64, ascent_host_ms=ascent_ms)
-        print(f"decomp {case[0]}: f32 evaluation {ms:.4f} ms on the card, {call:.4f} ms per "
-              f"call (plain {plain:.3f} ms, bound {b_ms:.5f} ms by {b_by}, {cells} cells); "
-              f"f64 evaluation {ms64:.4f} ms; 300-step ascent {ascent_ms:.1f} ms of wall",
-              flush=True)
+        t.update(bound_ms=b_ms, bound_by=b_by,
+                 bound_ms_reference_work=bound_ms(ref_flops, ref_bytes, PEAK_F32_S)[0],
+                 cells=cells, f32_eval_ms=ev_ms, f32_eval_call_ms=ev_call,
+                 f32_eval_source=ev_src, f32_eval_plain_ms=ev_plain,
+                 f32_eval_bound_ms=bound_ms(*decomp_flops_bytes(i32)[:2], PEAK_F32_S)[0],
+                 f64_eval_ms=ms64, f64_eval_call_ms=call64, f64_eval_source=src64,
+                 f64_eval_bound_ms=bound_ms(*decomp_flops_bytes(i64)[:2], PEAK_F64_S)[0])
+        timing[case[0]] = t
+        print(f"decomp {case[0]}: per-step f32 evaluation {ev_ms:.4f} ms on the card "
+              f"({ev_call:.4f} per call, plain {ev_plain:.3f}); f64 evaluation {ms64:.4f} ms "
+              f"({call64:.4f} per call, bound {t['f64_eval_bound_ms']:.5f}); 300-step ascent "
+              f"{t['ms']:.4f} ms (bound {t['bound_ms']:.5f} ms by {t['bound_by']}; "
+              f"{t['bound_ms_reference_work']:.5f} ms for the reference's 301 pricings of "
+              f"{cells} cells)", flush=True)
     if bad:
-        fail(f"decomp kernel disagrees with its plain version or is unsound in {bad}")
+        fail(f"decomp kernel disagrees with its plain version, its yardstick or is unsound "
+             f"in {bad}")
     t = timing[FLAGSHIP[0]]
     report["decomp"] = dict(
         name="decomp", route="cuda", source="distilp_torch/kernels/csrc/decomp_kernel.cu",
-        replaces="distilp_tpu/solver/backend_jax.py:832",
+        replaces="distilp_tpu/solver/backend_jax.py:963",
         max_abs_err=max(abs_errs), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None, held_against_plain="ok",
         call_ms=t["call_ms"], ms_source=t["ms_source"],
-        shapes_timed=f"{FLAGSHIP[0]}: one float32 evaluation, {t['cells']} cells",
+        shapes_timed=f"{FLAGSHIP[0]}: the 300-step ascent in one launch ({t['cells']} cells, "
+                     f"301 evaluations)",
         by_instance=timing,
     )
 
@@ -2827,7 +3140,7 @@ def check_round_moe_lanes(report: dict) -> None:
     r0, r1 = rd_instance(rd, 0), rd_instance(rd, 1)
     single_ms = cuda_ms(lambda: [round_to_incumbent(v[q::2], W[q::2], k[q::2], rq, moe=True, **kw)
                                  for q, rq in ((0, r0), (1, r1))], reps=5, warmup=1)
-    flops, nbytes = round_moe_bytes_flops(16, M, MOE_LOCAL_MOVES, 0, 0)
+    flops, nbytes = round_moe_bytes_flops(16, M, MOE_LOCAL_MOVES, 0)
     b_ms, b_by = bound_ms(flops, nbytes + (16 * M + 1) * 8 + 16 * 4, PEAK_F64_S)
     report["round_moe_lanes"] = lane_row(
         "round_moe_lanes", "distilp_torch/kernels/csrc/round_moe_kernel.cu",
@@ -2837,7 +3150,7 @@ def check_round_moe_lanes(report: dict) -> None:
     report["round_moe_lanes"]["stream_calls_held"] = stream
     print(f"round_moe_lanes: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
           f"{plain:.3f} ms, 2 single-instance launches {single_ms:.4f} ms, bound "
-          f"{b_ms:.6f} ms by {b_by})", flush=True)
+          f"{b_ms:.6f} ms by {b_by}; 2.459 ms on the card before the delta table)", flush=True)
 
 
 def scenario_prep(fleets, model, kv_bits, factors=None, gap=1e-3):
@@ -3035,16 +3348,62 @@ def check_per_k_lanes(report: dict) -> None:
 MIXTRAL_REGIMES = [None, [1.5, 0.8, 1.0, 0.9], [0.7, 0.7, 1.6, 1.2], [1.0, 1.3, 0.9, 0.8]]
 
 
+# Lanes of one root bound past what 16 owner states a block held (4224 rows
+# at 2 blocks an SM of an H100): the flagship 140 times, 4480 rows.
+MANY_LANES = 140
+
+
+def many_lanes_ascent(devs, model) -> bool:
+    """The flagship as MANY_LANES identical lanes of one root bound
+    (``decomp_bound_roots``, 300 steps): two K7 launches, every lane's
+    outputs equal to lane 0's bit for bit, lane 0's float64 bounds within
+    TOL_ASCENT_BOUND relative of the single instance's."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.ops import decomp as D
+    from distilp_torch.solver.rounding import rounding_data, stack_rounding_data
+
+    dev = torch.device("cuda")
+    (lane,) = lane_inputs([devs], model, "8bit")
+    w_max, E = max(W for _, W in lane.feasible), int(lane.E)
+    one = [D.decomp_problem(lane.rd_np, lane.sf.ks, lane.sf.Ws, w_max, E, dt, dev)
+           for dt in (torch.float32, torch.float64)]
+    rd1 = rounding_data(lane.rd_np, dev)
+    single = D.decomp_bound_roots(*(D.stack_problems([p]) for p in one),
+                                  stack_rounding_data([rd1]), 300)
+    n0 = kernels.LAUNCHES["decomp_lanes"]
+    t0 = time.perf_counter()
+    many = D.decomp_bound_roots(*(D.stack_problems([p] * MANY_LANES) for p in one),
+                                stack_rounding_data([rd1] * MANY_LANES), 300)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    n_launch = kernels.LAUNCHES["decomp_lanes"] - n0
+    flat = lambda out: tuple(out[:4]) + tuple(out[4]) + (out[5],)  # noqa: E731
+    same = all(bool((x == x[:1]).all()) for x in flat(many))
+    rel = max_err(many[0][0], single[0][0])[1]
+    ok = n_launch == 2 and same and rel <= TOL_ASCENT_BOUND
+    print("decomp many lanes", json.dumps(
+        {"case": f"deepseek_v3_M32_x{MANY_LANES}", "rows": MANY_LANES * int(one[0].ks.shape[0])
+         * int(one[0].rdv.shape[-1]), "k7_launches": n_launch, "lanes_equal": same,
+         "bound_max_rel_vs_single": rel, "wall_ms": wall, "ok": ok}), flush=True)
+    return ok
+
+
 def check_decomp_lanes(report: dict) -> None:
     """K7's instance axis: the Mixtral M=4 scenario batch (4 load regimes)
     and the flagship with a t_comm drift (2 instances), float32 and float64
     evaluations against the plain version and, bit for bit, against one
-    single-instance launch per instance; the 300-step ascent of all
-    instances in lockstep timed beside one instance's."""
+    single-instance launch per instance; the fused ascent of all instances
+    in lockstep against the host loop (``hold_fused_ascent``, each lane
+    sound against its own HiGHS per-k optima), timed beside one
+    instance's."""
     import numpy as np
     import torch
 
     from distilp_torch.ops import decomp as D
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.solver.rounding import rounding_data, stack_rounding_data
     from distilp_torch.utils import make_synthetic_fleet
 
     dev = torch.device("cuda")
@@ -3052,14 +3411,14 @@ def check_decomp_lanes(report: dict) -> None:
     cases = []
     mix = MOE_CASES[0]
     mdevs = make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9))
-    cases.append(("mixtral_M4_x4", lane_inputs([mdevs] * 4, moe_model(mix[1]), "8bit",
-                                               MIXTRAL_REGIMES)))
+    mmodel = moe_model(mix[1])
+    cases.append(("mixtral_M4_x4", [mdevs] * 4, mmodel, MIXTRAL_REGIMES))
     fdevs, fmodel = moe_instance(FLAGSHIP)[:2]
-    cases.append(("deepseek_v3_M32_x2",
-                  lane_inputs([fdevs] + scenario_fleets(fdevs, 1, 3, 0.95, 1.05), fmodel,
-                              "8bit")))
+    cases.append(("deepseek_v3_M32_x2", [fdevs] + scenario_fleets(fdevs, 1, 3, 0.95, 1.05),
+                  fmodel, None))
     bad, timing, errs = [], {}, []
-    for name, lanes in cases:
+    for name, fleets, model, factors in cases:
+        lanes = lane_inputs(fleets, model, "8bit", factors)
         w_max, E = max(W for _, W in lanes[0].feasible), int(lanes[0].E)
         p32, p64 = (D.stack_problems([D.decomp_problem(ln.rd_np, ln.sf.ks, ln.sf.Ws, w_max, E,
                                                        dt, dev) for ln in lanes])
@@ -3101,40 +3460,56 @@ def check_decomp_lanes(report: dict) -> None:
         print("decomp lanes", json.dumps(line), flush=True)
         if not ok:
             bad.append(name)
-        ms, call, src = time_kernel(lambda: D.eval32_kernel(p32, lam, mu, th32),
-                                    "decomp_f32_kernel")
-        plain = cuda_ms(lambda: [D.eval32_reference(p32.instance(s), lam[s], mu[s], th32[s])
-                                 for s in range(S)], reps=3, warmup=1)
+        # The fused ascent of all lanes against the host loop, each lane
+        # sound against its own instance's HiGHS per-k optima.
+        oracle = []
+        for i, devs in enumerate(fleets):
+            _, _, _, arrays = _build_instance(devs, model, None, "8bit", None,
+                                              None if factors is None else factors[i], 1)
+            oracle.append(highs_per_k(arrays, lanes[i].feasible))
+        rd = stack_rounding_data([rounding_data(ln.rd_np, dev) for ln in lanes])
+        consts = [ln.sf.obj_const for ln in lanes]
+        ok, err = hold_fused_ascent(name, p32, p64, rd, oracle, consts)
+        errs.append(err)
+        if not ok:
+            bad.append((name, "fused ascent"))
+        ev_ms, ev_call, ev_src = time_kernel(lambda: D.eval32_kernel(p32, lam, mu, th32),
+                                             "decomp_f32_kernel")
         single_ms = cuda_ms(lambda: [D.eval32_kernel(one32[s], sl(lam, s), sl(mu, s),
                                                      sl(th32, s)) for s in range(S)], reps=10)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        D.ascend(p32, 300)
-        torch.cuda.synchronize()
-        asc_all = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        D.ascend(one32[0], 300)
-        torch.cuda.synchronize()
-        asc_one = (time.perf_counter() - t0) * 1e3
-        flops, nbytes, cells = decomp_flops_bytes(p32.instance(0))
+        t, ok, err = time_ascent(name, p32, p64, oracle, consts)
+        errs.append(err)
+        if not ok:
+            bad.append((name, "fused vs plain ascent"))
+        one_ms = cuda_ms(lambda: [D.ascend_fused(one32[s], 300) for s in range(S)], reps=5,
+                         warmup=1)
+        flops, nbytes = ascent_flops_bytes(p32.instance(0), 300)
+        ref_flops, ref_bytes, cells = decomp_flops_bytes(p32.instance(0), 301)
         b_ms, b_by = bound_ms(S * flops, S * nbytes, PEAK_F32_S)
-        timing[name] = dict(ms=ms, call_ms=call, ms_source=src, plain_ms=plain,
-                            single_instance_launches_ms=single_ms, bound_ms=b_ms,
-                            bound_by=b_by, cells=S * cells, ascent_300_all_ms=asc_all,
-                            ascent_300_one_ms=asc_one)
-        print(f"decomp_lanes {name}: f32 evaluation of {S} instances {ms:.4f} ms on the card, "
-              f"{call:.4f} ms per call ({S} single launches {single_ms:.4f} ms; plain "
-              f"{plain:.3f} ms; bound {b_ms:.6f} ms by {b_by}); 300-step ascent of all "
-              f"{asc_all:.1f} ms of wall, of one {asc_one:.1f} ms", flush=True)
+        t.update(bound_ms=b_ms, bound_by=b_by,
+                 bound_ms_reference_work=bound_ms(S * ref_flops, S * ref_bytes, PEAK_F32_S)[0],
+                 cells=S * cells, single_instance_ascents_ms=one_ms,
+                 f32_eval_ms=ev_ms, f32_eval_call_ms=ev_call, f32_eval_source=ev_src,
+                 f32_eval_single_launches_ms=single_ms)
+        timing[name] = t
+        print(f"decomp_lanes {name}: per-step f32 evaluation of {S} instances {ev_ms:.4f} ms "
+              f"on the card, {ev_call:.4f} ms per call ({S} single launches {single_ms:.4f} "
+              f"ms); 300-step ascent of all {t['ms']:.4f} ms on the card, {t['call_ms']:.4f} "
+              f"ms per call ({S} single-instance ascents {one_ms:.4f} ms; bound {b_ms:.6f} ms "
+              f"by {b_by})",
+              flush=True)
+    if not many_lanes_ascent(cases[1][1][0], cases[1][2]):
+        bad.append(("deepseek_v3_M32", f"x{MANY_LANES}"))
     if bad:
         fail(f"decomp instance axis disagrees in {bad}")
     t = timing["mixtral_M4_x4"]
     report["decomp_lanes"] = lane_row(
         "decomp_lanes", "distilp_torch/kernels/csrc/decomp_kernel.cu",
-        "distilp_tpu/solver/backend_jax.py:832 (vmapped over scenarios by :2577)",
-        max(errs), t["ms"], t["plain_ms"], t["single_instance_launches_ms"], t["bound_ms"],
+        "distilp_tpu/solver/backend_jax.py:963 (vmapped over scenarios by :2577)",
+        max(errs), t["ms"], t["plain_ms"], t["single_instance_ascents_ms"], t["bound_ms"],
         t["bound_by"], t["call_ms"], t["ms_source"],
-        f"mixtral_M4_x4: one float32 evaluation of 4 instances, {t['cells']} cells")
+        f"mixtral_M4_x4: the 300-step ascent of 4 instances in one launch, {t['cells']} "
+        f"cells an evaluation")
     report["decomp_lanes"]["by_case"] = timing
 
 
@@ -5169,11 +5544,28 @@ def main() -> int:
         print(f"check {name}: {time.perf_counter() - t:.1f} s, launches "
               f"{json.dumps({k: v for k, v in kernels.LAUNCHES.items() if v})}", flush=True)
 
-    paths = {"dense": main_path(), "fleet": fleet_path(), "moe": moe_path(),
-             "profile": profile_path(cases), "sweep": sweep_path(), "stream": stream_path()}
-    paths["elem"], elem_calls = elem_path()
-    paths["diagnose"] = diagnose_path()
-    paths["mesh"] = mesh_path()
+    k7 = []
+    with k7_calls(k7):
+        paths = {"dense": main_path(), "fleet": fleet_path(), "moe": moe_path(),
+                 "profile": profile_path(cases), "sweep": sweep_path(),
+                 "stream": stream_path()}
+        paths["elem"], elem_calls = elem_path()
+        paths["diagnose"] = diagnose_path()
+        paths["mesh"] = mesh_path()
+    # K7 on the main paths: at most two launches a root bound (the fused
+    # ascent and the float64 evaluation), none of the per-step entry.
+    per_call = {}
+    for steps, S, n in k7:
+        key = f"steps={steps} S={S} launches={n}"
+        per_call[key] = per_call.get(key, 0) + 1
+    print("main path decomp_bound_roots calls", json.dumps(per_call), flush=True)
+    over = sorted({c for c in k7 if c[2] > 2})
+    if over:
+        fail(f"decomp_bound_roots calls with more than two K7 launches: {over}")
+    stepwise = {f"{p} {k}": c["_shapes"].get(k, {}).get("eval32", 0)
+                for p, c in paths.items() for k in ("decomp", "decomp_lanes")}
+    if any(stepwise.values()) or not any(steps > 0 for steps, _, _ in k7):
+        fail(f"the main paths launched K7's per-step entry or never ascended: {stepwise}")
     kernels.reset_launch_counts()
     t = time.perf_counter()
     with uncounted():
@@ -5183,7 +5575,7 @@ def main() -> int:
     print("main path launches", json.dumps(launches), flush=True)
     by_shape = {k: {p: c["_shapes"].get(k, {}) for p, c in paths.items()}
                 for k in ("ipm", "pdhg", "pdhg_elem", "ipm_trace", "pdhg_trace",
-                          "pdhg_sharded", "pdhg_sharded_elem")}
+                          "pdhg_sharded", "pdhg_sharded_elem", "decomp", "decomp_lanes")}
     print("main path launches by shape", json.dumps(by_shape), flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

@@ -30,7 +30,9 @@ import torch
 # device) and one per phase per shard on its sequenced route (its
 # per-element entry "pdhg_sharded_elem"; traced or not; the shape key ends
 # in the route), the mesh's psum/pmax one "collective" launch per receiving
-# shard.
+# shard. K7 breaks its launches down by entry: "ascent" (the fused ascent,
+# one a call whatever its steps), "eval64" and "eval32" (the per-step entry:
+# DecompBound32 and the card's yardstick of the ascent).
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
@@ -42,10 +44,12 @@ LAUNCHES: Dict[str, int] = {
 
 
 # Kernel name -> {shape: launches} for the kernels whose wrappers break
-# their count down by the shape they were launched at (K1, K5, K6b).
+# their count down by the shape they were launched at (K1, K5, K6b) or by
+# entry (K7).
 SHAPES: Dict[str, Dict[str, int]] = {"ipm": {}, "pdhg": {}, "pdhg_elem": {},
                                      "ipm_trace": {}, "pdhg_trace": {}, "pdhg_sharded": {},
-                                     "pdhg_sharded_elem": {}}
+                                     "pdhg_sharded_elem": {}, "decomp": {},
+                                     "decomp_lanes": {}}
 
 
 def reset_launch_counts() -> None:

@@ -76,13 +76,20 @@ SIGNATURES = {
         "dtk_round_f64": [_P, _L, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P],
     },
     "round_moe": {
-        "dtk_round_moe_f32": [_P, _L] + [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P],
-        "dtk_round_moe_f64": [_P, _L] + [_P] * 5 + [_I] * 4 + [_P] * 4 + [_I, _P],
+        "dtk_round_moe_tab_bytes": [_I, _I],
+        "dtk_round_moe_f32": [_P, _L] + [_P] * 5 + [_I] * 4 + [_P] * 4 + [_P, _L, _I, _P],
+        "dtk_round_moe_f64": [_P, _L] + [_P] * 5 + [_I] * 4 + [_P] * 4 + [_P, _L, _I, _P],
         "dtk_price_fixed_f64": [_P] * 7 + [_I] * 2 + [_P, _I, _P],
     },
     "decomp": {
         "dtk_decomp_eval_f32": [_P] * 5 + [_I] * 5 + [_P] * 7 + [_P],
-        "dtk_decomp_eval_f64": [_P] * 5 + [_I] * 5 + [_P] * 3 + [_I] + [_P] * 4 + [_P],
+        "dtk_decomp_ascent_grid": [_I, _I],
+        "dtk_decomp_ascent_ws_bytes": [_I, _L, _I, _I],
+        "dtk_decomp_ascent_f32": [_P] * 5 + [_I] * 5 + [_P, _I] + [_F] * 5 + [_P]
+        + [_I] * 4 + [_P, _L, _P, _P],
+        "dtk_decomp_f64_ws_bytes": [_I, _I],
+        "dtk_decomp_eval_f64": [_P] * 5 + [_I] * 5 + [_P] * 3 + [_I] * 3 + [_P, _L]
+        + [_P] * 5 + [_P],
     },
     "bnb_epilogue": {
         "dtk_bnb_epilogue": [_P] * 15 + [_P] * 5 + [_I] * 3 + [_P] * 11 + [_I, _P],
@@ -138,7 +145,9 @@ SIGNATURES = {
         "dtk_allreduce_f64": [_P, _I, _L, _I, _P, _P],
     },
 }
-RESTYPES = {"dtk_pdhg_ws_bytes": _S, "dtk_pdhgs_ws_bytes": _S, "dtk_pdhgc_smem_bytes": _S}
+RESTYPES = {"dtk_pdhg_ws_bytes": _S, "dtk_pdhgs_ws_bytes": _S, "dtk_pdhgc_smem_bytes": _S,
+            "dtk_decomp_ascent_ws_bytes": _S, "dtk_decomp_f64_ws_bytes": _S,
+            "dtk_round_moe_tab_bytes": _L}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -28,14 +28,24 @@
 // candidates tie, and the first-index argmin breaks the tie, the same way
 // in both.
 //
+// The delta table: a candidate changes y at two devices at most, by one of
+// 0, +-1, +-2, +-4, +-8, +-16. The block keeps, for every device j and each
+// of those 11 deltas, j's (ok, lin, cy) at y_j + delta in shared memory
+// (in a global workspace, a table a row, where the row's arrays and its
+// table do not fit a block's shared memory together: M > 668 on an H100),
+// priced with price()'s expressions; a candidate's price is price()'s loop
+// over the devices reading the table (delta 0 except at its one or two
+// devices), so it is price() bit for bit, with no divide and no ceil. After
+// a repair step or a move only the moved devices' entries are priced again.
+//
 // What bounds it on an H100: latency. A move step prices 5 M^2 candidates
-// of M devices each (M=32: 164k device evaluations, ~40 float64 operations
-// each) and a repair step 2M; the batch is at most 16 rows. Bytes are a few
-// kilobytes per row. The design keeps the row's state and every per-device
-// constant in shared memory, gives each thread a slice of the candidates,
-// and picks the winner with one block-wide first-index argmin per step.
-// Built with --fmad=false: the ceil staircases must see the same products as
-// the plain version.
+// of M devices each (M=32: 164k device terms, each a few shared-memory
+// reads and two float64 operations) and a repair step M; the batch is at
+// most 16 rows. Bytes are a few kilobytes per row. The design keeps the
+// row's state, every per-device constant and the delta table in shared
+// memory, gives each thread a slice of the candidates, and picks the winner
+// with one block-wide first-index argmin per step. Built with --fmad=false:
+// the ceil staircases must see the same products as the plain version.
 //
 // B14, dtk_price_fixed_f64: price() alone over a batch of fixed assignments,
 // one block each (distilp_tpu/solver/backend_jax.py:791
@@ -103,47 +113,104 @@ struct Row {
   __device__ __forceinline__ const double* a(int k) const { return s + (size_t)k * M; }
 };
 
+// Device j's share of price() at y_j = yj: ok when neither slack passes its
+// cap, its linear cost lin and its cycle term cy = (lin + busy) + half fetch.
+__device__ __forceinline__ bool device_cost(const Row& r, int j, double yj, double& lin,
+                                            double& cy) {
+  const double bp = r.bp;
+  const double viol_ram =
+      nan_max((r.a(S_BASE_RES)[j] + r.a(S_EBR)[j] * yj) - r.a(S_RAM_RHS)[j], 0.0);
+  const double s_ram = ceil(viol_ram / bp - 1e-9);
+  double viol_vram = nan_max(nan_max((r.a(S_BN)[j] + r.a(S_EBV)[j] * yj) - r.a(S_CUDA)[j],
+                                     (r.a(S_BN)[j] + r.a(S_EBM)[j] * yj) - r.a(S_METAL)[j]),
+                             0.0);
+  if (!isfinite(viol_vram)) viol_vram = 0.0;
+  const double t = ceil(viol_vram / bp - 1e-9);
+  const double pen_cost = r.a(S_PEN_SET)[j] * s_ram + r.a(S_PEN_VRAM)[j] * t;
+  lin = (r.a(S_AW_BN)[j] + pen_cost) + r.a(S_GK)[j] * yj;
+  cy = (lin + r.a(S_BUSY)[j]) + r.a(S_HALF_FETCH)[j];
+  return (s_ram <= r.a(S_WCAP)[j]) && (t <= r.a(S_NTOL)[j]);
+}
+
 // Exact objective of the row's y with y[i1] += d1 and y[i2] += d2 (i1, i2
 // may be -1). +inf when a slack cap is exceeded.
 __device__ double price(const Row& r, int i1, double d1, int i2, double d2) {
   const double* y = r.a(S_Y);
-  const double* base_res = r.a(S_BASE_RES);
-  const double* bn = r.a(S_BN);
-  const double* wcap = r.a(S_WCAP);
-  const double* ntol = r.a(S_NTOL);
-  const double* aw_bn = r.a(S_AW_BN);
-  const double* half_fetch = r.a(S_HALF_FETCH);
-  const double* gk = r.a(S_GK);
-  const double* ebr = r.a(S_EBR);
-  const double* ebv = r.a(S_EBV);
-  const double* ebm = r.a(S_EBM);
-  const double* ram_rhs = r.a(S_RAM_RHS);
-  const double* cuda = r.a(S_CUDA);
-  const double* metal = r.a(S_METAL);
-  const double* pen_set = r.a(S_PEN_SET);
-  const double* pen_vram = r.a(S_PEN_VRAM);
-  const double* busy = r.a(S_BUSY);
-  const double bp = r.bp;
   double cmax = -INFINITY, total = 0.0;
   for (int j = 0; j < r.M; ++j) {
     double yj = y[j];
     if (j == i1) yj = yj + d1;
     if (j == i2) yj = yj + d2;
-    const double viol_ram = nan_max((base_res[j] + ebr[j] * yj) - ram_rhs[j], 0.0);
-    const double s_ram = ceil(viol_ram / bp - 1e-9);
-    if (!(s_ram <= wcap[j])) return INFINITY;
-    double viol_vram = nan_max(nan_max((bn[j] + ebv[j] * yj) - cuda[j],
-                                       (bn[j] + ebm[j] * yj) - metal[j]),
-                               0.0);
-    if (!isfinite(viol_vram)) viol_vram = 0.0;
-    const double t = ceil(viol_vram / bp - 1e-9);
-    if (!(t <= ntol[j])) return INFINITY;
-    const double pen_cost = pen_set[j] * s_ram + pen_vram[j] * t;
-    const double lin = (aw_bn[j] + pen_cost) + gk[j] * yj;
-    cmax = nan_max(cmax, (lin + busy[j]) + half_fetch[j]);
+    double lin, cy;
+    if (!device_cost(r, j, yj, lin, cy)) return INFINITY;
+    cmax = nan_max(cmax, cy);
     total = total + lin;
   }
   return (r.kf - 1.0) * cmax + total;
+}
+
+// The delta table of a row: device j's (ok, lin, cy) at y_j + delta for the
+// N_DELTA deltas {0, +1, -1, +2, -2, ..., +16, -16} (entry e: +q at
+// 1 + 2 log2 q, -q at 2 + 2 log2 q), in shared memory as [e][j]. Every
+// candidate of the repair (one device +-1) and of the moves (q from i to j)
+// changes y at two devices at most, so its price is the same loop as
+// price() over the table's entries: no divide and no ceil per candidate.
+constexpr int N_DELTA = 11;
+
+struct Tab {
+  double* lin;  // (N_DELTA, M)
+  double* cy;
+  unsigned char* ok;
+};
+
+// Bytes of one row's table: lin and cy, then ok.
+__host__ __device__ __forceinline__ size_t tab_bytes(int M) {
+  return (sizeof(double) * 2 * N_DELTA + N_DELTA) * (size_t)M;
+}
+
+// Bytes of one row's table in the global workspace (256-byte aligned rows).
+__host__ __device__ __forceinline__ size_t tab_row_bytes(int M) {
+  return (tab_bytes(M) + 255) & ~(size_t)255;
+}
+
+__device__ __forceinline__ double delta_of(int e) {
+  const double q = (double)(1 << ((e - 1) >> 1));
+  return (e & 1) ? q : -q;
+}
+
+// Entry e of device j from the row's current y (price()'s expressions).
+__device__ __forceinline__ void tab_entry(const Row& r, const Tab& tb, int j, int e) {
+  double yj = r.a(S_Y)[j];
+  if (e != 0) yj = yj + delta_of(e);
+  double lin, cy;
+  const bool ok = device_cost(r, j, yj, lin, cy);
+  const int o = e * r.M + j;
+  tb.lin[o] = lin;
+  tb.cy[o] = cy;
+  tb.ok[o] = ok;
+}
+
+// price() of y with device i1 at entry e1 and i2 at entry e2 (i1, i2 may be
+// -1): device order, the same nan_max and the same sequential sum.
+__device__ __forceinline__ double price_tab(const Row& r, const Tab& tb, int i1, int e1,
+                                            int i2, int e2) {
+  double cmax = -INFINITY, total = 0.0;
+  for (int j = 0; j < r.M; ++j) {
+    const int o = (j == i1 ? e1 : j == i2 ? e2 : 0) * r.M + j;
+    if (!tb.ok[o]) return INFINITY;
+    cmax = nan_max(cmax, tb.cy[o]);
+    total = total + tb.lin[o];
+  }
+  return (r.kf - 1.0) * cmax + total;
+}
+
+// The table's entries of devices i1 and i2 (i2 may be -1) after their y
+// changed. Contains __syncthreads.
+__device__ void tab_update(const Row& r, const Tab& tb, int i1, int i2) {
+  const int tid = threadIdx.x;
+  if (tid < N_DELTA) tab_entry(r, tb, i1, tid);
+  if (i2 >= 0 && tid >= 32 && tid < 32 + N_DELTA) tab_entry(r, tb, i2, tid - 32);
+  __syncthreads();
 }
 
 // Device j's constants of price() from its w and n (in shared memory), the
@@ -197,7 +264,9 @@ __device__ void redistribute(double* vals, const double* rem, int M, double targ
   }
 }
 
-template <typename Tv>
+// kGlobalTab: the delta table in ``tab_ws`` (row r at r tab_row_bytes(M)),
+// else in shared memory after the row's arrays.
+template <typename Tv, bool kGlobalTab>
 __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
                                  const double* __restrict__ Wr,
                                  const double* __restrict__ kr,
@@ -207,7 +276,8 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
                                  int moves, double* __restrict__ obj_out,
                                  double* __restrict__ w_out,
                                  double* __restrict__ n_out,
-                                 double* __restrict__ y_out) {
+                                 double* __restrict__ y_out,
+                                 unsigned char* __restrict__ tab_ws) {
   extern __shared__ double sm[];
   __shared__ double red_v[32];
   __shared__ int red_i[32];
@@ -262,14 +332,22 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
   }
   __syncthreads();
   const Row row{sm, M, bp, kf};
+  double* tab_d = kGlobalTab
+                      ? reinterpret_cast<double*>(tab_ws + (size_t)r * tab_row_bytes(M))
+                      : sm + (size_t)S_ARRAYS * M;
+  const Tab tb{tab_d, tab_d + (size_t)N_DELTA * M,
+               reinterpret_cast<unsigned char*>(tab_d + (size_t)2 * N_DELTA * M)};
 
-  // 2. Expert counts.
+  // 2. Expert counts, then the delta table of the row's y.
   if (y_steps < 0) {
     if (tid < 32) {
       redistribute(y, rem, M, E, [](int) { return 0.0; }, [&](int) { return E; });
     }
     __syncthreads();
-  } else {
+  }
+  for (int o = tid; o < N_DELTA * M; o += nt) tab_entry(row, tb, o % M, o / M);
+  __syncthreads();
+  if (y_steps >= 0) {
     for (int step = 0; step < y_steps; ++step) {
       double sy = 0.0;
       for (int j = 0; j < M; ++j) sy += y[j];  // integers: exact in any order
@@ -280,9 +358,9 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
       for (int i = tid; i < M; i += nt) {
         double c;
         if (d > 0.0) {
-          c = y[i] < E ? price(row, i, 1.0, -1, 0.0) : INFINITY;
+          c = y[i] < E ? price_tab(row, tb, i, 1, -1, 0) : INFINITY;
         } else {
-          c = y[i] > 0.0 ? price(row, i, -1.0, -1, 0.0) : INFINITY;
+          c = y[i] > 0.0 ? price_tab(row, tb, i, 2, -1, 0) : INFINITY;
         }
         argmin_combine(best, bi, c, i);
       }
@@ -290,13 +368,14 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
       if (bi == INT_MAX) bi = 0;
       if (tid == 0) y[bi] += d > 0.0 ? 1.0 : -1.0;
       __syncthreads();
+      tab_update(row, tb, bi, -1);
     }
   }
 
   // 3. Expert moves: q experts from i to j, the best of all 5 M M.
   const int MM = M * M;
   for (int step = 0; step < moves; ++step) {
-    if (tid == 0) cur_price = price(row, -1, 0.0, -1, 0.0);
+    if (tid == 0) cur_price = price_tab(row, tb, -1, 0, -1, 0);
     double best = INFINITY;
     int bf = INT_MAX;
     for (int f = tid; f < 5 * MM; f += nt) {
@@ -305,7 +384,8 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
       const int j = f % M;
       const double q = (double)(1 << qi);
       double c = INFINITY;
-      if (i != j && y[i] >= q && y[j] + q <= E) c = price(row, i, -q, j, q);
+      if (i != j && y[i] >= q && y[j] + q <= E)
+        c = price_tab(row, tb, i, 2 + 2 * qi, j, 1 + 2 * qi);
       argmin_combine(best, bf, c, f);
     }
     block_argmin(best, bf, red_v, red_i);  // its barriers publish cur_price
@@ -318,6 +398,7 @@ __global__ void round_moe_kernel(const Tv* __restrict__ v, long v_stride,
       y[bf % M] += q;
     }
     __syncthreads();
+    if (better) tab_update(row, tb, (bf / M) % M, bf % M);
   }
 
   // 4. The exact objective.
@@ -382,43 +463,89 @@ __global__ void price_fixed_kernel(const double* __restrict__ w_in,
   }
 }
 
+// Shared memory of a block: the row's arrays, then (table in shared
+// memory) the delta table.
+size_t moe_smem(int M, bool table) {
+  return sizeof(double) * (size_t)S_ARRAYS * M + (table ? tab_bytes(M) : 0);
+}
+
+int smem_optin(size_t* out) {
+  int dev = 0, v = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *out = (size_t)v;
+  return (int)err;
+}
+
+template <typename Tv, bool kGlobalTab>
+int launch_as(const Tv* v, long v_stride, const double* Wr, const double* kr,
+              const double* rd, const double* E, const int* inst, int M, int B,
+              int y_steps, int moves, double* obj, double* w, double* n, double* y,
+              unsigned char* tab_ws, int threads, cudaStream_t stream) {
+  const size_t sm = moe_smem(M, !kGlobalTab);
+  if (sm > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(round_moe_kernel<Tv, kGlobalTab>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  round_moe_kernel<Tv, kGlobalTab><<<B, threads, sm, stream>>>(
+      v, v_stride, Wr, kr, rd, E, inst, M, y_steps, moves, obj, w, n, y, tab_ws);
+  return (int)cudaGetLastError();
+}
+
+// tab_ws null: the delta table in shared memory; else B tables of
+// tab_row_bytes(M) there (tab_len bytes).
 template <typename Tv>
 int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
            const double* rd, const double* E, const int* inst, int M, int B,
            int y_steps, int moves, double* obj, double* w, double* n, double* y,
-           int threads, cudaStream_t stream) {
-  if (threads % 32 != 0 || threads < 32 || threads > 1024) return (int)cudaErrorInvalidValue;
-  const size_t sm = sizeof(double) * (size_t)S_ARRAYS * M;
-  if (sm > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        round_moe_kernel<Tv>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
-    if (err != cudaSuccess) return (int)err;
-  }
-  round_moe_kernel<Tv><<<B, threads, sm, stream>>>(v, v_stride, Wr, kr, rd, E, inst,
-                                                  M, y_steps, moves, obj, w, n, y);
-  return (int)cudaGetLastError();
+           void* tab_ws, long tab_len, int threads, cudaStream_t stream) {
+  if (threads % 32 != 0 || threads < 64 || threads > 1024) return (int)cudaErrorInvalidValue;
+  if (tab_ws == nullptr)
+    return launch_as<Tv, false>(v, v_stride, Wr, kr, rd, E, inst, M, B, y_steps, moves, obj,
+                                w, n, y, nullptr, threads, stream);
+  if (tab_len < 0 || (size_t)tab_len < (size_t)B * tab_row_bytes(M))
+    return (int)cudaErrorInvalidValue;
+  return launch_as<Tv, true>(v, v_stride, Wr, kr, rd, E, inst, M, B, y_steps, moves, obj, w,
+                             n, y, static_cast<unsigned char*>(tab_ws), threads, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of the global workspace a launch of B rows at M devices needs for
+// its delta tables: 0 where a block's shared memory holds the row's arrays
+// and its table together (then the launch takes no workspace), or minus a
+// cudaError_t.
+long dtk_round_moe_tab_bytes(int M, int B) {
+  size_t optin = 0;
+  int err = smem_optin(&optin);
+  cudaFuncAttributes fa;
+  if (err == 0) err = (int)cudaFuncGetAttributes(&fa, round_moe_kernel<double, false>);
+  if (err != 0) return -(long)err;
+  return moe_smem(M, true) + fa.sharedSizeBytes <= optin
+             ? 0
+             : (long)((size_t)B * tab_row_bytes(M));
+}
+
 int dtk_round_moe_f32(const float* v, long v_stride, const double* Wr,
                       const double* kr, const double* rd, const double* E,
                       const int* inst, int M, int B, int y_steps, int moves,
-                      double* obj, double* w, double* n, double* y, int threads,
-                      void* stream) {
+                      double* obj, double* w, double* n, double* y, void* tab_ws,
+                      long tab_len, int threads, void* stream) {
   return launch<float>(v, v_stride, Wr, kr, rd, E, inst, M, B, y_steps, moves, obj, w,
-                       n, y, threads, (cudaStream_t)stream);
+                       n, y, tab_ws, tab_len, threads, (cudaStream_t)stream);
 }
 
 int dtk_round_moe_f64(const double* v, long v_stride, const double* Wr,
                       const double* kr, const double* rd, const double* E,
                       const int* inst, int M, int B, int y_steps, int moves,
-                      double* obj, double* w, double* n, double* y, int threads,
-                      void* stream) {
+                      double* obj, double* w, double* n, double* y, void* tab_ws,
+                      long tab_len, int threads, void* stream) {
   return launch<double>(v, v_stride, Wr, kr, rd, E, inst, M, B, y_steps, moves, obj, w,
-                        n, y, threads, (cudaStream_t)stream);
+                        n, y, tab_ws, tab_len, threads, (cudaStream_t)stream);
 }
 
 int dtk_price_fixed_f64(const double* w, const double* n, const double* y,

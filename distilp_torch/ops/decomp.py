@@ -27,10 +27,18 @@ kernel source (``kernels/csrc/decomp_kernel.cu``):
 
 On CUDA tensors they launch the kernel, on CPU tensors they run the plain
 PyTorch versions (the straightforward broadcast of ``_decomp_terms_for_w``).
-:func:`decomp_bound_roots` is the ascent: a host loop of tensor operations
-with no device-to-host read, one evaluation per step (the evaluation at the
-new multipliers gives both the bound for the best-of tracking and the next
-step's gradient).
+
+:func:`ascend` is the Adam ascent of the multipliers. On CUDA tensors it is
+one cooperative launch of K7's fused entry (:func:`ascend_fused`: every
+step's evaluation, gradient, Adam step and best-of on the card, the lattice
+cut into work units over every SM, :func:`unit_plan`); on CPU tensors it is
+the plain version, :func:`ascend_stepwise`: a host loop of tensor
+operations, one evaluation per step (the evaluation at the new multipliers
+gives both the bound for the best-of tracking and the next step's
+gradient). On CUDA tensors :func:`ascend_stepwise` launches the float32
+entry once a step: ``chip_smoke.py``'s yardstick for the fused launch, on
+no path of the solver. :func:`decomp_bound_roots` is the ascent followed by
+the float64 evaluation: at most two K7 launches whatever ``steps``.
 
 Several instances at once (a MoE scenario batch, the reference's vmap of
 ``_decomp_bound_roots``): a :class:`DecompBatch` (:func:`stack_problems`)
@@ -43,6 +51,7 @@ evaluate.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -60,6 +69,22 @@ RD_DEV_FIELDS = (
 BIG32 = 3.4e37  # the float32 evaluation's value of an infeasible cell
 N_CANDS = 5
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-12
+# Adam's constants as torch's float32 operations take the Python scalars
+# (b1, 1 - b1, b2, 1 - b2, eps): the fused ascent's arguments.
+ADAM_F32 = tuple(float(np.float32(x)) for x in
+                 (ADAM_B1, 1 - ADAM_B1, ADAM_B2, 1 - ADAM_B2, ADAM_EPS))
+# Blocks per SM the fused ascent's grid may take (at most what the card
+# holds co-resident, itself capped at 4 by the library): each unit is one
+# block, every block meets every grid sync and folds its owner's M n_chunks
+# slots each step, so more chunks cost more than they spread.
+# chip_k7_profile.py times 1 to 4; 2 was the fastest or level on every
+# instance it times.
+ASCENT_BLOCKS_PER_SM = 2
+# Blocks per SM the float64 evaluation's work units aim at, and the fewest
+# (w, y) pairs a unit of either entry takes when its row has them (two a
+# thread of the ascent's 256-thread blocks).
+F64_BLOCKS_PER_SM = 2
+UNIT_MIN_PAIRS = 512
 
 
 class DecompProblem(NamedTuple):
@@ -301,31 +326,68 @@ def eval32_kernel(p: DecompBatch, lam, mu, theta):
         *[P(t) for t in ins[5:]], *[P(o) for o in outs], kernels.stream_handle(dev),
     )
     kernels.check(err, "decomp")
-    kernels.LAUNCHES["decomp_lanes" if S > 1 else "decomp"] += 1
+    kernels.count_launch("decomp_lanes" if S > 1 else "decomp", "eval32")
     return tuple(outs)
+
+
+class UnitPlan(NamedTuple):
+    """K7's work units: each (instance, k, device) row's layers w in
+    ``n_chunks`` chunks of ``chunk_w`` (the last one shorter), ``units`` =
+    rows x chunks, one Acc slot each; ``grid`` the blocks of the launch."""
+
+    chunk_w: int
+    n_chunks: int
+    units: int
+    grid: int
+
+
+def unit_plan(S: int, n_k: int, M: int, w_max: int, e_max: int, target: int) -> UnitPlan:
+    """Cut the S n_k M rows' w ranges so the units come as close to
+    ``target`` blocks as whole chunks allow without passing it (every row at
+    least one chunk, every chunk at least one w and, where the row has
+    them, :data:`UNIT_MIN_PAIRS` (w, y) pairs). ``grid`` is the units,
+    capped at ``target``."""
+    rows = S * n_k * M
+    n_chunks = max(1, min(w_max, target // rows, w_max * (e_max + 1) // UNIT_MIN_PAIRS))
+    chunk_w = -(-w_max // n_chunks)
+    n_chunks = -(-w_max // chunk_w)
+    units = rows * n_chunks
+    return UnitPlan(chunk_w, n_chunks, units, max(1, min(target, units)))
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def eval64_kernel(p: DecompBatch, lam, mu, theta, track_hint: bool):
     """K7's float64 entry on CUDA tensors: what :func:`eval64_reference`
-    returns, for every instance of ``p`` in one launch."""
+    returns, for every instance of ``p`` in one launch of work units (each
+    row's w range in chunks over the SMs; the last unit of a row folds its
+    partials in chunk order)."""
     from ..kernels.build import library
 
     S, n_k, M = _check_inputs(p, lam, mu, theta, torch.float64)
     dev = p.rdv.device
     Y = p.e_max + 1
+    plan = unit_plan(S, n_k, M, p.w_max, p.e_max, F64_BLOCKS_PER_SM * _sm_count(dev))
+    lib = library("decomp")
+    ws = torch.empty(int(lib.dtk_decomp_f64_ws_bytes(plan.units, Y)), dtype=torch.uint8,
+                     device=dev)
+    count = torch.zeros(S * n_k * M, dtype=torch.int32, device=dev)
     m_y = torch.empty((S, n_k, M, Y), dtype=torch.float64, device=dev)
     any_ok = torch.empty((S, n_k, M), dtype=torch.uint8, device=dev)
     hint_w = torch.zeros((S, n_k, M), dtype=torch.float64, device=dev)
     hint_flat = torch.zeros((S, n_k, M), dtype=torch.int32, device=dev)
     ins = [t.contiguous() for t in (p.rdv, p.bp, p.E, p.ks, p.Ws, lam, mu, theta)]
     P = kernels.ptr
-    err = library("decomp").dtk_decomp_eval_f64(
+    err = lib.dtk_decomp_eval_f64(
         *[P(t) for t in ins[:5]], S, n_k, M, p.w_max, p.e_max,
-        *[P(t) for t in ins[5:]], int(track_hint), P(m_y), P(any_ok), P(hint_w),
-        P(hint_flat), kernels.stream_handle(dev),
+        *[P(t) for t in ins[5:]], int(track_hint), plan.chunk_w, plan.n_chunks, P(ws),
+        ws.numel(), P(count), P(m_y), P(any_ok), P(hint_w), P(hint_flat),
+        kernels.stream_handle(dev),
     )
     kernels.check(err, "decomp")
-    kernels.LAUNCHES["decomp_lanes" if S > 1 else "decomp"] += 1
+    kernels.count_launch("decomp_lanes" if S > 1 else "decomp", "eval64")
     return m_y, any_ok.to(torch.bool), hint_w, hint_flat
 
 
@@ -429,25 +491,50 @@ def _adam_constants(steps: int):
     return out
 
 
-def ascend(p32: DecompBatch, steps: int, init_params=None):
-    """The float32 Adam ascent on the per-k bounds from ``init_params``
-    (zeros when None); returns the best multipliers seen, the initial point
-    included, per (instance, k): (lam (S, n_k), mu (S, n_k), tau
-    (S, n_k, M)), float32. Each step is one evaluation of all S instances:
-    the S ascents in lockstep, as the reference's vmap runs them."""
+def _initial_params(p32: DecompBatch, init_params):
+    """The ascent's starting point as one (S, n_k (2 + M)) float32 tensor:
+    lam, mu, tau of each instance, zeros when ``init_params`` is None."""
     S, n_k = p32.ks.shape
     M = p32.rdv.shape[-1]
     dev = p32.rdv.device
     f32 = torch.float32
-    if init_params is not None:
-        lam0, mu0, tau0 = (torch.as_tensor(x).to(device=dev, dtype=f32) for x in init_params)
-        P = torch.cat([lam0.reshape(S, n_k), mu0.reshape(S, n_k),
-                       tau0.reshape(S, n_k * M)], dim=-1)
-    else:
-        P = torch.zeros((S, n_k * (2 + M)), dtype=f32, device=dev)
+    if init_params is None:
+        return torch.zeros((S, n_k * (2 + M)), dtype=f32, device=dev)
+    lam0, mu0, tau0 = (torch.as_tensor(x).to(device=dev, dtype=f32) for x in init_params)
+    return torch.cat([lam0.reshape(S, n_k), mu0.reshape(S, n_k),
+                      tau0.reshape(S, n_k * M)], dim=-1)
+
+
+def _split_params(P, n_k: int, M: int):
+    """(lam (S, n_k), mu (S, n_k), tau (S, n_k, M)) of a packed ``P``."""
+    return P[..., :n_k], P[..., n_k:2 * n_k], P[..., 2 * n_k:].reshape(-1, n_k, M)
+
+
+def ascend(p32: DecompBatch, steps: int, init_params=None):
+    """The float32 Adam ascent on the per-k bounds from ``init_params``
+    (zeros when None); returns the best multipliers seen, the initial point
+    included, per (instance, k): (lam (S, n_k), mu (S, n_k), tau
+    (S, n_k, M)), float32. The S ascents run in lockstep, as the
+    reference's vmap runs them. CUDA tensors: one launch of K7's fused
+    entry (:func:`ascend_fused`); CPU tensors: :func:`ascend_stepwise`."""
+    if kernels.on_cuda(p32.rdv):
+        return ascend_fused(p32, steps, init_params)
+    return ascend_stepwise(p32, steps, init_params)
+
+
+def ascend_stepwise(p32: DecompBatch, steps: int, init_params=None):
+    """The ascent as a host loop of tensor operations, one float32
+    evaluation of all S instances per step (:func:`eval32`) and none read
+    back: the plain version on CPU tensors; on CUDA tensors a K7 launch a
+    step (the card's yardstick of :func:`ascend_fused`)."""
+    S, n_k = p32.ks.shape
+    M = p32.rdv.shape[-1]
+    dev = p32.rdv.device
+    f32 = torch.float32
+    P = _initial_params(p32, init_params)
 
     def split(x):
-        return x[..., :n_k], x[..., n_k:2 * n_k], x[..., 2 * n_k:].reshape(S, n_k, M)
+        return _split_params(x, n_k, M)
 
     if steps <= 0:
         return split(P)
@@ -474,6 +561,82 @@ def ascend(p32: DecompBatch, steps: int, init_params=None):
     return split(best_P)
 
 
+@functools.lru_cache(maxsize=64)
+def _adam_table(steps: int, device: str) -> torch.Tensor:
+    """:func:`_adam_constants` as a (steps, 3) float32 tensor on ``device``,
+    uploaded once per process."""
+    return torch.tensor(_adam_constants(steps), dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _ascent_grid(device: str, M: int, per_block: int) -> int:
+    """Blocks of the fused ascent the card holds co-resident at M devices
+    when each block keeps ``per_block`` owner states in shared memory (0:
+    in global memory); 0 where not even one block fits."""
+    from ..kernels.build import library
+
+    with torch.cuda.device(torch.device(device)):
+        g = int(library("decomp").dtk_decomp_ascent_grid(M, per_block))
+    return max(g, 0)
+
+
+def ascent_layout(S: int, n_k: int, M: int, w_max: int, e_max: int, sms: int, grid_at):
+    """(plan, per_block) of the fused ascent: :func:`unit_plan` towards
+    :data:`ASCENT_BLOCKS_PER_SM` blocks an SM (fewer where a block holding
+    one owner state does not fit that often), and the owner states each
+    block keeps in shared memory, ceil(units / grid), or 0 (one state a
+    unit in global memory) where shared memory cannot hold that many at
+    the plan's grid. ``grid_at(per_block)`` is the card's co-resident
+    blocks at that size (:func:`_ascent_grid`)."""
+    target = min(grid_at(1), ASCENT_BLOCKS_PER_SM * sms)
+    if target < 1:
+        raise RuntimeError(f"decomp ascent: no block fits the card at M={M}")
+    plan = unit_plan(S, n_k, M, w_max, e_max, target)
+    per_block = -(-plan.units // plan.grid)
+    if grid_at(per_block) < plan.grid:
+        per_block = 0
+    return plan, per_block
+
+
+def ascend_fused(p32: DecompBatch, steps: int, init_params=None):
+    """K7's fused entry on CUDA tensors: the whole ascent of
+    :func:`ascend_stepwise` in one cooperative launch (none when ``steps``
+    <= 0), each evaluation over :func:`unit_plan`'s work units on every SM
+    (a block each), then one grid sync, after which every block takes the
+    gradient, the Adam step (``_adam_constants``' per-step table) and the
+    best-of of its units' (instance, k) on its own copy of their
+    multipliers (:func:`ascent_layout`: in shared memory, or one a unit in
+    global memory for batches whose copies shared memory cannot hold), the
+    cells priced once per call into the workspace."""
+    from ..kernels.build import library
+
+    S, n_k = p32.ks.shape
+    M = p32.rdv.shape[-1]
+    P0 = _initial_params(p32, init_params)
+    if steps <= 0:
+        return _split_params(P0, n_k, M)
+    _check_inputs(p32, *_split_params(P0, n_k, M), torch.float32)
+    dev = p32.rdv.device
+    lib = library("decomp")
+    plan, per_block = ascent_layout(S, n_k, M, p32.w_max, p32.e_max, _sm_count(dev),
+                                    functools.partial(_ascent_grid, str(dev), M))
+    n_cells = S * n_k * M * p32.w_max * (p32.e_max + 1) * N_CANDS
+    ws = torch.empty(int(lib.dtk_decomp_ascent_ws_bytes(plan.units, n_cells, M, per_block)),
+                     dtype=torch.uint8, device=dev)
+    best = torch.empty_like(P0)
+    adam = _adam_table(steps, str(dev))
+    ins = [t.contiguous() for t in (p32.rdv, p32.bp, p32.E, p32.ks, p32.Ws)]
+    P = kernels.ptr
+    err = lib.dtk_decomp_ascent_f32(
+        *[P(t) for t in ins], S, n_k, M, p32.w_max, p32.e_max, P(adam), steps, *ADAM_F32,
+        P(P0), plan.chunk_w, plan.n_chunks, plan.grid, per_block, P(ws), ws.numel(),
+        P(best), kernels.stream_handle(dev),
+    )
+    kernels.check(err, "decomp ascent")
+    kernels.count_launch("decomp_lanes" if S > 1 else "decomp", "ascent")
+    return _split_params(best, n_k, M)
+
+
 def decomp_bound_roots(
     p32: DecompBatch,
     p64: DecompBatch,
@@ -490,7 +653,9 @@ def decomp_bound_roots(
     evaluation runs, and the hint (w*, n*, y*) is zeros. ``rd`` is the
     float64 stack of the instances'
     :class:`~distilp_torch.solver.rounding.RoundingData` on the same device
-    (for n*). Every output carries the leading instance axis."""
+    (for n*). Every output carries the leading instance axis. On CUDA
+    tensors: two K7 launches (the fused ascent, the float64 evaluation),
+    one with ``steps == 0``."""
     lam, mu, tau = (x.to(torch.float64) for x in ascend(p32, steps, init_params))
     track_hint = steps > 0
     bound, m_y, _, hint_w, hint_flat = eval64(p64, lam, mu, tau, track_hint)

@@ -45,7 +45,12 @@ from .standard_form import MOE_LOCAL_MOVES, RD_VEC_FIELDS
 KERNEL_RD_FIELDS = RD_VEC_FIELDS[:12]
 MOE_RD_FIELDS = RD_VEC_FIELDS[12:]
 PACKED_ROWS = len(KERNEL_RD_FIELDS) + 1 + len(MOE_RD_FIELDS)
-MOE_THREADS = 256
+# Threads a block of the MoE rounding kernel (one block a row; its move
+# search spreads the 5 M^2 candidates over them: 768 beat 256 and 512 on
+# the flagship's rows, and 1024 do not fit its registers) and of the
+# fixed-assignment pricer (B14: one thread sums, the rest set up).
+MOE_THREADS = 768
+PRICE_FIXED_THREADS = 256
 # Transfer sizes of the move search (JAX: qs).
 MOVE_QUANTA = (1.0, 2.0, 4.0, 8.0, 16.0)
 
@@ -319,7 +324,7 @@ def _price_fixed_kernel(rd: RoundingData, k, W, w, n, y):
     # could hand its memory to the next one.
     ins = [t.contiguous() for t in (w, n, y, W, k, packed, rd.E.to(torch.float64))]
     err = library("round_moe").dtk_price_fixed_f64(
-        *[kernels.ptr(t) for t in ins], M, P, kernels.ptr(obj), MOE_THREADS,
+        *[kernels.ptr(t) for t in ins], M, P, kernels.ptr(obj), PRICE_FIXED_THREADS,
         kernels.stream_handle(w.device),
     )
     kernels.check(err, "price_fixed")
@@ -455,6 +460,16 @@ def _round_kernel(v, W, k, rd: RoundingData, packed=None, inst=None):
     return obj, w, n
 
 
+def moe_table_workspace(lib, M: int, B: int, dev):
+    """The global workspace of the MoE kernel's delta tables, or None when
+    a block's shared memory holds a row's arrays and its table (every M up
+    to 668 on an H100)."""
+    nbytes = int(lib.dtk_round_moe_tab_bytes(M, B))
+    if nbytes < 0:
+        kernels.check(-nbytes, "round_moe")
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+
+
 def _round_moe_kernel(v, W, k, rd: RoundingData, packed, y_steps, moves, inst=None):
     from ..kernels.build import library
 
@@ -491,11 +506,14 @@ def _round_moe_kernel(v, W, k, rd: RoundingData, packed, y_steps, moves, inst=No
     y = torch.empty((B, M), dtype=torch.float64, device=dev)
     if B == 0:
         return obj, w, n, y
+    lib = library("round_moe")
+    tab = moe_table_workspace(lib, M, B, dev)
     P = kernels.ptr
-    err = getattr(library("round_moe"), fn_name)(
+    err = getattr(lib, fn_name)(
         P(v), v.shape[1], P(Wr), P(kr), P(packed), P(E), kernels.opt_ptr(inst), M, B,
         -1 if y_steps is None else int(y_steps), int(moves),
-        P(obj), P(w), P(n), P(y), MOE_THREADS, kernels.stream_handle(dev),
+        P(obj), P(w), P(n), P(y), kernels.opt_ptr(tab), 0 if tab is None else tab.numel(),
+        MOE_THREADS, kernels.stream_handle(dev),
     )
     kernels.check(err, "round_moe")
     kernels.LAUNCHES[_lane_name("round_moe", packed)] += 1
