@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the ten kernel libraries from ``distilp_torch/kernels/csrc``,
+  2. build the twelve kernel libraries from ``distilp_torch/kernels/csrc``,
      one nvcc each, all started together (timed);
   3. each kernel against its plain PyTorch version on the card, at the shapes
      of the 16-device north-star instance (the IPM also at M=32, at M=128
@@ -54,7 +54,14 @@ Phases (any failure exits non-zero and prints no result line):
      the row-sharded PDHG (K6b) on the 128-device fleet's root LPs at 2 and 4
      shards in float64 and float32, against the unsharded K5 at equal step
      counts and its own plain version, every shard's copy of the result bit
-     for bit equal;
+     for bit equal; the round tail (R8, one launch for all of a non-per-k
+     round after its LP call) on every round tail of the north star's
+     solve, of the S=8 scenario batch (and again with lane 3 frozen), of
+     the flagship's first two MoE rounds, of the 128-device fleet on the
+     PDHG engine and of the north star on K10's 8 virtual shards, against
+     its plain version (K2 and K3 inside it) in every field of the new
+     state and the go flags, timed beside the sequence it replaced, with
+     the launches of one north-star warm round fused and as before;
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
   4. the main path, in nine runs, each with the launch counts zeroed before
@@ -502,7 +509,8 @@ def launch_bounds(out: dict):
     ascends, one float64 evaluation, ``decomp_flops_bytes``, at the float64
     peak), K2 MoE's from ``round_moe_bytes_flops`` (the delta table's
     pricing, a hint row's repair included), dense K2's and K3's from
-    their tensors' bytes (each input read once, each output written once).
+    their tensors' bytes (each input read once, each output written once),
+    the round tail's from ``tail_flops_bytes``.
     A host loop's bound (B12, K10) is the sum over its launches. The hooks
     read results back, so the block is a separate, untimed run."""
     import torch
@@ -565,6 +573,13 @@ def launch_bounds(out: dict):
         add("bnb_epilogue", 0, nbytes((a, tuple(kw.values()), res)), PEAK_F64_S)
         return res
 
+    def tail(*a):
+        res = orig["round_tail"](*a)
+        flops, nb = tail_flops_bytes(a)
+        add("round_tail_lanes" if a[1].node_lo.shape[0] > 1 else "round_tail", flops, nb,
+            PEAK_F64_S)
+        return res
+
     def decomp(p32, p64, rd, steps, *a, **kw):
         res = orig["decomp_bound_roots"](p32, p64, rd, steps, *a, **kw)
         for s in range(p32.ks.shape[0]):
@@ -577,7 +592,7 @@ def launch_bounds(out: dict):
 
     hooks = {"ipm_solve_batch": ipm, "pdhg_solve_batch": pdhg,
              "round_to_incumbent": rounding, "bnb_epilogue": epilogue,
-             "decomp_bound_roots": decomp}
+             "round_tail": tail, "decomp_bound_roots": decomp}
     orig = {name: getattr(search, name) for name in hooks}
     for name, fn in hooks.items():
         setattr(search, name, fn)
@@ -874,7 +889,10 @@ def check_epilogue(report: dict) -> None:
     search.bnb_epilogue = capture
     try:
         n_k = data.ks.shape[1]
-        search.bnb_round(data, state, 1e-3, ipm_iters=8, beam=n_k, ipm_chunk=8)
+        # The round's epilogue inputs as K3 receives them: the round tail's
+        # plain version runs K3 (a per-k round's route).
+        with reference_tail():
+            search.bnb_round(data, state, 1e-3, ipm_iters=8, beam=n_k, ipm_chunk=8)
     finally:
         search.bnb_epilogue = orig
     args, kw = captured["args"], captured["kw"]
@@ -3188,7 +3206,8 @@ def check_epilogue_lanes(report: dict) -> None:
     search.bnb_epilogue = capture
     try:
         n_k = prep.data.ks.shape[1]
-        search.bnb_round(prep.data, prep.state, 1e-3, ipm_iters=8, beam=n_k, ipm_chunk=8)
+        with reference_tail():
+            search.bnb_round(prep.data, prep.state, 1e-3, ipm_iters=8, beam=n_k, ipm_chunk=8)
     finally:
         search.bnb_epilogue = orig
     args, kw = captured["args"], captured["kw"]
@@ -3232,6 +3251,264 @@ def check_epilogue_lanes(report: dict) -> None:
     print(f"bnb_epilogue_lanes: {ms:.4f} ms on the card, {call:.4f} ms per call (plain "
           f"{plain:.3f} ms, {L} single-instance launches {single_ms:.4f} ms, bound "
           f"{b_ms:.6f} ms by {b_by}) at B={B} nf={nf}", flush=True)
+
+
+@contextlib.contextmanager
+def reference_tail():
+    """Rounds inside the block take the round tail's plain version (K2, the
+    tensor code and K3, the sequence the fused launch replaced)."""
+    from distilp_torch.solver import search
+
+    orig = search.round_tail
+    search.round_tail = search.round_tail_reference
+    try:
+        yield
+    finally:
+        search.round_tail = orig
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """K2's and K3's plain versions inside the round tail's plain version:
+    the tail as plain PyTorch alone."""
+    from distilp_torch.solver import search
+    from distilp_torch.solver.rounding import (
+        _by_instance,
+        round_moe_reference,
+        round_to_incumbent_reference,
+    )
+    from distilp_torch.solver.standard_form import MOE_LOCAL_MOVES
+
+    def rounding(v, W, k, rd, packed=None, moe=False, y_steps=None, moves=MOE_LOCAL_MOVES,
+                 inst=None):
+        if moe:
+            return _by_instance(round_moe_reference, v, W, k, rd, inst, y_steps, moves)
+        return _by_instance(round_to_incumbent_reference, v, W, k, rd, inst)
+
+    orig = search.round_to_incumbent, search.bnb_epilogue
+    search.round_to_incumbent, search.bnb_epilogue = rounding, search.bnb_epilogue_reference
+    try:
+        yield
+    finally:
+        search.round_to_incumbent, search.bnb_epilogue = orig
+
+
+def tail_differs(got, ref) -> list:
+    """The fields of two (state, go) pairs that differ: values equal, NaN at
+    the same places (-0.0 counts as 0.0)."""
+    import torch
+
+    def same(a, b):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if not a.dtype.is_floating_point:
+            return torch.equal(a, b)
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+    (s1, g1), (s2, g2) = got, ref
+    bad = [f for f in s1._fields if not same(getattr(s1, f), getattr(s2, f))]
+    return bad + ([] if same(g1, g2) else ["go"])
+
+
+def tail_same_bits(got, ref) -> bool:
+    import torch
+
+    (s1, g1), (s2, g2) = got, ref
+    return all(torch.equal(bits(a), bits(b)) for a, b in zip((*s1, g1), (*s2, g2)))
+
+
+def tail_flops_bytes(args):
+    """(operations, bytes) of one round tail: every state field it reads
+    read once and its new state written once, the LP result and the
+    rounding inputs read once; K2's rounding operations on the beam rows
+    (dense mode, as check_round counts them) and K3's ~30 a column."""
+    data, state, res, _, B, rounded, frozen = args
+    L, cap, nf = state.node_lo.shape
+    M = state.inc_w.shape[1]
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    fields = [t for f, t in zip(state._fields, state)
+              if f not in ("per_k_w", "per_k_n", "per_k_y", "per_k_dropped")]
+    lp = (res.v, res.reduced, res.y_dual, res.z_dual, res.f_dual, res.bound, res.iters_run)
+    ins = (*lp, data.int_mask, data.obj_const, frozen,
+           *((data.Ws, data.ks, data.rd_packed) if rounded is None else rounded))
+    nbytes = 2 * nb(*fields) + nb(*ins) + L
+    flops = L * B * nf * 30
+    if rounded is None:
+        flops += L * B * ((M + 4) * 3 * M + 40 * M)
+    return flops, nbytes
+
+
+def kernel_launches(fn) -> dict:
+    """One call's kernel launches: the wrappers' counts, the device kernels
+    the profiler saw and the runtime launch calls it recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distilp_torch import kernels
+
+    fn()
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = prof.key_averages()
+    return {
+        "wrappers": {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]},
+        "device_kernels": sum(e.count for e in evts
+                              if _is_device(e) and "memcpy" not in e.key.lower()
+                              and "memset" not in e.key.lower()),
+        "runtime_launches": sum(e.count for e in evts if not _is_device(e)
+                                and "launch" in e.key.lower() and "kernel" in e.key.lower()),
+    }
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host wall (ms) of ``fn()``'s enqueue, the card drained before
+    each call."""
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(walls)[reps // 2]
+
+
+def round_tail_cases() -> dict:
+    """The round tails of five cases as the search hands them over: the
+    north star's rounds (cold solve), the S=8 scenario batch's and the same
+    with lane 3 frozen, the DeepSeek-V3 flagship's root and second MoE
+    rounds, the fleet M=128's rounds on the PDHG engine and the north star's
+    rounds on K10's 8 shards of a virtual mesh of this card."""
+    import torch
+
+    from distilp_torch.parallel import solve_sweep_sharded
+    from distilp_torch.solver import halda_solve, halda_solve_scenarios, search
+    from distilp_torch.solver.search import root_state
+    from distilp_torch.utils import make_synthetic_fleet
+
+    def tails(fn):
+        calls = []
+        with captured(search, "round_tail", calls):
+            fn()
+        return [a for a, _ in calls]
+
+    cases = {}
+    model = online_model()
+    with uncounted():
+        cases["north_star"] = tails(lambda: halda_solve(
+            make_synthetic_fleet(16, seed=123), model, mip_gap=1e-3, kv_bits="4bit"))
+        calls = tails(lambda: halda_solve_scenarios(
+            scenario_fleets(make_synthetic_fleet(16, seed=123), 8, 17), model, mip_gap=1e-3,
+            kv_bits="4bit"))
+        frozen = torch.zeros(calls[0][1].node_lo.shape[0], dtype=torch.bool, device="cuda")
+        frozen[3] = True
+        cases["scenarios_S8_frozen"] = calls + [a[:6] + (frozen,) for a in calls]
+        *_, feasible, sf, _, data, _, host = moe_instance(FLAGSHIP)
+        ldata = tests_module("torch_lanes").lane_data(data)
+        state = root_state(torch.as_tensor(host["lo_k"], device="cuda")[None],
+                           torch.as_tensor(host["hi_k"], device="cuda")[None], sf.M, 256,
+                           host["A"].shape[0])
+
+        def flagship_rounds():
+            root, _ = search.bnb_round(ldata, state, MOE_GAP, beam=len(feasible))
+            search.bnb_round(ldata, root, MOE_GAP, beam=16)
+
+        cases["flagship_moe"] = tails(flagship_rounds)
+        cases["fleet_M128_pdhg"] = tails(lambda: halda_solve(
+            make_synthetic_fleet(128, seed=123), online_model(128), mip_gap=FLEET128_GAP,
+            kv_bits="4bit"))
+        _, _, coeffs, arrays, feasible, _, _ = load_instance(16, 123)
+        cases["k10_north_star_8_shards"] = tails(lambda: solve_sweep_sharded(
+            arrays, feasible, coeffs, virtual_mesh(8), mip_gap=MESH_SWEEP_GAP))
+    return cases
+
+
+def check_round_tail(report: dict) -> None:
+    """R8, the round tail: on every round tail of five cases
+    (``round_tail_cases``) the fused launch against its plain version on the
+    same inputs (K2's and K3's entries inside it), every field of the new
+    state and the go flags equal; then per case the fused launch's device
+    and call ms, its host enqueue, the plain version's ms with K2's and
+    K3's plain versions (the tail as plain PyTorch), and the sequence it
+    replaced (the plain version as the card ran it before: K2, the torch
+    operations, K3) by CUDA events and host enqueue; and the launches of
+    one north-star warm round, fused and as before."""
+    import torch
+
+    from distilp_torch.solver import search
+
+    cases = round_tail_cases()
+    lines = {}
+    for name, calls in cases.items():
+        held, bitwise = 0, True
+        for args in calls:
+            got = search.round_tail(*args)
+            ref = search.round_tail_reference(*args)
+            torch.cuda.synchronize()
+            bad = tail_differs(got, ref)
+            if bad:
+                fail(f"round_tail kernel disagrees with its plain version on {name} "
+                     f"(L={args[1].node_lo.shape[0]}, beam={args[4]}, "
+                     f"pre-rounded={args[5] is not None}, frozen={args[6] is not None}): {bad}")
+            bitwise = bitwise and tail_same_bits(got, ref)
+            held += 1
+        # Times on the case's widest round (the root round's copy phase).
+        args = max(calls, key=lambda a: a[1].node_lo.numel() * (a[4] + 1))
+        ms, call, src = time_kernel(lambda: search.round_tail(*args), "round_tail_kernel")
+        enq = host_ms(lambda: search.round_tail(*args))
+        with plain_kernels():
+            plain = cuda_ms(lambda: search.round_tail_reference(*args), reps=5)
+        seq = cuda_ms(lambda: search.round_tail_reference(*args))
+        seq_enq = host_ms(lambda: search.round_tail_reference(*args))
+        flops, nbytes = tail_flops_bytes(args)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F64_S)
+        L, cap, nf = args[1].node_lo.shape
+        lines[name] = line = {
+            "tails_held": held, "bit_for_bit": bitwise, "L": L, "beam": args[4], "cap": cap,
+            "nf": nf, "M": args[1].inc_w.shape[1], "pre_rounded": args[5] is not None,
+            "frozen": args[6] is not None, "ms": ms, "call_ms": call, "ms_source": src,
+            "host_enqueue_ms": enq, "plain_ms": plain, "replaced_sequence_ms": seq,
+            "replaced_sequence_host_enqueue_ms": seq_enq, "bound_ms": b_ms, "bound_by": b_by}
+        print("round tail vs plain", name, json.dumps(line), flush=True)
+    # One north-star warm round (its LP call included), fused and as before.
+    data, state, _, gap, B, _, _ = cases["north_star"][-1]
+    run = lambda: search.bnb_round(data, state, gap, beam=B)  # noqa: E731
+    fused = kernel_launches(run)
+    with reference_tail():
+        before = kernel_launches(run)
+    print("round tail launches a round", json.dumps({
+        "round": f"north star warm round, beam {B}", "fused": fused, "before": before}),
+        flush=True)
+    if fused["wrappers"].get("round_tail") != 1 or any(
+            k in fused["wrappers"] for k in ("round_incumbent", "bnb_epilogue")):
+        fail(f"a dense round did not run as one round_tail launch: {fused}")
+    # A MoE round: its LP call, K2's MoE mode and one round tail.
+    data, state, _, gap, B, _, _ = cases["flagship_moe"][-1]
+    moe = kernel_launches(lambda: search.bnb_round(data, state, gap, beam=B))
+    print("round tail launches a MoE round", json.dumps({
+        "round": f"flagship second round, beam {B}", "fused": moe}), flush=True)
+    if moe["wrappers"] != {"ipm": 1, "round_moe": 1, "round_tail": 1}:
+        fail(f"a MoE round did not run as K2 MoE and one round_tail launch: {moe}")
+    for key, case in (("round_tail", "north_star"), ("round_tail_lanes", "scenarios_S8_frozen")):
+        ln = lines[case]
+        report[key] = dict(
+            name=key, route="cuda", source="distilp_torch/kernels/csrc/round_tail_kernel.cu",
+            replaces="distilp_tpu/solver/backend_jax.py:1577 (the part of _bnb_round after its "
+                     "LP call, to :1800) and :2704 (_certified)",
+            max_abs_err=0.0, ms=ln["ms"], plain_ms=ln["plain_ms"], bound_ms=ln["bound_ms"],
+            bound_by=ln["bound_by"], library_ms=None, held_against_plain="ok",
+            call_ms=ln["call_ms"], ms_source=ln["ms_source"],
+            replaced_sequence_ms=ln["replaced_sequence_ms"], cases=lines)
 
 
 def _lane(args, q: int):
@@ -3540,9 +3817,9 @@ def show(name, r, ms, tm):
           f"search_ms={tm.get('solve_ms', 0.0):.2f}", flush=True)
 
 
-DENSE_KERNELS = ("ipm", "round_incumbent", "bnb_epilogue")
-MOE_KERNELS = ("ipm", "round_moe", "bnb_epilogue", "decomp")
-PROFILE_KERNELS = ("ipm", "round_incumbent", "bnb_epilogue", "twin_mc", "hbm_stream",
+DENSE_KERNELS = ("ipm", "round_incumbent", "round_tail")
+MOE_KERNELS = ("ipm", "round_moe", "round_tail", "decomp")
+PROFILE_KERNELS = ("ipm", "round_tail", "twin_mc", "hbm_stream",
                    "gemm_absmax_scale")
 
 
@@ -3642,7 +3919,7 @@ def fleet_path() -> dict:
     check("fleet_M512", r5, tm, FLEET512_PDHG, 2 * FLEET512_GAP, "pdhg", model512)
     launches = path_launches()
     print("fleet path launches", json.dumps(launches), flush=True)
-    missing = [k for k in ("ipm", "round_incumbent", "bnb_epilogue", "pdhg") if launches[k] == 0]
+    missing = [k for k in ("ipm", "round_tail", "pdhg") if launches[k] == 0]
     if missing:
         fail(f"fleet-scale main path never launched {missing}")
     profile_solve(devs128, model128, FLEET128_GAP, "fleet_M128_pdhg")
@@ -4024,7 +4301,7 @@ ROUTING_CASES = [
     ("deepseek_v3_M32_lognormal", FLAGSHIP, "lognormal", -400.92408046855377),
 ]
 SWEEP_KERNELS = ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "decomp",
-                 "bnb_per_k", "price_fixed")
+                 "bnb_per_k", "price_fixed", "round_tail")
 
 
 def routing_loads(kind: str):
@@ -4191,8 +4468,8 @@ FLAGSHIP_TICK_PINS = [(-400.80947050866087, "cold"), (-400.81776379536154, "marg
                       (-426.1811522913107, "margin")]
 BUCKETS = (2, 4, 8, 16, 32, 64, 128)  # the JAX package's combine.BucketPolicy boundaries
 STREAM_KERNELS = ("ipm", "round_incumbent", "round_incumbent_lanes", "round_moe",
-                  "round_moe_lanes", "bnb_epilogue", "bnb_epilogue_lanes", "decomp",
-                  "decomp_lanes", "bnb_per_k_lanes")
+                  "round_moe_lanes", "round_tail", "round_tail_lanes", "bnb_epilogue_lanes",
+                  "decomp", "decomp_lanes", "bnb_per_k_lanes")
 
 
 def held_to(name, r, pin, gap, k=None):
@@ -4502,8 +4779,7 @@ FALLBACK128_PINS = [(1, -312.9522665906968), (1, -312.95378065386245)]
 # M=16, pinned as on the IPM engine (the JAX package certifies the same
 # objectives on its PDHG engine).
 MOE_PDHG_CASES = [MOE_CASES[0], MOE_CASES[2]]
-ELEM_KERNELS = ("pdhg_elem", "round_incumbent_lanes", "bnb_epilogue_lanes", "round_moe",
-                "decomp")
+ELEM_KERNELS = ("pdhg_elem", "round_tail_lanes", "round_moe", "round_tail", "decomp")
 DIAGNOSE_KERNELS = ("ipm_trace", "pdhg_trace", "ipm", "pdhg")
 
 
@@ -4667,7 +4943,7 @@ def diagnose_path() -> dict:
 # per receiving shard; S - 1 operations per element.
 MESH_SHARDS = (2, 4)
 MESH_KERNELS = ("pdhg_sharded", "pdhg_sharded_elem", "collective", "pdhg", "ipm",
-                "round_incumbent", "round_moe", "bnb_epilogue", "decomp")
+                "round_incumbent", "round_moe", "bnb_epilogue", "round_tail", "decomp")
 # K6b against the unsharded K5 at equal step counts: float64 obj and bound
 # within 1e-9 relative (the two sum the same products in another order);
 # float32 holds the float64 bound as check_pdhg does (TOL_PDHG_F32_CERT).
@@ -5471,11 +5747,22 @@ def mesh_path() -> dict:
     S, per = 4, 32 * 1024 * 1024
     psum_ms = 11 * S * bound_ms((S - 1) * 8, (S + 1) * 8 * 4, PEAK_F32_S)[0]
     gather_ms = bound_ms(0, S * per + S * S * per, PEAK_F32_S)[0]
+    # Its PyTorch yardsticks at the probe's shapes: one torch call for a
+    # psum of S (1, 8) float32 parts, and torch.cat of S 32 MiB blocks (the
+    # all_gather's result on one shard).
+    import torch
+
+    parts = [torch.rand((1, 8), device="cuda") for _ in range(S)]
+    blocks = [torch.rand(per // 4, device="cuda") for _ in range(S)]
+    lib_psum = cuda_ms(lambda: torch.stack(parts).sum(0))
+    lib_gather = cuda_ms(lambda: torch.cat(blocks), reps=10)
+    del blocks
     print(f"interconnect over 4 virtual shards of {smi_line()}: provenance={info.provenance} "
           f"allreduce latency {info.ici_allreduce_latency_s!r} s, all_gather "
           f"{info.ici_bandwidth!r} B/s (the card's own memory: no link); bound of its "
-          f"44 collective launches {psum_ms!r} ms, of the all_gather {gather_ms!r} ms",
-          flush=True)
+          f"44 collective launches {psum_ms!r} ms, of the all_gather {gather_ms!r} ms; "
+          f"torch.stack(parts).sum(0) of {S} (1, 8) parts {lib_psum!r} ms, torch.cat of "
+          f"{S} 32 MiB blocks {lib_gather!r} ms", flush=True)
     if info.provenance != "virtual" or not (info.ici_allreduce_latency_s > 0
                                             and info.ici_bandwidth > 0):
         fail(f"measure_interconnect over the virtual mesh: {info}")
@@ -5531,12 +5818,12 @@ def main() -> int:
               lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale,
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
               check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces,
-              check_collective, check_pdhg_sharded, check_pdhg_sharded_elem]
+              check_collective, check_pdhg_sharded, check_pdhg_sharded_elem, check_round_tail]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_routes", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
              "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded",
-             "pdhg_sharded_elem"]
+             "pdhg_sharded_elem", "round_tail"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -5592,7 +5879,8 @@ def main() -> int:
                  "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
                  "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes",
                  "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
-                 "pdhg_sharded", "pdhg_sharded_elem", "collective"):
+                 "pdhg_sharded", "pdhg_sharded_elem", "collective", "round_tail",
+                 "round_tail_lanes"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

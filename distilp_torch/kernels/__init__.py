@@ -32,14 +32,17 @@ import torch
 # in the route), the mesh's psum/pmax one "collective" launch per receiving
 # shard. K7 breaks its launches down by entry: "ascent" (the fused ascent,
 # one a call whatever its steps), "eval64" and "eval32" (the per-step entry:
-# DecompBound32 and the card's yardstick of the ascent).
+# DecompBound32 and the card's yardstick of the ascent). The round tail
+# (R8: a non-per-k round's rounding, incumbent, threshold, epilogue and
+# compaction in one launch) counts "round_tail", or "round_tail_lanes" for
+# a launch over more than one lane.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
     "bnb_per_k": 0, "price_fixed": 0, "round_incumbent_lanes": 0, "round_moe_lanes": 0,
     "bnb_epilogue_lanes": 0, "bnb_per_k_lanes": 0, "decomp_lanes": 0, "pdhg_elem": 0,
     "ipm_trace": 0, "pdhg_trace": 0, "pdhg_sharded": 0, "pdhg_sharded_elem": 0,
-    "collective": 0,
+    "collective": 0, "round_tail": 0, "round_tail_lanes": 0,
 }
 
 

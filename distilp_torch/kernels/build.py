@@ -28,6 +28,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 # kernel library -> (source file, extra nvcc flags). The rounding and the
 # branch-and-bound epilogue compile without FMA contraction: their float64
 # ceil/floor staircases must see the same products as the plain version; so
+# does the round tail, which runs both (and the threshold's product); so
 # do the decomposition bound (K7), whose cell pricing has the same ones, the
 # twin's Monte-Carlo engine (K8, the spill-need staircase) and the profiler's
 # scale (K9b, bit for bit against its plain version; K9b's product uses
@@ -47,8 +48,9 @@ SOURCES: Dict[str, tuple] = {
     "profiler": ("profiler_kernel.cu", ["--fmad=false"]),
     "pdhg_sharded": ("pdhg_sharded_kernel.cu", ["--fmad=false"]),
     "collective": ("collective_kernel.cu", []),
+    "round_tail": ("round_tail_kernel.cu", ["--fmad=false"]),
 }
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "round_row.cuh", "epilogue_row.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -144,10 +146,16 @@ SIGNATURES = {
         "dtk_allreduce_f32": [_P, _I, _L, _I, _P, _P],
         "dtk_allreduce_f64": [_P, _I, _L, _I, _P, _P],
     },
+    "round_tail": {
+        "dtk_round_tail_smem_bytes": [_I] * 4,
+        "dtk_round_tail_ws_bytes": [_I] * 4,
+        "dtk_round_tail": [_P, _P, _D, _P],
+    },
 }
 RESTYPES = {"dtk_pdhg_ws_bytes": _S, "dtk_pdhgs_ws_bytes": _S, "dtk_pdhgc_smem_bytes": _S,
             "dtk_decomp_ascent_ws_bytes": _S, "dtk_decomp_f64_ws_bytes": _S,
-            "dtk_round_moe_tab_bytes": _L}
+            "dtk_round_moe_tab_bytes": _L, "dtk_round_tail_smem_bytes": _L,
+            "dtk_round_tail_ws_bytes": _L}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

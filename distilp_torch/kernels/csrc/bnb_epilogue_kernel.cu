@@ -8,9 +8,11 @@
 // dual), close fully fixed or achieved nodes, pick the branch variable (most
 // fractional, else the widest box; jnp.argmax's first-index rule), split it
 // into the two child boxes, and carry the solved iterate to both children.
-// The scalar reductions over the beam (incumbent argmin, per-k scatter-min,
-// threshold) and the best-bound-first stable compaction stay outside, as
-// plain tensor operations over at most `cap` rows.
+// The per-row arithmetic lives in epilogue_row.cuh, shared with the round
+// tail (round_tail_kernel.cu), which runs a non-per-k round's epilogue
+// itself beside the incumbent, the threshold and the compaction: this entry
+// serves per-k rounds, where the scalar reductions over the beam (B15 below)
+// and the two stable argsorts of the compaction stay outside it.
 //
 // Per-row instance: `obj_const` holds one constant per instance and
 // `int_mask` one (nf,) mask per instance; row r reads those of inst[r]
@@ -50,13 +52,11 @@
 // Both are bound by launch latency: n_k <= ~40 k's, B <= 4 n_k rows of M
 // devices, cap + B <= 36 n_k child rows, a few KB in and out, per lane.
 
-#include "common.cuh"
+#include "epilogue_row.cuh"
 
 namespace {
 
 using namespace dtk;
-
-constexpr float FRAC_TOL = 1e-4f;
 
 __global__ void bnb_epilogue_kernel(
     const float* __restrict__ lo_in, const float* __restrict__ hi_in,
@@ -82,71 +82,22 @@ __global__ void bnb_epilogue_kernel(
   const int bs = blockDim.x;
   const size_t ro = (size_t)r * nf;
   const bool act = active[r] != 0;
-  const double inf = INFINITY;
-  const float finf = INFINITY;
   const int q_inst = inst != nullptr ? inst[r] : 0;
   const uint8_t* int_mask = int_mask_all + (size_t)q_inst * nf;
-  const double obj_const = obj_const_all[q_inst];
 
-  // Bound fold.
-  const double bound_raw = res_bound[r] + obj_const;
-  double bound = isfinite(bound_raw) ? bound_raw : -inf;
-  bound = act ? nan_max(bound, parent_bound[r]) : inf;
-  const double thr = threshold[r];
-  bool survive = act && bound < thr;
+  const EpiRow e = epi_row(BlockGroup{s_f, s_i}, nf, lo_in + ro, hi_in + ro, v + ro,
+                           reduced + ro, int_mask, res_bound[r], obj_const_all[q_inst], act,
+                           parent_bound[r], threshold[r], obj_full[r]);
 
-  // Reduced-cost box tightening (budget from the raw, unfolded bound).
-  double budget = thr - bound_raw;
-  budget = (isfinite(budget) && budget >= 0.0) ? budget : inf;
-  bool boxes_ok = true;
-  float wmax = -finf;
   for (int j = tid; j < nf; j += bs) {
-    const bool im = int_mask[j] != 0;
-    const float lo = lo_in[ro + j];
-    const float hi = hi_in[ro + j];
-    const double lo64 = (double)lo, hi64 = (double)hi, red = reduced[ro + j];
-    const double th = (im && red > 1e-12) ? floor(lo64 + budget / nan_max(red, 1e-12) + 1e-9) : hi64;
-    const double tl = (im && red < -1e-12) ? ceil(hi64 - budget / nan_max(-red, 1e-12) - 1e-9) : lo64;
-    const float hi2 = nan_min(hi, (float)th);
-    const float lo2 = nan_max(lo, (float)tl);
+    float lo2, hi2, ha, lb;
+    epi_tighten(lo_in[ro + j], hi_in[ro + j], reduced[ro + j], int_mask[j] != 0, e.budget,
+                lo2, hi2);
+    epi_split(e, j, lo2, hi2, ha, lb);
     lo_a[ro + j] = lo2;
+    hi_a[ro + j] = ha;
+    lo_b[ro + j] = lb;
     hi_b[ro + j] = hi2;
-    boxes_ok = boxes_ok && (lo2 <= hi2);
-    wmax = nan_max(wmax, im ? hi2 - lo2 : 0.0f);
-  }
-  boxes_ok = __syncthreads_and(boxes_ok);
-  wmax = block_reduce(wmax, Max(), s_f);
-  survive = survive && boxes_ok;
-  const bool fully_fixed = wmax < 0.5f;
-  const bool achieved = obj_full[r] <= bound + 1e-6 * nan_max(1.0, fabs(bound));
-  survive = survive && !(fully_fixed || achieved);
-
-  // Branch variable: most fractional branchable column, else the widest.
-  float fbest = -finf, wbest = -finf;
-  int fi = INT_MAX, wi = INT_MAX;
-  for (int j = tid; j < nf; j += bs) {
-    const bool im = int_mask[j] != 0;
-    const float width = im ? hi_b[ro + j] - lo_a[ro + j] : 0.0f;
-    const float vj = v[ro + j];
-    const float frac = fabsf(vj - rintf(vj));
-    const float fm = (im && width > 0.5f) ? frac : -1.0f;
-    argmax_combine(fbest, fi, fm, j);
-    argmax_combine(wbest, wi, width, j);
-  }
-  block_argmax(fbest, fi, s_f, s_i);
-  block_argmax(wbest, wi, s_f, s_i);
-  const bool has_frac = fbest > FRAC_TOL;
-  const int js = has_frac ? fi : wi;
-  const float loj = lo_a[ro + js];
-  const float hij = hi_b[ro + js];
-  const float split = has_frac ? v[ro + js] : 0.5f * (loj + hij);
-  const float dn = clip(floorf(split), loj, nan_max(hij - 1.0f, loj));
-
-  for (int j = tid; j < nf; j += bs) {
-    const float lo2 = lo_a[ro + j];
-    const float hi2 = hi_b[ro + j];
-    hi_a[ro + j] = j == js ? dn : hi2;
-    lo_b[ro + j] = j == js ? dn + 1.0f : lo2;
     v_new[ro + j] = act ? v[ro + j] : node_v[ro + j];
     z_new[ro + j] = act ? z_dual[ro + j] : node_z[ro + j];
     f_new[ro + j] = act ? f_dual[ro + j] : node_f[ro + j];
@@ -156,8 +107,8 @@ __global__ void bnb_epilogue_kernel(
     y_new[o] = act ? y_dual[o] : node_y[o];
   }
   if (tid == 0) {
-    bound_out[r] = bound;
-    survive_out[r] = survive ? 1 : 0;
+    bound_out[r] = e.bound;
+    survive_out[r] = e.survive ? 1 : 0;
     warm_new[r] = (act || node_warm[r] != 0) ? 1 : 0;
   }
 }

@@ -2,25 +2,28 @@
 
 Each round solves the LP relaxations of the best-bound-first prefix of the
 frontier in one batched LP call (the IPM, kernel K1, or at fleet scale the
-PDHG engine, kernel K5), rounds every LP point to an
-exact integer incumbent (K2; its MoE mode for expert co-assignment), then
-runs the per-row epilogue (K3: bound fold,
+PDHG engine, kernel K5); everything after it is the round tail
+(:func:`round_tail`, one launch of ``round_tail_kernel.cu`` on a card):
+it rounds every LP point to an exact integer incumbent (K2's per-row body;
+MoE rows go through K2's MoE mode first), takes the incumbent, each k's
+best and the prune threshold, runs K3's per-row epilogue (bound fold,
 pruning, reduced-cost box tightening, closing, branching, child boxes, warm
-carry). The scalar reductions over the beam and the stable best-bound-first
-compaction are plain tensor operations. One global incumbent prunes across
-every k's tree, since the answer is the minimum over k. In per-k mode
-(``per_k=True``) a node prunes against its own k's incumbent instead, and
-K3's per-k entries keep each k's incumbent assignment, its prune threshold,
-a k-fair compaction order and each k's overflow floor, so that every k ends
-with its own certificate.
+carry), compacts the children best-bound-first and writes each lane's go
+flag. One global incumbent prunes across every k's tree, since the answer
+is the minimum over k. In per-k mode (``per_k=True``) a node prunes
+against its own k's incumbent instead: that round's tail stays tensor code
+around K2, K3 and K3's per-k entries (:func:`tail_tensors`), which keep
+each k's incumbent assignment, its prune threshold, a k-fair compaction
+order and each k's overflow floor, so that every k ends with its own
+certificate.
 
 Lanes: the search runs L sweeps at once (the scenarios of one fleet that
 share its A, or batch lanes with an A each; the reference's vmap of the
 whole search, B12). Every array of :class:`SearchState` and
 :class:`SweepData` carries a leading lane axis; a round sends all lanes'
-beam rows through one K1 (or K5) call, one K2 launch and one K3 launch, each
-row reading its own lane's data through its instance index; the incumbent
-update is a per-lane argmin and the compaction a per-lane stable argsort.
+beam rows through one K1 (or K5) call and one round tail (one block a
+lane), each row reading its own lane's data; the incumbent update is a
+per-lane argmin and the compaction a per-lane stable order.
 A lane that has settled is frozen, as under the reference's vmapped
 ``while_loop``: its rows go to the LP as ``skip`` and its state is carried
 through unchanged. One sweep is the L = 1 case of the same code.
@@ -46,7 +49,8 @@ MoE sweeps seed the roots with the Lagrangian decomposition bounds (K7, all
 lanes in one ascent) and an incumbent repaired from the Lagrangian primal,
 or, on a margin tick, with bounds re-derived on the host. The reference runs
 the loop as one device program; here it is a host loop that reads the
-lanes' go flags from the device once per round.
+lanes' go flags, which the round tail writes, from the device once per
+round.
 
 Precision: search arrays and IPM iterations are float32; everything the
 mip-gap certificate touches (bounds, incumbents, thresholds) is float64.
@@ -54,6 +58,8 @@ mip-gap certificate touches (bounds, incumbents, thresholds) is float64.
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -853,12 +859,109 @@ def bnb_round(
     (K10) splits the beam rows over its shards, each shard's rows going
     through the LP engine and the rounding on that shard's device, then
     gathered onto shard 0 for the incumbent reduction, the epilogue and the
-    compaction (the beam a multiple of the mesh size). Returns the new state
-    and the beam rows' raw LP result (L * beam rows, lane-major)."""
+    compaction (the beam a multiple of the mesh size). After the LP call a
+    non-per-k round is one :func:`round_tail` (one launch on a card; MoE
+    rows rounded by K2's MoE mode before it). Returns the new state and the
+    beam rows' raw LP result (L * beam rows, lane-major)."""
+    out, res, _ = _bnb_round(data, state, mip_gap, ipm_iters, beam, ipm_chunk, lp_backend,
+                             pdhg_restart_tol, pdhg_dtype, per_k, frozen, lp_trace, row_mesh,
+                             node_mesh)
+    return out, res
+
+
+def _bnb_round(data, state, mip_gap, ipm_iters, beam, ipm_chunk, lp_backend="ipm",
+               pdhg_restart_tol=None, pdhg_dtype=None, per_k=False, frozen=None,
+               lp_trace=False, row_mesh=None, node_mesh=None):
+    """:func:`bnb_round` and the lanes' go flags on the new state as the
+    round tail wrote them ((L,) bool; None in per-k mode, whose tail stays
+    tensor code around K2, B15 and K3)."""
     L, cap = state.node_lo.shape[:2]
-    M = state.inc_w.shape[-1]
-    n_k = state.per_k_best.shape[-1]
     B = cap if beam is None else min(beam, cap)
+    dev = state.node_lo.device
+    row_lane = _lanes_of(L, B, dev)
+
+    def flat(t):
+        return t.reshape(L * B, *t.shape[2:])
+
+    active_p = state.active[:, :B]
+    if frozen is not None:
+        active_p = active_p & ~frozen[:, None]
+    kidx_r = flat(state.node_kidx[:, :B].long())
+    warm = IPMWarmState(
+        v=flat(state.node_v[:, :B]),
+        y=flat(state.node_y[:, :B]),
+        z=flat(state.node_z[:, :B]),
+        f=flat(state.node_f[:, :B]),
+        ok=flat(state.node_warm[:, :B]),
+    )
+    lo_r, hi_r = flat(state.node_lo[:, :B]), flat(state.node_hi[:, :B])
+    skip = ~flat(active_p)
+    lp_kw = dict(ipm_iters=ipm_iters, ipm_chunk=ipm_chunk, lp_backend=lp_backend,
+                 pdhg_restart_tol=pdhg_restart_tol, pdhg_dtype=pdhg_dtype, lp_trace=lp_trace,
+                 row_mesh=row_mesh)
+    if node_mesh is not None:
+        res, rounded = _node_sharded(node_mesh, lo_r, hi_r, kidx_r, row_lane, warm, skip,
+                                     lp_kw)
+    else:
+        res = lp_solve(data, lo_r, hi_r, kidx_r, row_lane, warm, skip, **lp_kw)
+        # The round tail rounds dense rows itself; MoE rows (and every row of
+        # a per-k round) go through K2 first.
+        rounded = None
+        if per_k or data.gky is not None:
+            rounded = round_rows(data, res, kidx_r, row_lane)
+    if per_k:
+        return tail_tensors(data, state, res, rounded, mip_gap, B, True, frozen), res, None
+    out, go = round_tail(data, state, res, mip_gap, B, rounded, frozen)
+    return out, res, go
+
+
+def round_tail(
+    data: SweepData,
+    state: SearchState,
+    res: IPMResult,
+    mip_gap: float,
+    beam: int,
+    rounded: Optional[Tuple[torch.Tensor, ...]] = None,
+    frozen: Optional[torch.Tensor] = None,
+) -> Tuple[SearchState, torch.Tensor]:
+    """Everything of a non-per-k round after its LP call (R8): the rounding
+    of the ``beam`` rows of every lane (K2's dense rounding of ``res.v``, or
+    ``rounded`` = (obj_lin, w, n[, y]) of the L * beam rows, rounded before:
+    K2's MoE mode, or the node-sharded sweep's shards), the incumbent, each
+    k's best, the threshold, K3's epilogue, the children's best-bound-first
+    compaction, the counters and the frozen lanes' carry, then each lane's
+    go flag (any node active and no certificate) on the new state. Returns
+    ``(new state, go (L,) bool)``, the state in fresh memory. One launch of
+    ``round_tail_kernel.cu`` on CUDA tensors, :func:`round_tail_reference`
+    on CPU tensors."""
+    if kernels.on_cuda(state.node_lo, res.v, data.obj_const):
+        return _round_tail_kernel(data, state, res, mip_gap, beam, rounded, frozen)
+    return round_tail_reference(data, state, res, mip_gap, beam, rounded, frozen)
+
+
+def round_tail_reference(data, state, res, mip_gap, beam, rounded=None, frozen=None):
+    """Plain PyTorch version of the round tail: :func:`tail_tensors` (K2, the
+    tensor code and K3, as a non-per-k round ran them before the tail was one
+    kernel) and the go flags of the new state."""
+    out = tail_tensors(data, state, res, rounded, mip_gap, beam, False, frozen)
+    return out, out.active.any(-1) & ~certified(out, mip_gap)
+
+
+def round_rows(data: SweepData, res: IPMResult, kidx_r, row_lane):
+    """The exact integer incumbents (K2; its MoE mode for MoE rows) of a
+    round's LP points, every row against its own lane's data."""
+    return round_to_incumbent(
+        res.v, data.Ws[row_lane, kidx_r], data.ks[row_lane, kidx_r], data.rd,
+        data.rd_packed, moe=data.gky is not None, inst=row_lane,
+    )
+
+
+def tail_tensors(data, state, res, rounded, mip_gap, B, per_k, frozen) -> SearchState:
+    """A round's tail as tensor code around K2, K3 and, in per-k mode, B15:
+    the per-k round's route, and the round tail's plain version (``rounded``
+    None: the rows rounded here)."""
+    L, cap = state.node_lo.shape[:2]
+    n_k = state.per_k_best.shape[-1]
     inf = float("inf")
     dev = state.node_lo.device
     lanes = torch.arange(L, device=dev)
@@ -875,25 +978,9 @@ def bnb_round(
     active_p = state.active[:, :B]
     if frozen is not None:
         active_p = active_p & ~frozen[:, None]
-    kidx_r = flat(kidx_p)
-    warm = IPMWarmState(
-        v=flat(state.node_v[:, :B]),
-        y=flat(state.node_y[:, :B]),
-        z=flat(state.node_z[:, :B]),
-        f=flat(state.node_f[:, :B]),
-        ok=flat(state.node_warm[:, :B]),
-    )
+    if rounded is None:
+        rounded = round_rows(data, res, flat(kidx_p), row_lane)
     moe = data.gky is not None
-    lo_r, hi_r = flat(state.node_lo[:, :B]), flat(state.node_hi[:, :B])
-    skip = ~flat(active_p)
-    lp_kw = dict(ipm_iters=ipm_iters, ipm_chunk=ipm_chunk, lp_backend=lp_backend,
-                 pdhg_restart_tol=pdhg_restart_tol, pdhg_dtype=pdhg_dtype, lp_trace=lp_trace,
-                 row_mesh=row_mesh)
-    if node_mesh is None:
-        res, rounded = lp_and_round(data, lo_r, hi_r, kidx_r, row_lane, warm, skip, **lp_kw)
-    else:
-        res, rounded = _node_sharded(node_mesh, lo_r, hi_r, kidx_r, row_lane, warm, skip,
-                                     lp_kw)
     obj_lin = lanes_b(rounded[0])
     w_int, n_int = lanes_b(rounded[1]), lanes_b(rounded[2])
     y_int = lanes_b(rounded[3]) if moe else None
@@ -929,9 +1016,11 @@ def bnb_round(
         rest_threshold = thr
         threshold = thr.expand(L, B)
     ep = bnb_epilogue(
-        lo_r, hi_r, res, flat(state.node_bound[:, :B]), flat(active_p), flat(obj_full),
+        flat(state.node_lo[:, :B]), flat(state.node_hi[:, :B]), res,
+        flat(state.node_bound[:, :B]), flat(active_p), flat(obj_full),
         flat(threshold), data.int_mask, data.obj_const,
-        warm.v, warm.y, warm.z, warm.f, warm.ok, inst=row_lane,
+        flat(state.node_v[:, :B]), flat(state.node_y[:, :B]), flat(state.node_z[:, :B]),
+        flat(state.node_f[:, :B]), flat(state.node_warm[:, :B]), inst=row_lane,
     )
     ep = EpilogueOut(*[lanes_b(t) for t in ep])
 
@@ -1004,7 +1093,147 @@ def bnb_round(
     )
     if frozen is not None:
         out = select_lanes(frozen, state, out)
-    return out, res
+    return out
+
+
+# An H100 block's dynamic shared memory, which the round tail's one block a
+# lane must fit (round_tail_kernel.cu's SMEM_LIMIT).
+TAIL_SMEM_LIMIT = 232448
+# The round tail indexes a state field's elements in 32 bits.
+TAIL_MAX_ELEMENTS = 2 ** 31
+
+
+class _TailPlan(NamedTuple):
+    """How a round tail of one shape signature is launched: the bytes of
+    its one allocation, each output's (dtype, shape, strides, element
+    offset) in it, the byte offsets the kernel writes to (the outputs, then
+    the workspace) and the kernel's dims."""
+
+    nbytes: int
+    views: tuple
+    offsets: tuple
+    dims: ctypes.Array
+    dims_addr: int
+
+
+# Plans by the shapes and dtypes of a tail's inputs: a search repeats a few
+# signatures, and a launch then pays no Python layout work.
+_TAIL_PLANS: dict = {}
+_TAIL_PLANS_MAX = 256
+
+
+def _tail_plan(lib, ins, B: int, pre: bool, has_y: bool) -> _TailPlan:
+    res_v, iters = ins[0], ins[6]
+    packed, rows0, rows1 = ins[9], ins[10], ins[11]
+    int_mask, obj_const = ins[14], ins[15]
+    lo, node_y, inc_w, pkb = ins[17], ins[30], ins[23], ins[28]
+    L, cap, nf = lo.shape
+    m, M, n_k = node_y.shape[2], inc_w.shape[1], pkb.shape[1]
+    if not 1 <= B <= cap:
+        raise ValueError(f"round tail: beam {B} outside [1, cap = {cap}]")
+    if L * cap * max(nf, m) >= TAIL_MAX_ELEMENTS:
+        raise ValueError(f"round tail: a state field of {L * cap * max(nf, m)} elements; the "
+                         f"kernel indexes at most {TAIL_MAX_ELEMENTS - 1}")
+    need = int(lib.dtk_round_tail_smem_bytes(B, cap, M, int(pre)))
+    if need > TAIL_SMEM_LIMIT:
+        raise ValueError(f"round tail: a lane needs {need} bytes of shared memory (B={B}, "
+                         f"cap={cap}, M={M}); an H100 block holds at most {TAIL_SMEM_LIMIT}")
+    want = [DTYPE, BDTYPE, DTYPE, DTYPE, DTYPE, BDTYPE, None] + \
+        ([None] * 3 if pre else [BDTYPE] * 3) + [BDTYPE if pre else None] * 4 + \
+        [torch.bool, BDTYPE, torch.bool, DTYPE, DTYPE, torch.int32, BDTYPE, torch.bool, BDTYPE,
+         BDTYPE, BDTYPE, BDTYPE, torch.int32, BDTYPE, BDTYPE, DTYPE, DTYPE, DTYPE, DTYPE,
+         torch.bool, BDTYPE, BDTYPE]
+    bad = [i for i, (t, dt) in enumerate(zip(ins, want))
+           if t is not None and dt is not None and t.dtype != dt]
+    if bad or iters.dtype not in (torch.int32, torch.float32):
+        raise TypeError("round tail takes float32 boxes and iterates, float64 bounds, int32 k "
+                        f"indices, bool masks and int32 or float32 iters_run (inputs {bad})")
+    if res_v.shape != (L * B, nf) or int_mask.shape != (L, nf) or obj_const.shape != (L,):
+        raise ValueError(f"round tail: LP rows {tuple(res_v.shape)}, int_mask "
+                         f"{tuple(int_mask.shape)}, obj_const {tuple(obj_const.shape)} do not "
+                         f"fit L={L}, beam={B}, nf={nf}")
+    rd_lanes, rd_stride = 1, 0
+    if not pre:
+        rd_lanes = packed.shape[0] if packed.dim() == 3 else 1
+        rd_stride = packed.shape[-2] * M
+        if packed.shape[-1] != M or rd_lanes not in (1, L):
+            raise ValueError(f"round tail: rounding blocks {tuple(packed.shape)} for L={L}")
+    elif rows0.shape != (L * B,) or rows1.shape != (L * B, M):
+        raise ValueError("round tail: pre-rounded rows must be (L * beam,) and (L * beam, M)")
+    # The new state and the go flags side by side, then the workspace.
+    fields = [((L, cap, nf), DTYPE), ((L, cap, nf), DTYPE), ((L, cap), torch.int32),
+              ((L, cap), BDTYPE), ((L, cap), torch.bool), ((L,), BDTYPE), ((L, M), BDTYPE),
+              ((L, M), BDTYPE), ((L, M), BDTYPE), ((L,), torch.int32), ((L,), BDTYPE),
+              ((L, n_k), BDTYPE), ((L, cap, nf), DTYPE), ((L, cap, m), DTYPE),
+              ((L, cap, nf), DTYPE), ((L, cap, nf), DTYPE), ((L, cap), torch.bool),
+              ((L,), BDTYPE), ((L,), BDTYPE), ((L,), torch.bool)]
+    views, offsets, pos = [], [], 0
+    for shape, dt in fields:
+        size = torch.empty((), dtype=dt).element_size()
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        views.append((dt, shape, stride, pos // size))
+        offsets.append(pos)
+        pos += -(-math.prod(shape) * size // 128) * 128
+    offsets.append(pos)
+    nbytes = pos + -(-int(lib.dtk_round_tail_ws_bytes(L, B, cap, M)) // 8) * 8
+    dims = (ctypes.c_int * 12)(L, B, cap, nf, m, M, n_k, int(pre), int(has_y),
+                               int(iters.dtype == torch.float32), rd_lanes, rd_stride)
+    return _TailPlan(nbytes, tuple(views), tuple(offsets), dims, ctypes.addressof(dims))
+
+
+def _round_tail_kernel(data, state, res, mip_gap, B, rounded, frozen):
+    from ..kernels.build import library
+
+    lib = library("round_tail")
+    pre = rounded is not None
+    has_y = pre and len(rounded) > 3
+    rows = (*rounded, None)[:4] if pre else (None,) * 4
+    rd = (None,) * 3 if pre else (data.Ws, data.ks, data.rd_packed)
+    ins = (res.v, res.reduced, res.y_dual, res.z_dual, res.f_dual, res.bound, res.iters_run,
+           *rd, *rows, data.int_mask, data.obj_const, frozen,
+           state.node_lo, state.node_hi, state.node_kidx, state.node_bound, state.active,
+           state.incumbent, state.inc_w, state.inc_n, state.inc_y, state.inc_kidx,
+           state.dropped_bound, state.per_k_best, state.node_v, state.node_y, state.node_z,
+           state.node_f, state.node_warm, state.stat_ipm_iters, state.stat_rounds)
+    key = (B, has_y, frozen is None, res.v.shape, state.node_lo.shape, state.node_y.shape,
+           state.inc_w.shape, state.per_k_best.shape, data.int_mask.shape,
+           data.obj_const.shape, (rows[1] if pre else data.rd_packed).shape,
+           *[None if t is None else t.dtype for t in ins])
+    plan = _TAIL_PLANS.get(key)
+    if plan is None:
+        if len(_TAIL_PLANS) >= _TAIL_PLANS_MAX:
+            _TAIL_PLANS.clear()
+        plan = _TAIL_PLANS[key] = _tail_plan(lib, ins, B, pre, has_y)
+    # Held until the launch returns (a temporary freed inside the argument
+    # list could hand its memory to the next one).
+    ins = [None if t is None else t.contiguous() for t in ins]
+    dev = state.node_lo.device
+    buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+    typed = {torch.uint8: buf}
+    outs = []
+    for dt, shape, stride, off in plan.views:
+        flat = typed.get(dt)
+        if flat is None:
+            flat = typed[dt] = buf.view(dt)
+        outs.append(flat.as_strided(shape, stride, off))
+    base = buf.data_ptr()
+    ptrs = (ctypes.c_longlong * (len(ins) + len(plan.offsets)))(
+        *[0 if t is None else t.data_ptr() for t in ins], *[base + o for o in plan.offsets])
+    err = lib.dtk_round_tail(ctypes.addressof(ptrs), plan.dims_addr, float(mip_gap),
+                             kernels.stream_handle(dev))
+    kernels.check(err, "round_tail")
+    kernels.LAUNCHES["round_tail_lanes" if state.node_lo.shape[0] > 1 else "round_tail"] += 1
+    (lo, hi, kidx, bound, active, inc, inc_w, inc_n, inc_y, inc_kidx, dropped, pkb,
+     nv, ny, nz, nfv, warm, st_iters, st_rounds, go) = outs
+    out = SearchState(
+        node_lo=lo, node_hi=hi, node_kidx=kidx, node_bound=bound, active=active,
+        incumbent=inc, inc_w=inc_w, inc_n=inc_n, inc_y=inc_y, inc_kidx=inc_kidx,
+        dropped_bound=dropped, per_k_best=pkb, per_k_w=state.per_k_w, per_k_n=state.per_k_n,
+        per_k_y=state.per_k_y, per_k_dropped=state.per_k_dropped, node_v=nv, node_y=ny,
+        node_z=nz, node_f=nfv, node_warm=warm, stat_ipm_iters=st_iters,
+        stat_rounds=st_rounds,
+    )
+    return out, go
 
 
 def lp_and_round(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_iters,
@@ -1013,8 +1242,17 @@ def lp_and_round(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_
     """The LP relaxations of a round's rows (each with its box ``lo_r``/
     ``hi_r``, its k index and lane) and their exact integer incumbents:
     ``(res, rounded)``, every row against its own lane's data."""
+    res = lp_solve(data, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_iters, ipm_chunk,
+                   lp_backend, pdhg_restart_tol, pdhg_dtype, lp_trace, row_mesh)
+    return res, round_rows(data, res, kidx_r, row_lane)
+
+
+def lp_solve(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_iters,
+             ipm_chunk=None, lp_backend="ipm", pdhg_restart_tol=None, pdhg_dtype=None,
+             lp_trace=False, row_mesh: Optional[Mesh] = None) -> IPMResult:
+    """The LP relaxations of a round's rows, each against its own lane's
+    data, on the engine ``lp_backend`` names."""
     M = data.rd.a.shape[-1]
-    moe = data.gky is not None
     b_r, c_r = data.b_k[row_lane, kidx_r], data.c_k[row_lane, kidx_r]
     if lp_backend == "pdhg":
         # A as values on the sweep's structure: MoE nodes and lanes with an A
@@ -1036,19 +1274,13 @@ def lp_and_round(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_
         else:
             res = pdhg_solve_batch(batch, iters=ipm_iters, restart_tol=pdhg_restart_tol,
                                    warm=warm, skip=skip, dtype=pdhg_dtype, trace=lp_trace)
-        res = cast_lp_result(res, DTYPE)
-    else:
-        chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
-        res = ipm_solve_batch(
-            LPBatch(A=node_A(data, kidx_r, M, row_lane), b=b_r, c=c_r, l=lo_r, u=hi_r),
-            iters=ipm_iters, warm=warm, skip=skip, **chunk_kw,
-            sparsity=data.A_sparsity, trace=lp_trace,
-        )
-    rounded = round_to_incumbent(
-        res.v, data.Ws[row_lane, kidx_r], data.ks[row_lane, kidx_r], data.rd,
-        data.rd_packed, moe=moe, inst=row_lane,
+        return cast_lp_result(res, DTYPE)
+    chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
+    return ipm_solve_batch(
+        LPBatch(A=node_A(data, kidx_r, M, row_lane), b=b_r, c=c_r, l=lo_r, u=hi_r),
+        iters=ipm_iters, warm=warm, skip=skip, **chunk_kw,
+        sparsity=data.A_sparsity, trace=lp_trace,
     )
-    return res, rounded
 
 
 class NodeMesh(NamedTuple):
@@ -1189,12 +1421,14 @@ def run_bnb_loop(
 
     settled = certified_per_k if per_k else certified
 
-    def go(st: SearchState):
-        """(device mask of the lanes that go on, whether any does): the one
-        device-to-host read of a round."""
-        mask = st.active.any(-1) & ~settled(st, mip_gap)
+    def flags(mask: torch.Tensor):
+        """(device mask of the lanes that go on, whether any does, the
+        frozen lanes): the one device-to-host read of a round."""
         live = mask.tolist()
         return mask, any(live), None if all(live) else ~mask
+
+    def go(st: SearchState):
+        return flags(st.active.any(-1) & ~settled(st, mip_gap))
 
     engine = dict(lp_backend=lp_backend, pdhg_restart_tol=pdhg_restart_tol,
                   pdhg_dtype=pdhg_dtype, per_k=per_k, row_mesh=row_mesh, node_mesh=node_mesh)
@@ -1208,15 +1442,17 @@ def run_bnb_loop(
         root_trace = torch.zeros(
             (L, B0, root_trace_rows(lp_backend, ipm_iters, root_warm_chunk), TRACE_COLS),
             dtype=DTYPE, device=state.node_lo.device)
+    # The go flags a round's tail wrote on its new state (None: test the
+    # state here, as for the state passed in and after a per-k round).
+    tail_go = None
     if max_rounds >= 1:
         mask, any_go, frozen = go(state)
         if any_go:
             ok = state.active[:, :B0]
             before = state
-            state, res = bnb_round(
-                data, state, mip_gap, ipm_iters=ipm_iters, beam=B0,
-                ipm_chunk=None if root_warm_chunk else ipm_iters, frozen=frozen,
-                lp_trace=collect_rounds, **engine,
+            state, res, tail_go = _bnb_round(
+                data, state, mip_gap, ipm_iters, B0, None if root_warm_chunk else ipm_iters,
+                frozen=frozen, lp_trace=collect_rounds, **engine,
             )
             ran = (ok, *(t.reshape(L, B0, -1).to(DTYPE)
                          for t in (res.v, res.y_dual, res.z_dual, res.f_dual)))
@@ -1232,12 +1468,12 @@ def run_bnb_loop(
     i = 1
     Bw = cap if beam is None else min(beam, cap)
     while i < max_rounds:
-        mask, any_go, frozen = go(state)
+        mask, any_go, frozen = go(state) if tail_go is None else flags(tail_go)
         if not any_go:
             break
         before = state
-        state, _ = bnb_round(data, state, mip_gap, ipm_iters=warm_iters, beam=beam,
-                             frozen=frozen, **engine)
+        state, _, tail_go = _bnb_round(data, state, mip_gap, warm_iters, beam, None,
+                                       frozen=frozen, lp_trace=False, **engine)
         if collect_rounds:
             rows.append(round_row(before, state, Bw, mask))
         i += 1

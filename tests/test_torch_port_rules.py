@@ -114,7 +114,7 @@ def test_kernel_sources_and_launch_counters():
         "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
         "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes", "bnb_per_k_lanes",
         "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace", "pdhg_sharded",
-        "pdhg_sharded_elem", "collective",
+        "pdhg_sharded_elem", "collective", "round_tail", "round_tail_lanes",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
