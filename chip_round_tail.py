@@ -17,18 +17,28 @@ builds its kernels, and measures, with the card's name and power limit:
   128, seed=123), the model stretched to L = 256) and the DeepSeek-V3
   flagship's root round (make_synthetic_fleet(32, seed=11,
   pool_bytes=32e9), kv 8bit; from its unseeded root state, since its solves
-  certify with no LP round). For each: the kernel launches of one round
+  certify with no LP round); per-k rounds (``per_k``): hermes_70b's warm
+  round (``halda_solve_per_k``, kv 4bit, gap 1e-4) and the first round of
+  the stream path's per-k lanes (``chip_smoke.per_k_lanes``: the mixed-M
+  bucket's fleets through ``solve_batch``). For each: the kernel launches of one round
   (the wrappers' counts, and the device kernels and runtime launch calls
   the profiler records), its device time (profiler), the host wall of the
   round minus the host wall of its LP call (median of ``--reps``, the card
   drained before each), and the round's wall to the card's last kernel;
+- per-k round tails alone (a tree whose ``search.round_tail`` has a per-k
+  mode): the north star's last per-k tail stretched (``chip_smoke.
+  stretched_per_k_tail``, default_rng(15)) to 8 lanes of 43 k's, cap 992
+  and beam 150, then with a beam of 16, then also with cap 128; each
+  tail's device ms (profiler) and call ms (CUDA events);
 - the main paths' walls (median of ``--reps``, the card synchronized
   around each, one untimed run first): the north star cold (and its device
   busy share from one profiled solve) and warm after a +-5% t_comm drift
   (default_rng(7)), the S=8 batch, the 128-device fleet, Mixtral M=4 cold,
   and the DeepSeek-V3 flagship (make_synthetic_fleet(32, seed=11,
   pool_bytes=32e9), kv 8bit) warm after the same drift, which re-evaluates
-  its bound at the stored duals.
+  its bound at the stored duals; the per-k solves: ``halda_solve_per_k`` on
+  hermes_70b (gap 1e-4), the north star and Mixtral M=4 (gap 1e-3), and
+  the per-k lanes.
 
 Prints the card's line and one JSON line. Run two checkouts on one card
 in the order A, B, B, A and compare the same figures.
@@ -70,7 +80,14 @@ def main() -> int:
     from distilp_torch.common import load_model_profile
     from distilp_torch.kernels import build
     from distilp_torch.profiler import profile_model
-    from distilp_torch.solver import halda_solve, halda_solve_scenarios, search
+    from distilp_torch.common import load_from_profile_folder
+    from distilp_torch.solver import (
+        halda_solve,
+        halda_solve_per_k,
+        halda_solve_scenarios,
+        search,
+        solve_batch,
+    )
     from distilp_torch.solver.api import _build_instance
     from distilp_torch.solver.backend_torch import device_arrays
     from distilp_torch.solver.rounding import pack_rounding_data, rounding_data
@@ -81,6 +98,11 @@ def main() -> int:
                                                   root / "tests" / "torch_lanes.py")
     lanes = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(lanes)
+    # chip_smoke.py's lane helpers, run on the package imported above.
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  Path(__file__).resolve().parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
@@ -140,6 +162,8 @@ def main() -> int:
     fleet128, model128 = make_synthetic_fleet(128, seed=123), stretch_model_for_fleet(online, 128)
     mix_devs = make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9))
     flag_devs = make_synthetic_fleet(32, seed=11, pool_bytes=int(32e9))
+    hermes = load_from_profile_folder(root / "tests" / "profiles" / "hermes_70b")
+    per_k_lanes = smoke.per_k_lanes(online)
 
     # The loop's round entry: its arguments bound by name, for search.bnb_round.
     entry = "_bnb_round" if hasattr(search, "_bnb_round") else "bnb_round"
@@ -169,6 +193,9 @@ def main() -> int:
             mix_devs, mixtral, mip_gap=1e-3, kv_bits="8bit"))[1],
         "fleet_M128_pdhg_root_round": rounds_of(lambda: halda_solve(
             fleet128, model128, mip_gap=1e-3, kv_bits="4bit"))[0],
+        "hermes_per_k_warm_round": rounds_of(lambda: halda_solve_per_k(
+            *hermes, mip_gap=1e-4, kv_bits="4bit"))[1],
+        "per_k_lanes_first_round": rounds_of(lambda: solve_batch(per_k_lanes))[0],
     }
     frozen = torch.zeros(len(futures), dtype=torch.bool, device="cuda")
     frozen[3] = True
@@ -241,6 +268,30 @@ def main() -> int:
             "wall_to_last_kernel_ms": wall}
         print(f"{args.label} round {name}: {json.dumps(out_rounds[name])}", flush=True)
 
+    # ------------------------------------------------- per-k tails alone
+    out_tails = {}
+    if "per_k" in inspect.signature(search.round_tail).parameters:
+        calls = []
+        orig_tail = search.round_tail
+
+        def capture(*a, **kw):
+            calls.append(a)
+            return orig_tail(*a, **kw)
+
+        search.round_tail = capture
+        try:
+            halda_solve_per_k(north, online, mip_gap=1e-3, kv_bits="4bit")
+        finally:
+            search.round_tail = orig_tail
+        rng = np.random.default_rng(15)
+        for shape in ((8, 43, 992, 150), (8, 43, 992, 16), (8, 43, 128, 16)):
+            tail = smoke.stretched_per_k_tail(calls[-1], rng, *shape)
+            ms, call, src = smoke.time_kernel(lambda: search.round_tail(*tail),
+                                              "round_tail_kernel")
+            name = "per_k_tail_L{}_nk{}_cap{}_beam{}".format(*shape)
+            out_tails[name] = {"ms": ms, "call_ms": call, "ms_source": src}
+            print(f"{args.label} tail {name}: {json.dumps(out_tails[name])}", flush=True)
+
     # -------------------------------------------------------- main paths
     drifted = []
     rng = np.random.default_rng(7)
@@ -267,11 +318,25 @@ def main() -> int:
                                                kv_bits="8bit"),
         "flagship_warm": lambda: halda_solve(flag_drift, deepseek, mip_gap=1e-3,
                                              kv_bits="8bit", warm=flag_cold),
+        "hermes_per_k": lambda: halda_solve_per_k(*hermes, mip_gap=1e-4, kv_bits="4bit"),
+        "north_star_per_k": lambda: halda_solve_per_k(north, online, mip_gap=1e-3,
+                                                      kv_bits="4bit"),
+        "mixtral_M4_per_k": lambda: halda_solve_per_k(mix_devs, mixtral, mip_gap=1e-3,
+                                                      kv_bits="8bit"),
+        "per_k_lanes": lambda: solve_batch(per_k_lanes),
     }
     out_walls = {}
     for name, fn in solves.items():
         med, walls = median_wall(fn)
         r = fn()
+        if name == "per_k_lanes":  # solve_batch: per lane (per-k results, best)
+            r = [x for per_k, _ in r for x in per_k if x is not None and x.w is not None]
+        if name.endswith("per_k") or name == "per_k_lanes":
+            out_walls[name] = {"wall_ms": med, "walls_ms": walls,
+                               "objs": {f"{i}:{x.k}": x.obj_value for i, x in enumerate(r)},
+                               "certified": all(x.certified for x in r)}
+            print(f"{args.label} wall {name}: {json.dumps(out_walls[name])}", flush=True)
+            continue
         r0 = r[0] if isinstance(r, list) else r
         out_walls[name] = {"wall_ms": med, "walls_ms": walls, "obj": r0.obj_value,
                            "certified": r0.certified}
@@ -281,7 +346,8 @@ def main() -> int:
             out_walls[name]["device_busy_share"] = prof["device_ms"] / med
         print(f"{args.label} wall {name}: {json.dumps(out_walls[name])}", flush=True)
     print(json.dumps({"label": args.label, "root": str(root), "gpu": smi,
-                      "rounds": out_rounds, "walls": out_walls}), flush=True)
+                      "rounds": out_rounds, "tails": out_tails, "walls": out_walls}),
+          flush=True)
     return 0
 
 

@@ -54,14 +54,18 @@ Phases (any failure exits non-zero and prints no result line):
      the row-sharded PDHG (K6b) on the 128-device fleet's root LPs at 2 and 4
      shards in float64 and float32, against the unsharded K5 at equal step
      counts and its own plain version, every shard's copy of the result bit
-     for bit equal; the round tail (R8, one launch for all of a non-per-k
-     round after its LP call) on every round tail of the north star's
-     solve, of the S=8 scenario batch (and again with lane 3 frozen), of
-     the flagship's first two MoE rounds, of the 128-device fleet on the
-     PDHG engine and of the north star on K10's 8 virtual shards, against
-     its plain version (K2 and K3 inside it) in every field of the new
-     state and the go flags, timed beside the sequence it replaced, with
-     the launches of one north-star warm round fused and as before;
+     for bit equal; the round tail (R8, one launch for all of a round
+     after its LP call) on every round tail of the north star's solve, of
+     the S=8 scenario batch (and again with lane 3 frozen), of the
+     flagship's first two MoE rounds, of the 128-device fleet on the PDHG
+     engine and of the north star on K10's 8 virtual shards, and in per-k
+     mode of hermes_70b, the north star and Mixtral M=4 per k, the per-k
+     lanes (and again with lane 1 frozen), the north star per k on K10's
+     shards, hermes_70b per k at a capacity that spills, and 24 per-k tails
+     stretched up to 8 lanes of 1142 keys, against its plain version (K2,
+     K3 and B15 inside it) in every field of the new state and the go
+     flags, timed beside the sequence it replaced, with the launches of a
+     north-star warm round and of per-k rounds fused and as before;
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
   4. the main path, in nine runs, each with the launch counts zeroed before
@@ -126,7 +130,10 @@ Phases (any failure exits non-zero and prints no result line):
      a path's comparison solves (its references) are left out of its launch
      counts; K1's and K5's launches of each path are also printed by shape,
      K7's by entry; every root bound (``decomp_bound_roots``) of the paths
-     makes at most two K7 launches and none of the per-step entry;
+     makes at most two K7 launches and none of the per-step entry; no
+     path launches K3's entry or B15's (the round tail folds them; the
+     per-k solves of the sweep path launch no K2 entry either), and every
+     other kernel is launched at least once;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
@@ -890,7 +897,7 @@ def check_epilogue(report: dict) -> None:
     try:
         n_k = data.ks.shape[1]
         # The round's epilogue inputs as K3 receives them: the round tail's
-        # plain version runs K3 (a per-k round's route).
+        # plain version runs K3.
         with reference_tail():
             search.bnb_round(data, state, 1e-3, ipm_iters=8, beam=n_k, ipm_chunk=8)
     finally:
@@ -2685,7 +2692,8 @@ def check_bnb_per_k(report: dict) -> None:
     hermes_70b with a forced small capacity, so that the frontier spills and
     the fair re-rank decides what is kept) and on 300 random frontiers; all
     outputs equal bit for bit. Timed at the largest round of the default
-    solves."""
+    solves. Since the round tail's per-k mode folds them, the solves'
+    rounds take the tail's plain version here, which calls them."""
     import warnings
 
     import numpy as np
@@ -2719,17 +2727,18 @@ def check_bnb_per_k(report: dict) -> None:
     search.per_k_incumbent, search.per_k_fair_rank = capture("incumbent"), capture("rank")
     timed = None
     try:
-        for name, (devs, model), kw in runs:
-            n0 = len(calls["rank"])
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                halda_solve_per_k(devs, model, **kw)
-            if not name.endswith("cap12"):
-                widest = max(range(n0, len(calls["rank"])),
-                             key=lambda i: calls["incumbent"][i][0].shape[-1])
-                if timed is None or calls["incumbent"][widest][0].shape[-1] > \
-                        calls["incumbent"][timed[1]][0].shape[-1]:
-                    timed = (name, widest)
+        with reference_tail():
+            for name, (devs, model), kw in runs:
+                n0 = len(calls["rank"])
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    halda_solve_per_k(devs, model, **kw)
+                if not name.endswith("cap12"):
+                    widest = max(range(n0, len(calls["rank"])),
+                                 key=lambda i: calls["incumbent"][i][0].shape[-1])
+                    if timed is None or calls["incumbent"][widest][0].shape[-1] > \
+                            calls["incumbent"][timed[1]][0].shape[-1]:
+                        timed = (name, widest)
     finally:
         search.per_k_incumbent, search.per_k_fair_rank = orig["incumbent"], orig["rank"]
     cases = list(zip(calls["incumbent"], calls["rank"]))
@@ -3269,8 +3278,8 @@ def reference_tail():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """K2's and K3's plain versions inside the round tail's plain version:
-    the tail as plain PyTorch alone."""
+    """K2's, K3's and B15's plain versions inside the round tail's plain
+    version: the tail as plain PyTorch alone."""
     from distilp_torch.solver import search
     from distilp_torch.solver.rounding import (
         _by_instance,
@@ -3285,12 +3294,17 @@ def plain_kernels():
             return _by_instance(round_moe_reference, v, W, k, rd, inst, y_steps, moves)
         return _by_instance(round_to_incumbent_reference, v, W, k, rd, inst)
 
-    orig = search.round_to_incumbent, search.bnb_epilogue
-    search.round_to_incumbent, search.bnb_epilogue = rounding, search.bnb_epilogue_reference
+    names = ("round_to_incumbent", "bnb_epilogue", "per_k_incumbent", "per_k_fair_rank")
+    orig = {n: getattr(search, n) for n in names}
+    plain = (rounding, search.bnb_epilogue_reference, search.per_k_incumbent_reference,
+             search.per_k_fair_rank_reference)
+    for n, fn in zip(names, plain):
+        setattr(search, n, fn)
     try:
         yield
     finally:
-        search.round_to_incumbent, search.bnb_epilogue = orig
+        for n, fn in orig.items():
+            setattr(search, n, fn)
 
 
 def tail_differs(got, ref) -> list:
@@ -3320,18 +3334,19 @@ def tail_same_bits(got, ref) -> bool:
 
 def tail_flops_bytes(args):
     """(operations, bytes) of one round tail: every state field it reads
-    read once and its new state written once, the LP result and the
-    rounding inputs read once; K2's rounding operations on the beam rows
-    (dense mode, as check_round counts them) and K3's ~30 a column."""
-    data, state, res, _, B, rounded, frozen = args
+    read once and its new state written once (in per-k mode the per-k
+    assignments and floors too), the LP result and the rounding inputs read
+    once; K2's rounding operations on the beam rows (dense mode, as
+    check_round counts them) and K3's ~30 a column."""
+    data, state, res, _, B, rounded, frozen, *per_k = args
     L, cap, nf = state.node_lo.shape
     M = state.inc_w.shape[1]
 
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
-    fields = [t for f, t in zip(state._fields, state)
-              if f not in ("per_k_w", "per_k_n", "per_k_y", "per_k_dropped")]
+    passed = () if per_k and per_k[0] else ("per_k_w", "per_k_n", "per_k_y", "per_k_dropped")
+    fields = [t for f, t in zip(state._fields, state) if f not in passed]
     lp = (res.v, res.reduced, res.y_dual, res.z_dual, res.f_dual, res.bound, res.iters_run)
     ins = (*lp, data.int_mask, data.obj_const, frozen,
            *((data.Ws, data.ks, data.rd_packed) if rounded is None else rounded))
@@ -3384,15 +3399,28 @@ def host_ms(fn, reps: int = 20) -> float:
 
 
 def round_tail_cases() -> dict:
-    """The round tails of five cases as the search hands them over: the
+    """The round tails of eleven cases as the search hands them over: the
     north star's rounds (cold solve), the S=8 scenario batch's and the same
     with lane 3 frozen, the DeepSeek-V3 flagship's root and second MoE
     rounds, the fleet M=128's rounds on the PDHG engine and the north star's
-    rounds on K10's 8 shards of a virtual mesh of this card."""
+    rounds on K10's 8 shards of a virtual mesh of this card; per-k rounds
+    (``per_k``): ``halda_solve_per_k`` on hermes_70b, the north star and
+    Mixtral M=4 (MoE rows), the stream path's per-k lanes and the same with
+    lane 1 frozen, three rounds of the north star per k on K10's 8 shards,
+    and hermes_70b per k at a forced capacity of 12, whose rounds spill."""
+    import warnings
+
     import torch
 
+    from distilp_torch.common import load_from_profile_folder
     from distilp_torch.parallel import solve_sweep_sharded
-    from distilp_torch.solver import halda_solve, halda_solve_scenarios, search
+    from distilp_torch.solver import (
+        halda_solve,
+        halda_solve_per_k,
+        halda_solve_scenarios,
+        search,
+        solve_batch,
+    )
     from distilp_torch.solver.search import root_state
     from distilp_torch.utils import make_synthetic_fleet
 
@@ -3430,27 +3458,111 @@ def round_tail_cases() -> dict:
         _, _, coeffs, arrays, feasible, _, _ = load_instance(16, 123)
         cases["k10_north_star_8_shards"] = tails(lambda: solve_sweep_sharded(
             arrays, feasible, coeffs, virtual_mesh(8), mip_gap=MESH_SWEEP_GAP))
+        hermes = load_from_profile_folder(ROOT / "tests" / "profiles" / "hermes_70b")
+        cases["per_k_hermes_70b"] = tails(lambda: halda_solve_per_k(
+            *hermes, mip_gap=1e-4, kv_bits="4bit"))
+        cases["per_k_north_star"] = tails(lambda: halda_solve_per_k(
+            make_synthetic_fleet(16, seed=123), model, mip_gap=1e-3, kv_bits="4bit"))
+        cases["per_k_mixtral_M4"] = tails(lambda: halda_solve_per_k(
+            make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9)), moe_model("mixtral_8x7b"),
+            mip_gap=MOE_GAP, kv_bits="8bit"))
+        calls = tails(lambda: solve_batch(per_k_lanes(model)))
+        frozen = torch.zeros(calls[0][1].node_lo.shape[0], dtype=torch.bool, device="cuda")
+        frozen[1] = True
+        cases["per_k_lanes_frozen"] = calls + [a[:6] + (frozen, True) for a in calls]
+        cases["per_k_k10_north_star_8_shards"] = tails(lambda: solve_sweep_sharded(
+            arrays, feasible, coeffs, virtual_mesh(8), mip_gap=MESH_SWEEP_GAP, per_k=True,
+            max_rounds=3))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cases["per_k_hermes_cap12_spill"] = tails(lambda: halda_solve_per_k(
+                *hermes, mip_gap=1e-9, kv_bits="4bit", node_cap=12, beam=12, max_rounds=8))
+    for name, calls in cases.items():
+        per_k = name.startswith("per_k_")
+        if not calls or any(bool(len(a) > 7 and a[7]) != per_k for a in calls):
+            fail(f"round tail case {name}: {len(calls)} tails, not all {'' if per_k else 'non-'}"
+                 f"per-k")
     return cases
 
 
+# Per-k tails stretched from a captured one: (L, n_k, cap, beam). The first
+# is the largest per-k shape the tail takes (1142 keys a lane, B15's lane
+# timing shape); the others spill hard, or hold few k's.
+STRETCHED_PER_K = ((8, 43, 992, 150), (3, 9, 12, 12), (2, 5, 40, 30), (4, 20, 100, 64))
+
+
+def stretched_per_k_tail(args, rng, L: int, n_k: int, cap: int, B: int):
+    """A captured dense per-k round tail stretched to L lanes, n_k k's,
+    capacity ``cap`` and beam ``B``: the state's rows and the LP rows drawn
+    from the captured ones, each k's rounding data from a captured k's; the
+    k's, active flags, bounds (ties, +-inf), per-k bests and floors and
+    the frozen lanes drawn at random."""
+    import numpy as np
+    import torch
+
+    from distilp_torch.solver.rounding import RoundingData
+
+    data, state, res, gap, B0 = args[:5]
+    dev = state.node_lo.device
+    cap0, nk0 = state.node_lo.shape[1], state.per_k_best.shape[1]
+    T = lambda a, dt=None: torch.as_tensor(a, device=dev, dtype=dt)  # noqa: E731
+    rows, lp, ks = (T(rng.integers(0, cap0, (L, cap))), T(rng.integers(0, B0, L * B)),
+                    T(rng.integers(0, nk0, n_k)))
+    lanes = lambda t: t[:1].expand(L, *t.shape[1:]).contiguous()  # noqa: E731
+    bound = state.node_bound[0][rows].clone()
+    finite = bound[torch.isfinite(bound)]
+    base = float(finite.median()) if finite.numel() else 0.0
+    pick = T(rng.integers(0, 6, (L, cap)))
+    steps = T([-np.inf, 0.0, 0.0, 1e-3, 2e-3, np.inf], torch.float64)
+    bound = torch.where(pick == 1, bound, base + steps[pick] * max(1.0, abs(base)))
+    best = state.per_k_best[0][ks]
+    choice = T(rng.integers(0, 3, (L, n_k)))
+    st = state._replace(
+        **{f: getattr(state, f)[0][rows] for f in ("node_lo", "node_hi", "node_v", "node_y",
+                                                   "node_z", "node_f", "node_warm")},
+        node_kidx=T(rng.integers(0, n_k, (L, cap)), torch.int32), node_bound=bound,
+        active=T(rng.random((L, cap)) < rng.uniform(0.3, 1.0)),
+        incumbent=lanes(state.incumbent), inc_w=lanes(state.inc_w), inc_n=lanes(state.inc_n),
+        inc_y=lanes(state.inc_y), inc_kidx=lanes(state.inc_kidx),
+        dropped_bound=lanes(state.dropped_bound),
+        per_k_best=torch.where(choice == 0, float("inf"), best + (choice == 2) * 1e-3),
+        per_k_w=state.per_k_w[0][ks].expand(L, -1, -1).contiguous(),
+        per_k_n=state.per_k_n[0][ks].expand(L, -1, -1).contiguous(),
+        per_k_y=state.per_k_y[0][ks].expand(L, -1, -1).contiguous(),
+        per_k_dropped=torch.where(choice == 1, base, float("inf")) + 0.0 * best,
+        stat_ipm_iters=lanes(state.stat_ipm_iters), stat_rounds=lanes(state.stat_rounds))
+    n0 = res.v.shape[0]
+    res = type(res)(*[f[lp] if isinstance(f, torch.Tensor) and f.dim() and f.shape[0] == n0
+                      else f for f in res])
+    dt = data._replace(
+        int_mask=lanes(data.int_mask), obj_const=lanes(data.obj_const),
+        Ws=data.Ws[0][ks].expand(L, -1).contiguous(), ks=data.ks[0][ks].expand(L, -1).contiguous(),
+        rd=RoundingData(*[lanes(f) for f in data.rd]), rd_packed=lanes(data.rd_packed))
+    frozen = T(rng.random(L) < 0.25) if L > 1 and rng.random() < 0.5 else None
+    return dt, st, res, gap, B, None, frozen, True
+
+
 def check_round_tail(report: dict) -> None:
-    """R8, the round tail: on every round tail of five cases
-    (``round_tail_cases``) the fused launch against its plain version on the
-    same inputs (K2's and K3's entries inside it), every field of the new
-    state and the go flags equal; then per case the fused launch's device
-    and call ms, its host enqueue, the plain version's ms with K2's and
-    K3's plain versions (the tail as plain PyTorch), and the sequence it
-    replaced (the plain version as the card ran it before: K2, the torch
-    operations, K3) by CUDA events and host enqueue; and the launches of
-    one north-star warm round, fused and as before."""
+    """R8, the round tail: on every round tail of eleven cases
+    (``round_tail_cases``, six of them per-k) the fused launch against its
+    plain version on the same inputs (K2's and K3's entries inside it, and
+    in per-k mode B15's), every field of the new state and the go flags
+    equal; then per case the fused launch's device and call ms, its host
+    enqueue, the plain version's ms with K2's, K3's and B15's plain versions
+    (the tail as plain PyTorch), and the sequence it replaced (the plain
+    version as the card ran it before: K2, the torch operations, K3, in
+    per-k mode B15's two entries) by CUDA events and host enqueue; and the
+    launches of one north-star warm round and one per-k round (hermes_70b,
+    Mixtral M=4, the per-k lanes), fused and as before."""
+    import numpy as np
     import torch
 
     from distilp_torch.solver import search
 
-    cases = round_tail_cases()
-    lines = {}
-    for name, calls in cases.items():
-        held, bitwise = 0, True
+    def hold(name, calls):
+        """Each tail against its plain version: (held, bit for bit, tails
+        with a finite per-k floor)."""
+        held, bitwise, spilled = 0, True, 0
         for args in calls:
             got = search.round_tail(*args)
             ref = search.round_tail_reference(*args)
@@ -3459,11 +3571,14 @@ def check_round_tail(report: dict) -> None:
             if bad:
                 fail(f"round_tail kernel disagrees with its plain version on {name} "
                      f"(L={args[1].node_lo.shape[0]}, beam={args[4]}, "
-                     f"pre-rounded={args[5] is not None}, frozen={args[6] is not None}): {bad}")
+                     f"pre-rounded={args[5] is not None}, frozen={args[6] is not None}, "
+                     f"per-k={len(args) > 7 and args[7]}): {bad}")
             bitwise = bitwise and tail_same_bits(got, ref)
+            spilled += int(bool(torch.isfinite(got[0].per_k_dropped).any()))
             held += 1
-        # Times on the case's widest round (the root round's copy phase).
-        args = max(calls, key=lambda a: a[1].node_lo.numel() * (a[4] + 1))
+        return held, bitwise, spilled
+
+    def timed(name, args, held, bitwise, spilled):
         ms, call, src = time_kernel(lambda: search.round_tail(*args), "round_tail_kernel")
         enq = host_ms(lambda: search.round_tail(*args))
         with plain_kernels():
@@ -3476,12 +3591,36 @@ def check_round_tail(report: dict) -> None:
         lines[name] = line = {
             "tails_held": held, "bit_for_bit": bitwise, "L": L, "beam": args[4], "cap": cap,
             "nf": nf, "M": args[1].inc_w.shape[1], "pre_rounded": args[5] is not None,
-            "frozen": args[6] is not None, "ms": ms, "call_ms": call, "ms_source": src,
+            "frozen": args[6] is not None, "per_k": bool(len(args) > 7 and args[7]),
+            "n_k": args[1].per_k_best.shape[1], "tails_with_a_per_k_floor": spilled,
+            "ms": ms, "call_ms": call, "ms_source": src,
             "host_enqueue_ms": enq, "plain_ms": plain, "replaced_sequence_ms": seq,
             "replaced_sequence_host_enqueue_ms": seq_enq, "bound_ms": b_ms, "bound_by": b_by}
         print("round tail vs plain", name, json.dumps(line), flush=True)
+
+    cases = round_tail_cases()
+    lines = {}
+    for name, calls in cases.items():
+        held, bitwise, spilled = hold(name, calls)
+        if name.endswith("_spill") and not spilled:
+            fail(f"round tail case {name}: no per-k round spilled a node")
+        # Times on the case's widest round (the root round's copy phase).
+        args = max(calls, key=lambda a: a[1].node_lo.numel() * (a[4] + 1))
+        timed(name, args, held, bitwise, spilled)
+    # Per-k tails stretched from the north star's last per-k tail to the
+    # largest per-k shape and to hard-spilling ones, six of each, held bit
+    # for bit; timed at the largest.
+    rng = np.random.default_rng(15)
+    stretched = [stretched_per_k_tail(cases["per_k_north_star"][-1], rng, *shape)
+                 for shape in STRETCHED_PER_K for _ in range(6)]
+    held, bitwise, spilled = hold("per_k_stretched", stretched)
+    if not spilled:
+        fail("round tail: no stretched per-k tail spilled a node")
+    L, _, cap, B = STRETCHED_PER_K[0]
+    stretched_name = f"per_k_stretched_{L}x{cap + B}"
+    timed(stretched_name, stretched[0], held, bitwise, spilled)
     # One north-star warm round (its LP call included), fused and as before.
-    data, state, _, gap, B, _, _ = cases["north_star"][-1]
+    data, state, _, gap, B, *_ = cases["north_star"][-1]
     run = lambda: search.bnb_round(data, state, gap, beam=B)  # noqa: E731
     fused = kernel_launches(run)
     with reference_tail():
@@ -3493,22 +3632,43 @@ def check_round_tail(report: dict) -> None:
             k in fused["wrappers"] for k in ("round_incumbent", "bnb_epilogue")):
         fail(f"a dense round did not run as one round_tail launch: {fused}")
     # A MoE round: its LP call, K2's MoE mode and one round tail.
-    data, state, _, gap, B, _, _ = cases["flagship_moe"][-1]
+    data, state, _, gap, B, *_ = cases["flagship_moe"][-1]
     moe = kernel_launches(lambda: search.bnb_round(data, state, gap, beam=B))
     print("round tail launches a MoE round", json.dumps({
         "round": f"flagship second round, beam {B}", "fused": moe}), flush=True)
     if moe["wrappers"] != {"ipm": 1, "round_moe": 1, "round_tail": 1}:
         fail(f"a MoE round did not run as K2 MoE and one round_tail launch: {moe}")
-    for key, case in (("round_tail", "north_star"), ("round_tail_lanes", "scenarios_S8_frozen")):
+    # Per-k rounds (their LP call included): hermes_70b's warm round fused
+    # and as before, a Mixtral MoE round, and the per-k lanes' first round.
+    per_k_rounds = {}
+    for case, want in (("per_k_hermes_70b", {"ipm": 1, "round_tail": 1}),
+                       ("per_k_mixtral_M4", {"ipm": 1, "round_moe": 1, "round_tail": 1}),
+                       ("per_k_lanes_frozen", {"ipm": 1, "round_tail_lanes": 1})):
+        data, state, _, gap, B, *_ = cases[case][0 if case == "per_k_lanes_frozen" else -1]
+        run = lambda: search.bnb_round(data, state, gap, beam=B, per_k=True)  # noqa: E731
+        got = per_k_rounds[case] = {"beam": B, "fused": kernel_launches(run)}
+        if case == "per_k_hermes_70b":
+            with reference_tail():
+                got["before"] = kernel_launches(run)
+        if got["fused"]["wrappers"] != want:
+            fail(f"a per-k round of {case} did not run as {want}: {got['fused']}")
+    print("round tail launches a per-k round", json.dumps(per_k_rounds), flush=True)
+    for key, case, pk in (("round_tail", "north_star", "per_k_hermes_70b"),
+                          ("round_tail_lanes", "scenarios_S8_frozen", stretched_name)):
         ln = lines[case]
         report[key] = dict(
             name=key, route="cuda", source="distilp_torch/kernels/csrc/round_tail_kernel.cu",
             replaces="distilp_tpu/solver/backend_jax.py:1577 (the part of _bnb_round after its "
-                     "LP call, to :1800) and :2704 (_certified)",
+                     "LP call, to :1800) and :2704 (_certified); per-k mode :1597-1627, "
+                     ":1699-1702, :1728-1774 and :2721 (_certified_per_k, :2709 _per_k_bound)",
             max_abs_err=0.0, ms=ln["ms"], plain_ms=ln["plain_ms"], bound_ms=ln["bound_ms"],
             bound_by=ln["bound_by"], library_ms=None, held_against_plain="ok",
             call_ms=ln["call_ms"], ms_source=ln["ms_source"],
-            replaced_sequence_ms=ln["replaced_sequence_ms"], cases=lines)
+            replaced_sequence_ms=ln["replaced_sequence_ms"],
+            per_k={f: lines[pk][f] for f in ("ms", "call_ms", "ms_source", "plain_ms",
+                                              "replaced_sequence_ms", "bound_ms", "bound_by",
+                                              "L", "beam", "cap", "n_k")} | {"case": pk},
+            per_k_round_launches=per_k_rounds, cases=lines)
 
 
 def _lane(args, q: int):
@@ -3555,7 +3715,8 @@ def check_per_k_lanes(report: dict) -> None:
     """K3's per-k entries with a grid over lanes, each lane launch against
     the plain version and, bit for bit, against one single-lane launch per
     lane: on every call of the stream path's per-k lanes (the mixed-M
-    bucket's three fleets through ``solve_batch``) and on 200 random
+    bucket's three fleets through ``solve_batch``, their rounds through the
+    round tail's plain version, which calls them) and on 200 random
     frontiers of 2-8 lanes."""
     import numpy as np
     import torch
@@ -3565,7 +3726,7 @@ def check_per_k_lanes(report: dict) -> None:
 
     calls = {"incumbent": [], "rank": []}
     with captured(search, "per_k_incumbent", calls["incumbent"]), \
-            captured(search, "per_k_fair_rank", calls["rank"]):
+            captured(search, "per_k_fair_rank", calls["rank"]), reference_tail():
         solve_batch(per_k_lanes(online_model()))
     bad = []
     stream = [(a_i, a_r) for (a_i, _), (a_r, _) in zip(calls["incumbent"], calls["rank"])]
@@ -4300,8 +4461,11 @@ ROUTING_CASES = [
     ("mixtral_M4_hot2", MOE_CASES[0], "hot2", -133.03134596488897),
     ("deepseek_v3_M32_lognormal", FLAGSHIP, "lognormal", -400.92408046855377),
 ]
-SWEEP_KERNELS = ("ipm", "round_incumbent", "round_moe", "bnb_epilogue", "decomp",
-                 "bnb_per_k", "price_fixed", "round_tail")
+SWEEP_KERNELS = ("ipm", "round_moe", "decomp", "price_fixed", "round_tail")
+# Kernels whose work the round tail does on every path (K3's entry and
+# B15's, per-k rounds included since the tail's per-k mode): they run only
+# inside the tail's plain version, and no path may launch them.
+FOLDED_INTO_TAIL = ("bnb_epilogue", "bnb_epilogue_lanes", "bnb_per_k", "bnb_per_k_lanes")
 
 
 def routing_loads(kind: str):
@@ -4326,11 +4490,16 @@ def sweep_path() -> dict:
 
     def per_k(name, devs, model, gap, kv_bits):
         tm = {}
+        before = {k: kernels.LAUNCHES[k] for k in ("round_incumbent",) + FOLDED_INTO_TAIL}
         torch.cuda.synchronize()
         t = time.perf_counter()
         rs = halda_solve_per_k(devs, model, mip_gap=gap, kv_bits=kv_bits, timings=tm)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
+        # Every per-k round rounds, prunes and compacts in the round tail.
+        extra = {k: kernels.LAUNCHES[k] - v for k, v in before.items() if kernels.LAUNCHES[k] != v}
+        if extra:
+            fail(f"per-k {name}: its rounds launched {extra} beside the round tail")
         print(f"per-k {name}: {len(rs)} k's, wall_ms={ms:.2f} rounds={tm.get('bnb_rounds')} "
               f"lp_iters={tm.get('ipm_iters_executed')} build_sf_ms="
               f"{tm.get('build_sf_ms', 0.0):.2f} upload_ms={tm.get('upload_ms', 0.0):.2f} "
@@ -4468,8 +4637,7 @@ FLAGSHIP_TICK_PINS = [(-400.80947050866087, "cold"), (-400.81776379536154, "marg
                       (-426.1811522913107, "margin")]
 BUCKETS = (2, 4, 8, 16, 32, 64, 128)  # the JAX package's combine.BucketPolicy boundaries
 STREAM_KERNELS = ("ipm", "round_incumbent", "round_incumbent_lanes", "round_moe",
-                  "round_moe_lanes", "round_tail", "round_tail_lanes", "bnb_epilogue_lanes",
-                  "decomp", "decomp_lanes", "bnb_per_k_lanes")
+                  "round_moe_lanes", "round_tail", "round_tail_lanes", "decomp", "decomp_lanes")
 
 
 def held_to(name, r, pin, gap, k=None):
@@ -4943,7 +5111,7 @@ def diagnose_path() -> dict:
 # per receiving shard; S - 1 operations per element.
 MESH_SHARDS = (2, 4)
 MESH_KERNELS = ("pdhg_sharded", "pdhg_sharded_elem", "collective", "pdhg", "ipm",
-                "round_incumbent", "round_moe", "bnb_epilogue", "round_tail", "decomp")
+                "round_incumbent", "round_moe", "round_tail", "decomp")
 # K6b against the unsharded K5 at equal step counts: float64 obj and bound
 # within 1e-9 relative (the two sum the same products in another order);
 # float32 holds the float64 bound as check_pdhg does (TOL_PDHG_F32_CERT).
@@ -5864,7 +6032,12 @@ def main() -> int:
                 for k in ("ipm", "pdhg", "pdhg_elem", "ipm_trace", "pdhg_trace",
                           "pdhg_sharded", "pdhg_sharded_elem", "decomp", "decomp_lanes")}
     print("main path launches by shape", json.dumps(by_shape), flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    # K3's entry and B15's run only inside the round tail's plain version:
+    # every round, per-k or not, is one round tail after its LP call.
+    folded = {k: launches[k] for k in FOLDED_INTO_TAIL if launches[k]}
+    if folded:
+        fail(f"the main paths launched kernels the round tail folds: {folded}")
+    missing = [k for k, v in launches.items() if v == 0 and k not in FOLDED_INTO_TAIL]
     if missing:
         fail(f"main path never launched {missing}")
     # Every K5 element on the main paths fits a cluster: no launch of theirs

@@ -33,9 +33,9 @@ import torch
 # shard. K7 breaks its launches down by entry: "ascent" (the fused ascent,
 # one a call whatever its steps), "eval64" and "eval32" (the per-step entry:
 # DecompBound32 and the card's yardstick of the ascent). The round tail
-# (R8: a non-per-k round's rounding, incumbent, threshold, epilogue and
-# compaction in one launch) counts "round_tail", or "round_tail_lanes" for
-# a launch over more than one lane.
+# (R8: a round's rounding, incumbent, thresholds, epilogue and compaction
+# in one launch, a per-k round's too) counts "round_tail", or
+# "round_tail_lanes" for a launch over more than one lane.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,

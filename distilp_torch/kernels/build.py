@@ -50,7 +50,7 @@ SOURCES: Dict[str, tuple] = {
     "collective": ("collective_kernel.cu", []),
     "round_tail": ("round_tail_kernel.cu", ["--fmad=false"]),
 }
-HEADERS = ("common.cuh", "round_row.cuh", "epilogue_row.cuh")
+HEADERS = ("common.cuh", "round_row.cuh", "epilogue_row.cuh", "per_k_row.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -147,7 +147,7 @@ SIGNATURES = {
         "dtk_allreduce_f64": [_P, _I, _L, _I, _P, _P],
     },
     "round_tail": {
-        "dtk_round_tail_smem_bytes": [_I] * 4,
+        "dtk_round_tail_smem_bytes": [_I] * 6,
         "dtk_round_tail_ws_bytes": [_I] * 4,
         "dtk_round_tail": [_P, _P, _D, _P],
     },

@@ -9,10 +9,9 @@
 // fractional, else the widest box; jnp.argmax's first-index rule), split it
 // into the two child boxes, and carry the solved iterate to both children.
 // The per-row arithmetic lives in epilogue_row.cuh, shared with the round
-// tail (round_tail_kernel.cu), which runs a non-per-k round's epilogue
-// itself beside the incumbent, the threshold and the compaction: this entry
-// serves per-k rounds, where the scalar reductions over the beam (B15 below)
-// and the two stable argsorts of the compaction stay outside it.
+// tail (round_tail_kernel.cu), which runs every round's epilogue itself
+// beside the incumbent, the thresholds and the compaction: this entry
+// serves the tail's plain version (solver/search.py::tail_tensors).
 //
 // Per-row instance: `obj_const` holds one constant per instance and
 // `int_mask` one (nf,) mask per instance; row r reads those of inst[r]
@@ -25,27 +24,30 @@
 // launch latency; the design reads every input once and writes every output
 // once from one block per row, with the row's reductions in shared memory.
 //
-// K3's per-k mode: two more entries for _bnb_round(per_k=True), where every
-// node prunes against its own k's incumbent (backend_jax.py:1597-1627,
-// :1699-1702, :1728-1774).
+// K3's per-k mode (B15): two more entries for _bnb_round(per_k=True), where
+// every node prunes against its own k's incumbent (backend_jax.py:1597-1627,
+// :1699-1702, :1728-1774). Their per-k bodies live in per_k_row.cuh, shared
+// with the round tail (round_tail_kernel.cu), whose per-k mode runs a whole
+// per-k round after its LP call in one launch; these entries serve the
+// tail's plain version (solver/search.py::tail_tensors).
 //   dtk_bnb_per_k_incumbent, before the per-row epilogue: per k, the round's
-//     best row of that k (the first index on ties, as jnp.argmin), the per-k
-//     incumbent it improves and a copy of that row's w, n, y; then the prune
-//     threshold of every frontier row from its own k's incumbent. One block:
-//     a warp per k reduces over the B rows, then the block writes the cap
-//     thresholds from the n_k in shared memory.
+//     best row of that k (pk_best_row), the per-k incumbent it improves and a
+//     copy of that row's w, n, y (pk_take_row); then the prune threshold of
+//     every frontier row from its own k's incumbent. One block: a warp per k
+//     reduces over the B rows, then the block writes the cap thresholds from
+//     the n_k in shared memory.
 //   dtk_bnb_per_k_rank, after the first stable (best-bound-first) argsort of
-//     the child rows: each active row's rank among its k's active rows (a
-//     block-wide per-k prefix count: warp match groups, per-warp counts in
-//     shared memory, tiles in order), the int64 fair key rank * (total + 1) +
-//     position, and the per-k floor of the bounds that the fair order puts
-//     past the capacity. That order lists the rank-0 rows, then the rank-1
-//     rows, ..., each group by position; so a row is spilled iff its rank
-//     exceeds R*, the largest r with sum_k min(cnt_k, r) < cap, or equals R*
-//     and its place in the rank-R* group (a block-wide prefix count of one
-//     flag) lands at or past cap. The second argsort, which the caller makes
-//     for the kept rows, is not needed for it. The floor is a shared-memory
-//     atomicMin over the bounds' order-preserving 64-bit keys.
+//     the child rows: each active row's rank among its k's active rows
+//     (pk_ranks: warp match groups, per-warp counts in shared memory, tiles
+//     in order), the int64 fair key rank * (total + 1) + position, and the
+//     per-k floor of the bounds that the fair order puts past the capacity.
+//     That order lists the rank-0 rows, then the rank-1 rows, ..., each group
+//     by position; so a row is spilled iff its rank exceeds R*, the largest r
+//     with sum_k min(cnt_k, r) < cap, or equals R* and its place in the
+//     rank-R* group (a block-wide prefix count of one flag) lands at or past
+//     cap. The second argsort, which the caller makes for the kept rows, is
+//     not needed for it. The floor is a shared-memory atomicMin over the
+//     bounds' order-preserving 64-bit keys.
 // Both take a grid over lanes, one block per lane as for one sweep: every
 // array carries a leading lane axis and block l reads and writes lane l's
 // slices alone (a batch of per-k sweeps in one launch).
@@ -53,6 +55,7 @@
 // devices, cap + B <= 36 n_k child rows, a few KB in and out, per lane.
 
 #include "epilogue_row.cuh"
+#include "per_k_row.cuh"
 
 namespace {
 
@@ -155,31 +158,20 @@ __global__ void per_k_incumbent_kernel(
   const int wid = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   for (int k = wid; k < n_k; k += nw) {
-    // The round's best row of k: argmin of where(kidx == k, obj, inf).
-    double v = INFINITY;
-    int r_star = INT_MAX;
-    for (int r = lane; r < B; r += 32) {
-      argmin_combine(v, r_star, kidx_p[r] == k ? obj_full[r] : (double)INFINITY, r);
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const double v2 = __shfl_xor_sync(FULL, v, o);
-      const int i2 = __shfl_xor_sync(FULL, r_star, o);
-      argmin_combine(v, r_star, v2, i2);
-    }
+    double v;
+    int r_star;
+    pk_best_row(B, k, kidx_p, obj_full, v, r_star);
     const double old = best_in[k];
     const bool improved = v < old;
-    const double best = nan_min(old, v);
+    const double best = t_min(old, v);
     if (lane == 0) {
       best_out[k] = best;
-      s_thr[k] = isfinite(best) ? best - mip_gap * fabs(best) : INFINITY;
+      s_thr[k] = prune_threshold(best, mip_gap);
     }
     const size_t rs = (size_t)(r_star == INT_MAX ? 0 : r_star) * M;
-    for (int j = lane; j < M; j += 32) {
-      const size_t o = (size_t)k * M + j;
-      w_out[o] = improved ? w_int[rs + j] : w_in[o];
-      n_out[o] = improved ? n_int[rs + j] : n_in[o];
-      y_out[o] = improved ? (y_int != nullptr ? y_int[rs + j] : 0.0) : y_in[o];
-    }
+    const size_t ko = (size_t)k * M;
+    pk_take_row(M, improved, w_int + rs, n_int + rs, y_int != nullptr ? y_int + rs : nullptr,
+                w_in + ko, n_in + ko, y_in + ko, w_out + ko, n_out + ko, y_out + ko);
   }
   __syncthreads();
   for (int r = threadIdx.x; r < cap; r += blockDim.x) thr_rows[r] = s_thr[node_kidx[r]];
@@ -210,44 +202,18 @@ __global__ void per_k_rank_kernel(
   const int nw = nt >> 5;
   const unsigned lanes_below = (1u << lane) - 1u;
   const long long stride = (long long)total + 1;
-  for (int i = tid; i < n_k; i += nt) {
-    s_min[i] = order_key(INFINITY);
-    s_run[i] = 0;
-  }
-  for (int i = tid; i < nw * n_k; i += nt) s_wc[i] = 0;
-  __syncthreads();
+  for (int i = tid; i < n_k; i += nt) s_min[i] = order_key(INFINITY);
 
   // 1. Each active row's rank among its k's active rows, in position order.
-  for (int base = 0; base < total; base += nt) {
-    const int p = base + tid;
-    int k = -1;
-    if (p < total) {
-      const long long src = order[p];
-      if (child_active[src] != 0) k = child_kidx[src];
-    }
-    const unsigned grp = __match_any_sync(FULL, k);
-    if (k >= 0 && lane == __ffs(grp) - 1) s_wc[wid * n_k + k] = __popc(grp);
-    __syncthreads();
-    if (p < total) {
-      long long rank = total;
-      if (k >= 0) {
-        int off = s_run[k] + __popc(grp & lanes_below);
-        for (int q = 0; q < wid; ++q) off += s_wc[q * n_k + k];
-        rank = off;
-      }
-      fair_key[p] = rank * stride + p;
-    }
-    __syncthreads();
-    for (int i = tid; i < n_k; i += nt) {
-      int sum = 0;
-      for (int q = 0; q < nw; ++q) {
-        sum += s_wc[q * n_k + i];
-        s_wc[q * n_k + i] = 0;
-      }
-      s_run[i] += sum;
-    }
-    __syncthreads();
-  }
+  pk_ranks(
+      total, n_k, s_run, s_wc,
+      [&](int p) {
+        const long long src = order[p];
+        return child_active[src] != 0 ? child_kidx[src] : -1;
+      },
+      [&](int p, int k, int rank) {
+        fair_key[p] = (k >= 0 ? (long long)rank : (long long)total) * stride + p;
+      });
 
   // 2. R*: the largest rank r with A(r) = sum_k min(cnt_k, r) < cap (none
   // when every active row fits).

@@ -25,9 +25,9 @@
 // row, not bytes or FLOPs. The design keeps a row's w and remainders in
 // shared memory and every reduction in warp shuffles: no block barrier.
 //
-// Since the round tail (round_tail_kernel.cu) rounds a non-per-k round's
-// beam rows itself, this entry serves the warm hint, per-k rounds and the
-// node-sharded sweep's shards.
+// Since the round tail (round_tail_kernel.cu) rounds every round's dense
+// beam rows itself, this entry serves the warm hint, the node-sharded
+// sweep's shards and the tail's plain version.
 
 #include "round_row.cuh"
 

@@ -1,13 +1,17 @@
-// R8: the tail of a branch-and-bound round, everything after the LP solve of
-// a non-per-k round, in one cooperative launch on one card.
+// R8: the tail of a branch-and-bound round, everything after its LP solve,
+// in one cooperative launch on one card; a per-k round (dims' per_k) as well
+// as a round that prunes against one incumbent.
 //
 // Replaces the part of distilp_tpu/solver/backend_jax.py::_bnb_round after
-// its LP call (:1577-1800) and its loop's condition ::_certified (:2704),
-// which the TPU runs as one device program, and which the port ran as K2,
-// some seventy torch operations (the incumbent argmin, the per-k
-// scatter-min and the threshold, the children's concatenation, a stable
-// argsort, the compaction's gathers, the spill minimum, the counters, the
-// frozen lanes' selection), K3 and the loop's go test. For each lane:
+// its LP call (:1577-1800; with per_k=True also :1597-1627, :1699-1702,
+// :1728-1774) and its loop's condition ::_certified (:2704), or in per-k
+// mode ::_certified_per_k (:2721) with ::_per_k_bound (:2709), which the TPU
+// runs as one device program, and which the port ran as K2, some seventy
+// torch operations (the incumbent argmin, the per-k scatter-min and the
+// threshold, the children's concatenation, a stable argsort, the
+// compaction's gathers, the spill minimum, the counters, the frozen lanes'
+// selection), K3 and the loop's go test; a per-k round besides B15's two
+// launches, a second argsort and the per-k certificate. For each lane:
 //   1. rounding: K2's per-row rounding of each active beam row's LP point
 //      (round_row.cuh), or, pre-rounded, the rows' (obj, w, n[, y]) as K2's
 //      MoE mode or the node-sharded sweep's shards computed them;
@@ -16,42 +20,59 @@
 //      the improvement and the incumbent's w, n, y and k index;
 //   3. each k's best (a NaN-propagating scatter-min) and the prune
 //      threshold incumbent - mip_gap |incumbent| (+inf with no incumbent);
-//   4. K3's per-row epilogue (epilogue_row.cuh, a warp a row);
+//      per-k mode: each k's threshold from its own best, and each improved
+//      k's w, n, y from its best row (B15's incumbent body, per_k_row.cuh);
+//   4. K3's per-row epilogue (epilogue_row.cuh, a warp a row), each row
+//      against the threshold (per-k mode: its own k's);
 //   5. the children (A rows, B rows, pass-through rows pruned against the
 //      threshold) in the stable order of where(active, bound, inf), as
 //      torch.argsort(stable=True) orders it: the key canonicalised (-0.0 as
 //      0.0, every NaN one key above +inf) and ranked by counting over
-//      (key, index) pairs in shared memory; the first cap rows kept, the
-//      spilled live bounds' minimum folded into dropped_bound;
-//   6. the go flag: any node active and no certificate, on the new state;
+//      (key, index) pairs in shared memory. Per-k mode re-ranks that order
+//      k-fairly (B15's rank): each active row's rank g among its k's active
+//      rows in it (pk_ranks), then its place in the order of the fair key
+//      g (total + 1) + position, which is sum_k min(cnt_k, g) plus the
+//      rank-g rows of other k's placed before it in the first order (a
+//      table of each k's rows by rank); an inactive row's place is after
+//      every active row, by position. The first cap rows are kept, the
+//      spilled live bounds' minimum folded into dropped_bound (per-k mode:
+//      and per k into per_k_dropped);
+//   6. the go flag: any node active and no certificate, on the new state
+//      (per-k mode: some k not settled, each k's bound the minimum of its
+//      live bounds and its overflow floor);
 //   7. a frozen lane's state written through unchanged.
 // Then, after one grid sync, every block copies the kept rows' boxes and
 // warm iterates (lo, hi, v, y, z, f) into the new state, recomputing a beam
 // child's box column by column from the row's epilogue scalars.
 //
-// The outputs are fresh memory: the loop keeps views of earlier states.
-// Everything is a comparison, a selection, a copy or a float64 add, the
-// threshold's and the certificate's products and differences rounded one
-// by one (__dmul_rn, __dsub_rn; the file is built with --fmad=false for K2's
-// and K3's arithmetic): bit for bit the plain version
+// The outputs are fresh memory: the loop keeps views of earlier states (the
+// per-k fields too in per-k mode; the other mode passes them through).
+// Everything is a comparison, a selection, a copy, a count or a float64
+// add, the thresholds' and the certificates' products and differences
+// rounded one by one (__dmul_rn, __dsub_rn; the file is built with
+// --fmad=false for K2's and K3's arithmetic): bit for bit the plain version
 // (solver/search.py::round_tail_reference).
 //
 // What bounds it on an H100: the copies. A lane's kept rows are cap x
 // (5 nf + m) float32 read and written (the fleet's 128-device root: 64 x
-// (5 x 1665 + 769) x 4 B = 2.3 MB each way); the decisions are small (B <= a
-// few dozen beam rows, cap + B keys a lane, K2's O(M^2) scan a row). So the
-// decisions run first, one block a lane (the rounding and the epilogue a
-// warp a row), and the copies are spread over every block of the card, four
-// independent loads in flight a thread. A cooperative launch with one grid
-// sync (~1.1 us) was chosen over a thread-block cluster a lane: a cluster of
-// at most 16 SMs could not spread one lane's copy over the card, and lanes
-// (L up to 140) would not fit one cluster each at once.
+// (5 x 1665 + 769) x 4 B = 2.3 MB each way); the decisions are small on
+// the paths (B <= 36 beam rows, cap + B <= 324 keys a lane, K2's O(M^2) scan
+// a row). So the decisions run first, one block a lane (the rounding and the
+// epilogue a warp a row, per-k folds a warp a k; the order an O(keys^2)
+// count, cheaper than a sorting network's barriers at these sizes, though
+// not at ~1000 keys a lane), and the copies are spread over every block of
+// the card, four independent loads in flight a thread. A
+// cooperative launch with one grid sync (~1.1 us) was chosen over a
+// thread-block cluster a lane: a cluster of at most 16 SMs could not spread
+// one lane's copy over the card, and lanes (L up to 140) would not fit one
+// cluster each at once.
 
 #include <cooperative_groups.h>
 
 #include <mutex>
 
 #include "epilogue_row.cuh"
+#include "per_k_row.cuh"
 #include "round_row.cuh"
 
 namespace cg = cooperative_groups;
@@ -74,6 +95,7 @@ struct TailParams {
   int rd_lanes;     // rounding blocks in rd: one a lane (L) or one for all (1)
   int rd_stride;    // doubles from one lane's rounding block to the next
   int round_warps;  // warps of a block that round, 2M doubles of scratch each
+  int per_k;        // 1: every node prunes against its own k's incumbent
   double mip_gap;
   // The LP result of the L*B beam rows, lane-major.
   const float* v;
@@ -137,6 +159,16 @@ struct TailParams {
   double* o_st_iters;
   double* o_st_rounds;
   uint8_t* o_go;
+  // Per-k mode: the per-k assignments and overflow floors (L, n_k[, M]) and
+  // their new values (not read or written in the other mode).
+  const double* pkw;
+  const double* pkn;
+  const double* pky;
+  const double* pkd;
+  double* o_pkw;
+  double* o_pkn;
+  double* o_pky;
+  double* o_pkd;
   // Workspace: the dense rounding's rows, each beam row's epilogue scalars,
   // each kept slot's source (< cap: that state row; cap + c: beam child c,
   // child A of row c for c < B, child B of row c - B after).
@@ -150,14 +182,10 @@ struct TailParams {
   int* ws_src;
 };
 
-// The pointers the host passes (dtk_round_tail): TailParams' 56 from v to
-// o_go, then the workspace.
-constexpr int N_PTRS = 57;
-
-// torch.minimum: NaN-propagating; on ties the first operand.
-__device__ __forceinline__ double t_min(double a, double b) {
-  return (is_nan(a) || a <= b) ? a : b;
-}
+// The pointers the host passes (dtk_round_tail): TailParams' 36 inputs from
+// v to st_rounds, the per-k mode's 4 (pkw to pkd), the 20 outputs from o_lo
+// to o_go and its 4 (o_pkw to o_pkd), then the workspace.
+constexpr int N_PTRS = 65;
 
 // The stable sort's key: ordered as torch.argsort orders doubles (-0.0 and
 // 0.0 one key, every NaN one key above +inf).
@@ -168,31 +196,145 @@ __device__ __forceinline__ unsigned long long sort_key(double x) {
   return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
 }
 
-// threshold = incumbent - mip_gap |incumbent|, +inf with no incumbent.
-__device__ __forceinline__ double prune_threshold(double inc, double mip_gap) {
-  return isfinite(inc) ? __dsub_rn(inc, __dmul_rn(mip_gap, fabs(inc))) : (double)INFINITY;
-}
-
 __device__ __forceinline__ double iters_at(const TailParams& p, size_t g) {
   return p.iters_f32 ? (double)((const float*)p.iters)[g] : (double)((const int*)p.iters)[g];
+}
+
+// A lane's shared memory (dynamic), carved in the order below; the per-k
+// arrays take no room in the other mode.
+struct LaneSmem {
+  double* obj;              // B: the beam rows' obj_full
+  double* cbnd;             // total: the children's bounds
+  unsigned long long* key;  // total: their sort keys
+  double* scr;              // round_warps x 2M: the dense rounding's scratch
+  double* thr;              // n_k (per-k): each k's prune threshold
+  double* best;             // n_k (per-k): each k's new best
+  int* ck;                  // total: the children's k
+  int* pos;                 // total: their places in the new order (>= cap: spilled)
+  int* r1;                  // total (per-k): their places in the first order
+  int* ord;                 // total (per-k): the first order
+  int* g;                   // total (per-k): each child's rank in its group
+  int* tab;                 // total (per-k): each k's active rows' first places by rank
+  int* run;                 // n_k + 1 (per-k): each group's count (inactive rows last)
+  int* off;                 // n_k + 1 (per-k): each k's first entry of tab
+  int* wc;                  // warps x (n_k + 1) (per-k): pk_ranks' tile counts
+  uint8_t* cact;            // total: the children's active flags
+  uint8_t* imp;             // n_k (per-k): the round improved the k's incumbent
+};
+
+__host__ __device__ inline size_t bump(size_t& at, size_t bytes) {
+  const size_t o = at;
+  at += bytes;
+  return o;
+}
+
+// The bytes of a lane's shared memory; with `base`, its arrays in `s`.
+__host__ __device__ inline size_t lane_smem(int B, int cap, int M, int prerounded,
+                                            int round_warps, int n_k, int per_k, int warps,
+                                            unsigned char* base = nullptr,
+                                            LaneSmem* s = nullptr) {
+  const size_t total = (size_t)cap + B;
+  const size_t nk = per_k ? (size_t)n_k : 0;
+  const size_t tk = per_k ? total : 0;
+  const size_t gk = per_k ? (size_t)n_k + 1 : 0;
+  size_t at = 0;
+  const size_t o_obj = bump(at, 8 * (size_t)B), o_cbnd = bump(at, 8 * total),
+               o_key = bump(at, 8 * total),
+               o_scr = bump(at, prerounded ? 0 : 16 * (size_t)M * round_warps),
+               o_thr = bump(at, 8 * nk), o_best = bump(at, 8 * nk), o_ck = bump(at, 4 * total),
+               o_pos = bump(at, 4 * total), o_r1 = bump(at, 4 * tk), o_ord = bump(at, 4 * tk),
+               o_g = bump(at, 4 * tk), o_tab = bump(at, 4 * tk), o_run = bump(at, 4 * gk),
+               o_off = bump(at, 4 * gk), o_wc = bump(at, 4 * gk * warps),
+               o_cact = bump(at, total), o_imp = bump(at, nk);
+  if (s != nullptr) {
+    s->obj = (double*)(base + o_obj);
+    s->cbnd = (double*)(base + o_cbnd);
+    s->key = (unsigned long long*)(base + o_key);
+    s->scr = (double*)(base + o_scr);
+    s->thr = (double*)(base + o_thr);
+    s->best = (double*)(base + o_best);
+    s->ck = (int*)(base + o_ck);
+    s->pos = (int*)(base + o_pos);
+    s->r1 = (int*)(base + o_r1);
+    s->ord = (int*)(base + o_ord);
+    s->g = (int*)(base + o_g);
+    s->tab = (int*)(base + o_tab);
+    s->run = (int*)(base + o_run);
+    s->off = (int*)(base + o_off);
+    s->wc = (int*)(base + o_wc);
+    s->cact = base + o_cact;
+    s->imp = base + o_imp;
+  }
+  return at;
+}
+
+// Per-k mode: the k-fair order of the children (B15's rank; block-wide,
+// every thread calls). From each child's place in the first order (s.r1):
+// its rank g among its k's active children in that order (pk_ranks over
+// n_k + 1 groups, the inactive children the last), then its place in the
+// order of the fair key (active ? g : total) (total + 1) + first place: an
+// active child follows every active child of a lower rank (sum_q
+// min(cnt_q, g)) and the rank-g children of other k's before it in the
+// first order (tab lists each k's children by rank); an inactive child
+// follows every active one, in first order.
+__device__ void fair_places(const LaneSmem& s, int total, int n_k) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const auto group = [&](int c) {
+    const int k = s.ck[c];
+    return (s.cact[c] != 0 && k >= 0 && k < n_k) ? k : n_k;
+  };
+  for (int c = tid; c < total; c += nt) s.ord[s.r1[c]] = c;
+  __syncthreads();
+  pk_ranks(
+      total, n_k + 1, s.run, s.wc, [&](int q) { return group(s.ord[q]); },
+      [&](int q, int, int rank) { s.g[s.ord[q]] = rank; });
+  if (tid == 0) {
+    int off = 0;
+    for (int k = 0; k < n_k; ++k) {
+      s.off[k] = off;
+      off += s.run[k];
+    }
+    s.off[n_k] = off;
+  }
+  __syncthreads();
+  for (int c = tid; c < total; c += nt) {
+    const int k = group(c);
+    if (k < n_k) s.tab[s.off[k] + s.g[c]] = s.r1[c];
+  }
+  __syncthreads();
+  const int n_active = s.off[n_k];
+  for (int c = tid; c < total; c += nt) {
+    const int g = s.g[c];
+    int place = n_active + g;
+    if (group(c) < n_k) {
+      const int r1 = s.r1[c];
+      place = 0;
+      for (int q = 0; q < n_k; ++q) {
+        const int cnt = s.run[q];
+        place += min(cnt, g) + ((cnt > g && s.tab[s.off[q] + g] < r1) ? 1 : 0);
+      }
+    }
+    s.pos[c] = place;
+  }
+  __syncthreads();
 }
 
 // One lane's decisions (block-wide): everything but the row copies.
 __device__ void lane_phase(const TailParams& p, int l, unsigned char* smem) {
   __shared__ double s_red[32];
   __shared__ int s_best;
+  __shared__ int s_open;
   const double inf = INFINITY;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
   const int B = p.B, cap = p.cap, nf = p.nf, M = p.M, n_k = p.n_k;
   const int total = cap + B;
+  const bool per_k = p.per_k != 0;
   const size_t lc = (size_t)l * cap;  // the lane's first state row
   const size_t lb = (size_t)l * B;    // the lane's first beam (LP) row
-  double* s_obj = (double*)smem;                                       // B
-  double* s_cbnd = s_obj + B;                                          // total
-  unsigned long long* s_key = (unsigned long long*)(s_cbnd + total);  // total
-  double* s_scr = (double*)(s_key + total);                            // round scratch
-  uint8_t* s_cact = (uint8_t*)(s_scr + (p.prerounded ? 0 : (size_t)p.round_warps * 2 * M));
+  const size_t lk = (size_t)l * n_k;  // the lane's first k
+  LaneSmem s;
+  lane_smem(B, cap, M, p.prerounded, p.round_warps, n_k, p.per_k, nw, smem, &s);
 
   const bool frz = p.frozen != nullptr && p.frozen[l] != 0;
   const double inc_old = p.incumbent[l];
@@ -206,13 +348,13 @@ __device__ void lane_phase(const TailParams& p, int l, unsigned char* smem) {
     if (!p.prerounded) {
       const double* rd = p.rd + (p.rd_lanes > 1 ? (size_t)l * p.rd_stride : 0);
       if (wid < p.round_warps) {
-        double* w = s_scr + (size_t)wid * 2 * M;
+        double* w = s.scr + (size_t)wid * 2 * M;
         for (int r = wid; r < B; r += p.round_warps) {
           if (p.active[lc + r] == 0) continue;
           const size_t g = lb + r;
           const int k = p.kidx[lc + r];
-          round_row(p.v + g * nf, p.Ws[(size_t)l * n_k + k], p.ks[(size_t)l * n_k + k], rd,
-                    M, w, w + M, p.ws_obj + g, p.ws_w + g * M, p.ws_n + g * M);
+          round_row(p.v + g * nf, p.Ws[lk + k], p.ks[lk + k], rd, M, w, w + M, p.ws_obj + g,
+                    p.ws_w + g * M, p.ws_n + g * M);
         }
       }
       __syncthreads();
@@ -220,7 +362,7 @@ __device__ void lane_phase(const TailParams& p, int l, unsigned char* smem) {
     // 2. obj_full, and 3. the incumbent's row (warp 0).
     for (int r = tid; r < B; r += nt) {
       const size_t g = lb + r;
-      s_obj[r] = p.active[lc + r] != 0
+      s.obj[r] = p.active[lc + r] != 0
                      ? (p.prerounded ? p.obj_lin[g] : p.ws_obj[g]) + oc
                      : inf;
     }
@@ -228,7 +370,7 @@ __device__ void lane_phase(const TailParams& p, int l, unsigned char* smem) {
     if (wid == 0) {
       double bv = inf;
       int bi = INT_MAX;
-      for (int r = lane; r < B; r += 32) argmin_combine(bv, bi, s_obj[r], r);
+      for (int r = lane; r < B; r += 32) argmin_combine(bv, bi, s.obj[r], r);
       for (int o = 16; o > 0; o >>= 1) {
         const double v2 = __shfl_xor_sync(FULL, bv, o);
         const int i2 = __shfl_xor_sync(FULL, bi, o);
@@ -238,29 +380,51 @@ __device__ void lane_phase(const TailParams& p, int l, unsigned char* smem) {
     }
     __syncthreads();
     best_i = s_best;
-    const double best_obj = s_obj[best_i];
+    const double best_obj = s.obj[best_i];
     better = best_obj < inc_old;
     inc_new = better ? best_obj : inc_old;
   }
   const double thr = prune_threshold(inc_new, p.mip_gap);
+  const double* w_rows = p.prerounded ? p.w_in : p.ws_w;
+  const double* n_rows = p.prerounded ? p.n_in : p.ws_n;
 
   // The incumbent's vectors and each k's best (a frozen lane's copied).
   for (int j = tid; j < M; j += nt) {
     const size_t o = (size_t)l * M + j;
     const size_t src = (lb + best_i) * M + j;
-    p.o_inc_w[o] = better ? (p.prerounded ? p.w_in[src] : p.ws_w[src]) : p.inc_w[o];
-    p.o_inc_n[o] = better ? (p.prerounded ? p.n_in[src] : p.ws_n[src]) : p.inc_n[o];
+    p.o_inc_w[o] = better ? w_rows[src] : p.inc_w[o];
+    p.o_inc_n[o] = better ? n_rows[src] : p.inc_n[o];
     p.o_inc_y[o] = (better && p.has_y) ? p.y_in[src] : p.inc_y[o];
   }
   for (int k = tid; k < n_k; k += nt) {
     double rb = inf;
     if (!frz) {
       for (int r = 0; r < B; ++r) {
-        if (p.kidx[lc + r] == k) rb = nan_min(rb, s_obj[r]);
+        if (p.kidx[lc + r] == k) rb = nan_min(rb, s.obj[r]);
       }
     }
-    const size_t o = (size_t)l * n_k + k;
-    p.o_pkb[o] = frz ? p.pkb[o] : t_min(p.pkb[o], rb);
+    const size_t o = lk + k;
+    const double best = frz ? p.pkb[o] : t_min(p.pkb[o], rb);
+    p.o_pkb[o] = best;
+    if (per_k) {
+      s.best[k] = best;
+      s.thr[k] = prune_threshold(best, p.mip_gap);
+      s.imp[k] = (!frz && rb < p.pkb[o]) ? 1 : 0;
+    }
+  }
+  if (per_k) {
+    // Each improved k's assignment from its best row (a warp a k).
+    __syncthreads();
+    for (int k = wid; k < n_k; k += nw) {
+      const bool imp = s.imp[k] != 0;
+      double v;
+      int rs = INT_MAX;
+      if (imp) pk_best_row(B, k, p.kidx + lc, s.obj, v, rs);
+      const size_t src = (lb + (rs == INT_MAX ? 0 : rs)) * M;
+      const size_t o = (lk + k) * M;
+      pk_take_row(M, imp, w_rows + src, n_rows + src, p.has_y ? p.y_in + src : nullptr,
+                  p.pkw + o, p.pkn + o, p.pky + o, p.o_pkw + o, p.o_pkn + o, p.o_pky + o);
+    }
   }
 
   double live = inf, spill = inf;
@@ -271,63 +435,73 @@ __device__ void lane_phase(const TailParams& p, int l, unsigned char* smem) {
       const size_t g = lb + r;
       const size_t sr = lc + r;
       const bool act = p.active[sr] != 0;
+      const int kx = p.kidx[sr];
       const EpiRow e = epi_row(WarpGroup{}, nf, p.lo + sr * nf, p.hi + sr * nf, p.v + g * nf,
                                p.reduced + g * nf, p.int_mask + (size_t)l * nf,
-                               p.res_bound[g], oc, act, p.nbound[sr], thr, s_obj[r]);
+                               p.res_bound[g], oc, act, p.nbound[sr], per_k ? s.thr[kx] : thr,
+                               s.obj[r]);
       if (lane == 0) {
         p.ws_budget[g] = e.budget;
         p.ws_dn[g] = e.dn;
         p.ws_js[g] = e.js;
         p.ws_act[g] = act ? 1 : 0;
-        s_cbnd[r] = s_cbnd[B + r] = e.bound;
-        s_cact[r] = s_cact[B + r] = e.survive ? 1 : 0;
+        s.cbnd[r] = s.cbnd[B + r] = e.bound;
+        s.cact[r] = s.cact[B + r] = e.survive ? 1 : 0;
+        s.ck[r] = s.ck[B + r] = kx;
       }
     }
     // 5. The pass-through rows, pruned against the new threshold.
     for (int i = tid; i < cap - B; i += nt) {
       const size_t sr = lc + B + i;
       const double bnd = p.nbound[sr];
-      s_cbnd[2 * B + i] = bnd;
-      s_cact[2 * B + i] = (p.active[sr] != 0 && bnd < thr) ? 1 : 0;
+      const int kx = p.kidx[sr];
+      s.cbnd[2 * B + i] = bnd;
+      s.cact[2 * B + i] = (p.active[sr] != 0 && bnd < (per_k ? s.thr[kx] : thr)) ? 1 : 0;
+      s.ck[2 * B + i] = kx;
     }
     __syncthreads();
-    for (int c = tid; c < total; c += nt) s_key[c] = sort_key(s_cact[c] ? s_cbnd[c] : inf);
+    for (int c = tid; c < total; c += nt) s.key[c] = sort_key(s.cact[c] ? s.cbnd[c] : inf);
     __syncthreads();
     // The stable best-bound-first order: child c's place is the number of
-    // children before it in (key, index) order.
+    // children before it in (key, index) order; per-k mode re-ranks it.
+    int* first = per_k ? s.r1 : s.pos;
     for (int c = tid; c < total; c += nt) {
-      const unsigned long long kc = s_key[c];
+      const unsigned long long kc = s.key[c];
       int rank = 0;
       for (int d = 0; d < total; ++d) {
-        const unsigned long long kd = s_key[d];
+        const unsigned long long kd = s.key[d];
         rank += (kd < kc || (kd == kc && d < c)) ? 1 : 0;
       }
-      const double val = s_cact[c] ? s_cbnd[c] : inf;
+      first[c] = rank;
+    }
+    __syncthreads();
+    if (per_k) fair_places(s, total, n_k);
+    for (int c = tid; c < total; c += nt) {
+      const int rank = s.pos[c];
+      const double val = s.cact[c] ? s.cbnd[c] : inf;
       if (rank >= cap) {
         spill = nan_min(spill, val);
         continue;
       }
       const size_t o = lc + rank;
-      int src, kx;
+      int src;
       bool warm;
       if (c < 2 * B) {
         const int r = c < B ? c : c - B;
         src = cap + c;
-        kx = p.kidx[lc + r];
         warm = p.active[lc + r] != 0 || p.nwarm[lc + r] != 0;
       } else {
         const int i = B + (c - 2 * B);
         src = i;
-        kx = p.kidx[lc + i];
         warm = p.nwarm[lc + i] != 0;
       }
       p.ws_src[o] = src;
-      p.o_kidx[o] = kx;
-      p.o_bound[o] = s_cbnd[c];
-      p.o_active[o] = s_cact[c];
+      p.o_kidx[o] = s.ck[c];
+      p.o_bound[o] = s.cbnd[c];
+      p.o_active[o] = s.cact[c];
       p.o_warm[o] = warm ? 1 : 0;
       live = nan_min(live, val);
-      any = any || s_cact[c] != 0;
+      any = any || s.cact[c] != 0;
     }
   } else {
     // 7. A frozen lane: every row where it was.
@@ -347,12 +521,52 @@ __device__ void lane_phase(const TailParams& p, int l, unsigned char* smem) {
   live = block_reduce(live, Min(), s_red);
   spill = block_reduce(spill, Min(), s_red);
 
+  if (per_k) {
+    // 6, per k (a warp a k): the overflow floor of its spilled live bounds,
+    // its bound (its live bounds' minimum and the floor) and whether it is
+    // settled: its gap closed, or its bound +inf.
+    if (tid == 0) s_open = 0;
+    __syncthreads();
+    for (int k = wid; k < n_k; k += nw) {
+      double lv = inf, sp = inf;
+      if (!frz) {
+        for (int c = lane; c < total; c += 32) {
+          if (s.ck[c] != k) continue;
+          const double val = s.cact[c] ? s.cbnd[c] : inf;
+          if (s.pos[c] < cap) {
+            lv = nan_min(lv, val);
+          } else {
+            sp = nan_min(sp, val);
+          }
+        }
+      } else {
+        for (int c = lane; c < cap; c += 32) {
+          if (p.kidx[lc + c] == k) lv = nan_min(lv, p.active[lc + c] ? p.nbound[lc + c] : inf);
+        }
+      }
+      lv = warp_reduce(lv, Min());
+      sp = warp_reduce(sp, Min());
+      if (lane == 0) {
+        const size_t o = lk + k;
+        const double floor_k = frz ? p.pkd[o] : t_min(p.pkd[o], sp);
+        const double bound_k = t_min(lv, floor_k);
+        const double inc_k = s.best[k];
+        const bool done = isfinite(inc_k) &&
+                          __dsub_rn(inc_k, bound_k) <= __dmul_rn(p.mip_gap, fabs(inc_k));
+        p.o_pkd[o] = floor_k;
+        if (!(done || bound_k == inf)) s_open = 1;
+      }
+    }
+    __syncthreads();
+  }
+
   // 6. The lane's scalars and its go flag on the new state.
   if (tid == 0) {
     const double dropped = frz ? p.dropped[l] : t_min(p.dropped[l], spill);
     const double bb = t_min(live, dropped);
-    const bool cert = isfinite(inc_new) &&
-                      __dsub_rn(inc_new, bb) <= __dmul_rn(p.mip_gap, fabs(inc_new));
+    const bool cert = per_k ? s_open == 0
+                            : isfinite(inc_new) && __dsub_rn(inc_new, bb) <=
+                                                       __dmul_rn(p.mip_gap, fabs(inc_new));
     double iters = 0.0;
     if (!frz) {
       for (int r = 0; r < B; ++r) iters += iters_at(p, lb + r);
@@ -470,11 +684,8 @@ __global__ void __launch_bounds__(TAIL_THREADS, 1)
 }
 
 // Dynamic shared memory of a block with `round_warps` rounding warps.
-size_t smem_bytes(int B, int cap, int M, int prerounded, int round_warps) {
-  const size_t total = (size_t)cap + B;
-  size_t bytes = sizeof(double) * (size_t)B + (sizeof(double) + 8) * total + total;
-  if (!prerounded) bytes += sizeof(double) * 2 * (size_t)M * round_warps;
-  return bytes;
+size_t smem_bytes(int B, int cap, int M, int prerounded, int round_warps, int n_k, int per_k) {
+  return lane_smem(B, cap, M, prerounded, round_warps, n_k, per_k, TAIL_THREADS / 32);
 }
 
 }  // namespace
@@ -483,8 +694,8 @@ extern "C" {
 
 // The least dynamic shared memory a block needs (one rounding warp): the
 // wrapper refuses a shape past the card's limit before it launches.
-long dtk_round_tail_smem_bytes(int B, int cap, int M, int prerounded) {
-  return (long)smem_bytes(B, cap, M, prerounded, 1);
+long dtk_round_tail_smem_bytes(int B, int cap, int M, int prerounded, int n_k, int per_k) {
+  return (long)smem_bytes(B, cap, M, prerounded, 1, n_k, per_k);
 }
 
 // Bytes of the workspace (the wrapper allocates it after the new state).
@@ -495,7 +706,7 @@ long dtk_round_tail_ws_bytes(int L, int B, int cap, int M) {
 }
 
 // dims: L, B, cap, nf, m, M, n_k, prerounded, has_y, iters_f32, rd_lanes,
-// rd_stride;
+// rd_stride, per_k;
 // ptrs: N_PTRS pointers in TailParams' order (ws_* carved here from the last).
 int dtk_round_tail(const long long* ptrs, const int* dims, double mip_gap, void* stream) {
   TailParams p;
@@ -511,8 +722,11 @@ int dtk_round_tail(const long long* ptrs, const int* dims, double mip_gap, void*
   p.iters_f32 = dims[9];
   p.rd_lanes = dims[10];
   p.rd_stride = dims[11];
+  p.per_k = dims[12];
   p.mip_gap = mip_gap;
-  if (p.L <= 0 || p.B <= 0 || p.B > p.cap || p.M <= 0) return (int)cudaErrorInvalidValue;
+  if (p.L <= 0 || p.B <= 0 || p.B > p.cap || p.M <= 0 || p.n_k <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const void** slots[] = {
       (const void**)&p.v, (const void**)&p.reduced, (const void**)&p.y_dual,
       (const void**)&p.z_dual, (const void**)&p.f_dual, (const void**)&p.res_bound,
@@ -525,16 +739,22 @@ int dtk_round_tail(const long long* ptrs, const int* dims, double mip_gap, void*
       (const void**)&p.inc_y, (const void**)&p.inc_kidx, (const void**)&p.dropped,
       (const void**)&p.pkb, (const void**)&p.nv, (const void**)&p.ny, (const void**)&p.nz,
       (const void**)&p.nfd, (const void**)&p.nwarm, (const void**)&p.st_iters,
-      (const void**)&p.st_rounds, (const void**)&p.o_lo, (const void**)&p.o_hi,
+      (const void**)&p.st_rounds, (const void**)&p.pkw, (const void**)&p.pkn,
+      (const void**)&p.pky, (const void**)&p.pkd, (const void**)&p.o_lo, (const void**)&p.o_hi,
       (const void**)&p.o_kidx, (const void**)&p.o_bound, (const void**)&p.o_active,
       (const void**)&p.o_inc, (const void**)&p.o_inc_w, (const void**)&p.o_inc_n,
       (const void**)&p.o_inc_y, (const void**)&p.o_inc_kidx, (const void**)&p.o_dropped,
       (const void**)&p.o_pkb, (const void**)&p.o_v, (const void**)&p.o_y, (const void**)&p.o_z,
       (const void**)&p.o_f, (const void**)&p.o_warm, (const void**)&p.o_st_iters,
-      (const void**)&p.o_st_rounds, (const void**)&p.o_go};
+      (const void**)&p.o_st_rounds, (const void**)&p.o_go, (const void**)&p.o_pkw,
+      (const void**)&p.o_pkn, (const void**)&p.o_pky, (const void**)&p.o_pkd};
   constexpr int n_slots = sizeof(slots) / sizeof(slots[0]);
   static_assert(n_slots + 1 == N_PTRS, "pointer table out of step");
   for (int i = 0; i < n_slots; ++i) *slots[i] = (const void*)ptrs[i];
+  if (p.per_k && (!p.pkw || !p.pkn || !p.pky || !p.pkd || !p.o_pkw || !p.o_pkn || !p.o_pky ||
+                  !p.o_pkd)) {
+    return (int)cudaErrorInvalidValue;
+  }
   // The workspace, carved in dtk_round_tail_ws_bytes' order.
   unsigned char* ws = (unsigned char*)ptrs[n_slots];
   const size_t rows = (size_t)p.L * p.B;
@@ -568,9 +788,11 @@ int dtk_round_tail(const long long* ptrs, const int* dims, double mip_gap, void*
   // warps and the beam.
   const int nw = TAIL_THREADS / 32;
   int rw = p.prerounded ? 0 : (p.B < nw ? p.B : nw);
-  while (rw > 1 && smem_bytes(p.B, p.cap, p.M, p.prerounded, rw) > SMEM_LIMIT) --rw;
+  while (rw > 1 && smem_bytes(p.B, p.cap, p.M, p.prerounded, rw, p.n_k, p.per_k) > SMEM_LIMIT) {
+    --rw;
+  }
   p.round_warps = rw;
-  const size_t sm = smem_bytes(p.B, p.cap, p.M, p.prerounded, rw);
+  const size_t sm = smem_bytes(p.B, p.cap, p.M, p.prerounded, rw, p.n_k, p.per_k);
   if (sm > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if ((int)sm > set_smem) {
     err = cudaFuncSetAttribute(round_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

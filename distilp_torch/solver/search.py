@@ -11,11 +11,10 @@ pruning, reduced-cost box tightening, closing, branching, child boxes, warm
 carry), compacts the children best-bound-first and writes each lane's go
 flag. One global incumbent prunes across every k's tree, since the answer
 is the minimum over k. In per-k mode (``per_k=True``) a node prunes
-against its own k's incumbent instead: that round's tail stays tensor code
-around K2, K3 and K3's per-k entries (:func:`tail_tensors`), which keep
+against its own k's incumbent instead, and the same one launch also keeps
 each k's incumbent assignment, its prune threshold, a k-fair compaction
-order and each k's overflow floor, so that every k ends with its own
-certificate.
+order and each k's overflow floor (B15's per-k bodies), and its go flag
+tests every k's own certificate, so that every k ends with its own.
 
 Lanes: the search runs L sweeps at once (the scenarios of one fleet that
 share its A, or batch lanes with an A each; the reference's vmap of the
@@ -851,7 +850,7 @@ def bnb_round(
     chunk) is never passed to the PDHG, whose convergence point inside its
     budget is unknown even cold. ``per_k`` prunes every node against its own
     k's incumbent and keeps the per-k assignments, a k-fair compaction and
-    the per-k overflow floors (K3's per-k entries). ``frozen`` (L,) bool
+    the per-k overflow floors (the round tail's per-k mode). ``frozen`` (L,) bool
     marks settled lanes: their rows go to the LP as skipped and their state
     comes back unchanged. ``lp_trace`` records the LP engine's convergence
     trace (the result's ``trace_buf``). ``row_mesh`` (more than one shard)
@@ -860,8 +859,8 @@ def bnb_round(
     through the LP engine and the rounding on that shard's device, then
     gathered onto shard 0 for the incumbent reduction, the epilogue and the
     compaction (the beam a multiple of the mesh size). After the LP call a
-    non-per-k round is one :func:`round_tail` (one launch on a card; MoE
-    rows rounded by K2's MoE mode before it). Returns the new state and the
+    round is one :func:`round_tail` (one launch on a card; MoE rows rounded
+    by K2's MoE mode before it). Returns the new state and the
     beam rows' raw LP result (L * beam rows, lane-major)."""
     out, res, _ = _bnb_round(data, state, mip_gap, ipm_iters, beam, ipm_chunk, lp_backend,
                              pdhg_restart_tol, pdhg_dtype, per_k, frozen, lp_trace, row_mesh,
@@ -873,8 +872,7 @@ def _bnb_round(data, state, mip_gap, ipm_iters, beam, ipm_chunk, lp_backend="ipm
                pdhg_restart_tol=None, pdhg_dtype=None, per_k=False, frozen=None,
                lp_trace=False, row_mesh=None, node_mesh=None):
     """:func:`bnb_round` and the lanes' go flags on the new state as the
-    round tail wrote them ((L,) bool; None in per-k mode, whose tail stays
-    tensor code around K2, B15 and K3)."""
+    round tail wrote them ((L,) bool)."""
     L, cap = state.node_lo.shape[:2]
     B = cap if beam is None else min(beam, cap)
     dev = state.node_lo.device
@@ -904,14 +902,12 @@ def _bnb_round(data, state, mip_gap, ipm_iters, beam, ipm_chunk, lp_backend="ipm
                                      lp_kw)
     else:
         res = lp_solve(data, lo_r, hi_r, kidx_r, row_lane, warm, skip, **lp_kw)
-        # The round tail rounds dense rows itself; MoE rows (and every row of
-        # a per-k round) go through K2 first.
+        # The round tail rounds dense rows itself; MoE rows go through K2's
+        # MoE mode first.
         rounded = None
-        if per_k or data.gky is not None:
+        if data.gky is not None:
             rounded = round_rows(data, res, kidx_r, row_lane)
-    if per_k:
-        return tail_tensors(data, state, res, rounded, mip_gap, B, True, frozen), res, None
-    out, go = round_tail(data, state, res, mip_gap, B, rounded, frozen)
+    out, go = round_tail(data, state, res, mip_gap, B, rounded, frozen, per_k)
     return out, res, go
 
 
@@ -923,28 +919,35 @@ def round_tail(
     beam: int,
     rounded: Optional[Tuple[torch.Tensor, ...]] = None,
     frozen: Optional[torch.Tensor] = None,
+    per_k: bool = False,
 ) -> Tuple[SearchState, torch.Tensor]:
-    """Everything of a non-per-k round after its LP call (R8): the rounding
-    of the ``beam`` rows of every lane (K2's dense rounding of ``res.v``, or
+    """Everything of a round after its LP call (R8): the rounding of the
+    ``beam`` rows of every lane (K2's dense rounding of ``res.v``, or
     ``rounded`` = (obj_lin, w, n[, y]) of the L * beam rows, rounded before:
     K2's MoE mode, or the node-sharded sweep's shards), the incumbent, each
     k's best, the threshold, K3's epilogue, the children's best-bound-first
     compaction, the counters and the frozen lanes' carry, then each lane's
-    go flag (any node active and no certificate) on the new state. Returns
-    ``(new state, go (L,) bool)``, the state in fresh memory. One launch of
-    ``round_tail_kernel.cu`` on CUDA tensors, :func:`round_tail_reference`
-    on CPU tensors."""
+    go flag (any node active and no certificate) on the new state. In
+    per-k mode every node prunes against its own k's threshold, the improved
+    k's assignments are taken, the compaction is k-fair, each k's spilled
+    bounds floor ``per_k_dropped`` and the go flag tests
+    :func:`certified_per_k`. Returns ``(new state, go (L,) bool)``, the
+    state in fresh memory (the per-k assignments and floors passed through
+    outside per-k mode). One launch of ``round_tail_kernel.cu`` on CUDA
+    tensors, :func:`round_tail_reference` on CPU tensors."""
     if kernels.on_cuda(state.node_lo, res.v, data.obj_const):
-        return _round_tail_kernel(data, state, res, mip_gap, beam, rounded, frozen)
-    return round_tail_reference(data, state, res, mip_gap, beam, rounded, frozen)
+        return _round_tail_kernel(data, state, res, mip_gap, beam, rounded, frozen, per_k)
+    return round_tail_reference(data, state, res, mip_gap, beam, rounded, frozen, per_k)
 
 
-def round_tail_reference(data, state, res, mip_gap, beam, rounded=None, frozen=None):
+def round_tail_reference(data, state, res, mip_gap, beam, rounded=None, frozen=None,
+                         per_k=False):
     """Plain PyTorch version of the round tail: :func:`tail_tensors` (K2, the
-    tensor code and K3, as a non-per-k round ran them before the tail was one
-    kernel) and the go flags of the new state."""
-    out = tail_tensors(data, state, res, rounded, mip_gap, beam, False, frozen)
-    return out, out.active.any(-1) & ~certified(out, mip_gap)
+    tensor code, K3 and in per-k mode B15's entries, as a round ran them
+    before the tail was one kernel) and the go flags of the new state."""
+    out = tail_tensors(data, state, res, rounded, mip_gap, beam, per_k, frozen)
+    settled = certified_per_k if per_k else certified
+    return out, out.active.any(-1) & ~settled(out, mip_gap)
 
 
 def round_rows(data: SweepData, res: IPMResult, kidx_r, row_lane):
@@ -957,9 +960,9 @@ def round_rows(data: SweepData, res: IPMResult, kidx_r, row_lane):
 
 
 def tail_tensors(data, state, res, rounded, mip_gap, B, per_k, frozen) -> SearchState:
-    """A round's tail as tensor code around K2, K3 and, in per-k mode, B15:
-    the per-k round's route, and the round tail's plain version (``rounded``
-    None: the rows rounded here)."""
+    """A round's tail as tensor code around K2, K3 and, in per-k mode, B15's
+    entries: the round tail's plain version (``rounded`` None: the rows
+    rounded here)."""
     L, cap = state.node_lo.shape[:2]
     n_k = state.per_k_best.shape[-1]
     inf = float("inf")
@@ -1122,7 +1125,7 @@ _TAIL_PLANS: dict = {}
 _TAIL_PLANS_MAX = 256
 
 
-def _tail_plan(lib, ins, B: int, pre: bool, has_y: bool) -> _TailPlan:
+def _tail_plan(lib, ins, B: int, pre: bool, has_y: bool, per_k: bool) -> _TailPlan:
     res_v, iters = ins[0], ins[6]
     packed, rows0, rows1 = ins[9], ins[10], ins[11]
     int_mask, obj_const = ins[14], ins[15]
@@ -1134,15 +1137,16 @@ def _tail_plan(lib, ins, B: int, pre: bool, has_y: bool) -> _TailPlan:
     if L * cap * max(nf, m) >= TAIL_MAX_ELEMENTS:
         raise ValueError(f"round tail: a state field of {L * cap * max(nf, m)} elements; the "
                          f"kernel indexes at most {TAIL_MAX_ELEMENTS - 1}")
-    need = int(lib.dtk_round_tail_smem_bytes(B, cap, M, int(pre)))
+    need = int(lib.dtk_round_tail_smem_bytes(B, cap, M, int(pre), n_k, int(per_k)))
     if need > TAIL_SMEM_LIMIT:
         raise ValueError(f"round tail: a lane needs {need} bytes of shared memory (B={B}, "
-                         f"cap={cap}, M={M}); an H100 block holds at most {TAIL_SMEM_LIMIT}")
+                         f"cap={cap}, M={M}, n_k={n_k}, per_k={per_k}); an H100 block holds "
+                         f"at most {TAIL_SMEM_LIMIT}")
     want = [DTYPE, BDTYPE, DTYPE, DTYPE, DTYPE, BDTYPE, None] + \
         ([None] * 3 if pre else [BDTYPE] * 3) + [BDTYPE if pre else None] * 4 + \
         [torch.bool, BDTYPE, torch.bool, DTYPE, DTYPE, torch.int32, BDTYPE, torch.bool, BDTYPE,
          BDTYPE, BDTYPE, BDTYPE, torch.int32, BDTYPE, BDTYPE, DTYPE, DTYPE, DTYPE, DTYPE,
-         torch.bool, BDTYPE, BDTYPE]
+         torch.bool, BDTYPE, BDTYPE] + [BDTYPE] * 4
     bad = [i for i, (t, dt) in enumerate(zip(ins, want))
            if t is not None and dt is not None and t.dtype != dt]
     if bad or iters.dtype not in (torch.int32, torch.float32):
@@ -1160,13 +1164,16 @@ def _tail_plan(lib, ins, B: int, pre: bool, has_y: bool) -> _TailPlan:
             raise ValueError(f"round tail: rounding blocks {tuple(packed.shape)} for L={L}")
     elif rows0.shape != (L * B,) or rows1.shape != (L * B, M):
         raise ValueError("round tail: pre-rounded rows must be (L * beam,) and (L * beam, M)")
-    # The new state and the go flags side by side, then the workspace.
+    # The new state and the go flags side by side (in per-k mode the per-k
+    # assignments and floors after them), then the workspace.
     fields = [((L, cap, nf), DTYPE), ((L, cap, nf), DTYPE), ((L, cap), torch.int32),
               ((L, cap), BDTYPE), ((L, cap), torch.bool), ((L,), BDTYPE), ((L, M), BDTYPE),
               ((L, M), BDTYPE), ((L, M), BDTYPE), ((L,), torch.int32), ((L,), BDTYPE),
               ((L, n_k), BDTYPE), ((L, cap, nf), DTYPE), ((L, cap, m), DTYPE),
               ((L, cap, nf), DTYPE), ((L, cap, nf), DTYPE), ((L, cap), torch.bool),
               ((L,), BDTYPE), ((L,), BDTYPE), ((L,), torch.bool)]
+    if per_k:
+        fields += [((L, n_k, M), BDTYPE)] * 3 + [((L, n_k), BDTYPE)]
     views, offsets, pos = [], [], 0
     for shape, dt in fields:
         size = torch.empty((), dtype=dt).element_size()
@@ -1174,14 +1181,17 @@ def _tail_plan(lib, ins, B: int, pre: bool, has_y: bool) -> _TailPlan:
         views.append((dt, shape, stride, pos // size))
         offsets.append(pos)
         pos += -(-math.prod(shape) * size // 128) * 128
+    if not per_k:
+        offsets += [None] * 4  # the per-k outputs, not written
     offsets.append(pos)
     nbytes = pos + -(-int(lib.dtk_round_tail_ws_bytes(L, B, cap, M)) // 8) * 8
-    dims = (ctypes.c_int * 12)(L, B, cap, nf, m, M, n_k, int(pre), int(has_y),
-                               int(iters.dtype == torch.float32), rd_lanes, rd_stride)
+    dims = (ctypes.c_int * 13)(L, B, cap, nf, m, M, n_k, int(pre), int(has_y),
+                               int(iters.dtype == torch.float32), rd_lanes, rd_stride,
+                               int(per_k))
     return _TailPlan(nbytes, tuple(views), tuple(offsets), dims, ctypes.addressof(dims))
 
 
-def _round_tail_kernel(data, state, res, mip_gap, B, rounded, frozen):
+def _round_tail_kernel(data, state, res, mip_gap, B, rounded, frozen, per_k=False):
     from ..kernels.build import library
 
     lib = library("round_tail")
@@ -1194,8 +1204,9 @@ def _round_tail_kernel(data, state, res, mip_gap, B, rounded, frozen):
            state.node_lo, state.node_hi, state.node_kidx, state.node_bound, state.active,
            state.incumbent, state.inc_w, state.inc_n, state.inc_y, state.inc_kidx,
            state.dropped_bound, state.per_k_best, state.node_v, state.node_y, state.node_z,
-           state.node_f, state.node_warm, state.stat_ipm_iters, state.stat_rounds)
-    key = (B, has_y, frozen is None, res.v.shape, state.node_lo.shape, state.node_y.shape,
+           state.node_f, state.node_warm, state.stat_ipm_iters, state.stat_rounds,
+           state.per_k_w, state.per_k_n, state.per_k_y, state.per_k_dropped)
+    key = (B, has_y, per_k, frozen is None, res.v.shape, state.node_lo.shape, state.node_y.shape,
            state.inc_w.shape, state.per_k_best.shape, data.int_mask.shape,
            data.obj_const.shape, (rows[1] if pre else data.rd_packed).shape,
            *[None if t is None else t.dtype for t in ins])
@@ -1203,7 +1214,7 @@ def _round_tail_kernel(data, state, res, mip_gap, B, rounded, frozen):
     if plan is None:
         if len(_TAIL_PLANS) >= _TAIL_PLANS_MAX:
             _TAIL_PLANS.clear()
-        plan = _TAIL_PLANS[key] = _tail_plan(lib, ins, B, pre, has_y)
+        plan = _TAIL_PLANS[key] = _tail_plan(lib, ins, B, pre, has_y, per_k)
     # Held until the launch returns (a temporary freed inside the argument
     # list could hand its memory to the next one).
     ins = [None if t is None else t.contiguous() for t in ins]
@@ -1218,20 +1229,22 @@ def _round_tail_kernel(data, state, res, mip_gap, B, rounded, frozen):
         outs.append(flat.as_strided(shape, stride, off))
     base = buf.data_ptr()
     ptrs = (ctypes.c_longlong * (len(ins) + len(plan.offsets)))(
-        *[0 if t is None else t.data_ptr() for t in ins], *[base + o for o in plan.offsets])
+        *[0 if t is None else t.data_ptr() for t in ins],
+        *[0 if o is None else base + o for o in plan.offsets])
     err = lib.dtk_round_tail(ctypes.addressof(ptrs), plan.dims_addr, float(mip_gap),
                              kernels.stream_handle(dev))
     kernels.check(err, "round_tail")
     kernels.LAUNCHES["round_tail_lanes" if state.node_lo.shape[0] > 1 else "round_tail"] += 1
     (lo, hi, kidx, bound, active, inc, inc_w, inc_n, inc_y, inc_kidx, dropped, pkb,
-     nv, ny, nz, nfv, warm, st_iters, st_rounds, go) = outs
+     nv, ny, nz, nfv, warm, st_iters, st_rounds, go) = outs[:20]
+    pkw, pkn, pky, pkd = outs[20:] if per_k else (state.per_k_w, state.per_k_n,
+                                                  state.per_k_y, state.per_k_dropped)
     out = SearchState(
         node_lo=lo, node_hi=hi, node_kidx=kidx, node_bound=bound, active=active,
         incumbent=inc, inc_w=inc_w, inc_n=inc_n, inc_y=inc_y, inc_kidx=inc_kidx,
-        dropped_bound=dropped, per_k_best=pkb, per_k_w=state.per_k_w, per_k_n=state.per_k_n,
-        per_k_y=state.per_k_y, per_k_dropped=state.per_k_dropped, node_v=nv, node_y=ny,
-        node_z=nz, node_f=nfv, node_warm=warm, stat_ipm_iters=st_iters,
-        stat_rounds=st_rounds,
+        dropped_bound=dropped, per_k_best=pkb, per_k_w=pkw, per_k_n=pkn, per_k_y=pky,
+        per_k_dropped=pkd, node_v=nv, node_y=ny, node_z=nz, node_f=nfv, node_warm=warm,
+        stat_ipm_iters=st_iters, stat_rounds=st_rounds,
     )
     return out, go
 
@@ -1443,7 +1456,7 @@ def run_bnb_loop(
             (L, B0, root_trace_rows(lp_backend, ipm_iters, root_warm_chunk), TRACE_COLS),
             dtype=DTYPE, device=state.node_lo.device)
     # The go flags a round's tail wrote on its new state (None: test the
-    # state here, as for the state passed in and after a per-k round).
+    # state here, as for the state passed in).
     tail_go = None
     if max_rounds >= 1:
         mask, any_go, frozen = go(state)

@@ -347,15 +347,15 @@ class _Lib:
     def __init__(self, smem=1024, fail=0):
         self.smem, self.fail, self.launches = smem, fail, []
 
-    def dtk_round_tail_smem_bytes(self, B, cap, M, pre):
+    def dtk_round_tail_smem_bytes(self, B, cap, M, pre, n_k, per_k):
         return self.smem
 
     def dtk_round_tail_ws_bytes(self, L, B, cap, M):
         return 4096
 
     def dtk_round_tail(self, ptrs, dims, mip_gap, stream):
-        self.launches.append((list((ctypes.c_longlong * 57).from_address(ptrs)),
-                              list((ctypes.c_int * 12).from_address(dims)), mip_gap))
+        self.launches.append((list((ctypes.c_longlong * 65).from_address(ptrs)),
+                              list((ctypes.c_int * 13).from_address(dims)), mip_gap))
         return self.fail
 
 
@@ -382,7 +382,7 @@ def test_the_wrapper_launches_once_into_fresh_memory(profiles_dir, monkeypatch):
     L, cap, nf = state.node_lo.shape
     M = state.inc_w.shape[1]
     assert dims == [L, B, cap, nf, state.node_y.shape[2], M, state.per_k_best.shape[1], 0, 0, 0,
-                    L, R.PACKED_ROWS * M] and gap == 1e-3
+                    L, R.PACKED_ROWS * M, 0] and gap == 1e-3
     assert go.shape == (L,) and go.dtype == torch.bool
     # The new state's fields share one allocation, which no input touches;
     # the per-k fields a non-per-k round leaves alone pass through.
