@@ -65,10 +65,14 @@ Phases (any failure exits non-zero and prints no result line):
      stretched up to 8 lanes of 1142 keys, against its plain version (K2,
      K3 and B15 inside it) in every field of the new state and the go
      flags, timed beside the sequence it replaced, with the launches of a
-     north-star warm round and of per-k rounds fused and as before;
+     north-star warm round and of per-k rounds fused and as before; the
+     branch-and-bound loop's kernels (``bnb_loop_kernel.cu``: the seed, the
+     round head, the loop's control and the answer) on the north star cold
+     and warm and on the S=8 scenarios with lane 3 frozen, bit for bit
+     against their plain versions;
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
-  4. the main path, in nine runs, each with the launch counts zeroed before
+  4. the main path, in ten runs, each with the launch counts zeroed before
      it and read after it: (a) the dense slice, ``halda_solve`` on the four
      golden fixtures (pinned k and objective), the north star (pinned
      objective) and a 32-device fleet (against the port's HiGHS oracle);
@@ -126,7 +130,15 @@ Phases (any failure exits non-zero and prints no result line):
      north star and Mixtral M=8 through the node-sharded sweep (K10) on 8
      shards (pinned; the north star's placement equal to the unsharded
      sweep's), ``solver --mesh-shards 4`` and ``measure_interconnect`` (K9c)
-     over 4 shards (provenance "virtual");
+     over 4 shards (provenance "virtual"); (j) the packed halves and the
+     loop as one CUDA graph: every dense IPM case (the goldens, the north
+     star cold and warm, per-k hermes_70b and north star, 8 scenarios, two
+     lanes with an A each, the async north star, the replanner's 9 ticks)
+     on the graph route and again under the host loop, answers and final
+     states bit for bit equal, one graph launch, one read and on a static
+     hit one upload a solve, one capture a plan signature; the upload and
+     search walls of both routes, the graph solve's bound, and the walls
+     and busy shares of both routes in turns (medians of 9);
      a path's comparison solves (its references) are left out of its launch
      counts; K1's and K5's launches of each path are also printed by shape,
      K7's by entry; every root bound (``decomp_bound_roots``) of the paths
@@ -524,7 +536,7 @@ def launch_bounds(out: dict):
 
     from distilp_torch.ops.ipm import ipm_sparsity
     from distilp_torch.ops.pdhg import PDHG_DEFAULT_CHUNK, ElemA
-    from distilp_torch.solver import search
+    from distilp_torch.solver import device_loop, search
     from distilp_torch.solver.standard_form import MOE_LOCAL_MOVES
 
     def nbytes(obj):
@@ -604,10 +616,494 @@ def launch_bounds(out: dict):
     for name, fn in hooks.items():
         setattr(search, name, fn)
     try:
-        yield out
+        # The host loop calls every wrapper (a graph launch calls none): the
+        # same kernels on the same rows, so the same bounds.
+        with device_loop.host_loop():
+            yield out
     finally:
         for name, fn in orig.items():
             setattr(search, name, fn)
+
+
+# ------------------------------------------------------ the loop on the card
+
+
+def bits_equal(a, b) -> bool:
+    """Two tensors or arrays equal bit for bit (NaN where NaN)."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype.is_floating_point:
+            return torch.equal(a.view(torch.int64 if a.element_size() == 8 else torch.int32),
+                               b.view(torch.int64 if b.element_size() == 8 else torch.int32))
+        return torch.equal(a, b)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def state_diff(a, b) -> list:
+    """The SearchState fields of ``a`` and ``b`` that differ (bitwise)."""
+    return [f for f, x, y in zip(a._fields, a, b) if not bits_equal(x, y)]
+
+
+def graph_prep(lanes, params, gap):
+    """A prepared sweep on the graph route, its plan staged and its static
+    entry loaded: (prep, plan, data)."""
+    import torch
+
+    from distilp_torch.solver.backend_torch import _prepare
+
+    prep = _prepare(lanes, params, gap, torch.device("cuda"), shared_A=True)
+    if prep.plan is None:
+        fail("a dense IPM sweep did not take the graph route")
+    prep.plan.load_static(prep.entry)
+    return prep, prep.plan, prep.plan.data(prep.entry)
+
+
+def loop_bytes(tensors) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def check_bnb_loop(report: dict) -> None:
+    """The loop's kernels (bnb_loop_kernel.cu) against their plain versions,
+    bit for bit, at the main path's shapes: the seed (the north star cold,
+    and warm with its hint and root iterates), the init control, the head of
+    the root and of a warm round (and the S=8 scenarios with lane 3 frozen),
+    the step control and the answer; each timed beside its plain version
+    and its bound."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.kernels.build import library
+    from distilp_torch.solver import device_loop as DL
+    from distilp_torch.solver.backend_torch import _search_params
+    from distilp_torch.solver.search import round_inputs, root_state, seed_warm
+    from distilp_torch.solver.standard_form import MOE_LOCAL_MOVES_WARM
+    from distilp_torch.solver import halda_solve
+    from distilp_torch.utils import make_synthetic_fleet
+
+    lib = library("bnb_loop")
+    model = online_model()
+    devs = make_synthetic_fleet(16, seed=123)
+    with uncounted():
+        cold = halda_solve(devs, model, mip_gap=1e-3, kv_bits="4bit")
+    sh = kernels.stream_handle(torch.device("cuda"))
+    rows = {k: [] for k in ("bnb_seed", "bnb_head", "bnb_control", "bnb_answer")}
+    cases = [("north_star_cold", [devs], None, None),
+             ("north_star_warm", [devs], cold, None),
+             ("scenarios_x8_lane3_frozen", scenario_fleets(devs, 8, 17), cold, 3)]
+    for name, fleets, warm, frozen_lane in cases:
+        lanes = lane_inputs(fleets, model, "4bit")
+        if warm is not None:
+            from distilp_torch.solver.backend_torch import warm_inputs
+
+            wi = [warm_inputs(ln.sf, _as_ilp(warm), ln.feasible, 0) for ln in lanes]
+            lanes = [ln._replace(warm_tuple=w[0], root_warm_tuple=w[2]) for ln, w in zip(lanes, wi)]
+        params = _search_params(lanes[0].sf, None, None, None, None, None, "ipm", None, None,
+                                None, False)
+        prep, plan, data = graph_prep(lanes, params, 1e-3)
+        sig, v = plan.sig, plan.views
+        # Seed.
+        plan._seed(lib, data, sh)
+        st = root_state(v["lo_k"], v["hi_k"], sig.M, sig.cap, sig.m, prep.root_warm)
+        if prep.warm is not None:
+            st = seed_warm(st, data, prep.warm, False, MOE_LOCAL_MOVES_WARM)
+        bad = state_diff(plan.states[0], st)
+        seed_in = [v[k] for k in ("lo_k", "hi_k", "Ws", "ks", "rd", "obj_const")] + \
+            [v[k] for k in ("rw_ok", "rw_v", "rw_y", "rw_z", "rw_f", "warm_kidx", "warm_w",
+                            "warm_n") if k in v]
+        nb = loop_bytes(seed_in) + loop_bytes(plan.states[0])
+        ms, call, src = time_kernel(lambda: plan._seed(lib, data, sh), "bnb_seed_kernel")
+        plain_ms = cuda_ms(lambda: seed_warm(root_state(v["lo_k"], v["hi_k"], sig.M, sig.cap,
+                                                        sig.m, prep.root_warm), data, prep.warm,
+                                             False, MOE_LOCAL_MOVES_WARM)
+                           if prep.warm is not None else
+                           root_state(v["lo_k"], v["hi_k"], sig.M, sig.cap, sig.m, None))
+        rows["bnb_seed"].append((name, bad, ms, call, plain_ms, nb, src))
+        # Init control.
+        plan._control(lib, sh, init=True)
+        got = [t.clone() for t in (plan.frozen, plan.ran, plan.ctl)]
+        DL.control_reference(plan, init=True, state=plan.states[0])
+        bad = [n for n, a, b in zip(("frozen", "ran", "ctl"), got, (plan.frozen, plan.ran, plan.ctl))
+               if not bits_equal(a, b)]
+        st0 = plan.states[0]
+        nb = loop_bytes([st0.active, st0.node_bound, st0.node_kidx, st0.incumbent,
+                         st0.dropped_bound, st0.per_k_best, st0.per_k_dropped, plan.frozen,
+                         plan.ran, plan.ctl])
+        ms, call, src = time_kernel(lambda: plan._control(lib, sh, init=True), "bnb_control_kernel")
+        plain_ms = cuda_ms(lambda: DL.control_reference(plan, init=True, state=st0))
+        rows["bnb_control"].append((name + " init", bad, ms, call, plain_ms, nb, src))
+        if frozen_lane is not None:
+            plan.frozen[frozen_lane] = True
+        # Heads, the root round's and a warm round's rows of the seeded state.
+        for which, B in ((0, sig.B0), (1, sig.Bw)):
+            plan._head(data, sh, 0, which)
+            ref = round_inputs(data, plan.states[0], B, plan.frozen)
+            R, lp = sig.L * B, plan.lp_in
+            pairs = [("b", ref.b), ("c", ref.c), ("l", ref.lo), ("u", ref.hi),
+                     ("wv", ref.warm.v), ("wy", ref.warm.y), ("wz", ref.warm.z),
+                     ("wf", ref.warm.f), ("wok", ref.warm.ok), ("skip", ref.skip)]
+            bad = [n for n, t in pairs if not bits_equal(lp[n][:R], t)]
+            nb = 2 * loop_bytes([lp[n][:R] for n, _ in pairs]) + loop_bytes(
+                [st0.node_kidx[:, :B], st0.active[:, :B], plan.frozen])
+            ms, call, src = time_kernel(lambda: plan._head(data, sh, 0, which), "bnb_head_kernel")  # noqa: B023
+            plain_ms = cuda_ms(lambda: round_inputs(data, plan.states[0], B, plan.frozen))  # noqa: B023
+            rows["bnb_head"].append((f"{name} B={B}", bad, ms, call, plain_ms, nb, src))
+        # One root round, then the step control and the answer.
+        plan._control(lib, sh, init=True)
+        if frozen_lane is not None:
+            plan.frozen[frozen_lane] = True
+        plan._round(data, sh, 0, 1, 0)
+        saved = [t.clone() for t in (plan.frozen, plan.ran, plan.ctl)]
+        plan._control(lib, sh, go=1)
+        got = [t.clone() for t in (plan.frozen, plan.ran, plan.ctl)]
+        for t, s0 in zip((plan.frozen, plan.ran, plan.ctl), saved):
+            t.copy_(s0)
+        DL.control_reference(plan, go=plan.gos[1])
+        bad = [n for n, a, b in zip(("frozen", "ran", "ctl"), got, (plan.frozen, plan.ran, plan.ctl))
+               if not bits_equal(a, b)]
+        nb = loop_bytes([plan.gos[1], plan.frozen, plan.ctl])
+
+        def step_kernel():
+            plan.ctl.copy_(saved[2])
+            plan._control(lib, sh, go=1)
+
+        def step_plain():
+            plan.ctl.copy_(saved[2])
+            DL.control_reference(plan, go=plan.gos[1])
+
+        ms, call, src = time_kernel(step_kernel, "bnb_control_kernel")
+        plain_ms = cuda_ms(step_plain)
+        rows["bnb_control"].append((name + " step", bad, ms, call, plain_ms, nb, src))
+        plan._answer(lib, sh)
+        got = plan.answer.clone()
+        ref = DL.answer_reference(plan, plan.states[1])
+        bad = [] if bits_equal(got, ref) else ["answer"]
+        st1, r0 = plan.states[1], plan.res[0]
+        nb = loop_bytes([st1.incumbent, st1.node_bound, st1.active, st1.dropped_bound,
+                         st1.inc_kidx, st1.stat_ipm_iters, st1.stat_rounds, st1.inc_w, st1.inc_n,
+                         st1.inc_y, st1.per_k_best, plan.ran, plan.answer]) + loop_bytes(
+            [t.reshape(sig.L, sig.B0, -1)[:, :sig.n_k] for t in (r0.v, r0.y_dual, r0.z_dual,
+                                                                 r0.f_dual)])
+        ms, call, src = time_kernel(lambda: plan._answer(lib, sh), "bnb_answer_kernel")
+        plain_ms = cuda_ms(lambda: DL.answer_reference(plan, plan.states[1]))
+        rows["bnb_answer"].append((name, bad, ms, call, plain_ms, nb, src))
+        prep.release()
+    replaces = {
+        "bnb_seed": "distilp_tpu/solver/backend_jax.py:1348",
+        "bnb_head": "distilp_tpu/solver/backend_jax.py:1504",
+        "bnb_control": "distilp_tpu/solver/backend_jax.py:2913",
+        "bnb_answer": "distilp_tpu/solver/backend_jax.py:2100",
+    }
+    for kname, lines in rows.items():
+        for case, bad, ms, call, plain_ms, nb, src in lines:
+            b_ms, b_by = bound_ms(0.0, nb, PEAK_F64_S)
+            print(f"{kname} vs plain {case}: differs in {bad or 'nothing'}; {ms:.4f} ms ({src}), "
+                  f"call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms!r} ms ({b_by})",
+                  flush=True)
+            if bad:
+                fail(f"{kname} differs from its plain version on {case}: {bad}")
+        case, bad, ms, call, plain_ms, nb, src = lines[0]
+        b_ms, b_by = bound_ms(0.0, nb, PEAK_F64_S)
+        report[kname] = dict(name=kname, route="cuda",
+                             source="distilp_torch/kernels/csrc/bnb_loop_kernel.cu",
+                             replaces=replaces[kname], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None, held_on=case,
+                             call_ms=call, timing=src)
+
+
+@contextlib.contextmanager
+def recorded_loops(log: list):
+    """Record each search's answer (the read-back vector) and final state
+    inside the block: the graph route's from its plan's state buffer, the
+    host loop's from ``run_bnb_loop``."""
+    from distilp_torch.solver import backend_torch as BT
+    from distilp_torch.solver import device_loop as DL
+    from distilp_torch.solver import packed as PK
+
+    orig = (DL.LoopPlan.run_graph, BT.run_bnb_loop, PK.split_answer)
+
+    def run_graph(self, entry):
+        ans = orig[0](self, entry)
+        log.append(("state", type(self.states[1])(*[t.clone() for t in self.states[1]])))
+        return ans
+
+    def run_loop(*a, **kw):
+        state, root, lg = orig[1](*a, **kw)
+        log.append(("state", type(state)(*[t.clone() for t in state])))
+        return state, root, lg
+
+    def split(ans, lay):
+        log.append(("answer", ans.copy()))
+        return orig[2](ans, lay)
+
+    DL.LoopPlan.run_graph, BT.run_bnb_loop, BT.packed.split_answer = run_graph, run_loop, split
+    try:
+        yield log
+    finally:
+        DL.LoopPlan.run_graph, BT.run_bnb_loop, BT.packed.split_answer = orig
+
+
+def _memcpys(fn) -> dict:
+    """Host-to-device and device-to-host copies the profiler sees in
+    ``fn()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"HtoD": 0, "DtoH": 0, "DtoD": 0}
+    for e in prof.events():
+        if _is_device(e):
+            for k in out:
+                if f"Memcpy {k}" in e.name:
+                    out[k] += 1
+    return out
+
+
+def _busy_ms(fn) -> float:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages() if _is_device(e)) / 1e3
+
+
+PACKED_KERNELS = ("bnb_graph", "bnb_seed", "bnb_head", "bnb_control", "bnb_answer", "ipm")
+
+
+def h2d_rate(nbytes: int = 64 << 20) -> float:
+    """Bytes/s of one pinned host-to-device copy of ``nbytes`` (CUDA
+    events, median of 5)."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), reps=5, warmup=2)
+    return nbytes / (ms / 1e3)
+
+
+def packed_bound(report: dict, fn, sig_rounds: int, blob_bytes: int, rate: float) -> dict:
+    """The least time of one graph solve: its K1 and round-tail launches'
+    bounds (``launch_bounds``, the same kernels on the same rows), the loop
+    kernels' bounds per launch (phase 3's rows) times their launches, and
+    the dynamic blob's bytes at the measured host-to-device rate."""
+    with uncounted(), launch_bounds({}) as lb:
+        fn()
+    rounds = 1 + 2 * math.ceil(max(sig_rounds - 1, 0) / 2)
+    loop = (report["bnb_seed"]["bound_ms"] + report["bnb_answer"]["bound_ms"]
+            + rounds * report["bnb_head"]["bound_ms"]
+            + (rounds + 1) * report["bnb_control"]["bound_ms"])
+    upload = blob_bytes / rate * 1e3
+    return {"kernels_ms": sum(lb.values()), "by_kernel": lb, "loop_kernels_ms": loop,
+            "blob_bytes": blob_bytes, "h2d_bytes_s": rate, "upload_ms": upload,
+            "bound_ms": sum(lb.values()) + loop + upload}
+
+
+def packed_path(report: dict) -> dict:
+    """The packed halves and the loop on the card: every dense IPM case
+    solved on the graph route (one upload, one graph launch, one read) and
+    again with the host loop (``device_loop.host_loop``), the answers and
+    the final states held equal bit for bit, each solve's graph launches,
+    copies and the graph captures per signature printed; then walls and
+    busy shares of the two routes, in turns, medians of 9."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.common import load_from_profile_folder
+    from distilp_torch.solver import (
+        StreamingReplanner,
+        halda_solve,
+        halda_solve_async,
+        halda_solve_per_k,
+        halda_solve_scenarios,
+        solve_batch,
+    )
+    from distilp_torch.solver import device_loop as DL
+    from distilp_torch.solver import packed as PK
+    from distilp_torch.utils import make_synthetic_fleet
+
+    kernels.reset_launch_counts()
+    DL.CAPTURES.clear()
+    model = online_model()
+    north = make_synthetic_fleet(16, seed=123)
+    hermes = load_from_profile_folder(ROOT / "tests" / "profiles" / "hermes_70b")
+    with uncounted():
+        cold_north = halda_solve(north, model, mip_gap=1e-3, kv_bits="4bit")
+
+    def replanner_ticks():
+        planner = StreamingReplanner(mip_gap=STREAM_GAP, kv_bits="4bit")
+        devs = make_synthetic_fleet(16, seed=123)
+        rng = np.random.default_rng(7)
+        out = []
+        for t in range(9):
+            if t:
+                drift(devs, rng)
+            out.append(planner.step(devs, model))
+        return out
+
+    lanes2 = [pack_lane(f, model, STREAM_GAP, M_pad=8, k_candidates=MIXED_KS)[0]
+              for f in mixed_m_fleets()[:2]]
+    cases = []
+    for folder, _, _ in GOLDEN:
+        devs, gm = load_from_profile_folder(ROOT / "tests" / "profiles" / folder)
+        cases.append((f"golden {folder}", lambda d=devs, mm=gm: halda_solve(
+            d, mm, mip_gap=1e-4, kv_bits="4bit")))
+    cases += [
+        ("north_star cold", lambda: halda_solve(north, model, mip_gap=1e-3, kv_bits="4bit")),
+        ("north_star warm", lambda: halda_solve(north, model, mip_gap=1e-3, kv_bits="4bit",
+                                                warm=cold_north)),
+        ("per_k hermes_70b", lambda: halda_solve_per_k(*hermes, mip_gap=1e-3, kv_bits="4bit")),
+        ("per_k north_star", lambda: halda_solve_per_k(north, model, mip_gap=1e-3,
+                                                       kv_bits="4bit")),
+        ("scenarios x8", lambda: halda_solve_scenarios(
+            scenario_fleets(north, 8, 17), model, kv_bits="4bit", mip_gap=STREAM_GAP,
+            warms=[cold_north] * 8)),
+        ("two lanes with an A each", lambda: solve_batch(lanes2)),
+        ("async north_star", lambda: halda_solve_async(north, model, mip_gap=1e-3,
+                                                       kv_bits="4bit").collect()),
+        ("replanner 9 ticks", replanner_ticks),
+    ]
+    for name, fn in cases:
+        g0 = kernels.LAUNCHES["bnb_graph"]
+        c0 = dict(PK.COPIES)
+        graph_log: list = []
+        with recorded_loops(graph_log):
+            got = fn()
+        torch.cuda.synchronize()
+        n_graph = kernels.LAUNCHES["bnb_graph"] - g0
+        h2d, d2h = PK.COPIES["h2d"] - c0["h2d"], PK.COPIES["d2h"] - c0["d2h"]
+        host_log: list = []
+        with uncounted(), DL.host_loop(), recorded_loops(host_log):
+            fn()
+        answers = [a for kind, a in graph_log if kind == "answer"]
+        solves = len(answers)
+        same_ans = len(answers) == len([a for k, a in host_log if k == "answer"]) and all(
+            bits_equal(a, b) for a, b in zip(answers, [x for k, x in host_log if k == "answer"]))
+        gs = [x for k, x in graph_log if k == "state"]
+        hs = [x for k, x in host_log if k == "state"]
+        diffs = [state_diff(a, b) for a, b in zip(gs, hs)]
+        same_state = len(gs) == len(hs) and not any(diffs)
+        print(f"packed {name}: {solves} solves, graph launches {n_graph}, host-to-device copies "
+              f"{h2d}, device-to-host reads {d2h}; answers equal bit for bit: {same_ans}; "
+              f"final states equal bit for bit: {same_state} {[d for d in diffs if d]}",
+              flush=True)
+        if not (same_ans and same_state) or n_graph != solves or d2h != solves:
+            fail(f"packed {name}: the graph route differs from the host loop or did not run "
+                 f"as one graph launch and one read a solve")
+        del got
+    caps = {f"L={s.L} B0={s.B0} Bw={s.Bw} M={s.M} per_k={s.per_k} warm={s.has_warm}": c
+            for s, c in DL.CAPTURES.items()}
+    print("packed graph captures per signature", json.dumps(caps), flush=True)
+    if any(c != 1 for c in DL.CAPTURES.values()):
+        fail(f"a plan signature was captured more than once: {caps}")
+    # A static hit: one host-to-device copy (the dynamic blob) and one read.
+    for name, fn in (("north_star warm", cases[5][1]), ("north_star cold", cases[4][1])):
+        fn()
+        c0 = dict(PK.COPIES)
+        mc = _memcpys(fn)
+        print(f"packed {name} on a static hit: host-to-device copies {PK.COPIES['h2d'] - c0['h2d']}"
+              f" (profiler {mc['HtoD']}), device-to-host reads {PK.COPIES['d2h'] - c0['d2h']} "
+              f"(profiler {mc['DtoH']}), device-to-device {mc['DtoD']}", flush=True)
+        if PK.COPIES["h2d"] - c0["h2d"] != 1 or PK.COPIES["d2h"] - c0["d2h"] != 1:
+            fail(f"packed {name}: a static hit made more than one upload or read")
+    launches = path_launches()
+    print("packed path launches", json.dumps(launches), flush=True)
+    # Upload and search walls of each route (a static hit), and the graph
+    # solve's bound.
+    with uncounted():
+        for route in ("host", "graph"):
+            with DL.host_loop() if route == "host" else contextlib.nullcontext():
+                r, ms, tm = solve(north, model, 1e-3)
+            show(f"packed north_star_M16 route={route}", r, ms, tm)
+        rate = h2d_rate()
+        sf = lane_inputs([north], model, "4bit")[0].sf
+        blob = PK.dyn_layout(1, len(sf.ks), sf.A.shape[1], sf.A.shape[2], sf.M, False, False,
+                             False, False).nbytes
+        b = packed_bound(report, lambda: halda_solve(north, model, mip_gap=1e-3, kv_bits="4bit"),
+                         int(tm.get("bnb_rounds", 1)), blob, rate)
+    print("packed bound north_star solve", json.dumps(b), flush=True)
+    # Walls and busy shares, host loop against graph, in turns.
+    planner = StreamingReplanner(mip_gap=STREAM_GAP, kv_bits="4bit")
+    planner.step(north, model)
+    tick_devs = [d.model_copy(deep=True) for d in north]
+    drift(tick_devs, np.random.default_rng(7))
+    scen = scenario_fleets(north, 8, 17)
+    timing = [
+        ("north_star solve", lambda: halda_solve(north, model, mip_gap=1e-3, kv_bits="4bit")),
+        ("north_star warm tick", lambda: halda_solve(tick_devs, model, mip_gap=1e-3,
+                                                     kv_bits="4bit", warm=planner.last)),
+        ("scenarios x8", lambda: halda_solve_scenarios(scen, model, kv_bits="4bit",
+                                                       mip_gap=STREAM_GAP,
+                                                       warms=[cold_north] * 8)),
+        ("per_k north_star", lambda: halda_solve_per_k(north, model, mip_gap=1e-3,
+                                                       kv_bits="4bit")),
+    ]
+    # The profiler does not reliably see the kernels inside the WHILE body
+    # (it saw all, some or none of them across solves), so a graph solve's
+    # device time is the span of its graph launch by CUDA events: its
+    # kernels and the gaps between them on the card.
+    from distilp_torch.kernels.build import library
+
+    lib = library("bnb_loop")
+    launch = lib.dtk_bnb_graph_launch
+    spans: list = []
+
+    def spanned(graph, stream):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        err = launch(graph, stream)
+        b.record()
+        spans.append((a, b))
+        return err
+
+    with uncounted():
+        for name, fn in timing:
+            walls = {"host": [], "graph": []}
+            lib.dtk_bnb_graph_launch = spanned
+            try:
+                for rep in range(9):
+                    for route in (("host", "graph") if rep % 2 == 0 else ("graph", "host")):
+                        ctx = DL.host_loop() if route == "host" else contextlib.nullcontext()
+                        with ctx:
+                            walls[route].append(timed(fn)[1])
+            finally:
+                lib.dtk_bnb_graph_launch = launch
+            torch.cuda.synchronize()
+            span = statistics.median(a.elapsed_time(b) for a, b in spans)
+            spans.clear()
+            with DL.host_loop():
+                busy = _busy_ms(fn)
+            line = {"case": name}
+            for route in ("host", "graph"):
+                wall = statistics.median(walls[route])
+                line[route] = {"wall_ms_median_of_9": wall, "walls_ms": walls[route],
+                               "kernel_busy_ms": busy, "busy_share": busy / wall}
+            line["graph"].update(device_span_ms=span, span_share=span / line["graph"][
+                "wall_ms_median_of_9"])
+            print("packed timing", json.dumps(line), flush=True)
+    return launches
+
+
+def _as_ilp(r):
+    """A HALDAResult as the ILPResult a warm hint is read from."""
+    from distilp_torch.solver.api import _warm_to_ilp
+
+    return _warm_to_ilp(r)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2946,7 +3442,12 @@ def mixtral_regimes_solve(model, timings=None):
 @contextlib.contextmanager
 def captured(module, name: str, calls: list):
     """Record every call of ``module.name`` (its args and keywords) made
-    inside the block; yields the original function."""
+    inside the block; yields the original function. Searches inside the
+    block take the host loop, whose rounds call the wrappers one by one (a
+    graph launch runs the same kernels on the same rows, bit for bit, the
+    ``packed`` path holds, but calls no wrapper)."""
+    from distilp_torch.solver import device_loop
+
     orig = getattr(module, name)
 
     def record(*args, **kw):
@@ -2955,7 +3456,8 @@ def captured(module, name: str, calls: list):
 
     setattr(module, name, record)
     try:
-        yield orig
+        with device_loop.host_loop():
+            yield orig
     finally:
         setattr(module, name, orig)
 
@@ -3265,13 +3767,15 @@ def check_epilogue_lanes(report: dict) -> None:
 @contextlib.contextmanager
 def reference_tail():
     """Rounds inside the block take the round tail's plain version (K2, the
-    tensor code and K3, the sequence the fused launch replaced)."""
-    from distilp_torch.solver import search
+    tensor code and K3, the sequence the fused launch replaced), on the
+    host loop."""
+    from distilp_torch.solver import device_loop, search
 
     orig = search.round_tail
     search.round_tail = search.round_tail_reference
     try:
-        yield
+        with device_loop.host_loop():
+            yield
     finally:
         search.round_tail = orig
 
@@ -3978,7 +4482,10 @@ def show(name, r, ms, tm):
           f"search_ms={tm.get('solve_ms', 0.0):.2f}", flush=True)
 
 
-DENSE_KERNELS = ("ipm", "round_incumbent", "round_tail")
+# Since the loop runs as one graph, a dense sweep's warm hint is re-priced
+# in the graph's seed (K2's per-row body), not by K2's entry.
+DENSE_KERNELS = ("ipm", "round_tail", "bnb_graph", "bnb_seed", "bnb_head", "bnb_control",
+                 "bnb_answer")
 MOE_KERNELS = ("ipm", "round_moe", "round_tail", "decomp")
 PROFILE_KERNELS = ("ipm", "round_tail", "twin_mc", "hbm_stream",
                    "gemm_absmax_scale")
@@ -4466,6 +4973,10 @@ SWEEP_KERNELS = ("ipm", "round_moe", "decomp", "price_fixed", "round_tail")
 # B15's, per-k rounds included since the tail's per-k mode): they run only
 # inside the tail's plain version, and no path may launch them.
 FOLDED_INTO_TAIL = ("bnb_epilogue", "bnb_epilogue_lanes", "bnb_per_k", "bnb_per_k_lanes")
+# K2's per-instance entry re-priced the dense lanes' warm hints; the graph's
+# seed does that since the loop runs on the card (the entry is held in phase
+# 3 and serves the host loop).
+FOLDED_INTO_GRAPH = ("round_incumbent_lanes",)
 
 
 def routing_loads(kind: str):
@@ -4636,7 +5147,7 @@ FLAGSHIP_TICK_PINS = [(-400.80947050866087, "cold"), (-400.81776379536154, "marg
                       (-400.8327422785259, "margin"), (-426.17321971790483, "warm"),
                       (-426.1811522913107, "margin")]
 BUCKETS = (2, 4, 8, 16, 32, 64, 128)  # the JAX package's combine.BucketPolicy boundaries
-STREAM_KERNELS = ("ipm", "round_incumbent", "round_incumbent_lanes", "round_moe",
+STREAM_KERNELS = ("ipm", "bnb_graph", "bnb_seed", "round_moe",
                   "round_moe_lanes", "round_tail", "round_tail_lanes", "decomp", "decomp_lanes")
 
 
@@ -5986,12 +6497,13 @@ def main() -> int:
               lambda r: check_twin_mc(r, cases), check_hbm_stream, check_gemm_absmax_scale,
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
               check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces,
-              check_collective, check_pdhg_sharded, check_pdhg_sharded_elem, check_round_tail]
+              check_collective, check_pdhg_sharded, check_pdhg_sharded_elem, check_round_tail,
+              check_bnb_loop]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_routes", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
              "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded",
-             "pdhg_sharded_elem", "round_tail"]
+             "pdhg_sharded_elem", "round_tail", "bnb_loop"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -6007,6 +6519,7 @@ def main() -> int:
         paths["elem"], elem_calls = elem_path()
         paths["diagnose"] = diagnose_path()
         paths["mesh"] = mesh_path()
+        paths["packed"] = packed_path(report)
     # K7 on the main paths: at most two launches a root bound (the fused
     # ascent and the float64 evaluation), none of the per-step entry.
     per_call = {}
@@ -6030,14 +6543,16 @@ def main() -> int:
     print("main path launches", json.dumps(launches), flush=True)
     by_shape = {k: {p: c["_shapes"].get(k, {}) for p, c in paths.items()}
                 for k in ("ipm", "pdhg", "pdhg_elem", "ipm_trace", "pdhg_trace",
-                          "pdhg_sharded", "pdhg_sharded_elem", "decomp", "decomp_lanes")}
+                          "pdhg_sharded", "pdhg_sharded_elem", "decomp", "decomp_lanes",
+                          "bnb_graph")}
     print("main path launches by shape", json.dumps(by_shape), flush=True)
     # K3's entry and B15's run only inside the round tail's plain version:
     # every round, per-k or not, is one round tail after its LP call.
     folded = {k: launches[k] for k in FOLDED_INTO_TAIL if launches[k]}
     if folded:
         fail(f"the main paths launched kernels the round tail folds: {folded}")
-    missing = [k for k, v in launches.items() if v == 0 and k not in FOLDED_INTO_TAIL]
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in FOLDED_INTO_TAIL + FOLDED_INTO_GRAPH]
     if missing:
         fail(f"main path never launched {missing}")
     # Every K5 element on the main paths fits a cluster: no launch of theirs
@@ -6053,7 +6568,7 @@ def main() -> int:
                  "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes",
                  "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
                  "pdhg_sharded", "pdhg_sharded_elem", "collective", "round_tail",
-                 "round_tail_lanes"):
+                 "round_tail_lanes", "bnb_seed", "bnb_head", "bnb_control", "bnb_answer"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -4,7 +4,7 @@ The sources live in ``csrc/`` and are built at first use by
 :mod:`distilp_torch.kernels.build`. Each kernel's Python wrapper sits beside
 its plain PyTorch version (``ops/ipm.py``, ``ops/pdhg.py``,
 ``ops/meshlp.py``, ``parallel/collectives.py``, ``ops/decomp.py``,
-``solver/rounding.py``, ``solver/search.py``,
+``solver/rounding.py``, ``solver/search.py``, ``solver/device_loop.py``,
 ``twin/engine.py``, ``profiler/device.py``): on a CUDA tensor the wrapper
 launches the kernel and adds one to :data:`LAUNCHES`; on a CPU tensor it runs
 the plain version.
@@ -35,24 +35,30 @@ import torch
 # DecompBound32 and the card's yardstick of the ascent). The round tail
 # (R8: a round's rounding, incumbent, thresholds, epilogue and compaction
 # in one launch, a per-k round's too) counts "round_tail", or
-# "round_tail_lanes" for a launch over more than one lane.
+# "round_tail_lanes" for a launch over more than one lane. A dense IPM
+# sweep's search is one CUDA graph (solver/device_loop.py): "bnb_graph"
+# counts its launches; the kernels it ran ("bnb_seed", "bnb_head", "ipm",
+# the round tail, "bnb_control", "bnb_answer") are counted from the rounds
+# its answer reports, since a graph launch is one host call.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
     "bnb_per_k": 0, "price_fixed": 0, "round_incumbent_lanes": 0, "round_moe_lanes": 0,
     "bnb_epilogue_lanes": 0, "bnb_per_k_lanes": 0, "decomp_lanes": 0, "pdhg_elem": 0,
     "ipm_trace": 0, "pdhg_trace": 0, "pdhg_sharded": 0, "pdhg_sharded_elem": 0,
-    "collective": 0, "round_tail": 0, "round_tail_lanes": 0,
+    "collective": 0, "round_tail": 0, "round_tail_lanes": 0, "bnb_graph": 0, "bnb_seed": 0,
+    "bnb_head": 0, "bnb_control": 0, "bnb_answer": 0,
 }
 
 
 # Kernel name -> {shape: launches} for the kernels whose wrappers break
 # their count down by the shape they were launched at (K1, K5, K6b) or by
-# entry (K7).
+# entry (K7); "bnb_graph" counts every search by its loop's route
+# ("route=graph ..." or "route=host <why> ...").
 SHAPES: Dict[str, Dict[str, int]] = {"ipm": {}, "pdhg": {}, "pdhg_elem": {},
                                      "ipm_trace": {}, "pdhg_trace": {}, "pdhg_sharded": {},
                                      "pdhg_sharded_elem": {}, "decomp": {},
-                                     "decomp_lanes": {}}
+                                     "decomp_lanes": {}, "bnb_graph": {}}
 
 
 def reset_launch_counts() -> None:

@@ -35,7 +35,9 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 # explicit fmaf and the tensor cores, which the flag does not touch). So
 # does K6b: its two routes inline the same phase code into two kernels, and
 # only without contraction do both round every operation alike (bit for bit
-# on the card; with it, they part at the last bit).
+# on the card; with it, they part at the last bit). So does the
+# branch-and-bound loop's library, which re-prices the warm hint with K2's
+# per-row body and runs the loop's gap tests.
 SOURCES: Dict[str, tuple] = {
     "ipm": ("ipm_kernel.cu", []),
     "round": ("round_kernel.cu", ["--fmad=false"]),
@@ -49,6 +51,7 @@ SOURCES: Dict[str, tuple] = {
     "pdhg_sharded": ("pdhg_sharded_kernel.cu", ["--fmad=false"]),
     "collective": ("collective_kernel.cu", []),
     "round_tail": ("round_tail_kernel.cu", ["--fmad=false"]),
+    "bnb_loop": ("bnb_loop_kernel.cu", ["--fmad=false"]),
 }
 HEADERS = ("common.cuh", "round_row.cuh", "epilogue_row.cuh", "per_k_row.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -151,11 +154,26 @@ SIGNATURES = {
         "dtk_round_tail_ws_bytes": [_I] * 4,
         "dtk_round_tail": [_P, _P, _D, _P],
     },
+    "bnb_loop": {
+        "dtk_bnb_seed_smem": [_I, _I],
+        "dtk_bnb_seed": [_P, _P, _P],
+        "dtk_bnb_head": [_P, _P, _P],
+        "dtk_bnb_control": [_P, _P, _D, ctypes.c_ulonglong, _P],
+        "dtk_bnb_answer": [_P, _P, _P],
+        "dtk_bnb_graph_new": [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_ulonglong)],
+        "dtk_bnb_capture_begin": [_P],
+        "dtk_bnb_capture_end": [_P, ctypes.POINTER(_P)],
+        "dtk_bnb_graph_finish": [_P] * 4,
+        "dtk_bnb_graph_launch": [_P, _P],
+        "dtk_bnb_graph_free": [_P],
+        "dtk_bnb_graph_discard": [_P],
+    },
 }
 RESTYPES = {"dtk_pdhg_ws_bytes": _S, "dtk_pdhgs_ws_bytes": _S, "dtk_pdhgc_smem_bytes": _S,
             "dtk_decomp_ascent_ws_bytes": _S, "dtk_decomp_f64_ws_bytes": _S,
             "dtk_round_moe_tab_bytes": _L, "dtk_round_tail_smem_bytes": _L,
-            "dtk_round_tail_ws_bytes": _L}
+            "dtk_round_tail_ws_bytes": _L, "dtk_bnb_seed_smem": _L,
+            "dtk_bnb_graph_free": None, "dtk_bnb_graph_discard": None}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

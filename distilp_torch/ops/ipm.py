@@ -228,6 +228,8 @@ def ipm_solve_batch(
     chunk: int = IPM_DEFAULT_CHUNK,
     sparsity: Optional[IPMSparsity] = None,
     trace: bool = False,
+    _checked: bool = False,
+    _values: Optional[torch.Tensor] = None,
 ) -> IPMResult:
     """Solve a batch of boxed LPs: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. ``tol``/``reg`` default by dtype.
@@ -235,12 +237,14 @@ def ipm_solve_batch(
     keeps it across calls; every nonzero of A must lie in its pattern
     (:func:`check_sparsity`). The kernel's wrapper builds it from A
     otherwise. ``trace`` records the convergence trace (:data:`TRACE_COLS`)
-    into ``trace_buf``."""
-    if sparsity is not None:
+    into ``trace_buf``. ``_checked`` and ``_values`` are the search's: a
+    structure it checked against this A when it built it, and the kernel's
+    values of a 2-D A on it."""
+    if sparsity is not None and not _checked:
         check_sparsity(batch.A, sparsity)
     tensors = list(batch) + ([] if warm is None else list(warm)) + [skip]
     if kernels.on_cuda(*tensors):
-        return _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity, trace)
+        return _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity, trace, _values)
     return ipm_solve_batch_reference(batch, iters, tol, reg, warm, skip, chunk, trace)
 
 
@@ -458,7 +462,8 @@ def _reference(batch, iters, tol, reg, warm, skip, chunk, trace) -> IPMResult:
     )
 
 
-def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity, trace) -> IPMResult:
+def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity, trace,
+                values=None) -> IPMResult:
     from ..kernels.build import library
 
     A, b, c, l, u = batch
@@ -478,7 +483,9 @@ def _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity, trace) -> I
     A = A.contiguous()
     if sparsity is None:
         sparsity = ipm_sparsity(A != 0 if A.dim() == 2 else (A != 0).any(0))
-    vals = A.reshape(*A.shape[:-2], m * n)[..., sparsity.src].contiguous()
+    if values is None or A.dim() != 2:
+        values = A.reshape(*A.shape[:-2], m * n)[..., sparsity.src]
+    vals = values.contiguous()
     for name, t, shape in (("b", b, (B, m)), ("c", c, (B, n)),
                            ("l", l, (B, n)), ("u", u, (B, n))):
         if t.dtype != dtype or tuple(t.shape) != shape:

@@ -73,7 +73,8 @@ def solve_sweep_sharded(
     cap = pad_cap_to_mesh(max(params["cap"], 2 * n_k), mesh)
     params.update(cap=cap, beam=min(pad_cap_to_mesh(params["beam"], mesh), cap))
     root_beam = min(pad_cap_to_mesh(n_k, mesh), cap)
-    prep = _prepare([lane], params, mip_gap, mesh.devices[0], per_k=per_k, shared_A=True)
+    prep = _prepare([lane], params, mip_gap, mesh.devices[0], per_k=per_k, shared_A=True,
+                    node_mesh=True)
     state = seeded_state(prep)[0]
     state, _, _ = run_bnb_loop(prep.data, state, mip_gap, **prep.loop_kw,
                                node_mesh=node_mesh_of(mesh, prep.data), root_beam=root_beam)

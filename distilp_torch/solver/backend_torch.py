@@ -44,20 +44,25 @@ from ..parallel.devices import shard_mesh
 from .assemble import MilpArrays, VarLayout
 from .coeffs import HaldaCoeffs
 from .result import ILPResult
-from .rounding import RoundingData, pack_rounding_data
+from . import packed
+from .device_loop import (
+    acquire_plan,
+    answer_rows,
+    forced_host_loop,
+    loop_route,
+    note_route,
+    plan_sig,
+    release_plan,
+)
 from .search import (
     BDTYPE,
     RL_COLS,
     SearchState,
     SweepData,
-    best_bound,
-    node_sparsity,
-    per_k_bound,
     root_state,
     run_bnb_loop,
     seed_root_bounds,
     seed_warm,
-    sweep_values,
 )
 from .standard_form import (
     DECOMP_STEPS_COLD,
@@ -435,107 +440,99 @@ def _search_params(sf: StandardForm, node_cap, beam, ipm_iters, max_rounds, ipm_
                 pdhg_dtype=pdhg_dtype, pdhg_restart_tol=pdhg_restart_tol)
 
 
-class _Prepared(NamedTuple):
-    """L sweeps built and uploaded, ready for their search."""
+class _Prepared:
+    """L sweeps built and uploaded, ready for their search: the static
+    entry (A, its structure and values on the card), the dynamic blob's
+    views (``views``), on the graph route the plan that owns them, the
+    lane data and, built when first asked, the lanes' root state."""
 
-    lanes: List[LaneInput]
-    mip_gap: float
-    debug: bool
-    per_k: bool
-    timings: Optional[dict]
-    data: SweepData  # lane data
-    state: SearchState  # lane state
-    loop_kw: dict
-    moe_ctx: Optional[tuple]  # (w_max, e_max, decomp_steps)
-    warm: Optional[tuple]  # (k index (L,), w, n, y (L, M)) on the device
-    duals: Optional[tuple]  # (lam (L, n_k), mu, tau (L, n_k, M)), float64 numpy
-    margin: Optional[torch.Tensor]  # (L, n_k) pre-slackened root bounds
-    stats: dict
-    # The caller's convergence dict (one sweep): the search logs its rounds
-    # and the root round's LP trace, decoded into it.
-    convergence: Optional[dict] = None
+    def __init__(self, lanes, mip_gap, debug, per_k, timings, data, loop_kw, moe_ctx, warm,
+                 duals, margin, stats, convergence=None, views=None, root_warm=None,
+                 entry=None, plan=None, cap=0, pinned=None):
+        self.lanes: List[LaneInput] = lanes
+        self.mip_gap = mip_gap
+        self.debug = debug
+        self.per_k = per_k
+        self.timings: Optional[dict] = timings
+        self.data: SweepData = data  # lane data
+        self.loop_kw: dict = loop_kw
+        self.moe_ctx: Optional[tuple] = moe_ctx  # (w_max, e_max, decomp_steps)
+        self.warm: Optional[tuple] = warm  # (k index (L,), w, n, y (L, M)) on the device
+        self.duals: Optional[tuple] = duals  # (lam (L, n_k), mu, tau (L, n_k, M)), numpy
+        self.margin: Optional[torch.Tensor] = margin  # (L, n_k) pre-slackened root bounds
+        self.stats: dict = stats
+        # The caller's convergence dict (one sweep): the search logs its
+        # rounds and the root round's LP trace, decoded into it.
+        self.convergence: Optional[dict] = convergence
+        self.views = views
+        self.root_warm = root_warm  # (ok, v, y, z, f) views, or None
+        self.entry = entry  # packed.StaticEntry
+        self.plan = plan  # device_loop.LoopPlan on the graph route
+        self.cap = cap
+        self._pinned = pinned  # the upload's host buffer (host route)
+        self._state: Optional[SearchState] = None
+
+    @property
+    def state(self) -> SearchState:
+        """The lanes' root state (built on first use)."""
+        if self._state is None:
+            v = self.views
+            self._state = root_state(v["lo_k"], v["hi_k"], self.lanes[0].sf.M, self.cap,
+                                     v["b_k"].shape[-1], self.root_warm)
+        return self._state
+
+    def release(self) -> None:
+        """Hand the plan and the upload's host buffer back."""
+        release_plan(self.plan)
+        self.plan = None
+        packed.give_pinned(self._pinned)
+        self._pinned = None
+
+    def __del__(self):
+        if self.plan is not None:  # a prepared sweep dropped unsearched
+            self.plan.busy = False
 
 
 def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=False,
              per_k=False, timings=None, shared_A=False, A_lanes=None,
-             convergence: Optional[dict] = None, row_mesh=None) -> _Prepared:
-    """Upload L sweeps (same shapes and search parameters) as lane data and
-    the root frontiers. ``shared_A``: every lane has lane 0's A (scenarios
-    of one fleet: one (m, nf) matrix); else ``A_lanes`` (L, m, nf) on the
-    device, or each lane's own A stacked. Warm hints, stored duals, root
-    iterates and margin bounds are used only when every lane has them. A's
-    structure is built here, once per sweep, for K1 and for K5 with each
-    lane's values on it (one value set for a shared A; on a row mesh the
-    row blocks of a per-element A, while a shared A stays dense for K6b). ``convergence`` (one lane) turns on the round log and the root
-    round's LP trace. ``row_mesh`` (one sweep on the PDHG engine)
-    row-partitions every LP relaxation over its shards."""
+             convergence: Optional[dict] = None, row_mesh=None,
+             node_mesh: bool = False, _host_loop: bool = False) -> _Prepared:
+    """Upload L sweeps (same shapes and search parameters): their static
+    half through the content-addressed cache (``packed.static_entry``; A's
+    structure is built and checked there, once per entry) and their dynamic
+    half as one blob in one copy. ``shared_A``: every lane has lane 0's A
+    (scenarios of one fleet: one (m, nf) matrix); else ``A_lanes`` (L, m,
+    nf) on the device, or each lane's own A stacked. Warm hints, stored duals, root iterates and margin
+    bounds are used only when every lane has them. ``convergence`` (one
+    lane) turns on the round log and the root round's LP trace.
+    ``row_mesh`` (one sweep on the PDHG engine) row-partitions every LP
+    relaxation over its shards; ``node_mesh`` marks a sweep whose rounds
+    K10 runs (the host loop). The route (``device_loop.loop_route``): a
+    dense sweep on the IPM engine takes the graph route, whose plan owns
+    the blob; ``_host_loop`` (the card's comparison) forces the host
+    loop."""
     t1 = time.perf_counter()
     L = len(lanes)
     sf0 = lanes[0].sf
     M, moe = sf0.M, sf0.moe
-
-    def stack(key):
-        return torch.as_tensor(np.stack([ln.host[key] for ln in lanes]), device=dev)
-
-    if A_lanes is not None:
-        A = A_lanes
-    elif shared_A or L == 1:
-        A = torch.as_tensor(lanes[0].host["A"], device=dev)
+    n_k = len(sf0.ks)
+    m, nf = sf0.A.shape[1], sf0.A.shape[2]
+    if A_lanes is None and (shared_A or L == 1):
+        key, A_src = pack_static(sf0).tobytes(), lanes[0].host["A"]
     else:
-        A = stack("A")
-    rd_np = {f: np.stack([np.broadcast_to(np.asarray(ln.rd_np[f], np.float64),
-                                          np.shape(lanes[0].rd_np[f])) for ln in lanes])
-             for f in RoundingData._fields}
-    rd = RoundingData(**{f: torch.as_tensor(v, dtype=torch.float64, device=dev)
-                         for f, v in rd_np.items()})
+        key = tuple(pack_static(ln.sf).tobytes() for ln in lanes)
+        A_src = A_lanes if A_lanes is not None else np.stack([ln.host["A"] for ln in lanes])
+    entry, _ = packed.static_entry(key, A_src, M, moe, dev)
     engine = params["lp_backend"]
-    per_element = moe or (A.dim() == 3 and A.shape[0] > 1)
+    per_element = moe or entry.A.dim() == 3 and entry.A.shape[0] > 1
     on_mesh = row_mesh is not None and row_mesh.size > 1
     # The PDHG reads A as values on its structure, except one shared A on a
     # row mesh, which K6b takes dense.
     pdhg_values = engine == "pdhg" and (per_element or not on_mesh)
-    A_sparsity = A_values = gky_pos = A_shards = None
-    if engine == "ipm" or pdhg_values:
-        A_sparsity = node_sparsity(A, M, moe)
-    if pdhg_values:
-        A_values, gky_pos = sweep_values(A, A_sparsity, M, moe)
-        if on_mesh:
-            A_shards = row_blocks(A_sparsity, row_mesh.size)
-    data = SweepData(
-        A=A,
-        b_k=stack("b_k"),
-        c_k=stack("c_k"),
-        int_mask=stack("int_mask"),
-        ks=torch.as_tensor(np.stack([np.asarray(ln.sf.ks, np.float64) for ln in lanes]),
-                           device=dev),
-        Ws=torch.as_tensor(np.stack([np.asarray(ln.sf.Ws, np.float64) for ln in lanes]),
-                           device=dev),
-        obj_const=torch.as_tensor([float(ln.sf.obj_const) for ln in lanes],
-                                  dtype=torch.float64, device=dev),
-        rd=rd,
-        rd_packed=pack_rounding_data(rd),
-        gky=stack("gky") if moe else None,
-        A_sparsity=A_sparsity,
-        A_values=A_values,
-        gky_pos=gky_pos,
-        A_shards=A_shards,
-    )
-    m = A.shape[-2]
+    has_warm = all(ln.warm_tuple is not None for ln in lanes)
     use_root_warm = all(ln.root_warm_tuple is not None for ln in lanes)
-    root_warm = None
-    if use_root_warm:
-        parts = [torch.as_tensor(np.stack([ln.root_warm_tuple[i] for ln in lanes]), device=dev)
-                 for i in range(5)]
-        root_warm = (parts[0] > 0.5, *parts[1:])
-    state = root_state(stack("lo_k"), stack("hi_k"), M, params["cap"], m, root_warm)
-    warm = None
-    if all(ln.warm_tuple is not None for ln in lanes):
-        warm = (
-            torch.as_tensor([int(ln.warm_tuple[0]) for ln in lanes], device=dev),
-            *(torch.as_tensor(np.stack([np.asarray(ln.warm_tuple[i], np.float64)
-                                        for ln in lanes]), device=dev) for i in (1, 2, 3)),
-        )
-    duals = margin = moe_ctx = None
+    duals = moe_ctx = None
+    has_margin = False
     if moe:
         if all(ln.duals_tuple is not None for ln in lanes):
             duals = tuple(np.stack([ln.duals_tuple[i] for ln in lanes]) for i in range(3))
@@ -543,11 +540,54 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         # root gap is structural). A warm tick with both the stored
         # multipliers and a warm incumbent only re-evaluates it, or, on the
         # margin path, takes the host's re-derived bounds.
-        decomp_steps = (DECOMP_STEPS_WARM if duals is not None and warm is not None
+        decomp_steps = (DECOMP_STEPS_WARM if duals is not None and has_warm
                         else DECOMP_STEPS_COLD)
-        if decomp_steps == DECOMP_STEPS_WARM and all(ln.margin_np is not None for ln in lanes):
-            margin = torch.as_tensor(np.stack([ln.margin_np for ln in lanes]), device=dev)
+        has_margin = (decomp_steps == DECOMP_STEPS_WARM
+                      and all(ln.margin_np is not None for ln in lanes))
         moe_ctx = (max(W for _, W in lanes[0].feasible), lanes[0].E, decomp_steps)
+    route, why = loop_route(moe, engine, row_mesh, convergence is not None)
+    if node_mesh:
+        route, why = "host", "node_mesh"
+    elif route == "graph" and (_host_loop or forced_host_loop()):
+        route, why = "host", "host_loop_asked"
+    note_route(route, why, L)
+    plan = pinned = None
+    if route == "graph":
+        plan = acquire_plan(plan_sig(
+            dev, L, params["cap"], n_k, params["beam"], m, nf, M, per_k, params["ipm_iters"],
+            params["ipm_warm_iters"], use_root_warm, mip_gap, params["max_rounds"], has_warm,
+            use_root_warm, entry))
+        plan.stage(lanes)
+        views = plan.views
+    else:
+        layout = packed.dyn_layout(L, n_k, m, nf, M, moe, has_warm, use_root_warm, has_margin)
+        pinned = packed.take_pinned(layout.nbytes, dev)
+        packed.pack_dynamic(lanes, layout, pinned.numpy())
+        views = packed.dyn_views(packed.upload(pinned, dev), layout)
+    if plan is not None:
+        data = plan.data(entry)
+    else:
+        A_sparsity = A_values = gky_pos = A_shards = None
+        if engine == "ipm" or pdhg_values:
+            A_sparsity = entry.sparsity
+        if pdhg_values:
+            A_values, gky_pos = entry.pdhg_values()
+            if on_mesh:
+                A_shards = row_blocks(A_sparsity, row_mesh.size)
+        data = SweepData(
+            A=entry.A, b_k=views["b_k"], c_k=views["c_k"], int_mask=views["int_mask"],
+            ks=views["ks"], Ws=views["Ws"], obj_const=views["obj_const"],
+            rd=packed.rounding_views(views), rd_packed=views["rd"], gky=views.get("gky"),
+            A_sparsity=A_sparsity, A_values=A_values, gky_pos=gky_pos, A_shards=A_shards,
+            A_k1_values=entry.values if entry.A.dim() == 2 else None, A_checked=True,
+        )
+    root_warm = None
+    if use_root_warm:
+        root_warm = tuple(views[k] for k in ("rw_ok", "rw_v", "rw_y", "rw_z", "rw_f"))
+    warm = None
+    if has_warm:
+        warm = tuple(views[k] for k in ("warm_kidx", "warm_w", "warm_n", "warm_y"))
+    margin = views["margin"] if has_margin else None
     loop_kw = dict(
         ipm_iters=params["ipm_iters"], max_rounds=params["max_rounds"], beam=params["beam"],
         ipm_warm_iters=params["ipm_warm_iters"], root_warm_chunk=use_root_warm,
@@ -557,9 +597,10 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     )
     stats = {"upload_ms": (time.perf_counter() - t1) * 1e3}
     return _Prepared(lanes=lanes, mip_gap=mip_gap, debug=debug, per_k=per_k,
-                     timings=timings, data=data, state=state, loop_kw=loop_kw,
-                     moe_ctx=moe_ctx, warm=warm, duals=duals, margin=margin, stats=stats,
-                     convergence=convergence)
+                     timings=timings, data=data, loop_kw=loop_kw, moe_ctx=moe_ctx, warm=warm,
+                     duals=duals, margin=margin, stats=stats, convergence=convergence,
+                     views=views, root_warm=root_warm, entry=entry, plan=plan,
+                     cap=params["cap"], pinned=pinned)
 
 
 def seeded_state(prep: _Prepared):
@@ -593,43 +634,54 @@ def seeded_state(prep: _Prepared):
 
 
 def _search(prep: _Prepared) -> dict:
-    """The device half of L sweeps: the MoE root bounds (one ascent over
-    every lane), the warm incumbents, the branch-and-bound loop, and one
-    read-back of what the decode needs."""
+    """The device half of L sweeps and one read-back of what the decode
+    needs: on the graph route one launch of the plan's graph (the seed, the
+    loop and the answer on the card); on the host route the MoE root bounds
+    (one ascent over every lane), the warm incumbents and
+    ``search.run_bnb_loop``, the answer assembled on the card."""
     data = prep.data
     L, n_k = data.ks.shape
+    sf = prep.lanes[0].sf
+    m, nf = sf.A.shape[1], sf.A.shape[2]
     t2 = time.perf_counter()
-    state, duals_t, raw_bounds, m_y, t_decomp = seeded_state(prep)
-    state, root_iters, log = run_bnb_loop(data, state, prep.mip_gap, **prep.loop_kw)
-    head_parts = [
-        torch.stack([
-            state.incumbent, best_bound(state), state.inc_kidx.to(BDTYPE),
-            state.stat_ipm_iters, state.stat_rounds,
-        ], dim=1),
-        state.inc_w, state.inc_n, state.inc_y, state.per_k_best,
-    ]
-    if duals_t is not None:
-        head_parts += [t.reshape(L, -1) for t in duals_t] + [raw_bounds]
-    if prep.per_k:
-        head_parts += [state.per_k_w.reshape(L, -1), state.per_k_n.reshape(L, -1),
-                       state.per_k_y.reshape(L, -1), per_k_bound(state)]
-    head = torch.cat(head_parts, dim=1).cpu().numpy()
-    root = [t[:, :n_k].to(BDTYPE).cpu().numpy() for t in root_iters]
-    anchor = None
-    if m_y is not None and any(ln.margin_ctx is not None for ln in prep.lanes):
-        anchor = m_y.cpu().numpy()
-    conv = None
-    if log is not None:
-        rows, root_trace = log
-        rl = torch.stack(rows) if rows else torch.zeros((0, L, RL_COLS), dtype=BDTYPE)
-        conv = (rl.cpu().numpy(), root_trace[:, :n_k].cpu().numpy())
-    t3 = time.perf_counter()
-    stats = {"solve_ms": (t3 - t2) * 1e3}
-    if prep.moe_ctx is not None:
-        # Host time to enqueue the bound (the ascent reads nothing back).
-        stats.update(decomp_steps=prep.moe_ctx[2], decomp_enqueue_ms=(t_decomp - t2) * 1e3)
-    return {"head": head, "root": root, "stats": stats, "has_duals": duals_t is not None,
-            "m_y": anchor, "conv": conv}
+    stats = {}
+    try:
+        if prep.plan is not None:
+            plan = prep.plan
+            ans = plan.run(prep.entry, prep.warm, prep.root_warm)
+            lay = plan.alay
+            duals_t = None
+        else:
+            state, duals_t, raw_bounds, m_y, t_decomp = seeded_state(prep)
+            state, root_iters, log = run_bnb_loop(data, state, prep.mip_gap, **prep.loop_kw)
+            extra, my_shape, conv_rows, trace_shape = [], (), 0, ()
+            if m_y is not None and any(ln.margin_ctx is not None for ln in prep.lanes):
+                extra.append(m_y)
+                my_shape = tuple(m_y.shape[1:])
+            if log is not None:
+                rows, root_trace = log
+                rl = (torch.stack(rows) if rows
+                      else torch.zeros((0, L, RL_COLS), dtype=BDTYPE, device=data.ks.device))
+                conv_rows = rl.shape[0]
+                tr = root_trace[:, :n_k]
+                trace_shape = tuple(tr.shape[1:])
+                extra += [rl.transpose(0, 1), tr]
+            ans = packed.read_answer(answer_rows(state, root_iters, n_k, prep.per_k, duals_t,
+                                                 raw_bounds, extra))
+            lay = packed.AnswerLayout(sf.M, n_k, m, nf, duals_t is not None, prep.per_k,
+                                      my_shape, conv_rows, trace_shape)
+            if prep.moe_ctx is not None:
+                # Host time to enqueue the bound (the ascent reads nothing back).
+                stats.update(decomp_steps=prep.moe_ctx[2],
+                             decomp_enqueue_ms=(t_decomp - t2) * 1e3)
+    finally:
+        prep.release()
+    out = packed.split_answer(ans, lay)
+    stats["solve_ms"] = (time.perf_counter() - t2) * 1e3
+    out.update(stats=stats, has_duals=duals_t is not None)
+    if out["m_y"] is None or not any(ln.margin_ctx is not None for ln in prep.lanes):
+        out["m_y"] = None
+    return out
 
 
 def _decode_sweep(prep: _Prepared, out: dict, q: int):

@@ -164,6 +164,11 @@ class SweepData(NamedTuple):
     # built once per sweep; a round takes each shard's values with one
     # index_select. None off the mesh.
     A_shards: Optional[RowBlocks] = None
+    # K1's values on A_sparsity of a shared (m, nf) A (packed.StaticEntry),
+    # and whether A_sparsity was checked against A when it was built (the
+    # search's K1 calls then skip the per-call check).
+    A_k1_values: Optional[torch.Tensor] = None
+    A_checked: bool = False
 
 
 class EpilogueOut(NamedTuple):
@@ -827,6 +832,48 @@ def seed_warm(state: SearchState, data: SweepData, warm, moe: bool, moves: int):
     )
 
 
+class RoundInputs(NamedTuple):
+    """A round's LP inputs, L * B rows lane-major: each row's k index and
+    lane, b and c (its lane's, at its k), box, warm iterate and skip."""
+
+    kidx: torch.Tensor  # (R,) int64
+    lane: torch.Tensor  # (R,) int64
+    b: torch.Tensor  # (R, m)
+    c: torch.Tensor  # (R, nf)
+    lo: torch.Tensor  # (R, nf)
+    hi: torch.Tensor
+    warm: IPMWarmState
+    skip: torch.Tensor  # (R,) bool: an inactive row or a frozen lane's
+
+
+def round_inputs(data: SweepData, state: SearchState, B: int,
+                 frozen: Optional[torch.Tensor] = None) -> RoundInputs:
+    """The LP inputs of a round over the first ``B`` rows of every lane: the
+    round head's plain version (``bnb_loop_kernel.cu``'s ``bnb_head_kernel``
+    writes the same rows on the card). ``frozen`` (L,) bool marks settled
+    lanes, whose rows skip."""
+    L = state.node_lo.shape[0]
+    row_lane = _lanes_of(L, B, state.node_lo.device)
+
+    def flat(t):
+        return t.reshape(L * B, *t.shape[2:])
+
+    active_p = state.active[:, :B]
+    if frozen is not None:
+        active_p = active_p & ~frozen[:, None]
+    kidx_r = flat(state.node_kidx[:, :B].long())
+    warm = IPMWarmState(
+        v=flat(state.node_v[:, :B]),
+        y=flat(state.node_y[:, :B]),
+        z=flat(state.node_z[:, :B]),
+        f=flat(state.node_f[:, :B]),
+        ok=flat(state.node_warm[:, :B]),
+    )
+    b_r, c_r = data.b_k[row_lane, kidx_r], data.c_k[row_lane, kidx_r]
+    return RoundInputs(kidx_r, row_lane, b_r, c_r, flat(state.node_lo[:, :B]),
+                       flat(state.node_hi[:, :B]), warm, ~flat(active_p))
+
+
 def bnb_round(
     data: SweepData,
     state: SearchState,
@@ -873,35 +920,19 @@ def _bnb_round(data, state, mip_gap, ipm_iters, beam, ipm_chunk, lp_backend="ipm
                lp_trace=False, row_mesh=None, node_mesh=None):
     """:func:`bnb_round` and the lanes' go flags on the new state as the
     round tail wrote them ((L,) bool)."""
-    L, cap = state.node_lo.shape[:2]
+    cap = state.node_lo.shape[1]
     B = cap if beam is None else min(beam, cap)
-    dev = state.node_lo.device
-    row_lane = _lanes_of(L, B, dev)
-
-    def flat(t):
-        return t.reshape(L * B, *t.shape[2:])
-
-    active_p = state.active[:, :B]
-    if frozen is not None:
-        active_p = active_p & ~frozen[:, None]
-    kidx_r = flat(state.node_kidx[:, :B].long())
-    warm = IPMWarmState(
-        v=flat(state.node_v[:, :B]),
-        y=flat(state.node_y[:, :B]),
-        z=flat(state.node_z[:, :B]),
-        f=flat(state.node_f[:, :B]),
-        ok=flat(state.node_warm[:, :B]),
-    )
-    lo_r, hi_r = flat(state.node_lo[:, :B]), flat(state.node_hi[:, :B])
-    skip = ~flat(active_p)
     lp_kw = dict(ipm_iters=ipm_iters, ipm_chunk=ipm_chunk, lp_backend=lp_backend,
                  pdhg_restart_tol=pdhg_restart_tol, pdhg_dtype=pdhg_dtype, lp_trace=lp_trace,
                  row_mesh=row_mesh)
+    ins = round_inputs(data, state, B, frozen)
+    kidx_r, row_lane = ins.kidx, ins.lane
     if node_mesh is not None:
-        res, rounded = _node_sharded(node_mesh, lo_r, hi_r, kidx_r, row_lane, warm, skip,
-                                     lp_kw)
+        res, rounded = _node_sharded(node_mesh, ins.lo, ins.hi, kidx_r, row_lane, ins.warm,
+                                     ins.skip, lp_kw)
     else:
-        res = lp_solve(data, lo_r, hi_r, kidx_r, row_lane, warm, skip, **lp_kw)
+        res = lp_solve(data, ins.lo, ins.hi, kidx_r, row_lane, ins.warm, ins.skip, **lp_kw,
+                       bc=(ins.b, ins.c))
         # The round tail rounds dense rows itself; MoE rows go through K2's
         # MoE mode first.
         rounded = None
@@ -1164,8 +1195,22 @@ def _tail_plan(lib, ins, B: int, pre: bool, has_y: bool, per_k: bool) -> _TailPl
             raise ValueError(f"round tail: rounding blocks {tuple(packed.shape)} for L={L}")
     elif rows0.shape != (L * B,) or rows1.shape != (L * B, M):
         raise ValueError("round tail: pre-rounded rows must be (L * beam,) and (L * beam, M)")
-    # The new state and the go flags side by side (in per-k mode the per-k
-    # assignments and floors after them), then the workspace.
+    views, offsets, pos = tail_layout(L, cap, nf, m, M, n_k, per_k)
+    offsets.append(pos)
+    nbytes = pos + -(-int(lib.dtk_round_tail_ws_bytes(L, B, cap, M)) // 8) * 8
+    dims = (ctypes.c_int * 13)(L, B, cap, nf, m, M, n_k, int(pre), int(has_y),
+                               int(iters.dtype == torch.float32), rd_lanes, rd_stride,
+                               int(per_k))
+    return _TailPlan(nbytes, tuple(views), tuple(offsets), dims, ctypes.addressof(dims))
+
+
+def tail_layout(L: int, cap: int, nf: int, m: int, M: int, n_k: int, per_k: bool):
+    """Where the round tail writes: the new state's twenty fields and the go
+    flags side by side, in per-k mode the per-k assignments and floors after
+    them, each at a 128-byte boundary. Returns ``(views, offsets, end)``:
+    each output's (dtype, shape, strides, element offset), its byte offset
+    (None for the four per-k outputs outside per-k mode: not written) and
+    the first byte after them (the workspace follows)."""
     fields = [((L, cap, nf), DTYPE), ((L, cap, nf), DTYPE), ((L, cap), torch.int32),
               ((L, cap), BDTYPE), ((L, cap), torch.bool), ((L,), BDTYPE), ((L, M), BDTYPE),
               ((L, M), BDTYPE), ((L, M), BDTYPE), ((L,), torch.int32), ((L,), BDTYPE),
@@ -1183,12 +1228,19 @@ def _tail_plan(lib, ins, B: int, pre: bool, has_y: bool, per_k: bool) -> _TailPl
         pos += -(-math.prod(shape) * size // 128) * 128
     if not per_k:
         offsets += [None] * 4  # the per-k outputs, not written
-    offsets.append(pos)
-    nbytes = pos + -(-int(lib.dtk_round_tail_ws_bytes(L, B, cap, M)) // 8) * 8
-    dims = (ctypes.c_int * 13)(L, B, cap, nf, m, M, n_k, int(pre), int(has_y),
-                               int(iters.dtype == torch.float32), rd_lanes, rd_stride,
-                               int(per_k))
-    return _TailPlan(nbytes, tuple(views), tuple(offsets), dims, ctypes.addressof(dims))
+    return views, offsets, pos
+
+
+def tail_views(buf: torch.Tensor, views) -> list:
+    """The typed views of :func:`tail_layout` over the byte buffer ``buf``."""
+    typed = {torch.uint8: buf}
+    outs = []
+    for dt, shape, stride, off in views:
+        flat = typed.get(dt)
+        if flat is None:
+            flat = typed[dt] = buf.view(dt)
+        outs.append(flat.as_strided(shape, stride, off))
+    return outs
 
 
 def _round_tail_kernel(data, state, res, mip_gap, B, rounded, frozen, per_k=False):
@@ -1220,13 +1272,7 @@ def _round_tail_kernel(data, state, res, mip_gap, B, rounded, frozen, per_k=Fals
     ins = [None if t is None else t.contiguous() for t in ins]
     dev = state.node_lo.device
     buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
-    typed = {torch.uint8: buf}
-    outs = []
-    for dt, shape, stride, off in plan.views:
-        flat = typed.get(dt)
-        if flat is None:
-            flat = typed[dt] = buf.view(dt)
-        outs.append(flat.as_strided(shape, stride, off))
+    outs = tail_views(buf, plan.views)
     base = buf.data_ptr()
     ptrs = (ctypes.c_longlong * (len(ins) + len(plan.offsets)))(
         *[0 if t is None else t.data_ptr() for t in ins],
@@ -1262,11 +1308,15 @@ def lp_and_round(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_
 
 def lp_solve(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_iters,
              ipm_chunk=None, lp_backend="ipm", pdhg_restart_tol=None, pdhg_dtype=None,
-             lp_trace=False, row_mesh: Optional[Mesh] = None) -> IPMResult:
+             lp_trace=False, row_mesh: Optional[Mesh] = None, bc=None) -> IPMResult:
     """The LP relaxations of a round's rows, each against its own lane's
-    data, on the engine ``lp_backend`` names."""
+    data, on the engine ``lp_backend`` names (``bc``: the rows' b and c,
+    when :func:`round_inputs` gathered them). K1 takes the sweep's
+    structure, checked when it was built (``packed.static_entry``), and,
+    for a shared A, its values on it."""
     M = data.rd.a.shape[-1]
-    b_r, c_r = data.b_k[row_lane, kidx_r], data.c_k[row_lane, kidx_r]
+    b_r, c_r = bc if bc is not None else (data.b_k[row_lane, kidx_r],
+                                          data.c_k[row_lane, kidx_r])
     if lp_backend == "pdhg":
         # A as values on the sweep's structure: MoE nodes and lanes with an A
         # each per element (on a row mesh K6b's per-element entry), one
@@ -1289,10 +1339,14 @@ def lp_solve(data: SweepData, lo_r, hi_r, kidx_r, row_lane, warm, skip, ipm_iter
                                    warm=warm, skip=skip, dtype=pdhg_dtype, trace=lp_trace)
         return cast_lp_result(res, DTYPE)
     chunk_kw = {} if ipm_chunk is None else {"chunk": ipm_chunk}
+    A_r = node_A(data, kidx_r, M, row_lane)
+    shared = data.A_sparsity is not None and data.A_k1_values is not None and A_r.dim() == 2
     return ipm_solve_batch(
-        LPBatch(A=node_A(data, kidx_r, M, row_lane), b=b_r, c=c_r, l=lo_r, u=hi_r),
+        LPBatch(A=A_r, b=b_r, c=c_r, l=lo_r, u=hi_r),
         iters=ipm_iters, warm=warm, skip=skip, **chunk_kw,
         sparsity=data.A_sparsity, trace=lp_trace,
+        _checked=data.A_sparsity is not None and data.A_checked,
+        _values=data.A_k1_values if shared else None,
     )
 
 
@@ -1307,10 +1361,10 @@ class NodeMesh(NamedTuple):
 def node_mesh_of(mesh: Mesh, data: SweepData) -> NodeMesh:
     """The sweep's data placed once on every shard's device."""
     def move(t, dev):
-        if t is None:
-            return None
         if isinstance(t, torch.Tensor):
             return t.to(dev)
+        if not isinstance(t, tuple):
+            return t  # None, a flag, a size
         return type(t)(*(move(f, dev) for f in t))
 
     return NodeMesh(mesh, tuple(data if dev == data.ks.device else move(data, dev)

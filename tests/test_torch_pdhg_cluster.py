@@ -256,8 +256,8 @@ def test_shared_sweep_builds_structure_and_values_once(monkeypatch):
     from pathlib import Path
 
     from distilp_torch.common import load_model_profile
-    from distilp_torch.solver import backend_torch as BT
     from distilp_torch.solver import halda_solve
+    from distilp_torch.solver import packed as PK
     from distilp_torch.solver import search as S
     from distilp_torch.utils import make_synthetic_fleet
 
@@ -265,14 +265,17 @@ def test_shared_sweep_builds_structure_and_values_once(monkeypatch):
         Path(__file__).parent / "profiles" / "llama_3_70b" / "online" / "model_profile.json")
     calls = {"node_sparsity": 0, "sweep_values": 0}
     seen = []
+    # The structure and values are built once per static entry (the
+    # sweep's A on the device, cached across solves): start without one.
+    PK.clear_static_cache()
     for name in calls:
-        real = getattr(BT, name)
+        real = getattr(S, name)
 
         def counted(*a, _real=real, _name=name, **k):
             calls[_name] += 1
             return _real(*a, **k)
 
-        monkeypatch.setattr(BT, name, counted)
+        monkeypatch.setattr(S, name, counted)
     real_solve = S.pdhg_solve_batch
     monkeypatch.setattr(S, "pdhg_solve_batch",
                         lambda batch, **kw: seen.append(batch.A) or real_solve(batch, **kw))
@@ -288,7 +291,8 @@ def test_shared_sweep_builds_structure_and_values_once(monkeypatch):
     assert seen and all(isinstance(a, ElemA) and a.shared for a in seen)
     rounds = len(seen)
     # The dense shared path: no values for the sweep.
-    monkeypatch.setattr(BT, "sweep_values", lambda *a, **k: (None, None))
+    monkeypatch.setattr(S, "sweep_values", lambda *a, **k: (None, None))
+    PK.clear_static_cache()
     seen.clear()
     dense = solve()
     assert seen and all(isinstance(a, torch.Tensor) and a.dim() == 2 for a in seen)

@@ -17,6 +17,9 @@
   copy and is checked like every other module.
 - So are the mesh, its collectives and the node-sharded sweep
   (``distilp_torch/parallel``), with their kernel sources.
+- So are the packed halves and the device loop (``solver/packed.py``,
+  ``solver/device_loop.py``) with the loop's kernel source, which fails its
+  build on a toolkit without conditional WHILE graph nodes.
 """
 
 import ast
@@ -114,7 +117,8 @@ def test_kernel_sources_and_launch_counters():
         "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k", "price_fixed",
         "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes", "bnb_per_k_lanes",
         "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace", "pdhg_sharded",
-        "pdhg_sharded_elem", "collective", "round_tail", "round_tail_lanes",
+        "pdhg_sharded_elem", "collective", "round_tail", "round_tail_lanes", "bnb_graph",
+        "bnb_seed", "bnb_head", "bnb_control", "bnb_answer",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
@@ -303,3 +307,30 @@ def test_the_mesh_modules_and_kernels_are_checked_and_run_without_jax(tmp_path):
                                                        "PYTHONPATH": str(REPO),
                                                        "HOME": str(tmp_path)})
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+def test_the_packed_halves_and_the_device_loop_are_checked(tmp_path):
+    """The packed halves and the device loop are checked modules that
+    import without JAX; the loop's library is built with the others, its
+    source refuses a toolkit without WHILE nodes, and the graph's launches
+    and its kernels count under the names ``chip_smoke.py`` reads."""
+    import subprocess
+    import sys
+
+    from distilp_torch import kernels
+    from distilp_torch.kernels import build
+
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in ("packed", "device_loop"):
+        assert f"distilp_torch/solver/{name}.py" in files
+    assert build.SOURCES["bnb_loop"] == ("bnb_loop_kernel.cu", ["--fmad=false"])
+    src = (build.CSRC / "bnb_loop_kernel.cu").read_text()
+    assert "CUDART_VERSION < 12040" in src and "#error" in src
+    assert "cudaGraphCondTypeWhile" in src and "cudaGraphSetConditional" in src
+    for name in ("bnb_graph", "bnb_seed", "bnb_head", "bnb_control", "bnb_answer"):
+        assert name in kernels.LAUNCHES
+    assert "bnb_graph" in kernels.SHAPES
+    code = ("import sys; import distilp_torch.solver.packed, distilp_torch.solver.device_loop; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'distilp_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=300)
