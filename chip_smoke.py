@@ -72,7 +72,7 @@ Phases (any failure exits non-zero and prints no result line):
      against their plain versions;
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
-  4. the main path, in ten runs, each with the launch counts zeroed before
+  4. the main path, in eleven runs, each with the launch counts zeroed before
      it and read after it: (a) the dense slice, ``halda_solve`` on the four
      golden fixtures (pinned k and objective), the north star (pinned
      objective) and a 32-device fleet (against the port's HiGHS oracle);
@@ -138,7 +138,17 @@ Phases (any failure exits non-zero and prints no result line):
      states bit for bit equal, one graph launch, one read and on a static
      hit one upload a solve, one capture a plan signature; the upload and
      search walls of both routes, the graph solve's bound, and the walls
-     and busy shares of both routes in turns (medians of 9);
+     and busy shares of both routes in turns (medians of 9); (k) the
+     scheduler daemon: the JAX package's Makefile smokes through the port's
+     ``serve`` (the chaos soak, 9 faults and 4 quarantines, with and without
+     ``--speculate``; the speculation smoke on ``spec_burst.jsonl``, hits and
+     no failed or uncertified structural tick; ``--risk-aware``, at least
+     one switch), the north star's 40-event mixed replay in process with
+     speculation and risk-aware scoring (tick walls by mode, p50 and p99,
+     spec hit rate, risk evaluations, graph launches and uploads a tick;
+     every structural tick and the last certified within 2x gap of a
+     one-shot solve; ``dump_state`` resumed warm in a new scheduler) and
+     Mixtral M=4's drift ticks on the margin path;
      a path's comparison solves (its references) are left out of its launch
      counts; K1's and K5's launches of each path are also printed by shape,
      K7's by entry; every root bound (``decomp_bound_roots``) of the paths
@@ -1096,6 +1106,172 @@ def packed_path(report: dict) -> dict:
             line["graph"].update(device_span_ms=span, span_share=span / line["graph"][
                 "wall_ms_median_of_9"])
             print("packed timing", json.dumps(line), flush=True)
+    return launches
+
+
+# ------------------------------------------------------------ serve (path k)
+
+SERVE_GAP = 1e-3
+# The JAX package's Makefile smokes (smoke-chaos, smoke-spec, smoke-twin):
+# Llama-3-70B online on synthetic fleet 4 (seed 11), k in {8, 10}.
+SERVE_SMOKE = ["--profile", "tests/profiles/llama_3_70b/online", "--synthetic-fleet", "4",
+               "--fleet-seed", "11", "--k-candidates", "8,10", "--quiet"]
+SERVE_CHAOS = ["serve", "--trace", "tests/traces/scheduler_smoke_20.jsonl", *SERVE_SMOKE,
+               "--fault-plan", "tests/traces/chaos_plan.json", "--deadline-ms", "60000",
+               "--max-retries", "2", "--breaker-threshold", "2", "--chaos-check"]
+SERVE_KERNELS = ("ipm", "round_tail", "round_tail_lanes", "bnb_graph", "twin_mc",
+                 "round_moe", "decomp")
+
+
+def serve_summary(out: str) -> dict:
+    """The summary JSON line a ``serve`` run printed."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if not lines:
+        fail(f"serve printed no summary line:\n{out[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def quantiles(xs) -> dict:
+    import numpy as np
+
+    return {"n": len(xs), "p50_ms": float(np.percentile(xs, 50)),
+            "p99_ms": float(np.percentile(xs, 99))}
+
+
+def serve_path() -> dict:
+    """The scheduler daemon on the card: the JAX package's Makefile smokes
+    through the port's ``serve`` (the chaos soak with and without
+    ``--speculate``, the speculation smoke, the risk-aware smoke); the
+    north star's 40-event mixed replay in process with speculation and
+    risk-aware scoring (tick walls by mode, spec hits, risk evaluations,
+    graph launches and uploads a tick; every structural tick and the last
+    held against a one-shot solve; the state dumped and resumed warm); and
+    the Mixtral M=4 replay whose drift ticks ride the margin path."""
+    import numpy as np
+
+    from distilp_torch import kernels
+    from distilp_torch.profiler import profile_model
+    from distilp_torch.sched import (
+        DeviceDegrade,
+        LoadTick,
+        Scheduler,
+        generate_trace,
+        is_structural,
+        replay,
+    )
+    from distilp_torch.solver import halda_solve
+    from distilp_torch.solver import packed as PK
+    from distilp_torch.utils import make_synthetic_fleet
+
+    kernels.reset_launch_counts()
+    PK.reset_counts()
+    cli = "distilp_torch.cli.solver_cli"
+    child: dict = {}
+    walls = {}
+    for name, extra in (("chaos", []), ("chaos --speculate", ["--speculate"])):
+        rc, out, err, walls[name] = run_cli(cli, SERVE_CHAOS + extra, child)
+        ok = [ln for ln in out.splitlines() if ln.startswith("chaos soak OK")]
+        print(f"serve {name}: {ok[0] if ok else err[-2000:]}", flush=True)
+        if rc != 0 or not ok or "9 fault(s) injected, 4 quarantined" not in ok[0]:
+            fail(f"serve {name}: exit {rc}, chaos line {ok}")
+    rc, out, err, walls["spec"] = run_cli(cli, [
+        "serve", "--trace", "tests/traces/spec_burst.jsonl", *SERVE_SMOKE, "--speculate",
+        "--fail-uncertified"], child)
+    s = serve_summary(out) if rc == 0 else {}
+    sp, rp = s.get("speculation", {}), s.get("replay", {})
+    print(f"serve spec_burst: speculation {json.dumps(sp)} replay {json.dumps(rp)}", flush=True)
+    if (rc != 0 or sp.get("hits", 0) <= 0 or sp["hits"] + sp["misses"] > rp["events"]
+            or rp["failed_ticks"] or rp["structural_uncertified"]):
+        fail(f"serve speculation smoke: exit {rc} {err[-2000:]}")
+    rc, out, err, walls["risk"] = run_cli(cli, [
+        "serve", "--trace", "tests/traces/scheduler_smoke_20.jsonl", *SERVE_SMOKE,
+        "--risk-aware"], child)
+    risk = serve_summary(out).get("risk", {}) if rc == 0 else {}
+    print(f"serve risk-aware: {json.dumps(risk)}", flush=True)
+    if rc != 0 or risk.get("switches", 0) < 1 or risk.get("errors"):
+        fail(f"serve risk-aware smoke: exit {rc} {risk} {err[-2000:]}")
+    print("serve cli walls_s", json.dumps(walls), flush=True)
+
+    # The north star, in process: 40 mixed churn events.
+    model = online_model()
+    fleet = make_synthetic_fleet(16, seed=123)
+    trace = generate_trace("mixed", 40, seed=23, base_fleet=fleet)
+    sched = Scheduler([d.model_copy(deep=True) for d in fleet], model, mip_gap=SERVE_GAP,
+                      kv_bits="4bit", speculative=True, risk_aware=True)
+    ticks: list = []
+    last = {"graph": 0, "h2d": 0}
+
+    def on_event(ev, view, ms):
+        planner = sched.pool.peek(view.key)
+        graph, h2d = kernels.LAUNCHES["bnb_graph"], PK.COPIES["h2d"]
+        ticks.append({"kind": ev.kind, "mode": view.mode, "ms": ms,
+                      "graph": graph - last["graph"], "h2d": h2d - last["h2d"],
+                      "structural": is_structural(ev), "certified": view.result.certified,
+                      "solved": planner.last if planner is not None else None,
+                      "devs": [d.model_copy(deep=True) for d in sched.fleet.device_list()]})
+        last.update(graph=graph, h2d=h2d)
+
+    report = replay(sched, trace, on_event=on_event)
+    if report.failed_ticks or any(v.events_behind for v in report.views):
+        fail(f"serve north star: {report.failed_ticks} failed ticks, stale views")
+    by_mode: dict = {}
+    for t in ticks:
+        by_mode.setdefault(t["mode"], []).append(t["ms"])
+    c = sched.metrics.counters
+    line = {
+        "ticks": len(ticks), "walls_by_mode": {m: quantiles(v) for m, v in by_mode.items()},
+        "speculation": sched.speculation_snapshot(),
+        "risk": {"evals": c.get("risk_eval", 0), "candidates": c.get("risk_candidates", 0),
+                 "switches": c.get("risk_switch", 0), "errors": c.get("risk_error", 0)},
+        "graph_launches_per_tick": {m: float(np.mean([t["graph"] for t in ticks
+                                                      if t["mode"] == m])) for m in by_mode},
+        "h2d_per_tick": {m: float(np.mean([t["h2d"] for t in ticks if t["mode"] == m]))
+                         for m in by_mode},
+        "replay": report.summary(),
+    }
+    print("serve north_star", json.dumps(line), flush=True)
+    if c.get("risk_eval", 0) != len(trace) or c.get("risk_error", 0):
+        fail(f"serve north star: risk scoring {line['risk']}")
+    held = [i for i, t in enumerate(ticks) if t["structural"]] + [len(ticks) - 1]
+    with uncounted():
+        for i in held:
+            t = ticks[i]
+            ref = halda_solve(t["devs"], model, mip_gap=SERVE_GAP, kv_bits="4bit")
+            held_to(f"serve north_star tick {i} ({t['kind']}, {t['mode']})", t["solved"],
+                    ref.obj_value, SERVE_GAP)
+    # A snapshot of the daemon resumes warm in a new one.
+    blob = json.loads(json.dumps(sched.dump_state()))
+    resumed = Scheduler(fleet, model, mip_gap=SERVE_GAP, kv_bits="4bit", speculative=True,
+                        risk_aware=True)
+    resumed.load_state(blob)
+    view = resumed.handle(LoadTick(t_comm_jitter={}))
+    print(f"serve north_star resumed: mode {view.mode} certified {view.result.certified} "
+          f"warm_resumes {resumed.metrics.counters.get('warm_resumes', 0)}", flush=True)
+    if resumed.metrics.counters.get("warm_resumes", 0) != 1 or not view.result.certified:
+        fail("serve north star: the restored daemon did not resume warm")
+
+    # Mixtral 8x7B on 4 devices: drift ticks on the margin path (K7, K2 MoE).
+    moe_model = profile_model(str(ROOT / "tests" / "configs" / "mixtral_8x7b.json"),
+                              batch_sizes=[1], sequence_length=128).to_model_profile()
+    devs = make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9))
+    sched = Scheduler(devs, moe_model, mip_gap=SERVE_GAP, kv_bits="8bit")
+    names = [d.name for d in devs]
+    modes = []
+    for name, scale in ((names[1], 1.01), (names[2], 1.03), (names[2], 0.98)):
+        view, ms = timed(lambda: sched.handle(DeviceDegrade(name=name, t_comm_scale=scale)))
+        modes.append(view.mode)
+        print(f"serve mixtral_M4 tick: mode {view.mode} wall_ms {ms:.2f} k {view.result.k} "
+              f"objective {view.result.obj_value!r} certified {view.result.certified} "
+              f"sum(y) {sum(view.result.y or [])}", flush=True)
+        if not view.result.certified or view.result.y is None:
+            fail(f"serve mixtral_M4: uncertified or dense tick {view.mode}")
+    if modes[1:] != ["margin", "margin"] or sched.metrics.counters["drift_tick_margin"] != 2:
+        fail(f"serve mixtral_M4: drift ticks did not ride the margin path: {modes}")
+    launches = path_launches(child)
+    print("serve path launches", json.dumps(launches), flush=True)
+    missing = [k for k in SERVE_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"serve path never launched {missing}")
     return launches
 
 
@@ -6520,6 +6696,7 @@ def main() -> int:
         paths["diagnose"] = diagnose_path()
         paths["mesh"] = mesh_path()
         paths["packed"] = packed_path(report)
+        paths["serve"] = serve_path()
     # K7 on the main paths: at most two launches a root bound (the fused
     # ascent and the float64 evaluation), none of the per-step entry.
     per_call = {}

@@ -14,12 +14,20 @@ the root LP relaxations' per-chunk traces, optionally exported as JSONL):
 
     python -m distilp_torch.cli.solver_cli diagnose -p <folder> [--out F | --load F]
 
+the scheduler daemon over a churn trace (``distilp_torch.sched``), and the
+conversion of its span JSONL into Chrome trace-event JSON:
+
+    python -m distilp_torch.cli.solver_cli serve --trace T -p <folder> [...]
+    python -m distilp_torch.cli.solver_cli spans <spans.jsonl | dir> [--stats]
+
 ``--backend torch`` (default) runs the branch-and-bound search on
 ``--device`` (default cuda; ``cpu`` runs the kernels' plain versions),
 ``--backend cpu`` the HiGHS oracle. ``--per-k`` certifies every k and prints
-the k-curve; ``--expert-loads`` runs the load-aware routing loop. The twin's
-Monte-Carlo engine runs on ``--device`` too. Options and subcommands of parts the port does not have
-yet exit with code 2 and name their ROADMAP.md item; none is ignored.
+the k-curve; ``--expert-loads`` runs the load-aware routing loop; ``--plot``
+draws the k-objective curve. The twin's Monte-Carlo engine and ``serve``'s
+every solve run on ``--device`` too. Options and subcommands of parts the
+port does not have yet exit with code 2 and name their ROADMAP.md item;
+none is ignored.
 """
 
 from __future__ import annotations
@@ -31,13 +39,11 @@ from pathlib import Path
 
 # Subcommands of the JAX package's CLI that wait for later slices.
 DEFERRED_SUBCOMMANDS = {
-    "serve": "A12 (serving tiers on the port's engine)",
-    "overload": "A12 (serving tiers on the port's engine)",
-    "autoscale": "A12 (serving tiers on the port's engine)",
-    "spans": "A14 (observability analogues)",
-    "slo": "A14 (observability analogues)",
-    "compiles": "A14 (observability analogues)",
-    "memory": "A14 (observability analogues)",
+    "overload": "A12c (open-loop traffic, control and SLO)",
+    "autoscale": "A12c (open-loop traffic, control and SLO)",
+    "slo": "A12c (open-loop traffic, control and SLO)",
+    "compiles": "A14b (compile and memory ledgers for CUDA)",
+    "memory": "A14b (compile and memory ledgers for CUDA)",
 }
 
 
@@ -70,8 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="comma-separated k values (default: all proper factors of L)",
     )
-    p.add_argument("--plot", action="store_true",
-                   help="plot the k-objective curve (not ported yet: ROADMAP A16)")
+    p.add_argument("--plot", action="store_true", help="plot the k-objective curve")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--save-solution", default=None, help="write the solution JSON here")
     p.add_argument(
@@ -137,14 +142,6 @@ def build_parser() -> argparse.ArgumentParser:
         "backend: one HiGHS solve per k)",
     )
     return p
-
-
-def _deferred_options(args) -> list:
-    """(option, ROADMAP item) of each option set that a later slice ports."""
-    out = []
-    if args.plot:
-        out.append(("--plot", "A16 (the k-objective plotter)"))
-    return out
 
 
 def _k_candidates(text):
@@ -476,6 +473,528 @@ def diagnose_main(argv=None) -> int:
     return 0
 
 
+
+# -- serve: the scheduler daemon over a churn trace --------------------------
+
+# Options of ``serve`` that wait for a later slice, by ROADMAP item. Each one
+# that is set exits 2 naming its item; a plain or chaos ``serve`` sets none.
+_GATEWAY = "A12b (the gateway tier on the port)"
+_SLO = "A12c (open-loop traffic, control and SLO)"
+_LEDGERS = "A14b (compile and memory ledgers for CUDA)"
+# (flag, argparse keywords, value that means "not set", ROADMAP item)
+_DEFERRED_SERVE = (
+    ("--workers", dict(type=int, default=1), 1, _GATEWAY),
+    ("--worker-backend", dict(choices=("thread", "process"), default="thread"), "thread",
+     _GATEWAY),
+    ("--scheduler-factory", dict(default=None), None, _GATEWAY),
+    ("--supervise", dict(action="store_true"), False, _GATEWAY),
+    ("--recovery-dir", dict(default=None), None, _GATEWAY),
+    ("--snapshot-every", dict(type=int, default=None), None, _GATEWAY),
+    ("--listen", dict(default=None), None, _GATEWAY),
+    ("--max-queue-depth", dict(type=int, default=None), None, _GATEWAY),
+    ("--coalesce", dict(action="store_true"), False, _GATEWAY),
+    ("--degrade-depth", dict(type=int, default=None), None, _GATEWAY),
+    ("--snapshot-dir", dict(default=None), None, _GATEWAY),
+    ("--snapshot-at", dict(type=int, default=None), None, _GATEWAY),
+    ("--halt-after-snapshot", dict(action="store_true"), False, _GATEWAY),
+    ("--resume", dict(action="store_true"), False, _GATEWAY),
+    ("--slo", dict(default=None), None, _SLO),
+    ("--capacity-eps", dict(type=float, default=None), None, _SLO),
+    ("--compile-ledger", dict(action="store_true"), False, _LEDGERS),
+    ("--compile-ledger-out", dict(default=None), None, _LEDGERS),
+    ("--compile-warm-events", dict(type=int, default=None), None, _LEDGERS),
+    ("--memory-ledger", dict(action="store_true"), False, _LEDGERS),
+    ("--memory-out", dict(default=None), None, _LEDGERS),
+    ("--memory-budget-mb", dict(type=float, default=None), None, _LEDGERS),
+    ("--mem-degrade-headroom-mb", dict(type=float, default=None), None, _LEDGERS),
+)
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli serve",
+        description="run the fleet scheduler service over a churn trace "
+        "(see distilp_torch.sched): events in, certified placements out, "
+        "warm solver state kept across ticks",
+    )
+    p.add_argument(
+        "--trace", required=True,
+        help="JSONL churn trace (one event per line; see sched.events for "
+        "the schema, sched.sim / `generate_trace` to make one)",
+    )
+    p.add_argument(
+        "--profile", "-p", required=True,
+        help="profile folder; model_profile.json is the served model, the "
+        "device JSONs are the starting fleet unless --synthetic-fleet",
+    )
+    p.add_argument(
+        "--synthetic-fleet", type=int, default=0, metavar="M",
+        help="start from M synthetic devices instead of the folder's device "
+        "JSONs (deterministic; see utils.make_synthetic_fleet)",
+    )
+    p.add_argument("--fleet-seed", type=int, default=0)
+    p.add_argument("--backend", choices=["torch", "cpu"], default="torch")
+    _add_device(p)
+    p.add_argument("--mip-gap", type=float, default=1e-3)
+    p.add_argument("--kv-bits", default="4bit")
+    p.add_argument(
+        "--k-candidates", default=None,
+        help="comma-separated k values (default: all proper factors of L)",
+    )
+    p.add_argument(
+        "--warm-pool", type=int, default=4,
+        help="max warm replanners kept (LRU over (fleet, model) identities)",
+    )
+    p.add_argument(
+        "--cold-start", action="store_true",
+        help="A/B debugging: disable every cross-tick warm path (incumbent "
+        "seed, Lagrangian duals, root LP iterates, margin chain)",
+    )
+    p.add_argument(
+        "--lp-backend", choices=["ipm", "pdhg", "auto"], default="auto",
+        help="LP relaxation engine per tick (torch backend); the engine each "
+        "tick ran is counted (lp_backend_ipm/lp_backend_pdhg)",
+    )
+    p.add_argument("--pdhg-iters", type=int, default=None,
+                   help="first-order iterations per LP relaxation (pdhg engine)")
+    p.add_argument("--pdhg-restart-tol", type=float, default=None,
+                   help="Halpern restart sufficient-decay factor (pdhg engine)")
+    p.add_argument(
+        "--mesh-shards", type=int, default=None,
+        help="row-partition every tick's PDHG LP relaxations across this many "
+        "shards (with fewer GPUs visible, a virtual mesh the CLI declares)",
+    )
+    p.add_argument("--pdhg-dtype", choices=["f32", "f64"], default=None,
+                   help="first-order iterate precision per tick (pdhg engine)")
+    p.add_argument(
+        "--risk-aware", action="store_true",
+        help="risk-aware serving: score the fresh solve, the warm pool's "
+        "incumbents and the per-k optima on the digital twin (seeded "
+        "Monte-Carlo p95 + violation penalty) and serve the lowest-risk one",
+    )
+    p.add_argument("--risk-samples", type=int, default=256,
+                   help="Monte-Carlo samples per risk-aware candidate score")
+    p.add_argument("--risk-seed", type=int, default=0,
+                   help="seed of the risk-aware perturbation draws")
+    p.add_argument(
+        "--speculate", action="store_true",
+        help="speculative replanning: forecast drift from the applied events, "
+        "pre-solve the K most likely near futures as one scenario batch after "
+        "each tick (off the serving path), and serve a matching event from "
+        "the pre-solved bank (mode='spec')",
+    )
+    p.add_argument("--spec-k", type=int, default=3,
+                   help="forecast candidates pre-solved per speculation batch")
+    p.add_argument("--spec-tolerance", type=float, default=0.05,
+                   help="relative tolerance of the speculation bank's instance digest")
+    p.add_argument(
+        "--fail-uncertified", action="store_true",
+        help="exit 1 if any structural event's placement misses its "
+        "optimality certificate",
+    )
+    p.add_argument(
+        "--deadline-ms", type=float, default=None,
+        help="per-tick wall-clock solve deadline: an overrunning solve is "
+        "abandoned and the last-known-good placement served (mode='stale'); "
+        "the first solve is exempt",
+    )
+    p.add_argument("--max-retries", type=int, default=0,
+                   help="solve retries per tick with bounded exponential backoff")
+    p.add_argument(
+        "--breaker-threshold", type=int, default=None,
+        help="consecutive solve failures that open the circuit breaker "
+        "(default 5; 0 disables)",
+    )
+    p.add_argument("--fault-plan", default=None,
+                   help="chaos mode: a FaultPlan JSON (see sched.faults) injected "
+                   "over the replay")
+    p.add_argument("--fault-seed", type=int, default=None,
+                   help="override the fault plan's seed")
+    p.add_argument(
+        "--chaos-check", action="store_true",
+        help="exit 1 unless the chaos soak contract holds (a valid placement "
+        "on every tick, every poisoned event quarantined, health recovered)",
+    )
+    p.add_argument("--metrics-out", default=None,
+                   help="write the final metrics snapshot + replay summary JSON here")
+    p.add_argument("--quiet", action="store_true", help="summary line only")
+    p.add_argument(
+        "--trace-spans-dir", default=None, metavar="DIR",
+        help="span tracing: record every event's span tree (tick -> solve -> "
+        "publish) to DIR/spans.jsonl; convert with the `spans` subcommand",
+    )
+    p.add_argument(
+        "--flight-dir", default=None, metavar="DIR",
+        help="flight recorder: a ring of the last N tick records, dumped to a "
+        "post-mortem JSONL in DIR on breaker-open or a chaos violation",
+    )
+    p.add_argument("--flight-capacity", type=int, default=128,
+                   help="tick records kept in the flight recorder's ring")
+    p.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="wrap the FIRST solve tick in torch.profiler and write its Chrome "
+        "trace to DIR/solve_profile.json",
+    )
+    p.add_argument(
+        "--solver-diagnostics", action="store_true",
+        help="solver-interior telemetry per tick: the conv_* digest rides the "
+        "sched.solve span and the flight records",
+    )
+    p.add_argument(
+        "--timeline-dir", default=None, metavar="DIR",
+        help="sample the scheduler's metrics at a fixed cadence and dump the "
+        "timeline to DIR/timeline.jsonl at exit",
+    )
+    p.add_argument("--timeline-period-ms", type=float, default=100.0,
+                   help="timeline sampler cadence (ms)")
+    g = p.add_argument_group(
+        "options of later slices (each exits 2 naming its ROADMAP item)")
+    for flag, kw, _, item in _DEFERRED_SERVE:
+        g.add_argument(flag, help=f"ROADMAP {item.split()[0]}", **kw)
+    return p
+
+
+def _deferred_serve_options(args) -> list:
+    """(option, ROADMAP item) of each ``serve`` option set that a later
+    slice ports."""
+    return [(flag, item) for flag, _, unset, item in _DEFERRED_SERVE
+            if getattr(args, flag[2:].replace("-", "_")) != unset]
+
+
+def _build_obs(args):
+    """(tracer, writer, flight) from the serve observability flags; None
+    everywhere when they are off, so the scheduler runs its uninstrumented
+    default path."""
+    tracer = writer = flight = None
+    if args.trace_spans_dir:
+        from ..obs import JsonlSpanWriter, Tracer
+
+        writer = JsonlSpanWriter(Path(args.trace_spans_dir) / "spans.jsonl")
+        tracer = Tracer(capacity=65536, writer=writer)
+    if args.flight_dir:
+        from ..obs import FlightRecorder
+
+        flight = FlightRecorder(capacity=max(1, args.flight_capacity),
+                                dump_dir=args.flight_dir)
+    return tracer, writer, flight
+
+
+def _obs_summary(writer, flight) -> dict:
+    out = {}
+    if writer is not None:
+        out["spans_written"] = writer.written
+        out["spans_path"] = str(writer.path)
+    if flight is not None:
+        out["flight_dumps"] = [str(p) for p in flight.dumps]
+    return out
+
+
+def _build_timeline(args, metrics, sample_fn):
+    """(timeline, sampler) for ``--timeline-dir``, the sampler started; (None,
+    None) without it."""
+    if not args.timeline_dir:
+        return None, None
+    from ..obs import Timeline, TimelineSampler
+
+    timeline = Timeline()
+    sampler = TimelineSampler(timeline, sample_fn,
+                              period_s=max(0.001, args.timeline_period_ms / 1e3),
+                              metrics=metrics)
+    sampler.start()
+    return timeline, sampler
+
+
+def _timeline_summary(args, timeline, sampler) -> dict:
+    """The summary's "slo" block as the reference writes it without an SLO
+    spec (+ the timeline dump)."""
+    path = Path(args.timeline_dir) / "timeline.jsonl"
+    timeline.dump(path)
+    return {"samples": sampler.samples, "sample_errors": sampler.errors,
+            "series": len(timeline.names()), "timeline_path": str(path)}
+
+
+def _chaos_to_replay_report(chaos, sched):
+    """A ChaosReport as the ReplayReport the summary prints. Latency stats
+    cover the TRACE events only: injected quarantine round-trips and
+    recovery ticks would flatter the percentiles."""
+    from ..sched import STRUCTURAL_KINDS, ReplayReport
+    from ..sched.metrics import _quantile
+
+    trace_recs = [r for r in chaos.records if r.source == "trace"]
+    lat = [r.ms for r in trace_recs]
+    srt = sorted(lat)
+    uncert = sum(
+        1 for r in trace_recs
+        if r.kind in STRUCTURAL_KINDS and r.view.events_behind == 0
+        and not r.view.result.certified
+    )
+    total_s = sum(r.ms for r in chaos.records) / 1e3
+    return ReplayReport(
+        views=chaos.views, latencies_ms=lat,
+        events_per_sec=len(lat) / total_s if total_s > 0 else 0.0,
+        p50_ms=_quantile(srt, 0.50), p99_ms=_quantile(srt, 0.99),
+        structural_uncertified=uncert,
+        failed_ticks=sched.metrics.counters.get("tick_failed", 0),
+    )
+
+
+def serve_main(argv=None) -> int:
+    """``serve``: replay a churn trace through the scheduler daemon."""
+    args = build_serve_parser().parse_args(argv)
+    deferred = _deferred_serve_options(args)
+    if deferred:
+        for opt, item in deferred:
+            print(f"error: serve {opt} is not part of the port yet (ROADMAP.md {item})",
+                  file=sys.stderr)
+        return 2
+    trace_path = Path(args.trace)
+    if trace_path.is_file():
+        from ..gateway.traces import is_gateway_trace
+
+        if is_gateway_trace(trace_path):
+            print(f"error: {trace_path} is a fleet-tagged (multi-fleet) trace; the "
+                  f"gateway tier is not part of the port yet (ROADMAP.md {_GATEWAY})",
+                  file=sys.stderr)
+            return 2
+    if args.chaos_check and not args.fault_plan:
+        print("error: --chaos-check needs --fault-plan (the soak contract is "
+              "defined over an injected fault schedule)", file=sys.stderr)
+        return 2
+    if (args.mesh_shards or 1) > 1:
+        from ..parallel import force_virtual_devices
+
+        force_virtual_devices(args.mesh_shards)
+
+    from ..common import load_from_profile_folder, load_model_profile
+    from ..sched import Scheduler, drift_warm_share, read_trace, replay
+    from ..utils import make_synthetic_fleet
+
+    folder = Path(args.profile)
+    if not folder.is_dir():
+        print(f"error: {folder} is not a directory", file=sys.stderr)
+        return 2
+    if args.synthetic_fleet > 0:
+        model = load_model_profile(folder / "model_profile.json")
+        devices = make_synthetic_fleet(args.synthetic_fleet, seed=args.fleet_seed)
+    else:
+        devices, model = load_from_profile_folder(folder)
+    if not trace_path.is_file():
+        print(f"error: trace {trace_path} not found", file=sys.stderr)
+        return 2
+    try:
+        events = read_trace(trace_path)
+    except (OSError, ValueError) as e:  # ValidationError is a ValueError
+        print(f"error: cannot parse trace: {e}", file=sys.stderr)
+        return 2
+    if not events:
+        print("error: trace is empty", file=sys.stderr)
+        return 2
+
+    plan = None
+    if args.fault_plan:
+        from ..sched import FaultPlan
+
+        try:
+            plan = FaultPlan.from_json(args.fault_plan)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load --fault-plan: {e}", file=sys.stderr)
+            return 2
+        if args.fault_seed is not None:
+            plan = plan.model_copy(update={"seed": args.fault_seed})
+
+    # The hardening knobs reach the scheduler (and the summary) only when
+    # asked for: a plain replay keeps the reference's plain summary.
+    hardened = (plan is not None or args.deadline_ms is not None or args.max_retries
+                or args.breaker_threshold is not None)
+    harden_kw = {}
+    if args.deadline_ms is not None:
+        harden_kw["solve_deadline_s"] = args.deadline_ms / 1e3
+    if args.max_retries:
+        harden_kw["max_retries"] = args.max_retries
+    if args.breaker_threshold is not None:
+        harden_kw["breaker_threshold"] = args.breaker_threshold
+
+    tracer, writer, flight = _build_obs(args)
+    sched = Scheduler(
+        devices, model, diagnostics=args.solver_diagnostics, mip_gap=args.mip_gap,
+        kv_bits=args.kv_bits, backend=args.backend,
+        k_candidates=_k_candidates(args.k_candidates), warm_pool_size=args.warm_pool,
+        cold_start=args.cold_start, lp_backend=args.lp_backend,
+        pdhg_iters=args.pdhg_iters, pdhg_restart_tol=args.pdhg_restart_tol,
+        mesh_shards=args.mesh_shards, pdhg_dtype=args.pdhg_dtype,
+        risk_aware=args.risk_aware, risk_samples=args.risk_samples,
+        risk_seed=args.risk_seed, speculative=args.speculate, spec_k=args.spec_k,
+        spec_tolerance=args.spec_tolerance, tracer=tracer, flight=flight,
+        profile_dir=args.profile_dir, device=args.device, **harden_kw,
+    )
+
+    def log_event(ev, view, ms):
+        # The daemon's event log: one line per tick, streamed.
+        if args.quiet:
+            return
+        r = view.result
+        risk = ""
+        if view.twin_p95_s is not None:
+            star = "*" if view.risk_selected else ""
+            risk = f" twin_p95={view.twin_p95_s:.4f}{star}"
+        print(
+            f"[{sched.fleet.seq:4d}] {ev.kind:<10s} "
+            f"M={len(r.w):2d} mode={view.mode:<6s} "
+            f"certified={str(r.certified):<5s} k={r.k:<3d} "
+            f"obj={r.obj_value:.6f} {ms:8.1f} ms{risk}"
+        )
+
+    timeline, sampler = _build_timeline(args, sched.metrics, sched.timeline_sample)
+    chaos = None
+    try:
+        if plan is not None:
+            from ..sched import chaos_replay
+
+            chaos = chaos_replay(sched, events, plan, on_event=log_event)
+            report = _chaos_to_replay_report(chaos, sched)
+        else:
+            report = replay(sched, events, on_event=log_event)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: replay failed: {e}", file=sys.stderr)
+        return 1
+    finally:
+        if sampler is not None:
+            sampler.stop()  # before close: no sampling a torn-down daemon
+        sched.close()  # release the deadline worker (no-op when unused)
+        if tracer is not None:
+            tracer.close()  # flush the span JSONL
+
+    summary = {
+        "replay": report.summary(),
+        "drift_warm_share": round(drift_warm_share(sched.metrics), 4),
+        "metrics": sched.metrics_snapshot(),
+    }
+    if hardened:
+        summary["health"] = sched.health_snapshot()
+    if chaos is not None:
+        summary["chaos"] = chaos.summary()
+        if flight is not None and chaos.violations(sched.fleet.model.L):
+            # A violated soak is the post-mortem moment the flight recorder
+            # exists for: dump before the process reports it.
+            if flight.trigger("default", "chaos_violation") is not None:
+                sched.metrics.inc("flight_dumps")
+    if args.speculate:
+        summary["speculation"] = sched.speculation_snapshot()
+    if sampler is not None:
+        summary["slo"] = _timeline_summary(args, timeline, sampler)
+    if writer is not None or flight is not None:
+        summary["obs"] = _obs_summary(writer, flight)
+    if args.risk_aware:
+        c = sched.metrics.counters
+        summary["risk"] = {"evals": c["risk_eval"], "candidates": c["risk_candidates"],
+                           "switches": c["risk_switch"], "errors": c["risk_error"]}
+    print(json.dumps(summary))
+    if args.metrics_out:
+        Path(args.metrics_out).write_text(json.dumps(summary, indent=2))
+    if args.chaos_check:
+        violations = chaos.violations(sched.fleet.model.L)
+        if violations:
+            for v in violations:
+                print(f"chaos violation: {v}", file=sys.stderr)
+            return 1
+        print(
+            f"chaos soak OK: {chaos.injected.get('injected_total', 0)} "
+            f"fault(s) injected, {chaos.summary()['quarantined']} "
+            f"quarantined, healthy after {chaos.ticks_to_healthy} clean tick(s)"
+        )
+    if args.fail_uncertified and (report.structural_uncertified or report.failed_ticks):
+        print(
+            f"error: {report.structural_uncertified} structural event(s) missed the "
+            f"optimality certificate, {report.failed_ticks} tick(s) produced no "
+            "placement at all",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+# -- spans: span JSONL -> Chrome trace-event JSON -----------------------------
+
+
+def build_spans_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli spans",
+        description="convert a span JSONL (serve --trace-spans-dir) into Chrome "
+        "trace-event JSON loadable in Perfetto (ui.perfetto.dev) or "
+        "chrome://tracing: one track per thread, spans as complete events",
+    )
+    p.add_argument("input", help="span JSONL file, or the --trace-spans-dir "
+                   "directory holding spans.jsonl")
+    p.add_argument("--out", default=None, metavar="FILE",
+                   help="Chrome trace JSON output path (default: <input>.chrome.json)")
+    p.add_argument("--top", type=int, default=3,
+                   help="also print the N slowest spans (0 disables)")
+    p.add_argument(
+        "--stats", action="store_true",
+        help="aggregate instead of convert: one row per span name (count, "
+        "p50/p99/max duration, slowest with trace ids); skips the Chrome JSON "
+        "unless --out is also given",
+    )
+    p.add_argument("--quiet", action="store_true", help="no summary output")
+    return p
+
+
+def spans_main(argv=None) -> int:
+    """``spans``: span JSONL -> Chrome trace-event JSON (or ``--stats``)."""
+    args = build_spans_parser().parse_args(argv)
+
+    from ..obs import read_spans, span_stats, spans_to_chrome, top_spans
+
+    src = Path(args.input)
+    if src.is_dir():
+        src = src / "spans.jsonl"
+    if not src.is_file():
+        print(f"error: no span JSONL at {src}", file=sys.stderr)
+        return 2
+    try:
+        spans = read_spans(src)
+    except (OSError, ValueError) as e:  # JSONDecodeError is a ValueError
+        print(f"error: cannot parse {src}: {e}", file=sys.stderr)
+        return 2
+    if not spans:
+        print(f"error: {src} holds no spans", file=sys.stderr)
+        return 1
+    if args.stats:
+        rows = span_stats(spans, top=max(0, args.top))
+        print(
+            f"{'span':<22s} {'count':>6s} {'total ms':>10s} "
+            f"{'p50 ms':>9s} {'p99 ms':>9s} {'max ms':>9s}  slowest (trace ids)"
+        )
+        for r in rows:
+            slow = ", ".join(f"{s['dur_ms']:.2f}ms@{s['trace_id']}" for s in r["slowest"])
+            print(
+                f"{r['name']:<22s} {r['count']:>6d} {r['total_ms']:>10.3f} "
+                f"{r['p50_ms']:>9.3f} {r['p99_ms']:>9.3f} "
+                f"{r['max_ms']:>9.3f}  {slow}"
+            )
+        if not args.out:
+            return 0
+    chrome = spans_to_chrome(spans)
+    out = Path(args.out) if args.out else src.with_suffix(".chrome.json")
+    out.write_text(json.dumps(chrome))
+    if not args.quiet:
+        traces = len({s["trace_id"] for s in spans})
+        print(
+            f"wrote {out}: {len(chrome['traceEvents'])} trace events from "
+            f"{len(spans)} spans across {traces} traces (load in "
+            "ui.perfetto.dev or chrome://tracing)"
+        )
+        if args.top > 0:
+            print(f"top {args.top} slowest spans:")
+            for s in top_spans(spans, args.top):
+                attrs = s.get("attrs") or {}
+                extra = "".join(f" {k}={attrs[k]}" for k in
+                                ("fleet", "kind", "mode", "lp_backend") if k in attrs)
+                print(f"  {s['dur_ms']:10.3f} ms  {s['name']:<20s} "
+                      f"thread={s.get('thread', '?')}{extra}")
+    return 0
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -483,6 +1002,10 @@ def main(argv=None) -> int:
         return evaluate_main(argv[1:])
     if argv and argv[0] == "diagnose":
         return diagnose_main(argv[1:])
+    if argv and argv[0] == "serve":
+        return serve_main(argv[1:])
+    if argv and argv[0] == "spans":
+        return spans_main(argv[1:])
     if argv and argv[0] in DEFERRED_SUBCOMMANDS:
         print(
             f"error: the '{argv[0]}' subcommand is not part of the port yet "
@@ -491,12 +1014,6 @@ def main(argv=None) -> int:
         )
         return 2
     args = build_parser().parse_args(argv)
-    deferred = _deferred_options(args)
-    if deferred:
-        for opt, item in deferred:
-            print(f"error: {opt} is not part of the port yet (ROADMAP.md {item})",
-                  file=sys.stderr)
-        return 2
     if (args.mesh_shards or 1) > 1:
         # As the reference's CLI forces its host mesh: with fewer devices
         # than shards, the shards share them (a virtual mesh).
@@ -584,14 +1101,15 @@ def main(argv=None) -> int:
                 devices, model, expert_loads=expert_loads,
                 k_candidates=_k_candidates(args.k_candidates), mip_gap=args.mip_gap,
                 debug=args.debug, kv_bits=args.kv_bits, backend=args.backend,
-                time_limit=args.time_limit, **search,
+                time_limit=args.time_limit, plot=args.plot, **search,
             )
         else:
             result = halda_solve(
                 devices, model, k_candidates=_k_candidates(args.k_candidates),
                 mip_gap=args.mip_gap, debug=args.debug, kv_bits=args.kv_bits,
                 backend=args.backend, time_limit=args.time_limit, moe=moe, warm=warm,
-                mesh_shards=args.mesh_shards, pdhg_dtype=args.pdhg_dtype, **search,
+                mesh_shards=args.mesh_shards, pdhg_dtype=args.pdhg_dtype, plot=args.plot,
+                **search,
             )
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -625,7 +1143,7 @@ def _per_k_main(args, devices, model, moe, search) -> int:
             devices, model, k_candidates=_k_candidates(args.k_candidates),
             mip_gap=args.mip_gap, kv_bits=args.kv_bits, backend=args.backend, moe=moe,
             mesh_shards=args.mesh_shards, pdhg_dtype=args.pdhg_dtype,
-            time_limit=args.time_limit, debug=args.debug, **search,
+            time_limit=args.time_limit, debug=args.debug, plot=args.plot, **search,
         )
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)

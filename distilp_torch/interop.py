@@ -6,7 +6,9 @@ same field names and dtypes: an ``LPBatch``/``IPMWarmState``/``IPMResult``,
 a ``RoundingData``, a ``SearchState``, or the ``ipm_state`` dict of a
 ``HALDAResult`` (returned as numpy, which is how both packages carry it).
 So a test can feed one input to both packages, and a warm result from one
-package can seed the other. Nothing here imports JAX.
+package can seed the other. :func:`scheduler_state_from_jax` carries a
+whole scheduler's state (fleet, published placement, breaker, warm pool,
+speculation bank) across. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -53,3 +55,61 @@ def from_jax_arrays(obj: Any, device="cpu", kind: str = None):
     fields = obj if isinstance(obj, dict) else obj._asdict()
     return cls(**{f: None if fields.get(f) is None else to_tensor(fields[f], device)
                   for f in cls._fields})
+
+
+def _warm_blob_from_jax(blob: dict) -> dict:
+    """A replanner's warm-state blob with its root iterates in the port's
+    dtypes (``ok`` bool, the rest float64); the other fields are the same
+    wire format in both packages."""
+    from .solver.streaming import WARM_BLOB_VERSION, _decode_state, _encode_state
+
+    if blob.get("version") != WARM_BLOB_VERSION:
+        raise ValueError(f"unknown warm-state blob version {blob.get('version')!r}")
+    out = dict(blob)
+    out["ipm_state"] = _encode_state(_ipm_state_from_jax(_decode_state(blob.get("ipm_state"))))
+    return out
+
+
+def _ipm_state_from_jax(state):
+    if isinstance(state, dict) and set(state) == set(IPM_STATE_KEYS):
+        return from_jax_arrays(state)
+    return state
+
+
+def scheduler_state_from_jax(state: dict) -> dict:
+    """The port's ``Scheduler.load_state`` blob from a JAX-package
+    ``Scheduler.dump_state()`` blob (version 1).
+
+    The fleet, the model and every placement are validated against the
+    port's schemas (the same fields as the reference's); each pooled
+    replanner's warm blob and each speculation-bank entry keeps its
+    incumbent, duals and margin anchor bit for bit, with the root LP
+    iterates in the port's dtypes. So a trace started under the reference
+    finishes under the port with warm ticks: ``load_state`` of the result
+    counts the first tick under ``warm_resumes``.
+    """
+    from .common import DeviceProfile, ModelProfile
+    from .solver.result import HALDAResult
+    from .solver.streaming import _decode_state, _encode_state
+
+    if state.get("version") != 1:
+        raise ValueError(f"unknown scheduler state version {state.get('version')!r}")
+    out = dict(state)
+    out["devices"] = [DeviceProfile.model_validate(d).model_dump() for d in state["devices"]]
+    out["model"] = ModelProfile.model_validate(state["model"]).model_dump()
+    if state.get("published") is not None:
+        pub = dict(state["published"])
+        pub["result"] = HALDAResult.model_validate(pub["result"]).model_dump()
+        out["published"] = pub
+    out["pool"] = [{"key": list(e["key"]), "warm": _warm_blob_from_jax(e["warm"])}
+                   for e in state["pool"]]
+    spec = state.get("spec")
+    if spec and spec.get("bank"):
+        bank = dict(spec["bank"])
+        bank["entries"] = [
+            {**e, "result": HALDAResult.model_validate(e["result"]).model_dump(),
+             "ipm_state": _encode_state(_ipm_state_from_jax(_decode_state(e.get("ipm_state"))))}
+            for e in bank.get("entries", [])
+        ]
+        out["spec"] = {**spec, "bank": bank}
+    return out

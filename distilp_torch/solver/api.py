@@ -10,8 +10,8 @@ versions, which is what the CPU tests do.
 
 Same signatures and result types as the JAX package's functions of these
 names plus ``device`` (the JAX package's ``backend='jax'`` is ``'torch'``
-here); the knobs of parts the port does not have yet (the k-objective
-plot) raise when set. ``mesh_shards`` above 1 row-partitions every PDHG
+here); ``plot=True`` draws the k-objective curve (``solver.plotter``,
+matplotlib). ``mesh_shards`` above 1 row-partitions every PDHG
 relaxation over a mesh of that many shards (``distilp_torch.parallel``).
 """
 
@@ -106,14 +106,6 @@ def _build_instance(
     return Ks, sets, coeffs, arrays
 
 
-def _refuse_later_options(plot=False) -> None:
-    """Options of parts the port does not have yet raise when set."""
-    if plot:
-        raise NotImplementedError(
-            "plot (the k-objective plot) is not part of the port yet"
-        )
-
-
 def halda_solve(
     devs: Sequence[DeviceProfile],
     model: ModelProfile,
@@ -192,7 +184,6 @@ def halda_solve(
     certificate; raises ``Infeasible`` (a ``RuntimeError``) if no k admits
     a feasible one.
     """
-    _refuse_later_options(plot=plot)
     import time as _time
 
     t0 = _time.perf_counter()
@@ -283,7 +274,12 @@ def halda_solve(
 
     if best is None:
         raise Infeasible("No feasible MILP found for any k.")
-    return _best_to_result(best, sets)
+    result = _best_to_result(best, sets)
+    if plot:
+        from .plotter import plot_k_curve
+
+        plot_k_curve(per_k_objs, k_star=result.k)
+    return result
 
 
 class PendingHalda:
@@ -527,7 +523,6 @@ def halda_solve_per_k(
     versions); ``backend='cpu'`` loops the HiGHS oracle over the k grid
     (``time_limit`` seconds each; the search knobs do not apply).
     """
-    _refuse_later_options(plot=plot)
     if backend not in ("torch", "cpu"):
         raise ValueError(f"Unknown backend {backend!r}; expected 'torch' or 'cpu'")
     dev = resolve_device(device) if backend == "torch" else None
@@ -548,6 +543,7 @@ def halda_solve_per_k(
             if debug:
                 print(f"  k={k:<4d}  obj={res.obj_value:.6f}")
             out.append(_best_to_result(res, sets))
+        _plot_per_k(out, plot)
         return out
     results, _ = solve_sweep_torch(
         arrays, [(k, model.L // k) for k in Ks],
@@ -557,4 +553,15 @@ def halda_solve_per_k(
         lp_backend=lp_backend, pdhg_iters=pdhg_iters, pdhg_restart_tol=pdhg_restart_tol,
         mesh_shards=mesh_shards, pdhg_dtype=pdhg_dtype, device=dev, per_k_optima=True,
     )
-    return [_best_to_result(r, sets) for r in results if r is not None and r.w is not None]
+    out = [_best_to_result(r, sets) for r in results if r is not None and r.w is not None]
+    _plot_per_k(out, plot)
+    return out
+
+
+def _plot_per_k(out: List[HALDAResult], plot: bool) -> None:
+    """The k-curve of a per-k sweep, its best k marked (``plot=True``)."""
+    if plot and out:
+        from .plotter import plot_k_curve
+
+        plot_k_curve([(r.k, r.obj_value) for r in out],
+                     k_star=min(out, key=lambda r: r.obj_value).k)

@@ -12,7 +12,13 @@ on the CPU (``--device cpu``, ``--backend cpu``), against the JAX package's.
   routing (objectives within 2x gap, the same placements), and refuse the
   same conflicting options.
 - Every option and subcommand of a later slice exits 2 naming its ROADMAP
-  item.
+  item; ``--plot`` draws the reference's k-curve.
+- ``serve --device cpu`` runs the chaos soak of the JAX package's
+  ``make smoke-chaos`` to its contract and prints the reference's summary
+  schema (the same replay, health and chaos blocks); ``spans`` converts its
+  span JSONL into the Chrome JSON the JAX CLI writes, byte for byte; every
+  gateway, SLO and ledger flag of ``serve`` and a fleet-tagged trace exit 2
+  naming A12b, A12c or A14b.
 - ``--mesh-shards 4`` (the CLI declares its virtual mesh itself) certifies
   the online golden as the JAX CLI's ``smoke-shard`` does, and
   ``--mesh-shards 1`` prints the plain run's output byte for byte;
@@ -101,7 +107,6 @@ def test_solutions_cross_packages(capsys, tmp_path):
 @pytest.mark.parametrize("argv, item", [
     (["--mesh-shards", "2", "--lp-backend", "ipm", "--device", "cpu"],
      "requires the matrix-free pdhg engine"),
-    (["--plot"], "A16"),
     (["--backend", "cpu", "--warm-from", "x.json"], "--backend torch"),
 ])
 def test_deferred_options_exit_2(capsys, monkeypatch, argv, item):
@@ -178,12 +183,15 @@ def test_expert_loads_matches_the_jax_cli(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("sub, item", [
-    ("serve", "A12"), ("overload", "A12"), ("autoscale", "A12"),
-    ("spans", "A14"), ("slo", "A14"), ("compiles", "A14"), ("memory", "A14"),
+    ("overload", "A12"), ("autoscale", "A12"), ("slo", "A12"), ("compiles", "A14"),
+    ("memory", "A14"),
 ])
 def test_deferred_subcommands_exit_2(capsys, sub, item):
     rc, _, err = _run(solver_cli.main, [sub, "-p", ONLINE], capsys)
     assert rc == 2 and item in err and "ROADMAP" in err
+    assert solver_cli.DEFERRED_SUBCOMMANDS[sub].split()[0] in err
+    assert set(solver_cli.DEFERRED_SUBCOMMANDS) == {"overload", "autoscale", "slo",
+                                                    "compiles", "memory"}
 
 
 def test_evaluate_refuses_bad_input(capsys, tmp_path):
@@ -260,3 +268,132 @@ def test_mesh_shards_on_a_moe_profile(capsys, monkeypatch):
     assert rc == 0, err
     assert "Optimal k: 4" in out and "Objective value: -82.677178" in out
     assert "Optimality: certified" in out and "Expert placement" in out
+
+
+def test_plot_draws_the_jax_cli_curve(capsys, monkeypatch):
+    from distilp_tpu.solver import plotter as jplotter
+
+    from distilp_torch.solver import plotter
+
+    drawn = {"port": [], "jax": []}
+    monkeypatch.setattr(plotter, "plot_k_curve",
+                        lambda objs, k_star=None, **kw: drawn["port"].append((objs, k_star)))
+    monkeypatch.setattr(jplotter, "plot_k_curve",
+                        lambda objs, k_star=None, **kw: drawn["jax"].append((objs, k_star)))
+    for main, extra in ((solver_cli.main, ["--device", "cpu"]), (jcli.main, [])):
+        rc, _, err = _run(main, ["-p", ONLINE, "--backend", "cpu", "--plot", *extra], capsys)
+        assert rc == 0, err
+    (ours, k), (theirs, jk) = drawn["port"][0], drawn["jax"][0]
+    assert k == jk == 2 and [x for x, _ in ours] == [x for x, _ in theirs]
+    for (_, a), (_, b) in zip(ours, theirs):
+        assert (a is None) == (b is None) and (a is None or abs(a - b) <= 2e-4 * abs(b))
+
+
+CHAOS = ["serve", "--trace", "tests/traces/scheduler_smoke_20.jsonl", "--profile", ONLINE,
+         "--synthetic-fleet", "4", "--fleet-seed", "11", "--k-candidates", "8,10",
+         "--fault-plan", "tests/traces/chaos_plan.json", "--deadline-ms", "60000",
+         "--max-retries", "2", "--breaker-threshold", "2", "--chaos-check", "--quiet"]
+
+
+def _schema(obj):
+    """Key structure of a summary (the metrics' counter names aside)."""
+    if isinstance(obj, dict):
+        return {k: (None if k == "counters" else _schema(v)) for k, v in obj.items()}
+    return type(obj).__name__
+
+
+def test_serve_chaos_soak_matches_the_jax_cli(capsys, tmp_path):
+    """The acceptance command of ``serve`` on the CPU, beside the JAX
+    CLI's: both pass the soak contract with the same injected faults and
+    quarantines and print summaries of one schema; the port's spans, flight
+    dump directory and timeline ride along."""
+    rc, out, err = _run(solver_cli.main, CHAOS + [
+        "--device", "cpu", "--trace-spans-dir", str(tmp_path / "spans"),
+        "--flight-dir", str(tmp_path / "flight"), "--timeline-dir", str(tmp_path / "tl"),
+        "--timeline-period-ms", "5", "--metrics-out", str(tmp_path / "port.json")], capsys)
+    assert rc == 0, err
+    assert "chaos soak OK: 9 fault(s) injected, 4 quarantined" in out
+    ours = json.loads((tmp_path / "port.json").read_text())
+    rc, out_j, err = _run(jcli.main, CHAOS + ["--metrics-out", str(tmp_path / "jax.json")],
+                          capsys)
+    assert rc == 0, err
+    assert "chaos soak OK: 9 fault(s) injected, 4 quarantined" in out_j
+    theirs = json.loads((tmp_path / "jax.json").read_text())
+    for key in ("obs", "slo"):
+        assert key in ours
+        ours.pop(key)
+    assert _schema(ours) == _schema(theirs)
+    assert ours["chaos"] == theirs["chaos"]
+    assert ours["health"]["state"] == theirs["health"]["state"] == "healthy"
+    assert ours["replay"]["events"] == theirs["replay"]["events"] == 20
+    assert ours["replay"]["structural_uncertified"] == 0
+    for name in ("events_quarantined", "breaker_open", "breaker_close",
+                 "breaker_short_circuit", "solve_retries", "tick_failed"):
+        assert ours["metrics"]["counters"].get(name) == theirs["metrics"]["counters"].get(name)
+    assert (tmp_path / "tl" / "timeline.jsonl").is_file()
+    assert list((tmp_path / "flight").glob("postmortem-default-*.jsonl"))
+    # spans: the port's Chrome JSON and stats equal the JAX CLI's.
+    spans = tmp_path / "spans" / "spans.jsonl"
+    for main, name in ((solver_cli.main, "port"), (jcli.main, "jax")):
+        rc, _, err = _run(main, ["spans", str(spans), "--out", str(tmp_path / f"{name}.chrome"),
+                                 "--quiet"], capsys)
+        assert rc == 0, err
+    assert (tmp_path / "port.chrome").read_bytes() == (tmp_path / "jax.chrome").read_bytes()
+    stats = [_run(main, ["spans", str(tmp_path / "spans"), "--stats"], capsys)[1]
+             for main in (solver_cli.main, jcli.main)]
+    assert stats[0] == stats[1] and "sched.tick" in stats[0]
+    rc, _, err = _run(solver_cli.main, ["spans", str(tmp_path / "none")], capsys)
+    assert rc == 2 and "no span JSONL" in err
+
+
+def test_serve_plain_summary_and_errors(capsys, tmp_path):
+    trace = tmp_path / "t.jsonl"
+    trace.write_text("".join(open("tests/traces/scheduler_smoke_20.jsonl").readlines()[:3]))
+    args = ["serve", "--trace", str(trace), "-p", ONLINE, "--synthetic-fleet", "4",
+            "--fleet-seed", "11", "--k-candidates", "8,10", "--device", "cpu"]
+    rc, out, err = _run(solver_cli.main, args + ["--speculate", "--risk-aware"], capsys)
+    assert rc == 0, err
+    summary = _json_line(out)
+    assert set(summary) == {"replay", "drift_warm_share", "metrics", "speculation", "risk"}
+    assert summary["risk"]["evals"] == 3 and summary["speculation"]["enabled"] is True
+    assert len([ln for ln in out.splitlines() if ln.startswith("[")]) == 3
+    rc, _, err = _run(solver_cli.main, args + ["--chaos-check"], capsys)
+    assert rc == 2 and "--fault-plan" in err
+    (tmp_path / "empty.jsonl").write_text("")
+    rc, _, err = _run(solver_cli.main, [*args[:2], str(tmp_path / "empty.jsonl"), *args[3:]],
+                      capsys)
+    assert rc == 2 and "empty" in err
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--workers", "2"], "A12b"), (["--worker-backend", "process"], "A12b"),
+    (["--scheduler-factory", "m:f"], "A12b"), (["--supervise"], "A12b"),
+    (["--recovery-dir", "d"], "A12b"), (["--snapshot-every", "4"], "A12b"),
+    (["--listen", "127.0.0.1:0"], "A12b"), (["--max-queue-depth", "4"], "A12b"),
+    (["--coalesce"], "A12b"), (["--degrade-depth", "2"], "A12b"),
+    (["--snapshot-dir", "d"], "A12b"), (["--snapshot-at", "3"], "A12b"),
+    (["--halt-after-snapshot"], "A12b"), (["--resume"], "A12b"),
+    (["--slo", "s.json"], "A12c"), (["--capacity-eps", "50"], "A12c"),
+    (["--compile-ledger"], "A14b"), (["--compile-ledger-out", "c.jsonl"], "A14b"),
+    (["--compile-warm-events", "3"], "A14b"), (["--memory-ledger"], "A14b"),
+    (["--memory-out", "m.jsonl"], "A14b"), (["--memory-budget-mb", "100"], "A14b"),
+    (["--mem-degrade-headroom-mb", "10"], "A14b"),
+], ids=lambda v: v[0] if isinstance(v, list) else v)
+def test_serve_later_slice_flags_exit_2(capsys, flags, item):
+    rc, _, err = _run(solver_cli.main, ["serve", "--trace",
+                                        "tests/traces/scheduler_smoke_20.jsonl", "-p", ONLINE,
+                                        "--device", "cpu", *flags], capsys)
+    assert rc == 2 and f"serve {flags[0]}" in err and f"ROADMAP.md {item}" in err
+
+
+def test_serve_refuses_a_fleet_tagged_trace(capsys):
+    rc, _, err = _run(solver_cli.main, ["serve", "--trace", "tests/traces/gateway_smoke_10f.jsonl",
+                                        "-p", ONLINE, "--device", "cpu"], capsys)
+    assert rc == 2 and "fleet-tagged" in err and "A12b" in err
+
+
+def test_serve_default_device_needs_a_gpu(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, _, err = _run(solver_cli.main, CHAOS[:9] + ["--k-candidates", "8,10", "--quiet"],
+                      capsys)
+    assert rc == 1 and "CUDA device" in err

@@ -243,9 +243,15 @@ def test_per_k_moe_mixtral_matches_jax_and_highs():
             assert abs(r.obj_value - other) <= 2 * gap * abs(other) + 1e-9, (r.k, other)
 
 
-def test_per_k_plot_and_unknown_backend_raise(profiles_dir):
+def test_per_k_plot_and_unknown_backend_raise(profiles_dir, monkeypatch):
+    from distilp_torch.solver import plotter
+
     devs, model = load_from_profile_folder(profiles_dir / "llama_3_70b" / "online")
-    with pytest.raises(NotImplementedError, match="plot"):
-        halda_solve_per_k(devs, model, plot=True, device="cpu")
+    drawn = []
+    monkeypatch.setattr(plotter, "plot_k_curve",
+                        lambda objs, k_star=None, **kw: drawn.append((objs, k_star)))
+    got = halda_solve_per_k(devs, model, plot=True, device="cpu")
+    assert drawn == [([(r.k, r.obj_value) for r in got],
+                      min(got, key=lambda r: r.obj_value).k)]
     with pytest.raises(ValueError, match="backend"):
         halda_solve_per_k(devs, model, backend="jax", device="cpu")

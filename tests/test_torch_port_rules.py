@@ -20,6 +20,11 @@
 - So are the packed halves and the device loop (``solver/packed.py``,
   ``solver/device_loop.py``) with the loop's kernel source, which fails its
   build on a toolkit without conditional WHILE graph nodes.
+- So are the scheduler daemon (``distilp_torch/sched``), the tracing base
+  (``obs/{trace,flight,export,timeline}.py``, ``utils/lockwatch.py``; these
+  import neither torch nor numpy), the fleet-tagged trace reader
+  (``gateway/traces.py``) and the k-curve plotter; a chaos ``serve`` and a
+  ``spans`` conversion run in a process that never loads JAX.
 """
 
 import ast
@@ -334,3 +339,47 @@ def test_the_packed_halves_and_the_device_loop_are_checked(tmp_path):
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'distilp_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=300)
+
+
+SCHED_MODULES = ("__init__", "events", "fleet", "metrics", "forecast", "speculate", "faults",
+                 "sim", "scheduler")
+OBS_MODULES = ("trace", "flight", "export", "timeline")
+
+
+def test_the_scheduler_and_tracing_copies_are_checked_and_serve_without_jax(tmp_path):
+    import subprocess
+    import sys
+
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in SCHED_MODULES:
+        assert f"distilp_torch/sched/{name}.py" in files
+    for name in OBS_MODULES:
+        path = REPO / "distilp_torch" / "obs" / f"{name}.py"
+        assert path.relative_to(REPO).as_posix() in files
+        roots = {mod for _, mod in _imported_roots(path)}
+        assert not roots & {"torch", "numpy", *FORBIDDEN}, (name, roots)
+    for rel in ("utils/lockwatch.py", "gateway/__init__.py", "gateway/traces.py",
+                "solver/plotter.py"):
+        assert f"distilp_torch/{rel}" in files
+    script = (
+        "import sys\n"
+        "from distilp_torch.cli import solver_cli\n"
+        "args = ['serve', '--trace', 'tests/traces/scheduler_smoke_20.jsonl', '-p',\n"
+        "        'tests/profiles/llama_3_70b/online', '--synthetic-fleet', '4',\n"
+        "        '--fleet-seed', '11', '--k-candidates', '8,10', '--device', 'cpu',\n"
+        "        '--fault-plan', 'tests/traces/chaos_plan.json', '--deadline-ms', '60000',\n"
+        "        '--max-retries', '2', '--breaker-threshold', '2', '--chaos-check',\n"
+        "        '--quiet', '--speculate', '--risk-aware', '--trace-spans-dir', sys.argv[1]]\n"
+        "assert solver_cli.main(args) == 0\n"
+        "assert solver_cli.main(['spans', sys.argv[1], '--quiet']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "    'distilp_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path / "spans")], cwd=REPO,
+                          capture_output=True, text=True, timeout=600,
+                          env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
+                               "HOME": str(tmp_path)})
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+    assert "chaos soak OK: 9 fault(s) injected, 4 quarantined" in proc.stdout
