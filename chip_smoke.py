@@ -1275,6 +1275,411 @@ def serve_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------- gateway (path l)
+
+# The JAX package's Makefile smokes of the gateway tier (smoke-gateway,
+# smoke-crash) through the port's ``serve``: 10 fleets of 3-4 devices,
+# Llama-3-70B online, k in {8, 10}.
+GATEWAY_SMOKE = ["serve", "--trace", "tests/traces/gateway_smoke_10f.jsonl", "--profile",
+                 "tests/profiles/llama_3_70b/online", "--workers", "2", "--k-candidates",
+                 "8,10", "--quiet"]
+CRASH_SMOKE = ["serve", "--trace", "tests/traces/scheduler_smoke_20.jsonl", *SERVE_SMOKE,
+               "--worker-backend", "process", "--supervise", "--snapshot-every", "4",
+               "--fault-plan", "tests/traces/crash_plan.json", "--chaos-check"]
+# The in-process gateway at full width: 8 fleets of 16 devices (the north
+# star's fleet, seeds 123..130), 2 thread workers, combiner on.
+GATEWAY_FLEETS = 8
+GATEWAY_M = 16
+GATEWAY_KERNELS = ("ipm", "round_tail", "round_tail_lanes", "bnb_graph", "bnb_seed",
+                   "bnb_head", "bnb_control", "bnb_answer")
+# The whole path gets this long; past it the script dumps every thread's
+# stack and the card's utilization, then exits non-zero (a solve that never
+# returns must not hold the card until the call's limit).
+GATEWAY_LIMIT_S = 400
+
+
+def gpu_utilization() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=utilization.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip()
+
+
+def _summary_file(path: Path) -> dict:
+    return json.loads(path.read_text()) if path.is_file() else {}
+
+
+def smoke_gateway(tmp: Path) -> dict:
+    """(a) smoke-gateway: uninterrupted, snapshot + halt at 15, resume;
+    the placements identical, the resumed shards warm, no cold re-solve."""
+    launches: dict = {}
+    walls = {}
+    full, res = tmp / "full.json", tmp / "resumed.json"
+    runs = (
+        ("full", ["--fail-uncertified", "--metrics-out", str(full)]),
+        ("halt", ["--snapshot-dir", str(tmp / "snap"), "--snapshot-at", "15",
+                  "--halt-after-snapshot"]),
+        ("resume", ["--fail-uncertified", "--snapshot-dir", str(tmp / "snap"), "--resume",
+                    "--metrics-out", str(res)]),
+    )
+    for name, extra in runs:
+        rc, _, err, walls[name] = run_cli("distilp_torch.cli.solver_cli",
+                                          GATEWAY_SMOKE + extra, launches)
+        if rc != 0:
+            return {"error": f"smoke-gateway {name}: exit {rc} {err[-2000:]}"}
+    a, b = _summary_file(full), _summary_file(res)
+    g = b.get("gateway", {})
+    line = {"walls_s": walls, "fleets": g.get("fleets"), "warm_resumes": g.get("warm_resumes"),
+            "cold_resumes": g.get("cold_resumes"), "tick_cold": g.get("tick_cold"),
+            "identical": a.get("final_placements") == b.get("final_placements"),
+            "replay_full": a.get("replay"), "replay_resumed": b.get("replay")}
+    ok = (line["identical"] and (g.get("warm_resumes") or 0) > 0
+          and g.get("cold_resumes") == 0 and g.get("tick_cold") == 0)
+    return {"line": line, "launches": launches,
+            "error": None if ok else f"smoke-gateway contract: {json.dumps(line)}"}
+
+
+def smoke_gateway_chaos() -> dict:
+    """(a) continued: the chaos soak of smoke-chaos with --workers 2."""
+    launches: dict = {}
+    rc, out, err, wall = run_cli("distilp_torch.cli.solver_cli",
+                                 SERVE_CHAOS + ["--workers", "2"], launches)
+    ok = [ln for ln in out.splitlines() if ln.startswith("chaos soak OK")]
+    good = rc == 0 and ok and "9 fault(s) injected, 4 quarantined" in ok[0]
+    return {"line": {"wall_s": wall, "chaos": ok[0] if ok else None}, "launches": launches,
+            "error": None if good else f"chaos soak --workers 2: exit {rc} {ok} {err[-2000:]}"}
+
+
+def smoke_crash(tmp: Path, engine: str) -> dict:
+    """(b) smoke-crash on one LP engine: supervised process workers, two
+    child kills and a stalled RPC; each recovery's MTTR, each child's start
+    and the nvcc runs of every child (none: they load the parent's
+    kernels)."""
+    launches: dict = {}
+    out_json = tmp / f"crash_{engine}.json"
+    rc, out, err, wall = run_cli("distilp_torch.cli.solver_cli", CRASH_SMOKE + [
+        "--lp-backend", engine, "--recovery-dir", str(tmp / f"rec_{engine}"),
+        "--metrics-out", str(out_json)], launches)
+    s = _summary_file(out_json)
+    rec = s.get("recovery", {})
+    procs = s.get("gateway", {}).get("process_workers", [])
+    ok = [ln for ln in out.splitlines() if ln.startswith("chaos soak OK")]
+    nvcc = sorted({v for p in procs for v in p.get("nvcc_runs", {}).values()})
+    line = {"engine": engine, "wall_s": wall, "chaos": ok[0] if ok else None,
+            "mttr_ms": [r["mttr_ms"] for r in rec.get("recoveries", [])],
+            "child_start_ms": [p["start_ms"] for p in procs], "child_nvcc_runs": nvcc,
+            "events_lost": rec.get("events_lost"), "cold_resumes": rec.get("cold_resumes")}
+    good = (rc == 0 and ok and "crash contract OK" in ok[0] and procs and nvcc == [0]
+            and rec.get("worker_crashes", 0) >= 2 and rec.get("events_lost") == 0)
+    return {"line": line, "launches": launches,
+            "error": None if good else f"smoke-crash {engine}: exit {rc} {json.dumps(line)} "
+                                       f"{err[-2000:]}"}
+
+
+def _gateway_events(fleets: dict, j: int) -> dict:
+    """One drift event per fleet: device (3j + 1) mod M slows its links."""
+    from distilp_torch.sched import DeviceDegrade
+
+    return {f: DeviceDegrade(name=devs[(3 * j + 1) % len(devs)].name,
+                             t_comm_scale=1.0 + 0.03 * (j + 1)) for f, devs in fleets.items()}
+
+
+def _drive(gw, fleets: dict, rounds, walls=None) -> None:
+    """Every fleet's events of ``rounds`` submitted at once (asyncio
+    ingest); per-fleet order is submission order."""
+    import asyncio
+
+    async def one(f, ev):
+        t = time.perf_counter()
+        await gw.handle_event_async(f, ev)
+        if walls is not None:
+            walls.append((time.perf_counter() - t) * 1e3)
+
+    async def main():
+        evs = [(f, ev) for j in rounds for f, ev in _gateway_events(fleets, j).items()]
+        await asyncio.gather(*(one(f, ev) for f, ev in evs))
+
+    asyncio.run(main())
+
+
+def combined_gateway(model) -> dict:
+    """(c) The thread-backend gateway at full width with the combiner on:
+    a concurrent per-fleet warm-up (two workers solving at once), then
+    ``warm_combine``, then two drift bursts of 5 events per fleet submitted
+    together; against a combine-off gateway on the same events and a
+    one-shot solve per fleet."""
+    import numpy as np
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.combine import BucketPolicy
+    from distilp_torch.gateway import Gateway, make_fleet_from_spec
+    from distilp_torch.solver import device_loop, halda_solve
+    from distilp_torch.solver import packed as PK
+
+    specs = {f"g{i}": {"m": GATEWAY_M, "seed": 123 + i} for i in range(GATEWAY_FLEETS)}
+    fleets = {f: make_fleet_from_spec(f, s) for f, s in specs.items()}
+    kw = dict(mip_gap=SERVE_GAP, kv_bits="4bit")
+    policy = BucketPolicy(max_wait_ms=50.0)
+    out: dict = {}
+    finals: dict = {}
+    for combine in (True, False):
+        gw = Gateway(n_workers=2, scheduler_kwargs=kw)
+        try:
+            for f in fleets:
+                gw.register_fleet(f, [d.model_copy(deep=True) for d in fleets[f]], model)
+            t = time.perf_counter()
+            _drive(gw, fleets, range(0, 2))  # the cold tick, then a warm one
+            torch.cuda.synchronize()
+            warmup_s = time.perf_counter() - t
+            print(f"gateway combined={combine}: warm-up {warmup_s:.2f} s", flush=True)
+            gw.configure_admission(coalesce=True, combine=combine,
+                                   combine_policy=policy if combine else None)
+            warm = gw.warm_combine() if combine else None
+            caps0 = sum(device_loop.CAPTURES.values())
+            graph0, h2d0 = kernels.LAUNCHES["bnb_graph"], PK.COPIES["h2d"]
+            walls: list = []
+            for burst in (range(2, 7), range(7, 12)):
+                _drive(gw, fleets, burst, walls)
+                print(f"gateway combined={combine}: burst {burst.start}-{burst.stop - 1} done",
+                      flush=True)
+            torch.cuda.synchronize()
+            snap = gw.metrics_snapshot()
+            finals[combine] = {f: gw.latest(f) for f in fleets}
+            devs = {f: gw.read_shard(f, lambda s: s.fleet.device_list()) for f in fleets}
+            c, totals = snap["counters"], snap["shard_totals"]
+            lat = snap["latency"].get("combine_batch_ms", {})
+            batches = c.get("combine_batches", 0)
+            line = {
+                "combine": combine, "warmup_s": warmup_s, "warm_combine": warm,
+                "captures_in_bursts": sum(device_loop.CAPTURES.values()) - caps0,
+                "batches": batches, "instances": c.get("combine_instances", 0),
+                "lanes_per_dispatch": c.get("combine_instances", 0) / batches if batches else None,
+                "combine_local": totals.get("combine_local", 0),
+                "combine_fallback": totals.get("combine_fallback", 0),
+                "dispatch_errors": c.get("combine_dispatch_error", 0),
+                "flush_ms_p50": lat.get("p50_ms"), "flush_ms_p99": lat.get("p99_ms"),
+                "event_ms": quantiles(walls) if walls else None,
+                "graph_launches_per_batch": ((kernels.LAUNCHES["bnb_graph"] - graph0) / batches
+                                             if batches else None),
+                "h2d_per_batch": (PK.COPIES["h2d"] - h2d0) / batches if batches else None,
+                "tick_failed": totals.get("tick_failed", 0),
+            }
+        finally:
+            gw.close()
+        print(f"gateway combined {json.dumps(line)}", flush=True)
+        out["combine" if combine else "plain"] = line
+        if combine:
+            if not batches or line["lanes_per_dispatch"] <= 1:
+                fail(f"gateway combined: no lanes shared a dispatch: {line}")
+            if line["combine_local"] or line["combine_fallback"] or line["dispatch_errors"]:
+                fail(f"gateway combined: ticks fell back or dispatches raised: {line}")
+            if line["captures_in_bursts"]:
+                fail(f"gateway combined: {line['captures_in_bursts']} graph captures after "
+                     f"warm_combine")
+            with uncounted():
+                for f in fleets:
+                    ref = halda_solve(devs[f], model, mip_gap=SERVE_GAP, kv_bits="4bit")
+                    held_to(f"gateway combined {f} ({finals[True][f].mode})",
+                            finals[True][f].result, ref.obj_value, SERVE_GAP)
+        if line["tick_failed"]:
+            fail(f"gateway {'combined' if combine else 'plain'}: failed ticks {line}")
+    for f in fleets:
+        a, b = finals[True][f].result, finals[False][f].result
+        if (a.k, a.w, a.n) != (b.k, b.w, b.n):
+            fail(f"gateway combined {f}: (k, w, n) {(a.k, a.w, a.n)} != combine-off "
+                 f"{(b.k, b.w, b.n)}")
+    print(f"gateway combined: every fleet's final (k, w, n) equals the combine-off "
+          f"gateway's, {float(np.mean([finals[True][f].result.obj_value for f in fleets]))!r} mean "
+          f"objective", flush=True)
+    return out
+
+
+def _http(port: int, path: str, body=None, accept=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="POST" if body is not None else "GET",
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Accept": accept} if accept else {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def http_gateway(model) -> dict:
+    """(d) ``GatewayHTTPServer`` on 127.0.0.1:0 over a two-fleet gateway on
+    the card: the routes answer; at ``max_queue_depth=1`` a post gets 429
+    with a parseable Retry-After, ordered by the worker's observed queue
+    depth (the first post's solve is held in the scheduler's fault hook)."""
+    import asyncio
+    import threading
+
+    from distilp_torch.gateway import Gateway, GatewayHTTPServer, make_fleet_from_spec
+
+    gw = Gateway(n_workers=1, max_queue_depth=1, scheduler_kwargs=dict(
+        mip_gap=SERVE_GAP, kv_bits="4bit", k_candidates=[8, 10]))
+    gate, entered = threading.Event(), threading.Event()
+    res: dict = {}
+    try:
+        for i, f in enumerate(("h0", "h1")):
+            gw.register_fleet(f, make_fleet_from_spec(f, {"m": 4, "seed": 40 + i}), model)
+        worker = gw.workers[0]
+
+        def wait_for(cond):
+            t = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t > 120:
+                    fail("http: the worker never reached the expected queue state")
+                time.sleep(0.002)
+
+        async def main():
+            srv = GatewayHTTPServer(gw)
+            await srv.start()
+            loop = asyncio.get_running_loop()
+            call = lambda *a: loop.run_in_executor(None, *a)  # noqa: E731
+            ev = {"fleet": "h0", "event": {"kind": "load", "t_comm_jitter": {}}}
+            try:
+                t = time.perf_counter()
+                res["post"] = await call(_http, srv.port, "/events", ev)
+                res["post_ms"] = (time.perf_counter() - t) * 1e3
+                res["placement"] = await call(_http, srv.port, "/placement/h0")
+                res["healthz"] = await call(_http, srv.port, "/healthz")
+                res["metrics"] = await call(_http, srv.port, "/metrics")
+                res["prom"] = await call(_http, srv.port, "/metrics", None, "text/plain")
+
+                def hold(_attempt):
+                    entered.set()
+                    if not gate.wait(timeout=120):
+                        raise RuntimeError("the test gate was never opened")
+
+                gw.scheduler("h1").fault_hook = hold
+                drift = {"fleet": "h1", "event": {"kind": "load", "t_comm_jitter": {}}}
+                first = call(_http, srv.port, "/events", drift)
+                await call(wait_for, entered.is_set)
+                second = call(_http, srv.port, "/events", drift)
+                await call(wait_for, lambda: worker.depth() == 1)
+                res["third"] = await call(_http, srv.port, "/events", drift)
+                gate.set()
+                res["first"], res["second"] = await first, await second
+            finally:
+                gate.set()
+                await srv.close()
+
+        asyncio.run(main())
+    finally:
+        gate.set()
+        gw.close()
+    st, headers, body = res["third"]
+    view = json.loads(res["post"][2]).get("view", {})
+    line = {"post": res["post"][0], "post_ms": res["post_ms"], "k": view.get("k"),
+            "certified": view.get("certified"), "placement": res["placement"][0],
+            "healthz": res["healthz"][0], "metrics": res["metrics"][0],
+            "prom_fleet_label": 'fleet="h0"' in res["prom"][2], "third": st,
+            "retry_after": headers.get("Retry-After"),
+            "first_second": [res["first"][0], res["second"][0]]}
+    print(f"gateway http {json.dumps(line)}", flush=True)
+    if (line["post"], line["placement"], line["healthz"], line["metrics"]) != (200,) * 4 \
+            or not line["certified"] or not line["prom_fleet_label"]:
+        fail(f"gateway http routes: {line}")
+    if st != 429 or int(headers.get("Retry-After", "0")) < 1 \
+            or line["first_second"] != [200, 200]:
+        fail(f"gateway http: no 429 with a Retry-After at a full queue: {line}")
+    return line
+
+
+def loadgen_gateway(model) -> dict:
+    """(e) ``run_loadgen``: 10 fleets of 3 devices (the shape of the smoke
+    trace's), 5 measured events each after 2 warm-up events, at 1 and 2
+    thread workers."""
+    from distilp_torch.gateway import run_loadgen
+
+    out = {}
+    for n in (1, 2):
+        r = run_loadgen(model, n_fleets=10, n_workers=n, events_per_fleet=5, fleet_size=3,
+                        k_candidates=[8, 10], mip_gap=SERVE_GAP)
+        out[n] = {k: r[k] for k in ("events", "wall_s", "events_per_sec", "p50_ms", "p99_ms",
+                                   "tick_failed", "uncertified", "worker_events")}
+        print(f"gateway loadgen workers={n} {json.dumps(out[n])}", flush=True)
+        if r["tick_failed"] or r["uncertified"] or r["events"] != 50:
+            fail(f"gateway loadgen workers={n}: {out[n]}")
+    return out
+
+
+def gateway_path() -> dict:
+    """The gateway tier on the card (path l): the JAX package's
+    smoke-gateway (three serve runs and the chaos soak on 2 workers) and
+    smoke-crash (supervised process workers, both LP engines) through the
+    port's ``serve``, run side by side in child processes; then in process
+    the combined gateway at full width, the HTTP API and the load
+    generator."""
+    import os
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distilp_torch import kernels
+    from distilp_torch.solver import packed as PK
+
+    def overdue():
+        import faulthandler
+
+        print(f"chip_smoke FAILED: the gateway path ran past {GATEWAY_LIMIT_S} s; "
+              f"utilization {gpu_utilization()}; every thread:", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        sys.stderr.flush()
+        os._exit(1)
+
+    watchdog = threading.Timer(GATEWAY_LIMIT_S, overdue)
+    watchdog.daemon = True
+    watchdog.start()
+    t_path = time.perf_counter()
+    kernels.reset_launch_counts()
+    PK.reset_counts()
+    child: dict = {}
+    with tempfile.TemporaryDirectory(prefix="distilp_gateway_") as tmp:
+        tmp = Path(tmp)
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            futs = [ex.submit(smoke_gateway, tmp), ex.submit(smoke_gateway_chaos),
+                    ex.submit(smoke_crash, tmp, "ipm"), ex.submit(smoke_crash, tmp, "pdhg")]
+            results = [f.result() for f in futs]
+    for r in results:
+        print(f"gateway cli {json.dumps(r.get('line'))}", flush=True)
+        for k, v in r.get("launches", {}).items():
+            if k == "_shapes":
+                merge_shapes(child.setdefault("_shapes", {}), v)
+            else:
+                child[k] = child.get(k, 0) + v
+    errors = [r["error"] for r in results if r.get("error")]
+    if errors:
+        fail("; ".join(errors))
+    t_cli = time.perf_counter() - t_path
+    model = online_model()
+    t = time.perf_counter()
+    combined_gateway(model)
+    t_combined = time.perf_counter() - t
+    t = time.perf_counter()
+    http_gateway(model)
+    t_http = time.perf_counter() - t
+    t = time.perf_counter()
+    loadgen_gateway(model)
+    t_loadgen = time.perf_counter() - t
+    watchdog.cancel()
+    launches = path_launches(child)
+    print("gateway path launches", json.dumps(launches), flush=True)
+    print(f"gateway path: {time.perf_counter() - t_path:.1f} s (cli side by side {t_cli:.1f} s, "
+          f"combined {t_combined:.1f} s, http {t_http:.1f} s, loadgen {t_loadgen:.1f} s)",
+          flush=True)
+    missing = [k for k in GATEWAY_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"gateway path never launched {missing}")
+    return launches
+
+
 def _as_ilp(r):
     """A HALDAResult as the ILPResult a warm hint is read from."""
     from distilp_torch.solver.api import _warm_to_ilp
@@ -6697,6 +7102,7 @@ def main() -> int:
         paths["mesh"] = mesh_path()
         paths["packed"] = packed_path(report)
         paths["serve"] = serve_path()
+        paths["gateway"] = gateway_path()
     # K7 on the main paths: at most two launches a root bound (the fused
     # ascent and the float64 evaluation), none of the per-step entry.
     per_call = {}

@@ -14,8 +14,10 @@ the root LP relaxations' per-chunk traces, optionally exported as JSONL):
 
     python -m distilp_torch.cli.solver_cli diagnose -p <folder> [--out F | --load F]
 
-the scheduler daemon over a churn trace (``distilp_torch.sched``), and the
-conversion of its span JSONL into Chrome trace-event JSON:
+the scheduler daemon over a churn trace (``distilp_torch.sched``), through
+the gateway tier for many fleets (``distilp_torch.gateway``: ``--workers``,
+process workers, snapshot and resume, ``--listen`` ...), and the conversion
+of its span JSONL into Chrome trace-event JSON:
 
     python -m distilp_torch.cli.solver_cli serve --trace T -p <folder> [...]
     python -m distilp_torch.cli.solver_cli spans <spans.jsonl | dir> [--stats]
@@ -477,27 +479,12 @@ def diagnose_main(argv=None) -> int:
 # -- serve: the scheduler daemon over a churn trace --------------------------
 
 # Options of ``serve`` that wait for a later slice, by ROADMAP item. Each one
-# that is set exits 2 naming its item; a plain or chaos ``serve`` sets none.
-_GATEWAY = "A12b (the gateway tier on the port)"
+# that is set exits 2 naming its item; a plain, chaos or gateway ``serve``
+# sets none.
 _SLO = "A12c (open-loop traffic, control and SLO)"
 _LEDGERS = "A14b (compile and memory ledgers for CUDA)"
 # (flag, argparse keywords, value that means "not set", ROADMAP item)
 _DEFERRED_SERVE = (
-    ("--workers", dict(type=int, default=1), 1, _GATEWAY),
-    ("--worker-backend", dict(choices=("thread", "process"), default="thread"), "thread",
-     _GATEWAY),
-    ("--scheduler-factory", dict(default=None), None, _GATEWAY),
-    ("--supervise", dict(action="store_true"), False, _GATEWAY),
-    ("--recovery-dir", dict(default=None), None, _GATEWAY),
-    ("--snapshot-every", dict(type=int, default=None), None, _GATEWAY),
-    ("--listen", dict(default=None), None, _GATEWAY),
-    ("--max-queue-depth", dict(type=int, default=None), None, _GATEWAY),
-    ("--coalesce", dict(action="store_true"), False, _GATEWAY),
-    ("--degrade-depth", dict(type=int, default=None), None, _GATEWAY),
-    ("--snapshot-dir", dict(default=None), None, _GATEWAY),
-    ("--snapshot-at", dict(type=int, default=None), None, _GATEWAY),
-    ("--halt-after-snapshot", dict(action="store_true"), False, _GATEWAY),
-    ("--resume", dict(action="store_true"), False, _GATEWAY),
     ("--slo", dict(default=None), None, _SLO),
     ("--capacity-eps", dict(type=float, default=None), None, _SLO),
     ("--compile-ledger", dict(action="store_true"), False, _LEDGERS),
@@ -647,11 +634,103 @@ def build_serve_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--timeline-period-ms", type=float, default=100.0,
                    help="timeline sampler cadence (ms)")
+    _add_gateway_args(p)
     g = p.add_argument_group(
         "options of later slices (each exits 2 naming its ROADMAP item)")
     for flag, kw, _, item in _DEFERRED_SERVE:
         g.add_argument(flag, help=f"ROADMAP {item.split()[0]}", **kw)
     return p
+
+
+def _add_gateway_args(p: argparse.ArgumentParser) -> None:
+    """The gateway tier's options of ``serve`` (``distilp_torch.gateway``):
+    any of them, or a fleet-tagged trace, serves through the gateway."""
+    g = p.add_argument_group("gateway tier (many fleets over N solve workers)")
+    g.add_argument(
+        "--workers", type=int, default=1,
+        help="solve workers; each (fleet, model) shard is owned by exactly one "
+        "of them (consistent hashing) and ticks on its thread",
+    )
+    g.add_argument(
+        "--worker-backend", choices=("thread", "process"), default="thread",
+        help="host shard workers in threads (default) or dedicated subprocesses "
+        "(own GIL, own CUDA context; they load the kernels the parent built)",
+    )
+    g.add_argument(
+        "--scheduler-factory", default=None, metavar="MOD:FN",
+        help="'module:callable' scheduler factory resolved in whichever process "
+        "hosts the shard (tests.torch_procstub:make_scheduler is the solver-free "
+        "stub the tests use)",
+    )
+    g.add_argument(
+        "--supervise", action="store_true",
+        help="supervise process workers: a crashed child is respawned with "
+        "bounded backoff and its shards restored WARM from per-shard "
+        "micro-snapshots + WAL-tail replay (exactly-once); needs "
+        "--worker-backend process",
+    )
+    g.add_argument(
+        "--recovery-dir", default=None, metavar="DIR",
+        help="with --supervise: root directory of the per-fleet WALs and "
+        "micro-snapshots (default: a private tempdir removed at close)",
+    )
+    g.add_argument(
+        "--snapshot-every", type=int, default=8, metavar="N",
+        help="with --supervise: micro-snapshot each shard every N handled events",
+    )
+    g.add_argument(
+        "--listen", default=None, metavar="HOST:PORT",
+        help="after the trace replay, keep serving the gateway's HTTP/1.1 JSON "
+        "API (POST /events, GET /placement/<fleet>, /healthz, /metrics) until "
+        "interrupted",
+    )
+    g.add_argument(
+        "--max-queue-depth", type=int, default=None, metavar="N",
+        help="bound each solve worker's queue at N commands; an event arriving "
+        "at a full queue is shed (events_shed; HTTP 429 + Retry-After)",
+    )
+    g.add_argument(
+        "--coalesce", action="store_true",
+        help="fold drift events queued for the same shard into ONE solve at the "
+        "newest state (structural events are barriers)",
+    )
+    g.add_argument(
+        "--degrade-depth", type=int, default=None, metavar="N",
+        help="queue depth at which a speculative shard may serve a banked "
+        "near-match (mode='spec_near') instead of queueing the solve",
+    )
+    g.add_argument(
+        "--snapshot-dir", default=None,
+        help="directory of the gateway's warm-state snapshot (written by "
+        "--snapshot-at, read by --resume)",
+    )
+    g.add_argument(
+        "--snapshot-at", type=int, default=None, metavar="N",
+        help="snapshot every shard after the N-th replayed event",
+    )
+    g.add_argument(
+        "--halt-after-snapshot", action="store_true",
+        help="stop the replay right after --snapshot-at (a planned restart)",
+    )
+    g.add_argument(
+        "--resume", action="store_true",
+        help="restore every shard from --snapshot-dir, then replay only the "
+        "events its resume cursors do not cover",
+    )
+
+
+def _gateway_mode(args) -> bool:
+    """Whether ``serve`` runs through the gateway tier."""
+    if (args.workers > 1 or args.listen or args.snapshot_dir or args.resume
+            or args.max_queue_depth is not None or args.coalesce
+            or args.degrade_depth is not None or args.worker_backend != "thread"
+            or args.scheduler_factory is not None or args.supervise):
+        return True
+    if Path(args.trace).is_file():
+        from ..gateway.traces import is_gateway_trace
+
+        return is_gateway_trace(args.trace)
+    return False
 
 
 def _deferred_serve_options(args) -> list:
@@ -748,14 +827,18 @@ def serve_main(argv=None) -> int:
                   file=sys.stderr)
         return 2
     trace_path = Path(args.trace)
-    if trace_path.is_file():
-        from ..gateway.traces import is_gateway_trace
-
-        if is_gateway_trace(trace_path):
-            print(f"error: {trace_path} is a fleet-tagged (multi-fleet) trace; the "
-                  f"gateway tier is not part of the port yet (ROADMAP.md {_GATEWAY})",
-                  file=sys.stderr)
+    if _gateway_mode(args):
+        if args.profile_dir:
+            # torch.profiler is process-global; two shard workers profiling
+            # their first ticks at once would race it.
+            print("error: --profile-dir needs the single-scheduler path (no "
+                  "gateway flags, --workers 1, single-fleet trace)", file=sys.stderr)
             return 2
+        return _serve_gateway(args)
+    if args.snapshot_at is not None or args.halt_after_snapshot:
+        print("error: --snapshot-at/--halt-after-snapshot need --snapshot-dir "
+              "(the gateway path)", file=sys.stderr)
+        return 2
     if args.chaos_check and not args.fault_plan:
         print("error: --chaos-check needs --fault-plan (the soak contract is "
               "defined over an injected fault schedule)", file=sys.stderr)
@@ -910,6 +993,368 @@ def serve_main(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
+    return 0
+
+
+def _serve_gateway(args) -> int:
+    """``serve`` through the gateway tier (``distilp_torch.gateway``).
+
+    Engaged by --workers > 1, --listen, --snapshot-dir/--resume, the
+    admission and process-worker flags, or a fleet-tagged (multi-fleet)
+    trace. The replay itself is SEQUENTIAL in trace order — this path is
+    the correctness/operations surface (deterministic replays, snapshot
+    cycles, chaos and crash soaks); concurrent throughput is the load
+    generator's job (``gateway.loadgen``).
+    """
+    import time as _time
+
+    from ..common import load_from_profile_folder, load_model_profile
+    from ..gateway import (
+        Gateway,
+        ShardFacade,
+        load_snapshot,
+        read_gateway_trace,
+        save_snapshot,
+    )
+    from ..gateway.traces import is_gateway_trace, make_fleet_from_spec
+    from ..sched import STRUCTURAL_KINDS, drift_warm_share, read_trace
+    from ..sched.metrics import _quantile
+    from ..utils import make_synthetic_fleet
+
+    folder = Path(args.profile)
+    if not folder.is_dir():
+        print(f"error: {folder} is not a directory", file=sys.stderr)
+        return 2
+    trace_path = Path(args.trace)
+    if not trace_path.is_file():
+        print(f"error: trace {trace_path} not found", file=sys.stderr)
+        return 2
+    if args.snapshot_at is not None and not args.snapshot_dir:
+        print("error: --snapshot-at needs --snapshot-dir", file=sys.stderr)
+        return 2
+    if args.resume and not args.snapshot_dir:
+        print("error: --resume needs --snapshot-dir", file=sys.stderr)
+        return 2
+    if args.chaos_check and not args.fault_plan:
+        print("error: --chaos-check needs --fault-plan (the soak contract is "
+              "defined over an injected fault schedule)", file=sys.stderr)
+        return 2
+
+    model = load_model_profile(folder / "model_profile.json")
+    try:
+        multi = is_gateway_trace(trace_path)
+        if multi:
+            specs, items = read_gateway_trace(trace_path)
+        else:
+            specs = {}
+            items = [("default", ev) for ev in read_trace(trace_path)]
+    except (OSError, ValueError) as e:
+        print(f"error: cannot parse trace: {e}", file=sys.stderr)
+        return 2
+    if not items:
+        print("error: trace is empty", file=sys.stderr)
+        return 2
+
+    plan = None
+    if args.fault_plan:
+        if multi:
+            # The fault plan's tick schedule is defined over ONE fleet's
+            # replay; spraying it across interleaved fleets would make the
+            # soak contract unverifiable.
+            print("error: --fault-plan needs a single-fleet trace",
+                  file=sys.stderr)
+            return 2
+        if args.snapshot_at is not None or args.halt_after_snapshot:
+            print("error: --fault-plan cannot combine with --snapshot-at/"
+                  "--halt-after-snapshot (the chaos soak does not snapshot "
+                  "mid-replay)", file=sys.stderr)
+            return 2
+        from ..sched import FaultPlan
+
+        try:
+            plan = FaultPlan.from_json(args.fault_plan)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load --fault-plan: {e}", file=sys.stderr)
+            return 2
+        if args.fault_seed is not None:
+            plan = plan.model_copy(update={"seed": args.fault_seed})
+    if args.supervise and args.worker_backend != "process":
+        print("error: --supervise needs --worker-backend process (thread "
+              "workers share the gateway's life; there is no child to "
+              "respawn)", file=sys.stderr)
+        return 2
+
+    scheduler_kwargs = dict(
+        mip_gap=args.mip_gap, kv_bits=args.kv_bits, backend=args.backend,
+        diagnostics=args.solver_diagnostics,
+        k_candidates=_k_candidates(args.k_candidates), warm_pool_size=args.warm_pool,
+        cold_start=args.cold_start, lp_backend=args.lp_backend,
+        pdhg_iters=args.pdhg_iters, pdhg_restart_tol=args.pdhg_restart_tol,
+        mesh_shards=args.mesh_shards, pdhg_dtype=args.pdhg_dtype,
+        risk_aware=args.risk_aware, risk_samples=args.risk_samples,
+        risk_seed=args.risk_seed, speculative=args.speculate, spec_k=args.spec_k,
+        spec_tolerance=args.spec_tolerance,
+    )
+    if args.deadline_ms is not None:
+        scheduler_kwargs["solve_deadline_s"] = args.deadline_ms / 1e3
+    if args.max_retries:
+        scheduler_kwargs["max_retries"] = args.max_retries
+    if args.breaker_threshold is not None:
+        scheduler_kwargs["breaker_threshold"] = args.breaker_threshold
+    # The HiGHS oracle needs no card: --backend cpu alone serves on the CPU.
+    device = args.device
+    if device is None and args.backend == "cpu":
+        device = "cpu"
+
+    tracer, writer, flight = _build_obs(args)
+    try:
+        gw = Gateway(
+            n_workers=args.workers, scheduler_kwargs=scheduler_kwargs,
+            scheduler_factory=args.scheduler_factory, tracer=tracer, flight=flight,
+            max_queue_depth=args.max_queue_depth, coalesce=args.coalesce,
+            degrade_depth=args.degrade_depth, worker_backend=args.worker_backend,
+            supervise=args.supervise, recovery_dir=args.recovery_dir,
+            snapshot_every=args.snapshot_every, device=device,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    timeline, sampler = _build_timeline(args, gw.metrics, gw.timeline_sample)
+    if sampler is not None:
+        # Attached: Gateway.close() stops the sampler before the workers.
+        gw.attach_sampler(sampler)
+        gw.attach_slo(None, timeline)
+    try:
+        if args.resume:
+            try:
+                snap = load_snapshot(args.snapshot_dir)
+            except (OSError, ValueError) as e:
+                print(f"error: cannot load snapshot: {e}", file=sys.stderr)
+                return 2
+            gw.load_snapshot(snap)
+            for fleet_id in (list(specs) if multi else ["default"]):
+                if fleet_id not in gw.fleet_ids():
+                    print(f"error: trace fleet {fleet_id!r} is not in the snapshot; "
+                          "resume needs the same trace", file=sys.stderr)
+                    return 2
+        elif multi:
+            for fleet_id, spec in specs.items():
+                gw.register_fleet(fleet_id, make_fleet_from_spec(fleet_id, spec), model)
+        else:
+            if args.synthetic_fleet > 0:
+                devices = make_synthetic_fleet(args.synthetic_fleet, seed=args.fleet_seed)
+            else:
+                devices, model = load_from_profile_folder(folder)
+            gw.register_fleet("default", devices, model)
+
+        # Resume cursor: skip the per-fleet prefix the snapshot already
+        # covers (Gateway.uncovered owns the contract).
+        run_items = gw.uncovered(items)
+
+        def log_event(fleet_id, ev, view, ms):
+            if args.quiet:
+                return
+            r = view.result
+            print(
+                f"[{fleet_id} {view.fleet_seq:4d}] {ev.kind:<10s} "
+                f"M={len(r.w):2d} mode={view.mode:<6s} "
+                f"certified={str(r.certified):<5s} k={r.k:<3d} "
+                f"obj={r.obj_value:.6f} {ms:8.1f} ms"
+            )
+
+        chaos = None
+        snapshot_taken = False
+        final_views = {}
+        if plan is not None:
+            from ..sched import chaos_replay
+
+            facade = ShardFacade(gw, "default")
+            chaos = chaos_replay(
+                facade, [ev for _, ev in run_items], plan,
+                on_event=lambda ev, view, ms: log_event("default", ev, view, ms),
+                # Process-channel faults (child_kill / rpc_torn / rpc_delay)
+                # aim at whichever worker currently owns the fleet's shard.
+                process_hook=gw.chaos_process_hook("default") if args.supervise else None,
+                recovery_probe=gw.recovery_status if args.supervise else None,
+            )
+            replay_summary = _chaos_to_replay_report(chaos, facade).summary()
+            if chaos.views:
+                final_views["default"] = chaos.views[-1]
+        else:
+            lat = []
+            uncert = 0
+            t_start = _time.perf_counter()
+            for handled, (fleet_id, ev) in enumerate(run_items, 1):
+                t0 = _time.perf_counter()
+                view = gw.handle_event(fleet_id, ev)
+                ms = (_time.perf_counter() - t0) * 1e3
+                lat.append(ms)
+                final_views[fleet_id] = view
+                if (ev.kind in STRUCTURAL_KINDS and view.events_behind == 0
+                        and not view.result.certified):
+                    uncert += 1
+                log_event(fleet_id, ev, view, ms)
+                if args.snapshot_at is not None and handled == args.snapshot_at:
+                    save_snapshot(gw.snapshot(), args.snapshot_dir)
+                    snapshot_taken = True
+                    if not args.quiet:
+                        print(f"[snapshot] {len(gw.fleet_ids())} shard(s) -> "
+                              f"{args.snapshot_dir} after {handled} event(s)")
+                    if args.halt_after_snapshot:
+                        break
+            total_s = _time.perf_counter() - t_start
+            srt = sorted(lat)
+            replay_summary = {
+                "events": len(lat),
+                "events_per_sec": round(len(lat) / total_s, 2) if total_s > 0 else 0.0,
+                "p50_ms": round(_quantile(srt, 0.50), 3),
+                "p99_ms": round(_quantile(srt, 0.99), 3),
+                "structural_uncertified": uncert,
+            }
+
+        mx = gw.metrics_snapshot()
+        totals = mx["shard_totals"]
+        replay_summary["failed_ticks"] = totals.get("tick_failed", 0)
+        summary = {
+            "replay": replay_summary,
+            "gateway": {
+                "workers": args.workers,
+                "fleets": len(gw.fleet_ids()),
+                "resumed": bool(args.resume),
+                "snapshot_taken": snapshot_taken,
+                "warm_resumes": totals.get("warm_resumes", 0),
+                "cold_resumes": totals.get("cold_resumes", 0),
+                "tick_cold": totals.get("tick_cold", 0),
+                "tick_warm": totals.get("tick_warm", 0),
+                "tick_margin": totals.get("tick_margin", 0),
+                "events_quarantined": totals.get("events_quarantined", 0),
+            },
+            "final_placements": {
+                f: {"k": v.result.k, "w": v.result.w, "n": v.result.n, "y": v.result.y,
+                    "obj_value": v.result.obj_value, "certified": v.result.certified}
+                for f, v in sorted(final_views.items())
+            },
+            "health": gw.healthz(),
+            "metrics": mx,
+        }
+        if args.max_queue_depth is not None or args.coalesce or args.degrade_depth is not None:
+            summary["gateway"]["events_shed"] = mx["counters"].get("events_shed", 0)
+            summary["gateway"]["events_coalesced"] = totals.get("events_coalesced", 0)
+            summary["gateway"]["spec_near_hits"] = totals.get("spec_near_hit", 0)
+        if args.worker_backend == "process":
+            # Each child: its start (spawn to first ping) per generation and
+            # the nvcc runs it reported (0: it loaded the parent's kernels).
+            summary["gateway"]["process_workers"] = [
+                w.child_report() for w in gw.live_workers()
+            ]
+        if not multi:
+            summary["drift_warm_share"] = round(
+                drift_warm_share(ShardFacade(gw, "default").metrics), 4)
+        if args.speculate:
+            s_hits = totals.get("spec_hit", 0)
+            s_probes = s_hits + totals.get("spec_miss", 0)
+            summary["speculation"] = {
+                "hits": s_hits, "misses": totals.get("spec_miss", 0),
+                "presolved": totals.get("spec_presolve", 0),
+                "presolve_failed": totals.get("spec_presolve_failed", 0),
+                "stale": totals.get("spec_stale", 0),
+                "hit_rate": round(s_hits / s_probes, 4) if s_probes else 0.0,
+            }
+        chaos_L = None
+        if chaos is not None:
+            # Proxy-safe L read: on the process backend the shard scheduler
+            # is a SchedulerProxy; the facade rebuilds the fleet view.
+            fl = getattr(ShardFacade(gw, "default"), "fleet", None)
+            chaos_L = getattr(getattr(fl, "model", None), "L", None)
+            summary["chaos"] = chaos.summary()
+            if flight is not None and chaos.violations(chaos_L):
+                if flight.trigger("default", "chaos_violation") is not None:
+                    gw.metrics.inc("flight_dumps")
+        if args.supervise:
+            # The supervision audit rides the report even without chaos.
+            summary["recovery"] = gw.recovery_status()
+        if sampler is not None:
+            summary["slo"] = _timeline_summary(args, timeline, sampler)
+        if writer is not None or flight is not None:
+            summary["obs"] = _obs_summary(writer, flight)
+        print(json.dumps(summary))
+        if args.metrics_out:
+            Path(args.metrics_out).write_text(json.dumps(summary, indent=2))
+
+        if args.worker_backend == "process" and not args.quiet:
+            for rep in summary["gateway"]["process_workers"]:
+                print(f"process worker {rep['worker']}: child start ms {rep['start_ms']}, "
+                      f"nvcc runs by generation {rep['nvcc_runs']}")
+        if args.chaos_check:
+            violations = chaos.violations(chaos_L)
+            if violations:
+                for v in violations:
+                    print(f"chaos violation: {v}", file=sys.stderr)
+                return 1
+            ok_line = (
+                f"chaos soak OK ({args.workers} workers): "
+                f"{chaos.injected.get('injected_total', 0)} fault(s) "
+                f"injected, {chaos.summary()['quarantined']} quarantined, "
+                f"healthy after {chaos.ticks_to_healthy} clean tick(s)"
+            )
+            if chaos.recovery is not None:
+                rec = chaos.recovery
+                ok_line += (
+                    f"; crash contract OK: {rec.get('worker_crashes', 0)} "
+                    f"crash(es), {rec.get('child_respawns', 0)} "
+                    f"respawn(s), {rec.get('workers_quarantined', 0)} "
+                    f"quarantined, events_lost={rec.get('events_lost', 0)}, "
+                    f"replayed={rec.get('events_replayed', 0)}"
+                )
+            print(ok_line)
+        if args.fail_uncertified and (replay_summary.get("structural_uncertified")
+                                      or replay_summary["failed_ticks"]):
+            print(
+                f"error: {replay_summary.get('structural_uncertified', 0)} "
+                "structural event(s) missed the optimality certificate, "
+                f"{replay_summary['failed_ticks']} tick(s) produced no "
+                "placement at all",
+                file=sys.stderr,
+            )
+            return 1
+        if args.listen:
+            return _listen_forever(gw, args.listen, quiet=args.quiet)
+        return 0
+    finally:
+        gw.close()
+        if tracer is not None:
+            tracer.close()  # flush the span JSONL
+
+
+def _listen_forever(gw, listen: str, quiet: bool = False) -> int:
+    """Serve the gateway's HTTP API until interrupted (serve --listen)."""
+    import asyncio
+
+    from ..gateway import GatewayHTTPServer
+
+    host, _, port_s = listen.rpartition(":")
+    host = host or "127.0.0.1"
+    try:
+        port = int(port_s)
+    except ValueError:
+        print(f"error: --listen wants HOST:PORT (got {listen!r})", file=sys.stderr)
+        return 2
+
+    async def _run() -> None:
+        server = GatewayHTTPServer(gw, host=host, port=port)
+        await server.start()
+        if not quiet:
+            print(
+                f"gateway listening on http://{host}:{server.port} "
+                "(POST /events, GET /placement/<fleet>, /healthz, /metrics)",
+                flush=True,
+            )
+        await server.serve_forever()
+
+    try:
+        asyncio.run(_run())
+    except KeyboardInterrupt:
+        pass
     return 0
 
 

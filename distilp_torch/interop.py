@@ -8,7 +8,8 @@ a ``RoundingData``, a ``SearchState``, or the ``ipm_state`` dict of a
 So a test can feed one input to both packages, and a warm result from one
 package can seed the other. :func:`scheduler_state_from_jax` carries a
 whole scheduler's state (fleet, published placement, breaker, warm pool,
-speculation bank) across. Nothing here imports JAX.
+speculation bank) across, and :func:`gateway_snapshot_from_jax` a whole
+gateway's, shard by shard. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -113,3 +114,26 @@ def scheduler_state_from_jax(state: dict) -> dict:
         ]
         out["spec"] = {**spec, "bank": bank}
     return out
+
+
+def gateway_snapshot_from_jax(snap):
+    """The port's ``GatewaySnapshot`` from a JAX-package gateway snapshot:
+    its JSON text, the parsed dict, or anything with ``model_dump()``.
+
+    Each shard keeps its fleet id, model id, shard key and resume cursor;
+    its scheduler state goes through :func:`scheduler_state_from_jax`, so
+    the port's ``Gateway.load_snapshot`` restores every shard warm and the
+    next tick of each counts under ``warm_resumes``."""
+    import json
+
+    from .gateway.snapshot import SNAPSHOT_VERSION, GatewaySnapshot
+
+    if isinstance(snap, (str, bytes)):
+        snap = json.loads(snap)
+    elif hasattr(snap, "model_dump"):
+        snap = snap.model_dump()
+    if snap.get("version") != SNAPSHOT_VERSION:
+        raise ValueError(f"unknown gateway snapshot version {snap.get('version')!r}")
+    shards = [{**sh, "state": scheduler_state_from_jax(sh["state"])}
+              for sh in snap.get("shards", [])]
+    return GatewaySnapshot.model_validate({**snap, "shards": shards})

@@ -202,7 +202,9 @@ def _nvcc() -> str:
     )
 
 
-def _compile(nvcc: str, name: str, out_dir: Path) -> Path:
+def _compile(nvcc: str, name: str, out_dir: Path) -> tuple:
+    """(library path, whether nvcc ran for it): a library whose hash is
+    already in ``out_dir`` is reused."""
     src, extra = SOURCES[name]
     h = hashlib.sha256()
     for f in (src, *HEADERS):
@@ -210,7 +212,7 @@ def _compile(nvcc: str, name: str, out_dir: Path) -> Path:
     h.update(" ".join(ARCH + BASE_FLAGS + extra).encode())
     lib = out_dir / f"lib{name}_{h.hexdigest()[:16]}.so"
     if lib.exists():
-        return lib
+        return lib, False
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
         [nvcc, *ARCH, *BASE_FLAGS, *extra, "-o", str(tmp), str(CSRC / src)],
@@ -223,7 +225,7 @@ def _compile(nvcc: str, name: str, out_dir: Path) -> Path:
             f"{proc.stderr[-6000:]}"
         )
     os.replace(tmp, lib)
-    return lib
+    return lib, True
 
 
 def load_all() -> Dict[str, ctypes.CDLL]:
@@ -236,10 +238,14 @@ def load_all() -> Dict[str, ctypes.CDLL]:
         nvcc = _nvcc()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:
-            paths = dict(
+            built = dict(
                 zip(SOURCES, ex.map(lambda n: _compile(nvcc, n, out_dir), SOURCES))
             )
+        paths = {name: path for name, (path, _) in built.items()}
         BUILD_STATS["build_s"] = time.perf_counter() - t0
+        # nvcc runs of this process (0 when every library was in the cache:
+        # a gateway's worker process reuses what its parent built).
+        BUILD_STATS["nvcc_runs"] = sum(ran for _, ran in built.values())
         for name, path in paths.items():
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in SIGNATURES[name].items():

@@ -689,8 +689,11 @@ class Scheduler:
                     return None, view
                 t0 = time.perf_counter()
                 try:
+                    # This shard's k grid, as its per-shard tick solves it
+                    # (the reference packs every factor of L here).
                     prep = planner.prepare(
-                        self.fleet.device_list(), self.fleet.model, M_pad=M_pad
+                        self.fleet.device_list(), self.fleet.model,
+                        k_candidates=self.k_candidates, M_pad=M_pad,
                     )
                 except (RuntimeError, ValueError, NotImplementedError) as e:
                     self.metrics.inc("tick_failed")

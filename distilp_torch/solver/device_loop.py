@@ -159,8 +159,18 @@ def plan_sig(dev, L, cap, n_k, beam, m, nf, M, per_k, ipm_iters, ipm_warm_iters,
     )
 
 
-# Graph captures by signature (a plan captures its graph once).
+# Graph captures by signature (a plan captures its graph once), and plans
+# built by signature (on the CPU too, where nothing is captured).
 CAPTURES: Dict[PlanSig, int] = {}
+PLANS_BUILT: Dict[PlanSig, int] = {}
+# One process-wide turn at the card's graph work: a plan's capture and
+# instantiation, its launch and the read of its answer. Two threads
+# instantiating graphs with a conditional WHILE node at once deadlocked on
+# the H100 (both inside cudaGraphInstantiate, the card idle),
+# so a gateway's worker threads and its combiner take turns here; their host
+# work (instance build, packing) still overlaps, and their launches were
+# serialized on the one legacy stream anyway.
+_GRAPH_LOCK = threading.Lock()
 
 _STATE_FIELDS = SearchState._fields
 # The round tail's state inputs, in its pointer table's order.
@@ -393,7 +403,7 @@ class LoopPlan:
         from ..kernels.build import library
 
         lib = library("bnb_loop")
-        with _on_device(self.dev):
+        with _GRAPH_LOCK, _on_device(self.dev):
             self.load_static(entry)
             if not self.graph.value:
                 self._capture(entry)
@@ -674,14 +684,38 @@ def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
 
 
 _PLANS: "OrderedDict[PlanSig, list]" = OrderedDict()
+# The LRU holds this many signatures besides the pinned ones.
 _PLANS_CAP = 16
 _PLANS_LOCK = threading.Lock()
+# Signatures whose plans the LRU never evicts (see pinning_plans).
+_PINNED: set = set()
+_PIN = threading.local()
+
+
+@contextlib.contextmanager
+def pinning_plans():
+    """Pin every plan acquired on this thread inside the block.
+
+    The gateway's ``warm_combine`` solves each batch shape its committed
+    bucket policy can reach inside this block: the plans (and on the card
+    their captured graphs) of that finite set then survive whatever else
+    the process solves, so the serving phase captures no graph. Pinned
+    signatures do not count against the LRU's cap."""
+    prev = getattr(_PIN, "on", False)
+    _PIN.on = True
+    try:
+        yield
+    finally:
+        _PIN.on = prev
 
 
 def acquire_plan(sig: PlanSig) -> LoopPlan:
     """A free plan of ``sig`` (built on first use), marked busy until
     :func:`release_plan`."""
+    pin = getattr(_PIN, "on", False)
     with _PLANS_LOCK:
+        if pin:
+            _PINNED.add(sig)
         plans = _PLANS.get(sig)
         if plans is not None:
             _PLANS.move_to_end(sig)
@@ -692,11 +726,12 @@ def acquire_plan(sig: PlanSig) -> LoopPlan:
     plan = LoopPlan(sig)
     plan.busy = True
     with _PLANS_LOCK:
+        PLANS_BUILT[sig] = PLANS_BUILT.get(sig, 0) + 1
         _PLANS.setdefault(sig, []).append(plan)
         _PLANS.move_to_end(sig)
-        while len(_PLANS) > _PLANS_CAP:
-            old, plans = next(iter(_PLANS.items()))
-            if any(p.busy for p in plans):
+        while sum(1 for s in _PLANS if s not in _PINNED) > _PLANS_CAP:
+            old = next(s for s in _PLANS if s not in _PINNED)
+            if any(p.busy for p in _PLANS[old]):
                 break
             del _PLANS[old]
     return plan
@@ -714,3 +749,4 @@ def clear_plans() -> None:
             _PLANS[sig] = [p for p in _PLANS[sig] if p.busy]
             if not _PLANS[sig]:
                 del _PLANS[sig]
+        _PINNED.intersection_update(_PLANS)

@@ -17,8 +17,10 @@ on the CPU (``--device cpu``, ``--backend cpu``), against the JAX package's.
   ``make smoke-chaos`` to its contract and prints the reference's summary
   schema (the same replay, health and chaos blocks); ``spans`` converts its
   span JSONL into the Chrome JSON the JAX CLI writes, byte for byte; every
-  gateway, SLO and ledger flag of ``serve`` and a fleet-tagged trace exit 2
-  naming A12b, A12c or A14b.
+  SLO and ledger flag of ``serve`` exits 2 naming A12c or A14b, and every
+  gateway flag and a fleet-tagged trace route ``serve`` through the gateway
+  tier (its runs are ``tests/test_torch_gateway.py``'s), which refuses a
+  fault plan over a fleet-tagged trace.
 - ``--mesh-shards 4`` (the CLI declares its virtual mesh itself) certifies
   the online golden as the JAX CLI's ``smoke-shard`` does, and
   ``--mesh-shards 1`` prints the plain run's output byte for byte;
@@ -379,17 +381,39 @@ def test_serve_plain_summary_and_errors(capsys, tmp_path):
     (["--memory-out", "m.jsonl"], "A14b"), (["--memory-budget-mb", "100"], "A14b"),
     (["--mem-degrade-headroom-mb", "10"], "A14b"),
 ], ids=lambda v: v[0] if isinstance(v, list) else v)
-def test_serve_later_slice_flags_exit_2(capsys, flags, item):
-    rc, _, err = _run(solver_cli.main, ["serve", "--trace",
-                                        "tests/traces/scheduler_smoke_20.jsonl", "-p", ONLINE,
-                                        "--device", "cpu", *flags], capsys)
+def test_serve_later_slice_flags_exit_2(capsys, monkeypatch, flags, item):
+    argv = ["serve", "--trace", "tests/traces/scheduler_smoke_20.jsonl", "-p", ONLINE,
+            "--device", "cpu", *flags]
+    if item == "A12b":
+        # The gateway tier is part of the port now: each of its flags is
+        # accepted, and with --workers 2 (the flags that take effect only
+        # in the gateway) serve goes through the gateway path with it set.
+        seen = []
+        monkeypatch.setattr(solver_cli, "_serve_gateway", lambda a: seen.append(a) or 0)
+        rc, _, err = _run(solver_cli.main, [*argv, "--workers", "2"], capsys)
+        assert rc == 0 and "ROADMAP" not in err and len(seen) == 1
+        name = flags[0][2:].replace("-", "_")
+        want = True if len(flags) == 1 else type(getattr(seen[0], name))(flags[1])
+        assert getattr(seen[0], name) == want
+        return
+    rc, _, err = _run(solver_cli.main, argv, capsys)
     assert rc == 2 and f"serve {flags[0]}" in err and f"ROADMAP.md {item}" in err
 
 
-def test_serve_refuses_a_fleet_tagged_trace(capsys):
-    rc, _, err = _run(solver_cli.main, ["serve", "--trace", "tests/traces/gateway_smoke_10f.jsonl",
-                                        "-p", ONLINE, "--device", "cpu"], capsys)
-    assert rc == 2 and "fleet-tagged" in err and "A12b" in err
+def test_serve_refuses_a_fleet_tagged_trace(capsys, monkeypatch):
+    argv = ["serve", "--trace", "tests/traces/gateway_smoke_10f.jsonl", "-p", ONLINE,
+            "--device", "cpu"]
+    # A fleet-tagged trace is served by the gateway tier ...
+    seen = []
+    monkeypatch.setattr(solver_cli, "_serve_gateway", lambda a: seen.append(a) or 0)
+    rc, _, err = _run(solver_cli.main, argv, capsys)
+    assert rc == 0 and len(seen) == 1 and seen[0].workers == 1
+    monkeypatch.undo()
+    # ... which refuses a fault plan over it (the plan's ticks are one
+    # fleet's).
+    rc, _, err = _run(solver_cli.main, [*argv, "--fault-plan", "tests/traces/chaos_plan.json"],
+                      capsys)
+    assert rc == 2 and "single-fleet trace" in err
 
 
 def test_serve_default_device_needs_a_gpu(capsys, monkeypatch):

@@ -25,6 +25,12 @@
   import neither torch nor numpy), the fleet-tagged trace reader
   (``gateway/traces.py``) and the k-curve plotter; a chaos ``serve`` and a
   ``spans`` conversion run in a process that never loads JAX.
+- So are the gateway tier (``distilp_torch/gateway``), the cross-shard
+  combiner (``distilp_torch/combine``), the memory model
+  (``ops/memmodel.py``) and the process workers' test stub
+  (``tests/torch_procstub.py``); the gateway, the combiner and the load
+  generator raise without a GPU unless the caller asks for the CPU, and a
+  ``serve --workers 2`` runs in a process that never loads JAX.
 """
 
 import ast
@@ -45,7 +51,7 @@ def _port_files():
     assert files, "distilp_torch has no modules"
     # chip_smoke.py and the test helpers it imports.
     return files + [REPO / "chip_smoke.py", REPO / "tests" / "torch_price_edits.py",
-                    REPO / "tests" / "torch_lanes.py"]
+                    REPO / "tests" / "torch_lanes.py", REPO / "tests" / "torch_procstub.py"]
 
 
 def _imported_roots(path: Path):
@@ -383,3 +389,61 @@ def test_the_scheduler_and_tracing_copies_are_checked_and_serve_without_jax(tmp_
                                "HOME": str(tmp_path)})
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
     assert "chaos soak OK: 9 fault(s) injected, 4 quarantined" in proc.stdout
+
+
+GATEWAY_MODULES = ("__init__", "router", "snapshot", "worker", "recovery", "procworker",
+                   "gateway", "http", "loadgen", "traces")
+
+
+def test_the_gateway_and_combiner_are_checked_and_serve_without_jax(tmp_path, monkeypatch):
+    import subprocess
+    import sys
+
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in GATEWAY_MODULES:
+        assert f"distilp_torch/gateway/{name}.py" in files
+    for rel in ("combine/__init__.py", "combine/policy.py", "combine/combiner.py",
+                "ops/memmodel.py"):
+        assert f"distilp_torch/{rel}" in files
+    assert "tests/torch_procstub.py" in files
+    roots = {mod for _, mod in _imported_roots(REPO / "distilp_torch" / "ops" / "memmodel.py")}
+    assert not roots & {"torch", "numpy", *FORBIDDEN}, roots
+    for name in GATEWAY_MODULES:
+        importlib.import_module(f"distilp_torch.gateway.{name}")
+    importlib.import_module("distilp_torch.combine")
+
+    from distilp_torch import gateway
+    from distilp_torch.combine import SolveCombiner
+    from distilp_torch.common import load_model_profile
+
+    model = load_model_profile(REPO / "tests/profiles/llama_3_70b/online/model_profile.json")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: gateway.Gateway(n_workers=2), lambda: SolveCombiner(),
+                 lambda: gateway.run_loadgen(model, n_fleets=1, n_workers=1),
+                 lambda: gateway.Gateway(n_workers=1, worker_backend="process",
+                                         scheduler_factory="tests.torch_procstub:make_scheduler")):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            make()
+    gateway.Gateway(n_workers=2, device="cpu").close()
+    SolveCombiner(device="cpu").stop()
+    monkeypatch.undo()
+
+    script = (
+        "import sys\n"
+        "from distilp_torch.cli import solver_cli\n"
+        "args = ['serve', '--trace', 'tests/traces/gateway_smoke_10f.jsonl', '-p',\n"
+        "        'tests/profiles/llama_3_70b/online', '--workers', '2', '--k-candidates',\n"
+        "        '8,10', '--device', 'cpu', '--quiet', '--fail-uncertified', '--coalesce']\n"
+        "assert solver_cli.main(args) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "    'distilp_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'distilp_torch.gateway.gateway' in sys.modules\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=600,
+                          env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
+                               "HOME": str(tmp_path)})
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+    assert '"fleets": 10' in proc.stdout
