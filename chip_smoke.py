@@ -1680,6 +1680,321 @@ def gateway_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------- traffic (path m)
+
+# The JAX package's Makefile smokes of open-loop traffic, SLO alerting and
+# the autoscaler (smoke-overload, smoke-slo, smoke-autoscale) and of the
+# compile and memory ledgers (smoke-compile, smoke-memory) through the
+# port's CLI: the committed diurnal+burst capture (6 fleets of 3 devices),
+# Llama-3-70B online, k in {8, 10}, its 60 s schedule replayed in 60 ms.
+OVERLOAD = ["overload", "--trace", "tests/traces/openloop_diurnal_burst.jsonl", "--profile",
+            "tests/profiles/llama_3_70b/online", "--k-candidates", "8,10", "--time-scale",
+            "0.001", "--quiet"]
+SLO_OFFLINE = ["slo", "--spec", "tests/traces/slo_overload_spec.json", "--timeline",
+               "tests/traces/slo_timeline_overload.jsonl", "--step-s", "0.1", "--expect",
+               "tests/traces/slo_expected_alerts.json", "--check", "--quiet"]
+AUTOSCALE_OFFLINE = ["autoscale", "--timeline", "tests/traces/slo_timeline_overload.jsonl",
+                     "--policy", "tests/traces/control_policy.json", "--spec",
+                     "tests/traces/slo_overload_spec.json", "--step-s", "0.5", "--expect",
+                     "tests/traces/control_expected_actions.jsonl", "--check", "--quiet"]
+TRAFFIC_KERNELS = ("ipm", "round_tail", "bnb_graph", "bnb_seed", "bnb_head", "bnb_control",
+                   "bnb_answer")
+# The whole path gets this long (the gateway path's watchdog, below).
+TRAFFIC_LIMIT_S = 300
+
+
+def cli_main(argv: list):
+    """``solver_cli.main(argv)`` in this process: (exit code, stdout,
+    stderr, wall s); no interpreter start is paid."""
+    import contextlib
+    import io
+
+    from distilp_torch.cli import solver_cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = solver_cli.main(argv)
+    wall = time.perf_counter() - t
+    print(f"$ solver_cli {' '.join(argv[:1])} ... -> exit {rc} in {wall:.1f} s", flush=True)
+    return rc, out.getvalue(), err.getvalue(), wall
+
+
+def overload_arm(tmp: Path, name: str, extra: list) -> dict:
+    """One live ``overload`` arm in this process; its report."""
+    out = tmp / f"overload_{name}.json"
+    rc, _, err, wall = cli_main(OVERLOAD + extra + ["--metrics-out", str(out)])
+    rep = _summary_file(out)
+    if rc != 0:
+        fail(f"traffic overload {name}: exit {rc} {err[-3000:]} slo "
+             f"{json.dumps(rep.get('slo', {}).get('events'))} control "
+             f"{json.dumps(rep.get('control', {}).get('actions'))}")
+    rep["_wall_s"] = wall
+    return rep
+
+
+def overload_line(rep: dict) -> dict:
+    keys = ("offered", "served", "shed", "events_shed", "events_coalesced", "failed",
+            "invalid", "p50_ms", "p99_ms", "p999_ms", "max_ms", "dispatch_p99_late_ms",
+            "max_queue_depth_seen", "goodput_eps", "wall_s", "_wall_s")
+    line = {k: rep.get(k) for k in keys}
+    line["shed_violations"] = rep.get("shed_violations")
+    return line
+
+
+def alert_times(timeline_path: Path, events: list) -> dict:
+    """Each alert transition's time after the shed onset (the first point of
+    ``openloop.sheds``) and after the flood drained (the last event's)."""
+    from distilp_torch.obs import Timeline
+
+    tl = Timeline.load(timeline_path)
+    sheds = tl.series("openloop.sheds")
+    done = [t for n in ("openloop.sheds", "openloop.latency_ms") for t, _ in tl.series(n)]
+    onset, drained = (sheds[0][0] if sheds else None), (max(done) if done else None)
+    return [{"severity": e["severity"], "state": e["state"],
+             "after_shed_onset_s": None if onset is None else e["t"] - onset,
+             "after_drain_s": None if drained is None else e["t"] - drained} for e in events]
+
+
+def ledger_serve(tmp: Path) -> dict:
+    """(d) and (e): smoke-compile's and smoke-memory's ``serve`` in a child
+    process (its libraries come from the build cache; its graphs are
+    captured fresh) with both ledgers on."""
+    launches: dict = {}
+    ledger, mem, summary = tmp / "ledger.jsonl", tmp / "memory.jsonl", tmp / "serve.json"
+    rc, _, err, wall = run_cli("distilp_torch.cli.solver_cli", GATEWAY_SMOKE + [
+        "--compile-ledger-out", str(ledger), "--memory-out", str(mem),
+        "--metrics-out", str(summary)], launches)
+    if rc != 0:
+        return {"error": f"ledger serve: exit {rc} {err[-3000:]}"}
+    return {"summary": _summary_file(summary), "paths": {"compiles": ledger, "memory": mem},
+            "launches": launches, "wall_s": wall, "error": None}
+
+
+def ledger_reports(res: dict) -> dict:
+    """``compiles --load --check`` and ``memory --load --check`` twice each
+    in this process: both pass and render the same bytes each time."""
+    reports = {}
+    for sub, path in res["paths"].items():
+        outs = []
+        for _ in range(2):
+            rc, out, err, _ = cli_main([sub, "--load", str(path), "--check"])
+            if rc != 0:
+                fail(f"traffic {sub} --load --check: exit {rc} {err[-2000:]} {out[-2000:]}")
+            outs.append(out)
+        if outs[0] != outs[1]:
+            fail(f"traffic {sub} --load rendered different bytes on a second replay")
+        reports[sub] = outs[0]
+    return reports
+
+
+def compile_line(res: dict) -> dict:
+    """The child's compile ledger: cold events by (entry, cause) with their
+    ms, and what the warm phase paid."""
+    from distilp_torch.obs.compile_ledger import BUILD_ENTRY, UNREGISTERED, ledger_from_jsonl
+
+    c = res["summary"].get("compile", {})
+    dump = ledger_from_jsonl(res["paths"]["compiles"].read_text())
+    by: dict = {}
+    for e in dump["events"]:
+        key = f"{e['entry']} {e['cause']}"
+        n, ms = by.get(key, (0, 0.0))
+        by[key] = (n + 1, ms + e["compile_ms"])
+    captures = [e for e in dump["events"] if e["entry"] != BUILD_ENTRY]
+    return {
+        "events": len(dump["events"]), "by_entry_cause": {k: {"n": n, "ms": round(ms, 3)}
+                                                          for k, (n, ms) in sorted(by.items())},
+        "loads": sum(e["entry"] == BUILD_ENTRY for e in dump["events"]),
+        "nvcc_runs": sum(e["entry"] == BUILD_ENTRY and e["cache"] == "miss"
+                         for e in dump["events"]),
+        "captures": len(captures), "capture_ms": round(sum(e["compile_ms"] for e in captures), 3),
+        "unregistered_captures": sum(e["entry"] == UNREGISTERED for e in captures),
+        "warm_boundary_marked": c.get("warm_boundary_marked"),
+        "warm_phase_compiles": c.get("warm_phase_compiles"),
+        "storms": c.get("counters", {}).get("recompile_storms"),
+    }
+
+
+def memory_line(res: dict) -> dict:
+    m = res["summary"].get("memory", {})
+    entries = {name: {k: (e.get("memory") or {}).get(k) for k in ("peak_bytes",
+                                                                   "reserved_bytes",
+                                                                   "argument_bytes",
+                                                                   "output_bytes")}
+               | {"dispatches": e.get("dispatches")}
+               for name, e in m.get("entries", {}).items() if e.get("memory")}
+    return {"leak": m.get("leak"), "watermarks": m.get("watermarks"), "entries": entries}
+
+
+def memory_model_ratios() -> dict:
+    """A solve's peak allocation on the card (its first dispatch under a
+    fresh memory ledger, the plan and static caches emptied first) over
+    ``ops/memmodel.py``'s analytic peak, at the north star on the IPM and at
+    the 128-device fleet on the PDHG."""
+    import torch
+
+    from distilp_torch.obs import memory
+    from distilp_torch.ops.memmodel import peak_bytes
+    from distilp_torch.solver import device_loop, halda_solve
+    from distilp_torch.solver import packed as PK
+    from distilp_torch.utils import make_synthetic_fleet
+
+    out = {}
+    for name, M, engine, gap in (("north_star", 16, "ipm", SERVE_GAP),
+                                 ("fleet_M128", 128, "pdhg", FLEET128_GAP)):
+        devs, model = make_synthetic_fleet(M, seed=123), online_model(M)
+        device_loop.clear_plans()
+        PK.clear_static_cache()
+        torch.cuda.synchronize()
+        led = memory.enable(memory.MemoryLedger())
+        tm: dict = {}
+        try:
+            r = halda_solve(devs, model, mip_gap=gap, kv_bits="4bit", timings=tm)
+        finally:
+            memory.disable()
+        m = (led.analyses.get("solver.solve_sweep") or {}).get("memory") or {}
+        plan = (led.analyses.get(memory.PLAN_ENTRY) or {}).get("memory") or {}
+        model_b = peak_bytes(M, engine)
+        out[name] = {"M": M, "engine": tm.get("lp_backend"), "certified": r.certified,
+                     "measured_peak_bytes": m.get("peak_bytes"),
+                     "measured_reserved_bytes": m.get("reserved_bytes"),
+                     "plan_bytes": plan.get("peak_bytes"), "analytic_bytes": model_b,
+                     "ratio": (m["peak_bytes"] / model_b) if m.get("peak_bytes") else None}
+        if tm.get("lp_backend") != engine or not m.get("peak_bytes") or not r.certified:
+            fail(f"traffic memory model {name}: {out[name]}")
+    return out
+
+
+def traffic_path() -> dict:
+    """Open-loop traffic, SLO alerting, the autoscaler and the compile and
+    memory ledgers on the card (path m): smoke-overload's two arms,
+    smoke-slo's and smoke-autoscale's live halves in this process (their
+    offline halves too), then smoke-compile's and smoke-memory's ``serve``
+    in a child process beside the live autoscale (whose children host the
+    solver-free stub), then the memory model's ratio at two sizes."""
+    import os
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distilp_torch import kernels
+    from distilp_torch.solver import packed as PK
+
+    def overdue():
+        import faulthandler
+
+        print(f"chip_smoke FAILED: the traffic path ran past {TRAFFIC_LIMIT_S} s; "
+              f"utilization {gpu_utilization()}; every thread:", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        sys.stderr.flush()
+        os._exit(1)
+
+    watchdog = threading.Timer(TRAFFIC_LIMIT_S, overdue)
+    watchdog.daemon = True
+    watchdog.start()
+    smi = smi_line()
+    t_path = time.perf_counter()
+    kernels.reset_launch_counts()
+    PK.reset_counts()
+    child: dict = {}
+    with tempfile.TemporaryDirectory(prefix="distilp_traffic_") as tmp:
+        tmp = Path(tmp)
+        # (a) smoke-overload: a depth-2 gate sheds, reconciled record by
+        # record; a depth-64 gate with coalescing folds and sheds nothing.
+        shed = overload_arm(tmp, "depth2", ["--workers", "2", "--max-queue-depth", "2",
+                                            "--check", "--expect-sheds"])
+        print(f"traffic overload depth2 [{smi}] {json.dumps(overload_line(shed))}", flush=True)
+        fold = overload_arm(tmp, "coalesce", ["--workers", "2", "--max-queue-depth", "64",
+                                              "--coalesce", "--check", "--expect-coalesced",
+                                              "--expect-no-sheds"])
+        print(f"traffic overload coalesce [{smi}] {json.dumps(overload_line(fold))}",
+              flush=True)
+        # (b) smoke-slo: the committed timeline reproduces the committed
+        # alerts; live, the page alert opens at the shed onset and closes
+        # in the settle window.
+        rc, _, err, wall = cli_main(SLO_OFFLINE)
+        print(f"traffic slo offline: exit {rc} in {wall:.2f} s", flush=True)
+        if rc != 0:
+            fail(f"traffic slo offline: {err[-2000:]}")
+        live = overload_arm(tmp, "slo", [
+            "--workers", "2", "--max-queue-depth", "2", "--check", "--expect-sheds",
+            "--slo", "tests/traces/slo_live_spec.json", "--settle-s", "3",
+            "--expect-alert", "page", "--timeline-out", str(tmp / "slo_timeline.jsonl")])
+        events = live.get("slo", {}).get("events", [])
+        line = {"alerts": alert_times(tmp / "slo_timeline.jsonl", events),
+                "opened": live["slo"].get("alerts_opened"),
+                "closed": live["slo"].get("alerts_closed"), **overload_line(live)}
+        print(f"traffic slo live [{smi}] {json.dumps(line)}", flush=True)
+        # (c) smoke-autoscale: the offline replay reproduces the committed
+        # actions byte for byte; live, one process worker hosting the stub
+        # scales to two. (d), (e) beside it: the ledgers' serve.
+        rc, _, err, wall = cli_main(AUTOSCALE_OFFLINE)
+        print(f"traffic autoscale offline: exit {rc} in {wall:.2f} s", flush=True)
+        if rc != 0:
+            fail(f"traffic autoscale offline: {err[-2000:]}")
+        # The stub's children import it as a top-level module from tests/
+        # (another installed ``tests`` package may shadow the repository's).
+        prev_path = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT / "tests"), prev_path) if p)
+        try:
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                fut = ex.submit(ledger_serve, tmp)
+                scale = overload_arm(tmp, "autoscale", [
+                    "--workers", "1", "--max-queue-depth", "2", "--worker-backend",
+                    "process", "--scheduler-factory", "torch_procstub:make_scheduler",
+                    "--autoscale", "tests/traces/control_live_policy.json", "--slo",
+                    "tests/traces/slo_live_spec.json", "--capacity-probe", "3",
+                    "--control-period-s", "0.05", "--check", "--expect-scale", "2",
+                    "--expect-sheds", "--expect-alert", "page", "--settle-s", "3"])
+                res = fut.result()
+        finally:
+            if prev_path is None:
+                os.environ.pop("PYTHONPATH", None)
+            else:
+                os.environ["PYTHONPATH"] = prev_path
+        ctl = scale.get("control", {})
+        line = {"actions": [(a["kind"], a.get("target_workers")) for a in ctl.get("actions", [])],
+                "workers_final": ctl.get("workers_final"),
+                "violations": ctl.get("violations"),
+                "spawn_to_first_ping_ms": [w["start_ms"] for w in
+                                           scale.get("process_workers", [])],
+                "child_nvcc_runs": [w["nvcc_runs"] for w in scale.get("process_workers", [])],
+                "shed": scale.get("shed"), "wall_s": scale["_wall_s"]}
+        print(f"traffic autoscale live [{smi}] {json.dumps(line)}", flush=True)
+        if res.get("error"):
+            fail(f"traffic ledgers: {res['error']}")
+        for k, v in res["launches"].items():
+            if k == "_shapes":
+                merge_shapes(child.setdefault("_shapes", {}), v)
+            else:
+                child[k] = child.get(k, 0) + v
+        reports = ledger_reports(res)
+        comp = compile_line(res)
+        print(f"traffic compile [{smi}] {json.dumps(comp)} (serve {res['wall_s']:.1f} s)",
+              flush=True)
+        print(reports["compiles"], flush=True)
+        if (comp["warm_phase_compiles"] != 0 or not comp["warm_boundary_marked"]
+                or comp["nvcc_runs"] or comp["unregistered_captures"] or not comp["captures"]
+                or not comp["loads"]):
+            fail(f"traffic compile ledger: {comp}")
+        mem = memory_line(res)
+        print(f"traffic memory [{smi}] {json.dumps(mem)}", flush=True)
+        print(reports["memory"], flush=True)
+        if not mem["leak"] or not mem["leak"]["flat"] or mem["leak"]["growth_bytes"] != 0:
+            fail(f"traffic memory ledger: warm phase not flat: {mem['leak']}")
+    ratios = memory_model_ratios()
+    print(f"traffic memory model [{smi}] {json.dumps(ratios)}", flush=True)
+    watchdog.cancel()
+    launches = path_launches(child)
+    print("traffic path launches", json.dumps(launches), flush=True)
+    print(f"traffic path: {time.perf_counter() - t_path:.1f} s", flush=True)
+    missing = [k for k in TRAFFIC_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"traffic path never launched {missing}")
+    return launches
+
+
 def _as_ilp(r):
     """A HALDAResult as the ILPResult a warm hint is read from."""
     from distilp_torch.solver.api import _warm_to_ilp
@@ -7103,6 +7418,7 @@ def main() -> int:
         paths["packed"] = packed_path(report)
         paths["serve"] = serve_path()
         paths["gateway"] = gateway_path()
+        paths["traffic"] = traffic_path()
     # K7 on the main paths: at most two launches a root bound (the fused
     # ascent and the float64 evaluation), none of the per-step entry.
     per_call = {}

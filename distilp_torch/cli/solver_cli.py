@@ -22,14 +22,22 @@ of its span JSONL into Chrome trace-event JSON:
     python -m distilp_torch.cli.solver_cli serve --trace T -p <folder> [...]
     python -m distilp_torch.cli.solver_cli spans <spans.jsonl | dir> [--stats]
 
+open-loop overload against the gateway's admission control, the SLO
+engine's offline replay, the autoscaler's offline replay, and the compile
+and memory ledgers' reports:
+
+    python -m distilp_torch.cli.solver_cli overload --trace T -p <folder> [...]
+    python -m distilp_torch.cli.solver_cli slo --timeline F --spec S [--expect E]
+    python -m distilp_torch.cli.solver_cli autoscale --timeline F --policy P [...]
+    python -m distilp_torch.cli.solver_cli compiles --load F | --trace T -p <folder>
+    python -m distilp_torch.cli.solver_cli memory --load F | --trace T -p <folder>
+
 ``--backend torch`` (default) runs the branch-and-bound search on
 ``--device`` (default cuda; ``cpu`` runs the kernels' plain versions),
 ``--backend cpu`` the HiGHS oracle. ``--per-k`` certifies every k and prints
 the k-curve; ``--expert-loads`` runs the load-aware routing loop; ``--plot``
-draws the k-objective curve. The twin's Monte-Carlo engine and ``serve``'s
-every solve run on ``--device`` too. Options and subcommands of parts the
-port does not have yet exit with code 2 and name their ROADMAP.md item;
-none is ignored.
+draws the k-objective curve. The twin's Monte-Carlo engine, ``serve``'s and
+``overload``'s every solve run on ``--device`` too.
 """
 
 from __future__ import annotations
@@ -38,15 +46,6 @@ import argparse
 import json
 import sys
 from pathlib import Path
-
-# Subcommands of the JAX package's CLI that wait for later slices.
-DEFERRED_SUBCOMMANDS = {
-    "overload": "A12c (open-loop traffic, control and SLO)",
-    "autoscale": "A12c (open-loop traffic, control and SLO)",
-    "slo": "A12c (open-loop traffic, control and SLO)",
-    "compiles": "A14b (compile and memory ledgers for CUDA)",
-    "memory": "A14b (compile and memory ledgers for CUDA)",
-}
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -478,25 +477,6 @@ def diagnose_main(argv=None) -> int:
 
 # -- serve: the scheduler daemon over a churn trace --------------------------
 
-# Options of ``serve`` that wait for a later slice, by ROADMAP item. Each one
-# that is set exits 2 naming its item; a plain, chaos or gateway ``serve``
-# sets none.
-_SLO = "A12c (open-loop traffic, control and SLO)"
-_LEDGERS = "A14b (compile and memory ledgers for CUDA)"
-# (flag, argparse keywords, value that means "not set", ROADMAP item)
-_DEFERRED_SERVE = (
-    ("--slo", dict(default=None), None, _SLO),
-    ("--capacity-eps", dict(type=float, default=None), None, _SLO),
-    ("--compile-ledger", dict(action="store_true"), False, _LEDGERS),
-    ("--compile-ledger-out", dict(default=None), None, _LEDGERS),
-    ("--compile-warm-events", dict(type=int, default=None), None, _LEDGERS),
-    ("--memory-ledger", dict(action="store_true"), False, _LEDGERS),
-    ("--memory-out", dict(default=None), None, _LEDGERS),
-    ("--memory-budget-mb", dict(type=float, default=None), None, _LEDGERS),
-    ("--mem-degrade-headroom-mb", dict(type=float, default=None), None, _LEDGERS),
-)
-
-
 def build_serve_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m distilp_torch.cli.solver_cli serve",
@@ -634,11 +614,70 @@ def build_serve_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--timeline-period-ms", type=float, default=100.0,
                    help="timeline sampler cadence (ms)")
+    p.add_argument(
+        "--slo", default=None, metavar="SPEC.json",
+        help="attach the SLO engine: a fixed-cadence sampler snapshots the live "
+        "metrics into an in-process timeline and evaluates the spec's "
+        "multi-window burn-rate alert rules on every tick (alert open/close -> "
+        "counters + flight records + sched.alert spans; GET /slo and GET "
+        "/signals serve live status under --listen)",
+    )
+    p.add_argument(
+        "--capacity-eps", type=float, default=None,
+        help="max-sustainable events/sec from a capacity probe (`overload`): "
+        "the /signals payload reports autoscaling headroom against it",
+    )
+    p.add_argument(
+        "--compile-ledger", action="store_true",
+        help="enable the process-wide compile ledger: every kernel-library "
+        "load (an nvcc run or a build-cache hit) and every CUDA-graph capture "
+        "is attributed to its entry point and classified (cold / cache-hit / "
+        "static-arg-flip / shape-bucket-change / recompile), ticks that paid "
+        "one say so on their span + flight record, and the summary grows a "
+        "'compile' block (render it with `compiles`)",
+    )
+    p.add_argument(
+        "--compile-ledger-out", default=None, metavar="FILE",
+        help="dump the compile ledger as JSONL at exit (implies "
+        "--compile-ledger); reload with `compiles --load`",
+    )
+    p.add_argument(
+        "--compile-warm-events", type=int, default=2, metavar="N",
+        help="handled events per fleet after which the ledgers' WARM-phase "
+        "boundary is marked: the summary's compile.warm_phase_compiles counts "
+        "compile events past it (default 2: the cold solve and the first warm "
+        "tick each capture their own graph); with --memory-ledger the same "
+        "boundary pins the leak-gate baseline (warm serving must stay FLAT in "
+        "allocated bytes from there on)",
+    )
+    p.add_argument(
+        "--memory-ledger", action="store_true",
+        help="enable the process-wide memory ledger: every registered entry "
+        "point gets a static memory model on its first dispatch (the CUDA "
+        "allocator's peak and reserved deltas, argument and output bytes), "
+        "every loop plan its owned bytes, ticks carry allocated/RSS watermark "
+        "attrs, mem.* series ride the metrics timeline, GET /signals grows "
+        "mem_headroom_bytes, and the summary grows a 'memory' block (render it "
+        "with `memory`)",
+    )
+    p.add_argument(
+        "--memory-out", default=None, metavar="FILE",
+        help="dump the memory ledger as JSONL at exit (implies "
+        "--memory-ledger); reload with `memory --load`",
+    )
+    p.add_argument(
+        "--memory-budget-mb", type=float, default=None,
+        help="memory-headroom budget in MB (default: /proc/meminfo MemTotal): "
+        "mem_headroom_bytes in GET /signals = budget - RSS, and "
+        "--mem-degrade-headroom-mb degrades against it",
+    )
+    p.add_argument(
+        "--mem-degrade-headroom-mb", type=float, default=None, metavar="MB",
+        help="gateway admission: when memory headroom (budget - RSS) drops "
+        "below this many MB, ingest marks ticks under PRESSURE (composing with "
+        "--degrade-depth); needs --memory-ledger",
+    )
     _add_gateway_args(p)
-    g = p.add_argument_group(
-        "options of later slices (each exits 2 naming its ROADMAP item)")
-    for flag, kw, _, item in _DEFERRED_SERVE:
-        g.add_argument(flag, help=f"ROADMAP {item.split()[0]}", **kw)
     return p
 
 
@@ -723,7 +762,8 @@ def _gateway_mode(args) -> bool:
     """Whether ``serve`` runs through the gateway tier."""
     if (args.workers > 1 or args.listen or args.snapshot_dir or args.resume
             or args.max_queue_depth is not None or args.coalesce
-            or args.degrade_depth is not None or args.worker_backend != "thread"
+            or args.degrade_depth is not None or args.mem_degrade_headroom_mb is not None
+            or args.worker_backend != "thread"
             or args.scheduler_factory is not None or args.supervise):
         return True
     if Path(args.trace).is_file():
@@ -731,13 +771,6 @@ def _gateway_mode(args) -> bool:
 
         return is_gateway_trace(args.trace)
     return False
-
-
-def _deferred_serve_options(args) -> list:
-    """(option, ROADMAP item) of each ``serve`` option set that a later
-    slice ports."""
-    return [(flag, item) for flag, _, unset, item in _DEFERRED_SERVE
-            if getattr(args, flag[2:].replace("-", "_")) != unset]
 
 
 def _build_obs(args):
@@ -768,28 +801,150 @@ def _obs_summary(writer, flight) -> dict:
     return out
 
 
-def _build_timeline(args, metrics, sample_fn):
-    """(timeline, sampler) for ``--timeline-dir``, the sampler started; (None,
-    None) without it."""
-    if not args.timeline_dir:
-        return None, None
-    from ..obs import Timeline, TimelineSampler
+def _build_compile_ledger(args):
+    """(ledger, owned) from the serve flags; (None, False) on the
+    byte-identical default path (instrumented entry points stay
+    passthroughs). ``owned`` means THIS run enabled the process ledger
+    and must disable it on exit — a leaked global ledger would mint
+    compile counters into every scheduler an in-process caller builds
+    afterwards."""
+    if not (args.compile_ledger or args.compile_ledger_out):
+        return None, False
+    from ..obs import compile_ledger
+
+    existing = compile_ledger.current()
+    if existing is not None:
+        return existing, False
+    return compile_ledger.enable(), True
+
+
+def _release_compile_ledger(owned: bool) -> None:
+    if owned:
+        from ..obs import compile_ledger
+
+        compile_ledger.disable()
+
+
+def _compile_summary(args, led, warm_token) -> dict:
+    """The serve summary's "compile" block (+ the JSONL dump side effect).
+
+    ``warm_token`` is the ledger seq at the warm-phase boundary (every
+    fleet past ``--compile-warm-events`` handled events) — compile events
+    after it are warm-phase compiles, the count the zero-recapture gate
+    reads; None when the replay ended before the boundary was reached.
+    """
+    from ..obs import compile_ledger
+
+    warm = (
+        len(led.events_since(warm_token)) if warm_token is not None else None
+    )
+    summary = led.summary()
+    out = {
+        "counters": summary["counters"],
+        "cache_hit_rate": summary["cache_hit_rate"],
+        "causes": summary["causes"],
+        "entries": summary["entries"],
+        "registered": compile_ledger.registered_entry_points(),
+        "unregistered_compiles": summary["counters"]["unattributed_compiles"],
+        "warm_boundary_marked": warm_token is not None,
+        "warm_phase_compiles": warm,
+        "fallback": summary["fallback"],
+    }
+    if args.compile_ledger_out:
+        led.dump_jsonl(args.compile_ledger_out)
+        out["ledger_path"] = str(args.compile_ledger_out)
+    return out
+
+
+def _build_memory_ledger(args):
+    """(ledger, owned) from the serve memory flags; (None, False) on the
+    byte-identical default path. Same ownership contract as the compile
+    ledger: a serve-OWNED ledger is disable()d in the finally so
+    in-process callers never inherit the process-global hook."""
+    if not (args.memory_ledger or args.memory_out):
+        return None, False
+    from ..obs import memory
+
+    existing = memory.current()
+    if existing is not None:
+        if args.memory_budget_mb is not None:
+            # The explicit flag wins over whatever budget the reused
+            # process ledger resolved.
+            existing.budget_bytes = int(args.memory_budget_mb * 1e6)
+        return existing, False
+    kwargs = {}
+    if args.memory_budget_mb is not None:
+        kwargs["budget_bytes"] = int(args.memory_budget_mb * 1e6)
+    return memory.enable(**kwargs), True
+
+
+def _release_memory_ledger(owned: bool) -> None:
+    if owned:
+        from ..obs import memory
+
+        memory.disable()
+
+
+def _memory_summary(args, mled) -> dict:
+    """The serve summary's "memory" block (+ the JSONL dump side effect):
+    per-entry static models, watermarks, and the leak-gate verdict
+    (marked at the --compile-warm-events boundary)."""
+    # One forced sample first: the replay is drained here, and the leak
+    # verdict must compare the baseline against the run's TRUE final
+    # allocated bytes, not a stale cached sample.
+    mled.sample(force=True)
+    out = mled.summary()
+    if args.memory_out:
+        mled.dump_jsonl(args.memory_out)
+        out["ledger_path"] = str(args.memory_out)
+    return out
+
+
+def _build_slo(args, metrics, sample_fn, tracer, flight):
+    """(timeline, engine, sampler) from the serve SLO flags, all None
+    when neither --slo nor --timeline-dir is set (the byte-identical
+    default path). The sampler is returned STARTED; the caller stops it
+    (or lets Gateway.close do so when it is attached there)."""
+    if not (args.slo or args.timeline_dir):
+        return None, None, None
+    from ..obs import SLOConfig, SLOEngine, Timeline, TimelineSampler
 
     timeline = Timeline()
-    sampler = TimelineSampler(timeline, sample_fn,
-                              period_s=max(0.001, args.timeline_period_ms / 1e3),
-                              metrics=metrics)
+    engine = None
+    if args.slo:
+        config = SLOConfig.from_json(args.slo)
+        engine = SLOEngine(
+            config, timeline, metrics=metrics, tracer=tracer, flight=flight
+        )
+    sampler = TimelineSampler(
+        timeline,
+        sample_fn,
+        period_s=max(0.001, args.timeline_period_ms / 1e3),
+        metrics=metrics,
+        on_sample=(
+            None if engine is None
+            else (lambda _tl, now: engine.evaluate(now))
+        ),
+    )
     sampler.start()
-    return timeline, sampler
+    return timeline, engine, sampler
 
 
-def _timeline_summary(args, timeline, sampler) -> dict:
-    """The summary's "slo" block as the reference writes it without an SLO
-    spec (+ the timeline dump)."""
-    path = Path(args.timeline_dir) / "timeline.jsonl"
-    timeline.dump(path)
-    return {"samples": sampler.samples, "sample_errors": sampler.errors,
-            "series": len(timeline.names()), "timeline_path": str(path)}
+def _slo_summary(args, timeline, engine, sampler) -> dict:
+    """The serve summary's "slo" block (+ the timeline dump side effect)."""
+    out: dict = {
+        "samples": sampler.samples,
+        "sample_errors": sampler.errors,
+        "series": len(timeline.names()),
+    }
+    if engine is not None:
+        out["alerts_open"] = len(engine.firing())
+        out["events"] = list(engine.events)
+    if args.timeline_dir:
+        path = Path(args.timeline_dir) / "timeline.jsonl"
+        timeline.dump(path)
+        out["timeline_path"] = str(path)
+    return out
 
 
 def _chaos_to_replay_report(chaos, sched):
@@ -820,11 +975,11 @@ def _chaos_to_replay_report(chaos, sched):
 def serve_main(argv=None) -> int:
     """``serve``: replay a churn trace through the scheduler daemon."""
     args = build_serve_parser().parse_args(argv)
-    deferred = _deferred_serve_options(args)
-    if deferred:
-        for opt, item in deferred:
-            print(f"error: serve {opt} is not part of the port yet (ROADMAP.md {item})",
-                  file=sys.stderr)
+    if args.mem_degrade_headroom_mb is not None and not (
+            args.memory_ledger or args.memory_out):
+        # Degrading on headroom nobody measures would silently never fire.
+        print("error: --mem-degrade-headroom-mb needs --memory-ledger (headroom "
+              "comes from the memory ledger's budget - RSS)", file=sys.stderr)
         return 2
     trace_path = Path(args.trace)
     if _gateway_mode(args):
@@ -927,16 +1082,39 @@ def serve_main(argv=None) -> int:
             f"obj={r.obj_value:.6f} {ms:8.1f} ms{risk}"
         )
 
-    timeline, sampler = _build_timeline(args, sched.metrics, sched.timeline_sample)
+    timeline, slo_engine, sampler = _build_slo(
+        args, sched.metrics, sched.timeline_sample, tracer, flight
+    )
+    led, led_owned = _build_compile_ledger(args)
+    mled, mled_owned = _build_memory_ledger(args)
+    compile_state = {"handled": 0, "warm_token": None, "warm_marked": False}
+
+    def on_event(ev, view, ms):
+        log_event(ev, view, ms)
+        if (led is None and mled is None) or compile_state["warm_marked"]:
+            return
+        compile_state["handled"] += 1
+        if compile_state["handled"] >= args.compile_warm_events:
+            # Warm boundary: everything this single fleet loads, captures
+            # and persistently allocates, it does in its first
+            # --compile-warm-events ticks; the same boundary marks the
+            # compile ledger's warm phase and pins the memory ledger's
+            # leak-gate baseline.
+            compile_state["warm_marked"] = True
+            if led is not None:
+                compile_state["warm_token"] = led.seq()
+            if mled is not None:
+                mled.mark_warm()
+
     chaos = None
     try:
         if plan is not None:
             from ..sched import chaos_replay
 
-            chaos = chaos_replay(sched, events, plan, on_event=log_event)
+            chaos = chaos_replay(sched, events, plan, on_event=on_event)
             report = _chaos_to_replay_report(chaos, sched)
         else:
-            report = replay(sched, events, on_event=log_event)
+            report = replay(sched, events, on_event=on_event)
     except (RuntimeError, ValueError) as e:
         print(f"error: replay failed: {e}", file=sys.stderr)
         return 1
@@ -946,6 +1124,8 @@ def serve_main(argv=None) -> int:
         sched.close()  # release the deadline worker (no-op when unused)
         if tracer is not None:
             tracer.close()  # flush the span JSONL
+        _release_compile_ledger(led_owned)
+        _release_memory_ledger(mled_owned)
 
     summary = {
         "replay": report.summary(),
@@ -963,8 +1143,12 @@ def serve_main(argv=None) -> int:
                 sched.metrics.inc("flight_dumps")
     if args.speculate:
         summary["speculation"] = sched.speculation_snapshot()
+    if led is not None:
+        summary["compile"] = _compile_summary(args, led, compile_state["warm_token"])
+    if mled is not None:
+        summary["memory"] = _memory_summary(args, mled)
     if sampler is not None:
-        summary["slo"] = _timeline_summary(args, timeline, sampler)
+        summary["slo"] = _slo_summary(args, timeline, slo_engine, sampler)
     if writer is not None or flight is not None:
         summary["obs"] = _obs_summary(writer, flight)
     if args.risk_aware:
@@ -1112,18 +1296,51 @@ def _serve_gateway(args) -> int:
             n_workers=args.workers, scheduler_kwargs=scheduler_kwargs,
             scheduler_factory=args.scheduler_factory, tracer=tracer, flight=flight,
             max_queue_depth=args.max_queue_depth, coalesce=args.coalesce,
-            degrade_depth=args.degrade_depth, worker_backend=args.worker_backend,
+            degrade_depth=args.degrade_depth,
+            mem_degrade_headroom_bytes=(
+                args.mem_degrade_headroom_mb * 1e6
+                if args.mem_degrade_headroom_mb is not None else None
+            ),
+            worker_backend=args.worker_backend,
             supervise=args.supervise, recovery_dir=args.recovery_dir,
             snapshot_every=args.snapshot_every, device=device,
         )
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    timeline, sampler = _build_timeline(args, gw.metrics, gw.timeline_sample)
+    timeline, slo_engine, sampler = _build_slo(
+        args, gw.metrics, gw.timeline_sample, tracer, flight
+    )
     if sampler is not None:
-        # Attached: Gateway.close() stops the sampler before the workers.
+        # Attached: Gateway.close() stops the sampler before the workers
+        # and --listen keeps it (and /slo, /signals) live until ^C.
         gw.attach_sampler(sampler)
-        gw.attach_slo(None, timeline)
+        gw.attach_slo(slo_engine, timeline, capacity_eps=args.capacity_eps)
+    led, led_owned = _build_compile_ledger(args)
+    mled, mled_owned = _build_memory_ledger(args)
+    # Warm boundary for the ledgers: marked once EVERY fleet actually
+    # REPLAYED this run has handled --compile-warm-events events (each
+    # fleet's target is min(knob, its replayed-event count), filled in
+    # from run_items below, after the resume cursor is applied). Compile
+    # events past the mark are warm-phase compiles (the zero-recapture
+    # invariant); allocated growth past it is a leak.
+    compile_state = {
+        "counts": {}, "targets": {}, "warm_token": None, "warm_marked": False,
+    }
+
+    def _note_handled_for_ledger(fleet_id: str) -> None:
+        targets = compile_state["targets"]
+        if (led is None and mled is None) or compile_state["warm_marked"] or not targets:
+            return
+        counts = compile_state["counts"]
+        counts[fleet_id] = counts.get(fleet_id, 0) + 1
+        if all(counts.get(f, 0) >= n for f, n in targets.items()):
+            compile_state["warm_marked"] = True
+            if led is not None:
+                compile_state["warm_token"] = led.seq()
+            if mled is not None:
+                mled.mark_warm()
+
     try:
         if args.resume:
             try:
@@ -1150,6 +1367,13 @@ def _serve_gateway(args) -> int:
         # Resume cursor: skip the per-fleet prefix the snapshot already
         # covers (Gateway.uncovered owns the contract).
         run_items = gw.uncovered(items)
+        if led is not None or mled is not None:
+            per_fleet: dict = {}
+            for f, _ev in run_items:
+                per_fleet[f] = per_fleet.get(f, 0) + 1
+            compile_state["targets"] = {
+                f: min(args.compile_warm_events, n) for f, n in per_fleet.items()
+            }
 
         def log_event(fleet_id, ev, view, ms):
             if args.quiet:
@@ -1169,9 +1393,14 @@ def _serve_gateway(args) -> int:
             from ..sched import chaos_replay
 
             facade = ShardFacade(gw, "default")
+
+            def _chaos_on_event(ev, view, ms):
+                log_event("default", ev, view, ms)
+                _note_handled_for_ledger("default")
+
             chaos = chaos_replay(
                 facade, [ev for _, ev in run_items], plan,
-                on_event=lambda ev, view, ms: log_event("default", ev, view, ms),
+                on_event=_chaos_on_event,
                 # Process-channel faults (child_kill / rpc_torn / rpc_delay)
                 # aim at whichever worker currently owns the fleet's shard.
                 process_hook=gw.chaos_process_hook("default") if args.supervise else None,
@@ -1194,6 +1423,7 @@ def _serve_gateway(args) -> int:
                         and not view.result.certified):
                     uncert += 1
                 log_event(fleet_id, ev, view, ms)
+                _note_handled_for_ledger(fleet_id)
                 if args.snapshot_at is not None and handled == args.snapshot_at:
                     save_snapshot(gw.snapshot(), args.snapshot_dir)
                     snapshot_taken = True
@@ -1260,6 +1490,10 @@ def _serve_gateway(args) -> int:
                 "stale": totals.get("spec_stale", 0),
                 "hit_rate": round(s_hits / s_probes, 4) if s_probes else 0.0,
             }
+        if led is not None:
+            summary["compile"] = _compile_summary(args, led, compile_state["warm_token"])
+        if mled is not None:
+            summary["memory"] = _memory_summary(args, mled)
         chaos_L = None
         if chaos is not None:
             # Proxy-safe L read: on the process backend the shard scheduler
@@ -1274,7 +1508,7 @@ def _serve_gateway(args) -> int:
             # The supervision audit rides the report even without chaos.
             summary["recovery"] = gw.recovery_status()
         if sampler is not None:
-            summary["slo"] = _timeline_summary(args, timeline, sampler)
+            summary["slo"] = _slo_summary(args, timeline, slo_engine, sampler)
         if writer is not None or flight is not None:
             summary["obs"] = _obs_summary(writer, flight)
         print(json.dumps(summary))
@@ -1324,6 +1558,8 @@ def _serve_gateway(args) -> int:
         gw.close()
         if tracer is not None:
             tracer.close()  # flush the span JSONL
+        _release_compile_ledger(led_owned)
+        _release_memory_ledger(mled_owned)
 
 
 def _listen_forever(gw, listen: str, quiet: bool = False) -> int:
@@ -1440,6 +1676,1197 @@ def spans_main(argv=None) -> int:
     return 0
 
 
+def build_overload_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli overload",
+        description="replay an open-loop arrival schedule against the "
+        "gateway (events fire at their scheduled time — lateness "
+        "accumulates, the generator never throttles) and report "
+        "scheduled-time latency, sheds, coalesces and goodput; see "
+        "distilp_torch.traffic",
+    )
+    p.add_argument(
+        "--trace",
+        required=True,
+        help="open-loop JSONL schedule (fleet-tagged, timestamped; "
+        "tests/traces/openloop_*.jsonl are committed seeded captures, "
+        "traffic.generate_openloop_schedule makes new ones)",
+    )
+    p.add_argument(
+        "--profile", "-p", required=True,
+        help="profile folder; model_profile.json is the served model",
+    )
+    p.add_argument("--workers", type=int, default=2)
+    p.add_argument(
+        "--time-scale",
+        type=float,
+        default=1.0,
+        help="compress (<1) or dilate (>1) the schedule's timeline: the "
+        "same committed capture replays in real time or as a saturating "
+        "flood, deterministically",
+    )
+    p.add_argument("--k-candidates", default=None)
+    p.add_argument("--mip-gap", type=float, default=1e-3)
+    p.add_argument("--kv-bits", default="4bit")
+    p.add_argument("--warmup", type=int, default=2,
+                   help="closed-loop warmup events per fleet (cold solve "
+                   "+ graph capture, excluded from the open-loop phase)")
+    _add_device(p)
+    p.add_argument(
+        "--max-queue-depth", type=int, default=None, metavar="N",
+        help="admission gate: shed events arriving at a queue holding N",
+    )
+    p.add_argument(
+        "--coalesce", action="store_true",
+        help="fold same-shard queued drift events into one solve",
+    )
+    p.add_argument(
+        "--combine", action="store_true",
+        help="batch pending ticks ACROSS shards into padded lane batches "
+        "behind the coalescer (one solve_batch search per bucket flush); "
+        "enables the compile ledger so the zero-recapture gate is auditable",
+    )
+    p.add_argument(
+        "--degrade-depth", type=int, default=None, metavar="N",
+        help="queue depth past which speculative shards may serve a "
+        "banked near-match (mode='spec_near'); pair with --speculate",
+    )
+    p.add_argument(
+        "--speculate", action="store_true",
+        help="enable speculative replanning on every shard (the bank "
+        "degraded-mode serving draws from)",
+    )
+    p.add_argument(
+        "--check",
+        action="store_true",
+        help="exit 1 unless the admission contract holds: every shed "
+        "counted AND flight-recorded with reconciling per-fleet indices, "
+        "every served placement structurally valid, no failed ticks",
+    )
+    p.add_argument(
+        "--expect-sheds", action="store_true",
+        help="with --check: additionally fail if NOTHING was shed (the "
+        "smoke must actually overload the gate it is testing)",
+    )
+    p.add_argument(
+        "--expect-coalesced", action="store_true",
+        help="with --check: additionally fail if nothing was coalesced",
+    )
+    p.add_argument(
+        "--expect-no-sheds", action="store_true",
+        help="with --check: additionally fail if ANYTHING was shed (the "
+        "coalesce smoke's contract: the flood folds instead of shedding)",
+    )
+    p.add_argument(
+        "--expect-combined", action="store_true",
+        help="with --check and --combine: fail unless combined batches "
+        "actually served lanes, nothing fell back to a per-shard solve, "
+        "and the measured phase compiled NOTHING (warm_phase_events == 0 "
+        "— the committed-bucket zero-recompile contract)",
+    )
+    p.add_argument(
+        "--slo", default=None, metavar="SPEC.json",
+        help="attach the SLO engine to the flood: a timeline sampler "
+        "runs for the arm's whole life, the executor feeds per-event "
+        "scheduled-time latency, and burn-rate alerts open/close live "
+        "(counters + flight records; report grows an 'slo' block)",
+    )
+    p.add_argument(
+        "--settle-s", type=float, default=0.0,
+        help="keep sampling this long AFTER the schedule drains — the "
+        "recovery window a fired burn-rate alert needs to clear",
+    )
+    p.add_argument(
+        "--timeline-out", default=None, metavar="FILE",
+        help="dump the sampled timeline JSONL here (replay offline with "
+        "`slo --timeline`)",
+    )
+    p.add_argument(
+        "--expect-alert", action="append", default=None, metavar="SEV",
+        help="with --check: fail unless an alert of this severity "
+        "OPENED during the flood and CLOSED by the end of --settle-s, "
+        "with the open/close counters reconciling record-by-record "
+        "against the flight recorder's slo ring (repeatable)",
+    )
+    p.add_argument(
+        "--worker-backend", choices=("thread", "process"), default="thread",
+        help="host shard workers in threads (default) or dedicated "
+        "subprocesses (own GIL, own CUDA context)",
+    )
+    p.add_argument(
+        "--scheduler-factory", default=None, metavar="MOD:FN",
+        help="'module:callable' scheduler factory resolved in whichever "
+        "process hosts the shard — the only factory form that crosses a "
+        "process boundary (tests.torch_procstub:make_scheduler is the "
+        "solver-free stub the smokes use)",
+    )
+    p.add_argument(
+        "--autoscale", default=None, metavar="POLICY.json",
+        help="close the loop: build the gateway dynamic and run a "
+        "ControlLoop under this policy for the flood's whole life — "
+        "spawning/retiring workers with live warm shard migration, "
+        "flipping degrade admission; report grows a 'control' block "
+        "with the action trail + flight reconciliation",
+    )
+    p.add_argument(
+        "--control-period-s", type=float, default=0.1,
+        help="control loop decision period (seconds)",
+    )
+    p.add_argument(
+        "--capacity-probe", type=int, default=0, metavar="N",
+        help="with --autoscale: closed-loop probe of N events/fleet "
+        "post-warmup to auto-populate the /signals headroom denominator "
+        "(refreshed per worker-count change; 0 skips the probe)",
+    )
+    p.add_argument(
+        "--expect-scale", type=int, default=None, metavar="N",
+        help="with --check and --autoscale: fail unless the controller "
+        "scaled the fleet out to at least N workers during the flood "
+        "(and the control accounting reconciled record-by-record)",
+    )
+    p.add_argument("--metrics-out", default=None,
+                   help="write the report JSON here too")
+    p.add_argument("--quiet", action="store_true", help="summary line only")
+    return p
+
+
+def overload_main(argv=None) -> int:
+    """``overload``: open-loop schedule -> gateway, admission on."""
+    args = build_overload_parser().parse_args(argv)
+
+    from ..common import load_model_profile
+    from ..obs import FlightRecorder
+    from ..traffic import read_openloop_trace, run_openloop
+
+    folder = Path(args.profile)
+    model_path = (
+        folder / "model_profile.json" if folder.is_dir() else folder
+    )
+    if not model_path.is_file():
+        print(f"error: no model profile at {model_path}", file=sys.stderr)
+        return 2
+    model = load_model_profile(model_path)
+    try:
+        specs, items = read_openloop_trace(args.trace)
+    except (OSError, ValueError) as e:
+        print(f"error: cannot parse open-loop trace: {e}", file=sys.stderr)
+        return 2
+    if not items:
+        print("error: schedule has no events", file=sys.stderr)
+        return 2
+    k_candidates = None
+    if args.k_candidates:
+        k_candidates = [
+            int(x) for x in args.k_candidates.split(",") if x.strip()
+        ]
+    slo_config = None
+    if args.slo:
+        from ..obs import SLOConfig
+
+        try:
+            slo_config = SLOConfig.from_json(args.slo)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load --slo spec: {e}", file=sys.stderr)
+            return 2
+    autoscale = None
+    if args.autoscale:
+        from ..control import ControlPolicy
+
+        try:
+            autoscale = ControlPolicy.from_json(args.autoscale)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load --autoscale: {e}", file=sys.stderr)
+            return 2
+    timeline = None
+    if args.slo or args.timeline_out or args.autoscale:
+        from ..obs import Timeline
+
+        timeline = Timeline()
+    led_owned = False
+    if args.combine:
+        # The zero-recapture gate needs the ambient ledger: run_openloop
+        # reads warm-phase compile events off compile_ledger.current().
+        from ..obs import compile_ledger as _compile_ledger
+
+        if _compile_ledger.current() is None:
+            _compile_ledger.enable()
+            led_owned = True
+    # A recorder is always attached here: the --check reconciliation is
+    # the point of the command, and sheds must be observable to audit.
+    flight = FlightRecorder(capacity=max(256, 2 * len(items)))
+    try:
+        report = run_openloop(
+            model,
+            specs,
+            items,
+            args.workers,
+            device=args.device,
+            time_scale=args.time_scale,
+            warmup_per_fleet=args.warmup,
+            k_candidates=k_candidates,
+            mip_gap=args.mip_gap,
+            kv_bits=args.kv_bits,
+            scheduler_kwargs=(
+                {"speculative": True} if args.speculate else None
+            ),
+            max_queue_depth=args.max_queue_depth,
+            coalesce=args.coalesce,
+            combine=args.combine,
+            degrade_depth=args.degrade_depth,
+            flight=flight,
+            slo_config=slo_config,
+            timeline=timeline,
+            settle_s=args.settle_s,
+            worker_backend=args.worker_backend,
+            scheduler_factory=args.scheduler_factory,
+            autoscale=autoscale,
+            control_period_s=args.control_period_s,
+            capacity_probe_events=args.capacity_probe,
+        )
+    finally:
+        _release_compile_ledger(led_owned)
+    if args.timeline_out and timeline is not None:
+        timeline.dump(args.timeline_out)
+        report["timeline_path"] = args.timeline_out
+    print(json.dumps(report))
+    if args.metrics_out:
+        Path(args.metrics_out).write_text(json.dumps(report, indent=2))
+    if not args.quiet:
+        print(
+            f"open-loop: {report['offered']} offered @ "
+            f"{report['offered_eps']} ev/s -> {report['served']} served "
+            f"({report['goodput_eps']} ev/s goodput), "
+            f"{report['shed']} shed, {report['events_coalesced']} "
+            f"coalesced, p99 {report['p99_ms']} ms / p99.9 "
+            f"{report['p999_ms']} ms",
+            file=sys.stderr,
+        )
+    if args.check:
+        problems = list(report.get("shed_violations", []))
+        if report["shed"] != report["events_shed"]:
+            problems.append(
+                f"shed accounting: executor saw {report['shed']} "
+                f"QueueFull raises but events_shed={report['events_shed']}"
+            )
+        if report["invalid"]:
+            problems.append(
+                f"{report['invalid']} served placement(s) structurally "
+                "invalid"
+            )
+        if report["failed"]:
+            problems.append(f"{report['failed']} tick(s) failed under load")
+        if args.expect_sheds and report["shed"] == 0:
+            problems.append(
+                "expected sheds but nothing was shed (the smoke did not "
+                "overload the admission gate)"
+            )
+        if args.expect_coalesced and report["events_coalesced"] == 0:
+            problems.append("expected coalescing but nothing was folded")
+        if args.expect_no_sheds and report["shed"]:
+            problems.append(
+                f"expected zero sheds but {report['shed']} event(s) were "
+                "shed (the flood should have folded, not overflowed)"
+            )
+        if args.expect_combined:
+            comb = report.get("combine") or {}
+            if not comb.get("instances"):
+                problems.append(
+                    "expected combined batches but no lane was ever "
+                    "solved in one"
+                )
+            if comb.get("combine_fallback"):
+                problems.append(
+                    f"{comb['combine_fallback']} combined tick(s) fell "
+                    "back to a per-shard solve"
+                )
+            if comb.get("errors"):
+                problems.append(
+                    f"{comb['errors']} batched dispatch(es) raised"
+                )
+            warm_events = (report.get("compile") or {}).get(
+                "warm_phase_events"
+            )
+            if warm_events is None:
+                problems.append(
+                    "no warm-phase compile accounting in the report "
+                    "(compile ledger not enabled?)"
+                )
+            elif warm_events:
+                problems.append(
+                    f"{warm_events} compile event(s) in the measured "
+                    "phase — the committed bucket policy must make "
+                    "combined traffic compile NOTHING after warm_combine "
+                    f"(entries: {report['compile']['warm_phase_entries']})"
+                )
+        if autoscale is not None:
+            ctl = report.get("control") or {}
+            problems.extend(ctl.get("violations", []))
+            if args.expect_scale is not None:
+                peak = max(
+                    (
+                        a["target_workers"]
+                        for a in ctl.get("actions", [])
+                        if a.get("kind") == "scale_out"
+                    ),
+                    default=args.workers,
+                )
+                if peak < args.expect_scale:
+                    problems.append(
+                        f"expected the controller to scale out to >= "
+                        f"{args.expect_scale} workers but it peaked at "
+                        f"{peak}"
+                    )
+        if args.expect_alert:
+            slo_rep = report.get("slo") or {}
+            events = slo_rep.get("events", [])
+            # Record-by-record reconciliation, shed-contract style: the
+            # engine's transition list, the counters and the flight
+            # recorder's slo ring must all tell the same story.
+            flight_alerts = [
+                r for r in flight.snapshot("slo")
+                if r.get("kind") == "slo_alert"
+            ]
+            if len(flight_alerts) != len(events):
+                problems.append(
+                    f"alert accounting: {len(events)} engine transition(s) "
+                    f"but {len(flight_alerts)} flight record(s)"
+                )
+            opened = sum(1 for e in events if e["state"] == "open")
+            closed = sum(1 for e in events if e["state"] == "close")
+            if opened != slo_rep.get("alerts_opened") or closed != slo_rep.get(
+                "alerts_closed"
+            ):
+                problems.append(
+                    f"alert accounting: events say {opened} open/{closed} "
+                    f"close but counters say "
+                    f"{slo_rep.get('alerts_opened')}/"
+                    f"{slo_rep.get('alerts_closed')}"
+                )
+            for sev in args.expect_alert:
+                sev_open = [
+                    e for e in events
+                    if e["severity"] == sev and e["state"] == "open"
+                ]
+                sev_close = [
+                    e for e in events
+                    if e["severity"] == sev and e["state"] == "close"
+                ]
+                if not sev_open:
+                    problems.append(
+                        f"expected a {sev!r} alert to open during the "
+                        "flood but none did"
+                    )
+                elif len(sev_close) < len(sev_open):
+                    problems.append(
+                        f"{sev!r} alert opened but never closed (recovery "
+                        "window too short, or the burn never cleared)"
+                    )
+        if problems:
+            for pmsg in problems:
+                print(f"overload violation: {pmsg}", file=sys.stderr)
+            return 1
+        print(
+            f"overload OK: {report['shed']} shed (reconciled record-by-"
+            f"record), {report['events_coalesced']} coalesced, "
+            f"{report['served']} served valid", file=sys.stderr,
+        )
+    return 0
+
+
+def build_slo_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli slo",
+        description="evaluate SLOs: replay a dumped metrics timeline "
+        "(serve --timeline-dir / overload --timeline-out) against a "
+        "spec file offline — a pure function of (timeline, spec), "
+        "byte-deterministic — or fetch a live gateway's /slo status, "
+        "or trend-check the committed bench history",
+    )
+    p.add_argument(
+        "--spec", default=None, metavar="SPEC.json",
+        help="SLO spec file (obs.slo.SLOConfig JSON); required with "
+        "--timeline",
+    )
+    p.add_argument(
+        "--timeline", default=None, metavar="FILE",
+        help="dumped timeline JSONL to replay the alert evaluation over "
+        "(offline, deterministic)",
+    )
+    p.add_argument(
+        "--url", default=None, metavar="http://HOST:PORT",
+        help="fetch a live gateway's GET /slo instead (serve --listen "
+        "--slo)",
+    )
+    p.add_argument(
+        "--step-s", type=float, default=0.05,
+        help="offline replay evaluation step (seconds of timeline time)",
+    )
+    p.add_argument(
+        "--expect", default=None, metavar="FILE",
+        help="expected alert sequence JSON ({bucket_s, events: [{slo, "
+        "severity, state, bucket}]}): the replayed transitions must "
+        "match EXACTLY — tier, window set, state and firing-timestamp "
+        "bucket (exit 1 on any difference)",
+    )
+    p.add_argument(
+        "--history", default=None, metavar="BENCH_HISTORY.jsonl",
+        help="evaluate trend rules over a bench history JSONL (one line "
+        "per round): the newest round's headline keys may not regress "
+        "past the prior-median tolerance",
+    )
+    p.add_argument(
+        "--check", action="store_true",
+        help="exit 1 on any violation: --expect mismatch, alert-counter "
+        "vs transition-list drift, or a --history trend regression",
+    )
+    p.add_argument(
+        "--json", action="store_true",
+        help="print the evaluation as one JSON object instead of tables",
+    )
+    p.add_argument("--quiet", action="store_true", help="no tables")
+    return p
+
+
+def _slo_render_tables(status: dict, events: list) -> None:
+    print(f"{'slo':<28s} {'sev':<6s} {'window':>9s} {'burn':>10s} "
+          f"{'threshold':>9s} {'firing':>6s}")
+    for slo in status.get("slos", []):
+        for rule in slo.get("alerts", []):
+            for w in rule.get("windows", []):
+                burn = w.get("burn")
+                print(
+                    f"{slo['name']:<28s} {rule['severity']:<6s} "
+                    f"{w['window_s']:>8.6g}s "
+                    f"{'-' if burn is None else format(burn, '>10.3f')} "
+                    f"{w['threshold']:>9.3g} "
+                    f"{str(rule['firing']):>6s}"
+                )
+    if events:
+        print(f"\n{'t':>10s} {'slo':<28s} {'sev':<6s} {'state':<6s} burn")
+        for e in events:
+            print(
+                f"{e['t']:>10.3f} {e['slo']:<28s} {e['severity']:<6s} "
+                f"{e['state']:<6s} {e['burn']}"
+            )
+    else:
+        print("\nno alert transitions")
+
+
+def slo_main(argv=None) -> int:
+    """``slo``: offline timeline replay / live status / trends."""
+    args = build_slo_parser().parse_args(argv)
+
+    # Pure JSON-in, JSON-out: no profiles, no device.
+    violations: list = []
+    payload: dict = {}
+
+    if args.url:
+        import urllib.request
+
+        url = args.url.rstrip("/") + "/slo"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                status = json.loads(resp.read())
+        except OSError as e:
+            print(f"error: cannot fetch {url}: {e}", file=sys.stderr)
+            return 2
+        payload["live"] = status
+        if not args.quiet and not args.json:
+            _slo_render_tables(status, status.get("events", []))
+        if status.get("alerts_open"):
+            violations.append(
+                f"{status['alerts_open']} alert(s) currently open on "
+                f"{url}"
+            )
+
+    if args.timeline:
+        if not args.spec:
+            print("error: --timeline needs --spec", file=sys.stderr)
+            return 2
+        from ..obs import FlightRecorder, SLOConfig, SLOEngine, Timeline
+        from ..sched.metrics import SchedulerMetrics
+
+        try:
+            config = SLOConfig.from_json(args.spec)
+            timeline = Timeline.load(args.timeline)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load inputs: {e}", file=sys.stderr)
+            return 2
+        # The offline engine gets its own sink + flight ring so the
+        # counter/record/transition reconciliation (the live contract)
+        # is checkable on a replay too.
+        metrics = SchedulerMetrics()
+        flight = FlightRecorder(capacity=4096)
+        engine = SLOEngine(config, timeline, metrics=metrics, flight=flight)
+        events = engine.replay(step_s=args.step_s)
+        status = engine.status()
+        payload["replay"] = {
+            "events": events,
+            "alerts_open": status["alerts_open"],
+            "step_s": args.step_s,
+        }
+        counters = metrics.snapshot()["counters"]
+        opened = sum(1 for e in events if e["state"] == "open")
+        closed = sum(1 for e in events if e["state"] == "close")
+        if counters.get("slo_alert_opened", 0) != opened or counters.get(
+            "slo_alert_closed", 0
+        ) != closed:
+            violations.append(
+                "alert accounting: transitions "
+                f"({opened} open/{closed} close) disagree with counters "
+                f"({counters.get('slo_alert_opened', 0)}/"
+                f"{counters.get('slo_alert_closed', 0)})"
+            )
+        flight_alerts = [
+            r for r in flight.snapshot("slo") if r.get("kind") == "slo_alert"
+        ]
+        if len(flight_alerts) != len(events):
+            violations.append(
+                f"alert accounting: {len(events)} transition(s) but "
+                f"{len(flight_alerts)} flight record(s)"
+            )
+        if args.expect:
+            try:
+                expect = json.loads(Path(args.expect).read_text())
+            except (OSError, ValueError) as e:
+                print(f"error: cannot load --expect: {e}", file=sys.stderr)
+                return 2
+            bucket_s = float(expect.get("bucket_s", 1.0))
+            bounds = timeline.bounds()
+            t0 = bounds[0] if bounds else 0.0
+            got = [
+                {
+                    "slo": e["slo"],
+                    "severity": e["severity"],
+                    "state": e["state"],
+                    "bucket": int((e["t"] - t0) / bucket_s),
+                }
+                for e in events
+            ]
+            if got != expect.get("events"):
+                violations.append(
+                    "alert sequence mismatch:\n  expected "
+                    f"{json.dumps(expect.get('events'))}\n  got      "
+                    f"{json.dumps(got)}"
+                )
+            payload["replay"]["expected_match"] = got == expect.get("events")
+        if not args.quiet and not args.json:
+            _slo_render_tables(status, events)
+
+    if args.history:
+        from ..obs.slo import evaluate_history
+
+        try:
+            rows = [
+                json.loads(ln)
+                for ln in Path(args.history).read_text().splitlines()
+                if ln.strip()
+            ]
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load --history: {e}", file=sys.stderr)
+            return 2
+        table, trend_violations = evaluate_history(rows)
+        payload["history"] = {"rows": len(rows), "table": table}
+        violations.extend(trend_violations)
+        if not args.quiet and not args.json:
+            print(
+                f"\nbench history ({len(rows)} round(s)): "
+                f"{'key':<36s} {'median':>12s} {'latest':>12s} {'delta':>8s}"
+            )
+            for row in table:
+                med = row["median"]
+                lat = row["latest"]
+                chg = row["change"]
+                print(
+                    f"{'':41s}{row['key']:<36s} "
+                    f"{'-' if med is None else format(med, '>12.4g')} "
+                    f"{'-' if lat is None else format(lat, '>12.4g')} "
+                    f"{'-' if chg is None else format(chg, '>+8.1%')}"
+                )
+
+    if not (args.url or args.timeline or args.history):
+        print(
+            "error: nothing to evaluate (need --timeline, --url or "
+            "--history)",
+            file=sys.stderr,
+        )
+        return 2
+
+    if args.json:
+        payload["violations"] = violations
+        print(json.dumps(payload))
+    if violations:
+        for v in violations:
+            print(f"slo violation: {v}", file=sys.stderr)
+        if args.check:
+            return 1
+    elif args.check and not args.quiet:
+        print("slo check OK", file=sys.stderr)
+    return 0
+
+
+def build_autoscale_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli autoscale",
+        description="replay a dumped metrics timeline through the "
+        "closed-loop controller OFFLINE: a pure function of (timeline, "
+        "policy, slo spec, step) — same inputs, same action sequence, "
+        "byte for byte; the proof that the live loop's decisions are "
+        "reproducible from its recorded signals",
+    )
+    p.add_argument(
+        "--timeline", required=True, metavar="FILE",
+        help="dumped timeline JSONL (serve --timeline-dir / overload "
+        "--timeline-out)",
+    )
+    p.add_argument(
+        "--policy", required=True, metavar="POLICY.json",
+        help="control policy file (control.ControlPolicy JSON; "
+        "tests/traces/control_policy.json is the committed smoke fixture)",
+    )
+    p.add_argument(
+        "--spec", default=None, metavar="SLO.json",
+        help="SLO spec evaluated alongside the replay so page/warn "
+        "alerts feed the policy's alert-driven levers (omitting it "
+        "leaves alerts_open at 0 for every step)",
+    )
+    p.add_argument(
+        "--step-s", type=float, default=0.5,
+        help="replay decision step (seconds of timeline time)",
+    )
+    p.add_argument(
+        "--capacity-eps", type=float, default=None,
+        help="max-sustainable events/sec pin for the headroom signal "
+        "(the live loop measures this with a closed-loop probe; offline "
+        "it must be pinned or the headroom levers stay dark)",
+    )
+    p.add_argument(
+        "--workers", type=int, default=None,
+        help="starting worker count (default: inferred from the "
+        "timeline's queue_depth.w* series)",
+    )
+    p.add_argument(
+        "--expect", default=None, metavar="FILE",
+        help="expected action JSONL (actions_to_jsonl format, one "
+        "key-sorted object per line): the replayed sequence must match "
+        "BYTE FOR BYTE",
+    )
+    p.add_argument(
+        "--out", default=None, metavar="FILE",
+        help="write the replayed action JSONL here (the fixture "
+        "regeneration path)",
+    )
+    p.add_argument(
+        "--check", action="store_true",
+        help="exit 1 on any violation: --expect mismatch, or a "
+        "determinism failure (the replay runs TWICE from fresh "
+        "controllers; the two byte streams must be identical)",
+    )
+    p.add_argument(
+        "--json", action="store_true",
+        help="print the evaluation as one JSON object instead of a table",
+    )
+    p.add_argument("--quiet", action="store_true", help="no table")
+    return p
+
+
+def autoscale_main(argv=None) -> int:
+    """``autoscale``: offline controller replay, byte-deterministic."""
+    args = build_autoscale_parser().parse_args(argv)
+
+    # Pure JSON-in, JSON-out: no profiles, no device.
+    from ..control import Controller, ControlPolicy, actions_to_jsonl
+    from ..obs import Timeline
+
+    try:
+        timeline = Timeline.load(args.timeline)
+        policy = ControlPolicy.from_json(args.policy)
+    except (OSError, ValueError) as e:
+        print(f"error: cannot load inputs: {e}", file=sys.stderr)
+        return 2
+    slo_config = None
+    if args.spec:
+        from ..obs import SLOConfig
+
+        try:
+            slo_config = SLOConfig.from_json(args.spec)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load --spec: {e}", file=sys.stderr)
+            return 2
+
+    def _run() -> str:
+        return actions_to_jsonl(
+            Controller.replay(
+                timeline,
+                policy,
+                slo_config=slo_config,
+                step_s=args.step_s,
+                capacity_eps=args.capacity_eps,
+                n_workers=args.workers,
+            )
+        )
+
+    violations: list = []
+    got = _run()
+    if args.check and _run() != got:
+        # A pure function cannot disagree with itself: any drift means a
+        # clock or ambient-state leak into the decision path.
+        violations.append(
+            "determinism: two replays of the same (timeline, policy) "
+            "produced different action streams"
+        )
+    if args.expect:
+        try:
+            expect = Path(args.expect).read_text()
+        except OSError as e:
+            print(f"error: cannot load --expect: {e}", file=sys.stderr)
+            return 2
+        if got != expect:
+            violations.append(
+                "action sequence mismatch:\n  expected "
+                f"{expect!r}\n  got      {got!r}"
+            )
+    if args.out:
+        Path(args.out).write_text(got)
+    actions = [json.loads(ln) for ln in got.splitlines()]
+    if args.json:
+        print(json.dumps({
+            "actions": actions,
+            "step_s": args.step_s,
+            "policy": policy.model_dump(),
+            "violations": violations,
+        }))
+    elif not args.quiet:
+        if actions:
+            print(f"{'t':>10s} {'action':<12s} {'workers':>7s} reason")
+            for a in actions:
+                tw = a.get("target_workers")
+                print(
+                    f"{a['t']:>10.3f} {a['kind']:<12s} "
+                    f"{'-' if tw is None else tw:>7} {a['reason']}"
+                )
+        else:
+            print("no actions")
+    if violations:
+        for v in violations:
+            print(f"autoscale violation: {v}", file=sys.stderr)
+        if args.check:
+            return 1
+    elif args.check and not args.quiet:
+        print(
+            f"autoscale check OK: {len(actions)} action(s), "
+            "byte-deterministic", file=sys.stderr,
+        )
+    return 0
+
+
+def build_compiles_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli compiles",
+        description="render the compile ledger (obs.compile_ledger: kernel-"
+        "library loads and CUDA-graph captures): per-entry-point compile/"
+        "dispatch table, cause histogram (cold / cache-hit / static-arg-flip "
+        "/ shape-bucket-change / recompile), build-cache hit rate and the top "
+        "recompile offenders — from a live run (--trace, replayed through "
+        "`serve` with the "
+        "ledger on) or a dumped JSONL (--load). Rendering a dump is a "
+        "pure function: the same dump produces byte-identical reports on "
+        "every replay",
+    )
+    p.add_argument(
+        "--load", default=None, metavar="FILE",
+        help="render a ledger JSONL previously dumped by "
+        "`serve --compile-ledger-out` (or --out below); no backend needed",
+    )
+    p.add_argument(
+        "--trace", default=None,
+        help="live mode: replay this churn trace (single- or multi-fleet) "
+        "with the ledger enabled and render the resulting ledger",
+    )
+    p.add_argument(
+        "--profile", "-p", default=None,
+        help="profile folder (required with --trace)",
+    )
+    p.add_argument("--synthetic-fleet", type=int, default=0, metavar="M")
+    p.add_argument("--fleet-seed", type=int, default=0)
+    p.add_argument("--workers", type=int, default=1)
+    p.add_argument("--mip-gap", type=float, default=1e-3)
+    p.add_argument("--k-candidates", default=None)
+    p.add_argument(
+        "--lp-backend", choices=["ipm", "pdhg", "auto"], default="auto",
+        help="LP engine pin for the live replay (the engine's route is part "
+        "of a captured plan's static signature)",
+    )
+    p.add_argument(
+        "--compile-warm-events", type=int, default=2, metavar="N",
+        help="warm-boundary events per fleet for the live replay (see "
+        "`serve --compile-warm-events`)",
+    )
+    p.add_argument(
+        "--out", default=None, metavar="FILE",
+        help="also save the live run's ledger JSONL here",
+    )
+    _add_device(p)
+    p.add_argument("--top", type=int, default=5, help="top-N offenders/storms")
+    p.add_argument(
+        "--json", action="store_true",
+        help="print the ledger summary as one JSON object instead of text",
+    )
+    p.add_argument(
+        "--check", action="store_true",
+        help="exit 1 unless the ledger is clean: every compile attributed "
+        "to a REGISTERED entry point, no exact-signature recompiles, and "
+        "the JSONL round-trips byte-stably (the smoke-compile contract)",
+    )
+    return p
+
+
+def compiles_main(argv=None) -> int:
+    """``compiles``: render/check the compile ledger."""
+    args = build_compiles_parser().parse_args(argv)
+
+    from ..obs.compile_ledger import (
+        ledger_from_jsonl,
+        ledger_to_jsonl,
+        render_report,
+    )
+
+    if bool(args.load) == bool(args.trace):
+        print(
+            "error: exactly one of --load or --trace is required",
+            file=sys.stderr,
+        )
+        return 2
+
+    if args.load:
+        try:
+            text = Path(args.load).read_text(encoding="utf-8")
+            dump = ledger_from_jsonl(text)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load {args.load}: {e}", file=sys.stderr)
+            return 2
+    else:
+        if not args.profile:
+            print(
+                "error: --trace needs --profile", file=sys.stderr
+            )
+            return 2
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = Path(args.out) if args.out else Path(tmp) / "ledger.jsonl"
+            serve_argv = [
+                "--trace", args.trace,
+                "--profile", args.profile,
+                "--quiet",
+                "--workers", str(args.workers),
+                "--mip-gap", str(args.mip_gap),
+                "--lp-backend", args.lp_backend,
+                "--compile-warm-events", str(args.compile_warm_events),
+                "--compile-ledger-out", str(out_path),
+            ]
+            if args.device:
+                serve_argv += ["--device", args.device]
+            if args.synthetic_fleet:
+                serve_argv += [
+                    "--synthetic-fleet", str(args.synthetic_fleet),
+                    "--fleet-seed", str(args.fleet_seed),
+                ]
+            if args.k_candidates:
+                serve_argv += ["--k-candidates", args.k_candidates]
+            # The delegated serve run's summary goes to stderr: stdout
+            # must carry exactly the report (or the --json object), so
+            # piping `compiles` stays machine-readable.
+            import contextlib
+            import io
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = serve_main(serve_argv)
+            if buf.getvalue():
+                print(buf.getvalue(), end="", file=sys.stderr)
+            if rc != 0:
+                return rc
+            text = out_path.read_text(encoding="utf-8")
+            dump = ledger_from_jsonl(text)
+
+    if args.check:
+        failures = []
+        registry = set(dump["header"].get("registry", []))
+        for ev in dump["events"]:
+            if ev["entry"] not in registry:
+                failures.append(
+                    f"compile of unregistered entry {ev['entry']!r} "
+                    f"(seq {ev['seq']}) — a capture outside every "
+                    "instrumented entry point"
+                )
+            if ev["cause"] == "recompile":
+                failures.append(
+                    f"exact-signature recompile of {ev['entry']} "
+                    f"(seq {ev['seq']}, static=[{ev['static']}])"
+                )
+        if ledger_to_jsonl(dump) != text:
+            failures.append("ledger JSONL does not round-trip byte-stably")
+        if failures:
+            for f in failures:
+                print(f"compile-ledger check FAILED: {f}", file=sys.stderr)
+            return 1
+
+    if args.json:
+        print(json.dumps(dump["header"].get("summary", {}), sort_keys=True))
+    else:
+        print(render_report(dump, top=args.top), end="")
+    if args.check:
+        n = len(dump["events"])
+        print(
+            f"compile-ledger check OK: {n} compile event(s), all "
+            "registered, no exact-signature recompiles, dump byte-stable"
+        )
+    return 0
+
+
+def build_memory_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m distilp_torch.cli.solver_cli memory",
+        description="render the memory ledger (obs.memory): per-entry "
+        "static memory models (the CUDA allocator's peak over a first "
+        "dispatch, its temp/argument/output bytes; a loop plan's owned "
+        "bytes), allocated/reserved/RSS watermarks, the warm-path leak-gate "
+        "verdict, and ops/memmodel.py's analytic peak beside the measured "
+        "figures — from a live run (--trace, replayed through `serve` with "
+        "the ledger on) or a dumped "
+        "JSONL (--load). Rendering a dump is a pure function: the same "
+        "dump produces byte-identical reports on every replay",
+    )
+    p.add_argument(
+        "--load", default=None, metavar="FILE",
+        help="render a ledger JSONL previously dumped by "
+        "`serve --memory-out` (or --out below); no backend needed",
+    )
+    p.add_argument(
+        "--trace", default=None,
+        help="live mode: replay this churn trace (single- or multi-fleet) "
+        "with the memory ledger enabled and render the resulting ledger",
+    )
+    p.add_argument(
+        "--profile", "-p", default=None,
+        help="profile folder (required with --trace)",
+    )
+    p.add_argument("--synthetic-fleet", type=int, default=0, metavar="M")
+    p.add_argument("--fleet-seed", type=int, default=0)
+    p.add_argument("--workers", type=int, default=1)
+    p.add_argument("--mip-gap", type=float, default=1e-3)
+    p.add_argument("--k-candidates", default=None)
+    p.add_argument(
+        "--lp-backend", choices=["ipm", "pdhg", "auto"], default="auto",
+        help="LP engine pin for the live replay (each engine's entry "
+        "points get their own static model)",
+    )
+    p.add_argument(
+        "--warm-events", type=int, default=2, metavar="N",
+        help="leak-gate baseline: marked once every replayed fleet has "
+        "handled N events (see `serve --compile-warm-events`)",
+    )
+    p.add_argument(
+        "--memory-budget-mb", type=float, default=None,
+        help="headroom budget for the live replay (default: MemTotal)",
+    )
+    _add_device(p)
+    p.add_argument(
+        "--analytic-m", default=None, metavar="M[,M...]",
+        help="fleet sizes to print ops/memmodel.py's analytic peak_bytes for "
+        "(both engines) beside the measured figures (default with --trace: "
+        "the replayed fleets' sizes)",
+    )
+    p.add_argument(
+        "--out", default=None, metavar="FILE",
+        help="also save the live run's ledger JSONL here",
+    )
+    p.add_argument(
+        "--json", action="store_true",
+        help="print the ledger summary as one JSON object instead of text",
+    )
+    p.add_argument(
+        "--check", action="store_true",
+        help="exit 1 unless the ledger is clean: the leak gate was "
+        "marked AND allocated bytes stayed flat across the warm phase, "
+        "no watermark sample failed, and the JSONL round-trips "
+        "byte-stably (the smoke-memory contract)",
+    )
+    return p
+
+
+def memory_main(argv=None) -> int:
+    """``memory``: render/check the memory ledger."""
+    args = build_memory_parser().parse_args(argv)
+
+    from ..obs.memory import (
+        memory_from_jsonl,
+        memory_to_jsonl,
+        render_report,
+    )
+
+    if bool(args.load) == bool(args.trace):
+        print(
+            "error: exactly one of --load or --trace is required",
+            file=sys.stderr,
+        )
+        return 2
+
+    if args.load:
+        try:
+            text = Path(args.load).read_text(encoding="utf-8")
+            dump = memory_from_jsonl(text)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot load {args.load}: {e}", file=sys.stderr)
+            return 2
+    else:
+        if not args.profile:
+            print("error: --trace needs --profile", file=sys.stderr)
+            return 2
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = (
+                Path(args.out) if args.out else Path(tmp) / "memory.jsonl"
+            )
+            serve_argv = [
+                "--trace", args.trace,
+                "--profile", args.profile,
+                "--quiet",
+                "--workers", str(args.workers),
+                "--mip-gap", str(args.mip_gap),
+                "--lp-backend", args.lp_backend,
+                "--compile-warm-events", str(args.warm_events),
+                "--memory-out", str(out_path),
+            ]
+            if args.device:
+                serve_argv += ["--device", args.device]
+            if args.memory_budget_mb is not None:
+                serve_argv += [
+                    "--memory-budget-mb", str(args.memory_budget_mb),
+                ]
+            if args.synthetic_fleet:
+                serve_argv += [
+                    "--synthetic-fleet", str(args.synthetic_fleet),
+                    "--fleet-seed", str(args.fleet_seed),
+                ]
+            if args.k_candidates:
+                serve_argv += ["--k-candidates", args.k_candidates]
+            # The delegated serve run's summary goes to stderr: stdout
+            # must carry exactly the report (or the --json object), the
+            # `compiles` convention.
+            import contextlib
+            import io
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = serve_main(serve_argv)
+            if buf.getvalue():
+                print(buf.getvalue(), end="", file=sys.stderr)
+            if rc != 0:
+                return rc
+            text = out_path.read_text(encoding="utf-8")
+            dump = memory_from_jsonl(text)
+
+    if args.check:
+        failures = []
+        summary = dump["header"].get("summary", {})
+        leak = summary.get("leak")
+        if leak is None and not any(
+                r.get("live_bytes") is not None for r in dump["samples"]):
+            failures.append(
+                "leak gate has no allocated bytes to read (no CUDA device in "
+                "the run: the CPU path records them as absent)"
+            )
+        elif leak is None:
+            failures.append(
+                "leak gate never marked (the replay ended before the "
+                "warm boundary — fewer events than --warm-events?)"
+            )
+        elif not leak.get("flat"):
+            failures.append(
+                f"warm serving GREW allocated bytes: "
+                f"{leak['baseline_bytes']} -> {leak['last_bytes']} "
+                f"({leak['growth_bytes']:+d} B) — drift/spec ticks must "
+                "allocate nothing persistent"
+            )
+        marks = summary.get("watermarks", {})
+        if marks.get("sample_errors", 0):
+            failures.append(
+                f"{marks['sample_errors']} watermark sample(s) failed"
+            )
+        if memory_to_jsonl(dump) != text:
+            failures.append("memory JSONL does not round-trip byte-stably")
+        if failures:
+            for f in failures:
+                print(f"memory-ledger check FAILED: {f}", file=sys.stderr)
+            return 1
+
+    if args.json:
+        print(json.dumps(dump["header"].get("summary", {}), sort_keys=True))
+    else:
+        print(render_report(dump), end="")
+        sizes = _memory_analytic_sizes(args)
+        if sizes:
+            print(_render_analytic(dump, sizes), end="")
+    if args.check:
+        summary = dump["header"].get("summary", {})
+        analyzed = sum(
+            1
+            for e in summary.get("entries", {}).values()
+            if e.get("memory")
+        )
+        print(
+            f"memory-ledger check OK: {analyzed} entry model(s), warm "
+            "phase flat, dump byte-stable"
+        )
+    return 0
+
+
+def _memory_analytic_sizes(args) -> list:
+    """The fleet sizes ``memory`` prints the analytic model for."""
+    if args.analytic_m:
+        return sorted({int(x) for x in args.analytic_m.split(",") if x.strip()})
+    if not args.trace:
+        return []
+    if args.synthetic_fleet:
+        return [args.synthetic_fleet]
+    from ..gateway.traces import is_gateway_trace, make_fleet_from_spec, read_gateway_trace
+
+    if is_gateway_trace(args.trace):
+        specs, _ = read_gateway_trace(args.trace)
+        return sorted({len(make_fleet_from_spec(f, spec)) for f, spec in specs.items()})
+    from ..common import load_from_profile_folder
+
+    return [len(load_from_profile_folder(Path(args.profile))[0])]
+
+
+def _render_analytic(dump: dict, sizes) -> str:
+    """ops/memmodel.py's analytic peak working set per fleet size and engine,
+    beside the largest measured first-dispatch peak of the solver's entry
+    points in the dump (a pure function of its arguments)."""
+    from ..ops.memmodel import ENGINES, peak_bytes
+
+    entries = dump["header"].get("summary", {}).get("entries", {})
+    measured = [
+        (e.get("memory") or {}).get("peak_bytes")
+        for name, e in entries.items() if name.startswith("solver.")
+    ]
+    measured = [v for v in measured if v is not None]
+    peak = max(measured) if measured else None
+    out = ["", "  analytic model (ops/memmodel.peak_bytes, dense) vs measured:"]
+    out.append("    measured solver peak (largest first-dispatch delta): "
+               + ("n/a" if peak is None else f"{peak} ({peak / 1e6:.2f} MB)"))
+    for M in sizes:
+        for engine in ENGINES:
+            model = peak_bytes(M, engine)
+            ratio = "n/a" if peak is None else f"{peak / model:.1f}x"
+            out.append(f"    M={M:<5d} {engine:<5s} analytic={model} "
+                       f"({model / 1e6:.2f} MB) measured/analytic={ratio}")
+    return "\n".join(out) + "\n"
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -1451,13 +2878,16 @@ def main(argv=None) -> int:
         return serve_main(argv[1:])
     if argv and argv[0] == "spans":
         return spans_main(argv[1:])
-    if argv and argv[0] in DEFERRED_SUBCOMMANDS:
-        print(
-            f"error: the '{argv[0]}' subcommand is not part of the port yet "
-            f"(ROADMAP.md {DEFERRED_SUBCOMMANDS[argv[0]]})",
-            file=sys.stderr,
-        )
-        return 2
+    if argv and argv[0] == "overload":
+        return overload_main(argv[1:])
+    if argv and argv[0] == "slo":
+        return slo_main(argv[1:])
+    if argv and argv[0] == "autoscale":
+        return autoscale_main(argv[1:])
+    if argv and argv[0] == "compiles":
+        return compiles_main(argv[1:])
+    if argv and argv[0] == "memory":
+        return memory_main(argv[1:])
     args = build_parser().parse_args(argv)
     if (args.mesh_shards or 1) > 1:
         # As the reference's CLI forces its host mesh: with fewer devices

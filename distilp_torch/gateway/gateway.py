@@ -83,11 +83,13 @@ _AGGREGATED_SHARD_COUNTERS = (
     "combine_local",
     "combine_stale",
     "combine_fallback",
+    # Compile-ledger tick attribution (obs.compile_ledger): which shards'
+    # ticks paid kernel loads or graph captures, aggregated for the
+    # serving-tier dashboard.
+    "compiles",
+    "compile_cache_hits",
+    "recompile_storms",
 )
-
-# What the reference's compile and memory ledgers do here, the port does
-# not do yet.
-_LEDGERS = "ROADMAP A14b, compile and memory ledgers for CUDA"
 
 
 class QueueFull(Exception):
@@ -177,11 +179,6 @@ class Gateway:
 
         if n_workers < 1:
             raise ValueError("gateway needs at least one worker")
-        if mem_degrade_headroom_bytes is not None:
-            raise NotImplementedError(
-                "mem_degrade_headroom_bytes reads the memory ledger, which "
-                f"is not part of the port yet ({_LEDGERS})"
-            )
         self.n_workers = n_workers
         self.scheduler_kwargs = dict(scheduler_kwargs or {})
         if device is None:
@@ -348,9 +345,12 @@ class Gateway:
         #       under PRESSURE: a speculative shard whose exact bank probe
         #       misses may serve a certified near-match (mode='spec_near')
         #       instead of queueing a solve past its deadline;
-        #   mem_degrade_headroom_bytes — memory-headroom floor; it reads
-        #       the memory ledger, not part of the port yet (A14b), so
-        #       setting it raises above.
+        #   mem_degrade_headroom_bytes — memory-headroom floor (needs a
+        #       live obs.memory ledger): when budget - RSS drops below
+        #       it, ingest marks ticks under the SAME pressure flag —
+        #       composing with degrade_depth, so a memory-squeezed
+        #       gateway degrades to spec_near serving before the OOM
+        #       killer degrades it to nothing.
         self.max_queue_depth = max_queue_depth
         #   combine        — route coalesce batches through the cross-shard
         #       solve combiner (distilp_torch.combine): each shard's pending
@@ -361,6 +361,7 @@ class Gateway:
         #       (padding ladder, lane cap, flush deadline).
         self.coalesce = coalesce or combine
         self.degrade_depth = degrade_depth
+        self.mem_degrade_headroom_bytes = mem_degrade_headroom_bytes
         self.combine = combine
         self._combine_policy = None
         self._combiner = None
@@ -383,6 +384,7 @@ class Gateway:
             max_queue_depth is not None
             or self.coalesce
             or degrade_depth is not None
+            or mem_degrade_headroom_bytes is not None
         )
         # Pending coalesce batches: shard key -> the batch dict its queued
         # drain closure will consume. Guarded by one lock (ingest may come
@@ -422,9 +424,18 @@ class Gateway:
 
     def _make_worker(self, worker_id: int) -> ShardWorker:
         if self.worker_backend == "process":
+            from ..obs import compile_ledger as _cl
             from .procworker import ProcShardWorker
 
-            w = ProcShardWorker(worker_id, metrics=self.metrics)
+            # The child mirrors the parent's compile-ledger enablement:
+            # a ledgered run gets per-process compile attribution (read
+            # back through ledger_counters()); an unledgered run pays
+            # nothing.
+            w = ProcShardWorker(
+                worker_id,
+                metrics=self.metrics,
+                compile_ledger=_cl.current() is not None,
+            )
             if self._supervise:
                 self._supervisors[worker_id] = Supervisor(**self._sup_kwargs)
                 self._recover_locks[worker_id] = make_lock("gateway.recover")
@@ -609,11 +620,6 @@ class Gateway:
                 "combine needs in-process shard access; use thread "
                 "workers or disable combine"
             )
-        if mem_degrade_headroom_bytes is not None:
-            raise NotImplementedError(
-                "mem_degrade_headroom_bytes reads the memory ledger, which "
-                f"is not part of the port yet ({_LEDGERS})"
-            )
         old_combiner = None
         with self._admission_lock:
             if self._pending or self._combine_inflight:
@@ -625,6 +631,7 @@ class Gateway:
             self.max_queue_depth = max_queue_depth
             self.coalesce = coalesce or combine
             self.degrade_depth = degrade_depth
+            self.mem_degrade_headroom_bytes = mem_degrade_headroom_bytes
             if combine != self.combine or combine_policy is not None:
                 old_combiner = self._combiner
                 self._combiner = None
@@ -645,12 +652,33 @@ class Gateway:
                 max_queue_depth is not None
                 or self.coalesce
                 or degrade_depth is not None
+                or mem_degrade_headroom_bytes is not None
             )
         if old_combiner is not None:
             # Outside the lock: stop() joins the flush thread, whose
             # deliveries take worker queues — never while holding the
             # admission lock an ingest path also needs.
             old_combiner.stop()
+
+    def _mem_pressure(self) -> bool:
+        """True when the memory-headroom floor is configured AND the live
+        memory ledger reports headroom below it. Cost: a cached-or-/proc
+        RSS read (~0.1 ms worst case, no device read) — cheap enough per
+        ingest. No ledger (or no readable RSS) means no verdict:
+        degrade-on-low-headroom degrades on EVIDENCE, never on absence.
+        """
+        if self.mem_degrade_headroom_bytes is None:
+            return False
+        from ..obs import memory as _mem
+
+        led = _mem.current()
+        if led is None:
+            return False
+        headroom = led.headroom_bytes()
+        if headroom is None or headroom >= self.mem_degrade_headroom_bytes:
+            return False
+        self.metrics.inc("mem_pressure")
+        return True
 
     def warm_combine(self, fleet_ids: Optional[Sequence[str]] = None) -> dict:
         """Capture every combined graph the committed policy can reach.
@@ -972,6 +1000,7 @@ class Gateway:
         pressure = (
             (self.degrade_depth is not None and depth >= self.degrade_depth)
             or self._forced_pressure
+            or self._mem_pressure()
         )
         structural = getattr(event, "kind", None) in STRUCTURAL_KINDS
         if self.coalesce and not structural:
@@ -2344,8 +2373,25 @@ class Gateway:
                 "c.workers_quarantined",
             ):
                 out.setdefault(name, 0.0)
-        # The reference adds its compile and memory ledgers' series here;
-        # the port has neither yet (A14b).
+        from ..obs import compile_ledger as _cl
+
+        led = _cl.current()
+        if led is not None:
+            # Process-wide compile telemetry (the ledger sees every
+            # worker thread's kernel loads and captures, attributed or
+            # not); the series set is timeline_series's one definition,
+            # shared with Scheduler.timeline_sample so the two serving
+            # shapes' names cannot drift.
+            out.update(led.timeline_series())
+        from ..obs import memory as _mem
+
+        mled = _mem.current()
+        if mled is not None:
+            # mem.* watermark gauges (obs.memory.timeline_series — same
+            # one-definition contract as the compile series): allocated
+            # bytes by device, RSS/HWM, headroom. Absent when
+            # unavailable, never zeroed; feature-off byte-identical.
+            out.update(mled.timeline_series())
         return out
 
     def slo_status(self) -> dict:
@@ -2356,20 +2402,28 @@ class Gateway:
         return self.slo_engine.status()
 
     def signals(self) -> dict:
-        """The ``GET /signals`` autoscaling payload: built by the SLO
-        layer's ``build_signals``, which is not part of the port yet
-        (ROADMAP A12c); without a timeline, a KeyError (HTTP 404) as in
-        the reference."""
+        """The ``GET /signals`` autoscaling payload (versioned, schema'd
+        by ``obs.slo.SignalsPayload``)."""
         if self.timeline is None:
             raise KeyError(
                 "signals need a metrics timeline (serve --slo <spec> "
                 "or --timeline-dir; burn rates need --slo)"
             )
-        raise NotImplementedError(
-            "the signals payload is built by the SLO layer, which is not "
-            "part of the port yet (ROADMAP A12c, open-loop traffic, "
-            "control and SLO)"
-        )
+        from ..obs.slo import build_signals
+
+        return build_signals(
+            self.timeline,
+            engine=self.slo_engine,
+            capacity_eps=self.capacity_eps,
+            combine=(
+                self._combiner.snapshot()
+                if self._combiner is not None
+                else None
+            ),
+            recovery=(
+                self.recovery_status() if self._supervise else None
+            ),
+        ).model_dump()
 
     def flight_snapshot(self, fleet_id: str) -> List[dict]:
         """The fleet's live flight-recorder ring (``GET /debug/flight/<fleet>``)."""

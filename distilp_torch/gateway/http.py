@@ -1,8 +1,6 @@
 """Minimal HTTP/1.1 JSON API over the gateway (stdlib asyncio only).
 
-The port's copy of ``distilp_tpu/gateway/http.py``. ``GET /signals`` needs
-the SLO layer (ROADMAP A12c): with a timeline attached it answers 500
-naming that item, without one 404 as in the reference.
+The port's copy of ``distilp_tpu/gateway/http.py``.
 
 Five routes:
 

@@ -19,9 +19,11 @@ This harness is CLOSED-loop by construction: each fleet's next event
 waits for the previous placement, so offered load can never exceed
 capacity and the numbers here are throughput at-or-below saturation.
 The OPEN-loop side — timestamped arrival schedules fired regardless of
-completion, against the gateway's admission control — is ROADMAP A12c
-in the port. On a box with C cores the honest ceiling of a worker sweep
-is min(workers, C)×, so read a scaling ratio next to the machine.
+completion, against the gateway's admission control — lives in
+``distilp_torch.traffic`` (its closed-loop capacity probe reuses this
+module's ``replay_concurrent``). On a box with C cores the honest ceiling
+of a worker sweep is min(workers, C)×, so read a scaling ratio next to the
+machine.
 
 Runnable directly:
 
@@ -175,7 +177,9 @@ async def replay_concurrent(
         )
     )
     if on_timed_start is not None:
-        # The warmup barrier IS the cold/warm boundary.
+        # The warmup barrier IS the cold/warm boundary: the compile
+        # ledger's arm snapshots its event seq here, so compiles after
+        # this callback are warm-phase compiles by construction.
         on_timed_start()
     t_start = time.perf_counter()
     await asyncio.gather(
@@ -233,15 +237,11 @@ def run_loadgen(
     additionally runs a background thread rendering the Prometheus
     exposition at that period for the arm's duration (its per-worker round
     trips queue behind live solves, exactly like a sidecar hitting
-    ``/metrics``). ``compile_ledger``/``memory_ledger`` are the reference's
-    ledger arms, not part of the port yet (ROADMAP A14b): asking for one
-    raises.
+    ``/metrics``). ``compile_ledger``/``memory_ledger`` split the arm's
+    kernel loads and graph captures, and its allocator watermarks, at the
+    warmup barrier (``report["compile"]``, ``report["mem"]``; per child
+    under ``report["proc_workers"]`` on the process backend).
     """
-    if compile_ledger or memory_ledger:
-        raise NotImplementedError(
-            "the compile and memory ledgers are not part of the port yet "
-            "(ROADMAP A14b, compile and memory ledgers for CUDA)"
-        )
     total_events = events_per_fleet + warmup_per_fleet
     specs = make_fleet_specs(n_fleets, fleet_size=fleet_size, seed=seed)
     items = make_loadgen_trace(specs, total_events, seed=seed, scenario=scenario)
@@ -252,6 +252,31 @@ def run_loadgen(
         "k_candidates": list(k_candidates) if k_candidates else None,
     }
     kwargs.update(scheduler_kwargs or {})
+    # Compile-ledger arm: reuse the process
+    # ledger if one is already enabled, otherwise enable for this arm and
+    # disable after — the interleaved ledger-OFF arms must run the true
+    # passthrough path or the overhead measurement lies. Enabled BEFORE
+    # the Gateway exists: process workers inherit the ledger decision at
+    # spawn time (the child gets --compile-ledger only if the parent's
+    # ledger is live when _make_worker runs).
+    led = led_owned = None
+    warm_tok: dict = {"seq": None}
+    if compile_ledger:
+        from ..obs import compile_ledger as _cl
+
+        led = _cl.current()
+        if led is None:
+            led = led_owned = _cl.enable()
+    # Memory-ledger arm: same reuse-or-own
+    # contract as the compile ledger — the interleaved OFF arms must run
+    # the true passthrough path or the overhead measurement lies.
+    mled = mled_owned = None
+    if memory_ledger:
+        from ..obs import memory as _mem
+
+        mled = _mem.current()
+        if mled is None:
+            mled = mled_owned = _mem.enable()
     gateway = Gateway(
         n_workers=n_workers,
         scheduler_kwargs=kwargs,
@@ -287,8 +312,44 @@ def run_loadgen(
             scraper.start()
         if sampler is not None:
             sampler.start()
+        arm_tok = led.seq() if led is not None else 0
+        # Per-CHILD warm baselines on the process backend: each worker
+        # subprocess runs its own compile ledger, and the federation
+        # zero-recompile gate is per process, not per parent.
+        proc_warm_base: Dict[int, Optional[int]] = {}
+
+        def _on_timed_start() -> None:
+            # The warmup barrier is BOTH ledgers' warm boundary: compile
+            # events after it are warm-phase compiles, allocated growth
+            # after it is a leak.
+            if led is not None:
+                warm_tok["seq"] = led.seq()
+            if mled is not None:
+                mled.mark_warm()
+            if worker_backend == "process":
+                for w in gateway.live_workers():
+                    c = w.ledger_counters()
+                    proc_warm_base[w.worker_id] = (
+                        c.get("compiles", 0) if c else None
+                    )
+
         measure_from = {f: warmup_per_fleet for f in specs}
-        report = asyncio.run(replay_concurrent(gateway, items, measure_from))
+        report = asyncio.run(
+            replay_concurrent(
+                gateway,
+                items,
+                measure_from,
+                on_timed_start=(
+                    None
+                    if (
+                        led is None
+                        and mled is None
+                        and worker_backend != "process"
+                    )
+                    else _on_timed_start
+                ),
+            )
+        )
         snap = gateway.metrics_snapshot()
         report.update(
             {
@@ -305,6 +366,24 @@ def run_loadgen(
                 ],
             }
         )
+        if worker_backend == "process":
+            # Per-child compile view: total compiles and the timed-phase
+            # delta against the warm baseline (None when the child runs
+            # without a ledger).
+            per_proc: Dict[str, dict] = {}
+            for w in gateway.live_workers():
+                c = w.ledger_counters()
+                base = proc_warm_base.get(w.worker_id)
+                total = c.get("compiles", 0) if c else None
+                per_proc[f"w{w.worker_id}"] = {
+                    "compiles": total,
+                    "warm_phase_compiles": (
+                        total - base
+                        if total is not None and base is not None
+                        else None
+                    ),
+                }
+            report["proc_workers"] = per_proc
         if prom_scrape_s is not None:
             report["prom_scrape_errors"] = snap["counters"].get(
                 "prom_scrape_error", 0
@@ -316,11 +395,58 @@ def run_loadgen(
             report["timeline_sample_errors"] = snap["counters"].get(
                 "timeline_sample_error", 0
             )
+        if led is not None:
+            # The arm's compile view, split at the warmup barrier: cold
+            # compiles paid during warmup vs compiles during the TIMED
+            # phase — the latter is the zero-recompile headline.
+            arm_events = led.events_since(arm_tok)
+            boundary = warm_tok["seq"]
+            warm_events = [
+                e for e in arm_events
+                if boundary is not None and e["seq"] > boundary
+            ]
+            report["compile"] = {
+                "cold_compiles": len(arm_events) - len(warm_events),
+                "warm_phase_compiles": len(warm_events),
+                "cache_hits": sum(
+                    1 for e in arm_events if e.get("cache") == "hit"
+                ),
+                "entries": sorted({e["entry"] for e in arm_events}),
+                "unregistered": sorted(
+                    {
+                        e["entry"]
+                        for e in arm_events
+                        if e["entry"] == "(unregistered)"
+                    }
+                ),
+                "warm_entries": sorted({e["entry"] for e in warm_events}),
+            }
+        if mled is not None:
+            # One forced end-of-arm sample (the gateway is quiescent
+            # here: every fleet's last event resolved), so the leak
+            # verdict compares the warm baseline against the arm's true
+            # final live bytes, not a stale mid-phase throttle hit.
+            mled.sample(force=True)
+            report["mem"] = {
+                "leak": mled.leak_report(),
+                "watermarks": mled.summary()["watermarks"],
+                "entries_analyzed": sum(
+                    1 for r in mled.analyses.values() if r.get("memory")
+                ),
+            }
         return report
     finally:
         # close() stops the attached scraper first, then the workers —
-        # the ordering lives in Gateway.close, not per harness.
+        # the ordering lives in Gateway.close now, not per harness.
         gateway.close()
+        if led_owned is not None:
+            from ..obs import compile_ledger as _cl
+
+            _cl.disable()
+        if mled_owned is not None:
+            from ..obs import memory as _mem
+
+            _mem.disable()
 
 
 def main(argv=None) -> int:

@@ -340,10 +340,12 @@ class ProcShardWorker(ShardWorker):
         *,
         python: Optional[str] = None,
         spawn_timeout_s: float = 60.0,
+        compile_ledger: bool = False,
     ):
         self._sock_dir = tempfile.mkdtemp(prefix=f"distilp-pw{worker_id}-")
         self._python = python
         self._spawn_timeout_s = spawn_timeout_s
+        self._compile_ledger = compile_ledger
         # Per child generation: its start (spawn to first ping, ms) and the
         # nvcc runs it reported (the kernel libraries are the parent's).
         self.child_starts_ms: list = []
@@ -360,7 +362,7 @@ class ProcShardWorker(ShardWorker):
         self.recovery_hook: Optional[Callable[["ProcShardWorker"], bool]] = None
         # Serializes request/reply pairs on the one channel: the worker
         # thread is the steady-state caller but control-plane reads
-        # (health probes under load) share it.
+        # (health probes under load, ledger snapshots) share it.
         self._rpc_lock = make_lock("procworker.rpc")
         self.worker_id = worker_id
         t0 = time.perf_counter()
@@ -390,6 +392,8 @@ class ProcShardWorker(ShardWorker):
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (root, env.get("PYTHONPATH")) if p
         )
+        if self._compile_ledger:
+            cmd.append("--compile-ledger")
         self._proc = subprocess.Popen(cmd, env=env)
         self._listener.settimeout(self._spawn_timeout_s)
         try:
@@ -615,12 +619,10 @@ class ProcShardWorker(ShardWorker):
     # -- child observability -------------------------------------------------
 
     def ledger_counters(self) -> Optional[dict]:
-        """The child's compile-ledger counters: the port has no compile
-        ledger yet."""
-        raise NotImplementedError(
-            "per-process compile ledgers are not part of the port yet "
-            "(ROADMAP A14b, compile and memory ledgers for CUDA)"
-        )
+        """The CHILD's compile-ledger counters (None when not enabled):
+        each child process keeps its own ledger of the kernel libraries it
+        loads and the graphs it captures."""
+        return self.rpc({"op": "ledger_counters"})
 
     def child_report(self) -> dict:
         """What the parent saw of its children: each generation's start
@@ -717,10 +719,10 @@ def _child_dispatch(shards: Dict[str, Any], req: dict) -> Any:
             sched.close()
         return None
     if op == "ledger_counters":
-        raise NotImplementedError(
-            "per-process compile ledgers are not part of the port yet "
-            "(ROADMAP A14b, compile and memory ledgers for CUDA)"
-        )
+        from ..obs import compile_ledger as _cl
+
+        led = _cl.current()
+        return led.counters() if led is not None else None
     raise ValueError(f"unknown procworker op {op!r}")
 
 
@@ -738,7 +740,13 @@ def child_main(argv: Optional[list] = None) -> int:
 
     ap = argparse.ArgumentParser(prog="distilp-procworker")
     ap.add_argument("--socket", required=True)
+    ap.add_argument("--compile-ledger", action="store_true")
     args = ap.parse_args(argv)
+
+    if args.compile_ledger:
+        from ..obs import compile_ledger as _cl
+
+        _cl.enable()
 
     sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     sock.connect(args.socket)

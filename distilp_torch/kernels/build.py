@@ -23,6 +23,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
+from ..obs import compile_ledger as _compile_ledger
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 
 # kernel library -> (source file, extra nvcc flags). The rounding and the
@@ -203,8 +205,14 @@ def _nvcc() -> str:
 
 
 def _compile(nvcc: str, name: str, out_dir: Path) -> tuple:
-    """(library path, whether nvcc ran for it): a library whose hash is
+    """(library path, whether nvcc ran for it, ms): a library whose hash is
     already in ``out_dir`` is reused."""
+    t0 = time.perf_counter()
+    path, ran = _build(nvcc, name, out_dir)
+    return path, ran, (time.perf_counter() - t0) * 1e3
+
+
+def _build(nvcc: str, name: str, out_dir: Path) -> tuple:
     src, extra = SOURCES[name]
     h = hashlib.sha256()
     for f in (src, *HEADERS):
@@ -241,18 +249,22 @@ def load_all() -> Dict[str, ctypes.CDLL]:
             built = dict(
                 zip(SOURCES, ex.map(lambda n: _compile(nvcc, n, out_dir), SOURCES))
             )
-        paths = {name: path for name, (path, _) in built.items()}
         BUILD_STATS["build_s"] = time.perf_counter() - t0
         # nvcc runs of this process (0 when every library was in the cache:
         # a gateway's worker process reuses what its parent built).
-        BUILD_STATS["nvcc_runs"] = sum(ran for _, ran in built.values())
-        for name, path in paths.items():
+        BUILD_STATS["nvcc_runs"] = sum(ran for _, ran, _ in built.values())
+        for name, (path, ran, ms) in built.items():
+            t1 = time.perf_counter()
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = RESTYPES.get(fn, ctypes.c_int)
             _LIBS[name] = lib
+            # One compile-ledger event a library: its build (or cache
+            # lookup) and its load.
+            _compile_ledger.note_build(name, path.stem.rsplit("_", 1)[-1],
+                                       ms + (time.perf_counter() - t1) * 1e3, ran)
         return _LIBS
 
 

@@ -10,12 +10,24 @@
   records, dumped to a post-mortem JSONL on breaker-open or a
   chaos-contract violation;
 - ``timeline`` — bounded per-series time series sampled from the
-  scheduler's metrics at a fixed cadence, with a JSONL dump/load;
-- ``convergence`` — typed reports over the solver's convergence telemetry.
-
-Not ported yet: the SLO engine (ROADMAP A12c) and the compile and memory
-ledgers (ROADMAP A14b).
+  serving tier's metrics at a fixed cadence, with a JSONL dump/load;
+- ``convergence`` — typed reports over the solver's convergence telemetry;
+- ``compile_ledger`` — the card's cold-start telemetry: every kernel
+  library loaded (an ``nvcc`` run or a build-cache hit) and every CUDA
+  graph captured, attributed to the port's instrumented entry points and
+  classified by cause, a recompile-storm alarm, and the ``compiles``
+  report — the layer the zero-recapture warm-serving gate reads;
+- ``memory`` — the memory ledger riding the same entry-point registry:
+  per-entry static models from the CUDA caching allocator's peak
+  statistics, allocated/reserved/RSS watermarks with a warm-path leak gate,
+  the ``mem_headroom_bytes`` signal, and the ``memory`` report;
+- ``slo`` — declarative SLO specs compiled into error budgets with
+  multi-window multi-burn-rate alert rules, the ``GET /slo``/
+  ``GET /signals`` payloads (``SignalsPayload`` is the versioned
+  autoscaling contract) and the ``slo`` CLI's offline timeline replay.
 """
+
+from . import compile_ledger, memory
 
 from .convergence import (
     CONV_DIGEST_KEYS,
@@ -36,7 +48,21 @@ from .export import (
     top_spans,
 )
 from .flight import FlightRecorder
-from .timeline import Timeline, TimelineSampler, flatten_metrics_snapshot
+from .slo import (
+    AlertRule,
+    BurnWindow,
+    SignalsPayload,
+    SLOConfig,
+    SLOEngine,
+    SLOSpec,
+    build_signals,
+)
+from .timeline import (
+    Timeline,
+    TimelineSampler,
+    flatten_metrics_snapshot,
+    synthesize_overload_timeline,
+)
 from .trace import (
     NOOP_SPAN,
     NOOP_TRACER,
@@ -65,6 +91,16 @@ __all__ = [
     "Timeline",
     "TimelineSampler",
     "flatten_metrics_snapshot",
+    "synthesize_overload_timeline",
+    "SLOConfig",
+    "SLOSpec",
+    "SLOEngine",
+    "AlertRule",
+    "BurnWindow",
+    "SignalsPayload",
+    "build_signals",
+    "compile_ledger",
+    "memory",
     "CONV_DIGEST_KEYS",
     "LPChunkSample",
     "ConvergenceTrace",

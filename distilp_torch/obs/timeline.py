@@ -23,13 +23,12 @@ Semantics worth knowing:
   tick degrades resolution, never correctness.
 - **Dump/load is JSONL** like the flight recorder: a header line, then
   one ``{"t", "s", "v"}`` object per point, oldest first per series —
-  the format the JAX package's ``solver slo --timeline`` replays.
+  ``slo --timeline`` replays a dumped run's alert evaluation offline,
+  byte-deterministically.
 
-Everything here is stdlib-only and opt-in: a scheduler with no sampler
-attached runs the exact pre-timeline code path. Ported from
-``distilp_tpu/obs/timeline.py``; the SLO engine that reads these
-timelines (``obs.slo``) and its overload fixture generator are not part of
-the port yet (ROADMAP A12c).
+Everything here is stdlib-only and opt-in: a gateway or scheduler with no
+sampler attached runs the exact pre-timeline code path. Ported from
+``distilp_tpu/obs/timeline.py``.
 """
 
 from __future__ import annotations
@@ -47,6 +46,7 @@ __all__ = [
     "Timeline",
     "TimelineSampler",
     "flatten_metrics_snapshot",
+    "synthesize_overload_timeline",
 ]
 
 
@@ -336,6 +336,60 @@ def flatten_metrics_snapshot(snap: dict, prefix: str = "") -> Dict[str, float]:
             if isinstance(v, (int, float)):
                 out[f"{prefix}lat.{name}.{key}"] = float(v)
     return out
+
+
+def synthesize_overload_timeline(
+    duration_s: float = 60.0,
+    period_s: float = 0.1,
+    burst_start_s: float = 20.0,
+    burst_end_s: float = 30.0,
+    offered_eps: float = 300.0,
+    shed_frac: float = 0.8,
+) -> Timeline:
+    """A deterministic timeline shaped like a measured overload run:
+    steady offered load, a correlated shed burst in the middle
+    (queue pinned at the admission depth, p99 blown, escalations
+    climbing), then recovery.
+
+    This is the committed-fixture generator behind
+    ``tests/traces/slo_timeline_overload.jsonl`` — a pure function of
+    its arguments (no clocks, no RNG), pinned byte-exact by the tests
+    the same way the traffic captures are, so the offline alert replay
+    is reproducible on any box. Series names follow ``Gateway.timeline_sample``'s conventions
+    so a spec written against this fixture evaluates unchanged against
+    a live gateway's timeline.
+    """
+    tl = Timeline(capacity=max(2, int(duration_s / period_s) + 1))
+    steps = int(duration_s / period_s)
+    offered = shed = escal = 0.0
+    for i in range(steps + 1):
+        t = i * period_s
+        in_burst = burst_start_s <= t < burst_end_s
+        if i > 0:
+            offered += offered_eps * period_s
+            shed += (offered_eps * shed_frac * period_s) if in_burst else 0.0
+            escal += 2.0 * period_s if in_burst else 0.0
+        # p99 spikes during the burst and decays linearly over 5 s after.
+        if in_burst:
+            p99 = 900.0
+        elif burst_end_s <= t < burst_end_s + 5.0:
+            p99 = 900.0 - (900.0 - 40.0) * (t - burst_end_s) / 5.0
+        else:
+            p99 = 40.0
+        depth = 8.0 if in_burst else 0.0
+        tl.record_many(
+            t,
+            {
+                "c.events_offered": offered,
+                "c.events_shed": shed,
+                "c.gateway_events": offered - shed,
+                "shards.solver_escalations": escal,
+                "lat.gateway_event_to_placement.p99_ms": round(p99, 3),
+                "queue_depth.w0": depth,
+                "queue_depth.w1": depth,
+            },
+        )
+    return tl
 
 
 class TimelineSampler:

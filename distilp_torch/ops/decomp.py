@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..obs.compile_ledger import instrument as _instrument
 
 # Per-device vectors the kernel reads, packed as rows of a (15, M) matrix in
 # the evaluation's dtype (the reference casts each before any arithmetic).
@@ -664,6 +665,9 @@ def decomp_bound_roots(
         return bound, z, z, z, (lam, mu, tau), m_y
     w_star, n_star, y_star = primal_hint(rd, hint_w, hint_flat, p64.e_max + 1)
     return bound, w_star, n_star, y_star, (lam, mu, tau), m_y
+
+
+decomp_bound_roots = _instrument("ops.decomp.decomp_bound_roots", decomp_bound_roots)
 
 
 def primal_hint(rd, hint_w, hint_flat, Y: int):

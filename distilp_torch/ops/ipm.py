@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import kernels
+from ..obs.compile_ledger import instrument as _instrument
 
 IPM_DEFAULT_CHUNK = 4
 THREADS = 256
@@ -246,6 +247,9 @@ def ipm_solve_batch(
     if kernels.on_cuda(*tensors):
         return _ipm_kernel(batch, iters, tol, reg, warm, skip, chunk, sparsity, trace, _values)
     return ipm_solve_batch_reference(batch, iters, tol, reg, warm, skip, chunk, trace)
+
+
+ipm_solve_batch = _instrument("ops.ipm.ipm_solve_batch", ipm_solve_batch)
 
 
 def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -77,6 +77,7 @@ from .pdhg import (
     pdhg_solve_batch,
     resolve_pdhg_dtype,
 )
+from ..obs.compile_ledger import instrument as _instrument
 
 # The kernel's phases (pdhg_sharded_kernel.cu), its pointer and int slots.
 (P_SETUP_A, P_SETUP_B, P_RES, P_RESW, P_INIT, P_STEP, P_COMMIT, P_STATS, P_DECIDE,
@@ -185,6 +186,9 @@ def sharded_pdhg(
     if replicas is not None:
         replicas[:] = outs
     return outs[0]
+
+
+sharded_pdhg = _instrument("ops.meshlp.sharded_pdhg", sharded_pdhg)
 
 
 class RowBlocks(NamedTuple):

@@ -61,6 +61,7 @@ from .ipm import (
     chunking,
     ipm_sparsity,
 )
+from ..obs.compile_ledger import instrument as _instrument
 
 # Convergence-test granularity (steps per chunk).
 PDHG_DEFAULT_CHUNK = 32
@@ -384,6 +385,9 @@ def pdhg_solve_batch(
     if kernels.on_cuda(*tensors):
         return _pdhg_kernel(batch, iters, tol_v, rt_v, warm, skip, chunk, trace)
     return pdhg_solve_batch_reference(batch, iters, tol_v, rt_v, warm, skip, chunk, trace)
+
+
+pdhg_solve_batch = _instrument("ops.pdhg.pdhg_solve_batch", pdhg_solve_batch)
 
 
 def pdhg_solve_batch_reference(

@@ -212,13 +212,13 @@ METRIC_REGISTRY = {
     # -- observability layer ----------------------------------------------
     "flight_dumps": "Flight-recorder post-mortem dumps written",
     "health_state": "Shard health as a gauge (0 healthy, 1 degraded, 2 broken)",
-    # -- compile ledger (not ported yet: ROADMAP A14b) --------------------
+    # -- compile ledger (obs.compile_ledger) ------------------------------
     "compiles": "Kernel builds and graph captures attributed to this "
     "scheduler's ticks",
     "compile_cache_hits": "Kernel builds served by the on-disk library cache",
     "recompile_storms": "Recapture-storm alarms (N same-plan graph captures "
     "in a window)",
-    # -- memory ledger (not ported yet: ROADMAP A14b) ---------------------
+    # -- memory ledger (obs.memory) ---------------------------------------
     "mem_samples": "Ticks that recorded a fresh memory-ledger watermark sample",
     "mem_pressure": "Ticks marked under pressure by low memory headroom "
     "(gateway degrade-on-low-headroom)",

@@ -22,9 +22,9 @@ Ported from ``distilp_tpu/sched/scheduler.py`` onto the port's engine: every
 replanner, speculation batch and per-k risk enumeration solves on
 ``device`` (None = cuda, raises without a GPU; ``'cpu'`` runs the kernels'
 plain versions) with ``backend='torch'`` (default) or the HiGHS oracle
-(``'cpu'``). The compile and memory ledgers of the reference (its
-``obs.compile_ledger``/``obs.memory``) are not ported yet (ROADMAP A14b): the
-tick carries no compile or memory attribution.
+(``'cpu'``). A tick's compile attribution (``obs.compile_ledger``) counts
+the kernel-library loads and CUDA-graph captures it paid; its memory
+watermark (``obs.memory``) reads the CUDA caching allocator.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ from collections import OrderedDict, deque
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 from ..common import DeviceProfile, ModelProfile
+from ..obs import compile_ledger as _compile_ledger
+from ..obs import memory as _memory
 from ..obs.trace import NOOP_SPAN, NOOP_TRACER
 from ..solver.result import HALDAResult
 from ..solver.streaming import StreamingReplanner
@@ -119,12 +121,20 @@ class _SolveWorker:
         import threading
 
         self._q: "queue.Queue" = queue.Queue()
+        # The worker's thread ident, read by the compile-ledger capture:
+        # a deadline-path solve compiles on THIS thread, and the tick's
+        # compile attribution must include it (set in _run; reads before
+        # the thread publishes it just see None and skip the filter hit).
+        self.ident = None
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="sched-solve"
         )
         self._thread.start()
 
     def _run(self) -> None:
+        import threading
+
+        self.ident = threading.get_ident()
         while True:
             item = self._q.get()
             if item is None:
@@ -480,6 +490,25 @@ class Scheduler:
         # conv_* digest when solver diagnostics ran. Reset per handle().
         self._tick_exc: dict = {}
         self._tick_conv: Optional[dict] = None
+        # This tick's compile-ledger delta (obs.compile_ledger): set by
+        # _note_compiles when a process ledger is enabled AND the tick's
+        # own threads paid at least one kernel build or graph capture;
+        # rides the flight
+        # record so a slow tick's post-mortem says WHY it was slow.
+        self._tick_compile: Optional[dict] = None
+        # This tick's memory watermark (obs.memory): set by _note_memory
+        # on ticks where the throttled ledger actually took a FRESH
+        # sample (live-array walks are ~3 us/array — unthrottled per-tick
+        # walks would blow the obs overhead budget); rides the tick span
+        # and the flight record. _mem_prev_live is the previous fresh
+        # sample's live bytes — the per-tick delta the leak gate's
+        # post-mortem reads.
+        self._tick_mem: Optional[dict] = None
+        self._mem_prev_live: Optional[int] = None
+        # Whether THIS tick applied a structural (identity-changing)
+        # event — the memory ledger re-pins its leak baseline there
+        # (structural re-allocation is provisioning, not a leak).
+        self._tick_structural = False
         self.profile_dir = profile_dir
         self._profiled = False
         if solve_on_init:
@@ -551,11 +580,33 @@ class Scheduler:
             self._span = span
             self._tick_exc = {}
             self._tick_conv = None
+            self._tick_compile = None
+            self._tick_mem = None
+            self._tick_structural = False
+            led = _compile_ledger.current()
+            tok = led.seq() if led is not None else 0
             view: Optional[PlacementView] = None
             try:
                 view = self._handle(event, pressure=pressure)
                 return view
             finally:
+                if led is not None:
+                    # BEFORE the flight note: the compile counters must be
+                    # in this tick's counter delta, not the next one's.
+                    self._note_compiles(led, tok, span)
+                mled = _memory.current()
+                if mled is not None:
+                    # No-solve ticks (spec hits, breaker short-circuits,
+                    # quarantines) still watermark at tick exit; solved
+                    # ticks already sampled on the sched.solve span. Same
+                    # ordering contract as the compile note: the memory
+                    # counters/attrs land in THIS tick's record. A
+                    # structural tick then re-pins the leak baseline —
+                    # its allocation is provisioning, not a leak.
+                    if self._tick_mem is None:
+                        self._note_memory(mled, span)
+                    if self._tick_structural:
+                        mled.note_structural()
                 span.set_attr("mode", view.mode if view is not None else "error")
                 if self._flight is not None:
                     self._flight_note(event, view, span)
@@ -596,11 +647,24 @@ class Scheduler:
             self._span = span
             self._tick_exc = {}
             self._tick_conv = None
+            self._tick_compile = None
+            self._tick_mem = None
+            self._tick_structural = False
+            led = _compile_ledger.current()
+            tok = led.seq() if led is not None else 0
             view: Optional[PlacementView] = None
             try:
                 view = self._handle_coalesced(events, pressure)
                 return view
             finally:
+                if led is not None:
+                    self._note_compiles(led, tok, span)
+                mled = _memory.current()
+                if mled is not None:
+                    if self._tick_mem is None:
+                        self._note_memory(mled, span)
+                    if self._tick_structural:
+                        mled.note_structural()
                 span.set_attr("mode", view.mode if view is not None else "error")
                 if self._flight is not None:
                     self._flight_note(last, view, span)
@@ -643,6 +707,11 @@ class Scheduler:
             self._span = span
             self._tick_exc = {}
             self._tick_conv = None
+            self._tick_compile = None
+            self._tick_mem = None
+            self._tick_structural = False
+            led = _compile_ledger.current()
+            tok = led.seq() if led is not None else 0
             view: Optional[PlacementView] = None
             ticket = None
             try:
@@ -672,6 +741,7 @@ class Scheduler:
                         )
                     view = self.latest()
                     return None, view
+                self._tick_structural = structural
                 gview, key, planner, probing = self._tick_gate(
                     structural, pressure
                 )
@@ -717,6 +787,14 @@ class Scheduler:
                 )
                 return ticket, None
             finally:
+                if led is not None:
+                    self._note_compiles(led, tok, span)
+                mled = _memory.current()
+                if mled is not None:
+                    if self._tick_mem is None:
+                        self._note_memory(mled, span)
+                    if self._tick_structural:
+                        mled.note_structural()
                 span.set_attr(
                     "mode",
                     view.mode if view is not None
@@ -744,6 +822,11 @@ class Scheduler:
             self._span = span
             self._tick_exc = {}
             self._tick_conv = None
+            self._tick_compile = None
+            self._tick_mem = None
+            self._tick_structural = False
+            led = _compile_ledger.current()
+            tok = led.seq() if led is not None else 0
             view: Optional[PlacementView] = None
             try:
                 if error is not None:
@@ -798,6 +881,12 @@ class Scheduler:
                     self._spec_presolve(ticket.key, ticket.planner, result)
                 return view
             finally:
+                if led is not None:
+                    self._note_compiles(led, tok, span)
+                mled = _memory.current()
+                if mled is not None:
+                    if self._tick_mem is None:
+                        self._note_memory(mled, span)
                 span.set_attr(
                     "mode", view.mode if view is not None else "error"
                 )
@@ -813,6 +902,7 @@ class Scheduler:
             structural = self.fleet.apply(event)
         except (ValueError, TypeError) as e:
             return self._quarantine(event, f"{type(e).__name__}: {e}")
+        self._tick_structural = structural
         self._absorbed(event, structural)
         return self._tick(structural=structural, pressure=pressure)
 
@@ -843,6 +933,7 @@ class Scheduler:
                     "placement was published; nothing safe to serve"
                 )
             return self.latest()
+        self._tick_structural = structural
         return self._tick(structural=structural, pressure=pressure)
 
     def _absorbed(self, event, structural: bool) -> None:
@@ -1003,6 +1094,14 @@ class Scheduler:
                     solve_span.set_attr(k, tick_tm[k])
             conv = {k: tick_tm[k] for k in _CONV_DIGEST_KEYS if k in tick_tm}
             self._tick_conv = conv or None
+            mled = _memory.current()
+            if mled is not None:
+                # The solve is where allocation happens: the watermark
+                # sampled HERE rides the sched.solve span (and, via
+                # _tick_mem, the flight record). No-solve ticks (spec
+                # hits, short-circuits) fall back to the handle()-exit
+                # note instead.
+                self._note_memory(mled, solve_span)
         finally:
             solve_span.end()
         self._on_clean_solve(probing)
@@ -1505,6 +1604,101 @@ class Scheduler:
         self._span.add_event("served_stale", mode=mode)
         return self.latest()
 
+    def _solve_threads(self) -> set:
+        """Thread idents this tick's solves (and presolves) may compile
+        on: the handling thread itself plus the deadline worker. The
+        compile-ledger capture filters on these so concurrent shards'
+        compiles are never cross-billed to this scheduler's tick."""
+        import threading
+
+        threads = {threading.get_ident()}
+        if self._executor is not None and self._executor.ident is not None:
+            threads.add(self._executor.ident)
+        return threads
+
+    def _note_compiles(self, led, token: int, span) -> None:
+        """Attribute this tick's compile-ledger events: counters
+        (``compiles``/``compile_cache_hits``/``recompile_storms`` +
+        the ``compile_ms`` hist) ride the shared metrics sink — and
+        therefore ``timeline_sample``'s ``c.*`` series and the gateway's
+        shard aggregation — while the event detail lands on the tick
+        span and the flight record. Zero events = zero work, and with no
+        ledger enabled this is never called (the byte-identical pin)."""
+        events = led.events_since(token, threads=self._solve_threads())
+        if not events:
+            return
+        n = len(events)
+        hits = sum(1 for e in events if e.get("cache") == "hit")
+        ms = sum(e.get("compile_ms") or 0.0 for e in events)
+        # Episode TRANSITIONS only (ev["storm_start"]), never the per-
+        # event storm flags: the counter must agree with the ledger's
+        # `storms` total and the c.recompile_storms timeline series —
+        # one alarm per episode, however many compiles it contains.
+        storms = sum(1 for e in events if e.get("storm_start"))
+        causes: dict = {}
+        for e in events:
+            causes[e["cause"]] = causes.get(e["cause"], 0) + 1
+        self.metrics.inc("compiles", n)
+        if hits:
+            self.metrics.inc("compile_cache_hits", hits)
+        if storms:
+            self.metrics.inc("recompile_storms", storms)
+        self.metrics.observe("compile_ms", ms)
+        span.set_attr("compiles", n)
+        span.set_attr("compile_ms", round(ms, 3))
+        span.set_attr(
+            "compile_causes",
+            ",".join(f"{k}:{v}" for k, v in sorted(causes.items())),
+        )
+        self._tick_compile = {
+            "count": n,
+            "ms": round(ms, 3),
+            "cache_hits": hits,
+            "causes": causes,
+            "entries": sorted({e["entry"] for e in events}),
+        }
+        if storms:
+            self._tick_compile["storms"] = storms
+            span.add_event("recompile_storm", count=storms)
+            if self._flight is not None and self._flight_pending is None:
+                # A storm is a post-mortem moment of its own class: dump
+                # the ring after this tick's record lands (same deferred
+                # shape as breaker_open, never clobbering one).
+                self._flight_pending = "recompile_storm"
+
+    def _note_memory(self, mled, span) -> None:
+        """Attribute this tick's memory watermark (obs.memory): one
+        throttled ledger sample; on ticks where a FRESH sample landed the
+        live/RSS bytes (+ the live-byte delta vs the previous fresh
+        sample — the leak gate's per-tick view) ride the tick span, the
+        ``mem_live_mb``/``mem_rss_mb`` hists and the flight record. A
+        cached (throttled) sample records nothing — attaching a stale
+        watermark to this tick would claim a measurement that did not
+        happen. With no ledger enabled this is never called (the
+        byte-identical pin)."""
+        rec = mled.sample()
+        if not rec.get("fresh"):
+            return
+        self.metrics.inc("mem_samples")
+        live = rec.get("live_bytes")
+        rss = rec.get("rss_bytes")
+        tick_mem: dict = {}
+        if live is not None:
+            self.metrics.observe("mem_live_mb", live / 1e6)
+            span.set_attr("mem_live_bytes", live)
+            tick_mem["live_bytes"] = live
+            prev = self._mem_prev_live
+            if prev is not None:
+                span.set_attr("mem_live_delta", live - prev)
+                tick_mem["live_delta"] = live - prev
+            self._mem_prev_live = live
+        if rss is not None:
+            self.metrics.observe("mem_rss_mb", rss / 1e6)
+            span.set_attr("mem_rss_bytes", rss)
+            tick_mem["rss_bytes"] = rss
+        if tick_mem:
+            self._tick_mem = tick_mem
+
     def _flight_note(self, event, view: Optional[PlacementView], span) -> None:
         """Append this tick's flight record; fire any pending post-mortem.
 
@@ -1542,6 +1736,16 @@ class Scheduler:
             # Solver-diagnostics digest (Scheduler(diagnostics=True)): the
             # tick's convergence facts next to its mode/health/deltas.
             rec["convergence"] = dict(self._tick_conv)
+        if self._tick_compile is not None:
+            # A tick that paid a kernel build or a graph capture says so —
+            # and why (cause
+            # taxonomy + which entry points): the multi-second span a
+            # post-mortem would otherwise call 'unexplained'.
+            rec["compile"] = dict(self._tick_compile)
+        if self._tick_mem is not None:
+            # The tick's memory watermark (fresh samples only): a leak's
+            # post-mortem reads which tick the live bytes stepped on.
+            rec["mem"] = dict(self._tick_mem)
         if self.speculative:
             # The post-mortem question speculation adds: was THIS tick a
             # hit or a miss, and how full was the bank when it happened?
@@ -1767,6 +1971,20 @@ class Scheduler:
             for k, v in self._tick_conv.items():
                 if isinstance(v, (int, float)) and not isinstance(v, bool):
                     out[f"conv.{k}"] = float(v)
+        led = _compile_ledger.current()
+        if led is not None:
+            # Process-wide compile telemetry (timeline_series is the one
+            # definition, shared with Gateway.timeline_sample): an SLO
+            # over c.compiles / c.recompile_storms sees a storm's full
+            # delta, and the feature-off sample stays byte-identical.
+            out.update(led.timeline_series())
+        mled = _memory.current()
+        if mled is not None:
+            # mem.* watermark gauges (obs.memory.timeline_series, the one
+            # definition shared with Gateway.timeline_sample): absent —
+            # never zeroed — when a value is unavailable, and emitted
+            # only while a ledger is enabled (feature-off byte-identical).
+            out.update(mled.timeline_series())
         return out
 
     # -- warm snapshot / restore (the gateway's drain/restore cycle) -------

@@ -75,6 +75,8 @@ from .standard_form import (
     resolve_search_params,
     rounding_arrays_np,
 )
+from ..obs import compile_ledger as _compile_ledger
+from ..obs.compile_ledger import instrument as _instrument
 
 
 def resolve_device(device=None) -> torch.device:
@@ -420,6 +422,9 @@ def solve_sweep_torch(
     if not collect:
         return PendingSweep(prep)
     return _decode_sweep(prep, _search(prep), 0)
+
+
+solve_sweep_torch = _instrument("solver.solve_sweep", solve_sweep_torch)
 
 
 def _search_params(sf: StandardForm, node_cap, beam, ipm_iters, max_rounds, ipm_warm_iters,
@@ -923,6 +928,9 @@ def solve_sweep_scenarios(
     return decoded
 
 
+solve_sweep_scenarios = _instrument("solver.solve_sweep_scenarios", solve_sweep_scenarios)
+
+
 def _per_k_entry(k: int, j: int, obj_j: float, pk, moe: bool, mip_gap: float) -> ILPResult:
     """Per-k mode: the full entry of k (index j). A bound of +inf means its
     subtree was exhausted or pruned at the gap threshold (certified, with
@@ -982,11 +990,14 @@ def _warn_per_k(results, feasible, per_k_best, pk_bound) -> None:
 _SEARCH_WORKER = ThreadPoolExecutor(max_workers=1, thread_name_prefix="distilp-search")
 
 
-def _search_on(prep: _Prepared, stream) -> dict:
-    if stream is None:
-        return _search(prep)
-    with torch.cuda.stream(stream):
-        return _search(prep)
+def _search_on(prep: _Prepared, stream, entries) -> dict:
+    # The dispatching entry points' names ride along, so that a graph the
+    # search captures here is billed to them (obs.compile_ledger).
+    with _compile_ledger.attributed(entries):
+        if stream is None:
+            return _search(prep)
+        with torch.cuda.stream(stream):
+            return _search(prep)
 
 
 class PendingSweep:
@@ -1002,7 +1013,8 @@ class PendingSweep:
         if dev.type == "cuda":
             stream = torch.cuda.Stream(device=dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
-        self._future = _SEARCH_WORKER.submit(_search_on, prep, stream)
+        self._future = _SEARCH_WORKER.submit(_search_on, prep, stream,
+                                             _compile_ledger.entry_stack())
 
 
 def collect_sweep(pending: PendingSweep):

@@ -59,6 +59,7 @@ from .backend_torch import (
 from .coeffs import HaldaCoeffs
 from .result import ILPResult
 from .standard_form import DECOMP_STEPS_COLD, DECOMP_STEPS_WARM
+from ..obs.compile_ledger import instrument as _instrument
 
 __all__ = [
     "PACKED_STATIC_ARGS",
@@ -368,3 +369,8 @@ def solve_batch(
             bnb_rounds=float(out["head"][:, 4].max()), lp_backend=st["lp_backend"],
         )
     return decoded
+
+
+solve_batch = _instrument("solver.solve_batch", solve_batch)
+
+

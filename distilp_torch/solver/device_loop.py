@@ -37,6 +37,7 @@ import contextlib
 import ctypes
 import math
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -44,6 +45,8 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..obs import compile_ledger as _compile_ledger
+from ..obs import memory as _memory
 from ..ops.ipm import (
     IPM_DEFAULT_CHUNK,
     THREADS as IPM_THREADS,
@@ -142,6 +145,22 @@ class PlanSig(NamedTuple):
     nent: int
     ncontrib: int
     index_len: int
+
+
+# The compile ledger's view of a signature: a capture with a new value of
+# one of these fields is a static-argument flip (the engine's route, the
+# iteration budgets, the per-k mode, the optional warm inputs); with new
+# values of the others only, a shape-bucket change.
+_STATIC_FIELDS = ("device", "per_k", "ipm_iters", "root_chunk", "warm_iters", "mip_gap",
+                  "max_rounds", "has_warm", "has_root_warm", "a_lanes")
+_SHAPE_FIELDS = tuple(f for f in PlanSig._fields if f not in _STATIC_FIELDS)
+
+
+def ledger_signatures(sig: PlanSig) -> Tuple[str, str]:
+    """(static signature, shape signature) of a plan for the compile
+    ledger (``obs.compile_ledger``)."""
+    return (",".join(f"{f}={getattr(sig, f)!r}" for f in _STATIC_FIELDS),
+            ",".join(f"{f}={getattr(sig, f)}" for f in _SHAPE_FIELDS))
 
 
 def plan_sig(dev, L, cap, n_k, beam, m, nf, M, per_k, ipm_iters, ipm_warm_iters,
@@ -281,6 +300,7 @@ class LoopPlan:
         self.handle = ctypes.c_ulonglong(0)
         self.busy = False
         self._keep: list = []
+        _memory.note_plan(_memory.device_bytes(vars(self), dev) if cuda else None)
 
     def _lp_out(self, R: int) -> IPMResult:
         f32, dev, m, nf = DTYPE, self.dev, self.sig.m, self.sig.nf
@@ -417,6 +437,14 @@ class LoopPlan:
         from ..kernels.build import library
 
         lib = library("bnb_loop")
+        t0 = time.perf_counter()
+        with _compile_ledger.capture_open():
+            self._capture_graph(lib, entry)
+        CAPTURES[self.sig] = CAPTURES.get(self.sig, 0) + 1
+        _compile_ledger.note_capture(*ledger_signatures(self.sig),
+                                     (time.perf_counter() - t0) * 1e3)
+
+    def _capture_graph(self, lib, entry) -> None:
         graph, handle = ctypes.c_void_p(None), ctypes.c_ulonglong(0)
         kernels.check(lib.dtk_bnb_graph_new(ctypes.byref(graph), ctypes.byref(handle)),
                       "bnb_graph create")
@@ -454,7 +482,6 @@ class LoopPlan:
             raise
         self.graph, self.handle = graph, handle
         self._stream = stream
-        CAPTURES[self.sig] = CAPTURES.get(self.sig, 0) + 1
 
     def _keep_ptrs(self, vals) -> int:
         """The address of a pointer table the plan keeps alive."""

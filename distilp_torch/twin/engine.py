@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..obs.compile_ledger import instrument as _instrument
 from .model import PlacementVectors
 
 # Per-device vectors of a placement, in the row order of the packed (14, M)
@@ -241,6 +242,9 @@ def twin_mc(
                                dropout_slowdown, degrade)
     return twin_mc_reference(vecs, scalars, samples, seed, sigmas, dropout_p,
                              dropout_slowdown, degrade)
+
+
+twin_mc = _instrument("twin.twin_mc", twin_mc)
 
 
 def _twin_mc_kernel(vecs, scalars, samples, seed, sigmas, dropout_p, dropout_slowdown,

@@ -22,7 +22,7 @@ of 3 devices, two of 4; Llama-3-70B online, k in {8, 10}, gap 1e-3, kv
   ``make smoke-gateway`` to its contract (uninterrupted, snapshot + halt,
   resume: identical placements, warm resumes, no cold re-solve).
 - Without a GPU the gateway, the combiner and the load generator raise
-  unless the caller asks for the CPU; the ledger knobs raise naming A14b.
+  unless the caller asks for the CPU; the ledger knobs are accepted.
 
 ~25 s in one process (the JAX side's compiles come from the persistent
 cache).
@@ -361,12 +361,21 @@ def test_gateway_needs_a_gpu_unless_asked_for_the_cpu(model, monkeypatch):
         SolveCombiner()
     with pytest.raises(RuntimeError, match="CUDA device"):
         gateway.run_loadgen(model, n_fleets=1, n_workers=1)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        gateway.Gateway(n_workers=1, device="cpu", mem_degrade_headroom_bytes=1e9)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        gateway.run_loadgen(model, n_fleets=1, n_workers=1, device="cpu", compile_ledger=True)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        ProcShardWorker.ledger_counters(None)
+    # The ledger knobs of A14b are part of the port now: each is accepted.
+    gw = gateway.Gateway(n_workers=1, device="cpu", mem_degrade_headroom_bytes=1e9)
+    try:
+        # No memory ledger: no verdict, so no pressure.
+        assert gw.mem_degrade_headroom_bytes == 1e9 and not gw._mem_pressure()
+    finally:
+        gw.close()
+    report = gateway.run_loadgen(model, n_fleets=1, n_workers=1, events_per_fleet=1,
+                                 k_candidates=KS, device="cpu", compile_ledger=True)
+    # On the CPU nothing is built or captured.
+    assert report["compile"]["cold_compiles"] == 0
+    assert report["compile"]["warm_phase_compiles"] == 0
+    # A child's counters come over the RPC.
+    assert ProcShardWorker.ledger_counters(SimpleNamespace(rpc=lambda req: req)) == {
+        "op": "ledger_counters"}
     gw = gateway.Gateway(n_workers=1, device="cpu")
     try:
         assert gw.device.type == "cpu" and gw.scheduler_kwargs["device"] == "cpu"
@@ -374,8 +383,8 @@ def test_gateway_needs_a_gpu_unless_asked_for_the_cpu(model, monkeypatch):
                           model)
         view = gw.handle_event("f0", LoadTick(t_comm_jitter={}))
         assert view.result.certified
-        with pytest.raises(NotImplementedError, match="A14b"):
-            gw.configure_admission(mem_degrade_headroom_bytes=1e9)
+        gw.configure_admission(mem_degrade_headroom_bytes=1e9)
+        assert gw.mem_degrade_headroom_bytes == 1e9
     finally:
         gw.close()
 

@@ -31,6 +31,11 @@
   (``tests/torch_procstub.py``); the gateway, the combiner and the load
   generator raise without a GPU unless the caller asks for the CPU, and a
   ``serve --workers 2`` runs in a process that never loads JAX.
+- So are open-loop traffic (``distilp_torch/traffic``), the autoscaler
+  (``distilp_torch/control``), the SLO engine and the compile and memory
+  ledgers (``obs/{slo,compile_ledger,memory}.py``, stdlib at import); an
+  ``overload``, an ``slo`` and an ``autoscale`` run in a process that never
+  loads JAX.
 """
 
 import ast
@@ -447,3 +452,61 @@ def test_the_gateway_and_combiner_are_checked_and_serve_without_jax(tmp_path, mo
                                "HOME": str(tmp_path)})
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
     assert '"fleets": 10' in proc.stdout
+
+
+A12C_A14B_MODULES = ("traffic/__init__", "traffic/arrivals", "traffic/openloop",
+                     "control/__init__", "control/policy", "control/controller",
+                     "obs/slo", "obs/compile_ledger", "obs/memory")
+
+
+def _top_level_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_the_traffic_control_slo_and_ledgers_are_checked_and_run_without_jax(tmp_path):
+    import subprocess
+    import sys
+
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in A12C_A14B_MODULES:
+        assert f"distilp_torch/{name}.py" in files
+        importlib.import_module("distilp_torch." + name.replace("/", ".").removesuffix(
+            ".__init__"))
+    # The SLO engine and both ledgers are stdlib (+ pydantic) at import:
+    # torch loads only inside the memory ledger's device reads.
+    for name in ("obs/slo", "obs/compile_ledger", "obs/memory", "control/policy",
+                 "control/controller"):
+        roots = set(_top_level_roots(REPO / "distilp_torch" / f"{name}.py"))
+        assert not roots & {"torch", "numpy", *FORBIDDEN}, (name, roots)
+    script = (
+        "import sys\n"
+        "from distilp_torch.cli import solver_cli\n"
+        "t = 'tests/traces/'\n"
+        "assert solver_cli.main(['overload', '--trace', t + 'openloop_diurnal_burst.jsonl',\n"
+        "    '-p', 'tests/profiles/llama_3_70b/online', '--workers', '1', '--time-scale',\n"
+        "    '0.001', '--max-queue-depth', '2', '--scheduler-factory',\n"
+        "    'tests.torch_procstub:make_scheduler', '--device', 'cpu', '--check',\n"
+        "    '--expect-sheds', '--quiet']) == 0\n"
+        "assert solver_cli.main(['slo', '--spec', t + 'slo_overload_spec.json', '--timeline',\n"
+        "    t + 'slo_timeline_overload.jsonl', '--step-s', '0.1', '--expect',\n"
+        "    t + 'slo_expected_alerts.json', '--check', '--quiet']) == 0\n"
+        "assert solver_cli.main(['autoscale', '--timeline', t + 'slo_timeline_overload.jsonl',\n"
+        "    '--policy', t + 'control_policy.json', '--spec', t + 'slo_overload_spec.json',\n"
+        "    '--step-s', '0.5', '--expect', t + 'control_expected_actions.jsonl', '--check',\n"
+        "    '--quiet']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "    'distilp_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=600,
+                          env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
+                               "HOME": str(tmp_path)})
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
