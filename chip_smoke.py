@@ -69,7 +69,12 @@ Phases (any failure exits non-zero and prints no result line):
      branch-and-bound loop's kernels (``bnb_loop_kernel.cu``: the seed, the
      round head, the loop's control and the answer) on the north star cold
      and warm and on the S=8 scenarios with lane 3 frozen, bit for bit
-     against their plain versions;
+     against their plain versions, and their MoE modes (the seed with K7,
+     its two float64 folds, the MoE seed's phases and K2 MoE's hint and
+     warm rows against the host route's seeding; the head's per-node A;
+     the answer's duals block) on Mixtral M=4 cold, per-k and over 4 load
+     regimes and the flagship cold, warm and on a margin tick, bit for bit,
+     and K7's folds within TOL_EXACT_F64;
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
   4. the main path, in eleven runs, each with the launch counts zeroed before
@@ -134,11 +139,16 @@ Phases (any failure exits non-zero and prints no result line):
      loop as one CUDA graph: every dense IPM case (the goldens, the north
      star cold and warm, per-k hermes_70b and north star, 8 scenarios, two
      lanes with an A each, the async north star, the replanner's 9 ticks)
-     on the graph route and again under the host loop, answers and final
-     states bit for bit equal, one graph launch, one read and on a static
-     hit one upload a solve, one capture a plan signature; the upload and
-     search walls of both routes, the graph solve's bound, and the walls
-     and busy shares of both routes in turns (medians of 9); (k) the
+     and every MoE case on the IPM engine (Mixtral M=4 cold, per-k and
+     over 4 load regimes as lanes, Qwen3-30B-A3B M=16, the flagship cold,
+     warm and a replanner's cold, margin and margin ticks; each with
+     ``route=graph moe_ipm``) on the graph route and again under the host
+     loop, answers and final states bit for bit equal, one graph launch,
+     one read and on a static hit one upload a solve, one capture a plan
+     signature; the upload and search walls of both routes, the graph
+     solve's bound, and the walls (MoE: and search times, runtime launches)
+     and busy shares of both routes in turns (medians of 9), a MoE round's
+     graph kernels; (k) the
      scheduler daemon: the JAX package's Makefile smokes through the port's
      ``serve`` (the chaos soak, 9 faults and 4 quarantines, with and without
      ``--speculate``; the speculation smoke on ``spec_burst.jsonl``, hits and
@@ -154,8 +164,10 @@ Phases (any failure exits non-zero and prints no result line):
      K7's by entry; every root bound (``decomp_bound_roots``) of the paths
      makes at most two K7 launches and none of the per-step entry; no
      path launches K3's entry or B15's (the round tail folds them; the
-     per-k solves of the sweep path launch no K2 entry either), and every
-     other kernel is launched at least once;
+     per-k solves of the sweep path launch no K2 entry either), every MoE
+     solve of the moe, sweep, stream and serve paths takes the graph
+     (``route=graph moe_ipm``), and every other kernel is launched at least
+     once;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
@@ -828,6 +840,216 @@ def check_bnb_loop(report: dict) -> None:
                              call_ms=call, timing=src)
 
 
+def moe_lane(case, warm=None, per_k=False, margin_state=None, devs=None):
+    """The host half (``backend_torch.LaneInput``) of a MoE case's sweep at
+    kv 8bit, on its own fleet or on ``devs``."""
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.solver.backend_torch import lane_input
+    from distilp_torch.utils import make_synthetic_fleet
+
+    _, config, M, seed, pool, _ = case
+    model = moe_model(config)
+    if devs is None:
+        devs = make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool))
+    Ks, _, coeffs, arrays = _build_instance(devs, model, None, "8bit", None, None)
+    kWs = [(k, model.L // k) for k in Ks]
+    feas = [(k, W) for k, W in kWs if W >= M]
+    return lane_input(arrays, coeffs, kWs, feas, warm=warm, margin_state=margin_state,
+                      per_k=per_k)
+
+
+def moe_loop_cases():
+    """(name, lanes, per_k) of the MoE loop checks: Mixtral M=4 cold, per-k
+    and over 4 load regimes as lanes, the flagship cold, warm (stored duals
+    and hint) and on a margin tick."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.solver.backend_torch import lane_input, solve_sweep_torch
+    from distilp_torch.utils import make_synthetic_fleet
+
+    mix = MOE_CASES[0]
+    mmodel = moe_model(mix[1])
+    mdevs = make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9))
+    regimes = []
+    for f in MIXTRAL_REGIMES:
+        Ks, _, coeffs, arrays = _build_instance(mdevs, mmodel, None, "8bit", None, f)
+        kWs = [(k, mmodel.L // k) for k in Ks]
+        regimes.append(lane_input(arrays, coeffs, kWs, [(k, W) for k, W in kWs if W >= 4]))
+    fdevs = make_synthetic_fleet(FLAGSHIP[2], seed=FLAGSHIP[3], pool_bytes=int(FLAGSHIP[4]))
+    fmodel = moe_model(FLAGSHIP[1])
+    Ks, _, coeffs, arrays = _build_instance(fdevs, fmodel, None, "8bit", None, None)
+    kWs = [(k, fmodel.L // k) for k in Ks]
+    ms: dict = {}
+    with uncounted(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, cold = solve_sweep_torch(arrays, kWs, mip_gap=MOE_GAP, coeffs=coeffs,
+                                    margin_state=ms)
+    torch.cuda.synchronize()
+    drifted = [d.model_copy() for d in fdevs]
+    drift(drifted, np.random.default_rng(3))
+    return [
+        ("mixtral_M4 cold", [moe_lane(mix)], False),
+        ("mixtral_M4 per_k", [moe_lane(mix, per_k=True)], True),
+        ("mixtral_M4 x4 lanes", regimes, False),
+        ("flagship cold", [moe_lane(FLAGSHIP, margin_state={})], False),
+        ("flagship warm", [moe_lane(FLAGSHIP, warm=cold, devs=drifted)], False),
+        ("flagship margin", [moe_lane(FLAGSHIP, warm=cold, margin_state=dict(ms))], False),
+    ]
+
+
+def check_bnb_loop_moe(report: dict) -> None:
+    """The loop kernels' MoE modes against their plain versions, bit for
+    bit, on ``moe_loop_cases``: the seed's (the root frontier, K7's problem
+    from the upload, K7, its folds, the MoE seed's phases and K2's hint and
+    warm rows, against ``backend_torch.seeded_state`` on the host route:
+    every state field and the duals block), the head's (each row's per-node
+    A and values against ``search.node_A``, its W and k, the LP inputs
+    against ``round_inputs``) and the answer's (duals block and m_y
+    included); each timed beside its plain version. Then K7's float64 folds
+    (``decomp_theta``, ``decomp_bound``) against their plain versions at
+    the flagship's and the lanes' shapes, within TOL_EXACT_F64 (sum order),
+    timed beside them and their bounds."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.kernels.build import library
+    from distilp_torch.ops import decomp as D
+    from distilp_torch.solver import device_loop as DL
+    from distilp_torch.solver.backend_torch import _prepare, _search_params, seeded_state
+    from distilp_torch.solver.search import node_A, round_inputs
+
+    lib = library("bnb_loop")
+    dev = torch.device("cuda")
+    sh = kernels.stream_handle(dev)
+    rows = {k: [] for k in ("bnb_seed", "bnb_head", "bnb_answer")}
+    folds = {"decomp_theta": [], "decomp_bound": []}
+    for name, lanes, per_k in moe_loop_cases():
+        params = _search_params(lanes[0].sf, None, None, None, None, None, "ipm", None, None,
+                                None, per_k)
+        prep = _prepare(lanes, params, MOE_GAP, dev, per_k=per_k, shared_A=True)
+        plan = prep.plan
+        if plan is None or not plan.sig.moe:
+            fail(f"MoE loop case {name} did not take the graph route")
+        plan.load_static(prep.entry)
+        data = plan.data(prep.entry)
+        sig = plan.sig
+        hp = _prepare(lanes, params, MOE_GAP, dev, per_k=per_k, shared_A=True, _host_loop=True)
+        with uncounted():
+            h_state, h_duals, h_raw, h_my, _ = seeded_state(hp)
+            plan._seed(lib, data, sh)
+        torch.cuda.synchronize()
+        bad = state_diff(plan.states[0], h_state)
+        n_k, M = sig.n_k, sig.M
+        ref_duals = torch.cat([t.reshape(sig.L, -1).to(torch.float64) for t in h_duals]
+                              + [h_raw.to(torch.float64)], 1)
+        if not bits_equal(plan.duals_out, ref_duals):
+            bad.append("duals")
+        if sig.want_my and not bits_equal(plan.m_y, h_my):
+            bad.append("m_y")
+
+        def seed_kernel():
+            with uncounted():
+                plan._seed(lib, data, sh)
+
+        def seed_plain():
+            with uncounted():
+                seeded_state(hp)
+
+        ms = cuda_ms(seed_kernel, reps=5, warmup=1)
+        plain_ms = cuda_ms(seed_plain, reps=5, warmup=1)
+        rows["bnb_seed"].append((name, bad, ms, plain_ms))
+        # Heads of the root round and a warm round on the seeded state.
+        for which, B in ((0, sig.B0), (1, sig.Bw)):
+            plan.frozen.zero_()
+            plan._head(data, sh, 0, which)
+            st = plan.states[0]
+            R = sig.L * B
+            ins = round_inputs(data, st, B, plan.frozen)
+            ref_A = node_A(data, ins.kidx, M, ins.lane)
+            lp = plan.lp_in
+            pairs = [("b", lp["b"][:R], ins.b), ("c", lp["c"][:R], ins.c),
+                     ("l", lp["l"][:R], ins.lo), ("u", lp["u"][:R], ins.hi),
+                     ("skip", lp["skip"][:R], ins.skip), ("A", plan.A_rows[which], ref_A),
+                     ("values", plan.val_rows[which],
+                      ref_A.reshape(R, -1)[:, prep.entry.sparsity.src]),
+                     ("W", plan.Wr[:R], data.Ws[ins.lane, ins.kidx]),
+                     ("k", plan.kr[:R], data.ks[ins.lane, ins.kidx])]
+            bad = [n for n, a, b in pairs if not bits_equal(a, b)]
+            ms = cuda_ms(lambda: plan._head(data, sh, 0, which))  # noqa: B023
+            plain_ms = cuda_ms(lambda: node_A(data, ins.kidx, M, ins.lane))  # noqa: B023
+            rows["bnb_head"].append((f"{name} B={B}", bad, ms, plain_ms))
+        # A root round, then the answer.
+        with uncounted():
+            plan._control(lib, sh, init=True)
+            plan._round(data, sh, 0, 1, 0)
+            plan._answer(lib, sh)
+        torch.cuda.synchronize()
+        duals = (plan.duals_out[:, :n_k], plan.duals_out[:, n_k:2 * n_k],
+                 plan.duals_out[:, 2 * n_k:2 * n_k + n_k * M].reshape(sig.L, n_k, M))
+        raw = plan.duals_out[:, 2 * n_k + n_k * M:]
+        ref = DL.answer_reference(plan, plan.states[1], (duals, raw, plan.m_y))
+        bad = [] if bits_equal(plan.answer, ref) else ["answer"]
+        ms = cuda_ms(lambda: plan._answer(lib, sh))
+        plain_ms = cuda_ms(lambda: DL.answer_reference(plan, plan.states[1],
+                                                       (duals, raw, plan.m_y)))
+        rows["bnb_answer"].append((name, bad, ms, plain_ms))
+        # K7's folds at this case's shapes (K7's own launches lie outside).
+        if not sig.has_margin:
+            ks, tau = data.ks, plan.tau
+            theta = D.theta_kernel(ks, tau)
+            ref_t = (ks - 1.0)[..., None] * D.softmax(tau)
+            err_t = max_err(theta, ref_t)
+            p64 = D.DecompBatch(rdv=plan.rdv64, bp=plan.bp64, E=plan.E64, ks=ks, Ws=data.Ws,
+                                w_max=sig.w_max, e_max=sig.e_max)
+            bound = D.bound_kernel(p64, plan.m_y, plan.any_ok, plan.lam, plan.mu)
+            ref_b = D.bound_of(p64, plan.m_y, plan.any_ok.bool(), plan.lam, plan.mu)
+            err_b = max_err(bound, ref_b)
+            nb_t = 8 * (ks.numel() + 2 * tau.numel())
+            nb_b = 8 * (plan.m_y.numel() + 3 * ks.numel() + data.Ws.numel() + sig.L) + \
+                plan.any_ok.numel()
+            folds["decomp_theta"].append((name, err_t, *time_kernel(
+                lambda: D.theta_kernel(ks, tau), "decomp_theta_kernel"),  # noqa: B023
+                cuda_ms(lambda: (ks - 1.0)[..., None] * D.softmax(tau)),  # noqa: B023
+                bound_ms(4.0 * tau.numel(), nb_t, PEAK_F64_S)))
+            folds["decomp_bound"].append((name, err_b, *time_kernel(
+                lambda: D.bound_kernel(p64, plan.m_y, plan.any_ok, plan.lam, plan.mu),  # noqa: B023
+                "decomp_bound_kernel"),
+                cuda_ms(lambda: D.bound_of(p64, plan.m_y, plan.any_ok.bool(), plan.lam,  # noqa: B023
+                                           plan.mu)),
+                bound_ms(float(plan.m_y.numel() + 4 * ks.numel()), nb_b, PEAK_F64_S)))
+        prep.release()
+        hp.release()
+    for kname, lines in rows.items():
+        for case, bad, ms, plain_ms in lines:
+            print(f"{kname} moe mode vs plain {case}: differs in {bad or 'nothing'}; "
+                  f"{ms:.4f} ms (call, CUDA events), plain {plain_ms:.4f} ms", flush=True)
+            if bad:
+                fail(f"{kname}'s MoE mode differs from its plain version on {case}: {bad}")
+        report[kname]["moe_mode"] = [dict(case=c, call_ms=ms, plain_ms=p)
+                                     for c, _, ms, p in lines]
+    for kname, lines in folds.items():
+        worst = 0.0
+        for case, (err_abs, err_rel), ms, call, src, plain_ms, (b_ms, b_by) in lines:
+            print(f"{kname} vs plain {case}: max abs err {err_abs!r} rel {err_rel!r} (allowed "
+                  f"{TOL_EXACT_F64!r} rel); {ms:.5f} ms ({src}), call {call:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms!r} ms ({b_by})", flush=True)
+            if not err_rel <= TOL_EXACT_F64:
+                fail(f"{kname} differs from its plain version on {case}: {err_rel}")
+            worst = max(worst, err_abs)
+        case, _, ms, call, src, plain_ms, (b_ms, b_by) = next(
+            ln for ln in lines if ln[0] == "flagship cold")
+        report[kname] = dict(name=kname, route="cuda",
+                             source="distilp_torch/kernels/csrc/decomp_kernel.cu",
+                             replaces="distilp_tpu/solver/backend_jax.py:963",
+                             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None, held_on=case, call_ms=call,
+                             timing=src)
+
+
 @contextlib.contextmanager
 def recorded_loops(log: list):
     """Record each search's answer (the read-back vector) and final state
@@ -921,6 +1143,39 @@ def packed_bound(report: dict, fn, sig_rounds: int, blob_bytes: int, rate: float
             "bound_ms": sum(lb.values()) + loop + upload}
 
 
+@contextlib.contextmanager
+def graph_spans():
+    """The device span (ms, CUDA events around the launch) of each loop
+    graph launched inside the block, filled in when it ends. The profiler
+    does not reliably see the kernels inside the WHILE body (it saw all,
+    some or none of them across solves), so a graph solve's device time is
+    the span of its graph launch: its kernels and the gaps between them on
+    the card."""
+    import torch
+
+    from distilp_torch.kernels.build import library
+
+    lib = library("bnb_loop")
+    launch = lib.dtk_bnb_graph_launch
+    events, spans = [], []
+
+    def spanned(graph, stream):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        err = launch(graph, stream)
+        b.record()
+        events.append((a, b))
+        return err
+
+    lib.dtk_bnb_graph_launch = spanned
+    try:
+        yield spans
+    finally:
+        lib.dtk_bnb_graph_launch = launch
+        torch.cuda.synchronize()
+        spans.extend(a.elapsed_time(b) for a, b in events)
+
+
 def packed_path(report: dict) -> dict:
     """The packed halves and the loop on the card: every dense IPM case
     solved on the graph route (one upload, one graph launch, one read) and
@@ -988,7 +1243,10 @@ def packed_path(report: dict) -> dict:
                                                        kv_bits="4bit").collect()),
         ("replanner 9 ticks", replanner_ticks),
     ]
+    moe = moe_packed_cases()
+    cases += moe["cases"]
     for name, fn in cases:
+        routes0 = dict(kernels.SHAPES["bnb_graph"])
         g0 = kernels.LAUNCHES["bnb_graph"]
         c0 = dict(PK.COPIES)
         graph_log: list = []
@@ -1015,8 +1273,16 @@ def packed_path(report: dict) -> dict:
         if not (same_ans and same_state) or n_graph != solves or d2h != solves:
             fail(f"packed {name}: the graph route differs from the host loop or did not run "
                  f"as one graph launch and one read a solve")
+        if name.startswith("moe "):
+            routes = {k: v - routes0.get(k, 0) for k, v in kernels.SHAPES["bnb_graph"].items()
+                      if v != routes0.get(k, 0)}
+            print(f"packed {name}: routes {json.dumps(routes)}", flush=True)
+            if any(not k.startswith("route=graph moe_ipm") for k in routes):
+                fail(f"packed {name}: a MoE solve left the graph route: {routes}")
         del got
-    caps = {f"L={s.L} B0={s.B0} Bw={s.Bw} M={s.M} per_k={s.per_k} warm={s.has_warm}": c
+    caps = {f"L={s.L} B0={s.B0} Bw={s.Bw} M={s.M} per_k={s.per_k} warm={s.has_warm} "
+            f"moe={s.moe} decomp_steps={s.decomp_steps} margin={s.has_margin} "
+            f"duals={s.has_duals} m_y={s.want_my}": c
             for s, c in DL.CAPTURES.items()}
     print("packed graph captures per signature", json.dumps(caps), flush=True)
     if any(c != 1 for c in DL.CAPTURES.values()):
@@ -1063,39 +1329,16 @@ def packed_path(report: dict) -> dict:
         ("per_k north_star", lambda: halda_solve_per_k(north, model, mip_gap=1e-3,
                                                        kv_bits="4bit")),
     ]
-    # The profiler does not reliably see the kernels inside the WHILE body
-    # (it saw all, some or none of them across solves), so a graph solve's
-    # device time is the span of its graph launch by CUDA events: its
-    # kernels and the gaps between them on the card.
-    from distilp_torch.kernels.build import library
-
-    lib = library("bnb_loop")
-    launch = lib.dtk_bnb_graph_launch
-    spans: list = []
-
-    def spanned(graph, stream):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        err = launch(graph, stream)
-        b.record()
-        spans.append((a, b))
-        return err
-
     with uncounted():
         for name, fn in timing:
             walls = {"host": [], "graph": []}
-            lib.dtk_bnb_graph_launch = spanned
-            try:
+            with graph_spans() as spans:
                 for rep in range(9):
                     for route in (("host", "graph") if rep % 2 == 0 else ("graph", "host")):
                         ctx = DL.host_loop() if route == "host" else contextlib.nullcontext()
                         with ctx:
                             walls[route].append(timed(fn)[1])
-            finally:
-                lib.dtk_bnb_graph_launch = launch
-            torch.cuda.synchronize()
-            span = statistics.median(a.elapsed_time(b) for a, b in spans)
-            spans.clear()
+            span = statistics.median(spans)
             with DL.host_loop():
                 busy = _busy_ms(fn)
             line = {"case": name}
@@ -1106,7 +1349,154 @@ def packed_path(report: dict) -> dict:
             line["graph"].update(device_span_ms=span, span_share=span / line["graph"][
                 "wall_ms_median_of_9"])
             print("packed timing", json.dumps(line), flush=True)
+    moe_packed_timing(moe)
     return launches
+
+
+def moe_packed_cases() -> dict:
+    """Path (j)'s MoE cases: Mixtral M=4 cold, per-k and over 4 load
+    regimes as lanes, Qwen3-30B-A3B M=16, the DeepSeek-V3 flagship cold,
+    warm (stored duals and hint, drifted fleet) and a replanner's cold,
+    margin and margin ticks; and the fleets and the flagship's cold result
+    for the timing."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from distilp_torch.solver import StreamingReplanner, halda_solve, halda_solve_per_k
+    from distilp_torch.utils import make_synthetic_fleet
+
+    def fleet(case):
+        _, config, M, seed, pool, _ = case
+        return make_synthetic_fleet(M, seed=seed, pool_bytes=int(pool)), moe_model(config)
+
+    mdevs, mmodel = fleet(MOE_CASES[0])
+    qdevs, qmodel = fleet(MOE_CASES[2])
+    fdevs, fmodel = fleet(FLAGSHIP)
+    kw = dict(mip_gap=MOE_GAP, kv_bits="8bit")
+    with uncounted():
+        fcold = halda_solve(fdevs, fmodel, **kw)
+    torch.cuda.synchronize()
+    fdrift = [d.model_copy() for d in fdevs]
+    drift(fdrift, np.random.default_rng(3))
+
+    def flagship_ticks():
+        planner = StreamingReplanner(**kw)
+        devs = [d.model_copy() for d in fdevs]
+        rng = np.random.default_rng(7)
+        out = []
+        for t in range(3):
+            if t:
+                drift(devs, rng)
+            out.append(planner.step(devs, fmodel))
+        if planner.last_tick_mode != "margin":
+            fail(f"the flagship's third tick was {planner.last_tick_mode}, not a margin tick")
+        return out
+
+    def quiet(fn):
+        def run():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                return fn()
+        return run
+
+    cases = [
+        ("moe mixtral_M4 cold", lambda: halda_solve(mdevs, mmodel, **kw)),
+        ("moe mixtral_M4 per_k", quiet(lambda: halda_solve_per_k(mdevs, mmodel, **kw))),
+        ("moe qwen3_30b_a3b_M16 cold", lambda: halda_solve(qdevs, qmodel, **kw)),
+        ("moe flagship cold", lambda: halda_solve(fdevs, fmodel, **kw)),
+        ("moe flagship warm", lambda: halda_solve(fdrift, fmodel, warm=fcold, **kw)),
+        ("moe flagship ticks cold margin margin", flagship_ticks),
+        ("moe mixtral_M4 x4 lanes", lambda: mixtral_regimes_solve(mmodel)),
+    ]
+    return dict(cases=cases, mixtral=(mdevs, mmodel), qwen=(qdevs, qmodel),
+                flagship=(fdevs, fmodel, fcold, fdrift))
+
+
+def moe_packed_timing(moe: dict) -> None:
+    """Path (j)'s MoE walls: each case solved on the host loop and on the
+    graph in turns (9 each), median wall and search time (``solve_ms``) of
+    each route, the host loop's kernel busy time and share (profiler) and
+    the graph launch's device span (CUDA events); then one solve's runtime
+    kernel launches on each route and the graph's kernels a round."""
+    import statistics
+
+    import numpy as np
+
+    from distilp_torch import kernels
+    from distilp_torch.solver import StreamingReplanner, halda_solve
+    from distilp_torch.solver import device_loop as DL
+
+    mdevs, mmodel = moe["mixtral"]
+    qdevs, qmodel = moe["qwen"]
+    fdevs, fmodel, fcold, fdrift = moe["flagship"]
+    kw = dict(mip_gap=MOE_GAP, kv_bits="8bit")
+    planner = StreamingReplanner(**kw)
+    tick = [d.model_copy() for d in fdevs]
+    with uncounted():
+        planner.step(tick, fmodel)
+    drift(tick, np.random.default_rng(7))
+    modes = []
+
+    def margin_tick(tm):
+        r = planner.step(tick, fmodel, timings=tm)
+        modes.append(planner.last_tick_mode)
+        return r
+
+    timing = [
+        ("mixtral_M4 cold", lambda tm: halda_solve(mdevs, mmodel, timings=tm, **kw)),
+        ("qwen3_30b_a3b_M16 cold", lambda tm: halda_solve(qdevs, qmodel, timings=tm, **kw)),
+        ("flagship cold", lambda tm: halda_solve(fdevs, fmodel, timings=tm, **kw)),
+        ("flagship warm", lambda tm: halda_solve(fdrift, fmodel, warm=fcold, timings=tm, **kw)),
+        ("flagship margin tick", margin_tick),
+    ]
+    with uncounted():
+        for name, fn in timing:
+            walls = {"host": [], "graph": []}
+            search = {"host": [], "graph": []}
+            with graph_spans() as spans:
+                for rep in range(9):
+                    for route in (("host", "graph") if rep % 2 == 0 else ("graph", "host")):
+                        tm: dict = {}
+                        with DL.host_loop() if route == "host" else contextlib.nullcontext():
+                            walls[route].append(timed(lambda: fn(tm))[1])  # noqa: B023
+                        search[route].append(tm.get("solve_ms", float("nan")))
+            span = statistics.median(spans)
+            with DL.host_loop():
+                busy = _busy_ms(lambda: fn({}))  # noqa: B023
+                host_kl = kernel_launches(lambda: fn({}))  # noqa: B023
+            graph_kl = kernel_launches(lambda: fn({}))  # noqa: B023
+            tm = {}
+            fn(tm)
+            line = {"case": name, "card": smi_line(), "rounds": tm.get("bnb_rounds"),
+                    "decomp_steps": tm.get("decomp_steps")}
+            for route in ("host", "graph"):
+                wall = statistics.median(walls[route])
+                line[route] = {"wall_ms_median_of_9": wall, "walls_ms": walls[route],
+                               "search_ms_median_of_9": statistics.median(search[route]),
+                               "search_ms": search[route]}
+            line["host"].update(kernel_busy_ms=busy, busy_share=busy / line["host"][
+                "wall_ms_median_of_9"], runtime_launches=host_kl["runtime_launches"],
+                device_kernels=host_kl["device_kernels"])
+            line["graph"].update(device_span_ms=span, span_share=span / line["graph"][
+                "wall_ms_median_of_9"], runtime_launches=graph_kl["runtime_launches"],
+                graph_launches=graph_kl["wrappers"].get("bnb_graph", 0))
+            print("packed moe timing", json.dumps(line), flush=True)
+    if any(m != "margin" for m in modes):
+        fail(f"the timed flagship ticks were not all margin ticks: {modes}")
+    # A MoE round in the graph: the head, K1, K2's MoE mode, the round tail
+    # and the control (count_graph_launches' account of one round).
+    sig = next(s for s in DL.CAPTURES if s.moe and s.L == 1 and not s.per_k)
+    with uncounted():
+        before = dict(kernels.LAUNCHES)
+        DL.count_graph_launches(sig._replace(decomp_steps=0, has_margin=True, has_warm=False),
+                                np.array([[0.0, 0.0, 0.0, 0.0, 3.0]]))
+        per = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    per_round = {k: v // 3 for k, v in per.items()
+                 if k in ("bnb_head", "ipm", "round_moe", "round_tail", "bnb_control")}
+    print(f"packed moe graph kernels a round {json.dumps(per_round)} "
+          f"({sum(per_round.values())} graph kernel nodes)", flush=True)
 
 
 # ------------------------------------------------------------ serve (path k)
@@ -7394,12 +7784,12 @@ def main() -> int:
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
               check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces,
               check_collective, check_pdhg_sharded, check_pdhg_sharded_elem, check_round_tail,
-              check_bnb_loop]
+              check_bnb_loop, check_bnb_loop_moe]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_routes", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
              "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded",
-             "pdhg_sharded_elem", "round_tail", "bnb_loop"]
+             "pdhg_sharded_elem", "round_tail", "bnb_loop", "bnb_loop_moe"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -7445,6 +7835,15 @@ def main() -> int:
                           "pdhg_sharded", "pdhg_sharded_elem", "decomp", "decomp_lanes",
                           "bnb_graph")}
     print("main path launches by shape", json.dumps(by_shape), flush=True)
+    # MoE sweeps on the IPM engine take the loop's graph on every path that
+    # solves one (the host loop only where a comparison asks for it).
+    for p in ("moe", "sweep", "stream", "serve"):
+        routes = by_shape["bnb_graph"][p]
+        moe_routes = {k: v for k, v in routes.items() if "moe" in k}
+        print(f"{p} path MoE routes {json.dumps(moe_routes)}", flush=True)
+        if not any(k.startswith("route=graph moe_ipm") for k in moe_routes) or any(
+                k.startswith("route=host moe") for k in moe_routes):
+            fail(f"the {p} path's MoE solves did not take the graph route: {moe_routes}")
     # K3's entry and B15's run only inside the round tail's plain version:
     # every round, per-k or not, is one round tail after its LP call.
     folded = {k: launches[k] for k in FOLDED_INTO_TAIL if launches[k]}
@@ -7467,7 +7866,8 @@ def main() -> int:
                  "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes",
                  "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
                  "pdhg_sharded", "pdhg_sharded_elem", "collective", "round_tail",
-                 "round_tail_lanes", "bnb_seed", "bnb_head", "bnb_control", "bnb_answer"):
+                 "round_tail_lanes", "bnb_seed", "bnb_head", "bnb_control", "bnb_answer",
+                 "decomp_theta", "decomp_bound"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

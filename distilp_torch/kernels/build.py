@@ -97,6 +97,8 @@ SIGNATURES = {
         "dtk_decomp_f64_ws_bytes": [_I, _I],
         "dtk_decomp_eval_f64": [_P] * 5 + [_I] * 5 + [_P] * 3 + [_I] * 3 + [_P, _L]
         + [_P] * 5 + [_P],
+        "dtk_decomp_theta_f64": [_P] * 3 + [_I] * 3 + [_P] * 5,
+        "dtk_decomp_bound_f64": [_P] * 6 + [_I] * 4 + [_P, _P],
     },
     "bnb_epilogue": {
         "dtk_bnb_epilogue": [_P] * 15 + [_P] * 5 + [_I] * 3 + [_P] * 11 + [_I, _P],
@@ -159,6 +161,8 @@ SIGNATURES = {
     "bnb_loop": {
         "dtk_bnb_seed_smem": [_I, _I],
         "dtk_bnb_seed": [_P, _P, _P],
+        "dtk_bnb_seed_moe_smem": [_I],
+        "dtk_bnb_seed_moe": [_P, _P, _P],
         "dtk_bnb_head": [_P, _P, _P],
         "dtk_bnb_control": [_P, _P, _D, ctypes.c_ulonglong, _P],
         "dtk_bnb_answer": [_P, _P, _P],
@@ -174,7 +178,7 @@ SIGNATURES = {
 RESTYPES = {"dtk_pdhg_ws_bytes": _S, "dtk_pdhgs_ws_bytes": _S, "dtk_pdhgc_smem_bytes": _S,
             "dtk_decomp_ascent_ws_bytes": _S, "dtk_decomp_f64_ws_bytes": _S,
             "dtk_round_moe_tab_bytes": _L, "dtk_round_tail_smem_bytes": _L,
-            "dtk_round_tail_ws_bytes": _L, "dtk_bnb_seed_smem": _L,
+            "dtk_round_tail_ws_bytes": _L, "dtk_bnb_seed_smem": _L, "dtk_bnb_seed_moe_smem": _L,
             "dtk_bnb_graph_free": None, "dtk_bnb_graph_discard": None}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,9 @@
-// The branch-and-bound loop of a dense IPM sweep on the card: the seeded
-// root state, every round's LP inputs, the loop's control and the answer,
-// and the CUDA graph that runs them with K1 (ipm_kernel.cu) and the round
-// tail (round_tail_kernel.cu) between, the loop as a conditional WHILE node.
+// The branch-and-bound loop of a sweep on the IPM engine (dense or MoE) on
+// the card: the seeded root state, every round's LP inputs, the loop's
+// control and the answer, and the CUDA graph that runs them with K1
+// (ipm_kernel.cu), for a MoE sweep K7 (decomp_kernel.cu) and K2's MoE mode
+// (round_moe_kernel.cu), and the round tail (round_tail_kernel.cu) between,
+// the loop as a conditional WHILE node.
 //
 // Replaces distilp_tpu/solver/backend_jax.py::_solve_packed_impl (:2100:
 // the root state, the warm incumbent's re-pricing, the answer as one float64
@@ -36,6 +38,25 @@
 //                       k's assignment and bound, then the root round's
 //                       iterates (a lane that skipped it: the carried-in
 //                       ones).
+// MoE sweeps (_solve_packed_impl's MoE parts, :2239-2350, :2437-2445; the
+// MoE branch of _round_to_incumbent, :721-783):
+//   bnb_seed_kernel     also gathers K7's problem of every lane from the
+//                       upload (float32 rounded to nearest, as numpy casts),
+//                       the ascent's start (the stored duals or zeros), b'
+//                       and E, and zeroes the float64 evaluation's counters;
+//   K7, its folds       cold: the fused ascent, then theta, the float64
+//                       evaluation with the hint and the bound; warm: the
+//                       three at the stored duals; margin: none;
+//   bnb_seed_moe_kernel phase 0: the root bounds, the answer's duals block,
+//                       the hint cells' LP points (n* rebuilt from the
+//                       candidate) and the warm hint's; phase 1, after K2
+//                       MoE's hint rows: the best repaired hint and each k's;
+//                       phase 2, after its warm row: the warm hint's;
+//   bnb_head_kernel     also writes each row's k's 2M expert-busy entries
+//                       into its dense A and its values on the structure
+//                       (K1's per-node route), and its W and k (K2 MoE);
+//   K2 MoE's LP rows    between K1 and the round tail (pre-rounded rows);
+//   bnb_answer_kernel   also writes the duals block and, asked, the y-profile.
 // The graph: seed, init, the root round (state A -> B), then WHILE { round
 // B -> A, round A -> B }, then the answer. A lane settled in the body's first
 // round is frozen in its second, so its state passes through unchanged;
@@ -71,6 +92,9 @@ constexpr int SEED_THREADS = 256;
 constexpr int HEAD_THREADS = 128;
 constexpr int CONTROL_THREADS = 256;
 constexpr int ANSWER_THREADS = 256;
+constexpr int MOE_SEED_THREADS = 128;
+// K7's per-device rows (ops/decomp.py::RD_DEV_FIELDS), at most.
+constexpr int DEV_ROWS = 16;
 
 // The state of L lanes, in search.SearchState's order.
 struct State {
@@ -121,6 +145,26 @@ struct SeedParams {
   long rd_stride;
   const double* obj_const;   // (L,)
   State s;
+  // MoE mode (moe != 0; the dense re-pricing above is then off): K7's
+  // problem of every lane gathered from the upload, in both dtypes (the
+  // float32 copy rounded to nearest, as numpy casts), the ascent's starting
+  // multipliers, contiguous copies of b' and E, and the float64
+  // evaluation's row counters zeroed.
+  int moe, n_dev_rows;
+  int dev_rows[DEV_ROWS];    // the packed row of each of K7's rows
+  long count_len;
+  const double* rd_scalars;  // (L, 2) b', E
+  const double* duals;       // (L, n_k (2 + M)) lam, mu, tau, or null (zeros)
+  float* rdv32;              // (L, n_dev_rows, M)
+  double* rdv64;
+  float* bp32;               // (L,)
+  float* E32;
+  double* bp64;
+  double* E64;
+  float* ks32;               // (L, n_k)
+  float* Ws32;
+  float* P0;                 // (L, n_k (2 + M))
+  int* count;                // (count_len,)
 };
 
 // search.root_state, then search.seed_warm's dense re-pricing. The node
@@ -154,6 +198,28 @@ __global__ void __launch_bounds__(SEED_THREADS) bnb_seed_kernel(const __grid_con
     s.bound[e] = -INFINITY;
     s.active[e] = root ? 1 : 0;
     s.nwarm[e] = (root && p.has_root_warm) ? (p.rw_ok[l * n_k + r] ? 1 : 0) : 0;
+  }
+  if (p.moe) {
+    const size_t M = p.M, R = p.n_dev_rows;
+    for (size_t e = gt; e < L * R * M; e += gs) {
+      const size_t l = e / (R * M), r = (e / M) % R, i = e % M;
+      const double x = p.rd[l * p.rd_stride + (size_t)p.dev_rows[r] * M + i];
+      p.rdv64[e] = x;
+      p.rdv32[e] = __double2float_rn(x);
+    }
+    for (size_t e = gt; e < L; e += gs) {
+      p.bp64[e] = p.rd_scalars[2 * e];
+      p.E64[e] = p.rd_scalars[2 * e + 1];
+      p.bp32[e] = __double2float_rn(p.rd_scalars[2 * e]);
+      p.E32[e] = __double2float_rn(p.rd_scalars[2 * e + 1]);
+    }
+    for (size_t e = gt; e < L * n_k; e += gs) {
+      p.ks32[e] = __double2float_rn(p.ks[e]);
+      p.Ws32[e] = __double2float_rn(p.Ws[e]);
+    }
+    for (size_t e = gt; e < L * n_k * (2 + M); e += gs)
+      p.P0[e] = p.duals != nullptr ? __double2float_rn(p.duals[e]) : 0.0f;
+    for (size_t e = gt; e < (size_t)p.count_len; e += gs) p.count[e] = 0;
   }
   if (blockIdx.x >= L) return;
   const int l = blockIdx.x, M = p.M, tid = threadIdx.x;
@@ -224,6 +290,216 @@ __global__ void __launch_bounds__(SEED_THREADS) bnb_seed_kernel(const __grid_con
   }
 }
 
+// -------------------------------------------------------------- MoE seed
+
+// The MoE seed around K7 and K2's MoE mode (search.seed_root_bounds and
+// seed_warm with moe), a block a lane, in three phases:
+//   0  after K7 (or, on a margin tick, instead of it): the root bounds into
+//      the roots' node bounds (+ obj_const); the duals block of the answer
+//      (lam, mu, tau, raw bounds: the evaluation's, or on a margin tick the
+//      stored duals and the uploaded margin bounds); on a cold solve each
+//      k's Lagrangian-primal hint cell as an LP point (w*, n* rebuilt from
+//      the candidate, y*: ops/decomp.py::primal_hint) for K2's hint mode;
+//      given a warm hint, its point and k's (W, k) for K2's warm mode;
+//   1  after K2's hint rows: the best repaired hint (first index on ties)
+//      as the incumbent and each k's repaired hint as its best;
+//   2  after K2's warm row: the re-priced warm hint, where it beats them.
+struct MoeSeedParams {
+  int L, cap, n_k, M, phase, cold, has_warm, Y;
+  const double* obj_const;   // (L,)
+  // phase 0
+  const double* bound;       // (L, n_k) the evaluation's raw bounds
+  const double* margin;      // (L, n_k) or null
+  const double* lam;         // (L, n_k) the evaluation's multipliers
+  const double* mu;
+  const double* tau;         // (L, n_k, M)
+  const double* duals_in;    // (L, n_k (2 + M)) the stored duals (margin)
+  double* duals_out;         // (L, 3 n_k + n_k M)
+  const double* hint_w;      // (L, n_k, M)
+  const int* hint_flat;
+  const double* rd;          // (L, RD_BLOCK, M) packed rounding data
+  long rd_stride;
+  int rd_has_gpu, rd_ram_minus_n, rd_cuda_rhs, rd_metal_rhs, rd_eb_ram, rd_eb_vram,
+      rd_eb_metal, rd_ram_rhs;  // their packed rows
+  const double* bp64;        // (L,)
+  double* hint_v;            // (L n_k, 3M)
+  const long long* warm_kidx;  // (L,)
+  const double* warm_w;      // (L, M)
+  const double* warm_n;
+  const double* warm_y;
+  const double* Ws;          // (L, n_k)
+  const double* ks;
+  double* warm_v;            // (L, 3M)
+  double* warm_W;            // (L,)
+  double* warm_k;
+  // phase 1: K2's hint rows; phase 2: its warm rows
+  const double* r_obj;       // (rows,)
+  const double* r_w;         // (rows, M)
+  const double* r_n;
+  const double* r_y;
+  State s;
+};
+
+__device__ __forceinline__ int clamp_k(long long kq, int n_k) {
+  return (int)(kq < 0 ? 0 : (kq > (long long)n_k - 1 ? (long long)n_k - 1 : kq));
+}
+
+__global__ void __launch_bounds__(MOE_SEED_THREADS)
+    bnb_seed_moe_kernel(const __grid_constant__ MoeSeedParams p) {
+  extern __shared__ int moe_sm[];  // n_k flags (phase 1)
+  __shared__ int s_best;
+  const State& s = p.s;
+  const int l = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int n_k = p.n_k, M = p.M;
+  const size_t lk = (size_t)l * n_k, lm = (size_t)l * M;
+  const double inf = INFINITY;
+  if (p.phase == 0) {
+    const int dw = 3 * n_k + n_k * M;
+    double* d = p.duals_out + (size_t)l * dw;
+    const size_t pw = (size_t)n_k * (2 + M);
+    for (int k = tid; k < n_k; k += nt) {
+      const double raw = p.margin != nullptr ? p.margin[lk + k] : p.bound[lk + k];
+      s.bound[(size_t)l * p.cap + k] = raw + p.obj_const[l];
+      d[2 * n_k + n_k * M + k] = raw;
+      if (p.margin != nullptr) {
+        d[k] = p.duals_in[l * pw + k];
+        d[n_k + k] = p.duals_in[l * pw + n_k + k];
+      } else {
+        d[k] = p.lam[lk + k];
+        d[n_k + k] = p.mu[lk + k];
+      }
+    }
+    for (int e = tid; e < n_k * M; e += nt) {
+      d[2 * n_k + e] = p.margin != nullptr ? p.duals_in[l * pw + 2 * n_k + e]
+                                           : p.tau[lk * M + e];
+    }
+    if (p.cold) {
+      const double* rd = p.rd + (size_t)l * p.rd_stride;
+      const double bp = p.bp64[l];
+      const double zero = 0.0;
+      for (int e = tid; e < n_k * M; e += nt) {
+        const int k = e / M, i = e % M;
+        const size_t o = lk * M + e;
+        const double w = p.hint_w[o];
+        const long long flat = p.hint_flat[o];
+        const long long c = flat / p.Y;
+        const double y = (double)(flat % p.Y);
+        auto row = [&](int r) { return rd[(size_t)r * M + i]; };
+        const double hg = row(p.rd_has_gpu), rm = row(p.rd_ram_minus_n);
+        const double ebr = row(p.rd_eb_ram), rhs = row(p.rd_ram_rhs);
+        const double vram = nan_min(__dsub_rn(row(p.rd_cuda_rhs), __dmul_rn(row(p.rd_eb_vram), y)),
+                                    __dsub_rn(row(p.rd_metal_rhs), __dmul_rn(row(p.rd_eb_metal), y)));
+        double nb = __dmul_rn(nan_min(nan_max(floor(__ddiv_rn(vram, bp)), zero), w), hg);
+        if (!isfinite(nb)) nb = __dmul_rn(w, hg);
+        const double kink_arg = __dsub_rn(
+            __ddiv_rn(__dsub_rn(__dadd_rn(__dmul_rn(bp, w), __dmul_rn(ebr, y)), rhs), bp), 1e-9);
+        double nk = __dmul_rn(__dmul_rn(nan_min(nan_max(ceil(kink_arg), zero), w), hg), rm);
+        if (!isfinite(nk)) nk = zero;
+        const double smin_arg =
+            __dsub_rn(__ddiv_rn(__dsub_rn(__dmul_rn(ebr, y), rhs), bp), 1e-9);
+        double ns = __dmul_rn(__dmul_rn(nan_min(nan_max(ceil(smin_arg), zero), w), hg), rm);
+        if (!isfinite(ns)) ns = zero;
+        const double n = c == 0 ? zero : (c == 1 ? __dmul_rn(w, hg) : (c == 2 ? nb : (c == 3 ? nk : ns)));
+        double* v = p.hint_v + (lk + k) * 3 * M;
+        v[i] = w;
+        v[M + i] = n;
+        v[2 * M + i] = y;
+      }
+    }
+    if (p.has_warm) {
+      const int kw = clamp_k(p.warm_kidx[l], n_k);
+      double* v = p.warm_v + lm * 3;
+      for (int i = tid; i < M; i += nt) {
+        v[i] = p.warm_w[lm + i];
+        v[M + i] = p.warm_n[lm + i];
+        v[2 * M + i] = p.warm_y[lm + i];
+      }
+      if (tid == 0) {
+        p.warm_W[l] = p.Ws[lk + kw];
+        p.warm_k[l] = p.ks[lk + kw];
+      }
+    }
+    return;
+  }
+  if (p.phase == 1) {
+    // jnp/torch argmin: the first NaN, else the first minimum.
+    if (tid == 0) {
+      int jb = 0;
+      double vb = p.r_obj[lk] + p.obj_const[l];
+      for (int j = 1; j < n_k; ++j) {
+        const double v = p.r_obj[lk + j] + p.obj_const[l];
+        if (!is_nan(vb) && (is_nan(v) || v < vb)) {
+          vb = v;
+          jb = j;
+        }
+      }
+      s_best = (vb < s.inc[l]) ? jb : -1;
+    }
+    for (int j = tid; j < n_k; j += nt) {
+      const double v = p.r_obj[lk + j] + p.obj_const[l];
+      const double clean = isfinite(v) ? v : inf;
+      moe_sm[j] = clean < s.pkb[lk + j] ? 1 : 0;
+    }
+    __syncthreads();
+    const int jb = s_best;
+    for (int e = tid; e < n_k * M; e += nt) {
+      const int j = e / M;
+      if (moe_sm[j]) {
+        const size_t src = (lk + j) * M + e % M;
+        s.pkw[lk * M + e] = p.r_w[src];
+        s.pkn[lk * M + e] = p.r_n[src];
+        s.pky[lk * M + e] = p.r_y[src];
+      }
+    }
+    if (jb >= 0) {
+      for (int i = tid; i < M; i += nt) {
+        const size_t src = (lk + jb) * M + i;
+        s.inc_w[lm + i] = p.r_w[src];
+        s.inc_n[lm + i] = p.r_n[src];
+        s.inc_y[lm + i] = p.r_y[src];
+      }
+    }
+    __syncthreads();
+    for (int j = tid; j < n_k; j += nt) {
+      const double v = p.r_obj[lk + j] + p.obj_const[l];
+      s.pkb[lk + j] = nan_min(s.pkb[lk + j], isfinite(v) ? v : inf);
+    }
+    if (tid == 0 && jb >= 0) {
+      s.inc[l] = p.r_obj[lk + jb] + p.obj_const[l];
+      s.inc_kidx[l] = jb;
+    }
+    return;
+  }
+  // phase 2: the warm hint re-priced (a row a lane).
+  const int kw = clamp_k(p.warm_kidx[l], n_k);
+  const double warm_obj = p.r_obj[l] + p.obj_const[l];
+  const bool finite = isfinite(warm_obj);
+  const bool seeded = finite && warm_obj < s.inc[l];
+  const double clean = finite ? warm_obj : inf;
+  const bool seeded_k = clean < s.pkb[lk + kw];
+  const size_t ko = (lk + kw) * M;
+  for (int i = tid; i < M; i += nt) {
+    if (seeded_k) {
+      s.pkw[ko + i] = p.r_w[lm + i];
+      s.pkn[ko + i] = p.r_n[lm + i];
+      s.pky[ko + i] = p.r_y[lm + i];
+    }
+    if (seeded) {
+      s.inc_w[lm + i] = p.r_w[lm + i];
+      s.inc_n[lm + i] = p.r_n[lm + i];
+      s.inc_y[lm + i] = p.r_y[lm + i];
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    s.pkb[lk + kw] = nan_min(s.pkb[lk + kw], clean);
+    if (seeded) {
+      s.inc[l] = warm_obj;
+      s.inc_kidx[l] = kw;
+    }
+  }
+}
+
 // ------------------------------------------------------------------ head
 
 struct HeadParams {
@@ -250,6 +526,19 @@ struct HeadParams {
   float* wf;
   uint8_t* wok;           // (L*B,)
   uint8_t* skip;
+  // MoE mode (moe != 0): each row's per-node A, the sweep's base (written
+  // once when the plan loads it) with the row's k's 2M expert-busy entries
+  // written here, as a dense (m, nf) matrix (K1's certificate) and as values
+  // on the sweep's structure (K1's products), and the row's W and k (K2).
+  int moe, M, nnz;
+  const float* gky;       // (L, n_k, 2, M)
+  const int* gky_pos;     // (2, M) places in a row's values
+  float* A_rows;          // (L*B, m, nf)
+  float* vals;            // (L*B, nnz)
+  const double* Ws;       // (L, n_k)
+  const double* ks;
+  double* Wr;             // (L*B,)
+  double* kr;
 };
 
 // search._bnb_round's gathers of a round's LP inputs, a block a row.
@@ -277,6 +566,22 @@ __global__ void __launch_bounds__(HEAD_THREADS) bnb_head_kernel(const __grid_con
     p.wok[row] = p.nwarm[slot] ? 1 : 0;
     const bool live = p.active[slot] && !(p.frozen != nullptr && p.frozen[lane]);
     p.skip[row] = live ? 0 : 1;
+  }
+  if (!p.moe) return;
+  // search.node_A / node_values: rows 4M + i and 5M + i of column 2M + i.
+  const size_t M = p.M;
+  const float* g = p.gky + kb * 2 * M;
+  float* A = p.A_rows + row * m * nf;
+  float* v = p.vals + row * (size_t)p.nnz;
+  for (size_t i = threadIdx.x; i < M; i += blockDim.x) {
+    A[(4 * M + i) * nf + 2 * M + i] = g[i];
+    A[(5 * M + i) * nf + 2 * M + i] = g[M + i];
+    v[p.gky_pos[i]] = g[i];
+    v[p.gky_pos[M + i]] = g[M + i];
+  }
+  if (threadIdx.x == 0) {
+    p.Wr[row] = p.Ws[kb];
+    p.kr[row] = p.ks[kb];
   }
 }
 
@@ -396,6 +701,12 @@ struct AnswerParams {
   const float* rw_z;
   const float* rw_f;
   double* out;  // (L, width)
+  // MoE: the seed's duals block (L, dual_w) after each k's best, and the
+  // evaluation's y-profile (L, my_size) at the end, where asked.
+  int dual_w;
+  long my_size;
+  const double* duals;
+  const double* my;
 };
 
 // backend_torch._search's answer of one lane, a block a lane.
@@ -426,6 +737,11 @@ __global__ void __launch_bounds__(ANSWER_THREADS) bnb_answer_kernel(const __grid
   q += 3 * M;
   for (size_t k = tid; k < n_k; k += blockDim.x) o[q + k] = s.pkb[l * n_k + k];
   q += n_k;
+  if (p.dual_w > 0) {
+    for (size_t i = tid; i < (size_t)p.dual_w; i += blockDim.x)
+      o[q + i] = p.duals[(size_t)l * p.dual_w + i];
+    q += p.dual_w;
+  }
   if (p.per_k) {
     const size_t blk = n_k * M;
     for (size_t i = tid; i < blk; i += blockDim.x) {
@@ -469,6 +785,7 @@ __global__ void __launch_bounds__(ANSWER_THREADS) bnb_answer_kernel(const __grid
     }
     q += n_k * W;
   }
+  for (size_t i = tid; i < (size_t)p.my_size; i += blockDim.x) o[q + i] = p.my[l * p.my_size + i];
 }
 
 // ------------------------------------------------------------- the graph
@@ -487,9 +804,11 @@ extern "C" {
 // (2M), its objective and repaired w, n (1 + 2M).
 long dtk_bnb_seed_smem(int nf, int M) { return (long)sizeof(double) * (nf + 4 * (long)M + 1); }
 
-// dims: L, cap, nf, m, M, n_k, has_root_warm, has_warm, rd_stride;
-// ptrs: lo_k, hi_k, rw_ok, rw_v, rw_y, rw_z, rw_f, warm_kidx, warm_w,
-// warm_n, Ws, ks, rd, obj_const, then the state's 23.
+// dims: L, cap, nf, m, M, n_k, has_root_warm, has_warm, rd_stride, moe,
+// n_dev_rows, count_len, then DEV_ROWS packed rows; ptrs: lo_k, hi_k,
+// rw_ok, rw_v, rw_y, rw_z, rw_f, warm_kidx, warm_w, warm_n, Ws, ks, rd,
+// obj_const, then the state's 23, then (MoE) rd_scalars, duals, rdv32,
+// rdv64, bp32, E32, bp64, E64, ks32, Ws32, P0, count.
 int dtk_bnb_seed(const long long* ptrs, const int* dims, void* stream) {
   SeedParams p;
   p.L = dims[0];
@@ -511,6 +830,20 @@ int dtk_bnb_seed(const long long* ptrs, const int* dims, void* stream) {
   for (int i = 0; i < n_in; ++i) *in[i] = (const void*)ptrs[i];
   void** st = reinterpret_cast<void**>(&p.s);
   for (int i = 0; i < STATE_PTRS; ++i) st[i] = (void*)ptrs[n_in + i];
+  p.moe = dims[9];
+  p.n_dev_rows = dims[10];
+  p.count_len = dims[11];
+  if (p.moe && (p.has_warm || p.n_dev_rows < 1 || p.n_dev_rows > DEV_ROWS))
+    return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < DEV_ROWS; ++r) p.dev_rows[r] = dims[12 + r];
+  const void** moe_in[] = {(const void**)&p.rd_scalars, (const void**)&p.duals,
+                           (const void**)&p.rdv32, (const void**)&p.rdv64,
+                           (const void**)&p.bp32, (const void**)&p.E32,
+                           (const void**)&p.bp64, (const void**)&p.E64,
+                           (const void**)&p.ks32, (const void**)&p.Ws32, (const void**)&p.P0,
+                           (const void**)&p.count};
+  constexpr int n_moe = sizeof(moe_in) / sizeof(moe_in[0]);
+  for (int i = 0; i < n_moe; ++i) *moe_in[i] = (const void*)ptrs[n_in + STATE_PTRS + i];
   const size_t sm = (size_t)dtk_bnb_seed_smem(p.nf, p.M);
   if (sm > 48 * 1024) {
     cudaError_t err =
@@ -525,8 +858,63 @@ int dtk_bnb_seed(const long long* ptrs, const int* dims, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// dims: L, B, cap, nf, m, n_k; ptrs: lo, hi, kidx, active, nv, ny, nz, nf,
-// nwarm, frozen, b_k, c_k, then the 10 outputs.
+// The MoE seed's dynamic shared memory: a flag a k.
+long dtk_bnb_seed_moe_smem(int n_k) { return (long)sizeof(int) * (n_k > 0 ? n_k : 1); }
+
+// dims: L, cap, n_k, M, phase, cold, has_warm, Y, rd_stride, then the
+// packed rows of has_gpu, ram_minus_n, cuda_rhs, metal_rhs, eb_ram,
+// eb_vram, eb_metal, ram_rhs; ptrs: obj_const, bound, margin, lam, mu, tau,
+// duals_in, duals_out, hint_w, hint_flat, rd, bp64, hint_v, warm_kidx,
+// warm_w, warm_n, warm_y, Ws, ks, warm_v, warm_W, warm_k, r_obj, r_w, r_n,
+// r_y, then the state's 23.
+int dtk_bnb_seed_moe(const long long* ptrs, const int* dims, void* stream) {
+  MoeSeedParams p;
+  p.L = dims[0];
+  p.cap = dims[1];
+  p.n_k = dims[2];
+  p.M = dims[3];
+  p.phase = dims[4];
+  p.cold = dims[5];
+  p.has_warm = dims[6];
+  p.Y = dims[7];
+  p.rd_stride = dims[8];
+  p.rd_has_gpu = dims[9];
+  p.rd_ram_minus_n = dims[10];
+  p.rd_cuda_rhs = dims[11];
+  p.rd_metal_rhs = dims[12];
+  p.rd_eb_ram = dims[13];
+  p.rd_eb_vram = dims[14];
+  p.rd_eb_metal = dims[15];
+  p.rd_ram_rhs = dims[16];
+  if (p.L <= 0 || p.n_k <= 0 || p.n_k > p.cap || p.M <= 0 || p.Y <= 0 || p.phase < 0 ||
+      p.phase > 2)
+    return (int)cudaErrorInvalidValue;
+  const void** slots[] = {
+      (const void**)&p.obj_const, (const void**)&p.bound, (const void**)&p.margin,
+      (const void**)&p.lam, (const void**)&p.mu, (const void**)&p.tau, (const void**)&p.duals_in,
+      (const void**)&p.duals_out, (const void**)&p.hint_w, (const void**)&p.hint_flat,
+      (const void**)&p.rd, (const void**)&p.bp64, (const void**)&p.hint_v,
+      (const void**)&p.warm_kidx, (const void**)&p.warm_w, (const void**)&p.warm_n,
+      (const void**)&p.warm_y, (const void**)&p.Ws, (const void**)&p.ks,
+      (const void**)&p.warm_v, (const void**)&p.warm_W, (const void**)&p.warm_k,
+      (const void**)&p.r_obj, (const void**)&p.r_w, (const void**)&p.r_n, (const void**)&p.r_y};
+  constexpr int n = sizeof(slots) / sizeof(slots[0]);
+  for (int i = 0; i < n; ++i) *slots[i] = (const void*)ptrs[i];
+  void** st = reinterpret_cast<void**>(&p.s);
+  for (int i = 0; i < STATE_PTRS; ++i) st[i] = (void*)ptrs[n + i];
+  const size_t sm = (size_t)dtk_bnb_seed_moe_smem(p.n_k);
+  if (sm > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(bnb_seed_moe_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  bnb_seed_moe_kernel<<<p.L, MOE_SEED_THREADS, sm, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// dims: L, B, cap, nf, m, n_k, moe, M, nnz; ptrs: lo, hi, kidx, active, nv,
+// ny, nz, nf, nwarm, frozen, b_k, c_k, then the 10 outputs, then (MoE) gky,
+// gky_pos, A_rows, vals, Ws, ks, Wr, kr.
 int dtk_bnb_head(const long long* ptrs, const int* dims, void* stream) {
   HeadParams p;
   p.L = dims[0];
@@ -542,9 +930,16 @@ int dtk_bnb_head(const long long* ptrs, const int* dims, void* stream) {
       (const void**)&p.nwarm, (const void**)&p.frozen, (const void**)&p.b_k,
       (const void**)&p.c_k, (const void**)&p.b, (const void**)&p.c, (const void**)&p.l,
       (const void**)&p.u, (const void**)&p.wv, (const void**)&p.wy, (const void**)&p.wz,
-      (const void**)&p.wf, (const void**)&p.wok, (const void**)&p.skip};
+      (const void**)&p.wf, (const void**)&p.wok, (const void**)&p.skip,
+      (const void**)&p.gky, (const void**)&p.gky_pos, (const void**)&p.A_rows,
+      (const void**)&p.vals, (const void**)&p.Ws, (const void**)&p.ks, (const void**)&p.Wr,
+      (const void**)&p.kr};
   constexpr int n = sizeof(slots) / sizeof(slots[0]);
   for (int i = 0; i < n; ++i) *slots[i] = (const void*)ptrs[i];
+  p.moe = dims[6];
+  p.M = dims[7];
+  p.nnz = dims[8];
+  if (p.moe && (p.M <= 0 || 6 * p.M > p.m || 3 * p.M > p.nf)) return (int)cudaErrorInvalidValue;
   bnb_head_kernel<<<p.L * p.B, HEAD_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -573,8 +968,9 @@ int dtk_bnb_control(const long long* ptrs, const int* dims, double mip_gap,
   return (int)cudaGetLastError();
 }
 
-// dims: L, cap, nf, m, M, n_k, per_k, B0, width, has_root_warm; ptrs: the
-// state's 23, ran, rv, ry, rz, rf, rw_ok, rw_v, rw_y, rw_z, rw_f, out.
+// dims: L, cap, nf, m, M, n_k, per_k, B0, width, has_root_warm, dual_w,
+// my_size; ptrs: the state's 23, ran, rv, ry, rz, rf, rw_ok, rw_v, rw_y,
+// rw_z, rw_f, out, duals, my.
 int dtk_bnb_answer(const long long* ptrs, const int* dims, void* stream) {
   AnswerParams p;
   p.L = dims[0];
@@ -593,9 +989,14 @@ int dtk_bnb_answer(const long long* ptrs, const int* dims, void* stream) {
   const void** slots[] = {(const void**)&p.ran, (const void**)&p.rv, (const void**)&p.ry,
                           (const void**)&p.rz, (const void**)&p.rf, (const void**)&p.rw_ok,
                           (const void**)&p.rw_v, (const void**)&p.rw_y, (const void**)&p.rw_z,
-                          (const void**)&p.rw_f, (const void**)&p.out};
+                          (const void**)&p.rw_f, (const void**)&p.out,
+                          (const void**)&p.duals, (const void**)&p.my};
   constexpr int n = sizeof(slots) / sizeof(slots[0]);
   for (int i = 0; i < n; ++i) *slots[i] = (const void*)ptrs[STATE_PTRS + i];
+  p.dual_w = dims[10];
+  p.my_size = dims[11];
+  if ((p.dual_w > 0 && p.duals == nullptr) || (p.my_size > 0 && p.my == nullptr))
+    return (int)cudaErrorInvalidValue;
   bnb_answer_kernel<<<p.L, ANSWER_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

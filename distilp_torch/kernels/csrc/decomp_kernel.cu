@@ -14,7 +14,7 @@
 //
 //   term = lin + theta cyc - lambda w - mu y     (ok cells; else +inf/3.4e37)
 //
-// Three entries:
+// Five entries:
 // - dtk_decomp_ascent_f32, the whole ascent in one cooperative launch: the
 //   lattice is cut into work units (instance s, k, device i, a chunk of w),
 //   one block each, spread over every SM; for each of the steps + 1
@@ -43,6 +43,11 @@
 //   within it the first (candidate, y) in candidate-major order. Work units
 //   as the ascent's, one block each; the last unit of a (k, i, s) to finish
 //   folds the row's partials in chunk order.
+// - dtk_decomp_theta_f64 and dtk_decomp_bound_f64, the float64 folds around
+//   that evaluation (theta = (k - 1) softmax(tau) before it, the per-k bound
+//   from m_y after it), devices summed in order:
+//   the host route and the loop's CUDA graph both run them, so the two
+//   routes' root bounds agree bit for bit.
 //
 // A unit prices its cells with the per-step entry's functions (y_terms,
 // n_cand, cell) and forms the term with the same expression (a cell that is
@@ -810,6 +815,79 @@ int threads_for(int e_max) {
   return t > 1024 ? 1024 : t;
 }
 
+// ------------------------------------------------------------ the folds
+
+// The float64 glue around the evaluation, the devices summed in order
+// 0..M-1 (the plain versions are torch reductions, which sum in another
+// order; the two agree to the last bits). What bounds both on an H100:
+// latency (a few KB read and written; the flagship's bound fold reads its
+// 66 KB y-profile once). theta = (k - 1) softmax(tau), the evaluation's
+// input, one thread an (instance, k) row, from float64 tau or from the
+// ascent's float32 multipliers P (S, n_k (2 + M)), whose float64 (lam, mu,
+// tau) it then also writes.
+constexpr int FOLD_THREADS = 128;
+
+__global__ void decomp_theta_kernel(const float* __restrict__ P32,
+                                    const double* __restrict__ tau_in,
+                                    const double* __restrict__ ks, int rows, int n_k, int M,
+                                    double* __restrict__ lam_out, double* __restrict__ mu_out,
+                                    double* __restrict__ tau_out, double* __restrict__ theta) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const size_t s = r / n_k, k = r % n_k, pw = (size_t)n_k * (2 + M);
+  const float* P = P32 == nullptr ? nullptr : P32 + s * pw;
+  const double* tau = tau_in + (size_t)r * M;
+  auto tau_at = [&](int i) -> double {
+    return P != nullptr ? (double)P[2 * n_k + k * M + i] : tau[i];
+  };
+  if (P != nullptr) {
+    lam_out[r] = (double)P[k];
+    mu_out[r] = (double)P[n_k + k];
+    for (int i = 0; i < M; ++i) tau_out[(size_t)r * M + i] = tau_at(i);
+  }
+  double mx = -INFINITY;
+  for (int i = 0; i < M; ++i) mx = nan_max(mx, tau_at(i));
+  double sum = 0.0;
+  for (int i = 0; i < M; ++i) sum = __dadd_rn(sum, exp(__dsub_rn(tau_at(i), mx)));
+  const double km1 = __dsub_rn(ks[r], 1.0);
+  for (int i = 0; i < M; ++i)
+    theta[(size_t)r * M + i] = __dmul_rn(km1, __ddiv_rn(exp(__dsub_rn(tau_at(i), mx)), sum));
+}
+
+// The per-k bound from the evaluation's y-profile: the sum over devices of
+// each device's minimum over y, plus lam W, plus mu E; -inf where NaN, +inf
+// where some device has no ok cell (ops/decomp.py::bound_of). A block a
+// row: a warp a device takes its minimum over y (a tree of NaN-propagating
+// minima), then one thread sums the devices in order.
+constexpr int BOUND_THREADS = 256;
+
+__global__ void __launch_bounds__(BOUND_THREADS)
+    decomp_bound_kernel(const double* __restrict__ m_y, const unsigned char* __restrict__ any_ok,
+                        const double* __restrict__ lam, const double* __restrict__ mu,
+                        const double* __restrict__ Ws, const double* __restrict__ E, int n_k,
+                        int M, int Y, double* __restrict__ out) {
+  extern __shared__ double bound_mn[];  // M
+  const int r = blockIdx.x, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < M; i += nw) {
+    const double* row = m_y + ((size_t)r * M + i) * Y;
+    double v = INFINITY;
+    for (int y = lane; y < Y; y += 32) v = nan_min(v, row[y]);
+    v = warp_reduce(v, Min());
+    if (lane == 0) bound_mn[i] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  double sum = 0.0;
+  bool all_ok = true;
+  for (int i = 0; i < M; ++i) {
+    sum = __dadd_rn(sum, bound_mn[i]);
+    all_ok = all_ok && any_ok[(size_t)r * M + i] != 0;
+  }
+  double b = __dadd_rn(__dadd_rn(sum, __dmul_rn(lam[r], Ws[r])), __dmul_rn(mu[r], E[r / n_k]));
+  if (b != b) b = -INFINITY;
+  out[r] = all_ok ? b : INFINITY;
+}
+
 }  // namespace
 
 extern "C" {
@@ -981,6 +1059,40 @@ int dtk_decomp_eval_f64(const double* rdv, const double* bp, const double* E,
   a.hint_w = hint_w;
   a.hint_flat = hint_flat;
   decomp_f64_kernel<<<units, threads_for(e_max), 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// theta (S, n_k, M) = (k - 1) softmax(tau): tau from ``tau`` (S, n_k, M)
+// float64, or, with P32 (S, n_k (2 + M)) float32 given, from P32, whose
+// float64 lam, mu (S, n_k) and tau then go to the three outputs.
+int dtk_decomp_theta_f64(const float* P32, const double* tau, const double* ks, int S, int n_k,
+                         int M, double* lam, double* mu, double* tau_out, double* theta,
+                         void* stream) {
+  if (S <= 0 || n_k <= 0 || M <= 0) return 0;
+  if (P32 == nullptr ? tau == nullptr : (lam == nullptr || mu == nullptr || tau_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int rows = S * n_k;
+  decomp_theta_kernel<<<(rows + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0,
+                        (cudaStream_t)stream>>>(P32, tau, ks, rows, n_k, M, lam, mu, tau_out,
+                                                theta);
+  return (int)cudaGetLastError();
+}
+
+// bound (S, n_k) from m_y (S, n_k, M, Y), any_ok (S, n_k, M), lam, mu, Ws
+// (S, n_k) and E (S,).
+int dtk_decomp_bound_f64(const double* m_y, const unsigned char* any_ok, const double* lam,
+                         const double* mu, const double* Ws, const double* E, int S, int n_k,
+                         int M, int Y, double* bound, void* stream) {
+  if (S <= 0 || n_k <= 0 || M <= 0) return 0;
+  if (Y <= 0) return (int)cudaErrorInvalidValue;
+  const size_t sm = sizeof(double) * (size_t)M;
+  if (sm > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(decomp_bound_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+    if (err != cudaSuccess) return (int)err;
+  }
+  decomp_bound_kernel<<<S * n_k, BOUND_THREADS, sm, (cudaStream_t)stream>>>(
+      m_y, any_ok, lam, mu, Ws, E, n_k, M, Y, bound);
   return (int)cudaGetLastError();
 }
 

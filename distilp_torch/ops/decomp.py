@@ -459,14 +459,56 @@ def eval64(p: DecompBatch, lam, mu, tau, track_hint: bool):
     """The float64 evaluation at (lam, mu, tau): (bound (S, n_k), m_y,
     any_ok, hint_w, hint_flat), each with the leading instance axis. The
     bound is -inf where it is NaN and +inf for a k in which some device has
-    no feasible cell."""
-    theta = (p.ks - 1.0)[..., None] * softmax(tau)
+    no feasible cell. On CUDA tensors three launches: the theta fold, K7's
+    float64 entry and the bound fold (the loop's graph runs the same three,
+    so both routes' bounds agree bit for bit)."""
     if kernels.on_cuda(p.rdv, lam, mu, tau):
+        theta = theta_kernel(p.ks, tau)
         m_y, any_ok, hint_w, hint_flat = eval64_kernel(p, lam, mu, theta, track_hint)
-    else:
-        m_y, any_ok, hint_w, hint_flat = _reference_by_instance(
-            eval64_reference, p, lam, mu, theta, track_hint)
+        return bound_kernel(p, m_y, any_ok, lam, mu), m_y, any_ok, hint_w, hint_flat
+    theta = (p.ks - 1.0)[..., None] * softmax(tau)
+    m_y, any_ok, hint_w, hint_flat = _reference_by_instance(
+        eval64_reference, p, lam, mu, theta, track_hint)
     return bound_of(p, m_y, any_ok, lam, mu), m_y, any_ok, hint_w, hint_flat
+
+
+def theta_kernel(ks, tau):
+    """K7's theta fold on CUDA tensors: (k - 1) softmax(tau), (S, n_k, M)
+    float64 from ``ks`` (S, n_k) and ``tau``, the devices summed in order
+    (the plain version: ``(ks - 1)[..., None] * softmax(tau)``)."""
+    from ..kernels.build import library
+
+    S, n_k, M = tau.shape
+    if ks.dtype != torch.float64 or tau.dtype != torch.float64 or ks.shape != (S, n_k):
+        raise TypeError("the theta fold takes float64 ks (S, n_k) and tau (S, n_k, M)")
+    ins = [ks.contiguous(), tau.contiguous()]
+    theta = torch.empty((S, n_k, M), dtype=torch.float64, device=tau.device)
+    P, O = kernels.ptr, kernels.opt_ptr
+    err = library("decomp").dtk_decomp_theta_f64(
+        O(None), P(ins[1]), P(ins[0]), S, n_k, M, O(None), O(None), O(None), P(theta),
+        kernels.stream_handle(tau.device))
+    kernels.check(err, "decomp_theta")
+    kernels.count_launch("decomp_theta")
+    return theta
+
+
+def bound_kernel(p: DecompBatch, m_y, any_ok, lam, mu):
+    """K7's bound fold on CUDA tensors: :func:`bound_of` with the devices
+    summed in order."""
+    from ..kernels.build import library
+
+    S, n_k, M, Y = m_y.shape
+    if any(t.dtype != torch.float64 for t in (m_y, lam, mu, p.Ws, p.E)):
+        raise TypeError("the bound fold takes float64 tensors")
+    ins = [m_y.contiguous(), any_ok.to(torch.uint8).contiguous(), lam.contiguous(),
+           mu.contiguous(), p.Ws.contiguous(), p.E.contiguous()]
+    out = torch.empty((S, n_k), dtype=torch.float64, device=m_y.device)
+    P = kernels.ptr
+    err = library("decomp").dtk_decomp_bound_f64(
+        *[P(t) for t in ins], S, n_k, M, Y, P(out), kernels.stream_handle(m_y.device))
+    kernels.check(err, "decomp_bound")
+    kernels.count_launch("decomp_bound")
+    return out
 
 
 def bound_of(p: DecompBatch, m_y, any_ok, lam, mu) -> torch.Tensor:

@@ -558,10 +558,11 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     note_route(route, why, L)
     plan = pinned = None
     if route == "graph":
+        want_my = moe and not has_margin and any(ln.margin_ctx is not None for ln in lanes)
         plan = acquire_plan(plan_sig(
             dev, L, params["cap"], n_k, params["beam"], m, nf, M, per_k, params["ipm_iters"],
             params["ipm_warm_iters"], use_root_warm, mip_gap, params["max_rounds"], has_warm,
-            use_root_warm, entry))
+            use_root_warm, entry, moe_ctx, duals is not None, has_margin, want_my))
         plan.stage(lanes)
         views = plan.views
     else:
@@ -655,7 +656,8 @@ def _search(prep: _Prepared) -> dict:
             plan = prep.plan
             ans = plan.run(prep.entry, prep.warm, prep.root_warm)
             lay = plan.alay
-            duals_t = None
+            if prep.moe_ctx is not None:
+                stats.update(decomp_steps=prep.moe_ctx[2])
         else:
             state, duals_t, raw_bounds, m_y, t_decomp = seeded_state(prep)
             state, root_iters, log = run_bnb_loop(data, state, prep.mip_gap, **prep.loop_kw)
@@ -683,7 +685,7 @@ def _search(prep: _Prepared) -> dict:
         prep.release()
     out = packed.split_answer(ans, lay)
     stats["solve_ms"] = (time.perf_counter() - t2) * 1e3
-    out.update(stats=stats, has_duals=duals_t is not None)
+    out.update(stats=stats, has_duals=lay.has_duals)
     if out["m_y"] is None or not any(ln.margin_ctx is not None for ln in prep.lanes):
         out["m_y"] = None
     return out

@@ -1,33 +1,38 @@
-"""The branch-and-bound of a dense IPM sweep as one CUDA graph.
+"""The branch-and-bound of a sweep on the IPM engine as one CUDA graph.
 
 The reference runs a sweep as one device program (``distilp_tpu/solver/
 backend_jax.py::_solve_packed_impl`` :2100 with ``_run_bnb_loop`` :2732):
-the root state, the warm incumbent, the root round, a ``lax.while_loop``
-whose condition, the gap test, runs on the device, and the answer. Here a
+the root state, for a MoE sweep the root bounds and the Lagrangian-primal
+incumbents, the warm incumbent, the root round, a ``lax.while_loop`` whose
+condition, the gap test, runs on the device, and the answer. Here a
 :class:`LoopPlan` owns every buffer of a solve of one signature (shapes,
-budgets, ``mip_gap``, ``max_rounds``, which optional inputs it has) and, on
-the card, one CUDA graph over them, captured once (``bnb_loop_kernel.cu``):
+budgets, ``mip_gap``, ``max_rounds``, which optional inputs it has, the
+MoE seed's mode) and, on the card, one CUDA graph over them, captured once
+(``bnb_loop_kernel.cu``):
 
-    seed -> init -> root round (state A -> B)
+    seed [MoE: K7, its folds, the MoE seed around K2 MoE] -> init
+         -> root round (state A -> B)
          -> WHILE { round B -> A, round A -> B } -> answer
 
-a round being the head (the LP's inputs straight from the state), K1 on the
-plan's buffers, the round tail into the other state buffer, and the loop's
-control, which sets the WHILE node's condition from the device. A solve is
-then one upload of the dynamic blob (``packed``), one graph launch and one
-read of the answer. On CPU tensors the same plan runs the plain versions
-(``search.root_state``/``seed_warm``, ``search.round_inputs``, K1's and the
-round tail's plain versions, :func:`control_reference`,
+a round being the head (the LP's inputs straight from the state; a MoE
+row's per-node A), K1 on the plan's buffers, (MoE) K2 MoE's LP rows, the
+round tail into the other state buffer, and the loop's control, which
+sets the WHILE node's condition from the device. A solve is then one
+upload of the dynamic blob (``packed``), one graph launch and one read of
+the answer. On CPU tensors the same plan runs the plain versions
+(``search.root_state``/``seed_root_bounds``/``seed_warm``,
+``search.round_inputs``, the head's MoE mode, K1's, K2 MoE's and the round
+tail's plain versions, :func:`control_reference`,
 :func:`answer_reference`), a Python ``while`` standing in for the
 conditional node.
 
 The route is chosen by the configuration (:func:`loop_route`): the graph
-for dense sweeps on the IPM engine, whatever the lanes (one A or an A each)
-and per-k or not; MoE rounds (K2 MoE on a per-node A), the PDHG engine, the
-row mesh and the convergence log keep ``search.run_bnb_loop``, the host
-loop. ``kernels.SHAPES["bnb_graph"]`` counts the route of every search. A
-failed capture, instantiation or launch raises: nothing falls back to the
-host loop, which stays only as the private :func:`host_loop` for the card's
+for dense and MoE sweeps on the IPM engine, whatever the lanes (one A or
+an A each) and per-k or not; the PDHG engine, the row mesh and the
+convergence log keep ``search.run_bnb_loop``, the host loop.
+``kernels.SHAPES["bnb_graph"]`` counts the route of every search. A failed
+capture, instantiation or launch raises: nothing falls back to the host
+loop, which stays only as the private :func:`host_loop` for the card's
 comparison.
 """
 
@@ -58,8 +63,15 @@ from ..ops.ipm import (
     ipm_solve_batch,
     ipm_workspace,
 )
+from ..ops.decomp import RD_DEV_FIELDS, DecompBatch
 from . import packed
-from .rounding import PACKED_ROWS
+from .rounding import (
+    KERNEL_RD_FIELDS,
+    MOE_RD_FIELDS,
+    MOE_THREADS,
+    PACKED_ROWS,
+    moe_table_workspace,
+)
 from .search import (
     BDTYPE,
     DTYPE,
@@ -73,12 +85,21 @@ from .search import (
     per_k_bound,
     root_state,
     round_inputs,
+    round_rows,
     round_tail,
+    seed_root_bounds,
     seed_warm,
     tail_layout,
     tail_views,
 )
-from .standard_form import MOE_LOCAL_MOVES_WARM
+from .standard_form import MOE_LOCAL_MOVES, MOE_LOCAL_MOVES_WARM
+
+# The packed rounding data's row of each field (rounding.pack_rounding_data:
+# the dense vectors, b', then the MoE vectors), and the most rows of K7's
+# problem the seed's dims carry.
+_RD_ROWS = {**{f: i for i, f in enumerate(KERNEL_RD_FIELDS)}, "bprime": len(KERNEL_RD_FIELDS),
+            **{f: len(KERNEL_RD_FIELDS) + 1 + i for i, f in enumerate(MOE_RD_FIELDS)}}
+_DEV_ROWS = 16
 
 _PRIVATE = threading.local()
 
@@ -101,16 +122,16 @@ def forced_host_loop() -> bool:
 
 
 def loop_route(moe: bool, engine: str, row_mesh, collect_rounds: bool) -> Tuple[str, str]:
-    """("graph" | "host", why) of a search's configuration."""
-    if moe:
-        return "host", "moe"
+    """("graph" | "host", why) of a search's configuration: the graph for
+    dense and MoE sweeps on the IPM engine; the PDHG engine, the row mesh and
+    the convergence log keep the host loop."""
     if engine != "ipm":
-        return "host", engine
+        return "host", f"{engine} moe" if moe else engine
     if row_mesh is not None and row_mesh.size > 1:
         return "host", "row_mesh"
     if collect_rounds:
         return "host", "convergence"
-    return "graph", "dense_ipm"
+    return "graph", "moe_ipm" if moe else "dense_ipm"
 
 
 def note_route(route: str, why: str, L: int) -> None:
@@ -145,14 +166,25 @@ class PlanSig(NamedTuple):
     nent: int
     ncontrib: int
     index_len: int
+    # MoE sweeps: K7's lattice (w_max, e_max), its ascent steps (300 cold,
+    # 0 on a warm tick), whether the upload carries stored duals and margin
+    # bounds (a margin tick: no K7), and whether the answer carries m_y.
+    moe: bool = False
+    w_max: int = 0
+    e_max: int = 0
+    decomp_steps: int = 0
+    has_duals: bool = False
+    has_margin: bool = False
+    want_my: bool = False
 
 
 # The compile ledger's view of a signature: a capture with a new value of
 # one of these fields is a static-argument flip (the engine's route, the
-# iteration budgets, the per-k mode, the optional warm inputs); with new
-# values of the others only, a shape-bucket change.
+# iteration budgets, the per-k mode, the optional warm inputs, the MoE
+# seed's mode); with new values of the others only, a shape-bucket change.
 _STATIC_FIELDS = ("device", "per_k", "ipm_iters", "root_chunk", "warm_iters", "mip_gap",
-                  "max_rounds", "has_warm", "has_root_warm", "a_lanes")
+                  "max_rounds", "has_warm", "has_root_warm", "a_lanes", "moe", "decomp_steps",
+                  "has_duals", "has_margin", "want_my")
 _SHAPE_FIELDS = tuple(f for f in PlanSig._fields if f not in _STATIC_FIELDS)
 
 
@@ -164,8 +196,16 @@ def ledger_signatures(sig: PlanSig) -> Tuple[str, str]:
 
 
 def plan_sig(dev, L, cap, n_k, beam, m, nf, M, per_k, ipm_iters, ipm_warm_iters,
-             root_warm_chunk, mip_gap, max_rounds, has_warm, has_root_warm, entry) -> PlanSig:
+             root_warm_chunk, mip_gap, max_rounds, has_warm, has_root_warm, entry,
+             moe_ctx=None, has_duals=False, has_margin=False, want_my=False) -> PlanSig:
+    """The signature of a sweep's plan; ``moe_ctx`` = (w_max, e_max,
+    decomp_steps) of a MoE sweep."""
     sp = entry.sparsity
+    moe = {}
+    if moe_ctx is not None:
+        moe = dict(moe=True, w_max=int(moe_ctx[0]), e_max=int(moe_ctx[1]),
+                   decomp_steps=int(moe_ctx[2]), has_duals=bool(has_duals),
+                   has_margin=bool(has_margin), want_my=bool(want_my))
     return PlanSig(
         device=str(torch.device(dev)), L=L, cap=cap, B0=min(cap, n_k),
         Bw=cap if beam is None else min(beam, cap), m=m, nf=nf, M=M, n_k=n_k, per_k=bool(per_k),
@@ -174,7 +214,7 @@ def plan_sig(dev, L, cap, n_k, beam, m, nf, M, per_k, ipm_iters, ipm_warm_iters,
         warm_iters=int(ipm_iters if ipm_warm_iters is None else ipm_warm_iters),
         mip_gap=float(mip_gap), max_rounds=int(max_rounds), has_warm=bool(has_warm),
         has_root_warm=bool(has_root_warm), a_lanes=entry.A.dim() == 3, nnz=sp.nnz,
-        nent=sp.nent, ncontrib=sp.ncontrib, index_len=int(sp.index.numel()),
+        nent=sp.nent, ncontrib=sp.ncontrib, index_len=int(sp.index.numel()), **moe,
     )
 
 
@@ -218,18 +258,22 @@ class LoopPlan:
         L, cap, m, nf, M, n_k = sig.L, sig.cap, sig.m, sig.nf, sig.M, sig.n_k
         B0, Bw = sig.B0, sig.Bw
         f32, f64, b8 = DTYPE, BDTYPE, torch.bool
-        self.layout = packed.dyn_layout(L, n_k, m, nf, M, False, sig.has_warm,
-                                        sig.has_root_warm, False)
+        self.layout = packed.dyn_layout(L, n_k, m, nf, M, sig.moe, sig.has_warm,
+                                        sig.has_root_warm, sig.has_margin,
+                                        has_duals=sig.has_duals)
         cuda = dev.type == "cuda"
         self.pinned = torch.empty(self.layout.nbytes, dtype=torch.uint8, pin_memory=cuda)
         self.blob = torch.empty(self.layout.nbytes, dtype=torch.uint8, device=dev)
         self.views = packed.dyn_views(self.blob, self.layout)
         self.rd_views = packed.rounding_views(self.views)
-        # K1's A and its values on the structure (a shared A, or each row's
-        # lane's for the root and the warm rows), loaded from the static
-        # entry when it changes.
+        # K1's A and its values on the structure (a shared A, or a per-node
+        # A for the root and the warm rows: each row's lane's, and in MoE
+        # mode the row's k's expert-busy entries, which the head writes
+        # every round), the base loaded from the static entry when it
+        # changes.
+        self.per_node = sig.a_lanes or sig.moe
         self.index = torch.empty(sig.index_len, dtype=torch.int32, device=dev)
-        if sig.a_lanes:
+        if self.per_node:
             self.A_rows = [torch.empty((L * B, m, nf), dtype=f32, device=dev) for B in (B0, Bw)]
             self.val_rows = [torch.empty((L * B, sig.nnz), dtype=f32, device=dev)
                              for B in (B0, Bw)]
@@ -246,7 +290,8 @@ class LoopPlan:
 
             lib = library("round_tail")
             for B in (B0, Bw):
-                need = int(lib.dtk_round_tail_smem_bytes(B, cap, M, 0, n_k, int(sig.per_k)))
+                need = int(lib.dtk_round_tail_smem_bytes(B, cap, M, int(sig.moe), n_k,
+                                                         int(sig.per_k)))
                 if need > TAIL_SMEM_LIMIT:
                     raise ValueError(f"round tail: a lane needs {need} bytes of shared memory "
                                      f"(B={B}, cap={cap}, M={M}, n_k={n_k})")
@@ -294,13 +339,79 @@ class LoopPlan:
         self.frozen = torch.ones(L, dtype=b8, device=dev)
         self.ran = torch.zeros(L, dtype=b8, device=dev)
         self.ctl = torch.zeros(2, dtype=torch.int32, device=dev)
-        self.alay = packed.AnswerLayout(M, n_k, m, nf, False, sig.per_k)
+        if sig.moe:
+            self._moe_buffers(R)
+        self.alay = packed.AnswerLayout(
+            M, n_k, m, nf, sig.moe, sig.per_k,
+            (n_k, M, sig.e_max + 1) if sig.want_my else ())
         self.answer = torch.empty((L, self.alay.width), dtype=f64, device=dev)
         self.graph = ctypes.c_void_p(None)
         self.handle = ctypes.c_ulonglong(0)
         self.busy = False
         self._keep: list = []
         _memory.note_plan(_memory.device_bytes(vars(self), dev) if cuda else None)
+
+    def _moe_buffers(self, R: int) -> None:
+        """The MoE seed's and rounds' buffers: K7's problem in both dtypes,
+        its multipliers, workspaces and outputs, the hint and warm rows and
+        K2's outputs for them, each row's W and k and K2's outputs for the
+        LP rows, the answer's duals block. K7's launch layout (the ascent's
+        units, grid and owner states, the float64 evaluation's units) is
+        fixed here, once a plan."""
+        sig, dev = self.sig, self.dev
+        L, n_k, M = sig.L, sig.n_k, sig.M
+        Y = sig.e_max + 1
+        f32, f64, i32 = DTYPE, BDTYPE, torch.int32
+
+        def e(*shape, dtype=f64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        ND = len(RD_DEV_FIELDS)
+        self.rdv32, self.rdv64 = e(L, ND, M, dtype=f32), e(L, ND, M)
+        self.bp32, self.E32, self.bp64, self.E64 = e(L, dtype=f32), e(L, dtype=f32), e(L), e(L)
+        self.ks32, self.Ws32 = e(L, n_k, dtype=f32), e(L, n_k, dtype=f32)
+        self.P0, self.best = (e(L, n_k * (2 + M), dtype=f32) for _ in range(2))
+        self.count = e(L * n_k * M, dtype=i32)
+        self.m_y, self.any_ok = e(L, n_k, M, Y), e(L, n_k, M, dtype=torch.uint8)
+        self.hint_w, self.hint_flat = e(L, n_k, M), e(L, n_k, M, dtype=i32)
+        self.lam, self.mu, self.tau, self.theta = e(L, n_k), e(L, n_k), e(L, n_k, M), e(L, n_k, M)
+        self.bound = e(L, n_k)
+        self.duals_out = e(L, 3 * n_k + n_k * M)
+        # K2's hint rows (L n_k), warm rows (L), LP rows (R): LP points and
+        # (W, k) in, (obj, w, n, y) out; each row's lane.
+        self.hint_v = e(L * n_k, 3 * M)
+        self.hint_out = (e(L * n_k), e(L * n_k, M), e(L * n_k, M), e(L * n_k, M))
+        self.warm_v, self.warm_W, self.warm_k = e(L, 3 * M), e(L), e(L)
+        self.warm_out = (e(L), e(L, M), e(L, M), e(L, M))
+        self.Wr, self.kr = e(R), e(R)
+        self.lp_out = (e(R), e(R, M), e(R, M), e(R, M))
+        self.inst_hint = _lanes_of(L, sig.n_k, dev).to(i32)
+        self.inst_lane = torch.arange(L, device=dev, dtype=i32)
+        self.inst_rows = [_lanes_of(L, B, dev).to(i32) for B in (sig.B0, sig.Bw)]
+        self.gky_pos = e(2, M, dtype=i32)
+        self.k7 = self.tab = None
+        if dev.type != "cuda":
+            return
+        from ..kernels.build import library
+        from ..ops import decomp as D
+
+        sms = D._sm_count(dev)
+        asc = None
+        if sig.decomp_steps > 0 and not sig.has_margin:
+            asc = D.ascent_layout(L, n_k, M, sig.w_max, sig.e_max, sms,
+                                  lambda pb: D._ascent_grid(str(dev), M, pb))
+        ev = D.unit_plan(L, n_k, M, sig.w_max, sig.e_max, D.F64_BLOCKS_PER_SM * sms)
+        lib = library("decomp")
+        n_cells = L * n_k * M * sig.w_max * Y * D.N_CANDS
+        self.k7 = dict(
+            ascent=asc, eval=ev,
+            ascent_ws=None if asc is None else torch.empty(
+                int(lib.dtk_decomp_ascent_ws_bytes(asc[0].units, n_cells, M, asc[1])),
+                dtype=torch.uint8, device=dev),
+            eval_ws=torch.empty(int(lib.dtk_decomp_f64_ws_bytes(ev.units, Y)),
+                                dtype=torch.uint8, device=dev),
+            adam=D._adam_table(sig.decomp_steps, str(dev)) if asc is not None else None)
+        self.tab = moe_table_workspace(library("round_moe"), M, max(R, L * n_k), dev)
 
     def _lp_out(self, R: int) -> IPMResult:
         f32, dev, m, nf = DTYPE, self.dev, self.sig.m, self.sig.nf
@@ -343,28 +454,36 @@ class LoopPlan:
         return SweepData(
             A=entry.A, b_k=v["b_k"], c_k=v["c_k"], int_mask=v["int_mask"], ks=v["ks"],
             Ws=v["Ws"], obj_const=v["obj_const"], rd=self.rd_views,
-            rd_packed=v["rd"], A_sparsity=entry.sparsity, A_k1_values=entry.values,
-            A_checked=True,
+            rd_packed=v["rd"], gky=v.get("gky"), A_sparsity=entry.sparsity,
+            A_k1_values=None if self.per_node else entry.values, A_checked=True,
         )
 
     def load_static(self, entry) -> None:
         """K1's A, structure and values from ``entry`` into the plan's
-        buffers, when another entry was loaded (copies on the card)."""
+        buffers, when another entry was loaded (copies on the card); in MoE
+        mode the places of the expert-busy entries in a row's values."""
         if self.loaded is entry:
             return
         self.index.copy_(entry.sparsity.index)
-        if self.sig.a_lanes:
+        if self.per_node:
             for i, B in enumerate((self.sig.B0, self.sig.Bw)):
-                lanes = _lanes_of(self.sig.L, B, self.dev)
-                self.A_rows[i].copy_(entry.A[lanes])
-                self.val_rows[i].copy_(entry.values[lanes])
+                R = self.sig.L * B
+                if entry.A.dim() == 3:
+                    lanes = _lanes_of(self.sig.L, B, self.dev)
+                    self.A_rows[i].copy_(entry.A[lanes])
+                    self.val_rows[i].copy_(entry.values[lanes])
+                else:
+                    self.A_rows[i].copy_(entry.A.expand(R, *entry.A.shape))
+                    self.val_rows[i].copy_(entry.values.expand(R, -1))
+            if self.sig.moe:
+                self.gky_pos.copy_(entry.pdhg_values()[1])
         else:
             self.A.copy_(entry.A)
             self.vals.copy_(entry.values)
         self.loaded = entry
 
     def _lp_A(self, i: int) -> torch.Tensor:
-        return self.A_rows[i] if self.sig.a_lanes else self.A
+        return self.A_rows[i] if self.per_node else self.A
 
     # -------------------------------------------------------- plain (CPU)
 
@@ -375,11 +494,13 @@ class LoopPlan:
         sig, v = self.sig, self.views
         self.load_static(entry)
         data = self.data(entry)
-        if seeded is None:
-            seeded = root_state(v["lo_k"], v["hi_k"], sig.M, sig.cap, sig.m, root_warm)
-            if warm is not None:
-                seeded = seed_warm(seeded, data, warm, False, MOE_LOCAL_MOVES_WARM)
-        _copy_state(self.states[0], seeded)
+        st = root_state(v["lo_k"], v["hi_k"], sig.M, sig.cap, sig.m, root_warm)
+        moe_out = None
+        if sig.moe:
+            st, *moe_out = self.seed_moe_reference(st, data)
+        if warm is not None:
+            st = seed_warm(st, data, warm, sig.moe, MOE_LOCAL_MOVES_WARM)
+        _copy_state(self.states[0], st if seeded is None else seeded)
         control_reference(self, init=True, state=self.states[0])
         self._round_plain(data, 0, 1, 0)
         go = control_reference(self, go=self.gos[1])
@@ -388,14 +509,75 @@ class LoopPlan:
             control_reference(self, go=self.gos[0])
             self._round_plain(data, 0, 1, 1)
             go = control_reference(self, go=self.gos[1])
-        self.answer.copy_(answer_reference(self, self.states[1]))
+        self.answer.copy_(answer_reference(self, self.states[1], moe_out))
         return self.answer.numpy().copy()
+
+    def moe_problems(self):
+        """K7's problem of every lane in float32 and float64, taken from the
+        upload (the seed's MoE prep's plain version)."""
+        sig, v = self.sig, self.views
+        rows = [_RD_ROWS[f] for f in RD_DEV_FIELDS]
+        rdv64 = v["rd"][:, rows].contiguous()
+        sc = v["rd_scalars"]
+        bp, E = sc[:, 0].contiguous(), sc[:, 1].contiguous()
+        p64 = DecompBatch(rdv=rdv64, bp=bp, E=E, ks=v["ks"], Ws=v["Ws"], w_max=sig.w_max,
+                          e_max=sig.e_max)
+        f32 = DTYPE
+        p32 = DecompBatch(rdv=rdv64.to(f32), bp=bp.to(f32), E=E.to(f32), ks=v["ks"].to(f32),
+                          Ws=v["Ws"].to(f32), w_max=sig.w_max, e_max=sig.e_max)
+        return p32, p64
+
+    def stored_duals(self):
+        """The upload's stored duals as (lam (L, n_k), mu, tau (L, n_k, M)),
+        or None."""
+        if not self.sig.has_duals:
+            return None
+        n_k, M = self.sig.n_k, self.sig.M
+        d = self.views["duals"]
+        return d[:, :n_k], d[:, n_k:2 * n_k], d[:, 2 * n_k:].reshape(-1, n_k, M)
+
+    def seed_moe_reference(self, state: SearchState, data: SweepData):
+        """Plain version of the seed's MoE mode (the graph's K7 launches,
+        folds, MoE seed phases and K2's hint rows): ``search.
+        seed_root_bounds`` on the upload's problem. Returns ``(state, duals,
+        raw_bounds, m_y)``; a margin tick's duals are the stored ones."""
+        sig, v = self.sig, self.views
+        init = self.stored_duals()
+        if sig.has_margin:
+            state, _, raw, m_y = seed_root_bounds(state, data, None, None, 0, init,
+                                                  margin=v["margin"])
+            return state, init, raw, m_y
+        p32, p64 = self.moe_problems()
+        return seed_root_bounds(state, data, p32, p64, sig.decomp_steps, init_duals=init)
+
+    def head_moe_reference(self, data: SweepData, state: SearchState, which: int) -> None:
+        """Plain version of the head's MoE mode: each row's k's expert-busy
+        entries into its dense A and its values, its W and k."""
+        sig = self.sig
+        B = (sig.B0, sig.Bw)[which]
+        R, M = sig.L * B, sig.M
+        kidx = state.node_kidx[:, :B].reshape(R).long()
+        lane = _lanes_of(sig.L, B, self.dev)
+        g = data.gky[lane, kidx]  # (R, 2, M)
+        ar = torch.arange(M, device=self.dev)
+        A = self.A_rows[which]
+        A[:, 4 * M + ar, 2 * M + ar] = g[:, 0]
+        A[:, 5 * M + ar, 2 * M + ar] = g[:, 1]
+        rows = torch.arange(R, device=self.dev)[:, None]
+        vals = self.val_rows[which]
+        pos = self.gky_pos.long()
+        vals[rows, pos[0]] = g[:, 0]
+        vals[rows, pos[1]] = g[:, 1]
+        self.Wr[:R] = data.Ws[lane, kidx]
+        self.kr[:R] = data.ks[lane, kidx]
 
     def _round_plain(self, data: SweepData, src: int, dst: int, which: int) -> None:
         sig = self.sig
         B = (sig.B0, sig.Bw)[which]
         state = self.states[src]
         ins = round_inputs(data, state, B, self.frozen)
+        if sig.moe:
+            self.head_moe_reference(data, state, which)
         iters, chunk = ((sig.ipm_iters, sig.root_chunk), (sig.warm_iters, IPM_DEFAULT_CHUNK))[which]
         res = ipm_solve_batch(
             LPBatch(A=self._lp_A(which), b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
@@ -405,7 +587,8 @@ class LoopPlan:
         keep = self.res[which]
         for f in _RES_FIELDS:
             getattr(keep, f).copy_(getattr(res, f))
-        out, go = round_tail(data, state, keep, sig.mip_gap, B, None, self.frozen, sig.per_k)
+        rounded = round_rows(data, keep, ins.kidx, ins.lane) if sig.moe else None
+        out, go = round_tail(data, state, keep, sig.mip_gap, B, rounded, self.frozen, sig.per_k)
         _copy_state(self.states[dst], out)
         self.gos[dst].copy_(go)
 
@@ -494,16 +677,111 @@ class LoopPlan:
         return [getattr(st, f).data_ptr() for f in _STATE_FIELDS]
 
     def _seed(self, lib, data: SweepData, sh) -> None:
+        """The seed: the root frontier (and a dense sweep's warm hint), and
+        for a MoE sweep K7's problem gathered from the upload, then
+        :meth:`_seed_moe`."""
         sig, v = self.sig, self.views
         rw = [v.get(k) for k in ("rw_ok", "rw_v", "rw_y", "rw_z", "rw_f")]
         wk = [v.get(k) for k in ("warm_kidx", "warm_w", "warm_n")]
+        moe = [None] * 12
+        if sig.moe:
+            moe = [v["rd_scalars"], v.get("duals"), self.rdv32, self.rdv64, self.bp32,
+                   self.E32, self.bp64, self.E64, self.ks32, self.Ws32, self.P0, self.count]
         ptrs = self._keep_ptrs([_p(v["lo_k"]), _p(v["hi_k"]), *map(_p, rw), *map(_p, wk),
                                 _p(v["Ws"]), _p(v["ks"]), _p(v["rd"]), _p(v["obj_const"]),
-                                *self._state_ptrs(0)])
-        dims = self._keep_ptrs_int([sig.L, sig.cap, sig.nf, sig.m, sig.M, sig.n_k,
-                                    int(sig.has_root_warm), int(sig.has_warm),
-                                    PACKED_ROWS * sig.M])
+                                *self._state_ptrs(0), *map(_p, moe)])
+        rows = [_RD_ROWS[f] for f in RD_DEV_FIELDS] if sig.moe else []
+        dims = self._keep_ptrs_int([
+            sig.L, sig.cap, sig.nf, sig.m, sig.M, sig.n_k, int(sig.has_root_warm),
+            int(sig.has_warm and not sig.moe), PACKED_ROWS * sig.M, int(sig.moe), len(rows),
+            sig.L * sig.n_k * sig.M if sig.moe else 0, *(rows + [0] * (_DEV_ROWS - len(rows)))])
         kernels.check(lib.dtk_bnb_seed(ptrs, dims, sh), "bnb_seed")
+        if sig.moe:
+            self._seed_moe(lib, sh)
+
+    def _seed_moe(self, lib, sh) -> None:
+        """The MoE seed (``search.seed_root_bounds`` and ``seed_warm``):
+        cold, K7's ascent and its float64 evaluation with the hint; warm,
+        the evaluation at the stored duals; a margin tick, neither (the
+        uploaded bounds); then the MoE seed's phases around K2's hint and
+        warm rows."""
+        from ..kernels.build import library
+        from ..ops.decomp import ADAM_F32
+
+        sig, v, P = self.sig, self.views, kernels.ptr
+        L, n_k, M = sig.L, sig.n_k, sig.M
+        cold = sig.decomp_steps > 0 and not sig.has_margin
+        if not sig.has_margin:
+            dlib = library("decomp")
+            k7 = self.k7
+            params = self.P0
+            if cold:
+                plan, per_block = k7["ascent"]
+                ws = k7["ascent_ws"]
+                err = dlib.dtk_decomp_ascent_f32(
+                    P(self.rdv32), P(self.bp32), P(self.E32), P(self.ks32), P(self.Ws32), L,
+                    n_k, M, sig.w_max, sig.e_max, P(k7["adam"]), sig.decomp_steps, *ADAM_F32,
+                    P(self.P0), plan.chunk_w, plan.n_chunks, plan.grid, per_block, P(ws),
+                    ws.numel(), P(self.best), sh)
+                kernels.check(err, "decomp ascent")
+                params = self.best
+            err = dlib.dtk_decomp_theta_f64(
+                P(params), ctypes.c_void_p(None), P(v["ks"]), L, n_k, M, P(self.lam),
+                P(self.mu), P(self.tau), P(self.theta), sh)
+            kernels.check(err, "decomp_theta")
+            ev, ws = k7["eval"], k7["eval_ws"]
+            err = dlib.dtk_decomp_eval_f64(
+                P(self.rdv64), P(self.bp64), P(self.E64), P(v["ks"]), P(v["Ws"]), L, n_k, M,
+                sig.w_max, sig.e_max, P(self.lam), P(self.mu), P(self.theta), int(cold),
+                ev.chunk_w, ev.n_chunks, P(ws), ws.numel(), P(self.count), P(self.m_y),
+                P(self.any_ok), P(self.hint_w), P(self.hint_flat), sh)
+            kernels.check(err, "decomp")
+            err = dlib.dtk_decomp_bound_f64(
+                P(self.m_y), P(self.any_ok), P(self.lam), P(self.mu), P(v["Ws"]), P(self.E64),
+                L, n_k, M, sig.e_max + 1, P(self.bound), sh)
+            kernels.check(err, "decomp_bound")
+        self._moe_phase(lib, sh, 0)
+        if cold:
+            self._round_moe(sh, self.hint_v, 3 * M, v["Ws"], v["ks"], self.inst_hint,
+                            L * n_k, sig.e_max + 4, MOE_LOCAL_MOVES, self.hint_out)
+            self._moe_phase(lib, sh, 1)
+        if sig.has_warm:
+            self._round_moe(sh, self.warm_v, 3 * M, self.warm_W, self.warm_k, self.inst_lane,
+                            L, None, MOE_LOCAL_MOVES_WARM, self.warm_out)
+            self._moe_phase(lib, sh, 2)
+
+    def _moe_phase(self, lib, sh, phase: int) -> None:
+        sig, v = self.sig, self.views
+        rows = self.hint_out if phase == 1 else self.warm_out
+        ptrs = self._keep_ptrs([
+            _p(v["obj_const"]), _p(self.bound), _p(v.get("margin")), _p(self.lam), _p(self.mu),
+            _p(self.tau), _p(v.get("duals")), _p(self.duals_out), _p(self.hint_w),
+            _p(self.hint_flat), _p(v["rd"]), _p(self.bp64), _p(self.hint_v),
+            _p(v.get("warm_kidx")), _p(v.get("warm_w")), _p(v.get("warm_n")),
+            _p(v.get("warm_y")), _p(v["Ws"]), _p(v["ks"]), _p(self.warm_v), _p(self.warm_W),
+            _p(self.warm_k), *map(_p, rows), *self._state_ptrs(0)])
+        dims = self._keep_ptrs_int([
+            sig.L, sig.cap, sig.n_k, sig.M, phase,
+            int(sig.decomp_steps > 0 and not sig.has_margin), int(sig.has_warm),
+            sig.e_max + 1, PACKED_ROWS * sig.M,
+            *[_RD_ROWS[f] for f in ("has_gpu", "ram_minus_n", "cuda_rhs", "metal_rhs", "eb_ram",
+                                    "eb_vram", "eb_metal", "ram_rhs")]])
+        kernels.check(lib.dtk_bnb_seed_moe(ptrs, dims, sh), "bnb_seed")
+
+    def _round_moe(self, sh, v, v_stride: int, W, k, inst, B: int, y_steps, moves: int,
+                   out) -> None:
+        """K2's MoE mode on plan buffers (float64 hint and warm rows, the
+        LP's float32 points)."""
+        from ..kernels.build import library
+
+        P, O = kernels.ptr, kernels.opt_ptr
+        lib = library("round_moe")
+        fn = lib.dtk_round_moe_f64 if v.dtype == BDTYPE else lib.dtk_round_moe_f32
+        err = fn(P(v), v_stride, P(W), P(k), P(self.views["rd"]), P(self.E64), P(inst),
+                 self.sig.M, B, -1 if y_steps is None else int(y_steps), int(moves),
+                 *[P(t) for t in out], O(self.tab), 0 if self.tab is None else self.tab.numel(),
+                 MOE_THREADS, sh)
+        kernels.check(err, "round_moe")
 
     def _keep_ptrs_int(self, vals) -> int:
         arr = (ctypes.c_int * len(vals))(*vals)
@@ -525,6 +803,11 @@ class LoopPlan:
     def _round(self, data: SweepData, sh, src: int, dst: int, which: int) -> None:
         self._head(data, sh, src, which)
         self._k1(sh, which)
+        if self.sig.moe:
+            B = (self.sig.B0, self.sig.Bw)[which]
+            self._round_moe(sh, self.res[which].v, self.sig.nf, self.Wr, self.kr,
+                            self.inst_rows[which], self.sig.L * B, None, MOE_LOCAL_MOVES,
+                            self.lp_out)
         self._tail(data, sh, src, dst, which)
 
     def _head(self, data: SweepData, sh, src: int, which: int) -> None:
@@ -533,12 +816,18 @@ class LoopPlan:
         sig = self.sig
         B = (sig.B0, sig.Bw)[which]
         st, lp = self.states[src], self.lp_in
+        moe = [None] * 8
+        if sig.moe:
+            moe = [data.gky, self.gky_pos, self.A_rows[which], self.val_rows[which], data.Ws,
+                   data.ks, self.Wr, self.kr]
         head = self._keep_ptrs([
             _p(st.node_lo), _p(st.node_hi), _p(st.node_kidx), _p(st.active), _p(st.node_v),
             _p(st.node_y), _p(st.node_z), _p(st.node_f), _p(st.node_warm), _p(self.frozen),
             _p(data.b_k), _p(data.c_k), *[_p(lp[k]) for k in ("b", "c", "l", "u", "wv", "wy",
-                                                               "wz", "wf", "wok", "skip")]])
-        hdims = self._keep_ptrs_int([sig.L, B, sig.cap, sig.nf, sig.m, sig.n_k])
+                                                               "wz", "wf", "wok", "skip")],
+            *map(_p, moe)])
+        hdims = self._keep_ptrs_int([sig.L, B, sig.cap, sig.nf, sig.m, sig.n_k, int(sig.moe),
+                                     sig.M, sig.nnz])
         kernels.check(library("bnb_loop").dtk_bnb_head(head, hdims, sh), "bnb_head")
 
     def _k1(self, sh, which: int) -> None:
@@ -551,12 +840,12 @@ class LoopPlan:
         chunk, n_chunks = chunking(iters, chunk)
         res = self.res[which]
         A = self._lp_A(which)
-        vals = self.val_rows[which] if sig.a_lanes else self.vals
+        vals = self.val_rows[which] if self.per_node else self.vals
         R = sig.L * B
         P, O = kernels.ptr, kernels.opt_ptr
         err = library("ipm").dtk_ipm_f32(
-            P(A), sig.m * sig.nf if sig.a_lanes else 0, P(self.index), sig.nnz, sig.nent,
-            sig.ncontrib, P(vals), sig.nnz if sig.a_lanes else 0, P(lp["b"]), P(lp["c"]),
+            P(A), sig.m * sig.nf if self.per_node else 0, P(self.index), sig.nnz, sig.nent,
+            sig.ncontrib, P(vals), sig.nnz if self.per_node else 0, P(lp["b"]), P(lp["c"]),
             P(lp["l"]), P(lp["u"]), P(lp["wv"]), P(lp["wy"]), P(lp["wz"]), P(lp["wf"]),
             P(lp["wok"]), P(lp["skip"]), R, sig.m, sig.nf, chunk, n_chunks,
             float(_default_tol(DTYPE)), float(_default_reg(DTYPE)), O(self.ws), O(self.vec_ws),
@@ -567,20 +856,25 @@ class LoopPlan:
         kernels.check(err, "ipm")
 
     def _tail(self, data: SweepData, sh, src: int, dst: int, which: int) -> None:
-        """The round tail, state ``src`` -> buffer ``dst``."""
+        """The round tail, state ``src`` -> buffer ``dst`` (a MoE round's
+        rows pre-rounded by K2's MoE mode)."""
         from ..kernels.build import library
 
         sig = self.sig
         B = (sig.B0, sig.Bw)[which]
         st, res = self.states[src], self.res[which]
+        rd = (None,) * 3 if sig.moe else (data.Ws, data.ks, data.rd_packed)
+        rows = self.lp_out if sig.moe else (None,) * 4
         ins = [res.v, res.reduced, res.y_dual, res.z_dual, res.f_dual, res.bound, res.iters_run,
-               data.Ws, data.ks, data.rd_packed, None, None, None, None, data.int_mask,
-               data.obj_const, self.frozen, *[getattr(st, f) for f in _TAIL_STATE]]
+               *rd, *rows, data.int_mask, data.obj_const, self.frozen,
+               *[getattr(st, f) for f in _TAIL_STATE]]
         base = self.bufs[dst].data_ptr()
         tail = self._keep_ptrs([_p(t) for t in ins] + [
             0 if o is None else base + o for o in self.tail_offsets] + [base + self.tail_ws_off])
-        tdims = self._keep_ptrs_int([sig.L, B, sig.cap, sig.nf, sig.m, sig.M, sig.n_k, 0, 0, 0,
-                                     sig.L, PACKED_ROWS * sig.M, int(sig.per_k)])
+        pre = int(sig.moe)
+        tdims = self._keep_ptrs_int([sig.L, B, sig.cap, sig.nf, sig.m, sig.M, sig.n_k, pre, pre,
+                                     0, 1 if pre else sig.L, 0 if pre else PACKED_ROWS * sig.M,
+                                     int(sig.per_k)])
         err = library("round_tail").dtk_round_tail(tail, tdims, float(sig.mip_gap), sh)
         kernels.check(err, "round_tail")
 
@@ -589,10 +883,14 @@ class LoopPlan:
         r0 = self.res[0]
         rw = [v.get(k) for k in ("rw_ok", "rw_v", "rw_y", "rw_z", "rw_f")]
         ptrs = self._keep_ptrs([*self._state_ptrs(1), _p(self.ran), _p(r0.v), _p(r0.y_dual),
-                                _p(r0.z_dual), _p(r0.f_dual), *map(_p, rw), _p(self.answer)])
+                                _p(r0.z_dual), _p(r0.f_dual), *map(_p, rw), _p(self.answer),
+                                _p(self.duals_out if sig.moe else None),
+                                _p(self.m_y if sig.want_my else None)])
         dims = self._keep_ptrs_int([sig.L, sig.cap, sig.nf, sig.m, sig.M, sig.n_k,
                                     int(sig.per_k), sig.B0, self.alay.width,
-                                    int(sig.has_root_warm)])
+                                    int(sig.has_root_warm),
+                                    3 * sig.n_k + sig.n_k * sig.M if sig.moe else 0,
+                                    self.alay.my_size])
         kernels.check(lib.dtk_bnb_answer(ptrs, dims, sh), "bnb_answer")
 
 
@@ -666,10 +964,12 @@ def answer_rows(state: SearchState, root_iters, n_k: int, per_k: bool, duals=Non
     return torch.cat(parts, dim=1)
 
 
-def answer_reference(plan: LoopPlan, state: SearchState) -> torch.Tensor:
+def answer_reference(plan: LoopPlan, state: SearchState, moe=None) -> torch.Tensor:
     """Plain version of ``bnb_answer_kernel``: the root iterates are the
     root round's LP result in the lanes that ran it, else the carried-in
-    ones (the seeded state's, as ``run_bnb_loop`` keeps them)."""
+    ones (the seeded state's, as ``run_bnb_loop`` keeps them); ``moe`` =
+    (duals, raw bounds, m_y) of a MoE seed (m_y at the end where the plan
+    asks for it)."""
     sig, v = plan.sig, plan.views
     L, n_k, dev = sig.L, sig.n_k, plan.dev
     r0 = plan.res[0]
@@ -686,26 +986,46 @@ def answer_reference(plan: LoopPlan, state: SearchState) -> torch.Tensor:
     m1 = plan.ran[:, None]
     root = tuple(torch.where(m1 if a.dim() == 2 else m1[..., None], a[:, :n_k], b[:, :n_k])
                  for a, b in zip(ran, carried))
-    return answer_rows(state, root, n_k, sig.per_k)
+    if moe is None:
+        return answer_rows(state, root, n_k, sig.per_k)
+    duals, raw, m_y = moe
+    return answer_rows(state, root, n_k, sig.per_k, duals, raw,
+                       [m_y] if sig.want_my else ())
 
 
 def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
-    """The kernels one graph launch ran, from the answer: the seed, the
-    answer, and a head, K1, a round tail and a control each round (the
-    root, then two a pass of the WHILE body; the rounds run are the most
-    any lane ran), one more control at the start."""
+    """The kernels one graph launch ran, from the answer: the seed (for a
+    MoE sweep K7's launches, its folds, the MoE seed's phases and K2's hint
+    and warm rows), the answer, and a head, K1, (MoE) K2's LP rows, a round
+    tail and a control each round (the root, then two a pass of the WHILE
+    body; the rounds run are the most any lane ran), one more control at
+    the start."""
     R = int(np.max(ans[:, 4])) if ans.size else 0
     rounds = 1 + 2 * math.ceil(max(R - 1, 0) / 2)
     kernels.LAUNCHES["bnb_graph"] += 1
     kernels.count_launch("bnb_seed")
     kernels.count_launch("bnb_answer")
-    tail = "round_tail_lanes" if sig.L > 1 else "round_tail"
-    per_node = " per-node A" if sig.a_lanes else ""
+    lanes = "_lanes" if sig.L > 1 else ""
+    if sig.moe:
+        cold = sig.decomp_steps > 0 and not sig.has_margin
+        if not sig.has_margin:
+            if cold:
+                kernels.count_launch("decomp" + lanes, "ascent")
+            kernels.count_launch("decomp_theta")
+            kernels.count_launch("decomp" + lanes, "eval64")
+            kernels.count_launch("decomp_bound")
+        for _ in range(1 + int(cold) + int(sig.has_warm)):
+            kernels.count_launch("bnb_seed")
+        for _ in range(int(cold) + int(sig.has_warm)):
+            kernels.count_launch("round_moe" + lanes)
+    per_node = " per-node A" if sig.a_lanes or sig.moe else ""
     for r in range(rounds):
         B = sig.B0 if r == 0 else sig.Bw
         kernels.count_launch("bnb_head")
         kernels.count_launch("ipm", f"B={sig.L * B} m={sig.m} n={sig.nf}{per_node}")
-        kernels.count_launch(tail)
+        if sig.moe:
+            kernels.count_launch("round_moe" + lanes)
+        kernels.count_launch("round_tail" + lanes)
         kernels.count_launch("bnb_control")
     kernels.count_launch("bnb_control")
 

@@ -15,7 +15,7 @@ float64 vector (``_solve_packed_impl``). Here:
   cycle-time box, the objective, the integer mask, k and W, ``obj_const``,
   the rounding data in ``pack_rounding_data``'s (17, M) float64 order, the
   MoE expert-busy table, the warm hint, a previous solve's root iterates,
-  the margin bounds) in one byte buffer, each field at an aligned offset:
+  the margin bounds, the stored multipliers) in one byte buffer, each field at an aligned offset:
   packed on the host (:func:`pack_dynamic`), sent in one host-to-device
   copy, and read on the card through typed views (:func:`dyn_views`).
   float64 stays float64.
@@ -144,7 +144,10 @@ class DynLayout(NamedTuple):
 
 
 def dyn_layout(L: int, n_k: int, m: int, nf: int, M: int, moe: bool, has_warm: bool,
-               has_root_warm: bool, has_margin: bool) -> DynLayout:
+               has_root_warm: bool, has_margin: bool, has_duals: bool = False) -> DynLayout:
+    """The dynamic blob's fields; ``has_duals``: a MoE sweep's stored
+    multipliers (lam, mu, tau per lane, float64), which the loop's graph
+    reads (the host route takes them as a separate tensor)."""
     f32, f64, b = torch.float32, torch.float64, torch.bool
     spec: List[Tuple[str, torch.dtype, tuple]] = [
         ("b_k", f32, (L, n_k, m)), ("c_k", f32, (L, n_k, nf)), ("lo_k", f32, (L, n_k, nf)),
@@ -162,6 +165,8 @@ def dyn_layout(L: int, n_k: int, m: int, nf: int, M: int, moe: bool, has_warm: b
                  ("rw_z", f32, (L, n_k, nf)), ("rw_f", f32, (L, n_k, nf))]
     if has_margin:
         spec.append(("margin", f64, (L, n_k)))
+    if has_duals:
+        spec.append(("duals", f64, (L, n_k * (2 + M))))
     fields, pos = {}, 0
     for name, dt, shape in spec:
         fields[name] = (dt, shape, pos)
@@ -214,6 +219,8 @@ def pack_dynamic(lanes, layout: DynLayout, buf: np.ndarray) -> None:
             put(name, [ln.root_warm_tuple[i] for ln in lanes])
     if "margin" in f:
         put("margin", [ln.margin_np for ln in lanes])
+    if "duals" in f:
+        put("duals", [np.concatenate([np.ravel(x) for x in ln.duals_tuple]) for ln in lanes])
 
 
 def dyn_views(buf: torch.Tensor, layout: DynLayout) -> Dict[str, torch.Tensor]:

@@ -47,9 +47,12 @@ in ``_solve_scenarios_packed``/``_solve_batched``).
 MoE sweeps seed the roots with the Lagrangian decomposition bounds (K7, all
 lanes in one ascent) and an incumbent repaired from the Lagrangian primal,
 or, on a margin tick, with bounds re-derived on the host. The reference runs
-the loop as one device program; here it is a host loop that reads the
-lanes' go flags, which the round tail writes, from the device once per
-round.
+the loop as one device program; so does the port for sweeps on the IPM
+engine (``device_loop``: one CUDA graph a solve, dense or MoE); here is the
+host loop, which reads the lanes' go flags, which the round tail writes,
+from the device once per round: the PDHG engine's, the meshes' and the
+convergence log's route, and the plain versions the graph's plan runs on
+the CPU.
 
 Precision: search arrays and IPM iterations are float32; everything the
 mip-gap certificate touches (bounds, incumbents, thresholds) is float64.

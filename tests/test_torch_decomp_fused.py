@@ -94,7 +94,7 @@ class _Lib:
     the ascent returns its starting point as the best multipliers."""
 
     def __init__(self, max_per_block=None):
-        self.ascents, self.evals64 = [], []
+        self.ascents, self.evals64, self.folds = [], [], []
         self.max_per_block = max_per_block  # owner states shared memory holds
 
     def dtk_decomp_ascent_grid(self, M, per_block):
@@ -123,6 +123,14 @@ class _Lib:
                             track_hint, chunk_w, n_chunks, ws, ws_len, count, *outs):
         self.evals64.append(dict(S=S, track_hint=track_hint, plan=(chunk_w, n_chunks),
                                  count=_floats(count, S * n_k * M).view(np.int32)))
+        return 0
+
+    def dtk_decomp_theta_f64(self, P32, tau, ks, S, n_k, M, lam, mu, tau_out, theta, stream):
+        self.folds.append("theta")
+        return 0
+
+    def dtk_decomp_bound_f64(self, m_y, any_ok, lam, mu, Ws, E, S, n_k, M, Y, bound, stream):
+        self.folds.append("bound")
         return 0
 
 
@@ -184,13 +192,16 @@ def test_fused_ascent_starts_from_init_params(lib):
 def test_zero_steps_skip_the_ascent(lib):
     """``steps=0``: no ascent launch, the float64 evaluation only (without
     the hint); a cold root bound: the ascent and the evaluation, two
-    launches."""
+    launches. Each evaluation has its two float64 folds (theta before it,
+    the bound after it), counted apart from K7's launches."""
     b32, b64, rd, _ = _batch(["mixtral_M4"])
     assert [x.abs().sum().item() for x in D.ascend(b32, 0)] == [0.0, 0.0, 0.0]
     assert not lib.ascents and kernels.LAUNCHES["decomp"] == 0
     D.decomp_bound_roots(b32, b64, rd, 0)
     assert kernels.SHAPES["decomp"] == {"eval64": 1} and not lib.ascents
     assert lib.evals64[-1]["track_hint"] == 0
+    assert lib.folds == ["theta", "bound"]
+    assert kernels.LAUNCHES["decomp_theta"] == 1 and kernels.LAUNCHES["decomp_bound"] == 1
     kernels.reset_launch_counts()
     D.decomp_bound_roots(b32, b64, rd, 300)
     assert kernels.SHAPES["decomp"] == {"ascent": 1, "eval64": 1}

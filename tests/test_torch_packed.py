@@ -184,7 +184,7 @@ def test_mixtral_views(profiles_dir):
     lanes = _lanes([make_synthetic_fleet(4, seed=7, pool_bytes=int(64e9))], model, kv="8bit")
     assert lanes[0].sf.moe
     prep = _prepare(lanes, _params(lanes), 1e-3, CPU, shared_A=True)
-    assert prep.plan is None  # MoE rounds keep the host loop
+    assert prep.plan is not None and prep.plan.sig.moe  # MoE sweeps take the graph route
     _assert_views_equal(prep, _old_uploads(lanes))
     prep.release()
 

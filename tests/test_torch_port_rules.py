@@ -134,7 +134,7 @@ def test_kernel_sources_and_launch_counters():
         "round_incumbent_lanes", "round_moe_lanes", "bnb_epilogue_lanes", "bnb_per_k_lanes",
         "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace", "pdhg_sharded",
         "pdhg_sharded_elem", "collective", "round_tail", "round_tail_lanes", "bnb_graph",
-        "bnb_seed", "bnb_head", "bnb_control", "bnb_answer",
+        "bnb_seed", "bnb_head", "bnb_control", "bnb_answer", "decomp_theta", "decomp_bound",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
