@@ -256,6 +256,9 @@ def main() -> int:
         print(json.dumps({"run": label, "ms": ms, "device_ms": dev, "steps": steps,
                           "us_per_step": (dev or ms) / steps * 1e3}), flush=True)
     build._LIBS["pdhg_cluster"] = prof_lib
+    for is_f64 in (0, 1):  # the wrapper prepared the plain library's kernel only
+        if prof_lib.dtk_pdhgc_prepare(is_f64) != 0:
+            raise RuntimeError("the profiled cluster kernel could not be prepared")
     buf = (ctypes.c_ulonglong * 32)()
     for label, run in runs:
         run()

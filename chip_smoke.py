@@ -74,7 +74,10 @@ Phases (any failure exits non-zero and prints no result line):
      warm rows against the host route's seeding; the head's per-node A;
      the answer's duals block) on Mixtral M=4 cold, per-k and over 4 load
      regimes and the flagship cold, warm and on a margin tick, bit for bit,
-     and K7's folds within TOL_EXACT_F64;
+     and K7's folds within TOL_EXACT_F64, and their PDHG parts (the head's
+     PDHG mode on the 128-device fleet warm in float32, a carried y holding
+     a NaN, and in float64, and on Mixtral M=4 on the PDHG; the cast of a
+     float64 K5 round to the search's float32), bit for bit;
      with the tolerances stated below, and each kernel's time beside its
      plain version's and its least possible time on an H100;
   4. the main path, in eleven runs, each with the launch counts zeroed before
@@ -148,7 +151,15 @@ Phases (any failure exits non-zero and prints no result line):
      signature; the upload and search walls of both routes, the graph
      solve's bound, and the walls (MoE: and search times, runtime launches)
      and busy shares of both routes in turns (medians of 9), a MoE round's
-     graph kernels; (k) the
+     graph kernels; and every PDHG case (the 128-device fleet in float32,
+     float64 and under a forced grid route, the 512-device fleet at gap
+     0.05, the north star with ``lp_backend='pdhg'`` cold, warm and per k,
+     the two 128-device lanes with an A each, the 128-device scenario
+     fallback, Mixtral M=4 and Qwen3-30B-A3B M=16 on the PDHG; each with
+     ``route=graph dense_pdhg|moe_pdhg``) held the same way, with their
+     walls, upload and search times, graph spans, busy shares and runtime
+     launches of both routes in turns (medians of 9; M=512 of 3), none on
+     the graph route, and a PDHG round's graph kernels; (k) the
      scheduler daemon: the JAX package's Makefile smokes through the port's
      ``serve`` (the chaos soak, 9 faults and 4 quarantines, with and without
      ``--speculate``; the speculation smoke on ``spec_burst.jsonl``, hits and
@@ -166,8 +177,10 @@ Phases (any failure exits non-zero and prints no result line):
      path launches K3's entry or B15's (the round tail folds them; the
      per-k solves of the sweep path launch no K2 entry either), every MoE
      solve of the moe, sweep, stream and serve paths takes the graph
-     (``route=graph moe_ipm``), and every other kernel is launched at least
-     once;
+     (``route=graph moe_ipm``), no search of the fleet, profile, sweep,
+     stream and elem paths keeps the host loop but inside ``captured``
+     (the fleet path's PDHG solves take ``route=graph dense_pdhg``), and
+     every other kernel is launched at least once;
   5. one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints it,
      and last ``{"ok": true, "device": {...}}``.
 """
@@ -1050,6 +1063,125 @@ def check_bnb_loop_moe(report: dict) -> None:
                              timing=src)
 
 
+def check_bnb_loop_pdhg(report: dict) -> None:
+    """The loop kernels' PDHG parts against their plain versions, bit for
+    bit, at the fleet path's shapes: the head's PDHG mode (``LoopPlan.
+    head_pdhg_reference``: the LP's rows, in float64 for pdhg_dtype='f64',
+    the warm flag cleared for a row whose carried y holds a NaN, a MoE row's
+    values against ``search.node_values``, its W and k) on the 128-device
+    fleet warm (root iterates) in float32 and float64 and on Mixtral M=4 on
+    the PDHG, and the cast of a float64 K5 round (``bnb_cast_kernel``)
+    against ``search.cast_lp_result``; each timed beside its plain version
+    and its bound."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.kernels.build import library
+    from distilp_torch.ops.ipm import IPMResult
+    from distilp_torch.solver import halda_solve
+    from distilp_torch.solver.backend_torch import _prepare, _search_params, warm_inputs
+    from distilp_torch.solver.search import _lanes_of, cast_lp_result, node_values
+    from distilp_torch.utils import make_synthetic_fleet
+
+    lib = library("bnb_loop")
+    dev = torch.device("cuda")
+    sh = kernels.stream_handle(dev)
+    model128, devs = online_model(128), make_synthetic_fleet(128, seed=123)
+    with uncounted():
+        cold = halda_solve(devs, model128, mip_gap=FLEET128_GAP, kv_bits="4bit")
+    lanes = lane_inputs([devs], model128, "4bit")
+    wi = [warm_inputs(ln.sf, _as_ilp(cold), ln.feasible, 0) for ln in lanes]
+    warm = [ln._replace(warm_tuple=w[0], root_warm_tuple=w[2]) for ln, w in zip(lanes, wi)]
+    cases = [("fleet_M128 warm f32, root 0's y NaN", warm, None, FLEET128_GAP, True),
+             ("fleet_M128 warm f64", warm, "f64", FLEET128_GAP, False),
+             ("mixtral_M4 pdhg", [moe_lane(MOE_CASES[0])], None, MOE_GAP, False)]
+    heads, casts = [], []
+    for name, lns, dtype, gap, poison in cases:
+        params = _search_params(lns[0].sf, None, None, None, None, None, "pdhg", None, None,
+                                dtype, False)
+        prep = _prepare(lns, params, gap, dev, shared_A=True)
+        plan = prep.plan
+        if plan is None or plan.sig.engine != "pdhg":
+            fail(f"PDHG loop case {name} did not take the graph route")
+        plan.load_static(prep.entry)
+        data = plan.data(prep.entry)
+        sig, st = plan.sig, plan.states[0]
+        with uncounted():
+            plan._seed(lib, data, sh)
+        torch.cuda.synchronize()
+        if poison:
+            if not bool(st.node_warm[0, 0]):
+                fail(f"{name}: root 0 carries no warm iterate to poison")
+            st.node_y[0, 0, 0] = float("nan")
+        plan.frozen.zero_()
+        lp64 = plan.lp_in64 if sig.lp_f64 else plan.lp_in
+        for which, B in ((0, sig.B0), (1, sig.Bw)):
+            R = sig.L * B
+            plan._head(data, sh, 0, which)
+            got = {k: (lp64 if k in ("b", "c", "l", "u", "wv", "wy") else plan.lp_in)[k][:R]
+                   .clone() for k in ("b", "c", "l", "u", "wv", "wy", "wz", "wf", "wok", "skip")}
+            if sig.moe:
+                got.update(values=plan.val_rows[which].clone(), W=plan.Wr[:R].clone(),
+                           k=plan.kr[:R].clone())
+            ref = plan.head_pdhg_reference(data, st, which)
+            if sig.moe:
+                kidx = st.node_kidx[:, :B].reshape(R).long()
+                lane = _lanes_of(sig.L, B, dev)
+                ref.update(values=node_values(data, kidx, lane).to(plan.lp_dtype),
+                           W=data.Ws[lane, kidx], k=data.ks[lane, kidx])
+            bad = [k for k in got if not bits_equal(got[k], ref[k])]
+            if poison and which == 0 and (bool(ref["wok"][0]) or bool(got["wok"][0])):
+                bad.append("wok of the poisoned row")
+            nb = loop_bytes(got.values()) + loop_bytes(
+                [st.node_kidx[:, :B], st.active[:, :B], st.node_warm[:, :B], st.node_lo[:, :B],
+                 st.node_hi[:, :B], st.node_v[:, :B], st.node_y[:, :B], st.node_z[:, :B],
+                 st.node_f[:, :B], plan.frozen])
+            ms, call, src = time_kernel(lambda: plan._head(data, sh, 0, which),  # noqa: B023
+                                        "bnb_head_kernel")
+            plain_ms = cuda_ms(lambda: plan.head_pdhg_reference(data, st, which))  # noqa: B023
+            heads.append((f"{name} B={B}", bad, ms, call, src, plain_ms,
+                          bound_ms(0.0, nb, PEAK_F64_S)))
+        if sig.lp_f64:
+            plan._head(data, sh, 0, 0)
+            plan._k5(sh, 0)
+            r64, r = plan.res64[0], plan.res[0]
+            red0 = r.reduced.clone()
+            plan._cast(sh, 0)
+            torch.cuda.synchronize()
+            src_res = IPMResult(v=r64.v, bound=r.bound, obj=r64.obj, rp_norm=r64.rp_norm,
+                                rd_norm=r64.rd_norm, mu=r64.mu, converged=r.converged,
+                                reduced=red0, y_dual=r64.y_dual, z_dual=r64.z_dual,
+                                f_dual=r64.f_dual, iters_run=r.iters_run)
+            ref = cast_lp_result(src_res, torch.float32)
+            fields = ("v", "obj", "rp_norm", "rd_norm", "mu", "reduced", "y_dual", "z_dual",
+                      "f_dual")
+            bad = [f for f in fields if not bits_equal(getattr(r, f), getattr(ref, f))]
+            Rr, m, nf = r.v.shape[0], sig.m, sig.nf
+            nb = Rr * (nf * 3 * (8 + 4) + m * (8 + 4) + 4 * (8 + 4) + nf * 2 * 8)
+            ms, call, src = time_kernel(lambda: plan._cast(sh, 0), "bnb_cast_kernel")  # noqa: B023
+            plain_ms = cuda_ms(lambda: cast_lp_result(src_res, torch.float32))  # noqa: B023
+            casts.append((f"{name} B={sig.B0}", bad, ms, call, src, plain_ms,
+                          bound_ms(float(Rr * (4 * nf + m + 4)), nb, PEAK_F64_S)))
+        prep.release()
+    for kname, lines in (("bnb_head pdhg mode", heads), ("bnb_cast", casts)):
+        for case, bad, ms, call, src, plain_ms, (b_ms, b_by) in lines:
+            print(f"{kname} vs plain {case}: differs in {bad or 'nothing'}; {ms:.4f} ms ({src}), "
+                  f"call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms!r} ms ({b_by})",
+                  flush=True)
+            if bad:
+                fail(f"{kname} differs from its plain version on {case}: {bad}")
+    report["bnb_head"]["pdhg_mode"] = [
+        dict(case=c, ms=ms, call_ms=call, timing=src, plain_ms=p, bound_ms=b[0])
+        for c, _, ms, call, src, p, b in heads]
+    case, _, ms, call, src, plain_ms, (b_ms, b_by) = casts[0]
+    report["bnb_cast"] = dict(name="bnb_cast", route="cuda",
+                              source="distilp_torch/kernels/csrc/bnb_loop_kernel.cu",
+                              replaces="distilp_tpu/solver/backend_jax.py:1414",
+                              max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None, held_on=case, call_ms=call,
+                              timing=src)
+
+
 @contextlib.contextmanager
 def recorded_loops(log: list):
     """Record each search's answer (the read-back vector) and final state
@@ -1245,16 +1377,23 @@ def packed_path(report: dict) -> dict:
     ]
     moe = moe_packed_cases()
     cases += moe["cases"]
+    pd = pdhg_packed_cases()
+    cases += pd["cases"]
     for name, fn in cases:
-        routes0 = dict(kernels.SHAPES["bnb_graph"])
-        g0 = kernels.LAUNCHES["bnb_graph"]
-        c0 = dict(PK.COPIES)
-        graph_log: list = []
-        with recorded_loops(graph_log):
-            got = fn()
-        torch.cuda.synchronize()
-        n_graph = kernels.LAUNCHES["bnb_graph"] - g0
-        h2d, d2h = PK.COPIES["h2d"] - c0["h2d"], PK.COPIES["d2h"] - c0["d2h"]
+        # A forced K5 route is a comparison of routes, not the path's own
+        # work: its launches are left out of the path's counts.
+        with uncounted() if name in pd["uncounted"] else contextlib.nullcontext():
+            routes0 = dict(kernels.SHAPES["bnb_graph"])
+            g0 = kernels.LAUNCHES["bnb_graph"]
+            c0 = dict(PK.COPIES)
+            graph_log: list = []
+            with recorded_loops(graph_log):
+                got = fn()
+            torch.cuda.synchronize()
+            n_graph = kernels.LAUNCHES["bnb_graph"] - g0
+            h2d, d2h = PK.COPIES["h2d"] - c0["h2d"], PK.COPIES["d2h"] - c0["d2h"]
+            routes = {k: v - routes0.get(k, 0) for k, v in kernels.SHAPES["bnb_graph"].items()
+                      if v != routes0.get(k, 0)}
         host_log: list = []
         with uncounted(), DL.host_loop(), recorded_loops(host_log):
             fn()
@@ -1274,21 +1413,26 @@ def packed_path(report: dict) -> dict:
             fail(f"packed {name}: the graph route differs from the host loop or did not run "
                  f"as one graph launch and one read a solve")
         if name.startswith("moe "):
-            routes = {k: v - routes0.get(k, 0) for k, v in kernels.SHAPES["bnb_graph"].items()
-                      if v != routes0.get(k, 0)}
             print(f"packed {name}: routes {json.dumps(routes)}", flush=True)
             if any(not k.startswith("route=graph moe_ipm") for k in routes):
                 fail(f"packed {name}: a MoE solve left the graph route: {routes}")
+        if name.startswith("pdhg "):
+            print(f"packed {name}: routes {json.dumps(routes)}", flush=True)
+            if not routes or any(not k.startswith(("route=graph dense_pdhg",
+                                                   "route=graph moe_pdhg")) for k in routes):
+                fail(f"packed {name}: a PDHG solve left the graph route: {routes}")
         del got
     caps = {f"L={s.L} B0={s.B0} Bw={s.Bw} M={s.M} per_k={s.per_k} warm={s.has_warm} "
             f"moe={s.moe} decomp_steps={s.decomp_steps} margin={s.has_margin} "
+            f"engine={s.engine} f64={s.lp_f64} route={s.route}{s.C or ''} "
             f"duals={s.has_duals} m_y={s.want_my}": c
             for s, c in DL.CAPTURES.items()}
     print("packed graph captures per signature", json.dumps(caps), flush=True)
     if any(c != 1 for c in DL.CAPTURES.values()):
         fail(f"a plan signature was captured more than once: {caps}")
     # A static hit: one host-to-device copy (the dynamic blob) and one read.
-    for name, fn in (("north_star warm", cases[5][1]), ("north_star cold", cases[4][1])):
+    for name, fn in (("north_star warm", cases[5][1]), ("north_star cold", cases[4][1]),
+                     *[(n, f) for n, f in pd["cases"] if n in pd["static_hit"]]):
         fn()
         c0 = dict(PK.COPIES)
         mc = _memcpys(fn)
@@ -1350,6 +1494,7 @@ def packed_path(report: dict) -> dict:
                 "wall_ms_median_of_9"])
             print("packed timing", json.dumps(line), flush=True)
     moe_packed_timing(moe)
+    pdhg_packed_timing(pd)
     return launches
 
 
@@ -1497,6 +1642,136 @@ def moe_packed_timing(moe: dict) -> None:
                  if k in ("bnb_head", "ipm", "round_moe", "round_tail", "bnb_control")}
     print(f"packed moe graph kernels a round {json.dumps(per_round)} "
           f"({sum(per_round.values())} graph kernel nodes)", flush=True)
+
+
+def pdhg_packed_cases() -> dict:
+    """Path (j)'s PDHG cases, each a solve through the user's entry point:
+    the 128-device fleet (the default engine at M >= 128; K5's cluster
+    route) in float32, with pdhg_dtype='f64' and under a forced grid route,
+    the 512-device fleet at gap 0.05 (C=4), the north star with
+    lp_backend='pdhg' cold, warm and per k, the two 128-device lanes with an
+    A each, the 128-device scenario fallback, Mixtral M=4 and Qwen3-30B-A3B
+    M=16 with lp_backend='pdhg'. ``uncounted`` names the forced-route case,
+    ``static_hit`` those held to one upload and one read on a static hit,
+    ``timing`` (name, fn(timings), reps) the cases timed in turns."""
+    from distilp_torch.solver import halda_solve, halda_solve_per_k, halda_solve_scenarios
+    from distilp_torch.solver import device_loop as DL
+    from distilp_torch.solver import solve_batch
+    from distilp_torch.utils import make_synthetic_fleet
+
+    model128, devs128 = online_model(128), make_synthetic_fleet(128, seed=123)
+    model512, devs512 = online_model(512), make_synthetic_fleet(512, seed=123)
+    model, north = online_model(), make_synthetic_fleet(16, seed=123)
+    mix, qwen = MOE_PDHG_CASES
+    mdevs = make_synthetic_fleet(mix[2], seed=mix[3], pool_bytes=int(mix[4]))
+    qdevs = make_synthetic_fleet(qwen[2], seed=qwen[3], pool_bytes=int(qwen[4]))
+    mmodel, qmodel = moe_model(mix[1]), moe_model(qwen[1])
+    # The warm case's hint, from the host loop (bit for bit the graph's
+    # answer): a capture here would be evicted from the plans' LRU before
+    # the cold case solves again, and captured twice.
+    with uncounted(), DL.host_loop():
+        cold_north = halda_solve(north, model, mip_gap=1e-3, kv_bits="4bit", lp_backend="pdhg")
+    insts = [pack_lane(make_synthetic_fleet(128, seed=s), model128, FLEET128_GAP)[0]
+             for s, _ in LANES128]
+    futures = [devs128, doubled_cpu_table(devs128)]
+    f128 = dict(mip_gap=FLEET128_GAP, kv_bits="4bit")
+    dense = dict(mip_gap=1e-3, kv_bits="4bit", lp_backend="pdhg")
+    moe = dict(mip_gap=MOE_GAP, kv_bits="8bit", lp_backend="pdhg")
+
+    def grid(tm=None):
+        with forced_route("grid"):
+            return halda_solve(devs128, model128, timings=tm, **f128)
+
+    timing = [
+        ("fleet_M128", lambda tm=None: halda_solve(devs128, model128, timings=tm, **f128), 9),
+        ("fleet_M128 f64", lambda tm=None: halda_solve(devs128, model128, pdhg_dtype="f64",
+                                                       timings=tm, **f128), 9),
+        ("fleet_M128 grid", grid, 9),
+        ("fleet_M512", lambda tm=None: halda_solve(devs512, model512, mip_gap=FLEET512_GAP,
+                                                   kv_bits="4bit", timings=tm), 3),
+        ("north_star cold", lambda tm=None: halda_solve(north, model, timings=tm, **dense), 9),
+        ("north_star warm", lambda tm=None: halda_solve(north, model, warm=cold_north,
+                                                        timings=tm, **dense), 9),
+        ("north_star per_k", lambda tm=None: halda_solve_per_k(north, model, timings=tm,
+                                                               **dense), 9),
+        ("lanes fleet_M128 x2", lambda tm=None: solve_batch(insts, timings=tm), 9),
+        ("scenario fallback fleet_M128", lambda tm=None: halda_solve_scenarios(
+            futures, model128, timings=tm, **f128), 9),
+        ("mixtral_M4", lambda tm=None: halda_solve(mdevs, mmodel, timings=tm, **moe), 9),
+        ("qwen3_30b_a3b_M16", lambda tm=None: halda_solve(qdevs, qmodel, timings=tm, **moe), 9),
+    ]
+    cases = [(f"pdhg {n}", fn) for n, fn, _ in timing]
+    return dict(cases=cases, timing=timing, uncounted={"pdhg fleet_M128 grid"},
+                static_hit={"pdhg fleet_M128", "pdhg fleet_M128 f64"},
+                fleet=(devs128, model128))
+
+
+def pdhg_packed_timing(pd: dict) -> None:
+    """Path (j)'s PDHG walls: each case on the host loop and on the graph in
+    turns (medians of 9; the 512-device fleet of 3), wall, upload and
+    search time (``upload_ms``, ``solve_ms``) of each route, the host
+    loop's kernel busy time and share (profiler) and the graph launch's
+    device span (CUDA events: the profiler does not reliably see a WHILE
+    body's kernels); then one solve's runtime kernel launches on each route
+    (the graph route must make none) and the graph's kernels a round."""
+    import statistics
+
+    import numpy as np
+
+    from distilp_torch import kernels
+    from distilp_torch.solver import device_loop as DL
+
+    with uncounted():
+        for name, fn, reps in pd["timing"]:
+            walls = {"host": [], "graph": []}
+            search = {"host": [], "graph": []}
+            upload = {"host": [], "graph": []}
+            with graph_spans() as spans:
+                for rep in range(reps):
+                    for route in (("host", "graph") if rep % 2 == 0 else ("graph", "host")):
+                        tm: dict = {}
+                        with DL.host_loop() if route == "host" else contextlib.nullcontext():
+                            walls[route].append(timed(lambda: fn(tm))[1])  # noqa: B023
+                        search[route].append(tm.get("solve_ms", float("nan")))
+                        upload[route].append(tm.get("upload_ms", float("nan")))
+            span = statistics.median(spans)
+            with DL.host_loop():
+                busy = _busy_ms(lambda: fn({}))  # noqa: B023
+                host_kl = kernel_launches(lambda: fn({}))  # noqa: B023
+            graph_kl = kernel_launches(lambda: fn({}))  # noqa: B023
+            tm = {}
+            fn(tm)
+            line = {"case": name, "card": smi_line(), "reps": reps,
+                    "rounds": tm.get("bnb_rounds"), "lp_backend": tm.get("lp_backend")}
+            for route in ("host", "graph"):
+                wall = statistics.median(walls[route])
+                line[route] = {"wall_ms_median": wall, "walls_ms": walls[route],
+                               "search_ms_median": statistics.median(search[route]),
+                               "upload_ms_median": statistics.median(upload[route]),
+                               "search_ms": search[route]}
+            line["host"].update(kernel_busy_ms=busy, busy_share=busy / line["host"][
+                "wall_ms_median"], runtime_launches=host_kl["runtime_launches"],
+                device_kernels=host_kl["device_kernels"])
+            line["graph"].update(device_span_ms=span, span_share=span / line["graph"][
+                "wall_ms_median"], runtime_launches=graph_kl["runtime_launches"],
+                graph_launches=graph_kl["wrappers"].get("bnb_graph", 0))
+            print("packed pdhg timing", json.dumps(line), flush=True)
+            if graph_kl["runtime_launches"] != 0:
+                fail(f"packed pdhg {name}: the graph route made "
+                     f"{graph_kl['runtime_launches']} runtime kernel launches a solve")
+    # A PDHG round in the graph: the head, K5, (f64) the cast, the round
+    # tail and the control (count_graph_launches' account of one round).
+    for sig in [s for s in DL.CAPTURES if s.engine == "pdhg" and s.L == 1 and not s.per_k
+                and not s.moe and s.M == 128]:
+        with uncounted():
+            before = dict(kernels.LAUNCHES)
+            DL.count_graph_launches(sig, np.array([[0.0, 0.0, 0.0, 0.0, 3.0]]))
+            per = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        per_round = {k: v // 3 for k, v in per.items()
+                     if k in ("bnb_head", "pdhg", "bnb_cast", "round_tail", "bnb_control")}
+        print(f"packed pdhg graph kernels a round (M=128 route={sig.route}{sig.C or ''} "
+              f"f64={sig.lp_f64}) {json.dumps(per_round)} "
+              f"({sum(per_round.values())} graph kernel nodes)", flush=True)
 
 
 # ------------------------------------------------------------ serve (path k)
@@ -3186,8 +3461,27 @@ def check_pdhg_elem(report: dict, calls: list) -> None:
     if not elem_calls:
         fail("the elem path made no per-element PDHG call")
     rows, bad = [], []
+    held: list = []  # (inputs, call) of each call held so far
     for i, (batch, kw) in enumerate(elem_calls):
         opts = pdhg_call_opts(kw)
+        # A call with the inputs of one already held (the path's bound
+        # measurement reruns its lanes' solve) is held there.
+        inputs = [batch.A.values, *batch[1:], opts.get("skip"), *(opts.get("warm") or ()),
+                  opts.get("iters"), opts.get("restart_tol"), kw.get("dtype")]
+
+        def same_input(x, y):
+            if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+                return isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) and \
+                    bits_equal(x, y)
+            return x == y
+
+        same = next((j for prev, j in held if len(prev) == len(inputs) and all(
+            same_input(x, y) for x, y in zip(prev, inputs))), None)
+        if same is not None:
+            print(f"pdhg_elem vs plain: call {i} has the inputs of call {same}, held there",
+                  flush=True)
+            continue
+        held.append((inputs, i))
         B, n = batch.c.shape
         m = batch.b.shape[1]
         b64 = LPBatch(batch.A._replace(values=batch.A.values.double()),
@@ -7784,12 +8078,12 @@ def main() -> int:
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
               check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces,
               check_collective, check_pdhg_sharded, check_pdhg_sharded_elem, check_round_tail,
-              check_bnb_loop, check_bnb_loop_moe]
+              check_bnb_loop, check_bnb_loop_moe, check_bnb_loop_pdhg]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_routes", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
              "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded",
-             "pdhg_sharded_elem", "round_tail", "bnb_loop", "bnb_loop_moe"]
+             "pdhg_sharded_elem", "round_tail", "bnb_loop", "bnb_loop_moe", "bnb_loop_pdhg"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -7844,6 +8138,21 @@ def main() -> int:
         if not any(k.startswith("route=graph moe_ipm") for k in moe_routes) or any(
                 k.startswith("route=host moe") for k in moe_routes):
             fail(f"the {p} path's MoE solves did not take the graph route: {moe_routes}")
+    # PDHG sweeps take the loop's graph too: on these paths no search keeps
+    # the host loop but those inside captured(...), which asks for it
+    # (route=host host_loop_asked); the fleet path's solves are on the
+    # PDHG's graph.
+    for p in ("fleet", "profile", "sweep", "stream", "elem"):
+        routes = by_shape["bnb_graph"][p]
+        pdhg_routes = {k: v for k, v in routes.items() if "pdhg" in k}
+        off = {k: v for k, v in routes.items()
+               if k.startswith("route=host") and "host_loop_asked" not in k}
+        print(f"{p} path PDHG routes {json.dumps(pdhg_routes)}; host loop {json.dumps(off)}",
+              flush=True)
+        if off:
+            fail(f"the {p} path's searches left the graph route: {off}")
+    if not any(k.startswith("route=graph dense_pdhg") for k in by_shape["bnb_graph"]["fleet"]):
+        fail("the fleet path's PDHG solves did not take the graph route")
     # K3's entry and B15's run only inside the round tail's plain version:
     # every round, per-k or not, is one round tail after its LP call.
     folded = {k: launches[k] for k in FOLDED_INTO_TAIL if launches[k]}
@@ -7867,7 +8176,7 @@ def main() -> int:
                  "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
                  "pdhg_sharded", "pdhg_sharded_elem", "collective", "round_tail",
                  "round_tail_lanes", "bnb_seed", "bnb_head", "bnb_control", "bnb_answer",
-                 "decomp_theta", "decomp_bound"):
+                 "decomp_theta", "decomp_bound", "bnb_cast"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

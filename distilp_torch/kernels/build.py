@@ -120,14 +120,16 @@ SIGNATURES = {
         "dtk_absmax_rescale_bf16": [_P, _L, _P, _I, _F, _I, _P],
     },
     "pdhg": {
+        "dtk_pdhg_grid": [_I],
         "dtk_pdhg_ws_bytes": [_I] * 4,
-        "dtk_pdhg_elem_f32": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L]
+        "dtk_pdhg_elem_f32": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L, _I]
         + [_P] * 13 + [_I, _P],
-        "dtk_pdhg_elem_f64": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L]
+        "dtk_pdhg_elem_f64": [_P, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_P, _L, _I]
         + [_P] * 13 + [_I, _P],
     },
     "pdhg_cluster": {
         "dtk_pdhgc_max_cluster": [_I],
+        "dtk_pdhgc_prepare": [_I],
         "dtk_pdhgc_smem_bytes": [_I] * 7,
         "dtk_pdhgc_f32": [_P, _P, _I, _I, _P, _L] + [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _I]
         + [_P] * 13 + [_I, _P],
@@ -164,6 +166,7 @@ SIGNATURES = {
         "dtk_bnb_seed_moe_smem": [_I],
         "dtk_bnb_seed_moe": [_P, _P, _P],
         "dtk_bnb_head": [_P, _P, _P],
+        "dtk_bnb_cast": [_P, _P, _P],
         "dtk_bnb_control": [_P, _P, _D, ctypes.c_ulonglong, _P],
         "dtk_bnb_answer": [_P, _P, _P],
         "dtk_bnb_graph_new": [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_ulonglong)],

@@ -1,7 +1,8 @@
-// The branch-and-bound loop of a sweep on the IPM engine (dense or MoE) on
-// the card: the seeded root state, every round's LP inputs, the loop's
-// control and the answer, and the CUDA graph that runs them with K1
-// (ipm_kernel.cu), for a MoE sweep K7 (decomp_kernel.cu) and K2's MoE mode
+// The branch-and-bound loop of a sweep (dense or MoE, on the IPM or the PDHG
+// engine) on the card: the seeded root state, every round's LP inputs, the
+// loop's control and the answer, and the CUDA graph that runs them with the
+// LP engine (K1, ipm_kernel.cu, or K5 on its route, pdhg_cluster_kernel.cu or
+// pdhg_kernel.cu), for a MoE sweep K7 (decomp_kernel.cu) and K2's MoE mode
 // (round_moe_kernel.cu), and the round tail (round_tail_kernel.cu) between,
 // the loop as a conditional WHILE node.
 //
@@ -25,7 +26,12 @@
 //     bnb_head_kernel   each row's b and c (by its k), box, warm iterate, ok
 //                       and skip (frozen lanes' rows skip) straight from the
 //                       state, a block a row;
-//     K1                dtk_ipm_f32 on the plan's buffers;
+//     the LP engine     dtk_ipm_f32 (K1) on the plan's buffers, or K5 on
+//                       the route the plan fixed: one cluster launch, or one
+//                       cooperative grid launch a slice of up to 16 rows, as
+//                       the K5 wrapper slices them (ops/pdhg.py);
+//     bnb_cast_kernel   (PDHG in float64) the result rounded to the search's
+//                       float32, as search.cast_lp_result does;
 //     the round tail    dtk_round_tail, reading one state buffer and writing
 //                       the other (ping-pong), and each lane's go flag;
 //     bnb_control_kernel (step) the next frozen mask and whether the loop
@@ -55,7 +61,12 @@
 //   bnb_head_kernel     also writes each row's k's 2M expert-busy entries
 //                       into its dense A and its values on the structure
 //                       (K1's per-node route), and its W and k (K2 MoE);
-//   K2 MoE's LP rows    between K1 and the round tail (pre-rounded rows);
+//   K2 MoE's LP rows    between the LP and the round tail (pre-rounded rows);
+// The PDHG engine (the reference's PDHG branch of _bnb_round, :1520-1558):
+//   bnb_head_kernel     in its PDHG mode also tests a row's warm iterate for
+//                       non-finite components as the K5 wrapper does, writes
+//                       no dense A, and for pdhg_dtype 'f64' writes the LP's
+//                       inputs and the MoE values in float64;
 //   bnb_answer_kernel   also writes the duals block and, asked, the y-profile.
 // The graph: seed, init, the root round (state A -> B), then WHILE { round
 // B -> A, round A -> B }, then the answer. A lane settled in the body's first
@@ -93,6 +104,7 @@ constexpr int HEAD_THREADS = 128;
 constexpr int CONTROL_THREADS = 256;
 constexpr int ANSWER_THREADS = 256;
 constexpr int MOE_SEED_THREADS = 128;
+constexpr int CAST_THREADS = 256;
 // K7's per-device rows (ops/decomp.py::RD_DEV_FIELDS), at most.
 constexpr int DEV_ROWS = 16;
 
@@ -539,7 +551,30 @@ struct HeadParams {
   const double* ks;
   double* Wr;             // (L*B,)
   double* kr;
+  // PDHG mode (pdhg != 0; K5 reads the rows): a row's warm iterate is used
+  // only when every component of its v, y, z and f is finite (as the K5
+  // wrapper tests it, ops/pdhg.py::_pdhg_kernel), and no dense A is written
+  // (A_rows is null: K5 reads only the values). With lp_f64 (pdhg_dtype
+  // 'f64') the LP's b, c, l, u, warm v and y and the values are written in
+  // float64 (the exact casts the wrapper makes on entry) instead.
+  int pdhg, lp_f64;
+  double* b64;            // (L*B, m)
+  double* c64;            // (L*B, nf)
+  double* l64;
+  double* u64;
+  double* wv64;
+  double* wy64;           // (L*B, m)
+  double* vals64;         // (L*B, nnz)
 };
+
+template <typename T>
+__device__ __forceinline__ void put(bool f64, float* o32, double* o64, size_t i, T x) {
+  if (f64) {
+    o64[i] = (double)x;
+  } else {
+    o32[i] = (float)x;
+  }
+}
 
 // search._bnb_round's gathers of a round's LP inputs, a block a row.
 __global__ void __launch_bounds__(HEAD_THREADS) bnb_head_kernel(const __grid_constant__ HeadParams p) {
@@ -549,21 +584,29 @@ __global__ void __launch_bounds__(HEAD_THREADS) bnb_head_kernel(const __grid_con
   const size_t nf = p.nf, m = p.m;
   const size_t k = (size_t)p.kidx[slot];
   const size_t kb = lane * p.n_k + k;
+  const bool f64 = p.lp_f64 != 0;
+  bool fin = true;
   for (size_t j = threadIdx.x; j < nf; j += blockDim.x) {
     const size_t o = row * nf + j, so = slot * nf + j;
-    p.c[o] = p.c_k[kb * nf + j];
-    p.l[o] = p.lo[so];
-    p.u[o] = p.hi[so];
-    p.wv[o] = p.nv[so];
-    p.wz[o] = p.nz[so];
-    p.wf[o] = p.nfd[so];
+    const float v = p.nv[so], z = p.nz[so], f = p.nfd[so];
+    put(f64, p.c, p.c64, o, p.c_k[kb * nf + j]);
+    put(f64, p.l, p.l64, o, p.lo[so]);
+    put(f64, p.u, p.u64, o, p.hi[so]);
+    put(f64, p.wv, p.wv64, o, v);
+    p.wz[o] = z;
+    p.wf[o] = f;
+    fin = fin && isfinite(v) && isfinite(z) && isfinite(f);
   }
   for (size_t i = threadIdx.x; i < m; i += blockDim.x) {
-    p.b[row * m + i] = p.b_k[kb * m + i];
-    p.wy[row * m + i] = p.ny[slot * m + i];
+    const float y = p.ny[slot * m + i];
+    put(f64, p.b, p.b64, row * m + i, p.b_k[kb * m + i]);
+    put(f64, p.wy, p.wy64, row * m + i, y);
+    fin = fin && isfinite(y);
   }
+  // p.pdhg is the same in every thread: the whole block reaches the barrier.
+  const bool warm_finite = p.pdhg ? __syncthreads_and(fin) != 0 : true;
   if (threadIdx.x == 0) {
-    p.wok[row] = p.nwarm[slot] ? 1 : 0;
+    p.wok[row] = p.nwarm[slot] && warm_finite ? 1 : 0;
     const bool live = p.active[slot] && !(p.frozen != nullptr && p.frozen[lane]);
     p.skip[row] = live ? 0 : 1;
   }
@@ -571,17 +614,69 @@ __global__ void __launch_bounds__(HEAD_THREADS) bnb_head_kernel(const __grid_con
   // search.node_A / node_values: rows 4M + i and 5M + i of column 2M + i.
   const size_t M = p.M;
   const float* g = p.gky + kb * 2 * M;
-  float* A = p.A_rows + row * m * nf;
-  float* v = p.vals + row * (size_t)p.nnz;
+  float* A = p.A_rows == nullptr ? nullptr : p.A_rows + row * m * nf;
+  float* v = p.vals == nullptr ? nullptr : p.vals + row * (size_t)p.nnz;
+  double* v64 = p.vals64 == nullptr ? nullptr : p.vals64 + row * (size_t)p.nnz;
   for (size_t i = threadIdx.x; i < M; i += blockDim.x) {
-    A[(4 * M + i) * nf + 2 * M + i] = g[i];
-    A[(5 * M + i) * nf + 2 * M + i] = g[M + i];
-    v[p.gky_pos[i]] = g[i];
-    v[p.gky_pos[M + i]] = g[M + i];
+    if (A != nullptr) {
+      A[(4 * M + i) * nf + 2 * M + i] = g[i];
+      A[(5 * M + i) * nf + 2 * M + i] = g[M + i];
+    }
+    put(f64, v, v64, p.gky_pos[i], g[i]);
+    put(f64, v, v64, p.gky_pos[M + i], g[M + i]);
   }
   if (threadIdx.x == 0) {
     p.Wr[row] = p.Ws[kb];
     p.kr[row] = p.ks[kb];
+  }
+}
+
+// ------------------------------------------------------------------ cast
+
+// A float64 PDHG round's result in the search's float32 (search.
+// cast_lp_result, the reference's _cast_lp_result, backend_jax.py:1414,
+// applied at :1558): v, y, z, f, obj and the residuals rounded to nearest
+// into the float32 result the round tail and the answer read, and reduced
+// rounded to float32 and held in float64, in place. K5 writes bound,
+// converged and iters_run straight into the float32 result.
+struct CastParams {
+  long R, nf, m;
+  const double* v64;  // (R, nf)
+  const double* y64;  // (R, m)
+  const double* z64;
+  const double* f64;
+  const double* obj64;  // (R,)
+  const double* rp64;
+  const double* rd64;
+  const double* mu64;
+  float* v;
+  float* y;
+  float* z;
+  float* f;
+  float* obj;
+  float* rp;
+  float* rd;
+  float* mu;
+  double* reduced;  // (R, nf), in place
+};
+constexpr int CAST_PTRS = 17;
+
+__global__ void __launch_bounds__(CAST_THREADS) bnb_cast_kernel(const __grid_constant__ CastParams p) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t t0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t n_cols = (size_t)p.R * p.nf, n_rows = (size_t)p.R * p.m;
+  for (size_t i = t0; i < n_cols; i += stride) {
+    p.v[i] = __double2float_rn(p.v64[i]);
+    p.z[i] = __double2float_rn(p.z64[i]);
+    p.f[i] = __double2float_rn(p.f64[i]);
+    p.reduced[i] = (double)__double2float_rn(p.reduced[i]);
+  }
+  for (size_t i = t0; i < n_rows; i += stride) p.y[i] = __double2float_rn(p.y64[i]);
+  for (size_t i = t0; i < (size_t)p.R; i += stride) {
+    p.obj[i] = __double2float_rn(p.obj64[i]);
+    p.rp[i] = __double2float_rn(p.rp64[i]);
+    p.rd[i] = __double2float_rn(p.rd64[i]);
+    p.mu[i] = __double2float_rn(p.mu64[i]);
   }
 }
 
@@ -912,9 +1007,10 @@ int dtk_bnb_seed_moe(const long long* ptrs, const int* dims, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// dims: L, B, cap, nf, m, n_k, moe, M, nnz; ptrs: lo, hi, kidx, active, nv,
-// ny, nz, nf, nwarm, frozen, b_k, c_k, then the 10 outputs, then (MoE) gky,
-// gky_pos, A_rows, vals, Ws, ks, Wr, kr.
+// dims: L, B, cap, nf, m, n_k, moe, M, nnz, pdhg, lp_f64; ptrs: lo, hi,
+// kidx, active, nv, ny, nz, nf, nwarm, frozen, b_k, c_k, then the 10
+// outputs, then (MoE) gky, gky_pos, A_rows, vals, Ws, ks, Wr, kr, then
+// (lp_f64) b64, c64, l64, u64, wv64, wy64, vals64.
 int dtk_bnb_head(const long long* ptrs, const int* dims, void* stream) {
   HeadParams p;
   p.L = dims[0];
@@ -933,14 +1029,51 @@ int dtk_bnb_head(const long long* ptrs, const int* dims, void* stream) {
       (const void**)&p.wf, (const void**)&p.wok, (const void**)&p.skip,
       (const void**)&p.gky, (const void**)&p.gky_pos, (const void**)&p.A_rows,
       (const void**)&p.vals, (const void**)&p.Ws, (const void**)&p.ks, (const void**)&p.Wr,
-      (const void**)&p.kr};
+      (const void**)&p.kr, (const void**)&p.b64, (const void**)&p.c64, (const void**)&p.l64,
+      (const void**)&p.u64, (const void**)&p.wv64, (const void**)&p.wy64,
+      (const void**)&p.vals64};
   constexpr int n = sizeof(slots) / sizeof(slots[0]);
   for (int i = 0; i < n; ++i) *slots[i] = (const void*)ptrs[i];
   p.moe = dims[6];
   p.M = dims[7];
   p.nnz = dims[8];
+  p.pdhg = dims[9];
+  p.lp_f64 = dims[10];
   if (p.moe && (p.M <= 0 || 6 * p.M > p.m || 3 * p.M > p.nf)) return (int)cudaErrorInvalidValue;
+  if (p.moe && (p.lp_f64 ? p.vals64 == nullptr : p.vals == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (p.moe && !p.pdhg && p.A_rows == nullptr) return (int)cudaErrorInvalidValue;
+  if (p.lp_f64 && (!p.pdhg || p.b64 == nullptr || p.c64 == nullptr || p.l64 == nullptr ||
+                   p.u64 == nullptr || p.wv64 == nullptr || p.wy64 == nullptr))
+    return (int)cudaErrorInvalidValue;
   bnb_head_kernel<<<p.L * p.B, HEAD_THREADS, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// dims: R, nf, m; ptrs: v64, y64, z64, f64, obj64, rp64, rd64, mu64, then
+// the float32 v, y, z, f, obj, rp, rd, mu, then reduced (in place).
+int dtk_bnb_cast(const long long* ptrs, const int* dims, void* stream) {
+  CastParams p;
+  p.R = dims[0];
+  p.nf = dims[1];
+  p.m = dims[2];
+  if (p.R <= 0 || p.nf <= 0 || p.m <= 0) return (int)cudaErrorInvalidValue;
+  const void** slots[] = {
+      (const void**)&p.v64, (const void**)&p.y64, (const void**)&p.z64, (const void**)&p.f64,
+      (const void**)&p.obj64, (const void**)&p.rp64, (const void**)&p.rd64,
+      (const void**)&p.mu64, (const void**)&p.v, (const void**)&p.y, (const void**)&p.z,
+      (const void**)&p.f, (const void**)&p.obj, (const void**)&p.rp, (const void**)&p.rd,
+      (const void**)&p.mu, (const void**)&p.reduced};
+  static_assert(sizeof(slots) / sizeof(slots[0]) == CAST_PTRS, "cast pointer table");
+  for (int i = 0; i < CAST_PTRS; ++i) {
+    *slots[i] = (const void*)ptrs[i];
+    if (*slots[i] == nullptr) return (int)cudaErrorInvalidValue;
+  }
+  const size_t elems = (size_t)p.R * (p.nf > p.m ? p.nf : p.m);
+  size_t grid = (elems + CAST_THREADS * 4 - 1) / (CAST_THREADS * 4);
+  if (grid > 1024) grid = 1024;
+  if (grid < 1) grid = 1;
+  bnb_cast_kernel<<<(unsigned)grid, CAST_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

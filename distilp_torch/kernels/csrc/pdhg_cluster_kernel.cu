@@ -827,21 +827,28 @@ int max_cluster() {
   return 0;
 }
 
+// Lets the kernel take a full block of dynamic shared memory on the current
+// device: once a device and dtype (dtk_pdhgc_prepare), never inside a launch,
+// so a launch captured into a CUDA graph sets nothing and queries nothing.
+template <typename T>
+int prepare() {
+  return (int)cudaFuncSetAttribute(pdhg_cluster_kernel<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)SMEM_LIMIT);
+}
+
 // One launch: B clusters of C CTAs, smem bytes of shared memory each (the
-// largest CTA's smem_bytes).
+// largest CTA's smem_bytes). The kernel must be prepared on this device.
 template <typename T>
 int launch(Params<T> p, int B, int smem, cudaStream_t stream) {
   if (B < 1 || p.C < 1 || p.C > CLUSTER_MAX || (p.C & (p.C - 1)) != 0 || smem < 0 ||
       (size_t)smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   if (p.vstride < 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      pdhg_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = config(B * p.C, p.C, (size_t)smem, stream, &attr);
   void* args[] = {&p};
-  err = cudaLaunchKernelExC(&cfg, (const void*)pdhg_cluster_kernel<T>, args);
+  cudaError_t err = cudaLaunchKernelExC(&cfg, (const void*)pdhg_cluster_kernel<T>, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -905,6 +912,11 @@ extern "C" {
 int dtk_pdhgc_max_cluster(int is_f64) {
   return is_f64 ? max_cluster<double>() : max_cluster<float>();
 }
+
+// Prepares the float32 (is_f64 = 0) or float64 kernel on the current device
+// for launches of up to a full block of shared memory; call it once a device
+// before the first launch (ops/pdhg.py does, with the cluster size query).
+int dtk_pdhgc_prepare(int is_f64) { return is_f64 ? prepare<double>() : prepare<float>(); }
 
 // Shared-memory bytes of one CTA owning nr rows (zr nonzeros) and nc columns
 // (zc nonzeros) of an (m, n) element.

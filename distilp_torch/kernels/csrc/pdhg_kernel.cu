@@ -735,15 +735,13 @@ int grid_size(int* G) {
   return 0;
 }
 
-// One cooperative launch of B <= BMAX elements. p carries the structure
-// and values, the data, the outputs and the trace; the workspace is carved
-// here.
+// One cooperative launch of B <= BMAX elements over G blocks (grid_size's,
+// fixed once a device by dtk_pdhg_grid: a launch captured into a CUDA graph
+// queries nothing). p carries the structure and values, the data, the
+// outputs and the trace; the workspace is carved here.
 template <typename T>
-int launch(Params<T> p, void* ws, long ws_len, cudaStream_t stream) {
-  if (p.B < 1 || p.B > BMAX) return (int)cudaErrorInvalidValue;
-  int G = 0;
-  int gerr = grid_size<T>(&G);
-  if (gerr != 0) return gerr;
+int launch(Params<T> p, void* ws, long ws_len, int G, cudaStream_t stream) {
+  if (p.B < 1 || p.B > BMAX || G < 1) return (int)cudaErrorInvalidValue;
   const int B = p.B, m = p.m, n = p.n;
   if ((size_t)ws_len < ws_bytes<T>(B, m, n, G)) return (int)cudaErrorInvalidValue;
   unsigned char* w = static_cast<unsigned char*>(ws);
@@ -810,7 +808,7 @@ template <typename T>
 int launch_elem(const int* sp, int nnz, const T* vals, long vstride, const T* b,
                 const T* c, const T* l, const T* u, const T* wv, const T* wy,
                 const uint8_t* wok, const uint8_t* skip, int B, int m, int n, int chunk,
-                int n_chunks, double tol, double rt, void* ws, long ws_len, T* v,
+                int n_chunks, double tol, double rt, void* ws, long ws_len, int G, T* v,
                 double* bound, T* obj, T* rp, T* rd, T* mu, uint8_t* conv,
                 double* reduced, T* y, T* z, T* f, int* iters, T* trace, int trace_rows,
                 cudaStream_t stream) {
@@ -825,12 +823,21 @@ int launch_elem(const int* sp, int nnz, const T* vals, long vstride, const T* b,
   p.t_row = p.t_ptr + n + 1;
   p.vals = vals;
   p.vstride = vstride;
-  return launch<T>(p, ws, ws_len, stream);
+  return launch<T>(p, ws, ws_len, G, stream);
 }
 
 }  // namespace
 
 extern "C" {
+
+// The grid of every launch on the current device for the float32
+// (is_f64 = 0) or float64 kernel: the SMs times the blocks an SM holds (at
+// most BLOCKS_PER_SM); a negative cudaError when it cannot be sized.
+int dtk_pdhg_grid(int is_f64) {
+  int G = 0;
+  const int err = is_f64 ? grid_size<double>(&G) : grid_size<float>(&G);
+  return err != 0 ? -err : G;
+}
 
 // Workspace bytes of one launch of B elements (0 when the grid cannot be
 // sized on the current device).
@@ -844,12 +851,12 @@ int dtk_pdhg_elem_f32(const int* sp, int nnz, const float* vals, long vstride,
                       const float* b, const float* c, const float* l, const float* u,
                       const float* wv, const float* wy, const uint8_t* wok,
                       const uint8_t* skip, int B, int m, int n, int chunk, int n_chunks,
-                      double tol, double rt, void* ws, long ws_len, float* v,
+                      double tol, double rt, void* ws, long ws_len, int G, float* v,
                       double* bound, float* obj, float* rp, float* rd, float* mu,
                       uint8_t* conv, double* reduced, float* y, float* z, float* f,
                       int* iters, float* trace, int trace_rows, void* stream) {
   return launch_elem<float>(sp, nnz, vals, vstride, b, c, l, u, wv, wy, wok, skip, B, m, n,
-                            chunk, n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp, rd,
+                            chunk, n_chunks, tol, rt, ws, ws_len, G, v, bound, obj, rp, rd,
                             mu, conv, reduced, y, z, f, iters, trace, trace_rows,
                             (cudaStream_t)stream);
 }
@@ -858,12 +865,12 @@ int dtk_pdhg_elem_f64(const int* sp, int nnz, const double* vals, long vstride,
                       const double* b, const double* c, const double* l, const double* u,
                       const double* wv, const double* wy, const uint8_t* wok,
                       const uint8_t* skip, int B, int m, int n, int chunk, int n_chunks,
-                      double tol, double rt, void* ws, long ws_len, double* v,
+                      double tol, double rt, void* ws, long ws_len, int G, double* v,
                       double* bound, double* obj, double* rp, double* rd, double* mu,
                       uint8_t* conv, double* reduced, double* y, double* z, double* f,
                       int* iters, double* trace, int trace_rows, void* stream) {
   return launch_elem<double>(sp, nnz, vals, vstride, b, c, l, u, wv, wy, wok, skip, B, m,
-                             n, chunk, n_chunks, tol, rt, ws, ws_len, v, bound, obj, rp,
+                             n, chunk, n_chunks, tol, rt, ws, ws_len, G, v, bound, obj, rp,
                              rd, mu, conv, reduced, y, z, f, iters, trace, trace_rows,
                              (cudaStream_t)stream);
 }

@@ -42,6 +42,7 @@ cumulative restart-chunk count in its restarts column.
 
 from __future__ import annotations
 
+import ctypes
 import weakref
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -301,17 +302,146 @@ def kernel_route(sp: IPMSparsity, dtype, c_max: int = CLUSTER_SIZES[-1]):
     return "grid", 0, None
 
 
-# (device index, float64) -> the largest cluster size the card schedules.
-_CLUSTER_MAX: Dict[Tuple[int, bool], int] = {}
+# (device, float64) -> the largest cluster size the card schedules; the grid
+# route's blocks a launch.
+_CLUSTER_MAX: Dict[Tuple[str, bool], int] = {}
+_GRID: Dict[Tuple[str, bool], int] = {}
+
+
+def _dev_key(dev: torch.device, f64: bool) -> Tuple[str, bool]:
+    return (str(torch.device(dev)), f64)
 
 
 def _cluster_max(dev: torch.device, f64: bool) -> int:
+    """The largest cluster size the card schedules, the cluster kernel
+    prepared for a full block of shared memory on ``dev`` (once a device and
+    dtype: no launch sets an attribute, so a launch can be captured)."""
     from ..kernels.build import library
 
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(), f64)
+    key = _dev_key(dev, f64)
     if key not in _CLUSTER_MAX:
-        _CLUSTER_MAX[key] = int(library("pdhg_cluster").dtk_pdhgc_max_cluster(int(f64)))
+        lib = library("pdhg_cluster")
+        with torch.cuda.device(dev):
+            c_max = int(lib.dtk_pdhgc_max_cluster(int(f64)))
+            kernels.check(lib.dtk_pdhgc_prepare(int(f64)), "pdhg_cluster prepare")
+        _CLUSTER_MAX[key] = c_max
     return _CLUSTER_MAX[key]
+
+
+def _grid_blocks(dev: torch.device, f64: bool) -> int:
+    """The grid route's blocks a launch on ``dev`` (its occupancy query, once
+    a device and dtype: no launch queries, so a launch can be captured)."""
+    from ..kernels.build import library
+
+    key = _dev_key(dev, f64)
+    if key not in _GRID:
+        with torch.cuda.device(dev):
+            G = int(library("pdhg").dtk_pdhg_grid(int(f64)))
+        if G < 1:
+            raise RuntimeError(f"pdhg grid route: the grid cannot be sized (cudaError {-G})")
+        _GRID[key] = G
+    return _GRID[key]
+
+
+def check_cluster_layout(plan: ClusterPlan, m: int, n: int, f64: bool) -> None:
+    """Raises unless every CTA's bytes in ``plan`` are the kernel's layout."""
+    from ..kernels.build import library
+
+    lib = library("pdhg_cluster")
+    for r, cnt in enumerate(plan.counts):
+        if int(lib.dtk_pdhgc_smem_bytes(m, n, *cnt, int(f64))) != plan.bytes[r]:
+            raise RuntimeError("the cluster plan's bytes differ from the kernel's layout")
+
+
+def route_ws_sizes(route: str, B: int, m: int, n: int, f64: bool) -> Tuple[int, ...]:
+    """Workspace bytes of each launch of one K5 call of B elements on
+    ``route``: the grid route's slices of :data:`BMAX`, whose workspaces a
+    call lays end to end (the call's workspace is their sum); none for the
+    cluster route."""
+    if route != "grid":
+        return ()
+    from ..kernels.build import library
+
+    lib = library("pdhg")
+    sizes = tuple(int(lib.dtk_pdhg_ws_bytes(min(BMAX, B - s), m, n, int(f64)))
+                  for s in range(0, B, BMAX))
+    if not all(sizes):
+        raise RuntimeError("pdhg grid route: the workspace cannot be sized on this card")
+    return sizes
+
+
+def _row(t: Optional[torch.Tensor], s: int):
+    """A pointer to row ``s`` of ``t`` (None stays None): no view is made."""
+    if t is None:
+        return ctypes.c_void_p(None)
+    return ctypes.c_void_p(t.data_ptr() + s * t.stride(0) * t.element_size())
+
+
+def k5_launch(route: str, C: int, buf, smem: int, ws, ws_sizes: Tuple[int, ...], G: int,
+              index: torch.Tensor, nnz: int, vals, vstride: int, b, c, l, u, wv, wy, wok,
+              skip, out: IPMResult, chunk: int, n_chunks: int, tol: float,
+              restart_tol: float, stream) -> int:
+    """K5 on given buffers (the wrapper's, or a loop plan's inside a CUDA
+    graph capture): no allocation, no query, no torch operation. ``route``,
+    ``C``, the ownership plan's ``buf`` and ``smem`` (cluster route), the
+    workspace ``ws`` and its slices' bytes ``ws_sizes``
+    (:func:`route_ws_sizes`) and the grid ``G`` of :func:`_grid_blocks`
+    (grid route: one launch a slice of :data:`BMAX` elements, as the wrapper
+    has always cut them) were fixed before; ``index`` and ``nnz`` are A's
+    structure (``IPMSparsity.index``, ``.nnz``). ``wv``, ``wy``, ``wok``,
+    ``skip`` may be None. Writes ``out``'s fields (bound, converged,
+    reduced and iters_run may lie in another result than the
+    iteration-dtype fields) and returns the launches made."""
+    from ..kernels.build import library
+
+    B, n = c.shape
+    m = b.shape[1]
+    f64 = vals.dtype == torch.float64
+    P, O = kernels.ptr, kernels.opt_ptr
+    if route == "cluster":
+        lib = library("pdhg_cluster")
+        fn = lib.dtk_pdhgc_f64 if f64 else lib.dtk_pdhgc_f32
+        err = fn(
+            P(index), P(buf), C, nnz, P(vals), vstride,
+            P(b), P(c), P(l), P(u), O(wv), O(wy), O(wok), O(skip),
+            B, m, n, chunk, n_chunks, float(tol), float(restart_tol), LONG_NNZ, smem,
+            P(out.v), P(out.bound), P(out.obj), P(out.rp_norm), P(out.rd_norm), P(out.mu),
+            P(out.converged), P(out.reduced), P(out.y_dual), P(out.z_dual), P(out.f_dual),
+            P(out.iters_run), O(out.trace_buf), n_chunks, stream,
+        )
+        kernels.check(err, "pdhg")
+        return 1
+    lib = library("pdhg")
+    fn = lib.dtk_pdhg_elem_f64 if f64 else lib.dtk_pdhg_elem_f32
+    off = 0
+    for i, s in enumerate(range(0, B, BMAX)):
+        nb = min(BMAX, B - s)
+        err = fn(
+            P(index), nnz, _row(vals, s), vstride,
+            _row(b, s), _row(c, s), _row(l, s), _row(u, s),
+            _row(wv, s), _row(wy, s), _row(wok, s), _row(skip, s),
+            nb, m, n, chunk, n_chunks, float(tol), float(restart_tol),
+            ctypes.c_void_p(ws.data_ptr() + off), ws_sizes[i], G,
+            _row(out.v, s), _row(out.bound, s), _row(out.obj, s),
+            _row(out.rp_norm, s), _row(out.rd_norm, s), _row(out.mu, s),
+            _row(out.converged, s), _row(out.reduced, s), _row(out.y_dual, s),
+            _row(out.z_dual, s), _row(out.f_dual, s), _row(out.iters_run, s),
+            _row(out.trace_buf, s), n_chunks, stream,
+        )
+        kernels.check(err, "pdhg")
+        off += ws_sizes[i]
+    return len(ws_sizes)
+
+
+def k5_name(shared: bool, trace: bool = False) -> str:
+    """The launch counter of a K5 launch."""
+    return "pdhg_trace" if trace else ("pdhg" if shared else "pdhg_elem")
+
+
+def k5_shape(B: int, m: int, n: int, shared: bool, nnz: int, route: str, C: int) -> str:
+    """The shape key a K5 launch counts under (``kernels.SHAPES``)."""
+    return f"B={B} m={m} n={n}" + ("" if shared else f" per-element A nnz={nnz}") \
+        + f" route={route}{C or ''}"
 
 
 class PDHGWarmState(NamedTuple):
@@ -671,47 +801,19 @@ def _pdhg_kernel(batch, iters, tol, restart_tol, warm, skip, chunk, trace) -> IP
     sk = None if skip is None else skip.to(torch.uint8).contiguous()
     f64 = dtype == torch.float64
     route, C, plan = kernel_route(sp, dtype, _cluster_max(dev, f64))
-    name = "pdhg_trace" if trace else ("pdhg" if shared else "pdhg_elem")
-    shape = f"B={B} m={m} n={n}" + ("" if shared else f" per-element A nnz={sp.nnz}") \
-        + f" route={route}{C or ''}"
-    P, O = kernels.ptr, kernels.opt_ptr
     if route == "cluster":
-        lib = library("pdhg_cluster")
-        for r, cnt in enumerate(plan.counts):
-            if int(lib.dtk_pdhgc_smem_bytes(m, n, *cnt, int(f64))) != plan.bytes[r]:
-                raise RuntimeError("the cluster plan's bytes differ from the kernel's layout")
-        fn = lib.dtk_pdhgc_f64 if f64 else lib.dtk_pdhgc_f32
-        err = fn(
-            P(sp.index), P(plan.buf), C, sp.nnz, P(vals), vstride,
-            P(b), P(c), P(l), P(u), O(wv), O(wy), O(wok), O(sk),
-            B, m, n, chunk, n_chunks, float(tol), float(restart_tol), LONG_NNZ, plan.smem,
-            P(out.v), P(out.bound), P(out.obj), P(out.rp_norm), P(out.rd_norm), P(out.mu),
-            P(out.converged), P(out.reduced), P(out.y_dual), P(out.z_dual), P(out.f_dual),
-            P(out.iters_run), O(out.trace_buf), n_chunks, kernels.stream_handle(dev),
-        )
-        kernels.check(err, "pdhg")
-        kernels.count_launch(name, shape)
-        return out
-    lib = library("pdhg")
-    fn = lib.dtk_pdhg_elem_f64 if f64 else lib.dtk_pdhg_elem_f32
-    for s in range(0, B, BMAX):
-        e = min(B, s + BMAX)
-        nb = e - s
-        ws = torch.empty(int(lib.dtk_pdhg_ws_bytes(nb, m, n, int(f64))),
-                         dtype=torch.uint8, device=dev)
-        sl = lambda t: None if t is None else t[s:e]  # noqa: E731
-        err = fn(
-            P(sp.index), sp.nnz, P(vals[s:e]), vstride,
-            P(b[s:e]), P(c[s:e]), P(l[s:e]), P(u[s:e]),
-            O(sl(wv)), O(sl(wy)), O(sl(wok)), O(sl(sk)),
-            nb, m, n, chunk, n_chunks, float(tol), float(restart_tol),
-            P(ws), ws.numel(),
-            P(out.v[s:e]), P(out.bound[s:e]), P(out.obj[s:e]),
-            P(out.rp_norm[s:e]), P(out.rd_norm[s:e]), P(out.mu[s:e]),
-            P(out.converged[s:e]), P(out.reduced[s:e]), P(out.y_dual[s:e]),
-            P(out.z_dual[s:e]), P(out.f_dual[s:e]), P(out.iters_run[s:e]),
-            O(sl(out.trace_buf)), n_chunks, kernels.stream_handle(dev),
-        )
-        kernels.check(err, "pdhg")
+        check_cluster_layout(plan, m, n, f64)
+        ws, sizes, G = None, (), 0
+    else:
+        sizes = route_ws_sizes(route, B, m, n, f64)
+        ws = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+        G = _grid_blocks(dev, f64)
+    launches = k5_launch(
+        route, C, None if plan is None else plan.buf, 0 if plan is None else plan.smem, ws,
+        sizes, G, sp.index, sp.nnz, vals, vstride, b, c, l, u, wv, wy, wok, sk, out, chunk,
+        n_chunks, tol, restart_tol, kernels.stream_handle(dev))
+    name = k5_name(shared, trace)
+    shape = k5_shape(B, m, n, shared, sp.nnz, route, C)
+    for _ in range(launches):
         kernels.count_launch(name, shape)
     return out

@@ -51,6 +51,7 @@ from .device_loop import (
     forced_host_loop,
     loop_route,
     note_route,
+    pdhg_plan,
     plan_sig,
     release_plan,
 )
@@ -507,15 +508,16 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     structure is built and checked there, once per entry) and their dynamic
     half as one blob in one copy. ``shared_A``: every lane has lane 0's A
     (scenarios of one fleet: one (m, nf) matrix); else ``A_lanes`` (L, m,
-    nf) on the device, or each lane's own A stacked. Warm hints, stored duals, root iterates and margin
-    bounds are used only when every lane has them. ``convergence`` (one
+    nf) on the device (or a function making it, called on a static miss),
+    or each lane's own A stacked. Warm hints, stored duals, root iterates
+    and margin bounds are used only when every lane has them. ``convergence`` (one
     lane) turns on the round log and the root round's LP trace.
     ``row_mesh`` (one sweep on the PDHG engine) row-partitions every LP
     relaxation over its shards; ``node_mesh`` marks a sweep whose rounds
     K10 runs (the host loop). The route (``device_loop.loop_route``): a
-    dense sweep on the IPM engine takes the graph route, whose plan owns
-    the blob; ``_host_loop`` (the card's comparison) forces the host
-    loop."""
+    sweep on either engine takes the graph route, whose plan owns the blob
+    (on the PDHG with K5's route in its signature); ``_host_loop`` (the
+    card's comparison) forces the host loop."""
     t1 = time.perf_counter()
     L = len(lanes)
     sf0 = lanes[0].sf
@@ -559,10 +561,14 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     plan = pinned = None
     if route == "graph":
         want_my = moe and not has_margin and any(ln.margin_ctx is not None for ln in lanes)
+        # On the PDHG, K5's route from the entry's structure before the plan
+        # is taken: it is part of the plan's signature.
+        pdhg = None if engine != "pdhg" else pdhg_plan(
+            entry, dev, params["pdhg_dtype"], params["pdhg_restart_tol"])
         plan = acquire_plan(plan_sig(
             dev, L, params["cap"], n_k, params["beam"], m, nf, M, per_k, params["ipm_iters"],
             params["ipm_warm_iters"], use_root_warm, mip_gap, params["max_rounds"], has_warm,
-            use_root_warm, entry, moe_ctx, duals is not None, has_margin, want_my))
+            use_root_warm, entry, moe_ctx, duals is not None, has_margin, want_my, pdhg))
         plan.stage(lanes)
         views = plan.views
     else:

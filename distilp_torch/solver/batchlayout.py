@@ -344,7 +344,11 @@ def solve_batch(
     lanes = list(instances) + [instances[-1]] * (n_lanes - n_real)
     pairs = [lane_static_to_device(inst.static_np, dev) for inst in lanes]
     m, nf = st["m"], st["nf"]
-    A_lanes = torch.stack([blob[: m * nf].view(m, nf) for blob, _ in pairs])
+
+    def A_lanes():
+        """The lanes' A stacked on the card: only on a static-entry miss."""
+        return torch.stack([blob[: m * nf].view(m, nf) for blob, _ in pairs])
+
     params = {k: st[k] for k in ("cap", "beam", "ipm_iters", "ipm_warm_iters", "max_rounds",
                                  "lp_backend", "pdhg_dtype", "pdhg_restart_tol")}
     prep = _prepare([inst.lane for inst in lanes], params, instances[0].mip_gap, dev,

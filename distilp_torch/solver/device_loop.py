@@ -1,4 +1,4 @@
-"""The branch-and-bound of a sweep on the IPM engine as one CUDA graph.
+"""The branch-and-bound of a sweep as one CUDA graph.
 
 The reference runs a sweep as one device program (``distilp_tpu/solver/
 backend_jax.py::_solve_packed_impl`` :2100 with ``_run_bnb_loop`` :2732):
@@ -15,21 +15,23 @@ MoE seed's mode) and, on the card, one CUDA graph over them, captured once
          -> WHILE { round B -> A, round A -> B } -> answer
 
 a round being the head (the LP's inputs straight from the state; a MoE
-row's per-node A), K1 on the plan's buffers, (MoE) K2 MoE's LP rows, the
-round tail into the other state buffer, and the loop's control, which
-sets the WHILE node's condition from the device. A solve is then one
-upload of the dynamic blob (``packed``), one graph launch and one read of
-the answer. On CPU tensors the same plan runs the plain versions
-(``search.root_state``/``seed_root_bounds``/``seed_warm``,
-``search.round_inputs``, the head's MoE mode, K1's, K2 MoE's and the round
-tail's plain versions, :func:`control_reference`,
-:func:`answer_reference`), a Python ``while`` standing in for the
-conditional node.
+row's per-node A), the LP engine on the plan's buffers (K1, or K5 on the
+route the signature fixed, then for ``pdhg_dtype='f64'`` the cast of its
+result to the search's float32), (MoE) K2 MoE's LP rows, the round tail
+into the other state buffer, and the loop's control, which sets the WHILE
+node's condition from the device. A solve is then one upload of the
+dynamic blob (``packed``), one graph launch and one read of the answer. On
+CPU tensors the same plan runs the plain versions (``search.root_state``/
+``seed_root_bounds``/``seed_warm``, ``search.round_inputs``, the head's MoE
+mode, K1's or K5's, K2 MoE's and the round tail's plain versions,
+:func:`control_reference`, :func:`answer_reference`), a Python ``while``
+standing in for the conditional node.
 
 The route is chosen by the configuration (:func:`loop_route`): the graph
-for dense and MoE sweeps on the IPM engine, whatever the lanes (one A or
-an A each) and per-k or not; the PDHG engine, the row mesh and the
-convergence log keep ``search.run_bnb_loop``, the host loop.
+for dense and MoE sweeps on either engine, whatever the lanes (one A or an
+A each), per-k or not, and on the PDHG whatever its dtype and K5's route;
+the row mesh, the node mesh and the convergence log keep
+``search.run_bnb_loop``, the host loop.
 ``kernels.SHAPES["bnb_graph"]`` counts the route of every search. A failed
 capture, instantiation or launch raises: nothing falls back to the host
 loop, which stays only as the private :func:`host_loop` for the card's
@@ -64,7 +66,18 @@ from ..ops.ipm import (
     ipm_workspace,
 )
 from ..ops.decomp import RD_DEV_FIELDS, DecompBatch
+from ..ops import pdhg as _pdhg
+from ..ops.pdhg import (
+    DEFAULT_RESTART_TOL,
+    PDHG_DEFAULT_CHUNK,
+    ElemA,
+    _default_tol_pdhg,
+    k5_launch,
+    k5_name,
+    k5_shape,
+)
 from . import packed
+from . import search as _search
 from .rounding import (
     KERNEL_RD_FIELDS,
     MOE_RD_FIELDS,
@@ -80,6 +93,7 @@ from .search import (
     SweepData,
     _lanes_of,
     best_bound,
+    cast_lp_result,
     certified,
     certified_per_k,
     per_k_bound,
@@ -123,15 +137,14 @@ def forced_host_loop() -> bool:
 
 def loop_route(moe: bool, engine: str, row_mesh, collect_rounds: bool) -> Tuple[str, str]:
     """("graph" | "host", why) of a search's configuration: the graph for
-    dense and MoE sweeps on the IPM engine; the PDHG engine, the row mesh and
-    the convergence log keep the host loop."""
-    if engine != "ipm":
-        return "host", f"{engine} moe" if moe else engine
+    dense and MoE sweeps on the IPM and the PDHG engine; the row mesh and
+    the convergence log keep the host loop (the node mesh is decided by
+    ``backend_torch._prepare``)."""
     if row_mesh is not None and row_mesh.size > 1:
         return "host", "row_mesh"
     if collect_rounds:
         return "host", "convergence"
-    return "graph", "moe_ipm" if moe else "dense_ipm"
+    return "graph", f"{'moe' if moe else 'dense'}_{engine}"
 
 
 def note_route(route: str, why: str, L: int) -> None:
@@ -176,15 +189,29 @@ class PlanSig(NamedTuple):
     has_duals: bool = False
     has_margin: bool = False
     want_my: bool = False
+    # The LP engine ("ipm" | "pdhg"; the iteration budgets above are the
+    # engine's), and on the PDHG its iterate dtype (float64 for
+    # pdhg_dtype='f64'), its restart factor and K5's route: "cluster" with
+    # its cluster size C, the ownership plan's shared-memory bytes and
+    # buffer length (the plan depends on A's pattern, not only on nnz), or
+    # "grid".
+    engine: str = "ipm"
+    lp_f64: bool = False
+    restart_tol: float = 0.0
+    route: str = ""
+    C: int = 0
+    smem: int = 0
+    buf_len: int = 0
 
 
 # The compile ledger's view of a signature: a capture with a new value of
-# one of these fields is a static-argument flip (the engine's route, the
-# iteration budgets, the per-k mode, the optional warm inputs, the MoE
+# one of these fields is a static-argument flip (the engine and K5's route,
+# the iteration budgets, the per-k mode, the optional warm inputs, the MoE
 # seed's mode); with new values of the others only, a shape-bucket change.
 _STATIC_FIELDS = ("device", "per_k", "ipm_iters", "root_chunk", "warm_iters", "mip_gap",
                   "max_rounds", "has_warm", "has_root_warm", "a_lanes", "moe", "decomp_steps",
-                  "has_duals", "has_margin", "want_my")
+                  "has_duals", "has_margin", "want_my", "engine", "lp_f64", "restart_tol",
+                  "route", "C", "smem", "buf_len")
 _SHAPE_FIELDS = tuple(f for f in PlanSig._fields if f not in _STATIC_FIELDS)
 
 
@@ -197,25 +224,51 @@ def ledger_signatures(sig: PlanSig) -> Tuple[str, str]:
 
 def plan_sig(dev, L, cap, n_k, beam, m, nf, M, per_k, ipm_iters, ipm_warm_iters,
              root_warm_chunk, mip_gap, max_rounds, has_warm, has_root_warm, entry,
-             moe_ctx=None, has_duals=False, has_margin=False, want_my=False) -> PlanSig:
+             moe_ctx=None, has_duals=False, has_margin=False, want_my=False,
+             pdhg=None) -> PlanSig:
     """The signature of a sweep's plan; ``moe_ctx`` = (w_max, e_max,
-    decomp_steps) of a MoE sweep."""
+    decomp_steps) of a MoE sweep; ``pdhg`` = (lp_f64, restart_tol, route, C,
+    smem, buf_len) of a sweep on the PDHG engine (:func:`pdhg_plan`), whose
+    rounds all take K5's own chunk."""
     sp = entry.sparsity
-    moe = {}
+    extra = {}
     if moe_ctx is not None:
-        moe = dict(moe=True, w_max=int(moe_ctx[0]), e_max=int(moe_ctx[1]),
-                   decomp_steps=int(moe_ctx[2]), has_duals=bool(has_duals),
-                   has_margin=bool(has_margin), want_my=bool(want_my))
+        extra = dict(moe=True, w_max=int(moe_ctx[0]), e_max=int(moe_ctx[1]),
+                     decomp_steps=int(moe_ctx[2]), has_duals=bool(has_duals),
+                     has_margin=bool(has_margin), want_my=bool(want_my))
+    if pdhg is not None:
+        lp_f64, rt, route, C, smem, buf_len = pdhg
+        extra.update(engine="pdhg", lp_f64=bool(lp_f64), restart_tol=float(rt), route=route,
+                     C=int(C), smem=int(smem), buf_len=int(buf_len))
+        root_chunk = PDHG_DEFAULT_CHUNK
+    else:
+        root_chunk = IPM_DEFAULT_CHUNK if root_warm_chunk else int(ipm_iters)
     return PlanSig(
         device=str(torch.device(dev)), L=L, cap=cap, B0=min(cap, n_k),
         Bw=cap if beam is None else min(beam, cap), m=m, nf=nf, M=M, n_k=n_k, per_k=bool(per_k),
-        ipm_iters=int(ipm_iters),
-        root_chunk=IPM_DEFAULT_CHUNK if root_warm_chunk else int(ipm_iters),
+        ipm_iters=int(ipm_iters), root_chunk=root_chunk,
         warm_iters=int(ipm_iters if ipm_warm_iters is None else ipm_warm_iters),
         mip_gap=float(mip_gap), max_rounds=int(max_rounds), has_warm=bool(has_warm),
         has_root_warm=bool(has_root_warm), a_lanes=entry.A.dim() == 3, nnz=sp.nnz,
-        nent=sp.nent, ncontrib=sp.ncontrib, index_len=int(sp.index.numel()), **moe,
+        nent=sp.nent, ncontrib=sp.ncontrib, index_len=int(sp.index.numel()), **extra,
     )
+
+
+def pdhg_plan(entry, dev, pdhg_dtype, restart_tol) -> tuple:
+    """The ``pdhg`` part of a PDHG sweep's :func:`plan_sig`: its iterate
+    dtype, restart factor and K5's route on the entry's structure, through
+    the module attribute ``ops.pdhg.kernel_route`` (as the K5 wrapper picks
+    it, so a forced route forces both): on the card up to the largest
+    cluster it schedules, on the CPU (no kernel) up to the largest size."""
+    dev = torch.device(dev)
+    f64 = pdhg_dtype == "f64"
+    dt = torch.float64 if f64 else torch.float32
+    c_max = _pdhg._cluster_max(dev, f64) if dev.type == "cuda" else _pdhg.CLUSTER_SIZES[-1]
+    route, C, cplan = _pdhg.kernel_route(entry.sparsity, dt, c_max)
+    rt = DEFAULT_RESTART_TOL if restart_tol is None else float(restart_tol)
+    if cplan is None:
+        return f64, rt, route, 0, 0, 0
+    return f64, rt, route, C, cplan.smem, int(cplan.buf.numel())
 
 
 # Graph captures by signature (a plan captures its graph once), and plans
@@ -266,20 +319,28 @@ class LoopPlan:
         self.blob = torch.empty(self.layout.nbytes, dtype=torch.uint8, device=dev)
         self.views = packed.dyn_views(self.blob, self.layout)
         self.rd_views = packed.rounding_views(self.views)
-        # K1's A and its values on the structure (a shared A, or a per-node
+        # The LP's A: its values on the structure (a shared A, or a per-node
         # A for the root and the warm rows: each row's lane's, and in MoE
         # mode the row's k's expert-busy entries, which the head writes
         # every round), the base loaded from the static entry when it
-        # changes.
+        # changes; K1 also reads it dense (its certificate), K5 never (no
+        # dense A on the PDHG: one (m, nf) row is ~80 MB at M=512). K5's
+        # values are in its iterate dtype.
+        self.pdhg = sig.engine == "pdhg"
+        self.lp_dtype = f64 if sig.lp_f64 else f32
         self.per_node = sig.a_lanes or sig.moe
         self.index = torch.empty(sig.index_len, dtype=torch.int32, device=dev)
+        self.A_rows = self.A = None
         if self.per_node:
-            self.A_rows = [torch.empty((L * B, m, nf), dtype=f32, device=dev) for B in (B0, Bw)]
-            self.val_rows = [torch.empty((L * B, sig.nnz), dtype=f32, device=dev)
+            if not self.pdhg:
+                self.A_rows = [torch.empty((L * B, m, nf), dtype=f32, device=dev)
+                               for B in (B0, Bw)]
+            self.val_rows = [torch.empty((L * B, sig.nnz), dtype=self.lp_dtype, device=dev)
                              for B in (B0, Bw)]
         else:
-            self.A = torch.empty((m, nf), dtype=f32, device=dev)
-            self.vals = torch.empty(sig.nnz, dtype=f32, device=dev)
+            if not self.pdhg:
+                self.A = torch.empty((m, nf), dtype=f32, device=dev)
+            self.vals = torch.empty(sig.nnz, dtype=self.lp_dtype, device=dev)
         self.loaded = None
         # Two state buffers in the round tail's layout, its workspace after.
         views, offsets, end = tail_layout(L, cap, nf, m, M, n_k, sig.per_k)
@@ -331,7 +392,9 @@ class LoopPlan:
             wok=torch.empty(R, dtype=b8, device=dev), skip=torch.empty(R, dtype=b8, device=dev))
         self.res = [self._lp_out(L * B) for B in (B0, Bw)]
         self.ws = self.vec_ws = None
-        if cuda:
+        if self.pdhg:
+            self._k5_buffers(R)
+        elif cuda:
             need = [ipm_workspace(L * B, m, nf, f32, dev)[1:] for B in (B0, Bw)]
             vec, fac = max(v for v, _ in need), max(f for _, f in need)
             self.ws = torch.empty(fac // 4, dtype=f32, device=dev) if fac else None
@@ -350,6 +413,46 @@ class LoopPlan:
         self.busy = False
         self._keep: list = []
         _memory.note_plan(_memory.device_bytes(vars(self), dev) if cuda else None)
+
+    def _k5_buffers(self, R: int) -> None:
+        """K5's buffers: in float64 mode its inputs (the head writes them)
+        and its iteration-dtype outputs (the cast rounds them into the
+        float32 result); each round's rows as K5 reads them; on the card
+        the cluster route's ownership plan (copied from the entry's) or the
+        grid route's workspace and grid, fixed here once a plan."""
+        sig, dev = self.sig, self.dev
+        L, m, nf, nnz = sig.L, sig.m, sig.nf, sig.nnz
+        f64 = BDTYPE
+        self.lp_in64 = self.res64 = None
+        if sig.lp_f64:
+            self.lp_in64 = {k: torch.empty((R, m if k in ("b", "wy") else nf), dtype=f64,
+                                           device=dev) for k in ("b", "c", "l", "u", "wv", "wy")}
+            self.res64 = [IPMResult(*(
+                torch.empty(t.shape, dtype=f64, device=dev)
+                if f in ("v", "obj", "rp_norm", "rd_norm", "mu", "y_dual", "z_dual", "f_dual")
+                else t for f, t in zip(IPMResult._fields, r))) for r in self.res]
+        self.k5_rows = []
+        for i, B in enumerate((sig.B0, sig.Bw)):
+            n = L * B
+            lp = self.lp_in64 if sig.lp_f64 else self.lp_in
+            vals = self.val_rows[i] if self.per_node else self.vals.as_strided((n, nnz), (0, 1))
+            self.k5_rows.append(dict(
+                vals=vals, **{k: lp[k][:n] for k in ("b", "c", "l", "u", "wv", "wy")},
+                wok=self.lp_in["wok"][:n], skip=self.lp_in["skip"][:n],
+                out=(self.res64 if sig.lp_f64 else self.res)[i]))
+        self.k5_buf = self.k5_ws = None
+        self.k5_ws_sizes, self.k5_G = [(), ()], 0
+        if dev.type != "cuda":
+            return
+        if sig.route == "cluster":
+            _pdhg._cluster_max(dev, sig.lp_f64)  # prepares the kernel on this card
+            self.k5_buf = torch.empty(sig.buf_len, dtype=torch.int32, device=dev)
+        else:
+            self.k5_ws_sizes = [_pdhg.route_ws_sizes("grid", L * B, m, nf, sig.lp_f64)
+                                for B in (sig.B0, sig.Bw)]
+            self.k5_ws = torch.empty(max(sum(z) for z in self.k5_ws_sizes), dtype=torch.uint8,
+                                     device=dev)
+            self.k5_G = _pdhg._grid_blocks(dev, sig.lp_f64)
 
     def _moe_buffers(self, R: int) -> None:
         """The MoE seed's and rounds' buffers: K7's problem in both dtypes,
@@ -449,23 +552,30 @@ class LoopPlan:
         packed.upload(self.pinned, self.dev, out=self.blob)
 
     def data(self, entry) -> SweepData:
-        """The sweep's data as views of the plan's blob and the entry."""
+        """The sweep's data as views of the plan's blob and the entry (on
+        the PDHG with K5's values on its structure)."""
         v = self.views
+        values, gky_pos = entry.pdhg_values() if self.pdhg else (None, None)
         return SweepData(
             A=entry.A, b_k=v["b_k"], c_k=v["c_k"], int_mask=v["int_mask"], ks=v["ks"],
             Ws=v["Ws"], obj_const=v["obj_const"], rd=self.rd_views,
             rd_packed=v["rd"], gky=v.get("gky"), A_sparsity=entry.sparsity,
-            A_k1_values=None if self.per_node else entry.values, A_checked=True,
+            A_values=values, gky_pos=gky_pos,
+            A_k1_values=None if self.per_node or self.pdhg else entry.values, A_checked=True,
         )
 
     def load_static(self, entry) -> None:
-        """K1's A, structure and values from ``entry`` into the plan's
+        """The LP's A, structure and values from ``entry`` into the plan's
         buffers, when another entry was loaded (copies on the card); in MoE
-        mode the places of the expert-busy entries in a row's values."""
+        mode the places of the expert-busy entries in a row's values; on
+        the PDHG, K5's values (``entry.pdhg_values()``) and on the card the
+        cluster route's ownership plan of the entry's pattern."""
         if self.loaded is entry:
             return
         self.index.copy_(entry.sparsity.index)
-        if self.per_node:
+        if self.pdhg:
+            self._load_k5(entry)
+        elif self.per_node:
             for i, B in enumerate((self.sig.B0, self.sig.Bw)):
                 R = self.sig.L * B
                 if entry.A.dim() == 3:
@@ -481,6 +591,26 @@ class LoopPlan:
             self.A.copy_(entry.A)
             self.vals.copy_(entry.values)
         self.loaded = entry
+
+    def _load_k5(self, entry) -> None:
+        sig = self.sig
+        values, gky_pos = entry.pdhg_values()
+        if self.per_node:
+            for i, B in enumerate((sig.B0, sig.Bw)):
+                if values.shape[0] > 1:
+                    self.val_rows[i].copy_(values[_lanes_of(sig.L, B, self.dev)])
+                else:
+                    self.val_rows[i].copy_(values.expand(sig.L * B, -1))
+            if sig.moe:
+                self.gky_pos.copy_(gky_pos)
+        else:
+            self.vals.copy_(values[0])
+        if self.k5_buf is not None:
+            cplan = _pdhg.cluster_plan(entry.sparsity, 8 if sig.lp_f64 else 4, sig.C)
+            if cplan.smem != sig.smem or cplan.buf.numel() != sig.buf_len:
+                raise ValueError("the entry's cluster plan does not fit the plan's signature")
+            _pdhg.check_cluster_layout(cplan, sig.m, sig.nf, sig.lp_f64)
+            self.k5_buf.copy_(cplan.buf)
 
     def _lp_A(self, i: int) -> torch.Tensor:
         return self.A_rows[i] if self.per_node else self.A
@@ -552,7 +682,7 @@ class LoopPlan:
 
     def head_moe_reference(self, data: SweepData, state: SearchState, which: int) -> None:
         """Plain version of the head's MoE mode: each row's k's expert-busy
-        entries into its dense A and its values, its W and k."""
+        entries into its dense A (IPM only) and its values, its W and k."""
         sig = self.sig
         B = (sig.B0, sig.Bw)[which]
         R, M = sig.L * B, sig.M
@@ -560,9 +690,10 @@ class LoopPlan:
         lane = _lanes_of(sig.L, B, self.dev)
         g = data.gky[lane, kidx]  # (R, 2, M)
         ar = torch.arange(M, device=self.dev)
-        A = self.A_rows[which]
-        A[:, 4 * M + ar, 2 * M + ar] = g[:, 0]
-        A[:, 5 * M + ar, 2 * M + ar] = g[:, 1]
+        if self.A_rows is not None:
+            A = self.A_rows[which]
+            A[:, 4 * M + ar, 2 * M + ar] = g[:, 0]
+            A[:, 5 * M + ar, 2 * M + ar] = g[:, 1]
         rows = torch.arange(R, device=self.dev)[:, None]
         vals = self.val_rows[which]
         pos = self.gky_pos.long()
@@ -571,6 +702,22 @@ class LoopPlan:
         self.Wr[:R] = data.Ws[lane, kidx]
         self.kr[:R] = data.ks[lane, kidx]
 
+    def head_pdhg_reference(self, data: SweepData, state: SearchState, which: int) -> dict:
+        """Plain version of the head's PDHG mode: ``round_inputs``' rows,
+        b, c, the box and the warm v and y in K5's iterate dtype, the warm
+        flag cleared where a component of the row's warm v, y, z or f is
+        not finite (the K5 wrapper's test); a MoE row's values and its W
+        and k are written by :meth:`head_moe_reference`."""
+        B = (self.sig.B0, self.sig.Bw)[which]
+        ins = round_inputs(data, state, B, self.frozen)
+        w, dt = ins.warm, self.lp_dtype
+        fin = (w.ok.to(torch.bool) & torch.isfinite(w.v).all(1) & torch.isfinite(w.y).all(1)
+               & torch.isfinite(w.z).all(1) & torch.isfinite(w.f).all(1))
+        if self.sig.moe:
+            self.head_moe_reference(data, state, which)
+        return dict(b=ins.b.to(dt), c=ins.c.to(dt), l=ins.lo.to(dt), u=ins.hi.to(dt),
+                    wv=w.v.to(dt), wy=w.y.to(dt), wz=w.z, wf=w.f, wok=fin, skip=ins.skip)
+
     def _round_plain(self, data: SweepData, src: int, dst: int, which: int) -> None:
         sig = self.sig
         B = (sig.B0, sig.Bw)[which]
@@ -578,12 +725,16 @@ class LoopPlan:
         ins = round_inputs(data, state, B, self.frozen)
         if sig.moe:
             self.head_moe_reference(data, state, which)
-        iters, chunk = ((sig.ipm_iters, sig.root_chunk), (sig.warm_iters, IPM_DEFAULT_CHUNK))[which]
-        res = ipm_solve_batch(
-            LPBatch(A=self._lp_A(which), b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
-            iters=iters, warm=ins.warm, skip=ins.skip, chunk=chunk, sparsity=data.A_sparsity,
-            _checked=True,
-        )
+        if self.pdhg:
+            res = self.k5_reference(data, ins, which)
+        else:
+            iters, chunk = ((sig.ipm_iters, sig.root_chunk),
+                            (sig.warm_iters, IPM_DEFAULT_CHUNK))[which]
+            res = ipm_solve_batch(
+                LPBatch(A=self._lp_A(which), b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
+                iters=iters, warm=ins.warm, skip=ins.skip, chunk=chunk,
+                sparsity=data.A_sparsity, _checked=True,
+            )
         keep = self.res[which]
         for f in _RES_FIELDS:
             getattr(keep, f).copy_(getattr(res, f))
@@ -591,6 +742,19 @@ class LoopPlan:
         out, go = round_tail(data, state, keep, sig.mip_gap, B, rounded, self.frozen, sig.per_k)
         _copy_state(self.states[dst], out)
         self.gos[dst].copy_(go)
+
+    def k5_reference(self, data: SweepData, ins, which: int) -> IPMResult:
+        """Plain version of a PDHG round's LP (K5, then in float64 mode the
+        cast): the round's rows through ``search.pdhg_solve_batch`` on the
+        plan's values, as ``search.lp_solve`` solves them, cast to the
+        search's float32."""
+        sig = self.sig
+        vals = self.k5_rows[which]["vals"]
+        res = _search.pdhg_solve_batch(
+            LPBatch(A=ElemA(vals, data.A_sparsity), b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
+            iters=(sig.ipm_iters, sig.warm_iters)[which], restart_tol=sig.restart_tol,
+            warm=ins.warm, skip=ins.skip, dtype="f64" if sig.lp_f64 else "f32")
+        return cast_lp_result(res, DTYPE)
 
     # ------------------------------------------------------- graph (card)
 
@@ -802,7 +966,12 @@ class LoopPlan:
 
     def _round(self, data: SweepData, sh, src: int, dst: int, which: int) -> None:
         self._head(data, sh, src, which)
-        self._k1(sh, which)
+        if self.pdhg:
+            self._k5(sh, which)
+            if self.sig.lp_f64:
+                self._cast(sh, which)
+        else:
+            self._k1(sh, which)
         if self.sig.moe:
             B = (self.sig.B0, self.sig.Bw)[which]
             self._round_moe(sh, self.res[which].v, self.sig.nf, self.Wr, self.kr,
@@ -818,16 +987,21 @@ class LoopPlan:
         st, lp = self.states[src], self.lp_in
         moe = [None] * 8
         if sig.moe:
-            moe = [data.gky, self.gky_pos, self.A_rows[which], self.val_rows[which], data.Ws,
-                   data.ks, self.Wr, self.kr]
+            vals = None if sig.lp_f64 else self.val_rows[which]
+            A_rows = None if self.A_rows is None else self.A_rows[which]
+            moe = [data.gky, self.gky_pos, A_rows, vals, data.Ws, data.ks, self.Wr, self.kr]
+        lp64 = [None] * 7
+        if sig.lp_f64:
+            lp64 = [self.lp_in64[k] for k in ("b", "c", "l", "u", "wv", "wy")] + [
+                self.val_rows[which] if sig.moe else None]
         head = self._keep_ptrs([
             _p(st.node_lo), _p(st.node_hi), _p(st.node_kidx), _p(st.active), _p(st.node_v),
             _p(st.node_y), _p(st.node_z), _p(st.node_f), _p(st.node_warm), _p(self.frozen),
             _p(data.b_k), _p(data.c_k), *[_p(lp[k]) for k in ("b", "c", "l", "u", "wv", "wy",
                                                                "wz", "wf", "wok", "skip")],
-            *map(_p, moe)])
+            *map(_p, moe), *map(_p, lp64)])
         hdims = self._keep_ptrs_int([sig.L, B, sig.cap, sig.nf, sig.m, sig.n_k, int(sig.moe),
-                                     sig.M, sig.nnz])
+                                     sig.M, sig.nnz, int(self.pdhg), int(sig.lp_f64)])
         kernels.check(library("bnb_loop").dtk_bnb_head(head, hdims, sh), "bnb_head")
 
     def _k1(self, sh, which: int) -> None:
@@ -854,6 +1028,30 @@ class LoopPlan:
             P(res.iters_run), O(None), n_chunks, IPM_THREADS, sh,
         )
         kernels.check(err, "ipm")
+
+    def _k5(self, sh, which: int) -> None:
+        """K5 on the plan's buffers, on the route the signature fixed."""
+        sig = self.sig
+        rows = self.k5_rows[which]
+        chunk, n_chunks = chunking((sig.ipm_iters, sig.warm_iters)[which], PDHG_DEFAULT_CHUNK)
+        k5_launch(sig.route, sig.C, self.k5_buf, sig.smem, self.k5_ws, self.k5_ws_sizes[which],
+                  self.k5_G, self.index, sig.nnz, rows["vals"],
+                  sig.nnz if self.per_node else 0, rows["b"], rows["c"], rows["l"], rows["u"],
+                  rows["wv"], rows["wy"], rows["wok"], rows["skip"], rows["out"], chunk,
+                  n_chunks, _default_tol_pdhg(self.lp_dtype), sig.restart_tol, sh)
+
+    def _cast(self, sh, which: int) -> None:
+        """A float64 round's result into the float32 result (``search.
+        cast_lp_result``)."""
+        from ..kernels.build import library
+
+        sig = self.sig
+        r64, r = self.res64[which], self.res[which]
+        fields = ("v", "y_dual", "z_dual", "f_dual", "obj", "rp_norm", "rd_norm", "mu")
+        ptrs = self._keep_ptrs([_p(getattr(r64, f)) for f in fields]
+                               + [_p(getattr(r, f)) for f in fields] + [_p(r.reduced)])
+        dims = self._keep_ptrs_int([r.v.shape[0], sig.nf, sig.m])
+        kernels.check(library("bnb_loop").dtk_bnb_cast(ptrs, dims, sh), "bnb_cast")
 
     def _tail(self, data: SweepData, sh, src: int, dst: int, which: int) -> None:
         """The round tail, state ``src`` -> buffer ``dst`` (a MoE round's
@@ -996,10 +1194,10 @@ def answer_reference(plan: LoopPlan, state: SearchState, moe=None) -> torch.Tens
 def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
     """The kernels one graph launch ran, from the answer: the seed (for a
     MoE sweep K7's launches, its folds, the MoE seed's phases and K2's hint
-    and warm rows), the answer, and a head, K1, (MoE) K2's LP rows, a round
-    tail and a control each round (the root, then two a pass of the WHILE
-    body; the rounds run are the most any lane ran), one more control at
-    the start."""
+    and warm rows), the answer, and a head, K1 or K5 (and in float64 the
+    cast), (MoE) K2's LP rows, a round tail and a control each round (the
+    root, then two a pass of the WHILE body; the rounds run are the most
+    any lane ran), one more control at the start."""
     R = int(np.max(ans[:, 4])) if ans.size else 0
     rounds = 1 + 2 * math.ceil(max(R - 1, 0) / 2)
     kernels.LAUNCHES["bnb_graph"] += 1
@@ -1018,11 +1216,22 @@ def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
             kernels.count_launch("bnb_seed")
         for _ in range(int(cold) + int(sig.has_warm)):
             kernels.count_launch("round_moe" + lanes)
-    per_node = " per-node A" if sig.a_lanes or sig.moe else ""
+    per_node = sig.a_lanes or sig.moe
     for r in range(rounds):
         B = sig.B0 if r == 0 else sig.Bw
         kernels.count_launch("bnb_head")
-        kernels.count_launch("ipm", f"B={sig.L * B} m={sig.m} n={sig.nf}{per_node}")
+        if sig.engine == "pdhg":
+            # Under the wrapper's names and shape keys: one cluster launch,
+            # or one grid launch a slice of BMAX rows.
+            R = sig.L * B
+            shape = k5_shape(R, sig.m, sig.nf, not per_node, sig.nnz, sig.route, sig.C)
+            for _ in range(1 if sig.route == "cluster" else -(-R // _pdhg.BMAX)):
+                kernels.count_launch(k5_name(not per_node), shape)
+            if sig.lp_f64:
+                kernels.count_launch("bnb_cast")
+        else:
+            kernels.count_launch("ipm", f"B={sig.L * B} m={sig.m} n={sig.nf}"
+                                        f"{' per-node A' if per_node else ''}")
         if sig.moe:
             kernels.count_launch("round_moe" + lanes)
         kernels.count_launch("round_tail" + lanes)

@@ -94,7 +94,8 @@ _STATIC_LOCK = threading.Lock()
 def static_entry(key, A, M: int, moe: bool, device) -> Tuple[StaticEntry, bool]:
     """(entry, hit) of the sweep whose static half is ``key`` (bytes, or a
     tuple of each lane's). ``A`` is the host float32 matrix (uploaded on a
-    miss) or a tensor already on ``device``."""
+    miss), a tensor already on ``device``, or a function that makes one,
+    called only on a miss (a hit then runs nothing on the card)."""
     from .search import node_sparsity
 
     dev = torch.device(device)
@@ -105,6 +106,8 @@ def static_entry(key, A, M: int, moe: bool, device) -> Tuple[StaticEntry, bool]:
             _STATIC.move_to_end(full)
             STATIC_STATS["hits"] += 1
             return hit, True
+    if callable(A):
+        A = A()
     if isinstance(A, torch.Tensor):
         A_dev = A.to(dev)
     else:

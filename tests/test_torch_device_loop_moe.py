@@ -17,9 +17,9 @@ on the CPU, through the plain versions the card's graph runs, on Mixtral
   at stored duals (0 steps) within 1e-12 with the duals equal;
 - the head's per-node values and dense A equal ``search.node_A`` (gathered
   on the structure for the values) bit for bit;
-- ``loop_route`` sends MoE on the IPM engine to the graph and MoE on the
-  PDHG engine, the row mesh, the node mesh and the convergence log to the
-  host loop.
+- ``loop_route`` sends MoE and dense sweeps on the IPM and the PDHG engine
+  to the graph and the row mesh, the node mesh and the convergence log to
+  the host loop.
 
 One process: ~45 s on an 8-core CPU (most of it the JAX package's solve
 and its short ascent).
@@ -245,8 +245,12 @@ def test_loop_route():
 
     assert DL.loop_route(True, "ipm", None, False) == ("graph", "moe_ipm")
     assert DL.loop_route(False, "ipm", None, False) == ("graph", "dense_ipm")
-    assert DL.loop_route(True, "pdhg", None, False)[0] == "host"
-    assert DL.loop_route(True, "pdhg", Mesh(), False)[0] == "host"
+    assert DL.loop_route(True, "pdhg", None, False) == ("graph", "moe_pdhg")
+    assert DL.loop_route(False, "pdhg", None, False) == ("graph", "dense_pdhg")
+    assert DL.loop_route(True, "pdhg", Mesh(), False) == ("host", "row_mesh")
+    assert DL.loop_route(False, "pdhg", Mesh(), False) == ("host", "row_mesh")
+    assert DL.loop_route(True, "pdhg", None, True) == ("host", "convergence")
+    assert DL.loop_route(False, "pdhg", None, True) == ("host", "convergence")
     assert DL.loop_route(True, "ipm", Mesh(), False) == ("host", "row_mesh")
     assert DL.loop_route(True, "ipm", None, True) == ("host", "convergence")
 

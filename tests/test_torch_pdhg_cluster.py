@@ -249,13 +249,15 @@ def test_2d_a_with_sparsity_matches_jax_on_halda_roots(M):
 
 
 def test_shared_sweep_builds_structure_and_values_once(monkeypatch):
-    """A ``halda_solve(lp_backend='pdhg')`` sweep on one shared A builds
+    """A ``halda_solve(lp_backend='pdhg')`` sweep on one shared A, on the
+    host loop (the route of the row mesh and the convergence log), builds
     its structure and gathers its values once, hands every round the values
     with a batch stride of 0, and lands exactly where the dense shared path
     does (the north star's pin)."""
     from pathlib import Path
 
     from distilp_torch.common import load_model_profile
+    from distilp_torch.solver import device_loop as DL
     from distilp_torch.solver import halda_solve
     from distilp_torch.solver import packed as PK
     from distilp_torch.solver import search as S
@@ -281,7 +283,7 @@ def test_shared_sweep_builds_structure_and_values_once(monkeypatch):
                         lambda batch, **kw: seen.append(batch.A) or real_solve(batch, **kw))
 
     def solve():
-        with warnings.catch_warnings():
+        with warnings.catch_warnings(), DL.host_loop():
             warnings.simplefilter("ignore")
             return halda_solve(make_synthetic_fleet(16, seed=123), model, mip_gap=GAP,
                                kv_bits="4bit", device="cpu", lp_backend="pdhg")
@@ -325,6 +327,9 @@ class _Lib:
         return 0
 
     dtk_pdhgc_f32 = dtk_pdhgc_f64 = _cluster
+
+    def dtk_pdhg_grid(self, is_f64):
+        return 132
 
     def dtk_pdhg_ws_bytes(self, B, m, n, is_f64):
         return 64
@@ -409,6 +414,6 @@ def test_kernel_sources_and_layout_agree_and_the_dense_route_is_gone():
         assert fn in build.SIGNATURES["pdhg_cluster"] and re.search(rf"\b{fn}\(", text), fn
     grid = (build.CSRC / "pdhg_kernel.cu").read_text()
     assert "dtk_pdhg_f32" not in grid and "launch_shared" not in grid and "kElem" not in grid
-    assert set(build.SIGNATURES["pdhg"]) == {"dtk_pdhg_ws_bytes", "dtk_pdhg_elem_f32",
-                                             "dtk_pdhg_elem_f64"}
+    assert set(build.SIGNATURES["pdhg"]) == {"dtk_pdhg_grid", "dtk_pdhg_ws_bytes",
+                                             "dtk_pdhg_elem_f32", "dtk_pdhg_elem_f64"}
     assert ".t().contiguous()" not in inspect.getsource(P)
