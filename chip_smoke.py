@@ -1182,14 +1182,368 @@ def check_bnb_loop_pdhg(report: dict) -> None:
                               timing=src)
 
 
+MESH_LOOP_REPS = 9
+
+
+def mesh_loop_cases() -> list:
+    """The mesh sweeps of ``check_bnb_loop_mesh``, each through a user's
+    entry point on a virtual mesh of this card: (name, fn(tm) -> result,
+    reps, node). The row mesh (K6b/B6c): the 128-device fleet at S=4 in
+    float32 and float64, the 512-device fleet at S=4 (one rep), the online
+    golden at S=4, Mixtral M=4 at S=2 and S=4 cold, its per-k optima at
+    S=2 and a replanner's cold solve and drifted tick at S=2 (the tick
+    timed); the node mesh (K10): the north star on 8 shards on the IPM, on
+    the PDHG and per k, and Mixtral M=8 on 8 shards."""
+    import numpy as np
+
+    from distilp_torch.common import load_from_profile_folder
+    from distilp_torch.parallel import make_mesh, solve_sweep_sharded
+    from distilp_torch.solver import StreamingReplanner, halda_solve, halda_solve_per_k
+    from distilp_torch.solver.api import _build_instance
+    from distilp_torch.utils import make_synthetic_fleet
+
+    model128, devs128 = online_model(128), make_synthetic_fleet(128, seed=123)
+    model512, devs512 = online_model(512), make_synthetic_fleet(512, seed=123)
+    devs_o, model_o = load_from_profile_folder(ROOT / "tests" / "profiles" / "llama_3_70b" /
+                                               "online")
+    _, mconfig, mM, mseed, mpool, _ = MOE_CASES[0]
+    mmodel = moe_model(mconfig)
+    mdevs = make_synthetic_fleet(mM, seed=mseed, pool_bytes=int(mpool))
+    f128 = dict(mip_gap=FLEET128_GAP, kv_bits="4bit", mesh_shards=4)
+    moe = dict(mip_gap=MOE_GAP, kv_bits="8bit", lp_backend="pdhg")
+
+    def tick(tm=None):
+        planner = StreamingReplanner(mip_gap=MOE_GAP, kv_bits="8bit",
+                                     search={"lp_backend": "pdhg", "mesh_shards": 2})
+        devs = make_synthetic_fleet(mM, seed=mseed, pool_bytes=int(mpool))
+        planner.step(devs, mmodel)
+        drift(devs, np.random.default_rng(7))
+        r, ms = timed(lambda: planner.step(devs, mmodel, timings=tm))
+        if tm is not None:
+            tm["tick_wall_ms"] = ms
+        return r
+
+    mesh8 = make_mesh(8)
+    _, _, ns_coeffs, ns_arrays, ns_feas, _, _ = load_instance(16, 123)
+    _, m8config, m8M, m8seed, m8pool, _ = MOE_CASES[1]
+    m8model = moe_model(m8config)
+    Ks, _, m8coeffs, m8arrays = _build_instance(
+        make_synthetic_fleet(m8M, seed=m8seed, pool_bytes=int(m8pool)), m8model, None, "8bit",
+        None, None)
+    m8kWs = [(k, m8model.L // k) for k in Ks]
+    return [
+        ("fleet_M128 S=4", lambda tm=None: halda_solve(devs128, model128, timings=tm, **f128),
+         MESH_LOOP_REPS, False),
+        ("fleet_M128 S=4 f64", lambda tm=None: halda_solve(
+            devs128, model128, pdhg_dtype="f64", timings=tm, **f128), MESH_LOOP_REPS, False),
+        ("fleet_M512 S=4", lambda tm=None: halda_solve(
+            devs512, model512, mip_gap=FLEET512_GAP, kv_bits="4bit", mesh_shards=4,
+            timings=tm), 1, False),
+        ("online S=4", lambda tm=None: halda_solve(
+            devs_o, model_o, mip_gap=1e-4, kv_bits="4bit", lp_backend="pdhg", mesh_shards=4,
+            timings=tm), MESH_LOOP_REPS, False),
+        ("mixtral_M4 S=2", lambda tm=None: halda_solve(mdevs, mmodel, mesh_shards=2,
+                                                        timings=tm, **moe),
+         MESH_LOOP_REPS, False),
+        ("mixtral_M4 S=4", lambda tm=None: halda_solve(mdevs, mmodel, mesh_shards=4,
+                                                        timings=tm, **moe),
+         MESH_LOOP_REPS, False),
+        ("mixtral_M4 per_k S=2", lambda tm=None: halda_solve_per_k(
+            mdevs, mmodel, mesh_shards=2, timings=tm, **moe), MESH_LOOP_REPS, False),
+        ("mixtral_M4 tick S=2", tick, MESH_LOOP_REPS, False),
+        ("north_star nodes=8", lambda tm=None: solve_sweep_sharded(
+            ns_arrays, ns_feas, ns_coeffs, mesh8, mip_gap=MESH_SWEEP_GAP, timings=tm),
+         MESH_LOOP_REPS, True),
+        ("north_star nodes=8 pdhg", lambda tm=None: solve_sweep_sharded(
+            ns_arrays, ns_feas, ns_coeffs, mesh8, mip_gap=MESH_SWEEP_GAP, lp_backend="pdhg",
+            timings=tm), MESH_LOOP_REPS, True),
+        ("north_star nodes=8 per_k", lambda tm=None: solve_sweep_sharded(
+            ns_arrays, ns_feas, ns_coeffs, mesh8, mip_gap=MESH_SWEEP_GAP, per_k=True,
+            timings=tm), MESH_LOOP_REPS, True),
+        ("mixtral_M8 nodes=8", lambda tm=None: solve_sweep_sharded(
+            m8arrays, m8kWs, m8coeffs, mesh8, mip_gap=MOE_GAP, timings=tm),
+         MESH_LOOP_REPS, True),
+    ]
+
+
+def check_bnb_loop_mesh(report: dict) -> None:
+    """The meshes' rounds on the loop graph (R3c). First the new loop
+    kernel parts against their plain versions, bit for bit: the head's row
+    mesh mode (``LoopPlan.head_mesh_reference``: b and the warm y in the S
+    row blocks with zero padding, a MoE row's values against
+    ``search.node_values`` taken by ``RowBlocks.take``, its W and k) on the
+    128-device fleet at S=4 warm in float32 (root 0's y NaN) and float64 and
+    on Mixtral M=4 at S=2; the head's W and k on the node mesh (the north
+    star on 8 shards); the gather of the dual blocks (``bnb_gather_kernel``
+    against ``ops.meshlp.gather_rows_reference``) in both dtypes, timed
+    beside its plain version and its bound. Then every case of
+    :func:`mesh_loop_cases` on the graph and on the host loop
+    (``device_loop.host_loop``): the answers and final states equal bit for
+    bit, one graph launch, one read and 0 runtime kernel launches a solve,
+    one capture a signature, the graph's kernels a round; walls and search
+    times of the two routes in turns, medians of 9."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.kernels.build import library
+    from distilp_torch.ops.meshlp import gather_rows_reference
+    from distilp_torch.parallel import force_virtual_devices, shard_mesh
+    from distilp_torch.solver import device_loop as DL
+    from distilp_torch.solver import halda_solve
+    from distilp_torch.solver import packed as PK
+    from distilp_torch.solver.backend_torch import _prepare, _search_params, warm_inputs
+    from distilp_torch.solver.search import node_values, round_inputs
+    from distilp_torch.utils import make_synthetic_fleet
+
+    force_virtual_devices(8)
+    lib = library("bnb_loop")
+    dev = torch.device("cuda")
+    sh = kernels.stream_handle(dev)
+    model128, devs = online_model(128), make_synthetic_fleet(128, seed=123)
+    with uncounted():
+        cold = halda_solve(devs, model128, mip_gap=FLEET128_GAP, kv_bits="4bit")
+    lanes = lane_inputs([devs], model128, "4bit")
+    wi = [warm_inputs(ln.sf, _as_ilp(cold), ln.feasible, 0) for ln in lanes]
+    warm = [ln._replace(warm_tuple=w[0], root_warm_tuple=w[2]) for ln, w in zip(lanes, wi)]
+    heads, gathers = [], []
+    for name, lns, dtype, gap, S, poison in (
+            ("fleet_M128 S=4 warm f32, root 0's y NaN", warm, None, FLEET128_GAP, 4, True),
+            ("fleet_M128 S=4 warm f64", warm, "f64", FLEET128_GAP, 4, False),
+            ("mixtral_M4 S=2", [moe_lane(MOE_CASES[0])], None, MOE_GAP, 2, False)):
+        params = _search_params(lns[0].sf, None, None, None, None, None, "pdhg", None, S,
+                                dtype, False)
+        prep = _prepare(lns, params, gap, dev, shared_A=True, row_mesh=shard_mesh(S, dev))
+        plan = prep.plan
+        if plan is None or plan.sig.mesh != "row" or plan.sig.S != S:
+            fail(f"row-mesh loop case {name} did not take the graph route")
+        plan.load_static(prep.entry)
+        data = plan.data(prep.entry)
+        sig, st = plan.sig, plan.states[0]
+        with uncounted():
+            plan._seed(lib, data, sh)
+        torch.cuda.synchronize()
+        if poison:
+            if not bool(st.node_warm[0, 0]):
+                fail(f"{name}: root 0 carries no warm iterate to poison")
+            st.node_y[0, 0, 0] = float("nan")
+        plan.frozen.zero_()
+        lp = plan.lp_in64 if sig.lp_f64 else plan.lp_in
+        for which, B in ((0, sig.B0), (1, sig.Bw)):
+            R = sig.L * B
+            blocks = [plan.b_blk, plan.wy_blk] + ([plan.blk_vals] if plan.elem else [])
+            base = [t.clone() for t in blocks]
+            for t in blocks[:2]:
+                t.fill_(float("nan"))
+            plan._head(data, sh, 0, which)
+            got = {k: t.clone() for k, t in zip(("b", "wy", "vals"), blocks)}
+            got.update({k: (lp if k in ("c", "l", "u", "wv") else plan.lp_in)[k][:R].clone()
+                        for k in ("c", "l", "u", "wv", "wok", "skip")})
+            if sig.moe:
+                got.update(W=plan.Wr[:R].clone(), k=plan.kr[:R].clone())
+            for t, b0 in zip(blocks, base):
+                t.copy_(b0)
+            for t in blocks[:2]:
+                t.fill_(float("nan"))
+            ref = plan.head_mesh_reference(data, st, which)
+            ref.update({k: t.clone() for k, t in zip(("b", "wy", "vals"), blocks)})
+            if sig.moe:
+                ref.update(W=plan.Wr[:R].clone(), k=plan.kr[:R].clone())
+            bad = [k for k in got if not bits_equal(got[k], ref[k])]
+            if plan.elem:
+                # Independently: each block's values are the row's values on
+                # the full structure taken at the block's places.
+                ins = round_inputs(data, st, B, plan.frozen)
+                full = node_values(data, ins.kidx, ins.lane).to(plan.lp_dtype)
+                rb = prep.entry.mesh_blocks(S)
+                for s in range(S):
+                    n = sig.blk_nnz[s]
+                    blk = got["vals"][plan.blk_off[s]:plan.blk_off[s] + R * n].view(R, n)
+                    if not bits_equal(blk, full[:, rb.take[s]]):
+                        bad.append(f"block {s}'s values against node_values")
+            if poison and which == 0 and (bool(ref["wok"][0]) or bool(got["wok"][0])):
+                bad.append("wok of the poisoned row")
+            for t, b0 in zip(blocks, base):
+                t.copy_(b0)
+            nb = loop_bytes([t[:, :R] if t.dim() == 3 else t for t in blocks]) + loop_bytes(
+                [lp[k][:R] for k in ("c", "l", "u", "wv")]) + loop_bytes(
+                [st.node_kidx[:, :B], st.active[:, :B], st.node_warm[:, :B], st.node_lo[:, :B],
+                 st.node_hi[:, :B], st.node_v[:, :B], st.node_y[:, :B], st.node_z[:, :B],
+                 st.node_f[:, :B], plan.frozen])
+            ms, call, src = time_kernel(lambda: plan._head(data, sh, 0, which),  # noqa: B023
+                                        "bnb_head_kernel")
+            plain_ms = cuda_ms(lambda: plan.head_mesh_reference(data, st, which))  # noqa: B023
+            heads.append((f"{name} B={B}", bad, ms, call, src, plain_ms,
+                          bound_ms(0.0, nb, PEAK_F64_S)))
+            # The gather on random dual blocks.
+            y = (plan.res64 if sig.lp_f64 else plan.res)[which].y_dual
+            plan.y_blk.copy_(torch.randn(plan.y_blk.shape, dtype=plan.y_blk.dtype, device=dev))
+            plan._gather(sh, which)
+            want = gather_rows_reference([plan.y_blk[s, :R] for s in range(S)], sig.m)
+            bad = [] if bits_equal(y[:R], want) else ["y"]
+            nbg = 2 * R * sig.m * y.element_size()
+            ms, call, src = time_kernel(lambda: plan._gather(sh, which),  # noqa: B023
+                                        "bnb_gather_kernel")
+            plain_ms = cuda_ms(lambda: gather_rows_reference(  # noqa: B023
+                [plan.y_blk[s, :R] for s in range(S)], sig.m))  # noqa: B023
+            # One PyTorch call: the blocks side by side (the padding then a
+            # view's to drop).
+            lib_ms = cuda_ms(lambda: torch.cat(  # noqa: B023
+                [plan.y_blk[s, :R] for s in range(S)], 1))  # noqa: B023
+            gathers.append((f"{name} B={B}", bad, ms, call, src, plain_ms,
+                            bound_ms(0.0, nbg, PEAK_F64_S), lib_ms))
+        prep.release()
+    # The node mesh: the head writes each row's W and k for K2's dense entry.
+    from distilp_torch.parallel import make_mesh, pad_cap_to_mesh
+
+    mesh8 = make_mesh(8)
+    ns = lane_inputs([make_synthetic_fleet(16, seed=123)], online_model(), "4bit")
+    n_k = len(ns[0].sf.ks)
+    params = _search_params(ns[0].sf, None, None, None, 48, None, None, None, None, None, False)
+    cap = pad_cap_to_mesh(max(params["cap"], 2 * n_k), mesh8)
+    params.update(cap=cap, beam=min(pad_cap_to_mesh(params["beam"], mesh8), cap))
+    prep = _prepare(ns, params, MESH_SWEEP_GAP, dev, shared_A=True, node_mesh=mesh8,
+                    root_beam=min(pad_cap_to_mesh(n_k, mesh8), cap))
+    plan = prep.plan
+    if plan is None or plan.sig.mesh != "node" or plan.sig.B0 % 8:
+        fail("the node-mesh loop case did not take the graph route with a padded root round")
+    plan.load_static(prep.entry)
+    data = plan.data(prep.entry)
+    with uncounted():
+        plan._seed(lib, data, sh)
+    plan.frozen.zero_()
+    plan._head(data, sh, 0, 0)
+    R = plan.sig.L * plan.sig.B0
+    st = plan.states[0]
+    ins = round_inputs(data, st, plan.sig.B0, plan.frozen)
+    bad = [k for k, a, b in (("W", plan.Wr[:R], data.Ws[ins.lane, ins.kidx]),
+                             ("k", plan.kr[:R], data.ks[ins.lane, ins.kidx]),
+                             ("b", plan.lp_in["b"][:R], ins.b), ("skip", plan.lp_in["skip"][:R],
+                                                                 ins.skip))
+           if not bits_equal(a, b)]
+    print(f"bnb_head node-mesh mode vs plain north_star 8 shards B={plan.sig.B0}: differs in "
+          f"{bad or 'nothing'}", flush=True)
+    if bad:
+        fail(f"the head's node-mesh mode differs from its plain version: {bad}")
+    prep.release()
+    for kname, lines in (("bnb_head mesh mode", heads), ("bnb_gather", gathers)):
+        for case, bad, ms, call, src, plain_ms, (b_ms, b_by), *lib_ms in lines:
+            print(f"{kname} vs plain {case}: differs in {bad or 'nothing'}; {ms:.4f} ms ({src}), "
+                  f"call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms!r} ms ({b_by})"
+                  + (f", torch.cat {lib_ms[0]:.4f} ms" if lib_ms else ""), flush=True)
+            if bad:
+                fail(f"{kname} differs from its plain version on {case}: {bad}")
+    report["bnb_head"]["mesh_mode"] = [
+        dict(case=c, ms=ms, call_ms=call, timing=src, plain_ms=p, bound_ms=b[0])
+        for c, _, ms, call, src, p, b in heads]
+    case, _, ms, call, src, plain_ms, (b_ms, b_by), lib_ms = gathers[0]
+    report["bnb_gather"] = dict(name="bnb_gather", route="cuda",
+                                source="distilp_torch/kernels/csrc/bnb_loop_kernel.cu",
+                                replaces="distilp_tpu/ops/meshlp.py:165",
+                                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib_ms, held_on=case, call_ms=call,
+                                timing=src)
+
+    # The mesh sweeps, graph against host loop (the plans of the checks
+    # above dropped: each case's signature is captured once).
+    DL.clear_plans()
+    DL.CAPTURES.clear()
+    cases = mesh_loop_cases()
+    sigs0 = set()
+    for name, fn, reps, node in cases:
+        g0 = kernels.LAUNCHES["bnb_graph"]
+        c0 = dict(PK.COPIES)
+        routes0 = dict(kernels.SHAPES["bnb_graph"])
+        graph_log: list = []
+        with recorded_loops(graph_log):
+            got = fn()
+        torch.cuda.synchronize()
+        n_graph = kernels.LAUNCHES["bnb_graph"] - g0
+        d2h = PK.COPIES["d2h"] - c0["d2h"]
+        routes = {k: v - routes0.get(k, 0) for k, v in kernels.SHAPES["bnb_graph"].items()
+                  if v != routes0.get(k, 0)}
+        host_log: list = []
+        with DL.host_loop(), recorded_loops(host_log):
+            fn()
+        torch.cuda.synchronize()
+        answers = [a for kind, a in graph_log if kind == "answer"]
+        h_answers = [a for kind, a in host_log if kind == "answer"]
+        same_ans = len(answers) == len(h_answers) and all(
+            bits_equal(a, b) for a, b in zip(answers, h_answers))
+        gs = [x for k, x in graph_log if k == "state"]
+        hs = [x for k, x in host_log if k == "state"]
+        diffs = [state_diff(a, b) for a, b in zip(gs, hs)]
+        same_state = len(gs) == len(hs) and len(gs) > 0 and not any(diffs)
+        solves = len(gs)
+        print(f"mesh loop {name}: {solves} solves, graph launches {n_graph}, device-to-host "
+              f"reads {d2h}; answers equal bit for bit: {same_ans} ({len(answers)}); final "
+              f"states equal bit for bit: {same_state} {[d for d in diffs if d]}; routes "
+              f"{json.dumps(routes)}", flush=True)
+        if not (same_ans and same_state) or n_graph != solves or d2h != solves:
+            fail(f"mesh loop {name}: the graph route differs from the host loop or did not run "
+                 f"as one graph launch and one read a solve")
+        want = "node_mesh" if node else "row_mesh"
+        if not routes or any(not k.startswith("route=graph") or want not in k for k in routes):
+            fail(f"mesh loop {name}: a search left the graph route: {routes}")
+        del got
+    caps = {f"mesh={s.mesh} S={s.S} L={s.L} B0={s.B0} Bw={s.Bw} M={s.M} per_k={s.per_k} "
+            f"moe={s.moe} engine={s.engine} f64={s.lp_f64} Gs={s.Gs} margin={s.has_margin} "
+            f"warm={s.has_warm}": c for s, c in DL.CAPTURES.items()}
+    print("mesh loop graph captures per signature", json.dumps(caps), flush=True)
+    if any(c != 1 for c in DL.CAPTURES.values()) or not any(s.mesh == "row" for s in DL.CAPTURES) \
+            or not any(s.mesh == "node" for s in DL.CAPTURES):
+        fail(f"a mesh plan signature was captured more than once, or a mesh never: {caps}")
+    # The graph's kernels a round of each mesh signature.
+    for sig in DL.CAPTURES:
+        with uncounted():
+            before = dict(kernels.LAUNCHES)
+            DL.count_graph_launches(sig, np.array([[0.0, 0.0, 0.0, 0.0, 3.0]]))
+            per = {k: (v - before[k]) // 3 for k, v in kernels.LAUNCHES.items()
+                   if v != before[k] and k not in ("bnb_graph", "bnb_seed", "bnb_answer",
+                                                   "decomp", "decomp_theta", "decomp_bound")}
+        print(f"mesh loop graph kernels a round (mesh={sig.mesh} S={sig.S} M={sig.M} "
+              f"moe={sig.moe} engine={sig.engine} f64={sig.lp_f64} per_k={sig.per_k}) "
+              f"{json.dumps(per)} ({sum(per.values())} graph kernel nodes)", flush=True)
+    # Walls and search times, host loop against graph, in turns.
+    for name, fn, reps, node in cases:
+        walls = {"host": [], "graph": []}
+        search = {"host": [], "graph": []}
+        for rep in range(reps):
+            for route in (("host", "graph") if rep % 2 == 0 else ("graph", "host")):
+                tm: dict = {}
+                with DL.host_loop() if route == "host" else contextlib.nullcontext():
+                    wall = timed(lambda: fn(tm))[1]  # noqa: B023
+                walls[route].append(tm.get("tick_wall_ms", wall))
+                search[route].append(tm.get("solve_ms", float("nan")))
+        with DL.host_loop():
+            host_kl = kernel_launches(lambda: fn({}))  # noqa: B023
+        graph_kl = kernel_launches(lambda: fn({}))  # noqa: B023
+        line = {"case": name, "card": smi_line(), "reps": reps}
+        for route in ("host", "graph"):
+            line[route] = {"wall_ms_median": statistics.median(walls[route]),
+                           "search_ms_median": statistics.median(search[route]),
+                           "walls_ms": walls[route], "search_ms": search[route]}
+        line["host"].update(runtime_launches=host_kl["runtime_launches"])
+        line["graph"].update(runtime_launches=graph_kl["runtime_launches"],
+                             graph_launches=graph_kl["wrappers"].get("bnb_graph", 0))
+        print("mesh loop timing", json.dumps(line), flush=True)
+        if graph_kl["runtime_launches"] != 0:
+            fail(f"mesh loop {name}: the graph route made {graph_kl['runtime_launches']} "
+                 f"runtime kernel launches a solve")
+
+
 @contextlib.contextmanager
 def recorded_loops(log: list):
     """Record each search's answer (the read-back vector) and final state
     inside the block: the graph route's from its plan's state buffer, the
-    host loop's from ``run_bnb_loop``."""
+    host loop's from ``run_bnb_loop`` (the node-sharded sweep's too, which
+    calls it from ``search``)."""
     from distilp_torch.solver import backend_torch as BT
     from distilp_torch.solver import device_loop as DL
     from distilp_torch.solver import packed as PK
+    from distilp_torch.solver import search as SR
 
     orig = (DL.LoopPlan.run_graph, BT.run_bnb_loop, PK.split_answer)
 
@@ -1208,10 +1562,12 @@ def recorded_loops(log: list):
         return orig[2](ans, lay)
 
     DL.LoopPlan.run_graph, BT.run_bnb_loop, BT.packed.split_answer = run_graph, run_loop, split
+    SR.run_bnb_loop = run_loop
     try:
         yield log
     finally:
         DL.LoopPlan.run_graph, BT.run_bnb_loop, BT.packed.split_answer = orig
+        SR.run_bnb_loop = orig[1]
 
 
 def _memcpys(fn) -> dict:
@@ -7202,7 +7558,8 @@ def diagnose_path() -> dict:
 # per receiving shard; S - 1 operations per element.
 MESH_SHARDS = (2, 4)
 MESH_KERNELS = ("pdhg_sharded", "pdhg_sharded_elem", "collective", "pdhg", "ipm",
-                "round_incumbent", "round_moe", "round_tail", "decomp")
+                "round_incumbent", "round_moe", "round_tail", "decomp", "bnb_gather",
+                "bnb_graph")
 # K6b against the unsharded K5 at equal step counts: float64 obj and bound
 # within 1e-9 relative (the two sum the same products in another order);
 # float32 holds the float64 bound as check_pdhg does (TOL_PDHG_F32_CERT).
@@ -8031,7 +8388,15 @@ def mesh_path() -> dict:
                               if sh.endswith("route=" + r)) for r in ("fused", "sequenced")}
                 for name in ("pdhg_sharded", "pdhg_sharded_elem")}
     print("mesh path K6b launches by route", json.dumps(by_route), flush=True)
+    # Every search on a mesh of this card is one graph launch (R3c): only the
+    # convergence solve keeps the host loop (its round log, R3d).
+    routes = launches["_shapes"].get("bnb_graph", {})
+    off = {k: v for k, v in routes.items()
+           if k.startswith("route=host") and not k.startswith("route=host convergence")}
+    print(f"mesh path routes {json.dumps(routes)}", flush=True)
     print(f"mesh path: {time.perf_counter() - t_path:.1f} s", flush=True)
+    if off:
+        fail(f"a search on a mesh of one card took the host loop: {off}")
     if any(v["sequenced"] for v in by_route.values()):
         fail(f"the mesh path ran K6b's sequenced route on one card: {by_route}")
     missing = [k for k in MESH_KERNELS if launches[k] == 0]
@@ -8078,12 +8443,13 @@ def main() -> int:
               check_bnb_per_k, check_price_fixed, check_round_lanes, check_round_moe_lanes,
               check_epilogue_lanes, check_per_k_lanes, check_decomp_lanes, check_traces,
               check_collective, check_pdhg_sharded, check_pdhg_sharded_elem, check_round_tail,
-              check_bnb_loop, check_bnb_loop_moe, check_bnb_loop_pdhg]
+              check_bnb_loop, check_bnb_loop_moe, check_bnb_loop_pdhg, check_bnb_loop_mesh]
     names = ["ipm", "round", "epilogue", "pdhg", "pdhg_routes", "pdhg_mp", "ipm_moe", "round_moe",
              "decomp", "twin_mc", "hbm_stream", "gemm_absmax_scale", "bnb_per_k",
              "price_fixed", "round_lanes", "round_moe_lanes", "epilogue_lanes",
              "per_k_lanes", "decomp_lanes", "traces", "collective", "pdhg_sharded",
-             "pdhg_sharded_elem", "round_tail", "bnb_loop", "bnb_loop_moe", "bnb_loop_pdhg"]
+             "pdhg_sharded_elem", "round_tail", "bnb_loop", "bnb_loop_moe", "bnb_loop_pdhg",
+             "bnb_loop_mesh"]
     for name, check in zip(names, checks):
         kernels.reset_launch_counts()
         t = time.perf_counter()
@@ -8176,7 +8542,7 @@ def main() -> int:
                  "bnb_per_k_lanes", "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace",
                  "pdhg_sharded", "pdhg_sharded_elem", "collective", "round_tail",
                  "round_tail_lanes", "bnb_seed", "bnb_head", "bnb_control", "bnb_answer",
-                 "decomp_theta", "decomp_bound", "bnb_cast"):
+                 "decomp_theta", "decomp_bound", "bnb_cast", "bnb_gather"):
         row = dict(report[name])
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -42,8 +42,11 @@ import torch
 # ran ("bnb_seed", "bnb_head", "ipm" or K5 under the wrapper's "pdhg" /
 # "pdhg_elem" and shape keys, for float64 PDHG iterates "bnb_cast", the
 # round tail, "bnb_control", "bnb_answer", and for a MoE sweep K7, its
-# folds and K2's MoE mode) are counted from the rounds its answer reports,
-# since a graph launch is one host call.
+# folds and K2's MoE mode; on a row mesh K6b's fused launches under its
+# wrapper's names and shape keys and "bnb_gather", the dual blocks back in
+# full coordinates; on a node mesh K1 or K5 and K2's dense entry
+# ("round_incumbent") or MoE mode once a shard) are counted from the rounds
+# its answer reports, since a graph launch is one host call.
 LAUNCHES: Dict[str, int] = {
     "ipm": 0, "round_incumbent": 0, "round_moe": 0, "bnb_epilogue": 0, "pdhg": 0,
     "decomp": 0, "twin_mc": 0, "hbm_stream": 0, "gemm_absmax_scale": 0,
@@ -52,7 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "ipm_trace": 0, "pdhg_trace": 0, "pdhg_sharded": 0, "pdhg_sharded_elem": 0,
     "collective": 0, "round_tail": 0, "round_tail_lanes": 0, "bnb_graph": 0, "bnb_seed": 0,
     "bnb_head": 0, "bnb_control": 0, "bnb_answer": 0, "decomp_theta": 0, "decomp_bound": 0,
-    "bnb_cast": 0,
+    "bnb_cast": 0, "bnb_gather": 0,
 }
 
 

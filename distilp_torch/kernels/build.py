@@ -81,6 +81,7 @@ SIGNATURES = {
     "round": {
         "dtk_round_f32": [_P, _L, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P],
         "dtk_round_f64": [_P, _L, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P],
+        "dtk_round_prepare": [_I],
     },
     "round_moe": {
         "dtk_round_moe_tab_bytes": [_I, _I],
@@ -167,6 +168,7 @@ SIGNATURES = {
         "dtk_bnb_seed_moe": [_P, _P, _P],
         "dtk_bnb_head": [_P, _P, _P],
         "dtk_bnb_cast": [_P, _P, _P],
+        "dtk_bnb_gather": [_P, _P, _P],
         "dtk_bnb_control": [_P, _P, _D, ctypes.c_ulonglong, _P],
         "dtk_bnb_answer": [_P, _P, _P],
         "dtk_bnb_graph_new": [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_ulonglong)],

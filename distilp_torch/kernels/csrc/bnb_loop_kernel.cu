@@ -565,6 +565,20 @@ struct HeadParams {
   double* wv64;
   double* wy64;           // (L*B, m)
   double* vals64;         // (L*B, nnz)
+  // Row mesh (mesh_S > 0; K6b reads the rows): a row's b and warm y go to
+  // the S row blocks of ms rows each (block s at b + s * blk_rows * ms, row
+  // r of it at + r * ms), the padded rows of the last blocks zero, as
+  // ops/meshlp.py::shard_rows pads them; the warm verdict is still judged
+  // on the row's m values. A MoE row's 2M expert-busy entries go to their
+  // blocks' values (RowBlocks.take): entry j at vals + gky_mesh[j] + row *
+  // gky_mesh[2M + j] (its place in the blocks' concatenated values, and its
+  // block's nonzeros a row).
+  int mesh_S, ms;
+  long blk_rows;
+  const long long* gky_mesh;  // (2, 2M)
+  // Write each row's W and k without the MoE mode (the node mesh's dense
+  // rows, which K2's dense entry rounds a shard at a time).
+  int wk;
 };
 
 template <typename T>
@@ -597,11 +611,22 @@ __global__ void __launch_bounds__(HEAD_THREADS) bnb_head_kernel(const __grid_con
     p.wf[o] = f;
     fin = fin && isfinite(v) && isfinite(z) && isfinite(f);
   }
+  const bool mesh = p.mesh_S > 0;
+  const size_t ms = mesh ? (size_t)p.ms : m;
+  const size_t bstride = mesh ? (size_t)p.blk_rows * ms : 0;
   for (size_t i = threadIdx.x; i < m; i += blockDim.x) {
     const float y = p.ny[slot * m + i];
-    put(f64, p.b, p.b64, row * m + i, p.b_k[kb * m + i]);
-    put(f64, p.wy, p.wy64, row * m + i, y);
+    const size_t o = mesh ? (i / ms) * bstride + row * ms + i % ms : row * m + i;
+    put(f64, p.b, p.b64, o, p.b_k[kb * m + i]);
+    put(f64, p.wy, p.wy64, o, y);
     fin = fin && isfinite(y);
+  }
+  if (mesh) {
+    for (size_t i = m + threadIdx.x; i < (size_t)p.mesh_S * ms; i += blockDim.x) {
+      const size_t o = (i / ms) * bstride + row * ms + i % ms;
+      put(f64, p.b, p.b64, o, 0.0f);
+      put(f64, p.wy, p.wy64, o, 0.0f);
+    }
   }
   // p.pdhg is the same in every thread: the whole block reaches the barrier.
   const bool warm_finite = p.pdhg ? __syncthreads_and(fin) != 0 : true;
@@ -610,10 +635,21 @@ __global__ void __launch_bounds__(HEAD_THREADS) bnb_head_kernel(const __grid_con
     const bool live = p.active[slot] && !(p.frozen != nullptr && p.frozen[lane]);
     p.skip[row] = live ? 0 : 1;
   }
+  if ((p.moe || p.wk) && threadIdx.x == 0) {
+    p.Wr[row] = p.Ws[kb];
+    p.kr[row] = p.ks[kb];
+  }
   if (!p.moe) return;
   // search.node_A / node_values: rows 4M + i and 5M + i of column 2M + i.
   const size_t M = p.M;
   const float* g = p.gky + kb * 2 * M;
+  if (p.gky_mesh != nullptr) {
+    for (size_t j = threadIdx.x; j < 2 * M; j += blockDim.x) {
+      const size_t o = (size_t)p.gky_mesh[j] + row * (size_t)p.gky_mesh[2 * M + j];
+      put(f64, p.vals, p.vals64, o, g[j]);
+    }
+    return;
+  }
   float* A = p.A_rows == nullptr ? nullptr : p.A_rows + row * m * nf;
   float* v = p.vals == nullptr ? nullptr : p.vals + row * (size_t)p.nnz;
   double* v64 = p.vals64 == nullptr ? nullptr : p.vals64 + row * (size_t)p.nnz;
@@ -625,9 +661,33 @@ __global__ void __launch_bounds__(HEAD_THREADS) bnb_head_kernel(const __grid_con
     put(f64, v, v64, p.gky_pos[i], g[i]);
     put(f64, v, v64, p.gky_pos[M + i], g[M + i]);
   }
-  if (threadIdx.x == 0) {
-    p.Wr[row] = p.Ws[kb];
-    p.kr[row] = p.ks[kb];
+}
+
+// ---------------------------------------------------------------- gather
+
+// The row mesh's dual blocks back in full coordinates (ops/meshlp.py: the
+// reference's tiled all_gather of the shards' y in mesh order, then the
+// padding dropped): y[r, i] = block i / ms's row r, entry i % ms, for the
+// m real rows of A. One pass, in the iteration dtype; the float64 cast (if
+// any) reads the result.
+struct GatherParams {
+  long R, m, ms, blk_rows;
+  int f64;
+  const void* src;  // (S, blk_rows, ms)
+  void* dst;        // (R, m)
+};
+
+__global__ void __launch_bounds__(CAST_THREADS) bnb_gather_kernel(const __grid_constant__ GatherParams p) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t n = (size_t)p.R * p.m, ms = p.ms, bstride = (size_t)p.blk_rows * ms;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n; idx += stride) {
+    const size_t r = idx / p.m, i = idx % p.m;
+    const size_t o = (i / ms) * bstride + r * ms + i % ms;
+    if (p.f64) {
+      static_cast<double*>(p.dst)[idx] = static_cast<const double*>(p.src)[o];
+    } else {
+      static_cast<float*>(p.dst)[idx] = static_cast<const float*>(p.src)[o];
+    }
   }
 }
 
@@ -1007,10 +1067,11 @@ int dtk_bnb_seed_moe(const long long* ptrs, const int* dims, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// dims: L, B, cap, nf, m, n_k, moe, M, nnz, pdhg, lp_f64; ptrs: lo, hi,
-// kidx, active, nv, ny, nz, nf, nwarm, frozen, b_k, c_k, then the 10
-// outputs, then (MoE) gky, gky_pos, A_rows, vals, Ws, ks, Wr, kr, then
-// (lp_f64) b64, c64, l64, u64, wv64, wy64, vals64.
+// dims: L, B, cap, nf, m, n_k, moe, M, nnz, pdhg, lp_f64, mesh_S, ms,
+// blk_rows, wk; ptrs: lo, hi, kidx, active, nv, ny, nz, nf, nwarm, frozen,
+// b_k, c_k, then the 10 outputs, then (MoE) gky, gky_pos, A_rows, vals, Ws,
+// ks, Wr, kr, then (lp_f64) b64, c64, l64, u64, wv64, wy64, vals64, then
+// (row mesh, MoE) gky_mesh.
 int dtk_bnb_head(const long long* ptrs, const int* dims, void* stream) {
   HeadParams p;
   p.L = dims[0];
@@ -1031,7 +1092,7 @@ int dtk_bnb_head(const long long* ptrs, const int* dims, void* stream) {
       (const void**)&p.vals, (const void**)&p.Ws, (const void**)&p.ks, (const void**)&p.Wr,
       (const void**)&p.kr, (const void**)&p.b64, (const void**)&p.c64, (const void**)&p.l64,
       (const void**)&p.u64, (const void**)&p.wv64, (const void**)&p.wy64,
-      (const void**)&p.vals64};
+      (const void**)&p.vals64, (const void**)&p.gky_mesh};
   constexpr int n = sizeof(slots) / sizeof(slots[0]);
   for (int i = 0; i < n; ++i) *slots[i] = (const void*)ptrs[i];
   p.moe = dims[6];
@@ -1039,6 +1100,16 @@ int dtk_bnb_head(const long long* ptrs, const int* dims, void* stream) {
   p.nnz = dims[8];
   p.pdhg = dims[9];
   p.lp_f64 = dims[10];
+  p.mesh_S = dims[11];
+  p.ms = dims[12];
+  p.blk_rows = dims[13];
+  p.wk = dims[14];
+  if (p.mesh_S < 0 || (p.mesh_S > 0 && (!p.pdhg || p.ms <= 0 || (long)p.mesh_S * p.ms < p.m ||
+                                          p.blk_rows < (long)p.L * p.B)))
+    return (int)cudaErrorInvalidValue;
+  if (p.mesh_S > 0 && p.moe && p.gky_mesh == nullptr) return (int)cudaErrorInvalidValue;
+  if (p.wk && (p.Wr == nullptr || p.kr == nullptr || p.Ws == nullptr || p.ks == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (p.moe && (p.M <= 0 || 6 * p.M > p.m || 3 * p.M > p.nf)) return (int)cudaErrorInvalidValue;
   if (p.moe && (p.lp_f64 ? p.vals64 == nullptr : p.vals == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1074,6 +1145,28 @@ int dtk_bnb_cast(const long long* ptrs, const int* dims, void* stream) {
   if (grid > 1024) grid = 1024;
   if (grid < 1) grid = 1;
   bnb_cast_kernel<<<(unsigned)grid, CAST_THREADS, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// dims: R, m, S, ms, blk_rows, f64; ptrs: src (the S dual blocks), dst
+// (R, m).
+int dtk_bnb_gather(const long long* ptrs, const int* dims, void* stream) {
+  GatherParams p;
+  p.R = dims[0];
+  p.m = dims[1];
+  const int S = dims[2];
+  p.ms = dims[3];
+  p.blk_rows = dims[4];
+  p.f64 = dims[5];
+  p.src = (const void*)ptrs[0];
+  p.dst = (void*)ptrs[1];
+  if (p.R <= 0 || p.m <= 0 || S <= 0 || p.ms <= 0 || (long)S * p.ms < p.m ||
+      p.blk_rows < p.R || p.src == nullptr || p.dst == nullptr)
+    return (int)cudaErrorInvalidValue;
+  size_t grid = ((size_t)p.R * p.m + CAST_THREADS * 4 - 1) / (CAST_THREADS * 4);
+  if (grid > 1024) grid = 1024;
+  if (grid < 1) grid = 1;
+  bnb_gather_kernel<<<(unsigned)grid, CAST_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,13 @@
 // STEP and COMMIT on every shard and the two collectives' launches per
 // receiving shard (4 + 2S launches); per chunk: STATS's and DECIDE's
 // launches, three collectives and the host's device-to-host read.
+// The loop's graph (solver/device_loop.py) captures the same launch as a
+// node of every row-mesh round, on buffers its plan owns and reuses each
+// round: within one launch every buffer the kernel reads (the shards'
+// parts, step scalars and maxima, the done flags, the workspace's state
+// and partials) is written first, by SETUP_A, INIT, each STEP and STATS and
+// EPI1, and the collectives' receive slots are never read on this route;
+// so no value carries from one round into the next and nothing is zeroed.
 //
 // The rule that keeps one launch from hanging the card: a grid sync that only
 // some groups reach never completes, so no branch around a barrier depends on
@@ -1218,9 +1225,28 @@ int phase_grid(int* G) {
   return grid_size((const void*)pdhgs_kernel<T, kElem>, sizeof(Blk<T>), G);
 }
 
+// The fused route's grid, asked of the card once a device and entry (the
+// first dtk_pdhgs_fused_grid query, made before any launch) and kept: a
+// launch, a graph capture's included, reads it and queries nothing.
+constexpr int MAX_DEVICES = 64;
+int g_fused_grid[MAX_DEVICES][4];
+
 template <typename T, bool kElem>
 int fused_grid(int* G) {
-  return grid_size((const void*)pdhgs_fused_kernel<T, kElem>, sizeof(Blk<T>), G);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int& slot = g_fused_grid[dev][(sizeof(T) == 8 ? 2 : 0) + (kElem ? 1 : 0)];
+  if (slot == 0) {
+    const int gerr = grid_size((const void*)pdhgs_fused_kernel<T, kElem>, sizeof(Blk<T>), &slot);
+    if (gerr != 0) {
+      slot = 0;
+      return gerr;
+    }
+  }
+  *G = slot;
+  return 0;
 }
 
 // Pointer slots of a shard (ops/meshlp.py builds the array in this order).
@@ -1394,8 +1420,9 @@ int dtk_pdhgs_elem_grid(int is_f64) {
   return err != 0 ? -err : G;
 }
 
-// The same for the fused route (either entry): the caller splits the G
-// blocks into S groups of G / S (S <= dtk_pdhgs_fused_max_shards()).
+// The same for the fused route (either entry; asked of the card once, then
+// kept): the caller splits the G blocks into S groups of G / S (S <=
+// dtk_pdhgs_fused_max_shards()).
 int dtk_pdhgs_fused_grid(int is_f64, int elem) {
   int G = 0;
   int err;

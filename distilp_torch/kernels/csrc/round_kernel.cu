@@ -27,7 +27,9 @@
 //
 // Since the round tail (round_tail_kernel.cu) rounds every round's dense
 // beam rows itself, this entry serves the warm hint, the node-sharded
-// sweep's shards and the tail's plain version.
+// sweep's shards (a launch a shard inside the loop's graph) and the tail's
+// plain version. Rows of more than 768 devices need more than 48 KB of
+// shared memory a block: dtk_round_prepare sets that once a card.
 
 #include "round_row.cuh"
 
@@ -54,18 +56,30 @@ __global__ void round_kernel(const Tv* __restrict__ v, long v_stride,
             w_out + (size_t)r * M, n_out + (size_t)r * M);
 }
 
+constexpr int WARPS = 4;
+constexpr int MAX_DEVICES = 64;
+// The most dynamic shared memory each card's two kernels were prepared for
+// (dtk_round_prepare), beyond the 48 KB a launch gets without asking.
+int g_prepared[MAX_DEVICES];
+
+size_t smem_bytes(int M) { return sizeof(double) * 2 * (size_t)M * WARPS; }
+
 template <typename Tv>
 int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
            const double* rd, const int* inst, long rd_stride, int M, int B,
            double* obj, double* w,
            double* n, cudaStream_t stream) {
-  const int warps = 4;
+  const int warps = WARPS;
   const int blocks = (B + warps - 1) / warps;
-  const size_t sm = sizeof(double) * 2 * (size_t)M * warps;
+  const size_t sm = smem_bytes(M);
   if (sm > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        round_kernel<Tv>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+    // The attribute is set once a card by dtk_round_prepare, never here: a
+    // launch inside a graph capture sets nothing.
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= MAX_DEVICES || (size_t)g_prepared[dev] < sm)
+      return (int)cudaErrorInvalidConfiguration;
   }
   round_kernel<Tv><<<blocks, 32 * warps, sm, stream>>>(v, v_stride, Wr, kr, rd, inst,
                                                        rd_stride, M, B, obj, w, n);
@@ -75,6 +89,27 @@ int launch(const Tv* v, long v_stride, const double* Wr, const double* kr,
 }  // namespace
 
 extern "C" {
+
+// Prepares this card's kernels for rows of M devices (the shared-memory
+// attribute where a block needs more than 48 KB); once a card and M, before
+// any launch (a graph capture included).
+int dtk_round_prepare(int M) {
+  const size_t sm = smem_bytes(M);
+  if (sm <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if ((size_t)g_prepared[dev] >= sm) return 0;
+  err = cudaFuncSetAttribute(round_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(round_kernel<double>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  g_prepared[dev] = (int)sm;
+  return 0;
+}
 
 int dtk_round_f32(const float* v, long v_stride, const double* Wr,
                   const double* kr, const double* rd, const int* inst,

@@ -149,7 +149,9 @@ def sharded_pdhg(
     a dense per-element (B, m, n) A gathered onto ``sparsity`` (which must
     hold every nonzero) or onto the union of its elements' patterns.
     ``blocks`` is the per-element structure's :func:`row_blocks` for this
-    shard count (built here when None). Returns the
+    shard count (built here when None), or for a shared A its
+    :func:`dense_blocks` in the batch's dtype (held by the caller, so no
+    call pads, slices or transposes A). Returns the
     unsharded engine's :class:`IPMResult` contract, every array in full
     coordinates on shard 0's device. ``replicas`` (a list) receives each
     shard's own copy of the result (the kernel routes compute the
@@ -176,8 +178,10 @@ def sharded_pdhg(
     if kernels.on_cuda(*tensors):
         if mesh.devices[0].type != "cuda":
             raise ValueError(f"CUDA tensors on a mesh of {mesh.devices[0].type} devices")
+        At_b = blocks.At if isinstance(blocks, DenseBlocks) else None
         outs = _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh, iters,
-                               float(tol), float(restart_tol), chunk, trace, m, _sequenced)
+                               float(tol), float(restart_tol), chunk, trace, m, _sequenced,
+                               At_b)
     else:
         res = sharded_pdhg_reference(A_b, b_b, batch.c, batch.l, batch.u, iters, tol,
                                      restart_tol, wv=wv, wy=wy_b, wok=wok, skip=skip,
@@ -219,15 +223,42 @@ def row_blocks(sparsity: IPMSparsity, shards: int) -> RowBlocks:
     return RowBlocks(tuple(blocks), tuple(take))
 
 
-def shard_rows(batch: LPBatch, shards: int, warm=None, blocks: Optional[RowBlocks] = None):
+class DenseBlocks(NamedTuple):
+    """One shared (m, n) A's row blocks on S shards (rows padded with zeros
+    to a multiple of S), each (ms, n) and its (n, ms) transpose, contiguous,
+    in one dtype: what K6b's shared entry reads."""
+
+    A: Tuple[torch.Tensor, ...]
+    At: Tuple[torch.Tensor, ...]
+
+
+def dense_blocks(A: torch.Tensor, shards: int, dtype=None) -> DenseBlocks:
+    """The :class:`DenseBlocks` of ``A`` on ``shards`` shards in ``dtype``
+    (None: A's own)."""
+    A = A if dtype is None else A.to(dtype)
+    m_pad = pad_rows_to(A.shape[0], shards)
+    ms = m_pad // shards
+    A_p = _pad_axis(A, m_pad, 0)
+    blk = tuple(A_p[s * ms:(s + 1) * ms].contiguous() for s in range(shards))
+    return DenseBlocks(blk, tuple(b.t().contiguous() for b in blk))
+
+
+def gather_rows_reference(y_blocks, m: int) -> torch.Tensor:
+    """Plain version of the loop's gather (``bnb_loop_kernel.cu``'s
+    ``bnb_gather_kernel``): the shards' dual blocks, each (R, ms), side by
+    side in mesh order with the padded rows dropped, (R, m)."""
+    return torch.cat(list(y_blocks), 1)[:, :m]
+
+
+def shard_rows(batch: LPBatch, shards: int, warm=None, blocks=None):
     """The row blocks of a batch on ``shards`` shards, rows padded with
     zeros to a multiple of the shard count: ``(A blocks, b blocks (B, ms),
     warm v, warm y blocks, warm verdict)``, the warm parts None without a
-    warm state. A shared A gives (ms, n) blocks; an :class:`ElemA` gives an
-    ``ElemA`` per block, its values taken on the block's structure
-    (``blocks``, else :func:`row_blocks` of the batch's). The verdict (ok and
-    every component finite) is judged on the caller's full arrays, before
-    any cast."""
+    warm state. A shared A gives (ms, n) blocks (``blocks``' when it holds
+    them, :class:`DenseBlocks`); an :class:`ElemA` gives an ``ElemA`` per
+    block, its values taken on the block's structure (``blocks``, else
+    :func:`row_blocks` of the batch's). The verdict (ok and every component
+    finite) is judged on the caller's full arrays, before any cast."""
     A = batch.A
     m = batch.b.shape[1]
     m_pad = pad_rows_to(m, shards)
@@ -242,6 +273,14 @@ def shard_rows(batch: LPBatch, shards: int, warm=None, blocks: Optional[RowBlock
             raise ValueError(f"row blocks of {len(blocks.take)} shards for {shards}")
         A_b = [ElemA(A.values.index_select(1, t), sp)
                for t, sp in zip(blocks.take, blocks.sparsity)]
+    elif isinstance(blocks, DenseBlocks):
+        dtype = A.dtype
+        if len(blocks.A) != shards or blocks.A[0].shape != (ms, A.shape[1]) or \
+                blocks.A[0].dtype != dtype:
+            raise ValueError(f"dense blocks {len(blocks.A)} x {tuple(blocks.A[0].shape)} "
+                             f"{blocks.A[0].dtype} for {shards} shards of ({ms}, "
+                             f"{A.shape[1]}) {dtype}")
+        A_b = list(blocks.A)
     else:
         dtype = A.dtype
         A_p = _pad_axis(A, m_pad, 0)
@@ -465,7 +504,7 @@ class _Shard:
 
     def __init__(self, lib, dev, A_blk, index, b_blk, c, l, u, wv, wy, wok, skip, G: int,
                  chunk: int, n_chunks: int, trace_rows: int, tol: float, rt: float,
-                 out: IPMResult, y_out: torch.Tensor, shape: str):
+                 out: IPMResult, y_out: torch.Tensor, shape: str, At_blk=None):
         f64 = A_blk.dtype == torch.float64
         B, n = c.shape
         ms = b_blk.shape[1]
@@ -476,7 +515,8 @@ class _Shard:
             a_held, nnz = [A_blk, index], A_blk.shape[1]
         else:
             self.fn = lib.dtk_pdhgs_f64 if f64 else lib.dtk_pdhgs_f32
-            a_held, nnz = [A_blk, A_blk.t().contiguous()], 0
+            At = A_blk.t().contiguous() if At_blk is None else At_blk
+            a_held, nnz = [A_blk, At], 0
         self.dev, self.shape = dev, shape
         self.held = [*a_held, *(t.contiguous() for t in (b_blk, c, l, u)),
                      None if wv is None else wv.contiguous(),
@@ -500,9 +540,10 @@ class _Shard:
                                  out.converged, out.reduced, y_out, out.z_dual, out.f_dual,
                                  out.iters_run, out.trace_buf]
         assert len(ptrs) == N_PTR
-        self.P = (ctypes.c_void_p * N_PTR)(*(None if t is None else t.data_ptr()
-                                             for t in ptrs))
-        self.I = (ctypes.c_int * N_INT)(B, ms, n, chunk, n_chunks, trace_rows, G, 0, nnz)
+        self.ptrs = [None if t is None else t.data_ptr() for t in ptrs]
+        self.ints = [B, ms, n, chunk, n_chunks, trace_rows, G, 0, nnz]
+        self.P = (ctypes.c_void_p * N_PTR)(*self.ptrs)
+        self.I = (ctypes.c_int * N_INT)(*self.ints)
         self.D = (ctypes.c_double * 2)(tol, rt)
         self.stream = kernels.stream_handle(dev)
 
@@ -520,7 +561,7 @@ class _Shard:
 
 
 def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol, rt,
-                    chunk, trace, m, sequenced: bool = False) -> List[IPMResult]:
+                    chunk, trace, m, sequenced: bool = False, At_b=None) -> List[IPMResult]:
     from ..kernels.build import library
 
     elem = isinstance(A_b[0], ElemA)
@@ -552,19 +593,17 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
     # partials in the same order: the fused route's group of the card's
     # blocks (the card check runs the sequenced route on it too), else the
     # smallest of the devices' grids.
-    grouped = route == "fused" or sequenced
-    if grouped:
-        grid_of = lambda f: lib.dtk_pdhgs_fused_grid(f, int(elem))  # noqa: E731
+    if route == "fused" or sequenced:
+        G = fused_group(mesh.devices[0], S, f64, elem)
     else:
         grid_of = lib.dtk_pdhgs_elem_grid if elem else lib.dtk_pdhgs_grid
-    grids = []
-    for dev in dict.fromkeys(mesh.devices[:1] if grouped else mesh.devices):
-        with torch.cuda.device(dev):
-            grids.append(int(grid_of(int(f64))))
-    if min(grids) < 1:
-        raise RuntimeError(f"pdhg_sharded grid query failed with cudaError {-min(grids)}")
-    G = group_blocks(grids[0], S, int(lib.dtk_pdhgs_fused_max_shards())) if grouped \
-        else min(grids)
+        grids = []
+        for dev in dict.fromkeys(mesh.devices):
+            with torch.cuda.device(dev):
+                grids.append(int(grid_of(int(f64))))
+        if min(grids) < 1:
+            raise RuntimeError(f"pdhg_sharded grid query failed with cudaError {-min(grids)}")
+        G = min(grids)
     chunk, n_chunks = chunking(iters, chunk)
     trace_rows = n_chunks if trace else 0
     outs = []
@@ -609,9 +648,13 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
                     None if wy_b is None else on(wy_b[s][sl]), on(cut(wok)), on(cut(skip)),
                     G, chunk, n_chunks, trace_rows, tol, rt,
                     IPMResult(*(None if t is None else t[sl] for t in o)),
-                    o.y_dual[sl], shape))
+                    o.y_dual[sl], shape, None if At_b is None or elem else on(At_b[s])))
             if route == "fused":
-                _run_fused(lib, shards, f64, wv is not None)
+                sh0 = shards[0]
+                k6b_launch(sh0.elem, f64, [sh.ptrs for sh in shards],
+                           [sh.ints for sh in shards], [sh.ws.numel() for sh in shards],
+                           tol, rt, wv is not None, sh0.stream)
+                sh0.count()
             else:
                 _run_phases(shards, mesh, n_chunks, chunk, wv is not None, multi)
     # The dual blocks are the only row-sharded output: gather them in mesh
@@ -620,20 +663,45 @@ def _sharded_kernel(A_b, b_b, batch, wv, wy_b, wok, skip, mesh: Mesh, iters, tol
     return [o._replace(y_dual=y[:, :m]) for o, y in zip(outs, ys)]
 
 
-def _run_fused(lib, shards: List[_Shard], f64: bool, warm: bool) -> None:
-    """One cooperative launch for a slice of every shard of one device: the
-    shards' slots side by side."""
-    S, sh0 = len(shards), shards[0]
-    if sh0.elem:
+def fused_group(dev, S: int, f64: bool, elem: bool) -> int:
+    """Blocks of each shard's group in a fused launch of S shards on
+    ``dev``: :func:`group_blocks` of the card's grid for the entry (the
+    library asks the card once a device and entry, then keeps it; no
+    launch queries)."""
+    from ..kernels.build import library
+
+    lib = library("pdhg_sharded")
+    with torch.cuda.device(dev):
+        G = int(lib.dtk_pdhgs_fused_grid(int(f64), int(elem)))
+    if G < 1:
+        raise RuntimeError(f"pdhg_sharded grid query failed with cudaError {-G}")
+    return group_blocks(G, S, int(lib.dtk_pdhgs_fused_max_shards()))
+
+
+def k6b_launch(elem: bool, f64: bool, ptrs, ints, ws_lens, tol: float, rt: float, warm: bool,
+               stream) -> None:
+    """One cooperative launch of K6b's fused route for a slice of every shard
+    of one card, on buffers the caller owns: ``ptrs[s]`` shard s's N_PTR
+    pointer slots (ints or None: the collectives' receive slots are never
+    read on this route), ``ints[s]`` its N_INT ints (one B, chunking and
+    group size for every shard), ``ws_lens[s]`` its workspace's bytes. The
+    wrapper (:func:`sharded_pdhg`) and the loop's plan
+    (``solver/device_loop.py``, inside a graph capture) both launch through
+    here; neither the query of the grid nor an attribute is made here."""
+    from ..kernels.build import library
+
+    lib = library("pdhg_sharded")
+    S = len(ptrs)
+    if elem:
         fn = lib.dtk_pdhgs_elem_fused_f64 if f64 else lib.dtk_pdhgs_elem_fused_f32
     else:
         fn = lib.dtk_pdhgs_fused_f64 if f64 else lib.dtk_pdhgs_fused_f32
-    P = (ctypes.c_void_p * (S * N_PTR))(*(v for sh in shards for v in sh.P))
-    I = (ctypes.c_int * (S * N_INT))(*(v for sh in shards for v in sh.I))
-    ws = (ctypes.c_long * S)(*(sh.ws.numel() for sh in shards))
-    err = fn(S, P, I, sh0.D, ws, int(warm), sh0.stream)
+    P = (ctypes.c_void_p * (S * N_PTR))(*(v for row in ptrs for v in row))
+    I = (ctypes.c_int * (S * N_INT))(*(v for row in ints for v in row))
+    D = (ctypes.c_double * 2)(tol, rt)
+    ws = (ctypes.c_long * S)(*ws_lens)
+    err = fn(S, P, I, D, ws, int(warm), stream)
     kernels.check(err, "pdhg_sharded fused")
-    sh0.count()
 
 
 def _run_phases(shards: List[_Shard], mesh: Mesh, n_chunks: int, chunk: int, warm: bool,

@@ -39,7 +39,7 @@ import torch
 
 from .. import kernels
 from ..ops.decomp import decomp_problem, stack_problems
-from ..ops.meshlp import row_blocks
+from ..ops.pdhg import DEFAULT_RESTART_TOL, resolve_pdhg_dtype
 from ..parallel.devices import shard_mesh
 from .assemble import MilpArrays, VarLayout
 from .coeffs import HaldaCoeffs
@@ -54,12 +54,14 @@ from .device_loop import (
     pdhg_plan,
     plan_sig,
     release_plan,
+    row_mesh_plan,
 )
 from .search import (
     BDTYPE,
     RL_COLS,
     SearchState,
     SweepData,
+    node_mesh_of,
     root_state,
     run_bnb_loop,
     seed_root_bounds,
@@ -502,7 +504,8 @@ class _Prepared:
 def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=False,
              per_k=False, timings=None, shared_A=False, A_lanes=None,
              convergence: Optional[dict] = None, row_mesh=None,
-             node_mesh: bool = False, _host_loop: bool = False) -> _Prepared:
+             node_mesh=None, root_beam: Optional[int] = None,
+             _host_loop: bool = False) -> _Prepared:
     """Upload L sweeps (same shapes and search parameters): their static
     half through the content-addressed cache (``packed.static_entry``; A's
     structure is built and checked there, once per entry) and their dynamic
@@ -513,11 +516,14 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     and margin bounds are used only when every lane has them. ``convergence`` (one
     lane) turns on the round log and the root round's LP trace.
     ``row_mesh`` (one sweep on the PDHG engine) row-partitions every LP
-    relaxation over its shards; ``node_mesh`` marks a sweep whose rounds
-    K10 runs (the host loop). The route (``device_loop.loop_route``): a
-    sweep on either engine takes the graph route, whose plan owns the blob
-    (on the PDHG with K5's route in its signature); ``_host_loop`` (the
-    card's comparison) forces the host loop."""
+    relaxation over its shards (K6b, its row blocks made once per static
+    entry); ``node_mesh`` (a Mesh, one sweep) splits every round's rows
+    over its shards (K10), the root round widened to ``root_beam`` rows.
+    The route (``device_loop.loop_route``): a sweep on either engine, on a
+    row or node mesh of the search's card too, takes the graph route, whose
+    plan owns the blob (on the PDHG with K5's route in its signature, on a
+    mesh with its shards); a mesh over distinct cards keeps the host loop;
+    ``_host_loop`` (the card's comparison) forces the host loop."""
     t1 = time.perf_counter()
     L = len(lanes)
     sf0 = lanes[0].sf
@@ -531,7 +537,7 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         A_src = A_lanes if A_lanes is not None else np.stack([ln.host["A"] for ln in lanes])
     entry, _ = packed.static_entry(key, A_src, M, moe, dev)
     engine = params["lp_backend"]
-    per_element = moe or entry.A.dim() == 3 and entry.A.shape[0] > 1
+    per_element = entry.per_element
     on_mesh = row_mesh is not None and row_mesh.size > 1
     # The PDHG reads A as values on its structure, except one shared A on a
     # row mesh, which K6b takes dense.
@@ -552,23 +558,31 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         has_margin = (decomp_steps == DECOMP_STEPS_WARM
                       and all(ln.margin_np is not None for ln in lanes))
         moe_ctx = (max(W for _, W in lanes[0].feasible), lanes[0].E, decomp_steps)
-    route, why = loop_route(moe, engine, row_mesh, convergence is not None)
-    if node_mesh:
-        route, why = "host", "node_mesh"
-    elif route == "graph" and (_host_loop or forced_host_loop()):
+    route, why = loop_route(moe, engine, row_mesh, convergence is not None, node_mesh, dev)
+    if route == "graph" and (_host_loop or forced_host_loop()):
         route, why = "host", "host_loop_asked"
     note_route(route, why, L)
+    lp_dt = resolve_pdhg_dtype(params["pdhg_dtype"]) or torch.float32
     plan = pinned = None
     if route == "graph":
         want_my = moe and not has_margin and any(ln.margin_ctx is not None for ln in lanes)
         # On the PDHG, K5's route from the entry's structure before the plan
-        # is taken: it is part of the plan's signature.
-        pdhg = None if engine != "pdhg" else pdhg_plan(
-            entry, dev, params["pdhg_dtype"], params["pdhg_restart_tol"])
+        # is taken: it is part of the plan's signature (a row mesh's LP is
+        # K6b's, whose group size and row blocks are).
+        pdhg = mesh = None
+        if on_mesh:
+            mesh = row_mesh_plan(entry, dev, row_mesh.size, lp_dt == torch.float64)
+            rt = params["pdhg_restart_tol"]
+            pdhg = (lp_dt == torch.float64, DEFAULT_RESTART_TOL if rt is None else float(rt),
+                    "", 0, 0, 0)
+        elif engine == "pdhg":
+            pdhg = pdhg_plan(entry, dev, params["pdhg_dtype"], params["pdhg_restart_tol"])
+        if node_mesh is not None:
+            mesh = ("node", node_mesh.size, n_k if root_beam is None else root_beam)
         plan = acquire_plan(plan_sig(
             dev, L, params["cap"], n_k, params["beam"], m, nf, M, per_k, params["ipm_iters"],
             params["ipm_warm_iters"], use_root_warm, mip_gap, params["max_rounds"], has_warm,
-            use_root_warm, entry, moe_ctx, duals is not None, has_margin, want_my, pdhg))
+            use_root_warm, entry, moe_ctx, duals is not None, has_margin, want_my, pdhg, mesh))
         plan.stage(lanes)
         views = plan.views
     else:
@@ -584,8 +598,11 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
             A_sparsity = entry.sparsity
         if pdhg_values:
             A_values, gky_pos = entry.pdhg_values()
-            if on_mesh:
-                A_shards = row_blocks(A_sparsity, row_mesh.size)
+        if on_mesh:
+            # K6b's row blocks, kept on the static entry: a per-element A's
+            # structure by block, or the shared A's dense blocks and their
+            # transposes in the iterate dtype.
+            A_shards = entry.mesh_blocks(row_mesh.size, None if per_element else lp_dt)
         data = SweepData(
             A=entry.A, b_k=views["b_k"], c_k=views["c_k"], int_mask=views["int_mask"],
             ks=views["ks"], Ws=views["Ws"], obj_const=views["obj_const"],
@@ -607,6 +624,8 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         pdhg_dtype=params["pdhg_dtype"], per_k=per_k,
         collect_rounds=convergence is not None, row_mesh=row_mesh,
     )
+    if node_mesh is not None and plan is None:
+        loop_kw.update(node_mesh=node_mesh_of(node_mesh, data), root_beam=root_beam)
     stats = {"upload_ms": (time.perf_counter() - t1) * 1e3}
     return _Prepared(lanes=lanes, mip_gap=mip_gap, debug=debug, per_k=per_k,
                      timings=timings, data=data, loop_kw=loop_kw, moe_ctx=moe_ctx, warm=warm,

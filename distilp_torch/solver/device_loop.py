@@ -19,19 +19,34 @@ row's per-node A), the LP engine on the plan's buffers (K1, or K5 on the
 route the signature fixed, then for ``pdhg_dtype='f64'`` the cast of its
 result to the search's float32), (MoE) K2 MoE's LP rows, the round tail
 into the other state buffer, and the loop's control, which sets the WHILE
-node's condition from the device. A solve is then one upload of the
-dynamic blob (``packed``), one graph launch and one read of the answer. On
-CPU tensors the same plan runs the plain versions (``search.root_state``/
-``seed_root_bounds``/``seed_warm``, ``search.round_inputs``, the head's MoE
-mode, K1's or K5's, K2 MoE's and the round tail's plain versions,
-:func:`control_reference`, :func:`answer_reference`), a Python ``while``
-standing in for the conditional node.
+node's condition from the device. The meshes of one card have round shapes
+of their own:
+
+    row mesh   head (its mesh mode: b and the warm y into the S row blocks,
+               a MoE row's values into its blocks) -> K6b's fused launch a
+               slice of BMAX rows -> the gather of the dual blocks -> (f64)
+               the cast -> (MoE) K2 MoE -> the round tail -> control
+    node mesh  head -> for each shard s, its L*B/S rows: K1 or K5 at that
+               row offset -> (f64) the cast -> for each shard, K2's dense
+               entry or MoE mode on its rows -> the round tail (rows
+               pre-rounded) -> control
+
+(``search._node_sharded``'s shard-by-shard batches, so both routes agree
+bit for bit). A solve is then one upload of the dynamic blob (``packed``),
+one graph launch and one read of the answer. On CPU tensors the same plan
+runs the plain versions (``search.root_state``/``seed_root_bounds``/
+``seed_warm``, ``search.round_inputs``, the head's MoE and mesh modes, K1's,
+K5's or ``ops.meshlp.sharded_pdhg_reference``, the gather's, K2's and the
+round tail's plain versions, :func:`control_reference`,
+:func:`answer_reference`), a Python ``while`` standing in for the
+conditional node.
 
 The route is chosen by the configuration (:func:`loop_route`): the graph
 for dense and MoE sweeps on either engine, whatever the lanes (one A or an
-A each), per-k or not, and on the PDHG whatever its dtype and K5's route;
-the row mesh, the node mesh and the convergence log keep
-``search.run_bnb_loop``, the host loop.
+A each), per-k or not, on the PDHG whatever its dtype and K5's route, and
+on a row or node mesh whose shards all lie on the search's card; a mesh
+over distinct cards and the convergence log keep ``search.run_bnb_loop``,
+the host loop.
 ``kernels.SHAPES["bnb_graph"]`` counts the route of every search. A failed
 capture, instantiation or launch raises: nothing falls back to the host
 loop, which stays only as the private :func:`host_loop` for the card's
@@ -66,6 +81,7 @@ from ..ops.ipm import (
     ipm_workspace,
 )
 from ..ops.decomp import RD_DEV_FIELDS, DecompBatch
+from ..ops import meshlp as _meshlp
 from ..ops import pdhg as _pdhg
 from ..ops.pdhg import (
     DEFAULT_RESTART_TOL,
@@ -135,16 +151,42 @@ def forced_host_loop() -> bool:
     return getattr(_PRIVATE, "host", False)
 
 
-def loop_route(moe: bool, engine: str, row_mesh, collect_rounds: bool) -> Tuple[str, str]:
+def loop_route(moe: bool, engine: str, row_mesh, collect_rounds: bool, node_mesh=None,
+               device=None) -> Tuple[str, str]:
     """("graph" | "host", why) of a search's configuration: the graph for
-    dense and MoE sweeps on the IPM and the PDHG engine; the row mesh and
-    the convergence log keep the host loop (the node mesh is decided by
-    ``backend_torch._prepare``)."""
-    if row_mesh is not None and row_mesh.size > 1:
-        return "host", "row_mesh"
+    dense and MoE sweeps on the IPM and the PDHG engine, and for a row mesh
+    (``row_mesh``, more than one shard; the PDHG's) or a node mesh
+    (``node_mesh``) whose shards all lie on the search's ``device``; a mesh
+    over distinct cards (until a transport joins their graphs) and the
+    convergence log keep the host loop."""
     if collect_rounds:
         return "host", "convergence"
+    moe_ = "moe_" if moe else ""
+    # A row mesh partitions the PDHG's rows (the IPM engine refuses one).
+    if row_mesh is not None and row_mesh.size > 1 and engine == "pdhg":
+        if not _one_card(row_mesh, device):
+            return "host", "row_mesh_cards"
+        return "graph", f"{moe_}row_mesh_{engine}"
+    if node_mesh is not None:
+        if not _one_card(node_mesh, device):
+            return "host", "node_mesh_cards"
+        return "graph", f"{moe_}node_mesh_{engine}"
     return "graph", f"{'moe' if moe else 'dense'}_{engine}"
+
+
+def _one_card(mesh, device) -> bool:
+    """Every shard of ``mesh`` on the search's device (a virtual mesh of one
+    card, or of the CPU)."""
+    dev = torch.device(mesh.devices[0] if device is None else device)
+
+    def index(d):
+        d = torch.device(d)
+        if d.type != "cuda" or d.index is not None:
+            return d.index
+        return torch.cuda.current_device()
+
+    return all(torch.device(d).type == dev.type and index(d) == index(dev)
+               for d in mesh.devices)
 
 
 def note_route(route: str, why: str, L: int) -> None:
@@ -202,16 +244,28 @@ class PlanSig(NamedTuple):
     C: int = 0
     smem: int = 0
     buf_len: int = 0
+    # A mesh of one card: "row" (K6b: A's rows over S shards, ms padded rows
+    # a shard, Gs of the card's blocks a shard's group in a fused launch (0
+    # on the CPU), and for a per-element A each row block's nonzeros and
+    # structure length) or "node" (K10: each round's rows over S shards;
+    # the root round's rows B0 padded to a multiple of S).
+    mesh: str = ""
+    S: int = 0
+    ms: int = 0
+    Gs: int = 0
+    blk_nnz: tuple = ()
+    blk_index: tuple = ()
 
 
 # The compile ledger's view of a signature: a capture with a new value of
 # one of these fields is a static-argument flip (the engine and K5's route,
 # the iteration budgets, the per-k mode, the optional warm inputs, the MoE
-# seed's mode); with new values of the others only, a shape-bucket change.
+# seed's mode, the mesh and its shards); with new values of the others
+# only, a shape-bucket change.
 _STATIC_FIELDS = ("device", "per_k", "ipm_iters", "root_chunk", "warm_iters", "mip_gap",
                   "max_rounds", "has_warm", "has_root_warm", "a_lanes", "moe", "decomp_steps",
                   "has_duals", "has_margin", "want_my", "engine", "lp_f64", "restart_tol",
-                  "route", "C", "smem", "buf_len")
+                  "route", "C", "smem", "buf_len", "mesh", "S", "Gs")
 _SHAPE_FIELDS = tuple(f for f in PlanSig._fields if f not in _STATIC_FIELDS)
 
 
@@ -225,15 +279,25 @@ def ledger_signatures(sig: PlanSig) -> Tuple[str, str]:
 def plan_sig(dev, L, cap, n_k, beam, m, nf, M, per_k, ipm_iters, ipm_warm_iters,
              root_warm_chunk, mip_gap, max_rounds, has_warm, has_root_warm, entry,
              moe_ctx=None, has_duals=False, has_margin=False, want_my=False,
-             pdhg=None) -> PlanSig:
+             pdhg=None, mesh=None) -> PlanSig:
     """The signature of a sweep's plan; ``moe_ctx`` = (w_max, e_max,
     decomp_steps) of a MoE sweep; ``pdhg`` = (lp_f64, restart_tol, route, C,
     smem, buf_len) of a sweep on the PDHG engine (:func:`pdhg_plan`), whose
-    rounds all take K5's own chunk."""
+    rounds all take K5's own chunk; ``mesh`` the mesh part
+    (:func:`row_mesh_plan`, or ``("node", S, root_beam)``)."""
     sp = entry.sparsity
     extra = {}
+    B0 = min(cap, n_k)
+    if mesh is not None and mesh[0] == "row":
+        _, S, ms, Gs, blk_nnz, blk_index = mesh
+        extra.update(mesh="row", S=int(S), ms=int(ms), Gs=int(Gs), blk_nnz=tuple(blk_nnz),
+                     blk_index=tuple(blk_index))
+    elif mesh is not None:
+        _, S, root_beam = mesh
+        extra.update(mesh="node", S=int(S))
+        B0 = min(cap, max(n_k, int(root_beam)))
     if moe_ctx is not None:
-        extra = dict(moe=True, w_max=int(moe_ctx[0]), e_max=int(moe_ctx[1]),
+        extra.update(moe=True, w_max=int(moe_ctx[0]), e_max=int(moe_ctx[1]),
                      decomp_steps=int(moe_ctx[2]), has_duals=bool(has_duals),
                      has_margin=bool(has_margin), want_my=bool(want_my))
     if pdhg is not None:
@@ -244,7 +308,7 @@ def plan_sig(dev, L, cap, n_k, beam, m, nf, M, per_k, ipm_iters, ipm_warm_iters,
     else:
         root_chunk = IPM_DEFAULT_CHUNK if root_warm_chunk else int(ipm_iters)
     return PlanSig(
-        device=str(torch.device(dev)), L=L, cap=cap, B0=min(cap, n_k),
+        device=str(torch.device(dev)), L=L, cap=cap, B0=B0,
         Bw=cap if beam is None else min(beam, cap), m=m, nf=nf, M=M, n_k=n_k, per_k=bool(per_k),
         ipm_iters=int(ipm_iters), root_chunk=root_chunk,
         warm_iters=int(ipm_iters if ipm_warm_iters is None else ipm_warm_iters),
@@ -269,6 +333,24 @@ def pdhg_plan(entry, dev, pdhg_dtype, restart_tol) -> tuple:
     if cplan is None:
         return f64, rt, route, 0, 0, 0
     return f64, rt, route, C, cplan.smem, int(cplan.buf.numel())
+
+
+def row_mesh_plan(entry, dev, S: int, lp_f64: bool) -> tuple:
+    """The ``mesh`` part of a row-mesh sweep's :func:`plan_sig`: S, the
+    padded rows a shard, a shard's group of the card's blocks in K6b's
+    fused launch (0 on the CPU: no kernel), and for a per-element A (MoE
+    nodes) each row block's nonzeros and structure length (the entry's
+    ``mesh_blocks``)."""
+    dev = torch.device(dev)
+    elem = entry.per_element
+    ms = _meshlp.pad_rows_to(entry.sparsity.m, S) // S
+    Gs = _meshlp.fused_group(dev, S, lp_f64, elem) if dev.type == "cuda" else 0
+    nnz = index = ()
+    if elem:
+        rb = entry.mesh_blocks(S)
+        nnz = tuple(sp.nnz for sp in rb.sparsity)
+        index = tuple(int(sp.index.numel()) for sp in rb.sparsity)
+    return "row", S, ms, Gs, nnz, index
 
 
 # Graph captures by signature (a plan captures its graph once), and plans
@@ -329,18 +411,25 @@ class LoopPlan:
         self.pdhg = sig.engine == "pdhg"
         self.lp_dtype = f64 if sig.lp_f64 else f32
         self.per_node = sig.a_lanes or sig.moe
+        # A row mesh's A is K6b's row blocks (the head writes a MoE row's
+        # values into them), not K5's values.
+        self.row_mesh, self.node_mesh = sig.mesh == "row", sig.mesh == "node"
+        if self.row_mesh and sig.L != 1:
+            raise ValueError(f"a row-mesh plan solves one sweep (L={sig.L})")
         self.index = torch.empty(sig.index_len, dtype=torch.int32, device=dev)
-        self.A_rows = self.A = None
+        self.A_rows = self.A = self.val_rows = self.vals = None
         if self.per_node:
             if not self.pdhg:
                 self.A_rows = [torch.empty((L * B, m, nf), dtype=f32, device=dev)
                                for B in (B0, Bw)]
-            self.val_rows = [torch.empty((L * B, sig.nnz), dtype=self.lp_dtype, device=dev)
-                             for B in (B0, Bw)]
+            if not self.row_mesh:
+                self.val_rows = [torch.empty((L * B, sig.nnz), dtype=self.lp_dtype,
+                                             device=dev) for B in (B0, Bw)]
         else:
             if not self.pdhg:
                 self.A = torch.empty((m, nf), dtype=f32, device=dev)
-            self.vals = torch.empty(sig.nnz, dtype=self.lp_dtype, device=dev)
+            if not self.row_mesh:
+                self.vals = torch.empty(sig.nnz, dtype=self.lp_dtype, device=dev)
         self.loaded = None
         # Two state buffers in the round tail's layout, its workspace after.
         views, offsets, end = tail_layout(L, cap, nf, m, M, n_k, sig.per_k)
@@ -394,6 +483,8 @@ class LoopPlan:
         self.ws = self.vec_ws = None
         if self.pdhg:
             self._k5_buffers(R)
+            if self.row_mesh:
+                self._k6b_buffers(R)
         elif cuda:
             need = [ipm_workspace(L * B, m, nf, f32, dev)[1:] for B in (B0, Bw)]
             vec, fac = max(v for v, _ in need), max(f for _, f in need)
@@ -404,6 +495,19 @@ class LoopPlan:
         self.ctl = torch.zeros(2, dtype=torch.int32, device=dev)
         if sig.moe:
             self._moe_buffers(R)
+        elif self.node_mesh:
+            # K2's dense entry a shard: each row's W, k and lane in, its
+            # (obj, w, n) out.
+            e = dict(dtype=f64, device=dev)
+            self.Wr, self.kr = torch.zeros(R, **e), torch.zeros(R, **e)
+            self.lp_out = (torch.zeros(R, **e), torch.zeros((R, M), **e),
+                           torch.zeros((R, M), **e))
+            self.inst_rows = [_lanes_of(L, B, dev).to(torch.int32) for B in (B0, Bw)]
+            if cuda:
+                from ..kernels.build import library
+
+                with _on_device(dev):
+                    kernels.check(library("round").dtk_round_prepare(M), "round prepare")
         self.alay = packed.AnswerLayout(
             M, n_k, m, nf, sig.moe, sig.per_k,
             (n_k, M, sig.e_max + 1) if sig.want_my else ())
@@ -432,6 +536,10 @@ class LoopPlan:
                 if f in ("v", "obj", "rp_norm", "rd_norm", "mu", "y_dual", "z_dual", "f_dual")
                 else t for f, t in zip(IPMResult._fields, r))) for r in self.res]
         self.k5_rows = []
+        self.k5_buf = self.k5_ws = None
+        self.k5_ws_sizes, self.k5_G = [(), ()], 0
+        if self.row_mesh:
+            return
         for i, B in enumerate((sig.B0, sig.Bw)):
             n = L * B
             lp = self.lp_in64 if sig.lp_f64 else self.lp_in
@@ -440,19 +548,81 @@ class LoopPlan:
                 vals=vals, **{k: lp[k][:n] for k in ("b", "c", "l", "u", "wv", "wy")},
                 wok=self.lp_in["wok"][:n], skip=self.lp_in["skip"][:n],
                 out=(self.res64 if sig.lp_f64 else self.res)[i]))
-        self.k5_buf = self.k5_ws = None
-        self.k5_ws_sizes, self.k5_G = [(), ()], 0
         if dev.type != "cuda":
             return
         if sig.route == "cluster":
             _pdhg._cluster_max(dev, sig.lp_f64)  # prepares the kernel on this card
             self.k5_buf = torch.empty(sig.buf_len, dtype=torch.int32, device=dev)
         else:
-            self.k5_ws_sizes = [_pdhg.route_ws_sizes("grid", L * B, m, nf, sig.lp_f64)
-                                for B in (sig.B0, sig.Bw)]
+            # A node mesh's launch is one shard's rows.
+            self.k5_ws_sizes = [_pdhg.route_ws_sizes("grid", self._launch_rows(B), m, nf,
+                                                     sig.lp_f64) for B in (sig.B0, sig.Bw)]
             self.k5_ws = torch.empty(max(sum(z) for z in self.k5_ws_sizes), dtype=torch.uint8,
                                      device=dev)
             self.k5_G = _pdhg._grid_blocks(dev, sig.lp_f64)
+
+    def _launch_rows(self, B: int) -> int:
+        """The rows of one LP launch of a round of ``B`` rows a lane: all of
+        them, or on a node mesh one shard's."""
+        R = self.sig.L * B
+        if not self.node_mesh:
+            return R
+        if R % self.sig.S:
+            raise ValueError(f"{R} rows do not split over {self.sig.S} shards")
+        return R // self.sig.S
+
+    def _k6b_buffers(self, R: int) -> None:
+        """A row mesh's buffers: the S row blocks of b, of the warm y and of
+        K6b's dual (the head and K6b write them, the gather reads the
+        last), A's blocks (a shared A's dense blocks and transposes, or a
+        per-element A's block structures and every row's values on them,
+        with the places of the 2M expert-busy entries), and on the card
+        each shard's workspace, parts and done flags and the replicated
+        outputs of shards 1..S-1, fixed here for slices of up to BMAX rows.
+        Every one of these that K6b reads it writes first in the same
+        launch (``pdhg_sharded_kernel.cu``), so none is zeroed per round."""
+        sig, dev = self.sig, self.dev
+        S, ms, nf, dt = sig.S, sig.ms, sig.nf, self.lp_dtype
+        self.b_blk, self.wy_blk, self.y_blk = (torch.zeros((S, R, ms), dtype=dt, device=dev)
+                                               for _ in range(3))
+        self.elem = bool(sig.blk_nnz)
+        self.A_blk = self.At_blk = self.blk_vals = self.blk_index = None
+        self.blk_sparsity = self.gky_mesh = None
+        if self.elem:
+            self.blk_off = [R * sum(sig.blk_nnz[:s]) for s in range(S)]
+            self.blk_vals = torch.empty(R * sum(sig.blk_nnz), dtype=dt, device=dev)
+            self.blk_index = [torch.empty(n, dtype=torch.int32, device=dev)
+                              for n in sig.blk_index]
+            self.gky_mesh = torch.zeros((2, 2 * sig.M), dtype=torch.int64, device=dev)
+        else:
+            self.A_blk = [torch.empty((ms, nf), dtype=dt, device=dev) for _ in range(S)]
+            self.At_blk = [torch.empty((nf, ms), dtype=dt, device=dev) for _ in range(S)]
+        self.k6b = None
+        if dev.type != "cuda":
+            return
+        from ..kernels.build import library
+
+        BM = _pdhg.BMAX
+        ws = int(library("pdhg_sharded").dtk_pdhgs_ws_bytes(BM, ms, nf, sig.Gs,
+                                                             int(sig.lp_f64)))
+        kw, k64 = dict(dtype=dt, device=dev), dict(dtype=BDTYPE, device=dev)
+        self.k6b = []
+        for s in range(S):
+            sh = dict(ws=torch.empty(ws, dtype=torch.uint8, device=dev),
+                      part=torch.empty((BM, nf), **kw), part64=torch.empty((BM, nf), **k64),
+                      sq=torch.empty((BM, _meshlp.N_SQ), **kw), srp=torch.empty(BM, **kw),
+                      sby=torch.empty(BM, **kw), s64=torch.empty(BM, **k64),
+                      done=torch.empty(BM, dtype=torch.int32, device=dev))
+            if s:
+                sh["out"] = IPMResult(
+                    v=torch.empty((BM, nf), **kw), bound=torch.empty(BM, **k64),
+                    obj=torch.empty(BM, **kw), rp_norm=torch.empty(BM, **kw),
+                    rd_norm=torch.empty(BM, **kw), mu=torch.empty(BM, **kw),
+                    converged=torch.empty(BM, dtype=torch.bool, device=dev),
+                    reduced=torch.empty((BM, nf), **k64), y_dual=None,
+                    z_dual=torch.empty((BM, nf), **kw), f_dual=torch.empty((BM, nf), **kw),
+                    iters_run=torch.empty(BM, dtype=torch.int32, device=dev))
+            self.k6b.append(sh)
 
     def _moe_buffers(self, R: int) -> None:
         """The MoE seed's and rounds' buffers: K7's problem in both dtypes,
@@ -553,14 +723,18 @@ class LoopPlan:
 
     def data(self, entry) -> SweepData:
         """The sweep's data as views of the plan's blob and the entry (on
-        the PDHG with K5's values on its structure)."""
+        the PDHG with K5's values on its structure, on a row mesh with the
+        entry's row blocks)."""
         v = self.views
         values, gky_pos = entry.pdhg_values() if self.pdhg else (None, None)
+        shards = None
+        if self.row_mesh:
+            shards = entry.mesh_blocks(self.sig.S, None if self.elem else self.lp_dtype)
         return SweepData(
             A=entry.A, b_k=v["b_k"], c_k=v["c_k"], int_mask=v["int_mask"], ks=v["ks"],
             Ws=v["Ws"], obj_const=v["obj_const"], rd=self.rd_views,
             rd_packed=v["rd"], gky=v.get("gky"), A_sparsity=entry.sparsity,
-            A_values=values, gky_pos=gky_pos,
+            A_values=values, gky_pos=gky_pos, A_shards=shards,
             A_k1_values=None if self.per_node or self.pdhg else entry.values, A_checked=True,
         )
 
@@ -573,7 +747,9 @@ class LoopPlan:
         if self.loaded is entry:
             return
         self.index.copy_(entry.sparsity.index)
-        if self.pdhg:
+        if self.row_mesh:
+            self._load_k6b(entry)
+        elif self.pdhg:
             self._load_k5(entry)
         elif self.per_node:
             for i, B in enumerate((self.sig.B0, self.sig.Bw)):
@@ -611,6 +787,49 @@ class LoopPlan:
                 raise ValueError("the entry's cluster plan does not fit the plan's signature")
             _pdhg.check_cluster_layout(cplan, sig.m, sig.nf, sig.lp_f64)
             self.k5_buf.copy_(cplan.buf)
+
+    def _load_k6b(self, entry) -> None:
+        """A row mesh's A from the entry's row blocks (``mesh_blocks``, made
+        once an entry): a shared A's dense blocks and transposes; or each
+        block's structure, every row's base values on it (the head writes a
+        row's expert-busy entries over them every round) and those entries'
+        places in the blocks' values."""
+        sig, S = self.sig, self.sig.S
+        if not self.elem:
+            blocks = entry.mesh_blocks(S, self.lp_dtype)
+            for s in range(S):
+                self.A_blk[s].copy_(blocks.A[s])
+                self.At_blk[s].copy_(blocks.At[s])
+            return
+        rb = entry.mesh_blocks(S)
+        values, gky_pos = entry.pdhg_values()
+        if values.shape[0] != 1:
+            raise ValueError("a row-mesh plan takes one A for every row")
+        base = values[0].to(self.lp_dtype)
+        R = self.b_blk.shape[1]
+        nnz = list(sig.blk_nnz)
+        blk_of = torch.empty(base.shape[0], dtype=torch.int64, device=self.dev)
+        pos_in = torch.empty_like(blk_of)
+        for s, (sp, take) in enumerate(zip(rb.sparsity, rb.take)):
+            if sp.nnz != nnz[s] or int(sp.index.numel()) != sig.blk_index[s]:
+                raise ValueError("the entry's row blocks do not fit the plan's signature")
+            self.blk_index[s].copy_(sp.index)
+            self._blk_vals(s).copy_(base[take].expand(R, -1))
+            blk_of[take] = s
+            pos_in[take] = torch.arange(sp.nnz, device=self.dev)
+        if sig.moe:
+            g = gky_pos.reshape(-1)
+            sj = blk_of[g]
+            off = torch.tensor(self.blk_off, dtype=torch.int64, device=self.dev)
+            stride = torch.tensor(nnz, dtype=torch.int64, device=self.dev)
+            self.gky_mesh.copy_(torch.stack([off[sj] + pos_in[g], stride[sj]]))
+        self.blk_sparsity = rb.sparsity
+
+    def _blk_vals(self, s: int) -> torch.Tensor:
+        """Block s's values, one row a round's row (R, nnz_s)."""
+        n = self.sig.blk_nnz[s]
+        R = self.b_blk.shape[1]
+        return self.blk_vals[self.blk_off[s]:self.blk_off[s] + R * n].view(R, n)
 
     def _lp_A(self, i: int) -> torch.Tensor:
         return self.A_rows[i] if self.per_node else self.A
@@ -707,13 +926,14 @@ class LoopPlan:
         b, c, the box and the warm v and y in K5's iterate dtype, the warm
         flag cleared where a component of the row's warm v, y, z or f is
         not finite (the K5 wrapper's test); a MoE row's values and its W
-        and k are written by :meth:`head_moe_reference`."""
+        and k are written by :meth:`head_moe_reference` (on a row mesh by
+        :meth:`head_mesh_reference`)."""
         B = (self.sig.B0, self.sig.Bw)[which]
         ins = round_inputs(data, state, B, self.frozen)
         w, dt = ins.warm, self.lp_dtype
         fin = (w.ok.to(torch.bool) & torch.isfinite(w.v).all(1) & torch.isfinite(w.y).all(1)
                & torch.isfinite(w.z).all(1) & torch.isfinite(w.f).all(1))
-        if self.sig.moe:
+        if self.sig.moe and not self.row_mesh:
             self.head_moe_reference(data, state, which)
         return dict(b=ins.b.to(dt), c=ins.c.to(dt), l=ins.lo.to(dt), u=ins.hi.to(dt),
                     wv=w.v.to(dt), wy=w.y.to(dt), wz=w.z, wf=w.f, wok=fin, skip=ins.skip)
@@ -723,38 +943,129 @@ class LoopPlan:
         B = (sig.B0, sig.Bw)[which]
         state = self.states[src]
         ins = round_inputs(data, state, B, self.frozen)
-        if sig.moe:
-            self.head_moe_reference(data, state, which)
-        if self.pdhg:
-            res = self.k5_reference(data, ins, which)
+        rounded = None
+        if self.row_mesh:
+            res = self.k6b_reference(data, state, which)
+        elif self.node_mesh:
+            res, rounded = self.node_reference(data, state, ins, which)
         else:
-            iters, chunk = ((sig.ipm_iters, sig.root_chunk),
-                            (sig.warm_iters, IPM_DEFAULT_CHUNK))[which]
-            res = ipm_solve_batch(
-                LPBatch(A=self._lp_A(which), b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
-                iters=iters, warm=ins.warm, skip=ins.skip, chunk=chunk,
-                sparsity=data.A_sparsity, _checked=True,
-            )
+            if sig.moe:
+                self.head_moe_reference(data, state, which)
+            res = self._lp_plain(data, ins, which, slice(None))
         keep = self.res[which]
         for f in _RES_FIELDS:
             getattr(keep, f).copy_(getattr(res, f))
-        rounded = round_rows(data, keep, ins.kidx, ins.lane) if sig.moe else None
+        if sig.moe and rounded is None:
+            rounded = round_rows(data, keep, ins.kidx, ins.lane)
         out, go = round_tail(data, state, keep, sig.mip_gap, B, rounded, self.frozen, sig.per_k)
         _copy_state(self.states[dst], out)
         self.gos[dst].copy_(go)
 
-    def k5_reference(self, data: SweepData, ins, which: int) -> IPMResult:
+    def _lp_plain(self, data: SweepData, ins, which: int, rows: slice) -> IPMResult:
+        """K1's or K5's plain version on ``ins`` (the round's ``rows``)."""
+        if self.pdhg:
+            return self.k5_reference(data, ins, which, rows)
+        sig = self.sig
+        iters, chunk = ((sig.ipm_iters, sig.root_chunk),
+                        (sig.warm_iters, IPM_DEFAULT_CHUNK))[which]
+        A = self._lp_A(which)
+        return ipm_solve_batch(
+            LPBatch(A=A if A.dim() == 2 else A[rows], b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
+            iters=iters, warm=ins.warm, skip=ins.skip, chunk=chunk,
+            sparsity=data.A_sparsity, _checked=True,
+        )
+
+    def k5_reference(self, data: SweepData, ins, which: int, rows: slice = slice(None)
+                     ) -> IPMResult:
         """Plain version of a PDHG round's LP (K5, then in float64 mode the
-        cast): the round's rows through ``search.pdhg_solve_batch`` on the
-        plan's values, as ``search.lp_solve`` solves them, cast to the
+        cast): the round's ``rows`` through ``search.pdhg_solve_batch`` on
+        the plan's values, as ``search.lp_solve`` solves them, cast to the
         search's float32."""
         sig = self.sig
-        vals = self.k5_rows[which]["vals"]
+        vals = self.k5_rows[which]["vals"][rows]
         res = _search.pdhg_solve_batch(
             LPBatch(A=ElemA(vals, data.A_sparsity), b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
             iters=(sig.ipm_iters, sig.warm_iters)[which], restart_tol=sig.restart_tol,
             warm=ins.warm, skip=ins.skip, dtype="f64" if sig.lp_f64 else "f32")
         return cast_lp_result(res, DTYPE)
+
+    def node_reference(self, data: SweepData, state: SearchState, ins, which: int):
+        """Plain version of a node-mesh round's LP and rounding
+        (``search._node_sharded`` on one device): the head's W and k (and a
+        MoE row's values), then each shard's rows in order through the LP
+        engine and K2 (its MoE mode for MoE rows). Returns ``(res,
+        rounded)``, every row's."""
+        sig = self.sig
+        B = (sig.B0, sig.Bw)[which]
+        per = self._launch_rows(B)
+        if sig.moe:
+            self.head_moe_reference(data, state, which)
+        else:
+            self.Wr[:sig.L * B] = data.Ws[ins.lane, ins.kidx]
+            self.kr[:sig.L * B] = data.ks[ins.lane, ins.kidx]
+        parts, rounded = [], []
+        for s in range(sig.S):
+            rows = slice(s * per, (s + 1) * per)
+            part = _ins_rows(ins, rows)
+            res = self._lp_plain(data, part, which, rows)
+            parts.append(res)
+            rounded.append(round_rows(data, res, part.kidx, part.lane))
+        res = IPMResult(*(None if parts[0][f] is None else torch.cat([p[f] for p in parts])
+                          for f in range(len(IPMResult._fields))))
+        return res, tuple(torch.cat([r[i] for r in rounded]) for i in range(len(rounded[0])))
+
+    def head_mesh_reference(self, data: SweepData, state: SearchState, which: int) -> dict:
+        """Plain version of the head's row-mesh mode: the LP's b and warm y
+        into the plan's S row blocks (zero-padded rows, in the iterate
+        dtype), a MoE row's expert-busy entries into its blocks' values and
+        its W and k; returns the rest of the head's rows (c, l, u, warm v in
+        the iterate dtype, the warm verdict on the full arrays, skip)."""
+        sig = self.sig
+        B = (sig.B0, sig.Bw)[which]
+        R, S, ms = sig.L * B, sig.S, sig.ms
+        hd = self.head_pdhg_reference(data, state, which)
+        pad = S * ms - sig.m
+        b = torch.nn.functional.pad(hd.pop("b"), (0, pad))
+        wy = torch.nn.functional.pad(hd.pop("wy"), (0, pad))
+        for s in range(S):
+            self.b_blk[s, :R] = b[:, s * ms:(s + 1) * ms]
+            self.wy_blk[s, :R] = wy[:, s * ms:(s + 1) * ms]
+        if sig.moe:
+            kidx = state.node_kidx[:, :B].reshape(R).long()
+            lane = _lanes_of(sig.L, B, self.dev)
+            g = data.gky[lane, kidx].reshape(R, 2 * sig.M)
+            off, stride = self.gky_mesh
+            at = off[None, :] + torch.arange(R, device=self.dev)[:, None] * stride[None, :]
+            self.blk_vals[at.reshape(-1)] = g.reshape(-1).to(self.lp_dtype)
+            self.Wr[:R] = data.Ws[lane, kidx]
+            self.kr[:R] = data.ks[lane, kidx]
+        del hd["wz"], hd["wf"]
+        return hd
+
+    def k6b_reference(self, data: SweepData, state: SearchState, which: int) -> IPMResult:
+        """Plain version of a row-mesh round's LP: the head's mesh mode, the
+        row-sharded PDHG's plain version (``ops.meshlp.
+        sharded_pdhg_reference``) on the plan's blocks, its dual blocks
+        into the plan's and back in full coordinates (the gather's plain
+        version), cast to the search's float32: what ``search.lp_solve``
+        computes through ``sharded_pdhg`` on the round's rows."""
+        sig = self.sig
+        B = (sig.B0, sig.Bw)[which]
+        R, S, ms = sig.L * B, sig.S, sig.ms
+        hd = self.head_mesh_reference(data, state, which)
+        if self.elem:
+            A_b = [ElemA(self._blk_vals(s)[:R], self.blk_sparsity[s]) for s in range(S)]
+        else:
+            A_b = list(self.A_blk)
+        res = _meshlp.sharded_pdhg_reference(
+            A_b, [self.b_blk[s, :R] for s in range(S)], hd["c"], hd["l"], hd["u"],
+            (sig.ipm_iters, sig.warm_iters)[which], _default_tol_pdhg(self.lp_dtype),
+            sig.restart_tol, wv=hd["wv"], wy=[self.wy_blk[s, :R] for s in range(S)],
+            wok=hd["wok"], skip=hd["skip"], chunk=PDHG_DEFAULT_CHUNK)
+        for s in range(S):
+            self.y_blk[s, :R] = res.y_dual[:, s * ms:(s + 1) * ms]
+        y = _meshlp.gather_rows_reference([self.y_blk[s, :R] for s in range(S)], sig.m)
+        return cast_lp_result(res._replace(y_dual=y), DTYPE)
 
     # ------------------------------------------------------- graph (card)
 
@@ -965,57 +1276,163 @@ class LoopPlan:
         kernels.check(err, "bnb_control")
 
     def _round(self, data: SweepData, sh, src: int, dst: int, which: int) -> None:
+        sig = self.sig
+        B = (sig.B0, sig.Bw)[which]
+        R = sig.L * B
         self._head(data, sh, src, which)
-        if self.pdhg:
-            self._k5(sh, which)
-            if self.sig.lp_f64:
-                self._cast(sh, which)
+        if self.row_mesh:
+            self._k6b(sh, which)
+            self._gather(sh, which)
+        elif self.node_mesh:
+            # K10: each shard's rows through the LP engine, then through K2,
+            # with the batches of search._node_sharded.
+            per = self._launch_rows(B)
+            for r0 in range(0, R, per):
+                self._lp(sh, which, r0, per)
         else:
-            self._k1(sh, which)
-        if self.sig.moe:
-            B = (self.sig.B0, self.sig.Bw)[which]
-            self._round_moe(sh, self.res[which].v, self.sig.nf, self.Wr, self.kr,
-                            self.inst_rows[which], self.sig.L * B, None, MOE_LOCAL_MOVES,
-                            self.lp_out)
+            self._lp(sh, which, 0, R)
+        if self.pdhg and sig.lp_f64:
+            self._cast(sh, which)
+        if self.node_mesh:
+            per = self._launch_rows(B)
+            for r0 in range(0, R, per):
+                self._k2(sh, which, r0, per)
+        elif sig.moe:
+            self._k2(sh, which, 0, R)
         self._tail(data, sh, src, dst, which)
+
+    def _lp(self, sh, which: int, r0: int, n: int) -> None:
+        if self.pdhg:
+            self._k5(sh, which, r0, n)
+        else:
+            self._k1(sh, which, r0, n)
+
+    def _k2(self, sh, which: int, r0: int, n: int) -> None:
+        """K2 on the LP points of rows ``r0 .. r0 + n``: its MoE mode, or its
+        dense entry (a node-mesh shard's dense rows)."""
+        from ..kernels.build import library
+
+        sig, rows = self.sig, slice(r0, r0 + n)
+        v, inst = self.res[which].v[rows], self.inst_rows[which][rows]
+        out = tuple(t[rows] for t in self.lp_out)
+        if sig.moe:
+            self._round_moe(sh, v, sig.nf, self.Wr[rows], self.kr[rows], inst, n, None,
+                            MOE_LOCAL_MOVES, out)
+            return
+        P = kernels.ptr
+        err = library("round").dtk_round_f32(
+            P(v), sig.nf, P(self.Wr[rows]), P(self.kr[rows]), P(self.views["rd"]), P(inst),
+            PACKED_ROWS * sig.M, sig.M, n, *[P(t) for t in out], sh)
+        kernels.check(err, "round_incumbent")
+
+    def _k6b(self, sh, which: int) -> None:
+        """K6b's fused route on the plan's buffers (``ops.meshlp.
+        k6b_launch``), one launch a slice of BMAX rows, as the wrapper
+        slices them: shard 0 writes the round's result, shards 1..S-1 their
+        replicas, every shard its dual block."""
+        sig = self.sig
+        B = (sig.B0, sig.Bw)[which]
+        R, S, nf, f64 = sig.L * B, sig.S, sig.nf, sig.lp_f64
+        lp = self.lp_in64 if f64 else self.lp_in
+        out0 = (self.res64 if f64 else self.res)[which]
+        chunk, n_chunks = chunking((sig.ipm_iters, sig.warm_iters)[which], PDHG_DEFAULT_CHUNK)
+        itemsize = self.b_blk.element_size()
+
+        def at(t, r):
+            return None if t is None else t[r:].data_ptr()
+
+        for e0 in range(0, R, _pdhg.BMAX):
+            Bs = min(_pdhg.BMAX, R - e0)
+            ptrs, ints = [], []
+            for s in range(S):
+                k = self.k6b[s]
+                if self.elem:
+                    nnz = sig.blk_nnz[s]
+                    a = self.blk_vals.data_ptr() + (self.blk_off[s] + e0 * nnz) * itemsize
+                    a_t = self.blk_index[s].data_ptr()
+                else:
+                    nnz, a, a_t = 0, self.A_blk[s].data_ptr(), self.At_blk[s].data_ptr()
+                o, r = (out0, e0) if s == 0 else (k["out"], 0)
+                ptrs.append([
+                    a, a_t, at(self.b_blk[s], e0), at(lp["c"], e0), at(lp["l"], e0),
+                    at(lp["u"], e0), at(lp["wv"], e0), at(self.wy_blk[s], e0),
+                    at(self.lp_in["wok"], e0), at(self.lp_in["skip"], e0), k["ws"].data_ptr(),
+                    k["part"].data_ptr(), None, k["part64"].data_ptr(), None,
+                    k["sq"].data_ptr(), None, k["srp"].data_ptr(), None, k["sby"].data_ptr(),
+                    None, k["s64"].data_ptr(), None, k["done"].data_ptr(),
+                    at(o.v, r), at(o.bound, r), at(o.obj, r), at(o.rp_norm, r),
+                    at(o.rd_norm, r), at(o.mu, r), at(o.converged, r), at(o.reduced, r),
+                    at(self.y_blk[s], e0), at(o.z_dual, r), at(o.f_dual, r),
+                    at(o.iters_run, r), None])
+                ints.append([Bs, sig.ms, nf, chunk, n_chunks, 0, sig.Gs, 0, nnz])
+            _meshlp.k6b_launch(self.elem, f64, ptrs, ints, [k["ws"].numel() for k in self.k6b],
+                               _default_tol_pdhg(self.lp_dtype), sig.restart_tol, True, sh)
+
+    def _gather(self, sh, which: int) -> None:
+        """The dual blocks into the round's result in full coordinates
+        (``bnb_gather_kernel``; before the float64 cast, which reads them)."""
+        from ..kernels.build import library
+
+        sig = self.sig
+        R = sig.L * (sig.B0, sig.Bw)[which]
+        y = (self.res64 if sig.lp_f64 else self.res)[which].y_dual
+        ptrs = self._keep_ptrs([_p(self.y_blk), _p(y)])
+        dims = self._keep_ptrs_int([R, sig.m, sig.S, sig.ms, self.y_blk.shape[1],
+                                    int(sig.lp_f64)])
+        kernels.check(library("bnb_loop").dtk_bnb_gather(ptrs, dims, sh), "bnb_gather")
 
     def _head(self, data: SweepData, sh, src: int, which: int) -> None:
         from ..kernels.build import library
 
         sig = self.sig
         B = (sig.B0, sig.Bw)[which]
-        st, lp = self.states[src], self.lp_in
+        st, lp = self.states[src], dict(self.lp_in)
+        vals = self.blk_vals if self.row_mesh else (
+            self.val_rows[which] if self.per_node else None)
         moe = [None] * 8
         if sig.moe:
-            vals = None if sig.lp_f64 else self.val_rows[which]
             A_rows = None if self.A_rows is None else self.A_rows[which]
-            moe = [data.gky, self.gky_pos, A_rows, vals, data.Ws, data.ks, self.Wr, self.kr]
+            moe = [data.gky, self.gky_pos, A_rows, None if sig.lp_f64 else vals, data.Ws,
+                   data.ks, self.Wr, self.kr]
+        elif self.node_mesh:
+            moe = [None] * 4 + [data.Ws, data.ks, self.Wr, self.kr]
         lp64 = [None] * 7
         if sig.lp_f64:
             lp64 = [self.lp_in64[k] for k in ("b", "c", "l", "u", "wv", "wy")] + [
-                self.val_rows[which] if sig.moe else None]
+                vals if sig.moe else None]
+        mesh = [0, 0, 0]
+        if self.row_mesh:
+            # b and the warm y into the row blocks, in the iterate dtype.
+            if sig.lp_f64:
+                lp64[0], lp64[5] = self.b_blk, self.wy_blk
+            else:
+                lp["b"], lp["wy"] = self.b_blk, self.wy_blk
+            mesh = [sig.S, sig.ms, self.b_blk.shape[1]]
         head = self._keep_ptrs([
             _p(st.node_lo), _p(st.node_hi), _p(st.node_kidx), _p(st.active), _p(st.node_v),
             _p(st.node_y), _p(st.node_z), _p(st.node_f), _p(st.node_warm), _p(self.frozen),
             _p(data.b_k), _p(data.c_k), *[_p(lp[k]) for k in ("b", "c", "l", "u", "wv", "wy",
                                                                "wz", "wf", "wok", "skip")],
-            *map(_p, moe), *map(_p, lp64)])
+            *map(_p, moe), *map(_p, lp64), _p(self.gky_mesh if self.row_mesh else None)])
         hdims = self._keep_ptrs_int([sig.L, B, sig.cap, sig.nf, sig.m, sig.n_k, int(sig.moe),
-                                     sig.M, sig.nnz, int(self.pdhg), int(sig.lp_f64)])
+                                     sig.M, sig.nnz, int(self.pdhg), int(sig.lp_f64), *mesh,
+                                     int(self.node_mesh and not sig.moe)])
         kernels.check(library("bnb_loop").dtk_bnb_head(head, hdims, sh), "bnb_head")
 
-    def _k1(self, sh, which: int) -> None:
-        """K1 on the plan's buffers."""
+    def _k1(self, sh, which: int, r0: int = 0, R: Optional[int] = None) -> None:
+        """K1 on the plan's buffers, rows ``r0 .. r0 + R`` of the round (all
+        of them when R is None)."""
         from ..kernels.build import library
 
-        sig, lp = self.sig, self.lp_in
-        B = (sig.B0, sig.Bw)[which]
+        sig = self.sig
+        R = sig.L * (sig.B0, sig.Bw)[which] if R is None else R
+        rows = slice(r0, r0 + R)
+        lp = {k: t[rows] for k, t in self.lp_in.items()}
         iters, chunk = ((sig.ipm_iters, sig.root_chunk), (sig.warm_iters, IPM_DEFAULT_CHUNK))[which]
         chunk, n_chunks = chunking(iters, chunk)
-        res = self.res[which]
-        A = self._lp_A(which)
-        vals = self.val_rows[which] if self.per_node else self.vals
-        R = sig.L * B
+        res = IPMResult(*(None if t is None else t[rows] for t in self.res[which]))
+        A = self._lp_A(which) if not self.per_node else self._lp_A(which)[rows]
+        vals = self.val_rows[which][rows] if self.per_node else self.vals
         P, O = kernels.ptr, kernels.opt_ptr
         err = library("ipm").dtk_ipm_f32(
             P(A), sig.m * sig.nf if self.per_node else 0, P(self.index), sig.nnz, sig.nent,
@@ -1029,10 +1446,14 @@ class LoopPlan:
         )
         kernels.check(err, "ipm")
 
-    def _k5(self, sh, which: int) -> None:
-        """K5 on the plan's buffers, on the route the signature fixed."""
+    def _k5(self, sh, which: int, r0: int = 0, R: Optional[int] = None) -> None:
+        """K5 on the plan's buffers, on the route the signature fixed, rows
+        ``r0 .. r0 + R`` of the round (all of them when R is None)."""
         sig = self.sig
-        rows = self.k5_rows[which]
+        R = sig.L * (sig.B0, sig.Bw)[which] if R is None else R
+        sl = slice(r0, r0 + R)
+        rows = {k: (IPMResult(*(None if t is None else t[sl] for t in v)) if k == "out"
+                    else v[sl]) for k, v in self.k5_rows[which].items()}
         chunk, n_chunks = chunking((sig.ipm_iters, sig.warm_iters)[which], PDHG_DEFAULT_CHUNK)
         k5_launch(sig.route, sig.C, self.k5_buf, sig.smem, self.k5_ws, self.k5_ws_sizes[which],
                   self.k5_G, self.index, sig.nnz, rows["vals"],
@@ -1061,18 +1482,18 @@ class LoopPlan:
         sig = self.sig
         B = (sig.B0, sig.Bw)[which]
         st, res = self.states[src], self.res[which]
-        rd = (None,) * 3 if sig.moe else (data.Ws, data.ks, data.rd_packed)
-        rows = self.lp_out if sig.moe else (None,) * 4
+        pre = sig.moe or self.node_mesh
+        rd = (None,) * 3 if pre else (data.Ws, data.ks, data.rd_packed)
+        rows = (*self.lp_out, None)[:4] if pre else (None,) * 4
         ins = [res.v, res.reduced, res.y_dual, res.z_dual, res.f_dual, res.bound, res.iters_run,
                *rd, *rows, data.int_mask, data.obj_const, self.frozen,
                *[getattr(st, f) for f in _TAIL_STATE]]
         base = self.bufs[dst].data_ptr()
         tail = self._keep_ptrs([_p(t) for t in ins] + [
             0 if o is None else base + o for o in self.tail_offsets] + [base + self.tail_ws_off])
-        pre = int(sig.moe)
-        tdims = self._keep_ptrs_int([sig.L, B, sig.cap, sig.nf, sig.m, sig.M, sig.n_k, pre, pre,
-                                     0, 1 if pre else sig.L, 0 if pre else PACKED_ROWS * sig.M,
-                                     int(sig.per_k)])
+        tdims = self._keep_ptrs_int([sig.L, B, sig.cap, sig.nf, sig.m, sig.M, sig.n_k, int(pre),
+                                     int(sig.moe), 0, 1 if pre else sig.L,
+                                     0 if pre else PACKED_ROWS * sig.M, int(sig.per_k)])
         err = library("round_tail").dtk_round_tail(tail, tdims, float(sig.mip_gap), sh)
         kernels.check(err, "round_tail")
 
@@ -1090,6 +1511,14 @@ class LoopPlan:
                                     3 * sig.n_k + sig.n_k * sig.M if sig.moe else 0,
                                     self.alay.my_size])
         kernels.check(lib.dtk_bnb_answer(ptrs, dims, sh), "bnb_answer")
+
+
+def _ins_rows(ins, rows: slice):
+    """The round inputs of ``rows`` (a shard's rows of a node-mesh round)."""
+    return ins._replace(kidx=ins.kidx[rows], lane=ins.lane[rows], b=ins.b[rows],
+                        c=ins.c[rows], lo=ins.lo[rows], hi=ins.hi[rows],
+                        warm=type(ins.warm)(*(t[rows] for t in ins.warm)),
+                        skip=ins.skip[rows])
 
 
 def _on_device(dev):
@@ -1194,10 +1623,12 @@ def answer_reference(plan: LoopPlan, state: SearchState, moe=None) -> torch.Tens
 def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
     """The kernels one graph launch ran, from the answer: the seed (for a
     MoE sweep K7's launches, its folds, the MoE seed's phases and K2's hint
-    and warm rows), the answer, and a head, K1 or K5 (and in float64 the
-    cast), (MoE) K2's LP rows, a round tail and a control each round (the
-    root, then two a pass of the WHILE body; the rounds run are the most
-    any lane ran), one more control at the start."""
+    and warm rows), the answer, and a head, K1 or K5 (a node mesh: one a
+    shard; a row mesh: K6b a slice and the gather; in float64 the cast),
+    (MoE, node mesh) K2's LP rows (a node mesh: a launch a shard), a round
+    tail and a control each round (the root, then two a pass of the WHILE
+    body; the rounds run are the most any lane ran), one more control at
+    the start."""
     R = int(np.max(ans[:, 4])) if ans.size else 0
     rounds = 1 + 2 * math.ceil(max(R - 1, 0) / 2)
     kernels.LAUNCHES["bnb_graph"] += 1
@@ -1217,23 +1648,35 @@ def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
         for _ in range(int(cold) + int(sig.has_warm)):
             kernels.count_launch("round_moe" + lanes)
     per_node = sig.a_lanes or sig.moe
+    shards = sig.S if sig.mesh == "node" else 1
     for r in range(rounds):
         B = sig.B0 if r == 0 else sig.Bw
         kernels.count_launch("bnb_head")
-        if sig.engine == "pdhg":
+        R = sig.L * B
+        if sig.mesh == "row":
+            # Under K6b's wrapper's names and shape keys: one fused launch a
+            # slice of BMAX rows; then the gather of the dual blocks.
+            name = "pdhg_sharded_elem" if sig.blk_nnz else "pdhg_sharded"
+            shape = f"B={R} m={sig.m} n={sig.nf} S={sig.S}" + (
+                f" per-element A nnz={sum(sig.blk_nnz)}" if sig.blk_nnz else "") + " route=fused"
+            for _ in range(-(-R // _pdhg.BMAX)):
+                kernels.count_launch(name, shape)
+            kernels.count_launch("bnb_gather")
+        elif sig.engine == "pdhg":
             # Under the wrapper's names and shape keys: one cluster launch,
-            # or one grid launch a slice of BMAX rows.
-            R = sig.L * B
-            shape = k5_shape(R, sig.m, sig.nf, not per_node, sig.nnz, sig.route, sig.C)
-            for _ in range(1 if sig.route == "cluster" else -(-R // _pdhg.BMAX)):
+            # or one grid launch a slice of BMAX rows (a node mesh: a shard).
+            per = R // shards
+            shape = k5_shape(per, sig.m, sig.nf, not per_node, sig.nnz, sig.route, sig.C)
+            for _ in range(shards * (1 if sig.route == "cluster" else -(-per // _pdhg.BMAX))):
                 kernels.count_launch(k5_name(not per_node), shape)
-            if sig.lp_f64:
-                kernels.count_launch("bnb_cast")
         else:
-            kernels.count_launch("ipm", f"B={sig.L * B} m={sig.m} n={sig.nf}"
-                                        f"{' per-node A' if per_node else ''}")
-        if sig.moe:
-            kernels.count_launch("round_moe" + lanes)
+            for _ in range(shards):
+                kernels.count_launch("ipm", f"B={R // shards} m={sig.m} n={sig.nf}"
+                                            f"{' per-node A' if per_node else ''}")
+        if sig.engine == "pdhg" and sig.lp_f64:
+            kernels.count_launch("bnb_cast")
+        for _ in range(shards if (sig.moe or sig.mesh == "node") else 0):
+            kernels.count_launch("round_moe" + lanes if sig.moe else "round_incumbent" + lanes)
         kernels.count_launch("round_tail" + lanes)
         kernels.count_launch("bnb_control")
     kernels.count_launch("bnb_control")

@@ -66,7 +66,7 @@ class StaticEntry:
     then their union); ``values`` (nnz,) or (L, nnz). The PDHG's values
     (``search.sweep_values``) are made on first use and kept."""
 
-    __slots__ = ("key", "A", "sparsity", "values", "M", "moe", "_pdhg")
+    __slots__ = ("key", "A", "sparsity", "values", "M", "moe", "_pdhg", "_mesh")
 
     def __init__(self, key, A: torch.Tensor, sparsity: IPMSparsity, M: int, moe: bool):
         self.key = key
@@ -77,6 +77,7 @@ class StaticEntry:
         self.M = M
         self.moe = moe
         self._pdhg = None
+        self._mesh = {}
 
     def pdhg_values(self):
         """(A_values, gky_pos) of :class:`~.search.SweepData` for K5."""
@@ -85,6 +86,26 @@ class StaticEntry:
         if self._pdhg is None:
             self._pdhg = sweep_values(self.A, self.sparsity, self.M, self.moe)
         return self._pdhg
+
+    @property
+    def per_element(self) -> bool:
+        """An A per element: MoE nodes, or lanes with an A each."""
+        return self.moe or (self.A.dim() == 3 and self.A.shape[0] > 1)
+
+    def mesh_blocks(self, shards: int, dtype=None):
+        """K6b's row blocks of this entry on a row mesh of ``shards``, made on
+        first use and kept: a per-element A's (MoE nodes) structure split by
+        block (``ops.meshlp.row_blocks``), or the one shared A's dense blocks
+        and their transposes in ``dtype`` (``ops.meshlp.dense_blocks``)."""
+        from ..ops.meshlp import dense_blocks, row_blocks
+
+        key = (int(shards), None if self.per_element else dtype)
+        got = self._mesh.get(key)
+        if got is None:
+            got = self._mesh[key] = (
+                row_blocks(self.sparsity, shards) if self.per_element
+                else dense_blocks(self.A if self.A.dim() == 2 else self.A[0], shards, dtype))
+        return got
 
 
 _STATIC: "OrderedDict[tuple, StaticEntry]" = OrderedDict()

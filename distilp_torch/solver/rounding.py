@@ -451,7 +451,11 @@ def _round_kernel(v, W, k, rd: RoundingData, packed=None, inst=None):
     if B == 0:
         return obj, w, n
     P = kernels.ptr
-    err = getattr(library("round"), fn_name)(
+    lib = library("round")
+    # Once a card and M it sets the shared-memory attribute rows of more
+    # than 768 devices need; after that it checks and returns.
+    kernels.check(lib.dtk_round_prepare(M), "round prepare")
+    err = getattr(lib, fn_name)(
         P(v), v.shape[1], P(Wr), P(kr), P(packed), kernels.opt_ptr(inst),
         PACKED_ROWS * M, M, B, P(obj), P(w), P(n), kernels.stream_handle(dev),
     )

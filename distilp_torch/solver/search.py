@@ -47,12 +47,13 @@ in ``_solve_scenarios_packed``/``_solve_batched``).
 MoE sweeps seed the roots with the Lagrangian decomposition bounds (K7, all
 lanes in one ascent) and an incumbent repaired from the Lagrangian primal,
 or, on a margin tick, with bounds re-derived on the host. The reference runs
-the loop as one device program; so does the port for sweeps on the IPM
-engine (``device_loop``: one CUDA graph a solve, dense or MoE); here is the
-host loop, which reads the lanes' go flags, which the round tail writes,
-from the device once per round: the PDHG engine's, the meshes' and the
-convergence log's route, and the plain versions the graph's plan runs on
-the CPU.
+the loop as one device program; so does the port (``device_loop``: one
+CUDA graph a solve on either engine, dense or MoE, on a row or node mesh of
+one card too); here is the host loop, which reads the lanes' go flags,
+which the round tail writes, from the device once per round: the route of
+the convergence log, of meshes over distinct cards and of the card's
+comparison (``device_loop.host_loop``), and the plain versions the graph's
+plan runs on the CPU.
 
 Precision: search arrays and IPM iterations are float32; everything the
 mip-gap certificate touches (bounds, incumbents, thresholds) is float64.
@@ -62,7 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -79,7 +80,7 @@ from ..ops.ipm import (
     ipm_sparsity,
     n_trace_rows,
 )
-from ..ops.meshlp import RowBlocks, sharded_pdhg
+from ..ops.meshlp import DenseBlocks, RowBlocks, sharded_pdhg
 from ..ops.pdhg import (
     DEFAULT_RESTART_TOL,
     PDHG_DEFAULT_CHUNK,
@@ -161,12 +162,15 @@ class SweepData(NamedTuple):
     # its k's values to (2, M; rows 4M+i and 5M+i of column 2M+i).
     A_values: Optional[torch.Tensor] = None
     gky_pos: Optional[torch.Tensor] = None
-    # The per-element A on a row mesh (K6b's per-element entry): A_sparsity
-    # split into the mesh's row blocks (ops/meshlp.py::row_blocks), each
-    # block's structure and the places of its nonzeros in A_values' rows,
-    # built once per sweep; a round takes each shard's values with one
-    # index_select. None off the mesh.
-    A_shards: Optional[RowBlocks] = None
+    # A's row blocks on a row mesh (K6b), kept on the static entry
+    # (packed.StaticEntry.mesh_blocks): for a per-element A (K6b's
+    # per-element entry) A_sparsity split into the mesh's row blocks
+    # (ops/meshlp.py::row_blocks), each block's structure and the places of
+    # its nonzeros in A_values' rows, a round taking each shard's values
+    # with one index_select; for one shared A its dense blocks and their
+    # transposes in the iterate dtype (ops/meshlp.py::dense_blocks). None
+    # off the mesh.
+    A_shards: Optional[Union[RowBlocks, DenseBlocks]] = None
     # K1's values on A_sparsity of a shared (m, nf) A (packed.StaticEntry),
     # and whether A_sparsity was checked against A when it was built (the
     # search's K1 calls then skip the per-call check).

@@ -240,26 +240,40 @@ def test_head_values_equal_node_A(model):
 
 
 def test_loop_route():
-    class Mesh:
-        size = 2
+    from distilp_torch.parallel import Mesh
 
+    one_card = Mesh((CPU, CPU), True)
+    cards = Mesh((torch.device("cuda", 0), torch.device("cuda", 1)), False)
     assert DL.loop_route(True, "ipm", None, False) == ("graph", "moe_ipm")
     assert DL.loop_route(False, "ipm", None, False) == ("graph", "dense_ipm")
     assert DL.loop_route(True, "pdhg", None, False) == ("graph", "moe_pdhg")
     assert DL.loop_route(False, "pdhg", None, False) == ("graph", "dense_pdhg")
-    assert DL.loop_route(True, "pdhg", Mesh(), False) == ("host", "row_mesh")
-    assert DL.loop_route(False, "pdhg", Mesh(), False) == ("host", "row_mesh")
+    # A row mesh of the search's device takes the graph (R3c); one over
+    # distinct cards keeps the host loop under its own key.
+    assert DL.loop_route(True, "pdhg", one_card, False, None, CPU) == \
+        ("graph", "moe_row_mesh_pdhg")
+    assert DL.loop_route(False, "pdhg", one_card, False, None, CPU) == \
+        ("graph", "row_mesh_pdhg")
+    assert DL.loop_route(True, "pdhg", cards, False, None, "cuda:0") == \
+        ("host", "row_mesh_cards")
     assert DL.loop_route(True, "pdhg", None, True) == ("host", "convergence")
     assert DL.loop_route(False, "pdhg", None, True) == ("host", "convergence")
-    assert DL.loop_route(True, "ipm", Mesh(), False) == ("host", "row_mesh")
+    # The IPM engine takes no row mesh (it partitions the PDHG's rows).
+    assert DL.loop_route(True, "ipm", one_card, False, None, CPU) == ("graph", "moe_ipm")
     assert DL.loop_route(True, "ipm", None, True) == ("host", "convergence")
 
 
 def test_node_mesh_and_forced_host_loop_keep_the_host(model):
+    """A node mesh over distinct devices (a stand-in: one on a device of
+    another type) and a forced host loop keep the host loop; a node mesh of
+    the search's device takes the graph since R3c."""
+    from distilp_torch.parallel import Mesh
+
     lanes = [_lane(_fleet(), model)]
     params = _search_params(lanes[0].sf, None, None, None, None, None, "ipm", None, None, None,
                             False)
-    for kw in (dict(node_mesh=True), dict(_host_loop=True)):
+    two = Mesh((CPU, torch.device("meta")), False)
+    for kw in (dict(node_mesh=two), dict(_host_loop=True)):
         prep = _prepare(lanes, params, GAP, CPU, **kw)
         assert prep.plan is None
         prep.release()

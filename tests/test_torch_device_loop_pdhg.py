@@ -271,12 +271,18 @@ def test_head_pdhg_mode_tests_the_warm_iterate(online, cold):
 
 
 def test_loop_routes():
-    class Mesh:
-        size = 2
+    from distilp_torch.parallel import Mesh
 
+    one_card = Mesh((CPU, CPU), True)
+    cards = Mesh((torch.device("cuda", 0), torch.device("cuda", 1)), False)
     assert DL.loop_route(False, "pdhg", None, False) == ("graph", "dense_pdhg")
     assert DL.loop_route(True, "pdhg", None, False) == ("graph", "moe_pdhg")
-    assert DL.loop_route(False, "pdhg", Mesh(), False) == ("host", "row_mesh")
+    # A row mesh of one device takes the graph (R3c); distinct cards keep
+    # the host loop.
+    assert DL.loop_route(False, "pdhg", one_card, False, None, CPU) == \
+        ("graph", "row_mesh_pdhg")
+    assert DL.loop_route(False, "pdhg", cards, False, None, "cuda:0") == \
+        ("host", "row_mesh_cards")
     assert DL.loop_route(False, "pdhg", None, True) == ("host", "convergence")
 
 

@@ -135,7 +135,7 @@ def test_kernel_sources_and_launch_counters():
         "decomp_lanes", "pdhg_elem", "ipm_trace", "pdhg_trace", "pdhg_sharded",
         "pdhg_sharded_elem", "collective", "round_tail", "round_tail_lanes", "bnb_graph",
         "bnb_seed", "bnb_head", "bnb_control", "bnb_answer", "decomp_theta", "decomp_bound",
-        "bnb_cast",
+        "bnb_cast", "bnb_gather",
     }
     kernels.LAUNCHES["ipm"] = 3
     kernels.reset_launch_counts()
