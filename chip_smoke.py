@@ -30,8 +30,11 @@ Phases (any failure exits non-zero and prints no result line):
      row equal to ``simulate_placement``); the profiler's HBM roll (K9a,
      equal to ``torch.roll`` after 1 and 7 passes) and its GEMM-chain step
      (K9b: the product against ``torch.matmul`` in float32, float16 and
-     bfloat16 at the chain's shapes, the scale bit for bit; the step's rate
-     beside ``torch.matmul``'s at the batches b_1, b_2, b_4); the branch-and-
+     bfloat16 at the chain's shapes and, in float32, at the edges of its
+     persistent TMA-fed design, the scale bit for bit; the step beside
+     ``torch.matmul`` in turns at the batches b_1, b_2, b_4, the SM clock
+     sampled through the float32 window, the float32 product's ptxas line
+     and the FFMA share of its main loop's SASS); the branch-and-
      bound epilogue's per-k entries (B15: on every call of per-k solves of
      hermes_70b, the north star, Mixtral M=4 and a forced small capacity that
      spills, and on 300 random frontiers, bit for bit) and the fixed-
@@ -190,6 +193,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -368,6 +374,194 @@ def time_kernel(fn, kernel: str):
     call = cuda_ms(fn)
     dev = device_ms(fn, kernel)
     return (dev, call, "profiler") if dev is not None else (call, call, "cuda_events")
+
+
+@contextlib.contextmanager
+def smi_window(period_ms: int = 250):
+    """Sample ``nvidia-smi --query-gpu=name,power.limit,clocks.sm,power.draw``
+    every ``period_ms`` while the block runs. Yields a dict, filled when the
+    block ends: the first sample as printed, the count, and the SM clock
+    (MHz) and power draw (W) as min, median and max ({"samples": 0} when
+    nvidia-smi gave nothing). Tells a kernel held back by its design from
+    one held back by the card's clock."""
+    out: dict = {}
+    try:
+        proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+             "--format=csv,noheader", "-lms", str(period_ms)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        proc = None
+    try:
+        yield out
+    finally:
+        text = ""
+        if proc is not None:
+            proc.terminate()
+            try:
+                text, _ = proc.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+        rows = [ln.split(", ") for ln in text.splitlines() if ln.count(", ") == 3]
+
+        def spread(col: int, unit: str):
+            vals = []
+            for r in rows:
+                try:
+                    vals.append(float(r[col].replace(unit, "").strip()))
+                except ValueError:
+                    pass
+            return [min(vals), statistics.median(vals), max(vals)] if vals else None
+
+        out["samples"] = len(rows)
+        if rows:
+            out.update(first=", ".join(rows[0]), clocks_sm_mhz=spread(2, "MHz"),
+                       power_draw_w=spread(3, "W"))
+
+
+def ptxas_lines(log: str, kernel: str) -> list:
+    """What ``-Xptxas -v`` said of each entry whose name holds ``kernel``
+    (registers, barriers, stack, spills) in a library's build log."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            keep = kernel in ln
+        if keep:
+            out.append(ln.strip())
+    return out
+
+
+def sass_loop(lib: Path, kernel: str) -> list:
+    """For each entry whose name holds ``kernel``, the innermost loop holding
+    FFMA, read from the library's SASS (``cuobjdump -sass``; a loop is a
+    backward branch and the instructions from its target to it): its
+    instructions, FFMA, shared loads (LDS) and the FFMA share, which caps the
+    kernel's rate at that share of the FP32 pipes' peak. Empty when cuobjdump
+    is missing or finds no such loop."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).is_file():
+        return []
+    loops = []
+    text = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        ins = []
+        for addr, body in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part):
+            toks = body.split()
+            if toks and toks[0].startswith("@"):
+                toks = toks[1:]
+            if toks:
+                ins.append((int(addr, 16), toks[0], body))
+        best = None
+        for addr, op, body in ins:
+            target = re.search(r"0x([0-9a-f]+)", body)
+            if op.split(".")[0] != "BRA" or target is None or int(target.group(1), 16) > addr:
+                continue
+            lo = int(target.group(1), 16)
+            ops = [o for a, o, _ in ins if lo <= a <= addr]
+            ffma = sum(o == "FFMA" for o in ops)
+            if ffma and (best is None or len(ops) < best["instructions"]):
+                lds = sum(o.startswith("LDS") for o in ops)
+                best = dict(entry=name, instructions=len(ops), ffma=ffma, lds=lds,
+                            other=len(ops) - ffma - lds, ffma_share=ffma / len(ops),
+                            entry_instructions=len(ins),
+                            entry_ffma=sum(o == "FFMA" for _, o, _ in ins))
+        if best is not None:
+            loops.append(best)
+    return loops
+
+
+def step_in_turns(D, x, b, reps: int = 5) -> dict:
+    """K9b's whole step (product and scale) and ``torch.matmul`` on the same
+    operands by CUDA events, in turns (step, matmul, matmul, step), each the
+    median of ``reps`` calls; then the product alone and the scale alone."""
+    import torch
+
+    M, N, K = x.numel() // x.shape[-1], b.shape[1], b.shape[0]
+    step = [cuda_ms(lambda: D.gemm_absmax_scale(x, b), reps, warmup=2)]
+    lib = [cuda_ms(lambda: torch.matmul(x, b), reps, warmup=2) for _ in range(2)]
+    step.append(cuda_ms(lambda: D.gemm_absmax_scale(x, b), reps, warmup=2))
+    product = cuda_ms(lambda: D._gemm_absmax_kernel(x, b), reps, warmup=2)
+    y, partial = D._gemm_absmax_kernel(x, b)
+    scale = cuda_ms(lambda: D._rescale_kernel(y, partial, D.GEMM_EPS), reps, warmup=2)
+    flops = 2.0 * M * N * K
+    s_ms, l_ms = statistics.fmean(step), statistics.fmean(lib)
+    return dict(step_ms=step, matmul_ms=lib, product_ms=product, scale_ms=scale,
+                step_tflops=flops / (s_ms * 1e-3) / 1e12,
+                matmul_tflops=flops / (l_ms * 1e-3) / 1e12, step_over_matmul=s_ms / l_ms)
+
+
+# K9b's steps in turns: the chain's sizes as the profiler runs them (S = the
+# model's hidden size, 4096 at least: 4096 for the 7-9B models, 5120 for
+# qwen3-14b/32b, 7168 for deepseek-v3, 8192 for the 70B models), its
+# batches, and the calls behind each median (the 16-bit steps are about a
+# fourteenth of float32's, so they take more).
+TURN_SIZES = (4096, 5120, 7168, 8192)
+TURN_BATCHES = (1, 2, 4)
+TURN_REPS = {"float32": 5, "float16": 25, "bfloat16": 25}
+
+
+def gemm_turns(D, label: str = "") -> dict:
+    """K9b's step against ``torch.matmul`` in turns (``step_in_turns``) at
+    (B, S, S) @ (S, S) for every dtype, S in TURN_SIZES and B in
+    TURN_BATCHES, with the bound and the step's share of it; nvidia-smi
+    sampled through the float32 window. {dtype: {"S": {"b_B": ...},
+    "nvidia_smi": ...}}, each step printed as it is timed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        tag = str(dt).split(".")[-1]
+        peak = PEAK_F32_S if dt == torch.float32 else PEAK_BF16_S
+        by_size = out[tag] = {}
+        window = smi_window() if dt == torch.float32 else contextlib.nullcontext({})
+        with window as clocks:
+            for S in TURN_SIZES:
+                b = torch.randn((S, S), generator=gen, device="cuda").to(dt)
+                by_batch = by_size[str(S)] = {}
+                for B in TURN_BATCHES:
+                    x = torch.randn((B, S, S), generator=gen, device="cuda").to(dt)
+                    t = step_in_turns(D, x, b, TURN_REPS[tag])
+                    t["bound_ms"] = bound_ms(2.0 * B * S ** 3,
+                                             (2 * B + 1) * S * S * x.element_size(), peak)[0]
+                    t["bound_share"] = t["bound_ms"] / statistics.fmean(t["step_ms"])
+                    by_batch[f"b_{B}"] = t
+                    print(f"{label}gemm_absmax_scale {tag} S={S} b_{B}: step "
+                          f"{t['step_ms'][0]:.4f} / {t['step_ms'][1]:.4f} ms per call "
+                          f"(product {t['product_ms']:.4f} + scale {t['scale_ms']:.4f}), "
+                          f"{t['step_tflops']:.2f} TFLOP/s, {t['bound_share']:.3f} of the "
+                          f"bound; torch.matmul {t['matmul_ms'][0]:.4f} / "
+                          f"{t['matmul_ms'][1]:.4f} ms, {t['matmul_tflops']:.2f} TFLOP/s; "
+                          f"step / matmul {t['step_over_matmul']:.3f}", flush=True)
+                    del x
+                del b
+        if clocks:
+            print(f"{label}gemm {tag} window nvidia-smi {json.dumps(clocks)}", flush=True)
+            by_size["nvidia_smi"] = clocks
+    return out
+
+
+def gemm_f32_repeats(D, n: int, shape=(4, 8192, 8192)) -> int:
+    """Runs K9b's float32 product ``n`` times on the same operands at
+    ``shape`` @ (S, S) and counts the runs whose product or partials differ
+    bit for bit from the first: a race between the ring's producer and its
+    consumers shows as a run that differs."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    b = torch.randn((shape[-1], shape[-1]), generator=gen, device="cuda")
+    y0, p0 = D._gemm_absmax_kernel(x, b)
+    differ = 0
+    for _ in range(n - 1):
+        y, p = D._gemm_absmax_kernel(x, b)
+        differ += not (torch.equal(y, y0) and torch.equal(p, p0))
+    return differ
 
 
 def max_err(a, b):
@@ -4965,16 +5159,36 @@ def check_hbm_stream(report: dict) -> None:
           f"{b_by}): {2 * n * 4 / (ms * 1e-3) / 1e12:.3f} TB/s", flush=True)
 
 
+# K9b's float32 product at the edges of its design, beside the chain's
+# shapes and the ragged one, in each of its layouts (the tile the host
+# picks on an H100: 128x128 for the first three, 128x192 for the last
+# two): K below one stage (32 k), fewer output tiles than the persistent
+# grid has blocks (one an SM), K not a multiple of the stage.
+GEMM_F32_EDGES = [((1, 100, 12), (12, 260)), ((1, 256, 512), (512, 768)),
+                  ((1, 520, 4100), (4100, 700)), ((1, 4300, 12), (12, 400)),
+                  ((1, 3400, 1000), (1000, 520))]
+
+
 def check_gemm_absmax_scale(report: dict) -> None:
     """K9b, one step of the profiler's GEMM chain, at the chain's shapes
-    ((B, 8192, 8192) @ (8192, 8192), B = 1, 2, 4) and a ragged one: the
-    product against ``torch.matmul`` (TF32 off) within TOL_GEMM of max|y|,
-    the scale bit for bit against the plain scale of the kernel's own
-    product, and the whole step equal to that."""
+    ((B, 8192, 8192) @ (8192, 8192), B = 1, 2, 4), a ragged one and, in
+    float32, GEMM_F32_EDGES: the product against ``torch.matmul`` (TF32 off)
+    within TOL_GEMM of max|y|, the scale bit for bit against the plain scale
+    of the kernel's own product, and the whole step equal to that; the
+    float32 product repeated bit for bit (``gemm_f32_repeats``). Then the
+    step against ``torch.matmul`` in turns (``gemm_turns``: the product and
+    the scale apart, nvidia-smi sampled through the float32 window); the
+    float32 product's ptxas line and the FFMA share of its main loop."""
     import torch
 
+    from distilp_torch.kernels import build
     from distilp_torch.profiler import device as D
 
+    log = build.build_dir() / "profiler.log"
+    ptxas = ptxas_lines(log.read_text() if log.exists() else "", "gemm_f32_kernel")
+    print("gemm f32 ptxas: " + " | ".join(ptxas), flush=True)
+    sass = sass_loop(Path(build.library("profiler")._name), "gemm_f32_kernel")
+    print("gemm f32 sass main loop " + json.dumps(sass), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     timing, step_errs = {}, []
     S = 8192
@@ -4983,6 +5197,8 @@ def check_gemm_absmax_scale(report: dict) -> None:
         k_ragged = 1004 if dt == torch.float32 else 1000
         shapes = [((B, S, S), (S, S)) for B in (1, 2, 4)] + [((3, 1000, k_ragged),
                                                               (k_ragged, 1032))]
+        if dt == torch.float32:
+            shapes += GEMM_F32_EDGES
         for xs, bs in shapes:
             x = torch.randn(xs, generator=gen, device="cuda").to(dt)
             b = torch.randn(bs, generator=gen, device="cuda").to(dt)
@@ -4999,7 +5215,9 @@ def check_gemm_absmax_scale(report: dict) -> None:
             step_err = float((whole.float() - D.absmax_scale_reference(lib).float())
                              .abs().amax())
             step_errs.append(step_err)
+            M = x.numel() // x.shape[-1]
             line = {"dtype": tag, "x": list(xs), "b": list(bs),
+                    "tile": list(D.gemm_tile(dt, M, bs[1])),
                     "product_max_err_over_max": prod_rel, "scale_bit_equal": scale_exact,
                     "step_equal_to_parts": repeat, "step_max_abs_err_vs_plain": step_err}
             print("gemm_absmax_scale vs plain", json.dumps(line), flush=True)
@@ -5026,24 +5244,15 @@ def check_gemm_absmax_scale(report: dict) -> None:
               f"{timing[tag]['tflops']:.2f} TFLOP/s (plain {plain:.4f} ms, library "
               f"torch.matmul {library:.4f} ms, bound {b_ms:.4f} ms by {b_by}) at "
               f"(1, {S}, {S}) @ ({S}, {S})", flush=True)
-        # The chain's batches b_1, b_2, b_4: the whole step per call (CUDA
-        # events) against torch.matmul's product alone.
-        by_batch = {}
-        for B in (1, 2, 4):
-            xb = x if B == 1 else torch.randn((B, S, S), generator=gen, device="cuda").to(dt)
-            step_ms = cuda_ms(lambda: D.gemm_absmax_scale(xb, b), reps=5)
-            lib_ms = cuda_ms(lambda: torch.matmul(xb, b), reps=5)
-            fl = B * flops
-            by_batch[f"b_{B}"] = dict(step_ms=step_ms, tflops=fl / (step_ms * 1e-3) / 1e12,
-                                      matmul_ms=lib_ms,
-                                      matmul_tflops=fl / (lib_ms * 1e-3) / 1e12,
-                                      bound_ms=bound_ms(B * flops, B * nbytes, peak)[0])
-            print(f"gemm_absmax_scale {tag} b_{B}: step {step_ms:.4f} ms per call, "
-                  f"{by_batch[f'b_{B}']['tflops']:.2f} TFLOP/s; torch.matmul {lib_ms:.4f} ms, "
-                  f"{by_batch[f'b_{B}']['matmul_tflops']:.2f} TFLOP/s", flush=True)
-            del xb
-        timing[tag]["by_batch"] = by_batch
         del x, b
+    repeats = 20
+    differ = gemm_f32_repeats(D, n=repeats)
+    print(f"gemm f32 repeats at (4, 8192, 8192): {differ} of {repeats - 1} differ from "
+          f"the first", flush=True)
+    if differ:
+        fail(f"gemm_absmax_scale float32: {differ} of {repeats - 1} repeated products differ")
+    for tag, by_size in gemm_turns(D).items():
+        timing[tag]["turns"] = by_size
     t = timing["float32"]
     report["gemm_absmax_scale"] = dict(
         name="gemm_absmax_scale", route="cuda",
@@ -5052,7 +5261,7 @@ def check_gemm_absmax_scale(report: dict) -> None:
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         library_ms=t["library_ms"], held_against_plain="ok", call_ms=t["call_ms"],
         ms_source=t["ms_source"], shapes_timed="float32 (1, 8192, 8192) @ (8192, 8192)",
-        by_dtype=timing,
+        by_dtype=timing, f32_ptxas=ptxas, f32_sass_main_loop=sass, f32_repeats_differ=differ,
     )
 
 
@@ -8493,7 +8702,7 @@ def main() -> int:
     by_shape = {k: {p: c["_shapes"].get(k, {}) for p, c in paths.items()}
                 for k in ("ipm", "pdhg", "pdhg_elem", "ipm_trace", "pdhg_trace",
                           "pdhg_sharded", "pdhg_sharded_elem", "decomp", "decomp_lanes",
-                          "bnb_graph")}
+                          "gemm_absmax_scale", "bnb_graph")}
     print("main path launches by shape", json.dumps(by_shape), flush=True)
     # MoE sweeps on the IPM engine take the loop's graph on every path that
     # solves one (the host loop only where a comparison asks for it).

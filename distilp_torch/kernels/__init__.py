@@ -60,13 +60,14 @@ LAUNCHES: Dict[str, int] = {
 
 
 # Kernel name -> {shape: launches} for the kernels whose wrappers break
-# their count down by the shape they were launched at (K1, K5, K6b) or by
-# entry (K7); "bnb_graph" counts every search by its loop's route
-# ("route=graph ..." or "route=host <why> ...").
+# their count down by the shape they were launched at (K1, K5, K6b), by
+# entry (K7) or by dtype (K9b); "bnb_graph" counts every search by its
+# loop's route ("route=graph ..." or "route=host <why> ...").
 SHAPES: Dict[str, Dict[str, int]] = {"ipm": {}, "pdhg": {}, "pdhg_elem": {},
                                      "ipm_trace": {}, "pdhg_trace": {}, "pdhg_sharded": {},
                                      "pdhg_sharded_elem": {}, "decomp": {},
-                                     "decomp_lanes": {}, "bnb_graph": {}}
+                                     "decomp_lanes": {}, "gemm_absmax_scale": {},
+                                     "bnb_graph": {}}
 
 
 def reset_launch_counts() -> None:

@@ -112,7 +112,7 @@ SIGNATURES = {
     },
     "profiler": {
         "dtk_roll1": [_P, _P, _L, _I, _P],
-        "dtk_gemm_tile": [_I, _P, _P],
+        "dtk_gemm_tile": [_I, _L, _L, _P, _P],
         "dtk_gemm_absmax_f32": [_P] * 3 + [_L] * 3 + [_P, _P],
         "dtk_gemm_absmax_f16": [_P] * 3 + [_L] * 3 + [_P, _P],
         "dtk_gemm_absmax_bf16": [_P] * 3 + [_L] * 3 + [_P, _P],

@@ -15,29 +15,45 @@
 //
 // K9b, dtk_gemm_absmax_* then dtk_absmax_rescale_*: one step of the GEMM
 // chain, y = x @ b; y <- y / (max|y| + eps), in float32, float16 and
-// bfloat16. Replaces the chain body of distilp_tpu/profiler/device.py::
+// bfloat16. Replaces the chain body of distilp_tpu/profiler/device.py:225
 // _gemm_flops (``y = jnp.matmul(x, b); y / (jnp.max(jnp.abs(y)) + eps)``).
 // x is (M, K) (the chain's (B, S, S) input, rows stacked), b is (K, N), both
 // row-major; K and N are multiples of 16 bytes' worth of elements.
-// - float16/bfloat16, gemm_wgmma_kernel: 128x256 output tiles, one block of
-//   three warpgroups each. A producer warp issues TMA loads (128-byte
-//   swizzle) of 128x64 tiles of x and 64x256 tiles of b into a ring of four
-//   stages in dynamic shared memory, with a full and an empty mbarrier per
-//   stage; two consumer warpgroups (64 rows each, under setmaxnreg) issue
-//   wgmma.mma_async m64n256k16 on the stages that have arrived, float32
-//   accumulators in registers. x is K-major for operand A; b is MN-major for
-//   operand B, read through the descriptor's transpose bit (no transposing
-//   pass). TMA zero-fills the ragged edges; the epilogue masks its stores.
-// - float32, gemm_f32_kernel: the FP32 pipes (explicit fmaf, so no TF32 and
-//   no dependence on --fmad; k summed in order for every output), 128x128
-//   output tiles of 256 threads, 8x8 outputs a thread, operand tiles of 16
-//   k streamed through a four-stage cp.async ring in shared memory (the x
-//   tile transposed on its way in).
-// Each block rounds its tile to the working dtype (round to nearest even,
+// Bound: 2 M N K operations at the dtype's peak (the tensor cores for the
+// 16-bit types, the FP32 pipes for float32); the bytes, x and b read and y
+// written once, are far below it at the profiler's sizes. Both products are
+// one shape: a producer warp keeps TMA loads (128-byte swizzle) of x and b
+// tiles in flight through a ring of stages in dynamic shared memory, with a
+// full and an empty mbarrier per stage, and consumer warpgroups (under
+// setmaxnreg) compute on the stages that have arrived. TMA zero-fills the
+// ragged edges; the epilogue masks its stores. The tensor maps are encoded
+// on the host through cudaGetDriverEntryPoint, so the library needs no
+// -lcuda.
+// - float16/bfloat16, gemm_wgmma_kernel: 128x256 output tiles, one block
+//   each; a ring of four stages of 64 k; two consumers (64 rows each) issue
+//   wgmma.mma_async m64n256k16, float32 accumulators in registers. x is
+//   K-major for operand A; b is MN-major for operand B, read through the
+//   descriptor's transpose bit (no transposing pass).
+// - float32, gemm_f32_kernel: the FP32 pipes with explicit fmaf (the library
+//   is built with --fmad=false; no TF32), every output's k summed in order in
+//   one fmaf chain. Its bound is FFMA issue, one warp-wide FFMA a cycle on
+//   each SM sub-partition: any other instruction a computing warp issues, and
+//   any cycle all its warps wait on a shared load, is a cycle the pipes lose.
+//   So the copies are the producer's alone and the consumers issue only
+//   shared loads and FFMA (x read as four k of a row in one 16-byte load, as
+//   TMA lays it: no transpose); consumer warpgroups of 8x8 outputs a thread,
+//   three (128x192 tiles) or two (128x128), keep as many warps on each
+//   sub-partition to cover the loads' latency; a persistent grid (one block
+//   an SM) walks the tiles, so the producer loads the next tile while the
+//   consumers store this one. The host takes the layout whose last round of
+//   tiles idles least at the shape (f32_consumers): on an H100's 132 SMs,
+//   of the profiler's sizes (S = 4096-8192, b_1-b_4) only S = 8192 at b_1
+//   and b_2 take 128x192.
+// Each product rounds its tile to the working dtype (round to nearest even,
 // as torch does), stores it and writes the tile's abs-max (of the rounded
 // values) to ``partial``: the scale's reduction is the product's epilogue.
-// dtk_gemm_tile gives each dtype's output tile, so the wrapper sizes
-// ``partial`` from the library's own layout.
+// dtk_gemm_tile gives the output tile of each dtype and shape, so the
+// wrapper sizes ``partial`` from the library's own layout.
 // - The scale: every block reduces the partials (max is order-free) and
 //   divides its stretch of y in place with 16-byte loads and stores. The
 //   division follows PyTorch's rules for the plain expression
@@ -46,11 +62,6 @@
 //   working dtype, so given the same product the scale agrees with its
 //   plain version bit for bit (the library is built with --fmad=false and
 //   the default IEEE division).
-// Bound: 2 M N K operations at the dtype's peak (tensor cores for the
-// 16-bit types, the FP32 pipes for float32); the bytes, x and b read and y
-// written once, are far below it at the profiler's sizes. The tensor maps
-// are encoded on the host through cudaGetDriverEntryPoint, so the library
-// needs no -lcuda.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -113,150 +124,11 @@ __device__ __forceinline__ void tile_coords(int tile, int tiles_m, int tiles_n, 
   tn = (tile % per_group) / rows_in_group;
 }
 
-// ---- float32: the FP32 pipes, a cp.async ring -------------------------------
-
-// 16x16 threads, each 8 rows (ty*4 + 0..3 and 64 + ty*4 + 0..3) by 8
-// columns (likewise with tx), so the shared-memory reads of a k step are
-// four float4 broadcasts. The x tile is stored transposed (k-major, rows of
-// 132 floats against bank conflicts): its copies are 4 bytes each, the b
-// tile's 16.
-constexpr int F32_TM = 128, F32_TN = 128, F32_TK = 16, F32_STAGES = 4;
-constexpr int F32_XP = F32_TM + 4;  // x tile row pitch (floats)
-constexpr int F32_STAGE_FLOATS = F32_TK * F32_XP + F32_TK * F32_TN;
-constexpr int F32_SMEM = F32_STAGES * F32_STAGE_FLOATS * (int)sizeof(float);
+// ---- TMA and mbarriers (both products) -------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
-  const uint32_t dst = smem_u32(smem);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-                 "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
-                 "r"(valid ? 4 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ b,
-                float* __restrict__ y, long M, long N, long K, int tiles_m, int tiles_n,
-                float* __restrict__ partial) {
-  extern __shared__ __align__(16) float f32_smem[];
-  __shared__ float scratch[32];
-  const int tid = threadIdx.x;
-  int tm, tn;
-  tile_coords(blockIdx.x, tiles_m, tiles_n, tm, tn);
-  const long m0 = (long)tm * F32_TM, n0 = (long)tn * F32_TN;
-  const int tx = tid & 15, ty = tid >> 4;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const long nk = (K + F32_TK - 1) / F32_TK;
-  // Per thread and stage: 8 elements of the x tile, column xk of rows
-  // xr + 16 q (a warp reads two rows of 16 k), and two 16-byte chunks of the
-  // b tile, rows br + 8 q. A copy past the edge is zero-filled (source size
-  // 0). The addresses are set up once; a stage adds its k offset.
-  const int xk = tid & 15, xr = tid >> 4, br = tid >> 5, bc = (tid & 31) * 4;
-  const float* xp = x + (m0 + xr) * K + xk;
-  const float* bp = b + (long)br * N + n0 + bc;
-  unsigned rows_in = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) rows_in |= (m0 + xr + 16 * q < M) ? 1u << q : 0u;
-  const bool col_in = n0 + bc < N;
-  auto load = [&](long kt) {
-    float* xs = f32_smem + (kt % F32_STAGES) * F32_STAGE_FLOATS;
-    float* bs = xs + F32_TK * F32_XP;
-    const long k0 = kt * F32_TK;
-    const bool k_in = k0 + xk < K;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const bool in = k_in && ((rows_in >> q) & 1u);
-      cp_async<4>(xs + xk * F32_XP + xr + 16 * q, in ? xp + k0 + 16 * q * K : x, in);
-    }
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const bool in = col_in && k0 + br + 8 * q < K;
-      cp_async<16>(bs + (br + 8 * q) * F32_TN + bc, in ? bp + (k0 + 8 * q) * N : b, in);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < F32_STAGES - 1; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
-  }
-  for (long kt = 0; kt < nk; ++kt) {
-    cp_async_wait<F32_STAGES - 2>();  // this thread's copies of stage kt
-    __syncthreads();  // everyone's copies landed; stage kt-1 is read
-    if (kt + F32_STAGES - 1 < nk) load(kt + F32_STAGES - 1);
-    cp_async_commit();
-    const float* xs = f32_smem + (kt % F32_STAGES) * F32_STAGE_FLOATS;
-    const float* bs = xs + F32_TK * F32_XP;
-#pragma unroll
-    for (int k = 0; k < F32_TK; ++k) {
-      float a[8], c[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(xs + k * F32_XP + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(xs + k * F32_XP + 64 + ty * 4);
-      const float4 c0 = *reinterpret_cast<const float4*>(bs + k * F32_TN + tx * 4);
-      const float4 c1 = *reinterpret_cast<const float4*>(bs + k * F32_TN + 64 + tx * 4);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      c[0] = c0.x; c[1] = c0.y; c[2] = c0.z; c[3] = c0.w;
-      c[4] = c1.x; c[5] = c1.y; c[6] = c1.z; c[7] = c1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  float m = 0.0f;  // |y| >= 0; NaN propagates through nan_max
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long col = n0 + h * 64 + tx * 4;
-      if (row < M && col < N) {
-        const float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                                     acc[i][4 * h + 3]);
-        m = nan_max(nan_max(m, fabsf(v.x)), nan_max(fabsf(v.y), nan_max(fabsf(v.z), fabsf(v.w))));
-        *reinterpret_cast<float4*>(y + row * N + col) = v;
-      }
-    }
-  }
-  m = block_reduce(m, Max(), scratch);
-  if (tid == 0) partial[(long)tm * tiles_n + tn] = m;
-}
-
-// ---- float16 / bfloat16: TMA and wgmma --------------------------------------
-
-constexpr int WG_TM = 128, WG_TN = 256, WG_TK = 64, WG_STAGES = 4;
-constexpr int WG_CONSUMERS = 2;                        // warpgroups of 64 rows
-constexpr int WG_THREADS = 128 * (1 + WG_CONSUMERS);  // + the producer warpgroup
-constexpr int WG_A_BYTES = WG_TM * WG_TK * 2;          // 16 KB: 128 rows of 128 B
-constexpr int WG_B_CHUNK = WG_TK * 64 * 2;             // 8 KB: 64 k-rows of 64 columns
-constexpr int WG_B_BYTES = (WG_TN / 64) * WG_B_CHUNK;  // 32 KB
-constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_B_BYTES;
-// The ring (1024-byte aligned for the 128-byte swizzle), then the mbarriers
-// and the consumers' reduction slots.
-constexpr int WG_SMEM = 1024 + WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8 + 32 * 4;
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -289,6 +161,222 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
+
+// ---- float32: the FP32 pipes, fed by TMA ------------------------------------
+
+// Two layouts of C consumer warpgroups (C = 3 or 2): 128 x 64C output tiles
+// (128x192 or 128x128) in stages of 32 k: the x tile as 128 rows of 32 k
+// (128 bytes a row, as x lies), the b tile as 2C boxes of 32 k-rows by 32
+// columns. Consumer warp w owns rows 64 (w / 2C) + [0, 64) and box w % 2C of
+// b; its lane (tr, tc) = (lane / 4, lane % 4) owns rows tr + 8 i (i < 8) and
+// the 4-column chunks tc and tc + 4 of the box: 8x8 outputs. The 128-byte
+// swizzle stores chunk c of 128-byte row r at c ^ (r % 8): the eight rows a
+// warp's x load reads (r % 8 = tr) and the four chunks of its b load (one
+// row) lie in distinct banks. Three warps (C = 3) or two (C = 2) on each SM
+// sub-partition hide the shared loads' latency; 8x16 outputs a thread load
+// fewer bytes an FFMA but ran slower. The host picks C from the shape
+// (f32_consumers): whichever grid leaves less of its last round idle.
+constexpr int F32_TM = 128, F32_TK = 32, F32_STAGES = 5;
+constexpr int F32_X_BYTES = F32_TM * F32_TK * 4;  // 16 KB
+constexpr int F32_B_BOX = F32_TK * 32 * 4;        // 4 KB
+// setmaxnreg moves registers within the block: every thread starts with
+// ENTRY_REGS (what one block an SM allows), the producer warpgroup gives
+// back down to F32_PRODUCER_REGS, the consumers take up to CONSUMER_REGS.
+// A consumer asking for more than was given back waits for ever.
+constexpr int F32_PRODUCER_REGS = 24;
+
+template <int C>
+struct F32Layout {
+  static constexpr int WARPS = 4 * C;    // consumer warps
+  static constexpr int WARPS_N = 2 * C;  // warps (b boxes) along a row
+  static constexpr int TN = 32 * WARPS_N;
+  static constexpr int THREADS = 128 * (1 + C);  // + the producer warpgroup
+  static constexpr int STAGE_BYTES = F32_X_BYTES + WARPS_N * F32_B_BOX;
+  // The ring (1024-byte aligned for the swizzle), the mbarriers, and two
+  // sets of the consumer warps' reduction slots (tiles alternate).
+  static constexpr int SMEM = 1024 + F32_STAGES * STAGE_BYTES + 2 * F32_STAGES * 8 + 2 * WARPS * 4;
+  static constexpr int ENTRY_REGS = (65536 / THREADS) & ~7;
+  static constexpr int CONSUMER_REGS = C == 3 ? 160 : ENTRY_REGS;
+  static_assert(C == 2 || C == 3, "two or three consumer warpgroups");
+  static_assert(128 * (ENTRY_REGS - F32_PRODUCER_REGS) >= 128 * C * (CONSUMER_REGS - ENTRY_REGS),
+                "the consumers' registers must come from the producer's");
+  static_assert(SMEM <= 232448, "the ring must fit one block's shared memory");
+};
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// One stage's 32 k into acc, in order. xs: this thread's first x row in the
+// stage; bs: its warp's b box; tcx[m]: byte offset of chunk tc ^ m (m < 4)
+// in a 128-byte row.
+__device__ __forceinline__ void f32_stage(float (&acc)[8][8], const uint8_t* xs,
+                                          const uint8_t* bs, int tr, const int (&tcx)[4]) {
+#pragma unroll 2
+  for (int kb = 0; kb < F32_TK / 8; ++kb) {  // 8 k: k % 8 is fixed below
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // x: four k (chunk 2 kb + h of the row) of each of the thread's 8 rows.
+      const uint8_t* xa = xs + (((2 * kb + h) ^ tr) << 4);
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(xa + i * 1024);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kx = 4 * h + e;  // this k's row % 8 in the swizzle
+        const uint8_t* br = bs + (8 * kb + kx) * 128 + tcx[kx & 3];
+        float bv[8];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {  // chunk tc + 4 p lies at (tc ^ kx % 4) + 4 (p ^ kx / 4)
+          const float4 v = *reinterpret_cast<const float4*>(br + ((p ^ (kx >> 2)) << 6));
+          bv[4 * p] = v.x; bv[4 * p + 1] = v.y; bv[4 * p + 2] = v.z; bv[4 * p + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float ai = lane_of(a[i], e);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(F32Layout<C>::THREADS, 1)
+gemm_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap bmap, float* __restrict__ y, long M,
+                long N, long K, int tiles_m, int tiles_n, float* __restrict__ partial) {
+  using L = F32Layout<C>;
+  extern __shared__ uint8_t f32_smem[];
+  const uint32_t raw = smem_u32(f32_smem);
+  uint8_t* ring = f32_smem + ((1024 - (raw & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + F32_STAGES * L::STAGE_BYTES);
+  float* slots = reinterpret_cast<float*>(bars + 2 * F32_STAGES);
+  const uint32_t ring_s = smem_u32(ring);
+  const uint32_t full_s = smem_u32(bars), empty_s = full_s + 8 * F32_STAGES;
+  const int ntiles = tiles_m * tiles_n;
+  const int nk = (int)((K + F32_TK - 1) / F32_TK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(full_s + 8 * s, 1);
+      mbar_init(empty_s + 8 * s, L::WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Both roles walk the same tiles (blockIdx.x, + gridDim.x, ...) and count
+  // the same stages ``it`` across them: stage it % F32_STAGES, phase
+  // (it / F32_STAGES) & 1.
+  if (threadIdx.x < 128) {
+    // Producer: one thread keeps F32_STAGES stages of TMA loads in flight.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F32_PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        int tm, tn;
+        tile_coords(tile, tiles_m, tiles_n, tm, tn);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % F32_STAGES;
+          mbar_wait(empty_s + 8 * s, ((it / F32_STAGES) & 1) ^ 1);
+          const uint32_t bar = full_s + 8 * s;
+          mbar_expect_tx(bar, L::STAGE_BYTES);
+          const uint32_t dst = ring_s + s * L::STAGE_BYTES;
+          tma_load_2d(dst, &xmap, kt * F32_TK, tm * F32_TM, bar);
+#pragma unroll
+          for (int g = 0; g < L::WARPS_N; ++g)
+            tma_load_2d(dst + F32_X_BYTES + g * F32_B_BOX, &bmap, tn * L::TN + 32 * g,
+                        kt * F32_TK, bar);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS) : "memory");
+    const int ct = threadIdx.x - 128, cw = ct >> 5, lane = ct & 31;
+    const int tr = lane >> 2, tc = lane & 3, wr = cw / L::WARPS_N, wc = cw % L::WARPS_N;
+    // This thread's first x row and its warp's b box, in stage 0.
+    const uint8_t* xrow = ring + (wr * 64 + tr) * 128;
+    const uint8_t* bbox = ring + F32_X_BYTES + wc * F32_B_BOX;
+    int tcx[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) tcx[m] = (tc ^ m) << 4;
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_s + 8 * (stage % F32_STAGES));
+    };
+    int it = 0, parity = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, parity ^= 1) {
+      int tm, tn;
+      tile_coords(tile, tiles_m, tiles_n, tm, tn);
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        // Hand the previous stage back. What makes that safe: every shared
+        // load of it was issued, and its value consumed by an FFMA, before
+        // this point in the warp's program order (an FFMA issues only once
+        // its operands have arrived), so no load of it is in flight when
+        // the lanes meet at __syncwarp and lane 0's arrive releases it to
+        // the producer. The release after the last pass is the same.
+        if (kt > 0) release(it - 1);
+        const int s = it % F32_STAGES;
+        mbar_wait(full_s + 8 * s, (it / F32_STAGES) & 1);
+        f32_stage(acc, xrow + s * L::STAGE_BYTES, bbox + s * L::STAGE_BYTES, tr, tcx);
+      }
+      release(it - 1);
+
+      // Epilogue; the producer is already loading the next tile. acc[i][4 p
+      // + e] is row tr + 8 i of the warp's 64 and column 16 p + 4 tc + e of
+      // its box.
+      const long row0 = (long)tm * F32_TM + wr * 64 + tr;
+      const long col0 = (long)tn * L::TN + 32 * wc + 4 * tc;
+      float m = 0.0f;  // |y| >= 0; NaN propagates through nan_max
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long row = row0 + 8 * i;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const long col = col0 + 16 * q;
+          if (row < M && col < N) {  // N % 4 == 0: the chunk is in
+            const float4 v = make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                                         acc[i][4 * q + 3]);
+            m = nan_max(nan_max(m, fabsf(v.x)),
+                        nan_max(fabsf(v.y), nan_max(fabsf(v.z), fabsf(v.w))));
+            *reinterpret_cast<float4*>(y + row * N + col) = v;
+          }
+        }
+      }
+      m = warp_reduce(m, Max());
+      float* tile_slots = slots + parity * L::WARPS;
+      if (lane == 0) tile_slots[cw] = m;
+      // A warp reaches the next use of this set only after every consumer
+      // passed the next tile's barrier, so after thread 0 read it here.
+      asm volatile("bar.sync 1, %0;\n" ::"n"(32 * L::WARPS) : "memory");
+      if (ct == 0) {
+        float r = tile_slots[0];
+        for (int q = 1; q < L::WARPS; ++q) r = nan_max(r, tile_slots[q]);
+        partial[(long)tm * tiles_n + tn] = r;
+      }
+    }
+  }
+}
+
+// ---- float16 / bfloat16: TMA and wgmma --------------------------------------
+
+constexpr int WG_TM = 128, WG_TN = 256, WG_TK = 64, WG_STAGES = 4;
+constexpr int WG_CONSUMERS = 2;                        // warpgroups of 64 rows
+constexpr int WG_THREADS = 128 * (1 + WG_CONSUMERS);  // + the producer warpgroup
+constexpr int WG_A_BYTES = WG_TM * WG_TK * 2;          // 16 KB: 128 rows of 128 B
+constexpr int WG_B_CHUNK = WG_TK * 64 * 2;             // 8 KB: 64 k-rows of 64 columns
+constexpr int WG_B_BYTES = (WG_TN / 64) * WG_B_CHUNK;  // 32 KB
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_B_BYTES;
+// The ring (1024-byte aligned for the 128-byte swizzle), then the mbarriers
+// and the consumers' reduction slots.
+constexpr int WG_SMEM = 1024 + WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8 + 32 * 4;
 
 // Shared-memory matrix descriptor, 128-byte swizzle (layout type 1). Byte
 // offsets: ``lbo`` between 64-element chunks along M/N (MN-major only),
@@ -536,14 +624,15 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A 2-D row-major (rows, cols) array of 16-bit values, loaded in (box_rows,
-// box_cols) boxes with the 128-byte swizzle; out-of-bounds elements read 0.
-bool encode_2d(CUtensorMap* map, CUtensorMapDataType dt, const void* base, long rows,
-               long cols, int box_rows, int box_cols) {
+// A 2-D row-major (rows, cols) array of ``elem_bytes``-byte values, loaded
+// in (box_rows, box_cols) boxes with the 128-byte swizzle (box_cols *
+// elem_bytes <= 128); out-of-bounds elements read 0.
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType dt, int elem_bytes, const void* base,
+               long rows, long cols, int box_rows, int box_cols) {
   const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
   cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   cuuint32_t elem[2] = {1, 1};
   return fn(map, dt, 2, const_cast<void*>(base), dims, strides, box, elem,
@@ -551,12 +640,53 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType dt, const void* base, long 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
+// The float32 layout (consumer warpgroups C) for an (M, N) product on
+// ``sms`` SMs, one persistent block each: the one whose grid computes the
+// fewer padded outputs, rounds of ``sms`` tiles times the tile's size, so
+// the less of its last round idles; 128x192 on a tie (its blocks ran about
+// 1% faster at full rounds). Both products of one shape pick the same.
+int f32_consumers(long M, long N, int sms) {
+  const long t3 = (long)tiles(M, F32_TM) * tiles(N, F32Layout<3>::TN);
+  const long t2 = (long)tiles(M, F32_TM) * tiles(N, F32Layout<2>::TN);
+  const long cost3 = (t3 + sms - 1) / sms * F32Layout<3>::TN;
+  const long cost2 = (t2 + sms - 1) / sms * F32Layout<2>::TN;
+  return cost2 < cost3 ? 2 : 3;
+}
+
+template <int C>
+int gemm_f32(const void* x, const void* b, void* y, long M, long N, long K, float* partial,
+             int sms, cudaStream_t s) {
+  using L = F32Layout<C>;
+  CUtensorMap xmap, bmap;
+  if (!encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, M, K, F32_TM, F32_TK) ||
+      !encode_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, b, K, N, F32_TK, 32))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm_f32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // A persistent grid: one block an SM (its ring fills most of the SM's
+  // shared memory), none without a tile.
+  const int tm = tiles(M, F32_TM), tn = tiles(N, L::TN);
+  const int grid = (long)tm * tn < sms ? tm * tn : sms;
+  gemm_f32_kernel<C><<<grid, L::THREADS, L::SMEM, s>>>(xmap, bmap, (float*)y, M, N, K, tm, tn,
+                                                       partial);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int gemm_16bit(CUtensorMapDataType dt, const void* x, const void* b, void* y, long M, long N,
                long K, float* partial, cudaStream_t s) {
   if (M <= 0 || N <= 0) return 0;
   CUtensorMap xmap, bmap;
-  if (!encode_2d(&xmap, dt, x, M, K, WG_TM, WG_TK) || !encode_2d(&bmap, dt, b, K, N, WG_TK, 64))
+  if (!encode_2d(&xmap, dt, 2, x, M, K, WG_TM, WG_TK) ||
+      !encode_2d(&bmap, dt, 2, b, K, N, WG_TK, 64))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(gemm_wgmma_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
@@ -586,11 +716,18 @@ int dtk_roll1(const float* x, float* y, long n, int blocks, void* stream) {
 }
 
 // The output tile of dtk_gemm_absmax_<dtype> (0 float32, 1 float16, 2
-// bfloat16): partial holds one abs-max per tile.
-int dtk_gemm_tile(int dtype, int* rows, int* cols) {
+// bfloat16) for an (M, N) product on the current device: partial holds one
+// abs-max per tile.
+int dtk_gemm_tile(int dtype, long M, long N, int* rows, int* cols) {
   if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   *rows = dtype == 0 ? F32_TM : WG_TM;
-  *cols = dtype == 0 ? F32_TN : WG_TN;
+  *cols = WG_TN;
+  if (dtype == 0) {
+    int sms = 0;
+    const cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return (int)e;
+    *cols = f32_consumers(M, N, sms) == 3 ? F32Layout<3>::TN : F32Layout<2>::TN;
+  }
   return 0;
 }
 
@@ -600,13 +737,12 @@ int dtk_gemm_tile(int dtype, int* rows, int* cols) {
 int dtk_gemm_absmax_f32(const void* x, const void* b, void* y, long M, long N, long K,
                         float* partial, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(gemm_f32_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  const int tm = tiles(M, F32_TM), tn = tiles(N, F32_TN);
-  gemm_f32_kernel<<<tm * tn, THREADS, F32_SMEM, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)b, (float*)y, M, N, K, tm, tn, partial);
-  return (int)cudaGetLastError();
+  return f32_consumers(M, N, sms) == 3
+             ? gemm_f32<3>(x, b, y, M, N, K, partial, sms, (cudaStream_t)stream)
+             : gemm_f32<2>(x, b, y, M, N, K, partial, sms, (cudaStream_t)stream);
 }
 
 int dtk_gemm_absmax_f16(const void* x, const void* b, void* y, long M, long N, long K,

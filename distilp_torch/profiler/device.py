@@ -236,7 +236,7 @@ def gemm_absmax_scale(x: torch.Tensor, b: torch.Tensor, eps: float = GEMM_EPS) -
     if kernels.on_cuda(x, b):
         y, partial = _gemm_absmax_kernel(x, b)
         _rescale_kernel(y, partial, eps)
-        kernels.LAUNCHES["gemm_absmax_scale"] += 1
+        kernels.count_launch("gemm_absmax_scale", str(x.dtype).split(".")[-1])
         return y
     return gemm_absmax_scale_reference(x, b, eps)
 
@@ -253,23 +253,21 @@ def absmax_scale_reference(y: torch.Tensor, eps: float = GEMM_EPS) -> torch.Tens
 _K9B_SUFFIX = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16"}
 _K9B_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _INT32_MAX = 2**31 - 1
-_GEMM_TILES: Dict[torch.dtype, tuple] = {}
 
 
-def gemm_tile(dtype: torch.dtype) -> tuple:
-    """(rows, columns) of K9b's output tile for ``dtype``, as the kernel
-    library lays it out (``dtk_gemm_tile``): ``partial`` holds one abs-max
-    per tile."""
-    if dtype not in _GEMM_TILES:
-        import ctypes
+def gemm_tile(dtype: torch.dtype, M: int, N: int) -> tuple:
+    """(rows, columns) of K9b's output tile for an (M, N) product in
+    ``dtype``, as the kernel library lays it out on the current device
+    (``dtk_gemm_tile``; the float32 product picks its tile from the shape):
+    ``partial`` holds one abs-max per tile."""
+    import ctypes
 
-        from ..kernels.build import library
+    from ..kernels.build import library
 
-        rows, cols = ctypes.c_int(), ctypes.c_int()
-        kernels.check(library("profiler").dtk_gemm_tile(
-            _K9B_CODE[dtype], ctypes.byref(rows), ctypes.byref(cols)), "gemm_tile")
-        _GEMM_TILES[dtype] = (rows.value, cols.value)
-    return _GEMM_TILES[dtype]
+    rows, cols = ctypes.c_int(), ctypes.c_int()
+    kernels.check(library("profiler").dtk_gemm_tile(
+        _K9B_CODE[dtype], M, N, ctypes.byref(rows), ctypes.byref(cols)), "gemm_tile")
+    return rows.value, cols.value
 
 
 def gemm_partials(M: int, N: int, tile: tuple) -> int:
@@ -279,10 +277,12 @@ def gemm_partials(M: int, N: int, tile: tuple) -> int:
 
 def _gemm_operands(x: torch.Tensor, b: torch.Tensor):
     """(M, N, K) of K9b's product, or raise on an operand the kernels do not
-    take: the float16/bfloat16 kernel's TMA loads need a 16-byte aligned
-    base and row strides that are multiples of 16 bytes, and rows and
-    coordinates that fit in 32-bit signed integers; the float32 kernel's
-    16-byte copies need the same alignment."""
+    take: both products (float32 on the FP32 pipes, float16/bfloat16 on the
+    tensor cores) read x and b through TMA loads, which need a 16-byte
+    aligned base and row strides that are multiples of 16 bytes (K and N
+    multiples of 4 float32 or 8 16-bit values), rows that are the
+    contiguous rows of the operand, and rows and coordinates that fit in
+    32-bit signed integers."""
     if x.dtype not in _K9B_SUFFIX or b.dtype != x.dtype:
         raise TypeError(f"gemm_absmax_scale takes two float32, float16 or bfloat16 "
                         f"tensors of one dtype, got {x.dtype} and {b.dtype}")
@@ -308,7 +308,7 @@ def _gemm_absmax_kernel(x: torch.Tensor, b: torch.Tensor):
     from ..kernels.build import library
 
     M, N, K = _gemm_operands(x, b)
-    nparts = gemm_partials(M, N, gemm_tile(x.dtype))
+    nparts = gemm_partials(M, N, gemm_tile(x.dtype, M, N))
     if nparts > _INT32_MAX:
         raise ValueError(f"gemm_absmax_scale takes at most {_INT32_MAX} output tiles, "
                          f"got {nparts}")

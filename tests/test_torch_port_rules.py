@@ -54,8 +54,9 @@ FORBIDDEN = ("jax", "jaxlib", "distilp_tpu")
 def _port_files():
     files = sorted((REPO / "distilp_torch").rglob("*.py"))
     assert files, "distilp_torch has no modules"
-    # chip_smoke.py and the test helpers it imports.
-    return files + [REPO / "chip_smoke.py", REPO / "tests" / "torch_price_edits.py",
+    # chip_smoke.py, chip_gemm_turns.py and the test helpers they import.
+    return files + [REPO / "chip_smoke.py", REPO / "chip_gemm_turns.py",
+                    REPO / "tests" / "torch_price_edits.py",
                     REPO / "tests" / "torch_lanes.py", REPO / "tests" / "torch_procstub.py"]
 
 

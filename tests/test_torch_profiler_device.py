@@ -187,14 +187,17 @@ def _misaligned(shape, dtype):
     return flat[1:].view(shape)
 
 
-# What the float16/bfloat16 kernel's TMA loads refuse (a base that is not
-# 16-byte aligned, strides other than the rows' own, coordinates past 32-bit
-# signed integers) and the float32 kernel's 16-byte copies too: the wrapper
-# raises before anything is launched.
+# What the products' TMA loads refuse, float32's as the 16-bit types' (a
+# base that is not 16-byte aligned, strides other than the rows' own,
+# coordinates past 32-bit signed integers): the wrapper raises before
+# anything is launched.
 @pytest.mark.parametrize("make", [
     lambda: (_misaligned((4, 64), torch.float16), torch.zeros(64, 32, dtype=torch.float16)),
     lambda: (torch.zeros(4, 64, dtype=torch.bfloat16), _misaligned((64, 32), torch.bfloat16)),
     lambda: (_misaligned((4, 64), torch.float32), torch.zeros(64, 32)),
+    lambda: (torch.zeros(4, 64), _misaligned((64, 32), torch.float32)),
+    lambda: (torch.zeros(4, 64), torch.zeros(32, 64).t()),  # b column-major
+    lambda: (torch.zeros(4, 128)[:, :64], torch.zeros(64, 32)),  # x rows strided
     lambda: (torch.zeros(4, 64, dtype=torch.float16),
              torch.zeros(32, 64, dtype=torch.float16).t()),  # b column-major
     lambda: (torch.zeros(64, 4, dtype=torch.float16).t(),
@@ -205,43 +208,95 @@ def _misaligned(shape, dtype):
              torch.empty((8, 8), dtype=torch.float16, device="meta")),  # M >= 2^31
     lambda: (torch.empty((8, 2**31), dtype=torch.bfloat16, device="meta"),
              torch.empty((2**31, 8), dtype=torch.bfloat16, device="meta")),  # K >= 2^31
-], ids=["x_misaligned_f16", "b_misaligned_bf16", "x_misaligned_f32", "b_column_major",
-        "x_column_major", "x_row_strided", "rows_past_int32", "depth_past_int32"])
+], ids=["x_misaligned_f16", "b_misaligned_bf16", "x_misaligned_f32", "b_misaligned_f32",
+        "b_column_major_f32", "x_row_strided_f32", "b_column_major", "x_column_major",
+        "x_row_strided", "rows_past_int32", "depth_past_int32"])
 def test_gemm_chain_kernel_refuses_what_tma_refuses(make):
     x, b = make()
     with pytest.raises(ValueError):
         pdevice._gemm_absmax_kernel(x, b)
 
 
-def test_gemm_partials_come_from_the_library_tile(monkeypatch):
+def _stand_in_tile(code, M, N):
+    """The tile the stand-in library answers: each dtype's own, and for
+    float32 one picked from the shape, as the library does."""
+    if code == 0:
+        return (128, 192) if N >= 1024 else (128, 128)
+    return (128, 256)
+
+
+class _StandInGemmLibrary:
+    """Records what the K9b wrappers pass the kernel library."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def dtk_gemm_tile(self, code, M, N, rows, cols):
+        self.seen.setdefault("tiles", []).append((code, M, N))
+        rows._obj.value, cols._obj.value = _stand_in_tile(code, M, N)
+        return 0
+
+    def __getattr__(self, name):
+        if not name.startswith(("dtk_gemm_absmax_", "dtk_absmax_rescale_")):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.seen.setdefault("calls", []).append(name)
+            if name.startswith("dtk_gemm_absmax_"):
+                self.seen["MNK"] = tuple(args[3:6])
+                self.seen["partial"] = args[6].value
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("dtype,code,suffix,N,parts", [
+    (torch.float32, 0, "f32", 520, 3 * 5), (torch.float32, 0, "f32", 1040, 3 * 6),
+    (torch.float16, 1, "f16", 520, 3 * 3)])
+def test_gemm_partials_come_from_the_library_tile(monkeypatch, dtype, code, suffix, N, parts):
     """The wrapper sizes ``partial`` (one abs-max per output tile) from the
-    output tile the kernel library reports for the dtype (``dtk_gemm_tile``)
-    and passes the library its (M, N, K): a stand-in library answers here."""
+    output tile the kernel library reports for the dtype and the product's
+    (M, N) (``dtk_gemm_tile``; float32's depends on the shape) and passes the
+    dtype's entry its (M, N, K): a stand-in library answers here."""
     from distilp_torch.kernels import build
 
     seen = {}
-
-    class Lib:
-        def dtk_gemm_tile(self, code, rows, cols):
-            seen["code"] = code
-            rows._obj.value, cols._obj.value = {0: (128, 128), 1: (128, 256)}[code]
-            return 0
-
-        def dtk_gemm_absmax_f16(self, x, b, y, M, N, K, partial, stream):
-            seen["MNK"] = (M, N, K)
-            seen["partial"] = partial.value
-            return 0
-
-    monkeypatch.setattr(build, "library", lambda name: Lib())
-    monkeypatch.setattr(pdevice, "_GEMM_TILES", {})
+    monkeypatch.setattr(build, "library", lambda name: _StandInGemmLibrary(seen))
     monkeypatch.setattr(pdevice.kernels, "stream_handle", lambda dev: None)
-    x = torch.zeros((2, 150, 64), dtype=torch.float16)
-    b = torch.zeros((64, 520), dtype=torch.float16)
+    x = torch.zeros((2, 150, 64), dtype=dtype)
+    b = torch.zeros((64, N), dtype=dtype)
     y, partial = pdevice._gemm_absmax_kernel(x, b)
-    assert seen["code"] == 1 and seen["MNK"] == (300, 520, 64)
-    assert pdevice.gemm_tile(torch.float16) == (128, 256)
-    assert partial.numel() == pdevice.gemm_partials(300, 520, (128, 256)) == 3 * 3
-    assert seen["partial"] == partial.data_ptr() and y.shape == (2, 150, 520)
+    assert seen["tiles"] == [(code, 300, N)] and seen["MNK"] == (300, N, 64)
+    assert seen["calls"] == [f"dtk_gemm_absmax_{suffix}"]
+    tile = _stand_in_tile(code, 300, N)
+    assert pdevice.gemm_tile(dtype, 300, N) == tile
+    assert partial.numel() == pdevice.gemm_partials(300, N, tile) == parts
+    assert seen["partial"] == partial.data_ptr() and y.shape == (2, 150, N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_step_counts_its_launch_by_dtype(monkeypatch, dtype):
+    """On the card one chain step is one count of ``gemm_absmax_scale``
+    (product and scale), broken down by dtype in ``kernels.SHAPES``; a
+    stand-in library takes the launches here."""
+    from distilp_torch.kernels import build
+
+    seen = {}
+    monkeypatch.setattr(build, "library", lambda name: _StandInGemmLibrary(seen))
+    monkeypatch.setattr(pdevice.kernels, "stream_handle", lambda dev: None)
+    monkeypatch.setattr(pdevice.kernels, "on_cuda", lambda *t: True)
+    kernels.reset_launch_counts()
+    try:
+        for _ in range(3):
+            pdevice.gemm_absmax_scale(torch.zeros((2, 8, 64), dtype=dtype),
+                                      torch.zeros((64, 32), dtype=dtype))
+        tag = str(dtype).split(".")[-1]
+        suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        assert kernels.LAUNCHES["gemm_absmax_scale"] == 3
+        assert kernels.SHAPES["gemm_absmax_scale"] == {tag: 3}
+        assert seen["calls"] == [f"dtk_gemm_absmax_{suffix}",
+                                 f"dtk_absmax_rescale_{suffix}"] * 3
+    finally:
+        kernels.reset_launch_counts()
 
 
 @pytest.fixture(scope="module")
