@@ -130,11 +130,17 @@ Phases (any failure exits non-zero and prints no result line):
      JAX package; every per-element K5 call of these solves is then held
      against its plain version (float64 field by field, float32 on the
      bound), an equal-A batch against the shared entry, a structure missing
-     a nonzero refused; (h) the convergence telemetry (B13):
-     ``halda_solve(convergence=...)`` on the north star (IPM) and the
-     128-device fleet (PDHG) equal to the untraced solves (digest and walls
-     printed), a diagnostics replanner over three drifting ticks, and
-     ``solver diagnose`` with its JSONL export and ``--load``; (i) the
+     a nonzero refused; (h) the convergence telemetry (B13) and the round
+     log on the loop graph (R3d): ``halda_solve(convergence=...)`` on the
+     north star (IPM), the 128-device fleet (PDHG, float32 and float64, and
+     on a virtual row mesh of 4 shards) and Mixtral M=4 (MoE), and
+     diagnostics replanners over the north star's warm ticks and Mixtral's
+     margin ticks, each answer row equal bit for bit to the host loop's and
+     its head to the untraced solve's, one graph launch, one upload, one
+     read and no runtime kernel launch a solve (walls of the traced,
+     untraced and host-loop solves printed); ``solver diagnose`` with its
+     JSONL export and ``--load``; ``serve --solver-diagnostics`` with no
+     search off the graph, beside a plain ``serve``; (i) the
      multi-device engine on a virtual mesh of this card: the 128-device fleet
      with ``mesh_shards=4`` (pinned; ``mesh_shards=1`` bit-identical to the
      default), the 512-device fleet and the online golden at 4 shards, the
@@ -879,14 +885,15 @@ def state_diff(a, b) -> list:
     return [f for f, x, y in zip(a._fields, a, b) if not bits_equal(x, y)]
 
 
-def graph_prep(lanes, params, gap):
-    """A prepared sweep on the graph route, its plan staged and its static
-    entry loaded: (prep, plan, data)."""
+def graph_prep(lanes, params, gap, diag=False):
+    """A prepared sweep on the graph route (``diag``: with the round log),
+    its plan staged and its static entry loaded: (prep, plan, data)."""
     import torch
 
     from distilp_torch.solver.backend_torch import _prepare
 
-    prep = _prepare(lanes, params, gap, torch.device("cuda"), shared_A=True)
+    prep = _prepare(lanes, params, gap, torch.device("cuda"), shared_A=True,
+                    convergence={} if diag else None)
     if prep.plan is None:
         fail("a dense IPM sweep did not take the graph route")
     prep.plan.load_static(prep.entry)
@@ -899,18 +906,107 @@ def loop_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
+def traced_untraced(plan, launch, kernel: str):
+    """A diagnostics plan's root LP node (``launch``) timed traced (the
+    plan's trace buffer) and untraced (the same launch with none) on the
+    same staged inputs, and the result fields (the round's, and its float64
+    result on the PDHG's f64) in which the two launches differ: none, since
+    a trace changes no other output (B13), which keeps the logged search's
+    trajectory the untraced one's. (traced, untraced, differing fields),
+    each time as ``time_kernel`` gives it."""
+    import torch
+
+    outs = [plan.res[0]] + ([plan.res64[0]] if plan.sig.lp_f64 else [])
+
+    def results():
+        torch.cuda.synchronize()
+        return {f"{i}.{f}": t.clone() for i, r in enumerate(outs)
+                for f, t in zip(r._fields, r) if t is not None}
+
+    with uncounted():
+        launch()
+        got = results()
+        traced = time_kernel(launch, kernel)
+        plan._traced = lambda which: False
+        try:
+            launch()
+            ref = results()
+            untraced = time_kernel(launch, kernel)
+        finally:
+            del plan._traced
+    return traced, untraced, [f for f in got if not bits_equal(got[f], ref[f])]
+
+
+def root_lp_nodes() -> list:
+    """The traced root LP nodes of the diagnostics plans on the PDHG (R3d):
+    K5 at the 128-device fleet's cold root in float32 and float64, and
+    K6b's fused route there on a virtual row mesh of S=4 in both dtypes,
+    each staged as the graph's root round stages it (seed, init control,
+    head) and held to :func:`traced_untraced`. Rows of ``check_bnb_loop``'s
+    root-LP lines: (name, kernel, rows, trace rows, traced, untraced,
+    differing fields)."""
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.kernels.build import library
+    from distilp_torch.parallel import force_virtual_devices, shard_mesh
+    from distilp_torch.solver.backend_torch import _prepare, _search_params
+    from distilp_torch.utils import make_synthetic_fleet
+
+    force_virtual_devices(8)
+    lib = library("bnb_loop")
+    dev = torch.device("cuda")
+    sh = kernels.stream_handle(dev)
+    lanes = lane_inputs([make_synthetic_fleet(128, seed=123)], online_model(128), "4bit")
+    out = []
+    for name, dtype, S in (("fleet_M128 pdhg f32 cold", None, None),
+                           ("fleet_M128 pdhg f64 cold", "f64", None),
+                           ("fleet_M128 row mesh S=4 f32 cold", None, 4),
+                           ("fleet_M128 row mesh S=4 f64 cold", "f64", 4)):
+        params = _search_params(lanes[0].sf, None, None, None, None, None, "pdhg", None, S,
+                                dtype, False)
+        prep = _prepare(lanes, params, FLEET128_GAP, dev, shared_A=True, convergence={},
+                        row_mesh=None if S is None else shard_mesh(S, dev))
+        plan = prep.plan
+        if plan is None or not plan.sig.diag or plan.sig.engine != "pdhg":
+            fail(f"root LP node {name}: no diagnostics plan on the PDHG's graph route")
+        plan.load_static(prep.entry)
+        data, sig = plan.data(prep.entry), plan.sig
+        with uncounted():
+            plan._seed(lib, data, sh)
+            plan._control(lib, sh, init=True)
+            plan._head(data, sh, 0, 0)
+        R0 = sig.L * sig.B0
+        if plan.row_mesh:
+            kernel, launch = "pdhgs_fused_kernel", lambda: plan._k6b(sh, 0)  # noqa: B023
+            label = f"K6b fused S={sig.S}"
+        else:
+            kernel, launch = K5_KERNEL[sig.route], lambda: plan._k5(sh, 0, 0, R0)  # noqa: B023
+            label = f"K5 {sig.route}{sig.C if sig.route == 'cluster' else ''}"
+        out.append((name, label, R0, sig.trace_rows, *traced_untraced(plan, launch, kernel)))
+        prep.release()
+    return out
+
+
 def check_bnb_loop(report: dict) -> None:
     """The loop's kernels (bnb_loop_kernel.cu) against their plain versions,
     bit for bit, at the main path's shapes: the seed (the north star cold,
     and warm with its hint and root iterates), the init control, the head of
     the root and of a warm round (and the S=8 scenarios with lane 3 frozen),
     the step control and the answer; each timed beside its plain version
-    and its bound."""
+    and its bound. Then the same on diagnostics plans (R3d: the north star
+    cold, and the scenarios warm with lane 3 frozen): the init control's
+    zeroed log and trace, the step control's round-log row, the answer's
+    log and root trace tail (and, with the frozen lane's ran set to 0 and
+    words in its trace rows, the tail's mask), and the root round's traced
+    K1 launch timed beside the untraced one on the same buffers; then the
+    traced K5 and K6b root nodes of :func:`root_lp_nodes`."""
     import torch
 
     from distilp_torch import kernels
     from distilp_torch.kernels.build import library
     from distilp_torch.solver import device_loop as DL
+    from distilp_torch.solver import packed as PK
     from distilp_torch.solver.backend_torch import _search_params
     from distilp_torch.solver.search import round_inputs, root_state, seed_warm
     from distilp_torch.solver.standard_form import MOE_LOCAL_MOVES_WARM
@@ -924,10 +1020,13 @@ def check_bnb_loop(report: dict) -> None:
         cold = halda_solve(devs, model, mip_gap=1e-3, kv_bits="4bit")
     sh = kernels.stream_handle(torch.device("cuda"))
     rows = {k: [] for k in ("bnb_seed", "bnb_head", "bnb_control", "bnb_answer")}
-    cases = [("north_star_cold", [devs], None, None),
-             ("north_star_warm", [devs], cold, None),
-             ("scenarios_x8_lane3_frozen", scenario_fleets(devs, 8, 17), cold, 3)]
-    for name, fleets, warm, frozen_lane in cases:
+    root_lp = []
+    cases = [("north_star_cold", [devs], None, None, False),
+             ("north_star_warm", [devs], cold, None, False),
+             ("scenarios_x8_lane3_frozen", scenario_fleets(devs, 8, 17), cold, 3, False),
+             ("north_star_cold log", [devs], None, None, True),
+             ("scenarios_x8_lane3_frozen log", scenario_fleets(devs, 8, 17), cold, 3, True)]
+    for name, fleets, warm, frozen_lane, diag in cases:
         lanes = lane_inputs(fleets, model, "4bit")
         if warm is not None:
             from distilp_torch.solver.backend_torch import warm_inputs
@@ -936,8 +1035,17 @@ def check_bnb_loop(report: dict) -> None:
             lanes = [ln._replace(warm_tuple=w[0], root_warm_tuple=w[2]) for ln, w in zip(lanes, wi)]
         params = _search_params(lanes[0].sf, None, None, None, None, None, "ipm", None, None,
                                 None, False)
-        prep, plan, data = graph_prep(lanes, params, 1e-3)
+        prep, plan, data = graph_prep(lanes, params, 1e-3, diag)
         sig, v = plan.sig, plan.views
+        # The control's buffers (a diagnostics plan's log and trace too:
+        # NaN before each launch, so a row or word left unwritten shows).
+        ctl_bufs = (plan.frozen, plan.ran, plan.ctl) + ((plan.log, plan.trace) if diag else ())
+        ctl_names = ("frozen", "ran", "ctl", "log", "trace")
+
+        def poison():
+            if diag:
+                plan.log.fill_(float("nan"))  # noqa: B023
+                plan.trace.fill_(float("nan"))  # noqa: B023
         # Seed.
         plan._seed(lib, data, sh)
         st = root_state(v["lo_k"], v["hi_k"], sig.M, sig.cap, sig.m, prep.root_warm)
@@ -956,15 +1064,15 @@ def check_bnb_loop(report: dict) -> None:
                            root_state(v["lo_k"], v["hi_k"], sig.M, sig.cap, sig.m, None))
         rows["bnb_seed"].append((name, bad, ms, call, plain_ms, nb, src))
         # Init control.
+        poison()
         plan._control(lib, sh, init=True)
-        got = [t.clone() for t in (plan.frozen, plan.ran, plan.ctl)]
+        got = [t.clone() for t in ctl_bufs]
+        poison()
         DL.control_reference(plan, init=True, state=plan.states[0])
-        bad = [n for n, a, b in zip(("frozen", "ran", "ctl"), got, (plan.frozen, plan.ran, plan.ctl))
-               if not bits_equal(a, b)]
+        bad = [n for n, a, b in zip(ctl_names, got, ctl_bufs) if not bits_equal(a, b)]
         st0 = plan.states[0]
         nb = loop_bytes([st0.active, st0.node_bound, st0.node_kidx, st0.incumbent,
-                         st0.dropped_bound, st0.per_k_best, st0.per_k_dropped, plan.frozen,
-                         plan.ran, plan.ctl])
+                         st0.dropped_bound, st0.per_k_best, st0.per_k_dropped, *ctl_bufs])
         ms, call, src = time_kernel(lambda: plan._control(lib, sh, init=True), "bnb_control_kernel")
         plain_ms = cuda_ms(lambda: DL.control_reference(plan, init=True, state=st0))
         rows["bnb_control"].append((name + " init", bad, ms, call, plain_ms, nb, src))
@@ -989,15 +1097,26 @@ def check_bnb_loop(report: dict) -> None:
         if frozen_lane is not None:
             plan.frozen[frozen_lane] = True
         plan._round(data, sh, 0, 1, 0)
-        saved = [t.clone() for t in (plan.frozen, plan.ran, plan.ctl)]
+        saved = [t.clone() for t in ctl_bufs]
         plan._control(lib, sh, go=1)
-        got = [t.clone() for t in (plan.frozen, plan.ran, plan.ctl)]
-        for t, s0 in zip((plan.frozen, plan.ran, plan.ctl), saved):
+        got = [t.clone() for t in ctl_bufs]
+        for t, s0 in zip(ctl_bufs, saved):
             t.copy_(s0)
         DL.control_reference(plan, go=plan.gos[1])
-        bad = [n for n, a, b in zip(("frozen", "ran", "ctl"), got, (plan.frozen, plan.ran, plan.ctl))
-               if not bits_equal(a, b)]
+        bad = [n for n, a, b in zip(ctl_names, got, ctl_bufs) if not bits_equal(a, b)]
+        if diag and frozen_lane is not None and float(plan.log[frozen_lane, 0, 5]) != 0.0:
+            bad.append("the frozen lane's executed column")
         nb = loop_bytes([plan.gos[1], plan.frozen, plan.ctl])
+        if diag:
+            # The root round's log row (log_row): the beam's B0 active flags
+            # before the round and its steps, every active flag after it and
+            # the bounds of the active nodes, the incumbent, the dropped
+            # bound and the steps; one row written a lane.
+            st_b, st_a = plan.states[0], plan.states[1]
+            nb += loop_bytes([st_b.active[:, :sig.B0], st_b.stat_ipm_iters, st_a.active,
+                              st_a.incumbent, st_a.dropped_bound, st_a.stat_ipm_iters,
+                              plan.log[:, 0]])
+            nb += st_a.node_bound.element_size() * int(st_a.active.sum())
 
         def step_kernel():
             plan.ctl.copy_(saved[2])
@@ -1014,16 +1133,50 @@ def check_bnb_loop(report: dict) -> None:
         got = plan.answer.clone()
         ref = DL.answer_reference(plan, plan.states[1])
         bad = [] if bits_equal(got, ref) else ["answer"]
+        if diag and frozen_lane is not None:
+            # The frozen lane ran the root round but K1 skipped its rows.
+            tail = PK.split_answer(got.cpu().numpy(), plan.alay)["conv"]
+            if tail[1][frozen_lane].any() or not tail[1].any():
+                bad.append("the frozen lane's root trace")
+            # A lane settled at the seed (ran 0) whose trace rows hold
+            # words: the answer's tail masks them by ran.
+            ran0, trace0 = plan.ran.clone(), plan.trace.clone()
+            plan.ran[frozen_lane] = 0
+            plan.trace.view(sig.L, sig.B0, -1)[frozen_lane] = 1.5
+            plan._answer(lib, sh)
+            got0 = plan.answer.clone()
+            if not bits_equal(got0, DL.answer_reference(plan, plan.states[1])):
+                bad.append("the answer with the lane's ran 0")
+            tail = PK.split_answer(got0.cpu().numpy(), plan.alay)["conv"]
+            if tail[1][frozen_lane].any() or not tail[1].any():
+                bad.append("the root trace's ran mask")
+            plan.ran.copy_(ran0)
+            plan.trace.copy_(trace0)
         st1, r0 = plan.states[1], plan.res[0]
         nb = loop_bytes([st1.incumbent, st1.node_bound, st1.active, st1.dropped_bound,
                          st1.inc_kidx, st1.stat_ipm_iters, st1.stat_rounds, st1.inc_w, st1.inc_n,
                          st1.inc_y, st1.per_k_best, plan.ran, plan.answer]) + loop_bytes(
             [t.reshape(sig.L, sig.B0, -1)[:, :sig.n_k] for t in (r0.v, r0.y_dual, r0.z_dual,
                                                                  r0.f_dual)])
+        if diag:
+            nb += loop_bytes([plan.log, plan.trace.reshape(sig.L, sig.B0, -1)[:, :sig.n_k]])
+            # The root round's LP node, traced (the plan's) and untraced (the
+            # same launch with no trace buffer), on the same buffers.
+            R0 = sig.L * sig.B0
+            root_lp.append((name, "K1", R0, sig.trace_rows, *traced_untraced(
+                plan, lambda: plan._lp(sh, 0, 0, R0), "ipm_kernel")))  # noqa: B023
         ms, call, src = time_kernel(lambda: plan._answer(lib, sh), "bnb_answer_kernel")
         plain_ms = cuda_ms(lambda: DL.answer_reference(plan, plan.states[1]))
         rows["bnb_answer"].append((name, bad, ms, call, plain_ms, nb, src))
         prep.release()
+    root_lp += root_lp_nodes()
+    for name, label, R0, trows, traced, untraced, differ in root_lp:
+        print(f"bnb root LP node {name}: {label} traced {traced[0]:.4f} ms ({traced[2]}; call "
+              f"{traced[1]:.4f} ms), untraced {untraced[0]:.4f} ms ({untraced[2]}; call "
+              f"{untraced[1]:.4f} ms) at B={R0}, {trows} trace rows a root; outputs differ in "
+              f"{differ or 'nothing'}", flush=True)
+        if differ:
+            fail(f"the traced root LP node {name} differs from the untraced launch in {differ}")
     replaces = {
         "bnb_seed": "distilp_tpu/solver/backend_jax.py:1348",
         "bnb_head": "distilp_tpu/solver/backend_jax.py:1504",
@@ -1045,6 +1198,18 @@ def check_bnb_loop(report: dict) -> None:
                              replaces=replaces[kname], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None, held_on=case,
                              call_ms=call, timing=src)
+        # The diagnostics mode (R3d) of the control's step and the answer.
+        logged = [ln for ln in lines if " log" in ln[0] and not ln[0].endswith("init")
+                  and "scenarios" not in ln[0]]
+        if kname in ("bnb_control", "bnb_answer") and logged:
+            case, _, ms, call, plain_ms, nb, src = logged[0]
+            b_ms, b_by = bound_ms(0.0, nb, PEAK_F64_S)
+            report[kname]["log"] = dict(held_on=case, ms=ms, call_ms=call, timing=src,
+                                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    report["bnb_answer"]["root_lp_nodes"] = [
+        dict(case=name, node=label, rows=R0, trace_rows=trows, traced_ms=traced[0],
+             untraced_ms=untraced[0], traced_call_ms=traced[1], untraced_call_ms=untraced[1],
+             timing=traced[2]) for name, label, R0, trows, traced, untraced, _ in root_lp]
 
 
 def moe_lane(case, warm=None, per_k=False, margin_state=None, devs=None):
@@ -7604,7 +7769,7 @@ FALLBACK128_PINS = [(1, -312.9522665906968), (1, -312.95378065386245)]
 # objectives on its PDHG engine).
 MOE_PDHG_CASES = [MOE_CASES[0], MOE_CASES[2]]
 ELEM_KERNELS = ("pdhg_elem", "round_tail_lanes", "round_moe", "round_tail", "decomp")
-DIAGNOSE_KERNELS = ("ipm_trace", "pdhg_trace", "ipm", "pdhg")
+DIAGNOSE_KERNELS = ("ipm_trace", "pdhg_trace", "ipm", "pdhg", "bnb_graph")
 
 
 def doubled_cpu_table(devs):
@@ -7686,61 +7851,203 @@ def elem_path():
     return launches, calls
 
 
-def diagnose_path() -> dict:
-    """The convergence telemetry (B13) through the port's entry points:
-    ``halda_solve(convergence=...)`` on the north star (IPM) and the
-    128-device fleet (PDHG) against the untraced solves, a diagnostics
-    replanner over three drifting north-star ticks, and the ``diagnose``
-    CLI with its JSONL export and ``--load``."""
-    import statistics
-    import tempfile
-
+def diagnose_cases() -> list:
+    """The diagnose path's solves, each through a user's entry point at
+    full width, as (name, fn(conv) -> result, engine): ``conv`` is the
+    caller's convergence dict, or None for the untraced solve. The north
+    star cold on the IPM; the 128-device fleet on the PDHG in float32 and in
+    float64; Mixtral 8x7B on 4 devices (MoE with LP rounds) on the IPM; a
+    diagnostics replanner over the north star's cold and two warm ticks
+    (warm roots: the IPM's chunked trace) and over Mixtral M=4's cold and
+    two margin ticks; the 128-device fleet on a virtual row mesh of S=4."""
     import numpy as np
 
-    from distilp_torch import kernels
-    from distilp_torch.obs.convergence import CONV_DIGEST_KEYS
     from distilp_torch.solver import StreamingReplanner, halda_solve
     from distilp_torch.utils import make_synthetic_fleet
 
+    ns, model = make_synthetic_fleet(16, seed=123), online_model()
+    f128, model128 = make_synthetic_fleet(128, seed=123), online_model(128)
+    _, mconfig, mM, mseed, mpool, _ = MOE_CASES[0]
+    mmodel = moe_model(mconfig)
+
+    def mdevs():
+        return make_synthetic_fleet(mM, seed=mseed, pool_bytes=int(mpool))
+
+    def solve(devs, mdl, gap, kv="4bit", **kw):
+        return lambda conv: halda_solve(devs, mdl, mip_gap=gap, kv_bits=kv, convergence=conv,
+                                        **kw)
+
+    def ticks(make, mdl, gap, kv, moves, want):
+        def run(conv):
+            planner = StreamingReplanner(mip_gap=gap, kv_bits=kv, diagnostics=conv is not None)
+            devs, modes = make(), []
+            for move in [None] + moves:
+                if move is not None:
+                    move(devs)
+                planner.step(devs, mdl)
+                modes.append(planner.last_tick_mode)
+                if conv is not None and not planner.last_convergence.get("round_log"):
+                    fail(f"diagnostics tick {len(modes) - 1}: empty convergence report")
+            if modes != want:
+                fail(f"the diagnostics replanner's ticks were {modes}, not {want}")
+            if conv is not None:
+                conv.update(planner.last_convergence)
+            return planner.last
+        return run
+
+    rng_moves = [lambda d: drift(d, np.random.default_rng(11)),
+                 lambda d: drift(d, np.random.default_rng(12))]
+
+    def scale(i, f):
+        def move(devs):
+            devs[i].t_comm = devs[i].t_comm * f
+        return move
+
+    return [
+        ("north_star_M16 ipm cold", solve(ns, model, 1e-3), "ipm"),
+        ("fleet_M128 pdhg f32", solve(f128, model128, FLEET128_GAP), "pdhg"),
+        ("fleet_M128 pdhg f64", solve(f128, model128, FLEET128_GAP, pdhg_dtype="f64"), "pdhg"),
+        ("mixtral_M4 ipm", solve(mdevs(), mmodel, MOE_GAP, "8bit"), "ipm"),
+        ("north_star_M16 replanner cold warm warm",
+         ticks(lambda: make_synthetic_fleet(16, seed=123), model, 1e-3, "4bit", rng_moves,
+               ["cold", "warm", "warm"]), "ipm"),
+        ("mixtral_M4 replanner cold margin margin",
+         ticks(mdevs, mmodel, MOE_GAP, "8bit", [scale(1, 1.01), scale(2, 1.03)],
+               ["cold", "margin", "margin"]), "ipm"),
+        ("fleet_M128 pdhg row mesh S=4",
+         solve(f128, model128, FLEET128_GAP, lp_backend="pdhg", mesh_shards=4), "pdhg"),
+    ]
+
+
+def diagnose_path() -> dict:
+    """The convergence telemetry (B13) and the round log on the loop graph
+    (R3d) through the port's entry points: every :func:`diagnose_cases`
+    solve with the log on (its answer row, whole, against the host loop's
+    under ``device_loop.host_loop``: head, root iterates, log and trace,
+    bit for bit; the untraced graph solve's answer is its head and root
+    iterates, bit for bit; one graph launch, one upload, one read and 0
+    runtime kernel launches a solve; no search off the graph, every one
+    marked ``+log``); the walls (medians of 5, in turns) of the north star
+    and the 128-device fleet traced on the graph, untraced on the graph
+    and traced on the host loop; the ``diagnose`` CLI with its JSONL export
+    and ``--load``; and ``serve --solver-diagnostics`` over the scheduler
+    smoke trace (no host route) beside a plain ``serve``."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from distilp_torch import kernels
+    from distilp_torch.obs.convergence import CONV_DIGEST_KEYS, build_search_trace
+    from distilp_torch.parallel import force_virtual_devices
+    from distilp_torch.solver import device_loop as DL
+    from distilp_torch.solver import packed as PK
+
+    force_virtual_devices(8)
     kernels.reset_launch_counts()
-    cases = [("north_star_M16", make_synthetic_fleet(16, seed=123), online_model(), 1e-3,
-              "ipm"),
-             ("fleet_M128", make_synthetic_fleet(128, seed=123), online_model(128),
-              FLEET128_GAP, "pdhg")]
-    for name, devs, model, gap, engine in cases:
-        conv, tm = {}, {}
-        r, ms = timed(lambda: halda_solve(devs, model, mip_gap=gap, kv_bits="4bit",
-                                          convergence=conv, timings=tm))
+    cases = diagnose_cases()
+    walled = {"north_star_M16 ipm cold", "fleet_M128 pdhg f32"}
+    for name, fn, engine in cases:
+        conv, routes0 = {}, dict(kernels.SHAPES["bnb_graph"])
+        graph_log: list = []
+        g0, c0 = kernels.LAUNCHES["bnb_graph"], dict(PK.COPIES)
+        with recorded_loops(graph_log):
+            r, ms = timed(lambda: fn(conv))  # noqa: B023
+        n_graph = kernels.LAUNCHES["bnb_graph"] - g0
+        d2h = PK.COPIES["d2h"] - c0["d2h"]
+        routes = {k: v - routes0.get(k, 0) for k, v in kernels.SHAPES["bnb_graph"].items()
+                  if v != routes0.get(k, 0)}
+        host_log: list = []
+        plain_log: list = []
         with uncounted():
-            r0 = halda_solve(devs, model, mip_gap=gap, kv_bits="4bit")
-            walls = {}
-            for label, c in (("traced", {}), ("untraced", None)):
-                walls[label] = statistics.median(
-                    timed(lambda: halda_solve(devs, model, mip_gap=gap, kv_bits="4bit",
-                                              convergence=c))[1] for _ in range(5))
-        same = (r.k, r.w, r.n, r.obj_value) == (r0.k, r0.w, r0.n, r0.obj_value)
-        digest = {k: tm[k] for k in CONV_DIGEST_KEYS if k in tm}
-        print(f"diagnose {name}: engine={conv.get('lp_backend')} k={r.k} obj={r.obj_value!r} "
-              f"same_as_untraced={same} digest={json.dumps(digest)} "
-              f"walls_ms_median_of_5 traced={walls['traced']:.2f} "
-              f"untraced={walls['untraced']:.2f}", flush=True)
-        if not same or conv.get("lp_backend") != engine or not conv.get("round_log") \
-                or not digest.get("conv_certified"):
-            fail(f"diagnose {name}: same={same} engine={conv.get('lp_backend')} "
-                 f"digest={digest}")
-    planner = StreamingReplanner(mip_gap=1e-3, kv_bits="4bit", diagnostics=True)
-    devs, model = make_synthetic_fleet(16, seed=123), online_model()
-    rng = np.random.default_rng(11)
-    for t in range(3):
-        if t:
-            drift(devs, rng)
-        tm = {}
-        planner.step(devs, model, timings=tm)
-        rounds = len(planner.last_convergence.get("round_log", []))
-        print(f"diagnostics tick {t}: mode={planner.last_tick_mode} rounds={rounds} "
-              f"conv_lp_iters={tm.get('conv_lp_iters')}", flush=True)
-        if not rounds or "conv_rounds" not in tm:
-            fail(f"diagnostics tick {t}: empty convergence report")
+            with DL.host_loop(), recorded_loops(host_log):
+                fn({})
+            with recorded_loops(plain_log):
+                fn(None)
+            # A static hit: the uploads and reads of one more logged call,
+            # and its runtime kernel launches (the profiler's).
+            c1 = dict(PK.COPIES)
+            fn({})
+            torch.cuda.synchronize()
+            h2d_hit = PK.COPIES["h2d"] - c1["h2d"]
+            d2h_hit = PK.COPIES["d2h"] - c1["d2h"]
+            kl = kernel_launches(lambda: fn({}))  # noqa: B023
+        answers = [a for kind, a in graph_log if kind == "answer"]
+        h_answers = [a for kind, a in host_log if kind == "answer"]
+        u_answers = [a for kind, a in plain_log if kind == "answer"]
+        solves = len(answers)
+        same_host = solves > 0 and len(h_answers) == solves and all(
+            bits_equal(a, b) for a, b in zip(answers, h_answers))
+        same_untraced = len(u_answers) == solves and all(
+            u.shape[1] < a.shape[1] and bits_equal(a[:, :u.shape[1]], u)
+            for a, u in zip(answers, u_answers))
+        digest = build_search_trace(conv).digest()
+        line = {"case": name, "solves": solves, "engine": conv.get("lp_backend"), "k": r.k,
+                "obj": r.obj_value, "rounds": len(conv.get("round_log", [])),
+                "trace_rows": [len(t) for t in conv.get("root_trace", [])][:1],
+                "answers_equal_host_loop": same_host, "same_as_untraced": same_untraced,
+                "graph_launches": n_graph, "d2h": d2h, "h2d_static_hit": h2d_hit,
+                "d2h_static_hit": d2h_hit,
+                "graph_launches_profiled": kl["wrappers"].get("bnb_graph", 0),
+                "runtime_launches": kl["runtime_launches"], "wall_ms": ms, "routes": routes,
+                "digest": {k: digest[k] for k in CONV_DIGEST_KEYS if k in digest}}
+        print("diagnose", json.dumps(line), flush=True)
+        if not (same_host and same_untraced):
+            fail(f"diagnose {name}: the logged graph solve differs from the host loop "
+                 f"({same_host}) or from the untraced solve ({same_untraced})")
+        if (n_graph != solves or d2h != solves or h2d_hit != solves or d2h_hit != solves
+                or line["graph_launches_profiled"] != solves or kl["runtime_launches"] != 0):
+            fail(f"diagnose {name}: not one graph launch, one upload, one read and no runtime "
+                 f"kernel launch a solve: {line}")
+        if not routes or any(not k.startswith("route=graph") or "+log" not in k
+                             for k in routes):
+            fail(f"diagnose {name}: a logged search left the graph route: {routes}")
+        if conv.get("lp_backend") != engine or not conv.get("round_log") \
+                or not line["digest"].get("conv_certified"):
+            fail(f"diagnose {name}: engine {conv.get('lp_backend')}, digest {line['digest']}")
+    # Walls: traced on the graph, untraced on the graph, traced on the host
+    # loop, in turns, medians of 5; the graph routes' device spans (CUDA
+    # events around the graph launch) and the host's decode of the log
+    # (``backend_torch._decode_convergence``) beside them, so a logged
+    # solve's cost over the untraced one splits into card and host.
+    from distilp_torch.solver import backend_torch as BT
+
+    decode_orig = BT._decode_convergence
+    for name, fn, _ in cases:
+        if name not in walled:
+            continue
+        walls = {"traced": [], "untraced": [], "traced_host_loop": []}
+        spans = {"traced": [], "untraced": []}
+        decode: dict = {"traced": [], "traced_host_loop": []}
+        with uncounted():
+            for rep in range(5):
+                order = list(walls) if rep % 2 == 0 else list(walls)[::-1]
+                for label in order:
+                    ctx = DL.host_loop() if label == "traced_host_loop" else graph_spans()
+
+                    def timed_decode(*a, _into=decode.get(label)):
+                        t0 = time.perf_counter()
+                        decode_orig(*a)
+                        _into.append((time.perf_counter() - t0) * 1e3)
+
+                    if label != "untraced":
+                        BT._decode_convergence = timed_decode
+                    try:
+                        with ctx as sp:
+                            walls[label].append(timed(
+                                lambda: fn(None if label == "untraced" else {}))[1])  # noqa: B023
+                    finally:
+                        BT._decode_convergence = decode_orig
+                    if label in spans:
+                        spans[label].extend(sp)
+        line = {"case": name, "card": smi_line(),
+                **{f"{k}_ms_median_of_5": statistics.median(v) for k, v in walls.items()},
+                **{f"{k}_device_span_ms_median": statistics.median(v)
+                   for k, v in spans.items() if v},
+                **{f"{k}_decode_ms_median": statistics.median(v)
+                   for k, v in decode.items() if v},
+                "walls_ms": walls}
+        print("diagnose walls", json.dumps(line), flush=True)
     child: dict = {}
     with tempfile.TemporaryDirectory(prefix="distilp_diagnose_") as tmp:
         out = Path(tmp) / "diag.jsonl"
@@ -7753,6 +8060,31 @@ def diagnose_path() -> dict:
             "diagnose", "--load", str(out)], child)
         if rc2 != 0 or "search:" not in stdout2:
             fail(f"solver diagnose --load exited {rc2}:\n{err2[-2000:]}")
+    # serve --solver-diagnostics over the scheduler smoke trace, beside a
+    # plain serve of the same trace (whose launches are not this path's).
+    serve = ["serve", "--trace", "tests/traces/scheduler_smoke_20.jsonl", *SERVE_SMOKE]
+    summaries = {}
+    for label, extra, into in (("plain", [], {}), ("solver_diagnostics",
+                                                   ["--solver-diagnostics"], child)):
+        before = dict(into.get("_shapes", {}).get("bnb_graph", {}))
+        rc, stdout, err, wall = run_cli("distilp_torch.cli.solver_cli", serve + extra, into)
+        if rc != 0:
+            fail(f"serve {label} exited {rc}:\n{err[-2000:]}")
+        sm = serve_summary(stdout)
+        after = into.get("_shapes", {}).get("bnb_graph", {})
+        routes = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+        counters = sm["metrics"]["counters"]
+        summaries[label] = {
+            "wall_s": wall, "replay": sm["replay"], "routes": routes,
+            "ticks_by_mode": {k: v for k, v in counters.items() if k.startswith("tick_")},
+            "tick_ms_by_kind": {k: {q: v[q] for q in ("count", "p50_ms", "p99_ms", "mean_ms")}
+                                for k, v in sm["metrics"]["latency"].items()
+                                if k in ("drift_tick", "structural_tick",
+                                         "event_to_placement")}}
+        print(f"serve {label}", json.dumps(summaries[label]), flush=True)
+    logged = summaries["solver_diagnostics"]["routes"]
+    if not logged or any(k.startswith("route=host") or "+log" not in k for k in logged):
+        fail(f"serve --solver-diagnostics: a search left the logged graph route: {logged}")
     launches = path_launches(child)
     print("diagnose path launches", json.dumps(launches), flush=True)
     missing = [k for k in DIAGNOSE_KERNELS if launches[k] == 0]
@@ -8597,11 +8929,10 @@ def mesh_path() -> dict:
                               if sh.endswith("route=" + r)) for r in ("fused", "sequenced")}
                 for name in ("pdhg_sharded", "pdhg_sharded_elem")}
     print("mesh path K6b launches by route", json.dumps(by_route), flush=True)
-    # Every search on a mesh of this card is one graph launch (R3c): only the
-    # convergence solve keeps the host loop (its round log, R3d).
+    # Every search on a mesh of this card is one graph launch (R3c), the
+    # logged ones too (R3d).
     routes = launches["_shapes"].get("bnb_graph", {})
-    off = {k: v for k, v in routes.items()
-           if k.startswith("route=host") and not k.startswith("route=host convergence")}
+    off = {k: v for k, v in routes.items() if k.startswith("route=host")}
     print(f"mesh path routes {json.dumps(routes)}", flush=True)
     print(f"mesh path: {time.perf_counter() - t_path:.1f} s", flush=True)
     if off:

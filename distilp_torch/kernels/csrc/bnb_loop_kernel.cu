@@ -44,6 +44,18 @@
 //                       k's assignment and bound, then the root round's
 //                       iterates (a lane that skipped it: the carried-in
 //                       ones).
+// The diagnostics configuration (_run_bnb_loop(collect_rounds=True) inside
+// _solve_packed_impl(diag=True), :2777-2783, :2811-2893, :3272-3278): the
+// same program with a log threaded through it. The root round's LP runs with
+// its convergence trace on (B13: its other outputs are the untraced
+// launch's bit for bit, so the search is the untraced one);
+//   bnb_control_kernel  (init) zeroes the log and the trace; (step) writes the
+//                       round's row, _round_row (:171-185), from the states
+//                       that bracket it: [expanded, live_after, incumbent,
+//                       best_bound, lp_iters, executed];
+//   bnb_answer_kernel   appends the log (max_rounds rows) and the first n_k
+//                       roots' trace, masked by the lanes that ran the root
+//                       round and rounded to float32, to each lane's row.
 // MoE sweeps (_solve_packed_impl's MoE parts, :2239-2350, :2437-2445; the
 // MoE branch of _round_to_incumbent, :721-783):
 //   bnb_seed_kernel     also gathers K7's problem of every lane from the
@@ -105,6 +117,10 @@ constexpr int CONTROL_THREADS = 256;
 constexpr int ANSWER_THREADS = 256;
 constexpr int MOE_SEED_THREADS = 128;
 constexpr int CAST_THREADS = 256;
+// The round log's and the LP trace's columns (search.RL_COLS,
+// ops/ipm.py::TRACE_COLS).
+constexpr int RL_COLS = 6;
+constexpr int TRACE_COLS = 6;
 // K7's per-device rows (ops/decomp.py::RD_DEV_FIELDS), at most.
 constexpr int DEV_ROWS = 16;
 
@@ -760,6 +776,21 @@ struct ControlParams {
   uint8_t* frozen;  // (L,)
   uint8_t* ran;     // (L,) init: the lanes that run the root round
   int* ctl;
+  // The round log (null: none): (L, max_rounds, RL_COLS), a row a round
+  // that ran; the root round's rows a lane (B0) and a warm round's (Bw);
+  // the round's source state (before it) and the state it wrote (after);
+  // the root LP's trace buffer, trace_words 4-byte words, zeroed at init.
+  double* log;
+  int B0, Bw;
+  const uint8_t* b_active;
+  const double* b_iters;
+  const uint8_t* a_active;
+  const double* a_bound;
+  const double* a_inc;
+  const double* a_dropped;
+  const double* a_iters;
+  uint32_t* trace;
+  long trace_words;
 };
 
 // search.certified / certified_per_k on one lane of the seeded state, its
@@ -795,6 +826,31 @@ __device__ bool lane_go(const ControlParams& p, int l) {
   return false;
 }
 
+// search.round_row of lane l for round r (the reference's _round_row): the
+// beam's active rows before the round, the live nodes, the incumbent and the
+// proven bound after it (search.best_bound), the LP steps it spent, and
+// whether the lane ran it (not frozen in it). A frozen lane's state passed
+// through the round unchanged, so its row comes from that state.
+__device__ void log_row(const ControlParams& p, int l, int r) {
+  const size_t lc = (size_t)l * p.cap;
+  const int nbeam = r == 0 ? p.B0 : p.Bw;
+  const double inf = INFINITY;
+  int expanded = 0, live = 0;
+  double lb = inf;
+  for (int c = 0; c < p.cap; ++c) {
+    if (c < nbeam && p.b_active[lc + c]) ++expanded;
+    if (p.a_active[lc + c]) ++live;
+    lb = nan_min(lb, p.a_active[lc + c] ? p.a_bound[lc + c] : inf);
+  }
+  double* row = p.log + ((size_t)l * p.max_rounds + r) * RL_COLS;
+  row[0] = (double)expanded;
+  row[1] = (double)live;
+  row[2] = p.a_inc[l];
+  row[3] = t_min(lb, p.a_dropped[l]);
+  row[4] = __dsub_rn(p.a_iters[l], p.b_iters[l]);
+  row[5] = p.frozen[l] ? 0.0 : 1.0;
+}
+
 __global__ void __launch_bounds__(CONTROL_THREADS) bnb_control_kernel(const __grid_constant__ ControlParams p) {
   __shared__ int s_any;
   __shared__ int s_run;
@@ -802,6 +858,13 @@ __global__ void __launch_bounds__(CONTROL_THREADS) bnb_control_kernel(const __gr
   if (tid == 0) s_any = 0;
   __syncthreads();
   if (p.init) {
+    // A launch's log and trace start empty: a plan serves every solve of
+    // its signature, and a shorter solve must not show a longer one's rows.
+    if (p.log != nullptr) {
+      const size_t n = (size_t)p.L * p.max_rounds * RL_COLS;
+      for (size_t i = tid; i < n; i += blockDim.x) p.log[i] = 0.0;
+      for (size_t i = tid; i < (size_t)p.trace_words; i += blockDim.x) p.trace[i] = 0u;
+    }
     // Before the root round: each lane's go on the seeded state.
     const bool run0 = p.max_rounds >= 1;
     for (int l = tid; l < p.L; l += blockDim.x) {
@@ -818,11 +881,15 @@ __global__ void __launch_bounds__(CONTROL_THREADS) bnb_control_kernel(const __gr
     }
     return;
   }
-  // After a round: the tail's flags decide the next one.
+  // After a round: the tail's flags decide the next one. A round that ran
+  // after the loop stopped (the WHILE body runs two a pass) is an exact copy
+  // and writes no log row.
   const bool stopped = p.ctl[1] != 0;
   if (!stopped) {
+    const int r = p.ctl[0];
     for (int l = tid; l < p.L; l += blockDim.x) {
       if (p.go[l]) atomicOr(&s_any, 1);
+      if (p.log != nullptr && r < p.max_rounds) log_row(p, l, r);
     }
   }
   __syncthreads();
@@ -857,11 +924,17 @@ struct AnswerParams {
   const float* rw_f;
   double* out;  // (L, width)
   // MoE: the seed's duals block (L, dual_w) after each k's best, and the
-  // evaluation's y-profile (L, my_size) at the end, where asked.
+  // evaluation's y-profile (L, my_size) after the root iterates, where asked.
   int dual_w;
   long my_size;
   const double* duals;
   const double* my;
+  // Diagnostics: the round log (L, log_rows, RL_COLS) and the root round's
+  // LP trace (L*B0, trace_rows, TRACE_COLS) in float32, or float64 when
+  // trace_f64 (log_rows and trace_rows 0: none).
+  int log_rows, trace_rows, trace_f64;
+  const double* log;
+  const void* trace;
 };
 
 // backend_torch._search's answer of one lane, a block a lane.
@@ -941,6 +1014,24 @@ __global__ void __launch_bounds__(ANSWER_THREADS) bnb_answer_kernel(const __grid
     q += n_k * W;
   }
   for (size_t i = tid; i < (size_t)p.my_size; i += blockDim.x) o[q + i] = p.my[l * p.my_size + i];
+  q += p.my_size;
+  // The diagnostics tail (packed.AnswerLayout: the log's rows, then the
+  // trace of the first n_k roots, zeros for a lane that skipped the root
+  // round, rounded to float32 as search.cast_lp_result rounds the host
+  // loop's).
+  const size_t nlog = (size_t)p.log_rows * RL_COLS;
+  for (size_t i = tid; i < nlog; i += blockDim.x) o[q + i] = p.log[l * nlog + i];
+  q += nlog;
+  const size_t per = (size_t)p.trace_rows * TRACE_COLS;
+  for (size_t e = tid; e < n_k * per; e += blockDim.x) {
+    const size_t src = ((size_t)l * p.B0 + e / per) * per + e % per;
+    float x = 0.0f;
+    if (ran) {
+      x = p.trace_f64 ? __double2float_rn(static_cast<const double*>(p.trace)[src])
+                      : static_cast<const float*>(p.trace)[src];
+    }
+    o[q + e] = (double)x;
+  }
 }
 
 // ------------------------------------------------------------- the graph
@@ -1170,8 +1261,10 @@ int dtk_bnb_gather(const long long* ptrs, const int* dims, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// dims: L, cap, n_k, per_k, max_rounds, init; ptrs: go, active, bound,
-// kidx, inc, dropped, pkb, pkd, frozen, ran, ctl.
+// dims: L, cap, n_k, per_k, max_rounds, init, B0, Bw, trace_words; ptrs:
+// go, active, bound, kidx, inc, dropped, pkb, pkd, frozen, ran, ctl, then
+// (the round log; null: none) log, b_active, b_iters, a_active, a_bound,
+// a_inc, a_dropped, a_iters, trace.
 int dtk_bnb_control(const long long* ptrs, const int* dims, double mip_gap,
                     unsigned long long handle, void* stream) {
   ControlParams p;
@@ -1181,22 +1274,38 @@ int dtk_bnb_control(const long long* ptrs, const int* dims, double mip_gap,
   p.per_k = dims[3];
   p.max_rounds = dims[4];
   p.init = dims[5];
+  p.B0 = dims[6];
+  p.Bw = dims[7];
+  p.trace_words = dims[8];
   p.mip_gap = mip_gap;
   p.handle = (cudaGraphConditionalHandle)handle;
-  if (p.L <= 0) return (int)cudaErrorInvalidValue;
+  if (p.L <= 0 || p.trace_words < 0) return (int)cudaErrorInvalidValue;
   const void** slots[] = {(const void**)&p.go,  (const void**)&p.active, (const void**)&p.bound,
                           (const void**)&p.kidx, (const void**)&p.inc, (const void**)&p.dropped,
                           (const void**)&p.pkb, (const void**)&p.pkd, (const void**)&p.frozen,
-                          (const void**)&p.ran, (const void**)&p.ctl};
+                          (const void**)&p.ran, (const void**)&p.ctl, (const void**)&p.log,
+                          (const void**)&p.b_active, (const void**)&p.b_iters,
+                          (const void**)&p.a_active, (const void**)&p.a_bound,
+                          (const void**)&p.a_inc, (const void**)&p.a_dropped,
+                          (const void**)&p.a_iters, (const void**)&p.trace};
   constexpr int n = sizeof(slots) / sizeof(slots[0]);
   for (int i = 0; i < n; ++i) *slots[i] = (const void*)ptrs[i];
+  if (p.log != nullptr) {
+    if (p.B0 <= 0 || p.B0 > p.cap || p.Bw <= 0 || p.Bw > p.cap ||
+        (p.trace_words > 0 && p.trace == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (!p.init && (p.b_active == nullptr || p.b_iters == nullptr || p.a_active == nullptr ||
+                    p.a_bound == nullptr || p.a_inc == nullptr || p.a_dropped == nullptr ||
+                    p.a_iters == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
   bnb_control_kernel<<<1, CONTROL_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // dims: L, cap, nf, m, M, n_k, per_k, B0, width, has_root_warm, dual_w,
-// my_size; ptrs: the state's 23, ran, rv, ry, rz, rf, rw_ok, rw_v, rw_y,
-// rw_z, rw_f, out, duals, my.
+// my_size, log_rows, trace_rows, trace_f64; ptrs: the state's 23, ran, rv,
+// ry, rz, rf, rw_ok, rw_v, rw_y, rw_z, rw_f, out, duals, my, log, trace.
 int dtk_bnb_answer(const long long* ptrs, const int* dims, void* stream) {
   AnswerParams p;
   p.L = dims[0];
@@ -1216,12 +1325,18 @@ int dtk_bnb_answer(const long long* ptrs, const int* dims, void* stream) {
                           (const void**)&p.rz, (const void**)&p.rf, (const void**)&p.rw_ok,
                           (const void**)&p.rw_v, (const void**)&p.rw_y, (const void**)&p.rw_z,
                           (const void**)&p.rw_f, (const void**)&p.out,
-                          (const void**)&p.duals, (const void**)&p.my};
+                          (const void**)&p.duals, (const void**)&p.my, (const void**)&p.log,
+                          (const void**)&p.trace};
   constexpr int n = sizeof(slots) / sizeof(slots[0]);
   for (int i = 0; i < n; ++i) *slots[i] = (const void*)ptrs[STATE_PTRS + i];
   p.dual_w = dims[10];
   p.my_size = dims[11];
-  if ((p.dual_w > 0 && p.duals == nullptr) || (p.my_size > 0 && p.my == nullptr))
+  p.log_rows = dims[12];
+  p.trace_rows = dims[13];
+  p.trace_f64 = dims[14];
+  if ((p.dual_w > 0 && p.duals == nullptr) || (p.my_size > 0 && p.my == nullptr) ||
+      p.log_rows < 0 || p.trace_rows < 0 || (p.log_rows > 0 && p.log == nullptr) ||
+      (p.trace_rows > 0 && p.trace == nullptr))
     return (int)cudaErrorInvalidValue;
   bnb_answer_kernel<<<p.L, ANSWER_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

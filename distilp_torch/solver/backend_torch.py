@@ -520,9 +520,10 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
     entry); ``node_mesh`` (a Mesh, one sweep) splits every round's rows
     over its shards (K10), the root round widened to ``root_beam`` rows.
     The route (``device_loop.loop_route``): a sweep on either engine, on a
-    row or node mesh of the search's card too, takes the graph route, whose
-    plan owns the blob (on the PDHG with K5's route in its signature, on a
-    mesh with its shards); a mesh over distinct cards keeps the host loop;
+    row or node mesh of the search's card too, with the round log or
+    without, takes the graph route, whose plan owns the blob (on the PDHG
+    with K5's route in its signature, on a mesh with its shards, with the
+    log its ``diag``); a mesh over distinct cards keeps the host loop;
     ``_host_loop`` (the card's comparison) forces the host loop."""
     t1 = time.perf_counter()
     L = len(lanes)
@@ -560,7 +561,7 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         moe_ctx = (max(W for _, W in lanes[0].feasible), lanes[0].E, decomp_steps)
     route, why = loop_route(moe, engine, row_mesh, convergence is not None, node_mesh, dev)
     if route == "graph" and (_host_loop or forced_host_loop()):
-        route, why = "host", "host_loop_asked"
+        route, why = "host", "host_loop_asked" + ("+log" if convergence is not None else "")
     note_route(route, why, L)
     lp_dt = resolve_pdhg_dtype(params["pdhg_dtype"]) or torch.float32
     plan = pinned = None
@@ -582,7 +583,8 @@ def _prepare(lanes: List[LaneInput], params: dict, mip_gap: float, dev, debug=Fa
         plan = acquire_plan(plan_sig(
             dev, L, params["cap"], n_k, params["beam"], m, nf, M, per_k, params["ipm_iters"],
             params["ipm_warm_iters"], use_root_warm, mip_gap, params["max_rounds"], has_warm,
-            use_root_warm, entry, moe_ctx, duals is not None, has_margin, want_my, pdhg, mesh))
+            use_root_warm, entry, moe_ctx, duals is not None, has_margin, want_my, pdhg, mesh,
+            diag=convergence is not None))
         plan.stage(lanes)
         views = plan.views
     else:
@@ -664,6 +666,36 @@ def seeded_state(prep: _Prepared):
     return state, duals_t, raw_bounds, m_y, t_decomp
 
 
+def host_answer(prep: _Prepared, state: SearchState, root_iters, log, duals_t=None,
+                raw_bounds=None, m_y=None):
+    """The host loop's (L, width) answer on the device and its layout: the
+    searched ``state``'s rows (``device_loop.answer_rows``), then the margin
+    anchor ``m_y`` where a lane asks for it, then ``run_bnb_loop``'s round
+    log, padded to ``max_rounds`` zero rows (the graph's layout, so the two
+    routes' answers compare byte for byte), and the first n_k roots'
+    trace."""
+    data = prep.data
+    L, n_k = data.ks.shape
+    sf = prep.lanes[0].sf
+    m, nf = sf.A.shape[1], sf.A.shape[2]
+    extra, my_shape, conv_rows, trace_shape = [], (), 0, ()
+    if m_y is not None and any(ln.margin_ctx is not None for ln in prep.lanes):
+        extra.append(m_y)
+        my_shape = tuple(m_y.shape[1:])
+    if log is not None:
+        rows, root_trace = log
+        conv_rows = prep.loop_kw["max_rounds"]
+        rl = torch.zeros((conv_rows, L, RL_COLS), dtype=BDTYPE, device=data.ks.device)
+        if rows:
+            rl[:len(rows)] = torch.stack(rows)
+        tr = root_trace[:, :n_k]
+        trace_shape = tuple(tr.shape[1:])
+        extra += [rl.transpose(0, 1), tr]
+    lay = packed.AnswerLayout(sf.M, n_k, m, nf, duals_t is not None, prep.per_k, my_shape,
+                              conv_rows, trace_shape)
+    return answer_rows(state, root_iters, n_k, prep.per_k, duals_t, raw_bounds, extra), lay
+
+
 def _search(prep: _Prepared) -> dict:
     """The device half of L sweeps and one read-back of what the decode
     needs: on the graph route one launch of the plan's graph (the seed, the
@@ -671,9 +703,6 @@ def _search(prep: _Prepared) -> dict:
     (one ascent over every lane), the warm incumbents and
     ``search.run_bnb_loop``, the answer assembled on the card."""
     data = prep.data
-    L, n_k = data.ks.shape
-    sf = prep.lanes[0].sf
-    m, nf = sf.A.shape[1], sf.A.shape[2]
     t2 = time.perf_counter()
     stats = {}
     try:
@@ -686,22 +715,8 @@ def _search(prep: _Prepared) -> dict:
         else:
             state, duals_t, raw_bounds, m_y, t_decomp = seeded_state(prep)
             state, root_iters, log = run_bnb_loop(data, state, prep.mip_gap, **prep.loop_kw)
-            extra, my_shape, conv_rows, trace_shape = [], (), 0, ()
-            if m_y is not None and any(ln.margin_ctx is not None for ln in prep.lanes):
-                extra.append(m_y)
-                my_shape = tuple(m_y.shape[1:])
-            if log is not None:
-                rows, root_trace = log
-                rl = (torch.stack(rows) if rows
-                      else torch.zeros((0, L, RL_COLS), dtype=BDTYPE, device=data.ks.device))
-                conv_rows = rl.shape[0]
-                tr = root_trace[:, :n_k]
-                trace_shape = tuple(tr.shape[1:])
-                extra += [rl.transpose(0, 1), tr]
-            ans = packed.read_answer(answer_rows(state, root_iters, n_k, prep.per_k, duals_t,
-                                                 raw_bounds, extra))
-            lay = packed.AnswerLayout(sf.M, n_k, m, nf, duals_t is not None, prep.per_k,
-                                      my_shape, conv_rows, trace_shape)
+            ans, lay = host_answer(prep, state, root_iters, log, duals_t, raw_bounds, m_y)
+            ans = packed.read_answer(ans)
             if prep.moe_ctx is not None:
                 # Host time to enqueue the bound (the ascent reads nothing back).
                 stats.update(decomp_steps=prep.moe_ctx[2],

@@ -19,7 +19,15 @@ row's per-node A), the LP engine on the plan's buffers (K1, or K5 on the
 route the signature fixed, then for ``pdhg_dtype='f64'`` the cast of its
 result to the search's float32), (MoE) K2 MoE's LP rows, the round tail
 into the other state buffer, and the loop's control, which sets the WHILE
-node's condition from the device. The meshes of one card have round shapes
+node's condition from the device. A diagnostics plan (``diag``: the
+reference's ``_solve_packed_impl(diag=True)`` with ``_run_bnb_loop(
+collect_rounds=True)``, :2125, :2777) is the same graph with a log threaded
+through it: the root round's LP runs with its convergence trace on (B13,
+into a buffer the plan owns; its other outputs are the untraced launch's
+bit for bit), the control writes each round's row of the round log on the
+card (``search.round_row``), and the answer carries the log and the trace,
+so ``halda_solve(convergence=...)`` is one upload, one graph launch and one
+read like the solve it describes. The meshes of one card have round shapes
 of their own:
 
     row mesh   head (its mesh mode: b and the warm y into the S row blocks,
@@ -44,9 +52,9 @@ conditional node.
 The route is chosen by the configuration (:func:`loop_route`): the graph
 for dense and MoE sweeps on either engine, whatever the lanes (one A or an
 A each), per-k or not, on the PDHG whatever its dtype and K5's route, and
-on a row or node mesh whose shards all lie on the search's card; a mesh
-over distinct cards and the convergence log keep ``search.run_bnb_loop``,
-the host loop.
+on a row or node mesh whose shards all lie on the search's card, with the
+round log or without; only a mesh over distinct cards keeps
+``search.run_bnb_loop``, the host loop.
 ``kernels.SHAPES["bnb_graph"]`` counts the route of every search. A failed
 capture, instantiation or launch raises: nothing falls back to the host
 loop, which stays only as the private :func:`host_loop` for the card's
@@ -71,6 +79,7 @@ from ..obs import compile_ledger as _compile_ledger
 from ..obs import memory as _memory
 from ..ops.ipm import (
     IPM_DEFAULT_CHUNK,
+    TRACE_COLS,
     THREADS as IPM_THREADS,
     IPMResult,
     LPBatch,
@@ -104,6 +113,7 @@ from .rounding import (
 from .search import (
     BDTYPE,
     DTYPE,
+    RL_COLS,
     TAIL_SMEM_LIMIT,
     SearchState,
     SweepData,
@@ -115,6 +125,7 @@ from .search import (
     per_k_bound,
     root_state,
     round_inputs,
+    round_row,
     round_rows,
     round_tail,
     seed_root_bounds,
@@ -157,21 +168,24 @@ def loop_route(moe: bool, engine: str, row_mesh, collect_rounds: bool, node_mesh
     dense and MoE sweeps on the IPM and the PDHG engine, and for a row mesh
     (``row_mesh``, more than one shard; the PDHG's) or a node mesh
     (``node_mesh``) whose shards all lie on the search's ``device``; a mesh
-    over distinct cards (until a transport joins their graphs) and the
-    convergence log keep the host loop."""
-    if collect_rounds:
-        return "host", "convergence"
+    over distinct cards (until a transport joins their graphs) keeps the
+    host loop. The round log (``collect_rounds``) takes the route of its
+    configuration untraced, its why marked ``+log``; a node mesh takes
+    none (``parallel.solve_sweep_sharded`` has no round log)."""
+    if collect_rounds and node_mesh is not None:
+        raise ValueError("a node-mesh sweep takes no round log")
+    log = "+log" if collect_rounds else ""
     moe_ = "moe_" if moe else ""
     # A row mesh partitions the PDHG's rows (the IPM engine refuses one).
     if row_mesh is not None and row_mesh.size > 1 and engine == "pdhg":
         if not _one_card(row_mesh, device):
-            return "host", "row_mesh_cards"
-        return "graph", f"{moe_}row_mesh_{engine}"
+            return "host", "row_mesh_cards" + log
+        return "graph", f"{moe_}row_mesh_{engine}{log}"
     if node_mesh is not None:
         if not _one_card(node_mesh, device):
             return "host", "node_mesh_cards"
         return "graph", f"{moe_}node_mesh_{engine}"
-    return "graph", f"{'moe' if moe else 'dense'}_{engine}"
+    return "graph", f"{'moe' if moe else 'dense'}_{engine}{log}"
 
 
 def _one_card(mesh, device) -> bool:
@@ -255,17 +269,22 @@ class PlanSig(NamedTuple):
     Gs: int = 0
     blk_nnz: tuple = ()
     blk_index: tuple = ()
+    # The round log and the root round's LP trace (``diag``; the root
+    # trace's rows, ``search.root_trace_rows``).
+    diag: bool = False
+    trace_rows: int = 0
 
 
 # The compile ledger's view of a signature: a capture with a new value of
 # one of these fields is a static-argument flip (the engine and K5's route,
 # the iteration budgets, the per-k mode, the optional warm inputs, the MoE
-# seed's mode, the mesh and its shards); with new values of the others
-# only, a shape-bucket change.
+# seed's mode, the mesh and its shards, the diagnostics log: the reference's
+# static ``diag``); with new values of the others only, a shape-bucket
+# change.
 _STATIC_FIELDS = ("device", "per_k", "ipm_iters", "root_chunk", "warm_iters", "mip_gap",
                   "max_rounds", "has_warm", "has_root_warm", "a_lanes", "moe", "decomp_steps",
                   "has_duals", "has_margin", "want_my", "engine", "lp_f64", "restart_tol",
-                  "route", "C", "smem", "buf_len", "mesh", "S", "Gs")
+                  "route", "C", "smem", "buf_len", "mesh", "S", "Gs", "diag")
 _SHAPE_FIELDS = tuple(f for f in PlanSig._fields if f not in _STATIC_FIELDS)
 
 
@@ -279,14 +298,19 @@ def ledger_signatures(sig: PlanSig) -> Tuple[str, str]:
 def plan_sig(dev, L, cap, n_k, beam, m, nf, M, per_k, ipm_iters, ipm_warm_iters,
              root_warm_chunk, mip_gap, max_rounds, has_warm, has_root_warm, entry,
              moe_ctx=None, has_duals=False, has_margin=False, want_my=False,
-             pdhg=None, mesh=None) -> PlanSig:
+             pdhg=None, mesh=None, diag=False) -> PlanSig:
     """The signature of a sweep's plan; ``moe_ctx`` = (w_max, e_max,
     decomp_steps) of a MoE sweep; ``pdhg`` = (lp_f64, restart_tol, route, C,
     smem, buf_len) of a sweep on the PDHG engine (:func:`pdhg_plan`), whose
     rounds all take K5's own chunk; ``mesh`` the mesh part
-    (:func:`row_mesh_plan`, or ``("node", S, root_beam)``)."""
+    (:func:`row_mesh_plan`, or ``("node", S, root_beam)``); ``diag`` the
+    round log and the root LP trace (:func:`loop_route` refuses it on a
+    node mesh)."""
     sp = entry.sparsity
     extra = {}
+    if diag:
+        extra.update(diag=True, trace_rows=_search.root_trace_rows(
+            "ipm" if pdhg is None else "pdhg", int(ipm_iters), bool(root_warm_chunk)))
     B0 = min(cap, n_k)
     if mesh is not None and mesh[0] == "row":
         _, S, ms, Gs, blk_nnz, blk_index = mesh
@@ -473,6 +497,13 @@ class LoopPlan:
         # The LP's inputs (rows of the larger round) and K1's outputs (the
         # root round's kept to the answer) and workspaces.
         R = L * max(B0, Bw)
+        # The diagnostics log (a row a round, the control's) and the root
+        # round's LP trace, in the LP's iterate dtype as its engine writes it.
+        self.log = self.trace = None
+        if sig.diag:
+            self.log = torch.zeros((L, sig.max_rounds, RL_COLS), dtype=f64, device=dev)
+            self.trace = torch.zeros((L * B0, sig.trace_rows, TRACE_COLS), dtype=self.lp_dtype,
+                                     device=dev)
         self.lp_in = dict(
             b=torch.empty((R, m), dtype=f32, device=dev), c=torch.empty((R, nf), dtype=f32, device=dev),
             l=torch.empty((R, nf), dtype=f32, device=dev), u=torch.empty((R, nf), dtype=f32, device=dev),
@@ -510,7 +541,9 @@ class LoopPlan:
                     kernels.check(library("round").dtk_round_prepare(M), "round prepare")
         self.alay = packed.AnswerLayout(
             M, n_k, m, nf, sig.moe, sig.per_k,
-            (n_k, M, sig.e_max + 1) if sig.want_my else ())
+            (n_k, M, sig.e_max + 1) if sig.want_my else (),
+            sig.max_rounds if sig.diag else 0,
+            (n_k, sig.trace_rows, TRACE_COLS) if sig.diag else ())
         self.answer = torch.empty((L, self.alay.width), dtype=f64, device=dev)
         self.graph = ctypes.c_void_p(None)
         self.handle = ctypes.c_ulonglong(0)
@@ -544,10 +577,12 @@ class LoopPlan:
             n = L * B
             lp = self.lp_in64 if sig.lp_f64 else self.lp_in
             vals = self.val_rows[i] if self.per_node else self.vals.as_strided((n, nnz), (0, 1))
+            out = (self.res64 if sig.lp_f64 else self.res)[i]
+            if self._traced(i):
+                out = out._replace(trace_buf=self.trace)
             self.k5_rows.append(dict(
                 vals=vals, **{k: lp[k][:n] for k in ("b", "c", "l", "u", "wv", "wy")},
-                wok=self.lp_in["wok"][:n], skip=self.lp_in["skip"][:n],
-                out=(self.res64 if sig.lp_f64 else self.res)[i]))
+                wok=self.lp_in["wok"][:n], skip=self.lp_in["skip"][:n], out=out))
         if dev.type != "cuda":
             return
         if sig.route == "cluster":
@@ -955,11 +990,18 @@ class LoopPlan:
         keep = self.res[which]
         for f in _RES_FIELDS:
             getattr(keep, f).copy_(getattr(res, f))
+        if self._traced(which):
+            self.trace.copy_(res.trace_buf)
         if sig.moe and rounded is None:
             rounded = round_rows(data, keep, ins.kidx, ins.lane)
         out, go = round_tail(data, state, keep, sig.mip_gap, B, rounded, self.frozen, sig.per_k)
         _copy_state(self.states[dst], out)
         self.gos[dst].copy_(go)
+
+    def _traced(self, which: int) -> bool:
+        """Whether round ``which``'s LP runs with its trace on: the root
+        round's (``which`` 0) of a diagnostics plan."""
+        return which == 0 and self.sig.diag
 
     def _lp_plain(self, data: SweepData, ins, which: int, rows: slice) -> IPMResult:
         """K1's or K5's plain version on ``ins`` (the round's ``rows``)."""
@@ -972,7 +1014,7 @@ class LoopPlan:
         return ipm_solve_batch(
             LPBatch(A=A if A.dim() == 2 else A[rows], b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
             iters=iters, warm=ins.warm, skip=ins.skip, chunk=chunk,
-            sparsity=data.A_sparsity, _checked=True,
+            sparsity=data.A_sparsity, trace=self._traced(which), _checked=True,
         )
 
     def k5_reference(self, data: SweepData, ins, which: int, rows: slice = slice(None)
@@ -986,7 +1028,8 @@ class LoopPlan:
         res = _search.pdhg_solve_batch(
             LPBatch(A=ElemA(vals, data.A_sparsity), b=ins.b, c=ins.c, l=ins.lo, u=ins.hi),
             iters=(sig.ipm_iters, sig.warm_iters)[which], restart_tol=sig.restart_tol,
-            warm=ins.warm, skip=ins.skip, dtype="f64" if sig.lp_f64 else "f32")
+            warm=ins.warm, skip=ins.skip, dtype="f64" if sig.lp_f64 else "f32",
+            trace=self._traced(which))
         return cast_lp_result(res, DTYPE)
 
     def node_reference(self, data: SweepData, state: SearchState, ins, which: int):
@@ -1061,7 +1104,7 @@ class LoopPlan:
             A_b, [self.b_blk[s, :R] for s in range(S)], hd["c"], hd["l"], hd["u"],
             (sig.ipm_iters, sig.warm_iters)[which], _default_tol_pdhg(self.lp_dtype),
             sig.restart_tol, wv=hd["wv"], wy=[self.wy_blk[s, :R] for s in range(S)],
-            wok=hd["wok"], skip=hd["skip"], chunk=PDHG_DEFAULT_CHUNK)
+            wok=hd["wok"], skip=hd["skip"], chunk=PDHG_DEFAULT_CHUNK, trace=self._traced(which))
         for s in range(S):
             self.y_blk[s, :R] = res.y_dual[:, s * ms:(s + 1) * ms]
         y = _meshlp.gather_rows_reference([self.y_blk[s, :R] for s in range(S)], sig.m)
@@ -1264,14 +1307,24 @@ class LoopPlan:
         return ctypes.addressof(arr)
 
     def _control(self, lib, sh, init: bool = False, go: int = 0, h=None) -> None:
+        """The loop's control: ``init`` on the seeded state, else after the
+        round that wrote state ``go`` (the round log's row of it from the
+        two states, in a diagnostics plan)."""
         sig = self.sig
         st = self.states[0]
         src = [st.active, st.node_bound, st.node_kidx, st.incumbent, st.dropped_bound,
                st.per_k_best, st.per_k_dropped] if init else [None] * 7
+        log = [None] * 9
+        if sig.diag:
+            b, a = self.states[1 - go], self.states[go]
+            log = [self.log, *([None] * 7 if init else [
+                b.active, b.stat_ipm_iters, a.active, a.node_bound, a.incumbent,
+                a.dropped_bound, a.stat_ipm_iters]), self.trace]
         ptrs = self._keep_ptrs([0 if init else _p(self.gos[go]), *map(_p, src),
-                                _p(self.frozen), _p(self.ran), _p(self.ctl)])
+                                _p(self.frozen), _p(self.ran), _p(self.ctl), *map(_p, log)])
+        words = self.trace.numel() * self.trace.element_size() // 4 if sig.diag else 0
         dims = self._keep_ptrs_int([sig.L, sig.cap, sig.n_k, int(sig.per_k), sig.max_rounds,
-                                    int(init)])
+                                    int(init), sig.B0, sig.Bw, words])
         err = lib.dtk_bnb_control(ptrs, dims, sig.mip_gap, 0 if h is None else h.value, sh)
         kernels.check(err, "bnb_control")
 
@@ -1337,6 +1390,10 @@ class LoopPlan:
         out0 = (self.res64 if f64 else self.res)[which]
         chunk, n_chunks = chunking((sig.ipm_iters, sig.warm_iters)[which], PDHG_DEFAULT_CHUNK)
         itemsize = self.b_blk.element_size()
+        # The root round's trace: shard 0 writes it (every shard takes the
+        # same decisions); the launch holds one trace-row count for all.
+        trace = self.trace if self._traced(which) else None
+        trace_rows = n_chunks if trace is not None else 0
 
         def at(t, r):
             return None if t is None else t[r:].data_ptr()
@@ -1363,8 +1420,8 @@ class LoopPlan:
                     at(o.v, r), at(o.bound, r), at(o.obj, r), at(o.rp_norm, r),
                     at(o.rd_norm, r), at(o.mu, r), at(o.converged, r), at(o.reduced, r),
                     at(self.y_blk[s], e0), at(o.z_dual, r), at(o.f_dual, r),
-                    at(o.iters_run, r), None])
-                ints.append([Bs, sig.ms, nf, chunk, n_chunks, 0, sig.Gs, 0, nnz])
+                    at(o.iters_run, r), at(trace, e0) if s == 0 else None])
+                ints.append([Bs, sig.ms, nf, chunk, n_chunks, trace_rows, sig.Gs, 0, nnz])
             _meshlp.k6b_launch(self.elem, f64, ptrs, ints, [k["ws"].numel() for k in self.k6b],
                                _default_tol_pdhg(self.lp_dtype), sig.restart_tol, True, sh)
 
@@ -1442,7 +1499,8 @@ class LoopPlan:
             float(_default_tol(DTYPE)), float(_default_reg(DTYPE)), O(self.ws), O(self.vec_ws),
             P(res.v), P(res.bound), P(res.obj), P(res.rp_norm), P(res.rd_norm), P(res.mu),
             P(res.converged), P(res.reduced), P(res.y_dual), P(res.z_dual), P(res.f_dual),
-            P(res.iters_run), O(None), n_chunks, IPM_THREADS, sh,
+            P(res.iters_run), O(self.trace[rows] if self._traced(which) else None), n_chunks,
+            IPM_THREADS, sh,
         )
         kernels.check(err, "ipm")
 
@@ -1504,12 +1562,14 @@ class LoopPlan:
         ptrs = self._keep_ptrs([*self._state_ptrs(1), _p(self.ran), _p(r0.v), _p(r0.y_dual),
                                 _p(r0.z_dual), _p(r0.f_dual), *map(_p, rw), _p(self.answer),
                                 _p(self.duals_out if sig.moe else None),
-                                _p(self.m_y if sig.want_my else None)])
+                                _p(self.m_y if sig.want_my else None), _p(self.log),
+                                _p(self.trace)])
         dims = self._keep_ptrs_int([sig.L, sig.cap, sig.nf, sig.m, sig.M, sig.n_k,
                                     int(sig.per_k), sig.B0, self.alay.width,
                                     int(sig.has_root_warm),
                                     3 * sig.n_k + sig.n_k * sig.M if sig.moe else 0,
-                                    self.alay.my_size])
+                                    self.alay.my_size, self.alay.conv_rows, sig.trace_rows,
+                                    int(sig.lp_f64)])
         kernels.check(lib.dtk_bnb_answer(ptrs, dims, sh), "bnb_answer")
 
 
@@ -1540,11 +1600,17 @@ def control_reference(plan: LoopPlan, init: bool = False, state: Optional[Search
     """Plain version of the loop's control (``bnb_control_kernel``) on the
     plan's ``frozen``, ``ran`` and counters: ``init`` tests each lane of the
     seeded ``state`` as ``run_bnb_loop`` does (a node active and no
-    certificate, its go test); after a round, the tail's ``go`` flags and
-    the round count against ``max_rounds`` decide the next round. Returns
-    whether the loop goes on."""
+    certificate, its go test); after a round, the tail's ``go`` flags (one
+    of the plan's ``gos``: the state the round wrote) and the round count
+    against ``max_rounds`` decide the next round. A diagnostics plan's
+    control zeroes the log and the trace at init and writes the row of each
+    round that ran (``search.round_row`` on the two states). Returns whether
+    the loop goes on."""
     sig = plan.sig
     if init:
+        if sig.diag:
+            plan.log.zero_()
+            plan.trace.zero_()
         settled = certified_per_k if sig.per_k else certified
         g = state.active.any(-1) & ~settled(state, sig.mip_gap)
         if sig.max_rounds < 1:
@@ -1556,7 +1622,12 @@ def control_reference(plan: LoopPlan, init: bool = False, state: Optional[Search
         plan.ctl[1] = 0 if run else 1
         return run
     stopped = bool(plan.ctl[1])
-    nxt = int(plan.ctl[0]) + 1
+    r = int(plan.ctl[0])
+    if sig.diag and not stopped and r < sig.max_rounds:
+        dst = 0 if go is plan.gos[0] else 1
+        plan.log[:, r] = round_row(plan.states[1 - dst], plan.states[dst],
+                                   sig.B0 if r == 0 else sig.Bw, ~plan.frozen)
+    nxt = r + 1
     run = (not stopped) and bool(go.any()) and nxt < sig.max_rounds
     if not stopped:
         plan.ctl[0] = nxt
@@ -1595,8 +1666,10 @@ def answer_reference(plan: LoopPlan, state: SearchState, moe=None) -> torch.Tens
     """Plain version of ``bnb_answer_kernel``: the root iterates are the
     root round's LP result in the lanes that ran it, else the carried-in
     ones (the seeded state's, as ``run_bnb_loop`` keeps them); ``moe`` =
-    (duals, raw bounds, m_y) of a MoE seed (m_y at the end where the plan
-    asks for it)."""
+    (duals, raw bounds, m_y) of a MoE seed (m_y after the root iterates
+    where the plan asks for it); a diagnostics plan's log and the first n_k
+    roots' trace (float32; zeros in a lane that skipped the root round) at
+    the end."""
     sig, v = plan.sig, plan.views
     L, n_k, dev = sig.L, sig.n_k, plan.dev
     r0 = plan.res[0]
@@ -1613,11 +1686,15 @@ def answer_reference(plan: LoopPlan, state: SearchState, moe=None) -> torch.Tens
     m1 = plan.ran[:, None]
     root = tuple(torch.where(m1 if a.dim() == 2 else m1[..., None], a[:, :n_k], b[:, :n_k])
                  for a, b in zip(ran, carried))
+    diag = []
+    if sig.diag:
+        tr = plan.trace.reshape(L, sig.B0, sig.trace_rows, TRACE_COLS)[:, :n_k].to(DTYPE)
+        diag = [plan.log, torch.where(m1[..., None, None], tr, torch.zeros_like(tr))]
     if moe is None:
-        return answer_rows(state, root, n_k, sig.per_k)
+        return answer_rows(state, root, n_k, sig.per_k, extra=diag)
     duals, raw, m_y = moe
     return answer_rows(state, root, n_k, sig.per_k, duals, raw,
-                       [m_y] if sig.want_my else ())
+                       ([m_y] if sig.want_my else []) + diag)
 
 
 def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
@@ -1628,7 +1705,9 @@ def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
     (MoE, node mesh) K2's LP rows (a node mesh: a launch a shard), a round
     tail and a control each round (the root, then two a pass of the WHILE
     body; the rounds run are the most any lane ran), one more control at
-    the start."""
+    the start. A diagnostics plan's root LP counts as the traced launch
+    (``ipm_trace``, ``pdhg_trace``; K6b under its own names, traced or
+    not)."""
     R = int(np.max(ans[:, 4])) if ans.size else 0
     rounds = 1 + 2 * math.ceil(max(R - 1, 0) / 2)
     kernels.LAUNCHES["bnb_graph"] += 1
@@ -1651,6 +1730,7 @@ def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
     shards = sig.S if sig.mesh == "node" else 1
     for r in range(rounds):
         B = sig.B0 if r == 0 else sig.Bw
+        traced = r == 0 and sig.diag
         kernels.count_launch("bnb_head")
         R = sig.L * B
         if sig.mesh == "row":
@@ -1668,11 +1748,12 @@ def count_graph_launches(sig: PlanSig, ans: np.ndarray) -> None:
             per = R // shards
             shape = k5_shape(per, sig.m, sig.nf, not per_node, sig.nnz, sig.route, sig.C)
             for _ in range(shards * (1 if sig.route == "cluster" else -(-per // _pdhg.BMAX))):
-                kernels.count_launch(k5_name(not per_node), shape)
+                kernels.count_launch(k5_name(not per_node, traced), shape)
         else:
             for _ in range(shards):
-                kernels.count_launch("ipm", f"B={R // shards} m={sig.m} n={sig.nf}"
-                                            f"{' per-node A' if per_node else ''}")
+                kernels.count_launch("ipm_trace" if traced else "ipm",
+                                     f"B={R // shards} m={sig.m} n={sig.nf}"
+                                     f"{' per-node A' if per_node else ''}")
         if sig.engine == "pdhg" and sig.lp_f64:
             kernels.count_launch("bnb_cast")
         for _ in range(shards if (sig.moe or sig.mesh == "node") else 0):

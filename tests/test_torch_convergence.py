@@ -17,7 +17,8 @@ JAX package where it has a counterpart:
   hold the fields they come from);
 - ``halda_solve(convergence=...)`` fills the JAX package's keys, and on
   ``llama_3_70b/online`` its round log's expanded and live columns equal
-  the JAX package's (gap 1e-3, both engines);
+  the JAX package's (gap 1e-3, both engines), the search taking the loop's
+  plan (its route ``+log``);
 - the report layer is the JAX package's: the same JSONL from the same
   dict, and an export loads in either package.
 """
@@ -180,12 +181,17 @@ def jax_online():
 
 @pytest.mark.parametrize("engine", ["ipm", "pdhg"])
 def test_round_log_matches_jax_on_the_online_fixture(jax_online, engine):
+    from distilp_torch import kernels
     from distilp_torch.common import load_from_profile_folder
     from distilp_torch.solver import halda_solve
 
     conv, tm = {}, {}
+    routes = dict(kernels.SHAPES["bnb_graph"])
     halda_solve(*load_from_profile_folder(ONLINE), mip_gap=GAP, kv_bits="4bit",
                 device="cpu", lp_backend=engine, convergence=conv, timings=tm)
+    # The logged search runs on the loop's plan (R3d), not the host loop.
+    key = f"route=graph dense_{engine}+log L=1"
+    assert kernels.SHAPES["bnb_graph"].get(key, 0) == routes.get(key, 0) + 1
     ref = jax_online[engine]
     assert set(conv) == set(ref) == CONV_KEYS
     assert conv["lp_backend"] == engine and conv["ks"] == ref["ks"]

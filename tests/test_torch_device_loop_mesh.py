@@ -318,8 +318,13 @@ def test_routes_of_meshes():
         ("host", "row_mesh_cards")
     assert DL.loop_route(False, "ipm", None, False, Mesh(cards, False), "cuda:0") == \
         ("host", "node_mesh_cards")
-    # The round log keeps the host loop on a mesh too (R3d).
-    assert DL.loop_route(False, "pdhg", cpu, True, None, CPU) == ("host", "convergence")
+    # The round log takes its mesh's graph route, marked (R3d).
+    assert DL.loop_route(False, "pdhg", cpu, True, None, CPU) == ("graph",
+                                                                  "row_mesh_pdhg+log")
+    # A node mesh takes no round log, on one card or over several.
+    for mesh in (cpu, Mesh(cards, False)):
+        with pytest.raises(ValueError, match="no round log"):
+            DL.loop_route(False, "ipm", None, True, mesh, CPU)
 
 
 def test_a_mesh_over_distinct_devices_keeps_the_host_loop(online, monkeypatch):

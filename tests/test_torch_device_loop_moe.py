@@ -18,8 +18,8 @@ on the CPU, through the plain versions the card's graph runs, on Mixtral
 - the head's per-node values and dense A equal ``search.node_A`` (gathered
   on the structure for the values) bit for bit;
 - ``loop_route`` sends MoE and dense sweeps on the IPM and the PDHG engine
-  to the graph and the row mesh, the node mesh and the convergence log to
-  the host loop.
+  to the graph, with the convergence log too (its route marked ``+log``),
+  and a row mesh over distinct cards to the host loop.
 
 One process: ~45 s on an 8-core CPU (most of it the JAX package's solve
 and its short ascent).
@@ -256,11 +256,11 @@ def test_loop_route():
         ("graph", "row_mesh_pdhg")
     assert DL.loop_route(True, "pdhg", cards, False, None, "cuda:0") == \
         ("host", "row_mesh_cards")
-    assert DL.loop_route(True, "pdhg", None, True) == ("host", "convergence")
-    assert DL.loop_route(False, "pdhg", None, True) == ("host", "convergence")
+    assert DL.loop_route(True, "pdhg", None, True) == ("graph", "moe_pdhg+log")
+    assert DL.loop_route(False, "pdhg", None, True) == ("graph", "dense_pdhg+log")
     # The IPM engine takes no row mesh (it partitions the PDHG's rows).
     assert DL.loop_route(True, "ipm", one_card, False, None, CPU) == ("graph", "moe_ipm")
-    assert DL.loop_route(True, "ipm", None, True) == ("host", "convergence")
+    assert DL.loop_route(True, "ipm", None, True) == ("graph", "moe_ipm+log")
 
 
 def test_node_mesh_and_forced_host_loop_keep_the_host(model):

@@ -283,7 +283,7 @@ def test_loop_routes():
         ("graph", "row_mesh_pdhg")
     assert DL.loop_route(False, "pdhg", cards, False, None, "cuda:0") == \
         ("host", "row_mesh_cards")
-    assert DL.loop_route(False, "pdhg", None, True) == ("host", "convergence")
+    assert DL.loop_route(False, "pdhg", None, True) == ("graph", "dense_pdhg+log")
 
 
 # ------------------------------------------------------- against the JAX package
